@@ -1,0 +1,149 @@
+"""The port's VolumetricRenderer (device="cpu": the plain-torch twins of
+kernels K1-K4) against the JAX renderer's render_frame under jax.jit, over
+three frames with the camera moving between them: the production knobs of
+FULL_CONFIG at a 16x15x16 grid and 128x120 pixels (8x8 pixel cells),
+raycast_shadow_subsample=4, on benchmark_scene(4 local lights, procedural
+noise). Both sides take the same G-buffer, computed once per camera by the
+JAX renderer, as the bench computes it once up front: the port's G-buffer is
+held to JAX's in test_torch_foundations.test_gbuffer_matches_jax, whose
+grazing sphere and ground hits amplify last-ulp differences past this
+file's tolerance.
+
+Tolerance, for the images and both state tensors: rtol 1e-5 / atol 1e-6
+per element, except for at most 5e-3 of the elements, which may also sit
+beyond 1e-3 relative (the any-hit boundary class: shadow rays within ulps of
+a primitive edge may flip); and a mean absolute image error of at most 1e-5
+of the image maximum."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from volumetricrenderer_tpu import FULL_CONFIG as J_FULL
+from volumetricrenderer_tpu import VolumetricRenderer as JRenderer
+from volumetricrenderer_tpu.models.camera import Camera as JCamera
+from volumetricrenderer_tpu.models.scene import benchmark_scene as j_bench
+from volumetricrenderer_tpu.state import packed_accumulation
+
+import volumetricrenderer_tpu_torch as vt
+from volumetricrenderer_tpu_torch.convert import scene_from_numpy
+from volumetricrenderer_tpu_torch.state import \
+    packed_accumulation as t_packed
+
+from torch_tolerance import assert_boundary_close
+
+SMALL = dict(volume_width=16, volume_height=15, volume_depth=16,
+             image_width=128, image_height=120)
+CAMERAS = [((-0.4, 1.9, -15.8), (0.0, 0.0, 1.0)),
+           ((-0.1, 2.0, -15.2), (0.04, -0.01, 1.0)),
+           ((0.3, 2.1, -14.7), (0.08, -0.03, 1.0))]
+
+
+@pytest.fixture(scope="module")
+def frames():
+    base = j_bench(aspect=128 / 120, num_local_lights=4,
+                   noise_mode="procedural")
+    scenes = [dataclasses.replace(base, camera=JCamera.create(
+        position=p, forward=f, aspect=128 / 120)) for p, f in CAMERAS]
+    jr = JRenderer(dataclasses.replace(J_FULL, **SMALL))
+    gbuffers = [tuple(np.array(a) for a in
+                      jax.jit(jr.render_scene_inputs)(sc)) for sc in scenes]
+    step = jax.jit(lambda s, sc, t, c, d: jr.render_frame(
+        s, sc, t, scene_color=c, view_depth=d)[::2])
+    st = jr.init_state(1)
+    j_imgs = []
+    for i, (sc, (c, d)) in enumerate(zip(scenes, gbuffers)):
+        img, st = step(st, sc, jnp.float32(0.1 * i), c, d)
+        j_imgs.append(np.asarray(img))
+    j_state = (np.asarray(packed_accumulation(st.prev_accumulation,
+                                              jr.config.grid_dhw)),
+               np.asarray(st.prev_shadow))
+
+    tr = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
+                               device="cpu")
+    ts = tr.init_state(1)
+    t_imgs = []
+    for i, (sc, (c, d)) in enumerate(zip(scenes, gbuffers)):
+        img, _, ts = tr.render_frame(ts, scene_from_numpy(sc, "cpu"),
+                                     np.float32(0.1 * i), torch.as_tensor(c),
+                                     torch.as_tensor(d))
+        t_imgs.append(img.numpy())
+    t_state = (t_packed(ts.prev_accumulation).numpy(),
+               ts.prev_shadow.numpy())
+    return j_imgs, j_state, t_imgs, t_state, ts
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_image_matches_jax(frames, i):
+    j_imgs, _, t_imgs, _, _ = frames
+    a, b = t_imgs[i], j_imgs[i]
+    assert a.shape == b.shape == (120, 128, 4)
+    assert_boundary_close(a, b, f"image {i}")
+    assert np.abs(a - b).mean() <= 1e-5 * np.abs(b).max()
+
+
+def test_state_matches_jax(frames):
+    _, (j_acc, j_sh), _, (t_acc, t_sh), ts = frames
+    assert_boundary_close(t_acc, j_acc, "accumulation history")
+    assert_boundary_close(t_sh, j_sh, "shadow history")
+    assert ts.frame_count == 3
+
+
+def test_render_frame_computes_the_gbuffer_when_not_given():
+    """Without a G-buffer, render_frame takes render_scene_inputs' one:
+    the same image bit for bit."""
+    r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
+                              device="cpu")
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    img, aux, _ = r.render_frame(r.init_state(1), scene, 0.0)
+    color, depth = r.render_scene_inputs(scene)
+    torch.testing.assert_close(aux["scene_color"], color, rtol=0, atol=0)
+    torch.testing.assert_close(aux["view_depth"], depth, rtol=0, atol=0)
+    img2, _, _ = r.render_frame(r.init_state(1), scene, 0.0, color, depth)
+    torch.testing.assert_close(img, img2, rtol=0, atol=0)
+
+
+def test_renderer_packs_from_one_host_copy_of_the_scene():
+    """frame_tables packs from a CPU copy of the scene made once per scene,
+    and leaves the view matrix for the next frame on the CPU."""
+    r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
+                              device="cpu")
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    host = r.host_scene(scene)
+    assert r.host_scene(scene) is host
+    assert host.camera.position.device.type == "cpu"
+    other = vt.benchmark_scene(aspect=128 / 120, num_local_lights=2,
+                               noise_mode="procedural", device="cpu")
+    assert r.host_scene(other) is not host
+    _, _, w2v = r.frame_tables(r.init_state(1), scene, 0.0)
+    assert w2v.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [dict(scatter_bake="vis"),
+                                dict(raycast_shadow_subsample=1),
+                                dict(composite_impl="tentmm"),
+                                dict(composite_upsample=2),
+                                dict(shadow_mode="map"),
+                                dict(frame_fused=False)])
+def test_unported_configs_raise(kw):
+    r = vt.VolumetricRenderer(
+        dataclasses.replace(vt.FULL_CONFIG, **SMALL, **kw), device="cpu")
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    with pytest.raises(NotImplementedError):
+        r.render_frame(r.init_state(1), scene, 0.0)
+
+
+def test_texture_noise_scene_raises():
+    r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
+                              device="cpu")
+    js = j_bench(aspect=128 / 120, num_local_lights=4,
+                 noise_tex=np.ones((4, 4, 4), np.float32))
+    with pytest.raises(NotImplementedError):
+        r.render_frame(r.init_state(1), scene_from_numpy(js, "cpu"), 0.0)

@@ -1,0 +1,24 @@
+"""volumetricrenderer_tpu_torch: the froxel volumetric renderer on PyTorch
+and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+
+A port of `volumetricrenderer_tpu` (JAX on a TPU), which stays the
+reference. This package imports torch and numpy, never JAX or the JAX
+package. The ported slice is the production frame: the fused volume phase
+and the zgather composite (see ROADMAP.md for what remains).
+"""
+
+from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,
+                                                 UHD_CONFIG, RenderConfig)
+from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
+                                                 Geometry, Medium,
+                                                 PointLights, Scene,
+                                                 SpotLights, benchmark_scene)
+from volumetricrenderer_tpu_torch.renderer import VolumetricRenderer
+from volumetricrenderer_tpu_torch.state import FrameState
+
+__all__ = [
+    "RenderConfig", "DEMO_CONFIG", "FULL_CONFIG", "UHD_CONFIG",
+    "VolumetricRenderer", "FrameState", "Camera", "DirectionalLights",
+    "PointLights", "SpotLights", "Medium", "Geometry", "Scene",
+    "benchmark_scene",
+]

@@ -1,0 +1,97 @@
+"""Build the port's scene and state from the JAX package's objects.
+
+Takes any object (or dict) with the JAX field names and reads every array
+through `np.asarray`; static fields are copied as they are. Nothing here
+imports JAX: the caller hands over its objects and the arrays are converted.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
+                                                 Geometry, Medium,
+                                                 PointLights, Scene,
+                                                 SpotLights)
+from volumetricrenderer_tpu_torch.state import FrameState
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _tensors(obj, names, device):
+    out = {}
+    for n in names:
+        a = np.asarray(_get(obj, n))
+        dt = torch.bool if a.dtype == np.bool_ else torch.float32
+        out[n] = torch.as_tensor(np.array(a), dtype=dt, device=device)
+    return out
+
+
+def _statics(obj, names):
+    return {n: _get(obj, n) for n in names}
+
+
+def scene_from_numpy(obj, device) -> Scene:
+    """The port's Scene from a JAX Scene (or a dict of its fields)."""
+    cam = _get(obj, "camera")
+    camera = Camera(**_tensors(cam, ("position", "forward", "up", "fov_y",
+                                     "aspect", "near", "far"), device))
+    dl = _get(obj, "dir_lights")
+    dir_lights = DirectionalLights(**_tensors(
+        dl, ("direction", "color", "intensity", "has_shadow",
+             "shadow_strength"), device))
+    pt = _get(obj, "point_lights")
+    point_lights = PointLights(**_tensors(
+        pt, ("position", "color", "intensity", "range",
+             "intensity_multiplier", "has_shadow", "shadow_strength"),
+        device))
+    sp = _get(obj, "spot_lights")
+    spot_lights = SpotLights(**_tensors(
+        sp, ("position", "direction", "color", "intensity", "range",
+             "spot_angle", "inner_angle_percent", "intensity_multiplier",
+             "has_shadow", "shadow_strength"), device))
+    media = []
+    for m in _get(obj, "media"):
+        tex = _get(m, "noise_tex")
+        media.append(Medium(
+            **_tensors(m, ("scattering_color", "absorption", "phase_g",
+                           "noise_tiling", "noise_scroll", "box_min",
+                           "box_max", "box_softness", "height_falloff",
+                           "height_base"), device),
+            noise_tex=None if tex is None else torch.as_tensor(
+                np.array(np.asarray(tex)), dtype=torch.float32,
+                device=device),
+            **_statics(m, ("volume_type", "blend_type", "noise_mode",
+                           "noise_octaves", "noise_period", "noise_seed"))))
+    g = _get(obj, "geometry")
+    geometry = Geometry(
+        **_tensors(g, ("plane_normal", "plane_d", "plane_albedo",
+                       "sphere_center", "sphere_radius", "sphere_albedo",
+                       "box_min", "box_max", "box_albedo", "box_opacity",
+                       "hf_amp", "hf_base", "hf_tiling", "hf_offset",
+                       "hf_albedo"), device),
+        **_statics(g, ("box_fractional", "n_proxy_boxes", "hf_enabled",
+                       "hf_octaves", "hf_period", "hf_seed", "hf_steps",
+                       "hf_far")))
+    return Scene(camera=camera, dir_lights=dir_lights,
+                 point_lights=point_lights, spot_lights=spot_lights,
+                 media=tuple(media), geometry=geometry,
+                 ambient=_tensors(obj, ("ambient",), device)["ambient"],
+                 mesh=_get(obj, "mesh"))
+
+
+def state_from_numpy(prev_accumulation, prev_shadow, prev_world_to_view,
+                     frame_count: int, device) -> FrameState:
+    """FrameState from a packed [D, H, W, 4] accumulation and an
+    [Nd, D, H, W] shadow history (numpy arrays or anything np.asarray
+    takes)."""
+    f32 = lambda a: torch.as_tensor(np.array(np.asarray(a), np.float32),
+                                    device=device)
+    acc = f32(prev_accumulation)
+    return FrameState(prev_shadow=f32(prev_shadow),
+                      prev_accumulation=acc.permute(3, 0, 1, 2).contiguous(),
+                      prev_world_to_view=f32(prev_world_to_view).cpu(),
+                      frame_count=int(frame_count))

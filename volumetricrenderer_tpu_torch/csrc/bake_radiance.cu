@@ -1,0 +1,91 @@
+// K1 bake_radiance: the low-rate local-light radiance + fBm bake.
+//
+// Replaces stage 0 of the TPU megakernel
+// (volumetricrenderer_tpu/ops/pallas/frame_fused.py `_kernel`, lines
+// 179-262: the inline radiance bake with INLINE_VIS), which baked low slices
+// into a VMEM ring just ahead of the scatter that reads them. Here the whole
+// low volume [3 + n_noise, DL, HL, WL] is baked up front into device memory
+// (65,280 samples at FULL, ss=4: 1 MB), before shadow_scatter reads it.
+//
+// One thread per low sample. Per sample: the jittered world position
+// (visibility.bake_world_planes), the camera direction, phase g, then for
+// every local light that low_slice_active keeps for this low slice the
+// light factor (falloff x cone x HG) and an any-hit shadow ray, summed in
+// light order; then one fBm factor per noise-bearing medium.
+//
+// Bound on the H100: operations. The bytes are tiny (1 MB out); each
+// sample runs up to 16 lights x 7 primitive tests plus 3 Perlin octaves,
+// ~2-4k flops, so ~0.2 GFLOP in all -- a few microseconds at the fp32 rate,
+// and in practice bound by the launch and the divergent light loop (the
+// culling differs between slices, not within one, so a warp stays uniform
+// along z). The design keeps all tables in device memory read through the
+// read-only cache and loops over lights at run time (no per-scene build).
+#include "common.cuh"
+
+__global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
+  const int n = T.dl * T.hl * T.wl;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = i % T.wl;
+  const int r = (i / T.wl) % T.hl;
+  const int m = i / (T.wl * T.hl);
+  const float* p = T.spar;
+  const int ss = T.ss;
+
+  // visibility.bake_world_planes (slab y-phase 0)
+  const float off = (float)(ss - 1) * 0.5f;
+  const float fz = (float)ss * (float)m + off + 0.5f + p[19];
+  const float vz = view_z(p, fz, T.d);
+  const float xs = (float)c * (float)ss + off;
+  float ys = (float)r * (float)ss + off + 0.0f;
+  ys = clampf(ys + p[23], 0.0f, (float)T.h_glob - 1.0f);
+  float wx, wy, wz;
+  froxel_world(p, xs + 0.5f + p[17], ys + 0.5f + p[18], vz, T.w, T.h_glob,
+               wx, wy, wz);
+
+  // visibility.radiance_view_dirs
+  float vdx = wx - p[20], vdy = wy - p[21], vdz = wz - p[22];
+  const float inv = rsqrt_exact(vdx * vdx + vdy * vdy + vdz * vdz + 1e-18f);
+  vdx = vdx * inv;
+  vdy = vdy * inv;
+  vdz = vdz * inv;
+
+  const float phg = phase_g(T, wx, wy, wz);
+  const float g2 = phg * phg;
+  const float hg_num = (1.0f - g2) / (float)(4.0 * VR_PI);
+
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int li = 0; li < T.n_lights; ++li) {
+    if (!T.active[li * T.dl + m]) continue;
+    const float* q = T.lights + 16 * li;
+    float ldx, ldy, ldz, dist;
+    const float factor = light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg, g2,
+                                      hg_num, ldx, ldy, ldz, dist);
+    const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz, dist - 0.05f);
+    const float base = factor * (1.0f - (occ ? 1.0f : 0.0f) * q[14]);
+    acc_r = acc_r + base * q[3];
+    acc_g = acc_g + base * q[4];
+    acc_b = acc_b + base * q[5];
+  }
+  const long plane = (long)n;
+  out[i] = acc_r;
+  out[plane + i] = acc_g;
+  out[2 * plane + i] = acc_b;
+
+  // material.noise_factor_planes
+  int ni = 0;
+  for (int mi = 0; mi < T.n_media; ++mi) {
+    if (!T.med_static[6 * mi]) continue;
+    out[(3 + ni) * plane + i] = noise_factor(T, mi, wx, wy, wz);
+    ++ni;
+  }
+}
+
+extern "C" int vr_bake_radiance(const VrTables* T, float* out,
+                                cudaStream_t stream) {
+  const int n = T->dl * T->hl * T->wl;
+  const int block = 128;
+  bake_radiance_kernel<<<(n + block - 1) / block, block, 0, stream>>>(*T,
+                                                                      out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,416 @@
+// Device helpers shared by the volume-phase kernels (bake_radiance.cu,
+// shadow_scatter.cu, integrate_blend.cu).
+//
+// Each function is the CUDA form of a device helper that the TPU megakernel
+// (volumetricrenderer_tpu/ops/pallas/frame_fused.py) inlines, and of its
+// plain-torch twin in volumetricrenderer_tpu_torch/ops/: the arithmetic is
+// written in the same order so that, built without fast math and without
+// FMA contraction, a kernel agrees with its twin to a few ulp.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define VR_PI 3.1415926535  // the reference's truncated constant
+#define VR_MAX_DIR 4        // directional lights per scene
+#define VR_MAX_NOISE 4      // noise-bearing media per scene
+
+// Packed tables and dims of one frame (the wrapper fills it from the
+// pack_* tables; mirrored by ops/cuda.py VrTables). All pointers are device
+// pointers to contiguous arrays.
+struct VrTables {
+  const float* spar;      // [24] pack_params (jittered)
+  const float* sbpar;     // [24] pack_blend_params, shadow blend
+  const float* abpar;     // [28] pack_blend_params, acc blend + jitter
+  const float* slights;   // [Nd, 8] dir_shadow.pack_dir_lights
+  const float* dirs;      // [Nd, 8] scatter.pack_dir_lights
+  const float* lights;    // [NL, 16] scatter.pack_lights
+  const float* planes;    // [P, 4]
+  const float* spheres;   // [S, 4]
+  const float* boxes;     // [B, 8]
+  const float* med;       // [M, 20] material.pack_media
+  const int* med_static;  // [M, 6] (src, octaves, period, seed, box, add)
+  const int* active;      // [NL, DL] low_slice_active
+  const int* tent_xk;     // [W] first x tap of the tent upsample
+  const float* tent_xw;   // [2, W] its two weights
+  const int* tent_yk;     // [H]
+  const float* tent_yw;   // [2, H]
+  int n_dir, n_lights, n_planes, n_spheres, n_boxes, n_media, n_noise;
+  int jitter_dir;  // 1: the sun scatter uses the jittered position
+  int w, h, d, h_glob, k, ss, wl, hl, dl;
+};
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+__device__ __forceinline__ float rsqrt_exact(float v) {
+  return 1.0f / sqrtf(v);
+}
+
+// froxel -> view depth of continuous froxel z `fz`.
+__device__ __forceinline__ float view_z(const float* p, float fz, int d) {
+  return (expf(logf(p[14]) * fz / (float)d) - 1.0f) * p[15] + p[16];
+}
+
+// froxel (continuous fxc, fyc, view depth vz) -> world position.
+__device__ __forceinline__ void froxel_world(const float* p, float fxc,
+                                             float fyc, float vz, int w,
+                                             int h_glob, float& wx,
+                                             float& wy, float& wz) {
+  float vx = (2.0f * fxc / (float)w - 1.0f) * vz / p[12];
+  float vy = (2.0f * fyc / (float)h_glob - 1.0f) * vz / p[13];
+  wx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
+  wy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
+  wz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
+}
+
+// occlude.any_hit, solid branch: does the ray (o, unit dir) hit a primitive
+// for t in (1e-4, max_t)?
+__device__ bool any_hit(const VrTables& T, float wx, float wy, float wz,
+                        float dx, float dy, float dz, float max_t) {
+  for (int i = 0; i < T.n_planes; ++i) {
+    const float* q = T.planes + 4 * i;
+    float denom = dx * q[0] + dy * q[1] + dz * q[2];
+    if (fabsf(denom) < 1e-9f) denom = 1e-9f;
+    float t = -(wx * q[0] + wy * q[1] + wz * q[2] + q[3]) / denom;
+    if (t > 1e-4f && t < max_t) return true;
+  }
+  for (int i = 0; i < T.n_spheres; ++i) {
+    const float* q = T.spheres + 4 * i;
+    float ox = wx - q[0], oy = wy - q[1], oz = wz - q[2];
+    float bq = ox * dx + oy * dy + oz * dz;
+    float cq = ox * ox + oy * oy + oz * oz - q[3] * q[3];
+    float disc = bq * bq - cq;
+    float sq = sqrtf(fmaxf(disc, 0.0f));
+    float t = (-bq - sq > 1e-4f) ? -bq - sq : -bq + sq;
+    if (disc > 0.0f && t > 1e-4f && t < max_t) return true;
+  }
+  if (T.n_boxes) {
+    float ix = 1.0f / (fabsf(dx) < 1e-9f ? 1e-9f : dx);
+    float iy = 1.0f / (fabsf(dy) < 1e-9f ? 1e-9f : dy);
+    float iz = 1.0f / (fabsf(dz) < 1e-9f ? 1e-9f : dz);
+    for (int i = 0; i < T.n_boxes; ++i) {
+      const float* q = T.boxes + 8 * i;
+      float t0x = (q[0] - wx) * ix, t1x = (q[4] - wx) * ix;
+      float t0y = (q[1] - wy) * iy, t1y = (q[5] - wy) * iy;
+      float t0z = (q[2] - wz) * iz, t1z = (q[6] - wz) * iz;
+      float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+      float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+      float t = tmin > 1e-4f ? tmin : tmax;
+      if (tmax >= tmin && t > 1e-4f && t < max_t) return true;
+    }
+  }
+  return false;
+}
+
+// scatter.light_factor: HG x falloff x cone x range cull of light row q.
+__device__ __forceinline__ float light_factor(
+    const float* q, float wx, float wy, float wz, float vdx, float vdy,
+    float vdz, float phg, float g2, float hg_num, float& ldx, float& ldy,
+    float& ldz, float& dist) {
+  float tx = wx - q[0], ty = wy - q[1], tz = wz - q[2];
+  float d2 = tx * tx + ty * ty + tz * tz;
+  float inv_d = rsqrt_exact(d2 + 1e-18f);
+  dist = d2 * inv_d;
+  ldx = tx * inv_d;
+  ldy = ty * inv_d;
+  ldz = tz * inv_d;
+  float rng = q[6], mult = q[7], is_spot = q[8];
+  float x = d2 / (rng * rng);
+  float fall = clampf((1.0f - x) * 5.0f, 0.0f, 1.0f) / (1.0f + 25.0f * x)
+               * mult;
+  float cos_angle = ldx * q[9] + ldy * q[10] + ldz * q[11];
+  float cos_inner = 1.0f / q[13];
+  float cone_den = fminf(q[12] - cos_inner, -1e-9f);
+  float t_cone = clampf((cos_angle - cos_inner) / cone_den, 0.0f, 1.0f);
+  float cone = 1.0f - t_cone * t_cone * (3.0f - 2.0f * t_cone);
+  float keep = cos_angle >= q[12] ? 1.0f : 0.0f;
+  fall = fall * (1.0f - is_spot + is_spot * cone * keep);
+  fall = fall * (dist <= rng ? 1.0f : 0.0f);
+  float cos_t = -(vdx * ldx + vdy * ldy + vdz * ldz);
+  float b = 1.0f + g2 - 2.0f * phg * cos_t;
+  float rb = rsqrt_exact(b);
+  return hg_num * rb * rb * rb * fall;
+}
+
+// ---- material.py: uint32 lattice hash, Perlin, fBm, media ----------------
+
+__device__ __forceinline__ int hash3(int ix, int iy, int iz, int seed) {
+  uint32_t h = (uint32_t)ix * 0x8DA6B343u + (uint32_t)iy * 0xD8163841u
+               + (uint32_t)iz * 0xCB1AB31Fu
+               + (uint32_t)seed * 0x9E3779B9u;
+  h = h ^ (h >> 13);
+  h = h * 0x85EBCA6Bu;
+  h = h ^ (h >> 16);
+  return (int)(h & 15u);
+}
+
+__device__ __forceinline__ float grad_dot(int h, float dx, float dy,
+                                          float dz) {
+  float u = h < 8 ? dx : dy;
+  float v = h < 4 ? dy : ((h == 12 || h == 14) ? dx : dz);
+  return ((h & 1) == 0 ? u : -u) + ((h & 2) == 0 ? v : -v);
+}
+
+__device__ __forceinline__ float fade(float t) {
+  return t * t * t * (t * (t * 6.0f - 15.0f) + 10.0f);
+}
+
+__device__ __forceinline__ int wrap_lattice(int a, int period) {
+  if ((period & (period - 1)) == 0) return a & (period - 1);
+  int m = a % period;
+  return m < 0 ? m + period : m;
+}
+
+__device__ float perlin_single(float px, float py, float pz, int period,
+                               int seed) {
+  float p0x = floorf(px), p0y = floorf(py), p0z = floorf(pz);
+  float fx = px - p0x, fy = py - p0y, fz = pz - p0z;
+  int i0x = (int)p0x, i0y = (int)p0y, i0z = (int)p0z;
+  float ux = fade(fx), uy = fade(fy), uz = fade(fz);
+  float n[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int dx = c & 1, dy = (c >> 1) & 1, dz = (c >> 2) & 1;
+    int h = hash3(wrap_lattice(i0x + dx, period),
+                  wrap_lattice(i0y + dy, period),
+                  wrap_lattice(i0z + dz, period), seed);
+    n[c] = grad_dot(h, fx - (float)dx, fy - (float)dy, fz - (float)dz);
+  }
+  float nx00 = n[0] + ux * (n[1] - n[0]);
+  float nx10 = n[2] + ux * (n[3] - n[2]);
+  float nx01 = n[4] + ux * (n[5] - n[4]);
+  float nx11 = n[6] + ux * (n[7] - n[6]);
+  float nxy0 = nx00 + uy * (nx10 - nx00);
+  float nxy1 = nx01 + uy * (nx11 - nx01);
+  return nxy0 + uz * (nxy1 - nxy0);
+}
+
+__device__ float perlin_fbm(float ux, float uy, float uz, int octaves,
+                            int period, int seed) {
+  float total = 0.0f;
+  float amp = 1.0f;
+  double norm = 0.0;  // a Python float in the reference
+  int per = period;
+  for (int o = 0; o < octaves; ++o) {
+    float fper = (float)per;
+    total = total + amp * perlin_single(ux * fper, uy * fper, uz * fper, per,
+                                        seed + o);
+    norm += amp;
+    amp *= 0.5f;
+    per *= 2;
+  }
+  return clampf(0.5f + 0.5f * (total / (float)norm) * 1.5f, 0.0f, 1.0f);
+}
+
+__device__ __forceinline__ float smoothstep(float e0, float e1, float x) {
+  float t = clampf((x - e0) / (e1 - e0), 0.0f, 1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+
+__device__ __forceinline__ float box_mask(const float* q, float wx, float wy,
+                                          float wz) {
+  float soft = fmaxf(q[19], 1e-6f);
+  float lo = fminf(fminf(smoothstep(q[13], q[13] + soft, wx),
+                         smoothstep(q[14], q[14] + soft, wy)),
+                   smoothstep(q[15], q[15] + soft, wz));
+  float hi = fminf(fminf(smoothstep(-q[16], -(q[16] - soft), -wx),
+                         smoothstep(-q[17], -(q[17] - soft), -wy)),
+                   smoothstep(-q[18], -(q[18] - soft), -wz));
+  return lo * hi;
+}
+
+// material.phase_g_plane
+__device__ float phase_g(const VrTables& T, float wx, float wy, float wz) {
+  float g = 0.0f;
+  for (int mi = 0; mi < T.n_media; ++mi) {
+    const float* q = T.med + 20 * mi;
+    const int* st = T.med_static + 6 * mi;
+    float mask = st[4] ? box_mask(q, wx, wy, wz) : 1.0f;
+    if (st[5]) g = g + q[4] * mask;
+    else g = g * (1.0f - mask) + q[4] * mask;
+  }
+  return g;
+}
+
+// material.noise_factor_planes: fBm factor of noise-bearing medium `mi`.
+__device__ __forceinline__ float noise_factor(const VrTables& T, int mi,
+                                              float wx, float wy, float wz) {
+  const float* q = T.med + 20 * mi;
+  const int* st = T.med_static + 6 * mi;
+  return perlin_fbm(wx * q[5] + q[8], wy * q[6] + q[9], wz * q[7] + q[10],
+                    st[1], st[2], st[3]);
+}
+
+// material.material_planes with the fBm factors given (noise[i] for the
+// i-th noise-bearing medium), or evaluated here when noise is null.
+__device__ void material(const VrTables& T, float wx, float wy, float wz,
+                         const float* noise, float& sr, float& sg, float& sb,
+                         float& sa, float& g) {
+  sr = sg = sb = sa = g = 0.0f;
+  int ni = 0;
+  for (int mi = 0; mi < T.n_media; ++mi) {
+    const float* q = T.med + 20 * mi;
+    const int* st = T.med_static + 6 * mi;
+    float factor = 1.0f;
+    if (st[0])
+      factor = factor * (noise ? noise[ni++] : noise_factor(T, mi, wx, wy, wz));
+    factor = factor * expf(-fmaxf(q[11], 0.0f) * fmaxf(wy - q[12], 0.0f));
+    float mask = st[4] ? box_mask(q, wx, wy, wz) : 1.0f;
+    float a_r = q[0] * factor, a_g = q[1] * factor, a_b = q[2] * factor;
+    float a_a = q[3] * factor;
+    if (st[5]) {
+      sr = sr + a_r * mask;
+      sg = sg + a_g * mask;
+      sb = sb + a_b * mask;
+      sa = sa + a_a * mask;
+      g = g + q[4] * mask;
+    } else {
+      float inv = 1.0f - mask;
+      sr = sr * inv + a_r * mask;
+      sg = sg * inv + a_g * mask;
+      sb = sb * inv + a_b * mask;
+      sa = sa * inv + a_a * mask;
+      g = g * inv + q[4] * mask;
+    }
+  }
+}
+
+// ---- temporal.py: reprojection offsets and the separable tent warp ------
+
+// temporal._reproj_offsets at froxel (z, y, x), unjittered centre; vz is
+// the view depth of slice z's centre (view_z(p, z + 0.5, d)). Offsets are
+// clipped to +-k after the clamps to the volume.
+struct Reproj {
+  float ox, oy, oz, success;
+};
+
+__device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
+                                 int w, int h, int d, int h_glob, int k,
+                                 bool with_jitter) {
+  float fpx = p[12], fpy = p[13], fpz = p[14], fpw = p[15], near_ = p[16];
+  float eps = p[21], y0 = p[22];
+  float ys = clampf((float)y + y0, 0.0f, (float)h_glob - 1.0f);
+  float vx = (2.0f * ((float)x + 0.5f) / (float)w - 1.0f) * vz / fpx;
+  float vy = (2.0f * (ys + 0.5f) / (float)h_glob - 1.0f) * vz / fpy;
+  float pvx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
+  float pvy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
+  float pvz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
+  float pfz = (float)d * logf(fmaxf((pvz - near_) / fpw + 1.0f, 1e-8f))
+              / logf(fpz);
+  float pfx = (float)w * (fpx * pvx / pvz + 1.0f) / 2.0f;
+  float pfy = (float)h_glob * (fpy * pvy / pvz + 1.0f) / 2.0f;
+  if (with_jitter) {
+    pfx = pfx + p[17];
+    pfy = pfy + p[18];
+    pfz = pfz + p[19];
+  }
+  float tx = pfx + eps * (float)w - 0.5f;
+  float ty = pfy + eps * (float)h_glob - 0.5f - y0;
+  float tz = pfz + eps * (float)d - 0.5f;
+  float ux = pfx / (float)w + eps;
+  float uy = pfy / (float)h_glob + eps;
+  Reproj r;
+  r.success = (ux >= 0.0f && ux <= 1.0f && uy >= 0.0f && uy <= 1.0f)
+                  ? 1.0f : 0.0f;
+  tz = clampf(tz, 0.0f, (float)d - 1.0f);
+  ty = clampf(ty, 0.0f, (float)h - 1.0f);
+  tx = clampf(tx, 0.0f, (float)w - 1.0f);
+  float kf = (float)k;
+  r.oz = clampf(tz - (float)z, -kf, kf);
+  r.oy = clampf(ty - (float)y, -kf, kf);
+  r.ox = clampf(tx - (float)x, -kf, kf);
+  return r;
+}
+
+__device__ __forceinline__ float tent_w(float off, int dd) {
+  return fmaxf(0.0f, 1.0f - fabsf(off - (float)dd));
+}
+
+// The separable windowed warp of NC history channels at output (z, y, x):
+//   sum_dx wx(offx[z,y,x]) sum_dy wy(offy[z,y,cx]) sum_dz wz(offz[z,cy,cx])
+//       prev[c][cz, cy, cx]
+// over the two taps per axis whose tent weight can be non-zero, in the
+// order the three passes add them. prev: NC planes of [D, H, W] at stride
+// `cstride` floats.
+template <int NC>
+__device__ void warp8(const float* p, const float* prev, long cstride, int z,
+                      int y, int x, float vz, int w, int h, int d,
+                      int h_glob, int k, bool with_jitter, const Reproj& r0,
+                      float* out) {
+  float accx[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) accx[c] = 0.0f;
+  int x0 = (int)floorf(r0.ox);
+  for (int a = 0; a < 2; ++a) {
+    float wxa = tent_w(r0.ox, x0 + a);
+    int cx = clampi(x + x0 + a, 0, w - 1);
+    float oy = reproj_offsets(p, z, y, cx, vz, w, h, d, h_glob, k,
+                              with_jitter).oy;
+    int y0 = (int)floorf(oy);
+    float accy[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) accy[c] = 0.0f;
+    for (int b = 0; b < 2; ++b) {
+      float wyb = tent_w(oy, y0 + b);
+      int cy = clampi(y + y0 + b, 0, h - 1);
+      float oz = reproj_offsets(p, z, cy, cx, vz, w, h, d, h_glob, k,
+                                with_jitter).oz;
+      int z0 = (int)floorf(oz);
+      float accz[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) accz[c] = 0.0f;
+      for (int e = 0; e < 2; ++e) {
+        float wze = tent_w(oz, z0 + e);
+        int cz = clampi(z + z0 + e, 0, d - 1);
+        long idx = ((long)cz * h + cy) * w + cx;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          accz[c] = accz[c] + __ldg(prev + c * cstride + idx) * wze;
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) accy[c] = accy[c] + accz[c] * wyb;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) accx[c] = accx[c] + accy[c] * wxa;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) out[c] = accx[c];
+}
+
+// ---- visibility.py: the low-rate upsample ----------------------------------
+
+// z-lerp + separable clamp-to-edge tent of low channel `vol` [DL, HL, WL]
+// at full froxel (z, y, x).
+__device__ float upsample_low(const VrTables& T, const float* vol, int z,
+                              int y, int x) {
+  float vu = ((float)z - (float)(T.ss - 1) * 0.5f) / (float)T.ss;
+  float vkf = clampf(floorf(vu), 0.0f, (float)T.dl - 1.0f);
+  float vt = clampf(vu - vkf, 0.0f, 1.0f);
+  int ka = (int)vkf;
+  int kb = min(ka + 1, T.dl - 1);
+  int kx0 = T.tent_xk[x], kx1 = min(kx0 + 1, T.wl - 1);
+  float wx0 = T.tent_xw[x], wx1 = T.tent_xw[T.w + x];
+  int ky0 = T.tent_yk[y], ky1 = min(ky0 + 1, T.hl - 1);
+  float wy0 = T.tent_yw[y], wy1 = T.tent_yw[T.h + y];
+  long sa = (long)ka * T.hl * T.wl, sb = (long)kb * T.hl * T.wl;
+  float rows[2];
+  int kys[2] = {ky0, ky1};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    long o = (long)kys[r] * T.wl;
+    float va0 = __ldg(vol + sa + o + kx0), vb0 = __ldg(vol + sb + o + kx0);
+    float va1 = __ldg(vol + sa + o + kx1), vb1 = __ldg(vol + sb + o + kx1);
+    float l0 = va0 + vt * (vb0 - va0);
+    float l1 = va1 + vt * (vb1 - va1);
+    rows[r] = l0 * wx0 + l1 * wx1;
+  }
+  return rows[0] * wy0 + rows[1] * wy1;
+}

@@ -1,0 +1,86 @@
+// K4 composite: the exact-f32 trilinear composite of the accumulation over
+// the scene colour.
+//
+// Replaces volumetricrenderer_tpu/ops/pallas/zg_composite.py `_kernel`
+// (composite_zgather_planes / composite_zgather, :83, :191, :461). The TPU
+// form transposed row blocks so froxel cells became sublane rows, gathered
+// both z taps of 64 pixels with one 128-lane take_along_axis, baked the
+// edge clamps into padded planes and unshuffled the cell-blocked output; all
+// of that is a layout workaround. On the GPU each pixel gathers its taps
+// directly.
+//
+// One thread per pixel (i, j): fz = depth_to_froxel_z(depth) - 0.5, clipped
+// to [0, d-1], z1 = min(z0 + 1, d - 1); the xy taps are the 3x3 cell
+// neighbours weighted by the static per-pixel-in-cell bilinear weights w9
+// (composite._cell_weights; clamp-to-edge), of which at most 2x2 are
+// non-zero; then rgb = scene * T + L, a = T.
+//
+// Bound on the H100: bytes. Per frame read depth (8.3 MB) + scene colour
+// (24.9 MB) + the accumulation (66 MB), write the image (33 MB): ~132 MB,
+// ~40 us at 3.35 TB/s. Neighbouring pixels share cells, so the 8 taps per
+// channel come from L1/L2; the planes are read about once from memory.
+#include <cuda_runtime.h>
+
+__global__ void composite_kernel(const float* __restrict__ acc,
+                                 const float* __restrict__ scene,
+                                 const float* __restrict__ depth,
+                                 const float* __restrict__ w9,
+                                 const float* __restrict__ fp, int w, int h,
+                                 int d, int ih, int iw,
+                                 float* __restrict__ out) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ih * iw) return;
+  const int j = idx % iw;
+  const int i = idx / iw;
+  const int py = ih / h, px = iw / w, cp = py * px;
+  const int cy = i / py, cx = j / px;
+  const int cell = (i % py) * px + (j % px);
+  const float fpz = fp[0], fpw = fp[1], near_ = fp[2];
+
+  // froxel.depth_to_froxel_z - 0.5, clipped to the volume
+  float fz = (float)d * logf(fmaxf((__ldg(depth + idx) - near_) / fpw + 1.0f,
+                                   1e-8f)) / logf(fpz);
+  fz = fz - 0.5f;
+  fz = fminf(fmaxf(fz, 0.0f), (float)d - 1.0f);
+  const float z0f = floorf(fz);
+  const float f = fz - z0f;
+  const int z0 = min(max((int)z0f, 0), d - 1);
+  const int z1 = min(z0 + 1, d - 1);
+
+  const long n = (long)d * h * w;
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int dy = 0; dy < 3; ++dy) {
+    const int yy = min(max(cy + dy - 1, 0), h - 1);
+    for (int dx = 0; dx < 3; ++dx) {
+      const float wt = __ldg(w9 + (dy * 3 + dx) * cp + cell);
+      if (wt == 0.0f) continue;  // adds exactly 0 in the reference
+      const int xx = min(max(cx + dx - 1, 0), w - 1);
+      const long o0 = ((long)z0 * h + yy) * w + xx;
+      const long o1 = ((long)z1 * h + yy) * w + xx;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s0[c] = s0[c] + __ldg(acc + c * n + o0) * wt;
+        s1[c] = s1[c] + __ldg(acc + c * n + o1) * wt;
+      }
+    }
+  }
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = s0[c] * (1.0f - f) + s1[c] * f;
+  const long o = (long)idx * 4;
+  const long so = (long)idx * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[o + c] = __ldg(scene + so + c) * v[3] + v[c];
+  out[o + 3] = v[3];
+}
+
+extern "C" int vr_composite(const float* acc, const float* scene,
+                            const float* depth, const float* w9,
+                            const float* fp, int w, int h, int d, int ih,
+                            int iw, float* out, cudaStream_t stream) {
+  const int n = ih * iw;
+  const int block = 256;
+  composite_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
+      acc, scene, depth, w9, fp, w, h, d, ih, iw, out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,10 @@
+from volumetricrenderer_tpu_torch.models.camera import Camera
+from volumetricrenderer_tpu_torch.models.geometry import Geometry
+from volumetricrenderer_tpu_torch.models.lights import (DirectionalLights,
+                                                        PointLights,
+                                                        SpotLights)
+from volumetricrenderer_tpu_torch.models.media import Medium
+from volumetricrenderer_tpu_torch.models.scene import Scene, benchmark_scene
+
+__all__ = ["Camera", "DirectionalLights", "PointLights", "SpotLights",
+           "Medium", "Geometry", "Scene", "benchmark_scene"]

@@ -1,0 +1,118 @@
+"""Scene container and the benchmark scene preset
+(`volumetricrenderer_tpu/models/scene.py`)."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from volumetricrenderer_tpu_torch.models.camera import Camera
+from volumetricrenderer_tpu_torch.models.geometry import Geometry
+from volumetricrenderer_tpu_torch.models.lights import (DirectionalLights,
+                                                        PointLights,
+                                                        SpotLights)
+from volumetricrenderer_tpu_torch.models.media import Medium
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    camera: Camera
+    dir_lights: DirectionalLights
+    point_lights: PointLights
+    spot_lights: SpotLights
+    media: Tuple[Medium, ...]
+    geometry: Geometry
+    ambient: torch.Tensor         # [3]
+    # a triangle-mesh environment: not ported; the renderer refuses it
+    mesh: Optional[object] = None
+
+    def to(self, device) -> "Scene":
+        """The same scene with every tensor on `device`."""
+        return _to(self, torch.device(device))
+
+
+def _to(obj, device):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(_to(o, device) for o in obj)
+    return obj
+
+
+def _euler_forward(pitch_deg: float, yaw_deg: float
+                   ) -> Tuple[float, float, float]:
+    """Unity transform.forward for euler (pitch, yaw, 0)."""
+    p = math.radians(pitch_deg)
+    y = math.radians(yaw_deg)
+    return (math.cos(p) * math.sin(y), -math.sin(p), math.cos(p) * math.cos(y))
+
+
+def benchmark_scene(aspect: float = 16.0 / 9.0, num_local_lights: int = 16,
+                    noise_mode: str = "texture", device="cuda") -> Scene:
+    """One sun, num_local_lights point/spot lights, a fog medium and a ground
+    fog box. Texture noise is not ported: pass noise_mode="procedural" (the
+    production path); a "texture" medium here has no texture, so it carries
+    no noise at all, as in the JAX package."""
+    camera = Camera.create(position=(-0.4, 1.9, -15.8),
+                           forward=(0.0, 0.0, 1.0), fov_y_deg=60.0,
+                           aspect=aspect, near=0.3, far=100.0, device=device)
+    sun = DirectionalLights.create(
+        direction=[_euler_forward(50.0, -30.0)], color=[(0.99, 0.96, 0.80)],
+        intensity=[2.5], has_shadow=[True], shadow_strength=[1.0],
+        device=device)
+
+    n_point = num_local_lights // 2
+    n_spot = num_local_lights - n_point
+    rng = np.linspace(0.0, 2.0 * np.pi, n_point, endpoint=False)
+    point = PointLights.create(
+        position=np.stack([20.0 * np.cos(rng), np.full_like(rng, 3.0),
+                           20.0 * np.sin(rng) + 10.0], axis=-1),
+        color=np.stack([0.5 + 0.5 * np.cos(rng), np.full_like(rng, 0.4),
+                        0.5 + 0.5 * np.sin(rng)], axis=-1),
+        intensity=np.full((n_point,), 7.0), range=np.full((n_point,), 30.0),
+        has_shadow=[True] * n_point, device=device)
+
+    rng2 = np.linspace(0.0, 2.0 * np.pi, n_spot, endpoint=False)
+    spot = SpotLights.create(
+        position=np.stack([15.0 * np.sin(rng2), np.full_like(rng2, 6.0),
+                           15.0 * np.cos(rng2) + 15.0], axis=-1),
+        direction=np.tile(np.asarray([(0.3, -0.9, 0.3)]), (n_spot, 1)),
+        color=np.stack([np.full_like(rng2, 1.0), 0.5 + 0.5 * np.cos(rng2),
+                        np.full_like(rng2, 0.2)], axis=-1),
+        intensity=np.full((n_spot,), 6.0), range=np.full((n_spot,), 34.42),
+        spot_angle_deg=np.full((n_spot,), 66.0),
+        has_shadow=[True] * n_spot, device=device)
+
+    fog = Medium.create(
+        scattering_color=(1.0, 1.0, 1.0), absorption=0.19, phase_g=0.3,
+        noise_mode=noise_mode, noise_scroll=(10.0, 0.0, 0.0),
+        noise_tiling=(0.01, 0.01, 0.01), height_falloff=0.05,
+        height_base=0.0, device=device)
+    ground_fog = Medium.create(
+        scattering_color=(0.8, 0.9, 1.0), absorption=0.3, phase_g=0.5,
+        volume_type="box", blend_type="additive",
+        box_min=(-30.0, 0.0, -20.0), box_max=(30.0, 4.0, 40.0),
+        box_softness=1.0, device=device)
+
+    geometry = Geometry.create(
+        planes=[((0.0, 1.0, 0.0), 0.0, (0.22, 0.26, 0.18))],
+        spheres=[((4.0, 1.5, 6.0), 1.5, (0.6, 0.55, 0.5)),
+                 ((-8.0, 2.0, 20.0), 2.0, (0.5, 0.5, 0.6))],
+        boxes=[((-6.0, 0.0, 2.0), (-4.0, 2.0, 4.0), (0.5, 0.45, 0.4)),
+               ((2.0, 0.0, 14.0), (5.0, 4.0, 17.0), (0.45, 0.5, 0.45)),
+               ((-12.0, 0.0, 10.0), (-10.0, 6.0, 12.0), (0.35, 0.4, 0.3)),
+               ((8.0, 0.0, 25.0), (12.0, 8.0, 28.0), (0.4, 0.4, 0.45))],
+        device=device)
+
+    return Scene(camera=camera, dir_lights=sun, point_lights=point,
+                 spot_lights=spot, media=(fog, ground_fog), geometry=geometry,
+                 ambient=torch.tensor((0.08, 0.09, 0.11), dtype=torch.float32,
+                                      device=device))

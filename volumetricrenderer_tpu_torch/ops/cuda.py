@@ -1,0 +1,166 @@
+"""Build, load and launch the hand-written CUDA kernels under `csrc/`.
+
+Each `csrc/*.cu` file is compiled by `nvcc` for sm_90a into a shared library
+with a plain C interface and loaded with ctypes. The build happens at first
+use, all sources in parallel, into `volumetricrenderer_tpu_torch/_build/`
+(listed in .gitignore), named by a hash of the sources and flags so a stale
+library is never loaded. No fast math: `__expf`/`__logf` would move every
+froxel's z mapping. FMA contraction is off so that a kernel repeats its
+plain-torch twin's rounding.
+
+LAUNCHES counts, per kernel, the launches its wrapper made; a run resets it
+with `reset_launches()` and reads it afterwards to prove which kernels ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {name: 0 for name in SOURCES}
+_LIBS: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class VrTables(ctypes.Structure):
+    """Mirror of `struct VrTables` in csrc/common.cuh (same field order)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "spar", "sbpar", "abpar", "slights", "dirs", "lights", "planes",
+        "spheres", "boxes", "med", "med_static", "active", "tent_xk",
+        "tent_xw", "tent_yk", "tent_yw")]
+        + [(n, ctypes.c_int) for n in (
+            "n_dir", "n_lights", "n_planes", "n_spheres", "n_boxes",
+            "n_media", "n_noise", "jitter_dir", "w", "h", "d", "h_glob", "k",
+            "ss", "wl", "hl", "dl")])
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _digest(name: str) -> str:
+    """Hash of the kernel's sources and the flags that shape its code."""
+    h = hashlib.sha256()
+    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile every kernel source that has no up-to-date library, all at
+    once, and return {name: seconds} spent per build (0 for cached).
+    verbose=True prints ptxas's register and spill report."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    procs, times = {}, {}
+    for name in SOURCES:
+        lib = BUILD_DIR / f"{name}-{_digest(name)}.so"
+        if lib.exists():
+            times[name] = 0.0
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        out, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if verbose and out:
+            print(f"# nvcc {name}:\n{out}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return times
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it if needed."""
+    if name not in _LIBS:
+        path = BUILD_DIR / f"{name}-{_digest(name)}.so"
+        if not path.exists():
+            build()
+        cdll = ctypes.CDLL(str(path))
+        _declare(cdll, name)
+        _LIBS[name] = cdll
+    return _LIBS[name]
+
+
+def _declare(cdll: ctypes.CDLL, name: str) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    tp = ctypes.POINTER(VrTables)
+    sig = {
+        "bake_radiance": ("vr_bake_radiance", [tp, vp, vp]),
+        "shadow_scatter": ("vr_shadow_scatter", [tp, vp, vp, vp, vp, vp]),
+        "integrate_blend": ("vr_integrate_blend", [tp, vp, vp, vp, vp]),
+        "composite": ("vr_composite",
+                      [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]),
+    }[name]
+    fn = getattr(cdll, sig[0])
+    fn.argtypes = sig[1]
+    fn.restype = ctypes.c_int
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream and count it; raises if
+    the launch was refused."""
+    fn = getattr(lib(name), "vr_" + name)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(*tensors: torch.Tensor, dtype=torch.float32) -> None:
+    """Every tensor a contiguous CUDA tensor of `dtype` on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors on one device, got "
+                             f"{t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def upload(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A host constant on `device`. On CUDA it is staged in pinned memory
+    and copied asynchronously: a copy from pageable memory would block the
+    host until every kernel queued before it has run."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

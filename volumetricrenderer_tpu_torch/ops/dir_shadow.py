@@ -1,0 +1,68 @@
+"""Raycast sun shadow at the jittered froxel centre.
+
+Plain-torch twin of `volumetricrenderer_tpu/ops/pallas/dir_shadow.py`
+`dir_shadow_slice`; the CUDA counterpart is `dir_shadow` in
+`csrc/common.cuh`, called by the shadow_scatter kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from volumetricrenderer_tpu_torch.ops.occlude import any_hit
+
+
+def pack_dir_lights(dir_lights) -> torch.Tensor:
+    """[Nd, 8]: direction(3), 1 - shadow_strength, shadow gate, pad(3)."""
+    n = dir_lights.count
+    z = torch.zeros((n, 3), dtype=torch.float32,
+                    device=dir_lights.direction.device)
+    return torch.cat([dir_lights.direction,
+                      (1.0 - dir_lights.shadow_strength)[:, None],
+                      dir_lights.has_shadow.to(torch.float32)[:, None], z],
+                     dim=-1)
+
+
+def froxel_world(par, zi, grid_whd: Tuple[int, int, int], h_glob: int,
+                 jittered: bool = True):
+    """World position planes of slice(s) zi at the (jittered) froxel centre
+    from a pack_params table. zi: an int, or an int tensor shaped to
+    broadcast against [H, W] (e.g. [D, 1, 1] for the whole volume)."""
+    w, h, d = grid_whd
+    p = lambda i: par[0, i]
+    fpx, fpy, fpz, fpw, near = p(12), p(13), p(14), p(15), p(16)
+    jx, jy, jz = (p(17), p(18), p(19)) if jittered else (0.0, 0.0, 0.0)
+    dev = par.device
+    zf = torch.as_tensor(zi, device=dev).to(torch.float32)
+    fz = zf + 0.5 + jz
+    vz = (torch.exp(torch.log(fpz) * fz / d) - 1.0) * fpw + near
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.clamp(ys + p(23), 0.0, h_glob - 1.0)
+    vx = (2.0 * (xs + 0.5 + jx) / w - 1.0) * vz / fpx
+    vy = (2.0 * (ys + 0.5 + jy) / h_glob - 1.0) * vz / fpy
+    wx = p(0) * vx + p(1) * vy + p(2) * vz + p(3)
+    wy = p(4) * vx + p(5) * vy + p(6) * vz + p(7)
+    wz = p(8) * vx + p(9) * vy + p(10) * vz + p(11)
+    return wx, wy, wz
+
+
+def dir_shadow_slice(par, lights, planes, spheres, boxes, zi, *,
+                     grid_whd: Tuple[int, int, int], n_lights: int,
+                     n_planes: int, n_spheres: int, n_boxes: int,
+                     max_dist: float, h_glob: int):
+    """Gated visibility^2 planes, one per dir light, at slice(s) zi."""
+    wx, wy, wz = froxel_world(par, zi, grid_whd, h_glob)
+    out = []
+    for li in range(n_lights):
+        q = lambda i: lights[li, i]
+        strength_r, gate = q(3), q(4)
+        occ = any_hit(planes, spheres, boxes, wx, wy, wz, -q(0), -q(1),
+                      -q(2), max_dist, n_planes=n_planes,
+                      n_spheres=n_spheres, n_boxes=n_boxes)
+        vis = strength_r + (1.0 - strength_r) * (1.0 - occ.to(torch.float32))
+        vis = vis * vis
+        out.append(1.0 + gate * (vis - 1.0))
+    return out

@@ -1,0 +1,220 @@
+"""Media evaluation at world positions: sigma_s, sigma_a, phase g and the
+procedural fBm factor.
+
+Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/material.py`
+(`_hash3`, `_grad_dot`, `_fade`, `_perlin_single`, `perlin_planes`,
+`phase_g_plane`, `noise_factor_planes`, `material_planes`); the CUDA
+counterparts are the functions of the same names in `csrc/common.cuh`.
+The Perlin hash is uint32 arithmetic: here int64 with every product and sum
+masked to 32 bits (products split into 16-bit halves so no int64 overflows).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+ROW = 20  # floats per packed medium row
+M32 = 0xFFFFFFFF
+
+
+def media_foldable(media: Sequence) -> bool:
+    """True when every medium can be evaluated without a texture gather."""
+    return all(m.noise_tex is None for m in media)
+
+
+def noise_src(m) -> int:
+    """0 = no noise, 1 = procedural fBm, 2 = texture."""
+    if m.noise_mode == "procedural":
+        return 1
+    return 2 if m.noise_tex is not None else 0
+
+
+def pack_media(media: Sequence, time_x) -> Tuple[torch.Tensor, tuple]:
+    """[M, 20] table and the per-medium statics.
+
+    Row: sigma_s(3) sigma_a g tiling(3) offset(3 = scroll*time_x)
+         height_falloff height_base box_min(3) box_max(3) softness.
+    Static: (noise_src, octaves, period, seed, is_box, additive)."""
+    rows = []
+    static = []
+    tx = float(np.float32(time_x))      # float32 time, as the reference
+    for m in media:
+        rows.append(torch.cat([
+            m.scattering_coef, m.absorption_coef[None], m.phase_g[None],
+            m.noise_tiling, m.noise_scroll * tx,
+            m.height_falloff[None], m.height_base[None],
+            m.box_min, m.box_max, m.box_softness[None]]))
+        static.append((noise_src(m), int(m.noise_octaves),
+                       int(m.noise_period), int(m.noise_seed),
+                       m.volume_type == "box", m.blend_type == "additive"))
+    return torch.stack(rows), tuple(static)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for 0 <= a < 2^32 in int64, without overflow."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def _hash3(ix, iy, iz, seed: int) -> torch.Tensor:
+    """uint32 lattice hash of int64 lattice planes -> low 4 bits."""
+    u = lambda a: a & M32
+    h = (_mul32(u(ix), 0x8DA6B343) + _mul32(u(iy), 0xD8163841)) & M32
+    h = (h + _mul32(u(iz), 0xCB1AB31F)) & M32
+    h = (h + ((int(seed) * 0x9E3779B9) & M32)) & M32
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 16)
+    return h & 15
+
+
+def _grad_dot(h, dx, dy, dz):
+    """Branchless 12-edge gradient dot."""
+    u = torch.where(h < 8, dx, dy)
+    v = torch.where(h < 4, dy, torch.where((h == 12) | (h == 14), dx, dz))
+    return torch.where((h & 1) == 0, u, -u) + torch.where((h & 2) == 0, v, -v)
+
+
+def _fade(t):
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+def _perlin_single(px, py, pz, period: int, seed: int):
+    """Periodic Perlin noise at coordinate planes."""
+    p0x, p0y, p0z = torch.floor(px), torch.floor(py), torch.floor(pz)
+    fx, fy, fz = px - p0x, py - p0y, pz - p0z
+    i0x = p0x.to(torch.int64)
+    i0y = p0y.to(torch.int64)
+    i0z = p0z.to(torch.int64)
+    ux, uy, uz = _fade(fx), _fade(fy), _fade(fz)
+    if period & (period - 1) == 0:
+        wrap = lambda a: a & (period - 1)
+    else:
+        wrap = lambda a: torch.remainder(a, period)
+
+    def corner(dx, dy, dz):
+        h = _hash3(wrap(i0x + dx), wrap(i0y + dy), wrap(i0z + dz), seed)
+        return _grad_dot(h, fx - dx, fy - dy, fz - dz)
+
+    n000 = corner(0, 0, 0)
+    n100 = corner(1, 0, 0)
+    n010 = corner(0, 1, 0)
+    n110 = corner(1, 1, 0)
+    n001 = corner(0, 0, 1)
+    n101 = corner(1, 0, 1)
+    n011 = corner(0, 1, 1)
+    n111 = corner(1, 1, 1)
+    nx00 = n000 + ux * (n100 - n000)
+    nx10 = n010 + ux * (n110 - n010)
+    nx01 = n001 + ux * (n101 - n001)
+    nx11 = n011 + ux * (n111 - n011)
+    nxy0 = nx00 + uy * (nx10 - nx00)
+    nxy1 = nx01 + uy * (nx11 - nx01)
+    return nxy0 + uz * (nxy1 - nxy0)
+
+
+def perlin_planes(ux, uy, uz, octaves: int, period: int, seed: int):
+    """Tileable fBm Perlin in [0, 1]."""
+    total = 0.0
+    amp = 1.0
+    norm = 0.0
+    per = period
+    for o in range(octaves):
+        fper = float(per)
+        total = total + amp * _perlin_single(ux * fper, uy * fper, uz * fper,
+                                             per, seed + o)
+        norm += amp
+        amp *= 0.5
+        per *= 2
+    return torch.clamp(0.5 + 0.5 * (total / norm) * 1.5, 0.0, 1.0)
+
+
+def _smoothstep(e0, e1, x):
+    t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _box_mask(q, wx, wy, wz):
+    soft = torch.clamp(q(19), min=1e-6)
+    lo = torch.minimum(torch.minimum(
+        _smoothstep(q(13), q(13) + soft, wx),
+        _smoothstep(q(14), q(14) + soft, wy)),
+        _smoothstep(q(15), q(15) + soft, wz))
+    hi = torch.minimum(torch.minimum(
+        _smoothstep(-q(16), -(q(16) - soft), -wx),
+        _smoothstep(-q(17), -(q(17) - soft), -wy)),
+        _smoothstep(-q(18), -(q(18) - soft), -wz))
+    return lo * hi
+
+
+def phase_g_plane(med, media_static: tuple, wx, wy, wz):
+    """Phase g only (no noise or height factor on g)."""
+    g = torch.zeros_like(wx)
+    for mi, (_src, _oct, _per, _seed, is_box, additive) \
+            in enumerate(media_static):
+        q = lambda i: med[mi, i]
+        mask = _box_mask(q, wx, wy, wz) if is_box else torch.ones_like(wx)
+        if additive:
+            g = g + q(4) * mask
+        else:
+            g = g * (1.0 - mask) + q(4) * mask
+    return g
+
+
+def noise_factor_planes(med, media_static: tuple, wx, wy, wz):
+    """The procedural fBm factor of each noise-bearing medium, in order."""
+    out = []
+    for mi, (src, octaves, period, seed, *_rest) in enumerate(media_static):
+        if not src:
+            continue
+        if src != 1:
+            raise NotImplementedError("texture noise is not ported")
+        q = lambda i: med[mi, i]
+        out.append(perlin_planes(wx * q(5) + q(8), wy * q(6) + q(9),
+                                 wz * q(7) + q(10), octaves, period, seed))
+    return out
+
+
+def material_planes(med, media_static: tuple, wx, wy, wz, noise_planes=None):
+    """(sigma_s r, g, b, sigma_a, g) at world positions. noise_planes: the
+    upsampled low-rate fBm factors (one per noise-bearing medium); without
+    them the Perlin is evaluated here."""
+    sr = sg = sb = sa = g = torch.zeros_like(wx)
+    noise_i = 0
+    for mi, (src, octaves, period, seed, is_box, additive) \
+            in enumerate(media_static):
+        q = lambda i: med[mi, i]
+        factor = torch.ones_like(wx)
+        if src:
+            if noise_planes is not None:
+                factor = factor * noise_planes[noise_i]
+                noise_i += 1
+            else:
+                if src != 1:
+                    raise NotImplementedError("texture noise is not ported")
+                factor = factor * perlin_planes(
+                    wx * q(5) + q(8), wy * q(6) + q(9), wz * q(7) + q(10),
+                    octaves, period, seed)
+        factor = factor * torch.exp(-torch.clamp(q(11), min=0.0)
+                                    * torch.clamp(wy - q(12), min=0.0))
+        mask = _box_mask(q, wx, wy, wz) if is_box else torch.ones_like(wx)
+        a_r, a_g, a_b = q(0) * factor, q(1) * factor, q(2) * factor
+        a_a = q(3) * factor
+        if additive:
+            sr = sr + a_r * mask
+            sg = sg + a_g * mask
+            sb = sb + a_b * mask
+            sa = sa + a_a * mask
+            g = g + q(4) * mask
+        else:
+            inv = 1.0 - mask
+            sr = sr * inv + a_r * mask
+            sg = sg * inv + a_g * mask
+            sb = sb * inv + a_b * mask
+            sa = sa * inv + a_a * mask
+            g = g * inv + q(4) * mask
+    return sr, sg, sb, sa, g

@@ -1,0 +1,117 @@
+"""Temporal reprojection: blend parameters, the windowed reprojection
+offsets and the separable tent warp.
+
+Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/temporal.py`
+(`pack_blend_params`, `_reproj_offsets`, `_tent_weights`, `_tent_pass`).
+The warp is three sequential 1-D tent passes (z, then y, then x), each
+weighting its taps by the offset at ITS OWN output point (SPEC.md
+"Reprojection sampling"), so output (z, y, x) is
+
+  sum_dx wx(offx[z,y,x]) sum_dy wy(offy[z,y,cx]) sum_dz wz(offz[z,cy,cx])
+      prev[cz, cy, cx]
+
+with clamped neighbours cz, cy, cx. The CUDA counterparts (`reproj_offsets`,
+`warp8` in `csrc/common.cuh`) evaluate exactly this as an 8-tap gather.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from volumetricrenderer_tpu_torch.ops.cuda import upload
+
+def pack_blend_params(params, view_to_world, prev_world_to_view, jitter,
+                      alpha, uvw_epsilon: float) -> torch.Tensor:
+    """[1, 24]: combined view -> prev-view matrix rows (12), fp x/y/z/w/near
+    (5), jitter (3), alpha, eps, y0, pad."""
+    dev = view_to_world.device
+    m = torch.matmul(prev_world_to_view, view_to_world)
+    tail = np.concatenate([np.asarray(jitter, np.float32).reshape(3),
+                           np.asarray([alpha, uvw_epsilon, params.y0, 0.0],
+                                      np.float32)])
+    return torch.cat([
+        m[:3].reshape(12),
+        torch.stack([params.x, params.y, params.z, params.w,
+                     params.near]).to(dev),
+        upload(tail, dev)]).to(torch.float32)[None]
+
+
+def reproj_offsets(bpar, zi, grid_whd: Tuple[int, int, int], h_glob: int,
+                   k: int, with_jitter: bool):
+    """Froxel -> view -> prev view -> prev froxel at the UNJITTERED froxel
+    centre of slice(s) zi; returns (off_x, off_y, off_z, success) with the
+    offsets clipped to the +-k window after the clamps to the volume, and
+    success = the global-uvw xy test taken before the clamps."""
+    w, h, d = grid_whd
+    p = lambda i: bpar[0, i]
+    fpx, fpy, fpz, fpw, near = p(12), p(13), p(14), p(15), p(16)
+    jx, jy, jz = p(17), p(18), p(19)
+    eps, y0 = p(21), p(22)
+    dev = bpar.device
+
+    zf = torch.as_tensor(zi, device=dev).to(torch.float32)
+    vz = (torch.exp(torch.log(fpz) * (zf + 0.5) / d) - 1.0) * fpw + near
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    base_y = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.clamp(base_y + y0, 0.0, h_glob - 1.0)
+    vx = (2.0 * (xs + 0.5) / w - 1.0) * vz / fpx
+    vy = (2.0 * (ys + 0.5) / h_glob - 1.0) * vz / fpy
+
+    pvx = p(0) * vx + p(1) * vy + p(2) * vz + p(3)
+    pvy = p(4) * vx + p(5) * vy + p(6) * vz + p(7)
+    pvz = p(8) * vx + p(9) * vy + p(10) * vz + p(11)
+
+    pfz = d * torch.log(torch.clamp((pvz - near) / fpw + 1.0, min=1e-8)) \
+        / torch.log(fpz)
+    pfx = w * (fpx * pvx / pvz + 1.0) / 2.0
+    pfy = h_glob * (fpy * pvy / pvz + 1.0) / 2.0
+    if with_jitter:
+        pfx = pfx + jx
+        pfy = pfy + jy
+        pfz = pfz + jz
+
+    tx = pfx + eps * w - 0.5
+    ty = pfy + eps * h_glob - 0.5 - y0
+    tz = pfz + eps * d - 0.5
+
+    ux = pfx / w + eps
+    uy = pfy / h_glob + eps
+    success = ((ux >= 0.0) & (ux <= 1.0) & (uy >= 0.0)
+               & (uy <= 1.0)).to(torch.float32)
+
+    tz = torch.clamp(tz, 0.0, d - 1.0)
+    ty = torch.clamp(ty, 0.0, h - 1.0)
+    tx = torch.clamp(tx, 0.0, w - 1.0)
+    off_z = torch.clamp(tz - zf, -k, k)
+    off_y = torch.clamp(ty - base_y, -k, k)
+    off_x = torch.clamp(tx - xs, -k, k)
+    return off_x, off_y, off_z, success
+
+
+def tent_weights(off, k: int):
+    """Per-tap tent weights max(0, 1 - |off - dd|) for dd in [-k, k]."""
+    return [torch.clamp(1.0 - torch.abs(off - dd), min=0.0)
+            for dd in range(-k, k + 1)]
+
+
+def tent_pass(vol: torch.Tensor, ws, dim: int, k: int) -> torch.Tensor:
+    """1-D windowed tent along `dim` with clamp-to-edge taps; ws from
+    tent_weights (one weight tensor per tap, shaped like the output)."""
+    n = vol.shape[dim]
+    idx = torch.arange(n, device=vol.device)
+    acc = torch.zeros_like(vol)
+    for t, dd in enumerate(range(-k, k + 1)):
+        src = vol.index_select(dim, torch.clamp(idx + dd, 0, n - 1))
+        acc = acc + src * ws[t]
+    return acc
+
+
+def warp(prev: torch.Tensor, off_x, off_y, off_z, k: int) -> torch.Tensor:
+    """Separable windowed warp of history channels prev [C, D, H, W] with
+    offsets shaped [D, H, W]: the z pass, then y, then x."""
+    acc = tent_pass(prev, tent_weights(off_z, k), 1, k)
+    acc = tent_pass(acc, tent_weights(off_y, k), 2, k)
+    return tent_pass(acc, tent_weights(off_x, k), 3, k)

@@ -1,0 +1,187 @@
+"""Frame orchestrator for the production path.
+
+`render_frame(state, scene, time_x) -> (image, aux, new_state)` as in
+`volumetricrenderer_tpu/renderer.py`, for the branch the production config
+takes there: the fused volume phase (ops/frame_fused.py: kernels K1-K3) and
+the zgather composite (ops/zg_composite.py: kernel K4). A config or scene
+that the JAX package would send down another branch raises
+NotImplementedError naming what is not ported yet.
+
+The renderer runs on CUDA unless it is built with device="cpu"; without a
+GPU and without that request it raises instead of running on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from volumetricrenderer_tpu_torch import froxel
+from volumetricrenderer_tpu_torch.config import (RenderConfig,
+                                                 composite_eligible)
+from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
+from volumetricrenderer_tpu_torch.models.scene import Scene
+from volumetricrenderer_tpu_torch.ops import raycast
+from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
+                                                          volume_phase)
+from volumetricrenderer_tpu_torch.ops.material import media_foldable
+from volumetricrenderer_tpu_torch.ops.zg_composite import composite
+from volumetricrenderer_tpu_torch.state import FrameState
+
+# config fields (and values) that route render_frame to the fused branch
+_FUSED_KNOBS = (
+    ("frame_fused", True), ("temporal_blend_shadow", True),
+    ("temporal_blend_accumulation", True), ("temporal_blend_material", False),
+    ("temporal_blend_scatter", False), ("dir_shadow_impl", "pallas"),
+    ("reproj_impl", "pallas"), ("scatter_impl", "pallas"),
+    ("accumulate_impl", "pallas"), ("material_impl", "fused"),
+    ("shadow_mode", "raycast"), ("scatter_bake", "radiance"),
+    ("composite_upsample", 1))
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA request without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain-torch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class VolumetricRenderer:
+    """Owns the static config and the device."""
+
+    def __init__(self, config: RenderConfig, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self._host_scene = None    # (scene, its copy on the CPU)
+
+    def init_state(self, num_dir_lights: int = 1) -> FrameState:
+        """Fresh history: shadow visibility 1, accumulation 0."""
+        cfg = self.config
+        return FrameState.create(cfg.grid_dhw, num_dir_lights, cfg.dtype,
+                                 self.device)
+
+    def check_supported(self, scene: Scene) -> None:
+        """Raise NotImplementedError for what the port does not cover."""
+        cfg = self.config
+        for name, want in _FUSED_KNOBS:
+            if getattr(cfg, name) != want:
+                raise NotImplementedError(
+                    f"config {name}={getattr(cfg, name)!r}: only the fused "
+                    f"production branch ({name}={want!r}) is ported")
+        if max(int(cfg.raycast_shadow_subsample), 1) < 2:
+            raise NotImplementedError("raycast_shadow_subsample=1 (the exact "
+                                      "per-froxel scatter) is not ported")
+        if not composite_eligible(cfg):
+            raise NotImplementedError("only the zgather composite "
+                                      "(8x8-multiple pixel cells, D <= 128) "
+                                      "is ported")
+        geom = scene.geometry
+        if geom.hf_enabled:
+            raise NotImplementedError("heightfield occlusion is not ported")
+        if geom.box_fractional:
+            raise NotImplementedError("fractional box opacity is not ported")
+        if scene.mesh is not None:
+            raise NotImplementedError("mesh environments are not ported")
+        if not scene.media or not media_foldable(scene.media):
+            raise NotImplementedError("texture-noise media (and scenes "
+                                      "without media) are not ported")
+        if scene.dir_lights.count == 0:
+            raise NotImplementedError("scenes without a directional light "
+                                      "are not ported")
+        if scene.point_lights.count + scene.spot_lights.count == 0:
+            raise NotImplementedError("scenes without local lights are not "
+                                      "ported")
+
+    def render_scene_inputs(self, scene: Scene
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Scene colour [IH, IW, 3] and linear view depth [IH, IW]: the
+        analytic ray caster standing in for the G-buffer."""
+        cfg = self.config
+        if scene.mesh is not None:
+            raise NotImplementedError("mesh environments are not ported")
+        scene = scene.to(self.device)
+        cam = scene.camera
+        dirs, _ = raycast.camera_rays(cfg.image_width, cfg.image_height,
+                                      cam.fov_y, cam.aspect,
+                                      cam.view_to_world())
+        if scene.dir_lights.count:
+            sun_dir = scene.dir_lights.direction[0]
+            sun_color = scene.dir_lights.packed_color[0]
+        else:
+            sun_dir = torch.tensor([0.0, -1.0, 0.0], device=self.device)
+            sun_color = torch.zeros(3, device=self.device)
+        return raycast.render_scene(scene.geometry, cam.position, dirs,
+                                    sun_dir, sun_color, scene.ambient,
+                                    cam.far)
+
+    def host_scene(self, scene: Scene) -> Scene:
+        """`scene` with every tensor on the CPU, kept for the last scene
+        passed in."""
+        if self._host_scene is None or self._host_scene[0] is not scene:
+            self._host_scene = (scene, scene.to("cpu"))
+        return self._host_scene[1]
+
+    def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0):
+        """Host prep of one frame: (FrameTables, FroxelParams, world_to_view)
+        -- the packed tables kernels K1-K3 read, on the renderer's device,
+        and the view matrix on the CPU.
+
+        Wherever the scene lives, the tables are packed on the CPU from its
+        host copy: ~170 small torch ops, each cheaper there than a launch on
+        the GPU, then uploaded in one asynchronous copy (FrameTables.to)."""
+        cfg = self.config
+        self.check_supported(scene)
+        scene = self.host_scene(scene)
+        cam = scene.camera
+        view_to_world = cam.view_to_world()
+        world_to_view = froxel.invert_rigid(view_to_world)
+        params = froxel.make_froxel_params(cam.fov_y, cam.aspect, cam.near,
+                                           cfg.volume_distance,
+                                           cfg.depth_distribution, cfg.grid)
+        # history is invalid on frame 0
+        alpha = np.float32(cfg.temporal_blend_alpha) \
+            * np.float32(state.frame_count > 0)
+        prev_w2v = world_to_view if cfg.use_current_matrix_for_reproj \
+            else state.prev_world_to_view.cpu()
+        tables = frame_tables(
+            params, view_to_world, prev_w2v, jitter_for_frame(
+                state.frame_count), alpha, scene.dir_lights,
+            scene.point_lights, scene.spot_lights, scene.geometry,
+            scene.media, time_x, cam.position, cfg.grid, cfg.reproj_window,
+            max(int(cfg.raycast_shadow_subsample), 1),
+            cfg.bake_procedural_noise, cfg.jitter_dir_scatter)
+        if self.device.type != "cpu":
+            tables = tables.to(self.device)
+            params = froxel.params_to(params, self.device)
+        return tables, params, world_to_view
+
+    def render_frame(self, state: FrameState, scene: Scene, time_x=0.0,
+                     scene_color: Optional[torch.Tensor] = None,
+                     view_depth: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, dict, FrameState]:
+        """One frame. Returns (image [IH, IW, 4], aux, new state)."""
+        cfg = self.config
+        tables, params, world_to_view = self.frame_tables(state, scene,
+                                                          time_x)
+        if scene_color is None or view_depth is None:
+            scene_color, view_depth = self.render_scene_inputs(scene)
+        f32 = torch.float32
+        shadow, acc = volume_phase(
+            tables, state.prev_shadow.to(f32).contiguous(),
+            state.prev_accumulation.to(f32).contiguous())
+        image = composite(acc, scene_color.contiguous(),
+                          view_depth.contiguous(), params, cfg.grid)
+        dt = cfg.dtype
+        new_state = FrameState(prev_shadow=shadow.to(dt),
+                               prev_accumulation=acc.to(dt),
+                               prev_world_to_view=world_to_view,
+                               frame_count=state.frame_count + 1)
+        aux = dict(shadow=shadow, accumulation=acc, scene_color=scene_color,
+                   view_depth=view_depth)
+        return image, aux, new_state
