@@ -2,22 +2,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's production frame (FULL_CONFIG: 240x135x128 froxels,
-1920x1080, on benchmark_scene with 16 local lights and procedural noise)
-through VolumetricRenderer, the entry point a user calls, and:
+Drives the port's frames at full width (240x135x128 froxels, 1920x1080, on
+benchmark_scene with 16 local lights and procedural noise) through
+VolumetricRenderer, the entry point a user calls, and:
 
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel);
   3. computes the G-buffer once;
-  4. renders a deterministic 4-frame sequence from a fresh state
+  4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
-     just after; prints the float32 image checksum and checks that the image
-     is finite and not flat;
+     just after, and checks that exactly the path's kernels were launched,
+     once per frame:
+       fused             FULL_CONFIG, 4 frames: K1 K2 K3 K4
+       staged            frame_fused=False, 4 frames: K5 K1 K6 K3 K4
+       exact             also scatter_bake="vis", raycast_shadow_subsample=1,
+                         2 frames: K5 K6 (per-light mode) K3 K4
+       no_shadow_blend   staged with temporal_blend_shadow=False, 1 frame:
+                         K7 K1 K6 K3 K4
+       no_acc_blend      staged with temporal_blend_accumulation=False,
+                         1 frame: K5 K1 K6 K8 K4
+     prints each float32 image checksum, checks that each image is finite
+     and not flat, and holds the staged 4-frame image against the fused one;
   5. holds each kernel against its plain-torch twin on the inputs of a real
      frame, with the tolerances stated in CHECKS;
-  6. times warm frames and each kernel (CUDA events), each twin, and
-     torch.nn.functional.grid_sample as a yardstick for the composite;
+  6. times warm frames of the fused, staged and exact paths (CUDA events
+     and host wall), each kernel (CUDA events around launches queued behind
+     a device-side spin, so that the host's launch rate stays out), each
+     twin, and torch.nn.functional.grid_sample as a yardstick for the
+     composite;
   7. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
@@ -41,23 +54,51 @@ FP32_FLOPS = 67e12
 
 # kernel -> (allowed |kernel - twin| per element: atol + rtol*|twin|, the
 # largest fraction of elements allowed past it, why)
+BOUNDARY = "shadow rays at primitive boundaries may flip"
+SUMS = ("128-slice front-to-back sums of exp/log terms differ by a few ulp "
+        "per slice")
 CHECKS = {
     "bake_radiance": (1e-6, 1e-5, 1e-3,
                       "any-hit booleans may flip for rays within ulps of an "
                       "epsilon"),
-    "shadow_scatter": (1e-6, 1e-5, 5e-3,
-                       "shadow rays at primitive boundaries may flip"),
-    "integrate_blend": (1e-6, 1e-4, 0.0,
-                        "128-slice front-to-back sums of exp/log terms "
-                        "differ by a few ulp per slice"),
+    "shadow_scatter": (1e-6, 1e-5, 5e-3, BOUNDARY),
+    "integrate_blend": (1e-6, 1e-4, 0.0, SUMS),
     "composite": (1e-6, 1e-5, 0.0, "log() ulps in the froxel z mapping"),
+    "shadow_blend": (1e-6, 1e-5, 5e-3, BOUNDARY),
+    "scatter": (1e-6, 1e-5, 5e-3, BOUNDARY),
+    "dir_shadow": (1e-6, 1e-5, 5e-3, BOUNDARY),
+    "integrate": (1e-6, 1e-4, 0.0, SUMS),
 }
 
+# kernel -> file:line of the TPU kernel(s) it stands for
+PALLAS = "volumetricrenderer_tpu/ops/pallas/"
 REPLACES = {
-    "bake_radiance": "volumetricrenderer_tpu/ops/pallas/frame_fused.py:124",
-    "shadow_scatter": "volumetricrenderer_tpu/ops/pallas/frame_fused.py:124",
-    "integrate_blend": "volumetricrenderer_tpu/ops/pallas/frame_fused.py:124",
-    "composite": "volumetricrenderer_tpu/ops/pallas/zg_composite.py:83",
+    "bake_radiance": f"{PALLAS}frame_fused.py:124; {PALLAS}visibility.py:267",
+    "shadow_scatter": f"{PALLAS}frame_fused.py:124",
+    "integrate_blend": f"{PALLAS}frame_fused.py:124; "
+                       f"{PALLAS}integrate_blend.py:41",
+    "composite": f"{PALLAS}zg_composite.py:83",
+    "shadow_blend": f"{PALLAS}shadow_blend.py:32",
+    "scatter": f"{PALLAS}scatter.py:380",
+    "dir_shadow": f"{PALLAS}dir_shadow.py:77",
+    "integrate": f"{PALLAS}integrate.py:58",
+}
+
+# path -> (config changes from FULL_CONFIG, frames, kernels of the path)
+STAGED = dict(frame_fused=False)
+PATHS = {
+    "fused": ({}, 4, ("bake_radiance", "shadow_scatter", "integrate_blend",
+                      "composite")),
+    "staged": (STAGED, 4, ("shadow_blend", "bake_radiance", "scatter",
+                           "integrate_blend", "composite")),
+    "exact": (dict(STAGED, scatter_bake="vis", raycast_shadow_subsample=1), 2,
+              ("shadow_blend", "scatter", "integrate_blend", "composite")),
+    "no_shadow_blend": (dict(STAGED, temporal_blend_shadow=False), 1,
+                        ("dir_shadow", "bake_radiance", "scatter",
+                         "integrate_blend", "composite")),
+    "no_acc_blend": (dict(STAGED, temporal_blend_accumulation=False), 1,
+                     ("shadow_blend", "bake_radiance", "scatter", "integrate",
+                      "composite")),
 }
 
 
@@ -65,18 +106,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, n: int) -> float:
-    """Mean device time of fn() over n calls after one warm-up call."""
+def cuda_time_ms(fn, n: int, spin: bool = False) -> float:
+    """Mean device time of fn() over n calls after one warm-up call.
+    spin=True, for a single kernel's wrapper: the device first spins for a
+    few ms, so that the host queues every launch behind it and the events
+    see the kernels alone; without that a kernel shorter than its wrapper's
+    ~60 us of host work is timed at the host's launch rate."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def kernel_time_ms(fn, n: int) -> float:
+    return cuda_time_ms(fn, n, spin=True)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -128,6 +179,61 @@ def profile_frames(step, n: int) -> None:
             f"x{e.count // n:<4d} {e.key[:90]}")
 
 
+def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
+    """Render path `name` from a fresh state with the launch counters set to
+    0 just before and read just after; check that exactly the path's kernels
+    ran, once per frame, and that the image is finite and not flat. Returns
+    (last image, the states before each frame and after the last, counts)."""
+    _, n_frames, expect = PATHS[name]
+    cuda.reset_launches()
+    state = renderer.init_state(scene.dir_lights.count)
+    states = [state]
+    img = None
+    for i in range(n_frames):
+        img, _, state = renderer.render_frame(state, scene, 0.1 * i,
+                                              scene_color, view_depth)
+        states.append(state)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"# {name}: launches in the {n_frames}-frame run: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for k in cuda.SOURCES:
+        if launches[k] != (n_frames if k in expect else 0):
+            raise AssertionError(
+                f"path {name}: kernel {k} launched {launches[k]} times in "
+                f"{n_frames} frames (on the path: {k in expect})")
+    checksum = float(img.sum(dtype=torch.float32))
+    std = float(img[..., :3].std())
+    log(f"# {name}: image {tuple(img.shape)} checksum {checksum!r} "
+        f"std {std:.4g}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"path {name}: non-finite frame output")
+    if not std > 1e-4:
+        raise AssertionError(f"path {name}: degenerate frame output")
+    return img, states, launches
+
+
+def frame_times(name: str, renderer, scene, scene_color, view_depth, state,
+                n: int):
+    """Warm frames of one path: (device-event mean ms, host wall mean ms)."""
+    st = state
+
+    def one_frame():
+        nonlocal st
+        _, _, st = renderer.render_frame(st, scene, 0.5, scene_color,
+                                         view_depth)
+
+    frame_ms = cuda_time_ms(one_frame, n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_frame()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"# {name} frame: {frame_ms:.3f} ms device-event mean, "
+        f"{wall_ms:.3f} ms host wall mean over {n} warm frames")
+    return one_frame, st
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -136,8 +242,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from volumetricrenderer_tpu_torch import (FULL_CONFIG, VolumetricRenderer,
-                                              benchmark_scene)
+                                              benchmark_scene, froxel)
     from volumetricrenderer_tpu_torch.ops import cuda, frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import integrate as integ
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
     from volumetricrenderer_tpu_torch.ops import zg_composite as zg
 
     t_start = time.perf_counter()
@@ -157,9 +267,11 @@ def main() -> int:
     log(f"# build: {time.perf_counter() - t0:.1f} s wall, per source "
         f"{json.dumps({k: round(v, 1) for k, v in build_s.items()})}")
 
-    # 3. production config, scene and G-buffer
+    # 3. configs, scene and G-buffer (the same for every path)
     cfg = FULL_CONFIG
-    renderer = VolumetricRenderer(cfg)
+    renderers = {name: VolumetricRenderer(dataclasses.replace(cfg, **kw))
+                 for name, (kw, _, _) in PATHS.items()}
+    renderer = renderers["fused"]
     scene = benchmark_scene(aspect=cfg.image_width / cfg.image_height,
                             num_local_lights=16, noise_mode="procedural")
     t0 = time.perf_counter()
@@ -168,30 +280,25 @@ def main() -> int:
     log(f"# gbuffer: {1e3 * (time.perf_counter() - t0):.1f} ms "
         f"{tuple(scene_color.shape)}")
 
-    # 4. the main path: 4 frames from a fresh state
-    cuda.reset_launches()
-    state = renderer.init_state(scene.dir_lights.count)
-    states = [state]
-    img = None
-    for i in range(4):
-        img, _, state = renderer.render_frame(state, scene, 0.1 * i,
-                                              scene_color, view_depth)
-        states.append(state)
-    torch.cuda.synchronize()
-    launches = dict(cuda.LAUNCHES)
-    log(f"# launches in the 4-frame run: {json.dumps(launches)}")
-    if not all(launches[k] > 0 for k in cuda.SOURCES):
-        raise AssertionError("a kernel of the main path was never launched")
-    checksum = float(img.sum(dtype=torch.float32))
-    finite = bool(torch.isfinite(img).all())
-    std = float(img[..., :3].std())
-    log(f"# image {tuple(img.shape)} checksum {checksum!r} std {std:.4g}")
-    if not finite:
-        raise AssertionError("non-finite frame output")
-    if not std > 1e-4:
-        raise AssertionError("degenerate frame output")
+    # 4. the main paths, each from a fresh state
+    runs = {name: drive(name, renderers[name], scene, scene_color, view_depth,
+                        cuda) for name in PATHS}
+    img, states, _ = runs["fused"]
+    launches = {k: {name: runs[name][2][k] for name in PATHS
+                    if runs[name][2][k]} for k in cuda.SOURCES}
+    s_img = runs["staged"][0]
+    err = (s_img - img).abs()
+    past = float((err > 1e-6 + 1e-5 * img.abs()).float().mean())
+    far = float((err / (1.0 + img.abs()) > 1e-3).float().mean())
+    log(f"# staged vs fused, frame 4: max |diff| {float(err.max()):.3e}, "
+        f"mean {float(err.mean()):.3e}, fraction past atol 1e-6 + rtol 1e-5 "
+        f"= {past:.2e}, beyond 1e-3 relative = {far:.2e} (allowed 5e-3 "
+        f"each: {BOUNDARY})")
+    if past > 5e-3 or far > 5e-3:
+        raise AssertionError("the staged frame disagrees with the fused one")
 
-    # 5. each kernel against its twin on the inputs of frame 4 (index 3)
+    # 5. each kernel against its twin on the inputs of frame 4 (index 3);
+    # the fused and staged configs pack the same tables
     prev = states[3]
     tables, params, _ = renderer.frame_tables(prev, scene, 0.1 * 3)
     prev_sh = prev.prev_shadow.float().contiguous()
@@ -206,61 +313,103 @@ def main() -> int:
     sh_p, sc_p = ff.shadow_scatter_plain(tables, prev_sh, bake)
     errs["shadow_scatter"] = max(compare("shadow_scatter", sh, sh_p),
                                  compare("shadow_scatter", sc, sc_p))
-    # K2's two non-production branches: the jittered sun scatter and the
-    # fBm evaluated per froxel (no baked noise channel)
+    # the two non-production branches of K2 and K6 (radiance mode): the
+    # jittered sun scatter and the fBm evaluated per froxel (no baked noise
+    # channel; K1 then writes its three radiance channels and nothing past
+    # them, checked with a sentinel behind the volume)
     opt = dataclasses.replace(tables, jitter_dir=True, n_noise=0)
-    bake_rgb = bake[:3].contiguous()
+    guard = torch.full((4 * bake[0].numel(),), -7.0, device="cuda")
+    st_opt = opt.c_struct()
+    cuda.launch("bake_radiance", cuda.ctypes.byref(st_opt), cuda.ptr(guard))
+    bake_rgb = guard[:3 * bake[0].numel()].view(bake[:3].shape)
+    errs["bake_radiance"] = max(
+        errs["bake_radiance"],
+        compare("bake_radiance", bake_rgb, ff.bake_radiance_plain(opt)))
+    if not bool((guard[3 * bake[0].numel():] == -7.0).all()):
+        raise AssertionError("bake_radiance wrote past its 3 channels")
+    bake_rgb = bake_rgb.clone()
+    sc_opt_p = ff.shadow_scatter_plain(opt, prev_sh, bake_rgb)[1]
     errs["shadow_scatter"] = max(
         errs["shadow_scatter"],
         compare("shadow_scatter", ff.shadow_scatter(opt, prev_sh, bake_rgb)[1],
-                ff.shadow_scatter_plain(opt, prev_sh, bake_rgb)[1]))
+                sc_opt_p))
     errs["integrate_blend"] = compare(
         "integrate_blend", acc, ff.integrate_blend_plain(tables, sc, prev_acc))
     errs["composite"] = compare(
         "composite", out, zg.composite_plain(acc, scene_color, view_depth,
                                              params, cfg.grid))
     frame4 = torch.equal(out, img)
-    log(f"# frame-4 inputs reproduce the main path's image: {frame4}")
+    log(f"# frame-4 inputs reproduce the fused path's image: {frame4}")
     if not frame4:
         raise AssertionError("the kernel chain on frame-4 inputs differs "
-                             "from the main path's last image")
+                             "from the fused path's last image")
+    # the staged kernels on the same frame; K6's per-light mode on the
+    # inputs of the exact path's frame 2
+    errs["shadow_blend"] = compare("shadow_blend",
+                                   sb.dir_shadow_blend(tables, prev_sh), sh_p)
+    unblended_p = ds.dir_shadow_plain(tables)
+    errs["dir_shadow"] = compare("dir_shadow", ds.dir_shadow(tables),
+                                 unblended_p)
+    errs["scatter"] = max(
+        compare("scatter", sca.scatter_local(tables, sh_p, bake), sc_p),
+        compare("scatter", sca.scatter_local(opt, sh_p, bake_rgb), sc_opt_p))
+    x_prev = runs["exact"][1][1]
+    x_tables, _, _ = renderers["exact"].frame_tables(x_prev, scene, 0.1)
+    x_sh = sb.dir_shadow_blend(x_tables,
+                               x_prev.prev_shadow.float().contiguous())
+    x_sc = sca.scatter_local(x_tables, x_sh)
+    x_sc_p = sca.scatter_local_plain(x_tables, x_sh)
+    per_light_err = compare("scatter", x_sc, x_sc_p)
+    x_opt = dataclasses.replace(x_tables, jitter_dir=True)
+    per_light_err = max(per_light_err, compare(
+        "scatter", sca.scatter_local(x_opt, x_sh),
+        sca.scatter_local_plain(x_opt, x_sh)))
+    errs["scatter"] = max(errs["scatter"], per_light_err)
+    errs["integrate"] = compare("integrate", integ.accumulate(tables, sc),
+                                integ.accumulate_plain(tables, sc))
+    del x_sc_p, unblended_p, sc_opt_p, guard
 
     # 6. timing
-    n_frames = 20
-    st = states[-1]
-
-    def one_frame():
-        nonlocal st
-        _, _, st = renderer.render_frame(st, scene, 0.5, scene_color,
-                                         view_depth)
-
-    frame_ms = cuda_time_ms(one_frame, n_frames)
+    one_frame, st = frame_times("fused", renderer, scene, scene_color,
+                                view_depth, states[-1], 20)
     t0 = time.perf_counter()
-    for _ in range(n_frames):
-        one_frame()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n_frames
-    log(f"# frame: {frame_ms:.3f} ms device-event mean, {wall_ms:.3f} ms "
-        f"host wall mean over {n_frames} warm frames")
-    t0 = time.perf_counter()
-    for _ in range(n_frames):
+    for _ in range(20):
         renderer.frame_tables(st, scene, 0.5)
     torch.cuda.synchronize()
     log(f"# host prep (frame_tables): "
-        f"{1e3 * (time.perf_counter() - t0) / n_frames:.3f} ms/frame")
+        f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms/frame")
     profile_frames(one_frame, 5)
+    one_staged, _ = frame_times("staged", renderers["staged"], scene,
+                                scene_color, view_depth,
+                                runs["staged"][1][-1], 20)
+    profile_frames(one_staged, 5)
+    _, x_st = frame_times("exact", renderers["exact"], scene, scene_color,
+                          view_depth, runs["exact"][1][-1], 5)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        renderers["exact"].frame_tables(x_st, scene, 0.5)
+    torch.cuda.synchronize()
+    log(f"# host prep (frame_tables), exact: "
+        f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms/frame")
 
     n = 20
     ms = {
-        "bake_radiance": cuda_time_ms(lambda: ff.bake_radiance(tables), n),
-        "shadow_scatter": cuda_time_ms(
+        "bake_radiance": kernel_time_ms(lambda: ff.bake_radiance(tables), n),
+        "shadow_scatter": kernel_time_ms(
             lambda: ff.shadow_scatter(tables, prev_sh, bake), n),
-        "integrate_blend": cuda_time_ms(
+        "integrate_blend": kernel_time_ms(
             lambda: ff.integrate_blend(tables, sc, prev_acc), n),
-        "composite": cuda_time_ms(
+        "composite": kernel_time_ms(
             lambda: zg.composite(acc, scene_color, view_depth, params,
                                  cfg.grid), n),
+        "shadow_blend": kernel_time_ms(
+            lambda: sb.dir_shadow_blend(tables, prev_sh), n),
+        "scatter": kernel_time_ms(
+            lambda: sca.scatter_local(tables, sh, bake), n),
+        "dir_shadow": kernel_time_ms(lambda: ds.dir_shadow(tables), n),
+        "integrate": kernel_time_ms(lambda: integ.accumulate(tables, sc), n),
     }
+    per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
     n_p = 3
     plain_ms = {
         "bake_radiance": cuda_time_ms(lambda: ff.bake_radiance_plain(tables),
@@ -272,12 +421,20 @@ def main() -> int:
         "composite": cuda_time_ms(
             lambda: zg.composite_plain(acc, scene_color, view_depth, params,
                                        cfg.grid), n_p),
+        "shadow_blend": cuda_time_ms(
+            lambda: sb.dir_shadow_blend_plain(tables, prev_sh), n_p),
+        "scatter": cuda_time_ms(
+            lambda: sca.scatter_local_plain(tables, sh, bake), n_p),
+        "dir_shadow": cuda_time_ms(lambda: ds.dir_shadow_plain(tables), n_p),
+        "integrate": cuda_time_ms(
+            lambda: integ.accumulate_plain(tables, sc), n_p),
     }
+    per_light_plain_ms = cuda_time_ms(
+        lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
     # yardstick for K4: one grid_sample computing the same trilinear of
     # (L, T) at (pixel -> froxel xy, fz), border clamp (used nowhere else)
     w, h, d = cfg.grid
     ih, iw = view_depth.shape
-    from volumetricrenderer_tpu_torch import froxel
     fz = torch.clamp(froxel.depth_to_froxel_z(params, view_depth) - 0.5,
                      0.0, d - 1.0)
     gx = ((torch.arange(iw, device="cuda") + 0.5) / iw * 2.0 - 1.0)
@@ -289,7 +446,7 @@ def main() -> int:
     gs = lambda: torch.nn.functional.grid_sample(
         vol, grid, mode="bilinear", padding_mode="border",
         align_corners=False)
-    lib_ms = cuda_time_ms(gs, n)
+    lib_ms = kernel_time_ms(gs, n)
     gs_err = float((gs()[0, :, 0].permute(1, 2, 0)[..., 3]
                     - out[..., 3]).abs().max())
     log(f"# grid_sample yardstick: {lib_ms:.4f} ms, max |T - K4 T| "
@@ -307,8 +464,11 @@ def main() -> int:
     ops_ray = 14 * tables.n_planes + 22 * tables.n_spheres \
         + 30 * tables.n_boxes
     active_pairs = int(tables.active.sum()) * hl * wl
+    # the exact path's (froxel, light) pairs: each slice's scheduled lights
+    full_pairs = int(x_tables.count.sum()) * h * w
     ops_perlin = 3 * 8 * 40      # 3 octaves x 8 corners x hash + grad + lerp
     n_noise = tables.n_noise
+    n_media = len(scene.media)
     # one reprojection per froxel and blend: the three tent passes read
     # offsets taken at their own output points, so each froxel's offset
     # triple serves all three (the kernels recompute neighbours' offsets,
@@ -317,6 +477,9 @@ def main() -> int:
     # the three 1-D tent passes: 6 tent weights (4 ops each) per froxel,
     # then 6 taps (multiply + add) per channel
     warp = lambda channels: 24 + 12 * channels
+    ops_shadow = ops_reproj + warp(nd) + nd * (30 + ops_ray)
+    ops_scatter = (3 + n_noise) * 20 + 60 * n_media + 40 * nd + 40
+    ops_integrate = 4 * 20 + 30
     work = {
         "bake_radiance": (
             4 * (3 + n_noise) * n_low,
@@ -325,35 +488,66 @@ def main() -> int:
         "shadow_scatter": (
             4 * (nd * n_fro + (3 + n_noise) * n_low
                  + nd * n_fro + 4 * n_fro),
-            n_fro * (ops_reproj + warp(nd) + nd * (30 + ops_ray)
-                     + (3 + n_noise) * 20 + 60 * len(scene.media)
-                     + 40 * nd + 40)),
+            n_fro * (ops_shadow + ops_scatter)),
         "integrate_blend": (
             4 * (4 * n_fro + 4 * n_fro + 4 * n_fro),
-            n_fro * (4 * 20 + 30 + ops_reproj + warp(4) + 12)),
+            n_fro * (ops_integrate + ops_reproj + warp(4) + 12)),
         "composite": (
             4 * (4 * n_fro + n_pix + 3 * n_pix + 4 * n_pix),
             n_pix * (20 + 8 * 4 * 2 + 16)),
+        "shadow_blend": (4 * 2 * nd * n_fro, n_fro * ops_shadow),
+        "scatter": (
+            4 * (nd * n_fro + (3 + n_noise) * n_low + 4 * n_fro),
+            n_fro * ops_scatter),
+        "dir_shadow": (4 * nd * n_fro, n_fro * nd * (30 + ops_ray)),
+        "integrate": (4 * (4 * n_fro + 4 * n_fro), n_fro * ops_integrate),
     }
+    # K6 per-light: the shadow in, the planes out; per froxel the material
+    # with its Perlin and the sun term, per scheduled (froxel, light) pair
+    # the light factor and one ray
+    noise_media = sum(1 for st in x_tables.media_static if st[0])
+    per_light_work = (
+        4 * (nd * n_fro + 4 * n_fro),
+        n_fro * (60 * n_media + ops_perlin * noise_media + 40 * nd + 40)
+        + full_pairs * (60 + ops_ray))
     log(f"# bound inputs: {prims} primitives, {active_pairs} active "
-        f"(low sample, light) pairs, {n_noise} noise channel(s)")
-    kernels = []
-    for name in cuda.SOURCES:
-        nbytes, nops = work[name]
+        f"(low sample, light) pairs, {n_noise} noise channel(s), "
+        f"{full_pairs} scheduled (froxel, light) pairs on the exact path")
+
+    def bound(nbytes, nops):
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * nops / FP32_FLOPS
-        kernels.append({
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+            else "operations"
+
+    kernels = []
+    for name in cuda.SOURCES:
+        b_ms, b_by = bound(*work[name])
+        entry = {
             "name": name, "route": "cuda",
             "source": f"volumetricrenderer_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
             "max_abs_err": errs[name], "ms": ms[name],
-            "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms if name == "composite" else None,
-        })
+        }
         log(f"# {name}: {ms[name]:.4f} ms/launch, plain {plain_ms[name]:.3f}"
-            f" ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP)")
+            f" ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} "
+            f"GFLOP)")
+        if name == "scatter":
+            b_ms, b_by = bound(*per_light_work)
+            entry["per_light"] = {
+                "max_abs_err": per_light_err, "ms": per_light_ms,
+                "plain_ms": per_light_plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            log(f"# scatter, per-light mode: {per_light_ms:.4f} ms/launch, "
+                f"plain {per_light_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({per_light_work[0] / 1e6:.1f} MB, "
+                f"{per_light_work[1] / 1e9:.2f} GFLOP)")
+        kernels.append(entry)
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(smi, flush=True)

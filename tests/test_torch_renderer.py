@@ -130,7 +130,13 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
                                 dict(composite_impl="tentmm"),
                                 dict(composite_upsample=2),
                                 dict(shadow_mode="map"),
-                                dict(frame_fused=False)])
+                                dict(frame_fused=False, scatter_bake="vis"),
+                                dict(material_impl="xla"),
+                                dict(reproj_impl="windowed"),
+                                dict(frame_fused=False,
+                                     temporal_blend_scatter=True),
+                                dict(frame_fused=False,
+                                     accumulate_impl="xla")])
 def test_unported_configs_raise(kw):
     r = vt.VolumetricRenderer(
         dataclasses.replace(vt.FULL_CONFIG, **SMALL, **kw), device="cpu")

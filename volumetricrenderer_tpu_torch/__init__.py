@@ -3,8 +3,10 @@ and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 A port of `volumetricrenderer_tpu` (JAX on a TPU), which stays the
 reference. This package imports torch and numpy, never JAX or the JAX
-package. The ported slice is the production frame: the fused volume phase
-and the zgather composite (see ROADMAP.md for what remains).
+package. Ported so far: the production frame (the fused volume phase and
+the zgather composite) and the staged frame beside it (shadow, scatter and
+integrate as separate kernels, with the exact per-light scatter); see
+ROADMAP.md for what remains.
 """
 
 from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,

@@ -4,7 +4,9 @@ PyTorch counterpart of `volumetricrenderer_tpu/config.py`: the same frozen
 dataclass with the same fields and defaults, so a config reads the same in
 both packages. Fields that select between JAX implementations (`*_impl`,
 `frame_fused`, `composite_precision`) are kept for that reason: the port's
-renderer checks them and runs only the production (fused + zgather) path.
+renderer routes on them as the JAX renderer does (fused or staged volume
+phase, low-rate bake or per-light scatter) and raises on a value whose
+branch is not ported.
 """
 
 from __future__ import annotations

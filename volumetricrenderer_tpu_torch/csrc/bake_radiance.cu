@@ -3,7 +3,10 @@
 // Replaces stage 0 of the TPU megakernel
 // (volumetricrenderer_tpu/ops/pallas/frame_fused.py `_kernel`, lines
 // 179-262: the inline radiance bake with INLINE_VIS), which baked low slices
-// into a VMEM ring just ahead of the scatter that reads them. Here the whole
+// into a VMEM ring just ahead of the scatter that reads them; and the
+// standalone TPU kernel that bakes the same volume for the staged frame
+// (volumetricrenderer_tpu/ops/pallas/visibility.py `_radiance_kernel` /
+// `bake_radiance_pallas`). Here the whole
 // low volume [3 + n_noise, DL, HL, WL] is baked up front into device memory
 // (65,280 samples at FULL, ss=4: 1 MB), before shadow_scatter reads it.
 //
@@ -72,9 +75,10 @@ __global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
   out[plane + i] = acc_g;
   out[2 * plane + i] = acc_b;
 
-  // material.noise_factor_planes
+  // material.noise_factor_planes; out has no noise channels when the fBm
+  // is not baked (n_noise = 0)
   int ni = 0;
-  for (int mi = 0; mi < T.n_media; ++mi) {
+  for (int mi = 0; mi < T.n_media && ni < T.n_noise; ++mi) {
     if (!T.med_static[6 * mi]) continue;
     out[(3 + ni) * plane + i] = noise_factor(T, mi, wx, wy, wz);
     ++ni;

@@ -1,8 +1,11 @@
 // Device helpers shared by the volume-phase kernels (bake_radiance.cu,
-// shadow_scatter.cu, integrate_blend.cu).
+// shadow_scatter.cu, integrate_blend.cu, shadow_blend.cu, dir_shadow.cu,
+// scatter.cu, integrate.cu).
 //
-// Each function is the CUDA form of a device helper that the TPU megakernel
-// (volumetricrenderer_tpu/ops/pallas/frame_fused.py) inlines, and of its
+// Each function is the CUDA form of a device helper that the TPU kernels
+// (volumetricrenderer_tpu/ops/pallas/: frame_fused.py inlines the bodies of
+// dir_shadow.py, shadow_blend.py, scatter.py, integrate.py and
+// integrate_blend.py) share, and of its
 // plain-torch twin in volumetricrenderer_tpu_torch/ops/: the arithmetic is
 // written in the same order so that, built without fast math and without
 // FMA contraction, a kernel agrees with its twin to a few ulp.
@@ -17,7 +20,8 @@
 
 // Packed tables and dims of one frame (the wrapper fills it from the
 // pack_* tables; mirrored by ops/cuda.py VrTables). All pointers are device
-// pointers to contiguous arrays.
+// pointers to contiguous arrays; a table the frame does not have is null
+// (the low-grid tables at ss = 1, the light schedule at ss > 1).
 struct VrTables {
   const float* spar;      // [24] pack_params (jittered)
   const float* sbpar;     // [24] pack_blend_params, shadow blend
@@ -35,6 +39,8 @@ struct VrTables {
   const float* tent_xw;   // [2, W] its two weights
   const int* tent_yk;     // [H]
   const float* tent_yw;   // [2, H]
+  const int* order;       // [D, NL] slice_light_order: active lights first
+  const int* count;       // [D] number of active lights of the slice
   int n_dir, n_lights, n_planes, n_spheres, n_boxes, n_media, n_noise;
   int jitter_dir;  // 1: the sun scatter uses the jittered position
   int w, h, d, h_glob, k, ss, wl, hl, dl;
@@ -138,6 +144,34 @@ __device__ __forceinline__ float light_factor(
   float b = 1.0f + g2 - 2.0f * phg * cos_t;
   float rb = rsqrt_exact(b);
   return hg_num * rb * rb * rb * fall;
+}
+
+// dir_shadow.froxel_world: world position of froxel (z, y, x) at its centre,
+// jittered or not.
+__device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
+                                                    int y, int x,
+                                                    bool jittered, float& wx,
+                                                    float& wy, float& wz) {
+  const float* p = T.spar;
+  const float jx = jittered ? p[17] : 0.0f;
+  const float jy = jittered ? p[18] : 0.0f;
+  const float jz = jittered ? p[19] : 0.0f;
+  const float vz = view_z(p, (float)z + 0.5f + jz, T.d);
+  const float ys = clampf((float)y + p[23], 0.0f, (float)T.h_glob - 1.0f);
+  froxel_world(p, (float)x + 0.5f + jx, ys + 0.5f + jy, vz, T.w, T.h_glob,
+               wx, wy, wz);
+}
+
+// dir_shadow.dir_shadow_slice: sun li's visibility at a world position, one
+// any-hit ray towards the sun, squared and gated by has_shadow.
+__device__ __forceinline__ float sun_shadow(const VrTables& T, int li,
+                                            float wx, float wy, float wz) {
+  const float* q = T.slights + 8 * li;
+  const float strength_r = q[3], gate = q[4];
+  const bool occ = any_hit(T, wx, wy, wz, -q[0], -q[1], -q[2], 1e4f);
+  float vis = strength_r + (1.0f - strength_r) * (1.0f - (occ ? 1.f : 0.f));
+  vis = vis * vis;
+  return 1.0f + gate * (vis - 1.0f);
 }
 
 // ---- material.py: uint32 lattice hash, Perlin, fBm, media ----------------
@@ -413,4 +447,174 @@ __device__ float upsample_low(const VrTables& T, const float* vol, int z,
     rows[r] = l0 * wx0 + l1 * wx1;
   }
   return rows[0] * wy0 + rows[1] * wy1;
+}
+
+// ---- shadow_blend.py: the weight-mode shadow blend -------------------------
+
+// cur[li] + alpha * success * (warped history - cur[li]) for every sun at
+// froxel (z, y, x): jittered reprojection with the 1e-4 uvw nudge (sbpar),
+// 8-tap warp of prev_sh [Nd, D, H, W] (n = D*H*W).
+__device__ __forceinline__ void shadow_blend_froxel(
+    const VrTables& T, const float* __restrict__ prev_sh, long n, int z,
+    int y, int x, const float* cur, float* blended) {
+  const float* sb = T.sbpar;
+  const float vzc = view_z(sb, (float)z + 0.5f, T.d);
+  const Reproj r0 = reproj_offsets(sb, z, y, x, vzc, T.w, T.h, T.d, T.h_glob,
+                                   T.k, true);
+  const float swgt = sb[20] * r0.success;
+  for (int li = 0; li < T.n_dir; ++li) {
+    float warped;
+    warp8<1>(sb, prev_sh + li * n, n, z, y, x, vzc, T.w, T.h, T.d, T.h_glob,
+             T.k, true, r0, &warped);
+    blended[li] = cur[li] + swgt * (warped - cur[li]);
+  }
+}
+
+// ---- scatter.py: the per-froxel in-scatter ---------------------------------
+
+// scatter.scatter_slice at froxel (z, y, x) with the material evaluated
+// here at the jittered world position (wx, wy, wz): out = (r, g, b, ext).
+// Local lights, PER_LIGHT false: the low-rate radiance of `bake`
+// [3 + n_noise, DL, HL, WL] upsampled, times sigma_s, the fBm factors
+// upsampled from its noise channels when n_noise > 0. PER_LIGHT true (bake
+// unused): every light of the slice's schedule order[z][0 .. count[z]) adds
+// light_factor x (1 - any_hit x gate) x colour x sigma_s, in schedule order
+// (ascending light index), and the fBm is evaluated here. Then every sun
+// adds colour x blended[li] x HG x sigma_s at the unjittered centre (the
+// jittered one with jitter_dir); ext = luma(sigma_s) + sigma_a per sun.
+template <bool PER_LIGHT>
+__device__ void scatter_froxel(const VrTables& T,
+                               const float* __restrict__ bake, int z, int y,
+                               int x, float wx, float wy, float wz,
+                               const float* blended, float* out) {
+  const float* p = T.spar;
+  const long lplane = (long)T.dl * T.hl * T.wl;
+  float noise[VR_MAX_NOISE];
+  const bool baked_noise = !PER_LIGHT && T.n_noise > 0;
+  if (baked_noise)
+    for (int c = 0; c < T.n_noise; ++c)
+      noise[c] = upsample_low(T, bake + (3 + c) * lplane, z, y, x);
+  float sr, sg, sbl, s_a, phg;
+  material(T, wx, wy, wz, baked_noise ? noise : nullptr, sr, sg, sbl, s_a,
+           phg);
+  const float ext = (0.3f * sr + 0.59f * sg + 0.11f * sbl + s_a)
+                    * (float)T.n_dir;
+  const float g2 = phg * phg;
+  const float hg_num = (1.0f - g2) / (float)(4.0 * VR_PI);
+  float ar, ag, ab;
+  if constexpr (PER_LIGHT) {
+    float vdx = wx - p[20], vdy = wy - p[21], vdz = wz - p[22];
+    const float invd = rsqrt_exact(vdx * vdx + vdy * vdy + vdz * vdz
+                                   + 1e-18f);
+    vdx = vdx * invd;
+    vdy = vdy * invd;
+    vdz = vdz * invd;
+    ar = ag = ab = 0.0f;
+    const int* ord = T.order + (long)z * T.n_lights;
+    const int n_act = T.count[z];
+    for (int j = 0; j < n_act; ++j) {
+      const float* q = T.lights + 16 * ord[j];
+      float ldx, ldy, ldz, dist;
+      const float factor = light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg,
+                                        g2, hg_num, ldx, ldy, ldz, dist);
+      const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz,
+                               dist - 0.05f);
+      const float base = factor * (1.0f - (occ ? 1.0f : 0.0f) * q[14]);
+      ar = ar + base * q[3] * sr;
+      ag = ag + base * q[4] * sg;
+      ab = ab + base * q[5] * sbl;
+    }
+  } else {
+    ar = upsample_low(T, bake, z, y, x) * sr;
+    ag = upsample_low(T, bake + lplane, z, y, x) * sg;
+    ab = upsample_low(T, bake + 2 * lplane, z, y, x) * sbl;
+  }
+  if (T.n_dir) {
+    float cwx = wx, cwy = wy, cwz = wz;
+    if (!T.jitter_dir) froxel_center_world(T, z, y, x, false, cwx, cwy, cwz);
+    float dvx = cwx - p[20], dvy = cwy - p[21], dvz = cwz - p[22];
+    const float inv = rsqrt_exact(dvx * dvx + dvy * dvy + dvz * dvz + 1e-18f);
+    dvx = dvx * inv;
+    dvy = dvy * inv;
+    dvz = dvz * inv;
+    for (int li = 0; li < T.n_dir; ++li) {
+      const float* q = T.dirs + 8 * li;
+      const float cos_t = -(dvx * q[0] + dvy * q[1] + dvz * q[2]);
+      const float b = 1.0f + g2 - 2.0f * phg * cos_t;
+      const float rb = rsqrt_exact(b);
+      const float hg = hg_num * rb * rb * rb;
+      const float base = blended[li] * hg;
+      ar = ar + base * q[3] * sr;
+      ag = ag + base * q[4] * sg;
+      ab = ab + base * q[5] * sbl;
+    }
+  }
+  out[0] = ar;
+  out[1] = ag;
+  out[2] = ab;
+  out[3] = ext;
+}
+
+// ---- integrate.py: the jittered xy sample and the slice integral -----------
+
+// integrate.make_xy_blend weights for the jitter offset (ox, oy) in (-1, 1):
+// x taps (-1, 0, +1) then y taps.
+__device__ __forceinline__ void xy_blend_weights(float ox, float oy,
+                                                 float* wts) {
+  wts[0] = fmaxf(-ox, 0.0f);
+  wts[1] = 1.0f - fabsf(ox);
+  wts[2] = fmaxf(ox, 0.0f);
+  wts[3] = fmaxf(-oy, 0.0f);
+  wts[4] = 1.0f - fabsf(oy);
+  wts[5] = fmaxf(oy, 0.0f);
+}
+
+// The 3-tap clamped xy tent of the 4 scatter planes sc [4, D, H, W]
+// (n = D*H*W) at (z, y, x), x first then y.
+__device__ __forceinline__ void xy_blend4(const float* __restrict__ sc,
+                                          long n, int z, int y, int x,
+                                          int w, int h, const float* wts,
+                                          float* out) {
+  const int xm = max(x - 1, 0), xp = min(x + 1, w - 1);
+  const int ym = max(y - 1, 0), yp = min(y + 1, h - 1);
+  const int rows[3] = {ym, y, yp};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* pl = sc + c * n + (long)z * h * w;
+    float px[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float* row = pl + (long)rows[r] * w;
+      px[r] = wts[0] * __ldg(row + xm) + wts[1] * __ldg(row + x)
+              + wts[2] * __ldg(row + xp);
+    }
+    out[c] = wts[3] * px[0] + wts[4] * px[1] + wts[5] * px[2];
+  }
+}
+
+// One slice of the front-to-back integral: advances the carry
+// (L_r, L_g, L_b, T) by the sampled (r, g, b, ext) of slice z, whose
+// thickness comes from the depth mapping (fpw, near; lfpz = log(fpz)). The
+// expm1 form, Taylor below an optical depth of 1e-2.
+__device__ __forceinline__ void integrate_slice(float lfpz, float fpw,
+                                                float near_, int z, int d,
+                                                const float* sampled,
+                                                float* carry) {
+  const float zf = (float)z;
+  const float vz_hi = (expf(lfpz * (zf + 0.5f) / (float)d) - 1.0f) * fpw
+                      + near_;
+  const float vz_lo = zf > 0.0f
+      ? (expf(lfpz * (zf - 0.5f) / (float)d) - 1.0f) * fpw + near_
+      : near_;
+  const float dz = vz_hi - vz_lo;
+  const float od = sampled[3] * dz;
+  const float t = expf(-od);
+  const bool small = od < 1e-2f;
+  const float factor = small
+      ? dz * (1.0f - 0.5f * od * (1.0f - od / 3.0f))
+      : (1.0f - t) / sampled[3];
+  const float tc = carry[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) carry[c] = carry[c] + tc * sampled[c] * factor;
+  carry[3] = tc * t;
 }

@@ -4,7 +4,10 @@
 // Replaces the integrate and accumulation-blend stages of the TPU megakernel
 // (volumetricrenderer_tpu/ops/pallas/frame_fused.py `_kernel`, lines
 // 281-324 and 365-388, with integrate.make_xy_blend and
-// temporal._reproj_offsets/_tent_pass inlined). The TPU carried (L, T) from
+// temporal._reproj_offsets/_tent_pass inlined), and the standalone TPU
+// kernel that computes the same four planes for the staged frame
+// (volumetricrenderer_tpu/ops/pallas/integrate_blend.py `_kernel` /
+// `integrate_blend_fused`). The TPU carried (L, T) from
 // one sequential grid step to the next in VMEM scratch; here one thread owns
 // one (y, x) column and carries (L, T) in registers while it marches z.
 //
@@ -26,27 +29,6 @@
 // the column march or stages tiles in shared memory can address.
 #include "common.cuh"
 
-__device__ __forceinline__ void xy_blend4(const float* __restrict__ sc,
-                                          long n, int z, int y, int x,
-                                          int w, int h, const float* wts,
-                                          float* out) {
-  const int xm = max(x - 1, 0), xp = min(x + 1, w - 1);
-  const int ym = max(y - 1, 0), yp = min(y + 1, h - 1);
-  const int rows[3] = {ym, y, yp};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float* pl = sc + c * n + (long)z * h * w;
-    float px[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float* row = pl + (long)rows[r] * w;
-      px[r] = wts[0] * __ldg(row + xm) + wts[1] * __ldg(row + x)
-              + wts[2] * __ldg(row + xp);
-    }
-    out[c] = wts[3] * px[0] + wts[4] * px[1] + wts[5] * px[2];
-  }
-}
-
 __global__ void integrate_blend_kernel(VrTables T,
                                        const float* __restrict__ sc,
                                        const float* __restrict__ prev_acc,
@@ -58,12 +40,12 @@ __global__ void integrate_blend_kernel(VrTables T,
   const int y = i / w;
   const long n = (long)d * h * w;
   const float* ap = T.abpar;
-  const float fpz = ap[14], fpw = ap[15], near_ = ap[16];
+  const float fpw = ap[15], near_ = ap[16];
   const float alpha = ap[20];
-  const float ox = ap[24], oy = ap[25], oz = ap[26];
-  const float wts[6] = {fmaxf(-ox, 0.0f), 1.0f - fabsf(ox), fmaxf(ox, 0.0f),
-                        fmaxf(-oy, 0.0f), 1.0f - fabsf(oy), fmaxf(oy, 0.0f)};
-  const float lfpz = logf(fpz);
+  const float oz = ap[26];
+  float wts[6];
+  xy_blend_weights(ap[24], ap[25], wts);
+  const float lfpz = logf(ap[14]);
 
   float cur[4], nxt[4];
   xy_blend4(sc, n, 0, y, x, w, h, wts, cur);
@@ -78,30 +60,11 @@ __global__ void integrate_blend_kernel(VrTables T,
     float sampled[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) sampled[c] = cur[c] + oz * (nxt[c] - cur[c]);
+    integrate_slice(lfpz, fpw, near_, z, d, sampled, carry);
 
-    const float zf = (float)z;
-    const float vz_hi = (expf(lfpz * (zf + 0.5f) / (float)d) - 1.0f) * fpw
-                        + near_;
-    const float vz_lo = zf > 0.0f
-        ? (expf(lfpz * (zf - 0.5f) / (float)d) - 1.0f) * fpw + near_
-        : near_;
-    const float dz = vz_hi - vz_lo;
-    const float od = sampled[3] * dz;
-    const float t = expf(-od);
-    const bool small = od < 1e-2f;
-    const float factor = small
-        ? dz * (1.0f - 0.5f * od * (1.0f - od / 3.0f))
-        : (1.0f - t) / sampled[3];
-    const float tc = carry[3];
-    float vals[4];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) vals[c] = carry[c] + tc * sampled[c] * factor;
-    vals[3] = tc * t;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) carry[c] = vals[c];
-
-    // accumulation blend (alpha mode: success = warped T != 0)
-    const float vzc = view_z(ap, zf + 0.5f, d);
+    // accumulation blend (alpha mode: success = warped T != 0); the carry
+    // continues with the un-blended values
+    const float vzc = view_z(ap, (float)z + 0.5f, d);
     const Reproj r0 = reproj_offsets(ap, z, y, x, vzc, w, h, d, T.h_glob,
                                      T.k, false);
     float warped[4];
@@ -111,7 +74,7 @@ __global__ void integrate_blend_kernel(VrTables T,
     const long o = ((long)z * h + y) * w + x;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      out_acc[c * n + o] = vals[c] + wgt * (warped[c] - vals[c]);
+      out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
 #pragma unroll
     for (int c = 0; c < 4; ++c) cur[c] = nxt[c];
   }

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite")
+SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
+           "shadow_blend", "scatter", "dir_shadow", "integrate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,7 +45,7 @@ class VrTables(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "spar", "sbpar", "abpar", "slights", "dirs", "lights", "planes",
         "spheres", "boxes", "med", "med_static", "active", "tent_xk",
-        "tent_xw", "tent_yk", "tent_yw")]
+        "tent_xw", "tent_yk", "tent_yw", "order", "count")]
         + [(n, ctypes.c_int) for n in (
             "n_dir", "n_lights", "n_planes", "n_spheres", "n_boxes",
             "n_media", "n_noise", "jitter_dir", "w", "h", "d", "h_glob", "k",
@@ -122,6 +123,10 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "integrate_blend": ("vr_integrate_blend", [tp, vp, vp, vp, vp]),
         "composite": ("vr_composite",
                       [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]),
+        "shadow_blend": ("vr_shadow_blend", [tp, vp, vp, vp]),
+        "scatter": ("vr_scatter", [tp, vp, vp, vp, vp]),
+        "dir_shadow": ("vr_dir_shadow", [tp, vp, vp]),
+        "integrate": ("vr_integrate", [tp, vp, vp, vp]),
     }[name]
     fn = getattr(cdll, sig[0])
     fn.argtypes = sig[1]

@@ -1,8 +1,10 @@
 """Raycast sun shadow at the jittered froxel centre.
 
-Plain-torch twin of `volumetricrenderer_tpu/ops/pallas/dir_shadow.py`
-`dir_shadow_slice`; the CUDA counterpart is `dir_shadow` in
-`csrc/common.cuh`, called by the shadow_scatter kernel.
+Counterpart of `volumetricrenderer_tpu/ops/pallas/dir_shadow.py`: the
+plain-torch twin of `dir_shadow_slice`, and `dir_shadow`, the wrapper of the
+CUDA kernel K7 (`csrc/dir_shadow.cu`) that stands for `dir_shadow_pallas`.
+The per-froxel device code is `sun_shadow` in `csrc/common.cuh`, shared with
+the shadow_blend and shadow_scatter kernels.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 
 
@@ -65,4 +68,31 @@ def dir_shadow_slice(par, lights, planes, spheres, boxes, zi, *,
         vis = strength_r + (1.0 - strength_r) * (1.0 - occ.to(torch.float32))
         vis = vis * vis
         out.append(1.0 + gate * (vis - 1.0))
+    return out
+
+
+# --------------------------------------------------------------------------
+# K7 dir_shadow (csrc/dir_shadow.cu)
+# --------------------------------------------------------------------------
+
+def dir_shadow_plain(t) -> torch.Tensor:
+    """Twin of K7: the unblended shadow volume [Nd, D, H, W] of one frame's
+    tables (ops/frame_fused.FrameTables)."""
+    zs = torch.arange(t.grid_whd[2], device=t.spar.device)[:, None, None]
+    return torch.stack(dir_shadow_slice(
+        t.spar, t.slights, t.planes, t.spheres, t.boxes, zs,
+        grid_whd=t.grid_whd, n_lights=t.n_dir, n_planes=t.n_planes,
+        n_spheres=t.n_spheres, n_boxes=t.n_boxes, max_dist=1e4,
+        h_glob=t.h_glob))
+
+
+def dir_shadow(t) -> torch.Tensor:
+    """K7: the unblended raycast shadow volume [Nd, D, H, W]."""
+    if t.spar.device.type == "cpu":
+        return dir_shadow_plain(t)
+    w, h, d = t.grid_whd
+    out = torch.empty((t.n_dir, d, h, w), dtype=torch.float32,
+                      device=t.spar.device)
+    st = t.c_struct()
+    cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out))
     return out

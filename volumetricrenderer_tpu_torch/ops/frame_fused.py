@@ -20,15 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops import dir_shadow as dir_shadow_lib
-from volumetricrenderer_tpu_torch.ops.integrate import (make_xy_blend,
-                                                        slice_depths)
+from volumetricrenderer_tpu_torch.ops.integrate import accumulate_plain
 from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
                                                        pack_media,
                                                        phase_g_plane)
@@ -37,7 +36,10 @@ from volumetricrenderer_tpu_torch.ops.phase import PI
 from volumetricrenderer_tpu_torch.ops.scatter import (pack_dir_lights,
                                                       pack_lights,
                                                       pack_params,
-                                                      scatter_slice)
+                                                      scatter_local_plain,
+                                                      slice_light_order)
+from volumetricrenderer_tpu_torch.ops.shadow_blend import \
+    dir_shadow_blend_plain
 from volumetricrenderer_tpu_torch.ops.temporal import (pack_blend_params,
                                                        reproj_offsets, warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
@@ -45,8 +47,7 @@ from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          low_res_dims,
                                                          low_slice_active,
                                                          radiance_view_dirs,
-                                                         tent_taps,
-                                                         upsample_low)
+                                                         tent_taps)
 
 MAX_DIR = 4     # csrc/common.cuh VR_MAX_DIR
 MAX_NOISE = 4   # csrc/common.cuh VR_MAX_NOISE
@@ -55,21 +56,26 @@ MAX_NOISE = 4   # csrc/common.cuh VR_MAX_NOISE
 @dataclasses.dataclass(frozen=True)
 class FrameTables:
     """Host prep of one frame: the packed tables the kernels read (float32
-    or int32 tensors on the frame's device) and the static counts."""
+    or int32 tensors on the frame's device) and the static counts. A table
+    is None where the frame has no use for it: the low-grid tables (active,
+    tent_x, tent_y) at ss = 1, the full-rate light schedule (order, count)
+    at ss > 1, and the tables of a scene part that was not given."""
     spar: torch.Tensor        # [1, 24] pack_params (jittered)
     sbpar: torch.Tensor       # [1, 24] shadow blend (jitter, eps 1e-4)
     abpar: torch.Tensor       # [1, 28] acc blend (no jitter, eps 0) + jitter
-    slights: torch.Tensor     # [Nd, 8] dir_shadow.pack_dir_lights
-    dirs: torch.Tensor        # [Nd, 8] scatter.pack_dir_lights
-    lights: torch.Tensor      # [NL, 16]
-    planes: torch.Tensor      # [max(P,1), 4]
-    spheres: torch.Tensor     # [max(S,1), 4]
-    boxes: torch.Tensor       # [max(B,1), 8]
-    med: torch.Tensor         # [M, 20]
-    med_static: torch.Tensor  # [M, 6] int32
-    active: torch.Tensor      # [NL, DL] int32 (low_slice_active)
-    tent_x: Tuple[torch.Tensor, torch.Tensor]   # (k0 [W], w [2, W])
-    tent_y: Tuple[torch.Tensor, torch.Tensor]   # (k0 [H], w [2, H])
+    slights: Optional[torch.Tensor]     # [Nd, 8] dir_shadow.pack_dir_lights
+    dirs: Optional[torch.Tensor]        # [Nd, 8] scatter.pack_dir_lights
+    lights: Optional[torch.Tensor]      # [NL, 16]
+    planes: Optional[torch.Tensor]      # [max(P,1), 4]
+    spheres: Optional[torch.Tensor]     # [max(S,1), 4]
+    boxes: Optional[torch.Tensor]       # [max(B,1), 8]
+    med: Optional[torch.Tensor]         # [M, 20]
+    med_static: Optional[torch.Tensor]  # [M, 6] int32
+    active: Optional[torch.Tensor]      # [NL, DL] int32 (low_slice_active)
+    tent_x: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (k0 [W], w [2, W])
+    tent_y: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (k0 [H], w [2, H])
+    order: Optional[torch.Tensor]       # [D, NL] int32 (slice_light_order)
+    count: Optional[torch.Tensor]       # [D] int32
     jitter: np.ndarray        # [3] float32, host copy
     media_static: tuple
     grid_whd: Tuple[int, int, int]
@@ -85,7 +91,9 @@ class FrameTables:
 
     @property
     def low_dims(self):
-        return low_res_dims(self.grid_whd, self.ss)
+        """(WL, HL, DL) of the low grid; zeros at ss = 1, which has none."""
+        return low_res_dims(self.grid_whd, self.ss) if self.ss > 1 \
+            else (0, 0, 0)
 
     def to(self, device) -> "FrameTables":
         """The same tables on `device`: packed into one float32 and one
@@ -108,6 +116,8 @@ class FrameTables:
         moved = {}
         for dtype in (torch.float32, torch.int32):
             idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+            if not idx:
+                continue
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
             if flat.device.type == "cpu" and device.type == "cuda":
                 flat = flat.pin_memory().to(device, non_blocking=True)
@@ -130,14 +140,17 @@ class FrameTables:
         """The ctypes mirror of csrc/common.cuh VrTables."""
         w, h, d = self.grid_whd
         wl, hl, dl = self.low_dims
-        p = cuda.ptr
+        p = lambda t: None if t is None else cuda.ptr(t)   # None: NULL
+        rows = lambda t: 0 if t is None else t.shape[0]
+        tent_x = self.tent_x or (None, None)
+        tent_y = self.tent_y or (None, None)
         return cuda.VrTables(
             p(self.spar), p(self.sbpar), p(self.abpar), p(self.slights),
             p(self.dirs), p(self.lights), p(self.planes), p(self.spheres),
             p(self.boxes), p(self.med), p(self.med_static), p(self.active),
-            p(self.tent_x[0]), p(self.tent_x[1]), p(self.tent_y[0]),
-            p(self.tent_y[1]), self.n_dir, self.lights.shape[0],
-            self.n_planes, self.n_spheres, self.n_boxes, self.med.shape[0],
+            p(tent_x[0]), p(tent_x[1]), p(tent_y[0]), p(tent_y[1]),
+            p(self.order), p(self.count), self.n_dir, rows(self.lights),
+            self.n_planes, self.n_spheres, self.n_boxes, rows(self.med),
             self.n_noise, int(self.jitter_dir), w, h, d, self.h_glob, self.k,
             self.ss, wl, hl, dl)
 
@@ -153,16 +166,24 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                  vis_ss: int, bake_noise: bool,
                  jitter_dir: bool = False) -> FrameTables:
     """Pack every table of one frame: plain torch on the CPU, where the
-    scene description must lie (FrameTables.to moves the result)."""
+    scene description must lie (FrameTables.to moves the result).
+
+    vis_ss > 1 packs the low grid of the radiance bake (active, tent taps);
+    vis_ss = 1 has no low grid and packs the full-rate light schedule of the
+    per-light scatter instead. A scene part passed as None (dir_lights, the
+    local lights, geometry, media) leaves its tables None: the
+    single-kernel wrappers pack only what their kernel reads."""
     w, h, d = grid_whd
     if view_to_world.device.type != "cpu":
         raise ValueError("frame tables are packed on the host: pass the "
                          "scene description on the CPU")
-    nd = dir_lights.count
-    if not 0 < nd <= MAX_DIR:
+    nd = dir_lights.count if dir_lights is not None else 0
+    if dir_lights is not None and not 0 < nd <= MAX_DIR:
         raise NotImplementedError(f"{nd} directional lights: the port takes "
                                   f"1 to {MAX_DIR}")
     jit = np.asarray(jitter, np.float32).reshape(3)
+    if camera_pos is None:
+        camera_pos = torch.zeros(3)
     spar = pack_params(params, view_to_world, camera_pos, jit)
     sbpar = pack_blend_params(params, view_to_world, prev_world_to_view, jit,
                               alpha, 1e-4)
@@ -170,51 +191,72 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                               np.zeros(3, np.float32), alpha, 0.0)
     abpar = torch.cat([abpar, torch.tensor([[jit[0], jit[1], jit[2], 0.0]],
                                            dtype=torch.float32)], dim=1)
-    lights = pack_lights(point_lights, spot_lights)
-    positions = torch.cat([point_lights.position, spot_lights.position])
-    ranges = torch.cat([point_lights.range, spot_lights.range])
 
-    planes = torch.cat([geometry.plane_normal, geometry.plane_d[:, None]],
-                       dim=-1)
-    spheres = torch.cat([geometry.sphere_center,
-                         geometry.sphere_radius[:, None]], dim=-1)
-    boxes = pack_boxes(geometry)
-    n_planes, n_spheres, n_boxes = (planes.shape[0], spheres.shape[0],
-                                    boxes.shape[0])
-    z = lambda c: torch.zeros((1, c), dtype=torch.float32)
-    planes = planes if n_planes else z(4)
-    spheres = spheres if n_spheres else z(4)
-    boxes = boxes if n_boxes else z(8)
-    med, media_static = pack_media(media, time_x)
-    n_noise = sum(1 for st in media_static if st[0]) if bake_noise else 0
+    planes = spheres = boxes = None
+    n_planes = n_spheres = n_boxes = 0
+    if geometry is not None:
+        planes = torch.cat([geometry.plane_normal, geometry.plane_d[:, None]],
+                           dim=-1)
+        spheres = torch.cat([geometry.sphere_center,
+                             geometry.sphere_radius[:, None]], dim=-1)
+        boxes = pack_boxes(geometry)
+        n_planes, n_spheres, n_boxes = (planes.shape[0], spheres.shape[0],
+                                        boxes.shape[0])
+        z = lambda c: torch.zeros((1, c), dtype=torch.float32)
+        planes = (planes if n_planes else z(4)).contiguous()
+        spheres = (spheres if n_spheres else z(4)).contiguous()
+        boxes = (boxes if n_boxes else z(8)).contiguous()
+
+    med = med_static = None
+    media_static = ()
+    if media:
+        med, media_static = pack_media(media, time_x)
+        med = med.contiguous()
+        med_static = torch.tensor([[int(v) for v in st]
+                                   for st in media_static], dtype=torch.int32)
+    # the fBm channels ride the radiance volume: without one (ss = 1) the
+    # scatter evaluates the Perlin per froxel
+    n_noise = sum(1 for st in media_static if st[0]) \
+        if bake_noise and vis_ss > 1 else 0
     if n_noise > MAX_NOISE:
         raise NotImplementedError(f"{n_noise} noise media: the port takes at "
                                   f"most {MAX_NOISE}")
 
-    wl, hl, dl = low_res_dims(grid_whd, vis_ss)
-    active = low_slice_active(params, view_to_world, positions, ranges,
-                              grid_whd, vis_ss).to(torch.int32)
+    lights = active = order = count = tent_x = tent_y = None
+    if vis_ss > 1:
+        wl, hl, dl = low_res_dims(grid_whd, vis_ss)
 
-    def tent(n, nl):
-        k0, wt = _tent_np(n, nl, vis_ss)
-        return (torch.as_tensor(k0, dtype=torch.int32),
-                torch.as_tensor(wt, dtype=torch.float32))
+        def tent(n, nl):
+            k0, wt = _tent_np(n, nl, vis_ss)
+            return (torch.as_tensor(k0, dtype=torch.int32),
+                    torch.as_tensor(wt, dtype=torch.float32))
+
+        tent_x, tent_y = tent(w, wl), tent(h, hl)
+    if point_lights is not None:
+        lights = pack_lights(point_lights, spot_lights).contiguous()
+        positions = torch.cat([point_lights.position, spot_lights.position])
+        ranges = torch.cat([point_lights.range, spot_lights.range])
+        if vis_ss > 1:
+            active = low_slice_active(params, view_to_world, positions,
+                                      ranges, grid_whd,
+                                      vis_ss).to(torch.int32).contiguous()
+        else:
+            order, count = slice_light_order(params, view_to_world,
+                                             positions, ranges, grid_whd)
+            order, count = order.contiguous(), count.contiguous()
 
     return FrameTables(
         spar=spar.contiguous(), sbpar=sbpar.contiguous(),
         abpar=abpar.contiguous(),
-        slights=dir_shadow_lib.pack_dir_lights(dir_lights).contiguous(),
-        dirs=pack_dir_lights(dir_lights).contiguous(),
-        lights=lights.contiguous(), planes=planes.contiguous(),
-        spheres=spheres.contiguous(), boxes=boxes.contiguous(),
-        med=med.contiguous(),
-        med_static=torch.tensor([[int(v) for v in st]
-                                 for st in media_static], dtype=torch.int32),
-        active=active.contiguous(), tent_x=tent(w, wl), tent_y=tent(h, hl),
-        jitter=jit, media_static=media_static, grid_whd=grid_whd,
-        h_glob=params.grid[1], k=k, ss=vis_ss, n_dir=nd, n_planes=n_planes,
-        n_spheres=n_spheres, n_boxes=n_boxes, n_noise=n_noise,
-        jitter_dir=jitter_dir)
+        slights=dir_shadow_lib.pack_dir_lights(dir_lights).contiguous()
+        if nd else None,
+        dirs=pack_dir_lights(dir_lights).contiguous() if nd else None,
+        lights=lights, planes=planes, spheres=spheres, boxes=boxes, med=med,
+        med_static=med_static, active=active, tent_x=tent_x, tent_y=tent_y,
+        order=order, count=count, jitter=jit, media_static=media_static,
+        grid_whd=grid_whd, h_glob=params.grid[1], k=k, ss=vis_ss, n_dir=nd,
+        n_planes=n_planes, n_spheres=n_spheres, n_boxes=n_boxes,
+        n_noise=n_noise, jitter_dir=jitter_dir)
 
 
 # --------------------------------------------------------------------------
@@ -262,28 +304,10 @@ def bake_radiance(t: FrameTables) -> torch.Tensor:
 
 def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
                          bake: torch.Tensor):
-    """Twin of K2: (blended shadow [Nd, D, H, W], scatter [4, D, H, W])."""
-    w, h, d = t.grid_whd
-    zs = torch.arange(d, device=prev_shadow.device)[:, None, None]
-    cur = dir_shadow_lib.dir_shadow_slice(
-        t.spar, t.slights, t.planes, t.spheres, t.boxes, zs,
-        grid_whd=t.grid_whd, n_lights=t.n_dir, n_planes=t.n_planes,
-        n_spheres=t.n_spheres, n_boxes=t.n_boxes, max_dist=1e4,
-        h_glob=t.h_glob)
-    ox, oy, oz, succ = reproj_offsets(t.sbpar, zs, t.grid_whd, t.h_glob, t.k,
-                                      with_jitter=True)
-    swgt = t.sbpar[0, 20] * succ
-    warped = warp(prev_shadow, ox, oy, oz, t.k)
-    blended = [cur[li] + swgt * (warped[li] - cur[li])
-               for li in range(t.n_dir)]
-    noise = list(upsample_low(bake[3:3 + t.n_noise], zs, t.ss, t.tent_x,
-                              t.tent_y)) if t.n_noise else None
-    radiance = upsample_low(bake[:3], zs, t.ss, t.tent_x, t.tent_y)
-    ar, ag, ab, ext = scatter_slice(
-        t.spar, t.dirs, t.med, t.media_static, zs, blended, radiance, noise,
-        grid_whd=t.grid_whd, n_dir=t.n_dir, h_glob=t.h_glob,
-        jitter_dir=t.jitter_dir)
-    return torch.stack(blended), torch.stack([ar, ag, ab, ext])
+    """Twin of K2: (blended shadow [Nd, D, H, W], scatter [4, D, H, W]): the
+    twins of K5 and of K6 in radiance mode, chained."""
+    blended = dir_shadow_blend_plain(t, prev_shadow)
+    return blended, scatter_local_plain(t, blended, bake)
 
 
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
@@ -315,38 +339,15 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
 
 def integrate_blend_plain(t: FrameTables, scatter: torch.Tensor,
                           prev_acc: torch.Tensor) -> torch.Tensor:
-    """Twin of K3: the blended accumulation [4, D, H, W]."""
-    w, h, d = t.grid_whd
-    dev = scatter.device
-    ox, oy, oz = (float(v) for v in t.jitter)
-    xyb = make_xy_blend(ox, oy)(scatter)                    # [4, D, H, W]
-    xyb_up = torch.cat([xyb[:, 1:], xyb[:, -1:]], dim=1)
-    sampled = xyb + torch.tensor(oz, dtype=torch.float32) * (xyb_up - xyb)
-    ap = lambda i: t.abpar[0, i]
-    vz_lo, vz_hi = slice_depths(ap(14), ap(15), ap(16),
-                                torch.arange(d, device=dev), d)
-    dz = (vz_hi - vz_lo)[:, None, None]
-    od = sampled[3] * dz
-    tr = torch.exp(-od)
-    small = od < 1e-2
-    safe_sigma = torch.where(small, torch.ones_like(od), sampled[3])
-    factor = torch.where(small, dz * (1.0 - 0.5 * od * (1.0 - od / 3.0)),
-                         (1.0 - tr) / safe_sigma)
-    vals = torch.empty_like(scatter)
-    carry = [torch.zeros((h, w), dtype=torch.float32, device=dev)
-             for _ in range(3)] + [torch.ones((h, w), dtype=torch.float32,
-                                              device=dev)]
-    for z in range(d):
-        tc = carry[3]
-        carry = [carry[c] + tc * sampled[c, z] * factor[z] for c in range(3)] \
-            + [tc * tr[z]]
-        for c in range(4):
-            vals[c, z] = carry[c]
-    zs = torch.arange(d, device=dev)[:, None, None]
+    """Twin of K3: the blended accumulation [4, D, H, W]: the twin of K8,
+    then the alpha-mode blend (success = warped T != 0) against the history
+    warped with the unjittered reprojection."""
+    vals = accumulate_plain(t, scatter)
+    zs = torch.arange(t.grid_whd[2], device=scatter.device)[:, None, None]
     aox, aoy, aoz, _ = reproj_offsets(t.abpar, zs, t.grid_whd, t.h_glob, t.k,
                                       with_jitter=False)
     warped = warp(prev_acc, aox, aoy, aoz, t.k)
-    wgt = ap(20) * (warped[3] != 0.0).to(torch.float32)
+    wgt = t.abpar[0, 20] * (warped[3] != 0.0).to(torch.float32)
     return vals + wgt * (warped - vals)
 
 

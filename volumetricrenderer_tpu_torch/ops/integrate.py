@@ -1,14 +1,23 @@
-"""The jittered xy sample of the scatter planes and the per-slice integral.
+"""The jittered sample of the scatter planes and the front-to-back
+integration.
 
-Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/integrate.py`
-`make_xy_blend` (3-tap clamped tent for a constant jitter offset) and of the
-expm1/Taylor slice integral of `frame_fused.py`; the CUDA counterparts are
-in `csrc/integrate_blend.cu`.
+Counterpart of `volumetricrenderer_tpu/ops/pallas/integrate.py`: plain-torch
+twins of `make_xy_blend` (3-tap clamped tent for a constant jitter offset)
+and of the expm1/Taylor slice integral, and `accumulate`, the wrapper of the
+CUDA kernel K8 (`csrc/integrate.cu`) that stands for
+`accumulate_fused_pallas`. `integrate_blend_fused` gives kernel K3
+(ops/frame_fused.integrate_blend) the signature of the JAX package's
+function of that name. The shared device code is `xy_blend4` and
+`integrate_slice` in `csrc/common.cuh`.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from volumetricrenderer_tpu_torch.ops import cuda
 
 
 def make_xy_blend(ox: float, oy: float):
@@ -42,3 +51,78 @@ def slice_depths(fpz, fpw, near, z: torch.Tensor, d: int):
         zf > 0.0, (torch.exp(torch.log(fpz) * (zf - 0.5) / d) - 1.0) * fpw
         + near, near)
     return vz_lo, vz_hi
+
+
+# --------------------------------------------------------------------------
+# K8 integrate (csrc/integrate.cu)
+# --------------------------------------------------------------------------
+
+def _check_scatter(t, scatter: torch.Tensor) -> None:
+    w, h, d = t.grid_whd
+    if scatter.shape != (4, d, h, w):
+        raise ValueError(f"scatter {tuple(scatter.shape)} != {(4, d, h, w)}")
+
+
+def accumulate_plain(t, scatter: torch.Tensor) -> torch.Tensor:
+    """Twin of K8: the accumulation [4, D, H, W] (L_r, L_g, L_b, T) of the
+    scatter planes [4, D, H, W] (r, g, b, ext), no temporal blend. The sample
+    of slice z is the xy tent at the jitter offset, lerped in z with slice
+    z + 1 (the top slice with itself)."""
+    _check_scatter(t, scatter)
+    w, h, d = t.grid_whd
+    dev = scatter.device
+    ox, oy, oz = (float(v) for v in t.jitter)
+    xyb = make_xy_blend(ox, oy)(scatter)                    # [4, D, H, W]
+    xyb_up = torch.cat([xyb[:, 1:], xyb[:, -1:]], dim=1)
+    sampled = xyb + torch.tensor(oz, dtype=torch.float32) * (xyb_up - xyb)
+    ap = lambda i: t.abpar[0, i]
+    vz_lo, vz_hi = slice_depths(ap(14), ap(15), ap(16),
+                                torch.arange(d, device=dev), d)
+    dz = (vz_hi - vz_lo)[:, None, None]
+    od = sampled[3] * dz
+    tr = torch.exp(-od)
+    small = od < 1e-2
+    safe_sigma = torch.where(small, torch.ones_like(od), sampled[3])
+    factor = torch.where(small, dz * (1.0 - 0.5 * od * (1.0 - od / 3.0)),
+                         (1.0 - tr) / safe_sigma)
+    vals = torch.empty_like(scatter)
+    carry = [torch.zeros((h, w), dtype=torch.float32, device=dev)
+             for _ in range(3)] + [torch.ones((h, w), dtype=torch.float32,
+                                              device=dev)]
+    for z in range(d):
+        tc = carry[3]
+        carry = [carry[c] + tc * sampled[c, z] * factor[z] for c in range(3)] \
+            + [tc * tr[z]]
+        for c in range(4):
+            vals[c, z] = carry[c]
+    return vals
+
+
+def accumulate(t, scatter: torch.Tensor) -> torch.Tensor:
+    """K8: integrate the scatter planes front to back, no temporal blend."""
+    if scatter.device.type == "cpu":
+        return accumulate_plain(t, scatter)
+    _check_scatter(t, scatter)
+    cuda.check_cuda(scatter)
+    out = torch.empty_like(scatter)
+    st = t.c_struct()
+    cuda.launch("integrate", cuda.ctypes.byref(st), cuda.ptr(scatter),
+                cuda.ptr(out))
+    return out
+
+
+def integrate_blend_fused(scatter: torch.Tensor, prev_acc: torch.Tensor,
+                          jitter, params, view_to_world, prev_world_to_view,
+                          alpha, grid_whd: Tuple[int, int, int],
+                          k: int) -> torch.Tensor:
+    """`integrate_blend_fused` of the JAX package on kernel K3: scatter and
+    prev_acc are [4, D, H, W] (the JAX function takes and returns tuples of
+    four planes). Packs the tables K3 reads on the CPU and runs
+    ops/frame_fused.integrate_blend on scatter's device."""
+    from volumetricrenderer_tpu_torch.ops import frame_fused
+    tables = frame_fused.frame_tables(
+        params, view_to_world, prev_world_to_view, jitter, alpha, None, None,
+        None, None, None, 0.0, None, grid_whd, k, 1, bake_noise=False)
+    if scatter.device.type != "cpu":
+        tables = tables.to(scatter.device)
+    return frame_fused.integrate_blend(tables, scatter, prev_acc)

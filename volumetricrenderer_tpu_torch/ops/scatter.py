@@ -1,23 +1,29 @@
-"""In-scatter at the froxels: packed light tables and the radiance +
-directional-fold form of the per-slice scatter.
+"""In-scatter at the froxels: packed light tables, the per-slice light
+schedule, the per-slice scatter and the scatter kernel K6.
 
-Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/scatter.py`
-(`pack_lights`, `pack_dir_lights`, `pack_params`, `light_factor`,
-`scatter_slice` with scatter_bake="radiance" and the fused material); the
-CUDA counterparts are `light_factor` in `csrc/common.cuh` and the scatter
-stage of `csrc/shadow_scatter.cu`.
+Counterpart of `volumetricrenderer_tpu/ops/pallas/scatter.py`: plain-torch
+twins of `pack_lights`, `pack_dir_lights`, `pack_params`,
+`slice_light_order`, `light_factor` and `scatter_slice` (fused material;
+local lights either as the upsampled low-rate radiance or as the per-light
+loop with one any-hit shadow ray per froxel and light), and `scatter_local`,
+the wrapper of the CUDA kernel K6 (`csrc/scatter.cu`) that stands for
+`scatter_local_pallas`. The shared device code is `light_factor` and
+`scatter_froxel` in `csrc/common.cuh`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from volumetricrenderer_tpu_torch import froxel as froxel_lib
+from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.dir_shadow import froxel_world
 from volumetricrenderer_tpu_torch.ops.material import material_planes
+from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.phase import PI
 
 
@@ -67,6 +73,49 @@ def pack_params(params, view_to_world, camera_pos, jitter) -> torch.Tensor:
     return torch.cat(vals).to(torch.float32)[None]
 
 
+def slice_light_order(params, view_to_world, positions, ranges,
+                      grid_whd: Tuple[int, int, int]):
+    """Per-slice active-light schedule of the per-light scatter: the world
+    AABB of the frustum slab [z - 1, z + 2] (one froxel of padding covers the
+    jitter) against each light's range sphere. Skipping a culled light is
+    exact: the range cull of light_factor already zeroes it. Returns
+    (order [D, NL] int32, the active lights first and each group in ascending
+    index; count [D] int32)."""
+    w, h, d = grid_whd
+    h_glob = params.grid[1]
+    dev = positions.device
+    y0 = float(params.y0)
+    zs = torch.arange(d, dtype=torch.float32, device=dev)
+    z0 = torch.clamp(zs - 1.0, 0.0, float(d))
+    z1 = torch.clamp(zs + 2.0, 0.0, float(d))
+    xs = upload([0.0, float(w)], dev)
+    ys = upload([min(max(y0, 0.0), float(h_glob)),
+                 min(max(y0 + h, 0.0), float(h_glob))], dev)
+    fx, fy = torch.meshgrid(xs, ys, indexing="ij")
+    fx = fx.reshape(1, 4).expand(d, 4)
+    fy = fy.reshape(1, 4).expand(d, 4)
+    corners = [torch.stack([fx, fy, fz[:, None].expand(d, 4)], dim=-1)
+               for fz in (z0, z1)]
+    fro = torch.cat(corners, dim=1)                        # [D, 8, 3]
+    world = froxel_lib.transform_points(
+        view_to_world, froxel_lib.froxel_to_view(params, fro))
+    lo = torch.amin(world, dim=1)                          # [D, 3]
+    hi = torch.amax(world, dim=1)
+    nearest = torch.clamp(positions[None], lo[:, None], hi[:, None])
+    diff = nearest - positions[None]
+    d2 = torch.sum(diff * diff, dim=-1)
+    active = d2 <= (ranges[None] ** 2)                     # [D, NL]
+    order = torch.argsort((~active).to(torch.int8), dim=1, stable=True)
+    return order.to(torch.int32), active.sum(dim=1, dtype=torch.int32)
+
+
+def schedule_mask(order: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """[D, NL] bool: is light li among the first count[z] of order[z]?"""
+    first = torch.arange(order.shape[1], device=order.device)[None] \
+        < count[:, None]
+    return torch.zeros_like(first).scatter_(1, order.long(), first)
+
+
 def light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num):
     """HG phase x falloff x spot cone x range cull for one packed light row
     (accessor q). Returns (factor, ldx, ldy, ldz, dist, shadow_gate,
@@ -107,14 +156,21 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
                   shadow_planes: Sequence[torch.Tensor],
                   radiance_planes: Sequence[torch.Tensor],
                   noise_planes, *, grid_whd: Tuple[int, int, int],
-                  n_dir: int, h_glob: int, jitter_dir: bool = False):
-    """Scatter planes (ar, ag, ab, ext) at slice(s) zi in radiance mode:
-    the upsampled low-rate local-light radiance (rgb) times sigma_s, plus
-    each sun's colour x blended shadow x HG phase x sigma_s at the UNJITTERED
-    froxel centre (jitter_dir=False), and the luma extinction
-    ext = (0.3 sr + 0.59 sg + 0.11 sb + sa) * n_dir. The material is
-    evaluated at the jittered world position, its fBm factor taken from the
-    upsampled noise_planes (None: evaluated here)."""
+                  n_dir: int, h_glob: int, jitter_dir: bool = False,
+                  local=None):
+    """Scatter planes (ar, ag, ab, ext) at slice(s) zi: the local lights
+    times sigma_s, plus each sun's colour x blended shadow x HG phase x
+    sigma_s at the UNJITTERED froxel centre (jitter_dir=False), and the luma
+    extinction ext = (0.3 sr + 0.59 sg + 0.11 sb + sa) * n_dir. The material
+    is evaluated at the jittered world position, its fBm factor taken from
+    the upsampled noise_planes (None: evaluated here).
+
+    Local lights, radiance mode: radiance_planes is the upsampled low-rate
+    radiance (rgb). Per-light mode (radiance_planes None): `local` is
+    (lights [NL, 16], active [NL] planes or scalars broadcasting against the
+    slice(s), planes, spheres, boxes, n_planes, n_spheres, n_boxes); every
+    light adds light_factor x (1 - any_hit x gate) x colour x sigma_s where
+    it is active, in ascending light index (the schedule's order)."""
     p = lambda i: par[0, i]
     camx, camy, camz = p(20), p(21), p(22)
     wx, wy, wz = froxel_world(par, zi, grid_whd, h_glob)
@@ -123,9 +179,30 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
     ext = (0.3 * sr + 0.59 * sg + 0.11 * sb + s_a) * float(n_dir)
     g2 = phg * phg
     hg_num = (1.0 - g2) / (4.0 * PI)
-    ar = radiance_planes[0] * sr
-    ag = radiance_planes[1] * sg
-    ab = radiance_planes[2] * sb
+    if radiance_planes is not None:
+        ar = radiance_planes[0] * sr
+        ag = radiance_planes[1] * sg
+        ab = radiance_planes[2] * sb
+    else:
+        lights, active, planes, spheres, boxes, n_planes, n_spheres, \
+            n_boxes = local
+        vdx = wx - camx
+        vdy = wy - camy
+        vdz = wz - camz
+        inv_vd = torch.rsqrt(vdx * vdx + vdy * vdy + vdz * vdz + 1e-18)
+        vdx, vdy, vdz = vdx * inv_vd, vdy * inv_vd, vdz * inv_vd
+        ar = ag = ab = torch.zeros_like(wx)
+        for li in range(lights.shape[0]):
+            q = lambda i: lights[li, i]
+            factor, ldx, ldy, ldz, dist, gate, cr, cg, cb = light_factor(
+                q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num)
+            occ = any_hit(planes, spheres, boxes, wx, wy, wz, -ldx, -ldy,
+                          -ldz, dist - 0.05, n_planes=n_planes,
+                          n_spheres=n_spheres, n_boxes=n_boxes)
+            base = factor * (1.0 - occ.to(torch.float32) * gate)
+            ar = torch.where(active[li], ar + base * cr * sr, ar)
+            ag = torch.where(active[li], ag + base * cg * sg, ag)
+            ab = torch.where(active[li], ab + base * cb * sb, ab)
     if n_dir:
         if jitter_dir:
             cwx, cwy, cwz = wx, wy, wz
@@ -148,3 +225,88 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
             ag = ag + base * q(4) * sg
             ab = ab + base * q(5) * sb
     return ar, ag, ab, ext
+
+
+# --------------------------------------------------------------------------
+# K6 scatter (csrc/scatter.cu)
+# --------------------------------------------------------------------------
+
+def _check_scatter_inputs(t, shadow: torch.Tensor, bake) -> None:
+    w, h, d = t.grid_whd
+    if shadow.shape != (t.n_dir, d, h, w):
+        raise ValueError(f"shadow {tuple(shadow.shape)} != "
+                         f"{(t.n_dir, d, h, w)}")
+    if bake is None:
+        if t.order is None:
+            raise ValueError("per-light scatter needs the light schedule: "
+                             "pack the frame tables with vis_ss=1")
+    else:
+        wl, hl, dl = t.low_dims
+        if t.ss < 2 or bake.shape != (3 + t.n_noise, dl, hl, wl):
+            raise ValueError(f"bake volume {tuple(bake.shape)} at ss={t.ss}")
+
+
+def scatter_local_plain(t, shadow: torch.Tensor,
+                        bake: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Twin of K6: scatter planes [4, D, H, W] (r, g, b, ext) from the
+    frame's tables, the blended shadow volume [Nd, D, H, W] and either the
+    low-rate radiance (+ fBm) volume `bake` or, with bake None, the per-light
+    loop over the tables' schedule."""
+    # visibility.py imports this module for light_factor
+    from volumetricrenderer_tpu_torch.ops.visibility import upsample_low
+    _check_scatter_inputs(t, shadow, bake)
+    w, h, d = t.grid_whd
+    zs = torch.arange(d, device=shadow.device)[:, None, None]
+    radiance = noise = local = None
+    if bake is not None:
+        radiance = upsample_low(bake[:3], zs, t.ss, t.tent_x, t.tent_y)
+        if t.n_noise:
+            noise = list(upsample_low(bake[3:3 + t.n_noise], zs, t.ss,
+                                      t.tent_x, t.tent_y))
+    else:
+        active = schedule_mask(t.order, t.count).T[:, :, None, None]
+        local = (t.lights, active, t.planes, t.spheres, t.boxes, t.n_planes,
+                 t.n_spheres, t.n_boxes)
+    return torch.stack(scatter_slice(
+        t.spar, t.dirs, t.med, t.media_static, zs, list(shadow), radiance,
+        noise, grid_whd=t.grid_whd, n_dir=t.n_dir, h_glob=t.h_glob,
+        jitter_dir=t.jitter_dir, local=local))
+
+
+def scatter_local(t, shadow: torch.Tensor,
+                  bake: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: the scatter planes [4, D, H, W] (see scatter_local_plain)."""
+    if shadow.device.type == "cpu":
+        return scatter_local_plain(t, shadow, bake)
+    _check_scatter_inputs(t, shadow, bake)
+    cuda.check_cuda(*((shadow,) if bake is None else (shadow, bake)))
+    w, h, d = t.grid_whd
+    out = torch.empty((4, d, h, w), dtype=torch.float32, device=shadow.device)
+    st = t.c_struct()
+    cuda.launch("scatter", cuda.ctypes.byref(st), cuda.ptr(shadow),
+                cuda.ptr(bake) if bake is not None else None, cuda.ptr(out))
+    return out
+
+
+def scatter_local_fused(params, view_to_world, camera_pos, jitter,
+                        point_lights, spot_lights, geometry,
+                        grid_whd: Tuple[int, int, int], dir_lights,
+                        shadow_volume: torch.Tensor, media, time_x,
+                        jitter_dir: bool = False, vis=None,
+                        vis_ss: int = 1) -> torch.Tensor:
+    """`scatter_local_pallas` of the JAX package with the material folded in
+    (media given) and return_planes: packs the frame's tables on the CPU and
+    runs scatter_local on shadow_volume's device. vis: the low-rate radiance
+    (+ fBm) volume of bake_radiance at vis_ss, or None for the per-light
+    any-hit loop. Returns [4, D, H, W]."""
+    from volumetricrenderer_tpu_torch.ops.frame_fused import frame_tables
+    if vis is None:
+        vis_ss = 1
+    tables = frame_tables(
+        params, view_to_world, torch.eye(4), jitter, 0.0, dir_lights,
+        point_lights, spot_lights, geometry, media, time_x, camera_pos,
+        grid_whd, 1, vis_ss, bake_noise=vis is not None and vis.shape[0] > 3,
+        jitter_dir=jitter_dir)
+    if shadow_volume.device.type != "cpu":
+        tables = tables.to(shadow_volume.device)
+    return scatter_local(tables, shadow_volume, vis)

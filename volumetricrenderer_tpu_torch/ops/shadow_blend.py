@@ -1,0 +1,71 @@
+"""Raycast sun shadow and its temporal blend in one pass.
+
+Counterpart of `volumetricrenderer_tpu/ops/pallas/shadow_blend.py`:
+`dir_shadow_blend` is the wrapper of the CUDA kernel K5
+(`csrc/shadow_blend.cu`) that stands for `dir_shadow_blend_fused`, with its
+plain-torch twin. The unblended shadow volume never exists; the blended
+output is also the next frame's history.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from volumetricrenderer_tpu_torch.ops import cuda
+from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow_plain
+from volumetricrenderer_tpu_torch.ops.temporal import reproj_offsets, warp
+
+
+def _check_history(t, prev_shadow: torch.Tensor) -> None:
+    w, h, d = t.grid_whd
+    if prev_shadow.shape != (t.n_dir, d, h, w):
+        raise ValueError(f"prev_shadow {tuple(prev_shadow.shape)} != "
+                         f"{(t.n_dir, d, h, w)}")
+
+
+def dir_shadow_blend_plain(t, prev_shadow: torch.Tensor) -> torch.Tensor:
+    """Twin of K5: the blended shadow volume [Nd, D, H, W]. Weight-mode
+    blend cur + alpha * success * (warped - cur), the history warped with the
+    jittered reprojection and the 1e-4 uvw nudge (tables' sbpar)."""
+    _check_history(t, prev_shadow)
+    zs = torch.arange(t.grid_whd[2], device=prev_shadow.device)[:, None, None]
+    cur = dir_shadow_plain(t)
+    ox, oy, oz, succ = reproj_offsets(t.sbpar, zs, t.grid_whd, t.h_glob, t.k,
+                                      with_jitter=True)
+    swgt = t.sbpar[0, 20] * succ
+    warped = warp(prev_shadow, ox, oy, oz, t.k)
+    return cur + swgt * (warped - cur)
+
+
+def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:
+    """K5: raycast shadow + temporal blend, written to a new buffer (the
+    warp reads neighbours of the history)."""
+    if prev_shadow.device.type == "cpu":
+        return dir_shadow_blend_plain(t, prev_shadow)
+    _check_history(t, prev_shadow)
+    cuda.check_cuda(prev_shadow)
+    out = torch.empty_like(prev_shadow)
+    st = t.c_struct()
+    cuda.launch("shadow_blend", cuda.ctypes.byref(st), cuda.ptr(prev_shadow),
+                cuda.ptr(out))
+    return out
+
+
+def dir_shadow_blend_fused(params, view_to_world, prev_world_to_view, jitter,
+                           alpha, dir_lights, geometry,
+                           prev_shadow: torch.Tensor,
+                           grid_whd: Tuple[int, int, int],
+                           k: int) -> torch.Tensor:
+    """`dir_shadow_blend_fused` of the JAX package: packs the tables this
+    kernel reads on the CPU (no local lights, no media) and runs
+    dir_shadow_blend on prev_shadow's device."""
+    from volumetricrenderer_tpu_torch.ops.frame_fused import frame_tables
+    tables = frame_tables(
+        params, view_to_world, prev_world_to_view, jitter, alpha, dir_lights,
+        None, None, geometry, None, 0.0, None, grid_whd, k, 1,
+        bake_noise=False)
+    if prev_shadow.device.type != "cpu":
+        tables = tables.to(prev_shadow.device)
+    return dir_shadow_blend(tables, prev_shadow)

@@ -4,7 +4,9 @@ Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/visibility.py`
 (`low_res_dims`, `upsample_mats`, `low_slice_active`, `bake_world_planes`,
 `radiance_view_dirs`, `bake_radiance_plane`) and of the z-lerp + separable
 tent upsample of `scatter_slice`. The CUDA counterparts are in
-`csrc/bake_radiance.cu` and `csrc/shadow_scatter.cu`.
+`csrc/bake_radiance.cu` (kernel K1, which stands for `bake_radiance_pallas`
+and for the megakernel's inline bake; `bake_radiance_fused` below gives it
+the JAX function's signature) and `upsample_low` in `csrc/common.cuh`.
 
 Grid contract: low cell k covers full cells [ss*k, ss*k + ss); its sample
 sits at full coordinate ss*k + (ss-1)/2 (+0.5 + jitter). The z-lerp reads
@@ -167,3 +169,22 @@ def upsample_low(vol: torch.Tensor, zi, ss: int, tx, ty) -> torch.Tensor:
     ky1 = torch.clamp(ky + 1, max=vol.shape[2] - 1)
     return lowx[..., ky, :] * wyt[0][:, None] + lowx[..., ky1, :] \
         * wyt[1][:, None]
+
+
+def bake_radiance_fused(params, view_to_world, camera_pos, jitter,
+                        point_lights, spot_lights, geometry, media, time_x,
+                        grid_whd: Tuple[int, int, int], ss: int,
+                        bake_noise: bool = False,
+                        device="cuda") -> torch.Tensor:
+    """`bake_radiance_pallas` of the JAX package on kernel K1: packs the
+    tables K1 reads on the CPU (where the scene description must lie) and
+    runs ops/frame_fused.bake_radiance on `device`. Returns
+    [3 (+ noise media), DL, HL, WL]."""
+    from volumetricrenderer_tpu_torch.ops import frame_fused
+    tables = frame_fused.frame_tables(
+        params, view_to_world, torch.eye(4), jitter, 0.0, None, point_lights,
+        spot_lights, geometry, media, time_x, camera_pos, grid_whd, 1, ss,
+        bake_noise=bake_noise)
+    if torch.device(device).type != "cpu":
+        tables = tables.to(device)
+    return frame_fused.bake_radiance(tables)

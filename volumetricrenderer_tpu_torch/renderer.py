@@ -1,11 +1,21 @@
-"""Frame orchestrator for the production path.
+"""Frame orchestrator.
 
 `render_frame(state, scene, time_x) -> (image, aux, new_state)` as in
-`volumetricrenderer_tpu/renderer.py`, for the branch the production config
-takes there: the fused volume phase (ops/frame_fused.py: kernels K1-K3) and
-the zgather composite (ops/zg_composite.py: kernel K4). A config or scene
-that the JAX package would send down another branch raises
-NotImplementedError naming what is not ported yet.
+`volumetricrenderer_tpu/renderer.py`, for two of the branches it takes
+there, both ending in the zgather composite (ops/zg_composite.py: K4):
+
+  fused    every production knob on: the fused volume phase
+           (ops/frame_fused.py: kernels K1-K3);
+  staged   `frame_fused=False`, or one of the shadow / accumulation blends
+           off: shadow (+ blend) -> scatter -> integrate (+ blend) as
+           separate kernels (K5 or K7, K1 + K6, K3 or K8) with the shadow and
+           scatter volumes in device memory. `raycast_shadow_subsample=1`
+           makes the scatter loop over the lights with one any-hit shadow
+           ray per froxel and light instead of the low-rate bake.
+
+Both branches keep the same FrameState, so a state made by one feeds the
+other. A config or scene that the JAX package would send down another
+branch raises NotImplementedError naming what is not ported yet.
 
 The renderer runs on CUDA unless it is built with device="cpu"; without a
 GPU and without that request it raises instead of running on the CPU.
@@ -18,27 +28,36 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from volumetricrenderer_tpu_torch import froxel
+from volumetricrenderer_tpu_torch import froxel, pipeline
 from volumetricrenderer_tpu_torch.config import (RenderConfig,
                                                  composite_eligible)
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene
 from volumetricrenderer_tpu_torch.ops import raycast
 from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
+                                                          integrate_blend,
                                                           volume_phase)
 from volumetricrenderer_tpu_torch.ops.material import media_foldable
+from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
 from volumetricrenderer_tpu_torch.ops.zg_composite import composite
 from volumetricrenderer_tpu_torch.state import FrameState
 
-# config fields (and values) that route render_frame to the fused branch
-_FUSED_KNOBS = (
-    ("frame_fused", True), ("temporal_blend_shadow", True),
-    ("temporal_blend_accumulation", True), ("temporal_blend_material", False),
-    ("temporal_blend_scatter", False), ("dir_shadow_impl", "pallas"),
-    ("reproj_impl", "pallas"), ("scatter_impl", "pallas"),
-    ("accumulate_impl", "pallas"), ("material_impl", "fused"),
-    ("shadow_mode", "raycast"), ("scatter_bake", "radiance"),
-    ("composite_upsample", 1))
+# config fields every ported branch needs at one value, and what the other
+# values would need
+_REQUIRED_KNOBS = (
+    ("temporal_blend_material", False, "write_material_volumes and the "
+     "material blend"),
+    ("temporal_blend_scatter", False, "the scatter blend "
+     "(fused_temporal_blend)"),
+    ("shadow_mode", "raycast", "the shadow-map modes"),
+    ("dir_shadow_impl", "pallas", "the XLA shadow volume"),
+    ("reproj_impl", "pallas", "the standalone warps (windowed_warp, "
+     "fused_temporal_blend)"),
+    ("scatter_impl", "pallas", "the XLA scatter"),
+    ("accumulate_impl", "pallas", "the XLA scan"),
+    ("material_impl", "fused", "write_material_volumes and the scatter "
+     "reading material volumes"),
+    ("composite_upsample", 1, "the fractional-resolution composite"))
 
 
 def resolve_device(device) -> torch.device:
@@ -66,17 +85,32 @@ class VolumetricRenderer:
         return FrameState.create(cfg.grid_dhw, num_dir_lights, cfg.dtype,
                                  self.device)
 
+    def fuses_frame(self) -> bool:
+        """Whether render_frame takes the fused volume phase (the JAX
+        renderer's `fuse_frame`, given what check_supported admits)."""
+        cfg = self.config
+        return bool(cfg.frame_fused and cfg.temporal_blend_shadow
+                    and cfg.temporal_blend_accumulation)
+
     def check_supported(self, scene: Scene) -> None:
         """Raise NotImplementedError for what the port does not cover."""
         cfg = self.config
-        for name, want in _FUSED_KNOBS:
+        for name, want, missing in _REQUIRED_KNOBS:
             if getattr(cfg, name) != want:
                 raise NotImplementedError(
-                    f"config {name}={getattr(cfg, name)!r}: only the fused "
-                    f"production branch ({name}={want!r}) is ported")
-        if max(int(cfg.raycast_shadow_subsample), 1) < 2:
-            raise NotImplementedError("raycast_shadow_subsample=1 (the exact "
-                                      "per-froxel scatter) is not ported")
+                    f"config {name}={getattr(cfg, name)!r}: {missing} not "
+                    f"ported (only {name}={want!r})")
+        ss = max(int(cfg.raycast_shadow_subsample), 1)
+        if ss > 1 and cfg.scatter_bake != "radiance":
+            raise NotImplementedError(
+                f"scatter_bake={cfg.scatter_bake!r} with "
+                "raycast_shadow_subsample > 1: the low-rate per-light "
+                "visibility bake (bake_visibility_pallas) is not ported")
+        if ss == 1 and self.fuses_frame():
+            raise NotImplementedError(
+                "raycast_shadow_subsample=1 with frame_fused=True: the "
+                "per-light branch of the fused volume phase is not ported "
+                "(frame_fused=False renders it staged)")
         if not composite_eligible(cfg):
             raise NotImplementedError("only the zgather composite "
                                       "(8x8-multiple pixel cells, D <= 128) "
@@ -129,8 +163,8 @@ class VolumetricRenderer:
 
     def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0):
         """Host prep of one frame: (FrameTables, FroxelParams, world_to_view)
-        -- the packed tables kernels K1-K3 read, on the renderer's device,
-        and the view matrix on the CPU.
+        -- the packed tables the volume kernels read, on the renderer's
+        device, and the view matrix on the CPU.
 
         Wherever the scene lives, the tables are packed on the CPU from its
         host copy: ~170 small torch ops, each cheaper there than a launch on
@@ -165,16 +199,36 @@ class VolumetricRenderer:
                      scene_color: Optional[torch.Tensor] = None,
                      view_depth: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, dict, FrameState]:
-        """One frame. Returns (image [IH, IW, 4], aux, new state)."""
+        """One frame. Returns (image [IH, IW, 4], aux, new state).
+
+        aux holds the volumes of the frame: `shadow` [Nd, D, H, W],
+        `accumulation` [4, D, H, W] and, on the staged branch where it
+        exists, `scatter` [4, D, H, W] (r, g, b, extinction; the JAX package
+        packs it [D, H, W, 4]). The JAX renderer's `write_material_volumes`
+        is skipped: the scatter evaluates the material itself and the
+        material volumes would only reach aux."""
         cfg = self.config
         tables, params, world_to_view = self.frame_tables(state, scene,
                                                           time_x)
         if scene_color is None or view_depth is None:
             scene_color, view_depth = self.render_scene_inputs(scene)
         f32 = torch.float32
-        shadow, acc = volume_phase(
-            tables, state.prev_shadow.to(f32).contiguous(),
-            state.prev_accumulation.to(f32).contiguous())
+        prev_shadow = state.prev_shadow.to(f32).contiguous()
+        prev_acc = state.prev_accumulation.to(f32).contiguous()
+        aux = {}
+        if self.fuses_frame():
+            shadow, acc = volume_phase(tables, prev_shadow, prev_acc)
+        else:
+            if cfg.temporal_blend_shadow:
+                shadow = dir_shadow_blend(tables, prev_shadow)
+            else:
+                shadow = pipeline.write_shadow_volume_dir(cfg, tables)
+            scatter = pipeline.write_scatter_volume(cfg, tables, shadow)
+            if cfg.temporal_blend_accumulation:
+                acc = integrate_blend(tables, scatter, prev_acc)
+            else:
+                acc = pipeline.accumulate(cfg, tables, scatter)
+            aux["scatter"] = scatter
         image = composite(acc, scene_color.contiguous(),
                           view_depth.contiguous(), params, cfg.grid)
         dt = cfg.dtype
@@ -182,6 +236,6 @@ class VolumetricRenderer:
                                prev_accumulation=acc.to(dt),
                                prev_world_to_view=world_to_view,
                                frame_count=state.frame_count + 1)
-        aux = dict(shadow=shadow, accumulation=acc, scene_color=scene_color,
+        aux.update(shadow=shadow, accumulation=acc, scene_color=scene_color,
                    view_depth=view_depth)
         return image, aux, new_state
