@@ -13,21 +13,33 @@ VolumetricRenderer, the entry point a user calls, and:
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
      just after, and checks that exactly the path's kernels were launched,
-     once per frame:
+     as often per frame as PATHS says (once, where not stated):
        fused             FULL_CONFIG, 4 frames: K1 K2 K3 K4
        staged            frame_fused=False, 4 frames: K5 K1 K6 K3 K4
        exact             also scatter_bake="vis", raycast_shadow_subsample=1,
-                         2 frames: K5 K6 (per-light mode) K3 K4
+                         2 frames: K5 K6 (per-light rays) K3 K4
        no_shadow_blend   staged with temporal_blend_shadow=False, 1 frame:
                          K7 K1 K6 K3 K4
        no_acc_blend      staged with temporal_blend_accumulation=False,
                          1 frame: K5 K1 K6 K8 K4
+       history           staged with scatter_bake="vis" and the material and
+                         scatter blends on, 4 frames: K11 (material blend)
+                         K5 K9 K6 (baked visibility, material volumes) K11
+                         (scatter blend) K10 (accumulation blend) K4; two
+                         K11 launches per frame, and the accumulation is the
+                         plain scan, as in the JAX package
+       vis_bake          staged with scatter_bake="vis", 2 frames: K5 K9 K6
+                         (baked visibility, fused material) K3 K4
+       xla_shadow        history with dir_shadow_impl="xla", 1 frame: the
+                         plain shadow volume, then K10 (shadow blend) and
+                         the rest of history: two K10 and two K11 launches
      prints each float32 image checksum, checks that each image is finite
      and not flat, and holds the staged 4-frame image against the fused one;
   5. holds each kernel against its plain-torch twin on the inputs of a real
-     frame, with the tolerances stated in CHECKS;
-  6. times warm frames of the fused, staged and exact paths (CUDA events
-     and host wall), each kernel (CUDA events around launches queued behind
+     frame, with the tolerances stated in CHECKS, and shows that K7 then K10
+     gives K5's volume and K8 then K10 gives K3's, bit for bit;
+  6. times warm frames of the fused, staged, exact, history and vis_bake
+     paths (CUDA events and host wall), each kernel (CUDA events around launches queued behind
      a device-side spin, so that the host's launch rate stays out), each
      twin, and torch.nn.functional.grid_sample as a yardstick for the
      composite;
@@ -68,6 +80,15 @@ CHECKS = {
     "scatter": (1e-6, 1e-5, 5e-3, BOUNDARY),
     "dir_shadow": (1e-6, 1e-5, 5e-3, BOUNDARY),
     "integrate": (1e-6, 1e-4, 0.0, SUMS),
+    "bake_visibility": (1e-6, 1e-5, 1e-3,
+                        "any-hit booleans may flip for rays within ulps of "
+                        "an epsilon"),
+    "temporal_blend": (1e-6, 1e-5, 5e-3,
+                       "a reprojection offset within ulps of a cell boundary "
+                       "picks the neighbouring pair of taps, or flips the "
+                       "success test"),
+    "windowed_warp": (1e-6, 1e-5, 0.0,
+                      "the same 8 taps and weights in the same order"),
 }
 
 # kernel -> file:line of the TPU kernel(s) it stands for
@@ -82,16 +103,23 @@ REPLACES = {
     "scatter": f"{PALLAS}scatter.py:380",
     "dir_shadow": f"{PALLAS}dir_shadow.py:77",
     "integrate": f"{PALLAS}integrate.py:58",
+    "bake_visibility": f"{PALLAS}visibility.py:454",
+    "temporal_blend": f"{PALLAS}temporal.py:169",
+    "windowed_warp": f"{PALLAS}warp.py:36",
 }
 
-# path -> (config changes from FULL_CONFIG, frames, kernels of the path)
+# path -> (config changes from FULL_CONFIG, frames, kernels of the path; a
+# kernel that a frame launches more than once is (name, launches per frame))
 STAGED = dict(frame_fused=False)
+VIS_BAKE = dict(STAGED, scatter_bake="vis")
+HISTORY = dict(VIS_BAKE, temporal_blend_material=True,
+               temporal_blend_scatter=True)
 PATHS = {
     "fused": ({}, 4, ("bake_radiance", "shadow_scatter", "integrate_blend",
                       "composite")),
     "staged": (STAGED, 4, ("shadow_blend", "bake_radiance", "scatter",
                            "integrate_blend", "composite")),
-    "exact": (dict(STAGED, scatter_bake="vis", raycast_shadow_subsample=1), 2,
+    "exact": (dict(VIS_BAKE, raycast_shadow_subsample=1), 2,
               ("shadow_blend", "scatter", "integrate_blend", "composite")),
     "no_shadow_blend": (dict(STAGED, temporal_blend_shadow=False), 1,
                         ("dir_shadow", "bake_radiance", "scatter",
@@ -99,6 +127,14 @@ PATHS = {
     "no_acc_blend": (dict(STAGED, temporal_blend_accumulation=False), 1,
                      ("shadow_blend", "bake_radiance", "scatter", "integrate",
                       "composite")),
+    "history": (HISTORY, 4, (("windowed_warp", 2), "shadow_blend",
+                             "bake_visibility", "scatter", "temporal_blend",
+                             "composite")),
+    "vis_bake": (VIS_BAKE, 2, ("shadow_blend", "bake_visibility", "scatter",
+                               "integrate_blend", "composite")),
+    "xla_shadow": (dict(HISTORY, dir_shadow_impl="xla"), 1,
+                   (("windowed_warp", 2), ("temporal_blend", 2),
+                    "bake_visibility", "scatter", "composite")),
 }
 
 
@@ -182,9 +218,11 @@ def profile_frames(step, n: int) -> None:
 def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
     """Render path `name` from a fresh state with the launch counters set to
     0 just before and read just after; check that exactly the path's kernels
-    ran, once per frame, and that the image is finite and not flat. Returns
+    ran, as often per frame as PATHS says, and that the image is finite and
+    not flat. Returns
     (last image, the states before each frame and after the last, counts)."""
     _, n_frames, expect = PATHS[name]
+    expect = dict(k if isinstance(k, tuple) else (k, 1) for k in expect)
     cuda.reset_launches()
     state = renderer.init_state(scene.dir_lights.count)
     states = [state]
@@ -198,7 +236,7 @@ def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
     log(f"# {name}: launches in the {n_frames}-frame run: "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
     for k in cuda.SOURCES:
-        if launches[k] != (n_frames if k in expect else 0):
+        if launches[k] != n_frames * expect.get(k, 0):
             raise AssertionError(
                 f"path {name}: kernel {k} launched {launches[k]} times in "
                 f"{n_frames} frames (on the path: {k in expect})")
@@ -242,12 +280,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from volumetricrenderer_tpu_torch import (FULL_CONFIG, VolumetricRenderer,
-                                              benchmark_scene, froxel)
+                                              benchmark_scene, froxel,
+                                              pipeline)
     from volumetricrenderer_tpu_torch.ops import cuda, frame_fused as ff
     from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
     from volumetricrenderer_tpu_torch.ops import integrate as integ
     from volumetricrenderer_tpu_torch.ops import scatter as sca
     from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    from volumetricrenderer_tpu_torch.ops import warp as wp
     from volumetricrenderer_tpu_torch.ops import zg_composite as zg
 
     t_start = time.perf_counter()
@@ -367,7 +409,63 @@ def main() -> int:
     errs["scatter"] = max(errs["scatter"], per_light_err)
     errs["integrate"] = compare("integrate", integ.accumulate(tables, sc),
                                 integ.accumulate_plain(tables, sc))
-    del x_sc_p, unblended_p, sc_opt_p, guard
+    del x_sc_p, sc_opt_p, guard
+
+    # K10 on the same frame: both modes against the twin, and the two
+    # identities it is built on -- K7 then K10 = K5, K8 then K10 = K3
+    whd, hg, kk = tables.grid_whd, tables.h_glob, tables.k
+    unblended = ds.dir_shadow(tables)
+    acc_un = integ.accumulate(tables, sc)
+    blend_w = lambda: tmp.temporal_blend(tables.sbpar, prev_sh, unblended,
+                                         whd, hg, kk, "weight")
+    blend_a = lambda: tmp.temporal_blend(tables.abpar, prev_acc, acc_un, whd,
+                                         hg, kk, "alpha")
+    weight_err = compare("temporal_blend", blend_w(), tmp.temporal_blend_plain(
+        tables.sbpar, prev_sh, unblended, whd, hg, kk, "weight"))
+    errs["temporal_blend"] = compare(
+        "temporal_blend", blend_a(), tmp.temporal_blend_plain(
+            tables.abpar, prev_acc, acc_un, whd, hg, kk, "alpha"))
+    same_sb = torch.equal(blend_w(), sb.dir_shadow_blend(tables, prev_sh))
+    same_ib = torch.equal(blend_a(), acc)
+    log(f"# K7 then K10 (weight) = K5 bit for bit: {same_sb}; K8 then K10 "
+        f"(alpha) = K3 bit for bit: {same_ib}")
+    if not (same_sb and same_ib):
+        raise AssertionError("the standalone blend disagrees with the fused "
+                             "shadow or integrate blend")
+    del unblended_p
+
+    # K9, K11 and K6's baked-visibility and material-volume modes on the
+    # inputs of the history path's frame 4
+    h_r = renderers["history"]
+    h_prev = runs["history"][1][3]
+    h_tables, h_params, h_w2v = h_r.frame_tables(h_prev, scene, 0.1 * 3)
+    geo, scene_dev = h_r.frame_geometry(h_prev, scene, h_tables, h_params,
+                                        h_w2v)
+    h_vis = vis.bake_visibility(h_tables)
+    errs["bake_visibility"] = compare("bake_visibility", h_vis,
+                                      vis.bake_visibility_plain(h_tables))
+    tx, ty, tz, _ = geo.centre_texel
+    h_prev_sc = h_prev.prev_scatter.float().contiguous()
+    errs["windowed_warp"] = compare(
+        "windowed_warp", wp.windowed_warp(h_prev_sc, tx, ty, tz, kk),
+        wp.windowed_warp_plain(h_prev_sc, tx, ty, tz, kk))
+    mat_a, mat_b = pipeline.write_material_volumes(
+        h_r.config, h_params, geo.view_to_world, geo.jitter, 0.1 * 3,
+        scene_dev.media)
+    mat_a = pipeline.temporal_blend_material(
+        h_r.config, geo, mat_a, h_prev.prev_material_a.float())
+    mat = (mat_a.contiguous(), mat_b.contiguous())
+    h_sh = sb.dir_shadow_blend(h_tables,
+                               h_prev.prev_shadow.float().contiguous())
+    h_bake = ff.bake_radiance(h_tables)
+    # mode -> (bake, vis, material) of scatter_local
+    k6_modes = {"baked_planes": (None, h_vis, mat),
+                "baked_fused": (None, h_vis, None),
+                "radiance_planes": (h_bake, None, mat)}
+    mode_err = {m: compare("scatter", sca.scatter_local(h_tables, h_sh, *a),
+                           sca.scatter_local_plain(h_tables, h_sh, *a))
+                for m, a in k6_modes.items()}
+    errs["scatter"] = max(errs["scatter"], *mode_err.values())
 
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
@@ -391,6 +489,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"# host prep (frame_tables), exact: "
         f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms/frame")
+    one_history, _ = frame_times("history", h_r, scene, scene_color,
+                                 view_depth, runs["history"][1][-1], 5)
+    profile_frames(one_history, 3)
+    frame_times("vis_bake", renderers["vis_bake"], scene, scene_color,
+                view_depth, runs["vis_bake"][1][-1], 20)
+    for what, fn in (
+            ("write_material_volumes", lambda: pipeline.write_material_volumes(
+                h_r.config, h_params, geo.view_to_world, geo.jitter, 0.3,
+                scene_dev.media)),
+            ("reproject_texel", lambda: pipeline.reproject_texel(
+                geo, False, 0.0)),
+            ("plain accumulate", lambda: pipeline.accumulate(
+                h_r.config, h_tables, h_prev_sc, h_params, False))):
+        log(f"# history frame, plain torch {what}: "
+            f"{cuda_time_ms(fn, 3):.3f} ms")
 
     n = 20
     ms = {
@@ -408,7 +521,16 @@ def main() -> int:
             lambda: sca.scatter_local(tables, sh, bake), n),
         "dir_shadow": kernel_time_ms(lambda: ds.dir_shadow(tables), n),
         "integrate": kernel_time_ms(lambda: integ.accumulate(tables, sc), n),
+        "bake_visibility": kernel_time_ms(
+            lambda: vis.bake_visibility(h_tables), n),
+        "temporal_blend": kernel_time_ms(blend_a, n),
+        "windowed_warp": kernel_time_ms(
+            lambda: wp.windowed_warp(h_prev_sc, tx, ty, tz, kk), n),
     }
+    weight_ms = kernel_time_ms(blend_w, n)
+    mode_ms = {m: kernel_time_ms(
+        lambda a=a: sca.scatter_local(h_tables, h_sh, *a), n)
+        for m, a in k6_modes.items()}
     per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
     n_p = 3
     plain_ms = {
@@ -428,7 +550,20 @@ def main() -> int:
         "dir_shadow": cuda_time_ms(lambda: ds.dir_shadow_plain(tables), n_p),
         "integrate": cuda_time_ms(
             lambda: integ.accumulate_plain(tables, sc), n_p),
+        "bake_visibility": cuda_time_ms(
+            lambda: vis.bake_visibility_plain(h_tables), n_p),
+        "temporal_blend": cuda_time_ms(
+            lambda: tmp.temporal_blend_plain(tables.abpar, prev_acc, acc_un,
+                                             whd, hg, kk, "alpha"), n_p),
+        "windowed_warp": cuda_time_ms(
+            lambda: wp.windowed_warp_plain(h_prev_sc, tx, ty, tz, kk), n_p),
     }
+    weight_plain_ms = cuda_time_ms(
+        lambda: tmp.temporal_blend_plain(tables.sbpar, prev_sh, unblended,
+                                         whd, hg, kk, "weight"), n_p)
+    mode_plain_ms = {m: cuda_time_ms(
+        lambda a=a: sca.scatter_local_plain(h_tables, h_sh, *a), 1)
+        for m, a in k6_modes.items()}
     per_light_plain_ms = cuda_time_ms(
         lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
     # yardstick for K4: one grid_sample computing the same trilinear of
@@ -469,6 +604,10 @@ def main() -> int:
     ops_perlin = 3 * 8 * 40      # 3 octaves x 8 corners x hash + grad + lerp
     n_noise = tables.n_noise
     n_media = len(scene.media)
+    n_lights = h_tables.lights.shape[0]
+    h_active_pairs = int(h_tables.active.sum()) * hl * wl
+    # the history path's (froxel, light) pairs: each slice's scheduled lights
+    h_pairs = int(h_tables.count.sum()) * h * w
     # one reprojection per froxel and blend: the three tent passes read
     # offsets taken at their own output points, so each froxel's offset
     # triple serves all three (the kernels recompute neighbours' offsets,
@@ -501,7 +640,19 @@ def main() -> int:
             n_fro * ops_scatter),
         "dir_shadow": (4 * nd * n_fro, n_fro * nd * (30 + ops_ray)),
         "integrate": (4 * (4 * n_fro + 4 * n_fro), n_fro * ops_integrate),
+        # K9: one ray and its set-up per (low sample, light) pair that
+        # low_slice_active keeps
+        "bake_visibility": (4 * n_lights * n_low,
+                            h_active_pairs * (40 + ops_ray)),
+        # K10, alpha mode: prev, cur and out of the 4 accumulation channels
+        "temporal_blend": (4 * 12 * n_fro,
+                           n_fro * (ops_reproj + warp(4) + 12)),
+        # K11 at 4 channels: the volume and 3 target volumes in, the volume
+        # out; 3 offsets (4 ops each) where temporal_blend reprojects
+        "windowed_warp": (4 * (4 + 3 + 4) * n_fro, n_fro * (12 + warp(4))),
     }
+    weight_work = (4 * 3 * nd * n_fro,
+                   n_fro * (ops_reproj + warp(nd) + 3 * nd))
     # K6 per-light: the shadow in, the planes out; per froxel the material
     # with its Perlin and the sun term, per scheduled (froxel, light) pair
     # the light factor and one ray
@@ -510,9 +661,27 @@ def main() -> int:
         4 * (nd * n_fro + 4 * n_fro),
         n_fro * (60 * n_media + ops_perlin * noise_media + 40 * nd + 40)
         + full_pairs * (60 + ops_ray))
+    # K6's further modes: per froxel the sun term and (fused) the material
+    # with its Perlin, per scheduled pair the light factor and one upsample
+    # of the light's visibility (baked), or three upsamples (radiance)
+    sun = 40 * nd + 40
+    mode_work = {
+        "baked_planes": (
+            4 * (nd * n_fro + n_lights * n_low + 4 * n_fro + 3 * n_fro),
+            n_fro * sun + h_pairs * (60 + 20)),
+        "baked_fused": (
+            4 * (nd * n_fro + n_lights * n_low + 4 * n_fro),
+            n_fro * (60 * n_media + ops_perlin * noise_media + sun)
+            + h_pairs * (60 + 20)),
+        "radiance_planes": (
+            4 * (nd * n_fro + 3 * n_low + 4 * n_fro + 3 * n_fro),
+            n_fro * (3 * 20 + sun)),
+    }
     log(f"# bound inputs: {prims} primitives, {active_pairs} active "
         f"(low sample, light) pairs, {n_noise} noise channel(s), "
-        f"{full_pairs} scheduled (froxel, light) pairs on the exact path")
+        f"{full_pairs} scheduled (froxel, light) pairs on the exact path, "
+        f"{h_pairs} on the history path, {h_active_pairs} active (low "
+        f"sample, light) pairs in its visibility bake")
 
     def bound(nbytes, nops):
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -547,6 +716,25 @@ def main() -> int:
                 f"plain {per_light_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by} ({per_light_work[0] / 1e6:.1f} MB, "
                 f"{per_light_work[1] / 1e9:.2f} GFLOP)")
+            for m in k6_modes:
+                b_ms, b_by = bound(*mode_work[m])
+                entry[m] = {
+                    "max_abs_err": mode_err[m], "ms": mode_ms[m],
+                    "plain_ms": mode_plain_ms[m], "bound_ms": b_ms,
+                    "bound_by": b_by}
+                log(f"# scatter, {m}: {mode_ms[m]:.4f} ms/launch, plain "
+                    f"{mode_plain_ms[m]:.3f} ms, bound {b_ms:.4f} ms by "
+                    f"{b_by} ({mode_work[m][0] / 1e6:.1f} MB, "
+                    f"{mode_work[m][1] / 1e9:.2f} GFLOP)")
+        if name == "temporal_blend":
+            b_ms, b_by = bound(*weight_work)
+            entry["weight"] = {
+                "max_abs_err": weight_err, "ms": weight_ms,
+                "plain_ms": weight_plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            log(f"# temporal_blend, weight mode ({nd} channel): "
+                f"{weight_ms:.4f} ms/launch, plain {weight_plain_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms by {b_by}")
         kernels.append(entry)
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -130,13 +130,11 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
                                 dict(composite_impl="tentmm"),
                                 dict(composite_upsample=2),
                                 dict(shadow_mode="map"),
-                                dict(frame_fused=False, scatter_bake="vis"),
-                                dict(material_impl="xla"),
-                                dict(reproj_impl="windowed"),
-                                dict(frame_fused=False,
-                                     temporal_blend_scatter=True),
-                                dict(frame_fused=False,
-                                     accumulate_impl="xla")])
+                                dict(shadow_mode="map_dir"),
+                                dict(scatter_impl="xla"),
+                                dict(composite_impl="pallas"),
+                                dict(frame_fused=False, scatter_impl="xla"),
+                                dict(frame_fused=False, composite_impl="rowmm")])
 def test_unported_configs_raise(kw):
     r = vt.VolumetricRenderer(
         dataclasses.replace(vt.FULL_CONFIG, **SMALL, **kw), device="cpu")
@@ -144,6 +142,49 @@ def test_unported_configs_raise(kw):
                                noise_mode="procedural", device="cpu")
     with pytest.raises(NotImplementedError):
         r.render_frame(r.init_state(1), scene, 0.0)
+
+
+@pytest.mark.parametrize("kw", [dict(frame_fused=False, scatter_bake="vis"),
+                                dict(material_impl="xla"),
+                                dict(reproj_impl="windowed"),
+                                dict(frame_fused=False,
+                                     temporal_blend_scatter=True),
+                                dict(frame_fused=False,
+                                     accumulate_impl="xla")],
+                         ids=lambda kw: ",".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_staged_configs_match_jax(kw):
+    """Configurations that leave the fused frame for a staged route (the
+    visibility bake, material volumes, the plain reprojection, the scatter
+    blend, the plain scan): two frames with a moving camera against the JAX
+    render_frame, same tolerance as the frames above."""
+    base = j_bench(aspect=128 / 120, num_local_lights=4,
+                   noise_mode="procedural")
+    scenes = [dataclasses.replace(base, camera=JCamera.create(
+        position=p, forward=f, aspect=128 / 120)) for p, f in CAMERAS[:2]]
+    jr = JRenderer(dataclasses.replace(J_FULL, **SMALL, **kw))
+    tr = vt.VolumetricRenderer(
+        dataclasses.replace(vt.FULL_CONFIG, **SMALL, **kw), device="cpu")
+    assert not tr.fuses_frame()
+    gbuffer = jax.jit(jr.render_scene_inputs)
+    step = jax.jit(lambda s, sc, t, c, d: jr.render_frame(
+        s, sc, t, scene_color=c, view_depth=d)[::2])
+    st, ts = jr.init_state(1), tr.init_state(1)
+    for i, sc in enumerate(scenes):
+        c, d = (np.array(a) for a in gbuffer(sc))
+        j_img, st = step(st, sc, jnp.float32(0.1 * i), c, d)
+        t_img, _, ts = tr.render_frame(ts, scene_from_numpy(sc, "cpu"),
+                                       np.float32(0.1 * i),
+                                       torch.as_tensor(c), torch.as_tensor(d))
+        assert_boundary_close(t_img.numpy(), j_img, f"{kw} image {i}")
+        assert np.abs(t_img.numpy() - np.asarray(j_img)).mean() \
+            <= 1e-5 * np.abs(np.asarray(j_img)).max()
+    assert_boundary_close(
+        t_packed(ts.prev_accumulation).numpy(),
+        packed_accumulation(st.prev_accumulation, jr.config.grid_dhw),
+        f"{kw} accumulation history")
+    assert_boundary_close(ts.prev_shadow.numpy(), st.prev_shadow,
+                          f"{kw} shadow history")
 
 
 def test_texture_noise_scene_raises():

@@ -4,8 +4,10 @@ and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 A port of `volumetricrenderer_tpu` (JAX on a TPU), which stays the
 reference. This package imports torch and numpy, never JAX or the JAX
 package. Ported so far: the production frame (the fused volume phase and
-the zgather composite) and the staged frame beside it (shadow, scatter and
-integrate as separate kernels, with the exact per-light scatter); see
+the zgather composite), the staged frame beside it (shadow, scatter and
+integrate as separate kernels, with the exact per-light scatter) and the
+history frame (material volumes, the per-light visibility bake, the
+material, scatter and standalone shadow and accumulation blends); see
 ROADMAP.md for what remains.
 """
 

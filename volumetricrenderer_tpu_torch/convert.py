@@ -84,14 +84,19 @@ def scene_from_numpy(obj, device) -> Scene:
 
 
 def state_from_numpy(prev_accumulation, prev_shadow, prev_world_to_view,
-                     frame_count: int, device) -> FrameState:
-    """FrameState from a packed [D, H, W, 4] accumulation and an
-    [Nd, D, H, W] shadow history (numpy arrays or anything np.asarray
-    takes)."""
+                     frame_count: int, device, prev_material_a=None,
+                     prev_scatter=None) -> FrameState:
+    """FrameState from a packed [D, H, W, 4] accumulation, an
+    [Nd, D, H, W] shadow history and, where their blends are on, packed
+    [D, H, W, 4] material and scatter histories (numpy arrays or anything
+    np.asarray takes)."""
     f32 = lambda a: torch.as_tensor(np.array(np.asarray(a), np.float32),
                                     device=device)
-    acc = f32(prev_accumulation)
+    planes = lambda a: None if a is None \
+        else f32(a).permute(3, 0, 1, 2).contiguous()
     return FrameState(prev_shadow=f32(prev_shadow),
-                      prev_accumulation=acc.permute(3, 0, 1, 2).contiguous(),
+                      prev_accumulation=planes(prev_accumulation),
                       prev_world_to_view=f32(prev_world_to_view).cpu(),
-                      frame_count=int(frame_count))
+                      frame_count=int(frame_count),
+                      prev_material_a=planes(prev_material_a),
+                      prev_scatter=planes(prev_scatter))

@@ -33,18 +33,8 @@ __global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
   const int r = (i / T.wl) % T.hl;
   const int m = i / (T.wl * T.hl);
   const float* p = T.spar;
-  const int ss = T.ss;
-
-  // visibility.bake_world_planes (slab y-phase 0)
-  const float off = (float)(ss - 1) * 0.5f;
-  const float fz = (float)ss * (float)m + off + 0.5f + p[19];
-  const float vz = view_z(p, fz, T.d);
-  const float xs = (float)c * (float)ss + off;
-  float ys = (float)r * (float)ss + off + 0.0f;
-  ys = clampf(ys + p[23], 0.0f, (float)T.h_glob - 1.0f);
   float wx, wy, wz;
-  froxel_world(p, xs + 0.5f + p[17], ys + 0.5f + p[18], vz, T.w, T.h_glob,
-               wx, wy, wz);
+  low_sample_world(T, m, r, c, wx, wy, wz);
 
   // visibility.radiance_view_dirs
   float vdx = wx - p[20], vdy = wy - p[21], vdz = wz - p[22];

@@ -1,6 +1,6 @@
 // Device helpers shared by the volume-phase kernels (bake_radiance.cu,
 // shadow_scatter.cu, integrate_blend.cu, shadow_blend.cu, dir_shadow.cu,
-// scatter.cu, integrate.cu).
+// scatter.cu, integrate.cu, bake_visibility.cu, temporal_blend.cu).
 //
 // Each function is the CUDA form of a device helper that the TPU kernels
 // (volumetricrenderer_tpu/ops/pallas/: frame_fused.py inlines the bodies of
@@ -21,7 +21,8 @@
 // Packed tables and dims of one frame (the wrapper fills it from the
 // pack_* tables; mirrored by ops/cuda.py VrTables). All pointers are device
 // pointers to contiguous arrays; a table the frame does not have is null
-// (the low-grid tables at ss = 1, the light schedule at ss > 1).
+// (the low-grid tables at ss = 1, the light schedule where no per-light
+// scatter runs).
 struct VrTables {
   const float* spar;      // [24] pack_params (jittered)
   const float* sbpar;     // [24] pack_blend_params, shadow blend
@@ -63,6 +64,11 @@ __device__ __forceinline__ float view_z(const float* p, float fz, int d) {
   return (expf(logf(p[14]) * fz / (float)d) - 1.0f) * p[15] + p[16];
 }
 
+// Local-light source of scatter_froxel.
+#define VR_LOCAL_RADIANCE 0  // the upsampled low-rate radiance
+#define VR_LOCAL_RAY 1       // per-light loop, one any-hit ray per light
+#define VR_LOCAL_BAKED 2     // per-light loop over the low-rate visibility
+
 // froxel (continuous fxc, fyc, view depth vz) -> world position.
 __device__ __forceinline__ void froxel_world(const float* p, float fxc,
                                              float fyc, float vz, int w,
@@ -73,6 +79,23 @@ __device__ __forceinline__ void froxel_world(const float* p, float fxc,
   wx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
   wy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
   wz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
+}
+
+// visibility.bake_world_planes (slab y-phase 0): jittered world position
+// of low sample (m, r, c), which sits at full coordinate ss*k + (ss-1)/2.
+__device__ __forceinline__ void low_sample_world(const VrTables& T, int m,
+                                                 int r, int c, float& wx,
+                                                 float& wy, float& wz) {
+  const float* p = T.spar;
+  const int ss = T.ss;
+  const float off = (float)(ss - 1) * 0.5f;
+  const float fz = (float)ss * (float)m + off + 0.5f + p[19];
+  const float vz = view_z(p, fz, T.d);
+  const float xs = (float)c * (float)ss + off;
+  float ys = (float)r * (float)ss + off + 0.0f;
+  ys = clampf(ys + p[23], 0.0f, (float)T.h_glob - 1.0f);
+  froxel_world(p, xs + 0.5f + p[17], ys + 0.5f + p[18], vz, T.w, T.h_glob,
+               wx, wy, wz);
 }
 
 // occlude.any_hit, solid branch: does the ray (o, unit dir) hit a primitive
@@ -472,37 +495,57 @@ __device__ __forceinline__ void shadow_blend_froxel(
 
 // ---- scatter.py: the per-froxel in-scatter ---------------------------------
 
-// scatter.scatter_slice at froxel (z, y, x) with the material evaluated
-// here at the jittered world position (wx, wy, wz): out = (r, g, b, ext).
-// Local lights, PER_LIGHT false: the low-rate radiance of `bake`
-// [3 + n_noise, DL, HL, WL] upsampled, times sigma_s, the fBm factors
-// upsampled from its noise channels when n_noise > 0. PER_LIGHT true (bake
-// unused): every light of the slice's schedule order[z][0 .. count[z]) adds
-// light_factor x (1 - any_hit x gate) x colour x sigma_s, in schedule order
-// (ascending light index), and the fBm is evaluated here. Then every sun
-// adds colour x blended[li] x HG x sigma_s at the unjittered centre (the
-// jittered one with jitter_dir); ext = luma(sigma_s) + sigma_a per sun.
-template <bool PER_LIGHT>
+// scatter.scatter_slice at froxel (z, y, x), jittered world position
+// (wx, wy, wz): out = (r, g, b, ext).
+// Material: MAT_PLANES false evaluates the media table here and writes
+// ext = (luma(sigma_s) + sigma_a) x suns; MAT_PLANES true reads sigma_s rgb
+// from mat_a [4, D, H, W] and phase g from mat_b [1, D, H, W] and leaves
+// out[3] alone (the caller adds the extinction).
+// Local lights, by LOCAL:
+//   VR_LOCAL_RADIANCE  the low-rate radiance of `low` [3 + n_noise, DL, HL,
+//       WL] upsampled, times sigma_s; with the media evaluated here, the
+//       fBm factors upsampled from its noise channels when n_noise > 0;
+//   VR_LOCAL_RAY       (low unused) every light of the slice's schedule
+//       order[z][0 .. count[z]) adds light_factor x (1 - any_hit x gate) x
+//       colour x sigma_s, in schedule order (ascending light index);
+//   VR_LOCAL_BAKED     the same loop, the shadow term read from the
+//       low-rate per-light visibility `low` [NL, DL, HL, WL], upsampled
+//       (z-lerp, x tent, y tent) at the light's channel.
+// In both loops the fBm is evaluated here. Then every sun adds colour x
+// blended[li] x HG x sigma_s at the unjittered centre (the jittered one with
+// jitter_dir).
+template <int LOCAL, bool MAT_PLANES = false>
 __device__ void scatter_froxel(const VrTables& T,
-                               const float* __restrict__ bake, int z, int y,
+                               const float* __restrict__ low, int z, int y,
                                int x, float wx, float wy, float wz,
-                               const float* blended, float* out) {
+                               const float* blended, float* out,
+                               const float* __restrict__ mat_a = nullptr,
+                               const float* __restrict__ mat_b = nullptr) {
   const float* p = T.spar;
   const long lplane = (long)T.dl * T.hl * T.wl;
-  float noise[VR_MAX_NOISE];
-  const bool baked_noise = !PER_LIGHT && T.n_noise > 0;
-  if (baked_noise)
-    for (int c = 0; c < T.n_noise; ++c)
-      noise[c] = upsample_low(T, bake + (3 + c) * lplane, z, y, x);
-  float sr, sg, sbl, s_a, phg;
-  material(T, wx, wy, wz, baked_noise ? noise : nullptr, sr, sg, sbl, s_a,
-           phg);
-  const float ext = (0.3f * sr + 0.59f * sg + 0.11f * sbl + s_a)
-                    * (float)T.n_dir;
+  float sr, sg, sbl, phg;
+  if constexpr (MAT_PLANES) {
+    const long n = (long)T.d * T.h * T.w;
+    const long i = ((long)z * T.h + y) * T.w + x;
+    sr = __ldg(mat_a + i);
+    sg = __ldg(mat_a + n + i);
+    sbl = __ldg(mat_a + 2 * n + i);
+    phg = __ldg(mat_b + i);
+  } else {
+    float noise[VR_MAX_NOISE];
+    const bool baked_noise = LOCAL == VR_LOCAL_RADIANCE && T.n_noise > 0;
+    if (baked_noise)
+      for (int c = 0; c < T.n_noise; ++c)
+        noise[c] = upsample_low(T, low + (3 + c) * lplane, z, y, x);
+    float s_a;
+    material(T, wx, wy, wz, baked_noise ? noise : nullptr, sr, sg, sbl, s_a,
+             phg);
+    out[3] = (0.3f * sr + 0.59f * sg + 0.11f * sbl + s_a) * (float)T.n_dir;
+  }
   const float g2 = phg * phg;
   const float hg_num = (1.0f - g2) / (float)(4.0 * VR_PI);
   float ar, ag, ab;
-  if constexpr (PER_LIGHT) {
+  if constexpr (LOCAL != VR_LOCAL_RADIANCE) {
     float vdx = wx - p[20], vdy = wy - p[21], vdz = wz - p[22];
     const float invd = rsqrt_exact(vdx * vdx + vdy * vdy + vdz * vdz
                                    + 1e-18f);
@@ -513,21 +556,28 @@ __device__ void scatter_froxel(const VrTables& T,
     const int* ord = T.order + (long)z * T.n_lights;
     const int n_act = T.count[z];
     for (int j = 0; j < n_act; ++j) {
-      const float* q = T.lights + 16 * ord[j];
+      const int li = ord[j];
+      const float* q = T.lights + 16 * li;
       float ldx, ldy, ldz, dist;
       const float factor = light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg,
                                         g2, hg_num, ldx, ldy, ldz, dist);
-      const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz,
-                               dist - 0.05f);
-      const float base = factor * (1.0f - (occ ? 1.0f : 0.0f) * q[14]);
+      float shadow;
+      if constexpr (LOCAL == VR_LOCAL_BAKED) {
+        shadow = upsample_low(T, low + li * lplane, z, y, x);
+      } else {
+        const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz,
+                                 dist - 0.05f);
+        shadow = 1.0f - (occ ? 1.0f : 0.0f) * q[14];
+      }
+      const float base = factor * shadow;
       ar = ar + base * q[3] * sr;
       ag = ag + base * q[4] * sg;
       ab = ab + base * q[5] * sbl;
     }
   } else {
-    ar = upsample_low(T, bake, z, y, x) * sr;
-    ag = upsample_low(T, bake + lplane, z, y, x) * sg;
-    ab = upsample_low(T, bake + 2 * lplane, z, y, x) * sbl;
+    ar = upsample_low(T, low, z, y, x) * sr;
+    ag = upsample_low(T, low + lplane, z, y, x) * sg;
+    ab = upsample_low(T, low + 2 * lplane, z, y, x) * sbl;
   }
   if (T.n_dir) {
     float cwx = wx, cwy = wy, cwz = wz;
@@ -552,7 +602,6 @@ __device__ void scatter_froxel(const VrTables& T,
   out[0] = ar;
   out[1] = ag;
   out[2] = ab;
-  out[3] = ext;
 }
 
 // ---- integrate.py: the jittered xy sample and the slice integral -----------

@@ -61,7 +61,8 @@ __global__ void shadow_scatter_kernel(VrTables T,
 
   // 3. scatter_slice (radiance mode, material fused, dir lights folded)
   float sc[4];
-  scatter_froxel<false>(T, bake, z, y, x, wx, wy, wz, blended, sc);
+  scatter_froxel<VR_LOCAL_RADIANCE>(T, bake, z, y, x, wx, wy, wz, blended,
+                                    sc);
 #pragma unroll
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }

@@ -87,6 +87,21 @@ def depth_to_froxel_z(p: FroxelParams, view_depth: torch.Tensor
                                      min=1e-8)) / torch.log(p.z)
 
 
+def froxel_z_to_view_z(p: FroxelParams, fz: torch.Tensor) -> torch.Tensor:
+    """View depth of continuous froxel z."""
+    _, _, d = p.grid
+    return (torch.pow(p.z, fz / d) - 1.0) * p.w + p.near
+
+
+def froxel_centers(grid: Tuple[int, int, int], device="cpu") -> torch.Tensor:
+    """Continuous froxel position (x, y, z) of every cell centre (integer
+    index + 0.5): [D, H, W, 3]."""
+    w, h, d = grid
+    ar = lambda n: torch.arange(n, dtype=torch.float32, device=device) + 0.5
+    zz, yy, xx = torch.meshgrid(ar(d), ar(h), ar(w), indexing="ij")
+    return torch.stack([xx, yy, zz], dim=-1)
+
+
 def transform_points(mat: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 (column-vector convention) to [..., 3] points, w-divide.
     Written as explicit products, not a matmul, like the JAX package."""

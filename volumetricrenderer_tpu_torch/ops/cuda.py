@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
-           "shadow_blend", "scatter", "dir_shadow", "integrate")
+           "shadow_blend", "scatter", "dir_shadow", "integrate",
+           "bake_visibility", "temporal_blend", "windowed_warp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -124,9 +125,14 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "composite": ("vr_composite",
                       [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]),
         "shadow_blend": ("vr_shadow_blend", [tp, vp, vp, vp]),
-        "scatter": ("vr_scatter", [tp, vp, vp, vp, vp]),
+        "scatter": ("vr_scatter", [tp, vp, vp, vp, vp, vp, ci, vp]),
         "dir_shadow": ("vr_dir_shadow", [tp, vp, vp]),
         "integrate": ("vr_integrate", [tp, vp, vp, vp]),
+        "bake_visibility": ("vr_bake_visibility", [tp, vp, vp]),
+        "temporal_blend": ("vr_temporal_blend",
+                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
+        "windowed_warp": ("vr_windowed_warp",
+                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]),
     }[name]
     fn = getattr(cdll, sig[0])
     fn.argtypes = sig[1]

@@ -59,7 +59,8 @@ class FrameTables:
     or int32 tensors on the frame's device) and the static counts. A table
     is None where the frame has no use for it: the low-grid tables (active,
     tent_x, tent_y) at ss = 1, the full-rate light schedule (order, count)
-    at ss > 1, and the tables of a scene part that was not given."""
+    where no per-light scatter runs, and the tables of a scene part that was
+    not given."""
     spar: torch.Tensor        # [1, 24] pack_params (jittered)
     sbpar: torch.Tensor       # [1, 24] shadow blend (jitter, eps 1e-4)
     abpar: torch.Tensor       # [1, 28] acc blend (no jitter, eps 0) + jitter
@@ -164,13 +165,16 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                  dir_lights, point_lights, spot_lights, geometry, media,
                  time_x, camera_pos, grid_whd: Tuple[int, int, int], k: int,
                  vis_ss: int, bake_noise: bool,
-                 jitter_dir: bool = False) -> FrameTables:
+                 jitter_dir: bool = False,
+                 light_schedule: Optional[bool] = None) -> FrameTables:
     """Pack every table of one frame: plain torch on the CPU, where the
     scene description must lie (FrameTables.to moves the result).
 
-    vis_ss > 1 packs the low grid of the radiance bake (active, tent taps);
-    vis_ss = 1 has no low grid and packs the full-rate light schedule of the
-    per-light scatter instead. A scene part passed as None (dir_lights, the
+    vis_ss > 1 packs the low grid of the low-rate bakes (active, tent taps);
+    vis_ss = 1 has no low grid. light_schedule packs the full-rate light
+    schedule of the per-light scatter (order, count); by default only at
+    vis_ss = 1, and the per-light scatter over the baked visibility asks for
+    it beside the low grid. A scene part passed as None (dir_lights, the
     local lights, geometry, media) leaves its tables None: the
     single-kernel wrappers pack only what their kernel reads."""
     w, h, d = grid_whd
@@ -240,7 +244,9 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
             active = low_slice_active(params, view_to_world, positions,
                                       ranges, grid_whd,
                                       vis_ss).to(torch.int32).contiguous()
-        else:
+        if light_schedule is None:
+            light_schedule = vis_ss == 1
+        if light_schedule:
             order, count = slice_light_order(params, view_to_world,
                                              positions, ranges, grid_whd)
             order, count = order.contiguous(), count.contiguous()

@@ -5,8 +5,8 @@ Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/material.py`
 (`_hash3`, `_grad_dot`, `_fade`, `_perlin_single`, `perlin_planes`,
 `phase_g_plane`, `noise_factor_planes`, `material_planes`); the CUDA
 counterparts are the functions of the same names in `csrc/common.cuh`.
-The Perlin hash is uint32 arithmetic: here int64 with every product and sum
-masked to 32 bits (products split into 16-bit halves so no int64 overflows).
+The Perlin hash is uint32 arithmetic: here on int32 tensors, whose products
+and sums wrap to the same 32 bits.
 """
 
 from __future__ import annotations
@@ -53,22 +53,23 @@ def pack_media(media: Sequence, time_x) -> Tuple[torch.Tensor, tuple]:
     return torch.stack(rows), tuple(static)
 
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for 0 <= a < 2^32 in int64, without overflow."""
-    lo = (a & 0xFFFF) * c
-    hi = (((a >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & M32
+def _s32(c: int) -> int:
+    """The uint32 constant c as the int32 value with the same bits."""
+    c &= M32
+    return c - (1 << 32) if c >= 1 << 31 else c
 
 
 def _hash3(ix, iy, iz, seed: int) -> torch.Tensor:
-    """uint32 lattice hash of int64 lattice planes -> low 4 bits."""
-    u = lambda a: a & M32
-    h = (_mul32(u(ix), 0x8DA6B343) + _mul32(u(iy), 0xD8163841)) & M32
-    h = (h + _mul32(u(iz), 0xCB1AB31F)) & M32
-    h = (h + ((int(seed) * 0x9E3779B9) & M32)) & M32
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 16)
+    """uint32 lattice hash of integer lattice planes -> low 4 bits. int32
+    tensors hold the uint32 bits: products and sums wrap modulo 2^32 either
+    way, and the two right shifts are made logical by masking off the
+    sign's copies."""
+    i32 = lambda a: a.to(torch.int32)
+    h = i32(ix) * _s32(0x8DA6B343) + i32(iy) * _s32(0xD8163841) \
+        + i32(iz) * _s32(0xCB1AB31F) + _s32(int(seed) * 0x9E3779B9)
+    h = h ^ ((h >> 13) & 0x7FFFF)
+    h = h * _s32(0x85EBCA6B)
+    h = h ^ ((h >> 16) & 0xFFFF)
     return h & 15
 
 
@@ -87,9 +88,9 @@ def _perlin_single(px, py, pz, period: int, seed: int):
     """Periodic Perlin noise at coordinate planes."""
     p0x, p0y, p0z = torch.floor(px), torch.floor(py), torch.floor(pz)
     fx, fy, fz = px - p0x, py - p0y, pz - p0z
-    i0x = p0x.to(torch.int64)
-    i0y = p0y.to(torch.int64)
-    i0z = p0z.to(torch.int64)
+    i0x = p0x.to(torch.int32)
+    i0y = p0y.to(torch.int32)
+    i0z = p0z.to(torch.int32)
     ux, uy, uz = _fade(fx), _fade(fy), _fade(fz)
     if period & (period - 1) == 0:
         wrap = lambda a: a & (period - 1)

@@ -1,7 +1,9 @@
 """Analytic ray casting over scene primitives: the G-buffer stand-in
 (`volumetricrenderer_tpu/ops/raycast.py` `camera_rays`, `intersect`,
-`render_scene`) as plain torch. It runs once per scene, not per frame.
-The heightfield is not ported: a geometry with one raises."""
+`render_scene`) as plain torch; it runs once per scene, not per frame. And
+`occluded`, the any-hit test of the plain shadow volume
+(`dir_shadow_impl="xla"`). The heightfield and fractional box opacity are
+not ported: a geometry with either raises."""
 
 from __future__ import annotations
 
@@ -91,6 +93,47 @@ def intersect(geom: Geometry, origins: torch.Tensor, dirs: torch.Tensor,
         closer(t, geom.box_albedo[i].expand(origins.shape), normal)
 
     return bt, ba, bn
+
+
+def occluded(geom: Geometry, points: torch.Tensor, to_light: torch.Tensor,
+             max_dist) -> torch.Tensor:
+    """1.0 where the segment points -> points + to_light * max_dist hits
+    geometry. points [..., 3]; to_light a unit direction [3] or [..., 3];
+    max_dist a float or [...]. Any-hit only."""
+    if geom.hf_enabled:
+        raise NotImplementedError("heightfield occlusion is not ported")
+    if geom.box_fractional:
+        raise NotImplementedError("fractional box opacity is not ported")
+    origins, dirs = points, to_light
+    hit = torch.zeros(points.shape[:-1], dtype=torch.bool,
+                      device=points.device)
+    for i in range(geom.plane_normal.shape[0]):
+        n = geom.plane_normal[i]
+        denom = _dot3(dirs, n)
+        t = -(_dot3(origins, n) + geom.plane_d[i]) / torch.where(
+            denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
+        hit = hit | ((t > EPS) & (t < max_dist) & (denom.abs() > 1e-9))
+    for i in range(geom.sphere_center.shape[0]):
+        oc = origins - geom.sphere_center[i]
+        b = _dot3(oc, dirs)
+        cq = _dot3(oc, oc) - geom.sphere_radius[i] ** 2
+        disc = b * b - cq
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0 = -b - sq
+        t1 = -b + sq
+        t = torch.where(t0 > EPS, t0, t1)
+        hit = hit | ((disc > 0.0) & (t > EPS) & (t < max_dist))
+    if geom.box_min.shape[0]:
+        inv = 1.0 / torch.where(dirs.abs() < 1e-9,
+                                torch.full_like(dirs, 1e-9), dirs)
+        for i in range(geom.box_min.shape[0]):
+            t0s = (geom.box_min[i] - origins) * inv
+            t1s = (geom.box_max[i] - origins) * inv
+            tmin = torch.amax(torch.minimum(t0s, t1s), dim=-1)
+            tmax = torch.amin(torch.maximum(t0s, t1s), dim=-1)
+            t = torch.where(tmin > EPS, tmin, tmax)
+            hit = hit | ((tmax >= tmin) & (t > EPS) & (t < max_dist))
+    return hit.to(torch.float32)
 
 
 def camera_rays(width: int, height: int, fov_y: torch.Tensor,

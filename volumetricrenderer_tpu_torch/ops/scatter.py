@@ -3,12 +3,16 @@ schedule, the per-slice scatter and the scatter kernel K6.
 
 Counterpart of `volumetricrenderer_tpu/ops/pallas/scatter.py`: plain-torch
 twins of `pack_lights`, `pack_dir_lights`, `pack_params`,
-`slice_light_order`, `light_factor` and `scatter_slice` (fused material;
-local lights either as the upsampled low-rate radiance or as the per-light
-loop with one any-hit shadow ray per froxel and light), and `scatter_local`,
+`slice_light_order`, `light_factor` and `scatter_slice`, and `scatter_local`,
 the wrapper of the CUDA kernel K6 (`csrc/scatter.cu`) that stands for
-`scatter_local_pallas`. The shared device code is `light_factor` and
-`scatter_froxel` in `csrc/common.cuh`.
+`scatter_local_pallas`. The local lights come from one of three sources:
+the upsampled low-rate radiance; the per-light loop with one any-hit shadow
+ray per froxel and light; or the per-light loop reading the upsampled
+low-rate visibility volume of kernel K9. The material is either evaluated
+at the froxel from the media table (the extinction plane comes out too) or
+read from material volumes (three planes out; the caller adds the
+extinction). The shared device code is `light_factor` and `scatter_froxel`
+in `csrc/common.cuh`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from volumetricrenderer_tpu_torch.ops.dir_shadow import froxel_world
 from volumetricrenderer_tpu_torch.ops.material import material_planes
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.phase import PI
+
+# local-light source of K6 (csrc/common.cuh VR_LOCAL_*)
+LOCAL_RADIANCE, LOCAL_RAY, LOCAL_BAKED = 0, 1, 2
 
 
 def pack_lights(point_lights, spot_lights) -> torch.Tensor:
@@ -157,26 +164,33 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
                   radiance_planes: Sequence[torch.Tensor],
                   noise_planes, *, grid_whd: Tuple[int, int, int],
                   n_dir: int, h_glob: int, jitter_dir: bool = False,
-                  local=None):
+                  local=None, material=None):
     """Scatter planes (ar, ag, ab, ext) at slice(s) zi: the local lights
     times sigma_s, plus each sun's colour x blended shadow x HG phase x
     sigma_s at the UNJITTERED froxel centre (jitter_dir=False), and the luma
     extinction ext = (0.3 sr + 0.59 sg + 0.11 sb + sa) * n_dir. The material
     is evaluated at the jittered world position, its fBm factor taken from
-    the upsampled noise_planes (None: evaluated here).
+    the upsampled noise_planes (None: evaluated here); or, with `material` =
+    (sr, sg, sb, phg) planes, read from there, and ext is None.
 
     Local lights, radiance mode: radiance_planes is the upsampled low-rate
     radiance (rgb). Per-light mode (radiance_planes None): `local` is
     (lights [NL, 16], active [NL] planes or scalars broadcasting against the
-    slice(s), planes, spheres, boxes, n_planes, n_spheres, n_boxes); every
-    light adds light_factor x (1 - any_hit x gate) x colour x sigma_s where
-    it is active, in ascending light index (the schedule's order)."""
+    slice(s), planes, spheres, boxes, n_planes, n_spheres, n_boxes, vis);
+    every light adds light_factor x shadow x colour x sigma_s where it is
+    active, in ascending light index (the schedule's order), its shadow
+    either 1 - any_hit x gate (vis None) or the upsampled low-rate
+    visibility plane vis[li]."""
     p = lambda i: par[0, i]
     camx, camy, camz = p(20), p(21), p(22)
     wx, wy, wz = froxel_world(par, zi, grid_whd, h_glob)
-    sr, sg, sb, s_a, phg = material_planes(med, media_static, wx, wy, wz,
-                                           noise_planes=noise_planes)
-    ext = (0.3 * sr + 0.59 * sg + 0.11 * sb + s_a) * float(n_dir)
+    if material is None:
+        sr, sg, sb, s_a, phg = material_planes(med, media_static, wx, wy, wz,
+                                               noise_planes=noise_planes)
+        ext = (0.3 * sr + 0.59 * sg + 0.11 * sb + s_a) * float(n_dir)
+    else:
+        sr, sg, sb, phg = material
+        ext = None
     g2 = phg * phg
     hg_num = (1.0 - g2) / (4.0 * PI)
     if radiance_planes is not None:
@@ -185,7 +199,7 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
         ab = radiance_planes[2] * sb
     else:
         lights, active, planes, spheres, boxes, n_planes, n_spheres, \
-            n_boxes = local
+            n_boxes, vis = local
         vdx = wx - camx
         vdy = wy - camy
         vdz = wz - camz
@@ -196,10 +210,14 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
             q = lambda i: lights[li, i]
             factor, ldx, ldy, ldz, dist, gate, cr, cg, cb = light_factor(
                 q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num)
-            occ = any_hit(planes, spheres, boxes, wx, wy, wz, -ldx, -ldy,
-                          -ldz, dist - 0.05, n_planes=n_planes,
-                          n_spheres=n_spheres, n_boxes=n_boxes)
-            base = factor * (1.0 - occ.to(torch.float32) * gate)
+            if vis is None:
+                occ = any_hit(planes, spheres, boxes, wx, wy, wz, -ldx, -ldy,
+                              -ldz, dist - 0.05, n_planes=n_planes,
+                              n_spheres=n_spheres, n_boxes=n_boxes)
+                shadow = 1.0 - occ.to(torch.float32) * gate
+            else:
+                shadow = vis[li]
+            base = factor * shadow
             ar = torch.where(active[li], ar + base * cr * sr, ar)
             ag = torch.where(active[li], ag + base * cg * sg, ag)
             ab = torch.where(active[li], ab + base * cb * sb, ab)
@@ -231,60 +249,98 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
 # K6 scatter (csrc/scatter.cu)
 # --------------------------------------------------------------------------
 
-def _check_scatter_inputs(t, shadow: torch.Tensor, bake) -> None:
+def _check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
+                          material) -> None:
     w, h, d = t.grid_whd
     if shadow.shape != (t.n_dir, d, h, w):
         raise ValueError(f"shadow {tuple(shadow.shape)} != "
                          f"{(t.n_dir, d, h, w)}")
-    if bake is None:
-        if t.order is None:
-            raise ValueError("per-light scatter needs the light schedule: "
-                             "pack the frame tables with vis_ss=1")
-    else:
+    if bake is not None and vis is not None:
+        raise ValueError("pass the radiance bake or the visibility bake, "
+                         "not both")
+    if bake is None and t.order is None:
+        raise ValueError("per-light scatter needs the light schedule: pack "
+                         "the frame tables with vis_ss=1 or light_schedule")
+    if bake is not None or vis is not None:
         wl, hl, dl = t.low_dims
-        if t.ss < 2 or bake.shape != (3 + t.n_noise, dl, hl, wl):
-            raise ValueError(f"bake volume {tuple(bake.shape)} at ss={t.ss}")
+        n_noise = t.n_noise if material is None else 0
+        want = (3 + n_noise, dl, hl, wl) if bake is not None \
+            else (t.lights.shape[0], dl, hl, wl)
+        low = bake if bake is not None else vis
+        if t.ss < 2 or low.shape != want:
+            raise ValueError(f"bake volume {tuple(low.shape)} at ss={t.ss}")
+    if material is not None:
+        mat_a, mat_b = material
+        if mat_a.shape != (4, d, h, w) or mat_b.shape != (1, d, h, w):
+            raise ValueError(f"material volumes {tuple(mat_a.shape)}, "
+                             f"{tuple(mat_b.shape)}")
 
 
 def scatter_local_plain(t, shadow: torch.Tensor,
-                        bake: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Twin of K6: scatter planes [4, D, H, W] (r, g, b, ext) from the
-    frame's tables, the blended shadow volume [Nd, D, H, W] and either the
-    low-rate radiance (+ fBm) volume `bake` or, with bake None, the per-light
-    loop over the tables' schedule."""
+                        bake: Optional[torch.Tensor] = None,
+                        vis: Optional[torch.Tensor] = None,
+                        material=None) -> torch.Tensor:
+    """Twin of K6: scatter planes from the frame's tables and the blended
+    shadow volume [Nd, D, H, W]. Local lights: the low-rate radiance (+ fBm)
+    volume `bake`; or, with bake None, the per-light loop over the tables'
+    schedule, shadowed by the low-rate visibility volume `vis`
+    [NL, DL, HL, WL] or, with vis None too, by one any-hit ray each.
+    Material: evaluated here from the media table, giving [4, D, H, W]
+    (r, g, b, ext); or read from material = (mat_a [4, D, H, W] sigma_s rgb
+    and sigma_a, mat_b [1, D, H, W] phase g), giving [3, D, H, W]."""
     # visibility.py imports this module for light_factor
     from volumetricrenderer_tpu_torch.ops.visibility import upsample_low
-    _check_scatter_inputs(t, shadow, bake)
+    _check_scatter_inputs(t, shadow, bake, vis, material)
     w, h, d = t.grid_whd
     zs = torch.arange(d, device=shadow.device)[:, None, None]
-    radiance = noise = local = None
+    radiance = noise = local = planes = None
+    if material is not None:
+        planes = (material[0][0], material[0][1], material[0][2],
+                  material[1][0])
     if bake is not None:
         radiance = upsample_low(bake[:3], zs, t.ss, t.tent_x, t.tent_y)
-        if t.n_noise:
+        if t.n_noise and material is None:
             noise = list(upsample_low(bake[3:3 + t.n_noise], zs, t.ss,
                                       t.tent_x, t.tent_y))
     else:
         active = schedule_mask(t.order, t.count).T[:, :, None, None]
+        if vis is not None:
+            vis = upsample_low(vis, zs, t.ss, t.tent_x, t.tent_y)
         local = (t.lights, active, t.planes, t.spheres, t.boxes, t.n_planes,
-                 t.n_spheres, t.n_boxes)
-    return torch.stack(scatter_slice(
+                 t.n_spheres, t.n_boxes, vis)
+    out = scatter_slice(
         t.spar, t.dirs, t.med, t.media_static, zs, list(shadow), radiance,
         noise, grid_whd=t.grid_whd, n_dir=t.n_dir, h_glob=t.h_glob,
-        jitter_dir=t.jitter_dir, local=local))
+        jitter_dir=t.jitter_dir, local=local, material=planes)
+    return torch.stack(out if material is None else out[:3])
 
 
 def scatter_local(t, shadow: torch.Tensor,
-                  bake: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K6: the scatter planes [4, D, H, W] (see scatter_local_plain)."""
+                  bake: Optional[torch.Tensor] = None,
+                  vis: Optional[torch.Tensor] = None,
+                  material=None) -> torch.Tensor:
+    """K6: the scatter planes, [4, D, H, W] or, with material volumes,
+    [3, D, H, W] (see scatter_local_plain)."""
     if shadow.device.type == "cpu":
-        return scatter_local_plain(t, shadow, bake)
-    _check_scatter_inputs(t, shadow, bake)
-    cuda.check_cuda(*((shadow,) if bake is None else (shadow, bake)))
+        return scatter_local_plain(t, shadow, bake, vis, material)
+    _check_scatter_inputs(t, shadow, bake, vis, material)
+    low = bake if bake is not None else vis
+    cuda.check_cuda(shadow, *(() if low is None else (low,)),
+                    *(material or ()))
+    if material is None and t.med is None:
+        raise ValueError("the fused material needs the media table")
     w, h, d = t.grid_whd
-    out = torch.empty((4, d, h, w), dtype=torch.float32, device=shadow.device)
+    out = torch.empty((4 if material is None else 3, d, h, w),
+                      dtype=torch.float32, device=shadow.device)
     st = t.c_struct()
+    mode = LOCAL_RADIANCE if bake is not None else \
+        (LOCAL_BAKED if vis is not None else LOCAL_RAY)
+    mat_a, mat_b = material if material is not None else (None, None)
     cuda.launch("scatter", cuda.ctypes.byref(st), cuda.ptr(shadow),
-                cuda.ptr(bake) if bake is not None else None, cuda.ptr(out))
+                cuda.ptr(low) if low is not None else None,
+                cuda.ptr(mat_a) if mat_a is not None else None,
+                cuda.ptr(mat_b) if mat_b is not None else None,
+                cuda.ptr(out), mode)
     return out
 
 
@@ -293,20 +349,27 @@ def scatter_local_fused(params, view_to_world, camera_pos, jitter,
                         grid_whd: Tuple[int, int, int], dir_lights,
                         shadow_volume: torch.Tensor, media, time_x,
                         jitter_dir: bool = False, vis=None,
-                        vis_ss: int = 1) -> torch.Tensor:
-    """`scatter_local_pallas` of the JAX package with the material folded in
-    (media given) and return_planes: packs the frame's tables on the CPU and
-    runs scatter_local on shadow_volume's device. vis: the low-rate radiance
-    (+ fBm) volume of bake_radiance at vis_ss, or None for the per-light
-    any-hit loop. Returns [4, D, H, W]."""
+                        vis_ss: int = 1, vis_radiance: bool = True,
+                        material=None) -> torch.Tensor:
+    """`scatter_local_pallas` of the JAX package with return_planes: packs
+    the frame's tables on the CPU and runs scatter_local on shadow_volume's
+    device. vis: the low-rate volume at vis_ss -- the radiance (+ fBm) of
+    bake_radiance (vis_radiance) or the per-light visibility of
+    bake_visibility -- or None for the per-light any-hit loop. media: folded
+    into the kernel, giving [4, D, H, W]; or None with material = (mat_a,
+    mat_b) volumes, giving [3, D, H, W]."""
     from volumetricrenderer_tpu_torch.ops.frame_fused import frame_tables
     if vis is None:
         vis_ss = 1
+    radiance = vis is not None and vis_radiance
     tables = frame_tables(
         params, view_to_world, torch.eye(4), jitter, 0.0, dir_lights,
         point_lights, spot_lights, geometry, media, time_x, camera_pos,
-        grid_whd, 1, vis_ss, bake_noise=vis is not None and vis.shape[0] > 3,
-        jitter_dir=jitter_dir)
+        grid_whd, 1, vis_ss,
+        bake_noise=radiance and media is not None and vis.shape[0] > 3,
+        jitter_dir=jitter_dir, light_schedule=not radiance)
     if shadow_volume.device.type != "cpu":
         tables = tables.to(shadow_volume.device)
-    return scatter_local(tables, shadow_volume, vis)
+    return scatter_local(tables, shadow_volume,
+                         bake=vis if radiance else None,
+                         vis=None if radiance else vis, material=material)

@@ -1,8 +1,11 @@
 """Temporal reprojection: blend parameters, the windowed reprojection
-offsets and the separable tent warp.
+offsets, the separable tent warp and the standalone temporal blend.
 
 Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/temporal.py`
-(`pack_blend_params`, `_reproj_offsets`, `_tent_weights`, `_tent_pass`).
+(`pack_blend_params`, `_reproj_offsets`, `_tent_weights`, `_tent_pass`), and
+`temporal_blend`, the wrapper of the CUDA kernel K10
+(`csrc/temporal_blend.cu`) that stands for `fused_temporal_blend`, with its
+twin.
 The warp is three sequential 1-D tent passes (z, then y, then x), each
 weighting its taps by the offset at ITS OWN output point (SPEC.md
 "Reprojection sampling"), so output (z, y, x) is
@@ -21,7 +24,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
+
+MODES = ("weight", "alpha")
+MAX_CHANNELS = 4    # csrc/temporal_blend.cu dispatches warp8<1..4>
+
 
 def pack_blend_params(params, view_to_world, prev_world_to_view, jitter,
                       alpha, uvw_epsilon: float) -> torch.Tensor:
@@ -115,3 +123,80 @@ def warp(prev: torch.Tensor, off_x, off_y, off_z, k: int) -> torch.Tensor:
     acc = tent_pass(prev, tent_weights(off_z, k), 1, k)
     acc = tent_pass(acc, tent_weights(off_y, k), 2, k)
     return tent_pass(acc, tent_weights(off_x, k), 3, k)
+
+
+# --------------------------------------------------------------------------
+# K10 temporal_blend (csrc/temporal_blend.cu)
+# --------------------------------------------------------------------------
+
+def _check_blend(bpar, prev, cur, grid_whd, mode) -> None:
+    w, h, d = grid_whd
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if bpar.shape != (1, 24) and bpar.shape != (1, 28):
+        raise ValueError(f"blend params {tuple(bpar.shape)}")
+    if prev.shape != cur.shape or prev.dim() != 4 \
+            or prev.shape[1:] != (d, h, w):
+        raise ValueError(f"prev {tuple(prev.shape)}, cur {tuple(cur.shape)}:"
+                         f" expected two [C, {d}, {h}, {w}]")
+
+
+def temporal_blend_plain(bpar, prev: torch.Tensor, cur: torch.Tensor,
+                         grid_whd: Tuple[int, int, int], h_glob: int, k: int,
+                         mode: str) -> torch.Tensor:
+    """Twin of K10: cur + wgt * (warped prev - cur) over channels
+    [C, D, H, W], the history warped at the analytic reprojection offsets of
+    the pack_blend_params table bpar. Mode "weight" (the shadow blend; the
+    offsets take the jitter): wgt = alpha * success_xy. Mode "alpha" (the
+    accumulation blend; no jitter): wgt = alpha * (warped last channel
+    != 0)."""
+    _check_blend(bpar, prev, cur, grid_whd, mode)
+    zs = torch.arange(grid_whd[2], device=prev.device)[:, None, None]
+    ox, oy, oz, success = reproj_offsets(bpar, zs, grid_whd, h_glob, k,
+                                         with_jitter=mode == "weight")
+    warped = warp(prev, ox, oy, oz, k)
+    if mode == "weight":
+        wgt = bpar[0, 20] * success
+    else:
+        wgt = bpar[0, 20] * (warped[-1] != 0.0).to(torch.float32)
+    return cur + wgt * (warped - cur)
+
+
+def temporal_blend(bpar, prev: torch.Tensor, cur: torch.Tensor,
+                   grid_whd: Tuple[int, int, int], h_glob: int, k: int,
+                   mode: str) -> torch.Tensor:
+    """K10: reproject, warp and blend in one pass, written to a new buffer.
+    bpar: a pack_blend_params table on the volumes' device (the frame
+    tables' sbpar for the shadow blend, abpar for the accumulation
+    blend)."""
+    if prev.device.type == "cpu":
+        return temporal_blend_plain(bpar, prev, cur, grid_whd, h_glob, k,
+                                    mode)
+    _check_blend(bpar, prev, cur, grid_whd, mode)
+    cuda.check_cuda(bpar, prev, cur)
+    if not 0 < prev.shape[0] <= MAX_CHANNELS:
+        raise ValueError(f"{prev.shape[0]} channels: the kernel takes 1 to "
+                         f"{MAX_CHANNELS}")
+    w, h, d = grid_whd
+    out = torch.empty_like(cur)
+    cuda.launch("temporal_blend", cuda.ptr(bpar), cuda.ptr(prev),
+                cuda.ptr(cur), cuda.ptr(out), prev.shape[0], w, h, d,
+                int(h_glob), int(k), MODES.index(mode))
+    return out
+
+
+def fused_temporal_blend(params, view_to_world, prev_world_to_view, jitter,
+                         alpha, prev: torch.Tensor, cur: torch.Tensor,
+                         grid_whd: Tuple[int, int, int], k: int, mode: str,
+                         uvw_epsilon: float = 0.0) -> torch.Tensor:
+    """`fused_temporal_blend` of the JAX package on kernel K10: prev and cur
+    are [C, D, H, W] (the JAX function takes and returns tuples of planes,
+    and can emit them in a padded TPU layout that the port has no use for).
+    Packs the blend table on the CPU, where the matrices must lie, and runs
+    temporal_blend on the volumes' device."""
+    jit = jitter if mode == "weight" else np.zeros(3, np.float32)
+    bpar = pack_blend_params(params, view_to_world, prev_world_to_view, jit,
+                             alpha, uvw_epsilon).contiguous()
+    if prev.device.type != "cpu":
+        bpar = upload(bpar, prev.device)
+    return temporal_blend(bpar, prev, cur, grid_whd, params.grid[1], k, mode)

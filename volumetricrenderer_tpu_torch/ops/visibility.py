@@ -1,12 +1,16 @@
-"""The low-rate local-light radiance (+ fBm) bake and its upsample.
+"""The low-rate local-light bakes (radiance + fBm, or per-light
+visibility) and their upsample.
 
 Plain-torch twins of `volumetricrenderer_tpu/ops/pallas/visibility.py`
 (`low_res_dims`, `upsample_mats`, `low_slice_active`, `bake_world_planes`,
-`radiance_view_dirs`, `bake_radiance_plane`) and of the z-lerp + separable
-tent upsample of `scatter_slice`. The CUDA counterparts are in
-`csrc/bake_radiance.cu` (kernel K1, which stands for `bake_radiance_pallas`
-and for the megakernel's inline bake; `bake_radiance_fused` below gives it
-the JAX function's signature) and `upsample_low` in `csrc/common.cuh`.
+`radiance_view_dirs`, `bake_radiance_plane`, `bake_light_plane`) and of the
+z-lerp + separable tent upsample of `scatter_slice`. The CUDA counterparts
+are in `csrc/bake_radiance.cu` (kernel K1, which stands for
+`bake_radiance_pallas` and for the megakernel's inline bake;
+`bake_radiance_fused` below gives it the JAX function's signature),
+`csrc/bake_visibility.cu` (kernel K9, which stands for
+`bake_visibility_pallas`; wrapper `bake_visibility` below) and
+`upsample_low` in `csrc/common.cuh`.
 
 Grid contract: low cell k covers full cells [ss*k, ss*k + ss); its sample
 sits at full coordinate ss*k + (ss-1)/2 (+0.5 + jitter). The z-lerp reads
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel as froxel_lib
+from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.scatter import light_factor
@@ -145,6 +150,23 @@ def bake_radiance_plane(lights, li, wx, wy, wz, vdx, vdy, vdz, phg, g2,
     return base * cr, base * cg, base * cb
 
 
+def bake_light_plane(lights, li, wx, wy, wz, planes, spheres, boxes, *,
+                     n_planes: int, n_spheres: int, n_boxes: int):
+    """Visibility (1 = lit) of light row li at world positions: one any-hit
+    ray to the light, gated by the light's has_shadow."""
+    q = lambda i: lights[li, i]
+    tx = wx - q(0)
+    ty = wy - q(1)
+    tz = wz - q(2)
+    d2 = tx * tx + ty * ty + tz * tz
+    inv_d = torch.rsqrt(d2 + 1e-18)
+    dist = d2 * inv_d
+    occ = any_hit(planes, spheres, boxes, wx, wy, wz, -tx * inv_d,
+                  -ty * inv_d, -tz * inv_d, dist - 0.05, n_planes=n_planes,
+                  n_spheres=n_spheres, n_boxes=n_boxes)
+    return 1.0 - occ.to(torch.float32) * q(14)
+
+
 def upsample_low(vol: torch.Tensor, zi, ss: int, tx, ty) -> torch.Tensor:
     """z-lerp + separable tent upsample of low volume channels
     vol [C, DL, HL, WL] to full slice(s) zi: an int -> [C, H, W]; a
@@ -188,3 +210,63 @@ def bake_radiance_fused(params, view_to_world, camera_pos, jitter,
     if torch.device(device).type != "cpu":
         tables = tables.to(device)
     return frame_fused.bake_radiance(tables)
+
+
+# --------------------------------------------------------------------------
+# K9 bake_visibility (csrc/bake_visibility.cu)
+# --------------------------------------------------------------------------
+
+def _check_bake_tables(t) -> None:
+    if t.ss < 2 or t.active is None or t.lights is None or t.planes is None:
+        raise ValueError("the visibility bake needs the low grid, the local "
+                         "lights and the geometry: pack the frame tables "
+                         "with vis_ss > 1")
+
+
+def bake_visibility_plain(t) -> torch.Tensor:
+    """Twin of K9: [NL, DL, HL, WL] per-light visibility (1 = lit) at the
+    low samples of one frame's tables (ops/frame_fused.FrameTables), light
+    order of pack_lights. (light, low slice) pairs that low_slice_active
+    culls are written 1: the scatter's range cull zeroes them anyway."""
+    _check_bake_tables(t)
+    wl, hl, dl = t.low_dims
+    ms = torch.arange(dl, device=t.spar.device)[:, None, None]
+    wx, wy, wz = bake_world_planes(t.spar, ms, t.grid_whd, t.ss, t.h_glob)
+    out = []
+    for li in range(t.lights.shape[0]):
+        vis = bake_light_plane(t.lights, li, wx, wy, wz, t.planes, t.spheres,
+                               t.boxes, n_planes=t.n_planes,
+                               n_spheres=t.n_spheres, n_boxes=t.n_boxes)
+        act = t.active[li].bool()[:, None, None]
+        out.append(torch.where(act, vis, torch.ones_like(vis)))
+    return torch.stack(out)
+
+
+def bake_visibility(t) -> torch.Tensor:
+    """K9: the low-rate per-light visibility volume [NL, DL, HL, WL]."""
+    if t.spar.device.type == "cpu":
+        return bake_visibility_plain(t)
+    _check_bake_tables(t)
+    wl, hl, dl = t.low_dims
+    out = torch.empty((t.lights.shape[0], dl, hl, wl), dtype=torch.float32,
+                      device=t.spar.device)
+    st = t.c_struct()
+    cuda.launch("bake_visibility", cuda.ctypes.byref(st), cuda.ptr(out))
+    return out
+
+
+def bake_visibility_fused(params, view_to_world, camera_pos, jitter,
+                          point_lights, spot_lights, geometry,
+                          grid_whd: Tuple[int, int, int], ss: int,
+                          device="cuda") -> torch.Tensor:
+    """`bake_visibility_pallas` of the JAX package on kernel K9: packs the
+    tables K9 reads on the CPU (where the scene description must lie) and
+    runs bake_visibility on `device`."""
+    from volumetricrenderer_tpu_torch.ops import frame_fused
+    tables = frame_fused.frame_tables(
+        params, view_to_world, torch.eye(4), jitter, 0.0, None, point_lights,
+        spot_lights, geometry, None, 0.0, camera_pos, grid_whd, 1, ss,
+        bake_noise=False)
+    if torch.device(device).type != "cpu":
+        tables = tables.to(device)
+    return bake_visibility(tables)

@@ -1,29 +1,79 @@
-"""The stage functions of the staged frame.
+"""The render passes of the staged frame.
 
-Counterpart of `volumetricrenderer_tpu/pipeline.py` for the branches the
-port covers: each function checks that the config asks for the ported
-branch, raises NotImplementedError naming what is missing otherwise, and
-calls the kernel wrapper on the frame's packed tables
-(ops/frame_fused.FrameTables) instead of re-deriving them from the scene.
+Counterpart of `volumetricrenderer_tpu/pipeline.py`. Each pass routes on
+the config as the JAX pass does: to a kernel wrapper on the frame's packed
+tables (ops/frame_fused.FrameTables) where the JAX package runs a Pallas
+kernel, to plain torch on the frame's device where it runs plain XLA. A
+branch that is not ported raises NotImplementedError naming what is missing.
 
-  write_shadow_volume_dir  raycast + dir_shadow_impl="pallas": kernel K7
-  write_scatter_volume     scatter_impl="pallas" + material_impl="fused":
-                           kernel K6, fed by K1 when the local lights are
-                           baked at the low rate
-  accumulate               accumulate_impl="pallas": kernel K8
+  write_material_volumes   plain torch (ops/noise.perlin_3d)
+  write_shadow_volume_dir  dir_shadow_impl="pallas": kernel K7; "xla": plain
+                           torch over ops/raycast.occluded
+  write_scatter_volume     scatter_impl="pallas": kernel K6, fed by K1
+                           (radiance bake) or K9 (visibility bake) at
+                           raycast_shadow_subsample > 1; the material folded
+                           into the kernel or read from material volumes
+  accumulate               accumulate_impl="pallas" on kernel planes: K8;
+                           else the plain shift sample + two-level scan
+  temporal_blend_*         reproj_impl="pallas": K10 (shadow, accumulation)
+                           or K11 + a plain lerp (material, scatter);
+                           "windowed" / "gather": plain torch
+
+Volumes are channel-first: material_a [4, D, H, W] (sigma_s rgb, sigma_a),
+material_b [1, D, H, W] (phase g; the JAX package pads it to 4 channels),
+scatter [4, D, H, W], accumulation [4, D, H, W]. The port renders whole
+grids: the slab row offset of the JAX package (params.y0) is always 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
+from volumetricrenderer_tpu_torch import froxel
 from volumetricrenderer_tpu_torch.config import RenderConfig
+from volumetricrenderer_tpu_torch.froxel import FroxelParams
+from volumetricrenderer_tpu_torch.models.media import ADDITIVE, BOX
+from volumetricrenderer_tpu_torch.ops import raycast
+from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow
 from volumetricrenderer_tpu_torch.ops.frame_fused import (FrameTables,
                                                           bake_radiance)
 from volumetricrenderer_tpu_torch.ops.integrate import \
     accumulate as accumulate_kernel
+from volumetricrenderer_tpu_torch.ops.material import media_foldable
+from volumetricrenderer_tpu_torch.ops.noise import perlin_3d
+from volumetricrenderer_tpu_torch.ops.phase import rgb_to_gray, smoothstep
+from volumetricrenderer_tpu_torch.ops.sampling import (shift_sample_3d,
+                                                       trilinear_sample_3d)
 from volumetricrenderer_tpu_torch.ops.scatter import scatter_local
+from volumetricrenderer_tpu_torch.ops.scatter_scan import accumulate_blocked
+from volumetricrenderer_tpu_torch.ops.temporal import temporal_blend
+from volumetricrenderer_tpu_torch.ops.visibility import bake_visibility
+from volumetricrenderer_tpu_torch.ops.warp import (windowed_warp,
+                                                   windowed_warp_plain)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameGeometry:
+    """What the plain-torch passes of one frame read, on the frame's device:
+    the froxel params, the view matrices, the jitter [3] and the blend
+    weight alpha (0 on the first frame)."""
+    params: FroxelParams
+    view_to_world: torch.Tensor          # [4, 4]
+    prev_world_to_view: torch.Tensor     # [4, 4]
+    jitter: torch.Tensor                 # [3]
+    alpha: float
+
+    @functools.cached_property
+    def centre_texel(self):
+        """reproject_texel at the unjittered centres with no uvw nudge:
+        what the material, scatter and plain accumulation blends share."""
+        return reproject_texel(self, False, 0.0)
 
 
 def _require(cfg: RenderConfig, name: str, want, missing: str) -> None:
@@ -33,38 +83,262 @@ def _require(cfg: RenderConfig, name: str, want, missing: str) -> None:
             f"(only {name}={want!r})")
 
 
-def write_shadow_volume_dir(cfg: RenderConfig,
-                            tables: FrameTables) -> torch.Tensor:
-    """Per-froxel sun visibility, squared and gated, without temporal blend:
-    [Nd, D, H, W]."""
-    _require(cfg, "shadow_mode", "raycast", "the shadow-map sampler")
-    _require(cfg, "dir_shadow_impl", "pallas", "the XLA shadow volume")
-    return dir_shadow(tables)
+# --------------------------------------------------------------------------
+# Shared per-frame geometry
+# --------------------------------------------------------------------------
 
+def froxel_world_positions(cfg: RenderConfig, params: FroxelParams,
+                           view_to_world: torch.Tensor,
+                           jitter: Optional[torch.Tensor]) -> torch.Tensor:
+    """World position of every froxel centre [D, H, W, 3], optionally
+    jittered."""
+    return _world_positions(cfg.grid, params, view_to_world, jitter)
+
+
+def _world_positions(grid, params, view_to_world, jitter) -> torch.Tensor:
+    centers = froxel.froxel_centers(grid, view_to_world.device)
+    if jitter is not None:
+        centers = centers + jitter
+    return froxel.froxel_to_world(params, view_to_world, centers)
+
+
+def step_lengths(cfg: RenderConfig, params: FroxelParams) -> torch.Tensor:
+    """Per-slice view-space dz [D]: view_z(i + 0.5) - view_z(i - 0.5), and
+    view_z(0.5) - near for slice 0."""
+    d = cfg.volume_depth
+    centers = torch.arange(d, dtype=torch.float32,
+                           device=params.near.device) + 0.5
+    zc = froxel.froxel_z_to_view_z(params, centers)
+    return zc - torch.cat([params.near[None], zc[:-1]])
+
+
+# --------------------------------------------------------------------------
+# Material volume
+# --------------------------------------------------------------------------
+
+def fuses_material(cfg: RenderConfig, media: Sequence) -> bool:
+    """Whether the scatter kernel evaluates the material itself (the JAX
+    pass's `use_fused_material`); otherwise it reads material volumes."""
+    return bool(cfg.material_impl == "fused" and media
+                and not cfg.temporal_blend_material
+                and media_foldable(media))
+
+
+def write_material_volumes(cfg: RenderConfig, params: FroxelParams,
+                           view_to_world: torch.Tensor, jitter: torch.Tensor,
+                           time_x, media: Sequence
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential fold over the media at the jittered froxel centres:
+    (material_a [4, D, H, W], material_b [1, D, H, W])."""
+    d, h, w = cfg.grid_dhw
+    dev = view_to_world.device
+    mat_a = torch.zeros((4, d, h, w), dtype=torch.float32, device=dev)
+    mat_b = torch.zeros((1, d, h, w), dtype=torch.float32, device=dev)
+    if not media:
+        return mat_a, mat_b
+    world_j = froxel_world_positions(cfg, params, view_to_world, jitter)
+    tx = float(np.float32(time_x))
+    for medium in media:
+        a_new = torch.cat([medium.scattering_coef,
+                           medium.absorption_coef[None]])[:, None, None, None]
+        factor = torch.ones((d, h, w), dtype=torch.float32, device=dev)
+        if medium.noise_mode == "procedural":
+            uvw = world_j * medium.noise_tiling + medium.noise_scroll * tx
+            factor = factor * perlin_3d(uvw, octaves=medium.noise_octaves,
+                                        period=medium.noise_period,
+                                        seed=medium.noise_seed)
+        elif medium.noise_tex is not None:
+            raise NotImplementedError("texture noise is not ported")
+        factor = factor * torch.exp(
+            -torch.clamp(medium.height_falloff, min=0.0)
+            * torch.clamp(world_j[..., 1] - medium.height_base, min=0.0))
+        a_new = a_new * factor[None]
+        if medium.volume_type == BOX:
+            soft = torch.clamp(medium.box_softness, min=1e-6)
+            lo = torch.amin(smoothstep(medium.box_min, medium.box_min + soft,
+                                       world_j), dim=-1)
+            hi = torch.amin(smoothstep(-medium.box_max,
+                                       -(medium.box_max - soft), -world_j),
+                            dim=-1)
+            mask = (lo * hi)[None]
+        else:
+            mask = torch.ones((1, d, h, w), dtype=torch.float32, device=dev)
+        if medium.blend_type == ADDITIVE:
+            mat_a = mat_a + a_new * mask
+            mat_b = mat_b + medium.phase_g * mask
+        else:
+            mat_a = mat_a * (1.0 - mask) + a_new * mask
+            mat_b = mat_b * (1.0 - mask) + medium.phase_g * mask
+    return mat_a, mat_b
+
+
+# --------------------------------------------------------------------------
+# Shadow volume
+# --------------------------------------------------------------------------
+
+def write_shadow_volume_dir(cfg: RenderConfig, tables: FrameTables,
+                            geo: Optional[FrameGeometry] = None,
+                            dir_lights=None, geometry=None) -> torch.Tensor:
+    """Per-froxel sun visibility, squared and gated, without temporal blend:
+    [Nd, D, H, W]. dir_shadow_impl="pallas" runs kernel K7 on the tables;
+    "xla" is plain torch and needs the frame's geometry record, the lights
+    and the scene geometry on the frame's device."""
+    _require(cfg, "shadow_mode", "raycast", "the shadow-map sampler")
+    if cfg.dir_shadow_impl == "pallas":
+        return dir_shadow(tables)
+    world_j = froxel_world_positions(cfg, geo.params, geo.view_to_world,
+                                     geo.jitter)
+    channels = []
+    for i in range(dir_lights.count):
+        occ = raycast.occluded(geometry, world_j, -dir_lights.direction[i],
+                               1e4)
+        strength_r = 1.0 - dir_lights.shadow_strength[i]
+        vis = strength_r + (1.0 - strength_r) * (1.0 - occ)
+        vis = vis * vis
+        gate = dir_lights.has_shadow[i].to(torch.float32)
+        channels.append(1.0 + gate * (vis - 1.0))
+    return torch.stack(channels)
+
+
+# --------------------------------------------------------------------------
+# Scatter volume
+# --------------------------------------------------------------------------
 
 def write_scatter_volume(cfg: RenderConfig, tables: FrameTables,
-                         shadow: torch.Tensor) -> torch.Tensor:
-    """In-scatter of every light with the material evaluated in the kernel:
-    [4, D, H, W] (r, g, b, extinction). shadow: the (blended) sun visibility
-    [Nd, D, H, W]. With raycast_shadow_subsample > 1 the local lights come
-    from the low-rate radiance bake; at 1 each froxel loops over its slice's
-    lights with one any-hit shadow ray per light."""
+                         shadow: torch.Tensor,
+                         material=None) -> torch.Tensor:
+    """In-scatter of every light: [4, D, H, W] (r, g, b, extinction).
+    shadow: the (blended) sun visibility [Nd, D, H, W]. With
+    raycast_shadow_subsample > 1 the local lights come from a low-rate bake:
+    the summed radiance (scatter_bake="radiance", K1) or the per-light
+    visibility (K9), which the scatter's light loop then reads; at 1 each
+    froxel and light casts one any-hit shadow ray. material None: the kernel
+    evaluates the media itself and writes the extinction. material =
+    (material_a, material_b): it reads them, and the luma extinction is
+    added here, once per sun."""
     _require(cfg, "shadow_mode", "raycast", "map-mode local shadows")
     _require(cfg, "scatter_impl", "pallas", "the XLA scatter")
-    _require(cfg, "material_impl", "fused",
-             "the scatter reading material volumes "
-             "(write_material_volumes)")
-    if tables.ss == 1:
-        return scatter_local(tables, shadow, None)
-    _require(cfg, "scatter_bake", "radiance",
-             "the low-rate per-light visibility bake "
-             "(bake_visibility_pallas)")
-    return scatter_local(tables, shadow, bake_radiance(tables))
+    bake = vis = None
+    if tables.ss > 1:
+        if cfg.scatter_bake == "radiance":
+            bake = bake_radiance(tables)
+        else:
+            vis = bake_visibility(tables)
+    out = scatter_local(tables, shadow, bake, vis, material)
+    if material is None:
+        return out
+    mat_a = material[0]
+    ext = torch.zeros_like(mat_a[3])
+    for _ in range(tables.n_dir):
+        ext = ext + rgb_to_gray(mat_a[0], mat_a[1], mat_a[2]) + mat_a[3]
+    return torch.cat([out, ext[None]])
 
 
-def accumulate(cfg: RenderConfig, tables: FrameTables,
-               scatter: torch.Tensor) -> torch.Tensor:
-    """Front-to-back integration of the scatter planes without temporal
-    blend: [4, D, H, W] (L_r, L_g, L_b, T)."""
-    _require(cfg, "accumulate_impl", "pallas", "the XLA scan")
-    return accumulate_kernel(tables, scatter)
+# --------------------------------------------------------------------------
+# Accumulation
+# --------------------------------------------------------------------------
+
+def accumulate(cfg: RenderConfig, tables: FrameTables, scatter: torch.Tensor,
+               params: Optional[FroxelParams] = None,
+               from_kernel_planes: bool = True) -> torch.Tensor:
+    """Front-to-back integration of the scatter volume without temporal
+    blend: [4, D, H, W] (L_r, L_g, L_b, T). Kernel K8 with
+    accumulate_impl="pallas" when the scatter volume is the scatter kernel's
+    own planes; once it went through the scatter blend, or with
+    accumulate_impl="xla", the plain jittered shift sample and two-level
+    scan (needs params on the volume's device)."""
+    if cfg.accumulate_impl == "pallas" and from_kernel_planes:
+        return accumulate_kernel(tables, scatter)
+    sampled = shift_sample_3d(scatter, tables.jitter)
+    return accumulate_blocked(sampled[:3], sampled[3],
+                              step_lengths(cfg, params))
+
+
+# --------------------------------------------------------------------------
+# Temporal blends
+# --------------------------------------------------------------------------
+
+def reproject_texel(geo: FrameGeometry, jittered: bool, uvw_epsilon: float):
+    """Current froxel centre -> previous-frame froxel position through the
+    world: (texel x, y, z and the xy reprojection success, each
+    [D, H, W])."""
+    w, h, d = geo.params.grid
+    world = _world_positions(geo.params.grid, geo.params, geo.view_to_world,
+                             None)
+    prev_pos = froxel.world_to_froxel(geo.params, geo.prev_world_to_view,
+                                      world)
+    if jittered:
+        prev_pos = prev_pos + geo.jitter
+    dims = upload([w, h, d], prev_pos.device)
+    uvw = prev_pos / dims + uvw_epsilon
+    texel = uvw * dims - 0.5
+    in01 = (uvw[..., 0] >= 0.0) & (uvw[..., 0] <= 1.0) \
+        & (uvw[..., 1] >= 0.0) & (uvw[..., 1] <= 1.0)
+    tx, ty, tz = (texel[..., c].contiguous() for c in range(3))
+    return tx, ty, tz, in01.to(torch.float32)
+
+
+def sample_prev(cfg: RenderConfig, vol: torch.Tensor, tx, ty,
+                 tz) -> torch.Tensor:
+    """History channels vol [C, D, H, W] resampled at the reprojected texel
+    coordinates: "gather" the joint trilinear sample, "windowed" the
+    separable windowed warp in plain torch, "pallas" the same warp on
+    kernel K11."""
+    if cfg.reproj_impl == "gather":
+        return trilinear_sample_3d(vol, tx, ty, tz)
+    if cfg.reproj_impl == "pallas":
+        return windowed_warp(vol, tx, ty, tz, cfg.reproj_window)
+    return windowed_warp_plain(vol, tx, ty, tz, cfg.reproj_window)
+
+
+def temporal_blend_shadow(cfg: RenderConfig, tables: FrameTables,
+                          geo: FrameGeometry, shadow: torch.Tensor,
+                          prev_shadow: torch.Tensor) -> torch.Tensor:
+    """Reproject with the jitter and the 1e-4 uvw nudge; blend weight
+    alpha * reprojection success. [Nd, D, H, W]."""
+    if cfg.reproj_impl == "pallas":
+        return temporal_blend(tables.sbpar, prev_shadow, shadow,
+                              tables.grid_whd, tables.h_glob, tables.k,
+                              "weight")
+    tx, ty, tz, success = reproject_texel(geo, True, 1e-4)
+    prev = sample_prev(cfg, prev_shadow, tx, ty, tz)
+    return shadow + (prev - shadow) * (geo.alpha * success)
+
+
+def _blend_at_centres(cfg, geo, cur, prev_vol):
+    tx, ty, tz, success = geo.centre_texel
+    prev = sample_prev(cfg, prev_vol, tx, ty, tz)
+    return cur + (prev - cur) * (geo.alpha * success)
+
+
+def temporal_blend_scatter(cfg: RenderConfig, geo: FrameGeometry,
+                           scatter: torch.Tensor,
+                           prev_scatter: torch.Tensor) -> torch.Tensor:
+    """The scatter blend (off in the Unity reference): no jitter, weight
+    alpha * reprojection success. [4, D, H, W]."""
+    return _blend_at_centres(cfg, geo, scatter, prev_scatter)
+
+
+def temporal_blend_material(cfg: RenderConfig, geo: FrameGeometry,
+                            material_a: torch.Tensor,
+                            prev_material_a: torch.Tensor) -> torch.Tensor:
+    """The material blend (off in the Unity reference), as the scatter
+    blend. [4, D, H, W]."""
+    return _blend_at_centres(cfg, geo, material_a, prev_material_a)
+
+
+def temporal_blend_accumulation(cfg: RenderConfig, tables: FrameTables,
+                                geo: FrameGeometry,
+                                accumulation: torch.Tensor,
+                                prev_accumulation: torch.Tensor
+                                ) -> torch.Tensor:
+    """The accumulation blend: success is warped T != 0, not the uv bound
+    test. [4, D, H, W]."""
+    if cfg.reproj_impl == "pallas":
+        return temporal_blend(tables.abpar, prev_accumulation, accumulation,
+                              tables.grid_whd, tables.h_glob, tables.k,
+                              "alpha")
+    tx, ty, tz, _ = geo.centre_texel
+    prev = sample_prev(cfg, prev_accumulation, tx, ty, tz)
+    success = (prev[3] != 0.0).to(torch.float32)
+    return accumulation + (prev - accumulation) * (geo.alpha * success)

@@ -1,21 +1,24 @@
 """Frame orchestrator.
 
 `render_frame(state, scene, time_x) -> (image, aux, new_state)` as in
-`volumetricrenderer_tpu/renderer.py`, for two of the branches it takes
-there, both ending in the zgather composite (ops/zg_composite.py: K4):
+`volumetricrenderer_tpu/renderer.py`, routed on the config as there, every
+branch ending in the zgather composite (ops/zg_composite.py: K4):
 
   fused    every production knob on: the fused volume phase
            (ops/frame_fused.py: kernels K1-K3);
-  staged   `frame_fused=False`, or one of the shadow / accumulation blends
-           off: shadow (+ blend) -> scatter -> integrate (+ blend) as
-           separate kernels (K5 or K7, K1 + K6, K3 or K8) with the shadow and
-           scatter volumes in device memory. `raycast_shadow_subsample=1`
-           makes the scatter loop over the lights with one any-hit shadow
-           ray per froxel and light instead of the low-rate bake.
+  staged   anything else, in the pass order of the Unity reference:
+           material volumes (+ blend) -> shadow (+ blend) -> scatter
+           (+ blend) -> accumulate (+ blend). Each pass (pipeline.py) takes
+           the kernel that stands for the JAX package's Pallas kernel on
+           that route -- shadow + blend K5, or K7 then K10; the bakes K1 or
+           K9 and the scatter K6; integrate + blend K3, or K8 then K10; the
+           material and scatter blends K11 -- and plain torch where the JAX
+           package runs plain XLA (the material volumes, the "xla" shadow
+           volume and scan, the "windowed" and "gather" reprojections).
 
-Both branches keep the same FrameState, so a state made by one feeds the
-other. A config or scene that the JAX package would send down another
-branch raises NotImplementedError naming what is not ported yet.
+All branches keep one FrameState, so a state made by one feeds another as
+long as the same blends are on. A config or scene that the JAX package would
+send down a branch that is not ported raises NotImplementedError naming it.
 
 The renderer runs on CUDA unless it is built with device="cpu"; without a
 GPU and without that request it raises instead of running on the CPU.
@@ -34,6 +37,7 @@ from volumetricrenderer_tpu_torch.config import (RenderConfig,
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene
 from volumetricrenderer_tpu_torch.ops import raycast
+from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
                                                           integrate_blend,
                                                           volume_phase)
@@ -45,18 +49,8 @@ from volumetricrenderer_tpu_torch.state import FrameState
 # config fields every ported branch needs at one value, and what the other
 # values would need
 _REQUIRED_KNOBS = (
-    ("temporal_blend_material", False, "write_material_volumes and the "
-     "material blend"),
-    ("temporal_blend_scatter", False, "the scatter blend "
-     "(fused_temporal_blend)"),
     ("shadow_mode", "raycast", "the shadow-map modes"),
-    ("dir_shadow_impl", "pallas", "the XLA shadow volume"),
-    ("reproj_impl", "pallas", "the standalone warps (windowed_warp, "
-     "fused_temporal_blend)"),
     ("scatter_impl", "pallas", "the XLA scatter"),
-    ("accumulate_impl", "pallas", "the XLA scan"),
-    ("material_impl", "fused", "write_material_volumes and the scatter "
-     "reading material volumes"),
     ("composite_upsample", 1, "the fractional-resolution composite"))
 
 
@@ -80,17 +74,26 @@ class VolumetricRenderer:
         self._host_scene = None    # (scene, its copy on the CPU)
 
     def init_state(self, num_dir_lights: int = 1) -> FrameState:
-        """Fresh history: shadow visibility 1, accumulation 0."""
+        """Fresh history: shadow visibility 1, accumulation 0, and zero
+        material and scatter histories where their blends are on."""
         cfg = self.config
         return FrameState.create(cfg.grid_dhw, num_dir_lights, cfg.dtype,
-                                 self.device)
+                                 self.device,
+                                 with_material=cfg.temporal_blend_material,
+                                 with_scatter=cfg.temporal_blend_scatter)
 
     def fuses_frame(self) -> bool:
         """Whether render_frame takes the fused volume phase (the JAX
         renderer's `fuse_frame`, given what check_supported admits)."""
         cfg = self.config
         return bool(cfg.frame_fused and cfg.temporal_blend_shadow
-                    and cfg.temporal_blend_accumulation)
+                    and cfg.temporal_blend_accumulation
+                    and not cfg.temporal_blend_material
+                    and not cfg.temporal_blend_scatter
+                    and cfg.dir_shadow_impl == "pallas"
+                    and cfg.reproj_impl == "pallas"
+                    and cfg.accumulate_impl == "pallas"
+                    and cfg.material_impl == "fused")
 
     def check_supported(self, scene: Scene) -> None:
         """Raise NotImplementedError for what the port does not cover."""
@@ -100,17 +103,22 @@ class VolumetricRenderer:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: {missing} not "
                     f"ported (only {name}={want!r})")
+        for name, values in (("reproj_impl", ("pallas", "windowed",
+                                              "gather")),
+                             ("dir_shadow_impl", ("pallas", "xla")),
+                             ("accumulate_impl", ("pallas", "xla")),
+                             ("material_impl", ("fused", "xla")),
+                             ("scatter_bake", ("radiance", "vis"))):
+            if getattr(cfg, name) not in values:
+                raise NotImplementedError(
+                    f"config {name}={getattr(cfg, name)!r}: one of {values}")
         ss = max(int(cfg.raycast_shadow_subsample), 1)
-        if ss > 1 and cfg.scatter_bake != "radiance":
+        if self.fuses_frame() and (ss == 1 or cfg.scatter_bake != "radiance"):
             raise NotImplementedError(
-                f"scatter_bake={cfg.scatter_bake!r} with "
-                "raycast_shadow_subsample > 1: the low-rate per-light "
-                "visibility bake (bake_visibility_pallas) is not ported")
-        if ss == 1 and self.fuses_frame():
-            raise NotImplementedError(
-                "raycast_shadow_subsample=1 with frame_fused=True: the "
-                "per-light branch of the fused volume phase is not ported "
-                "(frame_fused=False renders it staged)")
+                f"frame_fused=True with raycast_shadow_subsample={ss}, "
+                f"scatter_bake={cfg.scatter_bake!r}: the per-light and "
+                "inline-visibility branches of the fused volume phase are "
+                "not ported (frame_fused=False renders them staged)")
         if not composite_eligible(cfg):
             raise NotImplementedError("only the zgather composite "
                                       "(8x8-multiple pixel cells, D <= 128) "
@@ -183,13 +191,20 @@ class VolumetricRenderer:
             * np.float32(state.frame_count > 0)
         prev_w2v = world_to_view if cfg.use_current_matrix_for_reproj \
             else state.prev_world_to_view.cpu()
+        ss = max(int(cfg.raycast_shadow_subsample), 1)
+        # the local lights' source: the low-rate radiance bake, else a
+        # per-light loop (over rays at ss = 1, over the visibility bake
+        # above), which needs the full-rate light schedule; the fBm channels
+        # ride the radiance volume into a scatter that evaluates the media
+        radiance = ss > 1 and cfg.scatter_bake == "radiance"
         tables = frame_tables(
             params, view_to_world, prev_w2v, jitter_for_frame(
                 state.frame_count), alpha, scene.dir_lights,
             scene.point_lights, scene.spot_lights, scene.geometry,
             scene.media, time_x, cam.position, cfg.grid, cfg.reproj_window,
-            max(int(cfg.raycast_shadow_subsample), 1),
-            cfg.bake_procedural_noise, cfg.jitter_dir_scatter)
+            ss, bool(cfg.bake_procedural_noise and radiance
+                     and pipeline.fuses_material(cfg, scene.media)),
+            cfg.jitter_dir_scatter, light_schedule=not radiance)
         if self.device.type != "cpu":
             tables = tables.to(self.device)
             params = froxel.params_to(params, self.device)
@@ -202,11 +217,12 @@ class VolumetricRenderer:
         """One frame. Returns (image [IH, IW, 4], aux, new state).
 
         aux holds the volumes of the frame: `shadow` [Nd, D, H, W],
-        `accumulation` [4, D, H, W] and, on the staged branch where it
-        exists, `scatter` [4, D, H, W] (r, g, b, extinction; the JAX package
-        packs it [D, H, W, 4]). The JAX renderer's `write_material_volumes`
-        is skipped: the scatter evaluates the material itself and the
-        material volumes would only reach aux."""
+        `accumulation` [4, D, H, W] and, on the staged branch where they
+        exist, `scatter` [4, D, H, W] (r, g, b, extinction; the JAX package
+        packs it [D, H, W, 4]) and `material_a` [4, D, H, W], `material_b`
+        [1, D, H, W]: the material volumes are written only when the
+        scatter reads them (material_impl="xla" or the material blend),
+        not when it evaluates the media itself."""
         cfg = self.config
         tables, params, world_to_view = self.frame_tables(state, scene,
                                                           time_x)
@@ -216,26 +232,83 @@ class VolumetricRenderer:
         prev_shadow = state.prev_shadow.to(f32).contiguous()
         prev_acc = state.prev_accumulation.to(f32).contiguous()
         aux = {}
+        mat_a = scatter = None
         if self.fuses_frame():
             shadow, acc = volume_phase(tables, prev_shadow, prev_acc)
         else:
-            if cfg.temporal_blend_shadow:
+            geo, scene_dev = self.frame_geometry(state, scene, tables,
+                                                 params, world_to_view)
+            material = None
+            if not pipeline.fuses_material(cfg, scene.media):
+                mat_a, mat_b = pipeline.write_material_volumes(
+                    cfg, params, geo.view_to_world, geo.jitter, time_x,
+                    scene_dev.media)
+                if cfg.temporal_blend_material:
+                    mat_a = pipeline.temporal_blend_material(
+                        cfg, geo, mat_a, state.prev_material_a.to(f32))
+                material = (mat_a.contiguous(), mat_b.contiguous())
+                aux.update(material_a=mat_a, material_b=mat_b)
+
+            pallas_reproj = cfg.reproj_impl == "pallas"
+            if (cfg.temporal_blend_shadow and pallas_reproj
+                    and cfg.dir_shadow_impl == "pallas"):
                 shadow = dir_shadow_blend(tables, prev_shadow)
             else:
-                shadow = pipeline.write_shadow_volume_dir(cfg, tables)
-            scatter = pipeline.write_scatter_volume(cfg, tables, shadow)
-            if cfg.temporal_blend_accumulation:
+                shadow = pipeline.write_shadow_volume_dir(
+                    cfg, tables, geo, scene_dev.dir_lights,
+                    scene_dev.geometry)
+                if cfg.temporal_blend_shadow:
+                    shadow = pipeline.temporal_blend_shadow(
+                        cfg, tables, geo, shadow.contiguous(), prev_shadow)
+
+            scatter = pipeline.write_scatter_volume(
+                cfg, tables, shadow.contiguous(), material)
+            # the scatter blend works on the volume, not on the kernel's
+            # planes: what follows then takes the plain accumulation
+            kernel_planes = not cfg.temporal_blend_scatter
+            if cfg.temporal_blend_scatter:
+                scatter = pipeline.temporal_blend_scatter(
+                    cfg, geo, scatter, state.prev_scatter.to(f32))
+
+            if (cfg.temporal_blend_accumulation and pallas_reproj
+                    and cfg.accumulate_impl == "pallas" and kernel_planes):
                 acc = integrate_blend(tables, scatter, prev_acc)
             else:
-                acc = pipeline.accumulate(cfg, tables, scatter)
+                acc = pipeline.accumulate(cfg, tables, scatter, params,
+                                          kernel_planes)
+                if cfg.temporal_blend_accumulation:
+                    acc = pipeline.temporal_blend_accumulation(
+                        cfg, tables, geo, acc.contiguous(), prev_acc)
             aux["scatter"] = scatter
-        image = composite(acc, scene_color.contiguous(),
+        image = composite(acc.contiguous(), scene_color.contiguous(),
                           view_depth.contiguous(), params, cfg.grid)
         dt = cfg.dtype
-        new_state = FrameState(prev_shadow=shadow.to(dt),
-                               prev_accumulation=acc.to(dt),
-                               prev_world_to_view=world_to_view,
-                               frame_count=state.frame_count + 1)
+        new_state = FrameState(
+            prev_shadow=shadow.to(dt), prev_accumulation=acc.to(dt),
+            prev_world_to_view=world_to_view,
+            frame_count=state.frame_count + 1,
+            prev_material_a=mat_a.to(dt)
+            if cfg.temporal_blend_material else None,
+            prev_scatter=scatter.to(dt)
+            if cfg.temporal_blend_scatter else None)
         aux.update(shadow=shadow, accumulation=acc, scene_color=scene_color,
                    view_depth=view_depth)
         return image, aux, new_state
+
+    def frame_geometry(self, state: FrameState, scene: Scene, tables,
+                       params, world_to_view):
+        """What the plain-torch passes read, on the renderer's device
+        (pipeline.FrameGeometry), and the scene there."""
+        cfg = self.config
+        dev = self.device
+        host = self.host_scene(scene)
+        prev_w2v = world_to_view if cfg.use_current_matrix_for_reproj \
+            else state.prev_world_to_view.cpu()
+        mats = upload(torch.stack([host.camera.view_to_world(), prev_w2v]),
+                      dev)
+        alpha = float(np.float32(cfg.temporal_blend_alpha)
+                      * np.float32(state.frame_count > 0))
+        geo = pipeline.FrameGeometry(
+            params=params, view_to_world=mats[0], prev_world_to_view=mats[1],
+            jitter=upload(tables.jitter, dev), alpha=alpha)
+        return geo, scene.to(dev)
