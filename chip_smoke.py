@@ -33,16 +33,33 @@ VolumetricRenderer, the entry point a user calls, and:
        xla_shadow        history with dir_shadow_impl="xla", 1 frame: the
                          plain shadow volume, then K10 (shadow blend) and
                          the rest of history: two K10 and two K11 launches
-     prints each float32 image checksum, checks that each image is finite
-     and not flat, and holds the staged 4-frame image against the fused one;
+       map_dir           shadow_mode="map_dir", 4 frames: K12 (cascaded PCF
+                         on the low-rate grid, one launch per sun), the plain
+                         upsample, K10 (shadow blend) K1 K6 K3 K4
+       map_dir_full_rate also dir_shadow_subsample=1, 1 frame: K12 at full
+                         rate, then as map_dir
+       map               shadow_mode="map", 2 frames: K12 K10, the plain
+                         radiance bake from the cube and spot maps, K6 K3
+                         K4; no K1
+       map_gather        map with dir_shadow_impl="xla", 1 frame: the plain
+                         gather sampler on the unaligned bake, K10 K6 K3 K4
+       pallas_composite  composite_impl="pallas", 1 frame: the fused frame,
+                         its composite (the JAX package's composite_pallas)
+                         on K4
+     The shadow maps of the map paths are baked once per path, before the
+     counters are reset, and passed to every frame (timed apart). Prints
+     each float32 image checksum, checks that each image is finite and not
+     flat, and holds the staged 4-frame image against the fused one and the
+     pallas_composite image against the fused frame 1;
   5. holds each kernel against its plain-torch twin on the inputs of a real
-     frame, with the tolerances stated in CHECKS, and shows that K7 then K10
-     gives K5's volume and K8 then K10 gives K3's, bit for bit;
-  6. times warm frames of the fused, staged, exact, history and vis_bake
-     paths (CUDA events and host wall), each kernel (CUDA events around launches queued behind
-     a device-side spin, so that the host's launch rate stays out), each
-     twin, and torch.nn.functional.grid_sample as a yardstick for the
-     composite;
+     frame, with the tolerances stated in CHECKS (K12 at low and at full
+     rate on map_dir's frame 4), and shows that K7 then K10 gives K5's
+     volume and K8 then K10 gives K3's, bit for bit;
+  6. times warm frames of the fused, staged, exact, history, vis_bake,
+     map_dir and map paths (CUDA events and host wall), the shadow-map bake,
+     each kernel (CUDA events around launches queued behind a device-side
+     spin, so that the host's launch rate stays out), each twin, and
+     torch.nn.functional.grid_sample as a yardstick for the composite;
   7. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
@@ -89,6 +106,9 @@ CHECKS = {
                        "success test"),
     "windowed_warp": (1e-6, 1e-5, 0.0,
                       "the same 8 taps and weights in the same order"),
+    "pcf_shadow": (1e-6, 1e-5, 1e-3,
+                   "a depth compare or a texel floor within ulps of its edge "
+                   "may flip"),
 }
 
 # kernel -> file:line of the TPU kernel(s) it stands for
@@ -98,7 +118,7 @@ REPLACES = {
     "shadow_scatter": f"{PALLAS}frame_fused.py:124",
     "integrate_blend": f"{PALLAS}frame_fused.py:124; "
                        f"{PALLAS}integrate_blend.py:41",
-    "composite": f"{PALLAS}zg_composite.py:83",
+    "composite": f"{PALLAS}zg_composite.py:83; {PALLAS}composite.py:61",
     "shadow_blend": f"{PALLAS}shadow_blend.py:32",
     "scatter": f"{PALLAS}scatter.py:380",
     "dir_shadow": f"{PALLAS}dir_shadow.py:77",
@@ -106,6 +126,7 @@ REPLACES = {
     "bake_visibility": f"{PALLAS}visibility.py:454",
     "temporal_blend": f"{PALLAS}temporal.py:169",
     "windowed_warp": f"{PALLAS}warp.py:36",
+    "pcf_shadow": f"{PALLAS}pcf_shadow.py:222",
 }
 
 # path -> (config changes from FULL_CONFIG, frames, kernels of the path; a
@@ -114,6 +135,11 @@ STAGED = dict(frame_fused=False)
 VIS_BAKE = dict(STAGED, scatter_bake="vis")
 HISTORY = dict(VIS_BAKE, temporal_blend_material=True,
                temporal_blend_scatter=True)
+MAP_DIR = dict(shadow_mode="map_dir")
+MAP = dict(shadow_mode="map")
+# one K12 launch per sun and frame (benchmark_scene has one sun)
+MAP_DIR_KERNELS = ("pcf_shadow", "temporal_blend", "bake_radiance", "scatter",
+                   "integrate_blend", "composite")
 PATHS = {
     "fused": ({}, 4, ("bake_radiance", "shadow_scatter", "integrate_blend",
                       "composite")),
@@ -135,6 +161,17 @@ PATHS = {
     "xla_shadow": (dict(HISTORY, dir_shadow_impl="xla"), 1,
                    (("windowed_warp", 2), ("temporal_blend", 2),
                     "bake_visibility", "scatter", "composite")),
+    "map_dir": (MAP_DIR, 4, MAP_DIR_KERNELS),
+    "map_dir_full_rate": (dict(MAP_DIR, dir_shadow_subsample=1), 1,
+                          MAP_DIR_KERNELS),
+    "map": (MAP, 2, ("pcf_shadow", "temporal_blend", "scatter",
+                     "integrate_blend", "composite")),
+    "map_gather": (dict(MAP, dir_shadow_impl="xla"), 1,
+                   ("temporal_blend", "scatter", "integrate_blend",
+                    "composite")),
+    "pallas_composite": (dict(composite_impl="pallas"), 1,
+                         ("bake_radiance", "shadow_scatter",
+                          "integrate_blend", "composite")),
 }
 
 
@@ -215,7 +252,8 @@ def profile_frames(step, n: int) -> None:
             f"x{e.count // n:<4d} {e.key[:90]}")
 
 
-def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
+def drive(name: str, renderer, scene, scene_color, view_depth, cuda,
+          shadow_data):
     """Render path `name` from a fresh state with the launch counters set to
     0 just before and read just after; check that exactly the path's kernels
     ran, as often per frame as PATHS says, and that the image is finite and
@@ -223,13 +261,15 @@ def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
     (last image, the states before each frame and after the last, counts)."""
     _, n_frames, expect = PATHS[name]
     expect = dict(k if isinstance(k, tuple) else (k, 1) for k in expect)
-    cuda.reset_launches()
     state = renderer.init_state(scene.dir_lights.count)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
     states = [state]
     img = None
     for i in range(n_frames):
         img, _, state = renderer.render_frame(state, scene, 0.1 * i,
-                                              scene_color, view_depth)
+                                              scene_color, view_depth,
+                                              shadow_data)
         states.append(state)
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
@@ -252,14 +292,14 @@ def drive(name: str, renderer, scene, scene_color, view_depth, cuda):
 
 
 def frame_times(name: str, renderer, scene, scene_color, view_depth, state,
-                n: int):
+                n: int, shadow_data=None):
     """Warm frames of one path: (device-event mean ms, host wall mean ms)."""
     st = state
 
     def one_frame():
         nonlocal st
         _, _, st = renderer.render_frame(st, scene, 0.5, scene_color,
-                                         view_depth)
+                                         view_depth, shadow_data)
 
     frame_ms = cuda_time_ms(one_frame, n)
     t0 = time.perf_counter()
@@ -285,6 +325,7 @@ def main() -> int:
     from volumetricrenderer_tpu_torch.ops import cuda, frame_fused as ff
     from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
     from volumetricrenderer_tpu_torch.ops import integrate as integ
+    from volumetricrenderer_tpu_torch.ops import pcf_shadow as pcf
     from volumetricrenderer_tpu_torch.ops import scatter as sca
     from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
     from volumetricrenderer_tpu_torch.ops import temporal as tmp
@@ -322,9 +363,19 @@ def main() -> int:
     log(f"# gbuffer: {1e3 * (time.perf_counter() - t0):.1f} ms "
         f"{tuple(scene_color.shape)}")
 
-    # 4. the main paths, each from a fresh state
+    # 4. the main paths, each from a fresh state; the shadow maps of a map
+    # path baked once, up front (timed apart from the frames)
+    bakes = {}
+    for name, r in renderers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bakes[name] = r.bake_shadow_data(scene)
+        torch.cuda.synchronize()
+        if r.config.shadow_mode != "raycast":
+            log(f"# {name}: bake_shadow_data "
+                f"{1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
     runs = {name: drive(name, renderers[name], scene, scene_color, view_depth,
-                        cuda) for name in PATHS}
+                        cuda, bakes[name]) for name in PATHS}
     img, states, _ = runs["fused"]
     launches = {k: {name: runs[name][2][k] for name in PATHS
                     if runs[name][2][k]} for k in cuda.SOURCES}
@@ -338,6 +389,16 @@ def main() -> int:
         f"each: {BOUNDARY})")
     if past > 5e-3 or far > 5e-3:
         raise AssertionError("the staged frame disagrees with the fused one")
+    # composite_impl="pallas" renders the fused frame and composites it on
+    # K4 as the zgather route does: its one frame is the fused frame 1
+    pc_same = torch.equal(runs["pallas_composite"][0],
+                          renderer.render_frame(
+                              states[0], scene, 0.0, scene_color,
+                              view_depth)[0])
+    log(f"# pallas_composite frame 1 = fused frame 1 bit for bit: {pc_same}")
+    if not pc_same:
+        raise AssertionError("the pallas composite differs from the zgather "
+                             "one")
 
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
@@ -467,6 +528,29 @@ def main() -> int:
                 for m, a in k6_modes.items()}
     errs["scatter"] = max(errs["scatter"], *mode_err.values())
 
+    # K12 on the inputs of the map_dir path's frame 4: the low-rate grid of
+    # the path, and the full rate of map_dir_full_rate
+    m_r, f_r = renderers["map_dir"], renderers["map_dir_full_rate"]
+    m_prev = runs["map_dir"][1][3]
+    m_dir, f_dir = bakes["map_dir"][0], bakes["map_dir_full_rate"][0]
+    pcf_low = m_r.pcf_tables(m_prev, scene, m_dir)
+    pcf_full = f_r.pcf_tables(m_prev, scene, f_dir)
+    log(f"# pcf_shadow grids: low {pcf_low.grid_whd}, full "
+        f"{pcf_full.grid_whd}; atlas {tuple(m_dir.atlas.shape)}; active "
+        f"cascades per slice (low) {pcf_low.count[0].tolist()}")
+    k12_low = pcf.pcf_shadow(pcf_low, m_dir.atlas)
+    errs["pcf_shadow"] = compare("pcf_shadow", k12_low,
+                                 pcf.pcf_shadow_plain(pcf_low, m_dir.atlas))
+    full_err = compare("pcf_shadow", pcf.pcf_shadow(pcf_full, f_dir.atlas),
+                       pcf.pcf_shadow_plain(pcf_full, f_dir.atlas))
+    errs["pcf_shadow"] = max(errs["pcf_shadow"], full_err)
+    lit = float((k12_low == 1.0).float().mean())
+    log(f"# pcf_shadow low-rate volume: min {float(k12_low.min()):.4f}, "
+        f"fully lit share {lit:.3f}")
+    if not (float(k12_low.min()) < 0.5 and lit < 1.0):
+        raise AssertionError("the sun shadow volume of map_dir casts no "
+                             "shadow")
+
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
                                 view_depth, states[-1], 20)
@@ -494,6 +578,28 @@ def main() -> int:
     profile_frames(one_history, 3)
     frame_times("vis_bake", renderers["vis_bake"], scene, scene_color,
                 view_depth, runs["vis_bake"][1][-1], 20)
+    one_map_dir, _ = frame_times("map_dir", m_r, scene, scene_color,
+                                 view_depth, runs["map_dir"][1][-1], 20,
+                                 bakes["map_dir"])
+    profile_frames(one_map_dir, 5)
+    one_map, _ = frame_times("map", renderers["map"], scene, scene_color,
+                             view_depth, runs["map"][1][-1], 20, bakes["map"])
+    profile_frames(one_map, 3)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        m_r.frame_tables(m_prev, scene, 0.5)
+        m_r.pcf_tables(m_prev, scene, m_dir)
+    torch.cuda.synchronize()
+    log(f"# host prep (frame_tables + pcf_tables), map_dir: "
+        f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms/frame")
+    for name in ("map_dir", "map"):
+        fn = lambda r=renderers[name]: r.bake_shadow_data(scene)
+        bake_ms = cuda_time_ms(fn, 3)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        log(f"# {name}: bake_shadow_data {bake_ms:.3f} ms device-event mean "
+            f"(warm), {1e3 * (time.perf_counter() - t0):.3f} ms host wall")
     for what, fn in (
             ("write_material_volumes", lambda: pipeline.write_material_volumes(
                 h_r.config, h_params, geo.view_to_world, geo.jitter, 0.3,
@@ -526,7 +632,11 @@ def main() -> int:
         "temporal_blend": kernel_time_ms(blend_a, n),
         "windowed_warp": kernel_time_ms(
             lambda: wp.windowed_warp(h_prev_sc, tx, ty, tz, kk), n),
+        "pcf_shadow": kernel_time_ms(
+            lambda: pcf.pcf_shadow(pcf_low, m_dir.atlas), n),
     }
+    pcf_full_ms = kernel_time_ms(lambda: pcf.pcf_shadow(pcf_full, f_dir.atlas),
+                                 n)
     weight_ms = kernel_time_ms(blend_w, n)
     mode_ms = {m: kernel_time_ms(
         lambda a=a: sca.scatter_local(h_tables, h_sh, *a), n)
@@ -557,7 +667,11 @@ def main() -> int:
                                              whd, hg, kk, "alpha"), n_p),
         "windowed_warp": cuda_time_ms(
             lambda: wp.windowed_warp_plain(h_prev_sc, tx, ty, tz, kk), n_p),
+        "pcf_shadow": cuda_time_ms(
+            lambda: pcf.pcf_shadow_plain(pcf_low, m_dir.atlas), n_p),
     }
+    pcf_full_plain_ms = cuda_time_ms(
+        lambda: pcf.pcf_shadow_plain(pcf_full, f_dir.atlas), n_p)
     weight_plain_ms = cuda_time_ms(
         lambda: tmp.temporal_blend_plain(tables.sbpar, prev_sh, unblended,
                                          whd, hg, kk, "weight"), n_p)
@@ -651,6 +765,19 @@ def main() -> int:
         # out; 3 offsets (4 ops each) where temporal_blend reprojects
         "windowed_warp": (4 * (4 + 3 + 4) * n_fro, n_fro * (12 + warp(4))),
     }
+    # K12: the atlas read once and the volume written once; per output
+    # froxel its world position, per (froxel, active cascade) pair the
+    # affine coordinates, 4 compares, the bilinear weights and the sphere
+    # tests
+    s2 = m_dir.atlas.shape[-1]
+
+    def pcf_work(t):
+        wq, hq, dq = t.grid_whd
+        n_out = nd * wq * hq * dq
+        pairs = int(t.count.sum()) * hq * wq
+        return 4 * (nd * s2 * s2 + n_out), n_out * 45 + pairs * 50
+
+    work["pcf_shadow"] = pcf_work(pcf_low)
     weight_work = (4 * 3 * nd * n_fro,
                    n_fro * (ops_reproj + warp(nd) + 3 * nd))
     # K6 per-light: the shadow in, the planes out; per froxel the material
@@ -726,6 +853,15 @@ def main() -> int:
                     f"{mode_plain_ms[m]:.3f} ms, bound {b_ms:.4f} ms by "
                     f"{b_by} ({mode_work[m][0] / 1e6:.1f} MB, "
                     f"{mode_work[m][1] / 1e9:.2f} GFLOP)")
+        if name == "pcf_shadow":
+            b_ms, b_by = bound(*pcf_work(pcf_full))
+            entry["full_rate"] = {
+                "max_abs_err": full_err, "ms": pcf_full_ms,
+                "plain_ms": pcf_full_plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            log(f"# pcf_shadow, full rate: {pcf_full_ms:.4f} ms/launch, "
+                f"plain {pcf_full_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}")
         if name == "temporal_blend":
             b_ms, b_by = bound(*weight_work)
             entry["weight"] = {

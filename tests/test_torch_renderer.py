@@ -129,15 +129,18 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
                                 dict(raycast_shadow_subsample=1),
                                 dict(composite_impl="tentmm"),
                                 dict(composite_upsample=2),
-                                dict(shadow_mode="map"),
-                                dict(shadow_mode="map_dir"),
+                                dict(shadow_mode="map",
+                                     composite_impl="rowmm"),
+                                dict(shadow_mode="map_dir",
+                                     scatter_impl="xla"),
                                 dict(scatter_impl="xla"),
-                                dict(composite_impl="pallas"),
+                                dict(composite_impl="pallas",
+                                     image_width=120),
                                 dict(frame_fused=False, scatter_impl="xla"),
                                 dict(frame_fused=False, composite_impl="rowmm")])
 def test_unported_configs_raise(kw):
     r = vt.VolumetricRenderer(
-        dataclasses.replace(vt.FULL_CONFIG, **SMALL, **kw), device="cpu")
+        dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw}), device="cpu")
     scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
                                noise_mode="procedural", device="cpu")
     with pytest.raises(NotImplementedError):

@@ -136,3 +136,17 @@ def composite_eligible(cfg: RenderConfig) -> bool:
         return False
     py, px = cfg.image_height // h, cfg.image_width // w
     return py * px == 64 or (py % 8 == 0 and px % 8 == 0)
+
+
+def composite_on_k4(cfg: RenderConfig) -> bool:
+    """Whether kernel K4 computes this config's composite: where the JAX
+    package takes the zgather kernel (composite_eligible), or
+    composite_impl="pallas" at integer pixel/froxel ratios, where it takes
+    `composite_pallas`, whose selection-matrix trilinear is the same
+    function (the same clamped taps, z clipped to [0, D-1])."""
+    w, h, _ = cfg.grid
+    if cfg.composite_upsample != 1:
+        return False
+    return composite_eligible(cfg) or (
+        cfg.composite_impl == "pallas" and cfg.image_width % w == 0
+        and cfg.image_height % h == 0)

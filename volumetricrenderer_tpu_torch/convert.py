@@ -14,6 +14,9 @@ from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
                                                  Geometry, Medium,
                                                  PointLights, Scene,
                                                  SpotLights)
+from volumetricrenderer_tpu_torch.shadow import (CubeShadowData,
+                                                 DirShadowData,
+                                                 SpotShadowData)
 from volumetricrenderer_tpu_torch.state import FrameState
 
 
@@ -100,3 +103,31 @@ def state_from_numpy(prev_accumulation, prev_shadow, prev_world_to_view,
                       frame_count=int(frame_count),
                       prev_material_a=planes(prev_material_a),
                       prev_scatter=planes(prev_scatter))
+
+
+def dir_shadow_from_numpy(obj, device) -> DirShadowData:
+    """The port's DirShadowData from a JAX one (aligned flag included)."""
+    return DirShadowData(**_tensors(obj, ("atlas", "world_to_uv",
+                                          "split_spheres", "split_sq_radii",
+                                          "strength_r", "bias"), device),
+                         aligned=bool(_get(obj, "aligned")))
+
+
+def cube_shadow_from_numpy(obj, device) -> CubeShadowData:
+    return CubeShadowData(**_tensors(obj, ("faces", "light_pos", "range",
+                                           "strength_r", "bias"), device))
+
+
+def spot_shadow_from_numpy(obj, device) -> SpotShadowData:
+    return SpotShadowData(**_tensors(obj, ("maps", "light_pos", "axes",
+                                           "tan_half_angle", "range",
+                                           "strength_r", "bias"), device))
+
+
+def shadow_data_from_numpy(shadow_data, device):
+    """render_frame's shadow_data triple (sun, cube, spot; each may be
+    None) from the JAX renderer's bake_shadow_data."""
+    d, c, s = shadow_data
+    conv = lambda f, v: None if v is None else f(v, device)
+    return (conv(dir_shadow_from_numpy, d), conv(cube_shadow_from_numpy, c),
+            conv(spot_shadow_from_numpy, s))

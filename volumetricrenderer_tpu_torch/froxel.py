@@ -102,6 +102,12 @@ def froxel_centers(grid: Tuple[int, int, int], device="cpu") -> torch.Tensor:
     return torch.stack([xx, yy, zz], dim=-1)
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise 3-vector dot as three products and two adds, in the JAX
+    package's order: the shadow-map compare depths depend on it."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def transform_points(mat: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 (column-vector convention) to [..., 3] points, w-divide.
     Written as explicit products, not a matmul, like the JAX package."""

@@ -15,6 +15,7 @@ with `reset_launches()` and reads it afterwards to prove which kernels ran.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
            "shadow_blend", "scatter", "dir_shadow", "integrate",
-           "bake_visibility", "temporal_blend", "windowed_warp")
+           "bake_visibility", "temporal_blend", "windowed_warp",
+           "pcf_shadow")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -133,6 +135,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
         "windowed_warp": ("vr_windowed_warp",
                           [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]),
+        "pcf_shadow": ("vr_pcf_shadow",
+                       [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
     }[name]
     fn = getattr(cdll, sig[0])
     fn.argtypes = sig[1]
@@ -175,3 +179,45 @@ def upload(values, device, dtype=torch.float32) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def move_tables(tables, device):
+    """A dataclass of float32 and int32 tables (tensors, or tuples of
+    tensors) moved to `device`: packed into one buffer per dtype, copied
+    once (pinned and asynchronous from the CPU to CUDA), and split back into
+    views. Other fields are kept as they are."""
+    device = torch.device(device)
+    names, tensors = [], []
+    for f in dataclasses.fields(tables):
+        v = getattr(tables, f.name)
+        if isinstance(v, torch.Tensor):
+            names.append((f.name, None))
+            tensors.append(v)
+        elif isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+            for i, t in enumerate(v):
+                names.append((f.name, i))
+                tensors.append(t)
+    if any(t.dtype not in (torch.float32, torch.int32) for t in tensors):
+        raise TypeError("the tables hold float32 and int32 tensors")
+    moved = {}
+    for dtype in (torch.float32, torch.int32):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        if not idx:
+            continue
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        if flat.device.type == "cpu" and device.type == "cuda":
+            flat = flat.pin_memory().to(device, non_blocking=True)
+        else:
+            flat = flat.to(device)
+        for i, part in zip(idx, flat.split(
+                [tensors[i].numel() for i in idx])):
+            moved[i] = part.view(tensors[i].shape)
+    fields = {}
+    for i, (name, sub) in enumerate(names):
+        if sub is None:
+            fields[name] = moved[i]
+        else:
+            fields.setdefault(name, []).append(moved[i])
+    fields = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in fields.items()}
+    return dataclasses.replace(tables, **fields)

@@ -97,45 +97,9 @@ class FrameTables:
             else (0, 0, 0)
 
     def to(self, device) -> "FrameTables":
-        """The same tables on `device`: packed into one float32 and one
-        int32 buffer, copied once (pinned and asynchronous from the CPU to
-        CUDA), and split back into views."""
-        device = torch.device(device)
-        names, tensors = [], []
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, torch.Tensor):
-                names.append((f.name, None))
-                tensors.append(v)
-            elif isinstance(v, tuple) and v and isinstance(v[0],
-                                                           torch.Tensor):
-                for i, t in enumerate(v):
-                    names.append((f.name, i))
-                    tensors.append(t)
-        if any(t.dtype not in (torch.float32, torch.int32) for t in tensors):
-            raise TypeError("FrameTables holds float32 and int32 tensors")
-        moved = {}
-        for dtype in (torch.float32, torch.int32):
-            idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
-            if not idx:
-                continue
-            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            if flat.device.type == "cpu" and device.type == "cuda":
-                flat = flat.pin_memory().to(device, non_blocking=True)
-            else:
-                flat = flat.to(device)
-            for i, part in zip(idx, flat.split(
-                    [tensors[i].numel() for i in idx])):
-                moved[i] = part.view(tensors[i].shape)
-        fields = {}
-        for i, (name, sub) in enumerate(names):
-            if sub is None:
-                fields[name] = moved[i]
-            else:
-                fields.setdefault(name, []).append(moved[i])
-        fields = {k: tuple(v) if isinstance(v, list) else v
-                  for k, v in fields.items()}
-        return dataclasses.replace(self, **fields)
+        """The same tables on `device` (cuda.move_tables: one float32 and
+        one int32 buffer, copied once)."""
+        return cuda.move_tables(self, device)
 
     def c_struct(self) -> cuda.VrTables:
         """The ctypes mirror of csrc/common.cuh VrTables."""

@@ -11,15 +11,11 @@ from typing import Tuple
 
 import torch
 
-from volumetricrenderer_tpu_torch.froxel import transform_dirs
+from volumetricrenderer_tpu_torch.froxel import dot3, transform_dirs
 from volumetricrenderer_tpu_torch.models.geometry import Geometry
 
 BIG = 1e9
 EPS = 1e-4
-
-
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
 def intersect(geom: Geometry, origins: torch.Tensor, dirs: torch.Tensor,
@@ -44,10 +40,10 @@ def intersect(geom: Geometry, origins: torch.Tensor, dirs: torch.Tensor,
 
     for i in range(geom.plane_normal.shape[0]):
         n = geom.plane_normal[i]
-        denom = _dot3(dirs, n)
+        denom = dot3(dirs, n)
         safe = torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9),
                            denom)
-        t = -(_dot3(origins, n) + geom.plane_d[i]) / safe
+        t = -(dot3(origins, n) + geom.plane_d[i]) / safe
         t = torch.where((t > EPS) & (denom.abs() > 1e-9), t,
                         torch.full_like(t, BIG))
         closer(t, geom.plane_albedo[i].expand(origins.shape),
@@ -109,14 +105,14 @@ def occluded(geom: Geometry, points: torch.Tensor, to_light: torch.Tensor,
                       device=points.device)
     for i in range(geom.plane_normal.shape[0]):
         n = geom.plane_normal[i]
-        denom = _dot3(dirs, n)
-        t = -(_dot3(origins, n) + geom.plane_d[i]) / torch.where(
+        denom = dot3(dirs, n)
+        t = -(dot3(origins, n) + geom.plane_d[i]) / torch.where(
             denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
         hit = hit | ((t > EPS) & (t < max_dist) & (denom.abs() > 1e-9))
     for i in range(geom.sphere_center.shape[0]):
         oc = origins - geom.sphere_center[i]
-        b = _dot3(oc, dirs)
-        cq = _dot3(oc, oc) - geom.sphere_radius[i] ** 2
+        b = dot3(oc, dirs)
+        cq = dot3(oc, oc) - geom.sphere_radius[i] ** 2
         disc = b * b - cq
         sq = torch.sqrt(torch.clamp(disc, min=0.0))
         t0 = -b - sq

@@ -26,10 +26,15 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel as froxel_lib
+from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
+from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
+                                                       pack_media,
+                                                       phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
-from volumetricrenderer_tpu_torch.ops.scatter import light_factor
+from volumetricrenderer_tpu_torch.ops.phase import PI
+from volumetricrenderer_tpu_torch.ops.scatter import light_factor, pack_lights
 
 
 def low_res_dims(grid_whd: Tuple[int, int, int], ss: int):
@@ -270,3 +275,99 @@ def bake_visibility_fused(params, view_to_world, camera_pos, jitter,
     if torch.device(device).type != "cpu":
         tables = tables.to(device)
     return bake_visibility(tables)
+
+
+# --------------------------------------------------------------------------
+# The local lights' shadow maps at the low grid (shadow_mode="map")
+# --------------------------------------------------------------------------
+
+def low_res_world_positions(cfg, params, view_to_world, jitter,
+                            ss: int) -> torch.Tensor:
+    """[DL, HL, WL, 3] world positions of the low samples (the bakes'
+    coordinate contract), for the plain map bakes."""
+    d, h, w = cfg.grid_dhw
+    wl, hl, dl = low_res_dims((w, h, d), ss)
+    dev = view_to_world.device
+    off = (ss - 1) * 0.5
+    ar = lambda n: torch.arange(n, dtype=torch.float32, device=dev)
+    y0 = float(params.y0)
+    zs = ar(dl) * ss + off
+    ys = ar(hl) * ss + off + float((-y0) % ss) + y0
+    ys = torch.clamp(ys, 0.0, params.grid[1] - 1.0)
+    xs = ar(wl) * ss + off
+    fz, fy, fx = torch.meshgrid(zs, ys, xs, indexing="ij")
+    fro = torch.stack([fx, fy, fz], dim=-1)
+    if jitter is not None:
+        fro = fro + jitter
+    view = froxel_lib.froxel_to_view(params, fro + 0.5)
+    return froxel_lib.transform_points(view_to_world, view)
+
+
+def _map_visibility(li: int, world, point_lights, spot_lights, cube_shadow,
+                    spot_shadow):
+    """Light li's (pack_lights order) gated shadow-map visibility at world
+    positions; 1 where the light has no map."""
+    np_l = point_lights.count
+    if li < np_l:
+        if cube_shadow is None:
+            return torch.ones(world.shape[:-1], device=world.device)
+        s = shadow_lib.sample_cube_shadow(
+            cube_shadow, li, world - point_lights.position[li])
+        g = point_lights.has_shadow[li].to(torch.float32)
+    else:
+        si = li - np_l
+        if spot_shadow is None:
+            return torch.ones(world.shape[:-1], device=world.device)
+        s = shadow_lib.sample_spot_shadow(spot_shadow, si, world)
+        g = spot_lights.has_shadow[si].to(torch.float32)
+    return 1.0 + g * (s - 1.0)
+
+
+def bake_visibility_from_maps(cfg, params, view_to_world, jitter,
+                              point_lights, spot_lights, cube_shadow,
+                              spot_shadow, ss: int) -> torch.Tensor:
+    """[NL, DL, HL, WL] visibility of each local light from its baked cube
+    or spot map, sampled at the low grid: what K9 bakes with rays, here for
+    shadow_mode="map". Plain torch, as the JAX package runs it in XLA."""
+    world = low_res_world_positions(cfg, params, view_to_world, jitter, ss)
+    n = point_lights.count + spot_lights.count
+    return torch.stack([_map_visibility(li, world, point_lights, spot_lights,
+                                        cube_shadow, spot_shadow)
+                        for li in range(n)])
+
+
+def bake_radiance_from_maps(cfg, params, view_to_world, camera_pos, jitter,
+                            point_lights, spot_lights, cube_shadow,
+                            spot_shadow, media, time_x, ss: int,
+                            bake_noise: bool = False) -> torch.Tensor:
+    """[3 (+ noise media), DL, HL, WL] local-light radiance at the low grid
+    with the visibility of the baked cube and spot maps: what K1 bakes with
+    rays, here for shadow_mode="map", every light summed (no slice cull).
+    bake_noise appends the fBm factor of each noise-bearing medium, as K1
+    does. Plain torch, as the JAX package runs it in XLA."""
+    world = low_res_world_positions(cfg, params, view_to_world, jitter, ss)
+    wx, wy, wz = world[..., 0], world[..., 1], world[..., 2]
+    vdx = wx - camera_pos[0]
+    vdy = wy - camera_pos[1]
+    vdz = wz - camera_pos[2]
+    inv = torch.rsqrt(vdx * vdx + vdy * vdy + vdz * vdz + 1e-18)
+    vdx, vdy, vdz = vdx * inv, vdy * inv, vdz * inv
+    if media:
+        med, media_static = pack_media(media, time_x)
+    else:
+        med, media_static = torch.zeros((1, 20), device=wx.device), ()
+    phg = phase_g_plane(med, media_static, wx, wy, wz)
+    g2 = phg * phg
+    hg_num = (1.0 - g2) / (4.0 * PI)
+    lights = pack_lights(point_lights, spot_lights)
+    acc = [torch.zeros_like(wx) for _ in range(3)]
+    for li in range(lights.shape[0]):
+        q = lambda i: lights[li, i]
+        factor, _, _, _, _, _, cr, cg, cb = light_factor(
+            q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num)
+        base = factor * _map_visibility(li, world, point_lights, spot_lights,
+                                        cube_shadow, spot_shadow)
+        acc = [a + base * c for a, c in zip(acc, (cr, cg, cb))]
+    if bake_noise:
+        acc += noise_factor_planes(med, media_static, wx, wy, wz)
+    return torch.stack(acc)

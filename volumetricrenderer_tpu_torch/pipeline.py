@@ -7,12 +7,17 @@ kernel, to plain torch on the frame's device where it runs plain XLA. A
 branch that is not ported raises NotImplementedError naming what is missing.
 
   write_material_volumes   plain torch (ops/noise.perlin_3d)
-  write_shadow_volume_dir  dir_shadow_impl="pallas": kernel K7; "xla": plain
-                           torch over ops/raycast.occluded
+  write_shadow_volume_dir  raycast: dir_shadow_impl="pallas": kernel K7;
+                           "xla": plain torch over ops/raycast.occluded;
+                           shadow maps: the cascaded-PCF kernel K12 (full or
+                           low rate, then a plain upsample), or the plain
+                           gather sampler shadow.sample_dir_shadow
   write_scatter_volume     scatter_impl="pallas": kernel K6, fed by K1
                            (radiance bake) or K9 (visibility bake) at
-                           raycast_shadow_subsample > 1; the material folded
-                           into the kernel or read from material volumes
+                           raycast_shadow_subsample > 1, or in
+                           shadow_mode="map" by the plain bakes from the cube
+                           and spot maps; the material folded into the kernel
+                           or read from material volumes
   accumulate               accumulate_impl="pallas" on kernel planes: K8;
                            else the plain shift sample + two-level scan
   temporal_blend_*         reproj_impl="pallas": K10 (shadow, accumulation)
@@ -35,25 +40,33 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel
+from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.config import RenderConfig
 from volumetricrenderer_tpu_torch.froxel import FroxelParams
 from volumetricrenderer_tpu_torch.models.media import ADDITIVE, BOX
 from volumetricrenderer_tpu_torch.ops import raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
-from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow
+from volumetricrenderer_tpu_torch.ops.dir_shadow import \
+    dir_shadow as raycast_dir_shadow
 from volumetricrenderer_tpu_torch.ops.frame_fused import (FrameTables,
                                                           bake_radiance)
 from volumetricrenderer_tpu_torch.ops.integrate import \
     accumulate as accumulate_kernel
 from volumetricrenderer_tpu_torch.ops.material import media_foldable
 from volumetricrenderer_tpu_torch.ops.noise import perlin_3d
+from volumetricrenderer_tpu_torch.ops.pcf_shadow import (PcfTables,
+                                                         pcf_shadow)
+from volumetricrenderer_tpu_torch.ops.pcf_shadow import \
+    pack_tables as pcf_pack_tables
 from volumetricrenderer_tpu_torch.ops.phase import rgb_to_gray, smoothstep
 from volumetricrenderer_tpu_torch.ops.sampling import (shift_sample_3d,
                                                        trilinear_sample_3d)
 from volumetricrenderer_tpu_torch.ops.scatter import scatter_local
 from volumetricrenderer_tpu_torch.ops.scatter_scan import accumulate_blocked
 from volumetricrenderer_tpu_torch.ops.temporal import temporal_blend
-from volumetricrenderer_tpu_torch.ops.visibility import bake_visibility
+from volumetricrenderer_tpu_torch.ops.visibility import (
+    bake_radiance_from_maps, bake_visibility, bake_visibility_from_maps,
+    tent_taps)
 from volumetricrenderer_tpu_torch.ops.warp import (windowed_warp,
                                                    windowed_warp_plain)
 
@@ -176,24 +189,102 @@ def write_material_volumes(cfg: RenderConfig, params: FroxelParams,
 # Shadow volume
 # --------------------------------------------------------------------------
 
+def uses_pcf_kernel(cfg: RenderConfig, dir_shadow, n_dir: int) -> bool:
+    """Whether the sun shadow volume comes from the cascaded-PCF kernel
+    (K12): the JAX pass's condition for `pcf_dir_shadow_pallas`, its
+    128-multiple atlas included although K12 needs none, so that both
+    packages take the same route."""
+    return bool(cfg.dir_shadow_impl == "pallas"
+                and cfg.shadow_mode in ("map", "map_dir")
+                and dir_shadow is not None and dir_shadow.aligned
+                and n_dir > 0 and dir_shadow.atlas.shape[-1] % 128 == 0)
+
+
+def pcf_rate(cfg: RenderConfig) -> int:
+    """dir_shadow_subsample where the low-rate PCF branch runs (the grid
+    width and depth divide by it), else 1."""
+    w, _, d = cfg.grid
+    ssd = max(int(cfg.dir_shadow_subsample), 1)
+    return ssd if ssd > 1 and w % ssd == 0 and d % ssd == 0 else 1
+
+
+def pack_pcf_tables(cfg: RenderConfig, params: FroxelParams, view_to_world,
+                    jitter, dir_lights, dir_shadow):
+    """K12's tables for the frame (ops/pcf_shadow.pack_tables), on the CPU
+    like every argument: at full rate, or on the low grid (W/N, H, D/N) with
+    the jitter (jx/N, jy, jz/N) and params' depth D/N, whose samples sit
+    exactly at the upsample's low-rate positions."""
+    w, h, d = cfg.grid
+    ssd = pcf_rate(cfg)
+    grid = (w // ssd, h, d // ssd)
+    params_l = dataclasses.replace(
+        params, grid=(params.grid[0], params.grid[1], grid[2]))
+    jit = np.asarray(jitter, np.float32).reshape(3) * np.asarray(
+        [1.0 / ssd, 1.0, 1.0 / ssd], np.float32)
+    return pcf_pack_tables(params_l, view_to_world, jit, dir_lights,
+                           dir_shadow, grid)
+
+
+@functools.lru_cache(maxsize=8)
+def _z_lerp_np(d: int, dl: int, ssd: int):
+    u = (np.arange(d) - (ssd - 1) * 0.5) / ssd
+    ka = np.clip(np.floor(u).astype(np.int64), 0, dl - 1)
+    t = np.clip(u - ka, 0.0, 1.0).astype(np.float32)
+    return ka, np.minimum(ka + 1, dl - 1), t
+
+
+def upsample_pcf(cfg: RenderConfig, low: torch.Tensor) -> torch.Tensor:
+    """The low-rate shadow volume [Nd, D/N, H, W/N] at full rate: the JAX
+    pass's z-lerp, then its x-tent `upsample_mats(W, W/N, N).T` as the two
+    taps of visibility.tent_taps (the matrix has at most two non-zero
+    weights per column)."""
+    w, _, d = cfg.grid
+    ssd = pcf_rate(cfg)
+    ka, kb, t = _z_lerp_np(d, low.shape[1], ssd)
+    k0, wt = tent_taps(w, low.shape[3], ssd)
+    k1 = np.minimum(k0 + 1, low.shape[3] - 1)
+    dev = low.device
+    idx = upload(np.stack([ka, kb]), dev, torch.int64)
+    xk = upload(np.stack([k0, k1]), dev, torch.int64)
+    la, lb = low[:, idx[0]], low[:, idx[1]]
+    full_z = la + upload(t, dev)[None, :, None, None] * (lb - la)
+    wt = upload(wt, dev)
+    return full_z[..., xk[0]] * wt[0] + full_z[..., xk[1]] * wt[1]
+
+
 def write_shadow_volume_dir(cfg: RenderConfig, tables: FrameTables,
                             geo: Optional[FrameGeometry] = None,
-                            dir_lights=None, geometry=None) -> torch.Tensor:
+                            dir_lights=None, geometry=None, dir_shadow=None,
+                            pcf: Optional[PcfTables] = None) -> torch.Tensor:
     """Per-froxel sun visibility, squared and gated, without temporal blend:
-    [Nd, D, H, W]. dir_shadow_impl="pallas" runs kernel K7 on the tables;
-    "xla" is plain torch and needs the frame's geometry record, the lights
-    and the scene geometry on the frame's device."""
-    _require(cfg, "shadow_mode", "raycast", "the shadow-map sampler")
-    if cfg.dir_shadow_impl == "pallas":
-        return dir_shadow(tables)
+    [Nd, D, H, W]. Routed as the JAX pass:
+
+      raycast, dir_shadow_impl="pallas"  kernel K7 on the tables
+      raycast, "xla"                     plain torch over raycast.occluded
+      map modes, the PCF route           kernel K12 on `pcf` (pack_pcf_tables;
+                                         uses_pcf_kernel), upsampled from the
+                                         low grid where pcf_rate > 1
+      map modes otherwise                the gather sampler
+                                         shadow.sample_dir_shadow
+
+    The plain routes need the frame's geometry record and the lights, the
+    scene geometry and the shadow data on the frame's device."""
+    if cfg.shadow_mode == "raycast" and cfg.dir_shadow_impl == "pallas":
+        return raycast_dir_shadow(tables)
+    if pcf is not None:
+        vol = pcf_shadow(pcf, dir_shadow.atlas)
+        return vol if pcf_rate(cfg) == 1 else upsample_pcf(cfg, vol)
     world_j = froxel_world_positions(cfg, geo.params, geo.view_to_world,
                                      geo.jitter)
     channels = []
     for i in range(dir_lights.count):
-        occ = raycast.occluded(geometry, world_j, -dir_lights.direction[i],
-                               1e4)
-        strength_r = 1.0 - dir_lights.shadow_strength[i]
-        vis = strength_r + (1.0 - strength_r) * (1.0 - occ)
+        if cfg.shadow_mode == "raycast":
+            occ = raycast.occluded(geometry, world_j,
+                                   -dir_lights.direction[i], 1e4)
+            strength_r = 1.0 - dir_lights.shadow_strength[i]
+            vis = strength_r + (1.0 - strength_r) * (1.0 - occ)
+        else:
+            vis = shadow_lib.sample_dir_shadow(dir_shadow, i, world_j)
         vis = vis * vis
         gate = dir_lights.has_shadow[i].to(torch.float32)
         channels.append(1.0 + gate * (vis - 1.0))
@@ -205,22 +296,43 @@ def write_shadow_volume_dir(cfg: RenderConfig, tables: FrameTables,
 # --------------------------------------------------------------------------
 
 def write_scatter_volume(cfg: RenderConfig, tables: FrameTables,
-                         shadow: torch.Tensor,
-                         material=None) -> torch.Tensor:
+                         shadow: torch.Tensor, material=None,
+                         geo: Optional[FrameGeometry] = None, scene=None,
+                         local_maps=None, time_x=0.0) -> torch.Tensor:
     """In-scatter of every light: [4, D, H, W] (r, g, b, extinction).
-    shadow: the (blended) sun visibility [Nd, D, H, W]. With
-    raycast_shadow_subsample > 1 the local lights come from a low-rate bake:
-    the summed radiance (scatter_bake="radiance", K1) or the per-light
-    visibility (K9), which the scatter's light loop then reads; at 1 each
-    froxel and light casts one any-hit shadow ray. material None: the kernel
-    evaluates the media itself and writes the extinction. material =
-    (material_a, material_b): it reads them, and the luma extinction is
-    added here, once per sun."""
-    _require(cfg, "shadow_mode", "raycast", "map-mode local shadows")
+    shadow: the (blended) sun visibility [Nd, D, H, W]. The local lights
+    come from a low-rate bake where the tables have a low grid (tables.ss >
+    1): the summed radiance (scatter_bake="radiance") or the per-light
+    visibility, which the scatter's light loop then reads. With
+    shadow_mode="map" the bake samples the cube and spot maps local_maps =
+    (CubeShadowData or None, SpotShadowData or None) in plain torch and
+    needs the frame's geometry record, the scene on the frame's device and
+    time_x; otherwise it casts rays: kernel K1 (radiance) or K9. Without a
+    low grid each froxel and light casts one any-hit shadow ray. material
+    None: the kernel evaluates the media itself and writes the extinction.
+    material = (material_a, material_b): it reads them, and the luma
+    extinction is added here, once per sun."""
     _require(cfg, "scatter_impl", "pallas", "the XLA scatter")
     bake = vis = None
-    if tables.ss > 1:
-        if cfg.scatter_bake == "radiance":
+    radiance = cfg.scatter_bake == "radiance"
+    if cfg.shadow_mode == "map":
+        cube, spot = local_maps
+        if tables.ss < 2 or (cube is None and spot is None):
+            raise NotImplementedError("map-mode local lights without their "
+                                      "maps take the XLA scatter, which is "
+                                      "not ported")
+        args = (cfg, geo.params, geo.view_to_world)
+        lights = (scene.point_lights, scene.spot_lights, cube, spot)
+        if radiance:
+            bake = bake_radiance_from_maps(
+                *args, scene.camera.position, geo.jitter, *lights,
+                scene.media, time_x, tables.ss,
+                bake_noise=tables.n_noise > 0)
+        else:
+            vis = bake_visibility_from_maps(*args, geo.jitter, *lights,
+                                            tables.ss)
+    elif tables.ss > 1:
+        if radiance:
             bake = bake_radiance(tables)
         else:
             vis = bake_visibility(tables)

@@ -4,17 +4,25 @@
 `volumetricrenderer_tpu/renderer.py`, routed on the config as there, every
 branch ending in the zgather composite (ops/zg_composite.py: K4):
 
-  fused    every production knob on: the fused volume phase
-           (ops/frame_fused.py: kernels K1-K3);
+  fused    every production knob on, raycast shadows: the fused volume
+           phase (ops/frame_fused.py: kernels K1-K3);
   staged   anything else, in the pass order of the Unity reference:
            material volumes (+ blend) -> shadow (+ blend) -> scatter
            (+ blend) -> accumulate (+ blend). Each pass (pipeline.py) takes
            the kernel that stands for the JAX package's Pallas kernel on
            that route -- shadow + blend K5, or K7 then K10; the bakes K1 or
            K9 and the scatter K6; integrate + blend K3, or K8 then K10; the
-           material and scatter blends K11 -- and plain torch where the JAX
+           material and scatter blends K11; in the shadow-map modes the
+           cascaded-PCF sun shadow K12 -- and plain torch where the JAX
            package runs plain XLA (the material volumes, the "xla" shadow
-           volume and scan, the "windowed" and "gather" reprojections).
+           volume and scan, the "windowed" and "gather" reprojections, the
+           shadow-map bakes and their gather samplers).
+
+The shadow maps of shadow_mode="map" / "map_dir" are baked by
+`bake_shadow_data` (plain torch, ray casting on the renderer's device) once
+per call of render_frame, or once up front by the caller, who then passes
+them as `shadow_data`, as the JAX package's bench does. composite_impl=
+"pallas" ends in K4 too: it computes the JAX package's `composite_pallas`.
 
 All branches keep one FrameState, so a state made by one feeds another as
 long as the same blends are on. A config or scene that the JAX package would
@@ -32,8 +40,9 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel, pipeline
+from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.config import (RenderConfig,
-                                                 composite_eligible)
+                                                 composite_on_k4)
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene
 from volumetricrenderer_tpu_torch.ops import raycast
@@ -49,7 +58,6 @@ from volumetricrenderer_tpu_torch.state import FrameState
 # config fields every ported branch needs at one value, and what the other
 # values would need
 _REQUIRED_KNOBS = (
-    ("shadow_mode", "raycast", "the shadow-map modes"),
     ("scatter_impl", "pallas", "the XLA scatter"),
     ("composite_upsample", 1, "the fractional-resolution composite"))
 
@@ -72,6 +80,7 @@ class VolumetricRenderer:
         self.config = config
         self.device = resolve_device(device)
         self._host_scene = None    # (scene, its copy on the CPU)
+        self._host_shadow = None   # (sun shadow data, its copy on the CPU)
 
     def init_state(self, num_dir_lights: int = 1) -> FrameState:
         """Fresh history: shadow visibility 1, accumulation 0, and zero
@@ -93,7 +102,8 @@ class VolumetricRenderer:
                     and cfg.dir_shadow_impl == "pallas"
                     and cfg.reproj_impl == "pallas"
                     and cfg.accumulate_impl == "pallas"
-                    and cfg.material_impl == "fused")
+                    and cfg.material_impl == "fused"
+                    and cfg.shadow_mode == "raycast")
 
     def check_supported(self, scene: Scene) -> None:
         """Raise NotImplementedError for what the port does not cover."""
@@ -103,7 +113,9 @@ class VolumetricRenderer:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: {missing} not "
                     f"ported (only {name}={want!r})")
-        for name, values in (("reproj_impl", ("pallas", "windowed",
+        for name, values in (("shadow_mode", ("raycast", "map",
+                                              "map_dir")),
+                             ("reproj_impl", ("pallas", "windowed",
                                               "gather")),
                              ("dir_shadow_impl", ("pallas", "xla")),
                              ("accumulate_impl", ("pallas", "xla")),
@@ -119,10 +131,11 @@ class VolumetricRenderer:
                 f"scatter_bake={cfg.scatter_bake!r}: the per-light and "
                 "inline-visibility branches of the fused volume phase are "
                 "not ported (frame_fused=False renders them staged)")
-        if not composite_eligible(cfg):
-            raise NotImplementedError("only the zgather composite "
-                                      "(8x8-multiple pixel cells, D <= 128) "
-                                      "is ported")
+        if not composite_on_k4(cfg):
+            raise NotImplementedError(
+                "only the zgather composite (8x8-multiple pixel cells, "
+                "D <= 128) and composite_impl='pallas' at integer "
+                "pixel/froxel ratios are ported")
         geom = scene.geometry
         if geom.hf_enabled:
             raise NotImplementedError("heightfield occlusion is not ported")
@@ -139,6 +152,42 @@ class VolumetricRenderer:
         if scene.point_lights.count + scene.spot_lights.count == 0:
             raise NotImplementedError("scenes without local lights are not "
                                       "ported")
+
+    def bake_shadow_data(self, scene: Scene):
+        """The shadow maps of the frame on the renderer's device: (sun
+        cascades DirShadowData, point-light cubes CubeShadowData, spot maps
+        SpotShadowData), each None where the mode or the scene has none.
+        The sun bake is camera-aligned wherever the JAX package aligns it
+        (dir_shadow_impl="pallas", or any impl in map_dir), so that the
+        choice of sampler never changes the bake; map_dir shadows the local
+        lights by rays and bakes no local maps."""
+        cfg = self.config
+        dir_shadow = cube_shadow = spot_shadow = None
+        if cfg.shadow_mode == "raycast":
+            return dir_shadow, cube_shadow, spot_shadow
+        scene = scene.to(self.device)
+        cam = scene.camera
+        if scene.dir_lights.count:
+            aligned = (cfg.dir_shadow_impl == "pallas"
+                       or cfg.shadow_mode == "map_dir")
+            align_up = cam.view_to_world()[:3, 1] if aligned else None
+            dir_shadow = shadow_lib.bake_dir_shadows(
+                scene.geometry, scene.dir_lights.direction,
+                scene.dir_lights.shadow_strength, cam.position, cam.forward,
+                cam.fov_y, cam.aspect, cam.near, cfg.shadow_distance,
+                cfg.cascade_splits, cfg.shadow_map_size, align_up=align_up)
+        if cfg.shadow_mode == "map_dir":
+            return dir_shadow, cube_shadow, spot_shadow
+        pts, sps = scene.point_lights, scene.spot_lights
+        if pts.count:
+            cube_shadow = shadow_lib.bake_cube_shadows(
+                scene.geometry, pts.position, pts.range, pts.shadow_strength,
+                cfg.shadow_map_size)
+        if sps.count:
+            spot_shadow = shadow_lib.bake_spot_shadows(
+                scene.geometry, sps.position, sps.direction, sps.spot_angle,
+                sps.range, sps.shadow_strength, cfg.shadow_map_size)
+        return dir_shadow, cube_shadow, spot_shadow
 
     def render_scene_inputs(self, scene: Scene
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,7 +240,7 @@ class VolumetricRenderer:
             * np.float32(state.frame_count > 0)
         prev_w2v = world_to_view if cfg.use_current_matrix_for_reproj \
             else state.prev_world_to_view.cpu()
-        ss = max(int(cfg.raycast_shadow_subsample), 1)
+        ss = self.vis_ss()
         # the local lights' source: the low-rate radiance bake, else a
         # per-light loop (over rays at ss = 1, over the visibility bake
         # above), which needs the full-rate light schedule; the fBm channels
@@ -210,11 +259,45 @@ class VolumetricRenderer:
             params = froxel.params_to(params, self.device)
         return tables, params, world_to_view
 
+    def vis_ss(self) -> int:
+        """The rate of the local lights' low grid: raycast_shadow_subsample,
+        at least 2 where shadow_mode="map" bakes the local maps there (the
+        JAX pass's `vis_mode`)."""
+        ss = max(int(self.config.raycast_shadow_subsample), 1)
+        return max(ss, 2) if self.config.shadow_mode == "map" else ss
+
+    def host_shadow(self, dir_shadow):
+        """`dir_shadow` with every tensor on the CPU, kept for the last sun
+        shadow data passed in (K12's schedule is host prep)."""
+        if self._host_shadow is None or self._host_shadow[0] is not dir_shadow:
+            self._host_shadow = (dir_shadow, dir_shadow.to("cpu"))
+        return self._host_shadow[1]
+
+    def pcf_tables(self, state: FrameState, scene: Scene, dir_shadow):
+        """K12's tables of the frame (pipeline.pack_pcf_tables), packed on
+        the CPU from the host copies of the scene and the shadow data, on
+        the renderer's device."""
+        cfg = self.config
+        host = self.host_scene(scene)
+        cam = host.camera
+        params = froxel.make_froxel_params(cam.fov_y, cam.aspect, cam.near,
+                                           cfg.volume_distance,
+                                           cfg.depth_distribution, cfg.grid)
+        t = pipeline.pack_pcf_tables(
+            cfg, params, cam.view_to_world(),
+            jitter_for_frame(state.frame_count), host.dir_lights,
+            self.host_shadow(dir_shadow))
+        return t.to(self.device) if self.device.type != "cpu" else t
+
     def render_frame(self, state: FrameState, scene: Scene, time_x=0.0,
                      scene_color: Optional[torch.Tensor] = None,
-                     view_depth: Optional[torch.Tensor] = None
+                     view_depth: Optional[torch.Tensor] = None,
+                     shadow_data=None
                      ) -> Tuple[torch.Tensor, dict, FrameState]:
         """One frame. Returns (image [IH, IW, 4], aux, new state).
+
+        shadow_data: the maps of bake_shadow_data, baked once by the caller;
+        None bakes them in this call (the shadow-map modes only).
 
         aux holds the volumes of the frame: `shadow` [Nd, D, H, W],
         `accumulation` [4, D, H, W] and, on the staged branch where they
@@ -228,6 +311,9 @@ class VolumetricRenderer:
                                                           time_x)
         if scene_color is None or view_depth is None:
             scene_color, view_depth = self.render_scene_inputs(scene)
+        if shadow_data is None:
+            shadow_data = self.bake_shadow_data(scene)
+        dir_sh, cube_sh, spot_sh = shadow_data
         f32 = torch.float32
         prev_shadow = state.prev_shadow.to(f32).contiguous()
         prev_acc = state.prev_accumulation.to(f32).contiguous()
@@ -251,18 +337,23 @@ class VolumetricRenderer:
 
             pallas_reproj = cfg.reproj_impl == "pallas"
             if (cfg.temporal_blend_shadow and pallas_reproj
-                    and cfg.dir_shadow_impl == "pallas"):
+                    and cfg.dir_shadow_impl == "pallas"
+                    and cfg.shadow_mode == "raycast"):
                 shadow = dir_shadow_blend(tables, prev_shadow)
             else:
+                pcf = self.pcf_tables(state, scene, dir_sh) \
+                    if pipeline.uses_pcf_kernel(cfg, dir_sh, tables.n_dir) \
+                    else None
                 shadow = pipeline.write_shadow_volume_dir(
                     cfg, tables, geo, scene_dev.dir_lights,
-                    scene_dev.geometry)
+                    scene_dev.geometry, dir_sh, pcf)
                 if cfg.temporal_blend_shadow:
                     shadow = pipeline.temporal_blend_shadow(
                         cfg, tables, geo, shadow.contiguous(), prev_shadow)
 
             scatter = pipeline.write_scatter_volume(
-                cfg, tables, shadow.contiguous(), material)
+                cfg, tables, shadow.contiguous(), material, geo, scene_dev,
+                (cube_sh, spot_sh), time_x)
             # the scatter blend works on the volume, not on the kernel's
             # planes: what follows then takes the plain accumulation
             kernel_planes = not cfg.temporal_blend_scatter
