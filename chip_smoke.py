@@ -46,6 +46,20 @@ VolumetricRenderer, the entry point a user calls, and:
        pallas_composite  composite_impl="pallas", 1 frame: the fused frame,
                          its composite (the JAX package's composite_pallas)
                          on K4
+     and then the post stack on the fused frame (POST_PATHS), each frame's
+     display image checked finite, in [0, 1] and not flat:
+       post_bench        render_frame_post with bench.py's PostConfig
+                         (exposure, bloom, vignette), 4 frames: K1-K4, no
+                         K13
+       post_showcase     demo.py's showcase frame loop, 4 frames, the camera
+                         orbiting and the G-buffer rendered per frame: SSR,
+                         multi-scale AO, SMAA, auto exposure with the adapted
+                         luma carried across frames, lens distortion, DoF,
+                         motion blur from camera_velocity, CA, grain,
+                         grading, dither: K1-K4 and K13 (the SSR march)
+       post_rest         2 frames of what the showcase leaves off: FXAA,
+                         grade_luts, single-scale AO, taa_step threading its
+                         history: K1-K4
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
      each float32 image checksum, checks that each image is finite and not
@@ -53,10 +67,13 @@ VolumetricRenderer, the entry point a user calls, and:
      pallas_composite image against the fused frame 1;
   5. holds each kernel against its plain-torch twin on the inputs of a real
      frame, with the tolerances stated in CHECKS (K12 at low and at full
-     rate on map_dir's frame 4), and shows that K7 then K10 gives K5's
-     volume and K8 then K10 gives K3's, bit for bit;
+     rate on map_dir's frame 4; K13 on the SSR inputs of post_showcase's
+     last frame), and shows that K7 then K10 gives K5's volume and K8 then
+     K10 gives K3's, bit for bit;
   6. times warm frames of the fused, staged, exact, history, vis_bake,
-     map_dir and map paths (CUDA events and host wall), the shadow-map bake,
+     map_dir and map paths and, with a fixed camera and G-buffer, frame +
+     post and the post chain alone of post_bench and post_showcase (CUDA
+     events and host wall, profiler windows), the shadow-map bake,
      each kernel (CUDA events around launches queued behind a device-side
      spin, so that the host's launch rate stays out), each twin, and
      torch.nn.functional.grid_sample as a yardstick for the composite;
@@ -70,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -109,6 +127,7 @@ CHECKS = {
     "pcf_shadow": (1e-6, 1e-5, 1e-3,
                    "a depth compare or a texel floor within ulps of its edge "
                    "may flip"),
+    "ssr_march": (1e-6, 1e-5, 0.0, "the same taps in the same order"),
 }
 
 # kernel -> file:line of the TPU kernel(s) it stands for
@@ -127,6 +146,7 @@ REPLACES = {
     "temporal_blend": f"{PALLAS}temporal.py:169",
     "windowed_warp": f"{PALLAS}warp.py:36",
     "pcf_shadow": f"{PALLAS}pcf_shadow.py:222",
+    "ssr_march": f"{PALLAS}ssr.py:35",
 }
 
 # path -> (config changes from FULL_CONFIG, frames, kernels of the path; a
@@ -172,6 +192,28 @@ PATHS = {
     "pallas_composite": (dict(composite_impl="pallas"), 1,
                          ("bake_radiance", "shadow_scatter",
                           "integrate_blend", "composite")),
+}
+
+
+# post path -> (PostConfig fields, frames, kernels per frame); each renders
+# the fused frame (FULL_CONFIG) under its post stack
+FUSED_KERNELS = ("bake_radiance", "shadow_scatter", "integrate_blend",
+                 "composite")
+BENCH_POST = dict(exposure=1.0, bloom_strength=0.15, vignette=0.2)
+SHOWCASE_POST = dict(exposure=1.1, bloom_strength=0.25, bloom_threshold=0.8,
+                     vignette=0.25, chromatic_aberration=1.0, grain=0.02,
+                     saturation=1.1, contrast=1.05, dof_focus_distance=20.0,
+                     dof_aperture=11.0, dof_max_coc=3.0, motion_blur=0.4,
+                     auto_exposure=True, ae_key=0.6, ae_min_ev=-2.0,
+                     ae_max_ev=2.0, smaa=True, dithering=True,
+                     lens_distortion=8.0, ao_intensity=0.5,
+                     ao_multiscale=True, ssr_intensity=0.5)
+REST_POST = dict(fxaa=True, ao_intensity=0.5, grade_luts=(
+    (0.0, 0.25, 0.6, 1.0), (0.0, 0.5, 1.0), (0.05, 0.3, 0.7, 0.95)))
+POST_PATHS = {
+    "post_bench": (BENCH_POST, 4, FUSED_KERNELS),
+    "post_showcase": (SHOWCASE_POST, 4, FUSED_KERNELS + ("ssr_march",)),
+    "post_rest": (REST_POST, 2, FUSED_KERNELS),
 }
 
 
@@ -291,6 +333,97 @@ def drive(name: str, renderer, scene, scene_color, view_depth, cuda,
     return img, states, launches
 
 
+def orbit(scene, i: int):
+    """demo.py's showcase camera: frame i orbits the start position."""
+    ang = 0.04 * i
+    cam = scene.camera
+    pos = torch.tensor([-0.4 + 4.0 * math.sin(ang), 1.9,
+                        -15.8 + 2.0 * (1 - math.cos(ang))],
+                       device=cam.position.device)
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        cam, position=pos))
+
+
+def post_frame(name: str, renderer, post, cfg, state, scene, time_x,
+               scene_color, view_depth, carry):
+    """One frame of post path `name`, as its user runs it. carry is what the
+    path threads across frames (post_showcase: the adapted luma; post_rest:
+    the TAA history). Returns (display rgb, new state, new carry)."""
+    if name == "post_bench":
+        rgb, _, new_state = renderer.render_frame_post(
+            state, scene, cfg, time_x, scene_color, view_depth)
+        return rgb, new_state, carry
+    image, aux, new_state = renderer.render_frame(state, scene, time_x,
+                                                  scene_color, view_depth)
+    vd = aux["view_depth"]
+    cam = scene.camera
+    vel = post.camera_velocity(vd, cam.fov_y, cam.aspect, cam.view_to_world(),
+                               state.prev_world_to_view)
+    planes = [image[..., c] for c in range(3)]
+    if name == "post_showcase":
+        scale, carry = post.auto_exposure_step(planes, carry, cfg)
+        rgb = post.apply_post(image, cfg, view_depth=vd, velocity=vel,
+                              exposure_scale=scale,
+                              dither_frame=state.frame_count)
+        return rgb, new_state, carry
+    planes, carry = post.taa_step(planes, carry, vel, cfg)
+    return (torch.stack(post.apply_post_planes(planes, cfg, vd, vel), -1),
+            new_state, carry)
+
+
+def drive_post(name: str, renderer, post, scene, scene_color, view_depth,
+               cuda):
+    """Render post path `name` from a fresh state with the launch counters
+    set to 0 just before and read just after; post_showcase orbits the
+    camera and renders its G-buffer per frame, as demo.py does. Checks the
+    launch counts and that every display image is finite, in [0, 1] and not
+    flat. Returns (last display image, the states, counts)."""
+    kw, n_frames, expect = POST_PATHS[name]
+    cfg = post.PostConfig(**kw)
+    state = renderer.init_state(scene.dir_lights.count)
+    carry = torch.ones((), device="cuda") if name == "post_showcase" \
+        else None
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    states = [state]
+    outs = []
+    for i in range(n_frames):
+        if name == "post_showcase":
+            rgb, state, carry = post_frame(name, renderer, post, cfg, state,
+                                           orbit(scene, i), 0.1 * i, None,
+                                           None, carry)
+        else:
+            rgb, state, carry = post_frame(name, renderer, post, cfg, state,
+                                           scene, 0.1 * i, scene_color,
+                                           view_depth, carry)
+        outs.append(rgb)
+        states.append(state)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"# {name}: launches in the {n_frames}-frame run: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for k in cuda.SOURCES:
+        if launches[k] != n_frames * (k in expect):
+            raise AssertionError(
+                f"path {name}: kernel {k} launched {launches[k]} times in "
+                f"{n_frames} frames (on the path: {k in expect})")
+    for i, rgb in enumerate(outs):
+        std = float(rgb.std())
+        log(f"# {name} frame {i + 1}: display {tuple(rgb.shape)} checksum "
+            f"{float(rgb.sum(dtype=torch.float32))!r} std {std:.4g}"
+            + (f", adapted luma {float(carry):.5f}"
+               if name == "post_showcase" and i == n_frames - 1 else ""))
+        if rgb.shape != (*view_depth.shape, 3):
+            raise AssertionError(f"path {name}: display shape {rgb.shape}")
+        if not bool(torch.isfinite(rgb).all()):
+            raise AssertionError(f"path {name}: non-finite display image")
+        if not (float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0):
+            raise AssertionError(f"path {name}: display outside [0, 1]")
+        if not std > 1e-3:
+            raise AssertionError(f"path {name}: degenerate display image")
+    return outs[-1], states, launches
+
+
 def frame_times(name: str, renderer, scene, scene_color, view_depth, state,
                 n: int, shadow_data=None):
     """Warm frames of one path: (device-event mean ms, host wall mean ms)."""
@@ -310,6 +443,18 @@ def frame_times(name: str, renderer, scene, scene_color, view_depth, state,
     log(f"# {name} frame: {frame_ms:.3f} ms device-event mean, "
         f"{wall_ms:.3f} ms host wall mean over {n} warm frames")
     return one_frame, st
+
+
+def step_times(label: str, fn, n: int) -> None:
+    """Warm calls of fn: device-event mean and host-wall mean, in ms."""
+    ev_ms = cuda_time_ms(fn, n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    log(f"# {label}: {ev_ms:.3f} ms device-event mean, {wall_ms:.3f} ms host "
+        f"wall mean over {n} warm calls")
 
 
 def main() -> int:
@@ -332,6 +477,8 @@ def main() -> int:
     from volumetricrenderer_tpu_torch.ops import visibility as vis
     from volumetricrenderer_tpu_torch.ops import warp as wp
     from volumetricrenderer_tpu_torch.ops import zg_composite as zg
+    from volumetricrenderer_tpu_torch.ops import ssr as ssr_ops
+    from volumetricrenderer_tpu_torch import post
 
     t_start = time.perf_counter()
     # 1. device
@@ -376,9 +523,25 @@ def main() -> int:
                 f"{1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
     runs = {name: drive(name, renderers[name], scene, scene_color, view_depth,
                         cuda, bakes[name]) for name in PATHS}
+    # the post stack on the fused frame; the SSR march's inputs of the last
+    # post_showcase frame are kept for K13's check
+    march_args = []
+    real_march = ssr_ops.ssr_march
+
+    def recording_march(*args):
+        march_args[:] = [args]
+        return real_march(*args)
+
+    ssr_ops.ssr_march = recording_march
+    try:
+        for name in POST_PATHS:
+            runs[name] = drive_post(name, renderers["fused"], post, scene,
+                                    scene_color, view_depth, cuda)
+    finally:
+        ssr_ops.ssr_march = real_march
     img, states, _ = runs["fused"]
-    launches = {k: {name: runs[name][2][k] for name in PATHS
-                    if runs[name][2][k]} for k in cuda.SOURCES}
+    launches = {k: {name: run[2][k] for name, run in runs.items()
+                    if run[2][k]} for k in cuda.SOURCES}
     s_img = runs["staged"][0]
     err = (s_img - img).abs()
     past = float((err > 1e-6 + 1e-5 * img.abs()).float().mean())
@@ -551,6 +714,20 @@ def main() -> int:
         raise AssertionError("the sun shadow volume of map_dir casts no "
                              "shadow")
 
+    # K13 on the SSR inputs of post_showcase's last frame
+    m_args = march_args[0]
+    k13 = torch.stack(ssr_ops.ssr_march(*m_args))
+    k13_p = torch.stack(ssr_ops.ssr_march_reference(*m_args))
+    errs["ssr_march"] = compare("ssr_march", k13, k13_p)
+    hq, wq = m_args[0].shape
+    hit_share = float(k13[3].mean())
+    log(f"# ssr_march: {hq}x{wq} planes, {len(m_args[6])} bins, taps per "
+        f"bin {[len(b) for b in m_args[6]]}, hit share {hit_share:.4f}, "
+        f"valid share {float(m_args[5].mean()):.4f}, equal to its twin bit "
+        f"for bit: {torch.equal(k13, k13_p)}")
+    if not 0.0 < hit_share < 1.0:
+        raise AssertionError("the SSR march finds no reflection hits")
+
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
                                 view_depth, states[-1], 20)
@@ -600,6 +777,39 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"# {name}: bake_shadow_data {bake_ms:.3f} ms device-event mean "
             f"(warm), {1e3 * (time.perf_counter() - t0):.3f} ms host wall")
+    # frame + post and the post chain alone (bench.py's frame_post_ms and
+    # post_ms scopes), with a fixed camera and the G-buffer given
+    fr = renderers["fused"]
+    cam = scene.camera
+    for name in ("post_bench", "post_showcase"):
+        cfg_p = post.PostConfig(**POST_PATHS[name][0])
+        box = {"st": runs[name][1][-1], "carry": torch.ones((), device="cuda")
+               if name == "post_showcase" else None}
+
+        def frame_post(name=name, cfg_p=cfg_p, box=box):
+            _, box["st"], box["carry"] = post_frame(
+                name, fr, post, cfg_p, box["st"], scene, 0.5, scene_color,
+                view_depth, box["carry"])
+
+        def post_only(name=name, cfg_p=cfg_p, st=states[-1]):
+            planes = [img[..., c] for c in range(3)]
+            if name == "post_bench":
+                return post.apply_post_planes(planes, cfg_p,
+                                              view_depth=view_depth)
+            vel = post.camera_velocity(view_depth, cam.fov_y, cam.aspect,
+                                       cam.view_to_world(),
+                                       st.prev_world_to_view)
+            scale, _ = post.auto_exposure_step(
+                planes, torch.ones((), device="cuda"), cfg_p)
+            return post.apply_post(img, cfg_p, view_depth=view_depth,
+                                   velocity=vel, exposure_scale=scale,
+                                   dither_frame=st.frame_count)
+
+        step_times(f"{name} frame + post", frame_post, 10)
+        profile_frames(frame_post, 3)
+        step_times(f"{name} post chain alone", post_only, 10)
+        profile_frames(post_only, 3)
+
     for what, fn in (
             ("write_material_volumes", lambda: pipeline.write_material_volumes(
                 h_r.config, h_params, geo.view_to_world, geo.jitter, 0.3,
@@ -634,6 +844,7 @@ def main() -> int:
             lambda: wp.windowed_warp(h_prev_sc, tx, ty, tz, kk), n),
         "pcf_shadow": kernel_time_ms(
             lambda: pcf.pcf_shadow(pcf_low, m_dir.atlas), n),
+        "ssr_march": kernel_time_ms(lambda: ssr_ops.ssr_march(*m_args), n),
     }
     pcf_full_ms = kernel_time_ms(lambda: pcf.pcf_shadow(pcf_full, f_dir.atlas),
                                  n)
@@ -669,6 +880,8 @@ def main() -> int:
             lambda: wp.windowed_warp_plain(h_prev_sc, tx, ty, tz, kk), n_p),
         "pcf_shadow": cuda_time_ms(
             lambda: pcf.pcf_shadow_plain(pcf_low, m_dir.atlas), n_p),
+        "ssr_march": cuda_time_ms(
+            lambda: ssr_ops.ssr_march_reference(*m_args), n_p),
     }
     pcf_full_plain_ms = cuda_time_ms(
         lambda: pcf.pcf_shadow_plain(pcf_full, f_dir.atlas), n_p)
@@ -778,6 +991,13 @@ def main() -> int:
         return 4 * (nd * s2 * s2 + n_out), n_out * 45 + pairs * 50
 
     work["pcf_shadow"] = pcf_work(pcf_low)
+    # K13: 8 planes in and 5 out; per valid pixel its own bin's taps, ~28
+    # operations each (two 1/z lines and divides, the crossing and onscreen
+    # tests, the first-hit weight and five accumulators)
+    m_counts = torch.tensor([len(b) for b in m_args[6]], device="cuda")
+    m_taps = int((m_counts[m_args[4].long().clamp(0, len(m_args[6]) - 1)]
+                  * m_args[5]).sum())
+    work["ssr_march"] = (4 * 13 * hq * wq, 28 * m_taps)
     weight_work = (4 * 3 * nd * n_fro,
                    n_fro * (ops_reproj + warp(nd) + 3 * nd))
     # K6 per-light: the shadow in, the planes out; per froxel the material

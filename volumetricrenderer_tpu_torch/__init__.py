@@ -7,8 +7,9 @@ package. Ported so far: the production frame (the fused volume phase and
 the zgather composite), the staged frame beside it (shadow, scatter and
 integrate as separate kernels, with the exact per-light scatter) and the
 history frame (material volumes, the per-light visibility bake, the
-material, scatter and standalone shadow and accumulation blends); see
-ROADMAP.md for what remains.
+material, scatter and standalone shadow and accumulation blends), the
+shadow-map frames and the post stack (`post.py`, `render_frame_post`);
+see ROADMAP.md for what remains.
 """
 
 from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,

@@ -7,6 +7,8 @@ imports JAX: the caller hands over its objects and the arrays are converted.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -14,6 +16,7 @@ from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
                                                  Geometry, Medium,
                                                  PointLights, Scene,
                                                  SpotLights)
+from volumetricrenderer_tpu_torch.post import PostConfig
 from volumetricrenderer_tpu_torch.shadow import (CubeShadowData,
                                                  DirShadowData,
                                                  SpotShadowData)
@@ -131,3 +134,22 @@ def shadow_data_from_numpy(shadow_data, device):
     conv = lambda f, v: None if v is None else f(v, device)
     return (conv(dir_shadow_from_numpy, d), conv(cube_shadow_from_numpy, c),
             conv(spot_shadow_from_numpy, s))
+
+
+def post_config_from_jax(cfg) -> PostConfig:
+    """The port's PostConfig from a JAX one, field by field."""
+    return PostConfig(**{f.name: _get(cfg, f.name)
+                         for f in dataclasses.fields(PostConfig)})
+
+
+def taa_history_from_numpy(planes, device):
+    """taa_step's history: three [H, W] float32 planes (None stays None)."""
+    if planes is None:
+        return None
+    return [torch.as_tensor(np.array(np.asarray(p), np.float32),
+                            device=device) for p in planes]
+
+
+def adapted_luma_from_numpy(luma, device) -> torch.Tensor:
+    """auto_exposure_step's carried luminance as a 0-d float32 tensor."""
+    return torch.as_tensor(np.float32(np.asarray(luma)), device=device)

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
            "shadow_blend", "scatter", "dir_shadow", "integrate",
            "bake_visibility", "temporal_blend", "windowed_warp",
-           "pcf_shadow")
+           "pcf_shadow", "ssr_march")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -118,7 +118,7 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def _declare(cdll: ctypes.CDLL, name: str) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tp = ctypes.POINTER(VrTables)
     sig = {
         "bake_radiance": ("vr_bake_radiance", [tp, vp, vp]),
@@ -137,6 +137,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                           [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]),
         "pcf_shadow": ("vr_pcf_shadow",
                        [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
+        "ssr_march": ("vr_ssr_march",
+                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6),
     }[name]
     fn = getattr(cdll, sig[0])
     fn.argtypes = sig[1]

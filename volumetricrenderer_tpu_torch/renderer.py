@@ -24,6 +24,9 @@ per call of render_frame, or once up front by the caller, who then passes
 them as `shadow_data`, as the JAX package's bench does. composite_impl=
 "pallas" ends in K4 too: it computes the JAX package's `composite_pallas`.
 
+`render_frame_post` is render_frame followed by the post stack (post.py),
+the JAX package's frame + post entry point.
+
 All branches keep one FrameState, so a state made by one feeds another as
 long as the same blends are on. A config or scene that the JAX package would
 send down a branch that is not ported raises NotImplementedError naming it.
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel, pipeline
+from volumetricrenderer_tpu_torch.post import PostConfig, apply_post_planes
 from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.config import (RenderConfig,
                                                  composite_on_k4)
@@ -385,6 +389,23 @@ class VolumetricRenderer:
         aux.update(shadow=shadow, accumulation=acc, scene_color=scene_color,
                    view_depth=view_depth)
         return image, aux, new_state
+
+    def render_frame_post(self, state: FrameState, scene: Scene,
+                          post_cfg: PostConfig, time_x=0.0,
+                          scene_color: Optional[torch.Tensor] = None,
+                          view_depth: Optional[torch.Tensor] = None,
+                          shadow_data=None, velocity=None
+                          ) -> Tuple[torch.Tensor, dict, FrameState]:
+        """Frame + post stack: render_frame, then post.apply_post_planes on
+        the image's r, g, b planes with aux["view_depth"] and `velocity`
+        ([H, W, 2] pixels, post.camera_velocity; None skips motion blur).
+        Returns (display rgb [H, W, 3], aux, new state)."""
+        image, aux, new_state = self.render_frame(
+            state, scene, time_x, scene_color, view_depth, shadow_data)
+        out = apply_post_planes([image[..., c] for c in range(3)], post_cfg,
+                                view_depth=aux["view_depth"],
+                                velocity=velocity)
+        return torch.stack(out, dim=-1), aux, new_state
 
     def frame_geometry(self, state: FrameState, scene: Scene, tables,
                        params, world_to_view):
