@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's frames at full width (240x135x128 froxels, 1920x1080, on
-benchmark_scene with 16 local lights and procedural noise) through
-VolumetricRenderer, the entry point a user calls, and:
+Drives the port's frames at full width (240x135x128 froxels, 1920x1080 and,
+for the uhd paths, 3840x2160, on benchmark_scene with 16 local lights and
+procedural noise) through VolumetricRenderer, the entry point a user calls,
+and:
 
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel);
-  3. computes the G-buffer once;
+  3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
      just after, and checks that exactly the path's kernels were launched,
@@ -46,6 +47,17 @@ VolumetricRenderer, the entry point a user calls, and:
        pallas_composite  composite_impl="pallas", 1 frame: the fused frame,
                          its composite (the JAX package's composite_pallas)
                          on K4
+       fused_exact       FULL_CONFIG with scatter_bake="vis",
+                         raycast_shadow_subsample=1 (bench.py's exact_ms),
+                         fused, 2 frames: K2 (per-light rays) K3 K4
+       fused_vis         FULL_CONFIG with scatter_bake="vis" (ss=4), fused,
+                         2 frames: K9 K2 (baked visibility) K3 K4
+       uhd_exact         UHD_CONFIG with composite_upsample=1 (bench.py's
+                         ms_4k_exact), 3840x2160 on its own G-buffer,
+                         2 frames: K1 K2 K3 K4 (16x16-pixel cells)
+       uhd               UHD_CONFIG (ms_4k), 4 frames: K1 K2 K3, K4 at
+                         1920x1080 on co-sited pixels (planes, no scene),
+                         the plain upsample and scene blend
      and then the post stack on the fused frame (POST_PATHS), each frame's
      display image checked finite, in [0, 1] and not flat:
        post_bench        render_frame_post with bench.py's PostConfig
@@ -63,20 +75,28 @@ VolumetricRenderer, the entry point a user calls, and:
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
      each float32 image checksum, checks that each image is finite and not
-     flat, and holds the staged 4-frame image against the fused one and the
-     pallas_composite image against the fused frame 1;
+     flat, and holds the staged 4-frame image against the fused one, the
+     pallas_composite image against the fused frame 1, fused_exact's and
+     fused_vis's images and histories against exact's and vis_bake's bit for
+     bit, and every second pixel of uhd's frame 2 against uhd_exact's; then
+     edits the scene's camera position in place between two frames of a
+     fresh fused renderer and holds the second frame against a fresh
+     renderer's frame of the edited scene, bit for bit;
   5. holds each kernel against its plain-torch twin on the inputs of a real
      frame, with the tolerances stated in CHECKS (K12 at low and at full
      rate on map_dir's frame 4; K13 on the SSR inputs of post_showcase's
-     last frame), and shows that K7 then K10 gives K5's volume and K8 then
+     last frame; K2 with rays and with baked visibility on fused_exact's and
+     fused_vis's frame 2; K4 at 16x16-pixel cells and in its co-sited
+     planes form on uhd_exact's frame 2), and shows that K7 then K10 gives K5's volume and K8 then
      K10 gives K3's, bit for bit;
   6. times warm frames of the fused, staged, exact, history, vis_bake,
-     map_dir and map paths and, with a fixed camera and G-buffer, frame +
+     map_dir, map, fused_exact, fused_vis, uhd_exact and uhd paths and, with a fixed camera and G-buffer, frame +
      post and the post chain alone of post_bench and post_showcase (CUDA
      events and host wall, profiler windows), the shadow-map bake,
      each kernel (CUDA events around launches queued behind a device-side
      spin, so that the host's launch rate stays out), each twin, and
-     torch.nn.functional.grid_sample as a yardstick for the composite;
+     torch.nn.functional.grid_sample as a yardstick for the composite (at
+     1080p, at 4K and at the co-sited low-res pixels);
   7. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
@@ -137,12 +157,14 @@ REPLACES = {
     "shadow_scatter": f"{PALLAS}frame_fused.py:124",
     "integrate_blend": f"{PALLAS}frame_fused.py:124; "
                        f"{PALLAS}integrate_blend.py:41",
-    "composite": f"{PALLAS}zg_composite.py:83; {PALLAS}composite.py:61",
+    "composite": f"{PALLAS}zg_composite.py:83; {PALLAS}zg_composite.py:126; "
+                 f"{PALLAS}composite.py:61",
     "shadow_blend": f"{PALLAS}shadow_blend.py:32",
     "scatter": f"{PALLAS}scatter.py:380",
     "dir_shadow": f"{PALLAS}dir_shadow.py:77",
     "integrate": f"{PALLAS}integrate.py:58",
-    "bake_visibility": f"{PALLAS}visibility.py:454",
+    "bake_visibility": f"{PALLAS}visibility.py:454; "
+                       f"{PALLAS}frame_fused.py:124",
     "temporal_blend": f"{PALLAS}temporal.py:169",
     "windowed_warp": f"{PALLAS}warp.py:36",
     "pcf_shadow": f"{PALLAS}pcf_shadow.py:222",
@@ -155,6 +177,8 @@ STAGED = dict(frame_fused=False)
 VIS_BAKE = dict(STAGED, scatter_bake="vis")
 HISTORY = dict(VIS_BAKE, temporal_blend_material=True,
                temporal_blend_scatter=True)
+EXACT = dict(VIS_BAKE, raycast_shadow_subsample=1)
+UHD = dict(image_width=3840, image_height=2160, composite_upsample=2)
 MAP_DIR = dict(shadow_mode="map_dir")
 MAP = dict(shadow_mode="map")
 # one K12 launch per sun and frame (benchmark_scene has one sun)
@@ -165,8 +189,8 @@ PATHS = {
                       "composite")),
     "staged": (STAGED, 4, ("shadow_blend", "bake_radiance", "scatter",
                            "integrate_blend", "composite")),
-    "exact": (dict(VIS_BAKE, raycast_shadow_subsample=1), 2,
-              ("shadow_blend", "scatter", "integrate_blend", "composite")),
+    "exact": (EXACT, 2, ("shadow_blend", "scatter", "integrate_blend",
+                         "composite")),
     "no_shadow_blend": (dict(STAGED, temporal_blend_shadow=False), 1,
                         ("dir_shadow", "bake_radiance", "scatter",
                          "integrate_blend", "composite")),
@@ -192,6 +216,16 @@ PATHS = {
     "pallas_composite": (dict(composite_impl="pallas"), 1,
                          ("bake_radiance", "shadow_scatter",
                           "integrate_blend", "composite")),
+    "fused_exact": (dict(EXACT, frame_fused=True), 2,
+                    ("shadow_scatter", "integrate_blend", "composite")),
+    "fused_vis": (dict(VIS_BAKE, frame_fused=True), 2,
+                  ("bake_visibility", "shadow_scatter", "integrate_blend",
+                   "composite")),
+    "uhd_exact": (dict(UHD, composite_upsample=1), 2,
+                  ("bake_radiance", "shadow_scatter", "integrate_blend",
+                   "composite")),
+    "uhd": (UHD, 4, ("bake_radiance", "shadow_scatter", "integrate_blend",
+                     "composite")),
 }
 
 
@@ -497,7 +531,8 @@ def main() -> int:
     log(f"# build: {time.perf_counter() - t0:.1f} s wall, per source "
         f"{json.dumps({k: round(v, 1) for k, v in build_s.items()})}")
 
-    # 3. configs, scene and G-buffer (the same for every path)
+    # 3. configs, scene and G-buffers (one per image size: 1080p, and 4K for
+    # the uhd paths)
     cfg = FULL_CONFIG
     renderers = {name: VolumetricRenderer(dataclasses.replace(cfg, **kw))
                  for name, (kw, _, _) in PATHS.items()}
@@ -509,6 +544,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"# gbuffer: {1e3 * (time.perf_counter() - t0):.1f} ms "
         f"{tuple(scene_color.shape)}")
+    uhd_r = renderers["uhd"]
+    t0 = time.perf_counter()
+    color_4k, depth_4k = uhd_r.render_scene_inputs(scene)
+    torch.cuda.synchronize()
+    log(f"# gbuffer 4K: {1e3 * (time.perf_counter() - t0):.1f} ms "
+        f"{tuple(color_4k.shape)}")
+    gbuf = lambda name: (color_4k, depth_4k) if name.startswith("uhd") \
+        else (scene_color, view_depth)
 
     # 4. the main paths, each from a fresh state; the shadow maps of a map
     # path baked once, up front (timed apart from the frames)
@@ -521,8 +564,8 @@ def main() -> int:
         if r.config.shadow_mode != "raycast":
             log(f"# {name}: bake_shadow_data "
                 f"{1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
-    runs = {name: drive(name, renderers[name], scene, scene_color, view_depth,
-                        cuda, bakes[name]) for name in PATHS}
+    runs = {name: drive(name, renderers[name], scene, *gbuf(name), cuda,
+                        bakes[name]) for name in PATHS}
     # the post stack on the fused frame; the SSR march's inputs of the last
     # post_showcase frame are kept for K13's check
     march_args = []
@@ -562,6 +605,58 @@ def main() -> int:
     if not pc_same:
         raise AssertionError("the pallas composite differs from the zgather "
                              "one")
+    # the fused per-light and inline-visibility frames run the staged
+    # frames' device functions in another grouping: the same image and
+    # histories bit for bit after the same 2 frames
+    for fused, staged in (("fused_exact", "exact"), ("fused_vis", "vis_bake")):
+        f_img, f_states, _ = runs[fused]
+        s_img, s_states, _ = runs[staged]
+        same = (torch.equal(f_img, s_img)
+                and torch.equal(f_states[-1].prev_shadow,
+                                s_states[-1].prev_shadow)
+                and torch.equal(f_states[-1].prev_accumulation,
+                                s_states[-1].prev_accumulation))
+        log(f"# {fused} = {staged} (image and histories, frame 2) bit for "
+            f"bit: {same}")
+        if not same:
+            raise AssertionError(f"{fused} differs from {staged}")
+    # UHD_CONFIG's every second pixel is the exact 4K composite there: its
+    # frame 2 (re-rendered from its state before frame 2) against
+    # uhd_exact's frame 2; the volume phase is the same
+    u_states = runs["uhd"][1]
+    x_img, x_states, _ = runs["uhd_exact"]
+    u_img2 = uhd_r.render_frame(u_states[1], scene, 0.1, color_4k,
+                                depth_4k)[0]
+    u_diff = float((u_img2 - x_img).abs().max())
+    cosite_same = (torch.equal(u_img2[::2, ::2], x_img[::2, ::2])
+                   and torch.equal(u_states[2].prev_accumulation,
+                                   x_states[2].prev_accumulation))
+    log(f"# uhd frame 2 [::2, ::2] = uhd_exact frame 2 [::2, ::2] bit for "
+        f"bit: {cosite_same} (whole image max |diff| {u_diff:.3e})")
+    if not cosite_same:
+        raise AssertionError("the co-sited composite misses the exact one at "
+                             "its co-sited pixels")
+    del u_img2
+    # a scene edited in place between frames: the host copy the tables are
+    # packed from is made again (scene tensors on the card, so the copy is
+    # a real one); frame 2 against a fresh renderer's frame of the edited
+    # scene
+    edited = benchmark_scene(aspect=cfg.image_width / cfg.image_height,
+                             num_local_lights=16, noise_mode="procedural")
+    e_r = VolumetricRenderer(cfg)
+    _, _, e_st = e_r.render_frame(e_r.init_state(1), edited, 0.0)
+    stale = e_r.render_frame(e_st, edited, 0.1)[0]
+    edited.camera.position.add_(torch.tensor([0.5, 0.2, 1.0], device="cuda"))
+    e_img = e_r.render_frame(e_st, edited, 0.1)[0]
+    f_img = VolumetricRenderer(cfg).render_frame(e_st, edited, 0.1)[0]
+    c2_same = torch.equal(e_img, f_img)
+    log(f"# scene edited in place: next frame = a fresh renderer's bit for "
+        f"bit: {c2_same}; it moved from the unedited frame by max |diff| "
+        f"{float((e_img - stale).abs().max()):.3e}")
+    if not c2_same or torch.equal(e_img, stale):
+        raise AssertionError("the frame after an in-place scene edit used "
+                             "a stale host copy")
+    del edited, e_r, stale, e_img, f_img
 
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
@@ -634,6 +729,50 @@ def main() -> int:
     errs["integrate"] = compare("integrate", integ.accumulate(tables, sc),
                                 integ.accumulate_plain(tables, sc))
     del x_sc_p, sc_opt_p, guard
+
+    # K2's per-light modes on the inputs of the fused_exact and fused_vis
+    # paths' frame 2: rays, and the visibility of K9
+    k2_in = {}
+    for mode, path in (("rays", "fused_exact"), ("baked", "fused_vis")):
+        p_prev = runs[path][1][1]
+        p_tables, _, _ = renderers[path].frame_tables(p_prev, scene, 0.1)
+        p_vis = vis.bake_visibility(p_tables) if mode == "baked" else None
+        k2_in[mode] = (p_tables, p_prev.prev_shadow.float().contiguous(),
+                       p_vis)
+    k2_err = {}
+    for mode, (p_tables, p_sh, p_vis) in k2_in.items():
+        got = ff.shadow_scatter(p_tables, p_sh, vis=p_vis)
+        want = ff.shadow_scatter_plain(p_tables, p_sh, vis=p_vis)
+        k2_err[mode] = max(compare("shadow_scatter", g, w_)
+                           for g, w_ in zip(got, want))
+        log(f"# shadow_scatter, {mode}: source {p_tables.local_source}")
+    errs["shadow_scatter"] = max(errs["shadow_scatter"], *k2_err.values())
+    del got, want
+
+    # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
+    # (1920x1080) on the inputs of uhd_exact's frame 2
+    u_tables, u_params, _ = renderers["uhd_exact"].frame_tables(
+        x_states[1], scene, 0.1)
+    u_acc = x_states[2].prev_accumulation.float().contiguous()
+    u_out = zg.composite(u_acc, color_4k, depth_4k, u_params, cfg.grid)
+    if not torch.equal(u_out, x_img):
+        raise AssertionError("K4 on uhd_exact's frame-2 inputs differs from "
+                             "the path's image")
+    k4_err = {"cells_16x16": compare(
+        "composite", u_out, zg.composite_plain(u_acc, color_4k, depth_4k,
+                                               u_params, cfg.grid))}
+    depth_lo = depth_4k[::2, ::2].contiguous()
+    w9_lo = zg.cell_weights(depth_lo.shape[0] // cfg.grid[1],
+                            depth_lo.shape[1] // cfg.grid[0], 2)
+    lo_planes = zg.composite_planes(u_acc, depth_lo, u_params, cfg.grid,
+                                    w9_lo)
+    k4_err["cosited_planes"] = compare(
+        "composite", lo_planes, zg.composite_planes_plain(
+            u_acc, depth_lo, u_params, cfg.grid, w9_lo))
+    errs["composite"] = max(errs["composite"], *k4_err.values())
+    log(f"# composite: 16x16 cells {tuple(u_out.shape)}, co-sited planes "
+        f"{tuple(lo_planes.shape)}")
+    del u_out
 
     # K10 on the same frame: both modes against the twin, and the two
     # identities it is built on -- K7 then K10 = K5, K8 then K10 = K3
@@ -755,6 +894,17 @@ def main() -> int:
     profile_frames(one_history, 3)
     frame_times("vis_bake", renderers["vis_bake"], scene, scene_color,
                 view_depth, runs["vis_bake"][1][-1], 20)
+    for name, n_f in (("fused_exact", 5), ("fused_vis", 20),
+                      ("uhd_exact", 10), ("uhd", 10)):
+        one, _ = frame_times(name, renderers[name], scene, *gbuf(name),
+                             runs[name][1][-1], n_f)
+        if name != "fused_exact":
+            profile_frames(one, 3)
+    # the co-sited composite whole (K4's planes, the plain upsample and
+    # blend) on uhd_exact's frame-2 accumulation
+    step_times("uhd co-sited composite (K4 planes + plain upsample + blend)",
+               lambda: zg.composite_cosited(u_acc, color_4k, depth_4k,
+                                            u_params, cfg.grid, 2), 10)
     one_map_dir, _ = frame_times("map_dir", m_r, scene, scene_color,
                                  view_depth, runs["map_dir"][1][-1], 20,
                                  bakes["map_dir"])
@@ -853,6 +1003,15 @@ def main() -> int:
         lambda a=a: sca.scatter_local(h_tables, h_sh, *a), n)
         for m, a in k6_modes.items()}
     per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
+    k2_ms = {m: kernel_time_ms(lambda a=a: ff.shadow_scatter(a[0], a[1],
+                                                             vis=a[2]),
+                               5 if m == "rays" else n)
+             for m, a in k2_in.items()}
+    k4_ms = {
+        "cells_16x16": kernel_time_ms(lambda: zg.composite(
+            u_acc, color_4k, depth_4k, u_params, cfg.grid), n),
+        "cosited_planes": kernel_time_ms(lambda: zg.composite_planes(
+            u_acc, depth_lo, u_params, cfg.grid, w9_lo), n)}
     n_p = 3
     plain_ms = {
         "bake_radiance": cuda_time_ms(lambda: ff.bake_radiance_plain(tables),
@@ -893,26 +1052,51 @@ def main() -> int:
         for m, a in k6_modes.items()}
     per_light_plain_ms = cuda_time_ms(
         lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
+    k2_plain_ms = {m: cuda_time_ms(
+        lambda a=a: ff.shadow_scatter_plain(a[0], a[1], vis=a[2]), 1)
+        for m, a in k2_in.items()}
+    k4_plain_ms = {
+        "cells_16x16": cuda_time_ms(lambda: zg.composite_plain(
+            u_acc, color_4k, depth_4k, u_params, cfg.grid), 1),
+        "cosited_planes": cuda_time_ms(lambda: zg.composite_planes_plain(
+            u_acc, depth_lo, u_params, cfg.grid, w9_lo), 1)}
     # yardstick for K4: one grid_sample computing the same trilinear of
-    # (L, T) at (pixel -> froxel xy, fz), border clamp (used nowhere else)
+    # (L, T) at (pixel -> froxel xy, fz), border clamp (used nowhere else);
+    # at 1080p, at 4K (16x16-pixel cells) and at the co-sited pixels (every
+    # second 4K pixel of each axis)
     w, h, d = cfg.grid
+
+    def sample_grid(p, depth):
+        ih_, iw_ = depth.shape
+        fz_ = torch.clamp(froxel.depth_to_froxel_z(p, depth) - 0.5, 0.0,
+                          d - 1.0)
+        gx = ((torch.arange(iw_, device="cuda") + 0.5) / iw_ * 2.0 - 1.0)
+        gy = ((torch.arange(ih_, device="cuda") + 0.5) / ih_ * 2.0 - 1.0)
+        gz = (fz_ + 0.5) / d * 2.0 - 1.0
+        return torch.stack([gx[None, :].expand(ih_, iw_),
+                            gy[:, None].expand(ih_, iw_), gz],
+                           dim=-1)[None, None].contiguous()
+
+    def yardstick(label, vol, grid, t_k4):
+        gs = lambda: torch.nn.functional.grid_sample(
+            vol[None], grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+        t_ms = kernel_time_ms(gs, n)
+        gs_err = float((gs()[0, 3, 0] - t_k4).abs().max())
+        log(f"# grid_sample yardstick, {label}: {t_ms:.4f} ms, max |T - K4 "
+            f"T| {gs_err:.2e}")
+        return t_ms
+
     ih, iw = view_depth.shape
-    fz = torch.clamp(froxel.depth_to_froxel_z(params, view_depth) - 0.5,
-                     0.0, d - 1.0)
-    gx = ((torch.arange(iw, device="cuda") + 0.5) / iw * 2.0 - 1.0)
-    gy = ((torch.arange(ih, device="cuda") + 0.5) / ih * 2.0 - 1.0)
-    gz = (fz + 0.5) / d * 2.0 - 1.0
-    grid = torch.stack([gx[None, :].expand(ih, iw), gy[:, None].expand(ih, iw),
-                        gz], dim=-1)[None, None].contiguous()
-    vol = acc[None]
-    gs = lambda: torch.nn.functional.grid_sample(
-        vol, grid, mode="bilinear", padding_mode="border",
-        align_corners=False)
-    lib_ms = kernel_time_ms(gs, n)
-    gs_err = float((gs()[0, :, 0].permute(1, 2, 0)[..., 3]
-                    - out[..., 3]).abs().max())
-    log(f"# grid_sample yardstick: {lib_ms:.4f} ms, max |T - K4 T| "
-        f"{gs_err:.2e}")
+    lib_ms = yardstick("1080p", acc, sample_grid(params, view_depth),
+                       out[..., 3])
+    grid_4k = sample_grid(u_params, depth_4k)
+    k4_lib_ms = {
+        "cells_16x16": yardstick("3840x2160", u_acc, grid_4k, x_img[..., 3]),
+        "cosited_planes": yardstick(
+            "co-sited 1920x1080", u_acc,
+            grid_4k[:, :, ::2, ::2].contiguous(), lo_planes[3])}
+    del grid_4k
 
     # bounds from this run's inputs (bytes each read once / written once;
     # the operations the function needs, counted from the plain versions'
@@ -1024,11 +1208,32 @@ def main() -> int:
             4 * (nd * n_fro + 3 * n_low + 4 * n_fro + 3 * n_fro),
             n_fro * (3 * 20 + sun)),
     }
+    # K2's per-light modes: K5's work (shadow, blend) and K6's in the same
+    # mode (material with its Perlin, the sun term, per scheduled pair the
+    # light factor and a ray or one visibility upsample); the previous
+    # shadow (and the visibility volume) in, shadow and planes out
+    k2_pairs = {m: int(a[0].count.sum()) * h * w for m, a in k2_in.items()}
+    k2_work = {m: (
+        4 * (2 * nd * n_fro + 4 * n_fro
+             + (n_lights * n_low if m == "baked" else 0)),
+        n_fro * (ops_shadow + 60 * n_media + ops_perlin * noise_media + sun)
+        + k2_pairs[m] * (60 + (ops_ray if m == "rays" else 20)))
+        for m in k2_in}
+    # K4 at 4K: the accumulation, depth and scene in, the image out; the
+    # co-sited planes at 1920x1080: no scene, four planes out
+    n_4k = depth_4k.numel()
+    n_lo = depth_lo.numel()
+    k4_work = {
+        "cells_16x16": (4 * (4 * n_fro + n_4k + 3 * n_4k + 4 * n_4k),
+                        n_4k * (20 + 8 * 4 * 2 + 16)),
+        "cosited_planes": (4 * (4 * n_fro + n_lo + 4 * n_lo),
+                           n_lo * (20 + 8 * 4 * 2))}
     log(f"# bound inputs: {prims} primitives, {active_pairs} active "
         f"(low sample, light) pairs, {n_noise} noise channel(s), "
         f"{full_pairs} scheduled (froxel, light) pairs on the exact path, "
         f"{h_pairs} on the history path, {h_active_pairs} active (low "
-        f"sample, light) pairs in its visibility bake")
+        f"sample, light) pairs in its visibility bake, {k2_pairs} on K2's "
+        f"frames")
 
     def bound(nbytes, nops):
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -1053,6 +1258,28 @@ def main() -> int:
             f" ms, bound {b_ms:.4f} ms by {b_by} "
             f"({work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} "
             f"GFLOP)")
+        # the modes of this slice: K2's per-light loops, K4's 4K cells and
+        # co-sited planes, each with the path that launches it
+        modes = {
+            "shadow_scatter": (k2_work, k2_err, k2_ms, k2_plain_ms, {},
+                               {"rays": "fused_exact", "baked": "fused_vis"}),
+            "composite": (k4_work, k4_err, k4_ms, k4_plain_ms, k4_lib_ms,
+                          {"cells_16x16": "uhd_exact",
+                           "cosited_planes": "uhd"}),
+        }.get(name)
+        for m in (modes[0] if modes else ()):
+            m_work, m_err, m_ms, m_plain, m_lib, m_path = modes
+            b_ms, b_by = bound(*m_work[m])
+            entry[m] = {
+                "launches": launches[name].get(m_path[m], 0),
+                "max_abs_err": m_err[m], "ms": m_ms[m],
+                "plain_ms": m_plain[m], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": m_lib.get(m)}
+            log(f"# {name}, {m}: {m_ms[m]:.4f} ms/launch, plain "
+                f"{m_plain[m]:.3f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({m_work[m][0] / 1e6:.1f} MB, {m_work[m][1] / 1e9:.2f} "
+                f"GFLOP), launches {entry[m]['launches']} ({m_path[m]})"
+                + (f", grid_sample {m_lib[m]:.4f} ms" if m in m_lib else ""))
         if name == "scatter":
             b_ms, b_by = bound(*per_light_work)
             entry["per_light"] = {

@@ -65,8 +65,8 @@ def run_both(frame, ss, k, jitter_dir=False, bake_noise=True):
         tp, ts.camera.view_to_world(), torch.as_tensor(np.array(jprev)), JIT,
         ALPHA, ts.dir_lights, ts.point_lights, ts.spot_lights, ts.geometry,
         ts.media, TIME_X, ts.camera.position, torch.as_tensor(prev_sh),
-        torch.as_tensor(prev_acc), GRID, k, ss, bake_noise=bake_noise,
-        jitter_dir=jitter_dir)
+        torch.as_tensor(prev_acc), GRID, k, vis_ss=ss, vis_radiance=True,
+        bake_noise=bake_noise, inline_vis_bake=True, jitter_dir=jitter_dir)
     return (np.asarray(j_sh), np.stack([np.asarray(a) for a in j_acc])), \
         (t_sh.numpy(), t_acc.numpy())
 

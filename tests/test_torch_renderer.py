@@ -125,10 +125,11 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
     assert w2v.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(scatter_bake="vis"),
-                                dict(raycast_shadow_subsample=1),
+@pytest.mark.parametrize("kw", [dict(composite_impl="xla"),
+                                dict(composite_impl="tentmm",
+                                     composite_upsample=2),
                                 dict(composite_impl="tentmm"),
-                                dict(composite_upsample=2),
+                                dict(composite_upsample=2, image_width=96),
                                 dict(shadow_mode="map",
                                      composite_impl="rowmm"),
                                 dict(shadow_mode="map_dir",

@@ -475,7 +475,11 @@ def test_k4_admits_what_composite_pallas_takes():
         full, composite_impl="pallas", image_width=1000))
     assert not composite_on_k4(dataclasses.replace(full,
                                                    composite_impl="tentmm"))
-    assert not composite_on_k4(vt.UHD_CONFIG)
+    # UHD_CONFIG: K4 at the low resolution (the co-sited composite); with
+    # the tentmm composite JAX takes neither K4 route at either resolution
+    assert composite_on_k4(vt.UHD_CONFIG)
+    assert not composite_on_k4(dataclasses.replace(vt.UHD_CONFIG,
+                                                   composite_impl="tentmm"))
 
 
 # --------------------------------------------------------------------------

@@ -3,8 +3,10 @@ and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 A port of `volumetricrenderer_tpu` (JAX on a TPU), which stays the
 reference. This package imports torch and numpy, never JAX or the JAX
-package. Ported so far: the production frame (the fused volume phase and
-the zgather composite), the staged frame beside it (shadow, scatter and
+package. Ported so far: the production frame (the fused volume phase, its
+local lights from the radiance bake, the visibility bake or per-light rays,
+and the zgather composite, at 1080p and at 4K, exact or co-sited), the
+staged frame beside it (shadow, scatter and
 integrate as separate kernels, with the exact per-light scatter) and the
 history frame (material volumes, the per-light visibility bake, the
 material, scatter and standalone shadow and accumulation blends), the

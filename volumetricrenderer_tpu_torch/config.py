@@ -120,7 +120,10 @@ FULL_CONFIG = RenderConfig(
 )
 
 # 4K profile: FULL_CONFIG at 3840x2160 with the fractional-resolution
-# composite. Its composite is not ported yet: the renderer raises on it.
+# composite: (L, T) sampled at 1920x1080 on pixels co-sited with every
+# second full-res pixel, upsampled bilinearly, blended with the scene at
+# full res. Every second pixel equals the exact composite of
+# composite_upsample=1 (16x16-pixel cells).
 UHD_CONFIG = dataclasses.replace(
     FULL_CONFIG, image_width=3840, image_height=2160, composite_upsample=2)
 
@@ -138,15 +141,30 @@ def composite_eligible(cfg: RenderConfig) -> bool:
     return py * px == 64 or (py % 8 == 0 and px % 8 == 0)
 
 
-def composite_on_k4(cfg: RenderConfig) -> bool:
-    """Whether kernel K4 computes this config's composite: where the JAX
-    package takes the zgather kernel (composite_eligible), or
-    composite_impl="pallas" at integer pixel/froxel ratios, where it takes
-    `composite_pallas`, whose selection-matrix trilinear is the same
-    function (the same clamped taps, z clipped to [0, D-1])."""
-    w, h, _ = cfg.grid
-    if cfg.composite_upsample != 1:
+def cosited_eligible(cfg: RenderConfig) -> bool:
+    """Whether the composite runs at 1/composite_upsample of the image on
+    co-sited pixels (the first branch of the JAX package's
+    `pipeline.composite`): composite_upsample > 1, both image sides divisible
+    by it, and the low-res config composite_eligible. Otherwise the JAX
+    package composites at full resolution, whatever composite_upsample
+    says."""
+    us = max(int(cfg.composite_upsample), 1)
+    if us == 1 or cfg.image_width % us or cfg.image_height % us:
         return False
-    return composite_eligible(cfg) or (
+    return composite_eligible(dataclasses.replace(
+        cfg, image_width=cfg.image_width // us,
+        image_height=cfg.image_height // us, composite_upsample=1))
+
+
+def composite_on_k4(cfg: RenderConfig) -> bool:
+    """Whether kernel K4 computes this config's composite: at the low
+    resolution where the JAX package takes the co-sited composite
+    (cosited_eligible), else at full resolution where it takes the zgather
+    kernel (composite_eligible), or composite_impl="pallas" at integer
+    pixel/froxel ratios, where it takes `composite_pallas`, whose
+    selection-matrix trilinear is the same function (the same clamped taps,
+    z clipped to [0, D-1])."""
+    w, h, _ = cfg.grid
+    return cosited_eligible(cfg) or composite_eligible(cfg) or (
         cfg.composite_impl == "pallas" and cfg.image_width % w == 0
         and cfg.image_height % h == 0)

@@ -1,24 +1,33 @@
 // K4 composite: the exact-f32 trilinear composite of the accumulation over
 // the scene colour.
 //
-// Replaces volumetricrenderer_tpu/ops/pallas/zg_composite.py `_kernel`
-// (composite_zgather_planes / composite_zgather, :83, :191, :461). The TPU
-// form transposed row blocks so froxel cells became sublane rows, gathered
-// both z taps of 64 pixels with one 128-lane take_along_axis, baked the
-// edge clamps into padded planes and unshuffled the cell-blocked output; all
-// of that is a layout workaround. On the GPU each pixel gathers its taps
-// directly.
+// Replaces volumetricrenderer_tpu/ops/pallas/zg_composite.py `_kernel` and
+// `_kernel_multisub` (composite_zgather_planes / composite_zgather, :83,
+// :126, :191, :461). The TPU form transposed row blocks so froxel cells
+// became sublane rows, gathered both z taps of 64 pixels with one 128-lane
+// take_along_axis, baked the edge clamps into padded planes, split cells
+// larger than 8x8 into 8x8 sub-images that keep the parent cell's weights
+// (_kernel_multisub), and unshuffled the cell-blocked output; all of that is
+// a layout workaround. On the GPU each pixel gathers its taps directly, at
+// any cell size.
 //
 // One thread per pixel (i, j): fz = depth_to_froxel_z(depth) - 0.5, clipped
 // to [0, d-1], z1 = min(z0 + 1, d - 1); the xy taps are the 3x3 cell
 // neighbours weighted by the static per-pixel-in-cell bilinear weights w9
-// (composite._cell_weights; clamp-to-edge), of which at most 2x2 are
-// non-zero; then rgb = scene * T + L, a = T.
+// [9, py*px] (zg_composite.cell_weights; clamp-to-edge), of which at most
+// 2x2 are non-zero; then rgb = scene * T + L, a = T, packed [IH, IW, 4].
+// With no scene colour (scene null) the kernel writes the four sampled
+// planes (L_r, L_g, L_b, T) [4, IH, IW] instead, as
+// composite_zgather_planes returns them: the co-sited fractional-resolution
+// composite samples them at the low resolution with the co-sited weights
+// (composite_zgather_planes' w9_override) and upsamples them outside.
 //
-// Bound on the H100: bytes. Per frame read depth (8.3 MB) + scene colour
-// (24.9 MB) + the accumulation (66 MB), write the image (33 MB): ~132 MB,
-// ~40 us at 3.35 TB/s. Neighbouring pixels share cells, so the 8 taps per
-// channel come from L1/L2; the planes are read about once from memory.
+// Bound on the H100: bytes. Per 1080p frame read depth (8.3 MB) + scene
+// colour (24.9 MB) + the accumulation (66 MB), write the image (33 MB):
+// ~132 MB, ~40 us at 3.35 TB/s; at 3840x2160, 99.5 MB of scene, 33 MB of
+// depth and 133 MB of image: ~0.099 ms. The planes form at 1920x1080 reads
+// no scene and writes 33 MB. Neighbouring pixels share cells, so the 8 taps
+// per channel come from L1/L2; the planes are read about once from memory.
 #include <cuda_runtime.h>
 
 __global__ void composite_kernel(const float* __restrict__ acc,
@@ -67,6 +76,12 @@ __global__ void composite_kernel(const float* __restrict__ acc,
   float v[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) v[c] = s0[c] * (1.0f - f) + s1[c] * f;
+  if (scene == nullptr) {
+    const long np = (long)ih * iw;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c * np + idx] = v[c];
+    return;
+  }
   const long o = (long)idx * 4;
   const long so = (long)idx * 3;
 #pragma unroll

@@ -15,29 +15,43 @@
 //   2. weight-mode blend against the previous shadow history: the
 //      separable tent warp as an 8-tap gather (common.cuh warp8), weight
 //      alpha * (global-uvw success), offsets with jitter and eps = 1e-4;
-//   3. material at the jittered position with the fBm factor upsampled from
-//      the low-rate bake, the local radiance upsampled and times sigma_s,
-//      each sun's colour x blended shadow x HG at the UNJITTERED centre, and
-//      ext = luma(sigma_s) + sigma_a times the sun count.
+//   3. material at the jittered position, the local lights from one of the
+//      megakernel's three sources (the LOCAL template parameter):
+//        radiance  the low-rate radiance bake (bake_radiance.cu) upsampled
+//                  and times sigma_s, the fBm factor upsampled from its
+//                  noise channels (the inline radiance bake, ss > 1);
+//        ray       the slice's light schedule, one any-hit shadow ray per
+//                  froxel and light (the per-light branch, ss = 1);
+//        baked     the same loop, the shadow term upsampled from the
+//                  low-rate per-light visibility (bake_visibility.cu: the
+//                  inline visibility bake, frame_fused.py:482-527);
+//      then each sun's colour x blended shadow x HG at the UNJITTERED
+//      centre, and ext = luma(sigma_s) + sigma_a times the sun count.
 // Writes the new shadow history [Nd, D, H, W] and the scatter planes
 // [4, D, H, W] (L_r, L_g, L_b, ext); histories are never updated in place.
 //
 // The three steps are the shared device functions of common.cuh
 // (sun_shadow, shadow_blend_froxel, scatter_froxel), which the staged
-// frame's kernels (shadow_blend.cu, scatter.cu) call one at a time.
+// frame's kernels (shadow_blend.cu, scatter.cu) call one at a time: the
+// fused frames equal the staged ones bit for bit.
 //
 // Bound on the H100: operations. Bytes: read the previous shadow (16.6 MB)
-// and write shadow + scatter (83 MB) at FULL -- ~30 us at 3.35 TB/s. Work:
-// per froxel one 7-primitive shadow ray, 7 reprojection evaluations (each a
-// log, 2 divides) and ~30 gathered low-volume taps, ~800 flops, so
-// ~3.5 GFLOP, ~0.05 ms at the fp32 peak. The 8-tap warp recomputes the
-// analytic offsets at the neighbour columns instead of staging an offset
-// volume, trading flops for bytes.
+// and write shadow + scatter (83 MB) at FULL -- ~30 us at 3.35 TB/s. Work,
+// radiance source: per froxel one 7-primitive shadow ray, 7 reprojection
+// evaluations (each a log, 2 divides) and ~30 gathered low-volume taps,
+// ~800 flops, ~0.035 ms at the fp32 peak. The two loops add, per scheduled
+// (froxel, light) pair, ~60 flops of light_factor and a 7-primitive ray
+// (ray) or 8 gathered taps (baked), and per froxel the Perlin fBm of the
+// media (no baked noise channel): the bound of K5 plus that of K6 in the
+// same mode. The 8-tap warp recomputes the analytic offsets at the
+// neighbour columns instead of staging an offset volume, trading flops for
+// bytes.
 #include "common.cuh"
 
+template <int LOCAL>
 __global__ void shadow_scatter_kernel(VrTables T,
                                       const float* __restrict__ prev_sh,
-                                      const float* __restrict__ bake,
+                                      const float* __restrict__ low,
                                       float* __restrict__ out_sh,
                                       float* __restrict__ out_sc) {
   const int w = T.w, h = T.h, d = T.d;
@@ -59,20 +73,40 @@ __global__ void shadow_scatter_kernel(VrTables T,
   shadow_blend_froxel(T, prev_sh, n, z, y, x, cur, blended);
   for (int li = 0; li < T.n_dir; ++li) out_sh[li * n + i] = blended[li];
 
-  // 3. scatter_slice (radiance mode, material fused, dir lights folded)
+  // 3. scatter_slice (material fused, dir lights folded)
   float sc[4];
-  scatter_froxel<VR_LOCAL_RADIANCE>(T, bake, z, y, x, wx, wy, wz, blended,
-                                    sc);
+  scatter_froxel<LOCAL>(T, low, z, y, x, wx, wy, wz, blended, sc);
 #pragma unroll
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }
 
+// local: VR_LOCAL_*; low: the radiance (+ fBm) volume [3 + n_noise, DL,
+// HL, WL], the visibility volume [NL, DL, HL, WL], or null for
+// VR_LOCAL_RAY.
 extern "C" int vr_shadow_scatter(const VrTables* T, const float* prev_sh,
-                                 const float* bake, float* out_sh,
-                                 float* out_sc, cudaStream_t stream) {
+                                 const float* low, float* out_sh,
+                                 float* out_sc, int local,
+                                 cudaStream_t stream) {
+  if ((local == VR_LOCAL_RAY) != (low == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long n = (long)T->d * T->h * T->w;
   const int block = 128;
-  shadow_scatter_kernel<<<(unsigned)((n + block - 1) / block), block, 0,
-                          stream>>>(*T, prev_sh, bake, out_sh, out_sc);
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  switch (local) {
+    case VR_LOCAL_RADIANCE:
+      shadow_scatter_kernel<VR_LOCAL_RADIANCE><<<grid, block, 0, stream>>>(
+          *T, prev_sh, low, out_sh, out_sc);
+      break;
+    case VR_LOCAL_RAY:
+      shadow_scatter_kernel<VR_LOCAL_RAY><<<grid, block, 0, stream>>>(
+          *T, prev_sh, low, out_sh, out_sc);
+      break;
+    case VR_LOCAL_BAKED:
+      shadow_scatter_kernel<VR_LOCAL_BAKED><<<grid, block, 0, stream>>>(
+          *T, prev_sh, low, out_sh, out_sc);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,26 @@ def _to(obj, device):
     return obj
 
 
+def tensor_marks(obj) -> tuple:
+    """(version counter, data pointer) of every tensor in `obj`, a tree of
+    dataclasses and tuples, in field order: a mark changes when its tensor
+    is edited in place or given new storage."""
+    marks = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            marks.append((o._version, o.data_ptr()))
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+        elif isinstance(o, tuple):
+            for v in o:
+                walk(v)
+
+    walk(obj)
+    return tuple(marks)
+
+
 def _euler_forward(pitch_deg: float, yaw_deg: float
                    ) -> Tuple[float, float, float]:
     """Unity transform.forward for euler (pitch, yaw, 0)."""

@@ -122,7 +122,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     tp = ctypes.POINTER(VrTables)
     sig = {
         "bake_radiance": ("vr_bake_radiance", [tp, vp, vp]),
-        "shadow_scatter": ("vr_shadow_scatter", [tp, vp, vp, vp, vp, vp]),
+        "shadow_scatter": ("vr_shadow_scatter",
+                           [tp, vp, vp, vp, vp, ci, vp]),
         "integrate_blend": ("vr_integrate_blend", [tp, vp, vp, vp, vp]),
         "composite": ("vr_composite",
                       [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]),

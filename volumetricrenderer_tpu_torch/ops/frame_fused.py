@@ -1,14 +1,19 @@
 """The production volume phase: shadow -> shadow blend -> scatter ->
-integrate -> accumulation blend, with the low-rate radiance + fBm bake.
+integrate -> accumulation blend, with the local lights from a low-rate bake
+or from one shadow ray per light.
 
 Port of `volumetricrenderer_tpu/ops/pallas/frame_fused.py`
-`frame_volume_fused` (inline radiance path). The TPU ran it as one staggered
-`pallas_call` whose sequential grid carried the histories and the (L, T)
-integral in VMEM rings; on the GPU it is a chain of three kernels, held as
-one unit against the JAX function:
+`frame_volume_fused`. The TPU ran it as one staggered `pallas_call` whose
+sequential grid carried the histories and the (L, T) integral in VMEM rings
+and baked the low-rate volume into a ring on its own schedule; on the GPU it
+is a chain of kernels, held as one unit against the JAX function:
 
-  K1 bake_radiance    low volume [3 + n_noise, DL, HL, WL]
-  K2 shadow_scatter   new shadow history [Nd, D, H, W] + scatter [4, D, H, W]
+  K1 bake_radiance    low volume [3 + n_noise, DL, HL, WL] (inline radiance
+                      bake, ss > 1), or
+  K9 bake_visibility  low volume [NL, DL, HL, WL] (inline visibility bake,
+                      ss > 1; ops/visibility.py), or no bake (ss = 1)
+  K2 shadow_scatter   new shadow history [Nd, D, H, W] + scatter [4, D, H, W],
+                      the local lights from the bake or one ray per light
   K3 integrate_blend  new accumulation [4, D, H, W]
 
 Each wrapper launches its CUDA kernel (csrc/) for CUDA tensors and runs its
@@ -33,7 +38,9 @@ from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
                                                        phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import pack_boxes
 from volumetricrenderer_tpu_torch.ops.phase import PI
-from volumetricrenderer_tpu_torch.ops.scatter import (pack_dir_lights,
+from volumetricrenderer_tpu_torch.ops.scatter import (check_scatter_inputs,
+                                                      local_mode,
+                                                      pack_dir_lights,
                                                       pack_lights,
                                                       pack_params,
                                                       scatter_local_plain,
@@ -43,6 +50,7 @@ from volumetricrenderer_tpu_torch.ops.shadow_blend import \
 from volumetricrenderer_tpu_torch.ops.temporal import (pack_blend_params,
                                                        reproj_offsets, warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
+                                                         bake_visibility,
                                                          bake_world_planes,
                                                          low_res_dims,
                                                          low_slice_active,
@@ -95,6 +103,16 @@ class FrameTables:
         """(WL, HL, DL) of the low grid; zeros at ss = 1, which has none."""
         return low_res_dims(self.grid_whd, self.ss) if self.ss > 1 \
             else (0, 0, 0)
+
+    @property
+    def local_source(self) -> str:
+        """Where the volume phase takes the local lights from: "radiance"
+        (the K1 bake: a low grid and no light schedule), "baked" (the
+        per-light loop over the K9 visibility bake: both) or "ray" (the
+        per-light loop with one shadow ray each: no low grid)."""
+        if self.ss < 2:
+            return "ray"
+        return "radiance" if self.order is None else "baked"
 
     def to(self, device) -> "FrameTables":
         """The same tables on `device` (cuda.move_tables: one float32 and
@@ -273,33 +291,37 @@ def bake_radiance(t: FrameTables) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
-                         bake: torch.Tensor):
+                         bake: Optional[torch.Tensor] = None,
+                         vis: Optional[torch.Tensor] = None):
     """Twin of K2: (blended shadow [Nd, D, H, W], scatter [4, D, H, W]): the
-    twins of K5 and of K6 in radiance mode, chained."""
+    twins of K5 and of K6 chained, K6 in the mode of the local source (the
+    radiance bake, the visibility bake `vis` or, both None, rays)."""
     blended = dir_shadow_blend_plain(t, prev_shadow)
-    return blended, scatter_local_plain(t, blended, bake)
+    return blended, scatter_local_plain(t, blended, bake, vis)
 
 
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
-                   bake: torch.Tensor):
-    """K2: new shadow history and the scatter planes."""
-    w, h, d = t.grid_whd
-    if prev_shadow.shape != (t.n_dir, d, h, w):
-        raise ValueError(f"prev_shadow {tuple(prev_shadow.shape)} != "
-                         f"{(t.n_dir, d, h, w)}")
-    wl, hl, dl = t.low_dims
-    if bake.shape != (3 + t.n_noise, dl, hl, wl):
-        raise ValueError(f"bake volume {tuple(bake.shape)}")
+                   bake: Optional[torch.Tensor] = None,
+                   vis: Optional[torch.Tensor] = None):
+    """K2: new shadow history and the scatter planes. Local lights: the
+    low-rate radiance (+ fBm) volume `bake` of K1; or, with bake None, the
+    tables' per-slice light schedule, each light shadowed by the low-rate
+    visibility volume `vis` of K9 or, with vis None too, by one any-hit ray
+    per froxel."""
+    check_scatter_inputs(t, prev_shadow, bake, vis, None)
     if prev_shadow.device.type == "cpu":
-        return shadow_scatter_plain(t, prev_shadow, bake)
-    cuda.check_cuda(prev_shadow, bake)
+        return shadow_scatter_plain(t, prev_shadow, bake, vis)
+    low = bake if bake is not None else vis
+    cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
+    w, h, d = t.grid_whd
     out_sh = torch.empty_like(prev_shadow)
     out_sc = torch.empty((4, d, h, w), dtype=torch.float32,
                          device=prev_shadow.device)
     st = t.c_struct()
     cuda.launch("shadow_scatter", cuda.ctypes.byref(st),
-                cuda.ptr(prev_shadow), cuda.ptr(bake), cuda.ptr(out_sh),
-                cuda.ptr(out_sc))
+                cuda.ptr(prev_shadow),
+                cuda.ptr(low) if low is not None else None,
+                cuda.ptr(out_sh), cuda.ptr(out_sc), local_mode(bake, vis))
     return out_sh, out_sc
 
 
@@ -340,11 +362,16 @@ def integrate_blend(t: FrameTables, scatter: torch.Tensor,
 
 def volume_phase(t: FrameTables, prev_shadow: torch.Tensor,
                  prev_acc: torch.Tensor):
-    """K1 -> K2 -> K3 on one frame's tables. prev_shadow [Nd, D, H, W],
-    prev_acc [4, D, H, W] (L_r, L_g, L_b, T). Returns (blended shadow
-    [Nd, D, H, W], blended accumulation [4, D, H, W])."""
-    bake = bake_radiance(t)
-    shadow, scatter = shadow_scatter(t, prev_shadow, bake)
+    """The bake of the tables' local source (K1, K9 or none), K2, K3 on one
+    frame's tables. prev_shadow [Nd, D, H, W], prev_acc [4, D, H, W] (L_r,
+    L_g, L_b, T). Returns (blended shadow [Nd, D, H, W], blended
+    accumulation [4, D, H, W])."""
+    bake = vis = None
+    if t.local_source == "radiance":
+        bake = bake_radiance(t)
+    elif t.local_source == "baked":
+        vis = bake_visibility(t)
+    shadow, scatter = shadow_scatter(t, prev_shadow, bake, vis)
     return shadow, integrate_blend(t, scatter, prev_acc)
 
 
@@ -352,15 +379,25 @@ def frame_volume_fused(params, view_to_world, prev_world_to_view, jitter,
                        alpha, dir_lights, point_lights, spot_lights, geometry,
                        media, time_x, camera_pos, prev_shadow: torch.Tensor,
                        prev_acc: torch.Tensor,
-                       grid_whd: Tuple[int, int, int], k: int, vis_ss: int,
-                       bake_noise: bool, jitter_dir: bool = False):
+                       grid_whd: Tuple[int, int, int], k: int,
+                       vis_ss: int = 2, vis_radiance: bool = False,
+                       bake_noise: bool = False,
+                       inline_vis_bake: bool = False,
+                       jitter_dir: bool = False):
     """The whole volume phase with the JAX function's arguments: the host
     prep (frame_tables, scene description on the CPU), its tables moved to
-    the histories' device, then volume_phase."""
+    the histories' device, then volume_phase. As there, inline_vis_bake
+    bakes the local lights at vis_ss -- their radiance (+ fBm with
+    bake_noise) with vis_radiance, else their visibility -- and without it
+    each froxel casts one shadow ray per light (the volume passed as `vis`
+    in JAX is not taken: the port bakes it here)."""
+    radiance = bool(inline_vis_bake and vis_radiance)
     tables = frame_tables(params, view_to_world, prev_world_to_view, jitter,
                           alpha, dir_lights, point_lights, spot_lights,
                           geometry, media, time_x, camera_pos, grid_whd, k,
-                          vis_ss, bake_noise, jitter_dir)
+                          vis_ss if inline_vis_bake else 1,
+                          bake_noise and radiance, jitter_dir,
+                          light_schedule=not radiance)
     if prev_shadow.device.type != "cpu":
         tables = tables.to(prev_shadow.device)
     return volume_phase(tables, prev_shadow, prev_acc)

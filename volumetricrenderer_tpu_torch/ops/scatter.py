@@ -249,7 +249,7 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
 # K6 scatter (csrc/scatter.cu)
 # --------------------------------------------------------------------------
 
-def _check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
+def check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
                           material) -> None:
     w, h, d = t.grid_whd
     if shadow.shape != (t.n_dir, d, h, w):
@@ -276,6 +276,14 @@ def _check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
                              f"{tuple(mat_b.shape)}")
 
 
+def local_mode(bake, vis) -> int:
+    """The local-light source (LOCAL_*) of K6 and K2 given their radiance
+    bake and visibility bake arguments."""
+    if bake is not None:
+        return LOCAL_RADIANCE
+    return LOCAL_BAKED if vis is not None else LOCAL_RAY
+
+
 def scatter_local_plain(t, shadow: torch.Tensor,
                         bake: Optional[torch.Tensor] = None,
                         vis: Optional[torch.Tensor] = None,
@@ -290,7 +298,7 @@ def scatter_local_plain(t, shadow: torch.Tensor,
     and sigma_a, mat_b [1, D, H, W] phase g), giving [3, D, H, W]."""
     # visibility.py imports this module for light_factor
     from volumetricrenderer_tpu_torch.ops.visibility import upsample_low
-    _check_scatter_inputs(t, shadow, bake, vis, material)
+    check_scatter_inputs(t, shadow, bake, vis, material)
     w, h, d = t.grid_whd
     zs = torch.arange(d, device=shadow.device)[:, None, None]
     radiance = noise = local = planes = None
@@ -323,7 +331,7 @@ def scatter_local(t, shadow: torch.Tensor,
     [3, D, H, W] (see scatter_local_plain)."""
     if shadow.device.type == "cpu":
         return scatter_local_plain(t, shadow, bake, vis, material)
-    _check_scatter_inputs(t, shadow, bake, vis, material)
+    check_scatter_inputs(t, shadow, bake, vis, material)
     low = bake if bake is not None else vis
     cuda.check_cuda(shadow, *(() if low is None else (low,)),
                     *(material or ()))
@@ -333,8 +341,7 @@ def scatter_local(t, shadow: torch.Tensor,
     out = torch.empty((4 if material is None else 3, d, h, w),
                       dtype=torch.float32, device=shadow.device)
     st = t.c_struct()
-    mode = LOCAL_RADIANCE if bake is not None else \
-        (LOCAL_BAKED if vis is not None else LOCAL_RAY)
+    mode = local_mode(bake, vis)
     mat_a, mat_b = material if material is not None else (None, None)
     cuda.launch("scatter", cuda.ctypes.byref(st), cuda.ptr(shadow),
                 cuda.ptr(low) if low is not None else None,

@@ -1,22 +1,27 @@
 """The exact-f32 trilinear composite: rgb = scene * T + L, a = T.
 
 Port of `volumetricrenderer_tpu/ops/pallas/zg_composite.py`
-`composite_zgather` (the zgather branch of `pipeline.composite`). Per pixel:
-fz = depth_to_froxel_z(depth) - 0.5 clipped to [0, d-1], the two z taps
-floor(fz) and min(floor(fz) + 1, d - 1), and the xy taps of the pixel's
-cell and its clamped neighbours weighted by the static in-cell bilinear
-weights (pixel -> froxel coordinate (i + 0.5) * W / IW - 0.5, clamp to
-edge). The TPU kernel's padded planes, cells-as-rows transpose and unshuffle
-are layout workarounds and do not exist here.
+`composite_zgather` and `composite_zgather_planes` (the zgather branches of
+`pipeline.composite`). Per pixel: fz = depth_to_froxel_z(depth) - 0.5
+clipped to [0, d-1], the two z taps floor(fz) and min(floor(fz) + 1, d - 1),
+and the xy taps of the pixel's cell and its clamped neighbours weighted by
+the static in-cell bilinear weights (pixel -> froxel coordinate (i + 0.5) *
+W / IW - 0.5, clamp to edge). The TPU kernel's padded planes, cells-as-rows
+transpose, 8x8 sub-images and unshuffle are layout workarounds and do not
+exist here: any multiple-of-8 cell is one kernel.
 
 `composite` launches the CUDA kernel K4 (csrc/composite.cu) for CUDA tensors
-and runs its twin `composite_plain` for CPU tensors.
+and runs its twin `composite_plain` for CPU tensors; `composite_planes` is
+K4 without a scene colour. `composite_cosited` is the JAX package's
+fractional-resolution composite (composite_upsample > 1): K4's planes at
+the low resolution on co-sited pixels, then a plain bilinear upsample and
+the scene blend at full resolution, as JAX runs both in XLA.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +31,15 @@ from volumetricrenderer_tpu_torch.ops import cuda
 
 
 @functools.lru_cache(maxsize=8)
-def cell_weights(py: int, px: int) -> np.ndarray:
+def cell_weights(py: int, px: int, us: int = 1) -> np.ndarray:
     """[9, py*px] float32 bilinear weights of the 3x3 cell neighbours
-    (dy, dx in -1, 0, 1) for each pixel in a cell, at in-cell offsets
-    (i + 0.5)/p - 0.5 from the cell centre."""
-    fy = (np.arange(py) + 0.5) / py - 0.5
-    fx = (np.arange(px) + 0.5) / px - 0.5
+    (dy, dx in -1, 0, 1) for each pixel in a cell. us = 1: at the pixel
+    centres, in-cell offsets (i + 0.5)/p - 0.5 from the cell centre. us > 1:
+    for the co-sited composite's low-res pixels, each standing for full-res
+    pixel us*i, at (us*i + 0.5)/(us*p) - 0.5 (JAX `_cell_weights_at`, the
+    w9_override of pipeline.composite)."""
+    fy = (us * np.arange(py) + 0.5) / (us * py) - 0.5
+    fx = (us * np.arange(px) + 0.5) / (us * px) - 0.5
     out = np.zeros((3, 3, py, px), np.float32)
     for d in (-1, 0, 1):
         wy = np.maximum(0.0, 1.0 - np.abs(fy - d))
@@ -41,11 +49,29 @@ def cell_weights(py: int, px: int) -> np.ndarray:
     return out.reshape(9, py * px)
 
 
-def composite_plain(acc: torch.Tensor, scene_color: torch.Tensor,
-                    view_depth: torch.Tensor, params,
-                    grid_whd: Tuple[int, int, int]) -> torch.Tensor:
-    """Twin of K4. acc [4, D, H, W], scene_color [IH, IW, 3], view_depth
-    [IH, IW] -> image [IH, IW, 4]."""
+@functools.lru_cache(maxsize=8)
+def _device_weights(data: bytes, cp: int, device: torch.device):
+    """A weight table on the card, uploaded once per table and device."""
+    return cuda.upload(np.frombuffer(data, np.float32).reshape(9, cp), device)
+
+
+def _check(acc, view_depth, grid_whd, w9) -> np.ndarray:
+    """Validate the shapes; returns the weight table [9, py*px]."""
+    w, h, d = grid_whd
+    ih, iw = view_depth.shape
+    if acc.shape != (4, d, h, w) or ih % h or iw % w:
+        raise ValueError(f"composite shapes: acc {tuple(acc.shape)}, depth "
+                         f"{(ih, iw)}, grid {grid_whd}")
+    py, px = ih // h, iw // w
+    w9 = cell_weights(py, px) if w9 is None \
+        else np.ascontiguousarray(w9, np.float32)
+    if w9.shape != (9, py * px):
+        raise ValueError(f"cell weights {w9.shape} for {py}x{px} cells")
+    return w9
+
+
+def _sample_plain(acc, view_depth, params, grid_whd, w9) -> torch.Tensor:
+    """The trilinear (L_r, L_g, L_b, T) at every pixel: [4, IH, IW]."""
     w, h, d = grid_whd
     ih, iw = view_depth.shape
     py, px = ih // h, iw // w
@@ -59,7 +85,7 @@ def composite_plain(acc: torch.Tensor, scene_color: torch.Tensor,
     rows = torch.arange(ih, device=dev)
     cols = torch.arange(iw, device=dev)
     cell = ((rows % py)[:, None] * px + (cols % px)[None, :])
-    w9 = torch.as_tensor(cell_weights(py, px), device=dev)
+    w9 = torch.as_tensor(w9, device=dev)
     s0 = torch.zeros((4, ih, iw), dtype=torch.float32, device=dev)
     s1 = torch.zeros_like(s0)
     for dy in range(3):
@@ -69,30 +95,110 @@ def composite_plain(acc: torch.Tensor, scene_color: torch.Tensor,
             wt = w9[dy * 3 + dx][cell]
             s0 = s0 + acc[:, z0, yy, xx] * wt
             s1 = s1 + acc[:, z1, yy, xx] * wt
-    v = s0 * (1.0 - f) + s1 * f
+    return s0 * (1.0 - f) + s1 * f
+
+
+def _blend(v: torch.Tensor, scene_color: torch.Tensor) -> torch.Tensor:
+    """[4, IH, IW] planes over the scene [IH, IW, 3] -> rgba [IH, IW, 4]."""
     rgb = scene_color * v[3][..., None] + v[:3].permute(1, 2, 0)
     return torch.cat([rgb, v[3][..., None]], dim=-1)
+
+
+def composite_plain(acc: torch.Tensor, scene_color: torch.Tensor,
+                    view_depth: torch.Tensor, params,
+                    grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+    """Twin of K4. acc [4, D, H, W], scene_color [IH, IW, 3], view_depth
+    [IH, IW] -> image [IH, IW, 4]."""
+    w9 = _check(acc, view_depth, grid_whd, None)
+    return _blend(_sample_plain(acc, view_depth, params, grid_whd, w9),
+                  scene_color)
+
+
+def composite_planes_plain(acc: torch.Tensor, view_depth: torch.Tensor,
+                           params, grid_whd: Tuple[int, int, int],
+                           w9: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Twin of K4 without a scene colour: planes [4, IH, IW]."""
+    w9 = _check(acc, view_depth, grid_whd, w9)
+    return _sample_plain(acc, view_depth, params, grid_whd, w9)
+
+
+def _launch(acc, scene_color, view_depth, params, grid_whd, w9, out):
+    cuda.check_cuda(acc, view_depth,
+                    *(() if scene_color is None else (scene_color,)))
+    w, h, d = grid_whd
+    ih, iw = view_depth.shape
+    dev = acc.device
+    table = _device_weights(w9.tobytes(), w9.shape[1], dev)
+    fp = torch.stack([params.z, params.w, params.near]).to(
+        device=dev, dtype=torch.float32)
+    cuda.launch("composite", cuda.ptr(acc),
+                None if scene_color is None else cuda.ptr(scene_color),
+                cuda.ptr(view_depth), cuda.ptr(table), cuda.ptr(fp), w, h, d,
+                ih, iw, cuda.ptr(out))
+    return out
 
 
 def composite(acc: torch.Tensor, scene_color: torch.Tensor,
               view_depth: torch.Tensor, params,
               grid_whd: Tuple[int, int, int]) -> torch.Tensor:
-    """K4: the composited image [IH, IW, 4]."""
-    w, h, d = grid_whd
-    ih, iw = view_depth.shape
-    if acc.shape != (4, d, h, w) or scene_color.shape != (ih, iw, 3) \
-            or ih % h or iw % w:
-        raise ValueError(f"composite shapes: acc {tuple(acc.shape)}, scene "
-                         f"{tuple(scene_color.shape)}, depth {(ih, iw)}")
+    """K4: the composited image [IH, IW, 4] (the cell weights of the pixel
+    centres)."""
+    w9 = _check(acc, view_depth, grid_whd, None)
+    if scene_color.shape != (*view_depth.shape, 3):
+        raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
+                         f"depth {tuple(view_depth.shape)}")
     if acc.device.type == "cpu":
-        return composite_plain(acc, scene_color, view_depth, params, grid_whd)
-    cuda.check_cuda(acc, scene_color, view_depth)
-    dev = acc.device
-    w9 = cuda.upload(cell_weights(ih // h, iw // w), dev)
-    fp = torch.stack([params.z, params.w, params.near]).to(
-        device=dev, dtype=torch.float32)
-    out = torch.empty((ih, iw, 4), dtype=torch.float32, device=dev)
-    cuda.launch("composite", cuda.ptr(acc), cuda.ptr(scene_color),
-                cuda.ptr(view_depth), cuda.ptr(w9), cuda.ptr(fp), w, h, d,
-                ih, iw, cuda.ptr(out))
-    return out
+        return composite_plain(acc, scene_color, view_depth, params,
+                               grid_whd)
+    out = torch.empty((*view_depth.shape, 4), dtype=torch.float32,
+                      device=acc.device)
+    return _launch(acc, scene_color, view_depth, params, grid_whd, w9, out)
+
+
+def composite_planes(acc: torch.Tensor, view_depth: torch.Tensor, params,
+                     grid_whd: Tuple[int, int, int],
+                     w9: Optional[np.ndarray] = None) -> torch.Tensor:
+    """K4 without a scene colour: the sampled planes (L_r, L_g, L_b, T)
+    [4, IH, IW], as `composite_zgather_planes` returns them. w9: the
+    [9, py*px] cell weights (its w9_override), those of the pixel centres
+    when None."""
+    if acc.device.type == "cpu":
+        return composite_planes_plain(acc, view_depth, params, grid_whd, w9)
+    w9 = _check(acc, view_depth, grid_whd, w9)
+    out = torch.empty((4, *view_depth.shape), dtype=torch.float32,
+                      device=acc.device)
+    return _launch(acc, None, view_depth, params, grid_whd, w9, out)
+
+
+def upsample_cosited(p: torch.Tensor, us: int) -> torch.Tensor:
+    """[..., h, w] -> [..., us*h, us*w] co-sited bilinear upsample (JAX
+    pipeline._upsample_cosited): low sample i sits at full index us*i, so
+    out[us*i + k] = p[i] + (k/us) * (p[i+1] - p[i]), edge-clamped; rows
+    first, then columns. Phase 0 is p + 0 * (...), p itself."""
+    def rows(q):
+        nxt = torch.cat([q[..., 1:, :], q[..., -1:, :]], dim=-2)
+        out = torch.stack([q + (k / us) * (nxt - q) for k in range(us)],
+                          dim=-2)
+        return out.reshape(*q.shape[:-2], q.shape[-2] * us, q.shape[-1])
+    return rows(rows(p).transpose(-1, -2)).transpose(-1, -2)
+
+
+def composite_cosited(acc: torch.Tensor, scene_color: torch.Tensor,
+                      view_depth: torch.Tensor, params,
+                      grid_whd: Tuple[int, int, int], us: int
+                      ) -> torch.Tensor:
+    """The fractional-resolution composite (JAX pipeline.composite with
+    composite_upsample = us > 1): K4's planes at 1/us of the image on the
+    pixels co-sited with full-res pixel (us*i, us*j) -- their depth, their
+    in-cell weights -- upsampled bilinearly, then rgb = scene * T + L at
+    full resolution. Every us-th pixel of each axis equals the exact
+    composite. Returns [IH, IW, 4]."""
+    ih, iw = view_depth.shape
+    w, h, _ = grid_whd
+    if ih % us or iw % us or (ih // us) % h or (iw // us) % w:
+        raise ValueError(f"co-sited composite: image {(ih, iw)} at 1/{us} "
+                         f"on grid {grid_whd}")
+    lo = view_depth[::us, ::us].contiguous()
+    w9 = cell_weights((ih // us) // h, (iw // us) // w, us)
+    up = upsample_cosited(composite_planes(acc, lo, params, grid_whd, w9), us)
+    return _blend(up, scene_color)

@@ -5,7 +5,11 @@
 branch ending in the zgather composite (ops/zg_composite.py: K4):
 
   fused    every production knob on, raycast shadows: the fused volume
-           phase (ops/frame_fused.py: kernels K1-K3);
+           phase (ops/frame_fused.py), its local lights from the low-rate
+           radiance bake (K1 K2 K3), from the low-rate visibility bake
+           (scatter_bake="vis": K9 K2 K3) or, at
+           raycast_shadow_subsample=1, from one shadow ray per froxel and
+           light (K2 K3);
   staged   anything else, in the pass order of the Unity reference:
            material volumes (+ blend) -> shadow (+ blend) -> scatter
            (+ blend) -> accumulate (+ blend). Each pass (pipeline.py) takes
@@ -23,6 +27,9 @@ The shadow maps of shadow_mode="map" / "map_dir" are baked by
 per call of render_frame, or once up front by the caller, who then passes
 them as `shadow_data`, as the JAX package's bench does. composite_impl=
 "pallas" ends in K4 too: it computes the JAX package's `composite_pallas`.
+With composite_upsample > 1 (UHD_CONFIG) the composite runs K4 at the low
+resolution on co-sited pixels and upsamples in plain torch
+(ops/zg_composite.composite_cosited), where the JAX package does.
 
 `render_frame_post` is render_frame followed by the post stack (post.py),
 the JAX package's frame + post entry point.
@@ -46,9 +53,10 @@ from volumetricrenderer_tpu_torch import froxel, pipeline
 from volumetricrenderer_tpu_torch.post import PostConfig, apply_post_planes
 from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.config import (RenderConfig,
-                                                 composite_on_k4)
+                                                 composite_on_k4,
+                                                 cosited_eligible)
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
-from volumetricrenderer_tpu_torch.models.scene import Scene
+from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
 from volumetricrenderer_tpu_torch.ops import raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
@@ -56,14 +64,13 @@ from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
                                                           volume_phase)
 from volumetricrenderer_tpu_torch.ops.material import media_foldable
 from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
-from volumetricrenderer_tpu_torch.ops.zg_composite import composite
+from volumetricrenderer_tpu_torch.ops.zg_composite import (composite,
+                                                          composite_cosited)
 from volumetricrenderer_tpu_torch.state import FrameState
 
 # config fields every ported branch needs at one value, and what the other
 # values would need
-_REQUIRED_KNOBS = (
-    ("scatter_impl", "pallas", "the XLA scatter"),
-    ("composite_upsample", 1, "the fractional-resolution composite"))
+_REQUIRED_KNOBS = (("scatter_impl", "pallas", "the XLA scatter"),)
 
 
 def resolve_device(device) -> torch.device:
@@ -83,8 +90,10 @@ class VolumetricRenderer:
     def __init__(self, config: RenderConfig, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
-        self._host_scene = None    # (scene, its copy on the CPU)
-        self._host_shadow = None   # (sun shadow data, its copy on the CPU)
+        # (object, tensor_marks of it, its copy on the CPU) of the last
+        # scene and sun shadow data passed in
+        self._host_scene = None
+        self._host_shadow = None
 
     def init_state(self, num_dir_lights: int = 1) -> FrameState:
         """Fresh history: shadow visibility 1, accumulation 0, and zero
@@ -128,18 +137,12 @@ class VolumetricRenderer:
             if getattr(cfg, name) not in values:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: one of {values}")
-        ss = max(int(cfg.raycast_shadow_subsample), 1)
-        if self.fuses_frame() and (ss == 1 or cfg.scatter_bake != "radiance"):
-            raise NotImplementedError(
-                f"frame_fused=True with raycast_shadow_subsample={ss}, "
-                f"scatter_bake={cfg.scatter_bake!r}: the per-light and "
-                "inline-visibility branches of the fused volume phase are "
-                "not ported (frame_fused=False renders them staged)")
         if not composite_on_k4(cfg):
             raise NotImplementedError(
                 "only the zgather composite (8x8-multiple pixel cells, "
-                "D <= 128) and composite_impl='pallas' at integer "
-                "pixel/froxel ratios are ported")
+                "D <= 128, at full resolution or co-sited at "
+                "1/composite_upsample) and composite_impl='pallas' at "
+                "integer pixel/froxel ratios are ported")
         geom = scene.geometry
         if geom.hf_enabled:
             raise NotImplementedError("heightfield occlusion is not ported")
@@ -217,10 +220,10 @@ class VolumetricRenderer:
 
     def host_scene(self, scene: Scene) -> Scene:
         """`scene` with every tensor on the CPU, kept for the last scene
-        passed in."""
-        if self._host_scene is None or self._host_scene[0] is not scene:
-            self._host_scene = (scene, scene.to("cpu"))
-        return self._host_scene[1]
+        passed in and copied again once one of its tensors was edited in
+        place or given new storage."""
+        self._host_scene = _host_copy(self._host_scene, scene)
+        return self._host_scene[2]
 
     def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0):
         """Host prep of one frame: (FrameTables, FroxelParams, world_to_view)
@@ -271,11 +274,10 @@ class VolumetricRenderer:
         return max(ss, 2) if self.config.shadow_mode == "map" else ss
 
     def host_shadow(self, dir_shadow):
-        """`dir_shadow` with every tensor on the CPU, kept for the last sun
-        shadow data passed in (K12's schedule is host prep)."""
-        if self._host_shadow is None or self._host_shadow[0] is not dir_shadow:
-            self._host_shadow = (dir_shadow, dir_shadow.to("cpu"))
-        return self._host_shadow[1]
+        """`dir_shadow` with every tensor on the CPU, kept as host_scene
+        keeps the scene (K12's schedule is host prep)."""
+        self._host_shadow = _host_copy(self._host_shadow, dir_shadow)
+        return self._host_shadow[2]
 
     def pcf_tables(self, state: FrameState, scene: Scene, dir_shadow):
         """K12's tables of the frame (pipeline.pack_pcf_tables), packed on
@@ -375,8 +377,10 @@ class VolumetricRenderer:
                     acc = pipeline.temporal_blend_accumulation(
                         cfg, tables, geo, acc.contiguous(), prev_acc)
             aux["scatter"] = scatter
-        image = composite(acc.contiguous(), scene_color.contiguous(),
-                          view_depth.contiguous(), params, cfg.grid)
+        args = (acc.contiguous(), scene_color.contiguous(),
+                view_depth.contiguous(), params, cfg.grid)
+        image = composite_cosited(*args, cfg.composite_upsample) \
+            if cosited_eligible(cfg) else composite(*args)
         dt = cfg.dtype
         new_state = FrameState(
             prev_shadow=shadow.to(dt), prev_accumulation=acc.to(dt),
@@ -424,3 +428,15 @@ class VolumetricRenderer:
             params=params, view_to_world=mats[0], prev_world_to_view=mats[1],
             jitter=upload(tables.jitter, dev), alpha=alpha)
         return geo, scene.to(dev)
+
+
+def _host_copy(cached, obj):
+    """(obj, its tensor_marks, obj.to("cpu")): `cached` while it holds this
+    very object with every tensor unchanged, else a new copy. The marks
+    (each tensor's version counter and data pointer, a few dozen attribute
+    reads) change with any in-place edit; JAX arrays are immutable, so the
+    reference never sees a stale copy either."""
+    marks = tensor_marks(obj)
+    if cached is not None and cached[0] is obj and cached[1] == marks:
+        return cached
+    return obj, marks, obj.to("cpu")
