@@ -125,25 +125,44 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
     assert w2v.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(composite_impl="xla"),
-                                dict(composite_impl="tentmm",
-                                     composite_upsample=2),
-                                dict(composite_impl="tentmm"),
-                                dict(composite_upsample=2, image_width=96),
+def _unported_scene(kind):
+    """benchmark_scene, or with one part the port does not render: a mesh
+    environment, shadow proxy boxes, a texture-noise medium, or no media."""
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    if kind == "mesh":
+        return dataclasses.replace(scene, mesh=object())
+    if kind == "proxy_boxes":
+        return dataclasses.replace(scene, geometry=dataclasses.replace(
+            scene.geometry, n_proxy_boxes=1))
+    if kind == "texture_noise":
+        fog = scene.media[0]
+        return dataclasses.replace(scene, media=(dataclasses.replace(
+            fog, noise_mode="texture",
+            noise_tex=torch.zeros((4, 4, 4))),) + scene.media[1:])
+    if kind == "no_media":
+        return dataclasses.replace(scene, media=())
+    return scene
+
+
+@pytest.mark.parametrize("kw", [dict(scatter_impl="xla",
+                                     composite_impl="xla"),
+                                dict(scene="mesh"),
+                                dict(scene="proxy_boxes"),
+                                dict(scene="texture_noise"),
                                 dict(shadow_mode="map",
-                                     composite_impl="rowmm"),
+                                     scatter_impl="xla"),
                                 dict(shadow_mode="map_dir",
                                      scatter_impl="xla"),
                                 dict(scatter_impl="xla"),
-                                dict(composite_impl="pallas",
-                                     image_width=120),
+                                dict(scene="no_media"),
                                 dict(frame_fused=False, scatter_impl="xla"),
-                                dict(frame_fused=False, composite_impl="rowmm")])
+                                dict(frame_fused=False, scene="mesh")])
 def test_unported_configs_raise(kw):
+    kw = dict(kw)
+    scene = _unported_scene(kw.pop("scene", None))
     r = vt.VolumetricRenderer(
         dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw}), device="cpu")
-    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
-                               noise_mode="procedural", device="cpu")
     with pytest.raises(NotImplementedError):
         r.render_frame(r.init_state(1), scene, 0.0)
 

@@ -465,21 +465,30 @@ def test_composite_twin_matches_composite_pallas(bake):
 
 
 def test_k4_admits_what_composite_pallas_takes():
-    from volumetricrenderer_tpu_torch.config import composite_on_k4
+    """K4 takes every composite: its cells wherever JAX takes the zgather
+    kernel, composite_pallas or tentmm (integer pixel/froxel ratios), its
+    per-pixel form at any other ratio (rowmm, anyres) and for the "xla"
+    gather, and its planes at the low resolution for the co-sited
+    composite."""
+    from volumetricrenderer_tpu_torch.config import composite_route
     full = vt.FULL_CONFIG
-    assert composite_on_k4(full)
-    assert composite_on_k4(dataclasses.replace(full, composite_impl="pallas"))
-    assert composite_on_k4(dataclasses.replace(
-        full, composite_impl="pallas", volume_height=136, image_height=1088))
-    assert not composite_on_k4(dataclasses.replace(
-        full, composite_impl="pallas", image_width=1000))
-    assert not composite_on_k4(dataclasses.replace(full,
-                                                   composite_impl="tentmm"))
+    assert composite_route(full) == "cells"
+    assert composite_route(dataclasses.replace(
+        full, composite_impl="pallas")) == "cells"
+    assert composite_route(dataclasses.replace(
+        full, composite_impl="pallas", volume_height=136,
+        image_height=1088)) == "cells"
+    assert composite_route(dataclasses.replace(
+        full, composite_impl="pallas", image_width=1000)) == "pixels"
+    assert composite_route(dataclasses.replace(
+        full, composite_impl="tentmm")) == "cells"
+    assert composite_route(dataclasses.replace(
+        full, composite_impl="xla")) == "pixels"
     # UHD_CONFIG: K4 at the low resolution (the co-sited composite); with
-    # the tentmm composite JAX takes neither K4 route at either resolution
-    assert composite_on_k4(vt.UHD_CONFIG)
-    assert not composite_on_k4(dataclasses.replace(vt.UHD_CONFIG,
-                                                   composite_impl="tentmm"))
+    # the tentmm composite JAX composites the full 4K image (16x16 cells)
+    assert composite_route(vt.UHD_CONFIG) == "cosited"
+    assert composite_route(dataclasses.replace(
+        vt.UHD_CONFIG, composite_impl="tentmm")) == "cells"
 
 
 # --------------------------------------------------------------------------

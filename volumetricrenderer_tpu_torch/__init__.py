@@ -10,8 +10,10 @@ staged frame beside it (shadow, scatter and
 integrate as separate kernels, with the exact per-light scatter) and the
 history frame (material volumes, the per-light visibility bake, the
 material, scatter and standalone shadow and accumulation blends), the
-shadow-map frames and the post stack (`post.py`, `render_frame_post`);
-see ROADMAP.md for what remains.
+shadow-map frames and the post stack (`post.py`, `render_frame_post`), on
+`benchmark_scene` and on the reference demo scene `demo_scene` (its
+procedural terrain in every ray cast; boxes of fractional opacity too), at
+any pixel/froxel ratio; see ROADMAP.md for what remains.
 """
 
 from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,
@@ -19,7 +21,8 @@ from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,
 from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
                                                  Geometry, Medium,
                                                  PointLights, Scene,
-                                                 SpotLights, benchmark_scene)
+                                                 SpotLights, benchmark_scene,
+                                                 demo_scene)
 from volumetricrenderer_tpu_torch.renderer import VolumetricRenderer
 from volumetricrenderer_tpu_torch.state import FrameState
 
@@ -27,5 +30,5 @@ __all__ = [
     "RenderConfig", "DEMO_CONFIG", "FULL_CONFIG", "UHD_CONFIG",
     "VolumetricRenderer", "FrameState", "Camera", "DirectionalLights",
     "PointLights", "SpotLights", "Medium", "Geometry", "Scene",
-    "benchmark_scene",
+    "benchmark_scene", "demo_scene",
 ]

@@ -156,15 +156,26 @@ def cosited_eligible(cfg: RenderConfig) -> bool:
         image_height=cfg.image_height // us, composite_upsample=1))
 
 
-def composite_on_k4(cfg: RenderConfig) -> bool:
-    """Whether kernel K4 computes this config's composite: at the low
-    resolution where the JAX package takes the co-sited composite
-    (cosited_eligible), else at full resolution where it takes the zgather
-    kernel (composite_eligible), or composite_impl="pallas" at integer
-    pixel/froxel ratios, where it takes `composite_pallas`, whose
-    selection-matrix trilinear is the same function (the same clamped taps,
-    z clipped to [0, D-1])."""
+def composite_route(cfg: RenderConfig) -> str:
+    """Which form of kernel K4 computes this config's composite, following
+    the branches of the JAX package's `pipeline.composite`:
+
+      "cosited"  at 1/composite_upsample on co-sited pixels, then the plain
+                 upsample (cosited_eligible);
+      "cells"    the pixel-cell form, at integer pixel/froxel ratios where
+                 JAX takes the zgather kernel (composite_eligible), or
+                 `composite_pallas` or `composite_tentmm` (an ineligible
+                 "zgather" config falls back to tentmm): the same clamped
+                 trilinear on each cell's static weights;
+      "pixels"   the per-pixel form, everywhere else: `composite_rowmm`
+                 (a non-integer IH/H, or composite_impl="rowmm"),
+                 `composite_anyres` (a non-integer IW/W) and the per-pixel
+                 gather of composite_impl="xla"."""
     w, h, _ = cfg.grid
-    return cosited_eligible(cfg) or composite_eligible(cfg) or (
-        cfg.composite_impl == "pallas" and cfg.image_width % w == 0
-        and cfg.image_height % h == 0)
+    if cosited_eligible(cfg):
+        return "cosited"
+    if composite_eligible(cfg) or (
+            cfg.composite_impl in ("pallas", "tentmm", "zgather")
+            and cfg.image_width % w == 0 and cfg.image_height % h == 0):
+        return "cells"
+    return "pixels"

@@ -14,7 +14,10 @@
 // (visibility.bake_world_planes), the camera direction, phase g, then for
 // every local light that low_slice_active keeps for this low slice the
 // light factor (falloff x cone x HG) and an any-hit shadow ray, summed in
-// light order; then one fBm factor per noise-bearing medium.
+// light order; then one fBm factor per noise-bearing medium. The shadow
+// ray is common.cuh any_hit: with heightfield_local_shadows it also marches
+// the terrain (hf_steps fBm samples over the band it crosses), and with
+// fractional boxes it returns an occlusion amount, not 0 or 1.
 //
 // Bound on the H100: operations. The bytes are tiny (1 MB out); each
 // sample runs up to 16 lights x 7 primitive tests plus 3 Perlin octaves,
@@ -25,6 +28,7 @@
 // read-only cache and loops over lights at run time (no per-scene build).
 #include "common.cuh"
 
+template <bool ARMS>
 __global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
   const int n = T.dl * T.hl * T.wl;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -54,8 +58,9 @@ __global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
     float ldx, ldy, ldz, dist;
     const float factor = light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg, g2,
                                       hg_num, ldx, ldy, ldz, dist);
-    const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz, dist - 0.05f);
-    const float base = factor * (1.0f - (occ ? 1.0f : 0.0f) * q[14]);
+    const float occ = any_hit<ARMS>(T, wx, wy, wz, -ldx, -ldy, -ldz,
+                                    dist - 0.05f, T.hf_local);
+    const float base = factor * (1.0f - occ * q[14]);
     acc_r = acc_r + base * q[3];
     acc_g = acc_g + base * q[4];
     acc_b = acc_b + base * q[5];
@@ -79,7 +84,10 @@ extern "C" int vr_bake_radiance(const VrTables* T, float* out,
                                 cudaStream_t stream) {
   const int n = T->dl * T->hl * T->wl;
   const int block = 128;
-  bake_radiance_kernel<<<(n + block - 1) / block, block, 0, stream>>>(*T,
-                                                                      out);
+  const unsigned grid = (n + block - 1) / block;
+  if (needs_arms(*T))
+    bake_radiance_kernel<true><<<grid, block, 0, stream>>>(*T, out);
+  else
+    bake_radiance_kernel<false><<<grid, block, 0, stream>>>(*T, out);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@
 // low_slice_active culls, wrote a plane of ones. Here one thread owns one
 // (light, low sample): the jittered world position of the low sample
 // (common.cuh low_sample_world, shared with the radiance bake's
-// arithmetic), one any-hit ray to the light, and 1 - occluded x has_shadow.
+// arithmetic), one any-hit ray to the light, and 1 - occluded x has_shadow
+// (the occlusion an amount with fractional boxes; the terrain marched with
+// heightfield_local_shadows).
 // Culled pairs are written 1 without a ray: the scatter's range cull
 // zeroes those froxels anyway. A warp covers 32 neighbours in x of one
 // (light, slice) pair, so the cull never splits it.
@@ -20,6 +22,7 @@
 // a few microseconds by either bound, so the launch is what one sees.
 #include "common.cuh"
 
+template <bool ARMS>
 __global__ void bake_visibility_kernel(VrTables T, float* __restrict__ out) {
   const int n_low = T.dl * T.hl * T.wl;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -42,16 +45,19 @@ __global__ void bake_visibility_kernel(VrTables T, float* __restrict__ out) {
   const float d2 = tx * tx + ty * ty + tz * tz;
   const float inv_d = rsqrt_exact(d2 + 1e-18f);
   const float dist = d2 * inv_d;
-  const bool occ = any_hit(T, wx, wy, wz, -tx * inv_d, -ty * inv_d,
-                           -tz * inv_d, dist - 0.05f);
-  out[i] = 1.0f - (occ ? 1.0f : 0.0f) * q[14];
+  const float occ = any_hit<ARMS>(T, wx, wy, wz, -tx * inv_d, -ty * inv_d,
+                                  -tz * inv_d, dist - 0.05f, T.hf_local);
+  out[i] = 1.0f - occ * q[14];
 }
 
 extern "C" int vr_bake_visibility(const VrTables* T, float* out,
                                   cudaStream_t stream) {
   const long n = (long)T->n_lights * T->dl * T->hl * T->wl;
   const int block = 128;
-  bake_visibility_kernel<<<(unsigned)((n + block - 1) / block), block, 0,
-                           stream>>>(*T, out);
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  if (needs_arms(*T))
+    bake_visibility_kernel<true><<<grid, block, 0, stream>>>(*T, out);
+  else
+    bake_visibility_kernel<false><<<grid, block, 0, stream>>>(*T, out);
   return (int)cudaGetLastError();
 }

@@ -42,9 +42,14 @@ struct VrTables {
   const float* tent_yw;   // [2, H]
   const int* order;       // [D, NL] slice_light_order: active lights first
   const int* count;       // [D] number of active lights of the slice
+  const float* hf;        // [6] material.pack_heightfield; null: no terrain
   int n_dir, n_lights, n_planes, n_spheres, n_boxes, n_media, n_noise;
   int jitter_dir;  // 1: the sun scatter uses the jittered position
   int w, h, d, h_glob, k, ss, wl, hl, dl;
+  int hf_octaves, hf_period, hf_seed, hf_steps;  // the terrain's statics
+  int hf_local;    // 1: local-light rays march the terrain too
+  int fractional;  // 1: some box opacity < 1 (occlusion amounts)
+  float hf_far;    // the terrain march's far clamp
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -98,106 +103,7 @@ __device__ __forceinline__ void low_sample_world(const VrTables& T, int m,
                wx, wy, wz);
 }
 
-// occlude.any_hit, solid branch: does the ray (o, unit dir) hit a primitive
-// for t in (1e-4, max_t)?
-__device__ bool any_hit(const VrTables& T, float wx, float wy, float wz,
-                        float dx, float dy, float dz, float max_t) {
-  for (int i = 0; i < T.n_planes; ++i) {
-    const float* q = T.planes + 4 * i;
-    float denom = dx * q[0] + dy * q[1] + dz * q[2];
-    if (fabsf(denom) < 1e-9f) denom = 1e-9f;
-    float t = -(wx * q[0] + wy * q[1] + wz * q[2] + q[3]) / denom;
-    if (t > 1e-4f && t < max_t) return true;
-  }
-  for (int i = 0; i < T.n_spheres; ++i) {
-    const float* q = T.spheres + 4 * i;
-    float ox = wx - q[0], oy = wy - q[1], oz = wz - q[2];
-    float bq = ox * dx + oy * dy + oz * dz;
-    float cq = ox * ox + oy * oy + oz * oz - q[3] * q[3];
-    float disc = bq * bq - cq;
-    float sq = sqrtf(fmaxf(disc, 0.0f));
-    float t = (-bq - sq > 1e-4f) ? -bq - sq : -bq + sq;
-    if (disc > 0.0f && t > 1e-4f && t < max_t) return true;
-  }
-  if (T.n_boxes) {
-    float ix = 1.0f / (fabsf(dx) < 1e-9f ? 1e-9f : dx);
-    float iy = 1.0f / (fabsf(dy) < 1e-9f ? 1e-9f : dy);
-    float iz = 1.0f / (fabsf(dz) < 1e-9f ? 1e-9f : dz);
-    for (int i = 0; i < T.n_boxes; ++i) {
-      const float* q = T.boxes + 8 * i;
-      float t0x = (q[0] - wx) * ix, t1x = (q[4] - wx) * ix;
-      float t0y = (q[1] - wy) * iy, t1y = (q[5] - wy) * iy;
-      float t0z = (q[2] - wz) * iz, t1z = (q[6] - wz) * iz;
-      float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                         fminf(t0z, t1z));
-      float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                         fmaxf(t0z, t1z));
-      float t = tmin > 1e-4f ? tmin : tmax;
-      if (tmax >= tmin && t > 1e-4f && t < max_t) return true;
-    }
-  }
-  return false;
-}
-
-// scatter.light_factor: HG x falloff x cone x range cull of light row q.
-__device__ __forceinline__ float light_factor(
-    const float* q, float wx, float wy, float wz, float vdx, float vdy,
-    float vdz, float phg, float g2, float hg_num, float& ldx, float& ldy,
-    float& ldz, float& dist) {
-  float tx = wx - q[0], ty = wy - q[1], tz = wz - q[2];
-  float d2 = tx * tx + ty * ty + tz * tz;
-  float inv_d = rsqrt_exact(d2 + 1e-18f);
-  dist = d2 * inv_d;
-  ldx = tx * inv_d;
-  ldy = ty * inv_d;
-  ldz = tz * inv_d;
-  float rng = q[6], mult = q[7], is_spot = q[8];
-  float x = d2 / (rng * rng);
-  float fall = clampf((1.0f - x) * 5.0f, 0.0f, 1.0f) / (1.0f + 25.0f * x)
-               * mult;
-  float cos_angle = ldx * q[9] + ldy * q[10] + ldz * q[11];
-  float cos_inner = 1.0f / q[13];
-  float cone_den = fminf(q[12] - cos_inner, -1e-9f);
-  float t_cone = clampf((cos_angle - cos_inner) / cone_den, 0.0f, 1.0f);
-  float cone = 1.0f - t_cone * t_cone * (3.0f - 2.0f * t_cone);
-  float keep = cos_angle >= q[12] ? 1.0f : 0.0f;
-  fall = fall * (1.0f - is_spot + is_spot * cone * keep);
-  fall = fall * (dist <= rng ? 1.0f : 0.0f);
-  float cos_t = -(vdx * ldx + vdy * ldy + vdz * ldz);
-  float b = 1.0f + g2 - 2.0f * phg * cos_t;
-  float rb = rsqrt_exact(b);
-  return hg_num * rb * rb * rb * fall;
-}
-
-// dir_shadow.froxel_world: world position of froxel (z, y, x) at its centre,
-// jittered or not.
-__device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
-                                                    int y, int x,
-                                                    bool jittered, float& wx,
-                                                    float& wy, float& wz) {
-  const float* p = T.spar;
-  const float jx = jittered ? p[17] : 0.0f;
-  const float jy = jittered ? p[18] : 0.0f;
-  const float jz = jittered ? p[19] : 0.0f;
-  const float vz = view_z(p, (float)z + 0.5f + jz, T.d);
-  const float ys = clampf((float)y + p[23], 0.0f, (float)T.h_glob - 1.0f);
-  froxel_world(p, (float)x + 0.5f + jx, ys + 0.5f + jy, vz, T.w, T.h_glob,
-               wx, wy, wz);
-}
-
-// dir_shadow.dir_shadow_slice: sun li's visibility at a world position, one
-// any-hit ray towards the sun, squared and gated by has_shadow.
-__device__ __forceinline__ float sun_shadow(const VrTables& T, int li,
-                                            float wx, float wy, float wz) {
-  const float* q = T.slights + 8 * li;
-  const float strength_r = q[3], gate = q[4];
-  const bool occ = any_hit(T, wx, wy, wz, -q[0], -q[1], -q[2], 1e4f);
-  float vis = strength_r + (1.0f - strength_r) * (1.0f - (occ ? 1.f : 0.f));
-  vis = vis * vis;
-  return 1.0f + gate * (vis - 1.0f);
-}
-
-// ---- material.py: uint32 lattice hash, Perlin, fBm, media ----------------
+// ---- material.py: uint32 lattice hash, Perlin, fBm ------------------------
 
 __device__ __forceinline__ int hash3(int ix, int iy, int iz, int seed) {
   uint32_t h = (uint32_t)ix * 0x8DA6B343u + (uint32_t)iy * 0xD8163841u
@@ -266,6 +172,233 @@ __device__ float perlin_fbm(float ux, float uy, float uz, int octaves,
   }
   return clampf(0.5f + 0.5f * (total / (float)norm) * 1.5f, 0.0f, 1.0f);
 }
+
+// ---- occlude.py: the any-hit shadow ray, and its terrain march ----------
+
+// material.heightfield_occluded: does the ray (o, unit ld) cross below the
+// terrain at one of hf_steps midpoint samples of the interval where it
+// crosses the height band [base, base + amp], clamped to
+// min(max_t, hf_far)? A thread whose band is empty skips the march: the
+// reference's march ends in `occ & valid`. The first sample below the
+// surface ends it too.
+__device__ bool heightfield_occluded(const VrTables& T, float wx, float wy,
+                                     float wz, float ldx, float ldy,
+                                     float ldz, float max_t) {
+  const float* q = T.hf;
+  const float amp = q[0], base = q[1];
+  const float hmax = base + amp;
+  const float eps = 1e-4f;
+  const float cap = fminf(max_t, T.hf_far);
+  const bool horiz = fabsf(ldy) < 1e-7f;
+  const float safe = horiz ? 1e-7f : ldy;
+  const float ta = (hmax - wy) / safe;
+  const float tb = (base - wy) / safe;
+  const bool in_band = wy >= base && wy <= hmax;
+  float lo = horiz ? (in_band ? eps : cap) : fminf(ta, tb);
+  float hi = horiz ? (in_band ? cap : 0.0f) : fmaxf(ta, tb);
+  lo = fminf(fmaxf(lo, eps), cap);
+  hi = fminf(fmaxf(hi, eps), cap);
+  if (!(hi > lo)) return false;
+  const int steps = T.hf_steps;
+  for (int i = 0; i < steps; ++i) {
+    // (i + 0.5) / steps, rounded once to float as the reference's constant
+    const float s = (float)(2 * i + 1) / (float)(2 * steps);
+    const float t = lo + (hi - lo) * s;
+    const float px = wx + t * ldx;
+    const float py = wy + t * ldy;
+    const float pz = wz + t * ldz;
+    const float u = px * q[2] + q[4];
+    const float v = pz * q[3] + q[5];
+    const float hgt = base + amp * perlin_fbm(u, v, 0.0f, T.hf_octaves,
+                                              T.hf_period, T.hf_seed);
+    if (py < hgt) return true;
+  }
+  return false;
+}
+
+// The any-hit's three primitive tests: does the ray (o, unit dir) hit
+// plane row q, sphere row q or box row q (with the ray's inverse
+// direction i) for t in (1e-4, max_t)?
+__device__ __forceinline__ bool plane_hit(const float* q, float wx, float wy,
+                                          float wz, float dx, float dy,
+                                          float dz, float max_t) {
+  float denom = dx * q[0] + dy * q[1] + dz * q[2];
+  if (fabsf(denom) < 1e-9f) denom = 1e-9f;
+  float t = -(wx * q[0] + wy * q[1] + wz * q[2] + q[3]) / denom;
+  return t > 1e-4f && t < max_t;
+}
+
+__device__ __forceinline__ bool sphere_hit(const float* q, float wx,
+                                           float wy, float wz, float dx,
+                                           float dy, float dz, float max_t) {
+  float ox = wx - q[0], oy = wy - q[1], oz = wz - q[2];
+  float bq = ox * dx + oy * dy + oz * dz;
+  float cq = ox * ox + oy * oy + oz * oz - q[3] * q[3];
+  float disc = bq * bq - cq;
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  float t = (-bq - sq > 1e-4f) ? -bq - sq : -bq + sq;
+  return disc > 0.0f && t > 1e-4f && t < max_t;
+}
+
+__device__ __forceinline__ float inv_dir(float d) {
+  return 1.0f / (fabsf(d) < 1e-9f ? 1e-9f : d);
+}
+
+__device__ __forceinline__ bool box_hit(const float* q, float wx, float wy,
+                                        float wz, float ix, float iy,
+                                        float iz, float max_t) {
+  float t0x = (q[0] - wx) * ix, t1x = (q[4] - wx) * ix;
+  float t0y = (q[1] - wy) * iy, t1y = (q[5] - wy) * iy;
+  float t0z = (q[2] - wz) * iz, t1z = (q[6] - wz) * iz;
+  float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                     fminf(t0z, t1z));
+  float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                     fmaxf(t0z, t1z));
+  float t = tmin > 1e-4f ? tmin : tmax;
+  return tmax >= tmin && t > 1e-4f && t < max_t;
+}
+
+// occlude.any_hit, solid branch: does the ray hit a plane, sphere or box?
+__device__ bool any_hit_solid(const VrTables& T, float wx, float wy,
+                              float wz, float dx, float dy, float dz,
+                              float max_t) {
+  for (int i = 0; i < T.n_planes; ++i)
+    if (plane_hit(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+      return true;
+  for (int i = 0; i < T.n_spheres; ++i)
+    if (sphere_hit(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+      return true;
+  if (T.n_boxes) {
+    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    for (int i = 0; i < T.n_boxes; ++i)
+      if (box_hit(T.boxes + 8 * i, wx, wy, wz, ix, iy, iz, max_t))
+        return true;
+  }
+  return false;
+}
+
+// occlude._any_hit_fractional: the occlusion amount
+// 1 - prod(1 - opacity_i * hit_i). A plane or sphere hit makes the product
+// 0 whatever follows, and a box that is missed multiplies it by exactly 1,
+// so the early exits and the skipped factors give the reference's value.
+// (One body for both arms, this one with an early 1 where the product
+// reaches 0, gives the same values but ran every ARMS kernel 2-19% slower
+// on an H100: PERF.md §6.)
+__device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
+                                    float wz, float dx, float dy, float dz,
+                                    float max_t, bool terrain) {
+  for (int i = 0; i < T.n_planes; ++i)
+    if (plane_hit(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+      return 1.0f;
+  for (int i = 0; i < T.n_spheres; ++i)
+    if (sphere_hit(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+      return 1.0f;
+  float trans = 1.0f;
+  if (T.n_boxes) {
+    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    for (int i = 0; i < T.n_boxes; ++i) {
+      const float* q = T.boxes + 8 * i;
+      if (box_hit(q, wx, wy, wz, ix, iy, iz, max_t))
+        trans = trans * (1.0f - q[3]);
+    }
+  }
+  if (trans > 0.0f && terrain && T.hf != nullptr
+      && heightfield_occluded(T, wx, wy, wz, dx, dy, dz, max_t))
+    return 1.0f;
+  return 1.0f - trans;
+}
+
+// occlude.any_hit: the occlusion of the ray (o, unit dir) for t in (1e-4,
+// max_t) by the primitives and, with `terrain`, by the heightfield: 1 or 0
+// (the reference's bool, which its consumers turn into 1 - occ x gate), or
+// the occlusion amount where some box is fractional. ARMS is the kernels'
+// template parameter: false (no heightfield, every box solid) compiles
+// exactly the solid test, so a solid scene's kernels keep their registers
+// and their time; true adds the two arms behind uniform branches.
+template <bool ARMS>
+__device__ __forceinline__ float any_hit(const VrTables& T, float wx,
+                                         float wy, float wz, float dx,
+                                         float dy, float dz, float max_t,
+                                         bool terrain) {
+  if constexpr (ARMS) {
+    if (T.fractional)
+      return any_hit_fractional(T, wx, wy, wz, dx, dy, dz, max_t, terrain);
+    if (any_hit_solid(T, wx, wy, wz, dx, dy, dz, max_t)) return 1.0f;
+    return terrain && T.hf != nullptr
+                   && heightfield_occluded(T, wx, wy, wz, dx, dy, dz, max_t)
+               ? 1.0f : 0.0f;
+  } else {
+    return any_hit_solid(T, wx, wy, wz, dx, dy, dz, max_t) ? 1.0f : 0.0f;
+  }
+}
+
+// Whether a frame's tables need the arms (the ARMS instantiation).
+inline bool needs_arms(const VrTables& T) {
+  return T.hf != nullptr || T.fractional;
+}
+
+// scatter.light_factor: HG x falloff x cone x range cull of light row q.
+__device__ __forceinline__ float light_factor(
+    const float* q, float wx, float wy, float wz, float vdx, float vdy,
+    float vdz, float phg, float g2, float hg_num, float& ldx, float& ldy,
+    float& ldz, float& dist) {
+  float tx = wx - q[0], ty = wy - q[1], tz = wz - q[2];
+  float d2 = tx * tx + ty * ty + tz * tz;
+  float inv_d = rsqrt_exact(d2 + 1e-18f);
+  dist = d2 * inv_d;
+  ldx = tx * inv_d;
+  ldy = ty * inv_d;
+  ldz = tz * inv_d;
+  float rng = q[6], mult = q[7], is_spot = q[8];
+  float x = d2 / (rng * rng);
+  float fall = clampf((1.0f - x) * 5.0f, 0.0f, 1.0f) / (1.0f + 25.0f * x)
+               * mult;
+  float cos_angle = ldx * q[9] + ldy * q[10] + ldz * q[11];
+  float cos_inner = 1.0f / q[13];
+  float cone_den = fminf(q[12] - cos_inner, -1e-9f);
+  float t_cone = clampf((cos_angle - cos_inner) / cone_den, 0.0f, 1.0f);
+  float cone = 1.0f - t_cone * t_cone * (3.0f - 2.0f * t_cone);
+  float keep = cos_angle >= q[12] ? 1.0f : 0.0f;
+  fall = fall * (1.0f - is_spot + is_spot * cone * keep);
+  fall = fall * (dist <= rng ? 1.0f : 0.0f);
+  float cos_t = -(vdx * ldx + vdy * ldy + vdz * ldz);
+  float b = 1.0f + g2 - 2.0f * phg * cos_t;
+  float rb = rsqrt_exact(b);
+  return hg_num * rb * rb * rb * fall;
+}
+
+// dir_shadow.froxel_world: world position of froxel (z, y, x) at its centre,
+// jittered or not.
+__device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
+                                                    int y, int x,
+                                                    bool jittered, float& wx,
+                                                    float& wy, float& wz) {
+  const float* p = T.spar;
+  const float jx = jittered ? p[17] : 0.0f;
+  const float jy = jittered ? p[18] : 0.0f;
+  const float jz = jittered ? p[19] : 0.0f;
+  const float vz = view_z(p, (float)z + 0.5f + jz, T.d);
+  const float ys = clampf((float)y + p[23], 0.0f, (float)T.h_glob - 1.0f);
+  froxel_world(p, (float)x + 0.5f + jx, ys + 0.5f + jy, vz, T.w, T.h_glob,
+               wx, wy, wz);
+}
+
+// dir_shadow.dir_shadow_slice: sun li's visibility at a world position, one
+// any-hit ray towards the sun (the terrain always marched), squared and
+// gated by has_shadow.
+template <bool ARMS>
+__device__ __forceinline__ float sun_shadow(const VrTables& T, int li,
+                                            float wx, float wy, float wz) {
+  const float* q = T.slights + 8 * li;
+  const float strength_r = q[3], gate = q[4];
+  const float occ = any_hit<ARMS>(T, wx, wy, wz, -q[0], -q[1], -q[2], 1e4f,
+                                  true);
+  float vis = strength_r + (1.0f - strength_r) * (1.0f - occ);
+  vis = vis * vis;
+  return 1.0f + gate * (vis - 1.0f);
+}
+
+// ---- material.py: the media -----------------------------------------------
 
 __device__ __forceinline__ float smoothstep(float e0, float e1, float x) {
   float t = clampf((x - e0) / (e1 - e0), 0.0f, 1.0f);
@@ -513,8 +646,8 @@ __device__ __forceinline__ void shadow_blend_froxel(
 //       (z-lerp, x tent, y tent) at the light's channel.
 // In both loops the fBm is evaluated here. Then every sun adds colour x
 // blended[li] x HG x sigma_s at the unjittered centre (the jittered one with
-// jitter_dir).
-template <int LOCAL, bool MAT_PLANES = false>
+// jitter_dir). ARMS: the rays' any_hit instantiation.
+template <int LOCAL, bool MAT_PLANES = false, bool ARMS = false>
 __device__ void scatter_froxel(const VrTables& T,
                                const float* __restrict__ low, int z, int y,
                                int x, float wx, float wy, float wz,
@@ -565,9 +698,9 @@ __device__ void scatter_froxel(const VrTables& T,
       if constexpr (LOCAL == VR_LOCAL_BAKED) {
         shadow = upsample_low(T, low + li * lplane, z, y, x);
       } else {
-        const bool occ = any_hit(T, wx, wy, wz, -ldx, -ldy, -ldz,
-                                 dist - 0.05f);
-        shadow = 1.0f - (occ ? 1.0f : 0.0f) * q[14];
+        const float occ = any_hit<ARMS>(T, wx, wy, wz, -ldx, -ldy, -ldz,
+                                        dist - 0.05f, T.hf_local);
+        shadow = 1.0f - occ * q[14];
       }
       const float base = factor * shadow;
       ar = ar + base * q[3] * sr;

@@ -22,6 +22,16 @@
 // composite samples them at the low resolution with the co-sited weights
 // (composite_zgather_planes' w9_override) and upsamples them outside.
 //
+// The per-pixel form (vr_composite_pixels) serves every other pixel/froxel
+// ratio: the JAX package's composite_rowmm (a non-integer IH/H, 720 rows on
+// 88 at the demo grid), composite_anyres (a non-integer IW/W) and the
+// per-pixel gather of composite_impl="xla" -- XLA composites, not Pallas
+// kernels, all the same clamped trilinear in other TPU layouts (selection
+// matmuls, edge-padded rows). Per output row i and column j the host gives
+// the first tap and the two weights of f = (i + 0.5) * H / IH - 0.5, worked
+// out in float64 as rowmm does (zg_composite.pixel_taps); the taps are
+// clamped to the volume, which is the edge padding's value.
+//
 // Bound on the H100: bytes. Per 1080p frame read depth (8.3 MB) + scene
 // colour (24.9 MB) + the accumulation (66 MB), write the image (33 MB):
 // ~132 MB, ~40 us at 3.35 TB/s; at 3840x2160, 99.5 MB of scene, 33 MB of
@@ -29,6 +39,59 @@
 // no scene and writes 33 MB. Neighbouring pixels share cells, so the 8 taps
 // per channel come from L1/L2; the planes are read about once from memory.
 #include <cuda_runtime.h>
+
+// froxel.depth_to_froxel_z - 0.5 of the pixel's depth, clipped to the
+// volume: the two z taps and the lerp weight.
+__device__ __forceinline__ void depth_taps(float depth, const float* fp,
+                                           int d, int& z0, int& z1,
+                                           float& f) {
+  const float fpz = fp[0], fpw = fp[1], near_ = fp[2];
+  float fz = (float)d * logf(fmaxf((depth - near_) / fpw + 1.0f, 1e-8f))
+             / logf(fpz);
+  fz = fz - 0.5f;
+  fz = fminf(fmaxf(fz, 0.0f), (float)d - 1.0f);
+  const float z0f = floorf(fz);
+  f = fz - z0f;
+  z0 = min(max((int)z0f, 0), d - 1);
+  z1 = min(z0 + 1, d - 1);
+}
+
+// Adds wt x the (L_r, L_g, L_b, T) of froxel column (yy, xx) at slices z0
+// and z1 to s0 and s1.
+__device__ __forceinline__ void add_tap(const float* __restrict__ acc,
+                                        long n, int h, int w, int z0, int z1,
+                                        int yy, int xx, float wt, float* s0,
+                                        float* s1) {
+  const long o0 = ((long)z0 * h + yy) * w + xx;
+  const long o1 = ((long)z1 * h + yy) * w + xx;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s0[c] = s0[c] + __ldg(acc + c * n + o0) * wt;
+    s1[c] = s1[c] + __ldg(acc + c * n + o1) * wt;
+  }
+}
+
+// The z lerp, then rgb = scene * T + L, a = T packed [IH, IW, 4], or with
+// no scene the four planes [4, IH, IW].
+__device__ __forceinline__ void write_pixel(const float* s0, const float* s1,
+                                           float f,
+                                           const float* __restrict__ scene,
+                                           long idx, long np,
+                                           float* __restrict__ out) {
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = s0[c] * (1.0f - f) + s1[c] * f;
+  if (scene == nullptr) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c * np + idx] = v[c];
+    return;
+  }
+  const long o = idx * 4;
+  const long so = idx * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[o + c] = __ldg(scene + so + c) * v[3] + v[c];
+  out[o + 3] = v[3];
+}
 
 __global__ void composite_kernel(const float* __restrict__ acc,
                                  const float* __restrict__ scene,
@@ -44,17 +107,9 @@ __global__ void composite_kernel(const float* __restrict__ acc,
   const int py = ih / h, px = iw / w, cp = py * px;
   const int cy = i / py, cx = j / px;
   const int cell = (i % py) * px + (j % px);
-  const float fpz = fp[0], fpw = fp[1], near_ = fp[2];
-
-  // froxel.depth_to_froxel_z - 0.5, clipped to the volume
-  float fz = (float)d * logf(fmaxf((__ldg(depth + idx) - near_) / fpw + 1.0f,
-                                   1e-8f)) / logf(fpz);
-  fz = fz - 0.5f;
-  fz = fminf(fmaxf(fz, 0.0f), (float)d - 1.0f);
-  const float z0f = floorf(fz);
-  const float f = fz - z0f;
-  const int z0 = min(max((int)z0f, 0), d - 1);
-  const int z1 = min(z0 + 1, d - 1);
+  int z0, z1;
+  float f;
+  depth_taps(__ldg(depth + idx), fp, d, z0, z1, f);
 
   const long n = (long)d * h * w;
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
@@ -64,29 +119,42 @@ __global__ void composite_kernel(const float* __restrict__ acc,
       const float wt = __ldg(w9 + (dy * 3 + dx) * cp + cell);
       if (wt == 0.0f) continue;  // adds exactly 0 in the reference
       const int xx = min(max(cx + dx - 1, 0), w - 1);
-      const long o0 = ((long)z0 * h + yy) * w + xx;
-      const long o1 = ((long)z1 * h + yy) * w + xx;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s0[c] = s0[c] + __ldg(acc + c * n + o0) * wt;
-        s1[c] = s1[c] + __ldg(acc + c * n + o1) * wt;
-      }
+      add_tap(acc, n, h, w, z0, z1, yy, xx, wt, s0, s1);
     }
   }
-  float v[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) v[c] = s0[c] * (1.0f - f) + s1[c] * f;
-  if (scene == nullptr) {
-    const long np = (long)ih * iw;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c * np + idx] = v[c];
-    return;
+  write_pixel(s0, s1, f, scene, idx, (long)ih * iw, out);
+}
+
+// The per-pixel form: row i's taps yk[i], yk[i] + 1 with weights
+// (yw[i], yw[IH + i]), column j's likewise from xk, xw; y outer, x inner.
+__global__ void composite_pixels_kernel(
+    const float* __restrict__ acc, const float* __restrict__ scene,
+    const float* __restrict__ depth, const int* __restrict__ yk,
+    const float* __restrict__ yw, const int* __restrict__ xk,
+    const float* __restrict__ xw, const float* __restrict__ fp, int w, int h,
+    int d, int ih, int iw, float* __restrict__ out) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ih * iw) return;
+  const int j = idx % iw;
+  const int i = idx / iw;
+  int z0, z1;
+  float f;
+  depth_taps(__ldg(depth + idx), fp, d, z0, z1, f);
+
+  const long n = (long)d * h * w;
+  const int ky = __ldg(yk + i), kx = __ldg(xk + j);
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int a = 0; a < 2; ++a) {
+    const float wy = __ldg(yw + a * ih + i);
+    const int yy = min(max(ky + a, 0), h - 1);
+    for (int b = 0; b < 2; ++b) {
+      const float wt = wy * __ldg(xw + b * iw + j);
+      if (wt == 0.0f) continue;  // adds exactly 0 in the reference
+      const int xx = min(max(kx + b, 0), w - 1);
+      add_tap(acc, n, h, w, z0, z1, yy, xx, wt, s0, s1);
+    }
   }
-  const long o = (long)idx * 4;
-  const long so = (long)idx * 3;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[o + c] = __ldg(scene + so + c) * v[3] + v[c];
-  out[o + 3] = v[3];
+  write_pixel(s0, s1, f, scene, idx, (long)ih * iw, out);
 }
 
 extern "C" int vr_composite(const float* acc, const float* scene,
@@ -97,5 +165,18 @@ extern "C" int vr_composite(const float* acc, const float* scene,
   const int block = 256;
   composite_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
       acc, scene, depth, w9, fp, w, h, d, ih, iw, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vr_composite_pixels(const float* acc, const float* scene,
+                                   const float* depth, const int* yk,
+                                   const float* yw, const int* xk,
+                                   const float* xw, const float* fp, int w,
+                                   int h, int d, int ih, int iw, float* out,
+                                   cudaStream_t stream) {
+  const int n = ih * iw;
+  const int block = 256;
+  composite_pixels_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
+      acc, scene, depth, yk, yw, xk, xw, fp, w, h, d, ih, iw, out);
   return (int)cudaGetLastError();
 }

@@ -24,11 +24,16 @@
 // function shadow_scatter.cu calls with the blended shadow in registers;
 // this kernel reads the blended shadow volume [Nd, D, H, W] from memory
 // instead. The source and the material are template parameters, so each of
-// the six kernels carries only its own branch. The sun term is unjittered
-// unless jitter_dir. The per-light sum adds the slice's active lights in
-// ascending index, as the TPU loop does; the schedule is per slice, so a
-// warp (32 neighbours in x) runs one loop length and diverges only inside
-// any_hit's early exits.
+// the six kernels carries only its own branch; the ray loop has a seventh
+// and eighth form with the any-hit's terrain and fractional arms
+// (common.cuh any_hit<ARMS>), launched only for a scene that has them. The
+// sun term is unjittered unless jitter_dir. The per-light sum adds the
+// slice's active lights in ascending index, as the TPU loop does; the
+// schedule is per slice, so a warp (32 neighbours in x) runs one loop
+// length and diverges only inside any_hit's early exits.
+//
+// The per-light rays march the terrain under heightfield_local_shadows and
+// carry occlusion amounts with fractional boxes (common.cuh any_hit).
 //
 // Writes the scatter planes [4, D, H, W] (r, g, b, ext), or [3, D, H, W]
 // with material volumes.
@@ -44,7 +49,7 @@
 // Perlin octaves per noise medium (~1000 flops): several GFLOP.
 #include "common.cuh"
 
-template <int LOCAL, bool MAT_PLANES>
+template <int LOCAL, bool MAT_PLANES, bool ARMS>
 __global__ void scatter_kernel(VrTables T, const float* __restrict__ shadow,
                                const float* __restrict__ low,
                                const float* __restrict__ mat_a,
@@ -64,10 +69,28 @@ __global__ void scatter_kernel(VrTables T, const float* __restrict__ shadow,
   for (int li = 0; li < T.n_dir; ++li)
     blended[li] = __ldg(shadow + li * n + i);
   float sc[4];
-  scatter_froxel<LOCAL, MAT_PLANES>(T, low, z, y, x, wx, wy, wz, blended, sc,
-                                    mat_a, mat_b);
+  scatter_froxel<LOCAL, MAT_PLANES, ARMS>(T, low, z, y, x, wx, wy, wz,
+                                          blended, sc, mat_a, mat_b);
 #pragma unroll
   for (int c = 0; c < (MAT_PLANES ? 3 : 4); ++c) out_sc[c * n + i] = sc[c];
+}
+
+template <int LOCAL, bool MAT_PLANES>
+static void launch_scatter_kernel(const VrTables* T, const float* shadow,
+                           const float* low, const float* mat_a,
+                           const float* mat_b, float* out_sc,
+                           cudaStream_t stream) {
+  const long n = (long)T->d * T->h * T->w;
+  const int block = 128;
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  // only the ray loop casts rays: the arms matter to it alone
+  constexpr bool RAYS = LOCAL == VR_LOCAL_RAY;
+  if (RAYS && needs_arms(*T))
+    scatter_kernel<LOCAL, MAT_PLANES, RAYS><<<grid, block, 0, stream>>>(
+        *T, shadow, low, mat_a, mat_b, out_sc);
+  else
+    scatter_kernel<LOCAL, MAT_PLANES, false><<<grid, block, 0, stream>>>(
+        *T, shadow, low, mat_a, mat_b, out_sc);
 }
 
 template <int LOCAL>
@@ -75,15 +98,12 @@ static void launch_scatter(const VrTables* T, const float* shadow,
                            const float* low, const float* mat_a,
                            const float* mat_b, float* out_sc,
                            cudaStream_t stream) {
-  const long n = (long)T->d * T->h * T->w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
   if (mat_a)
-    scatter_kernel<LOCAL, true><<<grid, block, 0, stream>>>(
-        *T, shadow, low, mat_a, mat_b, out_sc);
+    launch_scatter_kernel<LOCAL, true>(T, shadow, low, mat_a, mat_b, out_sc,
+                                       stream);
   else
-    scatter_kernel<LOCAL, false><<<grid, block, 0, stream>>>(
-        *T, shadow, low, mat_a, mat_b, out_sc);
+    launch_scatter_kernel<LOCAL, false>(T, shadow, low, mat_a, mat_b,
+                                        out_sc, stream);
 }
 
 // local: VR_LOCAL_*; low: the radiance or visibility volume (null for

@@ -24,8 +24,11 @@
 // flops, ~1.2 GFLOP, ~20 us at the fp32 rate. The warp recomputes the
 // analytic offsets at the 6 neighbour columns instead of staging an offset
 // volume, which trades flops (each a log and two divides) for bytes.
+// Every sun ray marches the terrain where the scene has one, as in
+// dir_shadow.cu.
 #include "common.cuh"
 
+template <bool ARMS>
 __global__ void shadow_blend_kernel(VrTables T,
                                     const float* __restrict__ prev_sh,
                                     float* __restrict__ out_sh) {
@@ -40,7 +43,8 @@ __global__ void shadow_blend_kernel(VrTables T,
   float wx, wy, wz;
   froxel_center_world(T, z, y, x, true, wx, wy, wz);
   float cur[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li) cur[li] = sun_shadow(T, li, wx, wy, wz);
+  for (int li = 0; li < T.n_dir; ++li)
+    cur[li] = sun_shadow<ARMS>(T, li, wx, wy, wz);
   float blended[VR_MAX_DIR];
   shadow_blend_froxel(T, prev_sh, n, z, y, x, cur, blended);
   for (int li = 0; li < T.n_dir; ++li) out_sh[li * n + i] = blended[li];
@@ -50,7 +54,12 @@ extern "C" int vr_shadow_blend(const VrTables* T, const float* prev_sh,
                                float* out_sh, cudaStream_t stream) {
   const long n = (long)T->d * T->h * T->w;
   const int block = 128;
-  shadow_blend_kernel<<<(unsigned)((n + block - 1) / block), block, 0,
-                        stream>>>(*T, prev_sh, out_sh);
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  if (needs_arms(*T))
+    shadow_blend_kernel<true><<<grid, block, 0, stream>>>(*T, prev_sh,
+                                                          out_sh);
+  else
+    shadow_blend_kernel<false><<<grid, block, 0, stream>>>(*T, prev_sh,
+                                                           out_sh);
   return (int)cudaGetLastError();
 }

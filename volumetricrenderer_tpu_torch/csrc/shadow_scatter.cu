@@ -45,10 +45,15 @@
 // media (no baked noise channel): the bound of K5 plus that of K6 in the
 // same mode. The 8-tap warp recomputes the analytic offsets at the
 // neighbour columns instead of staging an offset volume, trading flops for
-// bytes.
+// bytes. On a scene with the procedural terrain the sun rays march it
+// (dir_shadow.cu), and the local rays too with heightfield_local_shadows;
+// fractional boxes make every shadow term an occlusion amount. Both arms
+// live in the kernel's ARMS instantiation (common.cuh any_hit), launched
+// only for a scene that has them, so a scene without them keeps its
+// registers and its time.
 #include "common.cuh"
 
-template <int LOCAL>
+template <int LOCAL, bool ARMS>
 __global__ void shadow_scatter_kernel(VrTables T,
                                       const float* __restrict__ prev_sh,
                                       const float* __restrict__ low,
@@ -66,7 +71,8 @@ __global__ void shadow_scatter_kernel(VrTables T,
   float wx, wy, wz;
   froxel_center_world(T, z, y, x, true, wx, wy, wz);
   float cur[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li) cur[li] = sun_shadow(T, li, wx, wy, wz);
+  for (int li = 0; li < T.n_dir; ++li)
+    cur[li] = sun_shadow<ARMS>(T, li, wx, wy, wz);
 
   // 2. shadow blend (weight mode)
   float blended[VR_MAX_DIR];
@@ -75,9 +81,25 @@ __global__ void shadow_scatter_kernel(VrTables T,
 
   // 3. scatter_slice (material fused, dir lights folded)
   float sc[4];
-  scatter_froxel<LOCAL>(T, low, z, y, x, wx, wy, wz, blended, sc);
+  scatter_froxel<LOCAL, false, ARMS>(T, low, z, y, x, wx, wy, wz, blended,
+                                     sc);
 #pragma unroll
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
+}
+
+template <int LOCAL>
+static void launch_shadow_scatter(const VrTables* T, const float* prev_sh,
+                                  const float* low, float* out_sh,
+                                  float* out_sc, cudaStream_t stream) {
+  const long n = (long)T->d * T->h * T->w;
+  const int block = 128;
+  const unsigned grid = (unsigned)((n + block - 1) / block);
+  if (needs_arms(*T))
+    shadow_scatter_kernel<LOCAL, true><<<grid, block, 0, stream>>>(
+        *T, prev_sh, low, out_sh, out_sc);
+  else
+    shadow_scatter_kernel<LOCAL, false><<<grid, block, 0, stream>>>(
+        *T, prev_sh, low, out_sh, out_sc);
 }
 
 // local: VR_LOCAL_*; low: the radiance (+ fBm) volume [3 + n_noise, DL,
@@ -89,21 +111,18 @@ extern "C" int vr_shadow_scatter(const VrTables* T, const float* prev_sh,
                                  cudaStream_t stream) {
   if ((local == VR_LOCAL_RAY) != (low == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long n = (long)T->d * T->h * T->w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
   switch (local) {
     case VR_LOCAL_RADIANCE:
-      shadow_scatter_kernel<VR_LOCAL_RADIANCE><<<grid, block, 0, stream>>>(
-          *T, prev_sh, low, out_sh, out_sc);
+      launch_shadow_scatter<VR_LOCAL_RADIANCE>(T, prev_sh, low, out_sh,
+                                               out_sc, stream);
       break;
     case VR_LOCAL_RAY:
-      shadow_scatter_kernel<VR_LOCAL_RAY><<<grid, block, 0, stream>>>(
-          *T, prev_sh, low, out_sh, out_sc);
+      launch_shadow_scatter<VR_LOCAL_RAY>(T, prev_sh, low, out_sh, out_sc,
+                                          stream);
       break;
     case VR_LOCAL_BAKED:
-      shadow_scatter_kernel<VR_LOCAL_BAKED><<<grid, block, 0, stream>>>(
-          *T, prev_sh, low, out_sh, out_sc);
+      launch_shadow_scatter<VR_LOCAL_BAKED>(T, prev_sh, low, out_sh, out_sc,
+                                            stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""Scene container and the benchmark scene preset
-(`volumetricrenderer_tpu/models/scene.py`)."""
+"""Scene container and the scene presets
+(`volumetricrenderer_tpu/models/scene.py`): the reference demo scene and
+the benchmark scene."""
 
 from __future__ import annotations
 
@@ -73,6 +74,64 @@ def _euler_forward(pitch_deg: float, yaw_deg: float
     p = math.radians(pitch_deg)
     y = math.radians(yaw_deg)
     return (math.cos(p) * math.sin(y), -math.sin(p), math.cos(p) * math.cos(y))
+
+
+def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
+               noise_tex=None, mesh_env: bool = False,
+               device="cuda") -> Scene:
+    """The reference demo scene (Unity's VolumetricRenderer.unity): the
+    camera at (-0.4, 1.9, -15.8) looking +z, the sun at euler (50, -30)
+    with a volumetric shadow, one red spot light, constant white fog, and
+    the environment prefab as analytic primitives (ground plane, three
+    cubes, a sphere, three trees as canopy sphere + trunk box) over a
+    procedural heightfield (amp 2.0, base -0.3). The fog carries no noise
+    texture; texture noise (with_noise) and the reference's tree meshes
+    (mesh_env) are not ported (ROADMAP A7, A13)."""
+    if with_noise:
+        raise NotImplementedError("demo_scene(with_noise=True): texture "
+                                  "noise is not ported (ROADMAP A7)")
+    if mesh_env:
+        raise NotImplementedError("demo_scene(mesh_env=True): mesh "
+                                  "environments are not ported (ROADMAP "
+                                  "A13)")
+    del noise_tex
+    camera = Camera.create(position=(-0.4, 1.9, -15.8),
+                           forward=(0.0, 0.0, 1.0), fov_y_deg=60.0,
+                           aspect=aspect, near=0.3, far=100.0, device=device)
+    sun = DirectionalLights.create(
+        direction=[_euler_forward(50.0, -30.0)], color=[(0.99, 0.96, 0.80)],
+        intensity=[2.5], has_shadow=[True], shadow_strength=[1.0],
+        device=device)
+    spot = SpotLights.create(
+        position=[(-16.08, 5.0, 17.61)],
+        direction=[_euler_forward(29.709, -251.452)],
+        color=[(1.0, 0.0, 0.0)], intensity=[6.0], range=[34.42],
+        spot_angle_deg=[66.0], inner_angle_percent=[0.5],
+        intensity_multiplier=[1.0], has_shadow=[True],
+        shadow_strength=[1.0], device=device)
+    point = PointLights.create(np.zeros((0, 3)), np.zeros((0, 3)), [], [],
+                               device=device)
+    fog = Medium.create(
+        scattering_color=(1.0, 1.0, 1.0), absorption=0.19, phase_g=0.3,
+        noise_scroll=(10.0, 0.0, 0.0), noise_tiling=(0.01, 0.01, 0.01),
+        device=device)
+    trees = [(-9.0, 18.0), (7.0, 9.0), (-14.0, 25.0)]
+    geometry = Geometry.create(
+        planes=[((0.0, 1.0, 0.0), 0.0, (0.22, 0.26, 0.18))],
+        spheres=[((4.0, 1.5, 6.0), 1.5, (0.6, 0.55, 0.5))]
+        + [((x, 3.2, z), 1.6, (0.18, 0.32, 0.12)) for x, z in trees],
+        boxes=[((-6.0, 0.0, 2.0), (-4.0, 2.0, 4.0), (0.5, 0.45, 0.4)),
+               ((2.0, 0.0, 14.0), (5.0, 4.0, 17.0), (0.45, 0.5, 0.45)),
+               ((-12.0, 0.0, 10.0), (-10.0, 6.0, 12.0), (0.35, 0.4, 0.3))]
+        + [((x - 0.25, 0.0, z - 0.25), (x + 0.25, 2.4, z + 0.25),
+            (0.3, 0.2, 0.12)) for x, z in trees],
+        heightfield=dict(amp=2.0, base=-0.3, tiling=(0.03, 0.03),
+                         offset=(0.0, 0.0), albedo=(0.24, 0.28, 0.18)),
+        device=device)
+    return Scene(camera=camera, dir_lights=sun, point_lights=point,
+                 spot_lights=spot, media=(fog,), geometry=geometry,
+                 ambient=torch.tensor((0.08, 0.09, 0.11), dtype=torch.float32,
+                                      device=device))
 
 
 def benchmark_scene(aspect: float = 16.0 / 9.0, num_local_lights: int = 16,

@@ -48,11 +48,13 @@ class VrTables(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "spar", "sbpar", "abpar", "slights", "dirs", "lights", "planes",
         "spheres", "boxes", "med", "med_static", "active", "tent_xk",
-        "tent_xw", "tent_yk", "tent_yw", "order", "count")]
+        "tent_xw", "tent_yk", "tent_yw", "order", "count", "hf")]
         + [(n, ctypes.c_int) for n in (
             "n_dir", "n_lights", "n_planes", "n_spheres", "n_boxes",
             "n_media", "n_noise", "jitter_dir", "w", "h", "d", "h_glob", "k",
-            "ss", "wl", "hl", "dl")])
+            "ss", "wl", "hl", "dl", "hf_octaves", "hf_period", "hf_seed",
+            "hf_steps", "hf_local", "fractional")]
+        + [("hf_far", ctypes.c_float)])
 
 
 def _nvcc() -> str:
@@ -120,36 +122,39 @@ def lib(name: str) -> ctypes.CDLL:
 def _declare(cdll: ctypes.CDLL, name: str) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tp = ctypes.POINTER(VrTables)
+    # source -> {entry point: argument types before the stream}
     sig = {
-        "bake_radiance": ("vr_bake_radiance", [tp, vp, vp]),
-        "shadow_scatter": ("vr_shadow_scatter",
-                           [tp, vp, vp, vp, vp, ci, vp]),
-        "integrate_blend": ("vr_integrate_blend", [tp, vp, vp, vp, vp]),
-        "composite": ("vr_composite",
-                      [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]),
-        "shadow_blend": ("vr_shadow_blend", [tp, vp, vp, vp]),
-        "scatter": ("vr_scatter", [tp, vp, vp, vp, vp, vp, ci, vp]),
-        "dir_shadow": ("vr_dir_shadow", [tp, vp, vp]),
-        "integrate": ("vr_integrate", [tp, vp, vp, vp]),
-        "bake_visibility": ("vr_bake_visibility", [tp, vp, vp]),
-        "temporal_blend": ("vr_temporal_blend",
-                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]),
-        "windowed_warp": ("vr_windowed_warp",
-                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]),
-        "pcf_shadow": ("vr_pcf_shadow",
-                       [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]),
-        "ssr_march": ("vr_ssr_march",
-                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6),
+        "bake_radiance": {"vr_bake_radiance": [tp, vp]},
+        "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci]},
+        "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
+        "composite": {
+            "vr_composite": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+            "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
+        "shadow_blend": {"vr_shadow_blend": [tp, vp, vp]},
+        "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci]},
+        "dir_shadow": {"vr_dir_shadow": [tp, vp]},
+        "integrate": {"vr_integrate": [tp, vp, vp]},
+        "bake_visibility": {"vr_bake_visibility": [tp, vp]},
+        "temporal_blend": {"vr_temporal_blend":
+                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci]},
+        "windowed_warp": {"vr_windowed_warp":
+                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci]},
+        "pcf_shadow": {"vr_pcf_shadow":
+                       [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci]},
+        "ssr_march": {"vr_ssr_march":
+                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5},
     }[name]
-    fn = getattr(cdll, sig[0])
-    fn.argtypes = sig[1]
-    fn.restype = ctypes.c_int
+    for entry, argtypes in sig.items():
+        fn = getattr(cdll, entry)
+        fn.argtypes = argtypes + [vp]
+        fn.restype = ctypes.c_int
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream and count it; raises if
+def launch(name: str, *args, entry: str = "") -> None:
+    """Launch kernel `name` (its entry point `vr_<name>`, or `entry` of the
+    same source) on the current stream and count it under `name`; raises if
     the launch was refused."""
-    fn = getattr(lib(name), "vr_" + name)
+    fn = getattr(lib(name), entry or "vr_" + name)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:

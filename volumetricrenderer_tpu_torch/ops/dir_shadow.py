@@ -55,8 +55,11 @@ def froxel_world(par, zi, grid_whd: Tuple[int, int, int], h_glob: int,
 def dir_shadow_slice(par, lights, planes, spheres, boxes, zi, *,
                      grid_whd: Tuple[int, int, int], n_lights: int,
                      n_planes: int, n_spheres: int, n_boxes: int,
-                     max_dist: float, h_glob: int):
-    """Gated visibility^2 planes, one per dir light, at slice(s) zi."""
+                     max_dist: float, h_glob: int, hf=None, hf_static=None,
+                     fractional: bool = False):
+    """Gated visibility^2 planes, one per dir light, at slice(s) zi; the
+    terrain (hf, hf_static) and the fractional any-hit as in
+    ops/occlude.any_hit."""
     wx, wy, wz = froxel_world(par, zi, grid_whd, h_glob)
     out = []
     for li in range(n_lights):
@@ -64,7 +67,8 @@ def dir_shadow_slice(par, lights, planes, spheres, boxes, zi, *,
         strength_r, gate = q(3), q(4)
         occ = any_hit(planes, spheres, boxes, wx, wy, wz, -q(0), -q(1),
                       -q(2), max_dist, n_planes=n_planes,
-                      n_spheres=n_spheres, n_boxes=n_boxes)
+                      n_spheres=n_spheres, n_boxes=n_boxes, hf=hf,
+                      hf_static=hf_static, fractional=fractional)
         vis = strength_r + (1.0 - strength_r) * (1.0 - occ.to(torch.float32))
         vis = vis * vis
         out.append(1.0 + gate * (vis - 1.0))
@@ -81,9 +85,8 @@ def dir_shadow_plain(t) -> torch.Tensor:
     zs = torch.arange(t.grid_whd[2], device=t.spar.device)[:, None, None]
     return torch.stack(dir_shadow_slice(
         t.spar, t.slights, t.planes, t.spheres, t.boxes, zs,
-        grid_whd=t.grid_whd, n_lights=t.n_dir, n_planes=t.n_planes,
-        n_spheres=t.n_spheres, n_boxes=t.n_boxes, max_dist=1e4,
-        h_glob=t.h_glob))
+        grid_whd=t.grid_whd, n_lights=t.n_dir, max_dist=1e4,
+        h_glob=t.h_glob, **t.occluders(local=False)))
 
 
 def dir_shadow(t) -> torch.Tensor:

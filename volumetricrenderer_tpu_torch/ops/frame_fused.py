@@ -33,7 +33,9 @@ import torch
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops import dir_shadow as dir_shadow_lib
 from volumetricrenderer_tpu_torch.ops.integrate import accumulate_plain
-from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
+from volumetricrenderer_tpu_torch.ops.material import (heightfield_static,
+                                                       noise_factor_planes,
+                                                       pack_heightfield,
                                                        pack_media,
                                                        phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import pack_boxes
@@ -85,6 +87,7 @@ class FrameTables:
     tent_y: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (k0 [H], w [2, H])
     order: Optional[torch.Tensor]       # [D, NL] int32 (slice_light_order)
     count: Optional[torch.Tensor]       # [D] int32
+    hf: Optional[torch.Tensor]          # [1, 6] pack_heightfield (terrain)
     jitter: np.ndarray        # [3] float32, host copy
     media_static: tuple
     grid_whd: Tuple[int, int, int]
@@ -97,6 +100,13 @@ class FrameTables:
     n_boxes: int
     n_noise: int
     jitter_dir: bool
+    # the terrain march: (octaves, period, seed, steps, far) where the
+    # geometry has a heightfield, else None; hf_local: local-light rays
+    # march it too (heightfield_local_shadows); fractional: box opacity
+    # below 1 somewhere (the any-hit returns an occlusion amount)
+    hf_static: Optional[tuple] = None
+    hf_local: bool = False
+    fractional: bool = False
 
     @property
     def low_dims(self):
@@ -114,6 +124,16 @@ class FrameTables:
             return "ray"
         return "radiance" if self.order is None else "baked"
 
+    def occluders(self, local: bool) -> dict:
+        """The any-hit twin's keyword arguments (ops/occlude.any_hit) for a
+        sun ray (local False: the terrain whenever there is one) or a
+        local-light ray (the terrain only with hf_local)."""
+        march = self.hf_static is not None and (self.hf_local or not local)
+        return dict(n_planes=self.n_planes, n_spheres=self.n_spheres,
+                    n_boxes=self.n_boxes, hf=self.hf,
+                    hf_static=self.hf_static if march else None,
+                    fractional=self.fractional)
+
     def to(self, device) -> "FrameTables":
         """The same tables on `device` (cuda.move_tables: one float32 and
         one int32 buffer, copied once)."""
@@ -127,15 +147,17 @@ class FrameTables:
         rows = lambda t: 0 if t is None else t.shape[0]
         tent_x = self.tent_x or (None, None)
         tent_y = self.tent_y or (None, None)
+        hs = self.hf_static or (0, 0, 0, 0, 0.0)
         return cuda.VrTables(
             p(self.spar), p(self.sbpar), p(self.abpar), p(self.slights),
             p(self.dirs), p(self.lights), p(self.planes), p(self.spheres),
             p(self.boxes), p(self.med), p(self.med_static), p(self.active),
             p(tent_x[0]), p(tent_x[1]), p(tent_y[0]), p(tent_y[1]),
-            p(self.order), p(self.count), self.n_dir, rows(self.lights),
-            self.n_planes, self.n_spheres, self.n_boxes, rows(self.med),
-            self.n_noise, int(self.jitter_dir), w, h, d, self.h_glob, self.k,
-            self.ss, wl, hl, dl)
+            p(self.order), p(self.count), p(self.hf), self.n_dir,
+            rows(self.lights), self.n_planes, self.n_spheres, self.n_boxes,
+            rows(self.med), self.n_noise, int(self.jitter_dir), w, h, d,
+            self.h_glob, self.k, self.ss, wl, hl, dl, *hs[:4],
+            int(self.hf_local), int(self.fractional), hs[4])
 
 
 @functools.lru_cache(maxsize=16)
@@ -148,7 +170,8 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                  time_x, camera_pos, grid_whd: Tuple[int, int, int], k: int,
                  vis_ss: int, bake_noise: bool,
                  jitter_dir: bool = False,
-                 light_schedule: Optional[bool] = None) -> FrameTables:
+                 light_schedule: Optional[bool] = None,
+                 heightfield_local: bool = False) -> FrameTables:
     """Pack every table of one frame: plain torch on the CPU, where the
     scene description must lie (FrameTables.to moves the result).
 
@@ -158,7 +181,10 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
     vis_ss = 1, and the per-light scatter over the baked visibility asks for
     it beside the low grid. A scene part passed as None (dir_lights, the
     local lights, geometry, media) leaves its tables None: the
-    single-kernel wrappers pack only what their kernel reads."""
+    single-kernel wrappers pack only what their kernel reads. A geometry's
+    heightfield packs the terrain row, which every sun ray marches and the
+    local-light rays only with heightfield_local (the config's
+    heightfield_local_shadows)."""
     w, h, d = grid_whd
     if view_to_world.device.type != "cpu":
         raise ValueError("frame tables are packed on the host: pass the "
@@ -178,9 +204,14 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
     abpar = torch.cat([abpar, torch.tensor([[jit[0], jit[1], jit[2], 0.0]],
                                            dtype=torch.float32)], dim=1)
 
-    planes = spheres = boxes = None
+    planes = spheres = boxes = hf = hf_static = None
     n_planes = n_spheres = n_boxes = 0
+    fractional = False
     if geometry is not None:
+        fractional = bool(geometry.box_fractional)
+        if geometry.hf_enabled:
+            hf = pack_heightfield(geometry).contiguous()
+            hf_static = heightfield_static(geometry)
         planes = torch.cat([geometry.plane_normal, geometry.plane_d[:, None]],
                            dim=-1)
         spheres = torch.cat([geometry.sphere_center,
@@ -241,10 +272,12 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
         dirs=pack_dir_lights(dir_lights).contiguous() if nd else None,
         lights=lights, planes=planes, spheres=spheres, boxes=boxes, med=med,
         med_static=med_static, active=active, tent_x=tent_x, tent_y=tent_y,
-        order=order, count=count, jitter=jit, media_static=media_static,
+        order=order, count=count, hf=hf, jitter=jit,
+        media_static=media_static,
         grid_whd=grid_whd, h_glob=params.grid[1], k=k, ss=vis_ss, n_dir=nd,
         n_planes=n_planes, n_spheres=n_spheres, n_boxes=n_boxes,
-        n_noise=n_noise, jitter_dir=jitter_dir)
+        n_noise=n_noise, jitter_dir=jitter_dir, hf_static=hf_static,
+        hf_local=bool(heightfield_local), fractional=fractional)
 
 
 # --------------------------------------------------------------------------
@@ -265,8 +298,7 @@ def bake_radiance_plain(t: FrameTables) -> torch.Tensor:
     for li in range(t.lights.shape[0]):
         rgb = bake_radiance_plane(t.lights, li, wx, wy, wz, vdx, vdy, vdz,
                                   phg, g2, hg_num, t.planes, t.spheres,
-                                  t.boxes, n_planes=t.n_planes,
-                                  n_spheres=t.n_spheres, n_boxes=t.n_boxes)
+                                  t.boxes, **t.occluders(local=True))
         act = t.active[li].bool()[:, None, None]
         acc = [torch.where(act, a + c, a) for a, c in zip(acc, rgb)]
     noise = noise_factor_planes(t.med, t.media_static, wx, wy, wz) \
@@ -383,21 +415,24 @@ def frame_volume_fused(params, view_to_world, prev_world_to_view, jitter,
                        vis_ss: int = 2, vis_radiance: bool = False,
                        bake_noise: bool = False,
                        inline_vis_bake: bool = False,
-                       jitter_dir: bool = False):
+                       jitter_dir: bool = False,
+                       heightfield_shadows: bool = False):
     """The whole volume phase with the JAX function's arguments: the host
     prep (frame_tables, scene description on the CPU), its tables moved to
     the histories' device, then volume_phase. As there, inline_vis_bake
     bakes the local lights at vis_ss -- their radiance (+ fBm with
     bake_noise) with vis_radiance, else their visibility -- and without it
     each froxel casts one shadow ray per light (the volume passed as `vis`
-    in JAX is not taken: the port bakes it here)."""
+    in JAX is not taken: the port bakes it here). heightfield_shadows: the
+    local-light rays march the terrain too (the sun's always do)."""
     radiance = bool(inline_vis_bake and vis_radiance)
     tables = frame_tables(params, view_to_world, prev_world_to_view, jitter,
                           alpha, dir_lights, point_lights, spot_lights,
                           geometry, media, time_x, camera_pos, grid_whd, k,
                           vis_ss if inline_vis_bake else 1,
                           bake_noise and radiance, jitter_dir,
-                          light_schedule=not radiance)
+                          light_schedule=not radiance,
+                          heightfield_local=heightfield_shadows)
     if prev_shadow.device.type != "cpu":
         tables = tables.to(prev_shadow.device)
     return volume_phase(tables, prev_shadow, prev_acc)

@@ -219,3 +219,79 @@ def material_planes(med, media_static: tuple, wx, wy, wz, noise_planes=None):
             sa = sa * inv + a_a * mask
             g = g * inv + q(4) * mask
     return sr, sg, sb, sa, g
+
+
+def pack_heightfield(geom) -> torch.Tensor:
+    """[1, 6] row: amp, base, tiling (2), offset (2)."""
+    return torch.cat([geom.hf_amp[None], geom.hf_base[None], geom.hf_tiling,
+                      geom.hf_offset])[None].to(torch.float32)
+
+
+def heightfield_static(geom) -> tuple:
+    """(octaves, period, seed, steps, far) of the terrain march."""
+    return (geom.hf_octaves, geom.hf_period, geom.hf_seed, geom.hf_steps,
+            geom.hf_far)
+
+
+def heightfield_band(hf, hf_static: tuple, wy, ldy, max_t):
+    """The march interval (lo, hi) of rays from height wy along unit
+    directions of y component ldy: where they cross the terrain's height
+    band [base, base + amp], clamped to [1e-4, min(max_t, far)]; empty
+    (hi <= lo) where they cannot cross it. Tensors of the broadcast shape
+    of wy and ldy."""
+    far = hf_static[4]
+    amp = hf[0, 0]
+    base = hf[0, 1]
+    hmax = base + amp
+    eps = 1e-4
+    shape = torch.broadcast_shapes(wy.shape, torch.as_tensor(ldy).shape)
+    wy = wy.expand(shape)
+    ldy = torch.as_tensor(ldy, device=wy.device).expand(shape)
+    cap = torch.clamp(torch.as_tensor(max_t, dtype=torch.float32,
+                                      device=wy.device),
+                      max=float(np.float32(far))).expand(shape)
+    horiz = ldy.abs() < 1e-7
+    safe = torch.where(horiz, torch.full_like(ldy, 1e-7), ldy)
+    ta = (hmax - wy) / safe
+    tb = (base - wy) / safe
+    in_band = (wy >= base) & (wy <= hmax)
+    epsv = torch.full_like(wy, eps)
+    lo = torch.where(horiz, torch.where(in_band, epsv, cap),
+                     torch.minimum(ta, tb))
+    hi = torch.where(horiz, torch.where(in_band, cap, torch.zeros_like(wy)),
+                     torch.maximum(ta, tb))
+    lo = torch.minimum(torch.maximum(lo, epsv), cap)
+    hi = torch.minimum(torch.maximum(hi, epsv), cap)
+    return lo, hi
+
+
+def heightfield_below(hf, hf_static: tuple, lo, hi, i: int, wx, wy, wz, ldx,
+                      ldy, ldz):
+    """bool: is march sample i of `steps`, at the midpoint t = lo + (hi -
+    lo) * (i + 0.5) / steps, below the terrain?"""
+    octaves, period, seed, steps, _ = hf_static
+    t = lo + (hi - lo) * ((i + 0.5) / steps)
+    px = wx + t * ldx
+    py = wy + t * ldy
+    pz = wz + t * ldz
+    u = px * hf[0, 2] + hf[0, 4]
+    v = pz * hf[0, 3] + hf[0, 5]
+    h = hf[0, 1] + hf[0, 0] * perlin_planes(u, v, torch.zeros_like(u),
+                                            octaves, period, seed)
+    return py < h
+
+
+def heightfield_occluded(hf, hf_static: tuple, wx, wy, wz, ldx, ldy, ldz,
+                         max_t):
+    """bool: does the ray (w, unit ld) cross below the terrain at one of
+    `steps` midpoint samples of its band (heightfield_band)? hf [1, 6]
+    (pack_heightfield), hf_static (octaves, period, seed, steps, far); ld*
+    tensors or scalars broadcasting against w*. The march of
+    ops/raycast.occluded's terrain arm and of csrc/common.cuh
+    `heightfield_occluded`."""
+    lo, hi = heightfield_band(hf, hf_static, wy, ldy, max_t)
+    occ = torch.zeros(lo.shape, dtype=torch.bool, device=lo.device)
+    for i in range(hf_static[3]):
+        occ |= heightfield_below(hf, hf_static, lo, hi, i, wx, wy, wz, ldx,
+                                 ldy, ldz)
+    return occ & (hi > lo)

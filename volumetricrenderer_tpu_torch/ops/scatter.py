@@ -176,7 +176,8 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
     Local lights, radiance mode: radiance_planes is the upsampled low-rate
     radiance (rgb). Per-light mode (radiance_planes None): `local` is
     (lights [NL, 16], active [NL] planes or scalars broadcasting against the
-    slice(s), planes, spheres, boxes, n_planes, n_spheres, n_boxes, vis);
+    slice(s), planes, spheres, boxes, the any-hit's keyword arguments
+    (FrameTables.occluders), vis);
     every light adds light_factor x shadow x colour x sigma_s where it is
     active, in ascending light index (the schedule's order), its shadow
     either 1 - any_hit x gate (vis None) or the upsampled low-rate
@@ -198,8 +199,7 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
         ag = radiance_planes[1] * sg
         ab = radiance_planes[2] * sb
     else:
-        lights, active, planes, spheres, boxes, n_planes, n_spheres, \
-            n_boxes, vis = local
+        lights, active, planes, spheres, boxes, occ_kw, vis = local
         vdx = wx - camx
         vdy = wy - camy
         vdz = wz - camz
@@ -212,8 +212,7 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
                 q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num)
             if vis is None:
                 occ = any_hit(planes, spheres, boxes, wx, wy, wz, -ldx, -ldy,
-                              -ldz, dist - 0.05, n_planes=n_planes,
-                              n_spheres=n_spheres, n_boxes=n_boxes)
+                              -ldz, dist - 0.05, **occ_kw)
                 shadow = 1.0 - occ.to(torch.float32) * gate
             else:
                 shadow = vis[li]
@@ -314,8 +313,8 @@ def scatter_local_plain(t, shadow: torch.Tensor,
         active = schedule_mask(t.order, t.count).T[:, :, None, None]
         if vis is not None:
             vis = upsample_low(vis, zs, t.ss, t.tent_x, t.tent_y)
-        local = (t.lights, active, t.planes, t.spheres, t.boxes, t.n_planes,
-                 t.n_spheres, t.n_boxes, vis)
+        local = (t.lights, active, t.planes, t.spheres, t.boxes,
+                 t.occluders(local=True), vis)
     out = scatter_slice(
         t.spar, t.dirs, t.med, t.media_static, zs, list(shadow), radiance,
         noise, grid_whd=t.grid_whd, n_dir=t.n_dir, h_glob=t.h_glob,
@@ -357,7 +356,8 @@ def scatter_local_fused(params, view_to_world, camera_pos, jitter,
                         shadow_volume: torch.Tensor, media, time_x,
                         jitter_dir: bool = False, vis=None,
                         vis_ss: int = 1, vis_radiance: bool = True,
-                        material=None) -> torch.Tensor:
+                        material=None,
+                        heightfield_shadows: bool = False) -> torch.Tensor:
     """`scatter_local_pallas` of the JAX package with return_planes: packs
     the frame's tables on the CPU and runs scatter_local on shadow_volume's
     device. vis: the low-rate volume at vis_ss -- the radiance (+ fBm) of
@@ -374,7 +374,8 @@ def scatter_local_fused(params, view_to_world, camera_pos, jitter,
         point_lights, spot_lights, geometry, media, time_x, camera_pos,
         grid_whd, 1, vis_ss,
         bake_noise=radiance and media is not None and vis.shape[0] > 3,
-        jitter_dir=jitter_dir, light_schedule=not radiance)
+        jitter_dir=jitter_dir, light_schedule=not radiance,
+        heightfield_local=heightfield_shadows)
     if shadow_volume.device.type != "cpu":
         tables = tables.to(shadow_volume.device)
     return scatter_local(tables, shadow_volume,

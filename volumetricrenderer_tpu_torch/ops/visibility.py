@@ -142,23 +142,28 @@ def radiance_view_dirs(par, wx, wy, wz):
 
 def bake_radiance_plane(lights, li, wx, wy, wz, vdx, vdy, vdz, phg, g2,
                         hg_num, planes, spheres, boxes, *, n_planes: int,
-                        n_spheres: int, n_boxes: int):
+                        n_spheres: int, n_boxes: int, hf=None,
+                        hf_static=None, fractional: bool = False):
     """One light's rgb radiance at the low samples: visibility x falloff x
-    cone x HG phase x colour (everything but the froxel's sigma_s)."""
+    cone x HG phase x colour (everything but the froxel's sigma_s). The
+    any-hit's terrain and fractional arms as in ops/occlude.any_hit."""
     q = lambda i: lights[li, i]
     factor, ldx, ldy, ldz, dist, gate, cr, cg, cb = light_factor(
         q, wx, wy, wz, vdx, vdy, vdz, phg, g2, hg_num)
     occ = any_hit(planes, spheres, boxes, wx, wy, wz, -ldx, -ldy, -ldz,
                   dist - 0.05, n_planes=n_planes, n_spheres=n_spheres,
-                  n_boxes=n_boxes)
+                  n_boxes=n_boxes, hf=hf, hf_static=hf_static,
+                  fractional=fractional)
     base = factor * (1.0 - occ.to(torch.float32) * gate)
     return base * cr, base * cg, base * cb
 
 
 def bake_light_plane(lights, li, wx, wy, wz, planes, spheres, boxes, *,
-                     n_planes: int, n_spheres: int, n_boxes: int):
+                     n_planes: int, n_spheres: int, n_boxes: int, hf=None,
+                     hf_static=None, fractional: bool = False):
     """Visibility (1 = lit) of light row li at world positions: one any-hit
-    ray to the light, gated by the light's has_shadow."""
+    ray to the light (terrain and fractional arms as in
+    ops/occlude.any_hit), gated by the light's has_shadow."""
     q = lambda i: lights[li, i]
     tx = wx - q(0)
     ty = wy - q(1)
@@ -168,7 +173,8 @@ def bake_light_plane(lights, li, wx, wy, wz, planes, spheres, boxes, *,
     dist = d2 * inv_d
     occ = any_hit(planes, spheres, boxes, wx, wy, wz, -tx * inv_d,
                   -ty * inv_d, -tz * inv_d, dist - 0.05, n_planes=n_planes,
-                  n_spheres=n_spheres, n_boxes=n_boxes)
+                  n_spheres=n_spheres, n_boxes=n_boxes, hf=hf,
+                  hf_static=hf_static, fractional=fractional)
     return 1.0 - occ.to(torch.float32) * q(14)
 
 
@@ -202,6 +208,7 @@ def bake_radiance_fused(params, view_to_world, camera_pos, jitter,
                         point_lights, spot_lights, geometry, media, time_x,
                         grid_whd: Tuple[int, int, int], ss: int,
                         bake_noise: bool = False,
+                        heightfield_shadows: bool = False,
                         device="cuda") -> torch.Tensor:
     """`bake_radiance_pallas` of the JAX package on kernel K1: packs the
     tables K1 reads on the CPU (where the scene description must lie) and
@@ -211,7 +218,7 @@ def bake_radiance_fused(params, view_to_world, camera_pos, jitter,
     tables = frame_fused.frame_tables(
         params, view_to_world, torch.eye(4), jitter, 0.0, None, point_lights,
         spot_lights, geometry, media, time_x, camera_pos, grid_whd, 1, ss,
-        bake_noise=bake_noise)
+        bake_noise=bake_noise, heightfield_local=heightfield_shadows)
     if torch.device(device).type != "cpu":
         tables = tables.to(device)
     return frame_fused.bake_radiance(tables)
@@ -240,8 +247,7 @@ def bake_visibility_plain(t) -> torch.Tensor:
     out = []
     for li in range(t.lights.shape[0]):
         vis = bake_light_plane(t.lights, li, wx, wy, wz, t.planes, t.spheres,
-                               t.boxes, n_planes=t.n_planes,
-                               n_spheres=t.n_spheres, n_boxes=t.n_boxes)
+                               t.boxes, **t.occluders(local=True))
         act = t.active[li].bool()[:, None, None]
         out.append(torch.where(act, vis, torch.ones_like(vis)))
     return torch.stack(out)
@@ -263,6 +269,7 @@ def bake_visibility(t) -> torch.Tensor:
 def bake_visibility_fused(params, view_to_world, camera_pos, jitter,
                           point_lights, spot_lights, geometry,
                           grid_whd: Tuple[int, int, int], ss: int,
+                          heightfield_shadows: bool = False,
                           device="cuda") -> torch.Tensor:
     """`bake_visibility_pallas` of the JAX package on kernel K9: packs the
     tables K9 reads on the CPU (where the scene description must lie) and
@@ -271,7 +278,7 @@ def bake_visibility_fused(params, view_to_world, camera_pos, jitter,
     tables = frame_fused.frame_tables(
         params, view_to_world, torch.eye(4), jitter, 0.0, None, point_lights,
         spot_lights, geometry, None, 0.0, camera_pos, grid_whd, 1, ss,
-        bake_noise=False)
+        bake_noise=False, heightfield_local=heightfield_shadows)
     if torch.device(device).type != "cpu":
         tables = tables.to(device)
     return bake_visibility(tables)

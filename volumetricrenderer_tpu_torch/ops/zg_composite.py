@@ -16,6 +16,13 @@ K4 without a scene colour. `composite_cosited` is the JAX package's
 fractional-resolution composite (composite_upsample > 1): K4's planes at
 the low resolution on co-sited pixels, then a plain bilinear upsample and
 the scene blend at full resolution, as JAX runs both in XLA.
+`composite_pixels` is K4's per-pixel form for any pixel/froxel ratio (JAX
+`composite_rowmm`, `composite_anyres` and the "xla" gather, which differ
+only in their TPU layouts): per row and column the first tap and the two
+weights of (i + 0.5) * H / IH - 0.5, worked out in float64 on the host
+(`pixel_taps`), taps clamped to the volume. `composite_frame` picks the
+form as JAX's `pipeline.composite` picks its branch
+(config.composite_route).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel
+from volumetricrenderer_tpu_torch.config import RenderConfig, composite_route
 from volumetricrenderer_tpu_torch.ops import cuda
 
 
@@ -202,3 +210,103 @@ def composite_cosited(acc: torch.Tensor, scene_color: torch.Tensor,
     w9 = cell_weights((ih // us) // h, (iw // us) // w, us)
     up = upsample_cosited(composite_planes(acc, lo, params, grid_whd, w9), us)
     return _blend(up, scene_color)
+
+
+@functools.lru_cache(maxsize=16)
+def pixel_taps(n: int, cells: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Along one image axis of n pixels over `cells` froxels: each pixel's
+    first tap k0 = floor(f) (int32; -1 at the top or left edge) and the
+    weights (1 - t, t) [2, n] float32 of taps k0, k0 + 1, for f = (i + 0.5)
+    * cells / n - 0.5 and t = f - k0 in float64 (JAX rowmm's fy)."""
+    f = (np.arange(n) + 0.5) * (cells / n) - 0.5
+    k0 = np.floor(f)
+    t = f - k0
+    return k0.astype(np.int32), np.stack([1.0 - t, t]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_taps(ih: int, iw: int, h: int, w: int, device: torch.device):
+    """(yk, yw, xk, xw) of pixel_taps on the card, uploaded once per shape
+    and device."""
+    yk, yw = pixel_taps(ih, h)
+    xk, xw = pixel_taps(iw, w)
+    k = cuda.upload(np.concatenate([yk, xk]), device, torch.int32)
+    wt = cuda.upload(np.concatenate([yw.ravel(), xw.ravel()]), device)
+    return k[:ih], wt[:2 * ih], k[ih:], wt[2 * ih:]
+
+
+def _check_pixels(acc, view_depth, grid_whd) -> None:
+    w, h, d = grid_whd
+    if acc.shape != (4, d, h, w) or view_depth.dim() != 2:
+        raise ValueError(f"composite shapes: acc {tuple(acc.shape)}, depth "
+                         f"{tuple(view_depth.shape)}, grid {grid_whd}")
+
+
+def composite_pixels_plain(acc: torch.Tensor, scene_color: torch.Tensor,
+                           view_depth: torch.Tensor, params,
+                           grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+    """Twin of K4's per-pixel form: image [IH, IW, 4] at any image size."""
+    _check_pixels(acc, view_depth, grid_whd)
+    w, h, d = grid_whd
+    ih, iw = view_depth.shape
+    dev = acc.device
+    fz = froxel.depth_to_froxel_z(params, view_depth) - 0.5
+    fz = torch.clamp(fz, 0.0, d - 1.0)
+    z0f = torch.floor(fz)
+    f = fz - z0f
+    z0 = torch.clamp(z0f.to(torch.long), 0, d - 1)
+    z1 = torch.clamp(z0 + 1, max=d - 1)
+    (yk, yw), (xk, xw) = pixel_taps(ih, h), pixel_taps(iw, w)
+    yk = torch.as_tensor(yk, device=dev).long()
+    xk = torch.as_tensor(xk, device=dev).long()
+    yw, xw = torch.as_tensor(yw, device=dev), torch.as_tensor(xw, device=dev)
+    s0 = torch.zeros((4, ih, iw), dtype=torch.float32, device=dev)
+    s1 = torch.zeros_like(s0)
+    for a in range(2):
+        yy = torch.clamp(yk + a, 0, h - 1)[:, None]
+        for b in range(2):
+            xx = torch.clamp(xk + b, 0, w - 1)[None, :]
+            wt = yw[a][:, None] * xw[b][None, :]
+            s0 = s0 + acc[:, z0, yy, xx] * wt
+            s1 = s1 + acc[:, z1, yy, xx] * wt
+    return _blend(s0 * (1.0 - f) + s1 * f, scene_color)
+
+
+def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
+                     view_depth: torch.Tensor, params,
+                     grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+    """K4's per-pixel form: the composited image [IH, IW, 4] at any
+    pixel/froxel ratio."""
+    _check_pixels(acc, view_depth, grid_whd)
+    if scene_color.shape != (*view_depth.shape, 3):
+        raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
+                         f"depth {tuple(view_depth.shape)}")
+    if acc.device.type == "cpu":
+        return composite_pixels_plain(acc, scene_color, view_depth, params,
+                                      grid_whd)
+    cuda.check_cuda(acc, scene_color, view_depth)
+    w, h, d = grid_whd
+    ih, iw = view_depth.shape
+    dev = acc.device
+    yk, yw, xk, xw = _device_taps(ih, iw, h, w, dev)
+    fp = torch.stack([params.z, params.w, params.near]).to(
+        device=dev, dtype=torch.float32)
+    out = torch.empty((ih, iw, 4), dtype=torch.float32, device=dev)
+    cuda.launch("composite", cuda.ptr(acc), cuda.ptr(scene_color),
+                cuda.ptr(view_depth), cuda.ptr(yk), cuda.ptr(yw),
+                cuda.ptr(xk), cuda.ptr(xw), cuda.ptr(fp), w, h, d, ih, iw,
+                cuda.ptr(out), entry="vr_composite_pixels")
+    return out
+
+
+def composite_frame(cfg: RenderConfig, acc: torch.Tensor,
+                    scene_color: torch.Tensor, view_depth: torch.Tensor,
+                    params) -> torch.Tensor:
+    """The frame's composite [IH, IW, 4] in the form of K4 that
+    config.composite_route picks for cfg, JAX `pipeline.composite`'s
+    branch."""
+    args = (acc, scene_color, view_depth, params, cfg.grid)
+    route = composite_route(cfg)
+    if route == "cosited":
+        return composite_cosited(*args, cfg.composite_upsample)
+    return composite(*args) if route == "cells" else composite_pixels(*args)

@@ -2,7 +2,10 @@
 
 `render_frame(state, scene, time_x) -> (image, aux, new_state)` as in
 `volumetricrenderer_tpu/renderer.py`, routed on the config as there, every
-branch ending in the zgather composite (ops/zg_composite.py: K4):
+branch ending in the composite on K4 (ops/zg_composite.composite_frame: the
+zgather and other integer-ratio composites on its pixel cells, the co-sited
+composite at 1/composite_upsample, and the rowmm, anyres and "xla"
+composites of any pixel/froxel ratio in its per-pixel form):
 
   fused    every production knob on, raycast shadows: the fused volume
            phase (ops/frame_fused.py), its local lights from the low-rate
@@ -31,6 +34,11 @@ With composite_upsample > 1 (UHD_CONFIG) the composite runs K4 at the low
 resolution on co-sited pixels and upsamples in plain torch
 (ops/zg_composite.composite_cosited), where the JAX package does.
 
+The geometry may hold the procedural heightfield, which every sun ray, the
+G-buffer and the shadow-map bakes march, and the local-light rays with
+heightfield_local_shadows; and boxes of fractional opacity, whose shadow
+rays then carry an occlusion amount.
+
 `render_frame_post` is render_frame followed by the post stack (post.py),
 the JAX package's frame + post entry point.
 
@@ -52,9 +60,7 @@ import torch
 from volumetricrenderer_tpu_torch import froxel, pipeline
 from volumetricrenderer_tpu_torch.post import PostConfig, apply_post_planes
 from volumetricrenderer_tpu_torch import shadow as shadow_lib
-from volumetricrenderer_tpu_torch.config import (RenderConfig,
-                                                 composite_on_k4,
-                                                 cosited_eligible)
+from volumetricrenderer_tpu_torch.config import RenderConfig
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
 from volumetricrenderer_tpu_torch.ops import raycast
@@ -64,8 +70,7 @@ from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
                                                           volume_phase)
 from volumetricrenderer_tpu_torch.ops.material import media_foldable
 from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
-from volumetricrenderer_tpu_torch.ops.zg_composite import (composite,
-                                                          composite_cosited)
+from volumetricrenderer_tpu_torch.ops.zg_composite import composite_frame
 from volumetricrenderer_tpu_torch.state import FrameState
 
 # config fields every ported branch needs at one value, and what the other
@@ -137,28 +142,20 @@ class VolumetricRenderer:
             if getattr(cfg, name) not in values:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: one of {values}")
-        if not composite_on_k4(cfg):
-            raise NotImplementedError(
-                "only the zgather composite (8x8-multiple pixel cells, "
-                "D <= 128, at full resolution or co-sited at "
-                "1/composite_upsample) and composite_impl='pallas' at "
-                "integer pixel/froxel ratios are ported")
-        geom = scene.geometry
-        if geom.hf_enabled:
-            raise NotImplementedError("heightfield occlusion is not ported")
-        if geom.box_fractional:
-            raise NotImplementedError("fractional box opacity is not ported")
-        if scene.mesh is not None:
-            raise NotImplementedError("mesh environments are not ported")
-        if not scene.media or not media_foldable(scene.media):
-            raise NotImplementedError("texture-noise media (and scenes "
-                                      "without media) are not ported")
+        if scene.mesh is not None or scene.geometry.n_proxy_boxes:
+            raise NotImplementedError("mesh environments and their shadow "
+                                      "proxy boxes are not ported")
+        if scene.media and not media_foldable(scene.media):
+            raise NotImplementedError("texture-noise media are not ported")
+        if not scene.media:
+            raise NotImplementedError("scenes without media take the XLA "
+                                      "scatter, which is not ported")
         if scene.dir_lights.count == 0:
             raise NotImplementedError("scenes without a directional light "
                                       "are not ported")
         if scene.point_lights.count + scene.spot_lights.count == 0:
-            raise NotImplementedError("scenes without local lights are not "
-                                      "ported")
+            raise NotImplementedError("scenes without local lights take the "
+                                      "XLA scatter, which is not ported")
 
     def bake_shadow_data(self, scene: Scene):
         """The shadow maps of the frame on the renderer's device: (sun
@@ -260,7 +257,8 @@ class VolumetricRenderer:
             scene.media, time_x, cam.position, cfg.grid, cfg.reproj_window,
             ss, bool(cfg.bake_procedural_noise and radiance
                      and pipeline.fuses_material(cfg, scene.media)),
-            cfg.jitter_dir_scatter, light_schedule=not radiance)
+            cfg.jitter_dir_scatter, light_schedule=not radiance,
+            heightfield_local=cfg.heightfield_local_shadows)
         if self.device.type != "cpu":
             tables = tables.to(self.device)
             params = froxel.params_to(params, self.device)
@@ -377,10 +375,9 @@ class VolumetricRenderer:
                     acc = pipeline.temporal_blend_accumulation(
                         cfg, tables, geo, acc.contiguous(), prev_acc)
             aux["scatter"] = scatter
-        args = (acc.contiguous(), scene_color.contiguous(),
-                view_depth.contiguous(), params, cfg.grid)
-        image = composite_cosited(*args, cfg.composite_upsample) \
-            if cosited_eligible(cfg) else composite(*args)
+        image = composite_frame(cfg, acc.contiguous(),
+                                scene_color.contiguous(),
+                                view_depth.contiguous(), params)
         dt = cfg.dtype
         new_state = FrameState(
             prev_shadow=shadow.to(dt), prev_accumulation=acc.to(dt),
