@@ -353,6 +353,27 @@ ARM_FRACTION = {
 }
 
 
+# The slab paths: make_multislab_render (parallel/shard_render.py) over n
+# H-sharded slabs of 240x135x128 froxels at 1920x1080 (bench.py's slab
+# scopes), each shard a halo-extended slab of 135/n + 12 froxel rows
+# starting at global row 135 i/n - 6 and a band of 1080/n image rows, its
+# G-buffer band bound as fixed_inputs: path -> (config changes from
+# FULL_CONFIG, shards, frames, kernels launched once per shard and frame).
+# slab3_staged is tests/test_shard_render.py's CFG impl set at full width:
+# plain material volumes, K5, K6 with per-light rays, K3, and K4's
+# per-pixel form (JAX's slab composite_rowmm).
+SLAB_STAGED = dict(temporal_blend_alpha=0.6, raycast_shadow_subsample=1,
+                   scatter_bake="vis", bake_procedural_noise=False,
+                   dir_shadow_subsample=1, material_impl="xla",
+                   composite_impl="tentmm", composite_precision="highest")
+SLAB_PATHS = {
+    "slab3": ({}, 3, 4, FUSED_KERNELS),
+    "slab5": ({}, 5, 4, FUSED_KERNELS),
+    "slab3_staged": (SLAB_STAGED, 3, 2, ("shadow_blend", "scatter",
+                                         "integrate_blend", "composite")),
+}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -469,6 +490,89 @@ def drive(name: str, renderer, scene, scene_color, view_depth, cuda,
     if not std > 1e-4:
         raise AssertionError(f"path {name}: degenerate frame output")
     return img, states, launches
+
+
+def slab_scene(scene, i: int):
+    """Frame i of the slab paths: the camera moved i steps right, up and
+    forward, so that each frame's persistent halos carry reprojected
+    history."""
+    cam = scene.camera
+    step = torch.tensor([0.1, 0.08, 0.1], device=cam.position.device)
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        cam, position=cam.position + i * step))
+
+
+def drive_slab(name: str, fn, scene, cuda):
+    """Render slab path `name` through its multislab fn from its first
+    carry (frame i on slab_scene(scene, i)) with the launch counters set
+    to 0 just before and read just after. Each shard's step is counted on
+    its own (the counters read around the shards' render_frame calls): it
+    must launch each of the path's kernels once and no other kernel, and
+    its counts are summed by the y phase of its frame tables. Checks that
+    the image put together from the bands is finite and not flat. Returns
+    (last image, its bands, the carries before each frame and after the
+    last, counts, {y phase: counts of the shards of that phase})."""
+    _, n_sh, n_frames, expect = SLAB_PATHS[name]
+    r_loc = fn.renderer
+    render_frame, frame_tables = r_loc.render_frame, r_loc.frame_tables
+    seen, by_phase = {}, {}
+
+    def counted_tables(*args, **kw):
+        out = frame_tables(*args, **kw)
+        seen["phase"] = int(float(out[0].spar[0, 24]))
+        return out
+
+    def counted_frame(*args, **kw):
+        before = dict(cuda.LAUNCHES)
+        out = render_frame(*args, **kw)
+        delta = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.SOURCES}
+        for k, v in delta.items():
+            if v != (k in expect):
+                raise AssertionError(
+                    f"path {name}: a shard's step launched kernel {k} {v} "
+                    f"times (on the path: {k in expect})")
+        counts = by_phase.setdefault(seen.pop("phase"), {})
+        for k, v in delta.items():
+            counts[k] = counts.get(k, 0) + v
+        return out
+
+    carry = fn.init_carry(scene.dir_lights.count)
+    scenes = [slab_scene(scene, i) for i in range(n_frames)]
+    r_loc.render_frame, r_loc.frame_tables = counted_frame, counted_tables
+    try:
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        carries = [carry]
+        bands = None
+        for i in range(n_frames):
+            bands, carry = fn(carry, scenes[i], 0.1 * i)
+            carries.append(carry)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+    finally:
+        del r_loc.render_frame, r_loc.frame_tables
+    nonzero = lambda c: {k: v for k, v in c.items() if v}
+    phased = {ph: nonzero(c) for ph, c in sorted(by_phase.items())}
+    log(f"# {name}: launches in the {n_frames}-frame run of {n_sh} "
+        f"shards: {json.dumps(nonzero(launches))}; by the shards' y phase: "
+        f"{json.dumps(phased)}")
+    for k in cuda.SOURCES:
+        if launches[k] != n_frames * n_sh * (k in expect) or launches[k] \
+                != sum(c[k] for c in by_phase.values()):
+            raise AssertionError(
+                f"path {name}: kernel {k} launched {launches[k]} times in "
+                f"{n_frames} frames of {n_sh} shards (on the path: "
+                f"{k in expect})")
+    img = torch.cat(bands)
+    std = float(img[..., :3].std())
+    log(f"# {name}: image {tuple(img.shape)} from {n_sh} bands of "
+        f"{tuple(bands[0].shape)}, checksum "
+        f"{float(img.sum(dtype=torch.float32))!r} std {std:.4g}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"path {name}: non-finite frame output")
+    if not std > 1e-4:
+        raise AssertionError(f"path {name}: degenerate frame output")
+    return img, bands, carries, launches, by_phase
 
 
 def orbit(scene, i: int):
@@ -642,6 +746,7 @@ def main() -> int:
     from volumetricrenderer_tpu_torch.ops import occlude as occl
     from volumetricrenderer_tpu_torch.ops import ssr as ssr_ops
     from volumetricrenderer_tpu_torch import post
+    from volumetricrenderer_tpu_torch.parallel import shard_render as shr
 
     t_start = time.perf_counter()
     # 1. device
@@ -733,6 +838,17 @@ def main() -> int:
                                     scene_color, view_depth, cuda)
     finally:
         ssr_ops.ssr_march = real_march
+    # the slab paths through make_multislab_render, each shard's G-buffer
+    # band bound as fixed_inputs (bench.py's run_slabn)
+    slab_fns, slab_runs = {}, {}
+    for name, (kw, n_sh, _, _) in SLAB_PATHS.items():
+        s_r = VolumetricRenderer(dataclasses.replace(cfg, **kw))
+        slab_fns[name] = (s_r, shr.make_multislab_render(
+            s_r, n_sh, fixed_inputs=(list(scene_color.chunk(n_sh)),
+                                     list(view_depth.chunk(n_sh)))))
+        slab_runs[name] = drive_slab(name, slab_fns[name][1], scene, cuda)
+        runs[name] = (slab_runs[name][0], slab_runs[name][2],
+                      slab_runs[name][3])
     img, states, _ = runs["fused"]
     launches = {k: {name: run[2][k] for name, run in runs.items()
                     if run[2][k]} for k in cuda.SOURCES}
@@ -1161,6 +1277,153 @@ def main() -> int:
     errs["composite"] = max(errs["composite"],
                             arm_err[("composite", "pixels_720p")])
 
+    # the slab forms on real slabs' inputs: each shard's step replayed
+    # kernel by kernel from the carry before it (its halos written as the
+    # step writes them) reproduces the shard's band bit for bit; on frame 4
+    # K1 at each of the four y phases of slab5's shards, K2 with the phased
+    # tent, K3 and K4 at row_off = halo (exactly) against their twins; on
+    # slab3_staged's frame 2 (the middle shard) K5, K6 with per-light rays
+    # over material planes, K3 and K4's per-pixel form
+    def slab_shard(name, frame, i):
+        """(renderer of shard i, its Slab, its state with the halos written
+        as step `frame` writes them, its G-buffer band)."""
+        s_r, fn = slab_fns[name]
+        n_sh, halo = fn.n_shards, fn.halo
+        c = s_r.config
+        h_loc, ih_loc = c.volume_height // n_sh, c.image_height // n_sh
+        h_ext = h_loc + 2 * halo
+        r_loc = VolumetricRenderer(dataclasses.replace(
+            c, volume_height=h_ext, image_height=ih_loc))
+        slab = shr.Slab(float(i * h_loc - halo), halo, c.grid,
+                        c.image_height)
+        sts, edges = slab_runs[name][2][frame]
+        top = edges[i - 1][1] if i > 0 else edges[i][2]
+        bot = edges[i + 1][0] if i < n_sh - 1 else edges[i][3]
+        st_i = dataclasses.replace(sts[i], **{
+            f: None if getattr(sts[i], f) is None else shr._write_halo(
+                getattr(sts[i], f), top[f], bot[f], halo, shr.HALO_AXIS,
+                h_ext) for f in shr.HALO_FIELDS})
+        band = (scene_color[i * ih_loc:(i + 1) * ih_loc],
+                view_depth[i * ih_loc:(i + 1) * ih_loc])
+        return r_loc, slab, st_i, band
+
+    slab_err = {}       # (kernel, mode) -> max abs err against the twin
+    slab_in = {}        # mode -> the inputs it is timed on
+    slab_phases = {}    # path -> each shard's y phase
+    for name in ("slab3", "slab5"):
+        slab_phases[name] = []
+        for i in range(slab_fns[name][1].n_shards):
+            r_loc, slab, st_i, (b_sc, b_vd) = slab_shard(name, 3, i)
+            t_s, p_s, _ = r_loc.frame_tables(st_i, slab_scene(scene, 3),
+                                             0.1 * 3, slab)
+            ph = float(t_s.spar[0, 24])
+            slab_phases[name].append(int(ph))
+            sh_in = st_i.prev_shadow.float().contiguous()
+            acc_in = st_i.prev_accumulation.float().contiguous()
+            k1 = ff.bake_radiance(t_s)
+            sh_s, sc_s = ff.shadow_scatter(t_s, sh_in, k1)
+            acc_s = ff.integrate_blend(t_s, sc_s, acc_in)
+            w_l, h_l, d_l = r_loc.config.grid
+            band_grid = (w_l, h_l - 2 * slab.halo, d_l)
+            out_s = zg.composite(acc_s, b_sc, b_vd, p_s, band_grid,
+                                 row_off=slab.halo)
+            if not torch.equal(out_s, slab_runs[name][1][i]):
+                raise AssertionError(f"{name} shard {i}: K1-K4 on its "
+                                     "frame-4 inputs differ from its band")
+            log(f"# {name} shard {i}: y0 {slab.y0:g}, y phase {ph:g}, low "
+                f"grid {t_s.low_dims}, K1-K4 reproduce its band bit for "
+                f"bit")
+            if name == "slab5":
+                m = f"slab_phase{int(ph)}"
+                slab_err[("bake_radiance", m)] = max(
+                    slab_err.get(("bake_radiance", m), 0.0),
+                    compare("bake_radiance", k1,
+                            ff.bake_radiance_plain(t_s)))
+                slab_in.setdefault(m, t_s)
+            if (name, i) == ("slab5", 1):       # phase 3: K2, K3, K4
+                slab_err[("shadow_scatter", "slab_phased")] = max(
+                    compare("shadow_scatter", g, w_) for g, w_ in zip(
+                        (sh_s, sc_s),
+                        ff.shadow_scatter_plain(t_s, sh_in, k1)))
+                errs["integrate_blend"] = max(
+                    errs["integrate_blend"], compare(
+                        "integrate_blend", acc_s,
+                        ff.integrate_blend_plain(t_s, sc_s, acc_in)))
+                slab_in["slab_phased"] = (t_s, sh_in, k1)
+            if (name, i) == ("slab3", 1):       # the 360x1920 band
+                k4_p = zg.composite_plain(acc_s, b_sc, b_vd, p_s, band_grid,
+                                          slab.halo)
+                k4_e = compare("composite", out_s, k4_p)
+                if k4_e != 0.0:
+                    raise AssertionError("K4 with a row offset differs from "
+                                         "its twin")
+                slab_err[("composite", "slab_row_offset")] = k4_e
+                slab_in["slab_row_offset"] = (acc_s, b_sc, b_vd, p_s,
+                                              band_grid, slab.halo)
+    if sorted(set(slab_phases["slab5"])) != [0, 1, 2, 3]:
+        raise AssertionError(f"slab5's shards miss a y phase: "
+                             f"{slab_phases['slab5']}")
+    r_loc, slab, st_i, (b_sc, b_vd) = slab_shard("slab3_staged", 1, 1)
+    scene_1 = slab_scene(scene, 1)
+    t_s, p_s, w2v_s = r_loc.frame_tables(st_i, scene_1, 0.1, slab)
+    geo_s, scene_s = r_loc.frame_geometry(st_i, scene_1, t_s, p_s, w2v_s)
+    mat_s = tuple(v.contiguous() for v in pipeline.write_material_volumes(
+        r_loc.config, p_s, geo_s.view_to_world, geo_s.jitter, 0.1,
+        scene_s.media))
+    sh_in = st_i.prev_shadow.float().contiguous()
+    acc_in = st_i.prev_accumulation.float().contiguous()
+    sh_s = sb.dir_shadow_blend(t_s, sh_in)
+    errs["shadow_blend"] = max(errs["shadow_blend"], compare(
+        "shadow_blend", sh_s, sb.dir_shadow_blend_plain(t_s, sh_in)))
+    errs["scatter"] = max(errs["scatter"], compare(
+        "scatter", sca.scatter_local(t_s, sh_s, None, None, mat_s),
+        sca.scatter_local_plain(t_s, sh_s, None, None, mat_s)))
+    sc_s = pipeline.write_scatter_volume(r_loc.config, t_s, sh_s, mat_s,
+                                         geo_s, scene_s, (None, None), 0.1)
+    acc_s = ff.integrate_blend(t_s, sc_s, acc_in)
+    errs["integrate_blend"] = max(errs["integrate_blend"], compare(
+        "integrate_blend", acc_s,
+        ff.integrate_blend_plain(t_s, sc_s, acc_in)))
+    y_map = (cfg.volume_height, cfg.image_height, slab.halo)
+    out_s = zg.composite_pixels(acc_s, b_sc, b_vd, p_s, r_loc.config.grid,
+                                y_map)
+    if not torch.equal(out_s, slab_runs["slab3_staged"][1][1]):
+        raise AssertionError("slab3_staged shard 1: K5, K6, K3 and K4 on "
+                             "its frame-2 inputs differ from its band")
+    slab_err[("composite", "slab_pixels")] = compare(
+        "composite", out_s, zg.composite_pixels_plain(
+            acc_s, b_sc, b_vd, p_s, r_loc.config.grid, y_map))
+    slab_in["slab_pixels"] = (acc_s, b_sc, b_vd, p_s, r_loc.config.grid,
+                              y_map)
+    for (k, m), e in slab_err.items():
+        errs[k] = max(errs[k], e)
+    log("# slab3_staged shard 1: K5, K6 (rays, material planes), K3 and "
+        "K4's per-pixel form reproduce its band bit for bit")
+    # the images put together from the bands against the whole grid's
+    # (tests/test_shard_render.py's odd-slab-start bounds: relative to the
+    # image maximum, under 2e-3 on rows 2..-2 and 0.02 everywhere)
+    refs = {}
+    for name in ("slab3", "slab3_staged"):     # slab5 renders slab3's frames
+        s_r = slab_fns[name][0]
+        s_st = s_r.init_state(scene.dir_lights.count)
+        for i in range(SLAB_PATHS[name][2]):
+            refs[name], _, s_st = s_r.render_frame(
+                s_st, slab_scene(scene, i), 0.1 * i, scene_color, view_depth)
+    refs["slab5"] = refs["slab3"]
+    for name, ref in refs.items():
+        rel = (runs[name][0] - ref).abs() / ref.abs().max()
+        inner, worst = float(rel[2:-2].max()), float(rel.max())
+        row_max = rel.amax(dim=(1, 2))
+        rows, rows_far = int((row_max > 0).sum()), int((row_max > 1e-6).sum())
+        log(f"# {name} against the whole grid's frame: max relative "
+            f"{worst:.3e}, on rows 2..-2 {inner:.3e}, mean "
+            f"{float(rel.mean()):.3e}, {rows} of {rel.shape[0]} rows differ, "
+            f"{rows_far} by more than 1e-6 (bounds 0.02 and 2e-3)")
+        if not (inner < 2e-3 and worst < 0.02):
+            raise AssertionError(f"{name} differs from the whole grid's "
+                                 "image")
+    del refs, s_st
+
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
                                 view_depth, states[-1], 20)
@@ -1263,6 +1526,35 @@ def main() -> int:
         profile_frames(frame_post, 3)
         step_times(f"{name} post chain alone", post_only, 10)
         profile_frames(post_only, 3)
+
+    # the slab frames: n shards one after the other (total and per shard),
+    # and one shard's host prep
+    for name, (_, n_sh, _, _) in SLAB_PATHS.items():
+        fn = slab_fns[name][1]
+        box = {"c": slab_runs[name][2][-1]}
+
+        def one_slab(fn=fn, box=box):
+            _, box["c"] = fn(box["c"], scene, 0.5)
+
+        n_f = 3 if name == "slab3_staged" else 10
+        ev_ms = cuda_time_ms(one_slab, n_f)
+        t0 = time.perf_counter()
+        for _ in range(n_f):
+            one_slab()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_f
+        log(f"# {name} frame: {ev_ms:.3f} ms device-event mean "
+            f"({ev_ms / n_sh:.3f} per shard), {wall_ms:.3f} ms host wall "
+            f"mean ({wall_ms / n_sh:.3f} per shard) over {n_f} warm frames "
+            f"of {n_sh} shards")
+        profile_frames(one_slab, 2 if name == "slab3_staged" else 3)
+        r_loc, slab, st_i, _ = slab_shard(name, 1, 0)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            r_loc.frame_tables(st_i, scene, 0.5, slab)
+        torch.cuda.synchronize()
+        log(f"# host prep (frame_tables), {name}: "
+            f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms per shard")
 
     for what, fn in (
             ("write_material_volumes", lambda: pipeline.write_material_volumes(
@@ -1376,6 +1668,29 @@ def main() -> int:
             arm_ms[(k, m)] = kernel_time_ms(
                 call, 5 if m == "rays_terrain" else n)
             arm_plain_ms[(k, m)] = cuda_time_ms(twin, 1)
+    # the slab forms: K1 at each phase, K2 with the phased tent, K4 with a
+    # row offset and K4's per-pixel form on a slab's rows
+    slab_calls = {
+        ("shadow_scatter", "slab_phased"): (
+            lambda a=slab_in["slab_phased"]: ff.shadow_scatter(*a),
+            lambda a=slab_in["slab_phased"]: ff.shadow_scatter_plain(*a)),
+        ("composite", "slab_row_offset"): (
+            lambda a=slab_in["slab_row_offset"]: zg.composite(
+                *a[:5], row_off=a[5]),
+            lambda a=slab_in["slab_row_offset"]: zg.composite_plain(*a)),
+        ("composite", "slab_pixels"): (
+            lambda a=slab_in["slab_pixels"]: zg.composite_pixels(*a),
+            lambda a=slab_in["slab_pixels"]: zg.composite_pixels_plain(*a)),
+    }
+    for ph in range(4):
+        t_ph = slab_in[f"slab_phase{ph}"]
+        slab_calls[("bake_radiance", f"slab_phase{ph}")] = (
+            lambda t=t_ph: ff.bake_radiance(t),
+            lambda t=t_ph: ff.bake_radiance_plain(t))
+    slab_ms = {km: kernel_time_ms(call, n)
+               for km, (call, _) in slab_calls.items()}
+    slab_plain_ms = {km: cuda_time_ms(twin, 1)
+                     for km, (_, twin) in slab_calls.items()}
     # yardstick for K4: one grid_sample computing the same trilinear of
     # (L, T) at (pixel -> froxel xy, fz), border clamp (used nowhere else);
     # at 1080p, at 4K (16x16-pixel cells) and at the co-sited pixels (every
@@ -1416,6 +1731,31 @@ def main() -> int:
     arm_lib_ms = {("composite", "pixels_720p"): yardstick(
         "1280x720 on 160x88x64 (per-pixel form)", dp_acc,
         sample_grid(dp_params, dp_depth, dp_grid[2]), dp_out[..., 3])}
+
+    def slab_grid(p, depth, h_ext, y_of_row):
+        """grid_sample coordinates of a band over a slab's extended
+        accumulation of h_ext rows: band row v at acc row y_of_row(v)."""
+        g = sample_grid(p, depth)
+        fy = y_of_row(torch.arange(depth.shape[0], device="cuda") + 0.5)
+        g[..., 1] = ((fy + 0.5) / h_ext * 2.0 - 1.0)[None, None, :, None]
+        return g
+
+    a_ro = slab_in["slab_row_offset"]
+    h_ext_ro = a_ro[0].shape[2]
+    py_ro = a_ro[2].shape[0] // a_ro[4][1]
+    a_px = slab_in["slab_pixels"]
+    ih_g, h_g = cfg.image_height, cfg.volume_height
+    slab_lib_ms = {
+        ("composite", "slab_row_offset"): yardstick(
+            f"band {tuple(a_ro[2].shape)} at row_off {a_ro[5]}", a_ro[0],
+            slab_grid(a_ro[3], a_ro[2], h_ext_ro,
+                      lambda v: v / py_ro - 0.5 + a_ro[5]),
+            zg.composite(*a_ro[:5], row_off=a_ro[5])[..., 3]),
+        ("composite", "slab_pixels"): yardstick(
+            f"band {tuple(a_px[2].shape)}, per-pixel form", a_px[0],
+            slab_grid(a_px[3], a_px[2], a_px[0].shape[2],
+                      lambda v: v * (h_g / ih_g) - 0.5 + a_px[5][2]),
+            zg.composite_pixels(*a_px)[..., 3])}
 
     # bounds from this run's inputs (bytes each read once / written once;
     # the operations the function needs, counted from the plain versions'
@@ -1662,6 +2002,52 @@ def main() -> int:
     arm_work[("composite", "pixels_720p")] = (
         4 * (4 * math.prod(dp_grid) + n_720 + 3 * n_720 + 4 * n_720),
         n_720 * (20 + 8 * 4 * 2 + 16))
+    # the slab forms: as their whole-grid forms, from the slab's tables;
+    # K4 reads the h_out + 2 accumulation rows its band needs (row offset)
+    # or the rows its taps reach (per-pixel)
+    slab_work = {}
+    for ph in range(4):
+        t = slab_in[f"slab_phase{ph}"]
+        slab_work[("bake_radiance", f"slab_phase{ph}")] = (
+            4 * (3 + t.n_noise) * n_low_of(t),
+            n_low_of(t) * (60 + ops_perlin * t.n_noise)
+            + int(t.active.sum()) * plane_of(t) * (60 + geo_ops(t)))
+    t = slab_in["slab_phased"][0]
+    nf, nl = n_fro_of(t), n_low_of(t)
+    slab_work[("shadow_scatter", "slab_phased")] = (
+        4 * (2 * t.n_dir * nf + (3 + t.n_noise) * nl + 4 * nf),
+        nf * (shadow_ops(t) + (3 + t.n_noise) * 20
+              + 60 * len(t.media_static) + 40 * t.n_dir + 40))
+    for m in ("slab_row_offset", "slab_pixels"):
+        a = slab_in[m]
+        n_b = a[2].numel()
+        if m == "slab_row_offset":
+            rows_read = a[4][1] + 2
+        else:
+            yk_, _ = zg.pixel_taps(a[2].shape[0], *a[5])
+            rows_read = int(yk_.max()) - int(yk_.min()) + 2
+        n_acc = 4 * a[0].shape[1] * rows_read * a[0].shape[3]
+        slab_work[("composite", m)] = (
+            4 * (n_acc + n_b + 3 * n_b + 4 * n_b),
+            n_b * (20 + 8 * 4 * 2 + 16))
+    # launches of each slab form in the slab paths' runs: K1 and K2 as the
+    # shards' steps counted them, summed by the shards' y phase (K2's tent
+    # is phased where the phase is not 0), K4 per path
+    slab_launch = {}
+    for name in ("slab3", "slab5"):
+        for ph, counts in slab_runs[name][4].items():
+            km = ("bake_radiance", f"slab_phase{ph}")
+            slab_launch[km] = slab_launch.get(km, 0) \
+                + counts["bake_radiance"]
+            if ph:
+                km = ("shadow_scatter", "slab_phased")
+                slab_launch[km] = slab_launch.get(km, 0) \
+                    + counts["shadow_scatter"]
+    slab_launch[("composite", "slab_row_offset")] = sum(
+        launches["composite"].get(p_, 0) for p_ in ("slab3", "slab5"))
+    slab_launch[("composite", "slab_pixels")] = \
+        launches["composite"].get("slab3_staged", 0)
+    log(f"# y phases of the shards: {json.dumps(slab_phases)}")
     log(f"# bound inputs: {prims} primitives, {active_pairs} active "
         f"(low sample, light) pairs, {n_noise} noise channel(s), "
         f"{full_pairs} scheduled (froxel, light) pairs on the exact path, "
@@ -1734,6 +2120,22 @@ def main() -> int:
                 f"({', '.join(ARM_PATHS[(k, m)])})"
                 + (f", grid_sample {arm_lib_ms[(k, m)]:.4f} ms"
                    if (k, m) in arm_lib_ms else ""))
+        # the slab forms (slab3, slab5, slab3_staged)
+        for (k, m), m_work in slab_work.items():
+            if k != name:
+                continue
+            b_ms, b_by = bound(*m_work)
+            entry[m] = {
+                "launches": slab_launch.get((k, m), 0),
+                "max_abs_err": slab_err[(k, m)], "ms": slab_ms[(k, m)],
+                "plain_ms": slab_plain_ms[(k, m)], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": slab_lib_ms.get((k, m))}
+            log(f"# {name}, {m}: {slab_ms[(k, m)]:.4f} ms/launch, plain "
+                f"{slab_plain_ms[(k, m)]:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({m_work[0] / 1e6:.1f} MB, {m_work[1] / 1e9:.3f} "
+                f"GFLOP), launches {entry[m]['launches']}"
+                + (f", grid_sample {slab_lib_ms[(k, m)]:.4f} ms"
+                   if (k, m) in slab_lib_ms else ""))
         if name == "scatter":
             b_ms, b_by = bound(*per_light_work)
             entry["per_light"] = {

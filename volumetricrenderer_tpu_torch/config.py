@@ -179,3 +179,35 @@ def composite_route(cfg: RenderConfig) -> str:
             and cfg.image_width % w == 0 and cfg.image_height % h == 0):
         return "cells"
     return "pixels"
+
+
+def zgather_slab_eligible(cfg: RenderConfig, halo: int) -> bool:
+    """Whether the JAX package composites a slab (cfg: its halo-extended
+    config, volume_height = h_out + 2 halo, image_height its band) with its
+    zgather kernel: `pipeline.zgather_slab_eligible`'s prepadded call at
+    row_off = halo, or the halo_rows call on the planes' rows [halo - 1,
+    halo + h_out + 1). Both are one cell composite here, and the prepadded
+    call's own conditions (its padded planes' width and rows) hold only
+    where these do, so they are left out: they choose a TPU layout, not
+    the result."""
+    w, h, d = cfg.grid
+    h_out = h - 2 * halo
+    ih, iw = cfg.image_height, cfg.image_width
+    if not (cfg.composite_impl == "zgather" and h_out > 0 and d <= 128
+            and halo >= 1 and iw % w == 0 and ih % h_out == 0
+            and (h_out % 3 == 0 or h_out % 5 == 0)):
+        return False
+    py, px = ih // h_out, iw // w
+    return py * px == 64 or (py % 8 == 0 and px % 8 == 0)
+
+
+def slab_composite_route(cfg: RenderConfig, halo: int) -> str:
+    """Which form of K4 composites a slab's band, following the slab branch
+    of the JAX package's `pipeline.composite`:
+
+      "cells"   zgather_slab_eligible (JAX: the zgather kernel, prepadded
+                at row_off = halo or on the band's rows with halo_rows):
+                the cell composite whose cell row cy reads accumulation
+                rows cy + halo + dy - 1;
+      "pixels"  otherwise (JAX: composite_rowmm with the slab's fy)."""
+    return "cells" if zgather_slab_eligible(cfg, halo) else "pixels"

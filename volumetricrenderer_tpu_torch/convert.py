@@ -108,6 +108,68 @@ def state_from_numpy(prev_accumulation, prev_shadow, prev_world_to_view,
                       prev_scatter=planes(prev_scatter))
 
 
+# the JAX zgather kernel's padded-plane layout [ZG_DLANES, hp, ZG_WSTRIDE]
+# (ops/pallas/zg_composite.py DLANES, HB, WSTRIDE): depth lanes, froxel rows
+# per grid step, the padded cell-row stride; padded row or column r holds
+# row clamp(r - 1), the interior is [1, n + 1). The port keeps no padded
+# planes: only what reads the JAX package's planes knows the layout.
+ZG_DLANES = 128
+ZG_HB = 8
+ZG_WSTRIDE = 256
+
+
+def is_zg_padded(x) -> bool:
+    """Whether x has the shape of a JAX zgather padded plane."""
+    return len(x.shape) == 3 and x.shape[0] == ZG_DLANES \
+        and x.shape[2] == ZG_WSTRIDE
+
+
+def crop_padded_slabs(x: torch.Tensor, n: int, halo: int,
+                      grid_dhw) -> torch.Tensor:
+    """The global [D, H, W] plane of n stacked halo-extended JAX zgather
+    padded planes [ZG_DLANES, n hp_ext, ZG_WSTRIDE] (a JAX multislab
+    state's accumulation channel), each slab cropped to its interior."""
+    d, h, w = grid_dhw
+    h_loc = h // n
+    h_ext = h_loc + 2 * halo
+    hp_ext = (-(-h_ext // ZG_HB) + 1) * ZG_HB     # zg_composite.padded_dims
+    if x.shape[1] != n * hp_ext:
+        raise ValueError(f"padded plane {tuple(x.shape)} for {n} slabs of "
+                         f"halo {halo} on grid {tuple(grid_dhw)}")
+    xs = x.reshape(ZG_DLANES, n, hp_ext, ZG_WSTRIDE)
+    xs = xs[:d, :, 1 + halo:1 + halo + h_loc, 1:w + 1]
+    return xs.reshape(d, h, w)
+
+
+def multislab_carry_from_numpy(carry, halo: int, device):
+    """The port's make_multislab_render carry from a JAX one: each shard's
+    steady state, whose accumulation is a tuple of planes in the zgather
+    padded layout [ZG_DLANES, hp_ext, ZG_WSTRIDE] or raw [D, H_ext, W],
+    with the pads stripped and the halo rows kept; the edge packets are
+    taken from the converted states, as the JAX step takes them from its
+    new state. Arrays go through np.asarray."""
+    from volumetricrenderer_tpu_torch.parallel import shard_render
+    states = []
+    for st in carry[0]:
+        shadow = np.asarray(_get(st, "prev_shadow"), np.float32)
+        d, h, w = shadow.shape[1:]
+        acc = np.stack([a if a.shape == (d, h, w) else a[:d, 1:h + 1, 1:w + 1]
+                        for a in (np.asarray(p, np.float32) for p in
+                                  _get(st, "prev_accumulation"))])
+        f32 = lambda a: torch.as_tensor(np.array(a, np.float32),
+                                        device=device)
+        opt = lambda a: None if a is None else f32(np.moveaxis(
+            np.asarray(a, np.float32), -1, 0))
+        states.append(FrameState(
+            prev_shadow=f32(shadow), prev_accumulation=f32(acc),
+            prev_world_to_view=f32(_get(st, "prev_world_to_view")).cpu(),
+            frame_count=int(np.asarray(_get(st, "frame_count"))),
+            prev_material_a=opt(_get(st, "prev_material_a")),
+            prev_scatter=opt(_get(st, "prev_scatter"))))
+    h_ext = states[0].prev_shadow.shape[2]
+    return states, [shard_render._edges(s, halo, h_ext) for s in states]
+
+
 def dir_shadow_from_numpy(obj, device) -> DirShadowData:
     """The port's DirShadowData from a JAX one (aligned flag included)."""
     return DirShadowData(**_tensors(obj, ("atlas", "world_to_uv",

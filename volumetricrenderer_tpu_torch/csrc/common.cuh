@@ -24,7 +24,7 @@
 // (the low-grid tables at ss = 1, the light schedule where no per-light
 // scatter runs).
 struct VrTables {
-  const float* spar;      // [24] pack_params (jittered)
+  const float* spar;      // [25] pack_params (jittered) + slab y phase
   const float* sbpar;     // [24] pack_blend_params, shadow blend
   const float* abpar;     // [28] pack_blend_params, acc blend + jitter
   const float* slights;   // [Nd, 8] dir_shadow.pack_dir_lights
@@ -86,8 +86,10 @@ __device__ __forceinline__ void froxel_world(const float* p, float fxc,
   wz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
 }
 
-// visibility.bake_world_planes (slab y-phase 0): jittered world position
-// of low sample (m, r, c), which sits at full coordinate ss*k + (ss-1)/2.
+// visibility.bake_world_planes: jittered world position of low sample
+// (m, r, c), which sits at full coordinate ss*k + (ss-1)/2; its row also
+// takes the slab's y phase (-y0) mod ss, packed on the host at p[24], so a
+// slab's low rows sit on the global ss-grid (0 for a whole grid).
 __device__ __forceinline__ void low_sample_world(const VrTables& T, int m,
                                                  int r, int c, float& wx,
                                                  float& wy, float& wz) {
@@ -97,7 +99,7 @@ __device__ __forceinline__ void low_sample_world(const VrTables& T, int m,
   const float fz = (float)ss * (float)m + off + 0.5f + p[19];
   const float vz = view_z(p, fz, T.d);
   const float xs = (float)c * (float)ss + off;
-  float ys = (float)r * (float)ss + off + 0.0f;
+  float ys = (float)r * (float)ss + off + p[24];
   ys = clampf(ys + p[23], 0.0f, (float)T.h_glob - 1.0f);
   froxel_world(p, xs + 0.5f + p[17], ys + 0.5f + p[18], vz, T.w, T.h_glob,
                wx, wy, wz);

@@ -22,6 +22,15 @@
 // composite samples them at the low resolution with the co-sited weights
 // (composite_zgather_planes' w9_override) and upsamples them outside.
 //
+// A slab of an H-sharded frame (parallel/shard_render.py) composites its
+// band of the image over h cell rows from its halo-extended accumulation
+// of h_acc rows: cell row cy reads accumulation rows cy + row_off + dy - 1
+// (row_off = the halo >= 1), which are the neighbouring shards' real rows
+// where the whole grid (row_off 0, h_acc = h) clamps to its edge -- the
+// TPU kernel's halo_rows slice and its prepadded row_off window, which
+// differ only in layout. The clamp to [0, h_acc - 1] binds only at row_off
+// 0.
+//
 // The per-pixel form (vr_composite_pixels) serves every other pixel/froxel
 // ratio: the JAX package's composite_rowmm (a non-integer IH/H, 720 rows on
 // 88 at the demo grid), composite_anyres (a non-integer IW/W) and the
@@ -30,7 +39,10 @@
 // matmuls, edge-padded rows). Per output row i and column j the host gives
 // the first tap and the two weights of f = (i + 0.5) * H / IH - 0.5, worked
 // out in float64 as rowmm does (zg_composite.pixel_taps); the taps are
-// clamped to the volume, which is the edge padding's value.
+// clamped to the volume, which is the edge padding's value. A slab's band
+// takes the same form with the taps of its rows in the global mapping,
+// offset by the halo into its extended volume (JAX's slab composite_rowmm
+// fy), where the clamp never binds.
 //
 // Bound on the H100: bytes. Per 1080p frame read depth (8.3 MB) + scene
 // colour (24.9 MB) + the accumulation (66 MB), write the image (33 MB):
@@ -98,8 +110,8 @@ __global__ void composite_kernel(const float* __restrict__ acc,
                                  const float* __restrict__ depth,
                                  const float* __restrict__ w9,
                                  const float* __restrict__ fp, int w, int h,
-                                 int d, int ih, int iw,
-                                 float* __restrict__ out) {
+                                 int d, int ih, int iw, int h_acc,
+                                 int row_off, float* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ih * iw) return;
   const int j = idx % iw;
@@ -111,15 +123,15 @@ __global__ void composite_kernel(const float* __restrict__ acc,
   float f;
   depth_taps(__ldg(depth + idx), fp, d, z0, z1, f);
 
-  const long n = (long)d * h * w;
+  const long n = (long)d * h_acc * w;
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
   for (int dy = 0; dy < 3; ++dy) {
-    const int yy = min(max(cy + dy - 1, 0), h - 1);
+    const int yy = min(max(cy + row_off + dy - 1, 0), h_acc - 1);
     for (int dx = 0; dx < 3; ++dx) {
       const float wt = __ldg(w9 + (dy * 3 + dx) * cp + cell);
       if (wt == 0.0f) continue;  // adds exactly 0 in the reference
       const int xx = min(max(cx + dx - 1, 0), w - 1);
-      add_tap(acc, n, h, w, z0, z1, yy, xx, wt, s0, s1);
+      add_tap(acc, n, h_acc, w, z0, z1, yy, xx, wt, s0, s1);
     }
   }
   write_pixel(s0, s1, f, scene, idx, (long)ih * iw, out);
@@ -160,11 +172,12 @@ __global__ void composite_pixels_kernel(
 extern "C" int vr_composite(const float* acc, const float* scene,
                             const float* depth, const float* w9,
                             const float* fp, int w, int h, int d, int ih,
-                            int iw, float* out, cudaStream_t stream) {
+                            int iw, int h_acc, int row_off, float* out,
+                            cudaStream_t stream) {
   const int n = ih * iw;
   const int block = 256;
   composite_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
-      acc, scene, depth, w9, fp, w, h, d, ih, iw, out);
+      acc, scene, depth, w9, fp, w, h, d, ih, iw, h_acc, row_off, out);
   return (int)cudaGetLastError();
 }
 

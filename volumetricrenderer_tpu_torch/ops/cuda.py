@@ -128,7 +128,7 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci]},
         "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
         "composite": {
-            "vr_composite": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+            "vr_composite": [vp, vp, vp, vp, vp] + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci]},

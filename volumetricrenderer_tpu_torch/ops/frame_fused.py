@@ -57,7 +57,9 @@ from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          low_res_dims,
                                                          low_slice_active,
                                                          radiance_view_dirs,
-                                                         tent_taps)
+                                                         tent_taps,
+                                                         tent_taps_y,
+                                                         y_phase)
 
 MAX_DIR = 4     # csrc/common.cuh VR_MAX_DIR
 MAX_NOISE = 4   # csrc/common.cuh VR_MAX_NOISE
@@ -71,7 +73,7 @@ class FrameTables:
     tent_x, tent_y) at ss = 1, the full-rate light schedule (order, count)
     where no per-light scatter runs, and the tables of a scene part that was
     not given."""
-    spar: torch.Tensor        # [1, 24] pack_params (jittered)
+    spar: torch.Tensor        # [1, 25] pack_params (jittered) + y phase
     sbpar: torch.Tensor       # [1, 24] shadow blend (jitter, eps 1e-4)
     abpar: torch.Tensor       # [1, 28] acc blend (no jitter, eps 0) + jitter
     slights: Optional[torch.Tensor]     # [Nd, 8] dir_shadow.pack_dir_lights
@@ -84,7 +86,8 @@ class FrameTables:
     med_static: Optional[torch.Tensor]  # [M, 6] int32
     active: Optional[torch.Tensor]      # [NL, DL] int32 (low_slice_active)
     tent_x: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (k0 [W], w [2, W])
-    tent_y: Optional[Tuple[torch.Tensor, torch.Tensor]]  # (k0 [H], w [2, H])
+    # (k0 [H], w [2, H]) of the y tent, with the slab's y phase
+    tent_y: Optional[Tuple[torch.Tensor, torch.Tensor]]
     order: Optional[torch.Tensor]       # [D, NL] int32 (slice_light_order)
     count: Optional[torch.Tensor]       # [D] int32
     hf: Optional[torch.Tensor]          # [1, 6] pack_heightfield (terrain)
@@ -165,6 +168,12 @@ def _tent_np(n: int, nl: int, ss: int):
     return tent_taps(n, nl, ss)
 
 
+@functools.lru_cache(maxsize=32)
+def _tent_y_np(n: int, nl: int, ss: int, phase: float):
+    # the phase alone shapes the table: (-y0) mod ss == phase
+    return tent_taps_y(n, nl, ss, -phase)
+
+
 def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                  dir_lights, point_lights, spot_lights, geometry, media,
                  time_x, camera_pos, grid_whd: Tuple[int, int, int], k: int,
@@ -174,6 +183,12 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
                  heightfield_local: bool = False) -> FrameTables:
     """Pack every table of one frame: plain torch on the CPU, where the
     scene description must lie (FrameTables.to moves the result).
+
+    grid_whd is the array grid, params.grid the global one: they differ for
+    a slab of an H-sharded frame, whose global row offset params.y0 the
+    tables carry (spar[0, 23], sbpar and abpar) with its y phase
+    (visibility.y_phase, spar[0, 24]), which K1 and K9 add to their low
+    rows and the y tent carries.
 
     vis_ss > 1 packs the low grid of the low-rate bakes (active, tent taps);
     vis_ss = 1 has no low grid. light_schedule packs the full-rate light
@@ -196,7 +211,9 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
     jit = np.asarray(jitter, np.float32).reshape(3)
     if camera_pos is None:
         camera_pos = torch.zeros(3)
-    spar = pack_params(params, view_to_world, camera_pos, jit)
+    phase = y_phase(params.y0, vis_ss)
+    spar = torch.cat([pack_params(params, view_to_world, camera_pos, jit),
+                      torch.tensor([[phase]], dtype=torch.float32)], dim=1)
     sbpar = pack_blend_params(params, view_to_world, prev_world_to_view, jit,
                               alpha, 1e-4)
     abpar = pack_blend_params(params, view_to_world, prev_world_to_view,
@@ -243,12 +260,13 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
     if vis_ss > 1:
         wl, hl, dl = low_res_dims(grid_whd, vis_ss)
 
-        def tent(n, nl):
-            k0, wt = _tent_np(n, nl, vis_ss)
+        def tent(taps):
+            k0, wt = taps
             return (torch.as_tensor(k0, dtype=torch.int32),
                     torch.as_tensor(wt, dtype=torch.float32))
 
-        tent_x, tent_y = tent(w, wl), tent(h, hl)
+        tent_x = tent(_tent_np(w, wl, vis_ss))
+        tent_y = tent(_tent_y_np(h, hl, vis_ss, float(phase)))
     if point_lights is not None:
         lights = pack_lights(point_lights, spot_lights).contiguous()
         positions = torch.cat([point_lights.position, spot_lights.position])

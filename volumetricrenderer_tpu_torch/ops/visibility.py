@@ -15,7 +15,10 @@ are in `csrc/bake_radiance.cu` (kernel K1, which stands for
 Grid contract: low cell k covers full cells [ss*k, ss*k + ss); its sample
 sits at full coordinate ss*k + (ss-1)/2 (+0.5 + jitter). The z-lerp reads
 low slices floor(u), floor(u)+1 with u = (z - (ss-1)/2)/ss, clamped; the xy
-tent is clamp-to-edge. The slab y-phase is 0 (the port renders whole grids).
+tent is clamp-to-edge. A slab of an H-sharded frame (parallel/shard_render.py)
+starts at global row y0: its low rows sit at local rows ss*k + (ss-1)/2 +
+y_phase(y0, ss), on the global ss-grid whatever y0 is, and its y tent
+(upsample_mats_y) carries the same phase; y0 = 0 has phase 0.
 """
 
 from __future__ import annotations
@@ -59,15 +62,44 @@ def upsample_mats(n: int, nl: int, ss: int) -> np.ndarray:
     return a
 
 
-def tent_taps(n: int, nl: int, ss: int):
-    """upsample_mats as two taps per output: (k0 int32 [n], w [2, n]) with
-    the second tap at min(k0 + 1, nl - 1)."""
-    a = upsample_mats(n, nl, ss)
+def y_phase(y0, ss: int) -> np.float32:
+    """The slab y-phase: (-y0) mod ss in float32, the local row offset that
+    puts a slab's low rows on the global ss-grid (JAX `y_phase`)."""
+    return np.mod(-np.float32(y0), np.float32(ss))
+
+
+def upsample_mats_y(n: int, nl: int, ss: int, y0) -> np.ndarray:
+    """[n, nl] float32 y tent of a slab starting at global row y0 (JAX
+    `upsample_mats_y`): low sample k at local row ss*k + (ss-1)/2 +
+    y_phase(y0, ss), clamp-to-edge, every step in float32 in JAX's
+    order."""
+    f32 = np.float32
+    ph = y_phase(y0, ss)
+    i = np.arange(n, dtype=f32)
+    u = np.clip((i - f32((ss - 1) * 0.5) - ph) / f32(ss), f32(0.0),
+                f32(nl - 1))
+    j = np.arange(nl, dtype=f32)
+    return np.maximum(f32(0.0), f32(1.0) - np.abs(u[:, None] - j[None, :]))
+
+
+def _two_taps(a: np.ndarray, nl: int):
+    n = a.shape[0]
     k0 = np.argmax(a > 0, axis=1).astype(np.int32)
     k1 = np.minimum(k0 + 1, nl - 1)
     w0 = a[np.arange(n), k0]
     w1 = np.where(k1 > k0, a[np.arange(n), k1], 0.0).astype(np.float32)
     return k0, np.stack([w0, w1]).astype(np.float32)
+
+
+def tent_taps(n: int, nl: int, ss: int):
+    """upsample_mats as two taps per output: (k0 int32 [n], w [2, n]) with
+    the second tap at min(k0 + 1, nl - 1)."""
+    return _two_taps(upsample_mats(n, nl, ss), nl)
+
+
+def tent_taps_y(n: int, nl: int, ss: int, y0):
+    """upsample_mats_y of a slab starting at y0 as tent_taps' two taps."""
+    return _two_taps(upsample_mats_y(n, nl, ss, y0), nl)
 
 
 def low_slice_active(params, view_to_world, positions, ranges,
@@ -105,7 +137,9 @@ def low_slice_active(params, view_to_world, positions, ranges,
 def bake_world_planes(par, zi, grid_whd: Tuple[int, int, int], ss: int,
                       h_glob: int):
     """[HL, WL] jittered world-position planes of low slice(s) zi (an int or
-    an int tensor broadcasting against [HL, WL])."""
+    an int tensor broadcasting against [HL, WL]). par: a pack_params table
+    ([1, 24], the phase taken from its y0 par[0, 23]) or the frame tables'
+    spar ([1, 25], the slab y-phase packed at par[0, 24])."""
     w, h, d = grid_whd
     wl, hl, dl = low_res_dims(grid_whd, ss)
     p = lambda i: par[0, i]
@@ -114,7 +148,7 @@ def bake_world_planes(par, zi, grid_whd: Tuple[int, int, int], ss: int,
     y0 = p(23)
     dev = par.device
     off = (ss - 1) * 0.5
-    phase = (-float(y0)) % float(ss)
+    phase = p(24) if par.shape[1] > 24 else float(y_phase(float(y0), ss))
     zf = torch.as_tensor(zi, device=dev).to(torch.float32)
     fz = float(ss) * zf + off + 0.5 + jz
     vz = (torch.exp(torch.log(fpz) * fz / d) - 1.0) * fpw + near

@@ -23,6 +23,15 @@ weights of (i + 0.5) * H / IH - 0.5, worked out in float64 on the host
 (`pixel_taps`), taps clamped to the volume. `composite_frame` picks the
 form as JAX's `pipeline.composite` picks its branch
 (config.composite_route).
+
+A slab of an H-sharded frame (parallel/shard_render.py) composites its band
+of the image from its halo-extended accumulation: in the cells form with a
+row offset (`composite(..., row_off=halo)`, JAX `composite_zgather` with
+`halo_rows` or `prepadded` at `row_off`), whose cell rows read the
+neighbouring shards' real rows where the whole grid clamps, or in the
+per-pixel form on the slab's rows of the global mapping
+(`composite_pixels(..., y_map=(H, IH, halo))`, JAX `composite_rowmm(fy=...,
+row_off=0)`), as config.slab_composite_route picks.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel
-from volumetricrenderer_tpu_torch.config import RenderConfig, composite_route
+from volumetricrenderer_tpu_torch.config import (RenderConfig,
+                                                 composite_route,
+                                                 slab_composite_route)
 from volumetricrenderer_tpu_torch.ops import cuda
 
 
@@ -63,13 +74,19 @@ def _device_weights(data: bytes, cp: int, device: torch.device):
     return cuda.upload(np.frombuffer(data, np.float32).reshape(9, cp), device)
 
 
-def _check(acc, view_depth, grid_whd, w9) -> np.ndarray:
-    """Validate the shapes; returns the weight table [9, py*px]."""
+def _check(acc, view_depth, grid_whd, w9, row_off=0) -> np.ndarray:
+    """Validate the shapes; returns the weight table [9, py*px]. The cells
+    of grid_whd's h rows read acc rows [row_off - 1, row_off + h]: acc has
+    exactly h rows at row_off 0 (edge-clamped), else all of those rows."""
     w, h, d = grid_whd
     ih, iw = view_depth.shape
-    if acc.shape != (4, d, h, w) or ih % h or iw % w:
+    h_acc = acc.shape[2] if acc.dim() == 4 else -1
+    rows_ok = h_acc == h if row_off == 0 \
+        else row_off >= 1 and row_off + h + 1 <= h_acc
+    if (acc.shape != (4, d, h_acc, w) or not rows_ok or ih % h
+            or iw % w):
         raise ValueError(f"composite shapes: acc {tuple(acc.shape)}, depth "
-                         f"{(ih, iw)}, grid {grid_whd}")
+                         f"{(ih, iw)}, grid {grid_whd}, row_off {row_off}")
     py, px = ih // h, iw // w
     w9 = cell_weights(py, px) if w9 is None \
         else np.ascontiguousarray(w9, np.float32)
@@ -78,9 +95,12 @@ def _check(acc, view_depth, grid_whd, w9) -> np.ndarray:
     return w9
 
 
-def _sample_plain(acc, view_depth, params, grid_whd, w9) -> torch.Tensor:
-    """The trilinear (L_r, L_g, L_b, T) at every pixel: [4, IH, IW]."""
+def _sample_plain(acc, view_depth, params, grid_whd, w9,
+                  row_off=0) -> torch.Tensor:
+    """The trilinear (L_r, L_g, L_b, T) at every pixel: [4, IH, IW]; cell
+    row cy reads acc rows cy + row_off + dy - 1, clamped to acc's rows."""
     w, h, d = grid_whd
+    h_acc = acc.shape[2]
     ih, iw = view_depth.shape
     py, px = ih // h, iw // w
     dev = acc.device
@@ -97,7 +117,8 @@ def _sample_plain(acc, view_depth, params, grid_whd, w9) -> torch.Tensor:
     s0 = torch.zeros((4, ih, iw), dtype=torch.float32, device=dev)
     s1 = torch.zeros_like(s0)
     for dy in range(3):
-        yy = torch.clamp(rows // py + dy - 1, 0, h - 1)[:, None]
+        yy = torch.clamp(rows // py + row_off + dy - 1, 0,
+                         h_acc - 1)[:, None]
         for dx in range(3):
             xx = torch.clamp(cols // px + dx - 1, 0, w - 1)[None, :]
             wt = w9[dy * 3 + dx][cell]
@@ -114,12 +135,15 @@ def _blend(v: torch.Tensor, scene_color: torch.Tensor) -> torch.Tensor:
 
 def composite_plain(acc: torch.Tensor, scene_color: torch.Tensor,
                     view_depth: torch.Tensor, params,
-                    grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+                    grid_whd: Tuple[int, int, int],
+                    row_off: int = 0) -> torch.Tensor:
     """Twin of K4. acc [4, D, H, W], scene_color [IH, IW, 3], view_depth
-    [IH, IW] -> image [IH, IW, 4]."""
-    w9 = _check(acc, view_depth, grid_whd, None)
-    return _blend(_sample_plain(acc, view_depth, params, grid_whd, w9),
-                  scene_color)
+    [IH, IW] -> image [IH, IW, 4]; with row_off, acc is a slab's
+    halo-extended [4, D, H_ext, W] and grid_whd's h the band's cell rows
+    (composite)."""
+    w9 = _check(acc, view_depth, grid_whd, None, row_off)
+    return _blend(_sample_plain(acc, view_depth, params, grid_whd, w9,
+                                row_off), scene_color)
 
 
 def composite_planes_plain(acc: torch.Tensor, view_depth: torch.Tensor,
@@ -130,7 +154,8 @@ def composite_planes_plain(acc: torch.Tensor, view_depth: torch.Tensor,
     return _sample_plain(acc, view_depth, params, grid_whd, w9)
 
 
-def _launch(acc, scene_color, view_depth, params, grid_whd, w9, out):
+def _launch(acc, scene_color, view_depth, params, grid_whd, w9, out,
+            row_off=0):
     cuda.check_cuda(acc, view_depth,
                     *(() if scene_color is None else (scene_color,)))
     w, h, d = grid_whd
@@ -142,25 +167,31 @@ def _launch(acc, scene_color, view_depth, params, grid_whd, w9, out):
     cuda.launch("composite", cuda.ptr(acc),
                 None if scene_color is None else cuda.ptr(scene_color),
                 cuda.ptr(view_depth), cuda.ptr(table), cuda.ptr(fp), w, h, d,
-                ih, iw, cuda.ptr(out))
+                ih, iw, acc.shape[2], row_off, cuda.ptr(out))
     return out
 
 
 def composite(acc: torch.Tensor, scene_color: torch.Tensor,
               view_depth: torch.Tensor, params,
-              grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+              grid_whd: Tuple[int, int, int],
+              row_off: int = 0) -> torch.Tensor:
     """K4: the composited image [IH, IW, 4] (the cell weights of the pixel
-    centres)."""
-    w9 = _check(acc, view_depth, grid_whd, None)
+    centres). row_off > 0: acc is a slab's halo-extended accumulation
+    [4, D, H_ext, W] and the image the slab's band of grid_whd's h cell
+    rows, whose cell row cy reads acc rows cy + row_off + dy - 1 -- real
+    neighbour rows where the whole grid clamps (JAX composite_zgather with
+    halo_rows, or prepadded at row_off)."""
+    w9 = _check(acc, view_depth, grid_whd, None, row_off)
     if scene_color.shape != (*view_depth.shape, 3):
         raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
                          f"depth {tuple(view_depth.shape)}")
     if acc.device.type == "cpu":
         return composite_plain(acc, scene_color, view_depth, params,
-                               grid_whd)
+                               grid_whd, row_off)
     out = torch.empty((*view_depth.shape, 4), dtype=torch.float32,
                       device=acc.device)
-    return _launch(acc, scene_color, view_depth, params, grid_whd, w9, out)
+    return _launch(acc, scene_color, view_depth, params, grid_whd, w9, out,
+                   row_off)
 
 
 def composite_planes(acc: torch.Tensor, view_depth: torch.Tensor, params,
@@ -213,22 +244,28 @@ def composite_cosited(acc: torch.Tensor, scene_color: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=16)
-def pixel_taps(n: int, cells: int) -> Tuple[np.ndarray, np.ndarray]:
+def pixel_taps(n: int, cells: int, total: Optional[int] = None,
+               offset: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Along one image axis of n pixels over `cells` froxels: each pixel's
     first tap k0 = floor(f) (int32; -1 at the top or left edge) and the
     weights (1 - t, t) [2, n] float32 of taps k0, k0 + 1, for f = (i + 0.5)
-    * cells / n - 0.5 and t = f - k0 in float64 (JAX rowmm's fy)."""
-    f = (np.arange(n) + 0.5) * (cells / n) - 0.5
+    * cells / n - 0.5 and t = f - k0 in float64 (JAX rowmm's fy). A slab's
+    band of n rows takes the global ratio cells / total (total: the whole
+    image's rows, cells the global grid's) and reads its halo-extended
+    volume `offset` rows down: f = (i + 0.5) * cells / total - 0.5 + offset
+    (JAX pipeline.composite's slab fy at row_off 0)."""
+    f = (np.arange(n) + 0.5) * (cells / (total or n)) - 0.5 + offset
     k0 = np.floor(f)
     t = f - k0
     return k0.astype(np.int32), np.stack([1.0 - t, t]).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
-def _device_taps(ih: int, iw: int, h: int, w: int, device: torch.device):
-    """(yk, yw, xk, xw) of pixel_taps on the card, uploaded once per shape
-    and device."""
-    yk, yw = pixel_taps(ih, h)
+@functools.lru_cache(maxsize=16)
+def _device_taps(ih: int, iw: int, y_map: Tuple[int, int, int], w: int,
+                 device: torch.device):
+    """(yk, yw, xk, xw) of pixel_taps on the card, uploaded once per shape,
+    row mapping and device."""
+    yk, yw = pixel_taps(ih, *y_map)
     xk, xw = pixel_taps(iw, w)
     k = cuda.upload(np.concatenate([yk, xk]), device, torch.int32)
     wt = cuda.upload(np.concatenate([yw.ravel(), xw.ravel()]), device)
@@ -242,9 +279,17 @@ def _check_pixels(acc, view_depth, grid_whd) -> None:
                          f"{tuple(view_depth.shape)}, grid {grid_whd}")
 
 
+def _y_map(y_map, h: int, ih: int) -> Tuple[int, int, int]:
+    """pixel_taps' (cells, total, offset) of the rows: the whole image's
+    (h, ih, 0) by default."""
+    return (h, ih, 0) if y_map is None else tuple(int(v) for v in y_map)
+
+
 def composite_pixels_plain(acc: torch.Tensor, scene_color: torch.Tensor,
                            view_depth: torch.Tensor, params,
-                           grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+                           grid_whd: Tuple[int, int, int],
+                           y_map: Optional[Tuple[int, int, int]] = None
+                           ) -> torch.Tensor:
     """Twin of K4's per-pixel form: image [IH, IW, 4] at any image size."""
     _check_pixels(acc, view_depth, grid_whd)
     w, h, d = grid_whd
@@ -256,7 +301,8 @@ def composite_pixels_plain(acc: torch.Tensor, scene_color: torch.Tensor,
     f = fz - z0f
     z0 = torch.clamp(z0f.to(torch.long), 0, d - 1)
     z1 = torch.clamp(z0 + 1, max=d - 1)
-    (yk, yw), (xk, xw) = pixel_taps(ih, h), pixel_taps(iw, w)
+    (yk, yw) = pixel_taps(ih, *_y_map(y_map, h, ih))
+    (xk, xw) = pixel_taps(iw, w)
     yk = torch.as_tensor(yk, device=dev).long()
     xk = torch.as_tensor(xk, device=dev).long()
     yw, xw = torch.as_tensor(yw, device=dev), torch.as_tensor(xw, device=dev)
@@ -274,21 +320,25 @@ def composite_pixels_plain(acc: torch.Tensor, scene_color: torch.Tensor,
 
 def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
                      view_depth: torch.Tensor, params,
-                     grid_whd: Tuple[int, int, int]) -> torch.Tensor:
+                     grid_whd: Tuple[int, int, int],
+                     y_map: Optional[Tuple[int, int, int]] = None
+                     ) -> torch.Tensor:
     """K4's per-pixel form: the composited image [IH, IW, 4] at any
-    pixel/froxel ratio."""
+    pixel/froxel ratio. y_map = (cells, total, offset) maps the rows as
+    pixel_taps does: a slab's band passes (H_glob, IH_glob, halo) with its
+    halo-extended acc; None maps the whole image on grid_whd's rows."""
     _check_pixels(acc, view_depth, grid_whd)
     if scene_color.shape != (*view_depth.shape, 3):
         raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
                          f"depth {tuple(view_depth.shape)}")
     if acc.device.type == "cpu":
         return composite_pixels_plain(acc, scene_color, view_depth, params,
-                                      grid_whd)
+                                      grid_whd, y_map)
     cuda.check_cuda(acc, scene_color, view_depth)
     w, h, d = grid_whd
     ih, iw = view_depth.shape
     dev = acc.device
-    yk, yw, xk, xw = _device_taps(ih, iw, h, w, dev)
+    yk, yw, xk, xw = _device_taps(ih, iw, _y_map(y_map, h, ih), w, dev)
     fp = torch.stack([params.z, params.w, params.near]).to(
         device=dev, dtype=torch.float32)
     out = torch.empty((ih, iw, 4), dtype=torch.float32, device=dev)
@@ -301,10 +351,24 @@ def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
 
 def composite_frame(cfg: RenderConfig, acc: torch.Tensor,
                     scene_color: torch.Tensor, view_depth: torch.Tensor,
-                    params) -> torch.Tensor:
+                    params, slab=None) -> torch.Tensor:
     """The frame's composite [IH, IW, 4] in the form of K4 that
     config.composite_route picks for cfg, JAX `pipeline.composite`'s
-    branch."""
+    branch. A slab (cfg: the slab's halo-extended config, the band of the
+    image) takes config.slab_composite_route: the cells form at row_off =
+    halo over the band's h - 2 halo cell rows (JAX's slab zgather, both
+    its prepadded and its halo_rows call), else the per-pixel form on the
+    slab's rows of the global mapping (JAX composite_rowmm with the slab's
+    fy)."""
+    w, h, d = cfg.grid
+    if slab is not None:
+        halo = int(slab.halo)
+        if slab_composite_route(cfg, halo) == "cells":
+            return composite(acc, scene_color, view_depth, params,
+                             (w, h - 2 * halo, d), row_off=halo)
+        return composite_pixels(acc, scene_color, view_depth, params,
+                                cfg.grid, (slab.grid_global[1],
+                                           slab.image_height_global, halo))
     args = (acc, scene_color, view_depth, params, cfg.grid)
     route = composite_route(cfg)
     if route == "cosited":

@@ -26,8 +26,10 @@ branch that is not ported raises NotImplementedError naming what is missing.
 
 Volumes are channel-first: material_a [4, D, H, W] (sigma_s rgb, sigma_a),
 material_b [1, D, H, W] (phase g; the JAX package pads it to 4 channels),
-scatter [4, D, H, W], accumulation [4, D, H, W]. The port renders whole
-grids: the slab row offset of the JAX package (params.y0) is always 0.
+scatter [4, D, H, W], accumulation [4, D, H, W]. cfg.grid is the array
+grid and params.grid the global one; they differ for a slab of an
+H-sharded frame (parallel/shard_render.py), whose local row i is global row
+params.y0 + i, clamped to the global grid.
 """
 
 from __future__ import annotations
@@ -74,13 +76,15 @@ from volumetricrenderer_tpu_torch.ops.warp import (windowed_warp,
 @dataclasses.dataclass(frozen=True)
 class FrameGeometry:
     """What the plain-torch passes of one frame read, on the frame's device:
-    the froxel params, the view matrices, the jitter [3] and the blend
-    weight alpha (0 on the first frame)."""
+    the froxel params, the view matrices, the jitter [3], the blend weight
+    alpha (0 on the first frame) and the array grid (W, H, D) (None: the
+    global params.grid; a slab's own rows otherwise)."""
     params: FroxelParams
     view_to_world: torch.Tensor          # [4, 4]
     prev_world_to_view: torch.Tensor     # [4, 4]
     jitter: torch.Tensor                 # [3]
     alpha: float
+    grid: Optional[Tuple[int, int, int]] = None
 
     @functools.cached_property
     def centre_texel(self):
@@ -103,13 +107,22 @@ def _require(cfg: RenderConfig, name: str, want, missing: str) -> None:
 def froxel_world_positions(cfg: RenderConfig, params: FroxelParams,
                            view_to_world: torch.Tensor,
                            jitter: Optional[torch.Tensor]) -> torch.Tensor:
-    """World position of every froxel centre [D, H, W, 3], optionally
-    jittered."""
+    """World position of every froxel centre [D, H, W, 3] of the array grid
+    cfg.grid, optionally jittered."""
     return _world_positions(cfg.grid, params, view_to_world, jitter)
 
 
 def _world_positions(grid, params, view_to_world, jitter) -> torch.Tensor:
+    """Local row i of `grid` is global row params.y0 + i, its centre
+    clamped to [0.5, H_glob - 0.5]: the halo rows of a slab at the global
+    edges repeat the edge row, as the clamp sampler would. A slab that
+    starts at row 0 clamps too (its rows may run past the grid)."""
     centers = froxel.froxel_centers(grid, view_to_world.device)
+    if params.y0 != 0 or grid[1] != params.grid[1]:
+        cy = torch.clamp(centers[..., 1] + params.y0, 0.5,
+                         params.grid[1] - 0.5)
+        centers = torch.cat([centers[..., :1], cy[..., None],
+                             centers[..., 2:]], dim=-1)
     if jitter is not None:
         centers = centers + jitter
     return froxel.froxel_to_world(params, view_to_world, centers)
@@ -373,10 +386,11 @@ def accumulate(cfg: RenderConfig, tables: FrameTables, scatter: torch.Tensor,
 def reproject_texel(geo: FrameGeometry, jittered: bool, uvw_epsilon: float):
     """Current froxel centre -> previous-frame froxel position through the
     world: (texel x, y, z and the xy reprojection success, each
-    [D, H, W])."""
+    [D, H, W] of the array grid). Froxel space and the success test are
+    global; texel y comes back in local rows (minus params.y0)."""
     w, h, d = geo.params.grid
-    world = _world_positions(geo.params.grid, geo.params, geo.view_to_world,
-                             None)
+    world = _world_positions(geo.grid or geo.params.grid, geo.params,
+                             geo.view_to_world, None)
     prev_pos = froxel.world_to_froxel(geo.params, geo.prev_world_to_view,
                                       world)
     if jittered:
@@ -387,6 +401,8 @@ def reproject_texel(geo: FrameGeometry, jittered: bool, uvw_epsilon: float):
     in01 = (uvw[..., 0] >= 0.0) & (uvw[..., 0] <= 1.0) \
         & (uvw[..., 1] >= 0.0) & (uvw[..., 1] <= 1.0)
     tx, ty, tz = (texel[..., c].contiguous() for c in range(3))
+    if geo.params.y0 != 0:
+        ty = ty - geo.params.y0
     return tx, ty, tz, in01.to(torch.float32)
 
 

@@ -42,6 +42,13 @@ rays then carry an occlusion amount.
 `render_frame_post` is render_frame followed by the post stack (post.py),
 the JAX package's frame + post entry point.
 
+render_frame(slab=...) renders one slab of an H-sharded frame
+(parallel/shard_render.py): the renderer's config holds the slab's
+halo-extended shapes and its band of the image, the slab the global grid
+and the slab's first global row. The fused frames and the staged raycast
+frames take slabs; the shadow-map modes, texture media, the "gather"
+reprojection and the post stack raise NotImplementedError there.
+
 All branches keep one FrameState, so a state made by one feeds another as
 long as the same blends are on. A config or scene that the JAX package would
 send down a branch that is not ported raises NotImplementedError naming it.
@@ -52,6 +59,7 @@ GPU and without that request it raises instead of running on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -123,9 +131,20 @@ class VolumetricRenderer:
                     and cfg.material_impl == "fused"
                     and cfg.shadow_mode == "raycast")
 
-    def check_supported(self, scene: Scene) -> None:
-        """Raise NotImplementedError for what the port does not cover."""
+    def check_supported(self, scene: Scene, slab=None) -> None:
+        """Raise NotImplementedError for what the port does not cover (with
+        a slab, also what it does not cover in H-sharded slabs)."""
         cfg = self.config
+        if slab is not None:
+            if cfg.shadow_mode != "raycast":
+                raise NotImplementedError(
+                    f"shadow_mode={cfg.shadow_mode!r} in a slab: the "
+                    "shadow-map modes are not ported to H-sharded slabs")
+            if cfg.reproj_impl == "gather":
+                raise NotImplementedError(
+                    "reproj_impl='gather' in a slab: the gather "
+                    "reprojection has no bounded row support (the JAX "
+                    "package refuses it there too)")
         for name, want, missing in _REQUIRED_KNOBS:
             if getattr(cfg, name) != want:
                 raise NotImplementedError(
@@ -222,23 +241,28 @@ class VolumetricRenderer:
         self._host_scene = _host_copy(self._host_scene, scene)
         return self._host_scene[2]
 
-    def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0):
+    def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0,
+                     slab=None):
         """Host prep of one frame: (FrameTables, FroxelParams, world_to_view)
         -- the packed tables the volume kernels read, on the renderer's
-        device, and the view matrix on the CPU.
+        device, and the view matrix on the CPU. A slab's params hold the
+        global grid and the slab's first row y0.
 
         Wherever the scene lives, the tables are packed on the CPU from its
         host copy: ~170 small torch ops, each cheaper there than a launch on
         the GPU, then uploaded in one asynchronous copy (FrameTables.to)."""
         cfg = self.config
-        self.check_supported(scene)
+        self.check_supported(scene, slab)
         scene = self.host_scene(scene)
         cam = scene.camera
         view_to_world = cam.view_to_world()
         world_to_view = froxel.invert_rigid(view_to_world)
-        params = froxel.make_froxel_params(cam.fov_y, cam.aspect, cam.near,
-                                           cfg.volume_distance,
-                                           cfg.depth_distribution, cfg.grid)
+        params = froxel.make_froxel_params(
+            cam.fov_y, cam.aspect, cam.near, cfg.volume_distance,
+            cfg.depth_distribution,
+            cfg.grid if slab is None else tuple(slab.grid_global))
+        if slab is not None:
+            params = dataclasses.replace(params, y0=float(slab.y0))
         # history is invalid on frame 0
         alpha = np.float32(cfg.temporal_blend_alpha) \
             * np.float32(state.frame_count > 0)
@@ -296,12 +320,17 @@ class VolumetricRenderer:
     def render_frame(self, state: FrameState, scene: Scene, time_x=0.0,
                      scene_color: Optional[torch.Tensor] = None,
                      view_depth: Optional[torch.Tensor] = None,
-                     shadow_data=None
+                     shadow_data=None, slab=None
                      ) -> Tuple[torch.Tensor, dict, FrameState]:
         """One frame. Returns (image [IH, IW, 4], aux, new state).
 
         shadow_data: the maps of bake_shadow_data, baked once by the caller;
         None bakes them in this call (the shadow-map modes only).
+
+        slab (parallel/shard_render.Slab): render one slab of an H-sharded
+        frame. The config holds the slab's halo-extended grid and its band
+        of the image, whose G-buffer band the caller passes; every output
+        covers the extended slab and the caller drops the halo rows.
 
         aux holds the volumes of the frame: `shadow` [Nd, D, H, W],
         `accumulation` [4, D, H, W] and, on the staged branch where they
@@ -312,7 +341,10 @@ class VolumetricRenderer:
         not when it evaluates the media itself."""
         cfg = self.config
         tables, params, world_to_view = self.frame_tables(state, scene,
-                                                          time_x)
+                                                          time_x, slab)
+        if slab is not None and (scene_color is None or view_depth is None):
+            raise ValueError("a slab needs the caller's G-buffer band "
+                             "(scene_color and view_depth)")
         if scene_color is None or view_depth is None:
             scene_color, view_depth = self.render_scene_inputs(scene)
         if shadow_data is None:
@@ -377,7 +409,7 @@ class VolumetricRenderer:
             aux["scatter"] = scatter
         image = composite_frame(cfg, acc.contiguous(),
                                 scene_color.contiguous(),
-                                view_depth.contiguous(), params)
+                                view_depth.contiguous(), params, slab)
         dt = cfg.dtype
         new_state = FrameState(
             prev_shadow=shadow.to(dt), prev_accumulation=acc.to(dt),
@@ -395,12 +427,17 @@ class VolumetricRenderer:
                           post_cfg: PostConfig, time_x=0.0,
                           scene_color: Optional[torch.Tensor] = None,
                           view_depth: Optional[torch.Tensor] = None,
-                          shadow_data=None, velocity=None
+                          shadow_data=None, velocity=None, slab=None
                           ) -> Tuple[torch.Tensor, dict, FrameState]:
         """Frame + post stack: render_frame, then post.apply_post_planes on
         the image's r, g, b planes with aux["view_depth"] and `velocity`
         ([H, W, 2] pixels, post.camera_velocity; None skips motion blur).
-        Returns (display rgb [H, W, 3], aux, new state)."""
+        Returns (display rgb [H, W, 3], aux, new state). A slab raises: the
+        post stack's screen-space passes need the whole image."""
+        if slab is not None:
+            raise NotImplementedError("the post stack in a slab: its "
+                                      "screen-space passes are not ported "
+                                      "to H-sharded bands")
         image, aux, new_state = self.render_frame(
             state, scene, time_x, scene_color, view_depth, shadow_data)
         out = apply_post_planes([image[..., c] for c in range(3)], post_cfg,
@@ -423,7 +460,7 @@ class VolumetricRenderer:
                       * np.float32(state.frame_count > 0))
         geo = pipeline.FrameGeometry(
             params=params, view_to_world=mats[0], prev_world_to_view=mats[1],
-            jitter=upload(tables.jitter, dev), alpha=alpha)
+            jitter=upload(tables.jitter, dev), alpha=alpha, grid=cfg.grid)
         return geo, scene.to(dev)
 
 
