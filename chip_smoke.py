@@ -10,7 +10,9 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
 
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
-  2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel);
+  2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
+     and prints the registers per thread and shared memory per block of
+     K3's and K4's kernels (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
@@ -764,6 +766,9 @@ def main() -> int:
     build_s = cuda.build(verbose=True)
     log(f"# build: {time.perf_counter() - t0:.1f} s wall, per source "
         f"{json.dumps({k: round(v, 1) for k, v in build_s.items()})}")
+    for src in cuda.ATTR_KERNELS:
+        log(f"# kernel attributes, {src}: "
+            f"{json.dumps(cuda.kernel_attrs(src))}")
 
     # 3. configs, scene and G-buffers (one per image size: 1080p, and 4K for
     # the uhd paths)
@@ -1281,7 +1286,8 @@ def main() -> int:
     # kernel by kernel from the carry before it (its halos written as the
     # step writes them) reproduces the shard's band bit for bit; on frame 4
     # K1 at each of the four y phases of slab5's shards, K2 with the phased
-    # tent, K3 and K4 at row_off = halo (exactly) against their twins; on
+    # tent, K3 and K4 at row_off = halo (exactly) against their twins, K3
+    # also on slab3's middle shard (its "slab_shard" mode); on
     # slab3_staged's frame 2 (the middle shard) K5, K6 with per-light rays
     # over material planes, K3 and K4's per-pixel form
     def slab_shard(name, frame, i):
@@ -1351,6 +1357,10 @@ def main() -> int:
                         ff.integrate_blend_plain(t_s, sc_s, acc_in)))
                 slab_in["slab_phased"] = (t_s, sh_in, k1)
             if (name, i) == ("slab3", 1):       # the 360x1920 band
+                slab_err[("integrate_blend", "slab_shard")] = compare(
+                    "integrate_blend", acc_s,
+                    ff.integrate_blend_plain(t_s, sc_s, acc_in))
+                slab_in["slab_shard"] = (t_s, sc_s, acc_in)
                 k4_p = zg.composite_plain(acc_s, b_sc, b_vd, p_s, band_grid,
                                           slab.halo)
                 k4_e = compare("composite", out_s, k4_p)
@@ -1671,6 +1681,9 @@ def main() -> int:
     # the slab forms: K1 at each phase, K2 with the phased tent, K4 with a
     # row offset and K4's per-pixel form on a slab's rows
     slab_calls = {
+        ("integrate_blend", "slab_shard"): (
+            lambda a=slab_in["slab_shard"]: ff.integrate_blend(*a),
+            lambda a=slab_in["slab_shard"]: ff.integrate_blend_plain(*a)),
         ("shadow_scatter", "slab_phased"): (
             lambda a=slab_in["slab_phased"]: ff.shadow_scatter(*a),
             lambda a=slab_in["slab_phased"]: ff.shadow_scatter_plain(*a)),
@@ -2012,6 +2025,9 @@ def main() -> int:
             4 * (3 + t.n_noise) * n_low_of(t),
             n_low_of(t) * (60 + ops_perlin * t.n_noise)
             + int(t.active.sum()) * plane_of(t) * (60 + geo_ops(t)))
+    nf = n_fro_of(slab_in["slab_shard"][0])
+    slab_work[("integrate_blend", "slab_shard")] = (
+        4 * 12 * nf, nf * (ops_integrate + ops_reproj + warp(4) + 12))
     t = slab_in["slab_phased"][0]
     nf, nl = n_fro_of(t), n_low_of(t)
     slab_work[("shadow_scatter", "slab_phased")] = (
@@ -2043,6 +2059,8 @@ def main() -> int:
                 km = ("shadow_scatter", "slab_phased")
                 slab_launch[km] = slab_launch.get(km, 0) \
                     + counts["shadow_scatter"]
+    slab_launch[("integrate_blend", "slab_shard")] = sum(
+        launches["integrate_blend"].get(p_, 0) for p_ in SLAB_PATHS)
     slab_launch[("composite", "slab_row_offset")] = sum(
         launches["composite"].get(p_, 0) for p_ in ("slab3", "slab5"))
     slab_launch[("composite", "slab_pixels")] = \

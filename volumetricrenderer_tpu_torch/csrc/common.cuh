@@ -484,14 +484,28 @@ struct Reproj {
   float ox, oy, oz, success;
 };
 
-__device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
-                                 int w, int h, int d, int h_glob, int k,
-                                 bool with_jitter) {
+// reproj_offsets' view-space x of column x and y of row y at depth vz: a
+// function of (x, vz) and of (y, vz) alone, so a tile can compute each once.
+__device__ __forceinline__ float reproj_vx(const float* p, int x, float vz,
+                                           int w) {
+  return (2.0f * ((float)x + 0.5f) / (float)w - 1.0f) * vz / p[12];
+}
+
+__device__ __forceinline__ float reproj_vy(const float* p, int y, float vz,
+                                           int h_glob) {
+  const float ys = clampf((float)y + p[22], 0.0f, (float)h_glob - 1.0f);
+  return (2.0f * (ys + 0.5f) / (float)h_glob - 1.0f) * vz / p[13];
+}
+
+// The rest of reproj_offsets, from the view-space position (vx, vy, vz) of
+// froxel (z, y, x).
+__device__ __forceinline__ Reproj reproj_view(const float* p, int z, int y,
+                                              int x, float vx, float vy,
+                                              float vz, int w, int h, int d,
+                                              int h_glob, int k,
+                                              bool with_jitter) {
   float fpx = p[12], fpy = p[13], fpz = p[14], fpw = p[15], near_ = p[16];
   float eps = p[21], y0 = p[22];
-  float ys = clampf((float)y + y0, 0.0f, (float)h_glob - 1.0f);
-  float vx = (2.0f * ((float)x + 0.5f) / (float)w - 1.0f) * vz / fpx;
-  float vy = (2.0f * (ys + 0.5f) / (float)h_glob - 1.0f) * vz / fpy;
   float pvx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
   float pvy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
   float pvz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
@@ -522,6 +536,14 @@ __device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
   return r;
 }
 
+__device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
+                                 int w, int h, int d, int h_glob, int k,
+                                 bool with_jitter) {
+  return reproj_view(p, z, y, x, reproj_vx(p, x, vz, w),
+                     reproj_vy(p, y, vz, h_glob), vz, w, h, d, h_glob, k,
+                     with_jitter);
+}
+
 __device__ __forceinline__ float tent_w(float off, int dd) {
   return fmaxf(0.0f, 1.0f - fabsf(off - (float)dd));
 }
@@ -531,21 +553,23 @@ __device__ __forceinline__ float tent_w(float off, int dd) {
 //       prev[c][cz, cy, cx]
 // over the two taps per axis whose tent weight can be non-zero, in the
 // order the three passes add them. prev: NC planes of [D, H, W] at stride
-// `cstride` floats.
-template <int NC>
-__device__ void warp8(const float* p, const float* prev, long cstride, int z,
-                      int y, int x, float vz, int w, int h, int d,
-                      int h_glob, int k, bool with_jitter, const Reproj& r0,
-                      float* out) {
+// `cstride` floats; ox the x offset at (z, y, x), oy_at(cx) the y offset at
+// (z, y, cx), oz_at(b, cy, cx) the z offset at (z, cy, cx), cy the row of
+// the y tap b of column cx. I: the index type (int where the planes hold
+// under 2^31 floats: fewer registers).
+template <int NC, class OyAt, class OzAt, class I = long>
+__device__ __forceinline__ void warp8_by(const float* prev, I cstride,
+                                         int z, int y, int x, int w, int h,
+                                         int d, float ox, const OyAt& oy_at,
+                                         const OzAt& oz_at, float* out) {
   float accx[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) accx[c] = 0.0f;
-  int x0 = (int)floorf(r0.ox);
+  int x0 = (int)floorf(ox);
   for (int a = 0; a < 2; ++a) {
-    float wxa = tent_w(r0.ox, x0 + a);
+    float wxa = tent_w(ox, x0 + a);
     int cx = clampi(x + x0 + a, 0, w - 1);
-    float oy = reproj_offsets(p, z, y, cx, vz, w, h, d, h_glob, k,
-                              with_jitter).oy;
+    float oy = oy_at(cx);
     int y0 = (int)floorf(oy);
     float accy[NC];
 #pragma unroll
@@ -553,8 +577,7 @@ __device__ void warp8(const float* p, const float* prev, long cstride, int z,
     for (int b = 0; b < 2; ++b) {
       float wyb = tent_w(oy, y0 + b);
       int cy = clampi(y + y0 + b, 0, h - 1);
-      float oz = reproj_offsets(p, z, cy, cx, vz, w, h, d, h_glob, k,
-                                with_jitter).oz;
+      float oz = oz_at(b, cy, cx);
       int z0 = (int)floorf(oz);
       float accz[NC];
 #pragma unroll
@@ -562,10 +585,10 @@ __device__ void warp8(const float* p, const float* prev, long cstride, int z,
       for (int e = 0; e < 2; ++e) {
         float wze = tent_w(oz, z0 + e);
         int cz = clampi(z + z0 + e, 0, d - 1);
-        long idx = ((long)cz * h + cy) * w + cx;
+        I idx = ((I)cz * h + cy) * w + cx;
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          accz[c] = accz[c] + __ldg(prev + c * cstride + idx) * wze;
+          accz[c] = accz[c] + __ldg(prev + (c * cstride + idx)) * wze;
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) accy[c] = accy[c] + accz[c] * wyb;
@@ -575,6 +598,24 @@ __device__ void warp8(const float* p, const float* prev, long cstride, int z,
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) out[c] = accx[c];
+}
+
+// warp8_by with every offset from reproj_offsets at slice depth vz; r0 the
+// offsets at (z, y, x).
+template <int NC>
+__device__ void warp8(const float* p, const float* prev, long cstride, int z,
+                      int y, int x, float vz, int w, int h, int d,
+                      int h_glob, int k, bool with_jitter, const Reproj& r0,
+                      float* out) {
+  const auto oy_at = [&](int cx) {
+    return reproj_offsets(p, z, y, cx, vz, w, h, d, h_glob, k, with_jitter)
+        .oy;
+  };
+  const auto oz_at = [&](int, int cy, int cx) {
+    return reproj_offsets(p, z, cy, cx, vz, w, h, d, h_glob, k, with_jitter)
+        .oz;
+  };
+  warp8_by<NC>(prev, cstride, z, y, x, w, h, d, r0.ox, oy_at, oz_at, out);
 }
 
 // ---- visibility.py: the low-rate upsample ----------------------------------
@@ -754,9 +795,10 @@ __device__ __forceinline__ void xy_blend_weights(float ox, float oy,
 }
 
 // The 3-tap clamped xy tent of the 4 scatter planes sc [4, D, H, W]
-// (n = D*H*W) at (z, y, x), x first then y.
+// (n = D*H*W, of index type I) at (z, y, x), x first then y.
+template <class I>
 __device__ __forceinline__ void xy_blend4(const float* __restrict__ sc,
-                                          long n, int z, int y, int x,
+                                          I n, int z, int y, int x,
                                           int w, int h, const float* wts,
                                           float* out) {
   const int xm = max(x - 1, 0), xp = min(x + 1, w - 1);
@@ -764,11 +806,11 @@ __device__ __forceinline__ void xy_blend4(const float* __restrict__ sc,
   const int rows[3] = {ym, y, yp};
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float* pl = sc + c * n + (long)z * h * w;
+    const float* pl = sc + (c * n + (I)z * h * w);
     float px[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      const float* row = pl + (long)rows[r] * w;
+      const float* row = pl + (I)rows[r] * w;
       px[r] = wts[0] * __ldg(row + xm) + wts[1] * __ldg(row + x)
               + wts[2] * __ldg(row + xp);
     }
@@ -776,27 +818,41 @@ __device__ __forceinline__ void xy_blend4(const float* __restrict__ sc,
   }
 }
 
-// One slice of the front-to-back integral: advances the carry
-// (L_r, L_g, L_b, T) by the sampled (r, g, b, ext) of slice z, whose
-// thickness comes from the depth mapping (fpw, near; lfpz = log(fpz)). The
-// expm1 form, Taylor below an optical depth of 1e-2.
-__device__ __forceinline__ void integrate_slice(float lfpz, float fpw,
-                                                float near_, int z, int d,
-                                                const float* sampled,
-                                                float* carry) {
+// The thickness of slice z in view depth, from the depth mapping (fpw,
+// near; lfpz = log(fpz)).
+__device__ __forceinline__ float slice_dz(float lfpz, float fpw, float near_,
+                                          int z, int d) {
   const float zf = (float)z;
   const float vz_hi = (expf(lfpz * (zf + 0.5f) / (float)d) - 1.0f) * fpw
                       + near_;
   const float vz_lo = zf > 0.0f
       ? (expf(lfpz * (zf - 0.5f) / (float)d) - 1.0f) * fpw + near_
       : near_;
-  const float dz = vz_hi - vz_lo;
-  const float od = sampled[3] * dz;
-  const float t = expf(-od);
+  return vz_hi - vz_lo;
+}
+
+// The terms of one slice of the front-to-back integral: its transmittance
+// t and the factor that scales its sampled radiance, from its extinction
+// `ext` and its thickness dz. The expm1 form, Taylor below an optical
+// depth of 1e-2.
+__device__ __forceinline__ void slice_terms(float dz, float ext, float& t,
+                                            float& factor) {
+  const float od = ext * dz;
+  t = expf(-od);
   const bool small = od < 1e-2f;
-  const float factor = small
-      ? dz * (1.0f - 0.5f * od * (1.0f - od / 3.0f))
-      : (1.0f - t) / sampled[3];
+  factor = small ? dz * (1.0f - 0.5f * od * (1.0f - od / 3.0f))
+                 : (1.0f - t) / ext;
+}
+
+// One slice of the front-to-back integral: advances the carry
+// (L_r, L_g, L_b, T) by the sampled (r, g, b, ext) of slice z:
+// L_c += (T * s_c) * factor, T *= t.
+__device__ __forceinline__ void integrate_slice(float lfpz, float fpw,
+                                                float near_, int z, int d,
+                                                const float* sampled,
+                                                float* carry) {
+  float t, factor;
+  slice_terms(slice_dz(lfpz, fpw, near_, z, d), sampled[3], t, factor);
   const float tc = carry[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) carry[c] = carry[c] + tc * sampled[c] * factor;

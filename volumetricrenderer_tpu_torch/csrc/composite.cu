@@ -15,7 +15,10 @@
 // to [0, d-1], z1 = min(z0 + 1, d - 1); the xy taps are the 3x3 cell
 // neighbours weighted by the static per-pixel-in-cell bilinear weights w9
 // [9, py*px] (zg_composite.cell_weights; clamp-to-edge), of which at most
-// 2x2 are non-zero; then rgb = scene * T + L, a = T, packed [IH, IW, 4].
+// 2x2 are non-zero: the host gives each in-cell position its first tap
+// (dy0, dx0) and those four weights, copied bit for bit from w9
+// (zg_composite.cell_taps); then rgb = scene * T + L, a = T, packed
+// [IH, IW, 4].
 // With no scene colour (scene null) the kernel writes the four sampled
 // planes (L_r, L_g, L_b, T) [4, IH, IW] instead, as
 // composite_zgather_planes returns them: the co-sited fractional-resolution
@@ -50,6 +53,18 @@
 // depth and 133 MB of image: ~0.099 ms. The planes form at 1920x1080 reads
 // no scene and writes 33 MB. Neighbouring pixels share cells, so the 8 taps
 // per channel come from L1/L2; the planes are read about once from memory.
+// What the design does about it: a 2D block of 32x8 pixels (a warp is 32
+// pixels of one row: coalesced depth, scene and image) with no division by
+// the image width, the cell sizes of the 1080p, 4K and co-sited frames
+// (8x8, 16x16, 8x16) as template parameters so that the cell and in-cell
+// indices cost shifts; each thread reads its position's 2x2 entry once and
+// gathers exactly four xy taps in (dy, dx) order, skipping zero weights as
+// the 3x3 loop did -- the same adds in the same order, so the result is
+// bit for bit the 3x3 loop's. The first form looped over all nine taps with
+// a table load and a data-dependent skip each, in 1D blocks that divided
+// by the image width; on a slab's 360x1920 band it lost to grid_sample. On
+// the H100 the 2x2 taps and the 2D block took 26-29% off each cells form,
+// the template 12-15% more (tools/k3_k4_against.py; PERF.md).
 #include <cuda_runtime.h>
 
 // froxel.depth_to_froxel_z - 0.5 of the pixel's depth, clipped to the
@@ -105,32 +120,42 @@ __device__ __forceinline__ void write_pixel(const float* s0, const float* s1,
   out[o + 3] = v[3];
 }
 
+// PY, PX: the cell's pixel rows and columns where the launcher knows them
+// (8x8, 16x16, 8x16), so that the cell and in-cell indices cost shifts;
+// 0 takes them from the shapes.
+template <int PY, int PX>
 __global__ void composite_kernel(const float* __restrict__ acc,
                                  const float* __restrict__ scene,
                                  const float* __restrict__ depth,
-                                 const float* __restrict__ w9,
+                                 const int2* __restrict__ first,
+                                 const float4* __restrict__ wts,
                                  const float* __restrict__ fp, int w, int h,
                                  int d, int ih, int iw, int h_acc,
                                  int row_off, float* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ih * iw) return;
-  const int j = idx % iw;
-  const int i = idx / iw;
-  const int py = ih / h, px = iw / w, cp = py * px;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ih || j >= iw) return;
+  const int py = PY ? PY : ih / h, px = PX ? PX : iw / w;
   const int cy = i / py, cx = j / px;
-  const int cell = (i % py) * px + (j % px);
+  const int cell = (i - cy * py) * px + (j - cx * px);
+  const long idx = (long)i * iw + j;
   int z0, z1;
   float f;
   depth_taps(__ldg(depth + idx), fp, d, z0, z1, f);
 
+  const int2 t0 = __ldg(first + cell);
+  const float4 q = __ldg(wts + cell);
+  const float wq[4] = {q.x, q.y, q.z, q.w};
   const long n = (long)d * h_acc * w;
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = min(max(cy + row_off + dy - 1, 0), h_acc - 1);
-    for (int dx = 0; dx < 3; ++dx) {
-      const float wt = __ldg(w9 + (dy * 3 + dx) * cp + cell);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int yy = min(max(cy + row_off + t0.x + a - 1, 0), h_acc - 1);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float wt = wq[2 * a + b];
       if (wt == 0.0f) continue;  // adds exactly 0 in the reference
-      const int xx = min(max(cx + dx - 1, 0), w - 1);
+      const int xx = min(max(cx + t0.y + b - 1, 0), w - 1);
       add_tap(acc, n, h_acc, w, z0, z1, yy, xx, wt, s0, s1);
     }
   }
@@ -170,14 +195,21 @@ __global__ void composite_pixels_kernel(
 }
 
 extern "C" int vr_composite(const float* acc, const float* scene,
-                            const float* depth, const float* w9,
-                            const float* fp, int w, int h, int d, int ih,
-                            int iw, int h_acc, int row_off, float* out,
-                            cudaStream_t stream) {
-  const int n = ih * iw;
-  const int block = 256;
-  composite_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
-      acc, scene, depth, w9, fp, w, h, d, ih, iw, h_acc, row_off, out);
+                            const float* depth, const int* first,
+                            const float* wts, const float* fp, int w, int h,
+                            int d, int ih, int iw, int h_acc, int row_off,
+                            float* out, cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((iw + block.x - 1) / block.x, (ih + block.y - 1) / block.y);
+  const int py = ih / h, px = iw / w;
+  auto kernel = composite_kernel<0, 0>;
+  if (py == 8 && px == 8) kernel = composite_kernel<8, 8>;
+  if (py == 16 && px == 16) kernel = composite_kernel<16, 16>;
+  if (py == 8 && px == 16) kernel = composite_kernel<8, 16>;
+  kernel<<<grid, block, 0, stream>>>(
+      acc, scene, depth, reinterpret_cast<const int2*>(first),
+      reinterpret_cast<const float4*>(wts), fp, w, h, d, ih, iw, h_acc,
+      row_off, out);
   return (int)cudaGetLastError();
 }
 
@@ -192,4 +224,24 @@ extern "C" int vr_composite_pixels(const float* acc, const float* scene,
   composite_pixels_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
       acc, scene, depth, yk, yw, xk, xw, fp, w, h, d, ih, iw, out);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of the cells kernel at 8x8 and at any cell, and of
+// the per-pixel kernel: per kernel its registers per thread, static shared
+// bytes per block, local bytes per thread and largest block, four ints each
+// into out; returns the error.
+extern "C" int vr_composite_attrs(int* out) {
+  const void* fns[3] = {(const void*)composite_kernel<8, 8>,
+                        (const void*)composite_kernel<0, 0>,
+                        (const void*)composite_pixels_kernel};
+  for (int k = 0; k < 3; ++k) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+    if (err != cudaSuccess) return (int)err;
+    out[4 * k] = a.numRegs;
+    out[4 * k + 1] = (int)a.sharedSizeBytes;
+    out[4 * k + 2] = (int)a.localSizeBytes;
+    out[4 * k + 3] = a.maxThreadsPerBlock;
+  }
+  return 0;
 }

@@ -7,11 +7,10 @@
 // temporal._reproj_offsets/_tent_pass inlined), and the standalone TPU
 // kernel that computes the same four planes for the staged frame
 // (volumetricrenderer_tpu/ops/pallas/integrate_blend.py `_kernel` /
-// `integrate_blend_fused`). The TPU carried (L, T) from
-// one sequential grid step to the next in VMEM scratch; here one thread owns
-// one (y, x) column and carries (L, T) in registers while it marches z.
+// `integrate_blend_fused`). The TPU carried (L, T) from one sequential grid
+// step to the next in VMEM scratch.
 //
-// Per slice z of the column:
+// Per slice z of a (y, x) column:
 //   xyb(z)   = 3-tap clamped xy tent of the 4 scatter planes at the jitter
 //              offset (ox, oy); the top slice's upper tap is xyb(d-1) itself;
 //   sampled  = xyb(z) + oz * (xyb(z+1) - xyb(z));
@@ -21,71 +20,225 @@
 //   alpha * (warped T != 0)) gives the stored value. The carry continues
 //   with the un-blended values.
 //
+// Only the carry is sequential: a slice's transmittance t and factor depend
+// on its sample alone, and the warp and the blend need the carry only at
+// the final lerp. So a block owns a tile of K3_TX consecutive columns of
+// one row and takes its d slices K3_ZC at a time in three phases:
+//   1. parallel over (slice, column): xy_blend4 into shared memory, then
+//      each slice's sample, t and factor (slice_terms, integrate_slice's
+//      operations in its order);
+//   2. serial over the chunk's slices, one thread per column, half a warp:
+//      L_c += (T * s_c) * factor, T *= t, from shared memory, each
+//      un-blended carry written back per slice; the carry stays in the
+//      thread's registers from one chunk to the next. The other seven warps
+//      meanwhile compute the reprojection offsets the warp reads, each
+//      once: per slice and column cx of the tile and the k + 1 beyond each
+//      side, the offsets at (z, y, cx) and the z offsets at the two rows
+//      the y taps of cx read -- where the first form recomputed 7
+//      reprojections per froxel, 3 of 25/16 columns' worth here, with
+//      reproj_vy of the rows once per slice;
+//   3. parallel over (slice, column): warp8_by<4> from those offsets and
+//      the alpha blend, written to out_acc (a half warp writes a tile row).
+// Every per-froxel float operation is the one-thread-per-column form's,
+// in its order, so the result is bit for bit that form's and its twin's
+// (ops/frame_fused.integrate_blend_plain, within CHECKS); indices are
+// 32-bit (the launcher refuses planes past 2^31 floats).
+//
 // Bound on the H100: bytes. Read the scatter planes (66 MB) and the previous
 // accumulation (66 MB), write the new accumulation (66 MB) at FULL: ~200 MB,
-// ~60 us at 3.35 TB/s. This first form reads each scatter value 9 times
-// (through L1/L2) and the warp recomputes 7 reprojections per froxel; its
-// 32,400 column threads under-fill 132 SMs, which a later change that splits
-// the column march or stages tiles in shared memory can address.
+// ~60 us at 3.35 TB/s. The first form gave each column one thread that
+// marched all 128 slices in 64-thread blocks: ~12% of the card's thread
+// slots at the full grid, each slice waiting on its 36 scatter loads and
+// its 7 reprojections, so a slab's 13,680 columns took as long as the
+// whole grid's 32,400. This one is bound by latency between its barriers
+// at 64 registers a thread (4 blocks an SM): on the H100, with the warp,
+// the offsets and the xy blend cut out, the same phases still take ~1.7x
+// the bound (tools/k3_k4_against.py; PERF.md).
+#include <climits>
+
 #include "common.cuh"
 
-__global__ void integrate_blend_kernel(VrTables T,
-                                       const float* __restrict__ sc,
-                                       const float* __restrict__ prev_acc,
-                                       float* __restrict__ out_acc) {
-  const int w = T.w, h = T.h, d = T.d;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= w * h) return;
-  const int x = i % w;
-  const int y = i / w;
-  const long n = (long)d * h * w;
-  const float* ap = T.abpar;
-  const float fpw = ap[15], near_ = ap[16];
-  const float alpha = ap[20];
-  const float oz = ap[26];
-  float wts[6];
-  xy_blend_weights(ap[24], ap[25], wts);
-  const float lfpz = logf(ap[14]);
+#define K3_TX 16                        // columns of a tile (one row)
+#define K3_ZC 32                        // slices per chunk
+#define K3_THREADS 256
+#define K3_ZP (K3_THREADS / K3_TX)      // slices per pass of phases 1 and 3
 
-  float cur[4], nxt[4];
-  xy_blend4(sc, n, 0, y, x, w, h, wts, cur);
-  float carry[4] = {0.0f, 0.0f, 0.0f, 1.0f};
-  for (int z = 0; z < d; ++z) {
-    if (z + 1 < d) {
-      xy_blend4(sc, n, z + 1, y, x, w, h, wts, nxt);
-    } else {
+// The columns whose reprojection offsets a tile's warp reads: its own and
+// the k + 1 beyond each side (its taps reach x - k .. x + k + 1); the rows
+// whose view-space y the offsets read: y - k .. y + k + 1.
+__host__ __device__ __forceinline__ int k3_nx(int k) {
+  return K3_TX + 2 * k + 1;
+}
+
+__host__ __device__ __forceinline__ int k3_ny(int k) { return 2 * k + 2; }
+
+// Dynamic shared memory, floats: per slice of a chunk the x, y and the two
+// z offsets of each of the k3_nx columns, then reproj_vy of the k3_ny rows.
+__host__ __device__ __forceinline__ int k3_shared(int k) {
+  return K3_ZC * (4 * k3_nx(k) + k3_ny(k));
+}
+
+__global__ void __launch_bounds__(K3_THREADS, 4)
+integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
+                       const float* __restrict__ prev_acc,
+                       float* __restrict__ out_acc) {
+  // xyb row k is slice z0 + k; row 0 is the previous chunk's row K3_ZC
+  __shared__ float xyb[4][K3_ZC + 1][K3_TX];
+  __shared__ float lrgb[3][K3_ZC][K3_TX];  // sampled r, g, b, then L
+  __shared__ float fac[K3_ZC][K3_TX];      // the slice's factor
+  __shared__ float tr[K3_ZC][K3_TX];       // the slice's transmittance
+  __shared__ float tcar[K3_ZC][K3_TX];     // T after the slice
+  __shared__ float vzc_s[K3_ZC];           // view_z of the slice's centre
+  __shared__ float dz_s[K3_ZC];            // slice_dz
+  extern __shared__ float dyn_s[];         // k3_shared
+
+  const int w = T.w, h = T.h, d = T.d, kw = T.k;
+  const int nx = k3_nx(kw), ny = k3_ny(kw), plane = K3_ZC * nx;
+  float* off_s = dyn_s;               // [4][K3_ZC][nx]: ox, oy, oz b=0, 1
+  float* vy_s = dyn_s + 4 * plane;    // [K3_ZC][ny]
+  const int lx = threadIdx.x % K3_TX, lz = threadIdx.x / K3_TX;
+  const int xt = blockIdx.x * K3_TX, y = blockIdx.y;
+  const int x = xt + lx;
+  const int xs = min(x, w - 1);  // past the row's end: a copy of its last
+  const int n = d * h * w;
+  const float* ap = T.abpar;  // scalars are read where used: fewer live
+  float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f, Tc = 1.0f;  // phase 2's carry
+
+  for (int z0 = 0; z0 < d; z0 += K3_ZC) {
+    const int nz = min(K3_ZC, d - z0);
+    // 1. the xy blend of slices z0 + 1 .. z0 + nz (past the top: slice
+    // d - 1 itself; slice 0 too in the first chunk) and each slice's
+    // depths; then each slice's sample and terms, and the view-space y of
+    // the rows the offsets read
+    float wts[6];
+    xy_blend_weights(ap[24], ap[25], wts);
+    for (int k = lz + (z0 > 0); k <= nz; k += K3_ZP) {
+      float v[4];
+      xy_blend4(sc, n, min(z0 + k, d - 1), y, xs, w, h, wts, v);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) nxt[c] = cur[c];
+      for (int c = 0; c < 4; ++c) xyb[c][k][lx] = v[c];
     }
-    float sampled[4];
+    if (threadIdx.x < nz) {
+      const int z = z0 + threadIdx.x;
+      vzc_s[threadIdx.x] = view_z(ap, (float)z + 0.5f, d);
+      dz_s[threadIdx.x] = slice_dz(logf(ap[14]), ap[15], ap[16], z, d);
+    }
+    __syncthreads();
+    const float oz = ap[26];
+    for (int k = lz; k < nz; k += K3_ZP) {
+      float s[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sampled[c] = cur[c] + oz * (nxt[c] - cur[c]);
-    integrate_slice(lfpz, fpw, near_, z, d, sampled, carry);
-
-    // accumulation blend (alpha mode: success = warped T != 0); the carry
-    // continues with the un-blended values
-    const float vzc = view_z(ap, (float)z + 0.5f, d);
-    const Reproj r0 = reproj_offsets(ap, z, y, x, vzc, w, h, d, T.h_glob,
-                                     T.k, false);
-    float warped[4];
-    warp8<4>(ap, prev_acc, n, z, y, x, vzc, w, h, d, T.h_glob, T.k, false,
-             r0, warped);
-    const float wgt = alpha * (warped[3] != 0.0f ? 1.0f : 0.0f);
-    const long o = ((long)z * h + y) * w + x;
+      for (int c = 0; c < 4; ++c)
+        s[c] = xyb[c][k][lx] + oz * (xyb[c][k + 1][lx] - xyb[c][k][lx]);
+      slice_terms(dz_s[k], s[3], tr[k][lx], fac[k][lx]);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
+      for (int c = 0; c < 3; ++c) lrgb[c][k][lx] = s[c];
+    }
+    for (int i = threadIdx.x; i < nz * ny; i += K3_THREADS) {
+      const int k = i / ny, j = i - k * ny;
+      vy_s[i] = reproj_vy(ap, clampi(y - kw + j, 0, h - 1), vzc_s[k],
+                          T.h_glob);
+    }
+    __syncthreads();
+    // 2. the carry, integrate_slice's update, one thread a column in
+    // warp 0, whose other half moves the chunk's last xy blend to row 0 for
+    // the next chunk's lerp; warps 1-7 compute the offsets the warp reads,
+    // each once where the warp of a froxel recomputed its own seven: per
+    // slice and column cx those at (z, y, cx), then the z offsets at both
+    // rows cy that the y taps of cx read
+    if (threadIdx.x < 32) {
+      if (lz == 0) {
+        for (int k = 0; k < nz; ++k) {
+          const float tc = Tc;
+          const float f = fac[k][lx];
+          Lr = Lr + tc * lrgb[0][k][lx] * f;
+          Lg = Lg + tc * lrgb[1][k][lx] * f;
+          Lb = Lb + tc * lrgb[2][k][lx] * f;
+          lrgb[0][k][lx] = Lr;
+          lrgb[1][k][lx] = Lg;
+          lrgb[2][k][lx] = Lb;
+          Tc = tc * tr[k][lx];
+          tcar[k][lx] = Tc;
+        }
+      } else {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) cur[c] = nxt[c];
+        for (int c = 0; c < 4; ++c) xyb[c][0][lx] = xyb[c][nz][lx];
+      }
+    } else {
+#pragma unroll 2
+      for (int i = threadIdx.x - 32; i < nz * nx; i += K3_THREADS - 32) {
+        const int k = i / nx, j = i - k * nx;
+        const int z = z0 + k, cx = clampi(xt - kw + j, 0, w - 1);
+        const float vzc = vzc_s[k];
+        const float vx = reproj_vx(ap, cx, vzc, w);
+        const float* vyk = vy_s + k * ny;
+        const Reproj r = reproj_view(ap, z, y, cx, vx, vyk[kw], vzc, w, h, d,
+                                     T.h_glob, kw, false);
+        off_s[i] = r.ox;
+        off_s[plane + i] = r.oy;
+        const int y0 = (int)floorf(r.oy);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int cy = clampi(y + y0 + b, 0, h - 1);
+          off_s[(2 + b) * plane + i] =
+              reproj_view(ap, z, cy, cx, vx, vyk[cy - y + kw], vzc, w, h, d,
+                          T.h_glob, kw, false).oz;
+        }
+      }
+    }
+    __syncthreads();
+    // 3. the accumulation blend (alpha mode: success = warped T != 0), the
+    // warp's offsets from phase 2
+#pragma unroll 2
+    for (int k = lz; k < nz && x < w; k += K3_ZP) {
+      const int z = z0 + k;
+      const int ib = k * nx - (xt - kw);  // + cx: column cx of slice k
+      const auto oy_at = [&](int cx) { return off_s[plane + ib + cx]; };
+      const auto oz_at = [&](int b, int, int cx) {
+        return off_s[(2 + b) * plane + ib + cx];
+      };
+      float warped[4];
+      warp8_by<4>(prev_acc, n, z, y, x, w, h, d, off_s[ib + x], oy_at, oz_at,
+                  warped);
+      const float wgt = ap[20] * (warped[3] != 0.0f ? 1.0f : 0.0f);
+      const float carry[4] = {lrgb[0][k][lx], lrgb[1][k][lx], lrgb[2][k][lx],
+                              tcar[k][lx]};
+      const int o = (z * h + y) * w + x;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
+    }
+    __syncthreads();
   }
 }
 
 extern "C" int vr_integrate_blend(const VrTables* T, const float* sc,
                                   const float* prev_acc, float* out_acc,
                                   cudaStream_t stream) {
-  const int n = T->w * T->h;
-  const int block = 64;
-  integrate_blend_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
+  if ((long)T->w * T->h * T->d * 4 > INT_MAX)  // past 32-bit indices
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T->w + K3_TX - 1) / K3_TX, T->h);
+  const int shared = k3_shared(T->k) * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(  // any reprojection window
+      integrate_blend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared);
+  if (err != cudaSuccess) return (int)err;
+  integrate_blend_kernel<<<grid, K3_THREADS, shared, stream>>>(
       *T, sc, prev_acc, out_acc);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of the kernel: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into out[0..3];
+// returns the error.
+extern "C" int vr_integrate_blend_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, (const void*)integrate_blend_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
 }

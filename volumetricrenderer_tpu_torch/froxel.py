@@ -47,6 +47,22 @@ def make_froxel_params(fov_y_rad: torch.Tensor, aspect: torch.Tensor,
                         near=f32(near), grid=grid)
 
 
+def depth_params(p: FroxelParams) -> torch.Tensor:
+    """(z, w, near) as one float32 [3] tensor on the params' device, the
+    depth mapping the composite kernels read: a view of the params' own
+    storage where params_to packed them in that order (no copy, no launch),
+    else a new stack."""
+    z, w, near = p.z, p.w, p.near
+    step = z.element_size()
+    if (z.dtype == w.dtype == near.dtype == torch.float32
+            and z.untyped_storage().data_ptr()
+            == near.untyped_storage().data_ptr()
+            and w.data_ptr() == z.data_ptr() + step
+            and near.data_ptr() == z.data_ptr() + 2 * step):
+        return z.as_strided((3,), (1,))
+    return torch.stack([z, w, near]).to(torch.float32)
+
+
 def params_to(p: FroxelParams, device) -> FroxelParams:
     """The same params with their tensors on `device` (one copy)."""
     vals = torch.stack([p.x, p.y, p.z, p.w, p.near])

@@ -128,7 +128,7 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci]},
         "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
         "composite": {
-            "vr_composite": [vp, vp, vp, vp, vp] + [ci] * 7 + [vp],
+            "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci]},
@@ -160,6 +160,30 @@ def launch(name: str, *args, entry: str = "") -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[name] += 1
+
+
+# source -> the kernels its `vr_<source>_attrs` entry reports, in its order
+ATTR_KERNELS = {"integrate_blend": ("integrate_blend_kernel",),
+                "composite": ("composite_kernel<8, 8>",
+                              "composite_kernel<0, 0>",
+                              "composite_pixels_kernel")}
+
+
+def kernel_attrs(name: str) -> dict:
+    """cudaFuncGetAttributes of source `name`'s kernels (ATTR_KERNELS):
+    {kernel: {"registers": per thread, "shared_bytes": static per block,
+    "local_bytes": per thread, "max_threads": per block}}."""
+    kernels = ATTR_KERNELS[name]
+    buf = (ctypes.c_int * (4 * len(kernels)))()
+    fn = getattr(lib(name), f"vr_{name}_attrs")
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    err = fn(ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed for {name}: "
+                           f"error {err}")
+    keys = ("registers", "shared_bytes", "local_bytes", "max_threads")
+    return {k: dict(zip(keys, buf[4 * i:4 * i + 4]))
+            for i, k in enumerate(kernels)}
 
 
 def check_cuda(*tensors: torch.Tensor, dtype=torch.float32) -> None:

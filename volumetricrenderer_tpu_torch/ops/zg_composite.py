@@ -8,7 +8,10 @@ and the xy taps of the pixel's cell and its clamped neighbours weighted by
 the static in-cell bilinear weights (pixel -> froxel coordinate (i + 0.5) *
 W / IW - 0.5, clamp to edge). The TPU kernel's padded planes, cells-as-rows
 transpose, 8x8 sub-images and unshuffle are layout workarounds and do not
-exist here: any multiple-of-8 cell is one kernel.
+exist here: any multiple-of-8 cell is one kernel. At most 2x2 of a pixel's
+nine weights are non-zero; K4 reads those four and their first tap per
+in-cell position from a table made on the host (`cell_taps`), and its twin
+adds all nine (the zero weights add nothing: the same sums).
 
 `composite` launches the CUDA kernel K4 (csrc/composite.cu) for CUDA tensors
 and runs its twin `composite_plain` for CPU tensors; `composite_planes` is
@@ -68,10 +71,40 @@ def cell_weights(py: int, px: int, us: int = 1) -> np.ndarray:
     return out.reshape(9, py * px)
 
 
+def cell_taps(w9: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """K4's 2x2 form of a [9, py*px] cell-weight table: per in-cell position
+    its first tap (dy0, dx0) [py*px, 2] int32 and the four weights
+    w9[(dy0 + a) * 3 + dx0 + b], a, b in (0, 1), [py*px, 4] float32, copied
+    bit for bit. Every position's non-zero weights must lie in one 2x2
+    window of the 3x3 neighbours, as they do for in-cell offsets in (-0.5,
+    0.5) (cell_weights at any us); raises on more than 2 non-zero taps on
+    either axis."""
+    w = np.ascontiguousarray(w9, np.float32).reshape(3, 3, -1)
+    nz = w != 0.0
+
+    def first(hit):             # [3, cp] -> the window's first tap
+        lo = np.argmax(hit, axis=0)
+        hi = 2 - np.argmax(hit[::-1], axis=0)
+        if (hit.any(axis=0) & (hi - lo > 1)).any():
+            raise ValueError("cell weights with more than 2 non-zero taps "
+                             "on an axis")
+        return np.minimum(lo, 1)
+
+    dy0, dx0 = first(nz.any(axis=1)), first(nz.any(axis=0))
+    cp, ab = w.shape[2], np.arange(2)
+    wts = w[dy0[:, None, None] + ab[None, :, None],
+            dx0[:, None, None] + ab[None, None, :],
+            np.arange(cp)[:, None, None]]
+    return (np.stack([dy0, dx0], axis=1).astype(np.int32),
+            wts.reshape(cp, 4))
+
+
 @functools.lru_cache(maxsize=8)
-def _device_weights(data: bytes, cp: int, device: torch.device):
-    """A weight table on the card, uploaded once per table and device."""
-    return cuda.upload(np.frombuffer(data, np.float32).reshape(9, cp), device)
+def _device_cell_taps(data: bytes, cp: int, device: torch.device):
+    """cell_taps of a weight table on the card, uploaded once per table and
+    device."""
+    first, wts = cell_taps(np.frombuffer(data, np.float32).reshape(9, cp))
+    return cuda.upload(first, device, torch.int32), cuda.upload(wts, device)
 
 
 def _check(acc, view_depth, grid_whd, w9, row_off=0) -> np.ndarray:
@@ -161,13 +194,13 @@ def _launch(acc, scene_color, view_depth, params, grid_whd, w9, out,
     w, h, d = grid_whd
     ih, iw = view_depth.shape
     dev = acc.device
-    table = _device_weights(w9.tobytes(), w9.shape[1], dev)
-    fp = torch.stack([params.z, params.w, params.near]).to(
-        device=dev, dtype=torch.float32)
+    first, wts = _device_cell_taps(w9.tobytes(), w9.shape[1], dev)
+    fp = froxel.depth_params(params).to(dev)
     cuda.launch("composite", cuda.ptr(acc),
                 None if scene_color is None else cuda.ptr(scene_color),
-                cuda.ptr(view_depth), cuda.ptr(table), cuda.ptr(fp), w, h, d,
-                ih, iw, acc.shape[2], row_off, cuda.ptr(out))
+                cuda.ptr(view_depth), cuda.ptr(first), cuda.ptr(wts),
+                cuda.ptr(fp), w, h, d, ih, iw, acc.shape[2], row_off,
+                cuda.ptr(out))
     return out
 
 
@@ -339,8 +372,7 @@ def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
     ih, iw = view_depth.shape
     dev = acc.device
     yk, yw, xk, xw = _device_taps(ih, iw, _y_map(y_map, h, ih), w, dev)
-    fp = torch.stack([params.z, params.w, params.near]).to(
-        device=dev, dtype=torch.float32)
+    fp = froxel.depth_params(params).to(dev)
     out = torch.empty((ih, iw, 4), dtype=torch.float32, device=dev)
     cuda.launch("composite", cuda.ptr(acc), cuda.ptr(scene_color),
                 cuda.ptr(view_depth), cuda.ptr(yk), cuda.ptr(yw),
