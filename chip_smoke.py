@@ -11,8 +11,9 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
-     and prints the registers per thread and shared memory per block of
-     K3's and K4's kernels (cudaFuncGetAttributes);
+     and prints the registers per thread, shared memory per block and
+     local (spill) bytes of K2's, K3's, K4's and K6's kernels
+     (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
@@ -123,8 +124,11 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      reproduce the path's image bit for bit), checks that the terrain
      changes more of K7's elements, and the local terrain more of K1's,
      K6's and K9's, than each hold lets past (ARM_FRACTION tightens K1's
-     and K6's), and shows that K7 then K10 gives K5's volume and K8 then
-     K10 gives K3's, bit for bit;
+     and K6's), and shows that K7 then K10 gives K5's volume, K8 then
+     K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
+     the radiance bake, rays and the baked visibility), bit for bit, and
+     that K2's and K6's blocks and K2's shared memory are what the
+     wrappers reckon;
   6. times warm frames of the fused, staged, exact, history, vis_bake,
      map_dir, map, fused_exact, fused_vis, uhd_exact, uhd and demo paths
      and, with a fixed camera and G-buffer, frame +
@@ -1043,6 +1047,42 @@ def main() -> int:
         log(f"# shadow_scatter, {mode}: source {p_tables.local_source}")
     errs["shadow_scatter"] = max(errs["shadow_scatter"], *k2_err.values())
     del got, want
+    # K2 is K5 then K6 in one kernel: its history and scatter planes equal
+    # theirs bit for bit, in each local source
+    for mode, (p_tables, p_sh, p_bake, p_vis) in (
+            ("radiance", (tables, prev_sh, bake, None)),
+            ("rays", k2_in["rays"][:2] + (None, None)),
+            ("baked", k2_in["baked"][:2] + (None, k2_in["baked"][2]))):
+        k2_sh, k2_sc = ff.shadow_scatter(p_tables, p_sh, p_bake, p_vis)
+        k5_sh = sb.dir_shadow_blend(p_tables, p_sh)
+        k6_sc = sca.scatter_local(p_tables, k5_sh, p_bake, p_vis)
+        same = torch.equal(k2_sh, k5_sh) and torch.equal(k2_sc, k6_sc)
+        log(f"# shadow_scatter, {mode}: = shadow_blend then scatter bit for "
+            f"bit: {same}")
+        if not same:
+            raise AssertionError(f"K2 ({mode}) differs from K5 then K6")
+    del k2_sh, k2_sc, k5_sh, k6_sc
+    # K2's and K6's blocks and K2's dynamic shared memory, as the wrappers
+    # reckon them
+    blk = (cuda.ctypes.c_int * 3)()
+    for local in (sca.LOCAL_RADIANCE, sca.LOCAL_RAY, sca.LOCAL_BAKED):
+        for kw in (0, 1, cfg.reproj_window, 8, 25):
+            cuda.lib("shadow_scatter").vr_shadow_scatter_geometry(
+                local, kw, cuda.ctypes.cast(blk, cuda.ctypes.c_void_p))
+            want = (*ff.K2_TILE, ff.k2_shared_bytes(kw))
+            if tuple(blk) != want:
+                raise AssertionError(f"K2's block and shared bytes at mode "
+                                     f"{local}, k={kw}: {tuple(blk)} in the "
+                                     f"kernel, {want} in ops/frame_fused")
+        cuda.lib("scatter").vr_scatter_geometry(
+            local, cuda.ctypes.cast(blk, cuda.ctypes.c_void_p))
+        if tuple(blk[:2]) != sca.K6_TILES[local]:
+            raise AssertionError(f"K6's block at mode {local}: "
+                                 f"{tuple(blk[:2])} in the kernel, "
+                                 f"{sca.K6_TILES[local]} in ops/scatter")
+    log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
+        f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
+        f"{cfg.reproj_window}, K6 {sca.K6_TILES}")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2

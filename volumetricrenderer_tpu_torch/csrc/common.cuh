@@ -74,16 +74,35 @@ __device__ __forceinline__ float view_z(const float* p, float fz, int d) {
 #define VR_LOCAL_RAY 1       // per-light loop, one any-hit ray per light
 #define VR_LOCAL_BAKED 2     // per-light loop over the low-rate visibility
 
+// froxel_world's view-space x of continuous column fxc and y of continuous
+// row fyc at view depth vz: functions of (column, slice) and (row, slice)
+// alone, so a slice tile computes each once.
+__device__ __forceinline__ float froxel_vx(const float* p, float fxc,
+                                          float vz, int w) {
+  return (2.0f * fxc / (float)w - 1.0f) * vz / p[12];
+}
+
+__device__ __forceinline__ float froxel_vy(const float* p, float fyc,
+                                          float vz, int h_glob) {
+  return (2.0f * fyc / (float)h_glob - 1.0f) * vz / p[13];
+}
+
+// The rest of froxel_world: view space -> world.
+__device__ __forceinline__ void view_world(const float* p, float vx, float vy,
+                                           float vz, float& wx, float& wy,
+                                           float& wz) {
+  wx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
+  wy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
+  wz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
+}
+
 // froxel (continuous fxc, fyc, view depth vz) -> world position.
 __device__ __forceinline__ void froxel_world(const float* p, float fxc,
                                              float fyc, float vz, int w,
                                              int h_glob, float& wx,
                                              float& wy, float& wz) {
-  float vx = (2.0f * fxc / (float)w - 1.0f) * vz / p[12];
-  float vy = (2.0f * fyc / (float)h_glob - 1.0f) * vz / p[13];
-  wx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
-  wy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
-  wz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
+  view_world(p, froxel_vx(p, fxc, vz, w), froxel_vy(p, fyc, vz, h_glob), vz,
+             wx, wy, wz);
 }
 
 // visibility.bake_world_planes: jittered world position of low sample
@@ -221,15 +240,24 @@ __device__ bool heightfield_occluded(const VrTables& T, float wx, float wy,
 // The any-hit's three primitive tests: does the ray (o, unit dir) hit
 // plane row q, sphere row q or box row q (with the ray's inverse
 // direction i) for t in (1e-4, max_t)?
+// EARLY (the slice tiles' sun rays) returns before the division or the
+// square root where the answer is known: a plane's t = num / denom is above
+// 1e-4 only where num and denom have one sign, and a sphere is hit only
+// where disc > 0 -- the same answers.
+template <bool EARLY = false>
 __device__ __forceinline__ bool plane_hit(const float* q, float wx, float wy,
                                           float wz, float dx, float dy,
                                           float dz, float max_t) {
   float denom = dx * q[0] + dy * q[1] + dz * q[2];
   if (fabsf(denom) < 1e-9f) denom = 1e-9f;
-  float t = -(wx * q[0] + wy * q[1] + wz * q[2] + q[3]) / denom;
+  const float num = -(wx * q[0] + wy * q[1] + wz * q[2] + q[3]);
+  if (EARLY && !((num > 0.0f && denom > 0.0f) || (num < 0.0f && denom < 0.0f)))
+    return false;
+  float t = num / denom;
   return t > 1e-4f && t < max_t;
 }
 
+template <bool EARLY = false>
 __device__ __forceinline__ bool sphere_hit(const float* q, float wx,
                                            float wy, float wz, float dx,
                                            float dy, float dz, float max_t) {
@@ -237,6 +265,7 @@ __device__ __forceinline__ bool sphere_hit(const float* q, float wx,
   float bq = ox * dx + oy * dy + oz * dz;
   float cq = ox * ox + oy * oy + oz * oz - q[3] * q[3];
   float disc = bq * bq - cq;
+  if (EARLY && !(disc > 0.0f)) return false;
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t = (-bq - sq > 1e-4f) ? -bq - sq : -bq + sq;
   return disc > 0.0f && t > 1e-4f && t < max_t;
@@ -260,18 +289,39 @@ __device__ __forceinline__ bool box_hit(const float* q, float wx, float wy,
   return tmax >= tmin && t > 1e-4f && t < max_t;
 }
 
+// The box tests' inverse direction of the ray (dx, dy, dz): inv_dir of each
+// component, or with INV (the slice tiles' sun rays, whose direction is a
+// frame constant) the three values at `inv`, computed once per block with
+// inv_dir.
+template <bool INV>
+__device__ __forceinline__ void ray_inverse(float dx, float dy, float dz,
+                                            const float* inv, float& ix,
+                                            float& iy, float& iz) {
+  if constexpr (INV) {
+    ix = inv[0];
+    iy = inv[1];
+    iz = inv[2];
+  } else {
+    ix = inv_dir(dx);
+    iy = inv_dir(dy);
+    iz = inv_dir(dz);
+  }
+}
+
 // occlude.any_hit, solid branch: does the ray hit a plane, sphere or box?
+template <bool INV = false>
 __device__ bool any_hit_solid(const VrTables& T, float wx, float wy,
                               float wz, float dx, float dy, float dz,
-                              float max_t) {
+                              float max_t, const float* inv = nullptr) {
   for (int i = 0; i < T.n_planes; ++i)
-    if (plane_hit(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (plane_hit<INV>(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return true;
   for (int i = 0; i < T.n_spheres; ++i)
-    if (sphere_hit(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (sphere_hit<INV>(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return true;
   if (T.n_boxes) {
-    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    float ix, iy, iz;
+    ray_inverse<INV>(dx, dy, dz, inv, ix, iy, iz);
     for (int i = 0; i < T.n_boxes; ++i)
       if (box_hit(T.boxes + 8 * i, wx, wy, wz, ix, iy, iz, max_t))
         return true;
@@ -286,9 +336,11 @@ __device__ bool any_hit_solid(const VrTables& T, float wx, float wy,
 // (One body for both arms, this one with an early 1 where the product
 // reaches 0, gives the same values but ran every ARMS kernel 2-19% slower
 // on an H100: PERF.md §6.)
+template <bool INV = false>
 __device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
                                     float wz, float dx, float dy, float dz,
-                                    float max_t, bool terrain) {
+                                    float max_t, bool terrain,
+                                    const float* inv = nullptr) {
   for (int i = 0; i < T.n_planes; ++i)
     if (plane_hit(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return 1.0f;
@@ -297,7 +349,8 @@ __device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
       return 1.0f;
   float trans = 1.0f;
   if (T.n_boxes) {
-    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+    float ix, iy, iz;
+    ray_inverse<INV>(dx, dy, dz, inv, ix, iy, iz);
     for (int i = 0; i < T.n_boxes; ++i) {
       const float* q = T.boxes + 8 * i;
       if (box_hit(q, wx, wy, wz, ix, iy, iz, max_t))
@@ -316,21 +369,26 @@ __device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
 // the occlusion amount where some box is fractional. ARMS is the kernels'
 // template parameter: false (no heightfield, every box solid) compiles
 // exactly the solid test, so a solid scene's kernels keep their registers
-// and their time; true adds the two arms behind uniform branches.
-template <bool ARMS>
+// and their time; true adds the two arms behind uniform branches. INV: the
+// ray's inverse direction is given (ray_inverse).
+template <bool ARMS, bool INV = false>
 __device__ __forceinline__ float any_hit(const VrTables& T, float wx,
                                          float wy, float wz, float dx,
                                          float dy, float dz, float max_t,
-                                         bool terrain) {
+                                         bool terrain,
+                                         const float* inv = nullptr) {
   if constexpr (ARMS) {
     if (T.fractional)
-      return any_hit_fractional(T, wx, wy, wz, dx, dy, dz, max_t, terrain);
-    if (any_hit_solid(T, wx, wy, wz, dx, dy, dz, max_t)) return 1.0f;
+      return any_hit_fractional<INV>(T, wx, wy, wz, dx, dy, dz, max_t,
+                                     terrain, inv);
+    if (any_hit_solid<INV>(T, wx, wy, wz, dx, dy, dz, max_t, inv))
+      return 1.0f;
     return terrain && T.hf != nullptr
                    && heightfield_occluded(T, wx, wy, wz, dx, dy, dz, max_t)
                ? 1.0f : 0.0f;
   } else {
-    return any_hit_solid(T, wx, wy, wz, dx, dy, dz, max_t) ? 1.0f : 0.0f;
+    return any_hit_solid<INV>(T, wx, wy, wz, dx, dy, dz, max_t, inv)
+               ? 1.0f : 0.0f;
   }
 }
 
@@ -369,6 +427,25 @@ __device__ __forceinline__ float light_factor(
   return hg_num * rb * rb * rb * fall;
 }
 
+// froxel_center_world's view depth of slice z and continuous column of x
+// and row of y (the slab's global row clamped to the grid), jittered or
+// not: p = spar.
+__device__ __forceinline__ float center_vz(const float* p, int z,
+                                           bool jittered, int d) {
+  return view_z(p, (float)z + 0.5f + (jittered ? p[19] : 0.0f), d);
+}
+
+__device__ __forceinline__ float center_fx(const float* p, int x,
+                                           bool jittered) {
+  return (float)x + 0.5f + (jittered ? p[17] : 0.0f);
+}
+
+__device__ __forceinline__ float center_fy(const float* p, int y,
+                                           bool jittered, int h_glob) {
+  const float ys = clampf((float)y + p[23], 0.0f, (float)h_glob - 1.0f);
+  return ys + 0.5f + (jittered ? p[18] : 0.0f);
+}
+
 // dir_shadow.froxel_world: world position of froxel (z, y, x) at its centre,
 // jittered or not.
 __device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
@@ -376,25 +453,22 @@ __device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
                                                     bool jittered, float& wx,
                                                     float& wy, float& wz) {
   const float* p = T.spar;
-  const float jx = jittered ? p[17] : 0.0f;
-  const float jy = jittered ? p[18] : 0.0f;
-  const float jz = jittered ? p[19] : 0.0f;
-  const float vz = view_z(p, (float)z + 0.5f + jz, T.d);
-  const float ys = clampf((float)y + p[23], 0.0f, (float)T.h_glob - 1.0f);
-  froxel_world(p, (float)x + 0.5f + jx, ys + 0.5f + jy, vz, T.w, T.h_glob,
-               wx, wy, wz);
+  froxel_world(p, center_fx(p, x, jittered),
+               center_fy(p, y, jittered, T.h_glob),
+               center_vz(p, z, jittered, T.d), T.w, T.h_glob, wx, wy, wz);
 }
 
 // dir_shadow.dir_shadow_slice: sun li's visibility at a world position, one
 // any-hit ray towards the sun (the terrain always marched), squared and
-// gated by has_shadow.
-template <bool ARMS>
+// gated by has_shadow. INV: the ray's inverse direction is given at inv.
+template <bool ARMS, bool INV = false>
 __device__ __forceinline__ float sun_shadow(const VrTables& T, int li,
-                                            float wx, float wy, float wz) {
+                                            float wx, float wy, float wz,
+                                            const float* inv = nullptr) {
   const float* q = T.slights + 8 * li;
   const float strength_r = q[3], gate = q[4];
-  const float occ = any_hit<ARMS>(T, wx, wy, wz, -q[0], -q[1], -q[2], 1e4f,
-                                  true);
+  const float occ = any_hit<ARMS, INV>(T, wx, wy, wz, -q[0], -q[1], -q[2],
+                                       1e4f, true, inv);
   float vis = strength_r + (1.0f - strength_r) * (1.0f - occ);
   vis = vis * vis;
   return 1.0f + gate * (vis - 1.0f);
@@ -402,20 +476,33 @@ __device__ __forceinline__ float sun_shadow(const VrTables& T, int li,
 
 // ---- material.py: the media -----------------------------------------------
 
+// EARLY (the slice tiles' material) skips the division where the clamp
+// decides the result: with e1 - e0 > 0, x - e0 <= 0 gives a quotient <= 0
+// (clamped to 0, and 0 or -0 gives 0) and x - e0 >= e1 - e0 one >= 1
+// (clamped to 1, giving 1): the same value as the division's.
+template <bool EARLY = false>
 __device__ __forceinline__ float smoothstep(float e0, float e1, float x) {
-  float t = clampf((x - e0) / (e1 - e0), 0.0f, 1.0f);
+  const float a = x - e0, b = e1 - e0;
+  if constexpr (EARLY) {
+    if (b > 0.0f) {
+      if (a <= 0.0f) return 0.0f;
+      if (a >= b) return 1.0f;
+    }
+  }
+  float t = clampf(a / b, 0.0f, 1.0f);
   return t * t * (3.0f - 2.0f * t);
 }
 
+template <bool EARLY = false>
 __device__ __forceinline__ float box_mask(const float* q, float wx, float wy,
                                           float wz) {
   float soft = fmaxf(q[19], 1e-6f);
-  float lo = fminf(fminf(smoothstep(q[13], q[13] + soft, wx),
-                         smoothstep(q[14], q[14] + soft, wy)),
-                   smoothstep(q[15], q[15] + soft, wz));
-  float hi = fminf(fminf(smoothstep(-q[16], -(q[16] - soft), -wx),
-                         smoothstep(-q[17], -(q[17] - soft), -wy)),
-                   smoothstep(-q[18], -(q[18] - soft), -wz));
+  float lo = fminf(fminf(smoothstep<EARLY>(q[13], q[13] + soft, wx),
+                         smoothstep<EARLY>(q[14], q[14] + soft, wy)),
+                   smoothstep<EARLY>(q[15], q[15] + soft, wz));
+  float hi = fminf(fminf(smoothstep<EARLY>(-q[16], -(q[16] - soft), -wx),
+                         smoothstep<EARLY>(-q[17], -(q[17] - soft), -wy)),
+                   smoothstep<EARLY>(-q[18], -(q[18] - soft), -wz));
   return lo * hi;
 }
 
@@ -455,7 +542,7 @@ __device__ void material(const VrTables& T, float wx, float wy, float wz,
     if (st[0])
       factor = factor * (noise ? noise[ni++] : noise_factor(T, mi, wx, wy, wz));
     factor = factor * expf(-fmaxf(q[11], 0.0f) * fmaxf(wy - q[12], 0.0f));
-    float mask = st[4] ? box_mask(q, wx, wy, wz) : 1.0f;
+    float mask = st[4] ? box_mask<true>(q, wx, wy, wz) : 1.0f;
     float a_r = q[0] * factor, a_g = q[1] * factor, a_b = q[2] * factor;
     float a_a = q[3] * factor;
     if (st[5]) {
@@ -498,19 +585,19 @@ __device__ __forceinline__ float reproj_vy(const float* p, int y, float vz,
 }
 
 // The rest of reproj_offsets, from the view-space position (vx, vy, vz) of
-// froxel (z, y, x).
-__device__ __forceinline__ Reproj reproj_view(const float* p, int z, int y,
-                                              int x, float vx, float vy,
-                                              float vz, int w, int h, int d,
-                                              int h_glob, int k,
-                                              bool with_jitter) {
-  float fpx = p[12], fpy = p[13], fpz = p[14], fpw = p[15], near_ = p[16];
+// froxel (z, y, x) and lfpz = logf(p[14]), a frame constant.
+__device__ __forceinline__ Reproj reproj_view_l(const float* p, int z, int y,
+                                                int x, float vx, float vy,
+                                                float vz, float lfpz, int w,
+                                                int h, int d, int h_glob,
+                                                int k, bool with_jitter) {
+  float fpx = p[12], fpy = p[13], fpw = p[15], near_ = p[16];
   float eps = p[21], y0 = p[22];
   float pvx = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
   float pvy = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
   float pvz = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
   float pfz = (float)d * logf(fmaxf((pvz - near_) / fpw + 1.0f, 1e-8f))
-              / logf(fpz);
+              / lfpz;
   float pfx = (float)w * (fpx * pvx / pvz + 1.0f) / 2.0f;
   float pfy = (float)h_glob * (fpy * pvy / pvz + 1.0f) / 2.0f;
   if (with_jitter) {
@@ -534,6 +621,15 @@ __device__ __forceinline__ Reproj reproj_view(const float* p, int z, int y,
   r.oy = clampf(ty - (float)y, -kf, kf);
   r.ox = clampf(tx - (float)x, -kf, kf);
   return r;
+}
+
+__device__ __forceinline__ Reproj reproj_view(const float* p, int z, int y,
+                                              int x, float vx, float vy,
+                                              float vz, int w, int h, int d,
+                                              int h_glob, int k,
+                                              bool with_jitter) {
+  return reproj_view_l(p, z, y, x, vx, vy, vz, logf(p[14]), w, h, d, h_glob,
+                       k, with_jitter);
 }
 
 __device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
@@ -620,32 +716,69 @@ __device__ void warp8(const float* p, const float* prev, long cstride, int z,
 
 // ---- visibility.py: the low-rate upsample ----------------------------------
 
-// z-lerp + separable clamp-to-edge tent of low channel `vol` [DL, HL, WL]
-// at full froxel (z, y, x).
-__device__ float upsample_low(const VrTables& T, const float* vol, int z,
-                              int y, int x) {
-  float vu = ((float)z - (float)(T.ss - 1) * 0.5f) / (float)T.ss;
-  float vkf = clampf(floorf(vu), 0.0f, (float)T.dl - 1.0f);
-  float vt = clampf(vu - vkf, 0.0f, 1.0f);
-  int ka = (int)vkf;
-  int kb = min(ka + 1, T.dl - 1);
-  int kx0 = T.tent_xk[x], kx1 = min(kx0 + 1, T.wl - 1);
-  float wx0 = T.tent_xw[x], wx1 = T.tent_xw[T.w + x];
-  int ky0 = T.tent_yk[y], ky1 = min(ky0 + 1, T.hl - 1);
-  float wy0 = T.tent_yw[y], wy1 = T.tent_yw[T.h + y];
-  long sa = (long)ka * T.hl * T.wl, sb = (long)kb * T.hl * T.wl;
+// The z-lerp + separable clamp-to-edge tent of a low channel [DL, HL, WL] at
+// full froxel (z, y, x), split so that a froxel computes its taps once for
+// every channel it reads: the slice terms (low_slice, constants of a slice
+// tile), then the column's and the row's tent taps (low_taps).
+struct LowSlice {
+  int sa, sb;  // offsets of the low slices ka, kb = min(ka + 1, DL - 1)
+  float vt;    // the z-lerp weight
+};
+
+__device__ __forceinline__ LowSlice low_slice(const VrTables& T, int z) {
+  const float vu = ((float)z - (float)(T.ss - 1) * 0.5f) / (float)T.ss;
+  const float vkf = clampf(floorf(vu), 0.0f, (float)T.dl - 1.0f);
+  const int ka = (int)vkf;
+  const int kb = min(ka + 1, T.dl - 1);
+  LowSlice s;
+  s.vt = clampf(vu - vkf, 0.0f, 1.0f);
+  s.sa = ka * T.hl * T.wl;
+  s.sb = kb * T.hl * T.wl;
+  return s;
+}
+
+struct LowTaps {
+  int a0, b0, a1, b1;  // slice ka or kb (a, b), tent row ky0 or ky1 (0, 1)
+  int kx0, kx1;
+  float vt, wx0, wx1, wy0, wy1;
+};
+
+__device__ __forceinline__ LowTaps low_taps(const VrTables& T,
+                                            const LowSlice& s, int y,
+                                            int x) {
+  LowTaps t;
+  t.kx0 = T.tent_xk[x];
+  t.kx1 = min(t.kx0 + 1, T.wl - 1);
+  t.wx0 = T.tent_xw[x];
+  t.wx1 = T.tent_xw[T.w + x];
+  const int ky0 = T.tent_yk[y], ky1 = min(ky0 + 1, T.hl - 1);
+  t.wy0 = T.tent_yw[y];
+  t.wy1 = T.tent_yw[T.h + y];
+  t.a0 = s.sa + ky0 * T.wl;
+  t.b0 = s.sb + ky0 * T.wl;
+  t.a1 = s.sa + ky1 * T.wl;
+  t.b1 = s.sb + ky1 * T.wl;
+  t.vt = s.vt;
+  return t;
+}
+
+// The upsampled value of low channel `vol` at the taps: each tent row's
+// z-lerps, the x tent, then the y tent.
+__device__ __forceinline__ float low_at(const float* __restrict__ vol,
+                                        const LowTaps& t) {
   float rows[2];
-  int kys[2] = {ky0, ky1};
+  const int as[2] = {t.a0, t.a1}, bs[2] = {t.b0, t.b1};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    long o = (long)kys[r] * T.wl;
-    float va0 = __ldg(vol + sa + o + kx0), vb0 = __ldg(vol + sb + o + kx0);
-    float va1 = __ldg(vol + sa + o + kx1), vb1 = __ldg(vol + sb + o + kx1);
-    float l0 = va0 + vt * (vb0 - va0);
-    float l1 = va1 + vt * (vb1 - va1);
-    rows[r] = l0 * wx0 + l1 * wx1;
+    const float va0 = __ldg(vol + as[r] + t.kx0);
+    const float vb0 = __ldg(vol + bs[r] + t.kx0);
+    const float va1 = __ldg(vol + as[r] + t.kx1);
+    const float vb1 = __ldg(vol + bs[r] + t.kx1);
+    const float l0 = va0 + t.vt * (vb0 - va0);
+    const float l1 = va1 + t.vt * (vb1 - va1);
+    rows[r] = l0 * t.wx0 + l1 * t.wx1;
   }
-  return rows[0] * wy0 + rows[1] * wy1;
+  return rows[0] * t.wy0 + rows[1] * t.wy1;
 }
 
 // ---- shadow_blend.py: the weight-mode shadow blend -------------------------
@@ -669,10 +802,93 @@ __device__ __forceinline__ void shadow_blend_froxel(
   }
 }
 
+// ---- the slice tiles of K2 and K6 (shadow_scatter.cu, scatter.cu) ---------
+
+// What the froxels of a TX x TY tile (columns x rows) of one slice share,
+// computed once per block on the device with the expressions of
+// froxel_center_world, reproj_offsets, low_slice and inv_dir (tile_scalars,
+// then tile_line): the view depth of the slice's jittered and unjittered
+// centres, froxel_vx of each column and froxel_vy of each row at both, the
+// upsample's slice terms and, with BLEND (the shadow blend's), its view
+// depth and log(fpz) and the inverse direction of each sun's shadow ray.
+template <int TX, int TY>
+struct TileTerms {
+  static constexpr int LINES = 2 * TX + 2 * TY;  // tile_line's items
+  float vxj[TX], vxc[TX], vyj[TY], vyc[TY];
+  float vz_j, vz_c, vz_b, lfpz_b;
+  LowSlice low;
+  float sun_inv[VR_MAX_DIR][3];
+};
+
+// Step 1, before a barrier: the slice's scalars, one thread each, on the
+// first lanes of as many of the block's NT threads' warps as there are
+// scalars (their chains of log, exp and divisions run side by side).
+template <bool BLEND, int NT, class Terms>
+__device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
+                                             int tid, Terms& S) {
+  const float* p = T.spar;
+  const int items = BLEND ? 5 + T.n_dir : 3;
+  for (int item = 0; item < items; ++item) {
+    if (tid != (item * 32) % NT + (item * 32) / NT) continue;
+    if (item == 0) {
+      S.vz_j = center_vz(p, z, true, T.d);
+    } else if (item == 1) {
+      S.vz_c = center_vz(p, z, false, T.d);
+    } else if (item == 2) {
+      if (T.dl > 0) S.low = low_slice(T, z);
+    } else if (item == 3) {
+      S.vz_b = view_z(T.sbpar, (float)z + 0.5f, T.d);
+    } else if (item == 4) {
+      S.lfpz_b = logf(T.sbpar[14]);
+    } else {
+      const float* q = T.slights + 8 * (item - 5);
+      float* inv = S.sun_inv[item - 5];
+      inv[0] = inv_dir(-q[0]);
+      inv[1] = inv_dir(-q[1]);
+      inv[2] = inv_dir(-q[2]);
+    }
+  }
+}
+
+// Step 2, after it: item j < LINES of the tile at (xt, yt).
+template <int TX, int TY>
+__device__ __forceinline__ void tile_line(const VrTables& T, int xt, int yt,
+                                          int j, TileTerms<TX, TY>& S) {
+  const float* p = T.spar;
+  if (j < TX) {
+    S.vxj[j] = froxel_vx(p, center_fx(p, xt + j, true), S.vz_j, T.w);
+  } else if (j < 2 * TX) {
+    j -= TX;
+    S.vxc[j] = froxel_vx(p, center_fx(p, xt + j, false), S.vz_c, T.w);
+  } else if (j < 2 * TX + TY) {
+    j -= 2 * TX;
+    S.vyj[j] = froxel_vy(p, center_fy(p, yt + j, true, T.h_glob), S.vz_j,
+                         T.h_glob);
+  } else {
+    j -= 2 * TX + TY;
+    S.vyc[j] = froxel_vy(p, center_fy(p, yt + j, false, T.h_glob), S.vz_c,
+                         T.h_glob);
+  }
+}
+
+// Whether an index of the kernels' arrays could pass 2^31 - 1: the
+// [max(4, Nd), D, H, W] planes and the low volume's channels. The slice
+// tiles index in 32 bits and their launchers refuse such tables (mirrored
+// by ops/frame_fused.check_tile_indices).
+inline bool past_int_index(const VrTables& T) {
+  const long n = (long)T.w * T.h * T.d;
+  const long lplane = (long)T.wl * T.hl * T.dl;
+  const long chans = 3 + T.n_noise > T.n_lights ? 3 + T.n_noise : T.n_lights;
+  return (T.n_dir > 4 ? T.n_dir : 4) * n > 2147483647L
+         || chans * lplane > 2147483647L || T.d > 65535;
+}
+
 // ---- scatter.py: the per-froxel in-scatter ---------------------------------
 
-// scatter.scatter_slice at froxel (z, y, x), jittered world position
-// (wx, wy, wz): out = (r, g, b, ext).
+// scatter.scatter_slice at froxel (z, y, x) (i its index in the [D, H, W]
+// planes of n froxels; low_s the upsample's terms of slice z), jittered
+// world position (wx, wy, wz) and unjittered (cwx, cwy, cwz):
+// out = (r, g, b, ext).
 // Material: MAT_PLANES false evaluates the media table here and writes
 // ext = (luma(sigma_s) + sigma_a) x suns; MAT_PLANES true reads sigma_s rgb
 // from mat_a [4, D, H, W] and phase g from mat_b [1, D, H, W] and leaves
@@ -687,22 +903,24 @@ __device__ __forceinline__ void shadow_blend_froxel(
 //   VR_LOCAL_BAKED     the same loop, the shadow term read from the
 //       low-rate per-light visibility `low` [NL, DL, HL, WL], upsampled
 //       (z-lerp, x tent, y tent) at the light's channel.
-// In both loops the fBm is evaluated here. Then every sun adds colour x
+// The upsample's taps are computed once per froxel for all its channels. In
+// both loops the fBm is evaluated here. Then every sun adds colour x
 // blended[li] x HG x sigma_s at the unjittered centre (the jittered one with
 // jitter_dir). ARMS: the rays' any_hit instantiation.
-template <int LOCAL, bool MAT_PLANES = false, bool ARMS = false>
-__device__ void scatter_froxel(const VrTables& T,
+template <int LOCAL, bool MAT_PLANES, bool ARMS>
+__device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
                                const float* __restrict__ low, int z, int y,
-                               int x, float wx, float wy, float wz,
+                               int x, int i, int n, float wx, float wy,
+                               float wz, float cwx, float cwy, float cwz,
                                const float* blended, float* out,
                                const float* __restrict__ mat_a = nullptr,
                                const float* __restrict__ mat_b = nullptr) {
   const float* p = T.spar;
-  const long lplane = (long)T.dl * T.hl * T.wl;
+  const int lplane = T.dl * T.hl * T.wl;
+  LowTaps up;
+  if constexpr (LOCAL != VR_LOCAL_RAY) up = low_taps(T, low_s, y, x);
   float sr, sg, sbl, phg;
   if constexpr (MAT_PLANES) {
-    const long n = (long)T.d * T.h * T.w;
-    const long i = ((long)z * T.h + y) * T.w + x;
     sr = __ldg(mat_a + i);
     sg = __ldg(mat_a + n + i);
     sbl = __ldg(mat_a + 2 * n + i);
@@ -712,7 +930,7 @@ __device__ void scatter_froxel(const VrTables& T,
     const bool baked_noise = LOCAL == VR_LOCAL_RADIANCE && T.n_noise > 0;
     if (baked_noise)
       for (int c = 0; c < T.n_noise; ++c)
-        noise[c] = upsample_low(T, low + (3 + c) * lplane, z, y, x);
+        noise[c] = low_at(low + (3 + c) * lplane, up);
     float s_a;
     material(T, wx, wy, wz, baked_noise ? noise : nullptr, sr, sg, sbl, s_a,
              phg);
@@ -729,7 +947,7 @@ __device__ void scatter_froxel(const VrTables& T,
     vdy = vdy * invd;
     vdz = vdz * invd;
     ar = ag = ab = 0.0f;
-    const int* ord = T.order + (long)z * T.n_lights;
+    const int* ord = T.order + z * T.n_lights;
     const int n_act = T.count[z];
     for (int j = 0; j < n_act; ++j) {
       const int li = ord[j];
@@ -739,7 +957,7 @@ __device__ void scatter_froxel(const VrTables& T,
                                         g2, hg_num, ldx, ldy, ldz, dist);
       float shadow;
       if constexpr (LOCAL == VR_LOCAL_BAKED) {
-        shadow = upsample_low(T, low + li * lplane, z, y, x);
+        shadow = low_at(low + li * lplane, up);
       } else {
         const float occ = any_hit<ARMS>(T, wx, wy, wz, -ldx, -ldy, -ldz,
                                         dist - 0.05f, T.hf_local);
@@ -751,13 +969,16 @@ __device__ void scatter_froxel(const VrTables& T,
       ab = ab + base * q[5] * sbl;
     }
   } else {
-    ar = upsample_low(T, low, z, y, x) * sr;
-    ag = upsample_low(T, low + lplane, z, y, x) * sg;
-    ab = upsample_low(T, low + 2 * lplane, z, y, x) * sbl;
+    ar = low_at(low, up) * sr;
+    ag = low_at(low + lplane, up) * sg;
+    ab = low_at(low + 2 * lplane, up) * sbl;
   }
   if (T.n_dir) {
-    float cwx = wx, cwy = wy, cwz = wz;
-    if (!T.jitter_dir) froxel_center_world(T, z, y, x, false, cwx, cwy, cwz);
+    if (T.jitter_dir) {
+      cwx = wx;
+      cwy = wy;
+      cwz = wz;
+    }
     float dvx = cwx - p[20], dvy = cwy - p[21], dvz = cwz - p[22];
     const float inv = rsqrt_exact(dvx * dvx + dvy * dvy + dvz * dvz + 1e-18f);
     dvx = dvx * inv;

@@ -19,18 +19,27 @@
 //
 // The TPU kernel took one z-slice per grid step with the tables in SMEM and
 // a fori_loop over the slice's lights, whole [H, W] planes at a time, and
-// upsampled a light's visibility plane with two small matmuls. Here one
-// thread owns one froxel and runs common.cuh scatter_froxel, the same
-// function shadow_scatter.cu calls with the blended shadow in registers;
-// this kernel reads the blended shadow volume [Nd, D, H, W] from memory
-// instead. The source and the material are template parameters, so each of
+// upsampled a light's visibility plane with two small matmuls. Here a block
+// owns froxels of one slice: a 16 x 8 tile (the baked loop) or a run of 128
+// (radiance) or 256 (rays) consecutive froxels of its rows (K6Tile). It
+// computes the slice's view depths and upsample terms once (common.cuh
+// tile_scalars) and, in a tile, each column's and row's view-space terms
+// (tile_line); a run's thread computes its own. Then each thread runs
+// common.cuh scatter_froxel for its froxel -- the function
+// shadow_scatter.cu calls with the blended shadow in registers; this kernel
+// reads the blended shadow volume [Nd, D, H, W] from memory instead. The
+// first form ran a thread per froxel on a 64-bit flat index and recomputed
+// two view depths (a log and an exp each) and the upsample's taps for every
+// channel per froxel; every float value is that form's, from the same
+// operations in the same order, so the result is bit for bit its result.
+// The source and the material are template parameters, so each of
 // the six kernels carries only its own branch; the ray loop has a seventh
 // and eighth form with the any-hit's terrain and fractional arms
 // (common.cuh any_hit<ARMS>), launched only for a scene that has them. The
 // sun term is unjittered unless jitter_dir. The per-light sum adds the
 // slice's active lights in ascending index, as the TPU loop does; the
-// schedule is per slice, so a warp (32 neighbours in x) runs one loop
-// length and diverges only inside any_hit's early exits.
+// schedule is per slice, so a block runs one loop length and a warp
+// diverges only inside any_hit's early exits.
 //
 // The per-light rays march the terrain under heightfield_local_shadows and
 // carry occlusion amounts with fractional boxes (common.cuh any_hit).
@@ -49,30 +58,90 @@
 // Perlin octaves per noise medium (~1000 flops): several GFLOP.
 #include "common.cuh"
 
-template <int LOCAL, bool MAT_PLANES, bool ARMS>
-__global__ void scatter_kernel(VrTables T, const float* __restrict__ shadow,
-                               const float* __restrict__ low,
-                               const float* __restrict__ mat_a,
-                               const float* __restrict__ mat_b,
-                               float* __restrict__ out_sc) {
-  const int w = T.w, h = T.h, d = T.d;
-  const long n = (long)d * h * w;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % w);
-  const int y = (int)((i / w) % h);
-  const int z = (int)(i / ((long)w * h));
+// The block of each local source: a tile of X columns x Y rows, or (Y = 0)
+// a run of X consecutive froxels of one slice's rows (PERF.md §6 has the
+// shapes measured).
+template <int LOCAL>
+struct K6Tile {
+  static constexpr int X = 16, Y = 8;
+};
 
-  float wx, wy, wz;
-  froxel_center_world(T, z, y, x, true, wx, wy, wz);
+template <>
+struct K6Tile<VR_LOCAL_RADIANCE> {
+  static constexpr int X = 128, Y = 0;
+};
+
+template <>
+struct K6Tile<VR_LOCAL_RAY> {
+  static constexpr int X = 256, Y = 0;
+};
+
+template <int LOCAL, bool MAT_PLANES, bool ARMS, int TX, int TY>
+__global__ void __launch_bounds__(TY ? TX * TY : TX)
+scatter_kernel(VrTables T, const float* __restrict__ shadow,
+               const float* __restrict__ low,
+               const float* __restrict__ mat_a,
+               const float* __restrict__ mat_b, float* __restrict__ out_sc) {
+  constexpr int NT = TY ? TX * TY : TX;
+  __shared__ TileTerms<TX, TY ? TY : 1> S;
+  const int w = T.w, h = T.h, d = T.d;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int z = blockIdx.z;
+  tile_scalars<false, NT>(T, z, tid, S);
+  __syncthreads();
+  int x, y;
+  float wx, wy, wz, cwx, cwy, cwz;
+  if constexpr (TY > 0) {
+    const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+    for (int j = tid; j < TileTerms<TX, TY>::LINES; j += NT)
+      tile_line(T, xt, yt, j, S);
+    __syncthreads();
+    x = xt + threadIdx.x;
+    y = yt + threadIdx.y;
+    if (x >= w || y >= h) return;
+    view_world(T.spar, S.vxj[threadIdx.x], S.vyj[threadIdx.y], S.vz_j, wx,
+               wy, wz);
+    view_world(T.spar, S.vxc[threadIdx.x], S.vyc[threadIdx.y], S.vz_c, cwx,
+               cwy, cwz);
+  } else {  // a row segment: each thread its own view-space terms
+    const int f = blockIdx.x * TX + tid;
+    if (f >= w * h) return;
+    y = f / w;
+    x = f - y * w;
+    const float* p = T.spar;
+    view_world(p, froxel_vx(p, center_fx(p, x, true), S.vz_j, w),
+               froxel_vy(p, center_fy(p, y, true, T.h_glob), S.vz_j,
+                         T.h_glob),
+               S.vz_j, wx, wy, wz);
+    view_world(p, froxel_vx(p, center_fx(p, x, false), S.vz_c, w),
+               froxel_vy(p, center_fy(p, y, false, T.h_glob), S.vz_c,
+                         T.h_glob),
+               S.vz_c, cwx, cwy, cwz);
+  }
+  const int n = d * h * w;
+  const int i = (z * h + y) * w + x;
   float blended[VR_MAX_DIR];
   for (int li = 0; li < T.n_dir; ++li)
     blended[li] = __ldg(shadow + li * n + i);
   float sc[4];
-  scatter_froxel<LOCAL, MAT_PLANES, ARMS>(T, low, z, y, x, wx, wy, wz,
-                                          blended, sc, mat_a, mat_b);
+  scatter_froxel<LOCAL, MAT_PLANES, ARMS>(T, S.low, low, z, y, x, i, n, wx,
+                                          wy, wz, cwx, cwy, cwz, blended, sc,
+                                          mat_a, mat_b);
 #pragma unroll
   for (int c = 0; c < (MAT_PLANES ? 3 : 4); ++c) out_sc[c * n + i] = sc[c];
+}
+
+template <int LOCAL, bool MAT_PLANES, bool ARMS>
+static void launch_tile(const VrTables* T, const float* shadow,
+                        const float* low, const float* mat_a,
+                        const float* mat_b, float* out_sc,
+                        cudaStream_t stream) {
+  constexpr int TX = K6Tile<LOCAL>::X, TY = K6Tile<LOCAL>::Y;
+  const dim3 grid(TY ? (T->w + TX - 1) / TX : (T->w * T->h + TX - 1) / TX,
+                  TY ? (T->h + TY - 1) / TY : 1, T->d);
+  scatter_kernel<LOCAL, MAT_PLANES, ARMS, TX, TY>
+      <<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(*T, shadow, low, mat_a,
+                                                   mat_b, out_sc);
 }
 
 template <int LOCAL, bool MAT_PLANES>
@@ -80,17 +149,14 @@ static void launch_scatter_kernel(const VrTables* T, const float* shadow,
                            const float* low, const float* mat_a,
                            const float* mat_b, float* out_sc,
                            cudaStream_t stream) {
-  const long n = (long)T->d * T->h * T->w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
   // only the ray loop casts rays: the arms matter to it alone
   constexpr bool RAYS = LOCAL == VR_LOCAL_RAY;
   if (RAYS && needs_arms(*T))
-    scatter_kernel<LOCAL, MAT_PLANES, RAYS><<<grid, block, 0, stream>>>(
-        *T, shadow, low, mat_a, mat_b, out_sc);
+    launch_tile<LOCAL, MAT_PLANES, RAYS>(T, shadow, low, mat_a, mat_b,
+                                         out_sc, stream);
   else
-    scatter_kernel<LOCAL, MAT_PLANES, false><<<grid, block, 0, stream>>>(
-        *T, shadow, low, mat_a, mat_b, out_sc);
+    launch_tile<LOCAL, MAT_PLANES, false>(T, shadow, low, mat_a, mat_b,
+                                          out_sc, stream);
 }
 
 template <int LOCAL>
@@ -112,7 +178,8 @@ extern "C" int vr_scatter(const VrTables* T, const float* shadow,
                           const float* low, const float* mat_a,
                           const float* mat_b, float* out_sc, int local,
                           cudaStream_t stream) {
-  if ((local == VR_LOCAL_RAY) != (low == nullptr) || (!mat_a != !mat_b))
+  if ((local == VR_LOCAL_RAY) != (low == nullptr) || (!mat_a != !mat_b)
+      || past_int_index(*T))
     return (int)cudaErrorInvalidValue;
   switch (local) {
     case VR_LOCAL_RADIANCE:
@@ -131,4 +198,58 @@ extern "C" int vr_scatter(const VrTables* T, const float* shadow,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The tile (columns, rows) of local source `local` into out[0..1].
+extern "C" int vr_scatter_geometry(int local, int* out) {
+  switch (local) {
+    case VR_LOCAL_RADIANCE:
+      out[0] = K6Tile<VR_LOCAL_RADIANCE>::X;
+      out[1] = K6Tile<VR_LOCAL_RADIANCE>::Y;
+      break;
+    case VR_LOCAL_RAY:
+      out[0] = K6Tile<VR_LOCAL_RAY>::X;
+      out[1] = K6Tile<VR_LOCAL_RAY>::Y;
+      break;
+    case VR_LOCAL_BAKED:
+      out[0] = K6Tile<VR_LOCAL_BAKED>::X;
+      out[1] = K6Tile<VR_LOCAL_BAKED>::Y;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// cudaFuncGetAttributes of the eight kernels, in ops/cuda.py ATTR_KERNELS'
+// order: (LOCAL, MAT_PLANES) of radiance, ray, baked x fused, planes with
+// ARMS false, then the ray loop's two ARMS forms. Registers per thread,
+// static shared bytes per block, local bytes per thread and largest block
+// into out[4 i .. 4 i + 3]; returns the error.
+template <int LOCAL, bool MAT_PLANES, bool ARMS>
+static cudaError_t attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)scatter_kernel<LOCAL, MAT_PLANES, ARMS,
+                                      K6Tile<LOCAL>::X, K6Tile<LOCAL>::Y>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_scatter_attrs(int* out) {
+  const cudaError_t errs[8] = {
+      attrs_of<VR_LOCAL_RADIANCE, false, false>(out),
+      attrs_of<VR_LOCAL_RADIANCE, true, false>(out + 4),
+      attrs_of<VR_LOCAL_RAY, false, false>(out + 8),
+      attrs_of<VR_LOCAL_RAY, true, false>(out + 12),
+      attrs_of<VR_LOCAL_BAKED, false, false>(out + 16),
+      attrs_of<VR_LOCAL_BAKED, true, false>(out + 20),
+      attrs_of<VR_LOCAL_RAY, false, true>(out + 24),
+      attrs_of<VR_LOCAL_RAY, true, true>(out + 28)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

@@ -7,7 +7,8 @@
 // The TPU grid carried the history in a VMEM ring and handed the blended
 // shadow to the scatter in registers; here every froxel is independent, so
 // one thread per froxel does the whole chain and the blended shadow never
-// leaves registers on its way to the scatter.
+// leaves registers on its way to the scatter, in blocks that each own a
+// tile of one slice (below).
 //
 // Per froxel (z, y, x):
 //   1. world position at the jittered froxel centre; for each sun an
@@ -30,10 +31,10 @@
 // Writes the new shadow history [Nd, D, H, W] and the scatter planes
 // [4, D, H, W] (L_r, L_g, L_b, ext); histories are never updated in place.
 //
-// The three steps are the shared device functions of common.cuh
-// (sun_shadow, shadow_blend_froxel, scatter_froxel), which the staged
-// frame's kernels (shadow_blend.cu, scatter.cu) call one at a time: the
-// fused frames equal the staged ones bit for bit.
+// The three steps are the device functions of common.cuh that the staged
+// frame's kernels call one at a time (sun_shadow and, as shadow_blend.cu
+// calls it, shadow_blend_froxel's arithmetic; scatter_froxel, which
+// scatter.cu calls): the fused frames equal the staged ones bit for bit.
 //
 // Bound on the H100: operations. Bytes: read the previous shadow (16.6 MB)
 // and write shadow + scatter (83 MB) at FULL -- ~30 us at 3.35 TB/s. Work,
@@ -43,63 +44,212 @@
 // (froxel, light) pair, ~60 flops of light_factor and a 7-primitive ray
 // (ray) or 8 gathered taps (baked), and per froxel the Perlin fBm of the
 // media (no baked noise channel): the bound of K5 plus that of K6 in the
-// same mode. The 8-tap warp recomputes the analytic offsets at the
-// neighbour columns instead of staging an offset volume, trading flops for
-// bytes. On a scene with the procedural terrain the sun rays march it
+// same mode. On a scene with the procedural terrain the sun rays march it
 // (dir_shadow.cu), and the local rays too with heightfield_local_shadows;
 // fractional boxes make every shadow term an occlusion amount. Both arms
 // live in the kernel's ARMS instantiation (common.cuh any_hit), launched
 // only for a scene that has them, so a scene without them keeps its
 // registers and its time.
+//
+// The first form ran a thread per froxel on a 64-bit flat index and
+// recomputed, per froxel, what is constant per slice (3 view depths, each a
+// log and an exp), per column or row (the view-space terms) and per frame
+// (log(fpz), the suns' inverse directions), and 7 reprojections, each some
+// neighbour's own, at 13x its bound. Here a block owns a 16 x 16 tile of
+// one slice (K2Tile; common.cuh TileTerms) in three steps:
+//   1. the slice's scalars, then each column's and row's view-space terms,
+//      and reproj_vx / reproj_vy of the region below;
+//   2. the reprojection offsets of the shadow blend, each once, at every
+//      (row, column) of the region the warp's taps reach -- the tile and k
+//      rows and columns before it, k + 1 after -- into shared memory, and
+//      of each only the outputs the warp reads: all four at the tile's own
+//      cells, oy and oz in the other columns of its rows, oz alone in the
+//      other rows: ~2.4 reprojections a froxel, ~9 divisions where there
+//      were ~70;
+//   3. per froxel: the sun rays (their inverse directions from step 1, the
+//      plane and sphere tests leaving before a division or a root whose
+//      answer is known), warp8_by<1> reading the offsets from shared
+//      memory, the weight-mode blend, the store of the history, and the
+//      scatter half (common.cuh scatter_froxel: the upsample's taps once for
+//      every channel, the box mask's clamped divisions skipped).
+// Every float value is the first form's, from the same operations in the
+// same order, so the result is bit for bit that form's, and K5 then K6 give
+// it too; indices are 32-bit (the launcher refuses tables past 2^31 floats,
+// common.cuh past_int_index). The radiance form runs 5 blocks an SM (48
+// registers, a few spilled), the loops 4 (64): PERF.md §6 has the shapes,
+// block counts and cuts measured.
 #include "common.cuh"
 
-template <int LOCAL, bool ARMS>
-__global__ void shadow_scatter_kernel(VrTables T,
-                                      const float* __restrict__ prev_sh,
-                                      const float* __restrict__ low,
-                                      float* __restrict__ out_sh,
-                                      float* __restrict__ out_sc) {
-  const int w = T.w, h = T.h, d = T.d;
-  const long n = (long)d * h * w;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % w);
-  const int y = (int)((i / w) % h);
-  const int z = (int)(i / ((long)w * h));
+// The tile of each local source, columns x rows: a block of X * Y threads,
+// MIN_BLOCKS of them an SM (the launch bounds).
+template <int LOCAL>
+struct K2Tile {
+  static constexpr int X = 16, Y = 16, MIN_BLOCKS = 4;
+};
 
-  // 1. dir_shadow_slice: jittered world position, one ray per sun
+template <>
+struct K2Tile<VR_LOCAL_RADIANCE> {
+  static constexpr int X = 16, Y = 16, MIN_BLOCKS = 5;
+};
+
+// The reprojection region of a tile at (xt, yt): rows yt - k .. yt + TY + k
+// and columns xt - k .. xt + TX + k, each clamped to the grid.
+__host__ __device__ __forceinline__ int k2_nx(int tx, int k) {
+  return tx + 2 * k + 1;
+}
+
+__host__ __device__ __forceinline__ int k2_ny(int ty, int k) {
+  return ty + 2 * k + 1;
+}
+
+// Dynamic shared memory, floats: the region's ox, oy, oz and success
+// planes, then reproj_vx of its columns and reproj_vy of its rows
+// (mirrored by ops/frame_fused.k2_shared_bytes).
+__host__ __device__ __forceinline__ int k2_shared(int tx, int ty, int k) {
+  const int nx = k2_nx(tx, k), ny = k2_ny(ty, k);
+  return 4 * nx * ny + nx + ny;
+}
+
+template <int LOCAL, bool ARMS, int TX, int TY>
+__global__ void __launch_bounds__(TX * TY, K2Tile<LOCAL>::MIN_BLOCKS)
+shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
+                      const float* __restrict__ low,
+                      float* __restrict__ out_sh,
+                      float* __restrict__ out_sc) {
+  constexpr int NT = TX * TY;
+  __shared__ TileTerms<TX, TY> S;
+  extern __shared__ float dyn_s[];  // k2_shared
+  const int w = T.w, h = T.h, d = T.d, k = T.k;
+  const int nx = k2_nx(TX, k), ny = k2_ny(TY, k), nr = nx * ny;
+  float* ox_s = dyn_s;
+  float* oy_s = dyn_s + nr;
+  float* oz_s = dyn_s + 2 * nr;
+  float* ok_s = dyn_s + 3 * nr;
+  float* rvx_s = dyn_s + 4 * nr;
+  float* rvy_s = rvx_s + nx;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int z = blockIdx.z;
+  const float* sb = T.sbpar;
+
+  // 1. the slice's scalars; then the columns' and rows' terms
+  tile_scalars<true, NT>(T, z, tid, S);
+  __syncthreads();
+  constexpr int LINES = TileTerms<TX, TY>::LINES;
+  for (int j = tid; j < LINES + nx + ny; j += NT) {
+    if (j < LINES) {
+      tile_line(T, xt, yt, j, S);
+    } else if (j < LINES + nx) {
+      const int c = j - LINES;
+      rvx_s[c] = reproj_vx(sb, clampi(xt - k + c, 0, w - 1), S.vz_b, w);
+    } else {
+      const int r = j - LINES - nx;
+      rvy_s[r] = reproj_vy(sb, clampi(yt - k + r, 0, h - 1), S.vz_b,
+                           T.h_glob);
+    }
+  }
+  __syncthreads();
+  // 2. reproj_offsets(sbpar, ...) at every (row r, column c) of the region,
+  // at (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
+  // warp reads it: all four at the tile's own cells, oy and oz at the
+  // other columns of its rows, oz alone in the other rows
+  {
+    const int r = ty + k, c = tx + k, j = r * nx + c;
+    const Reproj o = reproj_view_l(sb, z, min(yt + ty, h - 1),
+                                   min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
+                                   S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k,
+                                   true);
+    ox_s[j] = o.ox;
+    oy_s[j] = o.oy;
+    oz_s[j] = o.oz;
+    ok_s[j] = o.success;
+  }
+  const int side = 2 * k + 1;       // the region's columns (rows) past the
+  const int n_side = TY * side;     // tile's, k before and k + 1 after it
+  for (int j = tid; j < n_side + side * nx; j += NT) {
+    if (j < n_side) {
+      const int r = j / side, e = j - r * side;
+      const int c = e < k ? e : TX + e;
+      const Reproj o = reproj_view_l(sb, z, min(yt + r, h - 1),
+                                     clampi(xt - k + c, 0, w - 1), rvx_s[c],
+                                     rvy_s[r + k], S.vz_b, S.lfpz_b, w, h, d,
+                                     T.h_glob, k, true);
+      oy_s[(r + k) * nx + c] = o.oy;
+      oz_s[(r + k) * nx + c] = o.oz;
+    } else {
+      const int q = j - n_side, e = q / nx, c = q - e * nx;
+      const int r = e < k ? e : TY + e;
+      oz_s[r * nx + c] =
+          reproj_view_l(sb, z, clampi(yt - k + r, 0, h - 1),
+                        clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
+                        S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k, true).oz;
+    }
+  }
+  __syncthreads();
+
+  // 3. per froxel
+  const int x = xt + tx, y = yt + ty;
+  if (x >= w || y >= h) return;
+  const int n = d * h * w;
+  const int i = (z * h + y) * w + x;
+  // dir_shadow_slice: jittered world position, one ray per sun
   float wx, wy, wz;
-  froxel_center_world(T, z, y, x, true, wx, wy, wz);
+  view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
   float cur[VR_MAX_DIR];
   for (int li = 0; li < T.n_dir; ++li)
-    cur[li] = sun_shadow<ARMS>(T, li, wx, wy, wz);
-
-  // 2. shadow blend (weight mode)
+    cur[li] = sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
+  // the shadow blend (weight mode, common.cuh shadow_blend_froxel): the
+  // offsets at (y, cx) and (cy, cx) from the region, column cx at
+  // cx - (xt - k), row cy at cy - (yt - k)
+  const int row_y = (ty + k) * nx + k - xt;
+  const float swgt = sb[20] * ok_s[row_y + x];
+  const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
+  const auto oz_at = [&](int, int cy, int cx) {
+    return oz_s[(cy - yt + k) * nx + k - xt + cx];
+  };
   float blended[VR_MAX_DIR];
-  shadow_blend_froxel(T, prev_sh, n, z, y, x, cur, blended);
-  for (int li = 0; li < T.n_dir; ++li) out_sh[li * n + i] = blended[li];
-
-  // 3. scatter_slice (material fused, dir lights folded)
-  float sc[4];
-  scatter_froxel<LOCAL, false, ARMS>(T, low, z, y, x, wx, wy, wz, blended,
-                                     sc);
+  for (int li = 0; li < T.n_dir; ++li) {
+    float warped;
+    warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
+                oy_at, oz_at, &warped);
+    blended[li] = cur[li] + swgt * (warped - cur[li]);
+    out_sh[li * n + i] = blended[li];
+  }
+  // scatter_slice (material fused, dir lights folded)
+  float cwx, cwy, cwz, sc[4];
+  view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
+  scatter_froxel<LOCAL, false, ARMS>(T, S.low, low, z, y, x, i, n, wx, wy,
+                                     wz, cwx, cwy, cwz, blended, sc);
 #pragma unroll
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }
 
+template <int LOCAL, bool ARMS>
+static int launch_tile(const VrTables* T, const float* prev_sh,
+                       const float* low, float* out_sh, float* out_sc,
+                       cudaStream_t stream) {
+  constexpr int TX = K2Tile<LOCAL>::X, TY = K2Tile<LOCAL>::Y;
+  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  const int shared = k2_shared(TX, TY, T->k) * (int)sizeof(float);
+  if (shared > 48 * 1024) {  // a wide reprojection window
+    const cudaError_t err = cudaFuncSetAttribute(
+        shadow_scatter_kernel<LOCAL, ARMS, TX, TY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  shadow_scatter_kernel<LOCAL, ARMS, TX, TY>
+      <<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low, out_sh,
+                                               out_sc);
+  return 0;
+}
+
 template <int LOCAL>
-static void launch_shadow_scatter(const VrTables* T, const float* prev_sh,
-                                  const float* low, float* out_sh,
-                                  float* out_sc, cudaStream_t stream) {
-  const long n = (long)T->d * T->h * T->w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
+static int launch_shadow_scatter(const VrTables* T, const float* prev_sh,
+                                 const float* low, float* out_sh,
+                                 float* out_sc, cudaStream_t stream) {
   if (needs_arms(*T))
-    shadow_scatter_kernel<LOCAL, true><<<grid, block, 0, stream>>>(
-        *T, prev_sh, low, out_sh, out_sc);
-  else
-    shadow_scatter_kernel<LOCAL, false><<<grid, block, 0, stream>>>(
-        *T, prev_sh, low, out_sh, out_sc);
+    return launch_tile<LOCAL, true>(T, prev_sh, low, out_sh, out_sc, stream);
+  return launch_tile<LOCAL, false>(T, prev_sh, low, out_sh, out_sc, stream);
 }
 
 // local: VR_LOCAL_*; low: the radiance (+ fBm) volume [3 + n_noise, DL,
@@ -109,23 +259,77 @@ extern "C" int vr_shadow_scatter(const VrTables* T, const float* prev_sh,
                                  const float* low, float* out_sh,
                                  float* out_sc, int local,
                                  cudaStream_t stream) {
-  if ((local == VR_LOCAL_RAY) != (low == nullptr))
+  if ((local == VR_LOCAL_RAY) != (low == nullptr) || past_int_index(*T))
     return (int)cudaErrorInvalidValue;
+  int err;
   switch (local) {
     case VR_LOCAL_RADIANCE:
-      launch_shadow_scatter<VR_LOCAL_RADIANCE>(T, prev_sh, low, out_sh,
-                                               out_sc, stream);
+      err = launch_shadow_scatter<VR_LOCAL_RADIANCE>(T, prev_sh, low, out_sh,
+                                                     out_sc, stream);
       break;
     case VR_LOCAL_RAY:
-      launch_shadow_scatter<VR_LOCAL_RAY>(T, prev_sh, low, out_sh, out_sc,
-                                          stream);
+      err = launch_shadow_scatter<VR_LOCAL_RAY>(T, prev_sh, low, out_sh,
+                                                out_sc, stream);
       break;
     case VR_LOCAL_BAKED:
-      launch_shadow_scatter<VR_LOCAL_BAKED>(T, prev_sh, low, out_sh, out_sc,
-                                            stream);
+      err = launch_shadow_scatter<VR_LOCAL_BAKED>(T, prev_sh, low, out_sh,
+                                                  out_sc, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The tile (columns, rows) of local source `local` into out[0..1] and the
+// dynamic shared bytes of a launch at reprojection window k into out[2].
+extern "C" int vr_shadow_scatter_geometry(int local, int k, int* out) {
+  switch (local) {
+    case VR_LOCAL_RADIANCE:
+      out[0] = K2Tile<VR_LOCAL_RADIANCE>::X;
+      out[1] = K2Tile<VR_LOCAL_RADIANCE>::Y;
+      break;
+    case VR_LOCAL_RAY:
+      out[0] = K2Tile<VR_LOCAL_RAY>::X;
+      out[1] = K2Tile<VR_LOCAL_RAY>::Y;
+      break;
+    case VR_LOCAL_BAKED:
+      out[0] = K2Tile<VR_LOCAL_BAKED>::X;
+      out[1] = K2Tile<VR_LOCAL_BAKED>::Y;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  out[2] = k2_shared(out[0], out[1], k) * (int)sizeof(float);
+  return 0;
+}
+
+// cudaFuncGetAttributes of the six kernels, LOCAL (radiance, ray, baked)
+// outer and ARMS (false, true) inner: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <int LOCAL, bool ARMS>
+static cudaError_t attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)shadow_scatter_kernel<LOCAL, ARMS, K2Tile<LOCAL>::X,
+                                             K2Tile<LOCAL>::Y>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_shadow_scatter_attrs(int* out) {
+  const cudaError_t errs[6] = {
+      attrs_of<VR_LOCAL_RADIANCE, false>(out),
+      attrs_of<VR_LOCAL_RADIANCE, true>(out + 4),
+      attrs_of<VR_LOCAL_RAY, false>(out + 8),
+      attrs_of<VR_LOCAL_RAY, true>(out + 12),
+      attrs_of<VR_LOCAL_BAKED, false>(out + 16),
+      attrs_of<VR_LOCAL_BAKED, true>(out + 20)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

@@ -125,13 +125,15 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     # source -> {entry point: argument types before the stream}
     sig = {
         "bake_radiance": {"vr_bake_radiance": [tp, vp]},
-        "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci]},
+        "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci],
+                           "vr_shadow_scatter_geometry": [ci, ci, vp]},
         "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
         "composite": {
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp]},
-        "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci]},
+        "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
+                    "vr_scatter_geometry": [ci, vp]},
         "dir_shadow": {"vr_dir_shadow": [tp, vp]},
         "integrate": {"vr_integrate": [tp, vp, vp]},
         "bake_visibility": {"vr_bake_visibility": [tp, vp]},
@@ -146,7 +148,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     }[name]
     for entry, argtypes in sig.items():
         fn = getattr(cdll, entry)
-        fn.argtypes = argtypes + [vp]
+        # every launching entry point takes the stream last
+        fn.argtypes = argtypes + ([] if entry.endswith("_geometry")
+                                  else [vp])
         fn.restype = ctypes.c_int
 
 
@@ -163,7 +167,17 @@ def launch(name: str, *args, entry: str = "") -> None:
 
 
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
-ATTR_KERNELS = {"integrate_blend": ("integrate_blend_kernel",),
+ATTR_KERNELS = {"shadow_scatter": tuple(
+                    f"shadow_scatter_kernel<{local}, {arms}>"
+                    for local in ("RADIANCE", "RAY", "BAKED")
+                    for arms in ("false", "true")),
+                "scatter": tuple(
+                    f"scatter_kernel<{local}, {planes}, false>"
+                    for local in ("RADIANCE", "RAY", "BAKED")
+                    for planes in ("false", "true"))
+                + ("scatter_kernel<RAY, false, true>",
+                   "scatter_kernel<RAY, true, true>"),
+                "integrate_blend": ("integrate_blend_kernel",),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel")}

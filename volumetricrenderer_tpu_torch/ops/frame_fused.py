@@ -41,6 +41,7 @@ from volumetricrenderer_tpu_torch.ops.material import (heightfield_static,
 from volumetricrenderer_tpu_torch.ops.occlude import pack_boxes
 from volumetricrenderer_tpu_torch.ops.phase import PI
 from volumetricrenderer_tpu_torch.ops.scatter import (check_scatter_inputs,
+                                                      check_tile_indices,
                                                       local_mode,
                                                       pack_dir_lights,
                                                       pack_lights,
@@ -350,6 +351,25 @@ def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
     return blended, scatter_local_plain(t, blended, bake, vis)
 
 
+# K2's block (csrc/shadow_scatter.cu K2Tile): 16 columns x 16 rows of one
+# slice, in every local source. A block's shared memory on the H100 is
+# 227 KB; K2 holds under 1 KB there besides k2_shared_bytes (the tile's
+# terms, common.cuh TileTerms).
+K2_TILE = (16, 16)
+MAX_SHARED_BYTES = 232448
+K2_STATIC_SHARED = 1024
+
+
+def k2_shared_bytes(k: int) -> int:
+    """Mirror of csrc/shadow_scatter.cu k2_shared: the dynamic shared bytes
+    of a K2 launch at reprojection window k. A block's reprojection region
+    is the tile and k rows and columns before it, k + 1 after (the reach of
+    the warp's taps): the (ox, oy, oz, success) of each of its cells, then
+    reproj_vx of its columns and reproj_vy of its rows, float32."""
+    nx, ny = K2_TILE[0] + 2 * k + 1, K2_TILE[1] + 2 * k + 1
+    return 4 * (4 * nx * ny + nx + ny)
+
+
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
                    bake: Optional[torch.Tensor] = None,
                    vis: Optional[torch.Tensor] = None):
@@ -361,6 +381,10 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     check_scatter_inputs(t, prev_shadow, bake, vis, None)
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
+    check_tile_indices(t)
+    if k2_shared_bytes(t.k) + K2_STATIC_SHARED > MAX_SHARED_BYTES:
+        raise ValueError(f"reprojection window {t.k}: K2's region does not "
+                         f"fit a block's shared memory")
     low = bake if bake is not None else vis
     cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
     w, h, d = t.grid_whd

@@ -248,6 +248,47 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
 # K6 scatter (csrc/scatter.cu)
 # --------------------------------------------------------------------------
 
+# The blocks of K6 by local source (csrc/scatter.cu K6Tile): (columns, rows)
+# of a tile of one slice, or (froxels, 0) for a run of consecutive froxels
+# of one slice's rows. K2's are ops/frame_fused.K2_TILE. Both index in 32
+# bits and take a slice per launch-grid z.
+K6_TILES = {LOCAL_RADIANCE: (128, 0), LOCAL_RAY: (256, 0),
+            LOCAL_BAKED: (16, 8)}
+INT32_MAX = 2 ** 31 - 1
+MAX_GRID_Z = 65535
+
+
+def tile_grid(grid_whd: Tuple[int, int, int],
+              tile: Tuple[int, int]) -> Tuple[int, int, int]:
+    """The launch grid of K6 or K2 for the array grid (W, H, D) and a block
+    `tile` of K6_TILES or K2_TILE: one block per tile of each slice, or per
+    run of tile[0] froxels of its rows; the ragged last ones masked."""
+    w, h, d = grid_whd
+    tx, ty = tile
+    if ty == 0:
+        return -(-(w * h) // tx), 1, d
+    return -(-w // tx), -(-h // ty), d
+
+
+def check_tile_indices(t) -> None:
+    """Refuse the frame tables `t` whose arrays K6 and K2 cannot index in
+    32 bits (csrc/common.cuh past_int_index): the [max(4, Nd), D, H, W]
+    planes and the low volume's channels must hold at most 2^31 - 1 floats,
+    and the grid at most 65535 slices. Raises ValueError."""
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    n_lights = 0 if t.lights is None else t.lights.shape[0]
+    planes = max(4, t.n_dir) * w * h * d
+    low = max(3 + t.n_noise, n_lights) * wl * hl * dl
+    if planes > INT32_MAX or low > INT32_MAX:
+        raise ValueError(f"the grid {t.grid_whd} needs indices past 2^31 - 1 "
+                         f"({planes} floats of planes, {low} of the low "
+                         f"volume): the kernels index in 32 bits")
+    if d > MAX_GRID_Z:
+        raise ValueError(f"{d} slices: a launch grid holds at most "
+                         f"{MAX_GRID_Z}")
+
+
 def check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
                           material) -> None:
     w, h, d = t.grid_whd
@@ -331,6 +372,7 @@ def scatter_local(t, shadow: torch.Tensor,
     if shadow.device.type == "cpu":
         return scatter_local_plain(t, shadow, bake, vis, material)
     check_scatter_inputs(t, shadow, bake, vis, material)
+    check_tile_indices(t)
     low = bake if bake is not None else vis
     cuda.check_cuda(shadow, *(() if low is None else (low,)),
                     *(material or ()))
