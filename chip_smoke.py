@@ -12,8 +12,7 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of K2's, K3's, K4's and K6's kernels
-     (cudaFuncGetAttributes);
+     local (spill) bytes of K1's to K6's kernels (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
@@ -127,8 +126,12 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      and K6's), and shows that K7 then K10 gives K5's volume, K8 then
      K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
      the radiance bake, rays and the baked visibility), bit for bit, and
-     that K2's and K6's blocks and K2's shared memory are what the
-     wrappers reckon;
+     that K2's, K5's and K6's blocks, K2's and K5's shared memory and K1's
+     launch (blocks, samples and light groups a block, passes of lights,
+     shared memory) are what the wrappers reckon; holds K1 on a scene with
+     40 local lights (two passes of lights); logs each hold's largest
+     difference and where it lies, each kernel's largest hold and, for K6,
+     the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
      map_dir, map, fused_exact, fused_vis, uhd_exact, uhd and demo paths
      and, with a fixed camera and G-buffer, frame +
@@ -408,10 +411,18 @@ def kernel_time_ms(fn, n: int) -> float:
     return cuda_time_ms(fn, n, spin=True)
 
 
+# kernel -> (max abs err, hold label, index of that element, share past
+# the tolerance, kernel - twin there) of the hold with the largest
+# difference so far
+LARGEST = {}
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            mode: str = "") -> float:
+            mode: str = "", label: str = "") -> float:
     """Check a kernel output against its twin per CHECKS (a mode in
-    ARM_FRACTION lets fewer elements past); returns the max abs error."""
+    ARM_FRACTION lets fewer elements past); returns the max abs error and
+    keeps the hold (`label`, else the mode) in LARGEST if its difference is
+    the kernel's largest."""
     atol, rtol, frac_ok, why = CHECKS[name]
     frac_ok = ARM_FRACTION.get((name, mode), frac_ok)
     if got.shape != want.shape:
@@ -422,12 +433,80 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     err = (got - want).abs()
     frac = float((err > atol + rtol * want.abs()).float().mean())
     max_err = float(err.max())
-    log(f"# check {name}: max_abs_err {max_err:.3e}, fraction past "
-        f"atol {atol:g} + rtol {rtol:g} = {frac:.2e} (allowed {frac_ok:g}: "
-        f"{why})")
+    label = label or mode or "main"
+    at = tuple(int(v) for v in torch.unravel_index(err.argmax(), err.shape))
+    if max_err > LARGEST.get(name, (-1.0,))[0]:
+        LARGEST[name] = (max_err, label, at, frac,
+                         float(got[at]) - float(want[at]))
+    log(f"# check {name} ({label}): max_abs_err {max_err:.3e} at {at}, "
+        f"fraction past atol {atol:g} + rtol {rtol:g} = {frac:.2e} (allowed "
+        f"{frac_ok:g}: {why})")
     if frac > frac_ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_err
+
+
+def scatter_terms(sca, vis, mtl, inputs, largest) -> str:
+    """An account of K6's largest difference from its twin: the twin's
+    terms at that element's froxel, from scatter_slice on its slice --
+    sigma_s, the sun term and the local lights' term and, in the per-light
+    modes, each light's contribution unshadowed x its gate (what a flip of
+    its any-hit changes) against the difference."""
+    t, shadow, bake, vis_vol, mat = inputs
+    _, lab, (c, z, y, x), _, diff = largest
+    zs = torch.tensor([[[z]]], device=shadow.device)
+    up = lambda v: vis.upsample_low(v, zs, t.ss, t.tent_x, t.tent_y)
+    planes = None if mat is None else (
+        mat[0][0, z:z + 1], mat[0][1, z:z + 1], mat[0][2, z:z + 1],
+        mat[1][0, z:z + 1])
+    radiance = noise = local = None
+    if bake is not None:
+        radiance = up(bake[:3])
+        if t.n_noise and mat is None:
+            noise = list(up(bake[3:3 + t.n_noise]))
+    else:
+        active = sca.schedule_mask(t.order, t.count).T[:, z:z + 1, None,
+                                                         None]
+        local = (t.lights, active, t.planes, t.spheres, t.boxes,
+                 t.occluders(local=True),
+                 None if vis_vol is None else up(vis_vol))
+
+    def run(n_dir, local_):
+        out = sca.scatter_slice(
+            t.spar, t.dirs, t.med, t.media_static, zs,
+            [p[z:z + 1] for p in shadow], radiance, noise,
+            grid_whd=t.grid_whd, n_dir=n_dir, h_glob=t.h_glob,
+            jitter_dir=t.jitter_dir, local=local_, material=planes)
+        return [float(v[0, y, x]) for v in out[:3]]
+
+    full, lights = run(t.n_dir, local), run(0, local)
+    if planes is None:
+        wx, wy, wz = sca.froxel_world(t.spar, zs, t.grid_whd, t.h_glob)
+        sigma = mtl.material_planes(t.med, t.media_static, wx, wy, wz,
+                                    noise_planes=noise)[:3]
+    else:
+        sigma = planes[:3]
+    sigma = [float(v[0, y, x]) for v in sigma]
+    fmt = lambda vals: "(" + ", ".join(f"{v:.4e}" for v in vals) + ")"
+    text = (f"# largest difference of scatter: hold {lab!r}, froxel (z, y, "
+            f"x) = ({z}, {y}, {x}), plane {'rgbe'[c]}, kernel - twin "
+            f"{diff:.3e}; the twin there: sigma_s {fmt(sigma)}, sun term "
+            f"{fmt([f - l for f, l in zip(full, lights)])}, local lights' "
+            f"term {fmt(lights)}")
+    if c < 3 and local is not None:
+        ones = [torch.ones_like(shadow[0][z:z + 1])] * t.lights.shape[0]
+        flips = []
+        for li in range(t.lights.shape[0]):
+            only = torch.zeros_like(active)
+            only[li] = active[li]
+            contrib = run(0, (local[0], only, *local[2:6], ones))
+            flips.append(contrib[c] * float(t.lights[li, 14]))
+        li = min(range(len(flips)), key=lambda j: abs(abs(diff) - flips[j]))
+        text += (f"; light {li}'s contribution unshadowed x gate there "
+                 f"{flips[li]:.3e} (difference / that = "
+                 f"{diff / flips[li] if flips[li] else float('nan'):.4f}): "
+                 f"the nearest flip of one light's shadow")
+    return text
 
 
 def profile_frames(step, n: int) -> None:
@@ -969,10 +1048,12 @@ def main() -> int:
     out = zg.composite(acc, scene_color, view_depth, params, cfg.grid)
     errs = {}
     errs["bake_radiance"] = compare("bake_radiance", bake,
-                                    ff.bake_radiance_plain(tables))
+                                    ff.bake_radiance_plain(tables),
+                                    label="fused frame 4")
     sh_p, sc_p = ff.shadow_scatter_plain(tables, prev_sh, bake)
-    errs["shadow_scatter"] = max(compare("shadow_scatter", sh, sh_p),
-                                 compare("shadow_scatter", sc, sc_p))
+    errs["shadow_scatter"] = max(
+        compare("shadow_scatter", sh, sh_p, label="radiance, history"),
+        compare("shadow_scatter", sc, sc_p, label="radiance, planes"))
     # the two non-production branches of K2 and K6 (radiance mode): the
     # jittered sun scatter and the fBm evaluated per froxel (no baked noise
     # channel; K1 then writes its three radiance channels and nothing past
@@ -984,7 +1065,8 @@ def main() -> int:
     bake_rgb = guard[:3 * bake[0].numel()].view(bake[:3].shape)
     errs["bake_radiance"] = max(
         errs["bake_radiance"],
-        compare("bake_radiance", bake_rgb, ff.bake_radiance_plain(opt)))
+        compare("bake_radiance", bake_rgb, ff.bake_radiance_plain(opt),
+                label="no fBm channel"))
     if not bool((guard[3 * bake[0].numel():] == -7.0).all()):
         raise AssertionError("bake_radiance wrote past its 3 channels")
     bake_rgb = bake_rgb.clone()
@@ -992,7 +1074,7 @@ def main() -> int:
     errs["shadow_scatter"] = max(
         errs["shadow_scatter"],
         compare("shadow_scatter", ff.shadow_scatter(opt, prev_sh, bake_rgb)[1],
-                sc_opt_p))
+                sc_opt_p, label="radiance, jittered sun, fBm per froxel"))
     errs["integrate_blend"] = compare(
         "integrate_blend", acc, ff.integrate_blend_plain(tables, sc, prev_acc))
     errs["composite"] = compare(
@@ -1006,28 +1088,58 @@ def main() -> int:
     # the staged kernels on the same frame; K6's per-light mode on the
     # inputs of the exact path's frame 2
     errs["shadow_blend"] = compare("shadow_blend",
-                                   sb.dir_shadow_blend(tables, prev_sh), sh_p)
+                                   sb.dir_shadow_blend(tables, prev_sh), sh_p,
+                                   label="fused frame 4")
     unblended_p = ds.dir_shadow_plain(tables)
     errs["dir_shadow"] = compare("dir_shadow", ds.dir_shadow(tables),
                                  unblended_p)
+    # K6's holds: label -> (tables, shadow, bake, vis, material), for the
+    # account of the largest difference (scatter_terms)
+    k6_in = {"radiance x fused": (tables, sh_p, bake, None, None),
+             "radiance x fused, jittered sun, fBm per froxel": (
+                 opt, sh_p, bake_rgb, None, None)}
     errs["scatter"] = max(
-        compare("scatter", sca.scatter_local(tables, sh_p, bake), sc_p),
-        compare("scatter", sca.scatter_local(opt, sh_p, bake_rgb), sc_opt_p))
+        compare("scatter", sca.scatter_local(tables, sh_p, bake), sc_p,
+                label="radiance x fused"),
+        compare("scatter", sca.scatter_local(opt, sh_p, bake_rgb), sc_opt_p,
+                label="radiance x fused, jittered sun, fBm per froxel"))
     x_prev = runs["exact"][1][1]
     x_tables, _, _ = renderers["exact"].frame_tables(x_prev, scene, 0.1)
     x_sh = sb.dir_shadow_blend(x_tables,
                                x_prev.prev_shadow.float().contiguous())
     x_sc = sca.scatter_local(x_tables, x_sh)
     x_sc_p = sca.scatter_local_plain(x_tables, x_sh)
-    per_light_err = compare("scatter", x_sc, x_sc_p)
     x_opt = dataclasses.replace(x_tables, jitter_dir=True)
+    k6_in["rays x fused"] = (x_tables, x_sh, None, None, None)
+    k6_in["rays x fused, jittered sun"] = (x_opt, x_sh, None, None, None)
+    per_light_err = compare("scatter", x_sc, x_sc_p, label="rays x fused")
     per_light_err = max(per_light_err, compare(
         "scatter", sca.scatter_local(x_opt, x_sh),
-        sca.scatter_local_plain(x_opt, x_sh)))
+        sca.scatter_local_plain(x_opt, x_sh),
+        label="rays x fused, jittered sun"))
     errs["scatter"] = max(errs["scatter"], per_light_err)
     errs["integrate"] = compare("integrate", integ.accumulate(tables, sc),
                                 integ.accumulate_plain(tables, sc))
     del x_sc_p, sc_opt_p, guard
+    # K1 with more local lights than one pass takes (40 on benchmark_scene:
+    # two passes, the sums carried from the first into the second), on the
+    # fused frame's first tables
+    scene40 = benchmark_scene(aspect=cfg.image_width / cfg.image_height,
+                              num_local_lights=40, noise_mode="procedural")
+    t40, _, _ = renderer.frame_tables(
+        renderer.init_state(scene40.dir_lights.count), scene40, 0.0)
+    passes40 = ff.k1_geometry(t40.lights.shape[0], t40.n_noise,
+                              t40.low_dims).passes
+    late40 = int(t40.active[ff.K1_PASS:].sum())
+    log(f"# bake_radiance, 40 lights: {passes40} passes, {late40} (light, "
+        f"low slice) pairs active past the first pass")
+    if passes40 < 2 or late40 == 0:
+        raise AssertionError("the 40-light hold does not reach K1's second "
+                             "pass")
+    k1_err = {"lights40": compare("bake_radiance", ff.bake_radiance(t40),
+                                  ff.bake_radiance_plain(t40),
+                                  label="40 local lights")}
+    errs["bake_radiance"] = max(errs["bake_radiance"], k1_err["lights40"])
 
     # K2's per-light modes on the inputs of the fused_exact and fused_vis
     # paths' frame 2: rays, and the visibility of K9
@@ -1042,8 +1154,10 @@ def main() -> int:
     for mode, (p_tables, p_sh, p_vis) in k2_in.items():
         got = ff.shadow_scatter(p_tables, p_sh, vis=p_vis)
         want = ff.shadow_scatter_plain(p_tables, p_sh, vis=p_vis)
-        k2_err[mode] = max(compare("shadow_scatter", g, w_)
-                           for g, w_ in zip(got, want))
+        k2_err[mode] = max(compare("shadow_scatter", g, w_,
+                                   label=f"{mode}, {part}")
+                           for g, w_, part in zip(got, want,
+                                                  ("history", "planes")))
         log(f"# shadow_scatter, {mode}: source {p_tables.local_source}")
     errs["shadow_scatter"] = max(errs["shadow_scatter"], *k2_err.values())
     del got, want
@@ -1080,9 +1194,38 @@ def main() -> int:
             raise AssertionError(f"K6's block at mode {local}: "
                                  f"{tuple(blk[:2])} in the kernel, "
                                  f"{sca.K6_TILES[local]} in ops/scatter")
+    for kw in (0, 1, cfg.reproj_window, 8, 25):
+        cuda.lib("shadow_blend").vr_shadow_blend_geometry(
+            kw, cuda.ctypes.cast(blk, cuda.ctypes.c_void_p))
+        want = (*sb.K5_TILE, sb.k5_shared_bytes(kw))
+        if tuple(blk) != want:
+            raise AssertionError(f"K5's block and shared bytes at k={kw}: "
+                                 f"{tuple(blk)} in the kernel, {want} in "
+                                 f"ops/shadow_blend")
+    # K1's launch: (local lights, fBm channels, low grid) of the full grid,
+    # the demo grid, a slab5 shard, a ragged low slice and no lights, and
+    # 40 lights (two passes)
+    geo = (cuda.ctypes.c_int * 8)()
+    k1_shapes = ((tables.lights.shape[0], tables.n_noise, tables.low_dims),
+                 (1, 0, (80, 44, 32)), (16, 1, (60, 10, 32)),
+                 (3, 2, (13, 5, 3)), (0, 1, (13, 5, 3)),
+                 (40, 1, (60, 34, 32)))
+    for n_l, n_n, (wl_, hl_, dl_) in k1_shapes:
+        cuda.lib("bake_radiance").vr_bake_radiance_geometry(
+            n_l, n_n, wl_, hl_, dl_, cuda.ctypes.cast(geo,
+                                                       cuda.ctypes.c_void_p))
+        want = ff.k1_geometry(n_l, n_n, (wl_, hl_, dl_))
+        if tuple(geo) != dataclasses.astuple(want):
+            raise AssertionError(f"K1's launch for {n_l} lights, {n_n} fBm "
+                                 f"channels on {(wl_, hl_, dl_)}: "
+                                 f"{tuple(geo)} in the kernel, {want} in "
+                                 f"ops/frame_fused")
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
-        f"{cfg.reproj_window}, K6 {sca.K6_TILES}")
+        f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
+        f"{sb.k5_shared_bytes(cfg.reproj_window)} B, K6 {sca.K6_TILES}, K1 "
+        f"on the full grid "
+        f"{ff.k1_geometry(*k1_shapes[0])}")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2
@@ -1160,8 +1303,11 @@ def main() -> int:
     k6_modes = {"baked_planes": (None, h_vis, mat),
                 "baked_fused": (None, h_vis, None),
                 "radiance_planes": (h_bake, None, mat)}
+    k6_in.update({m.replace("_", " x "): (h_tables, h_sh, *a)
+                  for m, a in k6_modes.items()})
     mode_err = {m: compare("scatter", sca.scatter_local(h_tables, h_sh, *a),
-                           sca.scatter_local_plain(h_tables, h_sh, *a))
+                           sca.scatter_local_plain(h_tables, h_sh, *a),
+                           label=m.replace("_", " x "))
                 for m, a in k6_modes.items()}
     errs["scatter"] = max(errs["scatter"], *mode_err.values())
 
@@ -1264,6 +1410,7 @@ def main() -> int:
             lambda: vis.bake_visibility(dv_tables),
             lambda: vis.bake_visibility_plain(dv_tables))},
     }
+    k6_in["rays_terrain"] = (dx_tables, dx_sh, None, None, None)
     arm_err = {}
     for k, modes in arm_calls.items():
         for m, (call, twin) in modes.items():
@@ -1384,13 +1531,17 @@ def main() -> int:
                 slab_err[("bake_radiance", m)] = max(
                     slab_err.get(("bake_radiance", m), 0.0),
                     compare("bake_radiance", k1,
-                            ff.bake_radiance_plain(t_s)))
+                            ff.bake_radiance_plain(t_s),
+                            label=f"slab5 shard {i}, y phase {int(ph)}"))
                 slab_in.setdefault(m, t_s)
             if (name, i) == ("slab5", 1):       # phase 3: K2, K3, K4
                 slab_err[("shadow_scatter", "slab_phased")] = max(
-                    compare("shadow_scatter", g, w_) for g, w_ in zip(
+                    compare("shadow_scatter", g, w_,
+                            label=f"slab5 shard 1, phased tent, {part}")
+                    for g, w_, part in zip(
                         (sh_s, sc_s),
-                        ff.shadow_scatter_plain(t_s, sh_in, k1)))
+                        ff.shadow_scatter_plain(t_s, sh_in, k1),
+                        ("history", "planes")))
                 errs["integrate_blend"] = max(
                     errs["integrate_blend"], compare(
                         "integrate_blend", acc_s,
@@ -1424,10 +1575,14 @@ def main() -> int:
     acc_in = st_i.prev_accumulation.float().contiguous()
     sh_s = sb.dir_shadow_blend(t_s, sh_in)
     errs["shadow_blend"] = max(errs["shadow_blend"], compare(
-        "shadow_blend", sh_s, sb.dir_shadow_blend_plain(t_s, sh_in)))
+        "shadow_blend", sh_s, sb.dir_shadow_blend_plain(t_s, sh_in),
+        label="slab3_staged shard 1"))
+    k6_in["rays x planes, slab3_staged shard 1"] = (t_s, sh_s, None, None,
+                                                    mat_s)
     errs["scatter"] = max(errs["scatter"], compare(
         "scatter", sca.scatter_local(t_s, sh_s, None, None, mat_s),
-        sca.scatter_local_plain(t_s, sh_s, None, None, mat_s)))
+        sca.scatter_local_plain(t_s, sh_s, None, None, mat_s),
+        label="rays x planes, slab3_staged shard 1"))
     sc_s = pipeline.write_scatter_volume(r_loc.config, t_s, sh_s, mat_s,
                                          geo_s, scene_s, (None, None), 0.1)
     acc_s = ff.integrate_blend(t_s, sc_s, acc_in)
@@ -1447,6 +1602,13 @@ def main() -> int:
                               y_map)
     for (k, m), e in slab_err.items():
         errs[k] = max(errs[k], e)
+    # the hold of each kernel with its largest difference; for K6, the
+    # twin's terms at that froxel (ROADMAP C8)
+    for k, (e, lab, at, frac, _) in sorted(LARGEST.items()):
+        log(f"# largest difference of {k}: {e:.3e} in its hold {lab!r} at "
+            f"{at} (that hold's share past the tolerance {frac:.2e})")
+    log(scatter_terms(sca, vis, mtl, k6_in[LARGEST["scatter"][1]],
+                      LARGEST["scatter"]))
     log("# slab3_staged shard 1: K5, K6 (rays, material planes), K3 and "
         "K4's per-pixel form reproduce its band bit for bit")
     # the images put together from the bands against the whole grid's
@@ -1649,6 +1811,7 @@ def main() -> int:
         lambda a=a: sca.scatter_local(h_tables, h_sh, *a), n)
         for m, a in k6_modes.items()}
     per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
+    k1_ms = {"lights40": kernel_time_ms(lambda: ff.bake_radiance(t40), n)}
     k2_ms = {m: kernel_time_ms(lambda a=a: ff.shadow_scatter(a[0], a[1],
                                                              vis=a[2]),
                                5 if m == "rays" else n)
@@ -1698,6 +1861,8 @@ def main() -> int:
         for m, a in k6_modes.items()}
     per_light_plain_ms = cuda_time_ms(
         lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
+    k1_plain_ms = {"lights40": cuda_time_ms(
+        lambda: ff.bake_radiance_plain(t40), 1)}
     k2_plain_ms = {m: cuda_time_ms(
         lambda a=a: ff.shadow_scatter_plain(a[0], a[1], vis=a[2]), 1)
         for m, a in k2_in.items()}
@@ -1998,6 +2163,11 @@ def main() -> int:
     plane_of = lambda t: t.low_dims[0] * t.low_dims[1]
     shadow_ops = lambda t: ops_reproj + warp(t.n_dir) + t.n_dir * (
         30 + geo_ops(t))
+    # K1 on 40 lights: as the full grid's, from its own tables
+    k1_work = {"lights40": (
+        4 * (3 + t40.n_noise) * n_low_of(t40),
+        n_low_of(t40) * (60 + ops_perlin * t40.n_noise)
+        + int(t40.active.sum()) * plane_of(t40) * (60 + geo_ops(t40)))}
     samples = {"sun": {}, "low": {}, "full": {}}
     for t_name, t in (("demo_full", d_tables), ("demo_exact_hf", dx_tables),
                       ("fractional", fr_tables),
@@ -2128,7 +2298,9 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
-            "max_abs_err": errs[name], "ms": ms[name],
+            "max_abs_err": errs[name],
+            "largest_hold": LARGEST.get(name, (None, None))[1],
+            "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms if name == "composite" else None,
         }
@@ -2139,6 +2311,8 @@ def main() -> int:
         # the modes of this slice: K2's per-light loops, K4's 4K cells and
         # co-sited planes, each with the path that launches it
         modes = {
+            "bake_radiance": (k1_work, k1_err, k1_ms, k1_plain_ms, {},
+                              {"lights40": "checked and timed only"}),
             "shadow_scatter": (k2_work, k2_err, k2_ms, k2_plain_ms, {},
                                {"rays": "fused_exact", "baked": "fused_vis"}),
             "composite": (k4_work, k4_err, k4_ms, k4_plain_ms, k4_lib_ms,

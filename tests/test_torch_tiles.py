@@ -1,8 +1,10 @@
-"""The host side of K2's and K6's slice tiles (csrc/shadow_scatter.cu,
-csrc/scatter.cu, csrc/common.cuh): the launch grid and K2's shared memory
-as the wrappers mirror them, the reach of K2's reprojection region, and the
-wrappers' refusal of tables the kernels cannot index in 32 bits. Plain
-Python and torch on the CPU (meta tensors for the large grids); no JAX."""
+"""The host side of K2's, K5's and K6's slice tiles (csrc/shadow_scatter.cu,
+csrc/shadow_blend.cu, csrc/scatter.cu, csrc/common.cuh) and of K1's light
+groups (csrc/bake_radiance.cu): the launch grids and shared memory as the
+wrappers mirror them, the reach of the reprojection region, K1's share of
+each sample's lights among its warps, and the wrappers' refusal of tables
+the kernels cannot index in 32 bits. Plain Python and torch on the CPU
+(meta tensors for the large grids); no JAX."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ import torch
 import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
+from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
 
 
 K2 = t_ff.K2_TILE
@@ -155,11 +158,168 @@ def test_k2_refuses_a_region_past_shared_memory(tables):
     """A reprojection window whose region does not fit a block's 227 KB of
     shared memory is refused by K2's wrapper; K6 has no region."""
     big = next(k for k in range(1, 100)
-               if t_ff.k2_shared_bytes(k) + t_ff.K2_STATIC_SHARED
-               > t_ff.MAX_SHARED_BYTES)
+               if t_ff.k2_shared_bytes(k) + t_sb.TILE_STATIC_SHARED
+               > t_sb.MAX_SHARED_BYTES)
     t, shadow, bake = _at(tables, (16, 15, 16), k=big)
     with pytest.raises(ValueError, match="shared memory"):
         t_ff.shadow_scatter(t, shadow, bake)
     t, shadow, bake = _at(tables, (16, 15, 16), k=big - 1)
     with pytest.raises(ValueError, match="CUDA"):
         t_ff.shadow_scatter(t, shadow, bake)
+
+
+# ---- K5 shadow_blend: K2's tile without the scatter --------------------
+
+@pytest.mark.parametrize("k,want", [(0, 4760), (1, 5928), (4, 10200),
+                                    (8, 17688), (25, 72360)])
+def test_k5_shared_bytes(k, want):
+    """K5's region is K2's: (16 + 2k + 1)^2 cells of (ox, oy, oz, success),
+    then the region's column and row terms, in float32; under a block's
+    227 KB up to k = 25 and past it (refused) at k = 60."""
+    assert t_sb.K5_TILE == K2 == (16, 16)
+    assert t_sb.k5_shared_bytes(k) == want == t_ff.k2_shared_bytes(k)
+    assert want + t_sb.TILE_STATIC_SHARED <= t_sb.MAX_SHARED_BYTES
+    assert (t_sb.k5_shared_bytes(60) + t_sb.TILE_STATIC_SHARED
+            > t_sb.MAX_SHARED_BYTES)
+
+
+@pytest.mark.parametrize("grid,want", [
+    ((240, 135, 128), (15, 9, 128)),     # FULL_CONFIG
+    ((160, 88, 64), (10, 6, 64)),        # the demo grid
+    ((240, 57, 128), (15, 4, 128))])     # a slab3_staged shard
+def test_k5_tile_grid(grid, want):
+    """One block per 16x16 tile of each slice, as K2."""
+    assert t_sca.tile_grid(grid, t_sb.K5_TILE) == want
+
+
+def _history(t, grid, **kw):
+    """t at another grid, with a meta tensor of K5's history."""
+    t = dataclasses.replace(t, grid_whd=grid, **kw)
+    w, h, d = grid
+    return t, torch.empty((t.n_dir, d, h, w), device="meta")
+
+
+@pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
+def test_k5_refuses_indices_past_32_bits(tables, grid):
+    """K5's wrapper raises ValueError, before any launch, where K2's does:
+    [4, D, H, W] planes past 2^31 - 1 floats or more than 65535 slices."""
+    t, prev = _history(tables, grid)
+    with pytest.raises(ValueError, match="2\\^31|65535"):
+        t_sb.dir_shadow_blend(t, prev)
+
+
+def test_k5_refuses_a_region_past_shared_memory(tables):
+    """A reprojection window whose region does not fit a block's shared
+    memory is refused by K5's wrapper; one less goes on to refuse only the
+    meta tensor (not on CUDA), as does the largest grid under 32 bits."""
+    big = next(k for k in range(1, 100)
+               if t_sb.k5_shared_bytes(k) + t_sb.TILE_STATIC_SHARED
+               > t_sb.MAX_SHARED_BYTES)
+    t, prev = _history(tables, (16, 15, 16), k=big)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_sb.dir_shadow_blend(t, prev)
+    for grid, k in (((16, 15, 16), big - 1), ((2048, 2047, 128), 4)):
+        t, prev = _history(tables, grid, k=k)
+        with pytest.raises(ValueError, match="CUDA"):
+            t_sb.dir_shadow_blend(t, prev)
+
+
+# ---- K1 bake_radiance: each sample's lights spread over warps -----------
+
+@pytest.mark.parametrize("n_lights,n_noise,low,want", [
+    # FULL_CONFIG's low grid, 16 lights and the fBm channel: 16x2 patches
+    (16, 1, (60, 34, 32), (2176, 128, 32, 4, 1, 3712, 16, 2)),
+    # the demo grid: one spot light, no fBm channel: a thread a sample
+    (1, 0, (80, 44, 32), (960, 128, 128, 1, 1, 0, 16, 8)),
+    # a slab5 shard's low grid
+    (16, 1, (60, 10, 32), (640, 128, 32, 4, 1, 3712, 16, 2)),
+    # a ragged low slice (13 x 5), 5 items
+    (3, 2, (13, 5, 3), (9, 128, 32, 4, 1, 2560, 16, 2)),
+    (2, 0, (13, 5, 3), (6, 128, 64, 2, 1, 2816, 16, 4)),
+    (3, 0, (13, 5, 3), (9, 128, 32, 4, 1, 1536, 16, 2)),
+    # no local light: the fBm channel alone
+    (0, 1, (13, 5, 3), (3, 128, 128, 1, 1, 0, 16, 8)),
+    # 40 lights: two passes, one pass's pairs in shared memory
+    (40, 1, (60, 34, 32), (2176, 128, 32, 4, 2, 5760, 16, 2))])
+def test_k1_geometry(n_lights, n_noise, low, want):
+    """K1's launch as ops/frame_fused.k1_geometry mirrors
+    vr_bake_radiance_geometry: (blocks, threads, samples a block, light
+    groups, passes, dynamic shared bytes, a block's columns and rows)."""
+    geo = t_ff.k1_geometry(n_lights, n_noise, low)
+    assert dataclasses.astuple(geo) == want
+    assert geo.threads == 32 * t_ff.K1_WARPS
+    assert geo.samples * geo.groups == geo.threads
+    assert geo.columns * geo.rows == geo.samples
+    assert geo.shared_bytes < 48 * 1024
+
+
+def _k1_samples_of(geo, low, b, warp, lane):
+    """csrc/bake_radiance.cu's (low slice, row, column) of the sample of
+    lane `lane` of warp `warp` of block b."""
+    wl, hl, _ = low
+    sw = t_ff.K1_WARPS // geo.groups
+    runs_x, runs_y = -(-wl // geo.columns), -(-hl // geo.rows)
+    m, rem = divmod(b, runs_x * runs_y)
+    by, bx = divmod(rem, runs_x)
+    c = bx * t_ff.K1_WX + lane % t_ff.K1_WX
+    r = (by * sw + warp % sw) * (32 // t_ff.K1_WX) + lane // t_ff.K1_WX
+    return m, r, c
+
+
+@pytest.mark.parametrize("n_lights,n_noise,low", [
+    (16, 1, (60, 34, 32)), (1, 0, (80, 44, 32)), (16, 1, (60, 10, 32)),
+    (3, 2, (13, 5, 3)), (3, 0, (13, 5, 3)), (0, 1, (13, 5, 3))])
+def test_k1_blocks_cover_each_sample_once(n_lights, n_noise, low):
+    """Each light group's warps of the blocks hold, less the lanes past a
+    ragged edge, each low sample exactly once; so the sums (group 0) and
+    every group's pairs see every sample."""
+    wl, hl, dl = low
+    geo = t_ff.k1_geometry(n_lights, n_noise, low)
+    sw = t_ff.K1_WARPS // geo.groups
+    for g in range(geo.groups):
+        seen = np.zeros((dl, hl, wl), np.int64)
+        for b in range(geo.blocks):
+            for warp in range(g * sw, (g + 1) * sw):
+                for lane in range(32):
+                    m, r, c = _k1_samples_of(geo, low, b, warp, lane)
+                    if r < hl and c < wl:
+                        seen[m, r, c] += 1
+        assert (seen == 1).all()
+
+
+def _k1_items(n_lights, n_noise, active, groups):
+    """The kernel's share of one sample's work: for each pass of K1_PASS
+    lights, the active ones in light order (ranks 0 .. n_act - 1) and, in
+    the first pass, the fBm channels after them; light group g takes the
+    items whose rank is g modulo groups. Returns ({group: [item]}, the
+    lights in the order the sums add them)."""
+    taken, order = {}, []
+    passes = max(1, -(-n_lights // t_ff.K1_PASS))
+    for p in range(passes):
+        lights = [li for li in range(p * t_ff.K1_PASS,
+                                     min((p + 1) * t_ff.K1_PASS, n_lights))
+                  if active[li]]
+        items = [("light", li) for li in lights]
+        items += [("noise", c) for c in range(n_noise)] if p == 0 else []
+        for q, item in enumerate(items):
+            taken.setdefault(q % groups, []).append(item)
+        order += lights
+    return taken, order
+
+
+@pytest.mark.parametrize("n_lights,n_noise", [(16, 1), (40, 1), (1, 0),
+                                              (3, 2), (70, 4)])
+def test_k1_items_each_once_in_light_order(n_lights, n_noise):
+    """Every active light of a low slice and every fBm channel is one light
+    group's item exactly once, and the sums add the lights in ascending
+    index as the thread-per-sample form did, over any number of passes."""
+    rng = np.random.default_rng(n_lights)
+    active = rng.random(n_lights) < 0.75
+    groups = t_ff.k1_geometry(n_lights, n_noise, (60, 34, 32)).groups
+    taken, order = _k1_items(n_lights, n_noise, active, groups)
+    flat = [it for its in taken.values() for it in its]
+    assert sorted(flat) == sorted(
+        [("light", li) for li in np.flatnonzero(active).tolist()]
+        + [("noise", c) for c in range(n_noise)])
+    assert order == np.flatnonzero(active).tolist()
+    assert set(taken) <= set(range(groups))

@@ -10,84 +10,385 @@
 // low volume [3 + n_noise, DL, HL, WL] is baked up front into device memory
 // (65,280 samples at FULL, ss=4: 1 MB), before shadow_scatter reads it.
 //
-// One thread per low sample. Per sample: the jittered world position
-// (visibility.bake_world_planes), the camera direction, phase g, then for
-// every local light that low_slice_active keeps for this low slice the
-// light factor (falloff x cone x HG) and an any-hit shadow ray, summed in
-// light order; then one fBm factor per noise-bearing medium. The shadow
-// ray is common.cuh any_hit: with heightfield_local_shadows it also marches
-// the terrain (hf_steps fBm samples over the band it crosses), and with
-// fractional boxes it returns an occlusion amount, not 0 or 1.
+// Per low sample: the jittered world position (visibility.bake_world_planes),
+// the camera direction, phase g, then for every local light that
+// low_slice_active keeps for this low slice the light factor (falloff x
+// cone x HG) and an any-hit shadow ray, summed in light order; then one fBm
+// factor per noise-bearing medium. The shadow ray is common.cuh any_hit:
+// with heightfield_local_shadows it also marches the terrain (hf_steps fBm
+// samples over the band it crosses), and with fractional boxes it returns an
+// occlusion amount, not 0 or 1.
 //
 // Bound on the H100: operations. The bytes are tiny (1 MB out); each
 // sample runs up to 16 lights x 7 primitive tests plus 3 Perlin octaves,
-// ~2-4k flops, so ~0.2 GFLOP in all -- a few microseconds at the fp32 rate,
-// and in practice bound by the launch and the divergent light loop (the
-// culling differs between slices, not within one, so a warp stays uniform
-// along z). The design keeps all tables in device memory read through the
-// read-only cache and loops over lights at run time (no per-scene build).
+// ~2-4k flops, so ~0.2 GFLOP in all -- a few microseconds at the fp32 rate.
+// A thread per sample walking its lights in series ran at 10x that: a slab
+// shard's 19,200 samples took as long as the grid's 65,280, each thread a
+// chain of 16 light iterations and 3 octaves. So the lights of a sample are
+// spread over warps. A block of K1_WARPS warps owns a patch of one low
+// slice in `groups` light groups, each group's warps holding the patch's
+// samples (lane = sample, a warp's 32 a 16 x 2 patch: a warp keeps one
+// light at a time and the slice's culling, and its control flow stays
+// uniform):
+//   1. the light group 0 warps compute each sample's world position, view
+//      direction and phase terms into shared memory;
+//   2. each pass over 32 lights: every warp takes the slice's active lights
+//      of the pass from one ballot of low_slice_active, in light order, and
+//      light group g the items q = g mod groups: the pairs (sample, q-th
+//      active light), light_factor x (1 - any_hit x gate) into shared
+//      memory; after the first pass's lights the fBm channels, one item an
+//      octave (perlin_fbm's loop body into shared memory);
+//   3. after a barrier the light group 0 warps add the pass's pairs x the
+//      light colour into their sample's sums, in light order, from 0, and
+//      sum the octaves as perlin_fbm does -- the parent's products and sums
+//      in the parent's order, so the result is bit for bit the
+//      thread-per-sample form's. The sums carry over the passes: no cap on
+//      the light count.
+// With one light group (one light and no fBm channel: demo_scene's spot
+// light) there is nothing to exchange, and each thread runs the
+// thread-per-sample loop. A pair skips what cannot change it (k1_pair):
+// the any-hit ray where the light factor is 0, and without the arms the
+// whole pair where the light's range culls the sample; the plane and sphere
+// tests of the rays leave before a division or a root whose answer is known
+// (common.cuh any_hit's EARLY). All tables stay in device memory, read
+// through the read-only cache; lights are looped at run time.
 #include "common.cuh"
 
-template <bool ARMS>
-__global__ void bake_radiance_kernel(VrTables T, float* __restrict__ out) {
-  const int n = T.dl * T.hl * T.wl;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c = i % T.wl;
-  const int r = (i / T.wl) % T.hl;
-  const int m = i / (T.wl * T.hl);
+// A block's warps and their launch bounds (blocks an SM), the lights of a
+// pass (one ballot), and a warp's samples: K1_WX columns x 32 / K1_WX rows
+// of its low slice (a patch, so that a light's range and cone cut through
+// few warps; 16 x 2 measured faster than 8 x 4, 4 x 8 and 32 x 1).
+#define K1_WARPS 4
+#define K1_MIN_BLOCKS 8
+#define K1_MIN_BLOCKS_ARMS 6  // the arms' terrain march: 85 registers
+#define K1_PASS 32
+#define K1_WX 16
+#define K1_WY (32 / K1_WX)
+// The per-sample terms in shared memory: world position, view direction,
+// phase g, g^2 and the HG numerator; and the octaves of an fBm channel that
+// are items of their own (a channel of more octaves is one item).
+#define K1_TERMS 9
+#define K1_OCT 4
+
+// The light groups of a launch: the least power of two that takes every
+// item of the first pass (its lights and the fBm channels), at most
+// K1_WARPS. Mirrored by ops/frame_fused.k1_geometry, as are the rest.
+__host__ __device__ __forceinline__ int k1_groups(int n_lights, int n_noise) {
+  const int items = (n_lights < K1_PASS ? n_lights : K1_PASS) + n_noise;
+  int g = 1;
+  while (g < items && g < K1_WARPS) g *= 2;
+  return g;
+}
+
+// Dynamic shared memory, floats: the terms of each of the block's samples,
+// then the pairs of one pass (a light of the pass and a sample each), then
+// the octaves of each fBm channel; none with one light group, whose threads
+// keep their samples' terms and sums.
+__host__ __device__ __forceinline__ int k1_shared(int n_lights, int n_noise,
+                                                  int groups, int samples) {
+  if (groups == 1) return 0;
+  return (K1_TERMS + (n_lights < K1_PASS ? n_lights : K1_PASS)
+          + n_noise * K1_OCT) * samples;
+}
+
+// The medium of fBm channel ni: the ni-th noise-bearing one.
+__device__ __forceinline__ int noise_medium(const VrTables& T, int ni) {
+  int mi = 0;
+  for (int left = ni; mi < T.n_media; ++mi)
+    if (T.med_static[6 * mi] && left-- == 0) break;
+  return mi;
+}
+
+// The terms of low sample (m, r, c): its jittered world position
+// (visibility.bake_world_planes), view direction
+// (visibility.radiance_view_dirs), phase g, g^2 and the HG numerator.
+__device__ __forceinline__ void k1_terms(const VrTables& T, int m, int r,
+                                         int c, float* v) {
   const float* p = T.spar;
   float wx, wy, wz;
   low_sample_world(T, m, r, c, wx, wy, wz);
-
-  // visibility.radiance_view_dirs
   float vdx = wx - p[20], vdy = wy - p[21], vdz = wz - p[22];
   const float inv = rsqrt_exact(vdx * vdx + vdy * vdy + vdz * vdz + 1e-18f);
-  vdx = vdx * inv;
-  vdy = vdy * inv;
-  vdz = vdz * inv;
-
   const float phg = phase_g(T, wx, wy, wz);
   const float g2 = phg * phg;
-  const float hg_num = (1.0f - g2) / (float)(4.0 * VR_PI);
+  v[0] = wx;
+  v[1] = wy;
+  v[2] = wz;
+  v[3] = vdx * inv;
+  v[4] = vdy * inv;
+  v[5] = vdz * inv;
+  v[6] = phg;
+  v[7] = g2;
+  v[8] = (1.0f - g2) / (float)(4.0 * VR_PI);
+}
+
+// The position of the q-th set bit of `bits`.
+__device__ __forceinline__ int nth_bit(unsigned bits, int q) {
+  for (; q > 0; --q) bits &= bits - 1;
+  return __ffs(bits) - 1;
+}
+
+// The pair (sample, light row ql) of terms t (stride ns): light_factor x
+// (1 - any_hit x gate), the thread-per-sample form's value or, where it is
+// certainly +-0, +-0 -- which adds nothing to a sum that starts from +0 (an
+// exact +0 or -0 term leaves every partial sum, never -0, as it is).
+// Certainly +-0: light_factor returns +-0 (then the any-hit ray, which can
+// only scale it, is not cast); or, without the arms (with them this test
+// measured slower), the light's range culls the sample: d2 >= range^2
+// clamps the falloff to 0, and with a finite multiplier, spot flag and gate
+// and |g| <= 0.9, which keeps the HG term finite, every factor after it is
+// finite.
+template <bool ARMS>
+__device__ __forceinline__ float k1_pair(const VrTables& T, const float* ql,
+                                         float wx, float wy, float wz,
+                                         const float* t, int ns) {
+  const float phg = t[6 * ns];
+  const float tx = wx - ql[0], ty = wy - ql[1], tz = wz - ql[2];
+  const float d2 = tx * tx + ty * ty + tz * tz;
+  const float r2 = ql[6] * ql[6];
+  const float big = 3.4028235e38f;  // the largest float: not inf, not NaN
+  if (!ARMS && d2 >= r2 && r2 > 0.0f && fabsf(phg) <= 0.9f
+      && fabsf(ql[7]) <= big && fabsf(ql[8]) <= big && fabsf(ql[14]) <= big)
+    return 0.0f;
+  float ldx, ldy, ldz, dist;
+  const float factor = light_factor(ql, wx, wy, wz, t[3 * ns], t[4 * ns],
+                                    t[5 * ns], phg, t[7 * ns], t[8 * ns],
+                                    ldx, ldy, ldz, dist);
+  float occ = 0.0f;
+  if (factor != 0.0f)
+    occ = any_hit<ARMS, false, true>(T, wx, wy, wz, -ldx, -ldy, -ldz,
+                                     dist - 0.05f, T.hf_local);
+  return factor * (1.0f - occ * ql[14]);
+}
+
+// SPREAD: light groups > 1; else the thread-per-sample loop, a kernel of
+// its own so that it keeps the registers it needs (the parent's 45 and 67)
+template <bool ARMS, bool SPREAD>
+__global__ void __launch_bounds__(32 * K1_WARPS,
+                                  !SPREAD ? 1
+                                  : ARMS  ? K1_MIN_BLOCKS_ARMS
+                                          : K1_MIN_BLOCKS)
+bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
+                     int runs_x, int runs_y) {
+  extern __shared__ float k1_s[];  // k1_shared
+  const int sw = K1_WARPS / groups;  // warps of a light group
+  const int ns = 32 * sw;            // samples of the block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp / sw;           // this warp's light group
+  const int wi = warp - g * sw;      // its place in the group
+  const int s = wi * 32 + lane;      // its lane's sample in the block
+  const int per_slice = runs_x * runs_y;
+  const int m = blockIdx.x / per_slice;  // low slice
+  const int b = blockIdx.x - m * per_slice;
+  const int by = b / runs_x, bx = b - by * runs_x;
+  // the group's warps one below the other: a block's patch is K1_WX
+  // columns x sw * K1_WY rows
+  const int c = bx * K1_WX + lane % K1_WX;
+  const int r = (by * sw + wi) * K1_WY + lane / K1_WX;
+  const bool valid = c < T.wl && r < T.hl;
+  float* terms = k1_s;               // [K1_TERMS][ns]
+  float* pairs = k1_s + K1_TERMS * ns;
+  const long plane = (long)T.dl * T.hl * T.wl;
+  const long i = ((long)m * T.hl + r) * T.wl + c;
+
+  if constexpr (!SPREAD) {  // the thread-per-sample loop, k1_pair's exits
+    float v[K1_TERMS];
+    k1_terms(T, m, min(r, T.hl - 1), min(c, T.wl - 1), v);
+    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+    for (int li = 0; li < T.n_lights; ++li) {
+      if (!T.active[li * T.dl + m]) continue;
+      const float* ql = T.lights + 16 * li;
+      const float base = k1_pair<ARMS>(T, ql, v[0], v[1], v[2], v, 1);
+      acc_r = acc_r + base * ql[3];
+      acc_g = acc_g + base * ql[4];
+      acc_b = acc_b + base * ql[5];
+    }
+    if (!valid) return;
+    out[i] = acc_r;
+    out[plane + i] = acc_g;
+    out[2 * plane + i] = acc_b;
+    for (int mi = 0, ni = 0; mi < T.n_media && ni < T.n_noise; ++mi)
+      if (T.med_static[6 * mi])
+        out[(3 + ni++) * plane + i] = noise_factor(T, mi, v[0], v[1], v[2]);
+    return;
+  }
+
+  // The block's tables, staged by the last warp (a warp of a light group
+  // past 0, idle in step 1) so that no later step waits on a chain of
+  // table loads: the pass's light colours (its lane's light), and the
+  // first pass's fBm items, (channel, octave) each, octave 7 for a whole
+  // channel of more than K1_OCT octaves, with each channel's medium and
+  // octaves.
+  __shared__ float colour_s[3][K1_PASS];
+  __shared__ int fbm_item[VR_MAX_NOISE * K1_OCT], fbm_mi[VR_MAX_NOISE];
+  __shared__ int fbm_oct[VR_MAX_NOISE], fbm_n;
+  const bool stager = warp == K1_WARPS - 1;
+  if (stager && lane == 0) {
+    int u = 0;
+    for (int ni = 0; ni < T.n_noise; ++ni) {
+      const int mi = noise_medium(T, ni), oct = T.med_static[6 * mi + 1];
+      fbm_mi[ni] = mi;
+      fbm_oct[ni] = oct;
+      for (int o = 0; o < (oct > K1_OCT ? 1 : oct); ++o)
+        fbm_item[u++] = 8 * ni + (oct > K1_OCT ? 7 : o);
+    }
+    fbm_n = u;
+  }
+
+  // 1. per sample (the edge's own again past a ragged edge)
+  if (g == 0) {
+    float v[K1_TERMS];
+    k1_terms(T, m, min(r, T.hl - 1), min(c, T.wl - 1), v);
+#pragma unroll
+    for (int t = 0; t < K1_TERMS; ++t) terms[t * ns + s] = v[t];
+  }
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int li = 0; li < T.n_lights; ++li) {
-    if (!T.active[li * T.dl + m]) continue;
-    const float* q = T.lights + 16 * li;
-    float ldx, ldy, ldz, dist;
-    const float factor = light_factor(q, wx, wy, wz, vdx, vdy, vdz, phg, g2,
-                                      hg_num, ldx, ldy, ldz, dist);
-    const float occ = any_hit<ARMS>(T, wx, wy, wz, -ldx, -ldy, -ldz,
-                                    dist - 0.05f, T.hf_local);
-    const float base = factor * (1.0f - occ * q[14]);
-    acc_r = acc_r + base * q[3];
-    acc_g = acc_g + base * q[4];
-    acc_b = acc_b + base * q[5];
+  float* octs = pairs + (T.n_lights < K1_PASS ? T.n_lights : K1_PASS) * ns;
+  const int passes = (T.n_lights + K1_PASS - 1) / K1_PASS;
+  for (int pass = 0; pass == 0 || pass < passes; ++pass) {
+    const int l0 = pass * K1_PASS;
+    if (stager && l0 + lane < T.n_lights) {
+      const float* ql = T.lights + 16 * (l0 + lane);
+      colour_s[0][lane] = ql[3];
+      colour_s[1][lane] = ql[4];
+      colour_s[2][lane] = ql[5];
+    }
+    const bool on =
+        l0 + lane < T.n_lights && T.active[(l0 + lane) * T.dl + m];
+    const unsigned act = __ballot_sync(0xffffffffu, on);
+    const int n_act = __popc(act);
+    if (pass == 0) __syncthreads();  // step 1's terms, the fBm items
+    const float wx = terms[s], wy = terms[ns + s], wz = terms[2 * ns + s];
+    const int items = n_act + (pass == 0 ? fbm_n : 0);
+    // 2. the pairs of light group g, and the fBm items
+    for (int q = g; q < items; q += groups) {
+      if (q < n_act) {
+        pairs[q * ns + s] = k1_pair<ARMS>(
+            T, T.lights + 16 * (l0 + nth_bit(act, q)), wx, wy, wz,
+            terms + s, ns);
+        continue;
+      }
+      // material.noise_factor_planes: fBm channel ni of the (ni)-th
+      // noise-bearing medium, octave o of perlin_fbm's loop into shared
+      // memory, or the whole fBm written straight out; out has no noise
+      // channels when the fBm is not baked
+      const int ni = fbm_item[q - n_act] / 8, o = fbm_item[q - n_act] % 8;
+      const int mi = fbm_mi[ni];
+      const int* st = T.med_static + 6 * mi;
+      if (o == 7) {
+        if (valid) out[(3 + ni) * plane + i] = noise_factor(T, mi, wx, wy, wz);
+        continue;
+      }
+      const float* qm = T.med + 20 * mi;
+      const float ux = wx * qm[5] + qm[8], uy = wy * qm[6] + qm[9];
+      const float uz = wz * qm[7] + qm[10];
+      const int per = st[2] * (1 << o);
+      const float fper = (float)per;
+      octs[(ni * K1_OCT + o) * ns + s] =
+          perlin_single(ux * fper, uy * fper, uz * fper, per, st[3] + o);
+    }
+    __syncthreads();
+    // 3. the sums, in light order; the fBm of the octave items, in
+    // perlin_fbm's order
+    if (g == 0) {
+      unsigned bits = act;
+      for (int q = 0; bits; ++q, bits &= bits - 1) {
+        const int l = __ffs(bits) - 1;
+        const float base = pairs[q * ns + s];
+        acc_r = acc_r + base * colour_s[0][l];
+        acc_g = acc_g + base * colour_s[1][l];
+        acc_b = acc_b + base * colour_s[2][l];
+      }
+      for (int ni = 0; pass == 0 && ni < T.n_noise; ++ni) {
+        const int oct = fbm_oct[ni];
+        if (oct > K1_OCT) continue;
+        float total = 0.0f;
+        float amp = 1.0f;
+        double norm = 0.0;  // a Python float in the reference
+        for (int o = 0; o < oct; ++o) {
+          total = total + amp * octs[(ni * K1_OCT + o) * ns + s];
+          norm += amp;
+          amp *= 0.5f;
+        }
+        if (valid)
+          out[(3 + ni) * plane + i] = clampf(
+              0.5f + 0.5f * (total / (float)norm) * 1.5f, 0.0f, 1.0f);
+      }
+    }
+    if (pass + 1 < passes) __syncthreads();  // the next pass's pairs
   }
-  const long plane = (long)n;
-  out[i] = acc_r;
-  out[plane + i] = acc_g;
-  out[2 * plane + i] = acc_b;
+  if (g == 0 && valid) {
+    out[i] = acc_r;
+    out[plane + i] = acc_g;
+    out[2 * plane + i] = acc_b;
+  }
+}
 
-  // material.noise_factor_planes; out has no noise channels when the fBm
-  // is not baked (n_noise = 0)
-  int ni = 0;
-  for (int mi = 0; mi < T.n_media && ni < T.n_noise; ++mi) {
-    if (!T.med_static[6 * mi]) continue;
-    out[(3 + ni) * plane + i] = noise_factor(T, mi, wx, wy, wz);
-    ++ni;
-  }
+// The launch of the low grid (wl, hl, dl) with n_lights local lights and
+// n_noise fBm channels into out[0..7]: blocks, threads a block, samples a
+// block, light groups, passes of lights, dynamic shared bytes, and a
+// block's columns and rows of its low slice.
+extern "C" int vr_bake_radiance_geometry(int n_lights, int n_noise, int wl,
+                                         int hl, int dl, int* out) {
+  const int groups = k1_groups(n_lights, n_noise);
+  const int sw = K1_WARPS / groups;
+  const int cols = K1_WX, rows = sw * K1_WY;
+  out[0] = ((wl + cols - 1) / cols) * ((hl + rows - 1) / rows) * dl;
+  out[1] = 32 * K1_WARPS;
+  out[2] = 32 * sw;
+  out[3] = groups;
+  out[4] = n_lights > 0 ? (n_lights + K1_PASS - 1) / K1_PASS : 1;
+  out[5] = k1_shared(n_lights, n_noise, groups, out[2]) * (int)sizeof(float);
+  out[6] = cols;
+  out[7] = rows;
+  return 0;
 }
 
 extern "C" int vr_bake_radiance(const VrTables* T, float* out,
                                 cudaStream_t stream) {
-  const int n = T->dl * T->hl * T->wl;
-  const int block = 128;
-  const unsigned grid = (n + block - 1) / block;
-  if (needs_arms(*T))
-    bake_radiance_kernel<true><<<grid, block, 0, stream>>>(*T, out);
+  int geo[8];
+  vr_bake_radiance_geometry(T->n_lights, T->n_noise, T->wl, T->hl, T->dl,
+                            geo);
+  const int runs_x = (T->wl + geo[6] - 1) / geo[6];
+  const int runs_y = (T->hl + geo[7] - 1) / geo[7];
+  const bool arms = needs_arms(*T), spread = geo[3] > 1;
+  if (arms && spread)
+    bake_radiance_kernel<true, true><<<geo[0], geo[1], geo[5], stream>>>(
+        *T, out, geo[3], runs_x, runs_y);
+  else if (spread)
+    bake_radiance_kernel<false, true><<<geo[0], geo[1], geo[5], stream>>>(
+        *T, out, geo[3], runs_x, runs_y);
+  else if (arms)
+    bake_radiance_kernel<true, false><<<geo[0], geo[1], geo[5], stream>>>(
+        *T, out, geo[3], runs_x, runs_y);
   else
-    bake_radiance_kernel<false><<<grid, block, 0, stream>>>(*T, out);
+    bake_radiance_kernel<false, false><<<geo[0], geo[1], geo[5], stream>>>(
+        *T, out, geo[3], runs_x, runs_y);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of the four kernels, SPREAD (true, false) outer and
+// ARMS (false, true) inner: registers per thread, static shared bytes per
+// block, local bytes per thread and largest block into out[4 i .. 4 i + 3];
+// returns the error.
+template <bool ARMS, bool SPREAD>
+static cudaError_t attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)bake_radiance_kernel<ARMS, SPREAD>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_bake_radiance_attrs(int* out) {
+  const cudaError_t errs[4] = {
+      attrs_of<false, true>(out), attrs_of<true, true>(out + 4),
+      attrs_of<false, false>(out + 8), attrs_of<true, false>(out + 12)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

@@ -240,10 +240,10 @@ __device__ bool heightfield_occluded(const VrTables& T, float wx, float wy,
 // The any-hit's three primitive tests: does the ray (o, unit dir) hit
 // plane row q, sphere row q or box row q (with the ray's inverse
 // direction i) for t in (1e-4, max_t)?
-// EARLY (the slice tiles' sun rays) returns before the division or the
-// square root where the answer is known: a plane's t = num / denom is above
-// 1e-4 only where num and denom have one sign, and a sphere is hit only
-// where disc > 0 -- the same answers.
+// EARLY (the slice tiles' sun rays, K1's local rays) returns before the
+// division or the square root where the answer is known: a plane's
+// t = num / denom is above 1e-4 only where num and denom have one sign, and
+// a sphere is hit only where disc > 0 -- the same answers.
 template <bool EARLY = false>
 __device__ __forceinline__ bool plane_hit(const float* q, float wx, float wy,
                                           float wz, float dx, float dy,
@@ -309,15 +309,16 @@ __device__ __forceinline__ void ray_inverse(float dx, float dy, float dz,
 }
 
 // occlude.any_hit, solid branch: does the ray hit a plane, sphere or box?
-template <bool INV = false>
+// EARLY: plane_hit's and sphere_hit's early exits (the same answers).
+template <bool INV = false, bool EARLY = INV>
 __device__ bool any_hit_solid(const VrTables& T, float wx, float wy,
                               float wz, float dx, float dy, float dz,
                               float max_t, const float* inv = nullptr) {
   for (int i = 0; i < T.n_planes; ++i)
-    if (plane_hit<INV>(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (plane_hit<EARLY>(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return true;
   for (int i = 0; i < T.n_spheres; ++i)
-    if (sphere_hit<INV>(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (sphere_hit<EARLY>(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return true;
   if (T.n_boxes) {
     float ix, iy, iz;
@@ -335,17 +336,17 @@ __device__ bool any_hit_solid(const VrTables& T, float wx, float wy,
 // so the early exits and the skipped factors give the reference's value.
 // (One body for both arms, this one with an early 1 where the product
 // reaches 0, gives the same values but ran every ARMS kernel 2-19% slower
-// on an H100: PERF.md §6.)
-template <bool INV = false>
+// on an H100: PERF.md §6.) EARLY: as any_hit_solid's.
+template <bool INV = false, bool EARLY = INV>
 __device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
                                     float wz, float dx, float dy, float dz,
                                     float max_t, bool terrain,
                                     const float* inv = nullptr) {
   for (int i = 0; i < T.n_planes; ++i)
-    if (plane_hit(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (plane_hit<EARLY>(T.planes + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return 1.0f;
   for (int i = 0; i < T.n_spheres; ++i)
-    if (sphere_hit(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
+    if (sphere_hit<EARLY>(T.spheres + 4 * i, wx, wy, wz, dx, dy, dz, max_t))
       return 1.0f;
   float trans = 1.0f;
   if (T.n_boxes) {
@@ -370,8 +371,9 @@ __device__ float any_hit_fractional(const VrTables& T, float wx, float wy,
 // template parameter: false (no heightfield, every box solid) compiles
 // exactly the solid test, so a solid scene's kernels keep their registers
 // and their time; true adds the two arms behind uniform branches. INV: the
-// ray's inverse direction is given (ray_inverse).
-template <bool ARMS, bool INV = false>
+// ray's inverse direction is given (ray_inverse). EARLY: the plane and
+// sphere tests' exits (any_hit_solid).
+template <bool ARMS, bool INV = false, bool EARLY = INV>
 __device__ __forceinline__ float any_hit(const VrTables& T, float wx,
                                          float wy, float wz, float dx,
                                          float dy, float dz, float max_t,
@@ -379,15 +381,15 @@ __device__ __forceinline__ float any_hit(const VrTables& T, float wx,
                                          const float* inv = nullptr) {
   if constexpr (ARMS) {
     if (T.fractional)
-      return any_hit_fractional<INV>(T, wx, wy, wz, dx, dy, dz, max_t,
-                                     terrain, inv);
-    if (any_hit_solid<INV>(T, wx, wy, wz, dx, dy, dz, max_t, inv))
+      return any_hit_fractional<INV, EARLY>(T, wx, wy, wz, dx, dy, dz, max_t,
+                                            terrain, inv);
+    if (any_hit_solid<INV, EARLY>(T, wx, wy, wz, dx, dy, dz, max_t, inv))
       return 1.0f;
     return terrain && T.hf != nullptr
                    && heightfield_occluded(T, wx, wy, wz, dx, dy, dz, max_t)
                ? 1.0f : 0.0f;
   } else {
-    return any_hit_solid<INV>(T, wx, wy, wz, dx, dy, dz, max_t, inv)
+    return any_hit_solid<INV, EARLY>(T, wx, wy, wz, dx, dy, dz, max_t, inv)
                ? 1.0f : 0.0f;
   }
 }
@@ -506,13 +508,14 @@ __device__ __forceinline__ float box_mask(const float* q, float wx, float wy,
   return lo * hi;
 }
 
-// material.phase_g_plane
+// material.phase_g_plane (the box mask's clamped divisions skipped, as in
+// material below)
 __device__ float phase_g(const VrTables& T, float wx, float wy, float wz) {
   float g = 0.0f;
   for (int mi = 0; mi < T.n_media; ++mi) {
     const float* q = T.med + 20 * mi;
     const int* st = T.med_static + 6 * mi;
-    float mask = st[4] ? box_mask(q, wx, wy, wz) : 1.0f;
+    float mask = st[4] ? box_mask<true>(q, wx, wy, wz) : 1.0f;
     if (st[5]) g = g + q[4] * mask;
     else g = g * (1.0f - mask) + q[4] * mask;
   }
@@ -781,27 +784,6 @@ __device__ __forceinline__ float low_at(const float* __restrict__ vol,
   return rows[0] * t.wy0 + rows[1] * t.wy1;
 }
 
-// ---- shadow_blend.py: the weight-mode shadow blend -------------------------
-
-// cur[li] + alpha * success * (warped history - cur[li]) for every sun at
-// froxel (z, y, x): jittered reprojection with the 1e-4 uvw nudge (sbpar),
-// 8-tap warp of prev_sh [Nd, D, H, W] (n = D*H*W).
-__device__ __forceinline__ void shadow_blend_froxel(
-    const VrTables& T, const float* __restrict__ prev_sh, long n, int z,
-    int y, int x, const float* cur, float* blended) {
-  const float* sb = T.sbpar;
-  const float vzc = view_z(sb, (float)z + 0.5f, T.d);
-  const Reproj r0 = reproj_offsets(sb, z, y, x, vzc, T.w, T.h, T.d, T.h_glob,
-                                   T.k, true);
-  const float swgt = sb[20] * r0.success;
-  for (int li = 0; li < T.n_dir; ++li) {
-    float warped;
-    warp8<1>(sb, prev_sh + li * n, n, z, y, x, vzc, T.w, T.h, T.d, T.h_glob,
-             T.k, true, r0, &warped);
-    blended[li] = cur[li] + swgt * (warped - cur[li]);
-  }
-}
-
 // ---- the slice tiles of K2 and K6 (shadow_scatter.cu, scatter.cu) ---------
 
 // What the froxels of a TX x TY tile (columns x rows) of one slice share,
@@ -823,13 +805,17 @@ struct TileTerms {
 // Step 1, before a barrier: the slice's scalars, one thread each, on the
 // first lanes of as many of the block's NT threads' warps as there are
 // scalars (their chains of log, exp and divisions run side by side).
-template <bool BLEND, int NT, class Terms>
+// SCATTER false (K5, the shadow half alone) leaves out the unjittered
+// centre's depth and the upsample's slice terms, which only the scatter
+// reads.
+template <bool BLEND, int NT, bool SCATTER = true, class Terms>
 __device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
                                              int tid, Terms& S) {
   const float* p = T.spar;
   const int items = BLEND ? 5 + T.n_dir : 3;
   for (int item = 0; item < items; ++item) {
     if (tid != (item * 32) % NT + (item * 32) / NT) continue;
+    if (!SCATTER && (item == 1 || item == 2)) continue;
     if (item == 0) {
       S.vz_j = center_vz(p, z, true, T.d);
     } else if (item == 1) {
@@ -850,7 +836,13 @@ __device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
   }
 }
 
-// Step 2, after it: item j < LINES of the tile at (xt, yt).
+// Step 2, after it: item j < LINES of the tile at (xt, yt); the unjittered
+// items (vxc, vyc) are the scatter's.
+template <int TX, int TY>
+__device__ __forceinline__ bool tile_line_unjittered(int j) {
+  return (j >= TX && j < 2 * TX) || j >= 2 * TX + TY;
+}
+
 template <int TX, int TY>
 __device__ __forceinline__ void tile_line(const VrTables& T, int xt, int yt,
                                           int j, TileTerms<TX, TY>& S) {
@@ -868,6 +860,162 @@ __device__ __forceinline__ void tile_line(const VrTables& T, int xt, int yt,
     j -= 2 * TX + TY;
     S.vyc[j] = froxel_vy(p, center_fy(p, yt + j, false, T.h_glob), S.vz_c,
                          T.h_glob);
+  }
+}
+
+// The reprojection region of a TX x TY tile at (xt, yt), the reach of the
+// shadow blend's warp taps: rows yt - k .. yt + TY + k and columns
+// xt - k .. xt + TX + k, each clamped to the grid.
+__host__ __device__ __forceinline__ int region_nx(int tx, int k) {
+  return tx + 2 * k + 1;
+}
+
+__host__ __device__ __forceinline__ int region_ny(int ty, int k) {
+  return ty + 2 * k + 1;
+}
+
+// Its dynamic shared memory, floats: the region's ox, oy, oz and success
+// planes, then reproj_vx of its columns and reproj_vy of its rows
+// (mirrored by ops/shadow_blend.region_shared_bytes).
+__host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
+  const int nx = region_nx(tx, k), ny = region_ny(ty, k);
+  return 4 * nx * ny + nx + ny;
+}
+
+// The shadow half of a slice tile: K5 shadow_blend is this alone, K2
+// shadow_scatter runs it and then the scatter half, so K2 equals K5 then K6
+// by construction. The block owns the TX x TY tile (blockIdx.x, blockIdx.y)
+// of slice blockIdx.z, S its terms and dyn_s its region_floats. Steps 1 and
+// 2, tile_region, end with a barrier (SCATTER: also the terms of the
+// scatter half, tile_scalars):
+//   1. the slice's scalars, then each column's and row's view-space terms,
+//      and reproj_vx / reproj_vy of the region;
+//   2. the reprojection offsets of the shadow blend, each once, at every
+//      (row, column) of the region, into shared memory, and of each only
+//      the outputs the warp reads: all four at the tile's own cells, oy and
+//      oz in the other columns of its rows, oz alone in the other rows:
+//      ~2.4 reprojections a froxel where one froxel's own warp8 takes 7.
+// Step 3, tile_blend, per froxel (x, y) of the grid (index i of n):
+//   3. the sun rays (their inverse directions from step 1, the plane and
+//      sphere tests leaving before a division or a root whose answer is
+//      known), warp8_by<1> reading the offsets from shared memory, the
+//      weight-mode blend cur + alpha * success * (warped - cur) (sbpar:
+//      jittered reprojection, the 1e-4 uvw nudge) and the store of the
+//      history out_sh; the jittered world position (wx, wy, wz) and each
+//      sun's blended shadow are left for the scatter half.
+// Every value is the thread-per-froxel form's (sun_shadow, then warp8 over
+// reproj_offsets at each tap, as temporal_blend.cu's weight mode blends),
+// from the same operations in the same order. Indices are 32-bit (the
+// launchers refuse tables past past_int_index).
+template <bool SCATTER, int TX, int TY>
+__device__ __forceinline__ void tile_region(const VrTables& T,
+                                            TileTerms<TX, TY>& S,
+                                            float* dyn_s) {
+  constexpr int NT = TX * TY;
+  const int w = T.w, h = T.h, d = T.d, k = T.k;
+  const int nx = region_nx(TX, k), ny = region_ny(TY, k), nr = nx * ny;
+  float* ox_s = dyn_s;
+  float* oy_s = dyn_s + nr;
+  float* oz_s = dyn_s + 2 * nr;
+  float* ok_s = dyn_s + 3 * nr;
+  float* rvx_s = dyn_s + 4 * nr;
+  float* rvy_s = rvx_s + nx;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int z = blockIdx.z;
+  const float* sb = T.sbpar;
+
+  // 1. the slice's scalars; then the columns' and rows' terms
+  tile_scalars<true, NT, SCATTER>(T, z, tid, S);
+  __syncthreads();
+  constexpr int LINES = TileTerms<TX, TY>::LINES;
+  for (int j = tid; j < LINES + nx + ny; j += NT) {
+    if (j < LINES) {
+      if (SCATTER || !tile_line_unjittered<TX, TY>(j))
+        tile_line(T, xt, yt, j, S);
+    } else if (j < LINES + nx) {
+      const int c = j - LINES;
+      rvx_s[c] = reproj_vx(sb, clampi(xt - k + c, 0, w - 1), S.vz_b, w);
+    } else {
+      const int r = j - LINES - nx;
+      rvy_s[r] = reproj_vy(sb, clampi(yt - k + r, 0, h - 1), S.vz_b,
+                           T.h_glob);
+    }
+  }
+  __syncthreads();
+  // 2. reproj_offsets(sbpar, ...) at every (row r, column c) of the region,
+  // at (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
+  // warp reads it
+  {
+    const int r = ty + k, c = tx + k, j = r * nx + c;
+    const Reproj o = reproj_view_l(sb, z, min(yt + ty, h - 1),
+                                   min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
+                                   S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k,
+                                   true);
+    ox_s[j] = o.ox;
+    oy_s[j] = o.oy;
+    oz_s[j] = o.oz;
+    ok_s[j] = o.success;
+  }
+  const int side = 2 * k + 1;       // the region's columns (rows) past the
+  const int n_side = TY * side;     // tile's, k before and k + 1 after it
+  for (int j = tid; j < n_side + side * nx; j += NT) {
+    if (j < n_side) {
+      const int r = j / side, e = j - r * side;
+      const int c = e < k ? e : TX + e;
+      const Reproj o = reproj_view_l(sb, z, min(yt + r, h - 1),
+                                     clampi(xt - k + c, 0, w - 1), rvx_s[c],
+                                     rvy_s[r + k], S.vz_b, S.lfpz_b, w, h, d,
+                                     T.h_glob, k, true);
+      oy_s[(r + k) * nx + c] = o.oy;
+      oz_s[(r + k) * nx + c] = o.oz;
+    } else {
+      const int q = j - n_side, e = q / nx, c = q - e * nx;
+      const int r = e < k ? e : TY + e;
+      oz_s[r * nx + c] =
+          reproj_view_l(sb, z, clampi(yt - k + r, 0, h - 1),
+                        clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
+                        S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k, true).oz;
+    }
+  }
+  __syncthreads();
+}
+
+template <bool ARMS, int TX, int TY>
+__device__ __forceinline__ void tile_blend(
+    const VrTables& T, const float* __restrict__ prev_sh,
+    float* __restrict__ out_sh, const TileTerms<TX, TY>& S,
+    const float* dyn_s, int x, int y, int n, int i, float& wx, float& wy,
+    float& wz, float* blended) {
+  const int w = T.w, h = T.h, d = T.d, k = T.k;
+  const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
+  const float* ox_s = dyn_s;
+  const float* oy_s = dyn_s + nr;
+  const float* oz_s = dyn_s + 2 * nr;
+  const float* ok_s = dyn_s + 3 * nr;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int z = blockIdx.z;
+  const float* sb = T.sbpar;
+  // dir_shadow_slice: jittered world position, one ray per sun
+  view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
+  float cur[VR_MAX_DIR];
+  for (int li = 0; li < T.n_dir; ++li)
+    cur[li] = sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
+  // the shadow blend (weight mode): the offsets at (y, cx) and (cy, cx)
+  // from the region, column cx at cx - (xt - k), row cy at cy - (yt - k)
+  const int row_y = (ty + k) * nx + k - xt;
+  const float swgt = sb[20] * ok_s[row_y + x];
+  const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
+  const auto oz_at = [&](int, int cy, int cx) {
+    return oz_s[(cy - yt + k) * nx + k - xt + cx];
+  };
+  for (int li = 0; li < T.n_dir; ++li) {
+    float warped;
+    warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
+                oy_at, oz_at, &warped);
+    blended[li] = cur[li] + swgt * (warped - cur[li]);
+    out_sh[li * n + i] = blended[li];
   }
 }
 

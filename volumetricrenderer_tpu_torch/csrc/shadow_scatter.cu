@@ -32,9 +32,9 @@
 // [4, D, H, W] (L_r, L_g, L_b, ext); histories are never updated in place.
 //
 // The three steps are the device functions of common.cuh that the staged
-// frame's kernels call one at a time (sun_shadow and, as shadow_blend.cu
-// calls it, shadow_blend_froxel's arithmetic; scatter_froxel, which
-// scatter.cu calls): the fused frames equal the staged ones bit for bit.
+// frame's kernels call one at a time (tile_region and tile_blend, which
+// shadow_blend.cu runs alone; scatter_froxel, which scatter.cu calls): the
+// fused frames equal the staged ones bit for bit.
 //
 // Bound on the H100: operations. Bytes: read the previous shadow (16.6 MB)
 // and write shadow + scatter (83 MB) at FULL -- ~30 us at 3.35 TB/s. Work,
@@ -56,22 +56,14 @@
 // log and an exp), per column or row (the view-space terms) and per frame
 // (log(fpz), the suns' inverse directions), and 7 reprojections, each some
 // neighbour's own, at 13x its bound. Here a block owns a 16 x 16 tile of
-// one slice (K2Tile; common.cuh TileTerms) in three steps:
-//   1. the slice's scalars, then each column's and row's view-space terms,
-//      and reproj_vx / reproj_vy of the region below;
-//   2. the reprojection offsets of the shadow blend, each once, at every
-//      (row, column) of the region the warp's taps reach -- the tile and k
-//      rows and columns before it, k + 1 after -- into shared memory, and
-//      of each only the outputs the warp reads: all four at the tile's own
-//      cells, oy and oz in the other columns of its rows, oz alone in the
-//      other rows: ~2.4 reprojections a froxel, ~9 divisions where there
-//      were ~70;
-//   3. per froxel: the sun rays (their inverse directions from step 1, the
-//      plane and sphere tests leaving before a division or a root whose
-//      answer is known), warp8_by<1> reading the offsets from shared
-//      memory, the weight-mode blend, the store of the history, and the
-//      scatter half (common.cuh scatter_froxel: the upsample's taps once for
-//      every channel, the box mask's clamped divisions skipped).
+// one slice (K2Tile; common.cuh TileTerms): steps 1 and 2 and the shadow
+// half of step 3 are common.cuh tile_region and tile_blend (the slice's
+// terms, each
+// reprojection of the region the warp's taps reach once, ~9 divisions a
+// froxel where there were ~70, the sun rays and the blend), which K5
+// shadow_blend.cu runs alone; then the scatter half (common.cuh
+// scatter_froxel: the upsample's taps once for every channel, the box
+// mask's clamped divisions skipped).
 // Every float value is the first form's, from the same operations in the
 // same order, so the result is bit for bit that form's, and K5 then K6 give
 // it too; indices are 32-bit (the launcher refuses tables past 2^31 floats,
@@ -92,129 +84,24 @@ struct K2Tile<VR_LOCAL_RADIANCE> {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 5;
 };
 
-// The reprojection region of a tile at (xt, yt): rows yt - k .. yt + TY + k
-// and columns xt - k .. xt + TX + k, each clamped to the grid.
-__host__ __device__ __forceinline__ int k2_nx(int tx, int k) {
-  return tx + 2 * k + 1;
-}
-
-__host__ __device__ __forceinline__ int k2_ny(int ty, int k) {
-  return ty + 2 * k + 1;
-}
-
-// Dynamic shared memory, floats: the region's ox, oy, oz and success
-// planes, then reproj_vx of its columns and reproj_vy of its rows
-// (mirrored by ops/frame_fused.k2_shared_bytes).
-__host__ __device__ __forceinline__ int k2_shared(int tx, int ty, int k) {
-  const int nx = k2_nx(tx, k), ny = k2_ny(ty, k);
-  return 4 * nx * ny + nx + ny;
-}
-
 template <int LOCAL, bool ARMS, int TX, int TY>
 __global__ void __launch_bounds__(TX * TY, K2Tile<LOCAL>::MIN_BLOCKS)
 shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
                       const float* __restrict__ low,
                       float* __restrict__ out_sh,
                       float* __restrict__ out_sc) {
-  constexpr int NT = TX * TY;
   __shared__ TileTerms<TX, TY> S;
-  extern __shared__ float dyn_s[];  // k2_shared
-  const int w = T.w, h = T.h, d = T.d, k = T.k;
-  const int nx = k2_nx(TX, k), ny = k2_ny(TY, k), nr = nx * ny;
-  float* ox_s = dyn_s;
-  float* oy_s = dyn_s + nr;
-  float* oz_s = dyn_s + 2 * nr;
-  float* ok_s = dyn_s + 3 * nr;
-  float* rvx_s = dyn_s + 4 * nr;
-  float* rvy_s = rvx_s + nx;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  extern __shared__ float dyn_s[];  // region_floats
+  tile_region<true>(T, S, dyn_s);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x = blockIdx.x * TX + tx, y = blockIdx.y * TY + ty;
   const int z = blockIdx.z;
-  const float* sb = T.sbpar;
-
-  // 1. the slice's scalars; then the columns' and rows' terms
-  tile_scalars<true, NT>(T, z, tid, S);
-  __syncthreads();
-  constexpr int LINES = TileTerms<TX, TY>::LINES;
-  for (int j = tid; j < LINES + nx + ny; j += NT) {
-    if (j < LINES) {
-      tile_line(T, xt, yt, j, S);
-    } else if (j < LINES + nx) {
-      const int c = j - LINES;
-      rvx_s[c] = reproj_vx(sb, clampi(xt - k + c, 0, w - 1), S.vz_b, w);
-    } else {
-      const int r = j - LINES - nx;
-      rvy_s[r] = reproj_vy(sb, clampi(yt - k + r, 0, h - 1), S.vz_b,
-                           T.h_glob);
-    }
-  }
-  __syncthreads();
-  // 2. reproj_offsets(sbpar, ...) at every (row r, column c) of the region,
-  // at (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
-  // warp reads it: all four at the tile's own cells, oy and oz at the
-  // other columns of its rows, oz alone in the other rows
-  {
-    const int r = ty + k, c = tx + k, j = r * nx + c;
-    const Reproj o = reproj_view_l(sb, z, min(yt + ty, h - 1),
-                                   min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
-                                   S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k,
-                                   true);
-    ox_s[j] = o.ox;
-    oy_s[j] = o.oy;
-    oz_s[j] = o.oz;
-    ok_s[j] = o.success;
-  }
-  const int side = 2 * k + 1;       // the region's columns (rows) past the
-  const int n_side = TY * side;     // tile's, k before and k + 1 after it
-  for (int j = tid; j < n_side + side * nx; j += NT) {
-    if (j < n_side) {
-      const int r = j / side, e = j - r * side;
-      const int c = e < k ? e : TX + e;
-      const Reproj o = reproj_view_l(sb, z, min(yt + r, h - 1),
-                                     clampi(xt - k + c, 0, w - 1), rvx_s[c],
-                                     rvy_s[r + k], S.vz_b, S.lfpz_b, w, h, d,
-                                     T.h_glob, k, true);
-      oy_s[(r + k) * nx + c] = o.oy;
-      oz_s[(r + k) * nx + c] = o.oz;
-    } else {
-      const int q = j - n_side, e = q / nx, c = q - e * nx;
-      const int r = e < k ? e : TY + e;
-      oz_s[r * nx + c] =
-          reproj_view_l(sb, z, clampi(yt - k + r, 0, h - 1),
-                        clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
-                        S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k, true).oz;
-    }
-  }
-  __syncthreads();
-
-  // 3. per froxel
-  const int x = xt + tx, y = yt + ty;
-  if (x >= w || y >= h) return;
-  const int n = d * h * w;
-  const int i = (z * h + y) * w + x;
-  // dir_shadow_slice: jittered world position, one ray per sun
-  float wx, wy, wz;
-  view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
-  float cur[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li)
-    cur[li] = sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
-  // the shadow blend (weight mode, common.cuh shadow_blend_froxel): the
-  // offsets at (y, cx) and (cy, cx) from the region, column cx at
-  // cx - (xt - k), row cy at cy - (yt - k)
-  const int row_y = (ty + k) * nx + k - xt;
-  const float swgt = sb[20] * ok_s[row_y + x];
-  const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
-  const auto oz_at = [&](int, int cy, int cx) {
-    return oz_s[(cy - yt + k) * nx + k - xt + cx];
-  };
-  float blended[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li) {
-    float warped;
-    warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
-                oy_at, oz_at, &warped);
-    blended[li] = cur[li] + swgt * (warped - cur[li]);
-    out_sh[li * n + i] = blended[li];
-  }
+  if (x >= T.w || y >= T.h) return;
+  const int n = T.d * T.h * T.w;
+  const int i = (z * T.h + y) * T.w + x;
+  float wx, wy, wz, blended[VR_MAX_DIR];
+  tile_blend<ARMS>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i, wx, wy, wz,
+                   blended);
   // scatter_slice (material fused, dir lights folded)
   float cwx, cwy, cwz, sc[4];
   view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
@@ -230,7 +117,7 @@ static int launch_tile(const VrTables* T, const float* prev_sh,
                        cudaStream_t stream) {
   constexpr int TX = K2Tile<LOCAL>::X, TY = K2Tile<LOCAL>::Y;
   const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
-  const int shared = k2_shared(TX, TY, T->k) * (int)sizeof(float);
+  const int shared = region_floats(TX, TY, T->k) * (int)sizeof(float);
   if (shared > 48 * 1024) {  // a wide reprojection window
     const cudaError_t err = cudaFuncSetAttribute(
         shadow_scatter_kernel<LOCAL, ARMS, TX, TY>,
@@ -300,7 +187,7 @@ extern "C" int vr_shadow_scatter_geometry(int local, int k, int* out) {
     default:
       return (int)cudaErrorInvalidValue;
   }
-  out[2] = k2_shared(out[0], out[1], k) * (int)sizeof(float);
+  out[2] = region_floats(out[0], out[1], k) * (int)sizeof(float);
   return 0;
 }
 

@@ -124,14 +124,16 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     tp = ctypes.POINTER(VrTables)
     # source -> {entry point: argument types before the stream}
     sig = {
-        "bake_radiance": {"vr_bake_radiance": [tp, vp]},
+        "bake_radiance": {"vr_bake_radiance": [tp, vp],
+                          "vr_bake_radiance_geometry": [ci] * 5 + [vp]},
         "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci],
                            "vr_shadow_scatter_geometry": [ci, ci, vp]},
         "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
         "composite": {
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
-        "shadow_blend": {"vr_shadow_blend": [tp, vp, vp]},
+        "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
+                         "vr_shadow_blend_geometry": [ci, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
                     "vr_scatter_geometry": [ci, vp]},
         "dir_shadow": {"vr_dir_shadow": [tp, vp]},
@@ -167,7 +169,13 @@ def launch(name: str, *args, entry: str = "") -> None:
 
 
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
-ATTR_KERNELS = {"shadow_scatter": tuple(
+ATTR_KERNELS = {"bake_radiance": tuple(
+                    f"bake_radiance_kernel<{arms}, {spread}>"
+                    for spread in ("true", "false")
+                    for arms in ("false", "true")),
+                "shadow_blend": ("shadow_blend_kernel<false>",
+                                 "shadow_blend_kernel<true>"),
+                "shadow_scatter": tuple(
                     f"shadow_scatter_kernel<{local}, {arms}>"
                     for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),

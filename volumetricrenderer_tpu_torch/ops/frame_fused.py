@@ -48,8 +48,8 @@ from volumetricrenderer_tpu_torch.ops.scatter import (check_scatter_inputs,
                                                       pack_params,
                                                       scatter_local_plain,
                                                       slice_light_order)
-from volumetricrenderer_tpu_torch.ops.shadow_blend import \
-    dir_shadow_blend_plain
+from volumetricrenderer_tpu_torch.ops.shadow_blend import (
+    check_region, dir_shadow_blend_plain, region_shared_bytes)
 from volumetricrenderer_tpu_torch.ops.temporal import (pack_blend_params,
                                                        reproj_offsets, warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
@@ -325,6 +325,55 @@ def bake_radiance_plain(t: FrameTables) -> torch.Tensor:
     return torch.stack(acc + noise)
 
 
+# K1's launch (csrc/bake_radiance.cu): blocks of K1_WARPS warps, each owning
+# a patch of samples of one low slice, a warp's 32 samples K1_WX columns x
+# 32 / K1_WX rows, in at most K1_WARPS light groups; the lights of a pass,
+# one ballot.
+K1_WARPS = 4
+K1_PASS = 32
+K1_WX = 16
+K1_TERMS = 9
+K1_OCT = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Geometry:
+    blocks: int
+    threads: int
+    samples: int        # low samples a block, 32 x K1_WARPS / groups
+    groups: int         # light groups: warps of a sample share its lights
+    passes: int         # passes of K1_PASS lights, the sums carried over
+    shared_bytes: int   # dynamic: per-sample terms, one pass's pairs and
+    #                     K1_OCT fBm octaves a channel (none with one group:
+    #                     a thread per sample)
+    columns: int        # a block's patch of its low slice
+    rows: int
+
+
+def k1_geometry(n_lights: int, n_noise: int,
+                low_dims: Tuple[int, int, int]) -> K1Geometry:
+    """Mirror of csrc/bake_radiance.cu vr_bake_radiance_geometry: K1's
+    launch for the low grid (WL, HL, DL). Its light groups are the least
+    power of two that takes the first pass's items (its lights and the fBm
+    channels), at most K1_WARPS; the warps of a group lie one below the
+    other, so that a block owns a patch of its low slice, the ragged
+    patches at the slice's edges masked."""
+    wl, hl, dl = low_dims
+    items = min(n_lights, K1_PASS) + n_noise
+    groups = 1
+    while groups < items and groups < K1_WARPS:
+        groups *= 2
+    sw = K1_WARPS // groups
+    cols, rows = K1_WX, sw * (32 // K1_WX)
+    return K1Geometry(
+        blocks=-(-wl // cols) * -(-hl // rows) * dl, threads=32 * K1_WARPS,
+        samples=32 * sw, groups=groups,
+        passes=max(1, -(-n_lights // K1_PASS)),
+        shared_bytes=0 if groups == 1 else 4 * 32 * sw * (
+            K1_TERMS + min(n_lights, K1_PASS) + n_noise * K1_OCT),
+        columns=cols, rows=rows)
+
+
 def bake_radiance(t: FrameTables) -> torch.Tensor:
     """K1: the low-rate radiance (+ fBm) volume."""
     if t.spar.device.type == "cpu":
@@ -352,22 +401,15 @@ def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
 
 
 # K2's block (csrc/shadow_scatter.cu K2Tile): 16 columns x 16 rows of one
-# slice, in every local source. A block's shared memory on the H100 is
-# 227 KB; K2 holds under 1 KB there besides k2_shared_bytes (the tile's
-# terms, common.cuh TileTerms).
+# slice, in every local source; its shadow half is K5's
+# (ops/shadow_blend.K5_TILE, region_shared_bytes).
 K2_TILE = (16, 16)
-MAX_SHARED_BYTES = 232448
-K2_STATIC_SHARED = 1024
 
 
 def k2_shared_bytes(k: int) -> int:
-    """Mirror of csrc/shadow_scatter.cu k2_shared: the dynamic shared bytes
-    of a K2 launch at reprojection window k. A block's reprojection region
-    is the tile and k rows and columns before it, k + 1 after (the reach of
-    the warp's taps): the (ox, oy, oz, success) of each of its cells, then
-    reproj_vx of its columns and reproj_vy of its rows, float32."""
-    nx, ny = K2_TILE[0] + 2 * k + 1, K2_TILE[1] + 2 * k + 1
-    return 4 * (4 * nx * ny + nx + ny)
+    """The dynamic shared bytes of a K2 launch at reprojection window k:
+    its tile's reprojection region (shadow_blend.region_shared_bytes)."""
+    return region_shared_bytes(K2_TILE, k)
 
 
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
@@ -382,9 +424,7 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
     check_tile_indices(t)
-    if k2_shared_bytes(t.k) + K2_STATIC_SHARED > MAX_SHARED_BYTES:
-        raise ValueError(f"reprojection window {t.k}: K2's region does not "
-                         f"fit a block's shared memory")
+    check_region(t.k, k2_shared_bytes(t.k), "K2")
     low = bake if bake is not None else vis
     cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
     w, h, d = t.grid_whd
