@@ -12,7 +12,8 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of K1's to K6's kernels (cudaFuncGetAttributes);
+     local (spill) bytes of K1's to K6's, K10's and K11's kernels
+     (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
@@ -126,7 +127,8 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      and K6's), and shows that K7 then K10 gives K5's volume, K8 then
      K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
      the radiance bake, rays and the baked visibility), bit for bit, and
-     that K2's, K5's and K6's blocks, K2's and K5's shared memory and K1's
+     that K2's, K5's, K6's, K10's and K11's blocks, K2's, K5's, K10's and
+     K11's shared memory and K1's
      launch (blocks, samples and light groups a block, passes of lights,
      shared memory) are what the wrappers reckon; holds K1 on a scene with
      40 local lights (two passes of lights); logs each hold's largest
@@ -1202,6 +1204,18 @@ def main() -> int:
             raise AssertionError(f"K5's block and shared bytes at k={kw}: "
                                  f"{tuple(blk)} in the kernel, {want} in "
                                  f"ops/shadow_blend")
+        # K10's and K11's blocks and dynamic shared memory
+        for src, mirror in (
+                ("temporal_blend", (*tmp.K10_TILE, tmp.k10_shared_bytes(kw),
+                                    "ops/temporal")),
+                ("windowed_warp", (*wp.K11_TILE, wp.k11_shared_bytes(kw),
+                                   "ops/warp"))):
+            getattr(cuda.lib(src), f"vr_{src}_geometry")(
+                kw, cuda.ctypes.cast(blk, cuda.ctypes.c_void_p))
+            if tuple(blk) != mirror[:3]:
+                raise AssertionError(f"{src}'s block and shared bytes at "
+                                     f"k={kw}: {tuple(blk)} in the kernel, "
+                                     f"{mirror[:3]} in {mirror[3]}")
     # K1's launch: (local lights, fBm channels, low grid) of the full grid,
     # the demo grid, a slab5 shard, a ragged low slice and no lights, and
     # 40 lights (two passes)
@@ -1223,8 +1237,10 @@ def main() -> int:
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
         f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
-        f"{sb.k5_shared_bytes(cfg.reproj_window)} B, K6 {sca.K6_TILES}, K1 "
-        f"on the full grid "
+        f"{sb.k5_shared_bytes(cfg.reproj_window)} B, K6 {sca.K6_TILES}, K10 "
+        f"{tmp.K10_TILE} with {tmp.k10_shared_bytes(cfg.reproj_window)} B, "
+        f"K11 {wp.K11_TILE} with {wp.k11_shared_bytes(cfg.reproj_window)} "
+        f"B, K1 on the full grid "
         f"{ff.k1_geometry(*k1_shapes[0])}")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form

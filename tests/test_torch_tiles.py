@@ -1,9 +1,11 @@
-"""The host side of K2's, K5's and K6's slice tiles (csrc/shadow_scatter.cu,
-csrc/shadow_blend.cu, csrc/scatter.cu, csrc/common.cuh) and of K1's light
-groups (csrc/bake_radiance.cu): the launch grids and shared memory as the
-wrappers mirror them, the reach of the reprojection region, K1's share of
-each sample's lights among its warps, and the wrappers' refusal of tables
-the kernels cannot index in 32 bits. Plain Python and torch on the CPU
+"""The host side of K2's, K5's, K6's, K10's and K11's slice tiles
+(csrc/shadow_scatter.cu, csrc/shadow_blend.cu, csrc/scatter.cu,
+csrc/temporal_blend.cu, csrc/windowed_warp.cu, csrc/common.cuh) and of K1's
+light groups (csrc/bake_radiance.cu): the launch grids and shared memory as
+the wrappers mirror them, the reach of the reprojection region and of K11's
+staged targets, K1's share of each sample's lights among its warps, and the
+wrappers' refusal of tables and volumes the kernels cannot index in 32 bits
+or whose region passes shared memory. Plain Python and torch on the CPU
 (meta tensors for the large grids); no JAX."""
 
 import dataclasses
@@ -16,6 +18,8 @@ import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
+from volumetricrenderer_tpu_torch.ops import temporal as t_tmp
+from volumetricrenderer_tpu_torch.ops import warp as t_wp
 
 
 K2 = t_ff.K2_TILE
@@ -158,8 +162,8 @@ def test_k2_refuses_a_region_past_shared_memory(tables):
     """A reprojection window whose region does not fit a block's 227 KB of
     shared memory is refused by K2's wrapper; K6 has no region."""
     big = next(k for k in range(1, 100)
-               if t_ff.k2_shared_bytes(k) + t_sb.TILE_STATIC_SHARED
-               > t_sb.MAX_SHARED_BYTES)
+               if t_ff.k2_shared_bytes(k) + t_tmp.TILE_STATIC_SHARED
+               > t_tmp.MAX_SHARED_BYTES)
     t, shadow, bake = _at(tables, (16, 15, 16), k=big)
     with pytest.raises(ValueError, match="shared memory"):
         t_ff.shadow_scatter(t, shadow, bake)
@@ -178,9 +182,9 @@ def test_k5_shared_bytes(k, want):
     227 KB up to k = 25 and past it (refused) at k = 60."""
     assert t_sb.K5_TILE == K2 == (16, 16)
     assert t_sb.k5_shared_bytes(k) == want == t_ff.k2_shared_bytes(k)
-    assert want + t_sb.TILE_STATIC_SHARED <= t_sb.MAX_SHARED_BYTES
-    assert (t_sb.k5_shared_bytes(60) + t_sb.TILE_STATIC_SHARED
-            > t_sb.MAX_SHARED_BYTES)
+    assert want + t_tmp.TILE_STATIC_SHARED <= t_tmp.MAX_SHARED_BYTES
+    assert (t_sb.k5_shared_bytes(60) + t_tmp.TILE_STATIC_SHARED
+            > t_tmp.MAX_SHARED_BYTES)
 
 
 @pytest.mark.parametrize("grid,want", [
@@ -213,8 +217,8 @@ def test_k5_refuses_a_region_past_shared_memory(tables):
     memory is refused by K5's wrapper; one less goes on to refuse only the
     meta tensor (not on CUDA), as does the largest grid under 32 bits."""
     big = next(k for k in range(1, 100)
-               if t_sb.k5_shared_bytes(k) + t_sb.TILE_STATIC_SHARED
-               > t_sb.MAX_SHARED_BYTES)
+               if t_sb.k5_shared_bytes(k) + t_tmp.TILE_STATIC_SHARED
+               > t_tmp.MAX_SHARED_BYTES)
     t, prev = _history(tables, (16, 15, 16), k=big)
     with pytest.raises(ValueError, match="shared memory"):
         t_sb.dir_shadow_blend(t, prev)
@@ -222,6 +226,159 @@ def test_k5_refuses_a_region_past_shared_memory(tables):
         t, prev = _history(tables, grid, k=k)
         with pytest.raises(ValueError, match="CUDA"):
             t_sb.dir_shadow_blend(t, prev)
+
+
+# ---- K10 temporal_blend and K11 windowed_warp: tiles of one slice --------
+
+K10, K11 = t_tmp.K10_TILE, t_wp.K11_TILE
+
+
+@pytest.mark.parametrize("k,k10,k11", [(0, 4760, 2244), (1, 5928, 2660),
+                                       (4, 10200, 4100), (8, 17688, 6468)])
+def test_k10_k11_shared_bytes(k, k10, k11):
+    """K10's region is K5's: (16 + 2k + 1)^2 cells of (ox, oy, oz, success),
+    then the region's column and row terms. K11 stages the y offsets of the
+    tile's 16 rows and the z offsets of the region's 16 + 2k + 1 rows, each
+    over the region's 16 + 2k + 1 columns. Both in float32."""
+    assert K10 == K11 == t_sb.K5_TILE == (16, 16)
+    assert t_tmp.k10_shared_bytes(k) == k10 == t_sb.k5_shared_bytes(k)
+    assert t_wp.k11_shared_bytes(k) == k11
+
+
+@pytest.mark.parametrize("grid,want", [
+    ((240, 135, 128), (15, 9, 128)),     # FULL_CONFIG
+    ((160, 88, 64), (10, 6, 64)),        # the demo grid
+    ((240, 57, 128), (15, 4, 128)),      # a slab3 shard
+    ((16, 15, 16), (1, 1, 16))])
+@pytest.mark.parametrize("tile", [K10, K11])
+def test_k10_k11_tile_grid(grid, want, tile):
+    """One block per 16x16 tile of each slice, the ragged ones masked."""
+    assert t_sca.tile_grid(grid, tile) == want
+
+
+@pytest.mark.parametrize("grid", [(240, 135, 128), (160, 88, 64),
+                                  (37, 21, 2)])
+@pytest.mark.parametrize("tile", [K10, K11])
+def test_k10_k11_blocks_cover_each_froxel_once(grid, tile):
+    """The blocks of a K10 or K11 launch, less their masked threads, hold
+    each froxel of a slice exactly once."""
+    w, h, _ = grid
+    gx, gy, _ = t_sca.tile_grid(grid, tile)
+    seen = np.zeros((h, w), np.int64)
+    for bx in range(gx):
+        for by in range(gy):
+            ys = by * tile[1] + np.arange(tile[1])
+            xs = bx * tile[0] + np.arange(tile[0])
+            seen[np.ix_(ys[ys < h], xs[xs < w])] += 1
+    assert (seen == 1).all()
+
+
+def _k11_staged(grid, k):
+    """csrc/windowed_warp.cu's staging, block by block: the grid column that
+    region column c of block column bx loads, [gx, nx]; the grid row of the
+    y offsets at the tile's row r of block row by (clamped to the grid),
+    [gy, 16]; and of the z offsets at region row r, [gy, ny]."""
+    w, h, _ = grid
+    tx, ty = K11
+    nx, ny = tx + 2 * k + 1, ty + 2 * k + 1
+    assert 4 * (ty + ny) * nx == t_wp.k11_shared_bytes(k)
+    gx, gy, _ = t_sca.tile_grid(grid, K11)
+    cols = np.clip(np.arange(gx)[:, None] * tx - k + np.arange(nx), 0, w - 1)
+    rows_y = np.minimum(np.arange(gy)[:, None] * ty + np.arange(ty), h - 1)
+    rows_z = np.clip(np.arange(gy)[:, None] * ty - k + np.arange(ny), 0,
+                     h - 1)
+    return cols, rows_y, rows_z
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("grid", [(40, 11, 3), (37, 21, 2), (16, 15, 2)])
+def test_k11_staged_region_covers_every_target_tap(grid, k):
+    """Every ty and tz value the thread-per-froxel form reads -- ty at (y,
+    cx) for the x pass's 2 columns, tz at (cy, cx) for the y passes' 4
+    pairs -- lies in the block's staged region, at the cell that loaded that
+    very (row, column), on random targets that run past the grid on every
+    side (clamped to the volume, clipped to +-k, taps edge-clamped as
+    warp8_by clamps them). The region holds the offsets of the tile's rows
+    and k rows and columns before it, k + 1 after."""
+    w, h, d = grid
+    rng = np.random.default_rng(w * 100 + k)
+    # targets: texel coordinates up to k + 3 cells past each edge
+    txv = rng.uniform(-k - 3, w + k + 2, (d, h, w)).astype(np.float32)
+    tyv = rng.uniform(-k - 3, h + k + 2, (d, h, w)).astype(np.float32)
+    cols, rows_y, rows_z = _k11_staged(grid, k)
+    nx, ny = cols.shape[1], rows_z.shape[1]
+    z, y, x = np.meshgrid(np.arange(d), np.arange(h), np.arange(w),
+                          indexing="ij")
+    bx, by = x // K11[0], y // K11[1]
+    xt, yt = bx * K11[0], by * K11[1]
+    off = lambda v, n, base: np.clip(np.clip(v, 0, n - 1) - base, -k, k)
+    # the y offset at (y, cx) is at tile row y - yt
+    assert (rows_y[by, y - yt] == y).all()
+    ox = off(txv[z, y, x], w, x)
+    reads = 0
+    for a in (0, 1):
+        cx = np.clip(x + np.floor(ox).astype(int) + a, 0, w - 1)
+        c = cx - (xt - k)
+        assert ((c >= 0) & (c < nx)).all()
+        assert (cols[bx, c] == cx).all()
+        oy = off(tyv[z, y, cx], h, y)
+        for b in (0, 1):
+            cy = np.clip(y + np.floor(oy).astype(int) + b, 0, h - 1)
+            r = cy - (yt - k)
+            assert ((r >= 0) & (r < ny)).all()
+            # the z offset at (cy, cx) is at region row r, column c
+            assert (rows_z[by, r] == cy).all()
+            reads += cy.size
+    assert reads == 4 * d * h * w
+
+
+@pytest.mark.parametrize("shape", [(4, 128, 2048, 2048), (1, 65536, 8, 8),
+                                   (2, 256, 2048, 2048)])
+def test_k10_k11_refuse_indices_past_32_bits(shape):
+    """K10's and K11's wrappers raise ValueError, before any launch, for a
+    volume of more than 2^31 - 1 floats or more than 65535 slices; one
+    froxel row fewer passes the check and is refused only for not being on
+    CUDA."""
+    c, d, h, w = shape
+    vol = torch.empty(shape, device="meta")
+    tgt = torch.empty(shape[1:], device="meta")
+    bpar = torch.empty((1, 24), device="meta")
+    with pytest.raises(ValueError, match="2\\^31|65535"):
+        t_wp.windowed_warp(vol, tgt, tgt, tgt, 4)
+    with pytest.raises(ValueError, match="2\\^31|65535"):
+        t_tmp.temporal_blend(bpar, vol, vol, (w, h, d), h, 4, "alpha")
+    if d <= t_sca.MAX_GRID_Z:
+        vol = torch.empty((c, d, h - 1, w), device="meta")
+        tgt = torch.empty((d, h - 1, w), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            t_wp.windowed_warp(vol, tgt, tgt, tgt, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            t_tmp.temporal_blend(bpar, vol, vol, (w, h - 1, d), h, 4,
+                                 "weight")
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K11"])
+def test_k10_k11_refuse_a_region_past_shared_memory(kernel):
+    """A reprojection window whose region does not fit a block's 227 KB of
+    shared memory is refused by the wrapper; one less goes on to refuse
+    only the meta tensors (not on CUDA)."""
+    shared = t_tmp.k10_shared_bytes if kernel == "K10" \
+        else t_wp.k11_shared_bytes
+    big = next(k for k in range(1, 400)
+               if shared(k) + t_tmp.TILE_STATIC_SHARED
+               > t_tmp.MAX_SHARED_BYTES)
+    assert big == (52 if kernel == "K10" else 108)
+    vol = torch.empty((4, 16, 15, 16), device="meta")
+    tgt = torch.empty((16, 15, 16), device="meta")
+    bpar = torch.empty((1, 24), device="meta")
+    run = (lambda k: t_tmp.temporal_blend(bpar, vol, vol, (16, 15, 16), 15,
+                                          k, "alpha")) \
+        if kernel == "K10" else \
+        (lambda k: t_wp.windowed_warp(vol, tgt, tgt, tgt, k))
+    with pytest.raises(ValueError, match="shared memory"):
+        run(big)
+    with pytest.raises(ValueError, match="CUDA"):
+        run(big - 1)
 
 
 # ---- K1 bake_radiance: each sample's lights spread over warps -----------

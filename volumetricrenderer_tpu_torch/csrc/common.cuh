@@ -574,7 +574,7 @@ struct Reproj {
   float ox, oy, oz, success;
 };
 
-// reproj_offsets' view-space x of column x and y of row y at depth vz: a
+// The reprojection's view-space x of column x and y of row y at depth vz: a
 // function of (x, vz) and of (y, vz) alone, so a tile can compute each once.
 __device__ __forceinline__ float reproj_vx(const float* p, int x, float vz,
                                            int w) {
@@ -587,7 +587,7 @@ __device__ __forceinline__ float reproj_vy(const float* p, int y, float vz,
   return (2.0f * (ys + 0.5f) / (float)h_glob - 1.0f) * vz / p[13];
 }
 
-// The rest of reproj_offsets, from the view-space position (vx, vy, vz) of
+// The rest of the reprojection, from the view-space position (vx, vy, vz) of
 // froxel (z, y, x) and lfpz = logf(p[14]), a frame constant.
 __device__ __forceinline__ Reproj reproj_view_l(const float* p, int z, int y,
                                                 int x, float vx, float vy,
@@ -633,14 +633,6 @@ __device__ __forceinline__ Reproj reproj_view(const float* p, int z, int y,
                                               bool with_jitter) {
   return reproj_view_l(p, z, y, x, vx, vy, vz, logf(p[14]), w, h, d, h_glob,
                        k, with_jitter);
-}
-
-__device__ Reproj reproj_offsets(const float* p, int z, int y, int x, float vz,
-                                 int w, int h, int d, int h_glob, int k,
-                                 bool with_jitter) {
-  return reproj_view(p, z, y, x, reproj_vx(p, x, vz, w),
-                     reproj_vy(p, y, vz, h_glob), vz, w, h, d, h_glob, k,
-                     with_jitter);
 }
 
 __device__ __forceinline__ float tent_w(float off, int dd) {
@@ -697,24 +689,6 @@ __device__ __forceinline__ void warp8_by(const float* prev, I cstride,
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c) out[c] = accx[c];
-}
-
-// warp8_by with every offset from reproj_offsets at slice depth vz; r0 the
-// offsets at (z, y, x).
-template <int NC>
-__device__ void warp8(const float* p, const float* prev, long cstride, int z,
-                      int y, int x, float vz, int w, int h, int d,
-                      int h_glob, int k, bool with_jitter, const Reproj& r0,
-                      float* out) {
-  const auto oy_at = [&](int cx) {
-    return reproj_offsets(p, z, y, cx, vz, w, h, d, h_glob, k, with_jitter)
-        .oy;
-  };
-  const auto oz_at = [&](int, int cy, int cx) {
-    return reproj_offsets(p, z, cy, cx, vz, w, h, d, h_glob, k, with_jitter)
-        .oz;
-  };
-  warp8_by<NC>(prev, cstride, z, y, x, w, h, d, r0.ox, oy_at, oz_at, out);
 }
 
 // ---- visibility.py: the low-rate upsample ----------------------------------
@@ -894,7 +868,7 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 //      (row, column) of the region, into shared memory, and of each only
 //      the outputs the warp reads: all four at the tile's own cells, oy and
 //      oz in the other columns of its rows, oz alone in the other rows:
-//      ~2.4 reprojections a froxel where one froxel's own warp8 takes 7.
+//      ~2.4 reprojections a froxel where one froxel's own warp took 7.
 // Step 3, tile_blend, per froxel (x, y) of the grid (index i of n):
 //   3. the sun rays (their inverse directions from step 1, the plane and
 //      sphere tests leaving before a division or a root whose answer is
@@ -903,10 +877,14 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 //      jittered reprojection, the 1e-4 uvw nudge) and the store of the
 //      history out_sh; the jittered world position (wx, wy, wz) and each
 //      sun's blended shadow are left for the scatter half.
-// Every value is the thread-per-froxel form's (sun_shadow, then warp8 over
-// reproj_offsets at each tap, as temporal_blend.cu's weight mode blends),
-// from the same operations in the same order. Indices are 32-bit (the
-// launchers refuse tables past past_int_index).
+// Every value is the thread-per-froxel form's (sun_shadow, then warp8_by
+// over the reprojection offsets at each tap, as temporal_blend.cu's weight
+// mode blends), from the same operations in the same order. Indices are
+// 32-bit (the launchers refuse tables past past_int_index).
+// K10 (temporal_blend.cu region_offsets) runs steps 1b and 2 on its own
+// blend table in a copy of this loop: a routine shared by the three
+// kernels made K5 2% slower at the same registers and spills, so
+// tile_region stays as K2 and K5 were measured. Change the two together.
 template <bool SCATTER, int TX, int TY>
 __device__ __forceinline__ void tile_region(const VrTables& T,
                                             TileTerms<TX, TY>& S,

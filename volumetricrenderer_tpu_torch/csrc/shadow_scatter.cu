@@ -14,7 +14,7 @@
 //   1. world position at the jittered froxel centre; for each sun an
 //      any-hit ray towards it, visibility^2 gated by has_shadow;
 //   2. weight-mode blend against the previous shadow history: the
-//      separable tent warp as an 8-tap gather (common.cuh warp8), weight
+//      separable tent warp as an 8-tap gather (common.cuh warp8_by), weight
 //      alpha * (global-uvw success), offsets with jitter and eps = 1e-4;
 //   3. material at the jittered position, the local lights from one of the
 //      megakernel's three sources (the LOCAL template parameter):

@@ -3,55 +3,172 @@
 // Replaces the TPU kernel volumetricrenderer_tpu/ops/pallas/temporal.py
 // `_kernel` / `fused_temporal_blend`, which walked z sequentially with the
 // history slices in a (2k+2)-deep VMEM ring and ran the three tent passes
-// on whole [H, W] planes. On the GPU every froxel is independent: one
-// thread per froxel evaluates the analytic reprojection offsets
-// (common.cuh reproj_offsets), gathers its 8 history taps per channel
-// (warp8, the three passes collapsed, summed in the passes' order) and
-// lerps against the current value. These are the functions shadow_blend.cu
-// and integrate_blend.cu use on values they hold in registers, so the
-// raycast shadow (dir_shadow.cu) followed by this kernel in weight mode
-// gives shadow_blend.cu's volume bit for bit, and the integration
-// (integrate.cu) followed by the alpha mode gives integrate_blend.cu's.
+// on whole [H, W] planes.
 //
-// Per froxel (z, y, x) and channel c of n_ch:
+// Per froxel (z, y, x) and channel c of NC:
 //   out[c] = cur[c] + wgt * (warped prev[c] - cur[c])
-//   mode 0 "weight" (shadow blend; offsets take the jitter):
+//   WEIGHT ("weight", the shadow blend; offsets take the jitter):
 //          wgt = alpha * success_xy
-//   mode 1 "alpha" (accumulation blend; no jitter):
+//   !WEIGHT ("alpha", the accumulation blend; no jitter):
 //          wgt = alpha * (warped last channel != 0)
 // bpar is a pack_blend_params table [24]. Writes a new buffer: the warp
 // reads neighbours of the history.
 //
-// Bound on the H100: bytes. Read prev and cur, write out: 3 n_ch planes of
+// On the GPU a block owns a 16 x 16 tile of one slice (K10Tile), K5's tile
+// (shadow_blend.cu) without the sun rays: the slice's view depth and
+// log(fpz) once a block, then region_offsets (below; K5's common.cuh
+// tile_region steps) computes reproj_vx / reproj_vy of the region's
+// columns and rows and each reprojection offset of the region the warp's
+// taps reach once, into shared memory (~2.4 reprojections a froxel, where
+// a thread per froxel evaluated 7: its own and those at the 6 neighbour
+// columns the passes read, each a log, an exp and several divisions).
+// Each froxel then runs warp8_by<NC> from shared memory (the three passes
+// collapsed to 8 taps, summed in the passes' order) and the blend. K5
+// computes the same values on the same table, so K7 (dir_shadow.cu) then
+// this kernel's weight mode gives K5's volume bit for bit; and
+// integrate_blend.cu's warp reads the same reproj_view values, so K8
+// (integrate.cu) then the alpha mode gives K3's. Every value is the
+// thread-per-froxel form's, from the same operations in the same order.
+// Indices are 32-bit: the launcher refuses volumes past 2^31 floats or
+// 65535 slices.
+//
+// Bound on the H100: bytes. Read prev and cur, write out: 3 NC planes of
 // 16.6 MB at 240x135x128 -- 0.015 ms for one shadow channel, 0.059 ms for
-// the four accumulation channels at 3.35 TB/s. Work: 7 reprojections (the
-// froxel's own and those at the 6 neighbour columns the passes read; each
-// a log, an exp and 2 divides) and 14 multiply-adds per channel, ~400
-// flops per froxel, ~25 us at the fp32 rate: recomputing the offsets
-// instead of staging offset volumes trades flops for bytes.
+// the four accumulation channels at 3.35 TB/s. Work: ~2.4 reprojections
+// (each a log and 3 divisions, ~40 flops) and 14 multiply-adds a channel,
+// ~130 flops a froxel at one channel, ~8 us at the fp32 rate. What holds
+// it is the instruction rate of the region's IEEE divisions and logs,
+// about 60% of its time (PERF.md §6).
 #include "common.cuh"
 
-template <int NC>
-__global__ void temporal_blend_kernel(const float* __restrict__ bpar,
-                                      const float* __restrict__ prev,
-                                      const float* __restrict__ cur,
-                                      float* __restrict__ out, int w, int h,
-                                      int d, int h_glob, int k, int mode) {
-  const long n = (long)d * h * w;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % w);
-  const int y = (int)((i / w) % h);
-  const int z = (int)(i / ((long)w * h));
-  const bool with_jitter = mode == 0;
-  const float vzc = view_z(bpar, (float)z + 0.5f, d);
-  const Reproj r0 = reproj_offsets(bpar, z, y, x, vzc, w, h, d, h_glob, k,
+// The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
+// SM (the launch bounds; the tile mirrored by ops/temporal.K10_TILE).
+struct K10Tile {
+  static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
+};
+
+// Steps 1b and 2 of K5's slice tile (common.cuh tile_region) on the blend
+// table bp, a copy of that loop (see tile_region), with its slice scalars
+// vz_b = view_z(bp, z + 0.5, d) and lfpz_b = logf(bp[14]) in shared memory,
+// read there by every thread after a barrier. The block owns the TX x TY
+// tile (blockIdx.x, blockIdx.y) of slice blockIdx.z on a grid of w x h x d
+// (h_glob the global rows; a slab's y0 is bp[22], as reproj_vy reads it)
+// and dyn_s its region_floats:
+//   1b. reproj_vx of the region's columns and reproj_vy of its rows;
+//   2.  the reprojection offsets, each once, at every (row, column) of the
+//       region, into shared memory, and of each only the outputs the warp
+//       reads: all four at the tile's own cells, oy and oz in the other
+//       columns of its rows, oz alone in the other rows: ~2.4
+//       reprojections a froxel where one froxel's own warp took 7.
+// Each step ends with a barrier. Every value is the thread-per-froxel
+// form's (reproj_view_l at each tap's column and row), from the same
+// operations in the same order.
+template <int TX, int TY>
+__device__ __forceinline__ void region_offsets(
+    const float* bp, bool with_jitter, const float& vz_b,
+    const float& lfpz_b, int w, int h, int d, int h_glob, int k,
+    float* dyn_s) {
+  constexpr int NT = TX * TY;
+  const int nx = region_nx(TX, k), ny = region_ny(TY, k), nr = nx * ny;
+  float* ox_s = dyn_s;
+  float* oy_s = dyn_s + nr;
+  float* oz_s = dyn_s + 2 * nr;
+  float* ok_s = dyn_s + 3 * nr;
+  float* rvx_s = dyn_s + 4 * nr;
+  float* rvy_s = rvx_s + nx;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int z = blockIdx.z;
+
+  // 1b. the region's column and row terms
+  for (int j = tid; j < nx + ny; j += NT) {
+    if (j < nx) {
+      rvx_s[j] = reproj_vx(bp, clampi(xt - k + j, 0, w - 1), vz_b, w);
+    } else {
+      const int r = j - nx;
+      rvy_s[r] = reproj_vy(bp, clampi(yt - k + r, 0, h - 1), vz_b, h_glob);
+    }
+  }
+  __syncthreads();
+  // 2. the reprojection at every (row r, column c) of the region, at
+  // (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
+  // warp reads it
+  {
+    const int r = ty + k, c = tx + k, j = r * nx + c;
+    const Reproj o = reproj_view_l(bp, z, min(yt + ty, h - 1),
+                                   min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
+                                   vz_b, lfpz_b, w, h, d, h_glob, k,
                                    with_jitter);
+    ox_s[j] = o.ox;
+    oy_s[j] = o.oy;
+    oz_s[j] = o.oz;
+    ok_s[j] = o.success;
+  }
+  const int side = 2 * k + 1;       // the region's columns (rows) past the
+  const int n_side = TY * side;     // tile's, k before and k + 1 after it
+  for (int j = tid; j < n_side + side * nx; j += NT) {
+    if (j < n_side) {
+      const int r = j / side, e = j - r * side;
+      const int c = e < k ? e : TX + e;
+      const Reproj o = reproj_view_l(bp, z, min(yt + r, h - 1),
+                                     clampi(xt - k + c, 0, w - 1), rvx_s[c],
+                                     rvy_s[r + k], vz_b, lfpz_b, w, h, d,
+                                     h_glob, k, with_jitter);
+      oy_s[(r + k) * nx + c] = o.oy;
+      oz_s[(r + k) * nx + c] = o.oz;
+    } else {
+      const int q = j - n_side, e = q / nx, c = q - e * nx;
+      const int r = e < k ? e : TY + e;
+      oz_s[r * nx + c] =
+          reproj_view_l(bp, z, clampi(yt - k + r, 0, h - 1),
+                        clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
+                        vz_b, lfpz_b, w, h, d, h_glob, k, with_jitter).oz;
+    }
+  }
+  __syncthreads();
+}
+
+template <int NC, bool WEIGHT>
+__global__ void __launch_bounds__(K10Tile::X * K10Tile::Y,
+                                  K10Tile::MIN_BLOCKS)
+temporal_blend_kernel(const float* __restrict__ bpar,
+                      const float* __restrict__ prev,
+                      const float* __restrict__ cur, float* __restrict__ out,
+                      int w, int h, int d, int h_glob, int k) {
+  constexpr int TX = K10Tile::X, TY = K10Tile::Y;
+  __shared__ float vz_s, lfpz_s;    // the slice's scalars
+  extern __shared__ float dyn_s[];  // region_floats
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int z = blockIdx.z;
+  // 1a. the slice's scalars, on the first lanes of two warps
+  if (ty == 0 && tx == 0) vz_s = view_z(bpar, (float)z + 0.5f, d);
+  if (ty == 2 && tx == 0) lfpz_s = logf(bpar[14]);
+  __syncthreads();
+  // 1b, 2. the region's terms and offsets
+  region_offsets<TX, TY>(bpar, WEIGHT, vz_s, lfpz_s, w, h, d, h_glob, k,
+                         dyn_s);
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int x = xt + tx, y = yt + ty;
+  if (x >= w || y >= h) return;
+  const int n = d * h * w;
+  const int i = (z * h + y) * w + x;
+  // 3. the warp, the offsets at (y, cx) and (cy, cx) from the region,
+  // column cx at cx - (xt - k), row cy at cy - (yt - k); then the blend
+  const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
+  const float* ox_s = dyn_s;
+  const float* oy_s = dyn_s + nr;
+  const float* oz_s = dyn_s + 2 * nr;
+  const float* ok_s = dyn_s + 3 * nr;
+  const int row_y = (ty + k) * nx + k - xt;
+  const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
+  const auto oz_at = [&](int, int cy, int cx) {
+    return oz_s[(cy - yt + k) * nx + k - xt + cx];
+  };
   float warped[NC];
-  warp8<NC>(bpar, prev, n, z, y, x, vzc, w, h, d, h_glob, k, with_jitter, r0,
-            warped);
-  const float wgt = mode == 0
-      ? bpar[20] * r0.success
+  warp8_by<NC>(prev, n, z, y, x, w, h, d, ox_s[row_y + x], oy_at, oz_at,
+               warped);
+  const float wgt = WEIGHT
+      ? bpar[20] * ok_s[row_y + x]
       : bpar[20] * (warped[NC - 1] != 0.0f ? 1.0f : 0.0f);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -60,16 +177,38 @@ __global__ void temporal_blend_kernel(const float* __restrict__ bpar,
   }
 }
 
+template <int NC, bool WEIGHT>
+static int launch_tile(const float* bpar, const float* prev,
+                       const float* cur, float* out, int w, int h, int d,
+                       int h_glob, int k, cudaStream_t stream) {
+  constexpr int TX = K10Tile::X, TY = K10Tile::Y;
+  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
+  const int shared = region_floats(TX, TY, k) * (int)sizeof(float);
+  if (shared > 48 * 1024) {  // a wide reprojection window
+    const cudaError_t err = cudaFuncSetAttribute(
+        temporal_blend_kernel<NC, WEIGHT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  temporal_blend_kernel<NC, WEIGHT><<<grid, dim3(TX, TY), shared, stream>>>(
+      bpar, prev, cur, out, w, h, d, h_glob, k);
+  return 0;
+}
+
+// mode 0 "weight", 1 "alpha"; n_ch 1 to 4.
 extern "C" int vr_temporal_blend(const float* bpar, const float* prev,
                                  const float* cur, float* out, int n_ch,
                                  int w, int h, int d, int h_glob, int k,
                                  int mode, cudaStream_t stream) {
-  const long n = (long)d * h * w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
-#define VR_BLEND(NC)                                                  \
-  temporal_blend_kernel<NC><<<grid, block, 0, stream>>>(              \
-      bpar, prev, cur, out, w, h, d, h_glob, k, mode)
+  if ((long)n_ch * d * h * w > 2147483647L || d > 65535 || mode < 0
+      || mode > 1)
+    return (int)cudaErrorInvalidValue;
+  int err;
+#define VR_BLEND(NC)                                                        \
+  err = mode == 0 ? launch_tile<NC, true>(bpar, prev, cur, out, w, h, d,    \
+                                          h_glob, k, stream)                \
+                  : launch_tile<NC, false>(bpar, prev, cur, out, w, h, d,   \
+                                           h_glob, k, stream)
   switch (n_ch) {
     case 1: VR_BLEND(1); break;
     case 2: VR_BLEND(2); break;
@@ -78,5 +217,38 @@ extern "C" int vr_temporal_blend(const float* bpar, const float* prev,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VR_BLEND
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The tile (columns, rows) into out[0..1] and the dynamic shared bytes of a
+// launch at reprojection window k into out[2].
+extern "C" int vr_temporal_blend_geometry(int k, int* out) {
+  out[0] = K10Tile::X;
+  out[1] = K10Tile::Y;
+  out[2] = region_floats(K10Tile::X, K10Tile::Y, k) * (int)sizeof(float);
+  return 0;
+}
+
+// cudaFuncGetAttributes of the weight mode at one channel and the alpha
+// mode at four (the shadow and the accumulation blends): registers per
+// thread, static shared bytes per block, local bytes per thread and largest
+// block into out[4 i .. 4 i + 3]; returns the error.
+template <int NC, bool WEIGHT>
+static cudaError_t attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)temporal_blend_kernel<NC, WEIGHT>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_temporal_blend_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<1, true>(out),
+                               attrs_of<4, false>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

@@ -140,9 +140,11 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "integrate": {"vr_integrate": [tp, vp, vp]},
         "bake_visibility": {"vr_bake_visibility": [tp, vp]},
         "temporal_blend": {"vr_temporal_blend":
-                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci]},
+                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci],
+                           "vr_temporal_blend_geometry": [ci, vp]},
         "windowed_warp": {"vr_windowed_warp":
-                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci]},
+                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci],
+                          "vr_windowed_warp_geometry": [ci, vp]},
         "pcf_shadow": {"vr_pcf_shadow":
                        [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci]},
         "ssr_march": {"vr_ssr_march":
@@ -186,6 +188,9 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 + ("scatter_kernel<RAY, false, true>",
                    "scatter_kernel<RAY, true, true>"),
                 "integrate_blend": ("integrate_blend_kernel",),
+                "temporal_blend": ("temporal_blend_kernel<1, true>",
+                                   "temporal_blend_kernel<4, false>"),
+                "windowed_warp": ("windowed_warp_kernel<4>",),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel")}

@@ -49,9 +49,10 @@ from volumetricrenderer_tpu_torch.ops.scatter import (check_scatter_inputs,
                                                       scatter_local_plain,
                                                       slice_light_order)
 from volumetricrenderer_tpu_torch.ops.shadow_blend import (
-    check_region, dir_shadow_blend_plain, region_shared_bytes)
-from volumetricrenderer_tpu_torch.ops.temporal import (pack_blend_params,
-                                                       reproj_offsets, warp)
+    dir_shadow_blend_plain)
+from volumetricrenderer_tpu_torch.ops.temporal import (
+    check_region, pack_blend_params, region_shared_bytes, reproj_offsets,
+    warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          bake_visibility,
                                                          bake_world_planes,
@@ -402,13 +403,13 @@ def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
 
 # K2's block (csrc/shadow_scatter.cu K2Tile): 16 columns x 16 rows of one
 # slice, in every local source; its shadow half is K5's
-# (ops/shadow_blend.K5_TILE, region_shared_bytes).
+# (ops/shadow_blend.K5_TILE, ops/temporal.region_shared_bytes).
 K2_TILE = (16, 16)
 
 
 def k2_shared_bytes(k: int) -> int:
     """The dynamic shared bytes of a K2 launch at reprojection window k:
-    its tile's reprojection region (shadow_blend.region_shared_bytes)."""
+    its tile's reprojection region (temporal.region_shared_bytes)."""
     return region_shared_bytes(K2_TILE, k)
 
 

@@ -16,7 +16,8 @@ import torch
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow_plain
 from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
-from volumetricrenderer_tpu_torch.ops.temporal import reproj_offsets, warp
+from volumetricrenderer_tpu_torch.ops.temporal import (
+    check_region, region_shared_bytes, reproj_offsets, warp)
 
 
 def _check_history(t, prev_shadow: torch.Tensor) -> None:
@@ -42,35 +43,13 @@ def dir_shadow_blend_plain(t, prev_shadow: torch.Tensor) -> torch.Tensor:
 
 # K5's block (csrc/shadow_blend.cu K5Tile): 16 columns x 16 rows of one
 # slice, the tile of K2 (ops/frame_fused.K2_TILE), whose shadow half K5 is
-# (csrc/common.cuh tile_region, tile_blend). A block's shared memory on the
-# H100 is 227 KB; the slice tiles hold under 1 KB there besides their
-# region's (the tile's terms, common.cuh TileTerms).
+# (csrc/common.cuh tile_region, tile_blend), with its reprojection region
+# (ops/temporal.region_shared_bytes).
 K5_TILE = (16, 16)
-MAX_SHARED_BYTES = 232448
-TILE_STATIC_SHARED = 1024
-
-
-def region_shared_bytes(tile: Tuple[int, int], k: int) -> int:
-    """Mirror of csrc/common.cuh region_floats: the dynamic shared bytes of
-    a slice tile's launch at reprojection window k. A block's reprojection
-    region is the tile and k rows and columns before it, k + 1 after (the
-    reach of the warp's taps): the (ox, oy, oz, success) of each of its
-    cells, then reproj_vx of its columns and reproj_vy of its rows,
-    float32."""
-    nx, ny = tile[0] + 2 * k + 1, tile[1] + 2 * k + 1
-    return 4 * (4 * nx * ny + nx + ny)
 
 
 def k5_shared_bytes(k: int) -> int:
     return region_shared_bytes(K5_TILE, k)
-
-
-def check_region(k: int, tile_shared: int, kernel: str) -> None:
-    """Refuse a reprojection window whose region (tile_shared bytes) does
-    not fit a block's shared memory. Raises ValueError."""
-    if tile_shared + TILE_STATIC_SHARED > MAX_SHARED_BYTES:
-        raise ValueError(f"reprojection window {k}: {kernel}'s region does "
-                         f"not fit a block's shared memory")
 
 
 def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:

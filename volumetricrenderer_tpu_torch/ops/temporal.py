@@ -13,8 +13,8 @@ weighting its taps by the offset at ITS OWN output point (SPEC.md
   sum_dx wx(offx[z,y,x]) sum_dy wy(offy[z,y,cx]) sum_dz wz(offz[z,cy,cx])
       prev[cz, cy, cx]
 
-with clamped neighbours cz, cy, cx. The CUDA counterparts (`reproj_offsets`,
-`warp8` in `csrc/common.cuh`) evaluate exactly this as an 8-tap gather.
+with clamped neighbours cz, cy, cx. The CUDA counterparts (`reproj_view_l`,
+`warp8_by` in `csrc/common.cuh`) evaluate exactly this as an 8-tap gather.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
+from volumetricrenderer_tpu_torch.ops.scatter import INT32_MAX, MAX_GRID_Z
 
 MODES = ("weight", "alpha")
-MAX_CHANNELS = 4    # csrc/temporal_blend.cu dispatches warp8<1..4>
+MAX_CHANNELS = 4    # csrc/temporal_blend.cu dispatches warp8_by<1..4>
 
 
 def pack_blend_params(params, view_to_world, prev_world_to_view, jitter,
@@ -126,8 +127,61 @@ def warp(prev: torch.Tensor, off_x, off_y, off_z, k: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# The slice tiles' reprojection region (csrc/common.cuh region_floats)
+# --------------------------------------------------------------------------
+
+# A block's shared memory on the H100 is 227 KB; the slice tiles hold under
+# 1 KB there besides their region's (K2's and K5's tile terms, common.cuh
+# TileTerms; K10's two slice scalars).
+MAX_SHARED_BYTES = 232448
+TILE_STATIC_SHARED = 1024
+
+
+def region_shared_bytes(tile: Tuple[int, int], k: int) -> int:
+    """Mirror of csrc/common.cuh region_floats: the dynamic shared bytes of
+    a slice tile's launch at reprojection window k. A block's reprojection
+    region is the tile and k rows and columns before it, k + 1 after (the
+    reach of the warp's taps): the (ox, oy, oz, success) of each of its
+    cells, then reproj_vx of its columns and reproj_vy of its rows,
+    float32."""
+    nx, ny = tile[0] + 2 * k + 1, tile[1] + 2 * k + 1
+    return 4 * (4 * nx * ny + nx + ny)
+
+
+def check_region(k: int, tile_shared: int, kernel: str) -> None:
+    """Refuse a reprojection window whose region (tile_shared bytes) does
+    not fit a block's shared memory. Raises ValueError."""
+    if tile_shared + TILE_STATIC_SHARED > MAX_SHARED_BYTES:
+        raise ValueError(f"reprojection window {k}: {kernel}'s region does "
+                         f"not fit a block's shared memory")
+
+
+def check_volume_indices(shape: Tuple[int, ...], kernel: str) -> None:
+    """Refuse a volume [C, D, H, W] that K10 or K11 cannot index in 32 bits
+    (their launchers refuse it too): more than 2^31 - 1 floats, or more
+    slices than a launch grid holds. Raises ValueError."""
+    c, d, h, w = shape
+    if c * d * h * w > INT32_MAX:
+        raise ValueError(f"{kernel}: the volume {tuple(shape)} needs indices "
+                         f"past 2^31 - 1: the kernel indexes in 32 bits")
+    if d > MAX_GRID_Z:
+        raise ValueError(f"{kernel}: {d} slices: a launch grid holds at most "
+                         f"{MAX_GRID_Z}")
+
+
+# --------------------------------------------------------------------------
 # K10 temporal_blend (csrc/temporal_blend.cu)
 # --------------------------------------------------------------------------
+
+# K10's block (csrc/temporal_blend.cu K10Tile): a 16 x 16 tile of one slice,
+# K5's (ops/shadow_blend.K5_TILE) without the sun rays, with K5's
+# reprojection region. Its launch grid is ops/scatter.tile_grid's.
+K10_TILE = (16, 16)
+
+
+def k10_shared_bytes(k: int) -> int:
+    return region_shared_bytes(K10_TILE, k)
+
 
 def _check_blend(bpar, prev, cur, grid_whd, mode) -> None:
     w, h, d = grid_whd
@@ -173,10 +227,12 @@ def temporal_blend(bpar, prev: torch.Tensor, cur: torch.Tensor,
         return temporal_blend_plain(bpar, prev, cur, grid_whd, h_glob, k,
                                     mode)
     _check_blend(bpar, prev, cur, grid_whd, mode)
-    cuda.check_cuda(bpar, prev, cur)
     if not 0 < prev.shape[0] <= MAX_CHANNELS:
         raise ValueError(f"{prev.shape[0]} channels: the kernel takes 1 to "
                          f"{MAX_CHANNELS}")
+    check_volume_indices(prev.shape, "K10")
+    check_region(k, k10_shared_bytes(k), "K10")
+    cuda.check_cuda(bpar, prev, cur)
     w, h, d = grid_whd
     out = torch.empty_like(cur)
     cuda.launch("temporal_blend", cuda.ptr(bpar), cuda.ptr(prev),

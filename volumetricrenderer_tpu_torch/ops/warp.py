@@ -25,7 +25,26 @@ from __future__ import annotations
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
-from volumetricrenderer_tpu_torch.ops.temporal import warp
+from volumetricrenderer_tpu_torch.ops.temporal import (check_region,
+                                                       check_volume_indices,
+                                                       warp)
+
+# K11's block (csrc/windowed_warp.cu K11Tile): a 16 x 16 tile of one slice,
+# launched as ops/scatter.tile_grid reckons; the channels 4 at a time
+# (csrc/windowed_warp.cu dispatches warp8_by<1..4>).
+K11_TILE = (16, 16)
+K11_CHANNELS = 4
+
+
+def k11_shared_bytes(k: int) -> int:
+    """Mirror of csrc/windowed_warp.cu k11_floats: the dynamic shared bytes
+    of a K11 launch at window k. The block stages the y offsets of its
+    tile's rows and the z offsets of its region's rows (the tile and k rows
+    before it, k + 1 after: the reach of the taps), each over the region's
+    columns (the tile's and k before, k + 1 after), float32."""
+    nx, ny = K11_TILE[0] + 2 * k + 1, K11_TILE[1] + 2 * k + 1
+    return 4 * (K11_TILE[1] + ny) * nx
+
 
 def _check(vol, target_x, target_y, target_z) -> None:
     if vol.dim() != 4:
@@ -65,14 +84,20 @@ def windowed_warp(vol: torch.Tensor, target_x: torch.Tensor,
                   target_y: torch.Tensor, target_z: torch.Tensor,
                   k: int = 4) -> torch.Tensor:
     """K11: `windowed_warp_pallas` of the JAX package on channel-first
-    volumes, written to a new buffer."""
+    volumes, written to a new buffer; a volume of more than 4 channels in
+    launches of up to 4."""
     if vol.device.type == "cpu":
         return windowed_warp_plain(vol, target_x, target_y, target_z, k)
     _check(vol, target_x, target_y, target_z)
+    check_volume_indices(vol.shape, "K11")
+    check_region(k, k11_shared_bytes(k), "K11")
     cuda.check_cuda(vol, target_x, target_y, target_z)
     c, d, h, w = vol.shape
     out = torch.empty_like(vol)
-    cuda.launch("windowed_warp", cuda.ptr(vol), cuda.ptr(target_x),
-                cuda.ptr(target_y), cuda.ptr(target_z), cuda.ptr(out), c, d,
-                h, w, int(k))
+    for c0 in range(0, c, K11_CHANNELS):  # one launch per 4 channels
+        nc = min(K11_CHANNELS, c - c0)
+        cuda.launch("windowed_warp", cuda.ptr(vol[c0:c0 + nc]),
+                    cuda.ptr(target_x), cuda.ptr(target_y),
+                    cuda.ptr(target_z), cuda.ptr(out[c0:c0 + nc]), nc, d, h,
+                    w, int(k))
     return out
