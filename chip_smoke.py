@@ -12,7 +12,7 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of K1's to K6's, K10's and K11's kernels
+     local (spill) bytes of K1's to K8's, K10's and K11's kernels
      (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
@@ -127,8 +127,9 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      and K6's), and shows that K7 then K10 gives K5's volume, K8 then
      K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
      the radiance bake, rays and the baked visibility), bit for bit, and
-     that K2's, K5's, K6's, K10's and K11's blocks, K2's, K5's, K10's and
-     K11's shared memory and K1's
+     that K2's, K5's, K6's, K7's, K10's and K11's blocks, K2's, K5's, K10's
+     and K11's shared memory, K8's tile, chunk, threads and shared memory
+     and K1's
      launch (blocks, samples and light groups a block, passes of lights,
      shared memory) are what the wrappers reckon; holds K1 on a scene with
      40 local lights (two passes of lights); logs each hold's largest
@@ -1216,6 +1217,19 @@ def main() -> int:
                 raise AssertionError(f"{src}'s block and shared bytes at "
                                      f"k={kw}: {tuple(blk)} in the kernel, "
                                      f"{mirror[:3]} in {mirror[3]}")
+    # K7's tile, and K8's tile, chunk, threads and dynamic shared memory
+    cuda.lib("dir_shadow").vr_dir_shadow_geometry(
+        cuda.ctypes.cast(blk, cuda.ctypes.c_void_p))
+    if tuple(blk[:2]) != ds.K7_TILE:
+        raise AssertionError(f"K7's block: {tuple(blk[:2])} in the kernel, "
+                             f"{ds.K7_TILE} in ops/dir_shadow")
+    k8_geo = (cuda.ctypes.c_int * 5)()
+    cuda.lib("integrate").vr_integrate_geometry(
+        cuda.ctypes.cast(k8_geo, cuda.ctypes.c_void_p))
+    if tuple(k8_geo) != dataclasses.astuple(integ.k8_geometry()):
+        raise AssertionError(f"K8's tile, chunk, threads and shared bytes: "
+                             f"{tuple(k8_geo)} in the kernel, "
+                             f"{integ.k8_geometry()} in ops/integrate")
     # K1's launch: (local lights, fBm channels, low grid) of the full grid,
     # the demo grid, a slab5 shard, a ragged low slice and no lights, and
     # 40 lights (two passes)
@@ -1240,7 +1254,8 @@ def main() -> int:
         f"{sb.k5_shared_bytes(cfg.reproj_window)} B, K6 {sca.K6_TILES}, K10 "
         f"{tmp.K10_TILE} with {tmp.k10_shared_bytes(cfg.reproj_window)} B, "
         f"K11 {wp.K11_TILE} with {wp.k11_shared_bytes(cfg.reproj_window)} "
-        f"B, K1 on the full grid "
+        f"B, K7 {ds.K7_TILE}, K8 {integ.k8_geometry()} in "
+        f"{integ.k8_blocks(cfg.grid)} blocks, K1 on the full grid "
         f"{ff.k1_geometry(*k1_shapes[0])}")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form

@@ -1,6 +1,7 @@
-"""The host side of K2's, K5's, K6's, K10's and K11's slice tiles
+"""The host side of K2's, K5's, K6's, K7's, K10's and K11's slice tiles
 (csrc/shadow_scatter.cu, csrc/shadow_blend.cu, csrc/scatter.cu,
-csrc/temporal_blend.cu, csrc/windowed_warp.cu, csrc/common.cuh) and of K1's
+csrc/dir_shadow.cu, csrc/temporal_blend.cu, csrc/windowed_warp.cu,
+csrc/common.cuh), of K8's column tiles (csrc/integrate.cu) and of K1's
 light groups (csrc/bake_radiance.cu): the launch grids and shared memory as
 the wrappers mirror them, the reach of the reprojection region and of K11's
 staged targets, K1's share of each sample's lights among its warps, and the
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 import volumetricrenderer_tpu_torch as vt
+from volumetricrenderer_tpu_torch.ops import dir_shadow as t_ds
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
+from volumetricrenderer_tpu_torch.ops import integrate as t_int
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
 from volumetricrenderer_tpu_torch.ops import temporal as t_tmp
@@ -480,3 +483,141 @@ def test_k1_items_each_once_in_light_order(n_lights, n_noise):
         + [("noise", c) for c in range(n_noise)])
     assert order == np.flatnonzero(active).tolist()
     assert set(taken) <= set(range(groups))
+
+
+# ---- K7 dir_shadow: K5's tile without the region; K8 integrate: column
+# tiles whose slices go in chunks ------------------------------------------
+
+K7 = t_ds.K7_TILE
+
+
+@pytest.mark.parametrize("grid,want", [
+    ((240, 135, 128), (15, 9, 128)),     # FULL_CONFIG
+    ((160, 88, 64), (10, 6, 64)),        # the demo grid
+    ((240, 57, 128), (15, 4, 128))])     # a slab3 shard, halo included
+def test_k7_tile_grid(grid, want):
+    """One block per 16x16 tile of each slice, K5's tile."""
+    assert K7 == t_sb.K5_TILE == (16, 16)
+    assert t_sca.tile_grid(grid, K7) == want
+
+
+@pytest.mark.parametrize("grid", [(16, 15, 16), (37, 21, 2)])
+def test_k7_blocks_cover_each_froxel_once(grid):
+    """The blocks of a K7 launch, less their masked threads, hold each
+    froxel exactly once, on ragged grids: block (bx, by, z), thread (tx,
+    ty) at column 16 bx + tx, row 16 by + ty of slice z, as
+    csrc/dir_shadow.cu reckons them."""
+    w, h, d = grid
+    gx, gy, gz = t_sca.tile_grid(grid, K7)
+    seen = np.zeros((d, h, w), np.int64)
+    tx, ty = np.meshgrid(np.arange(K7[0]), np.arange(K7[1]), indexing="xy")
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                x, y = bx * K7[0] + tx, by * K7[1] + ty
+                keep = (x < w) & (y < h)
+                np.add.at(seen, (bz, y[keep], x[keep]), 1)
+    assert (seen == 1).all()
+
+
+def test_k8_geometry():
+    """K8's tile as ops/integrate.k8_geometry mirrors vr_integrate_geometry:
+    16 columns in 2 rows, slices 16 at a time, 256 threads (warp 0 carries
+    the tile's 32 columns), and two terms buffers [5, 16, 32], the xy blend
+    [4, 17, 32] and slice_dz [16] of float32 in dynamic shared memory,
+    under the 48 KB a launch takes without an opt-in."""
+    geo = t_int.k8_geometry()
+    assert dataclasses.astuple(geo) == (16, 2, 16, 256, 29248)
+    tile = geo.columns * geo.rows
+    assert 32 % tile == 0 and (geo.threads - 32) % tile == 0
+    assert geo.shared_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("grid,want", [((240, 135, 128), 1020),
+                                       ((160, 88, 64), 440),
+                                       ((240, 57, 128), 435),
+                                       ((37, 21, 2), 33)])
+def test_k8_blocks_cover_each_column_once(grid, want):
+    """K8's 1-D launch grid: block b owns the 16 x 2 columns from column
+    16 (b % tiles) and row 2 (b // tiles), tiles = ceil(W / 16), its tile
+    column c at (c % 16, c // 16), as csrc/integrate.cu reckons them; the
+    blocks, less the columns past the grid's edges, hold each (y, x)
+    column exactly once."""
+    w, h, _ = grid
+    geo = t_int.k8_geometry()
+    assert t_int.k8_blocks(grid) == want
+    tiles = -(-w // geo.columns)
+    seen = np.zeros((h, w), np.int64)
+    c = np.arange(geo.columns * geo.rows)
+    for b in range(want):
+        by = b // tiles
+        x = (b - by * tiles) * geo.columns + c % geo.columns
+        y = by * geo.rows + c // geo.columns
+        keep = (x < w) & (y < h)
+        np.add.at(seen, (y[keep], x[keep]), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("d", [16, 64, 100, 128])
+def test_k8_chunks_cover_each_slice_once(d):
+    """A block's chunks hold each slice exactly once, in order, full chunks
+    of 16 and then the rest (100 = 6 x 16 + 4); and the kernel's schedule
+    -- chunk 0's terms by every thread, then per chunk c warp 0 carrying c
+    while the other warps store c - 1 and compute c + 1's terms into the
+    buffer c - 1 held, then the last chunk's store -- computes each chunk's
+    terms before it is carried, carries it before it is stored, and stores
+    it before its buffer takes another chunk's terms."""
+    chunks = t_int.k8_chunks(d)
+    zc = t_int.k8_geometry().slices
+    seen = np.zeros(d, np.int64)
+    for z0, nz in chunks:
+        assert 0 < nz <= zc and z0 % zc == 0
+        seen[z0:z0 + nz] += 1
+    assert (seen == 1).all()
+    assert [nz for _, nz in chunks[:-1]] == [zc] * (len(chunks) - 1)
+    buffers = {0: 0}             # buffer -> the chunk whose terms it holds
+    done = {"terms": {0}, "carry": set(), "store": set()}
+    for c in range(len(chunks)):
+        assert buffers[c & 1] == c and c in done["terms"]
+        done["carry"].add(c)     # warp 0
+        if c > 0:                # the other warps, in this order
+            assert buffers[(c + 1) & 1] == c - 1 and c - 1 in done["carry"]
+            done["store"].add(c - 1)
+        if c + 1 < len(chunks):
+            assert c - 1 < 0 or c - 1 in done["store"]
+            buffers[(c + 1) & 1] = c + 1
+            done["terms"].add(c + 1)
+    done["store"].add(len(chunks) - 1)
+    assert done["terms"] == done["carry"] == done["store"] \
+        == set(range(len(chunks)))
+
+
+@pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
+def test_k7_refuses_indices_past_32_bits(tables, grid):
+    """K7's wrapper raises ValueError, before any launch, where K2's and
+    K5's do (ops/scatter.check_tile_indices): [4, D, H, W] planes past
+    2^31 - 1 floats or more than 65535 slices; the largest grid under 32
+    bits goes on to refuse only the meta tables (not on CUDA)."""
+    t = dataclasses.replace(tables, grid_whd=grid,
+                            spar=tables.spar.to("meta"))
+    with pytest.raises(ValueError, match="2\\^31|65535"):
+        t_ds.dir_shadow(t)
+    t = dataclasses.replace(t, grid_whd=(2048, 2047, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ds.dir_shadow(t)
+
+
+@pytest.mark.parametrize("grid,refused", [((2048, 2048, 128), True),
+                                          ((4096, 4096, 64), True),
+                                          ((2048, 2047, 128), False),
+                                          ((8, 8, 65536), False)])
+def test_k8_refuses_indices_past_32_bits(tables, grid, refused):
+    """K8's wrapper raises ValueError, before any launch, for [4, D, H, W]
+    planes past 2^31 - 1 floats, as its launcher does; one row fewer, or
+    65536 slices (a loop of each block, not a launch-grid axis), goes on
+    to refuse only the meta tensor (not on CUDA)."""
+    w, h, d = grid
+    t = dataclasses.replace(tables, grid_whd=grid)
+    scatter = torch.empty((4, d, h, w), device="meta")
+    with pytest.raises(ValueError, match="2\\^31" if refused else "CUDA"):
+        t_int.accumulate(t, scatter)

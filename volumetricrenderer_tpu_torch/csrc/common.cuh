@@ -429,9 +429,10 @@ __device__ __forceinline__ float light_factor(
   return hg_num * rb * rb * rb * fall;
 }
 
-// froxel_center_world's view depth of slice z and continuous column of x
-// and row of y (the slab's global row clamped to the grid), jittered or
-// not: p = spar.
+// dir_shadow.froxel_world's view depth of slice z and continuous column of
+// x and row of y (the slab's global row clamped to the grid) at the froxel
+// centre, jittered or not: p = spar. The slice tiles compute them once a
+// block (tile_scalars, tile_line).
 __device__ __forceinline__ float center_vz(const float* p, int z,
                                            bool jittered, int d) {
   return view_z(p, (float)z + 0.5f + (jittered ? p[19] : 0.0f), d);
@@ -446,18 +447,6 @@ __device__ __forceinline__ float center_fy(const float* p, int y,
                                            bool jittered, int h_glob) {
   const float ys = clampf((float)y + p[23], 0.0f, (float)h_glob - 1.0f);
   return ys + 0.5f + (jittered ? p[18] : 0.0f);
-}
-
-// dir_shadow.froxel_world: world position of froxel (z, y, x) at its centre,
-// jittered or not.
-__device__ __forceinline__ void froxel_center_world(const VrTables& T, int z,
-                                                    int y, int x,
-                                                    bool jittered, float& wx,
-                                                    float& wy, float& wz) {
-  const float* p = T.spar;
-  froxel_world(p, center_fx(p, x, jittered),
-               center_fy(p, y, jittered, T.h_glob),
-               center_vz(p, z, jittered, T.d), T.w, T.h_glob, wx, wy, wz);
 }
 
 // dir_shadow.dir_shadow_slice: sun li's visibility at a world position, one
@@ -758,11 +747,12 @@ __device__ __forceinline__ float low_at(const float* __restrict__ vol,
   return rows[0] * t.wy0 + rows[1] * t.wy1;
 }
 
-// ---- the slice tiles of K2 and K6 (shadow_scatter.cu, scatter.cu) ---------
+// ---- the slice tiles of K2, K5, K6 and K7 ----------------------------------
 
 // What the froxels of a TX x TY tile (columns x rows) of one slice share,
 // computed once per block on the device with the expressions of
-// froxel_center_world, reproj_offsets, low_slice and inv_dir (tile_scalars,
+// the froxel centre (center_vz, center_fx, center_fy, froxel_vx,
+// froxel_vy), reproj_offsets, low_slice and inv_dir (tile_scalars,
 // then tile_line): the view depth of the slice's jittered and unjittered
 // centres, froxel_vx of each column and froxel_vy of each row at both, the
 // upsample's slice terms and, with BLEND (the shadow blend's), its view
@@ -1189,19 +1179,4 @@ __device__ __forceinline__ void slice_terms(float dz, float ext, float& t,
   const bool small = od < 1e-2f;
   factor = small ? dz * (1.0f - 0.5f * od * (1.0f - od / 3.0f))
                  : (1.0f - t) / ext;
-}
-
-// One slice of the front-to-back integral: advances the carry
-// (L_r, L_g, L_b, T) by the sampled (r, g, b, ext) of slice z:
-// L_c += (T * s_c) * factor, T *= t.
-__device__ __forceinline__ void integrate_slice(float lfpz, float fpw,
-                                                float near_, int z, int d,
-                                                const float* sampled,
-                                                float* carry) {
-  float t, factor;
-  slice_terms(slice_dz(lfpz, fpw, near_, z, d), sampled[3], t, factor);
-  const float tc = carry[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) carry[c] = carry[c] + tc * sampled[c] * factor;
-  carry[3] = tc * t;
 }

@@ -5,50 +5,129 @@
 // runs it when temporal_blend_shadow is off; with the blend on,
 // shadow_blend.cu computes the same value and blends it in the same pass.
 //
-// One thread per froxel (z, y, x): world position at the jittered froxel
-// centre, then for each sun an any-hit ray towards it against the planes,
-// spheres, boxes and the terrain, visibility^2 gated by has_shadow
-// (common.cuh sun_shadow). Writes [Nd, D, H, W].
+// Per froxel (z, y, x): the world position at the jittered froxel centre,
+// then for each sun an any-hit ray towards it against the planes, spheres,
+// boxes and the terrain, visibility^2 gated by has_shadow (common.cuh
+// sun_shadow). Writes [Nd, D, H, W].
 //
-// Bound on the H100: operations against bytes about even. Bytes: one write
-// of 16.6 MB at 240x135x128 and one sun, ~5 us at 3.35 TB/s. Work: ~150
-// flops per froxel (the depth mapping's exp/log, a 7-primitive ray), ~0.6
-// GFLOP, ~9 us at the fp32 rate. The primitive tables are a few hundred
-// bytes read by every thread through the read-only cache; the any-hit loop
-// exits early, and neighbouring froxels mostly hit the same primitive, so a
-// warp stays nearly uniform.
+// A block owns a 16 x 16 tile of one slice (K7Tile), K5's tile
+// (shadow_blend.cu) without the reprojection region and the blend. Once a
+// block: the slice's jittered view depth and each sun's inverse direction
+// (a small scalar step of its own, one thread each on the first lanes of
+// as many warps), then froxel_vx of each column and froxel_vy of each row
+// (common.cuh tile_line, its jittered items), into shared memory. Per
+// froxel: view_world, then sun_shadow<ARMS, true>, whose box tests read the
+// inverses from shared memory and whose plane and sphere tests leave before
+// a division or a root whose answer is known. A thread per froxel computed
+// all of these itself: the depth mapping's log and exp, four divisions for
+// the world position and three for each ray's inverse, with a 64-bit index
+// split by division. Every value is that form's, from the same expressions
+// in the same order, so the volume is bit for bit the same and K7 then
+// K10's weight mode still gives K5's volume. Indices are 32-bit: the
+// launcher refuses tables past common.cuh past_int_index (the wrapper
+// first, ops/scatter.check_tile_indices).
 //
-// Every sun ray marches the procedural terrain where the scene has one
-// (common.cuh heightfield_occluded: hf_steps fBm samples over the band
-// [base, base + amp] the ray crosses, skipped where it crosses none or a
-// primitive occludes first); that march, ~700 flops a sample at 2
-// octaves, is then most of the work of the froxels near the ground.
+// Bound on the H100: operations. Bytes: one write of 16.6 MB at
+// 240x135x128 and one sun, ~5 us at 3.35 TB/s. Work: a 7-primitive ray a
+// froxel, ~13 us at the fp32 rate (chip_smoke.py's count). Every sun ray
+// marches the procedural terrain where the scene has one (common.cuh
+// heightfield_occluded: hf_steps fBm samples over the band [base, base +
+// amp] the ray crosses, skipped where it crosses none or a primitive
+// occludes first); that march, ~700 flops a sample at 2 octaves, is then
+// most of the work of the froxels near the ground, and the tile takes out
+// only the setup share of it. A block of several slices (each thread its
+// froxel in 2-8 of them) ran a solid scene 5% faster and the terrain
+// 6-60% slower, 8 blocks an SM and 32 x 8 tiles no faster (PERF.md §6).
 #include "common.cuh"
 
-template <bool ARMS>
-__global__ void dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
-  const int w = T.w, h = T.h, d = T.d;
-  const long n = (long)d * h * w;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % w);
-  const int y = (int)((i / w) % h);
-  const int z = (int)(i / ((long)w * h));
+// The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
+// SM (the launch bounds; the tile mirrored by ops/dir_shadow.K7_TILE).
+struct K7Tile {
+  static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
+};
 
+template <bool ARMS>
+__global__ void __launch_bounds__(K7Tile::X * K7Tile::Y, K7Tile::MIN_BLOCKS)
+dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
+  constexpr int TX = K7Tile::X, TY = K7Tile::Y, NT = TX * TY;
+  __shared__ TileTerms<TX, TY> S;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY, z = blockIdx.z;
+  // 1. the slice's jittered view depth (item 0) and the inverse direction
+  // of each sun's shadow ray (items 1 .. n_dir), as tile_scalars computes
+  // them, on the first lanes of as many warps
+  for (int item = 0; item <= T.n_dir; ++item) {
+    if (tid != (item * 32) % NT + (item * 32) / NT) continue;
+    if (item == 0) {
+      S.vz_j = center_vz(T.spar, z, true, T.d);
+    } else {
+      const float* q = T.slights + 8 * (item - 1);
+      float* inv = S.sun_inv[item - 1];
+      inv[0] = inv_dir(-q[0]);
+      inv[1] = inv_dir(-q[1]);
+      inv[2] = inv_dir(-q[2]);
+    }
+  }
+  __syncthreads();
+  // 2. froxel_vx of each column (tile_line's items 0 .. TX - 1) and
+  // froxel_vy of each row (its items 2 TX .. 2 TX + TY - 1)
+  if (tid < TX + TY) tile_line(T, xt, yt, tid < TX ? tid : tid + TX, S);
+  __syncthreads();
+  const int x = xt + tx, y = yt + ty;
+  if (x >= T.w || y >= T.h) return;
+  // 3. dir_shadow_slice: the jittered world position, one ray per sun
   float wx, wy, wz;
-  froxel_center_world(T, z, y, x, true, wx, wy, wz);
+  view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
+  const int n = T.d * T.h * T.w;
+  const int i = (z * T.h + y) * T.w + x;
   for (int li = 0; li < T.n_dir; ++li)
-    out_sh[li * n + i] = sun_shadow<ARMS>(T, li, wx, wy, wz);
+    out_sh[li * n + i] =
+        sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
+}
+
+template <bool ARMS>
+static void launch_tile(const VrTables* T, float* out_sh,
+                        cudaStream_t stream) {
+  constexpr int TX = K7Tile::X, TY = K7Tile::Y;
+  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  dir_shadow_kernel<ARMS><<<grid, dim3(TX, TY), 0, stream>>>(*T, out_sh);
 }
 
 extern "C" int vr_dir_shadow(const VrTables* T, float* out_sh,
                              cudaStream_t stream) {
-  const long n = (long)T->d * T->h * T->w;
-  const int block = 128;
-  const unsigned grid = (unsigned)((n + block - 1) / block);
+  if (past_int_index(*T)) return (int)cudaErrorInvalidValue;
   if (needs_arms(*T))
-    dir_shadow_kernel<true><<<grid, block, 0, stream>>>(*T, out_sh);
+    launch_tile<true>(T, out_sh, stream);
   else
-    dir_shadow_kernel<false><<<grid, block, 0, stream>>>(*T, out_sh);
+    launch_tile<false>(T, out_sh, stream);
   return (int)cudaGetLastError();
+}
+
+// The tile (columns, rows) into out[0..1].
+extern "C" int vr_dir_shadow_geometry(int* out) {
+  out[0] = K7Tile::X;
+  out[1] = K7Tile::Y;
+  return 0;
+}
+
+// cudaFuncGetAttributes of the two kernels, ARMS false then true: registers
+// per thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS>
+static cudaError_t attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, (const void*)dir_shadow_kernel<ARMS>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_dir_shadow_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<false>(out), attrs_of<true>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

@@ -25,7 +25,7 @@
 // the final lerp. So a block owns a tile of K3_TX consecutive columns of
 // one row and takes its d slices K3_ZC at a time in three phases:
 //   1. parallel over (slice, column): xy_blend4 into shared memory, then
-//      each slice's sample, t and factor (slice_terms, integrate_slice's
+//      each slice's sample, t and factor (slice_terms, the first form's
 //      operations in its order);
 //   2. serial over the chunk's slices, one thread per column, half a warp:
 //      L_c += (T * s_c) * factor, T *= t, from shared memory, each
@@ -140,7 +140,7 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
                           T.h_glob);
     }
     __syncthreads();
-    // 2. the carry, integrate_slice's update, one thread a column in
+    // 2. the carry, L_c += (T * s_c) * factor, T *= t, one thread a column in
     // warp 0, whose other half moves the chunk's last xy blend to row 0 for
     // the next chunk's lerp; warps 1-7 compute the offsets the warp reads,
     // each once where the warp of a froxel recomputed its own seven: per

@@ -136,8 +136,10 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                          "vr_shadow_blend_geometry": [ci, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
                     "vr_scatter_geometry": [ci, vp]},
-        "dir_shadow": {"vr_dir_shadow": [tp, vp]},
-        "integrate": {"vr_integrate": [tp, vp, vp]},
+        "dir_shadow": {"vr_dir_shadow": [tp, vp],
+                       "vr_dir_shadow_geometry": [vp]},
+        "integrate": {"vr_integrate": [tp, vp, vp],
+                      "vr_integrate_geometry": [vp]},
         "bake_visibility": {"vr_bake_visibility": [tp, vp]},
         "temporal_blend": {"vr_temporal_blend":
                            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci],
@@ -188,6 +190,9 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 + ("scatter_kernel<RAY, false, true>",
                    "scatter_kernel<RAY, true, true>"),
                 "integrate_blend": ("integrate_blend_kernel",),
+                "dir_shadow": ("dir_shadow_kernel<false>",
+                               "dir_shadow_kernel<true>"),
+                "integrate": ("integrate_kernel",),
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
                                    "temporal_blend_kernel<4, false>"),
                 "windowed_warp": ("windowed_warp_kernel<4>",),

@@ -4,7 +4,8 @@ Counterpart of `volumetricrenderer_tpu/ops/pallas/dir_shadow.py`: the
 plain-torch twin of `dir_shadow_slice`, and `dir_shadow`, the wrapper of the
 CUDA kernel K7 (`csrc/dir_shadow.cu`) that stands for `dir_shadow_pallas`.
 The per-froxel device code is `sun_shadow` in `csrc/common.cuh`, shared with
-the shadow_blend and shadow_scatter kernels.
+the shadow_blend and shadow_scatter kernels; K7 runs it in 16 x 16 tiles of
+one slice (`K7_TILE`), K5's tile without the reprojection region.
 """
 
 from __future__ import annotations
@@ -89,10 +90,20 @@ def dir_shadow_plain(t) -> torch.Tensor:
         h_glob=t.h_glob, **t.occluders(local=False)))
 
 
+# K7's block (csrc/dir_shadow.cu K7Tile): 16 columns x 16 rows of one slice,
+# K5's tile (ops/shadow_blend.K5_TILE) without its reprojection region. Its
+# launch grid is ops/scatter.tile_grid's.
+K7_TILE = (16, 16)
+
+
 def dir_shadow(t) -> torch.Tensor:
-    """K7: the unblended raycast shadow volume [Nd, D, H, W]."""
+    """K7: the unblended raycast shadow volume [Nd, D, H, W]. Refuses, before
+    any launch, tables the kernel cannot index in 32 bits."""
     if t.spar.device.type == "cpu":
         return dir_shadow_plain(t)
+    from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
+    check_tile_indices(t)
+    cuda.check_cuda(t.spar)
     w, h, d = t.grid_whd
     out = torch.empty((t.n_dir, d, h, w), dtype=torch.float32,
                       device=t.spar.device)

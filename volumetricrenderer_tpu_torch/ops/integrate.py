@@ -7,17 +7,20 @@ and of the expm1/Taylor slice integral, and `accumulate`, the wrapper of the
 CUDA kernel K8 (`csrc/integrate.cu`) that stands for
 `accumulate_fused_pallas`. `integrate_blend_fused` gives kernel K3
 (ops/frame_fused.integrate_blend) the signature of the JAX package's
-function of that name. The shared device code is `xy_blend4` and
-`integrate_slice` in `csrc/common.cuh`.
+function of that name. The shared device code is `xy_blend4`, `slice_dz`
+and `slice_terms` in `csrc/common.cuh`; K8 runs them in tiles of columns
+whose slices go in chunks (`k8_geometry`), as K3 does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import List, Tuple
 
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
+from volumetricrenderer_tpu_torch.ops.scatter import INT32_MAX
 
 
 def make_xy_blend(ox: float, oy: float):
@@ -98,11 +101,63 @@ def accumulate_plain(t, scatter: torch.Tensor) -> torch.Tensor:
     return vals
 
 
+@dataclasses.dataclass(frozen=True)
+class K8Geometry:
+    """K8's block (csrc/integrate.cu K8Tile, vr_integrate_geometry): a tile
+    of `columns` consecutive columns in `rows` consecutive rows whose slices
+    go `slices` at a time, `threads` threads (warp 0 carries, the others
+    compute the next chunk's terms) and `shared_bytes` of dynamic shared
+    memory: two terms buffers [5, slices, columns x rows], the xy blend
+    [4, slices + 1, columns x rows] and slice_dz [slices], float32."""
+    columns: int
+    rows: int
+    slices: int
+    threads: int
+    shared_bytes: int
+
+
+def k8_geometry() -> K8Geometry:
+    columns, rows, slices = 16, 2, 16
+    tile = columns * rows
+    floats = 2 * 5 * slices * tile + 4 * (slices + 1) * tile + slices
+    return K8Geometry(columns, rows, slices, 256, 4 * floats)
+
+
+def k8_blocks(grid_whd: Tuple[int, int, int]) -> int:
+    """K8's 1-D launch grid: one block per tile, a row of tiles after
+    another, the ragged last ones masked."""
+    w, h, _ = grid_whd
+    geo = k8_geometry()
+    return -(-w // geo.columns) * -(-h // geo.rows)
+
+
+def k8_chunks(d: int) -> List[Tuple[int, int]]:
+    """(first slice, slices) of each chunk a block takes in turn: full
+    chunks, then the rest."""
+    zc = k8_geometry().slices
+    return [(z0, min(zc, d - z0)) for z0 in range(0, d, zc)]
+
+
+def check_indices(grid_whd: Tuple[int, int, int]) -> None:
+    """Refuse a grid whose [4, D, H, W] planes K8 cannot index in 32 bits
+    (its launcher refuses them too): more than 2^31 - 1 floats. The slices
+    are a loop of each block and the tiles a 1-D grid, so neither has a
+    launch-grid limit of its own. Raises ValueError."""
+    w, h, d = grid_whd
+    if 4 * w * h * d > INT32_MAX:
+        raise ValueError(f"K8: the grid {grid_whd} needs indices past "
+                         f"2^31 - 1 ({4 * w * h * d} floats of planes): the "
+                         f"kernel indexes in 32 bits")
+
+
 def accumulate(t, scatter: torch.Tensor) -> torch.Tensor:
-    """K8: integrate the scatter planes front to back, no temporal blend."""
+    """K8: integrate the scatter planes front to back, no temporal blend.
+    Refuses, before any launch, planes the kernel cannot index in 32
+    bits."""
     if scatter.device.type == "cpu":
         return accumulate_plain(t, scatter)
     _check_scatter(t, scatter)
+    check_indices(t.grid_whd)
     cuda.check_cuda(scatter)
     out = torch.empty_like(scatter)
     st = t.c_struct()
