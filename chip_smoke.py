@@ -113,7 +113,8 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      renderer's frame of the edited scene, bit for bit;
   5. holds each kernel against its plain-torch twin on the inputs of a real
      frame, with the tolerances stated in CHECKS (K12 at low and at full
-     rate on map_dir's frame 4; K13 on the SSR inputs of post_showcase's
+     rate on map_dir's frame 4, and on its tables with a second sun, each
+     sun of that one launch = the one-sun launch bit for bit; K13 on the SSR inputs of post_showcase's
      last frame; K2 with rays and with baked visibility on fused_exact's and
      fused_vis's frame 2; K4 at 16x16-pixel cells and in its co-sited
      planes form on uhd_exact's frame 2; the terrain and fractional arms:
@@ -128,11 +129,12 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
      the radiance bake, rays and the baked visibility), bit for bit, and
      that K2's, K5's, K6's, K7's, K10's and K11's blocks, K2's, K5's, K10's
-     and K11's shared memory, K8's tile, chunk, threads and shared memory
-     and K1's
+     and K11's shared memory, K8's tile, chunk, threads and shared memory,
+     K12's tile and shared memory at 1-4 cascades, and K1's and K9's
      launch (blocks, samples and light groups a block, passes of lights,
-     shared memory) are what the wrappers reckon; holds K1 on a scene with
-     40 local lights (two passes of lights); logs each hold's largest
+     shared memory) are what the wrappers reckon; holds K1 and K9 on a
+     scene with 40 local lights (two passes of K1's lights; ten of K9's a
+     light group); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
      the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
@@ -787,6 +789,23 @@ def step_times(label: str, fn, n: int) -> None:
         f"wall mean over {n} warm calls")
 
 
+def two_suns(t, atlas):
+    """K12's tables and atlases of one sun with a second sun after it, made
+    from the first: its slices' schedules rolled by a third of the grid,
+    its atlas mirrored in u and its shadow strength another, so that a
+    sun's offsets into the tables are seen."""
+    d = t.grid_whd[2]
+    roll = lambda v: torch.roll(v, d // 3, dims=1)
+    par2 = t.par.clone()
+    par2[:, 20] = 0.3
+    cat = lambda a, b: torch.cat([a, b]).contiguous()
+    t2 = dataclasses.replace(
+        t, par=cat(t.par, par2), coef=cat(t.coef, roll(t.coef)),
+        order=cat(t.order, roll(t.order)), count=cat(t.count, roll(t.count)),
+        spheres=cat(t.spheres, t.spheres))
+    return t2, cat(atlas, atlas.flip(-1))
+
+
 def fractional_scene(demo, geometry_cls):
     """demo_scene with its first three boxes at shadow opacity 0.5, built
     with Geometry.create's (min, max, albedo, opacity) boxes."""
@@ -1248,6 +1267,33 @@ def main() -> int:
                                  f"channels on {(wl_, hl_, dl_)}: "
                                  f"{tuple(geo)} in the kernel, {want} in "
                                  f"ops/frame_fused")
+    # K12's tile, dynamic shared memory at 1-4 cascades and rows of
+    # threads; K9's launch (local lights, low grid) of the full grid, the
+    # demo grid's one spot light, 40 lights and a ragged low slice
+    k12_geo = (cuda.ctypes.c_int * 4)()
+    for nc in (1, 2, 3, 4):
+        cuda.lib("pcf_shadow").vr_pcf_shadow_geometry(
+            nc, cuda.ctypes.cast(k12_geo, cuda.ctypes.c_void_p))
+        want = (*pcf.K12_TILE, pcf.k12_shared_bytes(nc),
+                pcf.K12_TILE[1] // pcf.K12_ROWS_PER_THREAD)
+        if tuple(k12_geo) != want:
+            raise AssertionError(f"K12's tile, shared bytes and rows of "
+                                 f"threads at {nc} cascades: "
+                                 f"{tuple(k12_geo)} in the kernel, "
+                                 f"{want} in ops/pcf_shadow")
+    k9_geo = (cuda.ctypes.c_int * 6)()
+    k9_shapes = ((tables.lights.shape[0], tables.low_dims),
+                 (1, (60, 34, 32)), (1, (80, 44, 32)), (40, (60, 34, 32)),
+                 (3, (13, 5, 3)), (2, (13, 5, 3)))
+    for n_l, (wl_, hl_, dl_) in k9_shapes:
+        cuda.lib("bake_visibility").vr_bake_visibility_geometry(
+            n_l, wl_, hl_, dl_, cuda.ctypes.cast(k9_geo,
+                                                 cuda.ctypes.c_void_p))
+        want = vis.k9_geometry(n_l, (wl_, hl_, dl_))
+        if tuple(k9_geo) != dataclasses.astuple(want):
+            raise AssertionError(f"K9's launch for {n_l} lights on "
+                                 f"{(wl_, hl_, dl_)}: {tuple(k9_geo)} in the "
+                                 f"kernel, {want} in ops/visibility")
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
         f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
@@ -1256,7 +1302,9 @@ def main() -> int:
         f"K11 {wp.K11_TILE} with {wp.k11_shared_bytes(cfg.reproj_window)} "
         f"B, K7 {ds.K7_TILE}, K8 {integ.k8_geometry()} in "
         f"{integ.k8_blocks(cfg.grid)} blocks, K1 on the full grid "
-        f"{ff.k1_geometry(*k1_shapes[0])}")
+        f"{ff.k1_geometry(*k1_shapes[0])}, K12 {pcf.K12_TILE} with "
+        f"{pcf.k12_shared_bytes(4)} B at 4 cascades, K9 on the full grid "
+        f"{vis.k9_geometry(*k9_shapes[0])}")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2
@@ -1316,6 +1364,15 @@ def main() -> int:
     h_vis = vis.bake_visibility(h_tables)
     errs["bake_visibility"] = compare("bake_visibility", h_vis,
                                       vis.bake_visibility_plain(h_tables))
+    # K9 on 40 local lights (ten a light group) at vis_bake's configuration
+    v40, _, _ = renderers["vis_bake"].frame_tables(
+        renderers["vis_bake"].init_state(scene40.dir_lights.count), scene40,
+        0.0)
+    k9_err = {"lights40": compare("bake_visibility",
+                                  vis.bake_visibility(v40),
+                                  vis.bake_visibility_plain(v40),
+                                  label="40 local lights")}
+    errs["bake_visibility"] = max(errs["bake_visibility"], k9_err["lights40"])
     tx, ty, tz, _ = geo.centre_texel
     h_prev_sc = h_prev.prev_scatter.float().contiguous()
     errs["windowed_warp"] = compare(
@@ -1358,6 +1415,23 @@ def main() -> int:
     full_err = compare("pcf_shadow", pcf.pcf_shadow(pcf_full, f_dir.atlas),
                        pcf.pcf_shadow_plain(pcf_full, f_dir.atlas))
     errs["pcf_shadow"] = max(errs["pcf_shadow"], full_err)
+    # K12 on map_dir's tables with a second sun: one launch for both suns,
+    # each sun's volume = its one-sun launch's bit for bit
+    t2, atlas2 = two_suns(pcf_low, m_dir.atlas)
+    k12_two = pcf.pcf_shadow(t2, atlas2)
+    errs["pcf_shadow"] = max(errs["pcf_shadow"], compare(
+        "pcf_shadow", k12_two, pcf.pcf_shadow_plain(t2, atlas2),
+        label="two suns"))
+    one = lambda li: dataclasses.replace(
+        t2, **{f: getattr(t2, f)[li:li + 1] for f in (
+            "par", "coef", "order", "count", "spheres")})
+    same = all(torch.equal(k12_two[li:li + 1], pcf.pcf_shadow(
+        one(li), atlas2[li:li + 1])) for li in range(2))
+    log(f"# pcf_shadow, two suns in one launch = each sun alone bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("K12's two-sun launch differs from its one-sun "
+                             "launches")
     lit = float((k12_low == 1.0).float().mean())
     log(f"# pcf_shadow low-rate volume: min {float(k12_low.min()):.4f}, "
         f"fully lit share {lit:.3f}")
@@ -1843,6 +1917,7 @@ def main() -> int:
         for m, a in k6_modes.items()}
     per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
     k1_ms = {"lights40": kernel_time_ms(lambda: ff.bake_radiance(t40), n)}
+    k9_ms = {"lights40": kernel_time_ms(lambda: vis.bake_visibility(v40), n)}
     k2_ms = {m: kernel_time_ms(lambda a=a: ff.shadow_scatter(a[0], a[1],
                                                              vis=a[2]),
                                5 if m == "rays" else n)
@@ -1894,6 +1969,8 @@ def main() -> int:
         lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
     k1_plain_ms = {"lights40": cuda_time_ms(
         lambda: ff.bake_radiance_plain(t40), 1)}
+    k9_plain_ms = {"lights40": cuda_time_ms(
+        lambda: vis.bake_visibility_plain(v40), 1)}
     k2_plain_ms = {m: cuda_time_ms(
         lambda a=a: ff.shadow_scatter_plain(a[0], a[1], vis=a[2]), 1)
         for m, a in k2_in.items()}
@@ -2199,6 +2276,10 @@ def main() -> int:
         4 * (3 + t40.n_noise) * n_low_of(t40),
         n_low_of(t40) * (60 + ops_perlin * t40.n_noise)
         + int(t40.active.sum()) * plane_of(t40) * (60 + geo_ops(t40)))}
+    # K9 on 40 lights: as the history path's, from its own tables
+    k9_work = {"lights40": (
+        4 * v40.lights.shape[0] * n_low_of(v40),
+        int(v40.active.sum()) * plane_of(v40) * (40 + geo_ops(v40)))}
     samples = {"sun": {}, "low": {}, "full": {}}
     for t_name, t in (("demo_full", d_tables), ("demo_exact_hf", dx_tables),
                       ("fractional", fr_tables),
@@ -2344,6 +2425,8 @@ def main() -> int:
         modes = {
             "bake_radiance": (k1_work, k1_err, k1_ms, k1_plain_ms, {},
                               {"lights40": "checked and timed only"}),
+            "bake_visibility": (k9_work, k9_err, k9_ms, k9_plain_ms, {},
+                                {"lights40": "checked and timed only"}),
             "shadow_scatter": (k2_work, k2_err, k2_ms, k2_plain_ms, {},
                                {"rays": "fused_exact", "baked": "fused_vis"}),
             "composite": (k4_work, k4_err, k4_ms, k4_plain_ms, k4_lib_ms,

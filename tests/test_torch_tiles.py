@@ -1,12 +1,13 @@
 """The host side of K2's, K5's, K6's, K7's, K10's and K11's slice tiles
 (csrc/shadow_scatter.cu, csrc/shadow_blend.cu, csrc/scatter.cu,
 csrc/dir_shadow.cu, csrc/temporal_blend.cu, csrc/windowed_warp.cu,
-csrc/common.cuh), of K8's column tiles (csrc/integrate.cu) and of K1's
-light groups (csrc/bake_radiance.cu): the launch grids and shared memory as
-the wrappers mirror them, the reach of the reprojection region and of K11's
-staged targets, K1's share of each sample's lights among its warps, and the
-wrappers' refusal of tables and volumes the kernels cannot index in 32 bits
-or whose region passes shared memory. Plain Python and torch on the CPU
+csrc/common.cuh) and K12's (csrc/pcf_shadow.cu), of K8's column tiles
+(csrc/integrate.cu) and of K1's and K9's light groups
+(csrc/bake_radiance.cu, csrc/bake_visibility.cu): the launch grids and
+shared memory as the wrappers mirror them, the reach of the reprojection
+region and of K11's staged targets, K1's and K9's share of each sample's
+lights among their warps, and the wrappers' refusal of tables and volumes
+the kernels cannot index in 32 bits or whose region passes shared memory. Plain Python and torch on the CPU
 (meta tensors for the large grids); no JAX."""
 
 import dataclasses
@@ -19,9 +20,11 @@ import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.ops import dir_shadow as t_ds
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
 from volumetricrenderer_tpu_torch.ops import integrate as t_int
+from volumetricrenderer_tpu_torch.ops import pcf_shadow as t_pcf
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
 from volumetricrenderer_tpu_torch.ops import temporal as t_tmp
+from volumetricrenderer_tpu_torch.ops import visibility as t_vis
 from volumetricrenderer_tpu_torch.ops import warp as t_wp
 
 
@@ -621,3 +624,216 @@ def test_k8_refuses_indices_past_32_bits(tables, grid, refused):
     scatter = torch.empty((4, d, h, w), device="meta")
     with pytest.raises(ValueError, match="2\\^31" if refused else "CUDA"):
         t_int.accumulate(t, scatter)
+
+
+# ---- K12 pcf_shadow: slice tiles of every sun in one launch; K9
+# bake_visibility: K1's light groups over a low slice's patch -------------
+
+K12 = t_pcf.K12_TILE
+
+
+@pytest.mark.parametrize("grid,nd,want", [
+    ((120, 135, 64), 1, (8, 9, 64)),      # FULL_CONFIG, low rate
+    ((240, 135, 128), 1, (15, 9, 128)),   # full rate
+    ((160, 88, 64), 1, (10, 6, 64)),      # the demo grid
+    ((120, 135, 64), 2, (8, 9, 128)),     # two suns: grid z = sun x slice
+    ((37, 21, 2), 3, (3, 2, 6))])
+def test_k12_grid(grid, nd, want):
+    """One block per 16x16 tile of each slice of each sun."""
+    assert K12 == (16, 16)
+    assert t_pcf.k12_grid(grid, nd) == want
+
+
+@pytest.mark.parametrize("grid,nd", [
+    ((120, 135, 64), 1), ((240, 135, 128), 1), ((160, 88, 64), 1),
+    ((120, 135, 64), 2), ((37, 21, 2), 3), ((16, 15, 16), 1),
+    ((1, 1, 1), 2)])
+def test_k12_blocks_cover_each_froxel_once(grid, nd):
+    """The froxels of a K12 launch, less the masked ones, are each
+    (sun, slice, row, column) exactly once: block (bx, by, bz), thread
+    (tx, ty) and its row j < 4 at sun bz // D, slice bz % D, column
+    16 bx + tx and row 16 by + ty + 4 j, its output at ((bz H) + y) W + x
+    -- as csrc/pcf_shadow.cu reckons them."""
+    w, h, d = grid
+    gx, gy, gz = t_pcf.k12_grid(grid, nd)
+    rows = t_pcf.K12_ROWS_PER_THREAD
+    threads_y = K12[1] // rows
+    bz, by, bx, j, ty, tx = np.meshgrid(
+        np.arange(gz), np.arange(gy), np.arange(gx), np.arange(rows),
+        np.arange(threads_y), np.arange(K12[0]), indexing="ij")
+    x, y = bx * K12[0] + tx, by * K12[1] + ty + threads_y * j
+    keep = (x < w) & (y < h)
+    sun, z = bz // d, bz % d
+    flat = ((bz * h + y) * w + x)[keep]
+    seen = np.bincount(flat, minlength=nd * d * h * w)
+    assert (seen == 1).all()
+    assert np.array_equal(flat, (((sun * d + z) * h + y) * w + x)[keep])
+
+
+@pytest.mark.parametrize("nc,want", [(1, 876), (2, 1352), (3, 1828),
+                                     (4, 2304)])
+def test_k12_shared_bytes(nc, want):
+    """K12's dynamic shared memory at 1-4 cascades (the 2x2 atlas has 4):
+    the slice's 3 products and count, per cascade its order entry, 2
+    constant terms and a sphere, per column 3 + 5 C floats and per row
+    3 + 2 C, under the 48 KB a launch takes without an opt-in."""
+    tx, ty = K12
+    assert t_pcf.k12_shared_bytes(nc) == want == 4 * (
+        4 + nc * (1 + 2 + 4) + tx * (3 + 5 * nc) + ty * (3 + 2 * nc))
+    assert want <= 48 * 1024
+
+
+def _pcf_meta(grid, nd, s2, nc=4):
+    w, h, d = grid
+    meta = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device="meta")
+    t = t_pcf.PcfTables(
+        par=meta(nd, 24), coef=meta(nd, d, nc, 8),
+        order=meta(nd, d, nc, dtype=torch.int32),
+        count=meta(nd, d, dtype=torch.int32), spheres=meta(nd, nc, 4),
+        grid_whd=grid, h_glob=h)
+    return t, meta(nd, s2, s2)
+
+
+@pytest.mark.parametrize("grid,nd,s2,refused", [
+    ((4096, 4096, 128), 1, 1024, True),    # 2^31 floats of volume
+    ((4096, 4095, 128), 1, 1024, False),
+    ((1024, 1024, 1024), 2, 1024, True),
+    ((16, 15, 16), 1, 46341, True),        # 46341^2 > 2^31 - 1
+    ((16, 15, 16), 1, 46340, False),
+    ((16, 15, 16), 2, 32768, True),        # two 2^30-texel atlases
+    ((8, 8, 32768), 2, 64, True),          # 65536 slices of both suns
+    ((8, 8, 65535), 1, 64, False)])
+def test_k12_refuses_indices_past_32_bits(grid, nd, s2, refused):
+    """K12's wrapper raises ValueError, before the launch, for volumes or
+    atlases past 2^31 - 1 floats or a launch grid past 65535 slices of
+    all suns, as its launcher refuses them; just under each limit it goes
+    on to refuse only the meta tensors (not on CUDA)."""
+    t, atlas = _pcf_meta(grid, nd, s2)
+    with pytest.raises(ValueError, match="2\\^31|65535" if refused
+                       else "CUDA"):
+        t_pcf.pcf_shadow(t, atlas)
+    if refused:
+        with pytest.raises(ValueError, match="2\\^31|65535"):
+            t_pcf.check_indices(t, atlas)
+    else:
+        t_pcf.check_indices(t, atlas)
+
+
+@pytest.mark.parametrize("n_lights,low,want", [
+    # FULL_CONFIG's low grid (ss=4), 16 lights: 32 samples a block
+    (16, (60, 34, 32), (2048, 128, 32, 4, 64, 1536)),
+    # demo_scene's one spot light: every warp its own samples
+    (1, (60, 34, 32), (512, 128, 128, 1, 16, 1536)),
+    (1, (80, 44, 32), (896, 128, 128, 1, 28, 1536)),   # the demo grid
+    # 40 lights: ten a light group
+    (40, (60, 34, 32), (2048, 128, 32, 4, 64, 1536)),
+    # a ragged low slice (13 x 5 = 65 samples)
+    (3, (13, 5, 3), (9, 128, 32, 4, 3, 1536)),
+    (2, (13, 5, 3), (6, 128, 64, 2, 2, 1536)),
+    (0, (13, 5, 3), (3, 128, 128, 1, 1, 1536))])
+def test_k9_geometry(n_lights, low, want):
+    """K9's launch as ops/visibility.k9_geometry mirrors
+    vr_bake_visibility_geometry: (blocks, threads, samples a block, light
+    groups, runs a low slice, static shared bytes)."""
+    geo = t_vis.k9_geometry(n_lights, low)
+    assert dataclasses.astuple(geo) == want
+    assert geo.threads == 32 * t_vis.K9_WARPS
+    assert geo.samples * geo.groups == geo.threads
+    assert geo.blocks == geo.runs * low[2]
+    assert geo.shared_bytes == 4 * 3 * geo.threads
+
+
+def _k9_pairs(n_lights, low):
+    """csrc/bake_visibility.cu's (light, low slice, row, column) of every
+    thread's every store, in the order each thread makes them: block b's
+    slice m = b // runs and run b % runs; warp w's light group g = w // sw
+    and place wi in it; lane l's sample at = ((b % runs) sw + wi) 32 + l of
+    the slice, row at // WL and column at % WL; its lights g, g + groups,
+    ...; lanes past the slice's last sample store nothing. Returns
+    [(warp id, light, m, r, c)] as an array."""
+    wl, hl, dl = low
+    geo = t_vis.k9_geometry(n_lights, low)
+    sw = t_vis.K9_WARPS // geo.groups
+    b, warp, lane = np.meshgrid(np.arange(geo.blocks),
+                                np.arange(t_vis.K9_WARPS), np.arange(32),
+                                indexing="ij")
+    m, run = np.divmod(b, geo.runs)
+    g, wi = np.divmod(warp, sw)
+    at = (run * sw + wi) * 32 + lane
+    keep = at < wl * hl
+    r, c = np.divmod(at, wl)
+    rows = []
+    for li in range(n_lights):
+        take = keep & (li % geo.groups == g)
+        wid = (b * t_vis.K9_WARPS + warp)[take]
+        rows.append(np.stack([wid, np.full_like(wid, li), m[take], r[take],
+                              c[take]], axis=1))
+    return np.concatenate(rows) if rows else np.zeros((0, 5), np.int64)
+
+
+@pytest.mark.parametrize("n_lights,low", [
+    (16, (60, 34, 32)), (1, (60, 34, 32)), (1, (80, 44, 32)),
+    (40, (60, 34, 32)), (3, (13, 5, 3)), (2, (13, 5, 3)), (5, (7, 3, 2))])
+def test_k9_blocks_cover_each_pair_once(n_lights, low):
+    """The stores of a K9 launch hold each (light, low sample) pair
+    exactly once, on the full grid's, the demo grid's and ragged low
+    grids, at 1 to 40 lights; each warp's 32 lanes store one light of one
+    slice at a time, so its cull (uniform per light and slice) never
+    splits it, and their samples are consecutive (one coalesced store)."""
+    wl, hl, dl = low
+    pairs = _k9_pairs(n_lights, low)
+    li, m, r, c = pairs[:, 1], pairs[:, 2], pairs[:, 3], pairs[:, 4]
+    flat = ((li * dl + m) * hl + r) * wl + c
+    seen = np.bincount(flat, minlength=n_lights * dl * hl * wl)
+    assert (seen == 1).all()
+    by_warp = {}
+    for (wid, light, mm, _, _), f in zip(pairs.tolist(), flat.tolist()):
+        by_warp.setdefault((wid, light), (set(), []))
+        by_warp[(wid, light)][0].add(mm)
+        by_warp[(wid, light)][1].append(f)
+    for slices, stores in by_warp.values():
+        assert len(slices) == 1
+        assert stores == list(range(stores[0], stores[0] + len(stores)))
+
+
+@pytest.mark.parametrize("n_lights", [1, 16, 40])
+def test_k9_lights_each_once_in_light_order(n_lights):
+    """Each warp takes its light group's lights g, g + groups, ... in
+    ascending order, and the light groups together take every light exactly
+    once: no cap on the light count (40 = ten a group)."""
+    geo = t_vis.k9_geometry(n_lights, (60, 34, 32))
+    taken = {g: list(range(g, n_lights, geo.groups))
+             for g in range(geo.groups)}
+    for lights in taken.values():
+        assert lights == sorted(lights)
+    flat = sorted(li for lights in taken.values() for li in lights)
+    assert flat == list(range(n_lights))
+    assert geo.groups == min(t_vis.K9_WARPS, 1 << max(0, n_lights - 1)
+                             .bit_length())
+    pairs = _k9_pairs(n_lights, (60, 34, 32))
+    order = {}
+    for wid, light, _, _, _ in pairs.tolist():
+        if order.setdefault(wid, [light])[-1] != light:
+            order[wid].append(light)
+    for lights in order.values():
+        assert lights == sorted(lights)
+        assert len(set(li % geo.groups for li in lights)) == 1
+
+
+@pytest.mark.parametrize("grid,n_lights,refused", [
+    ((2048, 2048, 128), 4, True),     # [4, D, H, W] planes: 2^31 floats
+    ((8, 8, 65536), 4, True),         # past 65535 slices
+    ((2048, 2047, 128), 300, True),   # 300 lights' low volume past 2^31
+    ((2048, 2047, 128), 4, False)])
+def test_k9_refuses_indices_past_32_bits(tables, grid, n_lights, refused):
+    """K9's wrapper raises ValueError, before the launch, where the slice
+    tiles' do (ops/scatter.check_tile_indices): planes or the [NL, DL, HL,
+    WL] volume past 2^31 - 1 floats, or more than 65535 slices; under them
+    it goes on to refuse only the meta tables (not on CUDA)."""
+    lights = torch.empty((n_lights, 16), device="meta")
+    t = dataclasses.replace(tables, grid_whd=grid, lights=lights,
+                            spar=tables.spar.to("meta"))
+    with pytest.raises(ValueError, match="2\\^31|65535" if refused
+                       else "CUDA"):
+        t_vis.bake_visibility(t)

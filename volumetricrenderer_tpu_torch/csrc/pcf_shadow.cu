@@ -1,5 +1,5 @@
 // K12 pcf_shadow: the cascaded-PCF sun shadow volume of the shadow-map
-// modes, for one sun.
+// modes.
 //
 // Replaces volumetricrenderer_tpu/ops/pallas/pcf_shadow.py `_kernel` /
 // `pcf_dir_shadow_pallas` (:222, :355). The TPU kernel ran one z slice per
@@ -8,8 +8,8 @@
 // a transpose, a row gather) over a doubled-lane x layout. On the GPU each
 // thread reads its taps straight from the atlas: no window, no transposes.
 //
-// One thread per froxel (z, y, x) of the grid it is given (full rate, or
-// the low-rate grid of dir_shadow_subsample): the jittered world position
+// Per froxel (z, y, x) of the grid it is given (full rate, or the low-rate
+// grid of dir_shadow_subsample) and per sun: the jittered world position
 // (for the split-sphere select), then over the slice's count[z] active
 // cascades in order[z] (ops/pcf_shadow.schedule):
 //   u = a_u x + c_u, v = a_v x + b_v y + c_v, ref = a_r x + b_r y + c_r,
@@ -23,12 +23,60 @@
 // order (no FMA contraction), so that a compare flips only for a coordinate
 // within ulps of a texel edge.
 //
+// A block owns a 16x16 tile (K12Tile) of one slice of one sun (grid z =
+// sun x slice: all suns in one launch), a block of 16 x 4 threads. Before
+// its one barrier its threads compute, each an item, what the froxels
+// share: per column the view-space x and its three world products, and per
+// cascade u, floor(u), its fraction, the two clamped atlas columns and the
+// x products of v and ref; per row the clamped y, the view-space y and its
+// products, and per cascade the y products of v and ref; the slice's view
+// depth (each of those items computes it again: the same float) and its
+// products; the slice's count, order, the cascades' constant terms and the
+// split spheres. Then each thread takes 4 froxels of its column (rows 4
+// apart, so a warp stores 2 rows of 16 at a time): three sums each for the
+// world position and, per active cascade, the column's terms read once for
+// the 4, two sums each for v and ref, the four taps, the compare, the
+// sphere tests and the accumulation. A thread per froxel computed all of
+// these itself: the depth mapping's log and exp and four divisions for the
+// world position, per cascade eight coefficient loads and u's floor and
+// clamps, with a 64-bit index split by division. Every value is that
+// form's, from the same expressions in the same order (a product computed
+// once is the float each froxel computed), so the volume is bit for bit
+// the same. Indices are 32-bit: the launcher refuses a volume, atlas or
+// launch grid past them (the wrapper first, ops/pcf_shadow.check_indices).
+// A thread a froxel in 16x16 threads ran 20-29% slower than 4 froxels a
+// thread, 16x8 threads with 2 froxels each 4-9% slower (PERF.md §6). The
+// atlas is read through L1 and L2, not staged: a tile's footprint holds
+// more texels than its 1024 taps at the low rate (~3 texels a column
+// step).
+//
 // Bound on the H100: bytes. At 240x135x128 froxels, low rate (120x135x64)
 // with one sun: 4.1 MB of output and a 4.2 MB atlas read once, ~2.5 us at
 // 3.35 TB/s; full rate ~6 us. The atlas stays in the 50 MB L2, and
 // neighbouring threads read neighbouring texels; with ~1.5 active cascades
-// per slice the work is ~100 flops per froxel. The kernel is launch-bound.
+// per slice the work is ~100 flops per froxel.
 #include "common.cuh"
+
+// The tile: a block of X x Y threads, MIN_BLOCKS of them an SM (the launch
+// bounds), each thread R froxels of its column (rows Y apart), so the tile
+// is X columns x Y R rows (mirrored by ops/pcf_shadow.K12_TILE and
+// K12_ROWS_PER_THREAD).
+struct K12Tile {
+  static constexpr int X = 16, Y = 4, R = 4, MIN_BLOCKS = 16;
+  static constexpr int ROWS = Y * R;
+};
+
+// The block's dynamic shared memory at nc cascades, in floats (the ints
+// stored as their bits): the slice's three world products of the view
+// depth and its count; order; (c_v, c_r) and the split sphere of each
+// cascade; per column (x) the three world products of vx, then per cascade
+// fu, the two atlas columns, a_v x and a_r x; per row (y) the three world
+// products of vy, then per cascade b_v y and b_r y. Mirrored by
+// ops/pcf_shadow.k12_shared_bytes.
+__host__ __device__ __forceinline__ int k12_floats(int nc) {
+  return 4 + 7 * nc + K12Tile::X * (3 + 5 * nc)
+         + K12Tile::ROWS * (3 + 2 * nc);
+}
 
 __device__ __forceinline__ float inside_sphere(const float* sph, int ci,
                                                float wx, float wy, float wz) {
@@ -38,81 +86,241 @@ __device__ __forceinline__ float inside_sphere(const float* sph, int ci,
   return dx * dx + dy * dy + dz * dz < sph[ci * 4 + 3] ? 1.0f : 0.0f;
 }
 
-__global__ void pcf_shadow_kernel(const float* __restrict__ par,
-                                  const float* __restrict__ coef,
-                                  const int* __restrict__ order,
-                                  const int* __restrict__ count,
-                                  const float* __restrict__ sph,
-                                  const float* __restrict__ atlas, int w,
-                                  int h, int d, int h_glob, int s2, int nc,
-                                  float* __restrict__ out) {
-  const long n = (long)d * h * w;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % w);
-  const int y = (int)((i / w) % h);
-  const int z = (int)(i / ((long)w * h));
+// The tables of sun li lie at these strides from the first sun's.
+struct K12Sun {
+  const float *par, *coef, *sph, *atlas;
+  const int *order, *count;
+};
 
-  const float fpx = par[0], fpy = par[1], fpz = par[2], fpw = par[3];
-  const float near_ = par[4], jx = par[5], jy = par[6], jz = par[7];
-  const float sr = par[20], y0 = par[21], gate = par[22];
-
-  // jittered world position of the froxel
-  const float fz = (float)z + 0.5f + jz;
-  const float vz = (expf(logf(fpz) * fz / (float)d) - 1.0f) * fpw + near_;
-  const float xs = (float)x;
-  const float ys = clampf((float)y + y0, 0.0f, (float)h_glob - 1.0f);
-  const float vx = (2.0f * (xs + 0.5f + jx) / (float)w - 1.0f) * vz / fpx;
-  const float vy = (2.0f * (ys + 0.5f + jy) / (float)h_glob - 1.0f) * vz /
-                   fpy;
-  const float wx = par[8] * vx + par[9] * vy + par[10] * vz + par[11];
-  const float wy = par[12] * vx + par[13] * vy + par[14] * vz + par[15];
-  const float wz = par[16] * vx + par[17] * vy + par[18] * vz + par[19];
-
-  float acc_cmp = 0.0f, acc_mask = 0.0f;
-  const int n_act = count[z];
-  for (int k = 0; k < n_act; ++k) {
-    const int ci = order[z * nc + k];
-    const float* q = coef + ((long)z * nc + ci) * 8;
-    const float u = q[0] * xs + q[1];
-    const float v = q[2] * xs + q[3] * ys + q[4];
-    const float ref = q[5] * xs + q[6] * ys + q[7];
-    const float u0 = floorf(u);
-    const float v0 = floorf(v);
-    const float fu = u - u0;
-    const float fv = v - v0;
-    const int gu0 = clampi((int)u0, 0, s2 - 1);
-    const int gu1 = clampi((int)u0 + 1, 0, s2 - 1);
-    const long r0 = (long)clampi((int)v0, 0, s2 - 1) * s2;
-    const long r1 = (long)clampi((int)v0 + 1, 0, s2 - 1) * s2;
-    const float le00 = ref <= __ldg(atlas + r0 + gu0) ? 1.0f : 0.0f;
-    const float le01 = ref <= __ldg(atlas + r0 + gu1) ? 1.0f : 0.0f;
-    const float le10 = ref <= __ldg(atlas + r1 + gu0) ? 1.0f : 0.0f;
-    const float le11 = ref <= __ldg(atlas + r1 + gu1) ? 1.0f : 0.0f;
-    const float cmp = (1.0f - fv) * ((1.0f - fu) * le00 + fu * le01) +
-                      fv * ((1.0f - fu) * le10 + fu * le11);
-    const float prev =
-        ci > 0 ? inside_sphere(sph, ci - 1, wx, wy, wz) : 0.0f;
-    const float mask = inside_sphere(sph, ci, wx, wy, wz) * (1.0f - prev);
-    acc_cmp = acc_cmp + mask * cmp;
-    acc_mask = acc_mask + mask;
-  }
-  const float cmp = acc_cmp + (1.0f - fminf(acc_mask, 1.0f));
-  const float vis = sr + (1.0f - sr) * cmp;
-  float res = 1.0f + gate * (vis * vis - 1.0f);
-  if (par[23] > 0.0f) res = res + __int_as_float(0x7fc00000);  // NaN
-  out[i] = res;
+__device__ __forceinline__ K12Sun k12_sun(const float* par, const float* coef,
+                                          const int* order, const int* count,
+                                          const float* sph,
+                                          const float* atlas, int li, int d,
+                                          int nc, int s2) {
+  return {par + 24 * li, coef + li * d * nc * 8, sph + li * nc * 4,
+          atlas + li * s2 * s2, order + li * d * nc, count + li * d};
 }
 
+// The jittered view depth of slice z (dir_shadow.froxel_world's mapping).
+__device__ __forceinline__ float k12_vz(const float* par, int z, int d) {
+  const float fz = (float)z + 0.5f + par[7];
+  return (expf(logf(par[2]) * fz / (float)d) - 1.0f) * par[3] + par[4];
+}
+
+__global__ void __launch_bounds__(K12Tile::X * K12Tile::Y,
+                                  K12Tile::MIN_BLOCKS)
+pcf_shadow_kernel(const float* __restrict__ par_all,
+                  const float* __restrict__ coef_all,
+                  const int* __restrict__ order_all,
+                  const int* __restrict__ count_all,
+                  const float* __restrict__ sph_all,
+                  const float* __restrict__ atlas_all, int w, int h, int d,
+                  int h_glob, int s2, int nc, float* __restrict__ out) {
+  constexpr int TX = K12Tile::X, TY = K12Tile::ROWS, R = K12Tile::R;
+  constexpr int NT = TX * K12Tile::Y;
+  extern __shared__ float k12_s[];  // k12_floats(nc)
+  int* k12_i = reinterpret_cast<int*>(k12_s);
+  float* slice_s = k12_s;                   // [3] + count
+  int* order_s = k12_i + 4;                 // [nc]
+  float* cterm_s = k12_s + 4 + nc;          // [nc][2]
+  float* sph_s = cterm_s + 2 * nc;          // [nc][4]
+  float* col_s = sph_s + 4 * nc;            // [3 + 5 nc][TX]
+  float* row_s = col_s + TX * (3 + 5 * nc); // [3 + 2 nc][TY]
+  int* col_i = reinterpret_cast<int*>(col_s);
+
+  const int tx = threadIdx.x, tid = threadIdx.y * TX + tx;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
+  const int li = blockIdx.z / d, z = blockIdx.z - li * d;
+  const K12Sun S = k12_sun(par_all, coef_all, order_all, count_all, sph_all,
+                           atlas_all, li, d, nc, s2);
+  const float* par = S.par;
+
+  // 1. the items, one a thread: columns (x, c) and rows (y, c), c = 0 the
+  // view-space term and c = 1 + ci cascade ci's; then the slice's tables
+  const int n_col = TX * (1 + nc), n_row = TY * (1 + nc);
+  const int n_items = n_col + n_row + 1 + nc * 7;
+  for (int j = tid; j < n_items; j += NT) {
+    if (j < n_col) {
+      const int x = j % TX, c = j / TX;
+      const float xs = (float)(xt + x);
+      if (c == 0) {
+        const float vz = k12_vz(par, z, d);
+        const float vx =
+            (2.0f * (xs + 0.5f + par[5]) / (float)w - 1.0f) * vz / par[0];
+        col_s[x] = par[8] * vx;
+        col_s[TX + x] = par[12] * vx;
+        col_s[2 * TX + x] = par[16] * vx;
+        if (x == 0) {
+          slice_s[0] = par[10] * vz;
+          slice_s[1] = par[14] * vz;
+          slice_s[2] = par[18] * vz;
+        }
+      } else {
+        const int ci = c - 1;
+        const float* q = S.coef + (z * nc + ci) * 8;
+        const float u = q[0] * xs + q[1];
+        const float u0 = floorf(u);
+        float* cc = col_s + (3 + 5 * ci) * TX;
+        int* ci_i = col_i + (3 + 5 * ci) * TX;
+        cc[x] = u - u0;
+        ci_i[TX + x] = clampi((int)u0, 0, s2 - 1);
+        ci_i[2 * TX + x] = clampi((int)u0 + 1, 0, s2 - 1);
+        cc[3 * TX + x] = q[2] * xs;
+        cc[4 * TX + x] = q[5] * xs;
+      }
+    } else if (j < n_col + n_row) {
+      const int y = (j - n_col) % TY, c = (j - n_col) / TY;
+      const float ys =
+          clampf((float)(yt + y) + par[21], 0.0f, (float)h_glob - 1.0f);
+      if (c == 0) {
+        const float vz = k12_vz(par, z, d);
+        const float vy = (2.0f * (ys + 0.5f + par[6]) / (float)h_glob - 1.0f)
+                         * vz / par[1];
+        row_s[y] = par[9] * vy;
+        row_s[TY + y] = par[13] * vy;
+        row_s[2 * TY + y] = par[17] * vy;
+      } else {
+        const float* q = S.coef + (z * nc + c - 1) * 8;
+        float* rc = row_s + (3 + 2 * (c - 1)) * TY;
+        rc[y] = q[3] * ys;
+        rc[TY + y] = q[6] * ys;
+      }
+    } else {
+      const int k = j - n_col - n_row;
+      if (k == 0) {
+        k12_i[3] = S.count[z];
+      } else if (k <= nc) {
+        order_s[k - 1] = S.order[z * nc + k - 1];
+      } else if (k <= 3 * nc) {
+        const int ci = (k - 1 - nc) / 2, e = (k - 1 - nc) % 2;
+        cterm_s[2 * ci + e] = S.coef[(z * nc + ci) * 8 + (e ? 7 : 4)];
+      } else {
+        sph_s[k - 1 - 3 * nc] = S.sph[k - 1 - 3 * nc];
+      }
+    }
+  }
+  const float sr = par[20], gate = par[22], poison = par[23];
+  const float wx0 = par[11], wy0 = par[15], wz0 = par[19];
+  __syncthreads();
+  const int x = xt + tx;
+  if (x >= w) return;
+
+  // 2. the thread's froxels, rows ty + Y j of the tile: their jittered
+  // world positions, then the active cascades, each cascade's column terms
+  // read once for them all
+  float wx[R], wy[R], wz[R], acc_cmp[R], acc_mask[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int ty = threadIdx.y + K12Tile::Y * j;
+    wx[j] = col_s[tx] + row_s[ty] + slice_s[0] + wx0;
+    wy[j] = col_s[TX + tx] + row_s[TY + ty] + slice_s[1] + wy0;
+    wz[j] = col_s[2 * TX + tx] + row_s[2 * TY + ty] + slice_s[2] + wz0;
+    acc_cmp[j] = 0.0f;
+    acc_mask[j] = 0.0f;
+  }
+  const int n_act = k12_i[3];
+  const float* atlas = S.atlas;
+  for (int k = 0; k < n_act; ++k) {
+    const int ci = order_s[k];
+    const float* cc = col_s + (3 + 5 * ci) * TX;
+    const int* ci_i = col_i + (3 + 5 * ci) * TX;
+    const float* rc = row_s + (3 + 2 * ci) * TY;
+    const float fu = cc[tx];
+    const int gu0 = ci_i[TX + tx];
+    const int gu1 = ci_i[2 * TX + tx];
+    const float v_x = cc[3 * TX + tx], ref_x = cc[4 * TX + tx];
+    const float v_c = cterm_s[2 * ci], ref_c = cterm_s[2 * ci + 1];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int ty = threadIdx.y + K12Tile::Y * j;
+      const float v = v_x + rc[ty] + v_c;
+      const float ref = ref_x + rc[TY + ty] + ref_c;
+      const float v0 = floorf(v);
+      const float fv = v - v0;
+      const int r0 = clampi((int)v0, 0, s2 - 1) * s2;
+      const int r1 = clampi((int)v0 + 1, 0, s2 - 1) * s2;
+      const float le00 = ref <= __ldg(atlas + r0 + gu0) ? 1.0f : 0.0f;
+      const float le01 = ref <= __ldg(atlas + r0 + gu1) ? 1.0f : 0.0f;
+      const float le10 = ref <= __ldg(atlas + r1 + gu0) ? 1.0f : 0.0f;
+      const float le11 = ref <= __ldg(atlas + r1 + gu1) ? 1.0f : 0.0f;
+      const float cmp = (1.0f - fv) * ((1.0f - fu) * le00 + fu * le01) +
+                        fv * ((1.0f - fu) * le10 + fu * le11);
+      const float prev =
+          ci > 0 ? inside_sphere(sph_s, ci - 1, wx[j], wy[j], wz[j]) : 0.0f;
+      const float mask =
+          inside_sphere(sph_s, ci, wx[j], wy[j], wz[j]) * (1.0f - prev);
+      acc_cmp[j] = acc_cmp[j] + mask * cmp;
+      acc_mask[j] = acc_mask[j] + mask;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int y = yt + threadIdx.y + K12Tile::Y * j;
+    if (y >= h) break;
+    const float cmp = acc_cmp[j] + (1.0f - fminf(acc_mask[j], 1.0f));
+    const float vis = sr + (1.0f - sr) * cmp;
+    float res = 1.0f + gate * (vis * vis - 1.0f);
+    if (poison > 0.0f) res = res + __int_as_float(0x7fc00000);  // NaN
+    out[((blockIdx.z * h) + y) * w + x] = res;
+  }
+}
+
+// Whether nd suns' volumes [nd, d, h, w], atlases [nd, s2, s2] or launch
+// grid (nd x d slices) pass the kernel's 32-bit indices or the grid's
+// 65535 (mirrored by ops/pcf_shadow.check_indices).
+static bool k12_past_int_index(int w, int h, int d, int s2, int nd) {
+  return (long)nd * d * h * w > 2147483647L
+         || (long)nd * s2 * s2 > 2147483647L || (long)nd * d > 65535;
+}
+
+// K12 for the nd suns whose tables lie one after the other (par [nd, 24],
+// coef [nd, d, nc, 8], order [nd, d, nc], count [nd, d], spheres [nd, nc,
+// 4], atlas [nd, s2, s2]) into out [nd, d, h, w], in one launch.
+extern "C" int vr_pcf_shadow_suns(const float* par, const float* coef,
+                                  const int* order, const int* count,
+                                  const float* sph, const float* atlas, int w,
+                                  int h, int d, int h_glob, int s2, int nc,
+                                  int nd, float* out, cudaStream_t stream) {
+  if (k12_past_int_index(w, h, d, s2, nd)) return (int)cudaErrorInvalidValue;
+  constexpr int TX = K12Tile::X, TY = K12Tile::ROWS;
+  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, nd * d);
+  pcf_shadow_kernel<<<grid, dim3(TX, K12Tile::Y),
+                      k12_floats(nc) * sizeof(float),
+                      stream>>>(par, coef, order, count, sph, atlas, w, h, d,
+                                h_glob, s2, nc, out);
+  return (int)cudaGetLastError();
+}
+
+// One sun's K12.
 extern "C" int vr_pcf_shadow(const float* par, const float* coef,
                              const int* order, const int* count,
                              const float* sph, const float* atlas, int w,
                              int h, int d, int h_glob, int s2, int nc,
                              float* out, cudaStream_t stream) {
-  const long n = (long)d * h * w;
-  const int block = 128;
-  pcf_shadow_kernel<<<(unsigned)((n + block - 1) / block), block, 0,
-                      stream>>>(par, coef, order, count, sph, atlas, w, h, d,
-                                h_glob, s2, nc, out);
-  return (int)cudaGetLastError();
+  return vr_pcf_shadow_suns(par, coef, order, count, sph, atlas, w, h, d,
+                            h_glob, s2, nc, 1, out, stream);
+}
+
+// The tile (columns, rows), the dynamic shared bytes at nc cascades and
+// the block's rows of threads into out[0..3].
+extern "C" int vr_pcf_shadow_geometry(int nc, int* out) {
+  out[0] = K12Tile::X;
+  out[1] = K12Tile::ROWS;
+  out[2] = k12_floats(nc) * (int)sizeof(float);
+  out[3] = K12Tile::Y;
+  return 0;
+}
+
+// cudaFuncGetAttributes of the kernel: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into out[0..3];
+// returns the error.
+extern "C" int vr_pcf_shadow_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, (const void*)pcf_shadow_kernel);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return (int)err;
 }

@@ -140,15 +140,17 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                        "vr_dir_shadow_geometry": [vp]},
         "integrate": {"vr_integrate": [tp, vp, vp],
                       "vr_integrate_geometry": [vp]},
-        "bake_visibility": {"vr_bake_visibility": [tp, vp]},
+        "bake_visibility": {"vr_bake_visibility": [tp, vp],
+                            "vr_bake_visibility_geometry": [ci] * 4 + [vp]},
         "temporal_blend": {"vr_temporal_blend":
                            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci],
                            "vr_temporal_blend_geometry": [ci, vp]},
         "windowed_warp": {"vr_windowed_warp":
                           [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci],
                           "vr_windowed_warp_geometry": [ci, vp]},
-        "pcf_shadow": {"vr_pcf_shadow":
-                       [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci]},
+        "pcf_shadow": {"vr_pcf_shadow": [vp] * 6 + [ci] * 6 + [vp],
+                       "vr_pcf_shadow_suns": [vp] * 6 + [ci] * 7 + [vp],
+                       "vr_pcf_shadow_geometry": [ci, vp]},
         "ssr_march": {"vr_ssr_march":
                       [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5},
     }[name]
@@ -196,6 +198,9 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
                                    "temporal_blend_kernel<4, false>"),
                 "windowed_warp": ("windowed_warp_kernel<4>",),
+                "bake_visibility": ("bake_visibility_kernel<false>",
+                                    "bake_visibility_kernel<true>"),
+                "pcf_shadow": ("pcf_shadow_kernel",),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel")}

@@ -19,7 +19,8 @@ on froxel x only:
                     explicit three-term sums)
   pack_tables       schedule for every sun -> PcfTables (one upload)
   pcf_shadow_plain  the twin
-  pcf_shadow        kernel K12 (csrc/pcf_shadow.cu), one launch per sun
+  pcf_shadow        kernel K12 (csrc/pcf_shadow.cu): 16x16 tiles of one
+                    slice (K12_TILE), every sun in one launch
   pcf_dir_shadow    the JAX function's signature: pack, move, pcf_shadow
 
 The window. The TPU kernel gathers from a 512-texel window per (slice,
@@ -48,6 +49,8 @@ import torch
 
 from volumetricrenderer_tpu_torch import froxel as froxel_lib
 from volumetricrenderer_tpu_torch.ops import cuda
+from volumetricrenderer_tpu_torch.ops.scatter import (INT32_MAX, MAX_GRID_Z,
+                                                      tile_grid)
 
 MAX_WIN = 512      # the TPU kernel's atlas window (rows and columns)
 
@@ -318,11 +321,55 @@ def pcf_shadow_plain(t: PcfTables, atlas: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs)
 
 
+# K12's tile (csrc/pcf_shadow.cu K12Tile): 16 columns x 16 rows of one
+# slice of one sun, a block of 16 x 4 threads, each thread 4 rows of its
+# column (rows 4 apart); the launch grid is ops/scatter.tile_grid's over
+# the grid (W, H, Nd x D).
+K12_TILE = (16, 16)
+K12_ROWS_PER_THREAD = 4
+
+
+def k12_shared_bytes(nc: int) -> int:
+    """Mirror of csrc/pcf_shadow.cu k12_floats: a block's dynamic shared
+    bytes at nc cascades -- the slice's 3 products and count, and per
+    cascade its order entry, 2 constant terms and 4 sphere floats; per
+    column 3 products and per cascade 5 terms; per row 3 products and per
+    cascade 2 terms."""
+    tx, ty = K12_TILE
+    return 4 * (4 + 7 * nc + tx * (3 + 5 * nc) + ty * (3 + 2 * nc))
+
+
+def k12_grid(grid_whd: Tuple[int, int, int], nd: int) -> Tuple[int, int, int]:
+    """K12's launch grid for nd suns: a block per tile of each slice of
+    each sun."""
+    w, h, d = grid_whd
+    return tile_grid((w, h, nd * d), K12_TILE)
+
+
+def check_indices(t: PcfTables, atlas: torch.Tensor) -> None:
+    """Refuse the tables and atlases K12 cannot index in 32 bits (its
+    launcher's k12_past_int_index): the [Nd, D, H, W] volume and the
+    [Nd, S2, S2] atlases must hold at most 2^31 - 1 floats, and the launch
+    grid at most 65535 slices of all suns. Raises ValueError."""
+    w, h, d = t.grid_whd
+    nd, s2 = t.par.shape[0], atlas.shape[-1]
+    if nd * d * h * w > INT32_MAX or nd * s2 * s2 > INT32_MAX:
+        raise ValueError(f"{nd} suns' volumes {t.grid_whd} or atlases "
+                         f"{s2}x{s2} need indices past 2^31 - 1: K12 "
+                         f"indexes in 32 bits")
+    if nd * d > MAX_GRID_Z:
+        raise ValueError(f"{nd} suns x {d} slices: a launch grid holds at "
+                         f"most {MAX_GRID_Z}")
+
+
 def pcf_shadow(t: PcfTables, atlas: torch.Tensor) -> torch.Tensor:
-    """K12: the sun shadow volume [Nd, D, H, W] on t's grid."""
+    """K12: the sun shadow volume [Nd, D, H, W] on t's grid, every sun in
+    one launch. Refuses, before the launch, what the kernel cannot index in
+    32 bits."""
     _check(t, atlas)
     if atlas.device.type == "cpu":
         return pcf_shadow_plain(t, atlas)
+    check_indices(t, atlas)
     cuda.check_cuda(atlas, t.par, t.coef, t.spheres)
     cuda.check_cuda(t.order, t.count, dtype=torch.int32)
     w, h, d = t.grid_whd
@@ -330,11 +377,10 @@ def pcf_shadow(t: PcfTables, atlas: torch.Tensor) -> torch.Tensor:
     s2 = atlas.shape[-1]
     out = torch.empty((nd, d, h, w), dtype=torch.float32,
                       device=atlas.device)
-    for li in range(nd):
-        cuda.launch("pcf_shadow", cuda.ptr(t.par[li]), cuda.ptr(t.coef[li]),
-                    cuda.ptr(t.order[li]), cuda.ptr(t.count[li]),
-                    cuda.ptr(t.spheres[li]), cuda.ptr(atlas[li]), w, h, d,
-                    t.h_glob, s2, nc, cuda.ptr(out[li]))
+    cuda.launch("pcf_shadow", cuda.ptr(t.par), cuda.ptr(t.coef),
+                cuda.ptr(t.order), cuda.ptr(t.count), cuda.ptr(t.spheres),
+                cuda.ptr(atlas), w, h, d, t.h_glob, s2, nc, nd,
+                cuda.ptr(out), entry="vr_pcf_shadow_suns")
     return out
 
 

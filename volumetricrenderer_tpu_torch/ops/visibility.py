@@ -9,7 +9,9 @@ are in `csrc/bake_radiance.cu` (kernel K1, which stands for
 `bake_radiance_pallas` and for the megakernel's inline bake;
 `bake_radiance_fused` below gives it the JAX function's signature),
 `csrc/bake_visibility.cu` (kernel K9, which stands for
-`bake_visibility_pallas`; wrapper `bake_visibility` below) and
+`bake_visibility_pallas`: a run of a low slice's samples a block, its
+lights spread over warps, `k9_geometry`; wrapper `bake_visibility` below)
+and
 `upsample_low` in `csrc/common.cuh`.
 
 Grid contract: low cell k covers full cells [ss*k, ss*k + ss); its sample
@@ -23,6 +25,7 @@ y_phase(y0, ss), on the global ss-grid whatever y0 is, and its y tent
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -37,7 +40,9 @@ from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
                                                        phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.phase import PI
-from volumetricrenderer_tpu_torch.ops.scatter import light_factor, pack_lights
+from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
+                                                      light_factor,
+                                                      pack_lights)
 
 
 def low_res_dims(grid_whd: Tuple[int, int, int], ss: int):
@@ -287,11 +292,49 @@ def bake_visibility_plain(t) -> torch.Tensor:
     return torch.stack(out)
 
 
+# K9's launch (csrc/bake_visibility.cu): a block of K9_WARPS warps owns a
+# run of consecutive samples of one low slice, its lights spread over light
+# groups of warps.
+K9_WARPS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class K9Geometry:
+    blocks: int
+    threads: int
+    samples: int       # a block's run (a light group's warps x 32)
+    groups: int        # light groups: group g takes lights g, g + groups, ...
+    runs: int          # runs a low slice
+    shared_bytes: int  # static: the samples' world positions
+
+
+def k9_geometry(n_lights: int,
+                low_dims: Tuple[int, int, int]) -> K9Geometry:
+    """Mirror of csrc/bake_visibility.cu vr_bake_visibility_geometry: K9's
+    launch for the low grid (WL, HL, DL). Its light groups are the least
+    power of two that takes every light, at most K9_WARPS; the warps of a
+    group hold consecutive runs of 32 samples of the slice (row-major), the
+    lanes past the slice's last sample masked."""
+    wl, hl, dl = low_dims
+    groups = 1
+    while groups < n_lights and groups < K9_WARPS:
+        groups *= 2
+    samples = 32 * (K9_WARPS // groups)
+    runs = -(-(wl * hl) // samples)
+    return K9Geometry(blocks=runs * dl, threads=32 * K9_WARPS,
+                      samples=samples, groups=groups, runs=runs,
+                      shared_bytes=4 * 3 * 32 * K9_WARPS)
+
+
 def bake_visibility(t) -> torch.Tensor:
-    """K9: the low-rate per-light visibility volume [NL, DL, HL, WL]."""
+    """K9: the low-rate per-light visibility volume [NL, DL, HL, WL].
+    Refuses, before the launch, tables the kernel cannot index in 32 bits
+    (ops/scatter.check_tile_indices)."""
     if t.spar.device.type == "cpu":
         return bake_visibility_plain(t)
     _check_bake_tables(t)
+    check_tile_indices(t)
+    cuda.check_cuda(t.spar)
     wl, hl, dl = t.low_dims
     out = torch.empty((t.lights.shape[0], dl, hl, wl), dtype=torch.float32,
                       device=t.spar.device)
