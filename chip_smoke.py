@@ -12,7 +12,7 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of K1's to K8's, K10's and K11's kernels
+     local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K13)
      (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
@@ -62,6 +62,10 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
        uhd               UHD_CONFIG (ms_4k), 4 frames: K1 K2 K3, K4 at
                          1920x1080 on co-sited pixels (planes, no scene),
                          the plain upsample and scene blend
+       xla_scatter       FULL_CONFIG with scatter_impl="xla", 2 frames: K5,
+                         the plain XLA scatter over plain material
+                         volumes, the plain scan, K10 (accumulation blend)
+                         K4
      on demo_scene (every sun ray marches the terrain) and "fractional"
      (demo_scene with its first three boxes at shadow opacity 0.5, built
      with Geometry.create's 4-tuples):
@@ -87,6 +91,11 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
        anyres_xla        demo_production with composite_impl="xla", 1
                          frame: K4's per-pixel form, = demo_production's
                          frame 1 bit for bit
+       demo_xla          DEMO_CONFIG as it stands (demo.py's frame:
+                         160x88x64 at 1280x720, shadow maps, the gather sun
+                         sampler, the "windowed" reprojection, the XLA
+                         scatter and scan), its maps baked once, 2 frames:
+                         plain torch but K4's per-pixel form
      and then the post stack on the fused frame (POST_PATHS), each frame's
      display image checked finite, in [0, 1] and not flat:
        post_bench        render_frame_post with bench.py's PostConfig
@@ -115,7 +124,10 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      frame, with the tolerances stated in CHECKS (K12 at low and at full
      rate on map_dir's frame 4, and on its tables with a second sun, each
      sun of that one launch = the one-sun launch bit for bit; K13 on the SSR inputs of post_showcase's
-     last frame; K2 with rays and with baked visibility on fused_exact's and
+     last frame, and its launch geometry; the plain XLA scatter of
+     xla_scatter's and demo_xla's last frames on the card against the same
+     function on the CPU (tests/torch_tolerance.py's any-hit tolerance);
+     K2 with rays and with baked visibility on fused_exact's and
      fused_vis's frame 2; K4 at 16x16-pixel cells and in its co-sited
      planes form on uhd_exact's frame 2; the terrain and fractional arms:
      K2 and K7 on demo_full's frame 4, K1 on demo_hf_local's, K5 and K6
@@ -132,14 +144,15 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      and K11's shared memory, K8's tile, chunk, threads and shared memory,
      K12's tile and shared memory at 1-4 cascades, and K1's and K9's
      launch (blocks, samples and light groups a block, passes of lights,
-     shared memory) are what the wrappers reckon; holds K1 and K9 on a
+     shared memory) and K13's tile, shared memory and unrolled taps are
+     what the wrappers reckon; holds K1 and K9 on a
      scene with 40 local lights (two passes of K1's lights; ten of K9's a
      light group); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
      the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
-     map_dir, map, fused_exact, fused_vis, uhd_exact, uhd and demo paths
-     and, with a fixed camera and G-buffer, frame +
+     map_dir, map, fused_exact, fused_vis, uhd_exact, uhd, demo and XLA
+     scatter paths (and that scatter alone) and, with a fixed camera and G-buffer, frame +
      post and the post chain alone of post_bench and post_showcase (CUDA
      events and host wall, profiler windows), the shadow-map bake,
      each kernel (CUDA events around launches queued behind a device-side
@@ -277,6 +290,8 @@ PATHS = {
                    "composite")),
     "uhd": (UHD, 4, ("bake_radiance", "shadow_scatter", "integrate_blend",
                      "composite")),
+    "xla_scatter": (dict(scatter_impl="xla"), 2,
+                    ("shadow_blend", "temporal_blend", "composite")),
 }
 
 
@@ -312,6 +327,16 @@ PRODUCTION = dict(volume_width=160, volume_height=88, volume_depth=64,
                   image_width=1280, image_height=720,
                   raycast_shadow_subsample=2, dir_shadow_subsample=1)
 HF_LOCAL = dict(heightfield_local_shadows=True)
+# DEMO_CONFIG's fields where it differs from FULL_CONFIG (main() checks
+# that FULL_CONFIG with them is DEMO_CONFIG)
+DEMO_XLA = dict(volume_width=160, volume_height=88, volume_depth=64,
+                image_width=1280, image_height=720, reproj_impl="windowed",
+                shadow_mode="map", raycast_shadow_subsample=1,
+                scatter_bake="vis", bake_procedural_noise=False,
+                dir_shadow_subsample=1, scatter_impl="xla",
+                material_impl="xla", dir_shadow_impl="xla",
+                accumulate_impl="xla", composite_impl="tentmm",
+                composite_precision="highest")
 NO_SHADOW_BLEND_KERNELS = ("dir_shadow", "bake_radiance", "scatter",
                            "integrate_blend", "composite")
 DEMO_PATHS = {
@@ -334,7 +359,11 @@ DEMO_PATHS = {
                                    1, NO_SHADOW_BLEND_KERNELS),
     "anyres_xla": ("demo", dict(PRODUCTION, composite_impl="xla"), 1,
                    FUSED_KERNELS),
+    "demo_xla": ("demo", DEMO_XLA, 2, ("composite",)),
 }
+# the paths of the plain XLA scatter, whose last frame's scatter is held
+# against the same function on the CPU
+XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla")
 PATHS.update({name: v[1:] for name, v in DEMO_PATHS.items()})
 # (kernel, mode) of the terrain and fractional arms, of the demo grid
 # (160x88x64, its low grid 80x44x32 at ss=2) and of K4's per-pixel form ->
@@ -353,7 +382,8 @@ ARM_PATHS = {
     ("dir_shadow", "terrain"): ("demo_no_shadow_blend",
                                 "fractional_no_shadow_blend"),
     ("bake_visibility", "terrain_local"): ("demo_vis_hf",),
-    ("composite", "pixels_720p"): ("demo_production", "anyres_xla"),
+    ("composite", "pixels_720p"): ("demo_production", "anyres_xla",
+                                   "demo_xla"),
 }
 # (kernel, mode) -> the fraction of elements allowed past CHECKS' tolerance
 # where it is below the kernel's: on demo_scene the local terrain changes
@@ -835,8 +865,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from volumetricrenderer_tpu_torch import (FULL_CONFIG, Geometry,
-                                              VolumetricRenderer,
+    from volumetricrenderer_tpu_torch import (DEMO_CONFIG, FULL_CONFIG,
+                                              Geometry, VolumetricRenderer,
                                               benchmark_scene, demo_scene,
                                               froxel, pipeline)
     from volumetricrenderer_tpu_torch.ops import cuda, frame_fused as ff
@@ -878,6 +908,8 @@ def main() -> int:
     # 3. configs, scene and G-buffers (one per image size: 1080p, and 4K for
     # the uhd paths)
     cfg = FULL_CONFIG
+    if dataclasses.replace(cfg, **DEMO_XLA) != DEMO_CONFIG:
+        raise AssertionError("demo_xla's configuration is not DEMO_CONFIG")
     renderers = {name: VolumetricRenderer(dataclasses.replace(cfg, **kw))
                  for name, (kw, _, _) in PATHS.items()}
     renderer = renderers["fused"]
@@ -930,8 +962,27 @@ def main() -> int:
         if r.config.shadow_mode != "raycast":
             log(f"# {name}: bake_shadow_data "
                 f"{1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
-    runs = {name: drive(name, renderers[name], scene_of(name), *gbuf(name),
-                        cuda, bakes[name]) for name in PATHS}
+    # the plain XLA scatter's arguments of each path's last frame, kept for
+    # its hold against the CPU
+    xla_args, current = {}, {}
+    real_xla = pipeline.write_scatter_xla
+
+    def recording_xla(*args):
+        xla_args[current["path"]] = args
+        return real_xla(*args)
+
+    pipeline.write_scatter_xla = recording_xla
+    runs = {}
+    try:
+        for name in PATHS:
+            current["path"] = name
+            runs[name] = drive(name, renderers[name], scene_of(name),
+                               *gbuf(name), cuda, bakes[name])
+    finally:
+        pipeline.write_scatter_xla = real_xla
+    if sorted(xla_args) != sorted(XLA_SCATTER_PATHS):
+        raise AssertionError(f"the XLA scatter ran on {sorted(xla_args)}, "
+                             f"not on {sorted(XLA_SCATTER_PATHS)}")
     # the post stack on the fused frame; the SSR march's inputs of the last
     # post_showcase frame are kept for K13's check
     march_args = []
@@ -1294,6 +1345,20 @@ def main() -> int:
             raise AssertionError(f"K9's launch for {n_l} lights on "
                                  f"{(wl_, hl_, dl_)}: {tuple(k9_geo)} in the "
                                  f"kernel, {want} in ops/visibility")
+    # K13's tile, shared bytes and unrolled taps at (bins, taps a bin):
+    # the default table, the 24-step 16-bin one and the edges of each
+    # instance
+    k13_geo = (cuda.ctypes.c_int * 4)()
+    for nb, nt in ((8, 12), (16, 24), (1, 1), (8, 16), (8, 17), (4, 32)):
+        cuda.lib("ssr_march").vr_ssr_march_geometry(
+            nb, nt, cuda.ctypes.cast(k13_geo, cuda.ctypes.c_void_p))
+        want = (*ssr_ops.K13_TILE, ssr_ops.k13_shared_bytes(nb, nt),
+                ssr_ops.k13_unroll(nt))
+        if tuple(k13_geo) != want:
+            raise AssertionError(f"K13's tile, shared bytes and unrolled "
+                                 f"taps at {nb} bins of {nt} taps: "
+                                 f"{tuple(k13_geo)} in the kernel, {want} "
+                                 f"in ops/ssr")
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
         f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
@@ -1304,7 +1369,8 @@ def main() -> int:
         f"{integ.k8_blocks(cfg.grid)} blocks, K1 on the full grid "
         f"{ff.k1_geometry(*k1_shapes[0])}, K12 {pcf.K12_TILE} with "
         f"{pcf.k12_shared_bytes(4)} B at 4 cascades, K9 on the full grid "
-        f"{vis.k9_geometry(*k9_shapes[0])}")
+        f"{vis.k9_geometry(*k9_shapes[0])}, K13 {ssr_ops.K13_TILE} with "
+        f"{ssr_ops.k13_shared_bytes(8, 12)} B at 8 bins of 12 taps")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2
@@ -1452,6 +1518,39 @@ def main() -> int:
         f"for bit: {torch.equal(k13, k13_p)}")
     if not 0.0 < hit_share < 1.0:
         raise AssertionError("the SSR march finds no reflection hits")
+
+    # the plain XLA scatter on the card against the same function on the
+    # CPU, on the arguments of xla_scatter's and demo_xla's last frames:
+    # tests/torch_tolerance.py's any-hit tolerance (rtol 1e-5 / atol 1e-6,
+    # at most 5e-3 of the elements past it or beyond 1e-3 relative)
+    def on_cpu(args):
+        c_, geo_, shadow_, material_, scene_, maps_ = args
+        geo_c = dataclasses.replace(
+            geo_, params=froxel.params_to(geo_.params, "cpu"),
+            view_to_world=geo_.view_to_world.cpu(),
+            prev_world_to_view=geo_.prev_world_to_view.cpu(),
+            jitter=geo_.jitter.cpu())
+        return (c_, geo_c, shadow_.cpu(), tuple(m.cpu() for m in material_),
+                scene_.to("cpu"),
+                tuple(None if m is None else m.to("cpu") for m in maps_))
+
+    for name in XLA_SCATTER_PATHS:
+        got = pipeline.write_scatter_xla(*xla_args[name]).cpu()
+        want = pipeline.write_scatter_xla(*on_cpu(xla_args[name]))
+        err = (got - want).abs()
+        past = float((err > 1e-6 + 1e-5 * want.abs()).float().mean())
+        far = float((err / (1.0 + want.abs()) > 1e-3).float().mean())
+        at = tuple(int(v) for v in torch.unravel_index(err.argmax(),
+                                                       err.shape))
+        log(f"# plain XLA scatter, {name}: {tuple(got.shape)}, card - CPU "
+            f"largest {float(err.max()):.3e} at {at} (CPU value "
+            f"{float(want[at]):.4e}), fraction past atol 1e-6 + rtol 1e-5 "
+            f"{past:.2e}, beyond 1e-3 relative {far:.2e} (allowed 5e-3 "
+            f"each: {BOUNDARY})")
+        if not bool(torch.isfinite(got).all()) or past > 5e-3 \
+                or far > 5e-3:
+            raise AssertionError(f"the plain XLA scatter of {name} on the "
+                                 f"card disagrees with the CPU")
 
     # the terrain and fractional arms on the demo paths' inputs: K2, K7
     # (sun rays over the terrain) on demo_full's frame 4; K1 with the local
@@ -1779,16 +1878,22 @@ def main() -> int:
     step_times("uhd co-sited composite (K4 planes + plain upsample + blend)",
                lambda: zg.composite_cosited(u_acc, color_4k, depth_4k,
                                             u_params, cfg.grid, 2), 10)
-    # the demo scene's paths (the map path with its atlas baked up front)
+    # the demo scene's paths (the map paths with their maps baked up
+    # front), and the XLA scatter's paths and the scatter alone
     for name, n_f in (("demo_full", 20), ("demo_production", 20),
                       ("demo_hf_local", 10), ("demo_exact_hf", 5),
                       ("demo_vis_hf", 10), ("demo_map_dir", 10),
-                      ("fractional", 10)):
+                      ("fractional", 10), ("demo_xla", 5),
+                      ("xla_scatter", 5)):
         one, _ = frame_times(name, renderers[name], scene_of(name),
                              *gbuf(name), runs[name][1][-1], n_f,
                              bakes[name])
-        if name in ("demo_full", "demo_production"):
+        if name in ("demo_full", "demo_production") + XLA_SCATTER_PATHS:
             profile_frames(one, 3)
+    for name in XLA_SCATTER_PATHS:
+        fn = lambda a=xla_args[name]: pipeline.write_scatter_xla(*a)
+        step_times(f"{name}, the plain XLA scatter alone", fn, 3)
+        profile_frames(fn, 2)
     one_map_dir, _ = frame_times("map_dir", m_r, scene, scene_color,
                                  view_depth, runs["map_dir"][1][-1], 20,
                                  bakes["map_dir"])

@@ -31,6 +31,7 @@ from volumetricrenderer_tpu.state import packed_accumulation
 
 import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.convert import scene_from_numpy
+from volumetricrenderer_tpu_torch.parallel.shard_render import Slab
 from volumetricrenderer_tpu_torch.state import \
     packed_accumulation as t_packed
 
@@ -127,9 +128,15 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
 
 def _unported_scene(kind):
     """benchmark_scene, or with one part the port does not render: a mesh
-    environment, shadow proxy boxes, a texture-noise medium, or no media."""
+    environment, shadow proxy boxes, a texture-noise medium, no media (the
+    scatter kernel's route) or no sun."""
     scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
                                noise_mode="procedural", device="cpu")
+    if kind == "no_sun":
+        return dataclasses.replace(scene, dir_lights=dataclasses.replace(
+            scene.dir_lights, **{f.name: getattr(scene.dir_lights, f.name)[:0]
+                                 for f in dataclasses.fields(
+                                     scene.dir_lights)}))
     if kind == "mesh":
         return dataclasses.replace(scene, mesh=object())
     if kind == "proxy_boxes":
@@ -146,25 +153,30 @@ def _unported_scene(kind):
 
 
 @pytest.mark.parametrize("kw", [dict(scatter_impl="xla",
-                                     composite_impl="xla"),
+                                     scene="texture_noise"),
                                 dict(scene="mesh"),
                                 dict(scene="proxy_boxes"),
                                 dict(scene="texture_noise"),
-                                dict(shadow_mode="map",
-                                     scatter_impl="xla"),
-                                dict(shadow_mode="map_dir",
-                                     scatter_impl="xla"),
-                                dict(scatter_impl="xla"),
+                                dict(demo=True, scene="mesh"),
+                                dict(scene="no_sun"),
+                                dict(scatter_impl="xla", slab=True),
                                 dict(scene="no_media"),
-                                dict(frame_fused=False, scatter_impl="xla"),
+                                dict(frame_fused=False, scene="no_media"),
                                 dict(frame_fused=False, scene="mesh")])
 def test_unported_configs_raise(kw):
+    """What the port still refuses, on FULL_CONFIG (or DEMO_CONFIG): the
+    mesh scenes and their proxy boxes, texture media (also under the XLA
+    scatter), scenes without a sun, media-less scenes on the scatter
+    kernel's route, and the XLA scatter in an H-sharded slab."""
     kw = dict(kw)
     scene = _unported_scene(kw.pop("scene", None))
+    base = vt.DEMO_CONFIG if kw.pop("demo", False) else vt.FULL_CONFIG
+    slab = Slab(0.0, 0, (16, 15, 16), 120) if kw.pop("slab", False) \
+        else None
     r = vt.VolumetricRenderer(
-        dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw}), device="cpu")
+        dataclasses.replace(base, **{**SMALL, **kw}), device="cpu")
     with pytest.raises(NotImplementedError):
-        r.render_frame(r.init_state(1), scene, 0.0)
+        r.render_frame(r.init_state(1), scene, 0.0, slab=slab)
 
 
 @pytest.mark.parametrize("kw", [dict(frame_fused=False, scatter_bake="vis"),

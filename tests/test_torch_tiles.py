@@ -2,13 +2,15 @@
 (csrc/shadow_scatter.cu, csrc/shadow_blend.cu, csrc/scatter.cu,
 csrc/dir_shadow.cu, csrc/temporal_blend.cu, csrc/windowed_warp.cu,
 csrc/common.cuh) and K12's (csrc/pcf_shadow.cu), of K8's column tiles
-(csrc/integrate.cu) and of K1's and K9's light groups
-(csrc/bake_radiance.cu, csrc/bake_visibility.cu): the launch grids and
-shared memory as the wrappers mirror them, the reach of the reprojection
-region and of K11's staged targets, K1's and K9's share of each sample's
-lights among their warps, and the wrappers' refusal of tables and volumes
-the kernels cannot index in 32 bits or whose region passes shared memory. Plain Python and torch on the CPU
-(meta tensors for the large grids); no JAX."""
+(csrc/integrate.cu), of K1's and K9's light groups
+(csrc/bake_radiance.cu, csrc/bake_visibility.cu) and of K13's pixel tiles
+(csrc/ssr_march.cu): the launch grids and shared memory as the wrappers
+mirror them, the reach of the reprojection region and of K11's staged
+targets, K1's and K9's share of each sample's lights among their warps,
+K13's packed tap table and its first-hit march, and the wrappers' refusal
+of tables and volumes the kernels cannot index in 32 bits or whose region
+or table passes shared memory. Plain Python and torch on the CPU (meta
+tensors for the large grids); no JAX."""
 
 import dataclasses
 
@@ -23,9 +25,11 @@ from volumetricrenderer_tpu_torch.ops import integrate as t_int
 from volumetricrenderer_tpu_torch.ops import pcf_shadow as t_pcf
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
+from volumetricrenderer_tpu_torch.ops import ssr as t_ssr
 from volumetricrenderer_tpu_torch.ops import temporal as t_tmp
 from volumetricrenderer_tpu_torch.ops import visibility as t_vis
 from volumetricrenderer_tpu_torch.ops import warp as t_wp
+from volumetricrenderer_tpu_torch import post as t_post
 
 
 K2 = t_ff.K2_TILE
@@ -837,3 +841,132 @@ def test_k9_refuses_indices_past_32_bits(tables, grid, n_lights, refused):
     with pytest.raises(ValueError, match="2\\^31|65535" if refused
                        else "CUDA"):
         t_vis.bake_visibility(t)
+
+
+# --------------------------------------------------------------------------
+# K13 ssr_march (csrc/ssr_march.cu)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hq,wq,n_bins,max_taps,grid,shared,unroll", [
+    (270, 480, 8, 12, (15, 68), 1568, 16),    # 1080p at ssr_downsample=4
+    (270, 480, 16, 24, (15, 68), 6208, 32),   # ssr_steps=24, ssr_dirs=16
+    (3, 10, 8, 12, (1, 1), 1568, 16),         # smaller than one tile
+    (33, 65, 1, 1, (3, 9), 20, 16)])
+def test_k13_launch(hq, wq, n_bins, max_taps, grid, shared, unroll):
+    """K13's 32x4-pixel tiles, the ragged ones in a partial block; a
+    block's copy of the table; the kernel instance for its tap count."""
+    assert t_ssr.K13_TILE == (32, 4)
+    assert t_ssr.k13_grid(hq, wq) == grid
+    assert t_ssr.k13_shared_bytes(n_bins, max_taps) == shared
+    assert t_ssr.k13_unroll(max_taps) == unroll
+
+
+def test_k13_refuses_a_table_past_its_unroll():
+    """33 taps a bin pass the largest instance, and a table past 48 KB of
+    shared memory is refused, both before the launch (meta planes)."""
+    assert t_ssr.k13_unroll(32) == 32
+    with pytest.raises(NotImplementedError):
+        t_ssr.k13_unroll(33)
+    planes = [torch.empty((270, 480), device="meta") for _ in range(8)]
+    tap = (1.0, 2.0, 0, 2)
+    for offsets in ((tuple([tap] * 33),) * 8, (tuple([tap] * 32),) * 96):
+        with pytest.raises(NotImplementedError):
+            t_ssr.ssr_march(planes[0], planes[1:4], *planes[4:], offsets,
+                            0.6, 56.0)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(ssr_steps=24, ssr_dirs=16)])
+def test_k13_packed_taps_match_ssr_offsets(kw):
+    """pack_taps against post._ssr_offsets: each row's t_prev, t and
+    t / max_px as float32, its offsets, the counts, and the reuse flag set
+    exactly where t_prev equals the previous kept tap's t."""
+    cfg = t_post.PostConfig(**kw)
+    offsets = t_post._ssr_offsets(cfg)
+    max_px = float(cfg.ssr_max_px)
+    rows, counts = t_ssr.pack_taps(offsets, max_px)
+    bits = rows.view(np.int32)[..., 3]
+    assert rows.shape == (len(offsets), max(len(b) for b in offsets), 4)
+    assert counts.tolist() == [len(b) for b in offsets]
+    n_reuse = 0
+    for b, taps in enumerate(offsets):
+        for i, (t_prev, t, oy, ox) in enumerate(taps):
+            f = np.float32
+            assert rows[b, i, :3].tolist() == [f(t_prev), f(t),
+                                               f(t / max_px)]
+            p = int(bits[b, i])
+            assert ((p & 0xfff) - 2048, ((p >> 12) & 0xfff) - 2048) == \
+                (oy, ox)
+            reuse = i > 0 and t_prev == taps[i - 1][1]
+            assert (p >> 24) == int(reuse), (b, i)
+            n_reuse += reuse
+        assert not bits[b, len(taps):].any()
+    assert 0 < n_reuse < sum(counts)
+
+
+def k13_emulate(dq, colors, invz0, g, bin_idx, valid, offsets, thickness,
+                max_px):
+    """K13's march as the kernel runs it, one pixel at a time in float32:
+    its bin's taps from pack_taps' table, the reused 1/z, the first hit and
+    its colours only. [5, hq, wq]."""
+    rows, counts = t_ssr.pack_taps(offsets, max_px)
+    bits = rows.view(np.int32)
+    f = np.float32
+    dq_, cr, cg, cb, z0p, gp, bp, vp = (
+        p.numpy() for p in (dq, *colors, invz0, g, bin_idx, valid))
+    hq, wq = dq_.shape
+    depth = lambda v: f(1.0) / v if v > f(1e-4) else f(1e9)
+    out = np.zeros((5, hq, wq), np.float32)
+    for y in range(hq):
+        for x in range(wq):
+            acc = [f(0.0)] * 5
+            bf = bp[y, x]
+            b = int(bf)
+            if bf >= 0 and b < len(offsets) and f(b) == bf:
+                z0, gi, z_last = z0p[y, x], gp[y, x], f(0.0)
+                for k in range(counts[b]):
+                    t_prev, t, tf = rows[b, k, :3]
+                    p = int(bits[b, k, 3])
+                    sy = y + (p & 0xfff) - 2048
+                    sx = x + ((p >> 12) & 0xfff) - 2048
+                    zs = dq_[min(max(sy, 0), hq - 1), min(max(sx, 0), wq - 1)]
+                    z_ray = depth(z0 + gi * t)
+                    z_prev = z_last if (p >> 24) & 1 else \
+                        depth(z0 + gi * t_prev)
+                    z_last = z_ray
+                    if (0 <= sy < hq and 0 <= sx < wq and z_ray >= zs
+                            and z_prev <= zs + f(thickness)):
+                        acc = [f(0.0) + cr[sy, sx], f(0.0) + cg[sy, sx],
+                               f(0.0) + cb[sy, sx], f(1.0), f(0.0) + tf]
+                        break
+            for c in range(5):
+                out[c, y, x] = f(0.0) + vp[y, x] * acc[c]
+    return out
+
+
+def test_k13_first_hit_march_is_the_twin():
+    """The kernel's march (k13_emulate: first hit only, colours read only
+    there, 1/z reused where flagged) against the twin, bit for bit (sign
+    bits included), on a 12x20 plane with a red plane that is 0 at every
+    hit and a blue one of -0 in places; bins 0-7, one not integral and two
+    out of the table."""
+    rng = np.random.default_rng(3)
+    hq, wq = 12, 20
+    dq = rng.uniform(4.0, 12.0, (hq, wq)).astype(np.float32)
+    invz0 = (np.float32(1.0) / dq).astype(np.float32)
+    g = (-invz0 * rng.uniform(0.0, 0.2, (hq, wq))).astype(np.float32)
+    bins = rng.integers(0, 8, (hq, wq)).astype(np.float32)
+    bins[0, :3] = (-1.0, 8.0, 2.5)
+    valid = (rng.uniform(size=(hq, wq)) < 0.8).astype(np.float32)
+    cg = rng.uniform(0.0, 1.0, (hq, wq)).astype(np.float32)
+    cb = np.where(rng.uniform(size=(hq, wq)) < 0.3, np.float32(-0.0),
+                  rng.uniform(0.0, 1.0, (hq, wq))).astype(np.float32)
+    planes = [torch.as_tensor(a) for a in
+              (dq, np.zeros_like(dq), cg, cb, invz0, g, bins, valid)]
+    cfg = t_post.PostConfig(ssr_max_px=8)
+    offsets = t_post._ssr_offsets(cfg)
+    args = (planes[0], planes[1:4], *planes[4:], offsets, 0.6, 8.0)
+    twin = torch.stack(t_ssr.ssr_march_reference(*args)).numpy()
+    got = k13_emulate(*args)
+    hit = twin[3] > 0
+    assert 0.05 < hit.mean() < 0.95
+    assert (got.view(np.int32) == twin.view(np.int32)).all()

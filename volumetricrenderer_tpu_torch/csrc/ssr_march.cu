@@ -10,34 +10,78 @@
 // bin's taps, which are direct loads at (y + oy, x + ox) with the index
 // clamped into the plane; the same onscreen mask as the TPU kernel zeroes a
 // tap that leaves the screen (the clamped value never counts, as the pad's
-// never did). Every other bin adds 0 * a finite value to the TPU kernel's
-// sums, so this is the same function; with FMA contraction off and IEEE
-// division (1 / max(invz, 1e-4) as `invz > 1e-4 ? 1 / invz : 1e9`) it
-// equals the plain-torch twin (ops/ssr.ssr_march_reference) bit for bit.
+// never did).
 //
-// The taps come from a small table the wrapper uploads once per config:
-// per bin, rows (t_prev, t, t / max_px, oy, ox) in float32, as the twin
-// rounds them, and the bin's tap count.
+// The same function as the plain-torch twin (ops/ssr.ssr_march_reference),
+// bit for bit, for finite planes: with FMA contraction off and IEEE division
+// (1 / max(invz, 1e-4) as `invz > 1e-4 ? 1 / invz : 1e9`), and because every
+// term this kernel skips adds +-0 to a sum that is never -0. A sum starts at
+// +0 and, rounding to nearest, a sum is -0 only when both terms are: so
+//   - every other bin's sel * sum (sel = 0) leaves the twin's sums as they
+//     are;
+//   - a tap whose weight is 0 (no hit, or after the first hit) adds 0 * c;
+//     the march stops at the first hit and reads the colours only there,
+//     where the twin adds 1 * c to +0;
+//   - a tap whose t_prev is the last tap's t (flagged by the host) reuses
+//     that tap's 1/z: the same division of the same operands.
+// A non-finite colour or depth at a tap the kernel skips would make the
+// twin's sum NaN; chip_smoke.compare refuses a non-finite output.
+//
+// The taps come from a table the wrapper uploads once per config: per bin
+// max_taps float4 rows (t_prev, t, t / max_px, packed) in float32, as the
+// twin rounds them; packed holds oy + 2048 in bits 0-11, ox + 2048 in bits
+// 12-23 and the reuse flag in bit 24. And per bin its tap count. A block
+// copies the whole table (8 bins x 12 taps: 1.5 KB) into shared memory
+// once.
 //
 // Bound on the H100: bytes. At 1080p with ssr_downsample=4 the planes are
 // 270x480: 8 in, 5 out, 13 x 129,600 x 4 B = 6.7 MB, 2 us at 3.35 TB/s; the
 // work, <= 12 taps x ~25 flops a pixel (~39 MFLOP), is below that. The
-// taps of neighbouring pixels overlap, so the four planes a tap reads come
-// from L1/L2; the kernel is launch- and latency-bound at this size.
+// taps of neighbouring pixels overlap, so the depth plane a tap reads comes
+// from L1/L2; what is left is latency: a thread issues its bin's depth
+// loads K13_CHUNK taps at a time (the tap count a template bound, the loops
+// unrolled) and walks each chunk, one division a tap, to the first hit.
+// 2-D tiles of 32 x K13Tile::Y pixels keep neighbouring rows' taps in one
+// SM's L1.
 #include <cuda_runtime.h>
 
-__global__ void ssr_march_kernel(
-    const float* __restrict__ dq, const float* __restrict__ cr,
-    const float* __restrict__ cg, const float* __restrict__ cb,
-    const float* __restrict__ invz0, const float* __restrict__ g,
-    const float* __restrict__ bin_idx, const float* __restrict__ valid,
-    const float* __restrict__ taps, const int* __restrict__ n_taps,
-    int n_bins, int max_taps, int hq, int wq, float thickness,
-    float* __restrict__ rr, float* __restrict__ rg, float* __restrict__ rb,
-    float* __restrict__ hit_w, float* __restrict__ hit_t) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hq * wq) return;
-  const int y = i / wq, x = i % wq;
+// A block's tile of quarter-res pixels, a thread a pixel (mirrored by
+// ops/ssr.K13_TILE).
+struct K13Tile {
+  static constexpr int X = 32, Y = 4;
+};
+
+constexpr int K13_OFF = 2048;   // the offset bias of a packed row
+constexpr int K13_CHUNK = 4;    // taps whose depth loads issue together
+
+__device__ __forceinline__ float k13_depth(float invz) {
+  return invz > 1e-4f ? 1.0f / invz : 1e9f;
+}
+
+template <int MAX_TAPS>
+__global__ void __launch_bounds__(K13Tile::X * K13Tile::Y)
+ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
+                 const float* __restrict__ cg, const float* __restrict__ cb,
+                 const float* __restrict__ invz0,
+                 const float* __restrict__ g,
+                 const float* __restrict__ bin_idx,
+                 const float* __restrict__ valid,
+                 const float4* __restrict__ taps,
+                 const int* __restrict__ n_taps, int n_bins, int max_taps,
+                 int hq, int wq, float thickness, float* __restrict__ rr,
+                 float* __restrict__ rg, float* __restrict__ rb,
+                 float* __restrict__ hit_w, float* __restrict__ hit_t) {
+  extern __shared__ float4 s_rows[];   // [n_bins * max_taps], then counts
+  int* s_count = reinterpret_cast<int*>(s_rows + n_bins * max_taps);
+  const int tid = threadIdx.y * K13Tile::X + threadIdx.x;
+  constexpr int THREADS = K13Tile::X * K13Tile::Y;
+  for (int r = tid; r < n_bins * max_taps; r += THREADS) s_rows[r] = taps[r];
+  for (int b = tid; b < n_bins; b += THREADS) s_count[b] = n_taps[b];
+  __syncthreads();
+  const int x = blockIdx.x * K13Tile::X + threadIdx.x;
+  const int y = blockIdx.y * K13Tile::Y + threadIdx.y;
+  if (x >= wq || y >= hq) return;
+  const int i = y * wq + x;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, aw = 0.0f, at = 0.0f;
   const float bf = __ldg(bin_idx + i);
   const int b = (int)bf;
@@ -45,34 +89,49 @@ __global__ void ssr_march_kernel(
   if (bf >= 0.0f && b < n_bins && (float)b == bf) {
     const float z0 = __ldg(invz0 + i);
     const float gi = __ldg(g + i);
-    float not_hit = 1.0f;
-    const float* row = taps + (long)b * max_taps * 5;
-    const int nt = __ldg(n_taps + b);
-    for (int k = 0; k < nt; ++k) {
-      const float t_prev = __ldg(row + 5 * k);
-      const float t = __ldg(row + 5 * k + 1);
-      const float tf = __ldg(row + 5 * k + 2);
-      const int oy = (int)__ldg(row + 5 * k + 3);
-      const int ox = (int)__ldg(row + 5 * k + 4);
-      const int sy = y + oy, sx = x + ox;
-      const float onscreen =
-          (sy >= 0 && sy < hq && sx >= 0 && sx < wq) ? 1.0f : 0.0f;
-      const int j = min(max(sy, 0), hq - 1) * wq + min(max(sx, 0), wq - 1);
-      const float zs = __ldg(dq + j);
-      const float invz = z0 + gi * t;
-      const float z_ray = invz > 1e-4f ? 1.0f / invz : 1e9f;
-      const float invz_p = z0 + gi * t_prev;
-      const float z_prev = invz_p > 1e-4f ? 1.0f / invz_p : 1e9f;
-      const float hit =
-          ((z_ray >= zs) && (z_prev <= zs + thickness) ? 1.0f : 0.0f) *
-          onscreen;
-      const float wgt = not_hit * hit;
-      acc_r = acc_r + wgt * __ldg(cr + j);
-      acc_g = acc_g + wgt * __ldg(cg + j);
-      acc_b = acc_b + wgt * __ldg(cb + j);
-      aw = aw + wgt;
-      at = at + wgt * tf;
-      not_hit = not_hit * (1.0f - hit);
+    const float4* row = s_rows + b * max_taps;
+    const int nt = s_count[b];
+    float z_last = 0.0f;
+    bool hit = false;
+#pragma unroll
+    for (int k0 = 0; k0 < MAX_TAPS; k0 += K13_CHUNK) {
+      if (hit || k0 >= nt) break;
+      // the chunk's depths, its loads in flight at once
+      float zs[K13_CHUNK];
+#pragma unroll
+      for (int c = 0; c < K13_CHUNK; ++c) {
+        if (k0 + c < nt) {
+          const int p = __float_as_int(row[k0 + c].w);
+          const int sy = y + (p & 0xfff) - K13_OFF;
+          const int sx = x + ((p >> 12) & 0xfff) - K13_OFF;
+          zs[c] = __ldg(dq + min(max(sy, 0), hq - 1) * wq
+                        + min(max(sx, 0), wq - 1));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < K13_CHUNK; ++c) {
+        if (k0 + c >= nt) break;
+        const float4 t = row[k0 + c];
+        const int p = __float_as_int(t.w);
+        const int sy = y + (p & 0xfff) - K13_OFF;
+        const int sx = x + ((p >> 12) & 0xfff) - K13_OFF;
+        const float z_ray = k13_depth(z0 + gi * t.y);
+        const float z_prev =
+            (p >> 24) & 1 ? z_last : k13_depth(z0 + gi * t.x);
+        z_last = z_ray;
+        if (sy >= 0 && sy < hq && sx >= 0 && sx < wq && z_ray >= zs[c]
+            && z_prev <= zs[c] + thickness) {
+          // the twin's first hit: weight 1, added to +0
+          const int j = sy * wq + sx;
+          acc_r = 0.0f + __ldg(cr + j);
+          acc_g = 0.0f + __ldg(cg + j);
+          acc_b = 0.0f + __ldg(cb + j);
+          aw = 1.0f;
+          at = 0.0f + t.z;
+          hit = true;
+          break;
+        }
+      }
     }
   }
   // the twin's sum over bins: +0, then sel * this bin's sums, then the
@@ -85,6 +144,19 @@ __global__ void ssr_march_kernel(
   hit_t[i] = 0.0f + sel * at;
 }
 
+// The tap count a kernel instance unrolls for a table of max_taps rows a
+// bin; 0: none does (mirrored by ops/ssr.k13_unroll).
+static int k13_unroll(int max_taps) {
+  return max_taps <= 16 ? 16 : max_taps <= 32 ? 32 : 0;
+}
+
+// A block's dynamic shared bytes: the table's rows and counts (mirrored by
+// ops/ssr.k13_shared_bytes).
+static long k13_shared_bytes(int n_bins, int max_taps) {
+  return (long)n_bins * max_taps * sizeof(float4) + (long)n_bins * sizeof(int);
+}
+
+// taps: [n_bins, max_taps] float4 rows (16-byte aligned), n_taps [n_bins].
 extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
                             const float* cb, const float* invz0,
                             const float* g, const float* bin_idx,
@@ -93,11 +165,54 @@ extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
                             int hq, int wq, float thickness, float* rr,
                             float* rg, float* rb, float* hit_w, float* hit_t,
                             cudaStream_t stream) {
-  if (hq < 1 || wq < 1 || n_bins < 1) return (int)cudaErrorInvalidValue;
-  const int n = hq * wq;
-  const int block = 128;
-  ssr_march_kernel<<<(n + block - 1) / block, block, 0, stream>>>(
-      dq, cr, cg, cb, invz0, g, bin_idx, valid, taps, n_taps, n_bins,
-      max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t);
+  if (hq < 1 || wq < 1 || n_bins < 1 || max_taps < 1
+      || (long)hq * wq > 2147483647L)
+    return (int)cudaErrorInvalidValue;
+  const int unroll = k13_unroll(max_taps);
+  const long smem = k13_shared_bytes(n_bins, max_taps);
+  const dim3 grid((wq + K13Tile::X - 1) / K13Tile::X,
+                  (hq + K13Tile::Y - 1) / K13Tile::Y);
+  if (unroll == 0 || smem > 48 * 1024 || grid.y > 65535
+      || reinterpret_cast<size_t>(taps) % sizeof(float4) != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(K13Tile::X, K13Tile::Y);
+  const float4* rows = reinterpret_cast<const float4*>(taps);
+  if (unroll == 16)
+    ssr_march_kernel<16><<<grid, block, smem, stream>>>(
+        dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
+        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t);
+  else
+    ssr_march_kernel<32><<<grid, block, smem, stream>>>(
+        dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
+        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t);
   return (int)cudaGetLastError();
+}
+
+// The tile (columns, rows), the dynamic shared bytes and the unrolled tap
+// count of a table of n_bins x max_taps rows into out[0..3].
+extern "C" int vr_ssr_march_geometry(int n_bins, int max_taps, int* out) {
+  out[0] = K13Tile::X;
+  out[1] = K13Tile::Y;
+  out[2] = (int)k13_shared_bytes(n_bins, max_taps);
+  out[3] = k13_unroll(max_taps);
+  return 0;
+}
+
+// cudaFuncGetAttributes of both instances (16, then 32 taps): registers per
+// thread, static shared bytes per block, local bytes per thread and largest
+// block, four ints each, into out; returns the first error.
+extern "C" int vr_ssr_march_attrs(int* out) {
+  const void* kernels[2] = {(const void*)ssr_march_kernel<16>,
+                            (const void*)ssr_march_kernel<32>};
+  cudaError_t first = cudaSuccess;
+  for (int k = 0; k < 2; ++k) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernels[k]);
+    if (first == cudaSuccess) first = err;
+    out[4 * k] = a.numRegs;
+    out[4 * k + 1] = (int)a.sharedSizeBytes;
+    out[4 * k + 2] = (int)a.localSizeBytes;
+    out[4 * k + 3] = a.maxThreadsPerBlock;
+  }
+  return (int)first;
 }

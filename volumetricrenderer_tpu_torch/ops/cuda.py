@@ -152,7 +152,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                        "vr_pcf_shadow_suns": [vp] * 6 + [ci] * 7 + [vp],
                        "vr_pcf_shadow_geometry": [ci, vp]},
         "ssr_march": {"vr_ssr_march":
-                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5},
+                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5,
+                      "vr_ssr_march_geometry": [ci, ci, vp]},
     }[name]
     for entry, argtypes in sig.items():
         fn = getattr(cdll, entry)
@@ -201,6 +202,8 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "bake_visibility": ("bake_visibility_kernel<false>",
                                     "bake_visibility_kernel<true>"),
                 "pcf_shadow": ("pcf_shadow_kernel",),
+                "ssr_march": ("ssr_march_kernel<16>",
+                              "ssr_march_kernel<32>"),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel")}

@@ -7,8 +7,10 @@ edge-padded VMEM copies of the planes) and of the XLA loop in
 `ssr_march` launches K13 (`csrc/ssr_march.cu`) on CUDA tensors and runs
 `ssr_march_reference`, the XLA loop term for term (every bin over the whole
 plane, masked by its `sel`), on CPU tensors. K13 gives each pixel one
-thread that walks only its own bin's taps: every other bin adds 0 * a
-finite value, so both compute the same function, bit for bit.
+thread, in 2-D tiles (K13_TILE), that walks only its own bin's taps to the
+first hit, reusing the last tap's 1/z where the host flagged it
+(`pack_taps`): every term it skips adds 0 * a finite value, so both
+compute the same function, bit for bit, for finite planes.
 
 Inputs are [hq, wq] float32 planes from post._ssr_p's geometry stage: the
 view depth dq, the three colour planes, invz0 = 1 / dq, the 1/z gradient g
@@ -73,18 +75,67 @@ def ssr_march_reference(dq, colors: Sequence, invz0, g, bin_idx, valid,
     return refl[0], refl[1], refl[2], hitw, hitt
 
 
-@functools.lru_cache(maxsize=8)
-def tap_table(offsets: tuple, max_px: float, device: torch.device):
-    """K13's tap table on `device`: float32 [n_bins, max_taps, 5] rows
-    (t_prev, t, t / max_px, oy, ox), each as the twin rounds it to float32,
-    and int32 [n_bins] tap counts. Uploaded once per config: two copies a
-    call would cost K13's wrapper three times the kernel's device time."""
+# K13's launch (csrc/ssr_march.cu): a block a tile of (columns, rows) of
+# quarter-res pixels, a thread a pixel; the tap counts a bin that its two
+# kernel instances unroll for
+K13_TILE = (32, 4)
+K13_UNROLL = (16, 32)
+K13_OFF = 2048          # the offset bias of a packed row
+K13_MAX_SHARED = 48 * 1024
+
+
+def k13_unroll(max_taps: int) -> int:
+    """Mirror of csrc/ssr_march.cu k13_unroll: the kernel instance's tap
+    count for a table of max_taps rows a bin. Raises NotImplementedError
+    past the largest (ssr_steps above 32)."""
+    for n in K13_UNROLL:
+        if max_taps <= n:
+            return n
+    raise NotImplementedError(f"{max_taps} SSR taps a bin: kernel K13 "
+                              f"unrolls at most {K13_UNROLL[-1]}")
+
+
+def k13_shared_bytes(n_bins: int, max_taps: int) -> int:
+    """Mirror of k13_shared_bytes: a block's copy of the table, its float4
+    rows and its int32 counts."""
+    return 16 * n_bins * max_taps + 4 * n_bins
+
+
+def k13_grid(hq: int, wq: int) -> Tuple[int, int]:
+    """K13's launch grid (column tiles, row tiles) on [hq, wq] planes."""
+    tx, ty = K13_TILE
+    return (-(-wq // tx), -(-hq // ty))
+
+
+def pack_taps(offsets: tuple, max_px: float):
+    """K13's tap table: float32 [n_bins, max_taps, 4] rows (t_prev, t,
+    t / max_px, packed), each as the twin rounds it to float32, packed the
+    int32 bits of (oy + K13_OFF) | (ox + K13_OFF) << 12 | reuse << 24, where
+    reuse flags a tap whose t_prev equals the previous tap's t (the kernel
+    then reuses that tap's 1/z: the same division); and int32 [n_bins] tap
+    counts. Raises ValueError for an offset K13 cannot pack."""
     n_taps = max(max((len(b) for b in offsets), default=0), 1)
-    rows = np.zeros((len(offsets), n_taps, 5), np.float32)
+    rows = np.zeros((len(offsets), n_taps, 4), np.float32)
+    bits = rows.view(np.int32)
     for b, taps in enumerate(offsets):
         for i, (t_prev, t, oy, ox) in enumerate(taps):
-            rows[b, i] = (t_prev, t, t / max_px, oy, ox)
+            if max(abs(oy), abs(ox)) >= K13_OFF:
+                raise ValueError(f"SSR tap offset ({oy}, {ox}): K13 packs "
+                                 f"offsets below {K13_OFF}")
+            rows[b, i, :3] = (t_prev, t, t / max_px)
+            reuse = i > 0 and rows[b, i, 0] == rows[b, i - 1, 1]
+            bits[b, i, 3] = ((oy + K13_OFF) | (ox + K13_OFF) << 12
+                             | int(reuse) << 24)
     counts = np.array([len(b) for b in offsets], np.int32)
+    return rows, counts
+
+
+@functools.lru_cache(maxsize=8)
+def tap_table(offsets: tuple, max_px: float, device: torch.device):
+    """pack_taps' table and counts on `device`. Uploaded once per config:
+    two copies a call would cost K13's wrapper three times the kernel's
+    device time."""
+    rows, counts = pack_taps(offsets, max_px)
     return (cuda.upload(rows, device),
             cuda.upload(counts, device, torch.int32))
 
@@ -104,11 +155,18 @@ def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
     for p in planes:
         if p.shape != (hq, wq):
             raise ValueError(f"plane {tuple(p.shape)} != {(hq, wq)}")
+    n_bins = len(offsets)
+    max_taps = max(max((len(b) for b in offsets), default=0), 1)
+    k13_unroll(max_taps)
+    if k13_shared_bytes(n_bins, max_taps) > K13_MAX_SHARED:
+        raise NotImplementedError(f"{n_bins} SSR bins of {max_taps} taps: "
+                                  "K13's table passes 48 KB of shared "
+                                  "memory")
     cuda.check_cuda(*planes)
     taps, counts = tap_table(offsets, float(max_px), dq.device)
     outs = [torch.empty_like(planes[0]) for _ in range(5)]
     cuda.launch("ssr_march", *(cuda.ptr(p) for p in planes), cuda.ptr(taps),
-                cuda.ptr(counts), len(offsets), taps.shape[1], hq, wq,
+                cuda.ptr(counts), n_bins, max_taps, hq, wq,
                 float(np.float32(thickness)), *(cuda.ptr(o) for o in outs))
     return tuple(outs)
 

@@ -17,7 +17,10 @@ branch that is not ported raises NotImplementedError naming what is missing.
                            raycast_shadow_subsample > 1, or in
                            shadow_mode="map" by the plain bakes from the cube
                            and spot maps; the material folded into the kernel
-                           or read from material volumes
+                           or read from material volumes. scatter_impl="xla",
+                           a scene without local lights, or map mode without
+                           their maps: the plain XLA scatter
+                           (write_scatter_xla) over the material volumes
   accumulate               accumulate_impl="pallas" on kernel planes: K8;
                            else the plain shift sample + two-level scan
   temporal_blend_*         reproj_impl="pallas": K10 (shadow, accumulation)
@@ -50,6 +53,8 @@ from volumetricrenderer_tpu_torch.ops import raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.dir_shadow import \
     dir_shadow as raycast_dir_shadow
+from volumetricrenderer_tpu_torch.ops.falloff import (point_light_falloff,
+                                                      spot_light_falloff)
 from volumetricrenderer_tpu_torch.ops.frame_fused import (FrameTables,
                                                           bake_radiance)
 from volumetricrenderer_tpu_torch.ops.integrate import \
@@ -60,7 +65,8 @@ from volumetricrenderer_tpu_torch.ops.pcf_shadow import (PcfTables,
                                                          pcf_shadow)
 from volumetricrenderer_tpu_torch.ops.pcf_shadow import \
     pack_tables as pcf_pack_tables
-from volumetricrenderer_tpu_torch.ops.phase import rgb_to_gray, smoothstep
+from volumetricrenderer_tpu_torch.ops.phase import (henyey_greenstein,
+                                                    rgb_to_gray, smoothstep)
 from volumetricrenderer_tpu_torch.ops.sampling import (shift_sample_3d,
                                                        trilinear_sample_3d)
 from volumetricrenderer_tpu_torch.ops.scatter import scatter_local
@@ -91,13 +97,6 @@ class FrameGeometry:
         """reproject_texel at the unjittered centres with no uvw nudge:
         what the material, scatter and plain accumulation blends share."""
         return reproject_texel(self, False, 0.0)
-
-
-def _require(cfg: RenderConfig, name: str, want, missing: str) -> None:
-    if getattr(cfg, name) != want:
-        raise NotImplementedError(
-            f"config {name}={getattr(cfg, name)!r}: {missing} is not ported "
-            f"(only {name}={want!r})")
 
 
 # --------------------------------------------------------------------------
@@ -142,10 +141,26 @@ def step_lengths(cfg: RenderConfig, params: FroxelParams) -> torch.Tensor:
 # Material volume
 # --------------------------------------------------------------------------
 
-def fuses_material(cfg: RenderConfig, media: Sequence) -> bool:
+def uses_scatter_kernel(cfg: RenderConfig, n_local: int,
+                        local_maps=None) -> bool:
+    """Whether the scatter pass runs kernel K6 (the JAX pass's
+    `use_pallas_scatter`): scatter_impl="pallas", local lights, and in
+    shadow_mode="map" their cube or spot maps (local_maps = (cube, spot);
+    None: the maps the renderer bakes for those lights). Otherwise the
+    plain XLA scatter serves the frame. The port's scenes always hold a
+    geometry, which JAX's condition also asks for."""
+    if cfg.scatter_impl != "pallas" or n_local == 0:
+        return False
+    return (cfg.shadow_mode != "map" or local_maps is None
+            or any(m is not None for m in local_maps))
+
+
+def fuses_material(cfg: RenderConfig, media: Sequence,
+                   scatter_kernel: bool = True) -> bool:
     """Whether the scatter kernel evaluates the material itself (the JAX
-    pass's `use_fused_material`); otherwise it reads material volumes."""
-    return bool(cfg.material_impl == "fused" and media
+    pass's `use_fused_material`); otherwise the scatter (the kernel, or
+    the plain XLA scatter: scatter_kernel=False) reads material volumes."""
+    return bool(cfg.material_impl == "fused" and scatter_kernel and media
                 and not cfg.temporal_blend_material
                 and media_foldable(media))
 
@@ -324,16 +339,20 @@ def write_scatter_volume(cfg: RenderConfig, tables: FrameTables,
     low grid each froxel and light casts one any-hit shadow ray. material
     None: the kernel evaluates the media itself and writes the extinction.
     material = (material_a, material_b): it reads them, and the luma
-    extinction is added here, once per sun."""
-    _require(cfg, "scatter_impl", "pallas", "the XLA scatter")
+    extinction is added here, once per sun.
+
+    The scene (on the frame's device) decides the route with the config
+    and local_maps (uses_scatter_kernel); where the kernel does not serve
+    the frame it takes write_scatter_xla instead, over the material
+    volumes and the frame's geometry record."""
+    maps = local_maps if local_maps is not None else (None, None)
+    if not uses_scatter_kernel(cfg, scene.point_lights.count
+                               + scene.spot_lights.count, maps):
+        return write_scatter_xla(cfg, geo, shadow, material, scene, maps)
     bake = vis = None
     radiance = cfg.scatter_bake == "radiance"
     if cfg.shadow_mode == "map":
-        cube, spot = local_maps
-        if tables.ss < 2 or (cube is None and spot is None):
-            raise NotImplementedError("map-mode local lights without their "
-                                      "maps take the XLA scatter, which is "
-                                      "not ported")
+        cube, spot = maps
         args = (cfg, geo.params, geo.view_to_world)
         lights = (scene.point_lights, scene.spot_lights, cube, spot)
         if radiance:
@@ -357,6 +376,124 @@ def write_scatter_volume(cfg: RenderConfig, tables: FrameTables,
     for _ in range(tables.n_dir):
         ext = ext + rgb_to_gray(mat_a[0], mat_a[1], mat_a[2]) + mat_a[3]
     return torch.cat([out, ext[None]])
+
+
+def write_scatter_xla(cfg: RenderConfig, geo: FrameGeometry,
+                      shadow: torch.Tensor, material, scene,
+                      local_maps=(None, None)) -> torch.Tensor:
+    """The JAX pass's plain XLA scatter, in its term order: [4, D, H, W]
+    (r, g, b, extinction). Each sun's colour x blended shadow x HG phase x
+    sigma_s (at the unjittered centres unless cfg.jitter_dir_scatter) and
+    the luma extinction once per sun; then each point and each spot light,
+    in the scene's order: range (and cone) cull, LUT falloff, HG phase, and
+    the local shadow -- in shadow_mode "raycast" / "map_dir" one any-hit
+    ray a froxel and light (at raycast_shadow_subsample > 1 on the
+    ss-subsampled xy grid, nearest-upsampled back), in "map" the light's
+    cube or spot map where there is one. material = (material_a [4, D, H,
+    W], material_b [1, D, H, W]); shadow [Nd, D, H, W]; local_maps =
+    (CubeShadowData or None, SpotShadowData or None); everything on the
+    frame's device."""
+    d, h, w = cfg.grid_dhw
+    mat_a, mat_b = material
+    sigma_s = mat_a[:3]
+    phase_g = mat_b[0]
+    params, v2w = geo.params, geo.view_to_world
+    world_c = froxel_world_positions(cfg, params, v2w, None)
+    world_j = froxel_world_positions(cfg, params, v2w, geo.jitter)
+    camera_pos = scene.camera.position
+    geometry = scene.geometry
+    ss = max(int(cfg.raycast_shadow_subsample), 1)
+
+    def shadow_ray(light_pos, has_shadow):
+        wp = world_j[:, ::ss, ::ss] if ss > 1 else world_j
+        to_pos = wp - light_pos
+        d2s = froxel.dot3(to_pos, to_pos)
+        inv = torch.rsqrt(d2s + 1e-18)
+        occ = raycast.occluded(
+            geometry, wp, -(to_pos * inv[..., None]), d2s * inv - 0.05,
+            include_heightfield=cfg.heightfield_local_shadows)
+        if ss > 1:
+            occ = occ.repeat_interleave(ss, dim=1).repeat_interleave(
+                ss, dim=2)[:, :h, :w]
+        return 1.0 - occ * has_shadow.to(torch.float32)
+
+    light = [torch.zeros((d, h, w), dtype=torch.float32,
+                         device=world_j.device) for _ in range(3)]
+    extinction = torch.zeros_like(light[0])
+    dirs = scene.dir_lights
+    for _ in range(dirs.count):
+        extinction = extinction + rgb_to_gray(*sigma_s) + mat_a[3]
+
+    wp_dir = world_j if cfg.jitter_dir_scatter else world_c
+    vd0 = wp_dir - camera_pos
+    view_dir0 = vd0 * torch.rsqrt(froxel.dot3(vd0, vd0) + 1e-18)[..., None]
+    dir_colors = dirs.packed_color
+    for i in range(dirs.count):
+        cos_theta = froxel.dot3(view_dir0, -dirs.direction[i])
+        vis_hg = shadow[i] * henyey_greenstein(phase_g, cos_theta)
+        light = [lc + vis_hg * dir_colors[i, c] * sigma_s[c]
+                 for c, lc in enumerate(light)]
+
+    local_raycast = cfg.shadow_mode in ("raycast", "map_dir")
+    cube, spot = local_maps
+    vdj = world_j - camera_pos
+    view_dir_j = vdj * torch.rsqrt(froxel.dot3(vdj, vdj) + 1e-18)[..., None]
+
+    def add_light(color, keep, factor, ldir, vis):
+        """light + HG phase x factor x colour x sigma_s (x the local
+        shadow vis, where there is one), culled by keep."""
+        cos_theta = froxel.dot3(view_dir_j, -ldir)
+        base = henyey_greenstein(phase_g, cos_theta) * factor
+        contrib = [base * color[c] * sigma_s[c] for c in range(3)]
+        if vis is not None:
+            contrib = [ct * vis for ct in contrib]
+        keep = keep.to(torch.float32)
+        return [lc + ct * keep for lc, ct in zip(light, contrib)]
+
+    def gated(vis, has_shadow):
+        return 1.0 + has_shadow.to(torch.float32) * (vis - 1.0)
+
+    pts = scene.point_lights
+    point_colors = pts.packed_color
+    for i in range(pts.count):
+        to_pos = world_j - pts.position[i]
+        d2 = froxel.dot3(to_pos, to_pos)
+        inv_d = torch.rsqrt(d2 + 1e-18)
+        dist = d2 * inv_d
+        ldir = to_pos * inv_d[..., None]
+        falloff = point_light_falloff(dist, pts.range[i],
+                                      pts.intensity_multiplier[i])
+        vis = None
+        if local_raycast:
+            vis = shadow_ray(pts.position[i], pts.has_shadow[i])
+        elif cube is not None:
+            vis = gated(shadow_lib.sample_cube_shadow(cube, i, to_pos),
+                        pts.has_shadow[i])
+        light = add_light(point_colors[i], dist <= pts.range[i], falloff,
+                          ldir, vis)
+
+    sps = scene.spot_lights
+    spot_colors = sps.packed_color
+    cos_outer, cos_inner_rcp = sps.cos_outer_cone, sps.cos_inner_cone_rcp
+    for i in range(sps.count):
+        to_pos = world_j - sps.position[i]
+        d2 = froxel.dot3(to_pos, to_pos)
+        inv_d = torch.rsqrt(d2 + 1e-18)
+        dist = d2 * inv_d
+        ldir = to_pos * inv_d[..., None]
+        cos_angle = froxel.dot3(ldir, sps.direction[i])
+        keep = (dist <= sps.range[i]) & (cos_angle >= cos_outer[i])
+        falloff = spot_light_falloff(dist, cos_angle, sps.range[i],
+                                     cos_outer[i], cos_inner_rcp[i],
+                                     sps.intensity_multiplier[i])
+        vis = None
+        if local_raycast:
+            vis = shadow_ray(sps.position[i], sps.has_shadow[i])
+        elif spot is not None:
+            vis = gated(shadow_lib.sample_spot_shadow(spot, i, world_j),
+                        sps.has_shadow[i])
+        light = add_light(spot_colors[i], keep, falloff, ldir, vis)
+    return torch.stack(light + [extinction])
 
 
 # --------------------------------------------------------------------------

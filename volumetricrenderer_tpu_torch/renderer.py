@@ -23,7 +23,10 @@ composites of any pixel/froxel ratio in its per-pixel form):
            cascaded-PCF sun shadow K12 -- and plain torch where the JAX
            package runs plain XLA (the material volumes, the "xla" shadow
            volume and scan, the "windowed" and "gather" reprojections, the
-           shadow-map bakes and their gather samplers).
+           shadow-map bakes and their gather samplers, and the XLA scatter:
+           scatter_impl="xla", the RenderConfig default and DEMO_CONFIG's,
+           or a scene without local lights, whose frame then integrates
+           with the plain scan).
 
 The shadow maps of shadow_mode="map" / "map_dir" are baked by
 `bake_shadow_data` (plain torch, ray casting on the renderer's device) once
@@ -81,11 +84,6 @@ from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
 from volumetricrenderer_tpu_torch.ops.zg_composite import composite_frame
 from volumetricrenderer_tpu_torch.state import FrameState
 
-# config fields every ported branch needs at one value, and what the other
-# values would need
-_REQUIRED_KNOBS = (("scatter_impl", "pallas", "the XLA scatter"),)
-
-
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA request without a GPU raises."""
     dev = torch.device(device)
@@ -117,19 +115,33 @@ class VolumetricRenderer:
                                  with_material=cfg.temporal_blend_material,
                                  with_scatter=cfg.temporal_blend_scatter)
 
-    def fuses_frame(self) -> bool:
+    def fuses_frame(self, scene: Optional[Scene] = None) -> bool:
         """Whether render_frame takes the fused volume phase (the JAX
-        renderer's `fuse_frame`, given what check_supported admits)."""
+        renderer's `fuse_frame`, given what check_supported admits): the
+        config's terms and, given a scene, its local lights and media."""
         cfg = self.config
+        if scene is not None and not (
+                scene.media and scene.point_lights.count
+                + scene.spot_lights.count):
+            return False
         return bool(cfg.frame_fused and cfg.temporal_blend_shadow
                     and cfg.temporal_blend_accumulation
                     and not cfg.temporal_blend_material
                     and not cfg.temporal_blend_scatter
                     and cfg.dir_shadow_impl == "pallas"
                     and cfg.reproj_impl == "pallas"
+                    and cfg.scatter_impl == "pallas"
                     and cfg.accumulate_impl == "pallas"
                     and cfg.material_impl == "fused"
                     and cfg.shadow_mode == "raycast")
+
+    def scatter_kernel(self, scene: Scene, local_maps=None) -> bool:
+        """Whether the frame's scatter pass runs kernel K6
+        (pipeline.uses_scatter_kernel); local_maps None: with the maps
+        bake_shadow_data makes for the scene's local lights."""
+        return pipeline.uses_scatter_kernel(
+            self.config, scene.point_lights.count + scene.spot_lights.count,
+            local_maps)
 
     def check_supported(self, scene: Scene, slab=None) -> None:
         """Raise NotImplementedError for what the port does not cover (with
@@ -145,36 +157,36 @@ class VolumetricRenderer:
                     "reproj_impl='gather' in a slab: the gather "
                     "reprojection has no bounded row support (the JAX "
                     "package refuses it there too)")
-        for name, want, missing in _REQUIRED_KNOBS:
-            if getattr(cfg, name) != want:
-                raise NotImplementedError(
-                    f"config {name}={getattr(cfg, name)!r}: {missing} not "
-                    f"ported (only {name}={want!r})")
         for name, values in (("shadow_mode", ("raycast", "map",
                                               "map_dir")),
                              ("reproj_impl", ("pallas", "windowed",
                                               "gather")),
                              ("dir_shadow_impl", ("pallas", "xla")),
+                             ("scatter_impl", ("pallas", "xla")),
                              ("accumulate_impl", ("pallas", "xla")),
                              ("material_impl", ("fused", "xla")),
                              ("scatter_bake", ("radiance", "vis"))):
             if getattr(cfg, name) not in values:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: one of {values}")
+        kernel_scatter = self.scatter_kernel(scene)
+        if slab is not None and not kernel_scatter:
+            raise NotImplementedError(
+                "the XLA scatter in a slab (scatter_impl='xla', or a scene "
+                "without local lights): not ported to H-sharded slabs")
         if scene.mesh is not None or scene.geometry.n_proxy_boxes:
             raise NotImplementedError("mesh environments and their shadow "
                                       "proxy boxes are not ported")
         if scene.media and not media_foldable(scene.media):
             raise NotImplementedError("texture-noise media are not ported")
-        if not scene.media:
-            raise NotImplementedError("scenes without media take the XLA "
-                                      "scatter, which is not ported")
+        if not scene.media and kernel_scatter:
+            raise NotImplementedError(
+                "scenes without media under the scatter kernel (the JAX "
+                "frame's visibility bake over zero material volumes) are "
+                "not ported")
         if scene.dir_lights.count == 0:
             raise NotImplementedError("scenes without a directional light "
                                       "are not ported")
-        if scene.point_lights.count + scene.spot_lights.count == 0:
-            raise NotImplementedError("scenes without local lights take the "
-                                      "XLA scatter, which is not ported")
 
     def bake_shadow_data(self, scene: Scene):
         """The shadow maps of the frame on the renderer's device: (sun
@@ -268,19 +280,23 @@ class VolumetricRenderer:
             * np.float32(state.frame_count > 0)
         prev_w2v = world_to_view if cfg.use_current_matrix_for_reproj \
             else state.prev_world_to_view.cpu()
-        ss = self.vis_ss()
         # the local lights' source: the low-rate radiance bake, else a
         # per-light loop (over rays at ss = 1, over the visibility bake
         # above), which needs the full-rate light schedule; the fBm channels
-        # ride the radiance volume into a scatter that evaluates the media
+        # ride the radiance volume into a scatter that evaluates the media.
+        # The XLA scatter reads none of the local lights' tables.
+        kernel = self.scatter_kernel(scene)
+        ss = self.vis_ss() if kernel else 1
         radiance = ss > 1 and cfg.scatter_bake == "radiance"
+        local = (scene.point_lights, scene.spot_lights) if kernel \
+            else (None, None)
         tables = frame_tables(
             params, view_to_world, prev_w2v, jitter_for_frame(
-                state.frame_count), alpha, scene.dir_lights,
-            scene.point_lights, scene.spot_lights, scene.geometry,
-            scene.media, time_x, cam.position, cfg.grid, cfg.reproj_window,
-            ss, bool(cfg.bake_procedural_noise and radiance
-                     and pipeline.fuses_material(cfg, scene.media)),
+                state.frame_count), alpha, scene.dir_lights, *local,
+            scene.geometry, scene.media, time_x, cam.position, cfg.grid,
+            cfg.reproj_window, ss,
+            bool(cfg.bake_procedural_noise and radiance
+                 and pipeline.fuses_material(cfg, scene.media)),
             cfg.jitter_dir_scatter, light_schedule=not radiance,
             heightfield_local=cfg.heightfield_local_shadows)
         if self.device.type != "cpu":
@@ -355,13 +371,14 @@ class VolumetricRenderer:
         prev_acc = state.prev_accumulation.to(f32).contiguous()
         aux = {}
         mat_a = scatter = None
-        if self.fuses_frame():
+        if self.fuses_frame(scene):
             shadow, acc = volume_phase(tables, prev_shadow, prev_acc)
         else:
             geo, scene_dev = self.frame_geometry(state, scene, tables,
                                                  params, world_to_view)
+            kernel = self.scatter_kernel(scene, (cube_sh, spot_sh))
             material = None
-            if not pipeline.fuses_material(cfg, scene.media):
+            if not pipeline.fuses_material(cfg, scene.media, kernel):
                 mat_a, mat_b = pipeline.write_material_volumes(
                     cfg, params, geo.view_to_world, geo.jitter, time_x,
                     scene_dev.media)
@@ -391,8 +408,9 @@ class VolumetricRenderer:
                 cfg, tables, shadow.contiguous(), material, geo, scene_dev,
                 (cube_sh, spot_sh), time_x)
             # the scatter blend works on the volume, not on the kernel's
-            # planes: what follows then takes the plain accumulation
-            kernel_planes = not cfg.temporal_blend_scatter
+            # planes, and the XLA scatter writes no planes: what follows
+            # then takes the plain accumulation
+            kernel_planes = kernel and not cfg.temporal_blend_scatter
             if cfg.temporal_blend_scatter:
                 scatter = pipeline.temporal_blend_scatter(
                     cfg, geo, scatter, state.prev_scatter.to(f32))
