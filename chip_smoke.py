@@ -4,9 +4,10 @@
 
 Drives the port's frames at full width (240x135x128 froxels, 1920x1080 and,
 for the uhd paths, 3840x2160, on benchmark_scene with 16 local lights and
-procedural noise; and on the reference demo scene, demo_scene, with its
-procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
-1280x720) through VolumetricRenderer, the entry point a user calls, and:
+procedural noise, and with a 32^3 noise texture, without its sun or without
+media; and on the reference demo scene, demo_scene, with its procedural
+terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at 1280x720)
+through VolumetricRenderer, the entry point a user calls, and:
 
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
@@ -66,6 +67,24 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
                          the plain XLA scatter over plain material
                          volumes, the plain scan, K10 (accumulation blend)
                          K4
+     on benchmark_scene with the fog sampling perlin_texture_3d() (32^3),
+     without its sun, and without media:
+       tex               FULL_CONFIG (bench.py's texture frame), 4 frames:
+                         the noise channels of the fog's texture and the
+                         other noise media in plain torch at the low grid,
+                         K1 (radiance alone) K2 (reading them) K3 K4
+       tex_staged        frame_fused=False, 2 frames: the plain material
+                         volumes with the full-rate texture sample, K5 K1
+                         K6 (radiance x planes) K3 K4
+       tex_lowres        tex_staged with texture_noise_subsample=4, 1
+                         frame: the texture sampled at the low grid and
+                         tent-upsampled, then as tex_staged
+       sunless           FULL_CONFIG without the sun (the staged route), 2
+                         frames: a shadow volume of ones blended on K10, K1
+                         K6 (radiance x fused, no sun term) K3 K4; no K5 or
+                         K7
+       no_media          FULL_CONFIG without media, 2 frames: zero material
+                         volumes, K5 K9 K6 (baked x planes) K3 K4
      on demo_scene (every sun ray marches the terrain) and "fractional"
      (demo_scene with its first three boxes at shadow opacity 0.5, built
      with Geometry.create's 4-tuples):
@@ -96,6 +115,10 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
                          sampler, the "windowed" reprojection, the XLA
                          scatter and scan), its maps baked once, 2 frames:
                          plain torch but K4's per-pixel form
+       demo_noise        demo_xla on demo_scene(with_noise=True) with
+                         perlin_texture_3d(32) (demo.py --noise), 2 frames:
+                         the texture sampled in the plain material volumes,
+                         K4's per-pixel form
      and then the post stack on the fused frame (POST_PATHS), each frame's
      display image checked finite, in [0, 1] and not flat:
        post_bench        render_frame_post with bench.py's PostConfig
@@ -125,8 +148,15 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      rate on map_dir's frame 4, and on its tables with a second sun, each
      sun of that one launch = the one-sun launch bit for bit; K13 on the SSR inputs of post_showcase's
      last frame, and its launch geometry; the plain XLA scatter of
-     xla_scatter's and demo_xla's last frames on the card against the same
-     function on the CPU (tests/torch_tolerance.py's any-hit tolerance);
+     xla_scatter's, demo_xla's and demo_noise's last frames on the card
+     against the same function on the CPU (tests/torch_tolerance.py's
+     any-hit tolerance); on tex's frame 4 K1 (its radiance channels, the
+     noise channels passed through bit for bit) and K2 reading the noise
+     channels, the chain reproducing the path's image bit for bit, and the
+     noise channels on the card against the same bake on the CPU; K6
+     radiance x planes over the texture's material volumes on tex_staged's
+     frame 2, K6 with no sun on sunless's frame 2, K9 and K6 baked x planes
+     over zero material volumes on no_media's frame 2;
      K2 with rays and with baked visibility on fused_exact's and
      fused_vis's frame 2; K4 at 16x16-pixel cells and in its co-sited
      planes form on uhd_exact's frame 2; the terrain and fractional arms:
@@ -151,8 +181,10 @@ procedural terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at
      difference and where it lies, each kernel's largest hold and, for K6,
      the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
-     map_dir, map, fused_exact, fused_vis, uhd_exact, uhd, demo and XLA
-     scatter paths (and that scatter alone) and, with a fixed camera and G-buffer, frame +
+     map_dir, map, fused_exact, fused_vis, uhd_exact, uhd, demo, XLA
+     scatter (and that scatter alone), texture, sunless and media-less
+     paths (and the texture's plain noise bake and material volumes) and,
+     with a fixed camera and G-buffer, frame +
      post and the post chain alone of post_bench and post_showcase (CUDA
      events and host wall, profiler windows), the shadow-map bake,
      each kernel (CUDA events around launches queued behind a device-side
@@ -361,10 +393,30 @@ DEMO_PATHS = {
                    FUSED_KERNELS),
     "demo_xla": ("demo", DEMO_XLA, 2, ("composite",)),
 }
+# bench.py's texture frame and its staged forms (benchmark_scene with the
+# fog sampling perlin_texture_3d()), demo.py --noise, and benchmark_scene
+# without its sun or without media: path -> scene; their configs, frames
+# and kernels join PATHS
+STAGED_KERNELS = ("shadow_blend", "bake_radiance", "scatter",
+                  "integrate_blend", "composite")
+SCENE_PATHS = {
+    "tex": ("tex", {}, 4, FUSED_KERNELS),
+    "tex_staged": ("tex", STAGED, 2, STAGED_KERNELS),
+    "tex_lowres": ("tex", dict(STAGED, texture_noise_subsample=4), 1,
+                   STAGED_KERNELS),
+    "demo_noise": ("demo_noise", DEMO_XLA, 2, ("composite",)),
+    "sunless": ("sunless", {}, 2, ("temporal_blend", "bake_radiance",
+                                   "scatter", "integrate_blend",
+                                   "composite")),
+    "no_media": ("no_media", {}, 2, ("shadow_blend", "bake_visibility",
+                                     "scatter", "integrate_blend",
+                                     "composite")),
+}
 # the paths of the plain XLA scatter, whose last frame's scatter is held
 # against the same function on the CPU
-XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla")
+XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla", "demo_noise")
 PATHS.update({name: v[1:] for name, v in DEMO_PATHS.items()})
+PATHS.update({name: v[1:] for name, v in SCENE_PATHS.items()})
 # (kernel, mode) of the terrain and fractional arms, of the demo grid
 # (160x88x64, its low grid 80x44x32 at ss=2) and of K4's per-pixel form ->
 # the paths that launch it in that mode
@@ -383,8 +435,20 @@ ARM_PATHS = {
                                 "fractional_no_shadow_blend"),
     ("bake_visibility", "terrain_local"): ("demo_vis_hf",),
     ("composite", "pixels_720p"): ("demo_production", "anyres_xla",
-                                   "demo_xla"),
+                                   "demo_xla", "demo_noise"),
+    # K1 with a texture medium: the radiance channels alone (tex, where the
+    # noise channels come from the plain bake, and the staged texture paths,
+    # which bake none); K2 reading the texture's noise channel; K6 with no
+    # sun term
+    ("bake_radiance", "texture"): ("tex", "tex_staged", "tex_lowres"),
+    ("shadow_scatter", "texture"): ("tex",),
+    ("scatter", "no_sun"): ("sunless",),
 }
+# K6's modes held and timed on the inputs of a real frame -> the paths that
+# launch the kernel in that mode
+K6_MODE_PATHS = {"baked_planes": ("history", "xla_shadow", "no_media"),
+                 "baked_fused": ("vis_bake",),
+                 "radiance_planes": ("tex_staged", "tex_lowres")}
 # (kernel, mode) -> the fraction of elements allowed past CHECKS' tolerance
 # where it is below the kernel's: on demo_scene the local terrain changes
 # only the few elements where the red spot light's cone meets the ground,
@@ -882,6 +946,7 @@ def main() -> int:
     from volumetricrenderer_tpu_torch.ops import material as mtl
     from volumetricrenderer_tpu_torch.ops import occlude as occl
     from volumetricrenderer_tpu_torch.ops import ssr as ssr_ops
+    from volumetricrenderer_tpu_torch.ops.noise import perlin_texture_3d
     from volumetricrenderer_tpu_torch import post
     from volumetricrenderer_tpu_torch.parallel import shard_render as shr
 
@@ -932,9 +997,33 @@ def main() -> int:
     # the fractional scene shares the demo G-buffers)
     demo = demo_scene(aspect=cfg.image_width / cfg.image_height)
     frac = fractional_scene(demo, Geometry)
-    scenes = {"demo": demo, "fractional": frac}
-    scene_of = lambda name: scenes[DEMO_PATHS[name][0]] \
-        if name in DEMO_PATHS else scene
+    # SCENE_PATHS' scenes: benchmark_scene with the fog sampling a 32^3
+    # noise texture (bench.py's run_texture), without its sun and without
+    # media, and demo_scene with the fog's texture (demo.py --noise); the
+    # sunless scene has a G-buffer of its own, the others share their base
+    # scene's (media do not enter it)
+    aspect = cfg.image_width / cfg.image_height
+    tex_scene = benchmark_scene(aspect=aspect, num_local_lights=16,
+                                noise_tex=perlin_texture_3d(),
+                                noise_mode="texture")
+    sunless = dataclasses.replace(scene, dir_lights=dataclasses.replace(
+        scene.dir_lights, **{f.name: getattr(scene.dir_lights, f.name)[:0]
+                             for f in dataclasses.fields(scene.dir_lights)}))
+    no_media = dataclasses.replace(scene, media=())
+    demo_noise = demo_scene(aspect=aspect, with_noise=True,
+                            noise_tex=perlin_texture_3d(32))
+    scenes = {"demo": demo, "fractional": frac, "tex": tex_scene,
+              "sunless": sunless, "no_media": no_media,
+              "demo_noise": demo_noise}
+    scene_key = {name: v[0] for name, v in {**DEMO_PATHS,
+                                             **SCENE_PATHS}.items()}
+    scene_of = lambda name: scenes[scene_key[name]] \
+        if name in scene_key else scene
+    t0 = time.perf_counter()
+    sunless_gbuf = renderer.render_scene_inputs(sunless)
+    torch.cuda.synchronize()
+    log(f"# gbuffer without the sun: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
     demo_gbuf = {}
     for size, name in ((1080, "demo_full"), (720, "demo_production")):
         t0 = time.perf_counter()
@@ -947,8 +1036,10 @@ def main() -> int:
     def gbuf(name):
         if name.startswith("uhd"):
             return color_4k, depth_4k
-        if name in DEMO_PATHS:
+        if name in DEMO_PATHS or name == "demo_noise":
             return demo_gbuf[renderers[name].config.image_height]
+        if name == "sunless":
+            return sunless_gbuf
         return scene_color, view_depth
 
     # 4. the main paths, each from a fresh state; the shadow maps of a map
@@ -1452,15 +1543,28 @@ def main() -> int:
     mat = (mat_a.contiguous(), mat_b.contiguous())
     h_sh = sb.dir_shadow_blend(h_tables,
                                h_prev.prev_shadow.float().contiguous())
-    h_bake = ff.bake_radiance(h_tables)
-    # mode -> (bake, vis, material) of scatter_local
-    k6_modes = {"baked_planes": (None, h_vis, mat),
-                "baked_fused": (None, h_vis, None),
-                "radiance_planes": (h_bake, None, mat)}
-    k6_in.update({m.replace("_", " x "): (h_tables, h_sh, *a)
-                  for m, a in k6_modes.items()})
-    mode_err = {m: compare("scatter", sca.scatter_local(h_tables, h_sh, *a),
-                           sca.scatter_local_plain(h_tables, h_sh, *a),
+    # K6 radiance x planes on tex_staged's frame 2: K1's radiance (no noise
+    # channel) over the material volumes with the fog's texture sample
+    ts_r = renderers["tex_staged"]
+    ts_prev = runs["tex_staged"][1][1]
+    ts_tables, ts_params, ts_w2v = ts_r.frame_tables(ts_prev, tex_scene, 0.1)
+    ts_geo, ts_dev = ts_r.frame_geometry(ts_prev, tex_scene, ts_tables,
+                                         ts_params, ts_w2v)
+    ts_mat = tuple(v.contiguous() for v in pipeline.write_material_volumes(
+        ts_r.config, ts_params, ts_geo.view_to_world, ts_geo.jitter, 0.1,
+        ts_dev.media))
+    ts_sh = sb.dir_shadow_blend(ts_tables,
+                                ts_prev.prev_shadow.float().contiguous())
+    ts_bake = ff.bake_radiance(ts_tables)
+    if ts_tables.n_noise or ts_bake.shape[0] != 3:
+        raise AssertionError("tex_staged's K1 baked a noise channel")
+    # mode -> (tables, shadow, bake, vis, material) of scatter_local
+    k6_modes = {"baked_planes": (h_tables, h_sh, None, h_vis, mat),
+                "baked_fused": (h_tables, h_sh, None, h_vis, None),
+                "radiance_planes": (ts_tables, ts_sh, ts_bake, None, ts_mat)}
+    k6_in.update({m.replace("_", " x "): a for m, a in k6_modes.items()})
+    mode_err = {m: compare("scatter", sca.scatter_local(*a),
+                           sca.scatter_local_plain(*a),
                            label=m.replace("_", " x "))
                 for m, a in k6_modes.items()}
     errs["scatter"] = max(errs["scatter"], *mode_err.values())
@@ -1614,6 +1718,100 @@ def main() -> int:
             lambda: vis.bake_visibility(dv_tables),
             lambda: vis.bake_visibility_plain(dv_tables))},
     }
+    # the texture, sunless and media-less paths (SCENE_PATHS). tex, frame
+    # 4: the noise channels (plain torch) on the card against the same bake
+    # on the CPU, K1 launched without noise channels (k1_tables) and the
+    # channels passed through it bit for bit, K2 reading them, and K3 and
+    # K4 after them reproducing the path's image bit for bit
+    tx_r = renderers["tex"]
+    tx_prev = runs["tex"][1][3]
+    tx_tables, tx_params, tx_w2v = tx_r.frame_tables(tx_prev, tex_scene,
+                                                     0.1 * 3)
+    tx_geo, tx_dev = tx_r.frame_geometry(tx_prev, tex_scene, tx_tables,
+                                         tx_params, tx_w2v)
+    tx_noise = vis.bake_noise_channels(
+        tx_r.config, tx_params, tx_geo.view_to_world, tx_geo.jitter,
+        tx_dev.media, 0.1 * 3, tx_tables.ss)
+    noise_cpu = vis.bake_noise_channels(
+        tx_r.config, froxel.params_to(tx_params, "cpu"),
+        tx_geo.view_to_world.cpu(), tx_geo.jitter.cpu(),
+        tex_scene.to("cpu").media, 0.1 * 3, tx_tables.ss)
+    err = (tx_noise.cpu() - noise_cpu).abs()
+    past = float((err > 1e-6 + 1e-5 * noise_cpu.abs()).float().mean())
+    log(f"# tex: noise channels {tuple(tx_noise.shape)} (std "
+        f"{float(tx_noise.std()):.4f}), card - CPU largest "
+        f"{float(err.max()):.3e}, fraction past atol 1e-6 + rtol 1e-5 "
+        f"{past:.2e} (allowed 1e-3: the card's exp and log in the low "
+        f"grid's positions may differ from the CPU's by an ulp)")
+    if not bool(torch.isfinite(tx_noise).all()) or past > 1e-3 \
+            or not float(tx_noise.std()) > 1e-3:
+        raise AssertionError("tex's noise channels on the card disagree "
+                             "with the CPU's, or are flat")
+    tx_k1 = ff.k1_tables(tx_tables)
+    tx_bake = ff.bake_radiance(tx_tables, tx_noise)
+    passed = torch.equal(tx_bake[3:], tx_noise)
+    log(f"# tex: K1's tables carry {tx_k1.n_noise} noise channels, K2's "
+        f"{tx_tables.n_noise}; the noise channels pass K1 bit for bit: "
+        f"{passed}")
+    if tx_k1.n_noise != 0 or tx_tables.n_noise != 1 or not passed:
+        raise AssertionError("tex: K1 baked a noise channel, or K2 reads "
+                             "another count of them")
+    tx_sh_in = tx_prev.prev_shadow.float().contiguous()
+    tx_acc_in = tx_prev.prev_accumulation.float().contiguous()
+    tx_sh, tx_sc = ff.shadow_scatter(tx_tables, tx_sh_in, tx_bake)
+    tx_acc = ff.integrate_blend(tx_tables, tx_sc, tx_acc_in)
+    tx_out = zg.composite(tx_acc, scene_color, view_depth, tx_params,
+                          cfg.grid)
+    same = torch.equal(tx_out, runs["tex"][0])
+    log(f"# tex frame-4 inputs: the noise bake, K1, K2, K3 and K4 reproduce "
+        f"the path's image bit for bit: {same}")
+    if not same:
+        raise AssertionError("the kernel chain on tex's frame-4 inputs "
+                             "differs from the path's last image")
+    del tx_sc, tx_acc, tx_out, err
+    # sunless, frame 2: K6 with no sun term over its shadow volume of ones
+    # (unread); no_media, frame 2: K9, and K6 baked x planes over zero
+    # material volumes
+    sl_prev = runs["sunless"][1][1]
+    sl_tables, _, _ = renderers["sunless"].frame_tables(sl_prev, sunless,
+                                                        0.1)
+    sl_bake = ff.bake_radiance(sl_tables)
+    sl_sh = runs["sunless"][1][2].prev_shadow.float().contiguous()
+    ones = bool((sl_sh == 1.0).all())
+    log(f"# sunless: {sl_tables.n_dir} suns in the tables, shadow volume "
+        f"{tuple(sl_sh.shape)}, all ones: {ones}")
+    if sl_tables.n_dir != 0 or sl_sh.shape[0] != 1:
+        raise AssertionError("the sunless frame packed a sun")
+    nm_r = renderers["no_media"]
+    nm_prev = runs["no_media"][1][1]
+    nm_tables, nm_params, nm_w2v = nm_r.frame_tables(nm_prev, no_media, 0.1)
+    nm_geo, nm_dev = nm_r.frame_geometry(nm_prev, no_media, nm_tables,
+                                         nm_params, nm_w2v)
+    nm_mat = tuple(v.contiguous() for v in pipeline.write_material_volumes(
+        nm_r.config, nm_params, nm_geo.view_to_world, nm_geo.jitter, 0.1,
+        nm_dev.media))
+    nm_vis = vis.bake_visibility(nm_tables)
+    errs["bake_visibility"] = max(errs["bake_visibility"], compare(
+        "bake_visibility", nm_vis, vis.bake_visibility_plain(nm_tables),
+        label="no_media frame 2"))
+    nm_sh = sb.dir_shadow_blend(nm_tables,
+                                nm_prev.prev_shadow.float().contiguous())
+    nm_args = (nm_tables, nm_sh, None, nm_vis, nm_mat)
+    k6_in["baked x planes, no media"] = nm_args
+    mode_err["baked_planes"] = max(mode_err["baked_planes"], compare(
+        "scatter", sca.scatter_local(*nm_args),
+        sca.scatter_local_plain(*nm_args), label="baked x planes, no media"))
+    errs["scatter"] = max(errs["scatter"], mode_err["baked_planes"])
+    arm_calls["bake_radiance"]["texture"] = (
+        lambda: ff.bake_radiance(tx_k1),
+        lambda: ff.bake_radiance_plain(tx_k1))
+    arm_calls["shadow_scatter"]["texture"] = (
+        lambda: ff.shadow_scatter(tx_tables, tx_sh_in, tx_bake),
+        lambda: ff.shadow_scatter_plain(tx_tables, tx_sh_in, tx_bake))
+    arm_calls["scatter"]["no_sun"] = (
+        lambda: sca.scatter_local(sl_tables, sl_sh, sl_bake),
+        lambda: sca.scatter_local_plain(sl_tables, sl_sh, sl_bake))
+    k6_in["no_sun"] = (sl_tables, sl_sh, sl_bake, None, None)
     k6_in["rays_terrain"] = (dx_tables, dx_sh, None, None, None)
     arm_err = {}
     for k, modes in arm_calls.items():
@@ -1894,6 +2092,26 @@ def main() -> int:
         fn = lambda a=xla_args[name]: pipeline.write_scatter_xla(*a)
         step_times(f"{name}, the plain XLA scatter alone", fn, 3)
         profile_frames(fn, 2)
+    # the texture, sunless and media-less paths, and the plain passes the
+    # texture adds: the noise channels of tex, the material volumes of
+    # tex_staged (the texture at every froxel) and tex_lowres (at 1/4^3 of
+    # them, tent-upsampled)
+    for name, n_f in (("tex", 20), ("tex_staged", 10), ("tex_lowres", 10),
+                      ("demo_noise", 5), ("sunless", 10), ("no_media", 10)):
+        one, _ = frame_times(name, renderers[name], scene_of(name),
+                             *gbuf(name), runs[name][1][-1], n_f,
+                             bakes[name])
+        profile_frames(one, 3)
+    step_times("tex: bake_noise_channels (plain torch)",
+               lambda: vis.bake_noise_channels(
+                   tx_r.config, tx_params, tx_geo.view_to_world,
+                   tx_geo.jitter, tx_dev.media, 0.3, tx_tables.ss), 10)
+    for name in ("tex_staged", "tex_lowres"):
+        step_times(f"{name}: write_material_volumes (plain torch)",
+                   lambda c=renderers[name].config: (
+                       pipeline.write_material_volumes(
+                           c, ts_params, ts_geo.view_to_world,
+                           ts_geo.jitter, 0.3, ts_dev.media)), 5)
     one_map_dir, _ = frame_times("map_dir", m_r, scene, scene_color,
                                  view_depth, runs["map_dir"][1][-1], 20,
                                  bakes["map_dir"])
@@ -2017,9 +2235,8 @@ def main() -> int:
     pcf_full_ms = kernel_time_ms(lambda: pcf.pcf_shadow(pcf_full, f_dir.atlas),
                                  n)
     weight_ms = kernel_time_ms(blend_w, n)
-    mode_ms = {m: kernel_time_ms(
-        lambda a=a: sca.scatter_local(h_tables, h_sh, *a), n)
-        for m, a in k6_modes.items()}
+    mode_ms = {m: kernel_time_ms(lambda a=a: sca.scatter_local(*a), n)
+               for m, a in k6_modes.items()}
     per_light_ms = kernel_time_ms(lambda: sca.scatter_local(x_tables, x_sh), 5)
     k1_ms = {"lights40": kernel_time_ms(lambda: ff.bake_radiance(t40), n)}
     k9_ms = {"lights40": kernel_time_ms(lambda: vis.bake_visibility(v40), n)}
@@ -2068,7 +2285,7 @@ def main() -> int:
         lambda: tmp.temporal_blend_plain(tables.sbpar, prev_sh, unblended,
                                          whd, hg, kk, "weight"), n_p)
     mode_plain_ms = {m: cuda_time_ms(
-        lambda a=a: sca.scatter_local_plain(h_tables, h_sh, *a), 1)
+        lambda a=a: sca.scatter_local_plain(*a), 1)
         for m, a in k6_modes.items()}
     per_light_plain_ms = cuda_time_ms(
         lambda: sca.scatter_local_plain(x_tables, x_sh), 1)
@@ -2442,6 +2659,25 @@ def main() -> int:
     arm_work[("composite", "pixels_720p")] = (
         4 * (4 * math.prod(dp_grid) + n_720 + 3 * n_720 + 4 * n_720),
         n_720 * (20 + 8 * 4 * 2 + 16))
+    # the texture and sunless modes: K1 with no noise channel (its three
+    # radiance channels written), K2 reading the noise channels, K6 with no
+    # sun (no shadow read, no sun term), each from its own tables
+    t = tx_k1
+    arm_work[("bake_radiance", "texture")] = (
+        4 * 3 * n_low_of(t),
+        n_low_of(t) * 60
+        + int(t.active.sum()) * plane_of(t) * (60 + geo_ops(t)))
+    t = tx_tables
+    nf, nl = n_fro_of(t), n_low_of(t)
+    arm_work[("shadow_scatter", "texture")] = (
+        4 * (2 * t.n_dir * nf + (3 + t.n_noise) * nl + 4 * nf),
+        nf * (shadow_ops(t) + (3 + t.n_noise) * 20
+              + 60 * len(t.media_static) + 40 * t.n_dir + 40))
+    t = sl_tables
+    nf, nl = n_fro_of(t), n_low_of(t)
+    arm_work[("scatter", "no_sun")] = (
+        4 * ((3 + t.n_noise) * nl + 4 * nf),
+        nf * ((3 + t.n_noise) * 20 + 60 * len(t.media_static) + 40))
     # the slab forms: as their whole-grid forms, from the slab's tables;
     # K4 reads the h_out + 2 accumulation rows its band needs (row offset)
     # or the rows its taps reach (per-pixel)
@@ -2600,13 +2836,18 @@ def main() -> int:
             for m in k6_modes:
                 b_ms, b_by = bound(*mode_work[m])
                 entry[m] = {
+                    "launches": sum(launches[name].get(p, 0)
+                                    for p in K6_MODE_PATHS[m]),
+                    "paths": list(K6_MODE_PATHS[m]),
                     "max_abs_err": mode_err[m], "ms": mode_ms[m],
                     "plain_ms": mode_plain_ms[m], "bound_ms": b_ms,
                     "bound_by": b_by}
                 log(f"# scatter, {m}: {mode_ms[m]:.4f} ms/launch, plain "
                     f"{mode_plain_ms[m]:.3f} ms, bound {b_ms:.4f} ms by "
                     f"{b_by} ({mode_work[m][0] / 1e6:.1f} MB, "
-                    f"{mode_work[m][1] / 1e9:.2f} GFLOP)")
+                    f"{mode_work[m][1] / 1e9:.2f} GFLOP), launches "
+                    f"{entry[m]['launches']} "
+                    f"({', '.join(K6_MODE_PATHS[m])})")
         if name == "pcf_shadow":
             b_ms, b_by = bound(*pcf_work(pcf_full))
             entry["full_rate"] = {

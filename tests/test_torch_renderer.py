@@ -127,9 +127,9 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
 
 
 def _unported_scene(kind):
-    """benchmark_scene, or with one part the port does not render: a mesh
-    environment, shadow proxy boxes, a texture-noise medium, no media (the
-    scatter kernel's route) or no sun."""
+    """benchmark_scene, or with one part the port does not render (a mesh
+    environment, shadow proxy boxes, five suns) or does not render in an
+    H-sharded slab (a texture-noise medium, no media, no sun)."""
     scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
                                noise_mode="procedural", device="cpu")
     if kind == "no_sun":
@@ -149,25 +149,31 @@ def _unported_scene(kind):
             noise_tex=torch.zeros((4, 4, 4))),) + scene.media[1:])
     if kind == "no_media":
         return dataclasses.replace(scene, media=())
+    if kind == "five_suns":
+        dl = scene.dir_lights
+        return dataclasses.replace(scene, dir_lights=dataclasses.replace(
+            dl, **{f.name: torch.cat([getattr(dl, f.name)] * 5)
+                   for f in dataclasses.fields(dl)}))
     return scene
 
 
-@pytest.mark.parametrize("kw", [dict(scatter_impl="xla",
-                                     scene="texture_noise"),
+@pytest.mark.parametrize("kw", [dict(slab=True, scene="texture_noise"),
                                 dict(scene="mesh"),
                                 dict(scene="proxy_boxes"),
-                                dict(scene="texture_noise"),
+                                dict(scene="five_suns"),
                                 dict(demo=True, scene="mesh"),
-                                dict(scene="no_sun"),
+                                dict(slab=True, scene="no_sun"),
                                 dict(scatter_impl="xla", slab=True),
-                                dict(scene="no_media"),
-                                dict(frame_fused=False, scene="no_media"),
+                                dict(slab=True, scene="no_media"),
+                                dict(frame_fused=False, slab=True,
+                                     scene="no_media"),
                                 dict(frame_fused=False, scene="mesh")])
 def test_unported_configs_raise(kw):
     """What the port still refuses, on FULL_CONFIG (or DEMO_CONFIG): the
-    mesh scenes and their proxy boxes, texture media (also under the XLA
-    scatter), scenes without a sun, media-less scenes on the scatter
-    kernel's route, and the XLA scatter in an H-sharded slab."""
+    mesh scenes and their proxy boxes, more than four suns, and in an
+    H-sharded slab texture media, scenes without a sun or without media
+    and the XLA scatter (tests/test_torch_sunless.py renders those scenes
+    on the whole grid)."""
     kw = dict(kw)
     scene = _unported_scene(kw.pop("scene", None))
     base = vt.DEMO_CONFIG if kw.pop("demo", False) else vt.FULL_CONFIG
@@ -223,9 +229,15 @@ def test_staged_configs_match_jax(kw):
 
 
 def test_texture_noise_scene_raises():
+    """A texture-noise scene renders on the whole grid (its frames are held
+    against JAX in tests/test_torch_texture.py) and raises in a slab."""
     r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
                               device="cpu")
     js = j_bench(aspect=128 / 120, num_local_lights=4,
                  noise_tex=np.ones((4, 4, 4), np.float32))
-    with pytest.raises(NotImplementedError):
-        r.render_frame(r.init_state(1), scene_from_numpy(js, "cpu"), 0.0)
+    scene = scene_from_numpy(js, "cpu")
+    img, _, _ = r.render_frame(r.init_state(1), scene, 0.0)
+    assert bool(torch.isfinite(img).all())
+    with pytest.raises(NotImplementedError, match="texture"):
+        r.render_frame(r.init_state(1), scene, 0.0,
+                       slab=Slab(0.0, 0, (16, 15, 16), 120))

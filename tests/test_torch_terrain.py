@@ -149,12 +149,18 @@ def _walk(a, b, path=""):
 
 
 def test_demo_scene_matches_jax(demo):
+    """demo_scene field by field, also with_noise (the fog's texture);
+    mesh_env is not ported."""
     js, _ = demo
     _walk(vt.demo_scene(aspect=128 / 90, device="cpu"),
           scene_from_numpy(js, "cpu"))
-    for kw in (dict(mesh_env=True), dict(with_noise=True)):
-        with pytest.raises(NotImplementedError):
-            vt.demo_scene(device="cpu", **kw)
+    tex = np.random.default_rng(3).random((4, 8, 16), dtype=np.float32)
+    _walk(vt.demo_scene(aspect=128 / 90, with_noise=True,
+                        noise_tex=torch.as_tensor(tex), device="cpu"),
+          scene_from_numpy(j_demo(aspect=128 / 90, with_noise=True,
+                                  noise_tex=tex), "cpu"))
+    with pytest.raises(NotImplementedError):
+        vt.demo_scene(device="cpu", mesh_env=True)
 
 
 def test_geometry_create_matches_jax():

@@ -12,10 +12,11 @@ history frame (material volumes, the per-light visibility bake, the
 material, scatter and standalone shadow and accumulation blends), the
 shadow-map frames and the post stack (`post.py`, `render_frame_post`), on
 `benchmark_scene` and on the reference demo scene `demo_scene` (its
-procedural terrain in every ray cast; boxes of fractional opacity too), at
-any pixel/froxel ratio, and in H-sharded slabs on one device
-(`parallel/shard_render.make_multislab_render`); see ROADMAP.md for what
-remains.
+procedural terrain in every ray cast; boxes of fractional opacity too), with
+procedural or texture noise (`ops/noise.perlin_texture_3d`), with or
+without a sun or media, at any pixel/froxel ratio, and in H-sharded slabs
+on one device (`parallel/shard_render.make_multislab_render`); see
+ROADMAP.md for what remains.
 """
 
 from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,

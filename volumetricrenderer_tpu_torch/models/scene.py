@@ -84,17 +84,14 @@ def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
     with a volumetric shadow, one red spot light, constant white fog, and
     the environment prefab as analytic primitives (ground plane, three
     cubes, a sphere, three trees as canopy sphere + trunk box) over a
-    procedural heightfield (amp 2.0, base -0.3). The fog carries no noise
-    texture; texture noise (with_noise) and the reference's tree meshes
-    (mesh_env) are not ported (ROADMAP A7, A13)."""
-    if with_noise:
-        raise NotImplementedError("demo_scene(with_noise=True): texture "
-                                  "noise is not ported (ROADMAP A7)")
+    procedural heightfield (amp 2.0, base -0.3). with_noise gives the fog
+    the noise texture noise_tex [Nz, Ny, Nx] (ops/noise.perlin_texture_3d;
+    None: no noise, as in the JAX package). The reference's tree meshes
+    (mesh_env) are not ported (ROADMAP A13)."""
     if mesh_env:
         raise NotImplementedError("demo_scene(mesh_env=True): mesh "
                                   "environments are not ported (ROADMAP "
                                   "A13)")
-    del noise_tex
     camera = Camera.create(position=(-0.4, 1.9, -15.8),
                            forward=(0.0, 0.0, 1.0), fov_y_deg=60.0,
                            aspect=aspect, near=0.3, far=100.0, device=device)
@@ -113,6 +110,7 @@ def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
                                device=device)
     fog = Medium.create(
         scattering_color=(1.0, 1.0, 1.0), absorption=0.19, phase_g=0.3,
+        noise_tex=noise_tex if with_noise else None,
         noise_scroll=(10.0, 0.0, 0.0), noise_tiling=(0.01, 0.01, 0.01),
         device=device)
     trees = [(-9.0, 18.0), (7.0, 9.0), (-14.0, 25.0)]
@@ -135,11 +133,13 @@ def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
 
 
 def benchmark_scene(aspect: float = 16.0 / 9.0, num_local_lights: int = 16,
-                    noise_mode: str = "texture", device="cuda") -> Scene:
+                    noise_tex=None, noise_mode: str = "texture",
+                    device="cuda") -> Scene:
     """One sun, num_local_lights point/spot lights, a fog medium and a ground
-    fog box. Texture noise is not ported: pass noise_mode="procedural" (the
-    production path); a "texture" medium here has no texture, so it carries
-    no noise at all, as in the JAX package."""
+    fog box. The fog's noise: noise_mode="procedural" (the production path)
+    evaluates the fBm; "texture" samples noise_tex [Nz, Ny, Nx]
+    (ops/noise.perlin_texture_3d: bench.py's texture frame), and without a
+    texture carries no noise at all, as in the JAX package."""
     camera = Camera.create(position=(-0.4, 1.9, -15.8),
                            forward=(0.0, 0.0, 1.0), fov_y_deg=60.0,
                            aspect=aspect, near=0.3, far=100.0, device=device)
@@ -172,7 +172,8 @@ def benchmark_scene(aspect: float = 16.0 / 9.0, num_local_lights: int = 16,
 
     fog = Medium.create(
         scattering_color=(1.0, 1.0, 1.0), absorption=0.19, phase_g=0.3,
-        noise_mode=noise_mode, noise_scroll=(10.0, 0.0, 0.0),
+        noise_tex=noise_tex, noise_mode=noise_mode,
+        noise_scroll=(10.0, 0.0, 0.0),
         noise_tiling=(0.01, 0.01, 0.01), height_falloff=0.05,
         height_base=0.0, device=device)
     ground_fog = Medium.create(

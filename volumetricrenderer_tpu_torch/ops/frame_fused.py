@@ -9,7 +9,9 @@ and baked the low-rate volume into a ring on its own schedule; on the GPU it
 is a chain of kernels, held as one unit against the JAX function:
 
   K1 bake_radiance    low volume [3 + n_noise, DL, HL, WL] (inline radiance
-                      bake, ss > 1), or
+                      bake, ss > 1; with a texture medium K1 bakes the
+                      radiance alone and every noise channel comes from
+                      ops/visibility.bake_noise_channels), or
   K9 bake_visibility  low volume [NL, DL, HL, WL] (inline visibility bake,
                       ss > 1; ops/visibility.py), or no bake (ss = 1)
   K2 shadow_scatter   new shadow history [Nd, D, H, W] + scatter [4, D, H, W],
@@ -120,6 +122,12 @@ class FrameTables:
             else (0, 0, 0)
 
     @property
+    def texture_noise(self) -> bool:
+        """Whether a medium samples a noise texture: its noise channels are
+        then made outside the kernels (visibility.bake_noise_channels)."""
+        return any(st[0] == 2 for st in self.media_static)
+
+    @property
     def local_source(self) -> str:
         """Where the volume phase takes the local lights from: "radiance"
         (the K1 bake: a low grid and no light schedule), "baked" (the
@@ -207,9 +215,9 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
         raise ValueError("frame tables are packed on the host: pass the "
                          "scene description on the CPU")
     nd = dir_lights.count if dir_lights is not None else 0
-    if dir_lights is not None and not 0 < nd <= MAX_DIR:
+    if nd > MAX_DIR:
         raise NotImplementedError(f"{nd} directional lights: the port takes "
-                                  f"1 to {MAX_DIR}")
+                                  f"at most {MAX_DIR}")
     jit = np.asarray(jitter, np.float32).reshape(3)
     if camera_pos is None:
         camera_pos = torch.zeros(3)
@@ -250,7 +258,7 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
         med = med.contiguous()
         med_static = torch.tensor([[int(v) for v in st]
                                    for st in media_static], dtype=torch.int32)
-    # the fBm channels ride the radiance volume: without one (ss = 1) the
+    # the noise channels ride the radiance volume: without one (ss = 1) the
     # scatter evaluates the Perlin per froxel
     n_noise = sum(1 for st in media_static if st[0]) \
         if bake_noise and vis_ss > 1 else 0
@@ -375,14 +383,38 @@ def k1_geometry(n_lights: int, n_noise: int,
         columns=cols, rows=rows)
 
 
-def bake_radiance(t: FrameTables) -> torch.Tensor:
-    """K1: the low-rate radiance (+ fBm) volume."""
-    if t.spar.device.type == "cpu":
-        return bake_radiance_plain(t)
+def k1_tables(t: FrameTables) -> FrameTables:
+    """The tables K1 is launched on: `t`, or with a texture medium `t`
+    without noise channels (n_noise 0), so that K1 writes the radiance
+    channels alone; its channel stride is the low grid's size whatever the
+    channel count, so the radiance lands in the first three channels of
+    the [3 + n_noise] volume that K2 then reads with t's n_noise."""
+    return dataclasses.replace(t, n_noise=0) if t.texture_noise else t
+
+
+def bake_radiance(t: FrameTables,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: the low-rate radiance (+ fBm) volume [3 + n_noise, DL, HL, WL].
+    With a texture medium and noise channels (the fused frame), `noise`
+    [n_noise, DL, HL, WL] (visibility.bake_noise_channels) fills channels
+    3.. and K1 bakes channels 0-2 (k1_tables); otherwise noise is None."""
+    k1 = k1_tables(t)
     wl, hl, dl = t.low_dims
+    want = None if k1.n_noise == t.n_noise else (t.n_noise, dl, hl, wl)
+    got = None if noise is None else tuple(noise.shape)
+    if got != want:
+        raise ValueError(f"noise channels {got}: the tables want {want} "
+                         "(a texture medium's noise comes from "
+                         "visibility.bake_noise_channels)")
+    if t.spar.device.type == "cpu":
+        out = bake_radiance_plain(k1)
+        return out if noise is None else torch.cat([out, noise])
     out = torch.empty((3 + t.n_noise, dl, hl, wl), dtype=torch.float32,
                       device=t.spar.device)
-    st = t.c_struct()
+    if noise is not None:
+        cuda.check_cuda(noise)
+        out[3:].copy_(noise)
+    st = k1.c_struct()
     cuda.launch("bake_radiance", cuda.ctypes.byref(st), cuda.ptr(out))
     return out
 
@@ -421,6 +453,9 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     tables' per-slice light schedule, each light shadowed by the low-rate
     visibility volume `vis` of K9 or, with vis None too, by one any-hit ray
     per froxel."""
+    if t.n_dir == 0:
+        raise ValueError("K2 blends the suns' shadow: a scene without a sun "
+                         "takes the staged route")
     check_scatter_inputs(t, prev_shadow, bake, vis, None)
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
@@ -476,14 +511,16 @@ def integrate_blend(t: FrameTables, scatter: torch.Tensor,
 
 
 def volume_phase(t: FrameTables, prev_shadow: torch.Tensor,
-                 prev_acc: torch.Tensor):
+                 prev_acc: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None):
     """The bake of the tables' local source (K1, K9 or none), K2, K3 on one
     frame's tables. prev_shadow [Nd, D, H, W], prev_acc [4, D, H, W] (L_r,
-    L_g, L_b, T). Returns (blended shadow [Nd, D, H, W], blended
+    L_g, L_b, T); noise: a texture medium's frame's noise channels for
+    bake_radiance. Returns (blended shadow [Nd, D, H, W], blended
     accumulation [4, D, H, W])."""
     bake = vis = None
     if t.local_source == "radiance":
-        bake = bake_radiance(t)
+        bake = bake_radiance(t, noise)
     elif t.local_source == "baked":
         vis = bake_visibility(t)
     shadow, scatter = shadow_scatter(t, prev_shadow, bake, vis)

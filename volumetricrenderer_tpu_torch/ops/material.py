@@ -21,7 +21,10 @@ M32 = 0xFFFFFFFF
 
 
 def media_foldable(media: Sequence) -> bool:
-    """True when every medium can be evaluated without a texture gather."""
+    """True when every medium can be evaluated without a texture gather.
+    Texture media fold into the fused frame only with their factor sampled
+    at the radiance bake's low grid outside the kernels
+    (ops/visibility.bake_noise_channels; renderer.fuses_frame)."""
     return all(m.noise_tex is None for m in media)
 
 
@@ -167,13 +170,17 @@ def phase_g_plane(med, media_static: tuple, wx, wy, wz):
 
 
 def noise_factor_planes(med, media_static: tuple, wx, wy, wz):
-    """The procedural fBm factor of each noise-bearing medium, in order."""
+    """The procedural fBm factor of each noise-bearing medium, in order.
+    A texture medium raises: its factor is a sample of its texture, which
+    the table does not hold (ops/visibility.bake_noise_channels)."""
     out = []
     for mi, (src, octaves, period, seed, *_rest) in enumerate(media_static):
         if not src:
             continue
         if src != 1:
-            raise NotImplementedError("texture noise is not ported")
+            raise NotImplementedError(
+                "a texture-noise medium in the fBm bake: its factor comes "
+                "from ops/visibility.bake_noise_channels")
         q = lambda i: med[mi, i]
         out.append(perlin_planes(wx * q(5) + q(8), wy * q(6) + q(9),
                                  wz * q(7) + q(10), octaves, period, seed))
@@ -182,8 +189,9 @@ def noise_factor_planes(med, media_static: tuple, wx, wy, wz):
 
 def material_planes(med, media_static: tuple, wx, wy, wz, noise_planes=None):
     """(sigma_s r, g, b, sigma_a, g) at world positions. noise_planes: the
-    upsampled low-rate fBm factors (one per noise-bearing medium); without
-    them the Perlin is evaluated here."""
+    upsampled low-rate noise factors, one per noise-bearing medium in media
+    order (procedural or texture); without them the Perlin is evaluated
+    here, which a texture medium cannot be."""
     sr = sg = sb = sa = g = torch.zeros_like(wx)
     noise_i = 0
     for mi, (src, octaves, period, seed, is_box, additive) \
@@ -196,7 +204,9 @@ def material_planes(med, media_static: tuple, wx, wy, wz, noise_planes=None):
                 noise_i += 1
             else:
                 if src != 1:
-                    raise NotImplementedError("texture noise is not ported")
+                    raise NotImplementedError(
+                        "a texture-noise medium without its noise planes: "
+                        "its factor is a sample of its texture")
                 factor = factor * perlin_planes(
                     wx * q(5) + q(8), wy * q(6) + q(9), wz * q(7) + q(10),
                     octaves, period, seed)

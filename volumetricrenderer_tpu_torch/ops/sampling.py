@@ -3,8 +3,9 @@
 Counterpart of `volumetricrenderer_tpu/ops/sampling.py` on channel-first
 volumes [C, D, H, W]: `shift_sample_3d` (the whole grid at one constant
 offset: the jittered fetch of the plain accumulation) and
-`trilinear_sample_3d` (arbitrary positions: the "gather" reprojection).
-All coordinates are texel coordinates; borders clamp to the edge. The eight
+`trilinear_sample_3d` (arbitrary positions: the "gather" reprojection, and
+with wrap=True the noise texture's repeat sampler). All coordinates are
+texel coordinates; borders clamp to the edge unless wrapped. The eight
 weight products and the sum over the taps are taken in the JAX functions'
 order.
 """
@@ -48,30 +49,36 @@ def shift_sample_3d(vol: torch.Tensor, offset) -> torch.Tensor:
 
 
 def trilinear_sample_3d(vol: torch.Tensor, tx: torch.Tensor,
-                        ty: torch.Tensor, tz: torch.Tensor) -> torch.Tensor:
+                        ty: torch.Tensor, tz: torch.Tensor,
+                        wrap: bool = False) -> torch.Tensor:
     """Joint trilinear sample of vol [C, D, H, W] at texel coordinates
-    tx/ty/tz (one shape [...]), clamp-to-edge: [C, ...]."""
+    tx/ty/tz (one shape [...]): [C, ...]. Clamp-to-edge, or with wrap the
+    tap indices taken mod each axis's size (a repeat sampler; negative
+    coordinates included). The eight taps are gathered in one indexing
+    call, their int32 indices as the JAX function's."""
     c, d, h, w = vol.shape
-    x0, y0, z0 = torch.floor(tx), torch.floor(ty), torch.floor(tz)
-    fx, fy, fz = tx - x0, ty - y0, tz - z0
-    x0, y0, z0 = x0.long(), y0.long(), z0.long()
-    flat = vol.reshape(c, -1)
+    shape = tuple(tx.shape)
 
-    def tap(dz, dy, dx):
-        zi = torch.clamp(z0 + dz, 0, d - 1)
-        yi = torch.clamp(y0 + dy, 0, h - 1)
-        xi = torch.clamp(x0 + dx, 0, w - 1)
-        idx = (zi * h + yi) * w + xi
-        return flat[:, idx.reshape(-1)].reshape((c,) + tuple(idx.shape))
+    def axis(t, n):
+        """(indices [2, ...] of the two taps, weights [2, ...])."""
+        t0 = torch.floor(t)
+        f = t - t0
+        i0 = t0.to(torch.int32)
+        i = torch.stack([i0, i0 + 1])
+        i = torch.remainder(i, n) if wrap else torch.clamp(i, 0, n - 1)
+        return i, torch.stack([1.0 - f, f])
 
-    wz0, wz1 = 1.0 - fz, fz
-    wy0, wy1 = 1.0 - fy, fy
-    wx0, wx1 = 1.0 - fx, fx
-    return (tap(0, 0, 0) * (wz0 * wy0 * wx0)
-            + tap(0, 0, 1) * (wz0 * wy0 * wx1)
-            + tap(0, 1, 0) * (wz0 * wy1 * wx0)
-            + tap(0, 1, 1) * (wz0 * wy1 * wx1)
-            + tap(1, 0, 0) * (wz1 * wy0 * wx0)
-            + tap(1, 0, 1) * (wz1 * wy0 * wx1)
-            + tap(1, 1, 0) * (wz1 * wy1 * wx0)
-            + tap(1, 1, 1) * (wz1 * wy1 * wx1))
+    xi, wx = axis(tx, w)
+    yi, wy = axis(ty, h)
+    zi, wz = axis(tz, d)
+    # tap (dz, dy, dx) at [dz, dy, dx]: its flat index and weight
+    idx = (zi[:, None, None] * h + yi[None, :, None]) * w \
+        + xi[None, None, :]
+    wgt = wz[:, None, None] * wy[None, :, None] * wx[None, None, :]
+    taps = vol.reshape(c, -1)[:, idx.reshape(-1)].reshape(
+        (c, 2, 2, 2) + shape) * wgt
+    out = taps[:, 0, 0, 0]
+    for dz, dy, dx in ((0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0),
+                       (1, 0, 1), (1, 1, 0), (1, 1, 1)):
+        out = out + taps[:, dz, dy, dx]
+    return out

@@ -292,9 +292,12 @@ def check_tile_indices(t) -> None:
 def check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
                           material) -> None:
     w, h, d = t.grid_whd
-    if shadow.shape != (t.n_dir, d, h, w):
+    # a scene without a sun passes its one channel of ones, which no
+    # scatter reads (write_shadow_volume_dir)
+    nd = max(t.n_dir, 1)
+    if shadow.shape != (nd, d, h, w):
         raise ValueError(f"shadow {tuple(shadow.shape)} != "
-                         f"{(t.n_dir, d, h, w)}")
+                         f"{(nd, d, h, w)}")
     if bake is not None and vis is not None:
         raise ValueError("pass the radiance bake or the visibility bake, "
                          "not both")

@@ -12,7 +12,9 @@ are in `csrc/bake_radiance.cu` (kernel K1, which stands for
 `bake_visibility_pallas`: a run of a low slice's samples a block, its
 lights spread over warps, `k9_geometry`; wrapper `bake_visibility` below)
 and
-`upsample_low` in `csrc/common.cuh`.
+`upsample_low` in `csrc/common.cuh`. `bake_noise_channels` (plain torch,
+as JAX's `bake_noise_channels_xla` is plain XLA) gives the noise factors at the low grid that ride
+K1's radiance into the fused frame when a medium samples a noise texture.
 
 Grid contract: low cell k covers full cells [ss*k, ss*k + ss); its sample
 sits at full coordinate ss*k + (ss-1)/2 (+0.5 + jitter). The z-lerp reads
@@ -36,8 +38,9 @@ from volumetricrenderer_tpu_torch import shadow as shadow_lib
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
-                                                       pack_media,
+                                                       noise_src, pack_media,
                                                        phase_g_plane)
+from volumetricrenderer_tpu_torch.ops.noise import sample_noise
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.phase import PI
 from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
@@ -368,7 +371,7 @@ def bake_visibility_fused(params, view_to_world, camera_pos, jitter,
 def low_res_world_positions(cfg, params, view_to_world, jitter,
                             ss: int) -> torch.Tensor:
     """[DL, HL, WL, 3] world positions of the low samples (the bakes'
-    coordinate contract), for the plain map bakes."""
+    coordinate contract), for the plain map and noise bakes."""
     d, h, w = cfg.grid_dhw
     wl, hl, dl = low_res_dims((w, h, d), ss)
     dev = view_to_world.device
@@ -385,6 +388,21 @@ def low_res_world_positions(cfg, params, view_to_world, jitter,
         fro = fro + jitter
     view = froxel_lib.froxel_to_view(params, fro + 0.5)
     return froxel_lib.transform_points(view_to_world, view)
+
+
+def bake_noise_channels(cfg, params, view_to_world, jitter, media, time_x,
+                        ss: int) -> torch.Tensor:
+    """[Nn, DL, HL, WL]: the noise factor of each noise-bearing medium
+    (material.noise_src != 0), in media order, at the low grid's samples
+    (low_res_world_positions; ops/noise.sample_noise: a procedural
+    medium's fBm, as K1 bakes it, or a texture medium's exact wrap
+    trilinear). Plain torch on the positions' device, as the JAX package's
+    bake_noise_channels_xla is plain XLA; its texture sampler's selection
+    matmul runs bf16 operands by default, the port samples exactly. Nn is
+    at least one."""
+    world = low_res_world_positions(cfg, params, view_to_world, jitter, ss)
+    return torch.stack([sample_noise(m, world, time_x) for m in media
+                        if noise_src(m)])
 
 
 def _map_visibility(li: int, world, point_lights, spot_lights, cube_shadow,

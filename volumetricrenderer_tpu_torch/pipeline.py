@@ -6,7 +6,9 @@ tables (ops/frame_fused.FrameTables) where the JAX package runs a Pallas
 kernel, to plain torch on the frame's device where it runs plain XLA. A
 branch that is not ported raises NotImplementedError naming what is missing.
 
-  write_material_volumes   plain torch (ops/noise.perlin_3d)
+  write_material_volumes   plain torch (ops/noise.sample_noise: procedural
+                           fBm, or a texture's wrap trilinear, at full rate
+                           or at 1/texture_noise_subsample^3 tent-upsampled)
   write_shadow_volume_dir  raycast: dir_shadow_impl="pallas": kernel K7;
                            "xla": plain torch over ops/raycast.occluded;
                            shadow maps: the cascaded-PCF kernel K12 (full or
@@ -60,7 +62,7 @@ from volumetricrenderer_tpu_torch.ops.frame_fused import (FrameTables,
 from volumetricrenderer_tpu_torch.ops.integrate import \
     accumulate as accumulate_kernel
 from volumetricrenderer_tpu_torch.ops.material import media_foldable
-from volumetricrenderer_tpu_torch.ops.noise import perlin_3d
+from volumetricrenderer_tpu_torch.ops.noise import sample_noise
 from volumetricrenderer_tpu_torch.ops.pcf_shadow import (PcfTables,
                                                          pcf_shadow)
 from volumetricrenderer_tpu_torch.ops.pcf_shadow import \
@@ -74,7 +76,7 @@ from volumetricrenderer_tpu_torch.ops.scatter_scan import accumulate_blocked
 from volumetricrenderer_tpu_torch.ops.temporal import temporal_blend
 from volumetricrenderer_tpu_torch.ops.visibility import (
     bake_radiance_from_maps, bake_visibility, bake_visibility_from_maps,
-    tent_taps)
+    low_res_world_positions, tent_taps, tent_taps_y)
 from volumetricrenderer_tpu_torch.ops.warp import (windowed_warp,
                                                    windowed_warp_plain)
 
@@ -165,12 +167,49 @@ def fuses_material(cfg: RenderConfig, media: Sequence,
                 and media_foldable(media))
 
 
+def _tent_up(vol: torch.Tensor, dim: int, taps) -> torch.Tensor:
+    """vol tent-upsampled along `dim` from the two taps (k0, w) of
+    visibility.tent_taps or tent_taps_y: the JAX package's upsample matmul,
+    whose rows hold at most these two non-zero weights."""
+    k0, wt = taps
+    dev = vol.device
+    n_l = vol.shape[dim]
+    k = upload(np.stack([k0, np.minimum(k0 + 1, n_l - 1)]), dev, torch.int64)
+    shape = [1] * vol.dim()
+    shape[dim] = k.shape[1]
+    wt = upload(wt, dev)
+    return (vol.index_select(dim, k[0]) * wt[0].reshape(shape)
+            + vol.index_select(dim, k[1]) * wt[1].reshape(shape))
+
+
+_tent_taps = functools.lru_cache(maxsize=16)(tent_taps)
+_tent_taps_y = functools.lru_cache(maxsize=16)(tent_taps_y)
+
+
+def _sample_noise_lowres(cfg: RenderConfig, params: FroxelParams,
+                         view_to_world: torch.Tensor, jitter: torch.Tensor,
+                         medium, time_x, ss: int) -> torch.Tensor:
+    """A texture medium's noise factor [D, H, W] sampled at the low grid of
+    rate ss (visibility.low_res_world_positions) and tent-upsampled in z,
+    y (with the slab's phase, as the bakes) and x."""
+    d, h, w = cfg.grid_dhw
+    world = low_res_world_positions(cfg, params, view_to_world, jitter, ss)
+    low = sample_noise(medium, world, time_x)              # [DL, HL, WL]
+    dl, hl, wl = low.shape
+    up = _tent_up(low, 0, _tent_taps(d, dl, ss))
+    up = _tent_up(up, 1, _tent_taps_y(h, hl, ss, float(params.y0)))
+    return _tent_up(up, 2, _tent_taps(w, wl, ss))
+
+
 def write_material_volumes(cfg: RenderConfig, params: FroxelParams,
                            view_to_world: torch.Tensor, jitter: torch.Tensor,
                            time_x, media: Sequence
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential fold over the media at the jittered froxel centres:
-    (material_a [4, D, H, W], material_b [1, D, H, W])."""
+    (material_a [4, D, H, W], material_b [1, D, H, W]). A texture medium's
+    factor is sampled at 1/texture_noise_subsample^3 of the froxels and
+    tent-upsampled where that is above 1 and the grid has every row (not a
+    slab's), else at every froxel."""
     d, h, w = cfg.grid_dhw
     dev = view_to_world.device
     mat_a = torch.zeros((4, d, h, w), dtype=torch.float32, device=dev)
@@ -179,17 +218,18 @@ def write_material_volumes(cfg: RenderConfig, params: FroxelParams,
         return mat_a, mat_b
     world_j = froxel_world_positions(cfg, params, view_to_world, jitter)
     tx = float(np.float32(time_x))
+    tex_ss = max(int(cfg.texture_noise_subsample), 1) \
+        if h == params.grid[1] else 1
     for medium in media:
         a_new = torch.cat([medium.scattering_coef,
                            medium.absorption_coef[None]])[:, None, None, None]
         factor = torch.ones((d, h, w), dtype=torch.float32, device=dev)
-        if medium.noise_mode == "procedural":
-            uvw = world_j * medium.noise_tiling + medium.noise_scroll * tx
-            factor = factor * perlin_3d(uvw, octaves=medium.noise_octaves,
-                                        period=medium.noise_period,
-                                        seed=medium.noise_seed)
-        elif medium.noise_tex is not None:
-            raise NotImplementedError("texture noise is not ported")
+        if medium.noise_mode == "procedural" or medium.noise_tex is not None:
+            if tex_ss > 1 and medium.noise_mode != "procedural":
+                factor = factor * _sample_noise_lowres(
+                    cfg, params, view_to_world, jitter, medium, tx, tex_ss)
+            else:
+                factor = factor * sample_noise(medium, world_j, tx)
         factor = factor * torch.exp(
             -torch.clamp(medium.height_falloff, min=0.0)
             * torch.clamp(world_j[..., 1] - medium.height_base, min=0.0))
@@ -269,15 +309,11 @@ def upsample_pcf(cfg: RenderConfig, low: torch.Tensor) -> torch.Tensor:
     w, _, d = cfg.grid
     ssd = pcf_rate(cfg)
     ka, kb, t = _z_lerp_np(d, low.shape[1], ssd)
-    k0, wt = tent_taps(w, low.shape[3], ssd)
-    k1 = np.minimum(k0 + 1, low.shape[3] - 1)
     dev = low.device
     idx = upload(np.stack([ka, kb]), dev, torch.int64)
-    xk = upload(np.stack([k0, k1]), dev, torch.int64)
     la, lb = low[:, idx[0]], low[:, idx[1]]
     full_z = la + upload(t, dev)[None, :, None, None] * (lb - la)
-    wt = upload(wt, dev)
-    return full_z[..., xk[0]] * wt[0] + full_z[..., xk[1]] * wt[1]
+    return _tent_up(full_z, 3, _tent_taps(w, low.shape[3], ssd))
 
 
 def write_shadow_volume_dir(cfg: RenderConfig, tables: FrameTables,
@@ -296,7 +332,15 @@ def write_shadow_volume_dir(cfg: RenderConfig, tables: FrameTables,
                                          shadow.sample_dir_shadow
 
     The plain routes need the frame's geometry record and the lights, the
-    scene geometry and the shadow data on the frame's device."""
+    scene geometry and the shadow data on the frame's device. A scene
+    without a sun gets one channel of ones, as the JAX pass pads it."""
+    suns = tables.n_dir if tables is not None \
+        else getattr(dir_lights, "count", None)
+    if suns == 0:
+        dev = tables.spar.device if tables is not None \
+            else geo.view_to_world.device
+        return torch.ones((1,) + tuple(cfg.grid_dhw), dtype=torch.float32,
+                          device=dev)
     if cfg.shadow_mode == "raycast" and cfg.dir_shadow_impl == "pallas":
         return raycast_dir_shadow(tables)
     if pcf is not None:
@@ -350,7 +394,9 @@ def write_scatter_volume(cfg: RenderConfig, tables: FrameTables,
                                + scene.spot_lights.count, maps):
         return write_scatter_xla(cfg, geo, shadow, material, scene, maps)
     bake = vis = None
-    radiance = cfg.scatter_bake == "radiance"
+    # the radiance bake reads the media's phase g: without media the
+    # per-light loop over the visibility bake serves, as in the JAX pass
+    radiance = cfg.scatter_bake == "radiance" and bool(scene.media)
     if cfg.shadow_mode == "map":
         cube, spot = maps
         args = (cfg, geo.params, geo.view_to_world)

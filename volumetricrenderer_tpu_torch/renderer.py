@@ -7,12 +7,16 @@ zgather and other integer-ratio composites on its pixel cells, the co-sited
 composite at 1/composite_upsample, and the rowmm, anyres and "xla"
 composites of any pixel/froxel ratio in its per-pixel form):
 
-  fused    every production knob on, raycast shadows: the fused volume
-           phase (ops/frame_fused.py), its local lights from the low-rate
-           radiance bake (K1 K2 K3), from the low-rate visibility bake
-           (scatter_bake="vis": K9 K2 K3) or, at
-           raycast_shadow_subsample=1, from one shadow ray per froxel and
-           light (K2 K3);
+  fused    every production knob on, raycast shadows, a sun, local lights
+           and media: the fused volume phase (ops/frame_fused.py), its
+           local lights from the low-rate radiance bake (K1 K2 K3), from
+           the low-rate visibility bake (scatter_bake="vis": K9 K2 K3) or,
+           at raycast_shadow_subsample=1, from one shadow ray per froxel
+           and light (K2 K3). A medium that samples a noise texture folds
+           in only on the radiance bake: every medium's noise factor is
+           then sampled at the bake's low grid in plain torch
+           (ops/visibility.bake_noise_channels) and rides K1's radiance
+           into K2;
   staged   anything else, in the pass order of the Unity reference:
            material volumes (+ blend) -> shadow (+ blend) -> scatter
            (+ blend) -> accumulate (+ blend). Each pass (pipeline.py) takes
@@ -26,7 +30,10 @@ composites of any pixel/froxel ratio in its per-pixel form):
            shadow-map bakes and their gather samplers, and the XLA scatter:
            scatter_impl="xla", the RenderConfig default and DEMO_CONFIG's,
            or a scene without local lights, whose frame then integrates
-           with the plain scan).
+           with the plain scan). A scene without a sun has a shadow volume
+           of ones (no K5 or K7; its blend still runs); a scene without
+           media has zero material volumes and, under the scatter kernel,
+           the visibility bake K9 in place of the radiance bake.
 
 The shadow maps of shadow_mode="map" / "map_dir" are baked by
 `bake_shadow_data` (plain torch, ray casting on the renderer's device) once
@@ -49,7 +56,7 @@ render_frame(slab=...) renders one slab of an H-sharded frame
 (parallel/shard_render.py): the renderer's config holds the slab's
 halo-extended shapes and its band of the image, the slab the global grid
 and the slab's first global row. The fused frames and the staged raycast
-frames take slabs; the shadow-map modes, texture media, the "gather"
+frames take slabs; the shadow-map modes, texture-noise media, the "gather"
 reprojection and the post stack raise NotImplementedError there.
 
 All branches keep one FrameState, so a state made by one feeds another as
@@ -76,11 +83,14 @@ from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
 from volumetricrenderer_tpu_torch.ops import raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
-from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
+from volumetricrenderer_tpu_torch.ops.frame_fused import (MAX_DIR, MAX_NOISE,
+                                                          frame_tables,
                                                           integrate_blend,
                                                           volume_phase)
-from volumetricrenderer_tpu_torch.ops.material import media_foldable
+from volumetricrenderer_tpu_torch.ops.material import (media_foldable,
+                                                       noise_src)
 from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
+from volumetricrenderer_tpu_torch.ops.visibility import bake_noise_channels
 from volumetricrenderer_tpu_torch.ops.zg_composite import composite_frame
 from volumetricrenderer_tpu_torch.state import FrameState
 
@@ -118,12 +128,17 @@ class VolumetricRenderer:
     def fuses_frame(self, scene: Optional[Scene] = None) -> bool:
         """Whether render_frame takes the fused volume phase (the JAX
         renderer's `fuse_frame`, given what check_supported admits): the
-        config's terms and, given a scene, its local lights and media."""
+        config's terms and, given a scene, its sun, local lights and media,
+        whose noise textures fold in only on the radiance bake (ss > 1)."""
         cfg = self.config
-        if scene is not None and not (
-                scene.media and scene.point_lights.count
-                + scene.spot_lights.count):
-            return False
+        if scene is not None:
+            if not (scene.media and scene.dir_lights.count
+                    and scene.point_lights.count + scene.spot_lights.count):
+                return False
+            if not media_foldable(scene.media) and not (
+                    cfg.scatter_bake == "radiance"
+                    and max(int(cfg.raycast_shadow_subsample), 1) > 1):
+                return False
         return bool(cfg.frame_fused and cfg.temporal_blend_shadow
                     and cfg.temporal_blend_accumulation
                     and not cfg.temporal_blend_material
@@ -143,11 +158,34 @@ class VolumetricRenderer:
             self.config, scene.point_lights.count + scene.spot_lights.count,
             local_maps)
 
+    def bakes_noise(self, scene: Scene) -> bool:
+        """Whether the frame's low-rate radiance volume carries noise
+        channels, one per noise-bearing medium: the fBm where the scatter
+        kernel evaluates the media (bake_procedural_noise), and with a
+        noise texture on the fused frame every medium's, whatever
+        bake_procedural_noise says (the JAX frame bakes them all there)."""
+        cfg = self.config
+        if not (self.scatter_kernel(scene) and self.vis_ss() > 1
+                and cfg.scatter_bake == "radiance" and scene.media):
+            return False
+        if not media_foldable(scene.media):
+            return self.fuses_frame(scene)
+        return bool(cfg.bake_procedural_noise
+                    and pipeline.fuses_material(cfg, scene.media))
+
     def check_supported(self, scene: Scene, slab=None) -> None:
         """Raise NotImplementedError for what the port does not cover (with
         a slab, also what it does not cover in H-sharded slabs)."""
         cfg = self.config
         if slab is not None:
+            if not media_foldable(scene.media):
+                raise NotImplementedError(
+                    "texture-noise media in a slab: not ported to H-sharded "
+                    "slabs")
+            if not (scene.media and scene.dir_lights.count):
+                raise NotImplementedError(
+                    "a scene without media or without a sun in a slab: not "
+                    "ported to H-sharded slabs")
             if cfg.shadow_mode != "raycast":
                 raise NotImplementedError(
                     f"shadow_mode={cfg.shadow_mode!r} in a slab: the "
@@ -177,16 +215,15 @@ class VolumetricRenderer:
         if scene.mesh is not None or scene.geometry.n_proxy_boxes:
             raise NotImplementedError("mesh environments and their shadow "
                                       "proxy boxes are not ported")
-        if scene.media and not media_foldable(scene.media):
-            raise NotImplementedError("texture-noise media are not ported")
-        if not scene.media and kernel_scatter:
+        if scene.dir_lights.count > MAX_DIR:
             raise NotImplementedError(
-                "scenes without media under the scatter kernel (the JAX "
-                "frame's visibility bake over zero material volumes) are "
-                "not ported")
-        if scene.dir_lights.count == 0:
-            raise NotImplementedError("scenes without a directional light "
-                                      "are not ported")
+                f"{scene.dir_lights.count} directional lights: the port "
+                f"takes at most {MAX_DIR}")
+        n_noise = sum(1 for m in scene.media if noise_src(m))
+        if n_noise > MAX_NOISE and self.bakes_noise(scene):
+            raise NotImplementedError(
+                f"{n_noise} noise media baked at the low rate: the port "
+                f"takes at most {MAX_NOISE}")
 
     def bake_shadow_data(self, scene: Scene):
         """The shadow maps of the frame on the renderer's device: (sun
@@ -287,16 +324,15 @@ class VolumetricRenderer:
         # The XLA scatter reads none of the local lights' tables.
         kernel = self.scatter_kernel(scene)
         ss = self.vis_ss() if kernel else 1
-        radiance = ss > 1 and cfg.scatter_bake == "radiance"
+        radiance = ss > 1 and cfg.scatter_bake == "radiance" \
+            and bool(scene.media)
         local = (scene.point_lights, scene.spot_lights) if kernel \
             else (None, None)
         tables = frame_tables(
             params, view_to_world, prev_w2v, jitter_for_frame(
                 state.frame_count), alpha, scene.dir_lights, *local,
             scene.geometry, scene.media, time_x, cam.position, cfg.grid,
-            cfg.reproj_window, ss,
-            bool(cfg.bake_procedural_noise and radiance
-                 and pipeline.fuses_material(cfg, scene.media)),
+            cfg.reproj_window, ss, self.bakes_noise(scene),
             cfg.jitter_dir_scatter, light_schedule=not radiance,
             heightfield_local=cfg.heightfield_local_shadows)
         if self.device.type != "cpu":
@@ -372,7 +408,14 @@ class VolumetricRenderer:
         aux = {}
         mat_a = scatter = None
         if self.fuses_frame(scene):
-            shadow, acc = volume_phase(tables, prev_shadow, prev_acc)
+            noise = None
+            if tables.texture_noise:
+                geo, scene_dev = self.frame_geometry(state, scene, tables,
+                                                     params, world_to_view)
+                noise = bake_noise_channels(
+                    cfg, params, geo.view_to_world, geo.jitter,
+                    scene_dev.media, time_x, tables.ss)
+            shadow, acc = volume_phase(tables, prev_shadow, prev_acc, noise)
         else:
             geo, scene_dev = self.frame_geometry(state, scene, tables,
                                                  params, world_to_view)
@@ -391,7 +434,7 @@ class VolumetricRenderer:
             pallas_reproj = cfg.reproj_impl == "pallas"
             if (cfg.temporal_blend_shadow and pallas_reproj
                     and cfg.dir_shadow_impl == "pallas"
-                    and cfg.shadow_mode == "raycast"):
+                    and cfg.shadow_mode == "raycast" and tables.n_dir):
                 shadow = dir_shadow_blend(tables, prev_shadow)
             else:
                 pcf = self.pcf_tables(state, scene, dir_sh) \
