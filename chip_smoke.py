@@ -13,7 +13,7 @@ through VolumetricRenderer, the entry point a user calls, and:
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K13)
+     local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K14)
      (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size;
   4. renders each path as a deterministic sequence from a fresh state
@@ -193,7 +193,38 @@ through VolumetricRenderer, the entry point a user calls, and:
      1080p, at 4K, at the co-sited low-res pixels and at 720p on the demo
      grid); the bounds of the terrain modes count the terrain samples this
      run's rays take;
-  7. prints the `kernels` JSON line, then the result line.
+  7. the training path (inverse.py) at the demo grid's full width, each
+     phase with the launch counters set to 0 just before and read just
+     after:
+       train_fog         DEMO_CONFIG (160x88x64 at 1280x720: map mode, its
+                         maps baked once and passed in, the XLA scatter,
+                         K4's per-pixel form) on demo_scene, 4 Adam steps
+                         (lr 5e-2) of FogParams toward absorption 0.6
+       train_lights      DEMO_CONFIG with shadow_mode="raycast" at 1280x704
+                         (K4's 8x8 cells form) on the fractional scene, 4
+                         steps of LightParams
+       train_opacity     the same, 4 steps of OpacityParams
+     each step launching K4 once and K14 (composite_grad) once and nothing
+     else; each path's gradients finite and one non-zero, its last loss
+     below its first, its first step's gradients held against the same step
+     with K4 and K14 swapped for their twins, its forward, backward and Adam
+     ms (CUDA events), the forward without grad, a profiler window of 2
+     steps and the peak device memory printed; then
+       k14               K14 against composite_grad_plain on seeded random
+                         inputs: the per-pixel form at 1280x720 and the cells
+                         form at 1280x704 on 160x88x64, and the cells form at
+                         1920x1080 on 240x135x128, timed beside the twin, the
+                         bound and grid_sample's backward
+       train_sharded     make_sharded_train_step on a one-rank NCCL group
+                         over 2 views (K4 and K14 twice each) = one
+                         process's step over their mean loss
+       checkpoint        demo_xla's state after its 2 frames saved and loaded
+                         (checkpoint.py) renders the next frame bit for bit
+       grad_refusals     FULL_CONFIG's frame with its fog requiring grad
+                         raises NotImplementedError naming
+                         frame_volume_fused, and launches nothing;
+     K14 launches on no forward path (4., whose counts cover every kernel);
+  8. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
 Imports no JAX and nothing of the JAX package.
@@ -244,6 +275,9 @@ CHECKS = {
                    "a depth compare or a texel floor within ulps of its edge "
                    "may flip"),
     "ssr_march": (1e-6, 1e-5, 0.0, "the same taps in the same order"),
+    "composite_grad": (1e-5, 1e-5, 0.0,
+                       "atomics add a froxel's terms, from every pixel that "
+                       "reads it, in an order that changes from run to run"),
 }
 
 # kernel -> file:line of the TPU kernel(s) it stands for
@@ -265,6 +299,10 @@ REPLACES = {
     "windowed_warp": f"{PALLAS}warp.py:36",
     "pcf_shadow": f"{PALLAS}pcf_shadow.py:222",
     "ssr_march": f"{PALLAS}ssr.py:35",
+    # no TPU kernel: the JAX package differentiates its XLA composites
+    "composite_grad": "none; the adjoint of JAX's XLA composites "
+                      "(volumetricrenderer_tpu/ops/tent_composite.py:28, "
+                      "rowmm_composite.py:43, :147)",
 }
 
 # path -> (config changes from FULL_CONFIG, frames, kernels of the path; a
@@ -920,6 +958,330 @@ def fractional_scene(demo, geometry_cls):
     if not geom.box_fractional:
         raise AssertionError("the fractional scene has no fractional box")
     return dataclasses.replace(demo, geometry=geom)
+
+
+# The training paths (inverse.py): path -> (config changes from
+# DEMO_CONFIG, scene, the parameters trained, K4's and K14's form). Each
+# takes TRAIN_STEPS Adam steps (lr TRAIN_LR) through make_train_step's step,
+# one K4 and one K14 launch a step and no other kernel.
+RAYCAST_704 = dict(shadow_mode="raycast", image_height=704)
+TRAIN_PATHS = {
+    "train_fog": ({}, "demo", "fog", "pixels"),
+    "train_lights": (RAYCAST_704, "fractional", "lights", "cells"),
+    "train_opacity": (RAYCAST_704, "fractional", "opacity", "cells"),
+}
+TRAIN_STEPS = 4
+TRAIN_LR = 5e-2
+# K14's forms held and timed on seeded random inputs: form -> (K4's form,
+# (IH, IW), grid (W, H, D), what the training paths run it on)
+K14_FORMS = {
+    "pixels_720p": ("pixels", (720, 1280), (160, 88, 64), "train_fog"),
+    "cells_704p": ("cells", (704, 1280), (160, 88, 64),
+                   "train_lights, train_opacity, train_sharded"),
+    "cells_1080p": ("cells", (1080, 1920), (240, 135, 128),
+                    "checked and timed only"),
+}
+
+
+def train_setup(kind, inverse, scene):
+    """(parameters, apply_fn, the target's scene) of a training path: the
+    fog toward absorption 0.6; the lights toward a spot light 3x as bright
+    and moved 1 m and a sun 1.3x as bright; the first three boxes'
+    opacities toward (0.35, 0.8, 1.0) from 0.5."""
+    if kind == "fog":
+        params = inverse.FogParams.from_medium(scene.media[0])
+        with torch.no_grad():
+            t = inverse.FogParams.from_medium(scene.media[0])
+            t.log_absorption.fill_(math.log(0.6))
+        return params, inverse.scene_with_fog, inverse.scene_with_fog(
+            t, scene)
+    if kind == "lights":
+        params = inverse.LightParams.from_scene(scene)
+        with torch.no_grad():
+            t = inverse.LightParams.from_scene(scene)
+            t.spot_position.add_(torch.tensor([1.0, 0.0, 0.0],
+                                              device=t.spot_position.device))
+            t.spot_log_ci.add_(math.log(3.0))
+            t.dir_log_ci.add_(math.log(1.3))
+        return params, lambda p, s: p.apply(s), t.apply(scene)
+    params = inverse.OpacityParams.from_scene(scene)
+    with torch.no_grad():
+        t = inverse.OpacityParams.from_scene(scene)
+        o = torch.full_like(t.logit_opacity, 1.0 - 1e-3)
+        o[:3] = torch.tensor([0.35, 0.8, 1.0 - 1e-3], device=o.device)
+        t.logit_opacity.copy_(torch.log(o / (1.0 - o)))
+    return params, lambda p, s: p.apply(s), t.apply(scene)
+
+
+def leaf_grads(params):
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
+            for n, p in params.named_parameters()}
+
+
+def train_path(name, renderer, scene, scene_color, view_depth, shadow_data,
+               inverse, cuda, zg):
+    """Train path `name`: TRAIN_STEPS steps of make_train_step from a fresh
+    state with the launch counters set to 0 just before and read just
+    after; each step must launch K4 once and K14 once and nothing else.
+    Holds the first step's gradients against the same step with K4 and K14
+    swapped for their twins (|g - g_twin| <= 1e-4 max|g_twin| + 1e-12 a
+    leaf: K14's atomics and K4's log() ulps), checks that every gradient is
+    finite, that one is non-zero and that the last loss is below the first;
+    times forward, backward and the Adam step with CUDA events, the forward
+    without grad, and profiles 2 steps (device busy, launches a step), and
+    reports the peak device memory. Returns (launches, record)."""
+    import copy
+    kind = TRAIN_PATHS[name][2]
+    params, apply_fn, target_scene = train_setup(kind, inverse, scene)
+    state = renderer.init_state(scene.dir_lights.count)
+    with torch.no_grad():
+        target = renderer.render_frame(state, target_scene, 0.0, scene_color,
+                                       view_depth, shadow_data)[0][..., :3]
+    target = target.contiguous()
+    # the first step's gradients with the twins
+    twin_params = copy.deepcopy(params)
+    real = zg._k4, zg._k14
+    zg._k4 = lambda form, *a: (zg.composite_plain if form == "cells"
+                               else zg.composite_pixels_plain)(*a)
+    zg._k14 = lambda form, g, sc, vd, p, grid: zg.composite_grad_plain(
+        g, sc, vd, p, grid, form)
+    try:
+        inverse.image_loss(renderer, apply_fn(twin_params, scene), state,
+                           target, scene_color, view_depth,
+                           shadow_data).backward()
+    finally:
+        zg._k4, zg._k14 = real
+    twin = leaf_grads(twin_params)
+
+    opt = torch.optim.Adam(params.parameters(), lr=TRAIN_LR,
+                           betas=(0.9, 0.999), eps=1e-8)
+    step = inverse.make_train_step(renderer, opt, apply_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    losses, first = [], None
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = dict(cuda.LAUNCHES)
+        loss = step(params, scene, state, target, scene_color, view_depth,
+                    shadow_data)
+        delta = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.SOURCES}
+        want = {k: int(k in ("composite", "composite_grad"))
+                for k in cuda.SOURCES}
+        if delta != want:
+            raise AssertionError(
+                f"path {name}: step {i} launched "
+                f"{ {k: v for k, v in delta.items() if v} }, not K4 and K14 "
+                "once each")
+        if i == 0:
+            first = leaf_grads(params)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_wall = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"# {name}: launches in the {TRAIN_STEPS}-step run: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; losses "
+        f"{[f'{v:.6e}' for v in losses]}")
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"path {name}: the loss did not fall: {losses}")
+    nonzero = False
+    for n, g in first.items():
+        w = twin[n]
+        if not (bool(torch.isfinite(g).all())
+                and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"path {name}: non-finite gradient {n}")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        nonzero = nonzero or float(g.abs().max() if g.numel() else 0) > 0
+        log(f"# {name}: gradient {n} {tuple(g.shape)} max |g| "
+            f"{float(g.abs().max()) if g.numel() else 0.0:.4e}, max |g - "
+            f"g_twin| {err:.3e} (allowed 1e-4 max|g_twin| + 1e-12 = "
+            f"{1e-4 * scale + 1e-12:.3e})")
+        if err > 1e-4 * scale + 1e-12:
+            raise AssertionError(f"path {name}: gradient {n} disagrees with "
+                                 "the twins' step")
+    if not nonzero:
+        raise AssertionError(f"path {name}: every gradient is zero")
+    # the step's parts, timed with CUDA events over 3 more steps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = {"forward": 0.0, "backward": 0.0, "adam": 0.0}
+    n = 3
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = inverse.image_loss(renderer, apply_fn(params, scene), state,
+                                  target, scene_color, view_depth,
+                                  shadow_data)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+            parts[k] += ev[a].elapsed_time(ev[b]) / n
+    # the forward without grad (the frame alone), and a profiler window
+    # over 2 steps: device busy, launches a step, the kernels' shares
+    with torch.no_grad():
+        no_grad = cuda_time_ms(lambda: inverse.image_loss(
+            renderer, apply_fn(params, scene), state, target, scene_color,
+            view_depth, shadow_data), n)
+    log(f"# {name}: the same forward without grad {no_grad:.3f} ms (CUDA "
+        f"events, mean of {n})")
+    profile_frames(lambda: step(params, scene, state, target, scene_color,
+                                view_depth, shadow_data), 2)
+    record = dict(parts, step_wall_ms=step_wall, peak_bytes=peak,
+                  losses=losses, forward_no_grad_ms=no_grad)
+    log(f"# {name} step: forward {parts['forward']:.3f} ms, backward "
+        f"{parts['backward']:.3f} ms, Adam {parts['adam']:.3f} ms "
+        f"(CUDA events, mean of {n}); {step_wall:.3f} ms host wall a step "
+        f"over the counted run; peak device memory of the steps "
+        f"{peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB the run "
+        "held before them")
+    return launches, record
+
+
+def k14_forms(zg, froxel, camera, sample_grid, bound):
+    """K14 against composite_grad_plain in each of K14_FORMS on seeded random
+    inputs (a torch.Generator): a gradient in [-1, 1], a scene in [0, 1],
+    depths from the near plane to 140 (past the volume's far end); its
+    time, the twin's, the bound and, as the library yardstick, the backward
+    of grid_sample (3D, border) at the same sample points. Returns form ->
+    (max abs err, ms, plain ms, library ms, (bytes, operations))."""
+    dev = camera.position.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    out = {}
+    for form, (k4_form, (ih, iw), grid, _) in K14_FORMS.items():
+        w, h, d = grid
+        p = froxel.make_froxel_params(camera.fov_y, camera.aspect,
+                                      camera.near, 100.0, 0.5, grid)
+        rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+        g_img = (rnd(ih, iw, 4) * 2.0 - 1.0).contiguous()
+        sc = rnd(ih, iw, 3).contiguous()
+        vd = (float(camera.near) + rnd(ih, iw) * 140.0).contiguous()
+        args = (g_img, sc, vd, p, grid, k4_form)
+        got = zg.composite_grad(*args)
+        err = compare("composite_grad", got, zg.composite_grad_plain(*args),
+                      form)
+        ms = kernel_time_ms(lambda: zg.composite_grad(*args), 20)
+        plain = cuda_time_ms(lambda: zg.composite_grad_plain(*args), 2)
+        vol = torch.zeros((1, 4, d, h, w), device=dev, requires_grad=True)
+        res = torch.nn.functional.grid_sample(
+            vol, sample_grid(p, vd, d), mode="bilinear",
+            padding_mode="border", align_corners=False)
+        g_out = zg._grad_of_v(g_img, sc)[None, :, None].contiguous()
+        lib = kernel_time_ms(lambda: torch.autograd.grad(
+            res, vol, g_out, retain_graph=True), 20)
+        n_pix, n_fro = ih * iw, w * h * d
+        work = (n_pix * (16 + 4 + 12) + 16 * n_fro, 70 * n_pix)
+        b_ms, b_by = bound(*work)
+        log(f"# composite_grad, {form} ({k4_form}, {iw}x{ih} on "
+            f"{w}x{h}x{d}): {ms:.4f} ms/launch, plain {plain:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({work[0] / 1e6:.1f} MB), grid_sample "
+            f"backward {lib:.4f} ms")
+        out[form] = (err, ms, plain, lib, work)
+    return out
+
+
+def train_sharded(renderer, scene, scene_color, view_depth, inverse,
+                  cuda):
+    """make_sharded_train_step on a one-rank NCCL group over 2 views (the
+    camera moved for the second) against one process's step over their
+    mean loss, each from the same fog and a fresh Adam: the loss and the
+    updated parameters to 1e-6 relative (K14's atomics)."""
+    import copy
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dev = view_depth.device
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        params = inverse.FogParams.from_medium(scene.media[0])
+        ref = copy.deepcopy(params)
+        cam = scene.camera.position
+        cams = torch.stack([cam, cam + torch.tensor([0.3, 0.1, 0.4],
+                                                    device=cam.device)])
+        st = renderer.init_state(scene.dir_lights.count)
+        targets = torch.full((2, *view_depth.shape, 3), 0.2, device=dev)
+        colors = torch.stack([scene_color] * 2)
+        depths = torch.stack([view_depth] * 2)
+        adam = lambda p: torch.optim.Adam(p.parameters(), lr=TRAIN_LR,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        step = inverse.make_sharded_train_step(renderer, adam(params))
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        loss = float(step(params, scene, st, cams, targets, colors, depths))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        log(f"# train_sharded: launches in the step over 2 views: "
+            f"{json.dumps(launches)}")
+        if launches != {"composite": 2, "composite_grad": 2}:
+            raise AssertionError("train_sharded: the step over 2 views must "
+                                 "launch K4 and K14 twice each and nothing "
+                                 "else")
+        opt = adam(ref)
+        views = [dataclasses.replace(scene, camera=dataclasses.replace(
+            scene.camera, position=cams[i])) for i in range(2)]
+        ref_loss = torch.stack([inverse.render_loss(
+            renderer, ref, views[i], st, targets[i], colors[i], depths[i])
+            for i in range(2)]).mean()
+        ref_loss.backward()
+        opt.step()
+        ref_loss = float(ref_loss.detach())
+    finally:
+        dist.destroy_process_group()
+    errs = {n: float(((p - q).abs() / q.abs().clamp(min=1e-30)).max())
+            for (n, p), q in zip(params.named_parameters(),
+                                 ref.parameters())}
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"# train_sharded: loss {loss!r} vs one process {ref_loss!r} "
+        f"(relative {rel:.2e}); parameters' largest relative difference "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        "(allowed 1e-6)")
+    if rel > 1e-6 or max(errs.values()) > 1e-6:
+        raise AssertionError("the sharded step differs from one process's "
+                             "step over both views")
+    return launches
+
+
+def k14_entry(k14, train_launches, replaces, bound):
+    """The `kernels` JSON entry of K14: the per-pixel form at the demo grid
+    (train_fog's) at the top, the cells forms beside it; launches from the
+    training paths."""
+    by_path = {p: c["composite_grad"] for p, c in train_launches.items()
+               if c["composite_grad"]}
+
+    def fields(form):
+        err, ms, plain, lib, work = k14[form]
+        b_ms, b_by = bound(*work)
+        paths = K14_FORMS[form][3]
+        return {"launches": sum(by_path.get(p.strip(), 0)
+                                for p in paths.split(",")),
+                "paths": paths, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib}
+
+    entry = {"name": "composite_grad", "route": "cuda",
+             "source": "volumetricrenderer_tpu_torch/csrc/composite_grad.cu",
+             "replaces": replaces}
+    entry.update(fields("pixels_720p"))
+    del entry["paths"]
+    entry["launches"] = sum(by_path.values())
+    entry["launches_by_path"] = by_path
+    entry["max_abs_err"] = max(v[0] for v in k14.values())
+    entry["largest_hold"] = LARGEST.get("composite_grad", (None, None))[1]
+    for form in K14_FORMS:
+        if form != "pixels_720p":
+            entry[form] = fields(form)
+    return entry
 
 
 def main() -> int:
@@ -2742,8 +3104,77 @@ def main() -> int:
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
             else "operations"
 
+    # 8. the training paths (inverse.py), each from a fresh state with the
+    # launch counters set to 0 just before and read just after: K4 forward
+    # and K14 backward a step; then K14 against its twin in three forms,
+    # the data-parallel step, a checkpoint of demo_xla's state and the
+    # refusal of a frame JAX cannot differentiate
+    from volumetricrenderer_tpu_torch import inverse
+    from volumetricrenderer_tpu_torch.checkpoint import load_state, save_state
+    train_launches, train_rec = {}, {}
+    for name, (kw, key, _, _) in TRAIN_PATHS.items():
+        r_t = VolumetricRenderer(dataclasses.replace(DEMO_CONFIG, **kw))
+        sc_t = scenes[key]
+        if r_t.config == renderers["demo_xla"].config:
+            gb_t, maps_t = demo_gbuf[720], bakes["demo_xla"]
+        else:
+            gb_t = r_t.render_scene_inputs(sc_t)
+            maps_t = r_t.bake_shadow_data(sc_t)
+        train_launches[name], train_rec[name] = train_path(
+            name, r_t, sc_t, *gb_t, maps_t, inverse, cuda, zg)
+    k14 = k14_forms(zg, froxel, demo.camera, sample_grid, bound)
+    errs["composite_grad"] = max(v[0] for v in k14.values())
+    r_704 = VolumetricRenderer(dataclasses.replace(DEMO_CONFIG,
+                                                   **RAYCAST_704))
+    frac_scene = scenes["fractional"]
+    train_launches["train_sharded"] = train_sharded(
+        r_704, frac_scene, *r_704.render_scene_inputs(frac_scene), inverse,
+        cuda)
+    # checkpoint: demo_xla's state after its 2 frames, saved and loaded,
+    # renders the next frame bit for bit
+    import io
+    x_r, x_state = renderers["demo_xla"], runs["demo_xla"][1][-1]
+    buf = io.BytesIO()
+    save_state(buf, x_state)
+    buf.seek(0)
+    x_loaded = load_state(buf, x_r.init_state(demo.dir_lights.count))
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    x_a = x_r.render_frame(x_state, demo, 0.2, *demo_gbuf[720],
+                           bakes["demo_xla"])[0]
+    x_b = x_r.render_frame(x_loaded, demo, 0.2, *demo_gbuf[720],
+                           bakes["demo_xla"])[0]
+    torch.cuda.synchronize()
+    ck_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    log(f"# checkpoint: demo_xla's state at frame {x_state.frame_count} "
+        f"saved ({buf.getbuffer().nbytes} bytes) and loaded; launches of "
+        f"the two next frames {json.dumps(ck_launches)}; equal: "
+        f"{torch.equal(x_a, x_b)}")
+    if not torch.equal(x_a, x_b) or ck_launches != {"composite": 2} \
+            or x_loaded.frame_count != x_state.frame_count:
+        raise AssertionError("checkpoint: the loaded state does not resume "
+                             "demo_xla bit for bit")
+    # grad_refusals: FULL_CONFIG's fused frame under grad on the card
+    cuda.reset_launches()
+    fog = inverse.FogParams.from_medium(scene.media[0])
+    refusal = ""
+    try:
+        renderer.render_frame(renderer.init_state(1),
+                              inverse.scene_with_fog(fog, scene), 0.0,
+                              scene_color, view_depth)
+    except NotImplementedError as e:
+        refusal = str(e)
+    log(f"# grad_refusals: FULL_CONFIG under grad raises: {refusal!r}")
+    if any(cuda.LAUNCHES.values()) or "frame_volume_fused" not in refusal:
+        raise AssertionError("grad_refusals: the refusal must name "
+                             "frame_volume_fused and launch nothing")
+
     kernels = []
     for name in cuda.SOURCES:
+        if name == "composite_grad":
+            kernels.append(k14_entry(k14, train_launches, REPLACES[name],
+                                     bound))
+            continue
         b_ms, b_by = bound(*work[name])
         entry = {
             "name": name, "route": "cuda",

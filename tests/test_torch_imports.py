@@ -1,7 +1,8 @@
-"""The port stands alone: no file of volumetricrenderer_tpu_torch/ and not
-chip_smoke.py imports JAX or the JAX package (checked on the source, since
-this test process has JAX loaded already), and the renderer never falls
-back to the CPU when CUDA is missing."""
+"""The port stands alone: no file of volumetricrenderer_tpu_torch/, not
+chip_smoke.py and not the data-parallel step's test worker imports JAX,
+optax, orbax or the JAX package (checked on the source, since this test
+process has JAX loaded already), and the renderer never falls back to the
+CPU when CUDA is missing."""
 
 import ast
 from pathlib import Path
@@ -13,13 +14,14 @@ import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.ops import cuda
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "volumetricrenderer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "volumetricrenderer_tpu")
 
 
 def _port_files():
     files = sorted((ROOT / "volumetricrenderer_tpu_torch").rglob("*.py"))
     assert len(files) > 10
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "tests" / "torch_sharded_worker.py"]
 
 
 def _imported(tree):

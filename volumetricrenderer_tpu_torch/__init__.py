@@ -15,8 +15,11 @@ shadow-map frames and the post stack (`post.py`, `render_frame_post`), on
 procedural terrain in every ray cast; boxes of fractional opacity too), with
 procedural or texture noise (`ops/noise.perlin_texture_3d`), with or
 without a sun or media, at any pixel/froxel ratio, and in H-sharded slabs
-on one device (`parallel/shard_render.make_multislab_render`); see
-ROADMAP.md for what remains.
+on one device (`parallel/shard_render.make_multislab_render`); and the
+training path (`inverse.py`: fog, light and occluder parameters fitted by
+gradient descent through the frame, the composite's gradient on kernel K14,
+data parallel over `torch.distributed`) with `checkpoint.py`'s state
+checkpoints; see ROADMAP.md for what remains.
 """
 
 from volumetricrenderer_tpu_torch.config import (DEMO_CONFIG, FULL_CONFIG,

@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from volumetricrenderer_tpu_torch.inverse import (FogParams, LightParams,
+                                                  OpacityParams)
 from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
                                                  Geometry, Medium,
                                                  PointLights, Scene,
@@ -87,6 +89,25 @@ def scene_from_numpy(obj, device) -> Scene:
                  media=tuple(media), geometry=geometry,
                  ambient=_tensors(obj, ("ambient",), device)["ambient"],
                  mesh=_get(obj, "mesh"))
+
+
+def fog_params_from_numpy(obj, device):
+    """The port's inverse.FogParams from a JAX FogParams (or a dict of its
+    fields)."""
+    return FogParams(**_tensors(obj, ("log_scattering", "log_absorption",
+                                      "atanh_phase_g"), device))
+
+
+def light_params_from_numpy(obj, device):
+    """The port's inverse.LightParams from a JAX LightParams."""
+    return LightParams(**_tensors(obj, ("point_position", "point_log_ci",
+                                        "spot_position", "spot_log_ci",
+                                        "dir_log_ci"), device))
+
+
+def opacity_params_from_numpy(obj, device):
+    """The port's inverse.OpacityParams from a JAX OpacityParams."""
+    return OpacityParams(**_tensors(obj, ("logit_opacity",), device))
 
 
 def state_from_numpy(prev_accumulation, prev_shadow, prev_world_to_view,

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
            "shadow_blend", "scatter", "dir_shadow", "integrate",
            "bake_visibility", "temporal_blend", "windowed_warp",
-           "pcf_shadow", "ssr_march")
+           "pcf_shadow", "ssr_march", "composite_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -66,9 +66,10 @@ def _nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    """Hash of the kernel's sources and the flags that shape its code."""
+    """Hash of the kernel's source, the shared headers and the flags that
+    shape its code."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -132,6 +133,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "composite": {
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
+        "composite_grad": {
+            "vr_composite_grad": [vp] * 6 + [ci] * 5 + [vp],
+            "vr_composite_grad_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
                          "vr_shadow_blend_geometry": [ci, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
@@ -206,7 +210,10 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                               "ssr_march_kernel<32>"),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
-                              "composite_pixels_kernel")}
+                              "composite_pixels_kernel"),
+                "composite_grad": ("composite_grad_kernel<8, 8>",
+                                   "composite_grad_kernel<0, 0>",
+                                   "composite_grad_pixels_kernel")}
 
 
 def kernel_attrs(name: str) -> dict:
@@ -240,6 +247,15 @@ def check_cuda(*tensors: torch.Tensor, dtype=torch.float32) -> None:
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """The tensor's device address for a kernel's argument. A kernel writes
+    through it, out of autograd's sight, so a tensor that requires grad
+    raises while grad is on: its gradient would be dropped without an
+    error. CompositeFn (K4 forward, K14 backward) passes detached tensors."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "a kernel's input requires grad: the kernel has no backward, so "
+            "its gradient would be lost (render_frame refuses such routes "
+            "by name; this one reached a launch)")
     return ctypes.c_void_p(t.data_ptr())
 
 

@@ -35,6 +35,15 @@ neighbouring shards' real rows where the whole grid clamps, or in the
 per-pixel form on the slab's rows of the global mapping
 (`composite_pixels(..., y_map=(H, IH, halo))`, JAX `composite_rowmm(fy=...,
 row_off=0)`), as config.slab_composite_route picks.
+
+The gradient: under grad (acc or the scene colour requires it) a CUDA call
+of `composite` or `composite_pixels` on the whole grid goes through
+`CompositeFn`, which launches K4 forward and K14 (`composite_grad`,
+csrc/composite_grad.cu) backward, K14 the exact adjoint of the form's
+taps; its twin `composite_grad_plain` scatters the same taps with
+index_add_. On the CPU autograd differentiates the twins. What the JAX
+package does not differentiate raises under grad: a view depth that
+requires grad, a slab's forms and the planes of the co-sited composite.
 """
 
 from __future__ import annotations
@@ -128,36 +137,76 @@ def _check(acc, view_depth, grid_whd, w9, row_off=0) -> np.ndarray:
     return w9
 
 
-def _sample_plain(acc, view_depth, params, grid_whd, w9,
-                  row_off=0) -> torch.Tensor:
-    """The trilinear (L_r, L_g, L_b, T) at every pixel: [4, IH, IW]; cell
-    row cy reads acc rows cy + row_off + dy - 1, clamped to acc's rows."""
-    w, h, d = grid_whd
-    h_acc = acc.shape[2]
-    ih, iw = view_depth.shape
-    py, px = ih // h, iw // w
-    dev = acc.device
+def _z_taps(params, view_depth, d: int):
+    """The two z taps (long [IH, IW]) and the lerp weight f of each pixel:
+    fz = depth_to_froxel_z(depth) - 0.5 clipped to [0, d - 1], z0 =
+    floor(fz), z1 = min(z0 + 1, d - 1) (K4's and K14's depth_taps)."""
     fz = froxel.depth_to_froxel_z(params, view_depth) - 0.5
     fz = torch.clamp(fz, 0.0, d - 1.0)
     z0f = torch.floor(fz)
     f = fz - z0f
     z0 = torch.clamp(z0f.to(torch.long), 0, d - 1)
     z1 = torch.clamp(z0 + 1, max=d - 1)
+    return z0, z1, f
+
+
+def _cell_taps_plain(shape, grid_whd, w9, h_acc, row_off, dev):
+    """The cells form's xy taps in K4's order: (yy [IH, 1], xx [1, IW],
+    weight [IH, IW]) of the 3x3 cell neighbours, dy outer; cell row cy
+    reads acc rows cy + row_off + dy - 1, clamped to acc's h_acc rows. The
+    zero weights are kept: they add nothing."""
+    w, h, _ = grid_whd
+    ih, iw = shape
+    py, px = ih // h, iw // w
     rows = torch.arange(ih, device=dev)
     cols = torch.arange(iw, device=dev)
     cell = ((rows % py)[:, None] * px + (cols % px)[None, :])
     w9 = torch.as_tensor(w9, device=dev)
-    s0 = torch.zeros((4, ih, iw), dtype=torch.float32, device=dev)
-    s1 = torch.zeros_like(s0)
     for dy in range(3):
         yy = torch.clamp(rows // py + row_off + dy - 1, 0,
                          h_acc - 1)[:, None]
         for dx in range(3):
             xx = torch.clamp(cols // px + dx - 1, 0, w - 1)[None, :]
-            wt = w9[dy * 3 + dx][cell]
-            s0 = s0 + acc[:, z0, yy, xx] * wt
-            s1 = s1 + acc[:, z1, yy, xx] * wt
+            yield yy, xx, w9[dy * 3 + dx][cell]
+
+
+def _pixel_taps_plain(shape, grid_whd, y_map, dev):
+    """The per-pixel form's xy taps in K4's order: (yy [IH, 1], xx [1, IW],
+    weight [IH, IW]) of pixel_taps' two rows and two columns, y outer,
+    clamped to the volume."""
+    w, h, _ = grid_whd
+    ih, iw = shape
+    (yk, yw) = pixel_taps(ih, *_y_map(y_map, h, ih))
+    (xk, xw) = pixel_taps(iw, w)
+    yk = torch.as_tensor(yk, device=dev).long()
+    xk = torch.as_tensor(xk, device=dev).long()
+    yw, xw = torch.as_tensor(yw, device=dev), torch.as_tensor(xw, device=dev)
+    for a in range(2):
+        yy = torch.clamp(yk + a, 0, h - 1)[:, None]
+        for b in range(2):
+            xx = torch.clamp(xk + b, 0, w - 1)[None, :]
+            yield yy, xx, yw[a][:, None] * xw[b][None, :]
+
+
+def _trilinear(acc, z_taps, taps) -> torch.Tensor:
+    """(L_r, L_g, L_b, T) [4, IH, IW]: each xy tap's weight times acc at
+    both z taps, summed in tap order, then lerped in z."""
+    z0, z1, f = z_taps
+    s0 = torch.zeros((4, *z0.shape), dtype=torch.float32, device=acc.device)
+    s1 = torch.zeros_like(s0)
+    for yy, xx, wt in taps:
+        s0 = s0 + acc[:, z0, yy, xx] * wt
+        s1 = s1 + acc[:, z1, yy, xx] * wt
     return s0 * (1.0 - f) + s1 * f
+
+
+def _sample_plain(acc, view_depth, params, grid_whd, w9,
+                  row_off=0) -> torch.Tensor:
+    """The trilinear (L_r, L_g, L_b, T) at every pixel: [4, IH, IW]; cell
+    row cy reads acc rows cy + row_off + dy - 1, clamped to acc's rows."""
+    return _trilinear(acc, _z_taps(params, view_depth, grid_whd[2]),
+                      _cell_taps_plain(view_depth.shape, grid_whd, w9,
+                                       acc.shape[2], row_off, acc.device))
 
 
 def _blend(v: torch.Tensor, scene_color: torch.Tensor) -> torch.Tensor:
@@ -213,14 +262,22 @@ def composite(acc: torch.Tensor, scene_color: torch.Tensor,
     [4, D, H_ext, W] and the image the slab's band of grid_whd's h cell
     rows, whose cell row cy reads acc rows cy + row_off + dy - 1 -- real
     neighbour rows where the whole grid clamps (JAX composite_zgather with
-    halo_rows, or prepadded at row_off)."""
+    halo_rows, or prepadded at row_off). Under grad (acc or scene_color
+    requires it) a CUDA call goes through CompositeFn: K4 forward, K14
+    backward; a slab's band raises there."""
     w9 = _check(acc, view_depth, grid_whd, None, row_off)
     if scene_color.shape != (*view_depth.shape, 3):
         raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
                          f"depth {tuple(view_depth.shape)}")
+    grad = _needs_grad(acc, scene_color, view_depth,
+                       "a slab's cells composite (JAX composite_zgather)"
+                       if row_off else None)
     if acc.device.type == "cpu":
         return composite_plain(acc, scene_color, view_depth, params,
                                grid_whd, row_off)
+    if grad:
+        return CompositeFn.apply(acc, scene_color, view_depth, params,
+                                 grid_whd, "cells")
     out = torch.empty((*view_depth.shape, 4), dtype=torch.float32,
                       device=acc.device)
     return _launch(acc, scene_color, view_depth, params, grid_whd, w9, out,
@@ -233,7 +290,9 @@ def composite_planes(acc: torch.Tensor, view_depth: torch.Tensor, params,
     """K4 without a scene colour: the sampled planes (L_r, L_g, L_b, T)
     [4, IH, IW], as `composite_zgather_planes` returns them. w9: the
     [9, py*px] cell weights (its w9_override), those of the pixel centres
-    when None."""
+    when None. Raises under grad: JAX takes composite_zgather_planes."""
+    _needs_grad(acc, None, view_depth,
+                "the composite's planes (JAX composite_zgather_planes)")
     if acc.device.type == "cpu":
         return composite_planes_plain(acc, view_depth, params, grid_whd, w9)
     w9 = _check(acc, view_depth, grid_whd, w9)
@@ -264,7 +323,8 @@ def composite_cosited(acc: torch.Tensor, scene_color: torch.Tensor,
     pixels co-sited with full-res pixel (us*i, us*j) -- their depth, their
     in-cell weights -- upsampled bilinearly, then rgb = scene * T + L at
     full resolution. Every us-th pixel of each axis equals the exact
-    composite. Returns [IH, IW, 4]."""
+    composite. Returns [IH, IW, 4]; raises under grad (JAX takes
+    composite_zgather_planes)."""
     ih, iw = view_depth.shape
     w, h, _ = grid_whd
     if ih % us or iw % us or (ih // us) % h or (iw // us) % w:
@@ -325,30 +385,10 @@ def composite_pixels_plain(acc: torch.Tensor, scene_color: torch.Tensor,
                            ) -> torch.Tensor:
     """Twin of K4's per-pixel form: image [IH, IW, 4] at any image size."""
     _check_pixels(acc, view_depth, grid_whd)
-    w, h, d = grid_whd
-    ih, iw = view_depth.shape
-    dev = acc.device
-    fz = froxel.depth_to_froxel_z(params, view_depth) - 0.5
-    fz = torch.clamp(fz, 0.0, d - 1.0)
-    z0f = torch.floor(fz)
-    f = fz - z0f
-    z0 = torch.clamp(z0f.to(torch.long), 0, d - 1)
-    z1 = torch.clamp(z0 + 1, max=d - 1)
-    (yk, yw) = pixel_taps(ih, *_y_map(y_map, h, ih))
-    (xk, xw) = pixel_taps(iw, w)
-    yk = torch.as_tensor(yk, device=dev).long()
-    xk = torch.as_tensor(xk, device=dev).long()
-    yw, xw = torch.as_tensor(yw, device=dev), torch.as_tensor(xw, device=dev)
-    s0 = torch.zeros((4, ih, iw), dtype=torch.float32, device=dev)
-    s1 = torch.zeros_like(s0)
-    for a in range(2):
-        yy = torch.clamp(yk + a, 0, h - 1)[:, None]
-        for b in range(2):
-            xx = torch.clamp(xk + b, 0, w - 1)[None, :]
-            wt = yw[a][:, None] * xw[b][None, :]
-            s0 = s0 + acc[:, z0, yy, xx] * wt
-            s1 = s1 + acc[:, z1, yy, xx] * wt
-    return _blend(s0 * (1.0 - f) + s1 * f, scene_color)
+    v = _trilinear(acc, _z_taps(params, view_depth, grid_whd[2]),
+                   _pixel_taps_plain(view_depth.shape, grid_whd, y_map,
+                                     acc.device))
+    return _blend(v, scene_color)
 
 
 def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
@@ -364,9 +404,21 @@ def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
     if scene_color.shape != (*view_depth.shape, 3):
         raise ValueError(f"scene colour {tuple(scene_color.shape)} for "
                          f"depth {tuple(view_depth.shape)}")
+    grad = _needs_grad(acc, scene_color, view_depth,
+                       None if y_map is None else
+                       "a slab's per-pixel composite (JAX composite_rowmm "
+                       "with the slab's fy)")
     if acc.device.type == "cpu":
         return composite_pixels_plain(acc, scene_color, view_depth, params,
                                       grid_whd, y_map)
+    if grad:
+        return CompositeFn.apply(acc, scene_color, view_depth, params,
+                                 grid_whd, "pixels")
+    return _launch_pixels(acc, scene_color, view_depth, params, grid_whd,
+                          y_map)
+
+
+def _launch_pixels(acc, scene_color, view_depth, params, grid_whd, y_map):
     cuda.check_cuda(acc, scene_color, view_depth)
     w, h, d = grid_whd
     ih, iw = view_depth.shape
@@ -379,6 +431,160 @@ def composite_pixels(acc: torch.Tensor, scene_color: torch.Tensor,
                 cuda.ptr(xk), cuda.ptr(xw), cuda.ptr(fp), w, h, d, ih, iw,
                 cuda.ptr(out), entry="vr_composite_pixels")
     return out
+
+
+# --------------------------------------------------------------------------
+# The gradient: K14, the adjoint of K4's cells and per-pixel forms
+# --------------------------------------------------------------------------
+
+FORMS = ("cells", "pixels")
+
+
+def _needs_grad(acc, scene_color, view_depth, refused=None) -> bool:
+    """Whether the composite runs under grad: grad mode on and acc or the
+    scene colour requiring it. A view depth that requires grad raises (no
+    JAX entry point differentiates the G-buffer), and so does `refused`, a
+    form that JAX serves with a Pallas kernel, once grad is needed."""
+    if not torch.is_grad_enabled():
+        return False
+    if view_depth.requires_grad:
+        raise NotImplementedError(
+            "the composite's gradient in the view depth: no JAX entry point "
+            "differentiates the G-buffer")
+    grad = acc.requires_grad or (scene_color is not None
+                                 and scene_color.requires_grad)
+    if grad and refused:
+        raise NotImplementedError(
+            f"{refused} under grad: jax.grad refuses that route")
+    return grad
+
+
+def _grad_of_v(grad_img: torch.Tensor, scene_color: torch.Tensor
+               ) -> torch.Tensor:
+    """The gradient of the sampled planes (L_r, L_g, L_b, T) [4, IH, IW]
+    from the image's [IH, IW, 4]: g_rgb, and g_T = g_rgb . scene + g_a."""
+    g_t = (grad_img[..., :3] * scene_color).sum(-1) + grad_img[..., 3]
+    return torch.cat([grad_img[..., :3], g_t[..., None]],
+                     dim=-1).permute(2, 0, 1)
+
+
+def composite_grad_plain(grad_img: torch.Tensor, scene_color: torch.Tensor,
+                         view_depth: torch.Tensor, params,
+                         grid_whd: Tuple[int, int, int],
+                         form: str = "cells") -> torch.Tensor:
+    """Twin of K14: the accumulation's gradient [4, D, H, W] from the
+    image's grad_img [IH, IW, 4], through K4's `form` ("cells" or
+    "pixels") on the whole grid. Each xy tap of K4's order scatters
+    (g (1 - f)) w to z0 and (g f) w to z1, g the planes' gradient (g_rgb,
+    g_rgb . scene + g_a), by index_add_ into one zeroed volume."""
+    if form not in FORMS:
+        raise ValueError(f"composite form {form!r}: one of {FORMS}")
+    w, h, d = grid_whd
+    dev = grad_img.device
+    shape = tuple(view_depth.shape)
+    z0, z1, f = _z_taps(params, view_depth, d)
+    gv = _grad_of_v(grad_img, scene_color)
+    g0, g1 = gv * (1.0 - f), gv * f
+    taps = _cell_taps_plain(shape, grid_whd, cell_weights(
+        shape[0] // h, shape[1] // w), h, 0, dev) if form == "cells" \
+        else _pixel_taps_plain(shape, grid_whd, None, dev)
+    out = torch.zeros((4, d * h * w), dtype=torch.float32, device=dev)
+    for yy, xx, wt in taps:
+        for z, g in ((z0, g0), (z1, g1)):
+            out.index_add_(1, ((z * h + yy) * w + xx).reshape(-1),
+                           (g * wt).reshape(4, -1))
+    return out.reshape(4, d, h, w)
+
+
+def _k4(form, acc, scene_color, view_depth, params, grid_whd):
+    """K4's launch in `form` on the whole grid."""
+    if form == "cells":
+        out = torch.empty((*view_depth.shape, 4), dtype=torch.float32,
+                          device=acc.device)
+        return _launch(acc, scene_color, view_depth, params, grid_whd,
+                       cell_weights(view_depth.shape[0] // grid_whd[1],
+                                    view_depth.shape[1] // grid_whd[0]),
+                       out)
+    return _launch_pixels(acc, scene_color, view_depth, params, grid_whd,
+                          None)
+
+
+def _k14(form, grad_img, scene_color, view_depth, params, grid_whd):
+    """K14's launch in `form` into a zeroed gradient volume."""
+    cuda.check_cuda(grad_img, scene_color, view_depth)
+    w, h, d = grid_whd
+    ih, iw = view_depth.shape
+    dev = grad_img.device
+    fp = froxel.depth_params(params).to(dev)
+    out = torch.zeros((4, d, h, w), dtype=torch.float32, device=dev)
+    if form == "cells":
+        w9 = cell_weights(ih // h, iw // w)
+        first, wts = _device_cell_taps(w9.tobytes(), w9.shape[1], dev)
+        cuda.launch("composite_grad", cuda.ptr(grad_img),
+                    cuda.ptr(scene_color), cuda.ptr(view_depth),
+                    cuda.ptr(first), cuda.ptr(wts), cuda.ptr(fp), w, h, d,
+                    ih, iw, cuda.ptr(out))
+    else:
+        yk, yw, xk, xw = _device_taps(ih, iw, (h, ih, 0), w, dev)
+        cuda.launch("composite_grad", cuda.ptr(grad_img),
+                    cuda.ptr(scene_color), cuda.ptr(view_depth),
+                    cuda.ptr(yk), cuda.ptr(yw), cuda.ptr(xk), cuda.ptr(xw),
+                    cuda.ptr(fp), w, h, d, ih, iw, cuda.ptr(out),
+                    entry="vr_composite_grad_pixels")
+    return out
+
+
+def composite_grad(grad_img: torch.Tensor, scene_color: torch.Tensor,
+                   view_depth: torch.Tensor, params,
+                   grid_whd: Tuple[int, int, int],
+                   form: str = "cells") -> torch.Tensor:
+    """K14 (csrc/composite_grad.cu): the accumulation's gradient
+    [4, D, H, W] from the image's [IH, IW, 4] through K4's `form` on the
+    whole grid. Its twin composite_grad_plain for CPU tensors."""
+    if form not in FORMS:
+        raise ValueError(f"composite form {form!r}: one of {FORMS}")
+    w, h, _ = grid_whd
+    cells_ok = view_depth.shape[0] % h == 0 and view_depth.shape[1] % w == 0
+    if grad_img.shape != (*view_depth.shape, 4) \
+            or scene_color.shape != (*view_depth.shape, 3) \
+            or (form == "cells" and not cells_ok):
+        raise ValueError(f"composite gradient shapes: grad "
+                         f"{tuple(grad_img.shape)}, scene "
+                         f"{tuple(scene_color.shape)}, depth "
+                         f"{tuple(view_depth.shape)}, grid {grid_whd}, "
+                         f"form {form}")
+    if grad_img.device.type == "cpu":
+        return composite_grad_plain(grad_img, scene_color, view_depth,
+                                    params, grid_whd, form)
+    return _k14(form, grad_img, scene_color, view_depth, params, grid_whd)
+
+
+class CompositeFn(torch.autograd.Function):
+    """K4 with K14 as its backward: apply(acc, scene_color, view_depth,
+    params, grid_whd, form) -> image [IH, IW, 4]. The forward launches K4
+    as the wrappers do; the backward launches K14 for acc and takes the
+    scene colour's gradient g_rgb * T from the image's alpha, which is T."""
+
+    @staticmethod
+    def forward(ctx, acc, scene_color, view_depth, params, grid_whd, form):
+        image = _k4(form, acc.detach(), scene_color.detach(), view_depth,
+                    params, grid_whd)
+        ctx.save_for_backward(scene_color, view_depth, image)
+        ctx.args = (params, grid_whd, form)
+        return image
+
+    @staticmethod
+    def backward(ctx, grad_img):
+        scene_color, view_depth, image = ctx.saved_tensors
+        params, grid_whd, form = ctx.args
+        grad_img = grad_img.contiguous()
+        g_acc = g_scene = None
+        if ctx.needs_input_grad[0]:
+            g_acc = composite_grad(grad_img, scene_color.detach(),
+                                   view_depth, params, grid_whd, form)
+        if ctx.needs_input_grad[1]:
+            g_scene = grad_img[..., :3] * image[..., 3:]
+        return g_acc, g_scene, None, None, None, None
 
 
 def composite_frame(cfg: RenderConfig, acc: torch.Tensor,

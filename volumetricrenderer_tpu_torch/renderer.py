@@ -59,6 +59,13 @@ and the slab's first global row. The fused frames and the staged raycast
 frames take slabs; the shadow-map modes, texture-noise media, the "gather"
 reprojection and the post stack raise NotImplementedError there.
 
+Under grad (a scene, state or scene colour tensor requiring it) the frame
+is differentiable wherever the JAX package's is -- the plain-torch passes by
+autograd, the composite through K4 forward and its adjoint K14 backward
+(ops/zg_composite.CompositeFn) -- and check_differentiable refuses, naming
+the JAX kernel, every frame whose JAX route reaches a Pallas kernel, which
+jax.grad refuses (inverse.py trains through this).
+
 All branches keep one FrameState, so a state made by one feeds another as
 long as the same blends are on. A config or scene that the JAX package would
 send down a branch that is not ported raises NotImplementedError naming it.
@@ -78,7 +85,9 @@ import torch
 from volumetricrenderer_tpu_torch import froxel, pipeline
 from volumetricrenderer_tpu_torch.post import PostConfig, apply_post_planes
 from volumetricrenderer_tpu_torch import shadow as shadow_lib
-from volumetricrenderer_tpu_torch.config import RenderConfig
+from volumetricrenderer_tpu_torch.config import (RenderConfig,
+                                                 composite_eligible,
+                                                 composite_route)
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
 from volumetricrenderer_tpu_torch.ops import raycast
@@ -225,6 +234,60 @@ class VolumetricRenderer:
                 f"{n_noise} noise media baked at the low rate: the port "
                 f"takes at most {MAX_NOISE}")
 
+    def check_differentiable(self, scene: Scene, shadow_data,
+                             slab=None) -> None:
+        """Raise NotImplementedError, naming the JAX package's Pallas
+        kernel, wherever the JAX frame's route for this config and scene
+        reaches one: jax.grad refuses every Pallas kernel, so the port
+        refuses the same frames under grad, on the CPU as on the card
+        (render_frame calls this when grad is on and a scene, state or scene
+        colour tensor requires it). Everywhere else the port's frame is
+        differentiable: the plain-torch passes by autograd, the composite
+        through zg_composite.CompositeFn (K4 forward, K14 backward).
+        shadow_data: the frame's maps (bake_shadow_data's triple). The first
+        refusal that applies is raised."""
+        cfg = self.config
+        dir_sh, cube_sh, spot_sh = shadow_data
+        n_dir = scene.dir_lights.count
+        kernel = self.scatter_kernel(scene, (cube_sh, spot_sh))
+        blends = (cfg.temporal_blend_shadow, cfg.temporal_blend_accumulation,
+                  cfg.temporal_blend_material, cfg.temporal_blend_scatter)
+        refused = (
+            (slab is not None, "render_frame(slab=...): the JAX slab frame "
+             "runs the fused frame or the scatter kernel"),
+            (self.fuses_frame(scene), "the fused frame: JAX "
+             "frame_volume_fused (ops/pallas/frame_fused.py)"),
+            (kernel, "the scatter kernel: JAX scatter_local_pallas "
+             "(ops/pallas/scatter.py), its bakes bake_radiance_pallas, "
+             "bake_visibility_pallas (ops/pallas/visibility.py) and, with "
+             "accumulate_impl='pallas' on its planes, accumulate_fused_pallas "
+             "(ops/pallas/integrate.py) or integrate_blend_fused "
+             "(ops/pallas/integrate_blend.py)"),
+            (cfg.shadow_mode == "raycast" and cfg.dir_shadow_impl == "pallas"
+             and n_dir > 0, "dir_shadow_impl='pallas': JAX "
+             "dir_shadow_pallas (ops/pallas/dir_shadow.py) and "
+             "dir_shadow_blend_fused (ops/pallas/shadow_blend.py)"),
+            (pipeline.uses_pcf_kernel(cfg, dir_sh, n_dir),
+             "the cascaded-PCF sun shadow: JAX pcf_dir_shadow_pallas "
+             "(ops/pallas/pcf_shadow.py)"),
+            (cfg.reproj_impl == "pallas" and any(blends),
+             "reproj_impl='pallas': JAX fused_temporal_blend "
+             "(ops/pallas/temporal.py) and windowed_warp_pallas "
+             "(ops/pallas/warp.py)"),
+            (composite_route(cfg) == "cosited", "the co-sited composite: "
+             "JAX composite_zgather_planes (ops/pallas/zg_composite.py)"),
+            (composite_eligible(cfg), "composite_impl='zgather': JAX "
+             "composite_zgather (ops/pallas/zg_composite.py)"),
+            (cfg.composite_impl == "pallas",
+             "composite_impl='pallas': JAX composite_pallas "
+             "(ops/pallas/composite.py)"),
+        )
+        for hit, what in refused:
+            if hit:
+                raise NotImplementedError(
+                    f"{what}, under grad: jax.grad refuses that Pallas "
+                    "kernel, and the port refuses the same frame")
+
     def bake_shadow_data(self, scene: Scene):
         """The shadow maps of the frame on the renderer's device: (sun
         cascades DirShadowData, point-light cubes CubeShadowData, spot maps
@@ -302,7 +365,12 @@ class VolumetricRenderer:
         the GPU, then uploaded in one asynchronous copy (FrameTables.to)."""
         cfg = self.config
         self.check_supported(scene, slab)
-        scene = self.host_scene(scene)
+        with torch.no_grad():
+            return self._frame_tables(state, self.host_scene(scene), time_x,
+                                      slab)
+
+    def _frame_tables(self, state, scene, time_x, slab):
+        cfg = self.config
         cam = scene.camera
         view_to_world = cam.view_to_world()
         world_to_view = froxel.invert_rigid(view_to_world)
@@ -357,6 +425,10 @@ class VolumetricRenderer:
         """K12's tables of the frame (pipeline.pack_pcf_tables), packed on
         the CPU from the host copies of the scene and the shadow data, on
         the renderer's device."""
+        with torch.no_grad():
+            return self._pcf_tables(state, scene, dir_shadow)
+
+    def _pcf_tables(self, state, scene, dir_shadow):
         cfg = self.config
         host = self.host_scene(scene)
         cam = host.camera
@@ -401,6 +473,9 @@ class VolumetricRenderer:
             scene_color, view_depth = self.render_scene_inputs(scene)
         if shadow_data is None:
             shadow_data = self.bake_shadow_data(scene)
+        if torch.is_grad_enabled() and requires_grad(scene, state,
+                                                     scene_color):
+            self.check_differentiable(scene, shadow_data, slab)
         dir_sh, cube_sh, spot_sh = shadow_data
         f32 = torch.float32
         prev_shadow = state.prev_shadow.to(f32).contiguous()
@@ -499,6 +574,13 @@ class VolumetricRenderer:
             raise NotImplementedError("the post stack in a slab: its "
                                       "screen-space passes are not ported "
                                       "to H-sharded bands")
+        if post_cfg.ssr_intensity > 0.0 and torch.is_grad_enabled() \
+                and requires_grad(scene, state, scene_color):
+            raise NotImplementedError(
+                "the SSR march under grad: its kernel K13 (JAX "
+                "ssr_march_pallas, ops/pallas/ssr.py) has no backward yet. "
+                "JAX's default SSR, its XLA march (post.SSR_PALLAS = False), "
+                "is differentiable: the port lacks that gradient")
         image, aux, new_state = self.render_frame(
             state, scene, time_x, scene_color, view_depth, shadow_data)
         out = apply_post_planes([image[..., c] for c in range(3)], post_cfg,
@@ -523,6 +605,21 @@ class VolumetricRenderer:
             params=params, view_to_world=mats[0], prev_world_to_view=mats[1],
             jitter=upload(tables.jitter, dev), alpha=alpha, grid=cfg.grid)
         return geo, scene.to(dev)
+
+
+def requires_grad(*objs) -> bool:
+    """Whether any tensor in objs (trees of dataclasses and tuples, or
+    tensors) requires grad."""
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            return o.requires_grad
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            return any(walk(getattr(o, f.name))
+                       for f in dataclasses.fields(o))
+        if isinstance(o, tuple):
+            return any(walk(v) for v in o)
+        return False
+    return any(walk(o) for o in objs)
 
 
 def _host_copy(cached, obj):
