@@ -6,8 +6,9 @@ Drives the port's frames at full width (240x135x128 froxels, 1920x1080 and,
 for the uhd paths, 3840x2160, on benchmark_scene with 16 local lights and
 procedural noise, and with a 32^3 noise texture, without its sun or without
 media; and on the reference demo scene, demo_scene, with its procedural
-terrain, at 1920x1080 and at the demo grid, 160x88x64 froxels at 1280x720)
-through VolumetricRenderer, the entry point a user calls, and:
+terrain, also with its tree meshes (mesh_env=True), at 1920x1080 and at the
+demo grid, 160x88x64 froxels at 1280x720) through VolumetricRenderer, the
+entry point a user calls, and the port's demo entry, and:
 
   1. prints the device and `nvidia-smi` name + power limit; exits non-zero
      without CUDA;
@@ -15,7 +16,10 @@ through VolumetricRenderer, the entry point a user calls, and:
      and prints the registers per thread, shared memory per block and
      local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K14)
      (cudaFuncGetAttributes);
-  3. computes the G-buffer once per image size;
+  3. computes the G-buffer once per image size; the raster phase: the
+     mesh scene's G-buffer at 1920x1080 and 1280x720, timed whole, the
+     raster alone and its shading alone (CUDA events and host clock), and
+     the 720p one against the same plain code on the CPU;
   4. renders each path as a deterministic sequence from a fresh state
      (time_x = 0.1 i) with the launch counters set to 0 just before and read
      just after, and checks that exactly the path's kernels were launched,
@@ -119,6 +123,14 @@ through VolumetricRenderer, the entry point a user calls, and:
                          perlin_texture_3d(32) (demo.py --noise), 2 frames:
                          the texture sampled in the plain material volumes,
                          K4's per-pixel form
+     on demo_scene(mesh_env=True) (the tree meshes rasterized into the
+     G-buffer, their 20 voxelized proxy boxes of opacity below 1 in every
+     shadow ray: 23 boxes in the any-hit loops):
+       mesh_full         FULL_CONFIG, 4 frames: K1 K2 K3 K4
+       mesh_production   demo.py --production at the demo grid, 2 frames:
+                         K1 K2 K3 and K4's per-pixel form
+       mesh_demo         DEMO_CONFIG (demo.py --mesh-env's frame), its maps
+                         baked once, 2 frames: K4's per-pixel form
      and then the post stack on the fused frame (POST_PATHS), each frame's
      display image checked finite, in [0, 1] and not flat:
        post_bench        render_frame_post with bench.py's PostConfig
@@ -164,7 +176,10 @@ through VolumetricRenderer, the entry point a user calls, and:
      with rays on demo_exact_hf's and K9 on demo_vis_hf's frame 2, K1 and
      K2 on the fractional path's frame 2; at the demo grid K1, K2, K3 and
      K4's per-pixel form on demo_production's frame 4, which together
-     reproduce the path's image bit for bit), checks that the terrain
+     reproduce the path's image bit for bit; on the mesh scene K1-K4 on
+     mesh_full's frame 4 and at the demo grid on mesh_production's frame 2,
+     each chain reproducing its path's image bit for bit; the XLA scatter
+     of mesh_demo's last frame against the CPU), checks that the terrain
      changes more of K7's elements, and the local terrain more of K1's,
      K6's and K9's, than each hold lets past (ARM_FRACTION tightens K1's
      and K6's), and shows that K7 then K10 gives K5's volume, K8 then
@@ -223,6 +238,12 @@ through VolumetricRenderer, the entry point a user calls, and:
        grad_refusals     FULL_CONFIG's frame with its fog requiring grad
                          raises NotImplementedError naming
                          frame_volume_fused, and launches nothing;
+       demo_entry        the port's demo (python -m
+                         volumetricrenderer_tpu_torch.demo) through its
+                         main(argv) in this process: --mesh-env 2 frames,
+                         --dump-scene, then --scene on that file 2 frames,
+                         its PNGs written and its display checksums equal
+                         to the built scene's;
      K14 launches on no forward path (4., whose counts cover every kernel);
   8. prints the `kernels` JSON line, then the result line.
 
@@ -235,8 +256,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -430,6 +454,12 @@ DEMO_PATHS = {
     "anyres_xla": ("demo", dict(PRODUCTION, composite_impl="xla"), 1,
                    FUSED_KERNELS),
     "demo_xla": ("demo", DEMO_XLA, 2, ("composite",)),
+    # demo_scene(mesh_env=True): the tree meshes rasterized into the
+    # G-buffer, their 20 voxelized proxy boxes (opacity below 1) in every
+    # shadow ray: 23 boxes in the kernels' any-hit loops
+    "mesh_full": ("mesh", {}, 4, FUSED_KERNELS),
+    "mesh_production": ("mesh", PRODUCTION, 2, FUSED_KERNELS),
+    "mesh_demo": ("mesh", DEMO_XLA, 2, ("composite",)),
 }
 # bench.py's texture frame and its staged forms (benchmark_scene with the
 # fog sampling perlin_texture_3d()), demo.py --noise, and benchmark_scene
@@ -452,7 +482,8 @@ SCENE_PATHS = {
 }
 # the paths of the plain XLA scatter, whose last frame's scatter is held
 # against the same function on the CPU
-XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla", "demo_noise")
+XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla", "demo_noise",
+                     "mesh_demo")
 PATHS.update({name: v[1:] for name, v in DEMO_PATHS.items()})
 PATHS.update({name: v[1:] for name, v in SCENE_PATHS.items()})
 # (kernel, mode) of the terrain and fractional arms, of the demo grid
@@ -460,20 +491,26 @@ PATHS.update({name: v[1:] for name, v in SCENE_PATHS.items()})
 # the paths that launch it in that mode
 ARM_PATHS = {
     ("bake_radiance", "terrain_local"): ("demo_hf_local",),
-    ("bake_radiance", "demo_grid"): ("demo_production", "anyres_xla"),
+    ("bake_radiance", "demo_grid"): ("demo_production", "anyres_xla",
+                                     "mesh_production"),
     ("bake_radiance", "fractional"): ("fractional",
                                       "fractional_no_shadow_blend"),
+    ("bake_radiance", "mesh"): ("mesh_full",),
     ("shadow_scatter", "terrain"): ("demo_full", "demo_hf_local"),
-    ("shadow_scatter", "demo_grid"): ("demo_production", "anyres_xla"),
+    ("shadow_scatter", "demo_grid"): ("demo_production", "anyres_xla",
+                                      "mesh_production"),
     ("shadow_scatter", "fractional"): ("fractional",),
-    ("integrate_blend", "demo_grid"): ("demo_production", "anyres_xla"),
+    ("shadow_scatter", "mesh"): ("mesh_full",),
+    ("integrate_blend", "demo_grid"): ("demo_production", "anyres_xla",
+                                       "mesh_production"),
     ("shadow_blend", "terrain"): ("demo_exact_hf",),
     ("scatter", "rays_terrain"): ("demo_exact_hf",),
     ("dir_shadow", "terrain"): ("demo_no_shadow_blend",
                                 "fractional_no_shadow_blend"),
     ("bake_visibility", "terrain_local"): ("demo_vis_hf",),
     ("composite", "pixels_720p"): ("demo_production", "anyres_xla",
-                                   "demo_xla", "demo_noise"),
+                                   "demo_xla", "demo_noise",
+                                   "mesh_production", "mesh_demo"),
     # K1 with a texture medium: the radiance channels alone (tex, where the
     # noise channels come from the plain bake, and the staged texture paths,
     # which bake none); K2 reading the texture's noise channel; K6 with no
@@ -497,6 +534,14 @@ ARM_FRACTION = {
     ("bake_radiance", "terrain_local"): 1e-4,
     ("scatter", "rays_terrain"): 1e-4,
 }
+
+
+# The raster phase: the share of the 720p mesh G-buffer's pixels that may
+# differ between the card and the CPU past ROADMAP C3's class, and why
+RASTER_PAST = 5e-3
+RASTER_WHY = ("last-ulp differences of the ray directions turn into other "
+              "hits at grazing terrain samples and primitive edges (ROADMAP "
+              "C3, C7)")
 
 
 # The slab paths: make_multislab_render (parallel/shard_render.py) over n
@@ -1284,6 +1329,203 @@ def k14_entry(k14, train_launches, replaces, bound):
     return entry
 
 
+def demo_entry(cuda):
+    """The demo_entry phase: the port's demo (volumetricrenderer_tpu_torch.
+    demo) in this process through its main(argv), as a user runs it:
+    --mesh-env for 2 frames, then --dump-scene of that scene, then --scene
+    on the dumped file for 2 frames. Each run must exit 0 and write its
+    PNGs; the loaded scene must render the built one's display checksums
+    bit for bit."""
+    import contextlib
+    import io
+    from volumetricrenderer_tpu_torch import demo
+
+    def run(*argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = demo.main(list(argv))
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"# demo_entry: {line}")
+        log(f"# demo_entry: {' '.join(argv[:3])}...: exit {rc} in "
+            f"{wall:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in cuda.LAUNCHES.items() if v})}")
+        if rc != 0:
+            raise AssertionError(f"demo {argv} exited {rc}")
+        return [line.split("checksum ")[1] for line in text.splitlines()
+                if "checksum " in line]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        built, loaded = os.path.join(tmp, "built"), os.path.join(tmp, "load")
+        scene_file = os.path.join(tmp, "mesh_scene.json")
+        sums = run("--mesh-env", "--frames", "2", "--out", built)
+        run("--mesh-env", "--dump-scene", scene_file)
+        sums_loaded = run("--scene", scene_file, "--frames", "2", "--out",
+                          loaded)
+        pngs = [os.path.join(d, f"frame_{i:03d}.png") for d in (built, loaded)
+                for i in range(2)]
+        missing = [p for p in pngs
+                   if not (os.path.isfile(p) and os.path.getsize(p) > 0)]
+        log(f"# demo_entry: {len(pngs) - len(missing)} of {len(pngs)} PNGs "
+            f"written; checksums built {sums}, loaded {sums_loaded}")
+        if missing or len(sums) != 2 or sums != sums_loaded:
+            raise AssertionError("demo_entry: PNGs missing, or the scene "
+                                 "file renders another image")
+
+
+def raster_phase(renderers, mesh, cuda):
+    """The raster phase on the card: the mesh scene's G-buffer (the analytic
+    ray cast, the trees rasterized by ops/raster.py and shaded against the
+    analytic occluders, composited by depth) at mesh_full's 1920x1080 and
+    mesh_production's 1280x720, timed whole, the raster alone and the
+    shading alone (CUDA events and the host clock); it launches none of the
+    kernels. Returns {image height: (colour, depth)}."""
+    from volumetricrenderer_tpu_torch.ops import raster, raycast
+
+    def timed(label, fn, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        log(f"# raster: {label}: {start.elapsed_time(end) / n:.3f} ms "
+            f"device-event mean, {wall_ms:.3f} ms host wall mean over {n} "
+            f"warm calls")
+
+    out = {}
+    cam = mesh.camera
+    sun_dir = mesh.dir_lights.direction[0]
+    sun_color = mesh.dir_lights.packed_color[0]
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for name in ("mesh_full", "mesh_production"):
+        r = renderers[name]
+        iw, ih = r.config.image_width, r.config.image_height
+        t0 = time.perf_counter()
+        out[ih] = r.render_scene_inputs(mesh)
+        torch.cuda.synchronize()
+        log(f"# raster: G-buffer {iw}x{ih} ({name}), first call "
+            f"{1e3 * (time.perf_counter() - t0):.1f} ms host wall")
+        timed(f"G-buffer {iw}x{ih} (ray cast + raster + shading)",
+              lambda: r.render_scene_inputs(mesh), 1)
+        rast = lambda: raster.rasterize_mesh(mesh.mesh, cam, iw, ih,
+                                             raster.CUDA_CHUNK)
+        malb, mnrm, mdepth = rast()
+        timed(f"rasterize_mesh {iw}x{ih}, {mesh.mesh.num_tris} triangles "
+              f"in chunks of {raster.CUDA_CHUNK}", rast, 5)
+        dirs, _ = raycast.camera_rays(iw, ih, cam.fov_y, cam.aspect,
+                                      cam.view_to_world())
+        timed(f"shade_mesh_gbuffer {iw}x{ih}",
+              lambda: raster.shade_mesh_gbuffer(
+                  malb, mnrm, mdepth, cam.position, dirs, mesh.geometry,
+                  sun_dir, sun_color, mesh.ambient), 1)
+        color, depth = out[ih]
+        on_mesh = float((mdepth <= depth).float().mean())
+        log(f"# raster: {iw}x{ih}: the trees on {on_mesh:.4%} of the "
+            f"pixels; colour checksum "
+            f"{float(color.sum(dtype=torch.float32))!r}, depth checksum "
+            f"{float(depth.sum(dtype=torch.float32))!r}")
+        if not (bool(torch.isfinite(color).all())
+                and bool(torch.isfinite(depth).all()) and on_mesh > 0.0):
+            raise AssertionError(f"the mesh G-buffer at {iw}x{ih} is not "
+                                 "finite or shows no tree")
+    torch.cuda.synchronize()
+    if any(cuda.LAUNCHES.values()):
+        raise AssertionError("the G-buffer bake launched a kernel")
+    return out
+
+
+def start_cpu_gbuffer(tmp: str):
+    """Start the CPU side of the raster phase: the mesh scene's 720p
+    G-buffer by the same plain code on the CPU, in a process of its own
+    (this script with --cpu-gbuffer) that runs beside the card's work.
+    Returns (the process, its output file)."""
+    import atexit
+    out_file = os.path.join(tmp, "cpu_gbuffer.pt")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cpu-gbuffer", out_file])
+    atexit.register(proc.kill)
+    return proc, out_file
+
+
+def mesh_inputs(device: str):
+    """The raster phase's inputs: mesh_production's config and the mesh
+    scene, built on the CPU and moved to `device`, so that the card's
+    scene and the CPU's hold the same floats."""
+    from volumetricrenderer_tpu_torch import FULL_CONFIG, demo_scene
+    cfg = dataclasses.replace(FULL_CONFIG, **PRODUCTION)
+    mesh = demo_scene(aspect=FULL_CONFIG.image_width
+                      / FULL_CONFIG.image_height, mesh_env=True,
+                      device="cpu")
+    return cfg, mesh.to(device)
+
+
+def cpu_gbuffer(out_file: str) -> int:
+    """--cpu-gbuffer: the mesh scene's 720p G-buffer and its raster's depth
+    on the CPU (the plain code, CPU_CHUNK triangles a chunk), saved to
+    out_file."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.ops import raster
+    # the cores the main process, which drives the card, leaves idle
+    torch.set_num_threads(max(1, (os.cpu_count() or 3) - 2))
+    cfg, scene = mesh_inputs("cpu")
+    r = VolumetricRenderer(cfg, device="cpu")
+    t0 = time.perf_counter()
+    color, depth = r.render_scene_inputs(scene)
+    seconds = time.perf_counter() - t0
+    m_depth = raster.rasterize_mesh(scene.mesh, scene.camera,
+                                    cfg.image_width, cfg.image_height,
+                                    raster.CPU_CHUNK)[2]
+    torch.save({"color": color, "depth": depth, "mesh_depth": m_depth,
+                "seconds": seconds}, out_file)
+    return 0
+
+
+def check_cpu_gbuffer(proc, out_file, gbuffer, mesh, config) -> None:
+    """The end of the raster phase: the card's 720p G-buffer against the
+    CPU's (start_cpu_gbuffer): the pixels that differ, the largest
+    differences in depth and colour, and the share past ROADMAP C3's class
+    (depth 1e-4 relative, colour 2e-3), which must stay below RASTER_PAST;
+    and the raster's depth alone."""
+    from volumetricrenderer_tpu_torch.ops import raster
+    rc = proc.wait(timeout=900)
+    if rc != 0:
+        raise AssertionError(f"the CPU G-buffer process exited {rc}")
+    d = torch.load(out_file, weights_only=False)
+    c_cpu, d_cpu = d["color"], d["depth"]
+    c_gpu, d_gpu = (a.cpu() for a in gbuffer)
+    rel = (d_gpu - d_cpu).abs() / d_cpu.abs()
+    err = (c_gpu - c_cpu).abs().amax(-1)
+    past = float(((rel > 1e-4) | (err > 2e-3)).float().mean())
+    m_gpu = raster.rasterize_mesh(mesh.mesh, mesh.camera, config.image_width,
+                                  config.image_height,
+                                  raster.CUDA_CHUNK)[2].cpu()
+    m_cpu = d["mesh_depth"]
+    both = (m_gpu < raster.BIG) & (m_cpu < raster.BIG)
+    log(f"# raster: 720p G-buffer, card against the CPU "
+        f"({d['seconds']:.1f} s there, in a process of its own): "
+        f"{int(((rel > 0) | (err > 0)).sum())} of {rel.numel()} pixels "
+        f"differ; largest depth difference {float(rel.max()):.3e} "
+        f"relative, largest colour difference {float(err.max()):.3e}; "
+        f"{past:.3e} of the pixels past depth 1e-4 relative or colour 2e-3 "
+        f"(allowed {RASTER_PAST:g}: {RASTER_WHY}); the raster alone: "
+        f"{int(((m_gpu < raster.BIG) != (m_cpu < raster.BIG)).sum())} "
+        f"pixels covered on one side only, largest depth difference "
+        f"{float(((m_gpu - m_cpu).abs() / m_cpu)[both].max()):.3e} relative")
+    if past > RASTER_PAST:
+        raise AssertionError("the mesh G-buffer on the card disagrees with "
+                             "the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1313,6 +1555,8 @@ def main() -> int:
     from volumetricrenderer_tpu_torch.parallel import shard_render as shr
 
     t_start = time.perf_counter()
+    done = lambda what: log(f"# elapsed {time.perf_counter() - t_start:.1f} "
+                            f"s: {what} done")
     # 1. device
     dev_name = torch.cuda.get_device_name(0)
     n_dev = torch.cuda.device_count()
@@ -1331,6 +1575,9 @@ def main() -> int:
     for src in cuda.ATTR_KERNELS:
         log(f"# kernel attributes, {src}: "
             f"{json.dumps(cuda.kernel_attrs(src))}")
+    # the raster phase's CPU side starts now and is joined after the holds
+    gbuf_tmp = tempfile.mkdtemp()
+    gbuf_proc = start_cpu_gbuffer(gbuf_tmp)
 
     # 3. configs, scene and G-buffers (one per image size: 1080p, and 4K for
     # the uhd paths)
@@ -1374,9 +1621,19 @@ def main() -> int:
     no_media = dataclasses.replace(scene, media=())
     demo_noise = demo_scene(aspect=aspect, with_noise=True,
                             noise_tex=perlin_texture_3d(32))
+    # the mesh environment: demo_scene(mesh_env=True), the tree meshes
+    # (procedural without the reference checkout) and 20 proxy boxes
+    mesh_cfg, mesh = mesh_inputs("cuda")
+    if mesh_cfg != renderers["mesh_production"].config:
+        raise AssertionError("the raster phase's config is not "
+                             "mesh_production's")
+    log(f"# mesh scene: {mesh.mesh.num_tris} triangles, "
+        f"{mesh.geometry.box_min.shape[0]} boxes of which "
+        f"{mesh.geometry.n_proxy_boxes} shadow proxies, "
+        f"{int((mesh.geometry.box_opacity < 1.0).sum())} fractional")
     scenes = {"demo": demo, "fractional": frac, "tex": tex_scene,
               "sunless": sunless, "no_media": no_media,
-              "demo_noise": demo_noise}
+              "demo_noise": demo_noise, "mesh": mesh}
     scene_key = {name: v[0] for name, v in {**DEMO_PATHS,
                                              **SCENE_PATHS}.items()}
     scene_of = lambda name: scenes[scene_key[name]] \
@@ -1394,16 +1651,20 @@ def main() -> int:
         log(f"# gbuffer demo_scene {size}p: "
             f"{1e3 * (time.perf_counter() - t0):.1f} ms "
             f"{tuple(demo_gbuf[size][0].shape)}")
+    mesh_gbuf = raster_phase(renderers, mesh, cuda)
 
     def gbuf(name):
         if name.startswith("uhd"):
             return color_4k, depth_4k
+        if scene_key.get(name) == "mesh":
+            return mesh_gbuf[renderers[name].config.image_height]
         if name in DEMO_PATHS or name == "demo_noise":
             return demo_gbuf[renderers[name].config.image_height]
         if name == "sunless":
             return sunless_gbuf
         return scene_color, view_depth
 
+    done("the G-buffers and the raster phase")
     # 4. the main paths, each from a fresh state; the shadow maps of a map
     # path baked once, up front (timed apart from the frames)
     bakes = {}
@@ -1562,6 +1823,7 @@ def main() -> int:
         raise AssertionError("the fractional boxes change nothing")
     del d_img2
 
+    done("the main paths")
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
     prev = states[3]
@@ -2080,6 +2342,20 @@ def main() -> int:
             lambda: vis.bake_visibility(dv_tables),
             lambda: vis.bake_visibility_plain(dv_tables))},
     }
+    # the mesh scene (23 boxes in the any-hit loops, 20 of them
+    # fractional): K1 and K2 on mesh_full's frame 4
+    ms_tables, ms_params, ms_sh = path_tables("mesh_full", 3)
+    ms_bake = ff.bake_radiance(ms_tables)
+    arm_calls["bake_radiance"]["mesh"] = (
+        lambda: ff.bake_radiance(ms_tables),
+        lambda: ff.bake_radiance_plain(ms_tables))
+    arm_calls["shadow_scatter"]["mesh"] = (
+        lambda: ff.shadow_scatter(ms_tables, ms_sh, ms_bake),
+        lambda: ff.shadow_scatter_plain(ms_tables, ms_sh, ms_bake))
+    log(f"# mesh_full's tables: {ms_tables.n_boxes} boxes, fractional "
+        f"{bool(ms_tables.fractional)}")
+    if ms_tables.n_boxes != 23 or not ms_tables.fractional:
+        raise AssertionError("mesh_full's tables lack the proxy boxes")
     # the texture, sunless and media-less paths (SCENE_PATHS). tex, frame
     # 4: the noise channels (plain torch) on the card against the same bake
     # on the CPU, K1 launched without noise channels (k1_tables) and the
@@ -2232,6 +2508,47 @@ def main() -> int:
             dp_acc, dp_color, dp_depth, dp_params, dp_grid))
     errs["composite"] = max(errs["composite"],
                             arm_err[("composite", "pixels_720p")])
+    # the mesh scene: on mesh_full's frame 4 K3 and K4 after K1 and K2, and
+    # on mesh_production's frame 2 K1-K4 at the demo grid (K4's per-pixel
+    # form), each chain reproducing its path's image bit for bit
+    for name, i, gb in (("mesh_full", 3, mesh_gbuf[1080]),
+                        ("mesh_production", 1, mesh_gbuf[720])):
+        m_tables, m_params, m_sh = path_tables(name, i)
+        m_prev_acc = runs[name][1][i].prev_accumulation.float().contiguous()
+        m_grid = renderers[name].config.grid
+        label = f"{name} frame {i + 1}"
+        m_bake = ms_bake if name == "mesh_full" \
+            else ff.bake_radiance(m_tables)
+        m_sc = ff.shadow_scatter(m_tables, m_sh, m_bake)[1]
+        m_acc = ff.integrate_blend(m_tables, m_sc, m_prev_acc)
+        if name == "mesh_full":
+            m_out = zg.composite(m_acc, *gb, m_params, m_grid)
+            m_twin = zg.composite_plain(m_acc, *gb, m_params, m_grid)
+        else:
+            m_out = zg.composite_pixels(m_acc, *gb, m_params, m_grid)
+            m_twin = zg.composite_pixels_plain(m_acc, *gb, m_params, m_grid)
+            errs["bake_radiance"] = max(errs["bake_radiance"], compare(
+                "bake_radiance", m_bake, ff.bake_radiance_plain(m_tables),
+                label=label))
+            errs["shadow_scatter"] = max(errs["shadow_scatter"], *(
+                compare("shadow_scatter", g, w_, label=f"{label}, {part}")
+                for g, w_, part in zip(
+                    ff.shadow_scatter(m_tables, m_sh, m_bake),
+                    ff.shadow_scatter_plain(m_tables, m_sh, m_bake),
+                    ("history", "planes"))))
+        errs["integrate_blend"] = max(errs["integrate_blend"], compare(
+            "integrate_blend", m_acc,
+            ff.integrate_blend_plain(m_tables, m_sc, m_prev_acc),
+            label=label))
+        errs["composite"] = max(errs["composite"], compare(
+            "composite", m_out, m_twin, label=label))
+        same = torch.equal(m_out, runs[name][0])
+        log(f"# {label}: K1-K4 reproduce the path's image bit for bit: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"K1-K4 on {label}'s inputs differ from "
+                                 "the path's image")
+    del m_sc, m_acc, m_out, m_twin
 
     # the slab forms on real slabs' inputs: each shard's step replayed
     # kernel by kernel from the carry before it (its halos written as the
@@ -2400,6 +2717,13 @@ def main() -> int:
                                  "image")
     del refs, s_st
 
+    done("the holds")
+    # the raster phase's CPU side, joined before the timings
+    check_cpu_gbuffer(*gbuf_proc, mesh_gbuf[720], mesh,
+                      renderers["mesh_production"].config)
+    shutil.rmtree(gbuf_tmp)
+
+    done("the CPU G-buffer's join")
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
                                 view_depth, states[-1], 20)
@@ -2444,11 +2768,13 @@ def main() -> int:
                       ("demo_hf_local", 10), ("demo_exact_hf", 5),
                       ("demo_vis_hf", 10), ("demo_map_dir", 10),
                       ("fractional", 10), ("demo_xla", 5),
-                      ("xla_scatter", 5)):
+                      ("xla_scatter", 5), ("mesh_full", 20),
+                      ("mesh_production", 5), ("mesh_demo", 3)):
         one, _ = frame_times(name, renderers[name], scene_of(name),
                              *gbuf(name), runs[name][1][-1], n_f,
                              bakes[name])
-        if name in ("demo_full", "demo_production") + XLA_SCATTER_PATHS:
+        if name in ("demo_full", "demo_production",
+                    "mesh_full") + XLA_SCATTER_PATHS:
             profile_frames(one, 3)
     for name in XLA_SCATTER_PATHS:
         fn = lambda a=xla_args[name]: pipeline.write_scatter_xla(*a)
@@ -2967,7 +3293,8 @@ def main() -> int:
     samples = {"sun": {}, "low": {}, "full": {}}
     for t_name, t in (("demo_full", d_tables), ("demo_exact_hf", dx_tables),
                       ("fractional", fr_tables),
-                      ("demo_production", dp_tables)):
+                      ("demo_production", dp_tables),
+                      ("mesh_full", ms_tables)):
         samples["sun"][t_name] = sun_samples(t)
     samples["low"]["demo_hf_local"] = local_samples(hl_tables, True)
     samples["low"]["demo_vis_hf"] = local_samples(dv_tables, True)
@@ -2976,7 +3303,8 @@ def main() -> int:
     arm_work = {}
     for m, t, n_s in (
             ("terrain_local", hl_tables, samples["low"]["demo_hf_local"]),
-            ("demo_grid", dp_tables, 0), ("fractional", fr_tables, 0)):
+            ("demo_grid", dp_tables, 0), ("fractional", fr_tables, 0),
+            ("mesh", ms_tables, 0)):
         arm_work[("bake_radiance", m)] = (
             4 * (3 + t.n_noise) * n_low_of(t),
             n_low_of(t) * (60 + ops_perlin * t.n_noise)
@@ -2984,7 +3312,8 @@ def main() -> int:
             + n_s * ops_hf(t))
     for m, t_name, t in (("terrain", "demo_full", d_tables),
                          ("demo_grid", "demo_production", dp_tables),
-                         ("fractional", "fractional", fr_tables)):
+                         ("fractional", "fractional", fr_tables),
+                         ("mesh", "mesh_full", ms_tables)):
         nf, nl = n_fro_of(t), n_low_of(t)
         arm_work[("shadow_scatter", m)] = (
             4 * (2 * t.n_dir * nf + (3 + t.n_noise) * nl + 4 * nf),
@@ -3104,6 +3433,7 @@ def main() -> int:
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
             else "operations"
 
+    done("the timings and bounds")
     # 8. the training paths (inverse.py), each from a fresh state with the
     # launch counters set to 0 just before and read just after: K4 forward
     # and K14 backward a step; then K14 against its twin in three forms,
@@ -3168,6 +3498,10 @@ def main() -> int:
     if any(cuda.LAUNCHES.values()) or "frame_volume_fused" not in refusal:
         raise AssertionError("grad_refusals: the refusal must name "
                              "frame_volume_fused and launch nothing")
+
+    done("the training phases")
+    demo_entry(cuda)
+    done("demo_entry")
 
     kernels = []
     for name in cuda.SOURCES:
@@ -3307,4 +3641,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-gbuffer"]:
+        sys.exit(cpu_gbuffer(sys.argv[2]))
     sys.exit(main())

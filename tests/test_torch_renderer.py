@@ -127,8 +127,8 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
 
 
 def _unported_scene(kind):
-    """benchmark_scene, or with one part the port does not render (a mesh
-    environment, shadow proxy boxes, five suns) or does not render in an
+    """benchmark_scene, or with one part the port does not render (five
+    suns, five fBm media baked at the low rate) or does not render in an
     H-sharded slab (a texture-noise medium, no media, no sun)."""
     scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
                                noise_mode="procedural", device="cpu")
@@ -137,11 +137,6 @@ def _unported_scene(kind):
             scene.dir_lights, **{f.name: getattr(scene.dir_lights, f.name)[:0]
                                  for f in dataclasses.fields(
                                      scene.dir_lights)}))
-    if kind == "mesh":
-        return dataclasses.replace(scene, mesh=object())
-    if kind == "proxy_boxes":
-        return dataclasses.replace(scene, geometry=dataclasses.replace(
-            scene.geometry, n_proxy_boxes=1))
     if kind == "texture_noise":
         fog = scene.media[0]
         return dataclasses.replace(scene, media=(dataclasses.replace(
@@ -149,6 +144,8 @@ def _unported_scene(kind):
             noise_tex=torch.zeros((4, 4, 4))),) + scene.media[1:])
     if kind == "no_media":
         return dataclasses.replace(scene, media=())
+    if kind == "five_noise_media":
+        return dataclasses.replace(scene, media=(scene.media[0],) * 5)
     if kind == "five_suns":
         dl = scene.dir_lights
         return dataclasses.replace(scene, dir_lights=dataclasses.replace(
@@ -158,31 +155,81 @@ def _unported_scene(kind):
 
 
 @pytest.mark.parametrize("kw", [dict(slab=True, scene="texture_noise"),
-                                dict(scene="mesh"),
-                                dict(scene="proxy_boxes"),
+                                dict(slab=True, shadow_mode="map_dir"),
+                                dict(slab=True, reproj_impl="gather"),
                                 dict(scene="five_suns"),
-                                dict(demo=True, scene="mesh"),
+                                dict(shadow_mode="cascaded"),
                                 dict(slab=True, scene="no_sun"),
                                 dict(scatter_impl="xla", slab=True),
                                 dict(slab=True, scene="no_media"),
                                 dict(frame_fused=False, slab=True,
                                      scene="no_media"),
-                                dict(frame_fused=False, scene="mesh")])
+                                dict(scene="five_noise_media")])
 def test_unported_configs_raise(kw):
-    """What the port still refuses, on FULL_CONFIG (or DEMO_CONFIG): the
-    mesh scenes and their proxy boxes, more than four suns, and in an
-    H-sharded slab texture media, scenes without a sun or without media
-    and the XLA scatter (tests/test_torch_sunless.py renders those scenes
-    on the whole grid)."""
+    """What the port still refuses, on FULL_CONFIG: more than four suns or
+    four fBm media baked at the low rate, a config value it does not know,
+    and in an H-sharded slab the shadow-map modes, the gather reprojection,
+    texture media, scenes without a sun or without media and the XLA
+    scatter (tests/test_torch_sunless.py renders those scenes on the whole
+    grid). Mesh scenes and proxy boxes render since the mesh environment
+    was ported (test_mesh_configs_render)."""
     kw = dict(kw)
     scene = _unported_scene(kw.pop("scene", None))
-    base = vt.DEMO_CONFIG if kw.pop("demo", False) else vt.FULL_CONFIG
     slab = Slab(0.0, 0, (16, 15, 16), 120) if kw.pop("slab", False) \
         else None
     r = vt.VolumetricRenderer(
-        dataclasses.replace(base, **{**SMALL, **kw}), device="cpu")
+        dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw}),
+        device="cpu")
     with pytest.raises(NotImplementedError):
         r.render_frame(r.init_state(1), scene, 0.0, slab=slab)
+
+
+def _mesh_scene(kind):
+    """benchmark_scene with a procedural tree 6.8 m in front of the camera
+    ("mesh"), or with its last box flagged a shadow-only proxy
+    ("proxy_boxes")."""
+    from volumetricrenderer_tpu_torch.models.mesh import (procedural_tree,
+                                                          transform_mesh)
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    if kind == "mesh":
+        return dataclasses.replace(scene, mesh=transform_mesh(
+            procedural_tree(device="cpu"), translate=(-0.4, 0.0, -9.0)))
+    return dataclasses.replace(scene, geometry=dataclasses.replace(
+        scene.geometry, n_proxy_boxes=1))
+
+
+@pytest.mark.parametrize("kw", [dict(scene="mesh"),
+                                dict(scene="proxy_boxes"),
+                                dict(demo=True, scene="mesh"),
+                                dict(frame_fused=False, scene="mesh")])
+def test_mesh_configs_render(kw):
+    """The configurations test_unported_configs_raise refused until the
+    mesh environment was ported: a scene with a tree mesh renders on
+    FULL_CONFIG, DEMO_CONFIG and the staged frame, the tree nearer in the
+    G-buffer than what stands behind it; a scene whose proxy boxes have no
+    mesh renders as if they were plain boxes (primary rays skip them only
+    under a mesh, as in the JAX package). tests/test_torch_mesh.py holds
+    the mesh scene against JAX."""
+    kw = dict(kw)
+    kind = kw.pop("scene")
+    scene = _mesh_scene(kind)
+    if kw.pop("demo", False):
+        cfg = dataclasses.replace(vt.DEMO_CONFIG, shadow_map_size=32, **SMALL)
+    else:
+        cfg = dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw})
+    r = vt.VolumetricRenderer(cfg, device="cpu")
+    img, aux, _ = r.render_frame(r.init_state(1), scene, 0.0)
+    assert bool(torch.isfinite(img).all())
+    bare = dataclasses.replace(scene, mesh=None,
+                               geometry=dataclasses.replace(
+                                   scene.geometry, n_proxy_boxes=0))
+    if kind == "mesh":
+        _, depth_bare = r.render_scene_inputs(bare)
+        assert bool((aux["view_depth"] < depth_bare - 0.5).any())
+    else:
+        assert torch.equal(img, r.render_frame(r.init_state(1), bare,
+                                               0.0)[0])
 
 
 @pytest.mark.parametrize("kw", [dict(frame_fused=False, scatter_bake="vis"),

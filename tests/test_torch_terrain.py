@@ -149,8 +149,8 @@ def _walk(a, b, path=""):
 
 
 def test_demo_scene_matches_jax(demo):
-    """demo_scene field by field, also with_noise (the fog's texture);
-    mesh_env is not ported."""
+    """demo_scene field by field, also with_noise (the fog's texture) and
+    mesh_env (the tree TriMesh and its 20 shadow proxy boxes)."""
     js, _ = demo
     _walk(vt.demo_scene(aspect=128 / 90, device="cpu"),
           scene_from_numpy(js, "cpu"))
@@ -159,8 +159,10 @@ def test_demo_scene_matches_jax(demo):
                         noise_tex=torch.as_tensor(tex), device="cpu"),
           scene_from_numpy(j_demo(aspect=128 / 90, with_noise=True,
                                   noise_tex=tex), "cpu"))
-    with pytest.raises(NotImplementedError):
-        vt.demo_scene(device="cpu", mesh_env=True)
+    mesh = vt.demo_scene(aspect=128 / 90, device="cpu", mesh_env=True)
+    _walk(mesh, scene_from_numpy(j_demo(aspect=128 / 90, mesh_env=True),
+                                 "cpu"))
+    assert mesh.geometry.n_proxy_boxes == 20 and mesh.mesh.num_tris == 276
 
 
 def test_geometry_create_matches_jax():

@@ -17,7 +17,7 @@ from volumetricrenderer_tpu_torch.inverse import (FogParams, LightParams,
 from volumetricrenderer_tpu_torch.models import (Camera, DirectionalLights,
                                                  Geometry, Medium,
                                                  PointLights, Scene,
-                                                 SpotLights)
+                                                 SpotLights, TriMesh)
 from volumetricrenderer_tpu_torch.post import PostConfig
 from volumetricrenderer_tpu_torch.shadow import (CubeShadowData,
                                                  DirShadowData,
@@ -88,7 +88,21 @@ def scene_from_numpy(obj, device) -> Scene:
                  point_lights=point_lights, spot_lights=spot_lights,
                  media=tuple(media), geometry=geometry,
                  ambient=_tensors(obj, ("ambient",), device)["ambient"],
-                 mesh=_get(obj, "mesh"))
+                 mesh=mesh_from_numpy(_get(obj, "mesh"), device))
+
+
+def mesh_from_numpy(obj, device):
+    """The port's TriMesh from a JAX TriMesh (or a dict of its fields);
+    None stays None."""
+    if obj is None:
+        return None
+    return TriMesh(
+        verts=torch.as_tensor(np.array(np.asarray(_get(obj, "verts")),
+                                       np.float32), device=device),
+        tris=torch.as_tensor(np.array(np.asarray(_get(obj, "tris")),
+                                      np.int32), device=device),
+        albedo=torch.as_tensor(np.array(np.asarray(_get(obj, "albedo")),
+                                        np.float32), device=device))
 
 
 def fog_params_from_numpy(obj, device):

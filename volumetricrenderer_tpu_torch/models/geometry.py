@@ -3,8 +3,9 @@
 Infinite planes, spheres, axis-aligned boxes (solid, or with a shadow
 opacity below 1: box_fractional) and an optional procedural heightfield
 (the terrain: base + amp * fBm(x, z)), ray-cast for the G-buffer stand-in
-and for every shadow ray. Shadow-only mesh proxy boxes (n_proxy_boxes) are
-carried so that a converted scene keeps them; the renderer refuses them.
+and for every shadow ray. The last n_proxy_boxes boxes are shadow-only
+proxies of a triangle mesh (models/mesh.py): every shadow ray sees them,
+the G-buffer's primary rays skip them.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ class Geometry:
     hf_far: float = 200.0
 
     @staticmethod
+    def empty(device="cuda") -> "Geometry":
+        """No primitives and no heightfield."""
+        return Geometry.create(device=device)
+
+    @staticmethod
     def create(planes=(), spheres=(), boxes=(), heightfield=None,
                n_proxy_boxes: int = 0, device="cuda") -> "Geometry":
         """planes: [(normal, d, albedo)], spheres: [(center, r, albedo)],
@@ -52,7 +58,7 @@ class Geometry:
         (box_fractional where any opacity is below 1); heightfield: None or
         a dict with amp, base, tiling, offset, albedo and the statics
         octaves, period, seed, steps, far; n_proxy_boxes: the last n boxes
-        are shadow-only mesh proxies (the renderer refuses them)."""
+        are shadow-only mesh proxies."""
         def pack(items, shapes):
             if not items:
                 return [torch.zeros((0,) + s, dtype=torch.float32,

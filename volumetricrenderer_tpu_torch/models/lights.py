@@ -26,6 +26,15 @@ def gamma22(color_times_intensity: torch.Tensor) -> torch.Tensor:
     return torch.pow(torch.clamp(color_times_intensity, min=0.0), 2.2)
 
 
+def _empty(cls, device):
+    """cls with N = 0: [0, 3] for the position, direction and colour
+    fields, has_shadow bool [0], every other field [0]."""
+    return cls(**{f.name: torch.zeros(
+        (0, 3) if f.name in ("position", "direction", "color") else (0,),
+        dtype=torch.bool if f.name == "has_shadow" else torch.float32,
+        device=device) for f in dataclasses.fields(cls)})
+
+
 @dataclasses.dataclass(frozen=True)
 class DirectionalLights:
     direction: torch.Tensor         # [N, 3] unit, pointing from the light
@@ -41,6 +50,11 @@ class DirectionalLights:
     @property
     def packed_color(self) -> torch.Tensor:
         return gamma22(self.color * self.intensity[:, None])
+
+    @staticmethod
+    def empty(device="cuda") -> "DirectionalLights":
+        """No lights: every field with its shape at N = 0."""
+        return _empty(DirectionalLights, device)
 
     @staticmethod
     def create(direction, color, intensity, has_shadow=None,
@@ -76,6 +90,11 @@ class PointLights:
     @property
     def packed_color(self) -> torch.Tensor:
         return gamma22(self.color * self.intensity[:, None])
+
+    @staticmethod
+    def empty(device="cuda") -> "PointLights":
+        """No lights: every field with its shape at N = 0."""
+        return _empty(PointLights, device)
 
     @staticmethod
     def create(position, color, intensity, range, intensity_multiplier=None,
@@ -128,6 +147,11 @@ class SpotLights:
     def cos_inner_cone_rcp(self) -> torch.Tensor:
         """1 / cos(inner_angle_percent * spot_angle / 2)."""
         return 1.0 / torch.cos(self.inner_angle_percent * self.spot_angle / 2.0)
+
+    @staticmethod
+    def empty(device="cuda") -> "SpotLights":
+        """No lights: every field with its shape at N = 0."""
+        return _empty(SpotLights, device)
 
     @staticmethod
     def create(position, direction, color, intensity, range, spot_angle_deg,

@@ -17,6 +17,7 @@ from volumetricrenderer_tpu_torch.models.lights import (DirectionalLights,
                                                         PointLights,
                                                         SpotLights)
 from volumetricrenderer_tpu_torch.models.media import Medium
+from volumetricrenderer_tpu_torch.models.mesh import TriMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +29,31 @@ class Scene:
     media: Tuple[Medium, ...]
     geometry: Geometry
     ambient: torch.Tensor         # [3]
-    # a triangle-mesh environment: not ported; the renderer refuses it
-    mesh: Optional[object] = None
+    # a triangle-soup environment, rasterized into the G-buffer
+    # (ops/raster.py) and depth-composited over the analytic ray cast; its
+    # shadow comes from the geometry's proxy boxes
+    mesh: Optional[TriMesh] = None
+
+    @staticmethod
+    def create(camera, dir_lights=None, point_lights=None, spot_lights=None,
+               media=(), geometry=None, ambient=(0.0, 0.0, 0.0),
+               mesh=None) -> "Scene":
+        """A scene on the camera's device; the parts left out are empty."""
+        dev = camera.position.device
+        return Scene(
+            camera=camera,
+            dir_lights=dir_lights if dir_lights is not None
+            else DirectionalLights.empty(dev),
+            point_lights=point_lights if point_lights is not None
+            else PointLights.empty(dev),
+            spot_lights=spot_lights if spot_lights is not None
+            else SpotLights.empty(dev),
+            media=tuple(media),
+            geometry=geometry if geometry is not None
+            else Geometry.empty(dev),
+            ambient=torch.as_tensor(ambient, dtype=torch.float32,
+                                    device=dev),
+            mesh=mesh)
 
     def to(self, device) -> "Scene":
         """The same scene with every tensor on `device`."""
@@ -83,15 +107,17 @@ def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
     camera at (-0.4, 1.9, -15.8) looking +z, the sun at euler (50, -30)
     with a volumetric shadow, one red spot light, constant white fog, and
     the environment prefab as analytic primitives (ground plane, three
-    cubes, a sphere, three trees as canopy sphere + trunk box) over a
-    procedural heightfield (amp 2.0, base -0.3). with_noise gives the fog
-    the noise texture noise_tex [Nz, Ny, Nx] (ops/noise.perlin_texture_3d;
-    None: no noise, as in the JAX package). The reference's tree meshes
-    (mesh_env) are not ported (ROADMAP A13)."""
-    if mesh_env:
-        raise NotImplementedError("demo_scene(mesh_env=True): mesh "
-                                  "environments are not ported (ROADMAP "
-                                  "A13)")
+    cubes, a sphere) over a procedural heightfield (amp 2.0, base -0.3).
+    with_noise gives the fog the noise texture noise_tex [Nz, Ny, Nx]
+    (ops/noise.perlin_texture_3d; None: no noise, as in the JAX package).
+
+    The prefab's three trees: mesh_env=False, a canopy sphere and a trunk
+    box each; mesh_env=True, the reference's tree meshes
+    (models/mesh.demo_tree: the FBX files where the reference checkout
+    exists, else the procedural tree) as the scene's TriMesh, which the
+    G-buffer rasterizes, and their voxelized boxes (models/tree_assets.py,
+    20 boxes of opacity below 1) as shadow-only proxies that every shadow
+    ray sees and primary rays skip (n_proxy_boxes)."""
     camera = Camera.create(position=(-0.4, 1.9, -15.8),
                            forward=(0.0, 0.0, 1.0), fov_y_deg=60.0,
                            aspect=aspect, near=0.3, far=100.0, device=device)
@@ -114,22 +140,52 @@ def demo_scene(aspect: float = 16.0 / 9.0, with_noise: bool = False,
         noise_scroll=(10.0, 0.0, 0.0), noise_tiling=(0.01, 0.01, 0.01),
         device=device)
     trees = [(-9.0, 18.0), (7.0, 9.0), (-14.0, 25.0)]
+    mesh = None
+    if mesh_env:
+        from volumetricrenderer_tpu_torch.models.mesh import (concat_meshes,
+                                                              demo_tree,
+                                                              transform_mesh)
+        from volumetricrenderer_tpu_torch.models.tree_assets import (TREE_0,
+                                                                     TREE_1)
+        from volumetricrenderer_tpu_torch.models.voxelize import \
+            transform_boxes
+        leaf = (0.18, 0.32, 0.12)
+        tree_spheres = []
+        tree_boxes = []
+        insts = []
+        for i, (x, z) in enumerate(trees):
+            place = dict(scale=0.55 if i % 2 else 0.5, translate=(x, 0.0, z),
+                         yaw=i * math.pi / 2)
+            # opacity below 1: a porous canopy, whose shadow rays keep
+            # 1 - opacity of their light
+            tree_boxes += [(tuple(bm), tuple(bx), leaf, op) for bm, bx, op
+                           in transform_boxes(TREE_0 if i % 2 == 0
+                                              else TREE_1, **place)]
+            # the same transform for the triangles, so that the visible
+            # mesh and its shadow proxies stay aligned
+            insts.append(transform_mesh(demo_tree(i % 2, device=device),
+                                        **place))
+        mesh = concat_meshes(insts)
+    else:
+        tree_spheres = [((x, 3.2, z), 1.6, (0.18, 0.32, 0.12))
+                        for x, z in trees]
+        tree_boxes = [((x - 0.25, 0.0, z - 0.25), (x + 0.25, 2.4, z + 0.25),
+                       (0.3, 0.2, 0.12)) for x, z in trees]
     geometry = Geometry.create(
         planes=[((0.0, 1.0, 0.0), 0.0, (0.22, 0.26, 0.18))],
-        spheres=[((4.0, 1.5, 6.0), 1.5, (0.6, 0.55, 0.5))]
-        + [((x, 3.2, z), 1.6, (0.18, 0.32, 0.12)) for x, z in trees],
+        spheres=[((4.0, 1.5, 6.0), 1.5, (0.6, 0.55, 0.5))] + tree_spheres,
         boxes=[((-6.0, 0.0, 2.0), (-4.0, 2.0, 4.0), (0.5, 0.45, 0.4)),
                ((2.0, 0.0, 14.0), (5.0, 4.0, 17.0), (0.45, 0.5, 0.45)),
                ((-12.0, 0.0, 10.0), (-10.0, 6.0, 12.0), (0.35, 0.4, 0.3))]
-        + [((x - 0.25, 0.0, z - 0.25), (x + 0.25, 2.4, z + 0.25),
-            (0.3, 0.2, 0.12)) for x, z in trees],
+        + tree_boxes,
+        n_proxy_boxes=len(tree_boxes) if mesh_env else 0,
         heightfield=dict(amp=2.0, base=-0.3, tiling=(0.03, 0.03),
                          offset=(0.0, 0.0), albedo=(0.24, 0.28, 0.18)),
         device=device)
     return Scene(camera=camera, dir_lights=sun, point_lights=point,
                  spot_lights=spot, media=(fog,), geometry=geometry,
                  ambient=torch.tensor((0.08, 0.09, 0.11), dtype=torch.float32,
-                                      device=device))
+                                      device=device), mesh=mesh)
 
 
 def benchmark_scene(aspect: float = 16.0 / 9.0, num_local_lights: int = 16,

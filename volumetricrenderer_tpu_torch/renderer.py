@@ -47,7 +47,10 @@ resolution on co-sited pixels and upsamples in plain torch
 The geometry may hold the procedural heightfield, which every sun ray, the
 G-buffer and the shadow-map bakes march, and the local-light rays with
 heightfield_local_shadows; and boxes of fractional opacity, whose shadow
-rays then carry an occlusion amount.
+rays then carry an occlusion amount. A scene may carry a triangle mesh
+(models/mesh.TriMesh): render_scene_inputs rasterizes it (ops/raster.py,
+plain torch) into the G-buffer; the frame never reads it, and its shadow
+comes from the geometry's proxy boxes, plain boxes to every kernel.
 
 `render_frame_post` is render_frame followed by the post stack (post.py),
 the JAX package's frame + post entry point.
@@ -90,7 +93,7 @@ from volumetricrenderer_tpu_torch.config import (RenderConfig,
                                                  composite_route)
 from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
-from volumetricrenderer_tpu_torch.ops import raycast
+from volumetricrenderer_tpu_torch.ops import raster, raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.frame_fused import (MAX_DIR, MAX_NOISE,
                                                           frame_tables,
@@ -221,9 +224,6 @@ class VolumetricRenderer:
             raise NotImplementedError(
                 "the XLA scatter in a slab (scatter_impl='xla', or a scene "
                 "without local lights): not ported to H-sharded slabs")
-        if scene.mesh is not None or scene.geometry.n_proxy_boxes:
-            raise NotImplementedError("mesh environments and their shadow "
-                                      "proxy boxes are not ported")
         if scene.dir_lights.count > MAX_DIR:
             raise NotImplementedError(
                 f"{scene.dir_lights.count} directional lights: the port "
@@ -326,11 +326,13 @@ class VolumetricRenderer:
 
     def render_scene_inputs(self, scene: Scene
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Scene colour [IH, IW, 3] and linear view depth [IH, IW]: the
-        analytic ray caster standing in for the G-buffer."""
+        """Scene colour [IH, IW, 3] and linear view depth [IH, IW], standing
+        in for the G-buffer: the analytic ray caster and, where the scene
+        carries a TriMesh, the triangle rasterizer (ops/raster.py), shaded
+        against the analytic occluders and composited by depth, clipped to
+        the camera's far plane. Primary rays then skip the mesh's shadow
+        proxy boxes, which the mesh covers."""
         cfg = self.config
-        if scene.mesh is not None:
-            raise NotImplementedError("mesh environments are not ported")
         scene = scene.to(self.device)
         cam = scene.camera
         dirs, _ = raycast.camera_rays(cfg.image_width, cfg.image_height,
@@ -342,15 +344,31 @@ class VolumetricRenderer:
         else:
             sun_dir = torch.tensor([0.0, -1.0, 0.0], device=self.device)
             sun_color = torch.zeros(3, device=self.device)
-        return raycast.render_scene(scene.geometry, cam.position, dirs,
-                                    sun_dir, sun_color, scene.ambient,
-                                    cam.far)
+        color, depth = raycast.render_scene(
+            scene.geometry, cam.position, dirs, sun_dir, sun_color,
+            scene.ambient, cam.far, skip_proxy_boxes=scene.mesh is not None)
+        if scene.mesh is not None:
+            chunk = raster.CUDA_CHUNK if self.device.type == "cuda" \
+                else raster.CPU_CHUNK
+            malb, mnrm, mdepth = raster.rasterize_mesh(
+                scene.mesh, cam, cfg.image_width, cfg.image_height, chunk)
+            mcolor, _ = raster.shade_mesh_gbuffer(
+                malb, mnrm, mdepth, cam.position, dirs, scene.geometry,
+                sun_dir, sun_color, scene.ambient)
+            near = torch.minimum(mdepth, depth)
+            color = torch.where((mdepth < depth)[..., None], mcolor, color)
+            depth = torch.minimum(near, cam.far)
+        return color, depth
 
     def host_scene(self, scene: Scene) -> Scene:
-        """`scene` with every tensor on the CPU, kept for the last scene
-        passed in and copied again once one of its tensors was edited in
-        place or given new storage."""
-        self._host_scene = _host_copy(self._host_scene, scene)
+        """`scene` without its mesh and with every other tensor on the CPU,
+        kept for the last scene passed in and copied again once one of its
+        tensors was edited in place or given new storage. The mesh is left
+        out of the copy and of its marks: no frame table reads it (the
+        G-buffer rasterizes it on the renderer's device)."""
+        self._host_scene = _host_copy(self._host_scene, scene,
+                                      lambda s: dataclasses.replace(
+                                          s, mesh=None))
         return self._host_scene[2]
 
     def frame_tables(self, state: FrameState, scene: Scene, time_x=0.0,
@@ -588,6 +606,25 @@ class VolumetricRenderer:
                                 velocity=velocity)
         return torch.stack(out, dim=-1), aux, new_state
 
+    def render_debug_slice(self, state: FrameState, scene: Scene, z: int,
+                           volume: str = "accumulation", time_x=0.0
+                           ) -> torch.Tensor:
+        """The reference's debug pass: froxel slice z of aux[volume] of one
+        frame composited over the frame's scene colour ([IH, IW, 3],
+        utils/debug.debug_composite). The four-channel volumes
+        (accumulation, scatter, material_a) blend as rgba; a one-channel
+        volume (the first sun's shadow, material_b) as grey with alpha 1."""
+        from volumetricrenderer_tpu_torch.utils.debug import (
+            debug_composite, volume_slice)
+        _, aux, _ = self.render_frame(state, scene, time_x)
+        vol = aux[volume]
+        if volume in ("accumulation", "scatter", "material_a"):
+            sl = volume_slice(vol.permute(1, 2, 3, 0), z)
+        else:
+            sl = volume_slice(vol[0], z)
+            sl = torch.stack([sl, sl, sl, torch.ones_like(sl)], dim=-1)
+        return debug_composite(aux["scene_color"], sl)
+
     def frame_geometry(self, state: FrameState, scene: Scene, tables,
                        params, world_to_view):
         """What the plain-torch passes read, on the renderer's device
@@ -622,13 +659,15 @@ def requires_grad(*objs) -> bool:
     return any(walk(o) for o in objs)
 
 
-def _host_copy(cached, obj):
+def _host_copy(cached, obj, strip=None):
     """(obj, its tensor_marks, obj.to("cpu")): `cached` while it holds this
-    very object with every tensor unchanged, else a new copy. The marks
-    (each tensor's version counter and data pointer, a few dozen attribute
-    reads) change with any in-place edit; JAX arrays are immutable, so the
-    reference never sees a stale copy either."""
-    marks = tensor_marks(obj)
+    very object with every tensor unchanged, else a new copy; strip(obj),
+    where given, is what is marked and copied. The marks (each tensor's
+    version counter and data pointer, a few dozen attribute reads) change
+    with any in-place edit; JAX arrays are immutable, so the reference
+    never sees a stale copy either."""
+    kept = obj if strip is None else strip(obj)
+    marks = tensor_marks(kept)
     if cached is not None and cached[0] is obj and cached[1] == marks:
         return cached
-    return obj, marks, obj.to("cpu")
+    return obj, marks, kept.to("cpu")
