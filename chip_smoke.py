@@ -145,6 +145,14 @@ entry point a user calls, and the port's demo entry, and:
        post_rest         2 frames of what the showcase leaves off: FXAA,
                          grade_luts, single-scale AO, taa_step threading its
                          history: K1-K4
+     and the slab paths through make_multislab_render (SLAB_PATHS: slab3,
+     slab5 and slab3_staged; slab3_map_dir with K12 at the slab's y0,
+     slab3_xla and slab3_tex), each shard's launches counted on their own,
+     the new slab paths' images held against the whole grid's (SLAB_EDGE);
+     after the holds, shardmap3: make_shardmap_render on 3 spawned ranks of
+     one process group (NCCL where it takes them, else gloo with the edge
+     rows staged through host memory), every band and cropped state bit
+     for bit slab3's, each rank's frame and exchange times logged;
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
      each float32 image checksum, checks that each image is finite and not
@@ -557,12 +565,44 @@ SLAB_STAGED = dict(temporal_blend_alpha=0.6, raycast_shadow_subsample=1,
                    scatter_bake="vis", bake_procedural_noise=False,
                    dir_shadow_subsample=1, material_impl="xla",
                    composite_impl="tentmm", composite_precision="highest")
+# The slab forms that the JAX package renders and the port refuses no more:
+# slab3_map_dir (map_dir at FULL_CONFIG: K12 with the slab's y0, K10, K1,
+# K6, K3, K4; every shard bakes its maps in its frame), slab3_xla (the XLA
+# sun shadow and scatter and the plain scan, K10 blending shadow and
+# accumulation, K4; raycast_shadow_subsample=1, as at ss > 1 the XLA
+# scatter's rays subsample the slab's own rows, JAX pipeline.py:302, and so
+# are other rays than the whole grid's) and slab3_tex (bench.py's texture
+# frame: the plain noise bake at each slab's low grid, K1 K2 K3 K4); each
+# held against the whole grid's frame (SLAB_EDGE).
+SLAB_XLA = dict(scatter_impl="xla", dir_shadow_impl="xla",
+                raycast_shadow_subsample=1)
 SLAB_PATHS = {
     "slab3": ({}, 3, 4, FUSED_KERNELS),
     "slab5": ({}, 5, 4, FUSED_KERNELS),
     "slab3_staged": (SLAB_STAGED, 3, 2, ("shadow_blend", "scatter",
                                          "integrate_blend", "composite")),
+    "slab3_map_dir": (MAP_DIR, 3, 2, MAP_DIR_KERNELS),
+    "slab3_xla": (SLAB_XLA, 3, 2, (("temporal_blend", 2), "composite")),
+    "slab3_tex": ({}, 3, 2, FUSED_KERNELS),
 }
+# slab path -> its scene in main()'s scenes (else benchmark_scene)
+SLAB_SCENES = {"slab3_tex": "tex"}
+# The new slab paths' hold against the whole grid's frame: rtol 1e-4 /
+# atol 1e-5 per element (tests/test_shard_render.py's class for sharded
+# against single device) on every image row whose composite reads only
+# froxel rows [SLAB_EDGE, H - 1 - SLAB_EDGE]; the rows nearer the global
+# top and bottom edges at the slab paths' class (relative to the image
+# maximum, under 0.02), since there a slab's low-rate bake tent clamps
+# against its own halo rows and its computed halo rows past the grid stand
+# in for the whole grid's repeated edge row (the JAX package's slab
+# semantics)
+SLAB_EDGE = 2
+# shardmap3: make_shardmap_render on 3 ranks spawned on the card, slab3's
+# configuration and frames, each rank's band and cropped state held bit
+# for bit against slab3's shard; frames timed after the held ones
+SHARDMAP_RANKS = 3
+SHARDMAP_TIMED = 10
+SHARDMAP_JOIN_S = 300
 
 
 def log(msg: str) -> None:
@@ -778,8 +818,10 @@ def drive_slab(name: str, fn, scene, cuda):
     its counts are summed by the y phase of its frame tables. Checks that
     the image put together from the bands is finite and not flat. Returns
     (last image, its bands, the carries before each frame and after the
-    last, counts, {y phase: counts of the shards of that phase})."""
+    last, counts, {y phase: counts of the shards of that phase}, every
+    frame's bands)."""
     _, n_sh, n_frames, expect = SLAB_PATHS[name]
+    expect = dict(k if isinstance(k, tuple) else (k, 1) for k in expect)
     r_loc = fn.renderer
     render_frame, frame_tables = r_loc.render_frame, r_loc.frame_tables
     seen, by_phase = {}, {}
@@ -794,7 +836,7 @@ def drive_slab(name: str, fn, scene, cuda):
         out = render_frame(*args, **kw)
         delta = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.SOURCES}
         for k, v in delta.items():
-            if v != (k in expect):
+            if v != expect.get(k, 0):
                 raise AssertionError(
                     f"path {name}: a shard's step launched kernel {k} {v} "
                     f"times (on the path: {k in expect})")
@@ -810,10 +852,11 @@ def drive_slab(name: str, fn, scene, cuda):
         torch.cuda.synchronize()
         cuda.reset_launches()
         carries = [carry]
-        bands = None
+        bands, all_bands = None, []
         for i in range(n_frames):
             bands, carry = fn(carry, scenes[i], 0.1 * i)
             carries.append(carry)
+            all_bands.append(bands)
         torch.cuda.synchronize()
         launches = dict(cuda.LAUNCHES)
     finally:
@@ -824,7 +867,7 @@ def drive_slab(name: str, fn, scene, cuda):
         f"shards: {json.dumps(nonzero(launches))}; by the shards' y phase: "
         f"{json.dumps(phased)}")
     for k in cuda.SOURCES:
-        if launches[k] != n_frames * n_sh * (k in expect) or launches[k] \
+        if launches[k] != n_frames * n_sh * expect.get(k, 0) or launches[k] \
                 != sum(c[k] for c in by_phase.values()):
             raise AssertionError(
                 f"path {name}: kernel {k} launched {launches[k]} times in "
@@ -839,7 +882,7 @@ def drive_slab(name: str, fn, scene, cuda):
         raise AssertionError(f"path {name}: non-finite frame output")
     if not std > 1e-4:
         raise AssertionError(f"path {name}: degenerate frame output")
-    return img, bands, carries, launches, by_phase
+    return img, bands, carries, launches, by_phase, all_bands
 
 
 def orbit(scene, i: int):
@@ -1444,6 +1487,246 @@ def raster_phase(renderers, mesh, cuda):
     return out
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_probe(rank: int, device: str, init: str, out_dir: str) -> None:
+    """One rank of shardmap3's NCCL probe (spawned): an NCCL group of
+    SHARDMAP_RANKS ranks, an all_reduce and the neighbour send/recv that
+    make_shardmap_render makes. On an error its text goes to
+    out_dir/probe<rank>.txt and the rank exits 1."""
+    import datetime
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method=init, rank=rank,
+                                world_size=SHARDMAP_RANKS,
+                                timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device=device)
+        dist.all_reduce(x)
+        nxt, prv = (rank + 1) % SHARDMAP_RANKS, (rank - 1) % SHARDMAP_RANKS
+        y = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, nxt), dist.P2POp(dist.irecv, y, prv)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        torch.cuda.synchronize()
+        if float(y.sum()) != 4.0 * SHARDMAP_RANKS:
+            raise RuntimeError(f"NCCL probe: received {y.tolist()}")
+        dist.destroy_process_group()
+    except Exception as e:      # the text is the finding; the exit code says
+        with open(os.path.join(out_dir, f"probe{rank}.txt"), "w") as f:
+            f.write(f"{type(e).__name__}: {e}")
+        sys.exit(1)
+
+
+def shardmap_rank(rank: int, backend: str, device: str, init: str,
+                  n_frames: int, out_dir: str) -> None:
+    """One rank of shardmap3 (spawned): slab3's configuration, scene and
+    frames through make_shardmap_render on a `backend` group, this rank's
+    G-buffer band bound as fixed_inputs, from fn.init_state. Saves to
+    out_dir/rank<rank>.pt its G-buffer band, every frame's band and cropped
+    state, its launches, its frame times (CUDA events and host wall over
+    SHARDMAP_TIMED warm frames) and, over as many frames again with the
+    device synchronized around each exchange, the exchange's host time;
+    rank 0 also profiles 3 frames (the others render beside it)."""
+    import datetime
+    import torch.distributed as dist
+    from volumetricrenderer_tpu_torch import (FULL_CONFIG, VolumetricRenderer,
+                                              benchmark_scene)
+    from volumetricrenderer_tpu_torch.ops import cuda
+    from volumetricrenderer_tpu_torch.parallel import sharding
+    from volumetricrenderer_tpu_torch.parallel import shard_render as shr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=SHARDMAP_RANKS,
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        mesh = sharding.make_mesh(device)
+        cfg = FULL_CONFIG
+        r = VolumetricRenderer(cfg, device=device)
+        scene = benchmark_scene(aspect=cfg.image_width / cfg.image_height,
+                                num_local_lights=16, noise_mode="procedural",
+                                device=device)
+        sc, vd = r.render_scene_inputs(scene)
+        ih = cfg.image_height // mesh.size
+        band = (sc[rank * ih:(rank + 1) * ih], vd[rank * ih:(rank + 1) * ih])
+        fn = shr.make_shardmap_render(r, mesh, fixed_inputs=band)
+        state = fn.init_state(scene.dir_lights.count)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        bands, states = [], []
+        for i in range(n_frames):
+            img, state = fn(state, slab_scene(scene, i), 0.1 * i)
+            bands.append(img.cpu())
+            states.append({f: t.cpu()
+                           for f, t in shr_crop(state, fn.halo).items()})
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        box = {"s": state}
+
+        def one():
+            _, box["s"] = fn(box["s"], scene, 0.5)
+
+        ev_ms = cuda_time_ms(one, SHARDMAP_TIMED)
+        t0 = time.perf_counter()
+        for _ in range(SHARDMAP_TIMED):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / SHARDMAP_TIMED
+        real, spent = shr._exchange, []
+
+        def timed_exchange(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t)
+            return out
+
+        shr._exchange = timed_exchange
+        try:
+            t0 = time.perf_counter()
+            for _ in range(SHARDMAP_TIMED):
+                one()
+            torch.cuda.synchronize()
+            sync_ms = 1e3 * (time.perf_counter() - t0) / SHARDMAP_TIMED
+        finally:
+            shr._exchange = real
+        if rank == 0:
+            log(f"# shardmap3 rank 0 ({backend}) under the profiler, the "
+                "other ranks rendering beside it:")
+            profile_frames(one, 3)
+        else:
+            for _ in range(3):      # the 3 frames rank 0 profiles
+                one()
+        torch.cuda.synchronize()
+        torch.save({"band_gbuffer": (band[0].cpu(), band[1].cpu()),
+                    "bands": bands, "states": states, "launches": launches,
+                    "halo": fn.halo, "backend": mesh.backend,
+                    "host_staged": mesh.host_staged, "event_ms": ev_ms,
+                    "wall_ms": wall_ms, "synced_wall_ms": sync_ms,
+                    "exchange_ms": 1e3 * sum(spent) / len(spent)},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, args_of, what: str) -> list:
+    """Start SHARDMAP_RANKS spawned processes target(rank, *args_of(rank)),
+    join each (at most SHARDMAP_JOIN_S in all), kill what is left; returns
+    the exit codes."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, *args_of(rank)))
+             for rank in range(SHARDMAP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SHARDMAP_JOIN_S
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                log(f"# {what}: a rank still ran after {SHARDMAP_JOIN_S} s: "
+                    "killed")
+                p.kill()
+                p.join()
+    return [p.exitcode for p in procs]
+
+
+def shardmap_phase(slab_run, halo: int, scene_color, view_depth):
+    """shardmap3: make_shardmap_render on SHARDMAP_RANKS spawned ranks, each
+    band and cropped state of slab3's frames held bit for bit against
+    slab3's shard (make_multislab_render). With as many GPUs as ranks the
+    group is NCCL, a rank a GPU; on fewer, NCCL is tried first with the
+    ranks sharing the GPUs (a probe group), and where NCCL refuses that the
+    group is gloo, with make_shardmap_render staging the edge rows through
+    host memory. A rank that fails fails the phase."""
+    n_gpu = torch.cuda.device_count()
+    devices = [f"cuda:{r % n_gpu}" for r in range(SHARDMAP_RANKS)]
+    tmp = tempfile.mkdtemp()
+    backend = "nccl"
+    if n_gpu < SHARDMAP_RANKS:
+        init = f"tcp://localhost:{free_port()}"
+        t0 = time.perf_counter()
+        codes = spawn_ranks(nccl_probe, lambda r: (devices[r], init, tmp),
+                            "the NCCL probe")
+        refused = {}
+        for r in range(SHARDMAP_RANKS):
+            path = os.path.join(tmp, f"probe{r}.txt")
+            if os.path.exists(path):
+                with open(path) as f:
+                    refused[r] = f.read()
+        log(f"# shardmap3: NCCL with {SHARDMAP_RANKS} ranks on {n_gpu} "
+            f"GPU(s) {devices}: exit codes {codes} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for r, text in refused.items():
+            log(f"# shardmap3: NCCL refused on rank {r}: {text!r}")
+        if codes != [0] * SHARDMAP_RANKS:
+            backend = "gloo"
+    n_frames = len(slab_run[5])
+    init = f"tcp://localhost:{free_port()}"
+    t0 = time.perf_counter()
+    codes = spawn_ranks(shardmap_rank, lambda r: (
+        backend, devices[r], init, n_frames, tmp), "shardmap3")
+    log(f"# shardmap3: backend {backend}"
+        + (" (edge rows staged through host memory)" if backend == "gloo"
+           else "") + f", ranks on {devices}, exit codes {codes}, "
+        f"{time.perf_counter() - t0:.1f} s with the spawns")
+    if codes != [0] * SHARDMAP_RANKS:
+        raise AssertionError(f"shardmap3: a rank failed (exit codes {codes})")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+             for r in range(SHARDMAP_RANKS)]
+    shutil.rmtree(tmp)
+    ih = scene_color.shape[0] // SHARDMAP_RANKS
+    same = {"gbuffer": True, "bands": True, "states": True}
+    for r, got in enumerate(ranks):
+        g_sc, g_vd = got["band_gbuffer"]
+        same["gbuffer"] &= (
+            torch.equal(g_sc, scene_color[r * ih:(r + 1) * ih].cpu())
+            and torch.equal(g_vd, view_depth[r * ih:(r + 1) * ih].cpu()))
+        for i in range(n_frames):
+            want = slab_run[5][i][r]
+            same["bands"] &= torch.equal(got["bands"][i], want.cpu())
+            st = shr_crop(slab_run[2][i + 1][0][r], halo)
+            same["states"] &= st.keys() == got["states"][i].keys() and all(
+                torch.equal(got["states"][i][f], t.cpu())
+                for f, t in st.items())
+        expect = {k: n_frames for k in FUSED_KERNELS}
+        if got["launches"] != expect:
+            raise AssertionError(f"shardmap3 rank {r}: launches "
+                                 f"{got['launches']}, not {expect}")
+        log(f"# shardmap3 rank {r}: frame {got['event_ms']:.3f} ms "
+            f"device-event mean, {got['wall_ms']:.3f} ms host wall mean "
+            f"over {SHARDMAP_TIMED} warm frames; exchange "
+            f"{got['exchange_ms']:.3f} ms host time a frame, the device "
+            f"synchronized around it (those frames {got['synced_wall_ms']:.3f}"
+            f" ms wall, the exchange's share "
+            f"{got['exchange_ms'] / got['synced_wall_ms']:.1%}); launches in "
+            f"the {n_frames} held frames {json.dumps(got['launches'])}")
+    log(f"# shardmap3 = slab3 bit for bit over {n_frames} frames: G-buffer "
+        f"bands {same['gbuffer']}, image bands {same['bands']}, cropped "
+        f"states {same['states']}")
+    if not all(same.values()):
+        raise AssertionError("shardmap3 differs from slab3")
+    return backend
+
+
+def shr_crop(state, halo: int) -> dict:
+    """A shard's halo histories cropped to its own rows, by name."""
+    from volumetricrenderer_tpu_torch.parallel import shard_render as shr
+    st = shr.crop_sharded_state(state, 1, halo)
+    return {f: getattr(st, f) for f in shr.HALO_FIELDS
+            if getattr(st, f) is not None}
+
+
 def start_cpu_gbuffer(tmp: str):
     """Start the CPU side of the raster phase: the mesh scene's 720p
     G-buffer by the same plain code on the CPU, in a process of its own
@@ -1638,6 +1921,8 @@ def main() -> int:
                                              **SCENE_PATHS}.items()}
     scene_of = lambda name: scenes[scene_key[name]] \
         if name in scene_key else scene
+    slab_scene_of = lambda name: scenes[SLAB_SCENES[name]] \
+        if name in SLAB_SCENES else scene
     t0 = time.perf_counter()
     sunless_gbuf = renderer.render_scene_inputs(sunless)
     torch.cuda.synchronize()
@@ -1721,7 +2006,8 @@ def main() -> int:
         slab_fns[name] = (s_r, shr.make_multislab_render(
             s_r, n_sh, fixed_inputs=(list(scene_color.chunk(n_sh)),
                                      list(view_depth.chunk(n_sh)))))
-        slab_runs[name] = drive_slab(name, slab_fns[name][1], scene, cuda)
+        slab_runs[name] = drive_slab(name, slab_fns[name][1],
+                                     slab_scene_of(name), cuda)
         runs[name] = (slab_runs[name][0], slab_runs[name][2],
                       slab_runs[name][3])
     img, states, _ = runs["fused"]
@@ -2681,6 +2967,24 @@ def main() -> int:
             acc_s, b_sc, b_vd, p_s, r_loc.config.grid, y_map))
     slab_in["slab_pixels"] = (acc_s, b_sc, b_vd, p_s, r_loc.config.grid,
                               y_map)
+    # K12's slab form on slab3_map_dir's middle shard at its frame 2: the
+    # shard's own maps (every shard bakes them in its frame), its tables
+    # with the global grid's rows and the slab's y0
+    r_loc, slab, st_i, _ = slab_shard("slab3_map_dir", 1, 1)
+    scene_1 = slab_scene(scene, 1)
+    md_dir = r_loc.bake_shadow_data(scene_1)[0]
+    t_md = r_loc.pcf_tables(st_i, scene_1, md_dir, slab)
+    log(f"# pcf_shadow, slab3_map_dir shard 1: grid {t_md.grid_whd}, global "
+        f"rows {t_md.h_glob}, y0 {float(t_md.par[0, 21]):g}, active "
+        f"cascades per slice {t_md.count[0].tolist()}")
+    if t_md.h_glob != cfg.volume_height or float(t_md.par[0, 21]) != \
+            slab.y0:
+        raise AssertionError("K12's slab tables miss the global rows")
+    slab_err[("pcf_shadow", "slab_map_dir")] = compare(
+        "pcf_shadow", pcf.pcf_shadow(t_md, md_dir.atlas),
+        pcf.pcf_shadow_plain(t_md, md_dir.atlas),
+        label="slab3_map_dir shard 1")
+    slab_in["slab_map_dir"] = (t_md, md_dir.atlas)
     for (k, m), e in slab_err.items():
         errs[k] = max(errs[k], e)
     # the hold of each kernel with its largest difference; for K6, the
@@ -2696,14 +3000,38 @@ def main() -> int:
     # (tests/test_shard_render.py's odd-slab-start bounds: relative to the
     # image maximum, under 2e-3 on rows 2..-2 and 0.02 everywhere)
     refs = {}
-    for name in ("slab3", "slab3_staged"):     # slab5 renders slab3's frames
-        s_r = slab_fns[name][0]
-        s_st = s_r.init_state(scene.dir_lights.count)
+    new_slabs = ("slab3_map_dir", "slab3_xla", "slab3_tex")
+    for name in ("slab3", "slab3_staged") + new_slabs:
+        s_r = slab_fns[name][0]     # slab5 renders slab3's frames
+        s_scene = slab_scene_of(name)
+        s_st = s_r.init_state(s_scene.dir_lights.count)
         for i in range(SLAB_PATHS[name][2]):
             refs[name], _, s_st = s_r.render_frame(
-                s_st, slab_scene(scene, i), 0.1 * i, scene_color, view_depth)
+                s_st, slab_scene(s_scene, i), 0.1 * i, scene_color,
+                view_depth)
     refs["slab5"] = refs["slab3"]
-    for name, ref in refs.items():
+    h_g, ih_g = cfg.volume_height, cfg.image_height
+    fy = (torch.arange(ih_g, device="cuda") + 0.5) * h_g / ih_g - 0.5
+    inner = (fy.floor() >= SLAB_EDGE) & (fy.ceil() <= h_g - 1 - SLAB_EDGE)
+    for name in new_slabs:
+        img, ref = runs[name][0], refs[name]
+        err = (img - ref).abs()
+        past = err > 1e-5 + 1e-4 * ref.abs()
+        rel = err / ref.abs().max()
+        n_in, n_edge = int(past[inner].sum()), int(past[~inner].sum())
+        log(f"# {name} against the whole grid's frame {SLAB_PATHS[name][2]}:"
+            f" {n_in} elements past rtol 1e-4 / atol 1e-5 on the "
+            f"{int(inner.sum())} rows reading froxel rows {SLAB_EDGE}.."
+            f"{h_g - 1 - SLAB_EDGE} (max |diff| {float(err[inner].max()):.3e}"
+            f"), {n_edge} on the {int((~inner).sum())} edge rows (max "
+            f"relative to the image maximum {float(rel.max()):.3e}, bound "
+            f"0.02); whole grid checksum "
+            f"{float(ref.sum(dtype=torch.float32))!r}")
+        if n_in or not float(rel.max()) < 0.02:
+            raise AssertionError(f"{name} differs from the whole grid's "
+                                 "image")
+    for name in ("slab3", "slab5", "slab3_staged"):
+        ref = refs[name]
         rel = (runs[name][0] - ref).abs() / ref.abs().max()
         inner, worst = float(rel[2:-2].max()), float(rel.max())
         row_max = rel.amax(dim=(1, 2))
@@ -2724,6 +3052,9 @@ def main() -> int:
     shutil.rmtree(gbuf_tmp)
 
     done("the CPU G-buffer's join")
+    shardmap_phase(slab_runs["slab3"], slab_fns["slab3"][1].halo,
+                   scene_color, view_depth)
+    done("shardmap3")
     # 6. timing
     one_frame, st = frame_times("fused", renderer, scene, scene_color,
                                 view_depth, states[-1], 20)
@@ -2860,11 +3191,13 @@ def main() -> int:
     for name, (_, n_sh, _, _) in SLAB_PATHS.items():
         fn = slab_fns[name][1]
         box = {"c": slab_runs[name][2][-1]}
+        s_scene = slab_scene_of(name)
 
-        def one_slab(fn=fn, box=box):
-            _, box["c"] = fn(box["c"], scene, 0.5)
+        def one_slab(fn=fn, box=box, s_scene=s_scene):
+            _, box["c"] = fn(box["c"], s_scene, 0.5)
 
-        n_f = 3 if name == "slab3_staged" else 10
+        few = name in ("slab3_staged", "slab3_map_dir", "slab3_xla")
+        n_f = 3 if few else 10
         ev_ms = cuda_time_ms(one_slab, n_f)
         t0 = time.perf_counter()
         for _ in range(n_f):
@@ -2875,11 +3208,11 @@ def main() -> int:
             f"({ev_ms / n_sh:.3f} per shard), {wall_ms:.3f} ms host wall "
             f"mean ({wall_ms / n_sh:.3f} per shard) over {n_f} warm frames "
             f"of {n_sh} shards")
-        profile_frames(one_slab, 2 if name == "slab3_staged" else 3)
+        profile_frames(one_slab, 2 if few else 3)
         r_loc, slab, st_i, _ = slab_shard(name, 1, 0)
         t0 = time.perf_counter()
         for _ in range(20):
-            r_loc.frame_tables(st_i, scene, 0.5, slab)
+            r_loc.frame_tables(st_i, s_scene, 0.5, slab)
         torch.cuda.synchronize()
         log(f"# host prep (frame_tables), {name}: "
             f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms per shard")
@@ -3017,6 +3350,9 @@ def main() -> int:
         ("composite", "slab_pixels"): (
             lambda a=slab_in["slab_pixels"]: zg.composite_pixels(*a),
             lambda a=slab_in["slab_pixels"]: zg.composite_pixels_plain(*a)),
+        ("pcf_shadow", "slab_map_dir"): (
+            lambda a=slab_in["slab_map_dir"]: pcf.pcf_shadow(*a),
+            lambda a=slab_in["slab_map_dir"]: pcf.pcf_shadow_plain(*a)),
     }
     for ph in range(4):
         t_ph = slab_in[f"slab_phase{ph}"]
@@ -3400,11 +3736,13 @@ def main() -> int:
         slab_work[("composite", m)] = (
             4 * (n_acc + n_b + 3 * n_b + 4 * n_b),
             n_b * (20 + 8 * 4 * 2 + 16))
+    slab_work[("pcf_shadow", "slab_map_dir")] = pcf_work(
+        slab_in["slab_map_dir"][0])
     # launches of each slab form in the slab paths' runs: K1 and K2 as the
     # shards' steps counted them, summed by the shards' y phase (K2's tent
     # is phased where the phase is not 0), K4 per path
     slab_launch = {}
-    for name in ("slab3", "slab5"):
+    for name in SLAB_PATHS:
         for ph, counts in slab_runs[name][4].items():
             km = ("bake_radiance", f"slab_phase{ph}")
             slab_launch[km] = slab_launch.get(km, 0) \
@@ -3416,9 +3754,12 @@ def main() -> int:
     slab_launch[("integrate_blend", "slab_shard")] = sum(
         launches["integrate_blend"].get(p_, 0) for p_ in SLAB_PATHS)
     slab_launch[("composite", "slab_row_offset")] = sum(
-        launches["composite"].get(p_, 0) for p_ in ("slab3", "slab5"))
+        launches["composite"].get(p_, 0) for p_ in SLAB_PATHS
+        if p_ != "slab3_staged")
     slab_launch[("composite", "slab_pixels")] = \
         launches["composite"].get("slab3_staged", 0)
+    slab_launch[("pcf_shadow", "slab_map_dir")] = \
+        launches["pcf_shadow"].get("slab3_map_dir", 0)
     log(f"# y phases of the shards: {json.dumps(slab_phases)}")
     log(f"# bound inputs: {prims} primitives, {active_pairs} active "
         f"(low sample, light) pairs, {n_noise} noise channel(s), "

@@ -1,8 +1,8 @@
 """The port stands alone: no file of volumetricrenderer_tpu_torch/, not
-chip_smoke.py and not the data-parallel step's test worker imports JAX,
-optax, orbax or the JAX package (checked on the source, since this test
-process has JAX loaded already), and the renderer never falls back to the
-CPU when CUDA is missing."""
+chip_smoke.py and not the test workers of the data-parallel step and of
+the sharded render imports JAX, optax, orbax or the JAX package (checked
+on the source, since this test process has JAX loaded already), and the
+renderer never falls back to the CPU when CUDA is missing."""
 
 import ast
 from pathlib import Path
@@ -21,7 +21,8 @@ def _port_files():
     files = sorted((ROOT / "volumetricrenderer_tpu_torch").rglob("*.py"))
     assert len(files) > 10
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "tests" / "torch_sharded_worker.py"]
+                    ROOT / "tests" / "torch_sharded_worker.py",
+                    ROOT / "tests" / "torch_shardmap_worker.py"]
 
 
 def _imported(tree):

@@ -30,7 +30,12 @@ against the JAX package's, on the CPU at small size.
    halo runs past the grid.
 7. Port only: seeded random n and halo against the port's unsharded frame,
    with JAX's fuzz bounds (rtol 1e-4, atol 1e-5).
-8. The configurations a slab does not take raise NotImplementedError.
+8. The slab forms of the shadow maps, the XLA scatter and sun shadow,
+   texture media and scenes without a sun or media against the port's
+   unsharded frame (7.), and map_dir in slabs against JAX's
+   make_multislab_render(n=2) over two frames, bands and cropped state
+   (assert_boundary_close).
+9. The configurations a slab does not take raise NotImplementedError.
 
 The JAX references run once per module (Pallas in interpret mode, as JAX's
 own tests run them); both renderers take JAX's G-buffer bands."""
@@ -50,6 +55,7 @@ from volumetricrenderer_tpu import demo_scene as j_demo
 from volumetricrenderer_tpu import froxel as jfroxel
 from volumetricrenderer_tpu import pipeline as j_pipeline
 from volumetricrenderer_tpu.models.camera import Camera as JCamera
+from volumetricrenderer_tpu.models.scene import benchmark_scene as j_bench
 from volumetricrenderer_tpu.ops.pallas import visibility as j_vis
 from volumetricrenderer_tpu.ops.pallas.scatter import \
     pack_params as j_pack_params
@@ -68,6 +74,7 @@ from volumetricrenderer_tpu_torch.convert import (multislab_carry_from_numpy,
 from volumetricrenderer_tpu_torch.models.camera import Camera as TCamera
 from volumetricrenderer_tpu_torch.ops import visibility as t_vis
 from volumetricrenderer_tpu_torch.ops import zg_composite as t_zg
+from volumetricrenderer_tpu_torch.ops.noise import perlin_texture_3d
 from volumetricrenderer_tpu_torch.parallel import shard_render as t_sr
 
 from torch_tolerance import assert_boundary_close
@@ -510,12 +517,48 @@ def test_whole_halo_multislab_state_matches_jax(whole_halo):
 
 # 7. any n and halo: the image of the whole grid --------------------------------
 
+# RenderConfig()'s impl set (the XLA scatter and scan, the "windowed"
+# reprojection, the tentmm composite) at the FUZZ grid
+XLA = dict(volume_width=16, volume_height=36, volume_depth=8, image_width=32,
+           image_height=48, shadow_map_size=32)
+# name -> (config, scene): "demo" demo_scene, the others benchmark_scene
+# with 4 local lights, its fog sampling an 8^3 noise texture ("texture"),
+# without its sun ("sunless") or without media ("no_media")
 FUZZ = {
-    "staged": dict(STAGED, volume_height=36),
-    "windowed": dict(STAGED, volume_height=36, reproj_impl="windowed",
-                     dir_shadow_impl="xla", accumulate_impl="xla"),
-    "fused_rays": dict(STAGED, volume_height=36, material_impl="fused"),
+    "staged": (dict(STAGED, volume_height=36), "demo"),
+    "windowed": (dict(STAGED, volume_height=36, reproj_impl="windowed",
+                      dir_shadow_impl="xla", accumulate_impl="xla"), "demo"),
+    "fused_rays": (dict(STAGED, volume_height=36, material_impl="fused"),
+                   "demo"),
+    # the slab forms of the shadow maps, the XLA scatter and sun shadow,
+    # texture media and scenes without a sun or media
+    "xla": (dict(XLA, shadow_mode="raycast"), "bench"),
+    "map": (dict(XLA, shadow_mode="map"), "bench"),
+    "map_dir": (dict(STAGED, volume_height=36, shadow_mode="map_dir",
+                     shadow_map_size=64), "bench"),
+    "map_kernel": (dict(STAGED, volume_height=36, shadow_mode="map",
+                        shadow_map_size=64), "bench"),
+    "texture": (dict(STAGED, volume_height=36), "texture"),
+    "sunless": (dict(XLA, shadow_mode="raycast"), "sunless"),
+    "no_media": (dict(STAGED, volume_height=36), "no_media"),
 }
+
+
+def _fuzz_scene(kind, aspect):
+    if kind == "demo":
+        return vt.demo_scene(aspect=aspect, device="cpu")
+    kw = dict(aspect=aspect, num_local_lights=4, device="cpu")
+    if kind == "texture":
+        return vt.benchmark_scene(noise_tex=perlin_texture_3d(8), **kw)
+    scene = vt.benchmark_scene(noise_mode="procedural", **kw)
+    if kind == "sunless":
+        return dataclasses.replace(scene, dir_lights=dataclasses.replace(
+            scene.dir_lights, **{f.name: getattr(scene.dir_lights, f.name)[:0]
+                                 for f in dataclasses.fields(
+                                     scene.dir_lights)}))
+    if kind == "no_media":
+        return dataclasses.replace(scene, media=())
+    return scene
 
 
 @pytest.mark.parametrize("name", list(FUZZ))
@@ -523,16 +566,22 @@ def test_multislab_matches_the_whole_grid(name):
     """Port only: a seeded random shard count n (dividing H=36 and IH=48)
     and halo in [3, min(reproj_window + 2, H/n)], random camera motion;
     the bands over two frames against the port's unsharded frames (JAX's
-    bounds of test_multislab_fuzz_random_n_halo_motion_matches_unsharded)."""
-    cfg = vt.RenderConfig(**FUZZ[name])
+    bounds of test_multislab_fuzz_random_n_halo_motion_matches_unsharded,
+    and of sharded against single device, tests/test_shard_render.py:69,
+    :153, :230: rtol 1e-4, atol 1e-5). The shadow-map cases bake their
+    maps in every shard's frame, as the JAX package's step does; map_dir
+    and map_kernel sample the sun on K12's twin (a 128-texel atlas), and
+    map_kernel bakes the local lights from their maps on the slab's low
+    grid."""
+    kw, kind = FUZZ[name]
+    cfg = vt.RenderConfig(**kw)
     rng = np.random.default_rng(list(FUZZ).index(name) + 7)
     n = int(rng.choice([2, 3, 4]))
     h_loc = cfg.volume_height // n
     halo = int(rng.integers(3, min(cfg.reproj_window + 2, h_loc) + 1))
     r = vt.VolumetricRenderer(cfg, device="cpu")
-    assert r.fuses_frame() == (name == "fused_rays")
-    base = vt.demo_scene(aspect=cfg.image_width / cfg.image_height,
-                         device="cpu")
+    base = _fuzz_scene(kind, cfg.image_width / cfg.image_height)
+    assert r.fuses_frame(base) == (name == "fused_rays")
     moves = rng.uniform(-0.3, 0.3, (2, 2)).astype(np.float32)
     scenes = [dataclasses.replace(base, camera=dataclasses.replace(
         base.camera, position=base.camera.position + torch.tensor(
@@ -567,7 +616,73 @@ def test_fixed_inputs_match_the_explicit_bands():
     assert (fn.halo, fn.n_shards, fn.h_global) == (6, 4, 32)
 
 
-# 8. what a slab does not take ---------------------------------------------------
+# 8. the slab forms against JAX's: map_dir ---------------------------------------
+
+# RenderConfig(shadow_mode="map_dir") at tests/test_parallel.py's size: the
+# gather sun sampler on the camera-aligned cascades, the XLA scatter with
+# per-light rays, the "windowed" reprojection, the XLA scan
+MAP_DIR_SLABS = dict(volume_width=16, volume_height=16, volume_depth=8,
+                     image_width=48, image_height=32, shadow_map_size=32,
+                     shadow_mode="map_dir")
+
+
+@pytest.fixture(scope="module")
+def map_dir_slabs():
+    """JAX's make_multislab_render(n=2) and the port's on MAP_DIR_SLABS over
+    two frames of a moving camera on benchmark_scene (4 local lights), both
+    on the port's G-buffer bands; every shard bakes its maps in its frame,
+    in both packages."""
+    n = 2
+    jr = JRenderer(JConfig(**MAP_DIR_SLABS))
+    tr = vt.VolumetricRenderer(vt.RenderConfig(**MAP_DIR_SLABS), device="cpu")
+    base = j_bench(aspect=48 / 32, num_local_lights=4,
+                   noise_mode="procedural")
+    cam = base.camera
+    j_scenes = [dataclasses.replace(base, camera=dataclasses.replace(
+        cam, position=cam.position + jnp.asarray([0.3, 0.2, 0.25],
+                                                 jnp.float32) * i))
+        for i in range(2)]
+    t_scenes = [scene_from_numpy(s, "cpu") for s in j_scenes]
+    j_fn = j_sr.make_multislab_render(jr, n)
+    t_fn = t_sr.make_multislab_render(tr, n)
+    j_carry, t_carry = j_fn.init_carry(1), t_fn.init_carry(1)
+    j_imgs, t_imgs, j_carries = [], [], []
+    for i, (js, ts) in enumerate(zip(j_scenes, t_scenes)):
+        sc, vd = (list(a.chunk(n)) for a in tr.render_scene_inputs(ts))
+        bands, j_carry = j_fn(j_carry, js, jnp.float32(0.1 * i),
+                              [jnp.asarray(b.numpy()) for b in sc],
+                              [jnp.asarray(b.numpy()) for b in vd])
+        j_imgs.append(np.concatenate([np.asarray(b) for b in bands]))
+        j_carries.append(jax.tree.map(np.asarray, j_carry))
+        bands, t_carry = t_fn(t_carry, ts, np.float32(0.1 * i), sc, vd)
+        t_imgs.append(torch.cat(bands).numpy())
+    run = dict(kw=MAP_DIR_SLABS, j_fn=j_fn, j_carries=j_carries,
+               t_carry=t_carry)
+    return j_imgs, t_imgs, _cropped(run)
+
+
+@pytest.mark.parametrize("part", ["frame0", "frame1", "accumulation",
+                                  "shadow"])
+def test_map_dir_multislab_matches_jax(map_dir_slabs, part):
+    """The slice as a whole against the JAX package: both packages'
+    make_multislab_render(n=2) on the shadow-map frame, each band of the two
+    frames and the final cropped histories, at the class of the port's
+    unsharded map_dir hold (tests/test_torch_shadow_maps.py:
+    torch_tolerance.assert_boundary_close)."""
+    j_imgs, t_imgs, ((j_acc, j_sh), (t_acc, t_sh)) = map_dir_slabs
+    if part.startswith("frame"):
+        i = int(part[-1])
+        assert t_imgs[i].shape == j_imgs[i].shape == (32, 48, 4)
+        assert float(np.abs(j_imgs[i][..., :3]).std()) > 1e-4
+        assert_boundary_close(t_imgs[i], j_imgs[i], f"map_dir bands {i}")
+    elif part == "accumulation":
+        assert t_acc.shape == (8, 16, 16, 4)
+        assert_boundary_close(t_acc, j_acc, "accumulation history")
+    else:
+        assert_boundary_close(t_sh, j_sh, "shadow history")
+
+
+# 9. what a slab does not take ---------------------------------------------------
 
 def _slab_call(kw, post=False):
     cfg = vt.RenderConfig(**dict(STAGED, **kw))
@@ -590,12 +705,20 @@ def _slab_call(kw, post=False):
 
 
 @pytest.mark.parametrize("kw, post, match", [
-    (dict(shadow_mode="map_dir"), False, "shadow_mode='map_dir' in a slab"),
-    (dict(shadow_mode="map"), False, "shadow_mode='map' in a slab"),
+    (dict(shadow_mode="map_dir", reproj_impl="gather"), False,
+     "reproj_impl='gather' in a slab"),
+    (dict(shadow_mode="map"), True, "post stack in a slab"),
     (dict(reproj_impl="gather"), False, "reproj_impl='gather' in a slab"),
     ({}, True, "post stack in a slab"),
 ], ids=["map_dir", "map", "gather", "post"])
 def test_unported_slabs_raise(kw, post, match):
+    """What a slab still refuses, where the JAX package refuses it too: the
+    gather reprojection (its row support is unbounded) and the post stack
+    (render_frame_post takes no slab), also in the shadow-map modes, which
+    render in slabs since their slab forms were ported (the map_dir and
+    map cases held those refusals; the modes are held in
+    test_multislab_matches_the_whole_grid and against JAX in
+    test_map_dir_multislab_matches_jax)."""
     with pytest.raises(NotImplementedError, match=match):
         _slab_call(kw, post)
 

@@ -1,6 +1,22 @@
-"""The tolerance the port's end-to-end tests hold it to against JAX."""
+"""The tolerance the port's end-to-end tests hold it to against JAX, and
+the CPU the port's tests take under pytest-xdist.
+
+Importing this module (every port test file that holds frames does) gives
+torch os.cpu_count() // PYTEST_XDIST_WORKER_COUNT intra-op threads in an
+xdist worker, at least one: by default each of the workers would run
+torch on every core, and the suite's workers would thrash the CPU between
+them (a 6-worker run of six port test files took 197 s so, 93 s with one
+thread a worker on 8 cores). One process without xdist keeps torch's
+default."""
+
+import os
 
 import numpy as np
+import torch
+
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS > 0:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def assert_boundary_close(got, want, msg):

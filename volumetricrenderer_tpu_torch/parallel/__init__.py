@@ -1,1 +1,3 @@
-"""H-sharded rendering of the port (parallel/shard_render.py)."""
+"""H-sharded rendering of the port: slabs on one device or one a rank
+(parallel/shard_render.py) and the torch.distributed helpers
+(parallel/sharding.py)."""

@@ -18,14 +18,21 @@ neighbours' freshly computed interior edge rows (`_edge_slices` of the
 neighbour, `_write_halo` here), the shards at the global edges repeating
 their own edge row. `crop_sharded_state` recovers the plain global layout.
 
-The shards run one after the other on one device, each a plain call of
-the renderer's render_frame with its slab: per frame n times the fused
-frame's kernels (K1-K4) on a slab's rows. The JAX package's padded plane
-layout is a TPU layout: the port's histories are [C, D, H, W], so the halo
-axis is 2 for every history, and a shard's steady state is the slab
-renderer's own init_state (JAX `_steady_slab_state`). The JAX package's
-`make_shardmap_render` (one slab per device, a halo exchange between
-devices) and `parallel/sharding.py` are not ported.
+Two functions run the same per-shard step (render_frame with the shard's
+slab and its refreshed halos):
+
+  make_multislab_render  the n shards one after the other on one device,
+                         the neighbours' edge rows passed explicitly
+  make_shardmap_render   one shard per rank of a torch.distributed group
+                         (parallel/sharding.Mesh), the edge rows exchanged
+                         between neighbour ranks (`_refresh_halo`, and
+                         `_halo_rows` for a state in the plain layout) by
+                         send/recv, where the JAX function ppermutes
+
+so the two agree bit for bit. The JAX package's padded plane layout is a
+TPU layout: the port's histories are [C, D, H, W], so the halo axis is 2
+for every history, and a shard's steady state is the slab renderer's own
+init_state (JAX `_steady_slab_state`).
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from volumetricrenderer_tpu_torch import convert
+from volumetricrenderer_tpu_torch.parallel.sharding import Mesh
 from volumetricrenderer_tpu_torch.renderer import VolumetricRenderer
 from volumetricrenderer_tpu_torch.state import FrameState
 
@@ -149,6 +158,29 @@ def _edges(state: FrameState, p: int, h_ext: int):
     return packs
 
 
+def _slabs(renderer: VolumetricRenderer, n: int, halo: Optional[int]):
+    """(rows per shard h_loc, halo p, the renderer of one shard's
+    halo-extended slab and image band) for n shards, checked as the JAX
+    package checks them."""
+    cfg = renderer.config
+    h_g, ih_g = cfg.volume_height, cfg.image_height
+    if h_g % n or ih_g % n:
+        raise ValueError(f"grid height {h_g} and image height {ih_g} must "
+                         f"divide into {n} slabs")
+    h_loc = h_g // n
+    p = halo if halo is not None else min(cfg.reproj_window + 2, h_loc)
+    if not 1 <= p <= h_loc:
+        raise ValueError(f"halo {p} must be in [1, {h_loc}] (the composite "
+                         "tent reads row -1)")
+    if cfg.reproj_impl not in ("windowed", "pallas"):
+        raise NotImplementedError(
+            f"reproj_impl={cfg.reproj_impl!r} in a slab: only the windowed "
+            "reprojections have the bounded row support the halo covers")
+    cfg_loc = dataclasses.replace(cfg, volume_height=h_loc + 2 * p,
+                                  image_height=ih_g // n)
+    return h_loc, p, VolumetricRenderer(cfg_loc, device=renderer.device)
+
+
 def make_multislab_render(renderer: VolumetricRenderer, n: int,
                           halo: Optional[int] = None, fixed_inputs=None):
     """Single-device emulation of the n-shard slab pipeline: the per-shard
@@ -172,24 +204,9 @@ def make_multislab_render(renderer: VolumetricRenderer, n: int,
     and the composite tent's +-1, so the seams are exact for every motion
     the warp window supports. The renderer's device is the shards'."""
     cfg = renderer.config
-    w_g, h_g, d_g = cfg.grid
-    ih_g = cfg.image_height
-    if h_g % n or ih_g % n:
-        raise ValueError(f"grid height {h_g} and image height {ih_g} must "
-                         f"divide into {n} slabs")
-    h_loc, ih_loc = h_g // n, ih_g // n
-    p = halo if halo is not None else min(cfg.reproj_window + 2, h_loc)
-    if not 1 <= p <= h_loc:
-        raise ValueError(f"halo {p} must be in [1, {h_loc}] (the composite "
-                         "tent reads row -1)")
-    if cfg.reproj_impl not in ("windowed", "pallas"):
-        raise NotImplementedError(
-            f"reproj_impl={cfg.reproj_impl!r} in a slab: only the windowed "
-            "reprojections have the bounded row support the halo covers")
+    h_g, ih_g = cfg.volume_height, cfg.image_height
+    h_loc, p, renderer_loc = _slabs(renderer, n, halo)
     h_ext = h_loc + 2 * p
-    cfg_loc = dataclasses.replace(cfg, volume_height=h_ext,
-                                  image_height=ih_loc)
-    renderer_loc = VolumetricRenderer(cfg_loc, device=renderer.device)
 
     def step(state, top, bot, y0, scene, time_x, sc_band, vd_band):
         # the halos from the neighbours' packets (last frame's interiors)
@@ -238,4 +255,148 @@ def make_multislab_render(renderer: VolumetricRenderer, n: int,
     fn.renderer = renderer_loc
     fn.h_global = h_g
     fn.init_carry = init_carry
+    return fn
+
+
+def _plain_edges(x: torch.Tensor, p: int, axis: int):
+    """(first, last, clamp_first, clamp_last) p-row packets of a history in
+    the plain layout (this shard's own rows, no halo): what _halo_rows
+    sends and what a shard at the global edge repeats."""
+    size = x.shape[axis]
+    rep = lambda row: row.expand(*x.shape[:axis], p, *x.shape[axis + 1:])
+    return (x.narrow(axis, 0, p), x.narrow(axis, size - p, p),
+            rep(x.narrow(axis, 0, 1)), rep(x.narrow(axis, size - 1, 1)))
+
+
+def _exchange(mesh: Mesh, first, last):
+    """The neighbour exchange of one frame: this rank's `last` packets go
+    to rank + 1 and its `first` packets to rank - 1, while the top packets
+    come from rank - 1 and the bottom packets from rank + 1 (the JAX
+    function's two ppermutes), every history's packets in one message per
+    direction. first and last: lists of equally shaped tensors on every
+    rank. Returns (top, bottom), None at a global edge. Under gloo a CUDA
+    payload goes through host memory (Mesh.to_wire / from_wire)."""
+    r, n = mesh.rank, mesh.size
+    shapes = [t.shape for t in first]
+    pack = lambda ts: mesh.to_wire(torch.cat([t.reshape(-1) for t in ts]))
+    ops, top, bot = [], None, None
+    if r > 0:
+        up = pack(first)
+        top = torch.empty_like(up)
+        ops += [dist.P2POp(dist.isend, up, mesh.peer(r - 1), mesh.group),
+                dist.P2POp(dist.irecv, top, mesh.peer(r - 1), mesh.group)]
+    if r < n - 1:
+        down = pack(last)
+        bot = torch.empty_like(down)
+        ops += [dist.P2POp(dist.isend, down, mesh.peer(r + 1), mesh.group),
+                dist.P2POp(dist.irecv, bot, mesh.peer(r + 1), mesh.group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    unpack = lambda buf: None if buf is None else [
+        t.view(sh) for t, sh in zip(mesh.from_wire(buf).split(sizes), shapes)]
+    return unpack(top), unpack(bot)
+
+
+def _neighbour_rows(xs, mesh: Mesh, edges):
+    """(top, bottom) halo packets of the histories xs: the neighbours'
+    edge rows, or this shard's own edge row repeated at a global edge.
+    edges(x) -> (first, last, clamp_first, clamp_last) of one history."""
+    parts = [edges(x) for x in xs]
+    top, bot = _exchange(mesh, [e[0] for e in parts], [e[1] for e in parts])
+    top = top if top is not None else [e[2] for e in parts]
+    bot = bot if bot is not None else [e[3] for e in parts]
+    return top, bot
+
+
+def _halo_rows(xs, p: int, mesh: Mesh, axis: int):
+    """The histories xs (this shard's rows in the plain layout) extended
+    along `axis` by p rows from each neighbour shard; the shards at the
+    global edges repeat their edge row (the clamp sampler's semantics).
+    One exchange for all of xs."""
+    top, bot = _neighbour_rows(xs, mesh, lambda x: _plain_edges(x, p, axis))
+    return [torch.cat([t, x, b], dim=axis) for x, t, b in zip(xs, top, bot)]
+
+
+def _refresh_halo(xs, p: int, mesh: Mesh, axis: int, h_ext: int):
+    """The histories xs, already halo-extended (the persistent-halo
+    state), with their p halo rows per side overwritten by the neighbours'
+    freshly computed interior edge rows: the packets of _edge_slices, sent
+    by _exchange and written by _write_halo, the same indices as
+    make_multislab_render's, so the two agree bit for bit. One exchange
+    for all of xs."""
+    top, bot = _neighbour_rows(xs, mesh,
+                               lambda x: _edge_slices(x, p, axis, h_ext))
+    return [_write_halo(x, t, b, p, axis, h_ext)
+            for x, t, b in zip(xs, top, bot)]
+
+
+def make_shardmap_render(renderer: VolumetricRenderer, mesh: Mesh,
+                         halo: Optional[int] = None, fixed_inputs=None):
+    """One slab per rank of the mesh's process group (parallel/sharding.
+    make_mesh): this rank renders shard mesh.rank of the mesh.size-shard
+    slab pipeline with the renderer's config, on the renderer's device,
+    and exchanges its histories' edge rows with its neighbour ranks over
+    the mesh's group once a frame -- make_multislab_render's step with the
+    explicit packets replaced by send/recv, so that on every rank the image
+    band and the cropped state equal make_multislab_render's shard
+    mesh.rank bit for bit (the JAX package's contract,
+    tests/test_shard_render.py).
+
+    Returns fn(state, scene, time_x, scene_color, view_depth) ->
+    (image band [IH/n, IW, 4], new state): scene_color [IH/n, IW, 3] and
+    view_depth [IH/n, IW] are this rank's G-buffer band; fixed_inputs =
+    (scene_color, view_depth) binds them (fn then takes (state, scene,
+    time_x)). state is this rank's state, either
+      - in the plain layout (its H/n rows of a global state,
+        sharding.shard_state): extended once by _halo_rows, or
+      - in the steady, halo-extended layout of fn.init_state(n_dir) or of
+        the state fn returned: its halo rows refreshed by _refresh_halo.
+    The new state stays halo-extended (crop_sharded_state(state, 1,
+    fn.halo) gives this rank's rows). Every rank must call fn the same
+    number of times: each call exchanges with the neighbours.
+
+    The exchange takes the mesh's group and backend as given: NCCL sends
+    the device's tensors; under gloo the edge rows of a CUDA state go
+    through host memory (`.cpu()` before the send, back to the device after
+    the receive), since gloo carries host tensors, while the frame's work
+    stays on the renderer's device. fn.halo, fn.n_shards and fn.h_global
+    describe the slabs, fn.slab and fn.renderer (of the slab's shape) this
+    rank's shard."""
+    cfg = renderer.config
+    n, i = mesh.size, mesh.rank
+    if mesh.device.type != renderer.device.type:
+        raise ValueError(f"the mesh's shard lives on {mesh.device}, the "
+                         f"renderer runs on {renderer.device}")
+    h_loc, p, renderer_loc = _slabs(renderer, n, halo)
+    h_ext = h_loc + 2 * p
+    slab = Slab(y0=float(np.float32(i * h_loc - p)), halo=p,
+                grid_global=cfg.grid, image_height_global=cfg.image_height)
+
+    def fn(state, scene, time_x, scene_color=None, view_depth=None):
+        if fixed_inputs is not None:
+            scene_color, view_depth = fixed_inputs
+        fields = [f for f in HALO_FIELDS if getattr(state, f) is not None]
+        xs = [getattr(state, f) for f in fields]
+        rows = xs[0].shape[HALO_AXIS]
+        if rows == h_ext:
+            xs = _refresh_halo(xs, p, mesh, HALO_AXIS, h_ext)
+        elif rows == h_loc:
+            xs = _halo_rows(xs, p, mesh, HALO_AXIS)
+        else:
+            raise ValueError(f"a state of {rows} rows: this shard takes "
+                             f"{h_loc} (plain) or {h_ext} (halo-extended)")
+        st = dataclasses.replace(state, **dict(zip(fields, xs)))
+        image, _, new_state = renderer_loc.render_frame(
+            st, scene, time_x, scene_color=scene_color,
+            view_depth=view_depth, slab=slab)
+        return image, new_state
+
+    fn.halo = p
+    fn.n_shards = n
+    fn.h_global = cfg.volume_height
+    fn.slab = slab
+    fn.renderer = renderer_loc
+    fn.init_state = renderer_loc.init_state
     return fn

@@ -58,9 +58,10 @@ the JAX package's frame + post entry point.
 render_frame(slab=...) renders one slab of an H-sharded frame
 (parallel/shard_render.py): the renderer's config holds the slab's
 halo-extended shapes and its band of the image, the slab the global grid
-and the slab's first global row. The fused frames and the staged raycast
-frames take slabs; the shadow-map modes, texture-noise media, the "gather"
-reprojection and the post stack raise NotImplementedError there.
+and the slab's first global row. Every route takes slabs, as in the JAX
+package, and every plain pass and kernel reads global rows; the "gather"
+reprojection and the post stack raise NotImplementedError there, where
+the JAX package refuses them too.
 
 Under grad (a scene, state or scene colour tensor requiring it) the frame
 is differentiable wherever the JAX package's is -- the plain-torch passes by
@@ -189,24 +190,11 @@ class VolumetricRenderer:
         """Raise NotImplementedError for what the port does not cover (with
         a slab, also what it does not cover in H-sharded slabs)."""
         cfg = self.config
-        if slab is not None:
-            if not media_foldable(scene.media):
-                raise NotImplementedError(
-                    "texture-noise media in a slab: not ported to H-sharded "
-                    "slabs")
-            if not (scene.media and scene.dir_lights.count):
-                raise NotImplementedError(
-                    "a scene without media or without a sun in a slab: not "
-                    "ported to H-sharded slabs")
-            if cfg.shadow_mode != "raycast":
-                raise NotImplementedError(
-                    f"shadow_mode={cfg.shadow_mode!r} in a slab: the "
-                    "shadow-map modes are not ported to H-sharded slabs")
-            if cfg.reproj_impl == "gather":
-                raise NotImplementedError(
-                    "reproj_impl='gather' in a slab: the gather "
-                    "reprojection has no bounded row support (the JAX "
-                    "package refuses it there too)")
+        if slab is not None and cfg.reproj_impl == "gather":
+            raise NotImplementedError(
+                "reproj_impl='gather' in a slab: the gather reprojection has "
+                "no bounded row support (the JAX package refuses it there "
+                "too)")
         for name, values in (("shadow_mode", ("raycast", "map",
                                               "map_dir")),
                              ("reproj_impl", ("pallas", "windowed",
@@ -219,11 +207,6 @@ class VolumetricRenderer:
             if getattr(cfg, name) not in values:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: one of {values}")
-        kernel_scatter = self.scatter_kernel(scene)
-        if slab is not None and not kernel_scatter:
-            raise NotImplementedError(
-                "the XLA scatter in a slab (scatter_impl='xla', or a scene "
-                "without local lights): not ported to H-sharded slabs")
         if scene.dir_lights.count > MAX_DIR:
             raise NotImplementedError(
                 f"{scene.dir_lights.count} directional lights: the port "
@@ -253,8 +236,8 @@ class VolumetricRenderer:
         blends = (cfg.temporal_blend_shadow, cfg.temporal_blend_accumulation,
                   cfg.temporal_blend_material, cfg.temporal_blend_scatter)
         refused = (
-            (slab is not None, "render_frame(slab=...): the JAX slab frame "
-             "runs the fused frame or the scatter kernel"),
+            (slab is not None, "render_frame(slab=...): the port does not "
+             "differentiate a slab's frame (its halo exchange and crop)"),
             (self.fuses_frame(scene), "the fused frame: JAX "
              "frame_volume_fused (ops/pallas/frame_fused.py)"),
             (kernel, "the scatter kernel: JAX scatter_local_pallas "
@@ -392,12 +375,7 @@ class VolumetricRenderer:
         cam = scene.camera
         view_to_world = cam.view_to_world()
         world_to_view = froxel.invert_rigid(view_to_world)
-        params = froxel.make_froxel_params(
-            cam.fov_y, cam.aspect, cam.near, cfg.volume_distance,
-            cfg.depth_distribution,
-            cfg.grid if slab is None else tuple(slab.grid_global))
-        if slab is not None:
-            params = dataclasses.replace(params, y0=float(slab.y0))
+        params = self._params(cam, slab)
         # history is invalid on frame 0
         alpha = np.float32(cfg.temporal_blend_alpha) \
             * np.float32(state.frame_count > 0)
@@ -439,22 +417,41 @@ class VolumetricRenderer:
         self._host_shadow = _host_copy(self._host_shadow, dir_shadow)
         return self._host_shadow[2]
 
-    def pcf_tables(self, state: FrameState, scene: Scene, dir_shadow):
+    def _params(self, cam, slab=None):
+        """The frame's FroxelParams for camera `cam`: over the global grid
+        and from the slab's first row y0 where a slab is given."""
+        cfg = self.config
+        params = froxel.make_froxel_params(
+            cam.fov_y, cam.aspect, cam.near, cfg.volume_distance,
+            cfg.depth_distribution,
+            cfg.grid if slab is None else tuple(slab.grid_global))
+        if slab is not None:
+            params = dataclasses.replace(params, y0=float(slab.y0))
+        return params
+
+    def froxel_params(self, scene: Scene, slab=None):
+        """The frame's FroxelParams (of the global grid, from the slab's
+        first row where a slab is given) on the renderer's device, from the
+        host copy of the scene's camera, as render_frame makes them."""
+        params = self._params(self.host_scene(scene).camera, slab)
+        return params if self.device.type == "cpu" \
+            else froxel.params_to(params, self.device)
+
+    def pcf_tables(self, state: FrameState, scene: Scene, dir_shadow,
+                   slab=None):
         """K12's tables of the frame (pipeline.pack_pcf_tables), packed on
         the CPU from the host copies of the scene and the shadow data, on
-        the renderer's device."""
+        the renderer's device; a slab's hold its global grid and first row
+        y0, which the kernel's rows and its window test read."""
         with torch.no_grad():
-            return self._pcf_tables(state, scene, dir_shadow)
+            return self._pcf_tables(state, scene, dir_shadow, slab)
 
-    def _pcf_tables(self, state, scene, dir_shadow):
+    def _pcf_tables(self, state, scene, dir_shadow, slab):
         cfg = self.config
         host = self.host_scene(scene)
         cam = host.camera
-        params = froxel.make_froxel_params(cam.fov_y, cam.aspect, cam.near,
-                                           cfg.volume_distance,
-                                           cfg.depth_distribution, cfg.grid)
         t = pipeline.pack_pcf_tables(
-            cfg, params, cam.view_to_world(),
+            cfg, self._params(cam, slab), cam.view_to_world(),
             jitter_for_frame(state.frame_count), host.dir_lights,
             self.host_shadow(dir_shadow))
         return t.to(self.device) if self.device.type != "cpu" else t
@@ -530,7 +527,7 @@ class VolumetricRenderer:
                     and cfg.shadow_mode == "raycast" and tables.n_dir):
                 shadow = dir_shadow_blend(tables, prev_shadow)
             else:
-                pcf = self.pcf_tables(state, scene, dir_sh) \
+                pcf = self.pcf_tables(state, scene, dir_sh, slab) \
                     if pipeline.uses_pcf_kernel(cfg, dir_sh, tables.n_dir) \
                     else None
                 shadow = pipeline.write_shadow_volume_dir(
