@@ -14,7 +14,7 @@ entry point a user calls, and the port's demo entry, and:
      without CUDA;
   2. builds every CUDA kernel from csrc/ (nvcc, all sources in parallel)
      and prints the registers per thread, shared memory per block and
-     local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K14)
+     local (spill) bytes of the kernels of cuda.ATTR_KERNELS (K1-K15)
      (cudaFuncGetAttributes);
   3. computes the G-buffer once per image size; the raster phase: the
      mesh scene's G-buffer at 1920x1080 and 1280x720, timed whole, the
@@ -167,7 +167,11 @@ entry point a user calls, and the port's demo entry, and:
      frame, with the tolerances stated in CHECKS (K12 at low and at full
      rate on map_dir's frame 4, and on its tables with a second sun, each
      sun of that one launch = the one-sun launch bit for bit; K13 on the SSR inputs of post_showcase's
-     last frame, and its launch geometry; the plain XLA scatter of
+     last frame, and its launch geometry; on the same inputs K13's RECORD
+     instance (SsrMarchFn's forward: its outputs = the no-grad instance's
+     bit for bit, its hit record = the twin's) and K15, the march's
+     backward, on that record and a seeded random cotangent (= its twin
+     bit for bit), and K15's tile and shared memory; the plain XLA scatter of
      xla_scatter's, demo_xla's and demo_noise's last frames on the card
      against the same function on the CPU (tests/torch_tolerance.py's
      any-hit tolerance); on tex's frame 4 K1 (its radiance channels, the
@@ -228,7 +232,14 @@ entry point a user calls, and the port's demo entry, and:
                          steps of LightParams
        train_opacity     the same, 4 steps of OpacityParams
      each step launching K4 once and K14 (composite_grad) once and nothing
-     else; each path's gradients finite and one non-zero, its last loss
+     else;
+       train_ssr         train_fog's frame through render_frame_post with
+                         ssr_intensity=0.5 under grad, 4 Adam steps of
+                         FogParams, each step launching K4, K13's RECORD
+                         instance, K15 and K14 once each and nothing else,
+                         and no plain march; its first step's gradients
+                         against the twins' step, forward, backward and
+                         Adam ms and peak memory printed; each path's gradients finite and one non-zero, its last loss
      below its first, its first step's gradients held against the same step
      with K4 and K14 swapped for their twins, its forward, backward and Adam
      ms (CUDA events), the forward without grad, a profiler window of 2
@@ -252,7 +263,10 @@ entry point a user calls, and the port's demo entry, and:
                          --dump-scene, then --scene on that file 2 frames,
                          its PNGs written and its display checksums equal
                          to the built scene's;
-     K14 launches on no forward path (4., whose counts cover every kernel);
+     K14 and K15 launch on no forward path (4., whose counts cover every
+     kernel); the host time of a pass range (utils/profiling.scope, and
+     the record_function it opens under a profiler) with no profiler
+     recording;
   8. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
@@ -310,6 +324,9 @@ CHECKS = {
     "composite_grad": (1e-5, 1e-5, 0.0,
                        "atomics add a froxel's terms, from every pixel that "
                        "reads it, in an order that changes from run to run"),
+    "ssr_march_grad": (0.0, 0.0, 0.0,
+                       "a gather: the same terms in the same order, no "
+                       "atomics"),
 }
 
 # kernel -> file:line of the TPU kernel(s) it stands for
@@ -335,6 +352,10 @@ REPLACES = {
     "composite_grad": "none; the adjoint of JAX's XLA composites "
                       "(volumetricrenderer_tpu/ops/tent_composite.py:28, "
                       "rowmm_composite.py:43, :147)",
+    # no TPU kernel: the JAX package differentiates its XLA SSR march
+    "ssr_march_grad": "none; the adjoint of JAX's XLA SSR march "
+                      "(volumetricrenderer_tpu/post.py:599-638), K13's "
+                      "backward",
 }
 
 # path -> (config changes from FULL_CONFIG, frames, kernels of the path; a
@@ -744,8 +765,10 @@ def profile_frames(step, n: int) -> None:
             step()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
+    # the pass ranges' GPU annotations span kernels: not device work
+    from volumetricrenderer_tpu_torch.utils.profiling import PASS_NAMES
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in PASS_NAMES]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if not kern or busy_ms <= 0.0:
         log("# profile: no device time recorded (device busy share not "
@@ -1229,6 +1252,165 @@ def train_path(name, renderer, scene, scene_color, view_depth, shadow_data,
         f"over the counted run; peak device memory of the steps "
         f"{peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB the run "
         "held before them")
+    return launches, record
+
+
+# train_ssr: DEMO_CONFIG (train_fog's frame, 1280x720) through
+# render_frame_post with SSR on under grad, TRAIN_STEPS Adam steps of
+# FogParams; each step launches K4 and K13 (its RECORD instance) forward,
+# K15 and K14 backward, once each, and no other kernel
+TRAIN_SSR_POST = dict(ssr_intensity=0.5)
+TRAIN_SSR_KERNELS = ("composite", "composite_grad", "ssr_march",
+                     "ssr_march_grad")
+
+
+def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
+              inverse, cuda, zg, ssr_ops, post):
+    """The train_ssr phase: TRAIN_STEPS Adam steps (lr TRAIN_LR) of the fog
+    toward absorption 0.6, the loss the mean squared error of
+    render_frame_post's display image, from a fresh state with the launch
+    counters set to 0 just before and read just after. Each step must
+    launch TRAIN_SSR_KERNELS once each and nothing else, and no plain march
+    (ssr_march_reference, ssr_march_grad_plain) may run. Holds the first
+    step's gradients against the same step with K4, K14, K13 and K15
+    swapped for their twins (1e-4 max|g_twin| + 1e-12 a leaf: K14's
+    atomics), checks that they are finite and one is non-zero, times
+    forward, backward and Adam with CUDA events and reports the peak device
+    memory. Returns (launches, record)."""
+    import copy
+    cfg = post.PostConfig(**TRAIN_SSR_POST)
+    params, apply_fn, target_scene = train_setup("fog", inverse, scene)
+    state = renderer.init_state(scene.dir_lights.count)
+
+    def display(p_scene):
+        return renderer.render_frame_post(state, p_scene, cfg, 0.0,
+                                          scene_color, view_depth,
+                                          shadow_data)[0]
+
+    def loss_of(p, target):
+        return torch.mean((display(apply_fn(p, scene)) - target) ** 2)
+
+    with torch.no_grad():
+        target = display(target_scene).contiguous()
+    # the first step's gradients with every kernel's twin
+    twin_params = copy.deepcopy(params)
+    real = (zg._k4, zg._k14, ssr_ops.ssr_march, ssr_ops.ssr_march_grad)
+    zg._k4 = lambda form, *a: (zg.composite_plain if form == "cells"
+                               else zg.composite_pixels_plain)(*a)
+    zg._k14 = lambda form, g, sc, vd, p, grid: zg.composite_grad_plain(
+        g, sc, vd, p, grid, form)
+    ssr_ops.ssr_march = lambda *a, record=False: \
+        ssr_ops.ssr_march_reference(*a, record=record)
+    ssr_ops.ssr_march_grad = lambda g, b, h, o, m: \
+        ssr_ops.ssr_march_grad_plain(g, b, h, o)
+    try:
+        loss_of(twin_params, target).backward()
+    finally:
+        zg._k4, zg._k14, ssr_ops.ssr_march, ssr_ops.ssr_march_grad = real
+    twin = leaf_grads(twin_params)
+
+    # the plain marches, counted while the steps run
+    plain = {"ssr_march_reference": 0, "ssr_march_grad_plain": 0}
+    real_plain = (ssr_ops.ssr_march_reference, ssr_ops.ssr_march_grad_plain)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    opt = torch.optim.Adam(params.parameters(), lr=TRAIN_LR,
+                           betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(params, target)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    ssr_ops.ssr_march_reference = counted("ssr_march_reference",
+                                          real_plain[0])
+    ssr_ops.ssr_march_grad_plain = counted("ssr_march_grad_plain",
+                                           real_plain[1])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        losses, first = [], None
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            before = dict(cuda.LAUNCHES)
+            losses.append(float(step()))
+            delta = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.SOURCES}
+            want = {k: int(k in TRAIN_SSR_KERNELS) for k in cuda.SOURCES}
+            if delta != want:
+                raise AssertionError(
+                    f"train_ssr: step {i} launched "
+                    f"{ {k: v for k, v in delta.items() if v} }, not "
+                    f"{TRAIN_SSR_KERNELS} once each")
+            if i == 0:
+                first = leaf_grads(params)
+        torch.cuda.synchronize()
+        step_wall = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+        launches = dict(cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+    finally:
+        ssr_ops.ssr_march_reference, ssr_ops.ssr_march_grad_plain = \
+            real_plain
+    log(f"# train_ssr: launches in the {TRAIN_STEPS}-step run: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; plain "
+        f"marches {json.dumps(plain)}; losses "
+        f"{[f'{v:.6e}' for v in losses]} (fell: {losses[-1] < losses[0]})")
+    if any(plain.values()):
+        raise AssertionError("train_ssr: a plain SSR march ran")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_ssr: non-finite loss {losses}")
+    nonzero = False
+    for n, g in first.items():
+        w = twin[n]
+        if not (bool(torch.isfinite(g).all())
+                and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"train_ssr: non-finite gradient {n}")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        nonzero = nonzero or float(g.abs().max() if g.numel() else 0) > 0
+        log(f"# train_ssr: gradient {n} {tuple(g.shape)} max |g| "
+            f"{float(g.abs().max()) if g.numel() else 0.0:.4e}, max |g - "
+            f"g_twin| {err:.3e} (allowed 1e-4 max|g_twin| + 1e-12 = "
+            f"{1e-4 * scale + 1e-12:.3e})")
+        if err > 1e-4 * scale + 1e-12:
+            raise AssertionError(f"train_ssr: gradient {n} disagrees with "
+                                 "the twins' step")
+    if not nonzero:
+        raise AssertionError("train_ssr: every gradient is zero")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = {"forward": 0.0, "backward": 0.0, "adam": 0.0}
+    n = 3
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = loss_of(params, target)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+            parts[k] += ev[a].elapsed_time(ev[b]) / n
+    with torch.no_grad():
+        no_grad = cuda_time_ms(lambda: loss_of(params, target), n)
+    profile_frames(step, 2)
+    record = dict(parts, step_wall_ms=step_wall, peak_bytes=peak,
+                  losses=losses, forward_no_grad_ms=no_grad)
+    log(f"# train_ssr step: forward {parts['forward']:.3f} ms, backward "
+        f"{parts['backward']:.3f} ms, Adam {parts['adam']:.3f} ms (CUDA "
+        f"events, mean of {n}); the forward without grad {no_grad:.3f} ms; "
+        f"{step_wall:.3f} ms host wall a step over the counted run; peak "
+        f"device memory of the steps {peak / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} MiB the run held before them")
     return launches, record
 
 
@@ -2360,6 +2542,16 @@ def main() -> int:
                                  f"taps at {nb} bins of {nt} taps: "
                                  f"{tuple(k13_geo)} in the kernel, {want} "
                                  f"in ops/ssr")
+    # K15's tile and shared bytes (K13's table) at the same tables
+    k15_geo = (cuda.ctypes.c_int * 3)()
+    for nb, nt in ((8, 12), (16, 24), (1, 1), (4, 32)):
+        cuda.lib("ssr_march_grad").vr_ssr_march_grad_geometry(
+            nb, nt, cuda.ctypes.cast(k15_geo, cuda.ctypes.c_void_p))
+        want = (*ssr_ops.K15_TILE, ssr_ops.k13_shared_bytes(nb, nt))
+        if tuple(k15_geo) != want:
+            raise AssertionError(f"K15's tile and shared bytes at {nb} "
+                                 f"bins of {nt} taps: {tuple(k15_geo)} in "
+                                 f"the kernel, {want} in ops/ssr")
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
         f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
@@ -2371,7 +2563,8 @@ def main() -> int:
         f"{ff.k1_geometry(*k1_shapes[0])}, K12 {pcf.K12_TILE} with "
         f"{pcf.k12_shared_bytes(4)} B at 4 cascades, K9 on the full grid "
         f"{vis.k9_geometry(*k9_shapes[0])}, K13 {ssr_ops.K13_TILE} with "
-        f"{ssr_ops.k13_shared_bytes(8, 12)} B at 8 bins of 12 taps")
+        f"{ssr_ops.k13_shared_bytes(8, 12)} B at 8 bins of 12 taps, K15 "
+        f"{ssr_ops.K15_TILE} with the same")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2
@@ -2532,6 +2725,40 @@ def main() -> int:
         f"for bit: {torch.equal(k13, k13_p)}")
     if not 0.0 < hit_share < 1.0:
         raise AssertionError("the SSR march finds no reflection hits")
+    # K13's RECORD instance (SsrMarchFn's forward) on the same inputs: its
+    # five outputs = the no-grad instance's bit for bit, its hit record =
+    # the twin's; then K15 (the march's backward) on that record and a
+    # seeded random cotangent against ssr_march_grad_plain: max abs err 0
+    k13_rec = ssr_ops.ssr_march(*m_args, record=True)
+    k13_rec_p = ssr_ops.ssr_march_reference(*m_args, record=True)
+    rec_same = torch.equal(torch.stack(k13_rec[:5]), k13)
+    rec_err = compare("ssr_march", torch.stack(k13_rec[:5]),
+                      torch.stack(k13_rec_p[:5]), "record")
+    rec_hits = float((k13_rec[5] >= 0).float().mean())
+    log(f"# ssr_march, record instance: outputs = the no-grad instance's "
+        f"bit for bit: {rec_same}; hit record = the twin's: "
+        f"{torch.equal(k13_rec[5], k13_rec_p[5])} (dtype "
+        f"{k13_rec[5].dtype}, share of pixels with a hit {rec_hits:.4f})")
+    if not rec_same or not torch.equal(k13_rec[5], k13_rec_p[5]) \
+            or abs(rec_hits - hit_share) > 1e-6:
+        raise AssertionError("K13's record instance differs from the "
+                             "no-grad instance or its hit record from the "
+                             "twin's")
+    k15_gen = torch.Generator(device="cuda")
+    k15_gen.manual_seed(23)
+    k15_args = ([torch.randn((hq, wq), generator=k15_gen, device="cuda")
+                 for _ in range(3)], m_args[4], k13_rec[5], m_args[6],
+                m_args[8])
+    k15 = torch.stack(ssr_ops.ssr_march_grad(*k15_args))
+    k15_p = torch.stack(ssr_ops.ssr_march_grad_plain(*k15_args[:4]))
+    errs["ssr_march_grad"] = compare("ssr_march_grad", k15, k15_p)
+    k15_fed = float((k15 != 0).float().mean())
+    log(f"# ssr_march_grad: {hq}x{wq} planes on post_showcase's march, "
+        f"share of source pixels fed {k15_fed:.4f}, equal to its twin bit "
+        f"for bit: {torch.equal(k15, k15_p)}")
+    if not torch.equal(k15, k15_p) or not k15_fed > 0.0:
+        raise AssertionError("K15 differs from its twin, or feeds no "
+                             "pixel")
 
     # the plain XLA scatter on the card against the same function on the
     # CPU, on the arguments of xla_scatter's and demo_xla's last frames:
@@ -3252,7 +3479,11 @@ def main() -> int:
         "pcf_shadow": kernel_time_ms(
             lambda: pcf.pcf_shadow(pcf_low, m_dir.atlas), n),
         "ssr_march": kernel_time_ms(lambda: ssr_ops.ssr_march(*m_args), n),
+        "ssr_march_grad": kernel_time_ms(
+            lambda: ssr_ops.ssr_march_grad(*k15_args), n),
     }
+    rec_ms = kernel_time_ms(lambda: ssr_ops.ssr_march(*m_args, record=True),
+                            n)
     pcf_full_ms = kernel_time_ms(lambda: pcf.pcf_shadow(pcf_full, f_dir.atlas),
                                  n)
     weight_ms = kernel_time_ms(blend_w, n)
@@ -3299,7 +3530,11 @@ def main() -> int:
             lambda: pcf.pcf_shadow_plain(pcf_low, m_dir.atlas), n_p),
         "ssr_march": cuda_time_ms(
             lambda: ssr_ops.ssr_march_reference(*m_args), n_p),
+        "ssr_march_grad": cuda_time_ms(
+            lambda: ssr_ops.ssr_march_grad_plain(*k15_args[:4]), n_p),
     }
+    rec_plain_ms = cuda_time_ms(
+        lambda: ssr_ops.ssr_march_reference(*m_args, record=True), n_p)
     pcf_full_plain_ms = cuda_time_ms(
         lambda: pcf.pcf_shadow_plain(pcf_full, f_dir.atlas), n_p)
     weight_plain_ms = cuda_time_ms(
@@ -3513,6 +3748,13 @@ def main() -> int:
     m_taps = int((m_counts[m_args[4].long().clamp(0, len(m_args[6]) - 1)]
                   * m_args[5]).sum())
     work["ssr_march"] = (4 * 13 * hq * wq, 28 * m_taps)
+    # the record instance writes the int32 hit record besides
+    rec_work = (4 * 14 * hq * wq, 28 * m_taps)
+    # K15: the three cotangents, the bins and the hit record in, three
+    # gradients out; per pixel with a hit, its source's index and three
+    # adds (the function's work: the kernel's tap tests find those pixels)
+    k15_hits = int((k13_rec[5] >= 0).sum())
+    work["ssr_march_grad"] = (4 * 8 * hq * wq, 8 * k15_hits)
     weight_work = (4 * 3 * nd * n_fro,
                    n_fro * (ops_reproj + warp(nd) + 3 * nd))
     # K6 per-light: the shadow in, the planes out; per froxel the material
@@ -3774,6 +4016,24 @@ def main() -> int:
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
             else "operations"
 
+    # the renderer's pass ranges with no profiler recording: host time of a
+    # utils/profiling.scope (a no-op then) and of the record_function it
+    # opens under a profiler
+    from volumetricrenderer_tpu_torch.utils import profiling
+    n_ranges = 20000
+    range_us = {}
+    for label, open_range in (("scope", profiling.scope),
+                              ("record_function",
+                               torch.profiler.record_function)):
+        t0 = time.perf_counter()
+        for _ in range(n_ranges):
+            with open_range("composite"):
+                pass
+        range_us[label] = 1e6 * (time.perf_counter() - t0) / n_ranges
+    log(f"# pass ranges, host time a range with no profiler recording (mean "
+        f"of {n_ranges}): scope {range_us['scope']:.3f} us, "
+        f"record_function {range_us['record_function']:.3f} us; a fused "
+        "frame enters 2, a staged frame up to 9")
     done("the timings and bounds")
     # 8. the training paths (inverse.py), each from a fresh state with the
     # launch counters set to 0 just before and read just after: K4 forward
@@ -3793,6 +4053,13 @@ def main() -> int:
             maps_t = r_t.bake_shadow_data(sc_t)
         train_launches[name], train_rec[name] = train_path(
             name, r_t, sc_t, *gb_t, maps_t, inverse, cuda, zg)
+    # train_ssr: train_fog's frame (DEMO_CONFIG on demo_scene at 720p, its
+    # maps baked once) through render_frame_post with SSR on
+    train_launches["train_ssr"], train_rec["train_ssr"] = train_ssr(
+        renderers["demo_xla"], demo, *demo_gbuf[720], bakes["demo_xla"],
+        inverse, cuda, zg, ssr_ops, post)
+    launches["ssr_march_grad"] = {
+        "train_ssr": train_launches["train_ssr"]["ssr_march_grad"]}
     k14 = k14_forms(zg, froxel, demo.camera, sample_grid, bound)
     errs["composite_grad"] = max(v[0] for v in k14.values())
     r_704 = VolumetricRenderer(dataclasses.replace(DEMO_CONFIG,
@@ -3963,6 +4230,18 @@ def main() -> int:
             log(f"# pcf_shadow, full rate: {pcf_full_ms:.4f} ms/launch, "
                 f"plain {pcf_full_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by}")
+        if name == "ssr_march":
+            # the RECORD instance: SsrMarchFn's forward, train_ssr's
+            b_ms, b_by = bound(*rec_work)
+            entry["record"] = {
+                "launches": train_launches["train_ssr"]["ssr_march"],
+                "paths": ["train_ssr"], "max_abs_err": rec_err,
+                "ms": rec_ms, "plain_ms": rec_plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+            log(f"# ssr_march, record instance: {rec_ms:.4f} ms/launch, "
+                f"plain {rec_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}, launches {entry['record']['launches']} "
+                "(train_ssr)")
         if name == "temporal_blend":
             b_ms, b_by = bound(*weight_work)
             entry["weight"] = {

@@ -21,7 +21,11 @@ while the ranks run, then reads the ranks' files.
     (tests/test_parallel.py:128);
   * light_sharded_scatter against the one-process XLA scatter
     (pipeline.write_scatter_xla) with every light: rtol 2e-5 / atol 2e-6
-    (tests/test_parallel.py:185)."""
+    (tests/test_parallel.py:185);
+  * checkpoint's DCP pair (save_state_orbax / load_state_orbax): each rank
+    restores its own rows of a seeded state bit for bit, and this process,
+    without a group, loads the ranks' checkpoint into the whole state bit
+    for bit (every rank's rows were kept, not rank 0's alone)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +38,7 @@ from volumetricrenderer_tpu.ops.scatter_scan import \
 
 import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch import pipeline
+from volumetricrenderer_tpu_torch.checkpoint import load_state_orbax
 from volumetricrenderer_tpu_torch.ops.scatter_scan import accumulate_scan
 from volumetricrenderer_tpu_torch.parallel.shard_render import (
     crop_sharded_state, make_multislab_render)
@@ -92,6 +97,7 @@ def world(tmp_path_factory):
     assert [p.exitcode for p in procs] == [0] * N
     ranks = [torch.load(tmp / f"rank{k}.pt", weights_only=True)
              for k in range(N)]
+    refs["dcp"] = str(tmp / "dcp")
     return refs, ranks
 
 
@@ -166,3 +172,35 @@ def test_light_sharded_scatter_matches_one_process(world):
     for rk in ranks:
         torch.testing.assert_close(rk["lights"], refs["lights"], rtol=2e-5,
                                    atol=2e-6)
+
+
+@pytest.mark.parametrize("rank", range(N))
+def test_dcp_checkpoint_restores_each_ranks_rows(world, rank):
+    """save_state_orbax then load_state_orbax on 2 gloo ranks: rank `rank`
+    gets back its own rows of every history (H block `rank`), the view
+    matrix and the frame count, bit for bit."""
+    _, ranks = world
+    want = worker.seeded_state()
+    got = ranks[rank]["checkpoint"]
+    hl = worker.SHARDED.volume_height // N
+    rows = worker.histories(want)
+    assert got["histories"].keys() == rows.keys()
+    for f, t in rows.items():
+        assert torch.equal(got["histories"][f],
+                           t[:, :, rank * hl:(rank + 1) * hl]), f
+    assert torch.equal(got["view"], want.prev_world_to_view)
+    assert got["frame_count"] == want.frame_count
+
+
+def test_dcp_checkpoint_of_ranks_loads_whole(world):
+    """The 2 ranks' checkpoint loaded in one process without a group into
+    the whole state's structure: every history bit for bit (DTensor shards
+    kept each rank's rows, which same-key plain tensors would not)."""
+    refs, _ = world
+    want = worker.seeded_state()
+    like = vt.FrameState.create(worker.SHARDED.grid_dhw, 1, device="cpu",
+                                with_material=True, with_scatter=True)
+    got = load_state_orbax(refs["dcp"], like)
+    _equal(worker.histories(got), worker.histories(want), "whole state")
+    assert got.frame_count == want.frame_count
+    assert torch.equal(got.prev_world_to_view, want.prev_world_to_view)

@@ -4,14 +4,17 @@ and the data-parallel step (inverse.make_sharded_train_step).
 
   * checkpoint: a state saved and loaded after 3 frames resumes bit for bit
     (frame_count included); a shape and a structure mismatch (a scatter
-    history on one side only) each raise ValueError;
+    history on one side only) each raise ValueError; the same of the DCP
+    pair (save_state_orbax / load_state_orbax) in one process;
   * refusals: with the fog's parameters requiring grad, every frame whose
     JAX route reaches a Pallas kernel raises NotImplementedError naming
     it -- the fused frame, the scatter kernel, the raycast sun kernel, the
     cascaded-PCF kernel, reproj_impl="pallas", the zgather composite at an
-    eligible shape, the co-sited composite of composite_upsample=2, a slab,
-    and the SSR march of render_frame_post; the same frame without grad
-    renders the image a scene without parameters renders, bit for bit;
+    eligible shape, the co-sited composite of composite_upsample=2 and a
+    slab; the same frame without grad renders the image a scene without
+    parameters renders, bit for bit; render_frame_post with SSR on renders
+    under grad (K13 forward, K15 backward) the display it renders without,
+    with a finite, non-zero fog gradient;
   * the sharded step: two gloo ranks spawned by torch.multiprocessing (a
     FileStore in tmp_path, one view each; the join waits at most 120 s)
     against one process's step over both views (tests/torch_sharded_
@@ -27,7 +30,10 @@ import torch.multiprocessing as mp
 
 import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch import inverse
-from volumetricrenderer_tpu_torch.checkpoint import load_state, save_state
+from volumetricrenderer_tpu_torch.checkpoint import (load_state,
+                                                     load_state_orbax,
+                                                     save_state,
+                                                     save_state_orbax)
 from volumetricrenderer_tpu_torch.parallel.shard_render import \
     make_multislab_render
 from volumetricrenderer_tpu_torch.post import PostConfig
@@ -95,6 +101,51 @@ def test_checkpoint_mismatches_raise(tmp_path):
     save_state(path2, blended.init_state(1))
     with pytest.raises(ValueError, match="one side only"):
         load_state(path2, r.init_state(1))
+
+
+def test_dcp_checkpoint_roundtrip_resumes_identically(tmp_path):
+    """save_state_orbax / load_state_orbax (torch.distributed.checkpoint)
+    in one process without a group: a state after 3 frames with the
+    scatter history on comes back bit for bit, frame_count included, and
+    resumes the next frame bit for bit."""
+    cfg = dataclasses.replace(CKPT, temporal_blend_scatter=True)
+    r = vt.VolumetricRenderer(cfg, device="cpu")
+    scene = ckpt_scene()
+    state = r.init_state(1)
+    for i in range(3):
+        _, _, state = r.render_frame(state, scene, 0.1 * i)
+    path = str(tmp_path / "state_dcp")
+    save_state_orbax(path, state)
+    restored = load_state_orbax(path, r.init_state(1))
+    assert restored.frame_count == state.frame_count == 3
+    assert restored.prev_material_a is None
+    for f in ("prev_shadow", "prev_accumulation", "prev_world_to_view",
+              "prev_scatter"):
+        assert torch.equal(getattr(restored, f), getattr(state, f)), f
+    img_a, _, _ = r.render_frame(state, scene, 0.5)
+    img_b, _, _ = r.render_frame(restored, scene, 0.5)
+    assert torch.equal(img_a, img_b)
+
+
+def test_dcp_checkpoint_mismatches_raise(tmp_path):
+    """The DCP pair refuses what the .npz pair refuses: another shape, and
+    a history present on one side only, either way."""
+    r = vt.VolumetricRenderer(CKPT, device="cpu")
+    path = str(tmp_path / "plain")
+    save_state_orbax(path, r.init_state(1))
+    shallow = vt.VolumetricRenderer(dataclasses.replace(CKPT,
+                                                        volume_depth=4),
+                                    device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        load_state_orbax(path, shallow.init_state(1))
+    blended = vt.VolumetricRenderer(dataclasses.replace(
+        CKPT, temporal_blend_scatter=True), device="cpu")
+    with pytest.raises(ValueError, match="one side only"):
+        load_state_orbax(path, blended.init_state(1))
+    path2 = str(tmp_path / "scatter")
+    save_state_orbax(path2, blended.init_state(1))
+    with pytest.raises(ValueError, match="one side only"):
+        load_state_orbax(path2, r.init_state(1))
 
 
 # --------------------------------------------------------------------------
@@ -175,15 +226,23 @@ def test_slab_and_ssr_refused_under_grad(bench):
     with torch.no_grad():
         bands, _ = fn(carry, fog_scene(bench, True), 0.0)
     assert bool(torch.isfinite(torch.cat(bands)).all())
-    # render_frame_post with SSR on: K13 has no backward
+    # render_frame_post with SSR on is refused no more: K13 forward, K15
+    # backward (ops/ssr.SsrMarchFn); the display under grad is the one
+    # without, and the fog's gradient is finite and non-zero
     post = PostConfig(ssr_intensity=0.5, ssr_max_px=8)
     flat = vt.VolumetricRenderer(vt.RenderConfig(**XLA_ROUTE), device="cpu")
-    with pytest.raises(NotImplementedError, match="ssr_march_pallas"):
-        flat.render_frame_post(flat.init_state(1), fog_scene(bench, True),
-                               post)
+    fog = inverse.FogParams.from_medium(bench.media[0])
+    rgb_g, _, _ = flat.render_frame_post(
+        flat.init_state(1), inverse.scene_with_fog(fog, bench), post)
     rgb, _, _ = flat.render_frame_post(flat.init_state(1),
                                        fog_scene(bench, False), post)
     assert bool(torch.isfinite(rgb).all())
+    assert torch.equal(rgb_g.detach(), rgb)
+    rgb_g.square().mean().backward()
+    grads = [p.grad for p in fog.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads)
+    assert any(float(g.abs().max()) > 0.0 for g in grads)
 
 
 def test_plain_route_is_differentiable(bench):

@@ -11,6 +11,9 @@ Each rank of a 2-rank gloo group on the CPU runs, on its shard:
   * make_sharded_render over two frames (map mode, the XLA scatter);
   * accumulate_zsharded on its Z block of a seeded volume;
   * light_sharded_scatter on its half of 8 point and 8 spot lights;
+  * checkpoint.save_state_orbax of its rows of a seeded state (DCP, every
+    history a DTensor sharded on H), then load_state_orbax of them into
+    its rows of a fresh state;
 and saves what came out to rank<r>.pt."""
 
 import dataclasses
@@ -106,6 +109,36 @@ def light_inputs():
     return cfg, geo, torch.ones((1, d, h, w)), (mat_a, mat_b), scene
 
 
+def seeded_state(cfg=SHARDED) -> "vt.FrameState":
+    """A whole-grid state of cfg with seeded histories (the material and
+    scatter ones too), view matrix and frame count."""
+    rng = np.random.default_rng(11)
+    d, h, w = cfg.grid_dhw
+    vol = lambda c: torch.as_tensor(rng.uniform(size=(c, d, h, w)),
+                                    dtype=torch.float32)
+    return vt.FrameState(
+        prev_shadow=vol(1), prev_accumulation=vol(4),
+        prev_world_to_view=torch.as_tensor(rng.uniform(size=(4, 4)),
+                                           dtype=torch.float32),
+        frame_count=5, prev_material_a=vol(4), prev_scatter=vol(4))
+
+
+def _checkpoint(mesh, path: str) -> dict:
+    """This rank's rows of seeded_state saved with DCP and loaded into its
+    rows of a fresh state of the same structure."""
+    from volumetricrenderer_tpu_torch.checkpoint import (load_state_orbax,
+                                                         save_state_orbax)
+    state = sharding.shard_state(seeded_state(), mesh)
+    save_state_orbax(path, state)
+    like = sharding.shard_state(vt.FrameState.create(
+        SHARDED.grid_dhw, 1, device="cpu", with_material=True,
+        with_scatter=True), mesh)
+    back = load_state_orbax(path, like)
+    return {"histories": histories(back),
+            "view": back.prev_world_to_view,
+            "frame_count": back.frame_count}
+
+
 def histories(state) -> dict:
     """A state's histories by name (the ones it holds), as torch.save
     stores plain tensors."""
@@ -163,6 +196,7 @@ def rank_main(rank: int, store_path: str, out_dir: str) -> None:
                                                     steps[z], mesh)
         out["lights"] = sharding.light_sharded_scatter(*light_inputs(),
                                                        mesh)
+        out["checkpoint"] = _checkpoint(mesh, f"{out_dir}/dcp")
         out["backend"] = mesh.backend
         torch.save(out, f"{out_dir}/rank{rank}.pt")
     finally:

@@ -186,8 +186,10 @@ def busy_ms(step, n: int = 5) -> float:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+    # the pass ranges' GPU annotations span kernels: not device work
+    from volumetricrenderer_tpu_torch.utils.profiling import PASS_NAMES
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in PASS_NAMES]
     total = sum(e.self_device_time_total for e in kern) / 1e3 / n
     if total <= 0.0:
         raise RuntimeError("the profiler recorded no device time")

@@ -13,7 +13,8 @@ camera orbiting, demo.py's showcase PostConfig):
   ssr_steps=24, ssr_dirs=16   a larger table than any chip run has seen.
 
 On each: this tree's kernel against its twin (max abs error, the share of
-elements past chip_smoke.CHECKS' tolerance, and bit for bit), and against
+elements past chip_smoke.CHECKS' tolerance, and bit for bit; the twin's
+time, a CUDA-event mean of 3 calls), and against
 each other checkout's kernel, bit for bit (torch.equal); both kernels'
 times, CUDA-event means of 20 launches behind a device-side spin
 (k3_k4_against.spin_time_ms), in the order other, this, this, other. Then
@@ -185,17 +186,21 @@ def main() -> int:
         same_twin = torch.equal(got, want)
         hq, wq = args[0].shape
         offsets = args[6]
+        plain = chip_smoke.cuda_time_ms(
+            lambda: ssr_ops.ssr_march_reference(*args), 3)
         print(f"# ssr_march {row}, {hq}x{wq} planes, {len(offsets)} bins, "
               f"taps {[len(b) for b in offsets]}, hit share "
               f"{float(got[3].mean()):.4f}: max abs err vs twin {twin:.3e}, "
               f"share past the tolerance {flipped:.3e} (allowed {frac_ok}),"
-              f" = twin bit for bit: {same_twin}", flush=True)
+              f" = twin bit for bit: {same_twin}; twin {plain:.3f} ms (CUDA "
+              "events, mean of 3)", flush=True)
         if not bool(torch.isfinite(got).all()) or flipped > frac_ok \
                 or not same_twin:
             bad.append(f"ssr_march {row} against its twin")
         out = {"row": row, "shape": [hq, wq], "bins": len(offsets),
                "taps": [len(b) for b in offsets], "twin_err": twin,
-               "twin_flipped": flipped, "twin_same": same_twin}
+               "twin_flipped": flipped, "twin_same": same_twin,
+               "plain_ms": plain}
         for o_name, lib in others.items():
             theirs = other_march(lib, cuda, ssr_ops)
             ref = [torch.empty_like(args[0]) for _ in range(5)]

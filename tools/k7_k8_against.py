@@ -17,7 +17,8 @@ K8, recording the inputs of each kernel's last launch by row:
       (160x88x64 froxels: 14,080 columns, where a form that is parallel
       over columns fills the card least).
 
-On each: this tree's kernel against its twin (max abs error), and against
+On each: this tree's kernel against its twin (max abs error; the twin's
+time, a CUDA-event mean of 3 calls), and against
 each other checkout's kernel, bit for bit (torch.equal); both kernels'
 times, CUDA-event means of 20 launches behind a device-side spin, in the
 order other, this, this, other. Then the device busy time of a frame of
@@ -214,20 +215,20 @@ def main() -> int:
         if kernel == "dir_shadow":
             tables = args
             run_this = lambda: ds.dir_shadow(tables)
-            got = run_this()
-            want = ds.dir_shadow_plain(tables)
+            run_twin = lambda: ds.dir_shadow_plain(tables)
         else:
             tables, sc = args
             run_this = lambda: integ.accumulate(tables, sc)
-            got = run_this()
-            want = integ.accumulate_plain(tables, sc)
+            run_twin = lambda: integ.accumulate_plain(tables, sc)
+        got, want = run_this(), run_twin()
         shape = f"{tuple(got.shape)}"
         st = tables.c_struct()
         twin = float((got - want).abs().max())
-        print(f"# {kernel} {row}, {shape}: max abs err vs twin {twin:.3e}",
-              flush=True)
+        plain = chip_smoke.cuda_time_ms(run_twin, 3)
+        print(f"# {kernel} {row}, {shape}: max abs err vs twin {twin:.3e}, "
+              f"twin {plain:.3f} ms (CUDA events, mean of 3)", flush=True)
         out = {"kernel": kernel, "row": row, "shape": shape,
-               "twin_err": twin}
+               "twin_err": twin, "plain_ms": plain}
         for o_name, other in others.items():
             ref = torch.empty_like(got)
             if kernel == "dir_shadow":

@@ -43,6 +43,14 @@
 // unrolled) and walks each chunk, one division a tap, to the first hit.
 // 2-D tiles of 32 x K13Tile::Y pixels keep neighbouring rows' taps in one
 // SM's L1.
+//
+// The RECORD instances (entry vr_ssr_march_record) also write the hit
+// record that K15 (csrc/ssr_march_grad.cu), the march's backward, reads: an
+// int32 plane holding, per pixel, the index in its bin's tap list of the
+// first hit, or -1 where it finds none or its valid flag is 0. The march's
+// outputs depend on the colour planes only through that tap's read, with
+// weight sel = valid (1). Without RECORD the code is the instance the
+// forward frame launches, as it was before the record existed.
 #include <cuda_runtime.h>
 
 // A block's tile of quarter-res pixels, a thread a pixel (mirrored by
@@ -58,7 +66,7 @@ __device__ __forceinline__ float k13_depth(float invz) {
   return invz > 1e-4f ? 1.0f / invz : 1e9f;
 }
 
-template <int MAX_TAPS>
+template <int MAX_TAPS, bool RECORD>
 __global__ void __launch_bounds__(K13Tile::X * K13Tile::Y)
 ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
                  const float* __restrict__ cg, const float* __restrict__ cb,
@@ -70,7 +78,8 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
                  const int* __restrict__ n_taps, int n_bins, int max_taps,
                  int hq, int wq, float thickness, float* __restrict__ rr,
                  float* __restrict__ rg, float* __restrict__ rb,
-                 float* __restrict__ hit_w, float* __restrict__ hit_t) {
+                 float* __restrict__ hit_w, float* __restrict__ hit_t,
+                 int* __restrict__ hit_k) {
   extern __shared__ float4 s_rows[];   // [n_bins * max_taps], then counts
   int* s_count = reinterpret_cast<int*>(s_rows + n_bins * max_taps);
   const int tid = threadIdx.y * K13Tile::X + threadIdx.x;
@@ -83,6 +92,7 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
   if (x >= wq || y >= hq) return;
   const int i = y * wq + x;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, aw = 0.0f, at = 0.0f;
+  int first = -1;   // the tap index of the first hit (RECORD)
   const float bf = __ldg(bin_idx + i);
   const int b = (int)bf;
   // a pixel whose bin is no bin of the table takes no bin's sums
@@ -128,6 +138,7 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
           acc_b = 0.0f + __ldg(cb + j);
           aw = 1.0f;
           at = 0.0f + t.z;
+          if (RECORD) first = k0 + c;
           hit = true;
           break;
         }
@@ -142,6 +153,7 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
   rb[i] = 0.0f + sel * acc_b;
   hit_w[i] = 0.0f + sel * aw;
   hit_t[i] = 0.0f + sel * at;
+  if (RECORD) hit_k[i] = sel != 0.0f ? first : -1;
 }
 
 // The tap count a kernel instance unrolls for a table of max_taps rows a
@@ -156,15 +168,14 @@ static long k13_shared_bytes(int n_bins, int max_taps) {
   return (long)n_bins * max_taps * sizeof(float4) + (long)n_bins * sizeof(int);
 }
 
-// taps: [n_bins, max_taps] float4 rows (16-byte aligned), n_taps [n_bins].
-extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
-                            const float* cb, const float* invz0,
-                            const float* g, const float* bin_idx,
-                            const float* valid, const float* taps,
-                            const int* n_taps, int n_bins, int max_taps,
-                            int hq, int wq, float thickness, float* rr,
-                            float* rg, float* rb, float* hit_w, float* hit_t,
-                            cudaStream_t stream) {
+template <bool RECORD>
+static int k13_launch(const float* dq, const float* cr, const float* cg,
+                      const float* cb, const float* invz0, const float* g,
+                      const float* bin_idx, const float* valid,
+                      const float* taps, const int* n_taps, int n_bins,
+                      int max_taps, int hq, int wq, float thickness,
+                      float* rr, float* rg, float* rb, float* hit_w,
+                      float* hit_t, int* hit_k, cudaStream_t stream) {
   if (hq < 1 || wq < 1 || n_bins < 1 || max_taps < 1
       || (long)hq * wq > 2147483647L)
     return (int)cudaErrorInvalidValue;
@@ -178,14 +189,40 @@ extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
   const dim3 block(K13Tile::X, K13Tile::Y);
   const float4* rows = reinterpret_cast<const float4*>(taps);
   if (unroll == 16)
-    ssr_march_kernel<16><<<grid, block, smem, stream>>>(
+    ssr_march_kernel<16, RECORD><<<grid, block, smem, stream>>>(
         dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
-        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t);
+        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t, hit_k);
   else
-    ssr_march_kernel<32><<<grid, block, smem, stream>>>(
+    ssr_march_kernel<32, RECORD><<<grid, block, smem, stream>>>(
         dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
-        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t);
+        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t, hit_k);
   return (int)cudaGetLastError();
+}
+
+// taps: [n_bins, max_taps] float4 rows (16-byte aligned), n_taps [n_bins].
+extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
+                            const float* cb, const float* invz0,
+                            const float* g, const float* bin_idx,
+                            const float* valid, const float* taps,
+                            const int* n_taps, int n_bins, int max_taps,
+                            int hq, int wq, float thickness, float* rr,
+                            float* rg, float* rb, float* hit_w, float* hit_t,
+                            cudaStream_t stream) {
+  return k13_launch<false>(dq, cr, cg, cb, invz0, g, bin_idx, valid, taps,
+                           n_taps, n_bins, max_taps, hq, wq, thickness, rr,
+                           rg, rb, hit_w, hit_t, nullptr, stream);
+}
+
+// vr_ssr_march that also writes the hit record hit_k [hq, wq] (int32).
+extern "C" int vr_ssr_march_record(
+    const float* dq, const float* cr, const float* cg, const float* cb,
+    const float* invz0, const float* g, const float* bin_idx,
+    const float* valid, const float* taps, const int* n_taps, int n_bins,
+    int max_taps, int hq, int wq, float thickness, float* rr, float* rg,
+    float* rb, float* hit_w, float* hit_t, int* hit_k, cudaStream_t stream) {
+  return k13_launch<true>(dq, cr, cg, cb, invz0, g, bin_idx, valid, taps,
+                          n_taps, n_bins, max_taps, hq, wq, thickness, rr,
+                          rg, rb, hit_w, hit_t, hit_k, stream);
 }
 
 // The tile (columns, rows), the dynamic shared bytes and the unrolled tap
@@ -198,14 +235,17 @@ extern "C" int vr_ssr_march_geometry(int n_bins, int max_taps, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of both instances (16, then 32 taps): registers per
-// thread, static shared bytes per block, local bytes per thread and largest
-// block, four ints each, into out; returns the first error.
+// cudaFuncGetAttributes of the four instances (16, then 32 taps; then the
+// same with RECORD): registers per thread, static shared bytes per block,
+// local bytes per thread and largest block, four ints each, into out;
+// returns the first error.
 extern "C" int vr_ssr_march_attrs(int* out) {
-  const void* kernels[2] = {(const void*)ssr_march_kernel<16>,
-                            (const void*)ssr_march_kernel<32>};
+  const void* kernels[4] = {(const void*)ssr_march_kernel<16, false>,
+                            (const void*)ssr_march_kernel<32, false>,
+                            (const void*)ssr_march_kernel<16, true>,
+                            (const void*)ssr_march_kernel<32, true>};
   cudaError_t first = cudaSuccess;
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < 4; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[k]);
     if (first == cudaSuccess) first = err;

@@ -115,6 +115,8 @@ def main(argv=None) -> int:
     from volumetricrenderer_tpu_torch.post import (apply_post,
                                                    auto_exposure_step,
                                                    camera_velocity)
+    from volumetricrenderer_tpu_torch.utils.cache import \
+        enable_persistent_cache
     from volumetricrenderer_tpu_torch.utils.debug import (save_png,
                                                           volume_slice)
 
@@ -122,6 +124,8 @@ def main(argv=None) -> int:
         print("demo: no CUDA device (pass --device cpu to run the "
               "plain-torch versions on the CPU)", file=sys.stderr)
         return 2
+    # the kernels' build directory (utils/cache.py; VOLR_TORCH_CACHE)
+    enable_persistent_cache()
     cfg = demo_config(args)
     dev = args.device
     scene_post = None

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bake_radiance", "shadow_scatter", "integrate_blend", "composite",
            "shadow_blend", "scatter", "dir_shadow", "integrate",
            "bake_visibility", "temporal_blend", "windowed_warp",
-           "pcf_shadow", "ssr_march", "composite_grad")
+           "pcf_shadow", "ssr_march", "composite_grad", "ssr_march_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -157,7 +157,12 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                        "vr_pcf_shadow_geometry": [ci, vp]},
         "ssr_march": {"vr_ssr_march":
                       [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5,
+                      "vr_ssr_march_record":
+                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6,
                       "vr_ssr_march_geometry": [ci, ci, vp]},
+        "ssr_march_grad": {"vr_ssr_march_grad": [vp] * 7 + [ci] * 4
+                           + [vp] * 3,
+                           "vr_ssr_march_grad_geometry": [ci, ci, vp]},
     }[name]
     for entry, argtypes in sig.items():
         fn = getattr(cdll, entry)
@@ -206,8 +211,11 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "bake_visibility": ("bake_visibility_kernel<false>",
                                     "bake_visibility_kernel<true>"),
                 "pcf_shadow": ("pcf_shadow_kernel",),
-                "ssr_march": ("ssr_march_kernel<16>",
-                              "ssr_march_kernel<32>"),
+                "ssr_march": ("ssr_march_kernel<16, false>",
+                              "ssr_march_kernel<32, false>",
+                              "ssr_march_kernel<16, true>",
+                              "ssr_march_kernel<32, true>"),
+                "ssr_march_grad": ("ssr_march_grad_kernel",),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel"),

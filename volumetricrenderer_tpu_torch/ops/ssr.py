@@ -17,6 +17,18 @@ view depth dq, the three colour planes, invz0 = 1 / dq, the 1/z gradient g
 per pixel of march, the direction bin (an integer-valued float) and the
 valid mask (0 or 1). `offsets` is post._ssr_offsets(cfg): per bin, the
 (t_prev, t, oy, ox) taps. Returns (refl_r, refl_g, refl_b, hit_w, hit_t).
+
+Under grad the march is `SsrMarchFn`: forward K13's RECORD instance
+(`ssr_march(..., record=True)`), which also writes the hit record, an int32 plane
+holding each pixel's first-hit tap index in its bin (-1 for none or not
+valid); backward K15 (`ssr_march_grad`, csrc/ssr_march_grad.cu), the
+adjoint of the JAX package's XLA march: the outputs depend on the colour
+planes only through the first hit's read (weight 1), so each pixel's
+colour cotangent goes to that one source pixel, gathered per source pixel
+without atomics. Its twin `ssr_march_grad_plain` adds the same terms in
+the same order. Depth, 1/z, its gradient, the bins and the mask reach the
+outputs only through comparisons and get no gradient, and hit_w and hit_t
+carry none, as under jax.grad.
 """
 
 from __future__ import annotations
@@ -31,10 +43,13 @@ from volumetricrenderer_tpu_torch.ops import cuda
 
 
 def ssr_march_reference(dq, colors: Sequence, invz0, g, bin_idx, valid,
-                        offsets: tuple, thickness: float, max_px: float
-                        ) -> Tuple[torch.Tensor, ...]:
+                        offsets: tuple, thickness: float, max_px: float,
+                        record: bool = False) -> Tuple[torch.Tensor, ...]:
     """Twin of K13: the JAX package's XLA march loop (post._ssr_p), all
-    bins over the whole plane, each masked by its sel."""
+    bins over the whole plane, each masked by its sel. record=True also
+    returns the hit record (int32 [hq, wq]) from the same weights: the tap
+    index where a pixel's wgt is 1 in its own bin, -1 where it is never 1
+    or sel is 0 (K13's RECORD instance)."""
     # post imports this module: its edge-clamped shift is bound here
     from volumetricrenderer_tpu_torch.post import _shift2_p as _shift
     hq, wq = dq.shape
@@ -43,12 +58,15 @@ def ssr_march_reference(dq, colors: Sequence, invz0, g, bin_idx, valid,
     xx = torch.arange(wq, device=dq.device)[None, :]
     refl = [z(), z(), z()]
     hitw, hitt = z(), z()
+    none = torch.full((hq, wq), -1, dtype=torch.int32, device=dq.device)
+    hit_k = none
     for b, taps in enumerate(offsets):
         sel = (bin_idx == b).to(torch.float32) * valid
         not_hit = torch.ones_like(dq)
         acc = [z(), z(), z()]
         aw, at = z(), z()
-        for (t_prev, t, oy, ox) in taps:
+        first = none
+        for k, (t_prev, t, oy, ox) in enumerate(taps):
             zs = _shift(dq, oy, ox)
             invz = invz0 + g * t
             z_ray = torch.where(invz > 1e-4,
@@ -68,11 +86,16 @@ def ssr_march_reference(dq, colors: Sequence, invz0, g, bin_idx, valid,
             aw = aw + wgt
             at = at + wgt * (t / max_px)
             not_hit = not_hit * (1.0 - hit)
+            if record:
+                first = torch.where(wgt != 0.0, k, first)
         for c in range(3):
             refl[c] = refl[c] + sel * acc[c]
         hitw = hitw + sel * aw
         hitt = hitt + sel * at
-    return refl[0], refl[1], refl[2], hitw, hitt
+        if record:
+            hit_k = torch.where(sel != 0.0, first, hit_k)
+    out = (refl[0], refl[1], refl[2], hitw, hitt)
+    return out + (hit_k,) if record else out
 
 
 # K13's launch (csrc/ssr_march.cu): a block a tile of (columns, rows) of
@@ -141,14 +164,15 @@ def tap_table(offsets: tuple, max_px: float, device: torch.device):
 
 
 def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
-              offsets: tuple, thickness: float, max_px: float
-              ) -> Tuple[torch.Tensor, ...]:
+              offsets: tuple, thickness: float, max_px: float,
+              record: bool = False) -> Tuple[torch.Tensor, ...]:
     """K13: the SSR march of `ssr_march_pallas` (the JAX signature, less
     `interpret`). CPU tensors take the twin; CUDA tensors launch the kernel
-    once, or raise."""
+    once, or raise. record=True launches K13's RECORD instance (counted as
+    K13), which also returns the hit record (int32 [hq, wq]) last."""
     if dq.device.type == "cpu":
         return ssr_march_reference(dq, colors, invz0, g, bin_idx, valid,
-                                   offsets, thickness, max_px)
+                                   offsets, thickness, max_px, record)
     planes = [p.contiguous() for p in (dq, *colors, invz0, g, bin_idx,
                                        valid)]
     hq, wq = dq.shape
@@ -165,11 +189,121 @@ def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
     cuda.check_cuda(*planes)
     taps, counts = tap_table(offsets, float(max_px), dq.device)
     outs = [torch.empty_like(planes[0]) for _ in range(5)]
+    if record:
+        outs.append(torch.empty((hq, wq), dtype=torch.int32,
+                                device=dq.device))
     cuda.launch("ssr_march", *(cuda.ptr(p) for p in planes), cuda.ptr(taps),
                 cuda.ptr(counts), n_bins, max_taps, hq, wq,
-                float(np.float32(thickness)), *(cuda.ptr(o) for o in outs))
+                float(np.float32(thickness)), *(cuda.ptr(o) for o in outs),
+                entry="vr_ssr_march_record" if record else "")
     return tuple(outs)
 
 
 # the JAX package's name for the same function
 ssr_march_pallas = ssr_march
+
+
+def _shift_zero(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[y, x] = p[y - dy, x - dx], +0 where that leaves the plane."""
+    hq, wq = p.shape
+    out = torch.zeros_like(p)
+    if abs(dy) >= hq or abs(dx) >= wq:
+        return out
+    out[max(dy, 0):hq + min(dy, 0), max(dx, 0):wq + min(dx, 0)] = \
+        p[max(-dy, 0):hq + min(-dy, 0), max(-dx, 0):wq + min(-dx, 0)]
+    return out
+
+
+def ssr_march_grad_plain(grads: Sequence, bin_idx, hit_k, offsets: tuple
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Twin of K15: the colour planes' gradient of the march from the
+    cotangents of its three colour outputs. Per bin b and tap k, in order,
+    each plane adds the cotangent of the pixels whose bin is b and whose
+    hit record is k, shifted by the tap's offset onto the pixel it read
+    (+0 where none did)."""
+    out = [torch.zeros_like(grads[0]) for _ in range(3)]
+    for b, taps in enumerate(offsets):
+        in_bin = bin_idx == b
+        for k, (_, _, oy, ox) in enumerate(taps):
+            mask = in_bin & (hit_k == k)
+            for c in range(3):
+                out[c] = out[c] + _shift_zero(
+                    torch.where(mask, grads[c], 0.0), oy, ox)
+    return tuple(out)
+
+
+# K15's launch (csrc/ssr_march_grad.cu): a block a tile of (columns, rows)
+# of source pixels, a thread a pixel; its shared copy of K13's table is
+# k13_shared_bytes
+K15_TILE = (32, 4)
+
+
+def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
+                   max_px: float) -> Tuple[torch.Tensor, ...]:
+    """K15: the gradient of the march's colour outputs with respect
+    to its colour planes, from their cotangents `grads`, the bin plane and
+    the hit record. CPU tensors take the twin; CUDA tensors launch the
+    kernel once, or raise. max_px picks K13's cached table (K15 reads its
+    offsets only)."""
+    if bin_idx.device.type == "cpu":
+        return ssr_march_grad_plain(grads, bin_idx, hit_k, offsets)
+    planes = [p.contiguous() for p in (*grads, bin_idx)]
+    hit_k = hit_k.contiguous()
+    hq, wq = bin_idx.shape
+    for p in (*planes, hit_k):
+        if p.shape != (hq, wq):
+            raise ValueError(f"plane {tuple(p.shape)} != {(hq, wq)}")
+    n_bins = len(offsets)
+    max_taps = max(max((len(b) for b in offsets), default=0), 1)
+    if k13_shared_bytes(n_bins, max_taps) > K13_MAX_SHARED:
+        raise NotImplementedError(f"{n_bins} SSR bins of {max_taps} taps: "
+                                  "K15's table passes 48 KB of shared "
+                                  "memory")
+    cuda.check_cuda(*planes)
+    cuda.check_cuda(hit_k, dtype=torch.int32)
+    taps, counts = tap_table(offsets, float(max_px), bin_idx.device)
+    outs = [torch.empty_like(planes[0]) for _ in range(3)]
+    cuda.launch("ssr_march_grad", *(cuda.ptr(p) for p in planes[:4]),
+                cuda.ptr(hit_k), cuda.ptr(taps), cuda.ptr(counts), n_bins,
+                max_taps, hq, wq, *(cuda.ptr(o) for o in outs))
+    return tuple(outs)
+
+
+class SsrMarchFn(torch.autograd.Function):
+    """The march under grad: apply(dq, r, g, b, invz0, g_z, bin_idx, valid,
+    offsets, thickness, max_px) -> (refl_r, refl_g, refl_b, hit_w, hit_t).
+    The forward launches K13's RECORD instance on detached inputs (a kernel
+    takes no tensor that requires grad); the backward launches K15 for the
+    three colour planes and gives the other inputs no gradient. hit_w and
+    hit_t are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, dq, cr, cg, cb, invz0, g, bin_idx, valid, offsets,
+                thickness, max_px):
+        d = [t.detach() for t in (dq, cr, cg, cb, invz0, g, bin_idx, valid)]
+        *outs, hit_k = ssr_march(d[0], d[1:4], *d[4:], offsets, thickness,
+                                 max_px, record=True)
+        ctx.save_for_backward(d[6], hit_k)
+        ctx.args = (offsets, max_px)
+        ctx.mark_non_differentiable(outs[3], outs[4])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, g_r, g_g, g_b, _g_w, _g_t):
+        bin_idx, hit_k = ctx.saved_tensors
+        offsets, max_px = ctx.args
+        need = ctx.needs_input_grad[1:4]
+        grads = (None, None, None)
+        if any(need):
+            grads = ssr_march_grad([g_r, g_g, g_b], bin_idx, hit_k, offsets,
+                                   max_px)
+            grads = tuple(gc if n else None for gc, n in zip(grads, need))
+        return (None, *grads) + (None,) * 7
+
+
+def ssr_march_differentiable(dq, colors: Sequence, invz0, g, bin_idx, valid,
+                             offsets: tuple, thickness: float, max_px: float
+                             ) -> Tuple[torch.Tensor, ...]:
+    """ssr_march with the colour planes' gradient (SsrMarchFn)."""
+    return SsrMarchFn.apply(dq, *colors, invz0, g, bin_idx, valid, offsets,
+                            thickness, max_px)

@@ -11,7 +11,8 @@ See the JAX module's docstring for what each effect models.
 The chain is channel-planar: lists of [H, W] float32 planes, as there.
 Everything is plain torch, as it is plain XLA in the JAX package, except
 the SSR march, which is kernel K13 (ops/ssr.py, csrc/ssr_march.cu) on a
-CUDA tensor. Every shift, blur, ring and tent is built from edge-replicated
+CUDA tensor and, under grad, K13 forward and K15 (csrc/ssr_march_grad.cu)
+backward (ops/ssr.SsrMarchFn). Every shift, blur, ring and tent is built from edge-replicated
 pads and slices in the JAX expression order, never from a convolution:
 cuDNN would run a float32 convolution in TF32 on the card. The camera
 matrix product of `camera_velocity` is written out for the same reason.
@@ -426,7 +427,8 @@ def _ssr_p(planes, view_depth: torch.Tensor, cfg: PostConfig):
     """Screen-space reflections with a direction-quantized march: the
     geometry (implicit normals, reflection vector, its screen direction
     bin and 1/z gradient) in plain torch, the march on K13
-    (ops/ssr.ssr_march), the Fresnel x fade x intensity strength and the
+    (ops/ssr.ssr_march; under grad ops/ssr.SsrMarchFn, K15 its backward),
+    the Fresnel x fade x intensity strength and the
     upsample in plain torch. Returns (refl_r, refl_g, refl_b, strength) at
     full res; the caller blends out = lerp(p, refl, strength)."""
     h, w = planes[0].shape
@@ -489,9 +491,14 @@ def _ssr_p(planes, view_depth: torch.Tensor, cfg: PostConfig):
                                       torch.full_like(du, 1e-8), du))
     bin_idx = _mod(torch.round(ang / (2.0 * math.pi / nb)), float(nb))
     max_px = float(cfg.ssr_max_px)
-    rr_, rg_, rb_, hitw, hitt = ssr_ops.ssr_march(
-        dq, cq, 1.0 / pz_, g, bin_idx, valid, _ssr_offsets(cfg),
-        cfg.ssr_thickness, max_px)
+    march = (dq, cq, 1.0 / pz_, g, bin_idx, valid, _ssr_offsets(cfg),
+             cfg.ssr_thickness, max_px)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dq, *cq)):
+        # K13 forward and its adjoint K15 backward (the colour planes'
+        # gradient; the rest reach the march only through comparisons)
+        rr_, rg_, rb_, hitw, hitt = ssr_ops.ssr_march_differentiable(*march)
+    else:
+        rr_, rg_, rb_, hitw, hitt = ssr_ops.ssr_march(*march)
 
     # strength: Schlick fresnel (f0 = 0.25) x distance fade x hit mask
     cosv = torch.clamp(-vdn, 0.0, 1.0)

@@ -66,13 +66,19 @@ the JAX package refuses them too.
 Under grad (a scene, state or scene colour tensor requiring it) the frame
 is differentiable wherever the JAX package's is -- the plain-torch passes by
 autograd, the composite through K4 forward and its adjoint K14 backward
-(ops/zg_composite.CompositeFn) -- and check_differentiable refuses, naming
-the JAX kernel, every frame whose JAX route reaches a Pallas kernel, which
-jax.grad refuses (inverse.py trains through this).
+(ops/zg_composite.CompositeFn), render_frame_post's SSR march through K13
+forward and its adjoint K15 backward (ops/ssr.SsrMarchFn: JAX
+differentiates its XLA march there) -- and check_differentiable refuses,
+naming the JAX kernel, every frame whose JAX route reaches a Pallas kernel,
+which jax.grad refuses (inverse.py trains through this).
 
 All branches keep one FrameState, so a state made by one feeds another as
 long as the same blends are on. A config or scene that the JAX package would
 send down a branch that is not ported raises NotImplementedError naming it.
+
+Each pass runs inside a range named as the JAX package's jax.named_scope
+around it (utils/profiling.scope, PASS_NAMES), so a profiler trace carries
+the pass names; without a profiler recording the range is a no-op.
 
 The renderer runs on CUDA unless it is built with device="cpu"; without a
 GPU and without that request it raises instead of running on the CPU.
@@ -106,6 +112,7 @@ from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
 from volumetricrenderer_tpu_torch.ops.visibility import bake_noise_channels
 from volumetricrenderer_tpu_torch.ops.zg_composite import composite_frame
 from volumetricrenderer_tpu_torch.state import FrameState
+from volumetricrenderer_tpu_torch.utils.profiling import scope
 
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA request without a GPU raises."""
@@ -485,9 +492,11 @@ class VolumetricRenderer:
             raise ValueError("a slab needs the caller's G-buffer band "
                              "(scene_color and view_depth)")
         if scene_color is None or view_depth is None:
-            scene_color, view_depth = self.render_scene_inputs(scene)
+            with scope("gbuffer"):
+                scene_color, view_depth = self.render_scene_inputs(scene)
         if shadow_data is None:
-            shadow_data = self.bake_shadow_data(scene)
+            with scope("shadow_maps"):
+                shadow_data = self.bake_shadow_data(scene)
         if torch.is_grad_enabled() and requires_grad(scene, state,
                                                      scene_color):
             self.check_differentiable(scene, shadow_data, slab)
@@ -502,19 +511,23 @@ class VolumetricRenderer:
             if tables.texture_noise:
                 geo, scene_dev = self.frame_geometry(state, scene, tables,
                                                      params, world_to_view)
-                noise = bake_noise_channels(
-                    cfg, params, geo.view_to_world, geo.jitter,
-                    scene_dev.media, time_x, tables.ss)
-            shadow, acc = volume_phase(tables, prev_shadow, prev_acc, noise)
+                with scope("bake_noise_tex"):
+                    noise = bake_noise_channels(
+                        cfg, params, geo.view_to_world, geo.jitter,
+                        scene_dev.media, time_x, tables.ss)
+            with scope("volume_fused"):
+                shadow, acc = volume_phase(tables, prev_shadow, prev_acc,
+                                           noise)
         else:
             geo, scene_dev = self.frame_geometry(state, scene, tables,
                                                  params, world_to_view)
             kernel = self.scatter_kernel(scene, (cube_sh, spot_sh))
             material = None
             if not pipeline.fuses_material(cfg, scene.media, kernel):
-                mat_a, mat_b = pipeline.write_material_volumes(
-                    cfg, params, geo.view_to_world, geo.jitter, time_x,
-                    scene_dev.media)
+                with scope("write_material_volume"):
+                    mat_a, mat_b = pipeline.write_material_volumes(
+                        cfg, params, geo.view_to_world, geo.jitter, time_x,
+                        scene_dev.media)
                 if cfg.temporal_blend_material:
                     mat_a = pipeline.temporal_blend_material(
                         cfg, geo, mat_a, state.prev_material_a.to(f32))
@@ -525,21 +538,26 @@ class VolumetricRenderer:
             if (cfg.temporal_blend_shadow and pallas_reproj
                     and cfg.dir_shadow_impl == "pallas"
                     and cfg.shadow_mode == "raycast" and tables.n_dir):
-                shadow = dir_shadow_blend(tables, prev_shadow)
+                with scope("shadow_blend"):
+                    shadow = dir_shadow_blend(tables, prev_shadow)
             else:
-                pcf = self.pcf_tables(state, scene, dir_sh, slab) \
-                    if pipeline.uses_pcf_kernel(cfg, dir_sh, tables.n_dir) \
-                    else None
-                shadow = pipeline.write_shadow_volume_dir(
-                    cfg, tables, geo, scene_dev.dir_lights,
-                    scene_dev.geometry, dir_sh, pcf)
+                with scope("write_shadow_volume"):
+                    pcf = self.pcf_tables(state, scene, dir_sh, slab) \
+                        if pipeline.uses_pcf_kernel(cfg, dir_sh,
+                                                    tables.n_dir) else None
+                    shadow = pipeline.write_shadow_volume_dir(
+                        cfg, tables, geo, scene_dev.dir_lights,
+                        scene_dev.geometry, dir_sh, pcf)
                 if cfg.temporal_blend_shadow:
-                    shadow = pipeline.temporal_blend_shadow(
-                        cfg, tables, geo, shadow.contiguous(), prev_shadow)
+                    with scope("temporal_blend_shadow"):
+                        shadow = pipeline.temporal_blend_shadow(
+                            cfg, tables, geo, shadow.contiguous(),
+                            prev_shadow)
 
-            scatter = pipeline.write_scatter_volume(
-                cfg, tables, shadow.contiguous(), material, geo, scene_dev,
-                (cube_sh, spot_sh), time_x)
+            with scope("write_scatter_volume"):
+                scatter = pipeline.write_scatter_volume(
+                    cfg, tables, shadow.contiguous(), material, geo,
+                    scene_dev, (cube_sh, spot_sh), time_x)
             # the scatter blend works on the volume, not on the kernel's
             # planes, and the XLA scatter writes no planes: what follows
             # then takes the plain accumulation
@@ -550,17 +568,21 @@ class VolumetricRenderer:
 
             if (cfg.temporal_blend_accumulation and pallas_reproj
                     and cfg.accumulate_impl == "pallas" and kernel_planes):
-                acc = integrate_blend(tables, scatter, prev_acc)
+                with scope("integrate_blend"):
+                    acc = integrate_blend(tables, scatter, prev_acc)
             else:
-                acc = pipeline.accumulate(cfg, tables, scatter, params,
-                                          kernel_planes)
+                with scope("accumulate"):
+                    acc = pipeline.accumulate(cfg, tables, scatter, params,
+                                              kernel_planes)
                 if cfg.temporal_blend_accumulation:
-                    acc = pipeline.temporal_blend_accumulation(
-                        cfg, tables, geo, acc.contiguous(), prev_acc)
+                    with scope("temporal_blend_accumulation"):
+                        acc = pipeline.temporal_blend_accumulation(
+                            cfg, tables, geo, acc.contiguous(), prev_acc)
             aux["scatter"] = scatter
-        image = composite_frame(cfg, acc.contiguous(),
-                                scene_color.contiguous(),
-                                view_depth.contiguous(), params, slab)
+        with scope("composite"):
+            image = composite_frame(cfg, acc.contiguous(),
+                                    scene_color.contiguous(),
+                                    view_depth.contiguous(), params, slab)
         dt = cfg.dtype
         new_state = FrameState(
             prev_shadow=shadow.to(dt), prev_accumulation=acc.to(dt),
@@ -589,13 +611,6 @@ class VolumetricRenderer:
             raise NotImplementedError("the post stack in a slab: its "
                                       "screen-space passes are not ported "
                                       "to H-sharded bands")
-        if post_cfg.ssr_intensity > 0.0 and torch.is_grad_enabled() \
-                and requires_grad(scene, state, scene_color):
-            raise NotImplementedError(
-                "the SSR march under grad: its kernel K13 (JAX "
-                "ssr_march_pallas, ops/pallas/ssr.py) has no backward yet. "
-                "JAX's default SSR, its XLA march (post.SSR_PALLAS = False), "
-                "is differentiable: the port lacks that gradient")
         image, aux, new_state = self.render_frame(
             state, scene, time_x, scene_color, view_depth, shadow_data)
         out = apply_post_planes([image[..., c] for c in range(3)], post_cfg,
