@@ -171,7 +171,8 @@ entry point a user calls, and the port's demo entry, and:
      instance (SsrMarchFn's forward: its outputs = the no-grad instance's
      bit for bit, its hit record = the twin's) and K15, the march's
      backward, on that record and a seeded random cotangent (= its twin
-     bit for bit), and K15's tile and shared memory; the plain XLA scatter of
+     bit for bit, two launches bit for bit equal), and K15's tile and
+     shared memory; the plain XLA scatter of
      xla_scatter's, demo_xla's and demo_noise's last frames on the card
      against the same function on the CPU (tests/torch_tolerance.py's
      any-hit tolerance); on tex's frame 4 K1 (its radiance channels, the
@@ -247,8 +248,10 @@ entry point a user calls, and the port's demo entry, and:
        k14               K14 against composite_grad_plain on seeded random
                          inputs: the per-pixel form at 1280x720 and the cells
                          form at 1280x704 on 160x88x64, and the cells form at
-                         1920x1080 on 240x135x128, timed beside the twin, the
-                         bound and grid_sample's backward
+                         1920x1080 on 240x135x128, bit for bit, two launches
+                         bit for bit equal, timed beside the twin, the bound
+                         and grid_sample's backward; K14's tile and shared
+                         memory
        train_sharded     make_sharded_train_step on a one-rank NCCL group
                          over 2 views (K4 and K14 twice each) = one
                          process's step over their mean loss
@@ -321,9 +324,9 @@ CHECKS = {
                    "a depth compare or a texel floor within ulps of its edge "
                    "may flip"),
     "ssr_march": (1e-6, 1e-5, 0.0, "the same taps in the same order"),
-    "composite_grad": (1e-5, 1e-5, 0.0,
-                       "atomics add a froxel's terms, from every pixel that "
-                       "reads it, in an order that changes from run to run"),
+    "composite_grad": (0.0, 0.0, 0.0,
+                       "a gather: the same terms in the same order, no "
+                       "atomics"),
     "ssr_march_grad": (0.0, 0.0, 0.0,
                        "a gather: the same terms in the same order, no "
                        "atomics"),
@@ -1136,7 +1139,9 @@ def train_path(name, renderer, scene, scene_color, view_depth, shadow_data,
     after; each step must launch K4 once and K14 once and nothing else.
     Holds the first step's gradients against the same step with K4 and K14
     swapped for their twins (|g - g_twin| <= 1e-4 max|g_twin| + 1e-12 a
-    leaf: K14's atomics and K4's log() ulps), checks that every gradient is
+    leaf: K4's log() ulps; K14 is its twin bit for bit, and the plain
+    passes' autograd may sum in another order on the card), checks that
+    every gradient is
     finite, that one is non-zero and that the last loss is below the first;
     times forward, backward and the Adam step with CUDA events, the forward
     without grad, and profiles 2 steps (device busy, launches a step), and
@@ -1273,8 +1278,9 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
     launch TRAIN_SSR_KERNELS once each and nothing else, and no plain march
     (ssr_march_reference, ssr_march_grad_plain) may run. Holds the first
     step's gradients against the same step with K4, K14, K13 and K15
-    swapped for their twins (1e-4 max|g_twin| + 1e-12 a leaf: K14's
-    atomics), checks that they are finite and one is non-zero, times
+    swapped for their twins (1e-4 max|g_twin| + 1e-12 a leaf: K4's log()
+    ulps and the plain passes' autograd; K14 and K15 are their twins bit
+    for bit), checks that they are finite and one is non-zero, times
     forward, backward and Adam with CUDA events and reports the peak device
     memory. Returns (launches, record)."""
     import copy
@@ -1419,8 +1425,10 @@ def k14_forms(zg, froxel, camera, sample_grid, bound):
     inputs (a torch.Generator): a gradient in [-1, 1], a scene in [0, 1],
     depths from the near plane to 140 (past the volume's far end); its
     time, the twin's, the bound and, as the library yardstick, the backward
-    of grid_sample (3D, border) at the same sample points. Returns form ->
-    (max abs err, ms, plain ms, library ms, (bytes, operations))."""
+    of grid_sample (3D, border) at the same sample points. K14 must equal
+    its twin (CHECKS: 0) and a second launch on the same inputs bit for
+    bit. Returns form -> (max abs err, ms, plain ms, library ms, (bytes,
+    operations))."""
     dev = camera.position.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -1435,8 +1443,15 @@ def k14_forms(zg, froxel, camera, sample_grid, bound):
         vd = (float(camera.near) + rnd(ih, iw) * 140.0).contiguous()
         args = (g_img, sc, vd, p, grid, k4_form)
         got = zg.composite_grad(*args)
-        err = compare("composite_grad", got, zg.composite_grad_plain(*args),
-                      form)
+        twin = zg.composite_grad_plain(*args)
+        err = compare("composite_grad", got, twin, form)
+        again = zg.composite_grad(*args)
+        log(f"# composite_grad, {form}: = its twin bit for bit: "
+            f"{torch.equal(got, twin)}; two launches bit for bit equal: "
+            f"{torch.equal(got, again)}")
+        if not torch.equal(got, twin) or not torch.equal(got, again):
+            raise AssertionError(f"K14 ({form}) differs from its twin or "
+                                 "from its own second launch")
         ms = kernel_time_ms(lambda: zg.composite_grad(*args), 20)
         plain = cuda_time_ms(lambda: zg.composite_grad_plain(*args), 2)
         vol = torch.zeros((1, 4, d, h, w), device=dev, requires_grad=True)
@@ -1462,7 +1477,9 @@ def train_sharded(renderer, scene, scene_color, view_depth, inverse,
     """make_sharded_train_step on a one-rank NCCL group over 2 views (the
     camera moved for the second) against one process's step over their
     mean loss, each from the same fog and a fresh Adam: the loss and the
-    updated parameters to 1e-6 relative (K14's atomics)."""
+    updated parameters to 1e-6 relative (two views' gradients summed by
+    autograd against one mean loss's: another order of the same adds;
+    K14 itself gives the same bits on every run)."""
     import copy
     import socket
     import torch.distributed as dist
@@ -2542,16 +2559,42 @@ def main() -> int:
                                  f"taps at {nb} bins of {nt} taps: "
                                  f"{tuple(k13_geo)} in the kernel, {want} "
                                  f"in ops/ssr")
-    # K15's tile and shared bytes (K13's table) at the same tables
-    k15_geo = (cuda.ctypes.c_int * 3)()
+    # K15's tile, shared bytes and code plane at the same tables, on
+    # post_showcase's planes with offsets over its 2 x 56 pixels on each
+    # axis, none, and an odd span on a ragged plane
+    k15_geo = (cuda.ctypes.c_int * 5)()
     for nb, nt in ((8, 12), (16, 24), (1, 1), (4, 32)):
-        cuda.lib("ssr_march_grad").vr_ssr_march_grad_geometry(
-            nb, nt, cuda.ctypes.cast(k15_geo, cuda.ctypes.c_void_p))
-        want = (*ssr_ops.K15_TILE, ssr_ops.k13_shared_bytes(nb, nt))
-        if tuple(k15_geo) != want:
-            raise AssertionError(f"K15's tile and shared bytes at {nb} "
-                                 f"bins of {nt} taps: {tuple(k15_geo)} in "
-                                 f"the kernel, {want} in ops/ssr")
+        for hq_, wq_, sy, sx in ((270, 480, 112, 112), (270, 480, 0, 0),
+                                 (33, 65, 37, 5)):
+            cuda.lib("ssr_march_grad").vr_ssr_march_grad_geometry(
+                nb, nt, hq_, wq_, sy, sx,
+                cuda.ctypes.cast(k15_geo, cuda.ctypes.c_void_p))
+            want = (*ssr_ops.K15_TILE, ssr_ops.k15_shared_bytes(nb, nt),
+                    *ssr_ops.k15_code_shape(hq_, wq_, sy, sx))
+            if tuple(k15_geo) != want:
+                raise AssertionError(
+                    f"K15's tile, shared bytes and code plane at {nb} bins "
+                    f"of {nt} taps, {hq_}x{wq_} over a {sy}x{sx} span: "
+                    f"{tuple(k15_geo)} in the kernel, {want} in ops/ssr")
+    # K14's tile, threads, rows a chunk and shared bytes at the training
+    # grids' slices and their widest footprints (zg_composite.
+    # grad_footprint)
+    k14_geo = (cuda.ctypes.c_int * 5)()
+    for form_, (k4_form, (ih_, iw_), grid_, _) in K14_FORMS.items():
+        fw_ = zg.grad_footprint(ih_, iw_, grid_, k4_form)[1]
+        for d_ in (grid_[2], 1):
+            cuda.lib("composite_grad").vr_composite_grad_geometry(
+                d_, fw_, cuda.ctypes.cast(k14_geo, cuda.ctypes.c_void_p))
+            want = (*zg.K14_TILE, zg.K14_THREADS, zg.K14_ROWS,
+                    zg.k14_shared_bytes(d_, fw_))
+            if tuple(k14_geo) != want:
+                raise AssertionError(
+                    f"K14's tile, threads, rows and shared bytes at {d_} "
+                    f"slices and footprints {fw_} wide ({form_}): "
+                    f"{tuple(k14_geo)} in the kernel, {want} in "
+                    "ops/zg_composite")
+    k14_720 = zg.k14_shared_bytes(64, zg.grad_footprint(
+        720, 1280, (160, 88, 64), "pixels")[1])
     log(f"# blocks as the wrappers reckon them: K2 {ff.K2_TILE} with "
         f"{ff.k2_shared_bytes(cfg.reproj_window)} B of shared memory at k="
         f"{cfg.reproj_window}, K5 {sb.K5_TILE} with "
@@ -2564,7 +2607,10 @@ def main() -> int:
         f"{pcf.k12_shared_bytes(4)} B at 4 cascades, K9 on the full grid "
         f"{vis.k9_geometry(*k9_shapes[0])}, K13 {ssr_ops.K13_TILE} with "
         f"{ssr_ops.k13_shared_bytes(8, 12)} B at 8 bins of 12 taps, K15 "
-        f"{ssr_ops.K15_TILE} with the same")
+        f"{ssr_ops.K15_TILE} with {ssr_ops.k15_shared_bytes(8, 12)} B and "
+        f"a {ssr_ops.k15_code_shape(270, 480, 112, 112)} code plane at 8 "
+        f"bins of 12 taps over 112 x 112 pixels, K14 {zg.K14_TILE} "
+        f"with {k14_720} B at 720p on 160x88x64 (per pixel)")
 
     # K4 at 16x16-pixel cells (3840x2160) and its co-sited planes form
     # (1920x1080) on the inputs of uhd_exact's frame 2
@@ -2752,13 +2798,17 @@ def main() -> int:
     k15 = torch.stack(ssr_ops.ssr_march_grad(*k15_args))
     k15_p = torch.stack(ssr_ops.ssr_march_grad_plain(*k15_args[:4]))
     errs["ssr_march_grad"] = compare("ssr_march_grad", k15, k15_p)
+    k15_again = torch.stack(ssr_ops.ssr_march_grad(*k15_args))
     k15_fed = float((k15 != 0).float().mean())
     log(f"# ssr_march_grad: {hq}x{wq} planes on post_showcase's march, "
-        f"share of source pixels fed {k15_fed:.4f}, equal to its twin bit "
-        f"for bit: {torch.equal(k15, k15_p)}")
-    if not torch.equal(k15, k15_p) or not k15_fed > 0.0:
-        raise AssertionError("K15 differs from its twin, or feeds no "
-                             "pixel")
+        f"offsets over {ssr_ops.tap_extent(m_args[6])}, share of source "
+        f"pixels fed {k15_fed:.4f}, equal to its twin bit for bit: "
+        f"{torch.equal(k15, k15_p)}; two launches bit for bit equal: "
+        f"{torch.equal(k15, k15_again)}")
+    if not torch.equal(k15, k15_p) or not k15_fed > 0.0 \
+            or not torch.equal(k15, k15_again):
+        raise AssertionError("K15 differs from its twin or from its own "
+                             "second launch, or feeds no pixel")
 
     # the plain XLA scatter on the card against the same function on the
     # CPU, on the arguments of xla_scatter's and demo_xla's last frames:

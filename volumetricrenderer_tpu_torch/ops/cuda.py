@@ -134,8 +134,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "composite_grad": {
-            "vr_composite_grad": [vp] * 6 + [ci] * 5 + [vp],
-            "vr_composite_grad_pixels": [vp] * 8 + [ci] * 5 + [vp]},
+            "vr_composite_grad": [vp] * 7 + [ci] * 7 + [vp],
+            "vr_composite_grad_geometry": [ci] * 2 + [vp],
+            "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
                          "vr_shadow_blend_geometry": [ci, vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
@@ -160,15 +161,15 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                       "vr_ssr_march_record":
                       [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6,
                       "vr_ssr_march_geometry": [ci, ci, vp]},
-        "ssr_march_grad": {"vr_ssr_march_grad": [vp] * 7 + [ci] * 4
-                           + [vp] * 3,
-                           "vr_ssr_march_grad_geometry": [ci, ci, vp]},
+        "ssr_march_grad": {"vr_ssr_march_grad": [vp] * 7 + [ci] * 8
+                           + [vp] * 4,
+                           "vr_ssr_march_grad_geometry": [ci] * 6 + [vp]},
     }[name]
     for entry, argtypes in sig.items():
         fn = getattr(cdll, entry)
         # every launching entry point takes the stream last
-        fn.argtypes = argtypes + ([] if entry.endswith("_geometry")
-                                  else [vp])
+        fn.argtypes = argtypes + ([] if entry.endswith(
+            ("_geometry", "_occupancy")) else [vp])
         fn.restype = ctypes.c_int
 
 
@@ -215,13 +216,13 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                               "ssr_march_kernel<32, false>",
                               "ssr_march_kernel<16, true>",
                               "ssr_march_kernel<32, true>"),
-                "ssr_march_grad": ("ssr_march_grad_kernel",),
+                "ssr_march_grad": ("ssr_march_grad_kernel",
+                                   "ssr_grad_codes_kernel"),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel"),
-                "composite_grad": ("composite_grad_kernel<8, 8>",
-                                   "composite_grad_kernel<0, 0>",
-                                   "composite_grad_pixels_kernel")}
+                "composite_grad": ("composite_grad_kernel<true>",
+                                   "composite_grad_kernel<false>")}
 
 
 def kernel_attrs(name: str) -> dict:

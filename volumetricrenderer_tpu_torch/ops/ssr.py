@@ -233,9 +233,34 @@ def ssr_march_grad_plain(grads: Sequence, bin_idx, hit_k, offsets: tuple
 
 
 # K15's launch (csrc/ssr_march_grad.cu): a block a tile of (columns, rows)
-# of source pixels, a thread a pixel; its shared copy of K13's table is
-# k13_shared_bytes
-K15_TILE = (32, 4)
+# of source pixels, a thread two rows of a column; its shared copy of the
+# table's per-tap offsets takes at most K15_MAX_SHARED bytes
+K15_TILE = (32, 16)
+K15_MAX_SHARED = 48 * 1024
+
+
+@functools.lru_cache(maxsize=8)
+def tap_extent(offsets: tuple) -> Tuple[int, int, int, int]:
+    """(oy_lo, oy_hi, ox_lo, ox_hi): the least and largest offset of the
+    table's taps on each axis, 0 for a table without taps."""
+    oys = [t[2] for b in offsets for t in b] or [0]
+    oxs = [t[3] for b in offsets for t in b] or [0]
+    return min(oys), max(oys), min(oxs), max(oxs)
+
+
+def k15_shared_bytes(n_bins: int, max_taps: int) -> int:
+    """Mirror of k15_shared_bytes: two int32 offsets a tap (in the code
+    plane and in the colour planes) and the int32 counts."""
+    return 8 * n_bins * max_taps + 4 * n_bins
+
+
+def k15_code_shape(hq: int, wq: int, span_y: int,
+                   span_x: int) -> Tuple[int, int]:
+    """Mirror of k15_code_shape: K15's int16 code plane, [hq, wq] rounded
+    up to whole K15_TILE tiles and grown by the offsets' span on each
+    axis."""
+    tx, ty = K15_TILE
+    return -(-hq // ty) * ty + span_y, -(-wq // tx) * tx + span_x
 
 
 def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
@@ -243,8 +268,10 @@ def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
     """K15: the gradient of the march's colour outputs with respect
     to its colour planes, from their cotangents `grads`, the bin plane and
     the hit record. CPU tensors take the twin; CUDA tensors launch the
-    kernel once, or raise. max_px picks K13's cached table (K15 reads its
-    offsets only)."""
+    kernel once (its code plane, then its gather, on a scratch plane of
+    k15_code_shape), or raise: NotImplementedError where the table's
+    offsets pass the shared memory K15 takes. max_px picks K13's cached
+    table (K15 reads its offsets only)."""
     if bin_idx.device.type == "cpu":
         return ssr_march_grad_plain(grads, bin_idx, hit_k, offsets)
     planes = [p.contiguous() for p in (*grads, bin_idx)]
@@ -255,17 +282,24 @@ def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
             raise ValueError(f"plane {tuple(p.shape)} != {(hq, wq)}")
     n_bins = len(offsets)
     max_taps = max(max((len(b) for b in offsets), default=0), 1)
-    if k13_shared_bytes(n_bins, max_taps) > K13_MAX_SHARED:
-        raise NotImplementedError(f"{n_bins} SSR bins of {max_taps} taps: "
-                                  "K15's table passes 48 KB of shared "
-                                  "memory")
+    oy_lo, oy_hi, ox_lo, ox_hi = tap_extent(offsets)
+    if k15_shared_bytes(n_bins, max_taps) > K15_MAX_SHARED \
+            or n_bins * max_taps > 32767:
+        raise NotImplementedError(
+            f"{n_bins} SSR bins of {max_taps} taps: K15's table passes "
+            f"{K15_MAX_SHARED} B of shared memory, or its int16 codes "
+            "overflow")
     cuda.check_cuda(*planes)
     cuda.check_cuda(hit_k, dtype=torch.int32)
     taps, counts = tap_table(offsets, float(max_px), bin_idx.device)
+    codes = torch.empty(k15_code_shape(hq, wq, oy_hi - oy_lo,
+                                       ox_hi - ox_lo),
+                        dtype=torch.int16, device=bin_idx.device)
     outs = [torch.empty_like(planes[0]) for _ in range(3)]
     cuda.launch("ssr_march_grad", *(cuda.ptr(p) for p in planes[:4]),
                 cuda.ptr(hit_k), cuda.ptr(taps), cuda.ptr(counts), n_bins,
-                max_taps, hq, wq, *(cuda.ptr(o) for o in outs))
+                max_taps, hq, wq, oy_lo, oy_hi, ox_lo, ox_hi,
+                cuda.ptr(codes), *(cuda.ptr(o) for o in outs))
     return tuple(outs)
 
 

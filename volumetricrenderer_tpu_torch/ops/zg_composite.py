@@ -40,8 +40,11 @@ The gradient: under grad (acc or the scene colour requires it) a CUDA call
 of `composite` or `composite_pixels` on the whole grid goes through
 `CompositeFn`, which launches K4 forward and K14 (`composite_grad`,
 csrc/composite_grad.cu) backward, K14 the exact adjoint of the form's
-taps; its twin `composite_grad_plain` scatters the same taps with
-index_add_. On the CPU autograd differentiates the twins. What the JAX
+taps as a gather: each froxel sums its terms in one fixed order (pixel rows
+and their taps, then pixel columns and theirs), with no atomics, and its twin
+`composite_grad_plain` adds the same terms in the same order, so the two
+agree bit for bit and every run gives the same bits. On the CPU autograd
+differentiates the twins. What the JAX
 package does not differentiate raises under grad: a view depth that
 requires grad, a slab's forms and the planes of the co-sited composite.
 """
@@ -438,6 +441,88 @@ def _launch_pixels(acc, scene_color, view_depth, params, grid_whd, y_map):
 # --------------------------------------------------------------------------
 
 FORMS = ("cells", "pixels")
+# K14's launch (csrc/composite_grad.cu): a block a tile of (columns, rows)
+# of froxel columns, a thread a (column, channel) of it, its footprint
+# staged K14_ROWS pixel rows at a time; the most dynamic shared memory an
+# H100 block may take
+K14_TILE = (8, 2)
+K14_THREADS = 4 * K14_TILE[0] * K14_TILE[1]
+K14_ROWS = 8
+K14_MAX_SHARED = 232448
+
+
+def k14_shared_bytes(d: int, fw: int) -> int:
+    """Mirror of k14_shared_bytes: a block's sums of d slices ([d][threads]
+    floats), z0 and f of a chunk's K14_ROWS x fw pixels, its four g_v
+    planes of (K14_ROWS fw | 1) floats, 8 B a footprint column."""
+    cap = K14_ROWS * fw
+    return 4 * d * K14_THREADS + 8 * cap + 16 * (cap | 1) + 8 * fw
+
+
+def _first_taps(ih: int, iw: int, grid_whd, form: str):
+    """K4's first xy tap of each image row, ky [IH], and column, kx [IW]
+    (int64, unclamped): pixel (i, j) reads rows clamp(ky[i] + a) and
+    columns clamp(kx[j] + b), a, b in (0, 1). Per pixel: pixel_taps' k0.
+    Cells: cell row i // py plus the window's first row of the pixel's
+    in-cell position (cell_taps) less 1, likewise the columns; raises if a
+    position's first row depends on its column or its first column on its
+    row."""
+    w, h, _ = grid_whd
+    if form == "pixels":
+        return (pixel_taps(ih, h)[0].astype(np.int64),
+                pixel_taps(iw, w)[0].astype(np.int64))
+    py, px = ih // h, iw // w
+    first, _ = cell_taps(cell_weights(py, px))
+    dy0, dx0 = first[:, 0].reshape(py, px), first[:, 1].reshape(py, px)
+    if (dy0 != dy0[:, :1]).any() or (dx0 != dx0[:1, :]).any():
+        raise ValueError("cell taps whose window is not one row and one "
+                         "column range per in-cell row and column")
+    rows, cols = np.arange(ih), np.arange(iw)
+    return (rows // py + dy0[rows % py, 0].astype(np.int64) - 1,
+            cols // px + dx0[0, cols % px].astype(np.int64) - 1)
+
+
+def axis_footprint(k: np.ndarray, n: int) -> np.ndarray:
+    """Along one axis of n froxels, with first taps k (monotone): [4, n]
+    int64, per froxel y the range [lo_0, hi_0) of the pixels whose tap 0,
+    clamp(k), reaches y and the range [lo_1, hi_1) of those whose tap 1,
+    clamp(k + 1), does (empty where lo = hi), zero-weight taps included."""
+    if (np.diff(k) < 0).any():
+        raise ValueError("K14 needs first taps that never decrease")
+    at = np.arange(n)
+    out = []
+    for t in (0, 1):
+        tap = np.clip(k + t, 0, n - 1)
+        out += [np.searchsorted(tap, at, "left"),
+                np.searchsorted(tap, at, "right")]
+    return np.stack(out)
+
+
+@functools.lru_cache(maxsize=16)
+def grad_footprint(ih: int, iw: int, grid_whd: Tuple[int, int, int],
+                   form: str) -> Tuple[np.ndarray, int]:
+    """K14's host table of K4's `form` at IH x IW on grid_whd: the rows'
+    axis_footprint [4, H] and the columns' [4, W] concatenated (int32),
+    and the widest footprint, in pixel columns, of a K14_TILE tile (the
+    union of its columns' ranges)."""
+    w, h, _ = grid_whd
+    ky, kx = _first_taps(ih, iw, grid_whd, form)
+    ry, rx = axis_footprint(ky, h), axis_footprint(kx, w)
+    tx = K14_TILE[0]
+    # a tile's columns x0..x1 read pixel columns min(lo)[x0]..max(hi)[x1]
+    width = lambda x0, x1: max(rx[1, x1], rx[3, x1]) - min(rx[0, x0],
+                                                           rx[2, x0])
+    fw = max(width(x, min(x + tx, w) - 1) for x in range(0, w, tx))
+    return np.concatenate([ry.ravel(), rx.ravel()]).astype(np.int32), int(fw)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_footprint(ih: int, iw: int, grid_whd: Tuple[int, int, int],
+                      form: str, device: torch.device) -> torch.Tensor:
+    """grad_footprint's table on the card, uploaded once per shape, form
+    and device."""
+    return cuda.upload(grad_footprint(ih, iw, grid_whd, form)[0], device,
+                       torch.int32)
 
 
 def _needs_grad(acc, scene_color, view_depth, refused=None) -> bool:
@@ -462,10 +547,64 @@ def _needs_grad(acc, scene_color, view_depth, refused=None) -> bool:
 def _grad_of_v(grad_img: torch.Tensor, scene_color: torch.Tensor
                ) -> torch.Tensor:
     """The gradient of the sampled planes (L_r, L_g, L_b, T) [4, IH, IW]
-    from the image's [IH, IW, 4]: g_rgb, and g_T = g_rgb . scene + g_a."""
-    g_t = (grad_img[..., :3] * scene_color).sum(-1) + grad_img[..., 3]
-    return torch.cat([grad_img[..., :3], g_t[..., None]],
-                     dim=-1).permute(2, 0, 1)
+    from the image's [IH, IW, 4]: g_rgb, and g_T = g_r S_r + g_g S_g +
+    g_b S_b + g_a, added left to right as K14 adds them."""
+    g, s = grad_img, scene_color
+    g_t = (g[..., 0] * s[..., 0] + g[..., 1] * s[..., 1]
+           + g[..., 2] * s[..., 2] + g[..., 3])
+    return torch.stack([g[..., 0], g[..., 1], g[..., 2], g_t])
+
+
+def _grad_taps(shape, grid_whd, form: str, dev):
+    """K4's xy taps of every pixel: rows yy [IH, 2, 1, 1] and columns xx
+    [1, 1, IW, 2] (long, clamped) of taps a and b, and the weights wt
+    [IH, 2, IW, 2] (i, a, j, b) K4 reads: the cell table's (cells) or
+    yw[a] * xw[b] (per pixel)."""
+    w, h, _ = grid_whd
+    ih, iw = shape
+    ky, kx = _first_taps(ih, iw, grid_whd, form)
+    t = torch.arange(2, device=dev)
+    yy = torch.clamp(torch.as_tensor(ky, device=dev)[:, None] + t, 0, h - 1)
+    xx = torch.clamp(torch.as_tensor(kx, device=dev)[:, None] + t, 0, w - 1)
+    if form == "cells":
+        py, px = ih // h, iw // w
+        _, wts = cell_taps(cell_weights(py, px))
+        cell = ((torch.arange(ih, device=dev) % py)[:, None] * px
+                + (torch.arange(iw, device=dev) % px)[None, :])
+        wt = torch.as_tensor(wts, device=dev)[cell].reshape(ih, iw, 2, 2)
+        wt = wt.permute(0, 2, 1, 3)
+    else:
+        yw = torch.as_tensor(pixel_taps(ih, h)[1], device=dev)
+        xw = torch.as_tensor(pixel_taps(iw, w)[1], device=dev)
+        wt = yw.T[:, :, None, None] * xw.T[None, None, :, :]
+    return yy[:, :, None, None], xx[None, None, :, :], wt
+
+
+def _sum_in_order(tgt: torch.Tensor, val: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """[C, n]: out[:, t] = the sum, from +0 and left to right, of
+    val[:, i] over the i with tgt[i] = t in the order of i. Rounds of index
+    operations whose targets are unique within a round (so deterministic on
+    the card too): round r adds every target's r-th term."""
+    out = torch.zeros((val.shape[0], n), dtype=val.dtype, device=val.device)
+    if tgt.numel() == 0:
+        return out
+    st, order = torch.sort(tgt, stable=True)
+    val = val[:, order]
+    new = torch.ones_like(st, dtype=torch.bool)
+    new[1:] = st[1:] != st[:-1]
+    starts = torch.nonzero(new).squeeze(1)
+    lens = torch.diff(starts, append=starts.new_tensor([st.numel()]))
+    lens, by_len = torch.sort(lens, descending=True, stable=True)
+    starts = starts[by_len]
+    # round r: the segments longer than r, a prefix of starts
+    per_len = np.bincount(lens.cpu().numpy())
+    active = np.cumsum(per_len[::-1])[::-1]
+    for r in range(len(per_len) - 1):
+        pos = starts[:int(active[r + 1])] + r
+        t = st[pos]
+        out.index_copy_(1, t, out.index_select(1, t) + val[:, pos])
+    return out
 
 
 def composite_grad_plain(grad_img: torch.Tensor, scene_color: torch.Tensor,
@@ -474,26 +613,28 @@ def composite_grad_plain(grad_img: torch.Tensor, scene_color: torch.Tensor,
                          form: str = "cells") -> torch.Tensor:
     """Twin of K14: the accumulation's gradient [4, D, H, W] from the
     image's grad_img [IH, IW, 4], through K4's `form` ("cells" or
-    "pixels") on the whole grid. Each xy tap of K4's order scatters
-    (g (1 - f)) w to z0 and (g f) w to z1, g the planes' gradient (g_rgb,
-    g_rgb . scene + g_a), by index_add_ into one zeroed volume."""
+    "pixels") on the whole grid. Each xy tap of K4's with a non-zero weight
+    w adds (g (1 - f)) w to slice z0 and (g f) w to z1, g the planes'
+    gradient (g_rgb, g_rgb . scene + g_a); each froxel sums its terms from
+    +0 in K14's order (csrc/composite_grad.cu): pixel rows in order, a
+    row's taps a in order, then pixel columns in order, a column's taps b
+    in order, z0's term before z1's."""
     if form not in FORMS:
         raise ValueError(f"composite form {form!r}: one of {FORMS}")
     w, h, d = grid_whd
-    dev = grad_img.device
-    shape = tuple(view_depth.shape)
     z0, z1, f = _z_taps(params, view_depth, d)
     gv = _grad_of_v(grad_img, scene_color)
     g0, g1 = gv * (1.0 - f), gv * f
-    taps = _cell_taps_plain(shape, grid_whd, cell_weights(
-        shape[0] // h, shape[1] // w), h, 0, dev) if form == "cells" \
-        else _pixel_taps_plain(shape, grid_whd, None, dev)
-    out = torch.zeros((4, d * h * w), dtype=torch.float32, device=dev)
-    for yy, xx, wt in taps:
-        for z, g in ((z0, g0), (z1, g1)):
-            out.index_add_(1, ((z * h + yy) * w + xx).reshape(-1),
-                           (g * wt).reshape(4, -1))
-    return out.reshape(4, d, h, w)
+    yy, xx, wt = _grad_taps(tuple(view_depth.shape), tuple(grid_whd), form,
+                            grad_img.device)
+    col = yy * w + xx                                      # [IH, 2, IW, 2]
+    at = lambda v: v[..., :, None, :, None]           # (i, j) -> (i, a, j, b)
+    tgt = torch.stack([at(z0) * (h * w) + col, at(z1) * (h * w) + col],
+                      dim=-1)
+    val = torch.stack([at(g0) * wt, at(g1) * wt], dim=-1)
+    keep = (wt != 0.0)[..., None].expand(tgt.shape)
+    return _sum_in_order(tgt[keep], val[:, keep],
+                         d * h * w).reshape(4, d, h, w)
 
 
 def _k4(form, acc, scene_color, view_depth, params, grid_whd):
@@ -510,27 +651,36 @@ def _k4(form, acc, scene_color, view_depth, params, grid_whd):
 
 
 def _k14(form, grad_img, scene_color, view_depth, params, grid_whd):
-    """K14's launch in `form` into a zeroed gradient volume."""
-    cuda.check_cuda(grad_img, scene_color, view_depth)
-    w, h, d = grid_whd
+    """K14's launch in `form`: it writes every element of the gradient
+    volume. Raises NotImplementedError where a block's footprint and sums
+    would pass the shared memory a block may take."""
+    grid = tuple(int(v) for v in grid_whd)
+    w, h, d = grid
     ih, iw = view_depth.shape
     dev = grad_img.device
+    fw = grad_footprint(ih, iw, grid, form)[1]
+    smem = k14_shared_bytes(d, fw)
+    if smem > K14_MAX_SHARED:
+        raise NotImplementedError(
+            f"K14 at {iw}x{ih} on {grid}: a block's footprints {fw} pixels "
+            f"wide and {d} slices take {smem} B of shared memory, past the "
+            f"{K14_MAX_SHARED} B a block may take")
+    cuda.check_cuda(grad_img, scene_color, view_depth)
+    if grad_img.data_ptr() % 16:        # K14 reads a pixel's 4 floats at once
+        grad_img = grad_img.clone()
+    ranges = _device_footprint(ih, iw, grid, form, dev)
     fp = froxel.depth_params(params).to(dev)
-    out = torch.zeros((4, d, h, w), dtype=torch.float32, device=dev)
     if form == "cells":
         w9 = cell_weights(ih // h, iw // w)
-        first, wts = _device_cell_taps(w9.tobytes(), w9.shape[1], dev)
-        cuda.launch("composite_grad", cuda.ptr(grad_img),
-                    cuda.ptr(scene_color), cuda.ptr(view_depth),
-                    cuda.ptr(first), cuda.ptr(wts), cuda.ptr(fp), w, h, d,
-                    ih, iw, cuda.ptr(out))
+        _, wa = _device_cell_taps(w9.tobytes(), w9.shape[1], dev)
+        wb = wa                         # unused by the cells form
     else:
-        yk, yw, xk, xw = _device_taps(ih, iw, (h, ih, 0), w, dev)
-        cuda.launch("composite_grad", cuda.ptr(grad_img),
-                    cuda.ptr(scene_color), cuda.ptr(view_depth),
-                    cuda.ptr(yk), cuda.ptr(yw), cuda.ptr(xk), cuda.ptr(xw),
-                    cuda.ptr(fp), w, h, d, ih, iw, cuda.ptr(out),
-                    entry="vr_composite_grad_pixels")
+        _, wa, _, wb = _device_taps(ih, iw, (h, ih, 0), w, dev)
+    out = torch.empty((4, d, h, w), dtype=torch.float32, device=dev)
+    cuda.launch("composite_grad", cuda.ptr(grad_img), cuda.ptr(scene_color),
+                cuda.ptr(view_depth), cuda.ptr(ranges), cuda.ptr(wa),
+                cuda.ptr(wb), cuda.ptr(fp), w, h, d, ih, iw, fw,
+                int(form == "cells"), cuda.ptr(out))
     return out
 
 
