@@ -89,6 +89,17 @@ entry point a user calls, and the port's demo entry, and:
                          K7
        no_media          FULL_CONFIG without media, 2 frames: zero material
                          volumes, K5 K9 K6 (baked x planes) K3 K4
+     on benchmark_scene with 9 suns and 9 procedural noise media
+     (many_suns_scene), past the fixed forms' 4 suns and 4 fBm channels,
+     every launch of K1, K2, K5, K6 and K7 checked to take its general form
+     (and every other path's its fixed form: check_forms):
+       many_suns         FULL_CONFIG, 4 frames: K1 (9 fBm channels) K2 K3 K4
+       many_suns_staged  frame_fused=False, 2 frames: K5 K1 K6 K3 K4
+       many_suns_no_shadow_blend  staged, temporal_blend_shadow=False, 1
+                         frame: K7 K1 K6 K3 K4
+       many_suns_map_dir shadow_mode="map_dir", its 9 suns' maps baked once,
+                         2 frames: K12 (9 suns, one launch) K10 (the 9
+                         channels in 3 launches) K1 K6 K3 K4
      on demo_scene (every sun ray marches the terrain) and "fractional"
      (demo_scene with its first three boxes at shadow opacity 0.5, built
      with Geometry.create's 4-tuples):
@@ -166,7 +177,9 @@ entry point a user calls, and the port's demo entry, and:
   5. holds each kernel against its plain-torch twin on the inputs of a real
      frame, with the tolerances stated in CHECKS (K12 at low and at full
      rate on map_dir's frame 4, and on its tables with a second sun, each
-     sun of that one launch = the one-sun launch bit for bit; K13 on the SSR inputs of post_showcase's
+     sun of that one launch = the one-sun launch bit for bit, and on
+     many_suns_map_dir's frame 2, its 9 suns in one launch; K13 on the
+     SSR inputs of post_showcase's
      last frame, and its launch geometry; on the same inputs K13's RECORD
      instance (SsrMarchFn's forward: its outputs = the no-grad instance's
      bit for bit, its hit record = the twin's) and K15, the march's
@@ -199,19 +212,26 @@ entry point a user calls, and the port's demo entry, and:
      K10 gives K3's and K5 then K6 give K2's history and scatter planes (with
      the radiance bake, rays and the baked visibility), bit for bit, and
      that K2's, K5's, K6's, K7's, K10's and K11's blocks, K2's, K5's, K10's
-     and K11's shared memory, K8's tile, chunk, threads and shared memory,
+     and K11's shared memory (and the general forms' of K2, K5 and K7 at
+     5 to 1000 suns), K8's tile, chunk, threads and shared memory,
      K12's tile and shared memory at 1-4 cascades, and K1's and K9's
      launch (blocks, samples and light groups a block, passes of lights,
-     shared memory) and K13's tile, shared memory and unrolled taps are
-     what the wrappers reckon; holds K1 and K9 on a
-     scene with 40 local lights (two passes of K1's lights; ten of K9's a
-     light group); logs each hold's largest
+     shared memory, K1's also past 4 fBm channels) and K13's tile, shared
+     memory and unrolled taps are what the wrappers reckon; holds K1 and
+     K9 on a scene with 40 local lights (two passes of K1's lights; ten of
+     K9's a light group); holds the general forms on many_suns' frame 4
+     cut to (suns, fBm channels) (4, 4), (4, 5), (5, 5) and (9, 9)
+     (many_suns_holds: K1, K2 in its three local sources, each = K5 then
+     K6 bit for bit, K5, K6 in its six modes, K7, K10's weight mode on the
+     suns' channels), checking which form each launch took (the fixed
+     ones at 4 and 4), and times them at (9, 9); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
      the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
      map_dir, map, fused_exact, fused_vis, uhd_exact, uhd, demo, XLA
-     scatter (and that scatter alone), texture, sunless and media-less
-     paths (and the texture's plain noise bake and material volumes) and,
+     scatter (and that scatter alone), texture, sunless, media-less and
+     many-sun paths (and the texture's plain noise bake and material
+     volumes) and,
      with a fixed camera and G-buffer, frame +
      post and the post chain alone of post_bench and post_showcase (CUDA
      events and host wall, profiler windows), the shadow-map bake,
@@ -511,7 +531,22 @@ SCENE_PATHS = {
     "no_media": ("no_media", {}, 2, ("shadow_blend", "bake_visibility",
                                      "scatter", "integrate_blend",
                                      "composite")),
+    # benchmark_scene with 9 suns and 9 procedural noise media
+    # (many_suns_scene): past the fixed forms' 4 suns and 4 fBm channels,
+    # K1, K2, K5, K6 and K7 launch their general forms (check_forms), K12
+    # takes the 9 suns in one launch and K10 blends their 9 shadow
+    # channels in 3 launches of up to 4
+    "many_suns": ("many", {}, 4, FUSED_KERNELS),
+    "many_suns_staged": ("many", STAGED, 2, STAGED_KERNELS),
+    "many_suns_no_shadow_blend": ("many", dict(STAGED,
+                                               temporal_blend_shadow=False),
+                                  1, NO_SHADOW_BLEND_KERNELS),
+    "many_suns_map_dir": ("many", MAP_DIR, 2, (
+        "pcf_shadow", ("temporal_blend", 3), "bake_radiance", "scatter",
+        "integrate_blend", "composite")),
 }
+MANY_PATHS = ("many_suns", "many_suns_staged", "many_suns_no_shadow_blend",
+              "many_suns_map_dir")
 # the paths of the plain XLA scatter, whose last frame's scatter is held
 # against the same function on the CPU
 XLA_SCATTER_PATHS = ("xla_scatter", "demo_xla", "demo_noise",
@@ -631,6 +666,16 @@ SHARDMAP_JOIN_S = 300
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes, nops):
+    """The least time of a kernel's work, ms, and what sets it: its bytes
+    (each input read once, each output written once) at the HBM rate or its
+    operations at the fp32 rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * nops / FP32_FLOPS
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
 
 
 def cuda_time_ms(fn, n: int, spin: bool = False) -> float:
@@ -1033,6 +1078,301 @@ def step_times(label: str, fn, n: int) -> None:
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
     log(f"# {label}: {ev_ms:.3f} ms device-event mean, {wall_ms:.3f} ms host "
         f"wall mean over {n} warm calls")
+
+
+def many_suns_scene(scene, n_suns: int, n_noise: int):
+    """benchmark_scene `scene` with its sun and n_suns - 1 more, of distinct
+    directions, colours and intensities (every third unshadowed, some of
+    partial strength), and its media with n_noise - 1 additive procedural
+    noise media after them, of distinct seeds (8, 9, ...), absorptions,
+    scrolls and octaves (2 to 5: K1 bakes a channel of more than 4 octaves
+    as one item), each of phase g 0: additive media add their g, and the
+    sum must stay below 1 for the HG term to stay positive;
+    tests/test_torch_many_suns.py builds the same scene for the JAX
+    package. A scene of fewer suns or media is a prefix of one of more."""
+    from volumetricrenderer_tpu_torch.models.lights import DirectionalLights
+    from volumetricrenderer_tpu_torch.models.media import Medium
+
+    def forward(pitch_deg, yaw_deg):
+        p, y = math.radians(pitch_deg), math.radians(yaw_deg)
+        return (math.cos(p) * math.sin(y), -math.sin(p),
+                math.cos(p) * math.cos(y))
+
+    dev = scene.camera.position.device
+    sun = scene.dir_lights
+    extra = DirectionalLights.create(
+        direction=[forward(50.0 - 4.0 * i, -30.0 + 37.0 * i)
+                   for i in range(1, n_suns)],
+        color=[(0.9, 0.8 + 0.02 * i, 0.7) for i in range(1, n_suns)],
+        intensity=[1.5 / (1.0 + 0.3 * i) for i in range(1, n_suns)],
+        has_shadow=[i % 3 != 2 for i in range(1, n_suns)],
+        shadow_strength=[1.0 - 0.1 * (i % 4) for i in range(1, n_suns)],
+        device=dev)
+    suns = dataclasses.replace(sun, **{
+        f.name: torch.cat([getattr(sun, f.name), getattr(extra, f.name)])
+        for f in dataclasses.fields(sun)})
+    media = tuple(scene.media) + tuple(
+        Medium.create(scattering_color=(0.2, 0.25, 0.3),
+                      absorption=0.05 + 0.02 * j, phase_g=0.0,
+                      noise_mode="procedural",
+                      noise_scroll=(2.0 * j, 0.0, 1.0),
+                      noise_tiling=(0.02, 0.015, 0.02),
+                      noise_octaves=2 + j % 4, noise_period=4,
+                      noise_seed=7 + j, blend_type="additive", device=dev)
+        for j in range(1, n_noise))
+    return dataclasses.replace(scene, dir_lights=suns, media=media)
+
+
+def form_deltas(cuda, before) -> dict:
+    """source -> (fixed, general) launches of cuda.FORM_SOURCES since
+    `before` (their counts then)."""
+    return {src: tuple(a - b for a, b in zip(cuda.form_launches(src),
+                                             before[src]))
+            for src in cuda.FORM_SOURCES}
+
+
+def check_forms(name: str, before, launches, cuda) -> None:
+    """Path `name` launched the general forms of K1, K2, K5, K6 and K7
+    exactly where its scene has more suns or fBm channels than the fixed
+    forms keep (MANY_PATHS, 9 of each) and the fixed forms on every other
+    path: each source's launches split as (0, all) or (all, 0)."""
+    deltas = form_deltas(cuda, before)
+    for src, got in deltas.items():
+        n = launches[src]
+        want = (0, n) if name in MANY_PATHS else (n, 0)
+        if got != want:
+            raise AssertionError(f"path {name}: {src} launched (fixed, "
+                                 f"general) forms {got}, not {want}")
+    if name in MANY_PATHS:
+        log(f"# {name}: (fixed, general) launches "
+            f"{json.dumps({k: v for k, v in deltas.items() if any(v)})}")
+
+
+# (suns, fBm channels) of the general forms' holds on many_suns' frame 4:
+# (4, 4) the fixed forms everywhere; (4, 5) K1's general form and K2's and
+# K6's for the fBm channels alone (their per-light modes have none: fixed),
+# K5 and K7 fixed; (5, 5) and (9, 9) every general form. Timed at (9, 9).
+MANY_COUNTS = ((4, 4), (4, 5), (5, 5), (9, 9))
+# (kernel, mode) of a general form at (9, 9) -> the paths that launch it
+GENERAL_PATHS = {
+    ("bake_radiance", "general"): MANY_PATHS,
+    ("shadow_scatter", "general_radiance"): ("many_suns",),
+    ("shadow_scatter", "general_rays"): (),
+    ("shadow_scatter", "general_baked"): (),
+    ("shadow_blend", "general"): ("many_suns_staged",),
+    ("dir_shadow", "general"): ("many_suns_no_shadow_blend",),
+    ("scatter", "general_radiance_fused"): (
+        "many_suns_staged", "many_suns_no_shadow_blend",
+        "many_suns_map_dir"),
+    ("scatter", "general_radiance_planes"): (),
+    ("scatter", "general_rays_fused"): (),
+    ("scatter", "general_rays_planes"): (),
+    ("scatter", "general_baked_fused"): (),
+    ("scatter", "general_baked_planes"): (),
+    ("temporal_blend", "general_weight"): ("many_suns_map_dir",),
+}
+
+
+def many_suns_holds(renderers, runs, scene, cuda):
+    """The general forms against their twins on the inputs of many_suns'
+    frame 4 at each of MANY_COUNTS (the scene cut to that many suns and
+    noise media, the history to that many channels): K1; K2 with the
+    radiance bake, rays (fused_exact's tables) and K9's visibility
+    (fused_vis's), each = K5 then K6 bit for bit; K5; K6 in its six modes
+    (the three local sources x fused material or material volumes); K7;
+    K10's weight mode on the suns' channels (the history against K7's
+    volume). Checks at each count which form each launch took, and times
+    the general forms at (9, 9) beside their twins on the card and their
+    bounds (reckoned as main() reckons the fixed forms'). Returns
+    ({kernel: largest difference}, {(kernel, mode): row})."""
+    from volumetricrenderer_tpu_torch import pipeline
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import material as mtl
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    prev = runs["many_suns"][1][3]
+    errs, calls, key_errs = {}, {}, {}
+    worst = (-1.0,)  # K6's largest difference: (err, label, got, want, args)
+
+    def hold(name, got, want, label, mode="general"):
+        err = compare(name, got, want, label=label)
+        errs[name] = max(errs.get(name, 0.0), err)
+        if nd > 4:  # the general forms' own holds (every one at 5 and 9)
+            key_errs[(name, mode)] = max(key_errs.get((name, mode), 0.0),
+                                         err)
+
+    for nd, nn in MANY_COUNTS:
+        sc_c = many_suns_scene(scene, nd, nn)
+        tag = f"{nd} suns, {nn} fBm channels"
+        prev_sh = prev.prev_shadow[:nd].float().contiguous()
+        r_f = renderers["many_suns"]
+        t, params, w2v = r_f.frame_tables(prev, sc_c, 0.3)
+        xt, _, _ = renderers["fused_exact"].frame_tables(prev, sc_c, 0.3)
+        vt, _, _ = renderers["fused_vis"].frame_tables(prev, sc_c, 0.3)
+        if (t.n_dir, t.n_noise, xt.n_noise, vt.n_noise) != (nd, nn, 0, 0):
+            raise AssertionError(f"the {tag} tables: {t.n_dir} suns, "
+                                 f"{t.n_noise} fBm channels")
+        geo, scene_dev = r_f.frame_geometry(prev, sc_c, t, params, w2v)
+        mat = tuple(v.contiguous() for v in pipeline.write_material_volumes(
+            r_f.config, params, geo.view_to_world, geo.jitter, 0.3,
+            scene_dev.media))
+        torch.cuda.synchronize()
+        before = {src: cuda.form_launches(src) for src in cuda.FORM_SOURCES}
+        bake = ff.bake_radiance(t)
+        hold("bake_radiance", bake, ff.bake_radiance_plain(t), tag)
+        sources = {"radiance": (t, bake, None), "rays": (xt, None, None),
+                   "baked": (vt, None, vis.bake_visibility(vt))}
+        blended = {}
+        for mode, (tm, b, v) in sources.items():
+            got = ff.shadow_scatter(tm, prev_sh, b, v)
+            want = ff.shadow_scatter_plain(tm, prev_sh, b, v)
+            for g, w_, part in zip(got, want, ("history", "planes")):
+                hold("shadow_scatter", g, w_, f"{mode}, {part}, {tag}",
+                     f"general_{mode}")
+            blended[mode] = sb.dir_shadow_blend(tm, prev_sh)
+            same = torch.equal(got[0], blended[mode]) and torch.equal(
+                got[1], sca.scatter_local(tm, blended[mode], b, v))
+            log(f"# shadow_scatter, {mode}, {tag}: = shadow_blend then "
+                f"scatter bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"K2 ({mode}, {tag}) differs from K5 "
+                                     "then K6")
+            calls[("shadow_scatter", f"general_{mode}")] = (
+                lambda a=(tm, prev_sh, b, v): ff.shadow_scatter(*a),
+                lambda a=(tm, prev_sh, b, v): ff.shadow_scatter_plain(*a))
+        hold("shadow_blend", blended["radiance"],
+             sb.dir_shadow_blend_plain(t, prev_sh), tag)
+        for mode, (tm, b, v) in sources.items():
+            for form, m in (("fused", None), ("planes", mat)):
+                b_ = None if b is None else (b if m is None
+                                             else b[:3].contiguous())
+                a = (tm, blended[mode], b_, v, m)
+                got, want = sca.scatter_local(*a), sca.scatter_local_plain(*a)
+                label = f"{mode} x {form}, {tag}"
+                hold("scatter", got, want, label, f"general_{mode}_{form}")
+                err = float((got - want).abs().max())
+                if err > worst[0]:
+                    worst = (err, label, got, want, a)
+                del got, want
+                calls[("scatter", f"general_{mode}_{form}")] = (
+                    lambda a=a: sca.scatter_local(*a),
+                    lambda a=a: sca.scatter_local_plain(*a))
+        unblended = ds.dir_shadow(t)
+        hold("dir_shadow", unblended, ds.dir_shadow_plain(t), tag)
+        wa = (t.sbpar, prev_sh, unblended, t.grid_whd, t.h_glob, t.k,
+              "weight")
+        hold("temporal_blend", tmp.temporal_blend(*wa),
+             tmp.temporal_blend_plain(*wa), f"weight, {nd} channels",
+             "general_weight")
+        torch.cuda.synchronize()
+        deltas = form_deltas(cuda, before)
+        log(f"# general forms, {tag}: (fixed, general) launches "
+            f"{json.dumps(deltas)}")
+        for src, (fixed, gen) in deltas.items():
+            suns_only = src in ("shadow_blend", "dir_shadow")
+            if nd > 4:
+                ok = fixed == 0 and gen > 0
+            elif nn > 4 and not suns_only:
+                # K1 has no per-light mode; K2's and K6's have no fBm
+                # channels and keep the fixed form
+                ok = gen > 0 and (fixed == 0) == (src == "bake_radiance")
+            else:
+                ok = gen == 0 and fixed > 0
+            if not ok:
+                raise AssertionError(f"{tag}: {src} took (fixed, general) "
+                                     f"forms {(fixed, gen)}")
+    # an account of K6's largest difference: the twin's terms there and
+    # the nearest flip of one light's shadow ray (ROADMAP C8's class)
+    err, label, got, want, a = worst
+    diff = (got - want).abs()
+    at = tuple(int(i) for i in torch.unravel_index(diff.argmax(),
+                                                   diff.shape))
+    atol, rtol = CHECKS["scatter"][:2]
+    frac = float((diff > atol + rtol * want.abs()).float().mean())
+    log(scatter_terms(sca, vis, mtl, a, (err, label, at, frac,
+                                         float(got[at]) - float(want[at])))
+        + " (the general forms' holds; ROADMAP C8's any-hit flip class)")
+    del worst, got, want, diff
+    # time the general forms at (9, 9): the last count's inputs
+    calls[("bake_radiance", "general")] = (
+        lambda: ff.bake_radiance(t), lambda: ff.bake_radiance_plain(t))
+    calls[("shadow_blend", "general")] = (
+        lambda: sb.dir_shadow_blend(t, prev_sh),
+        lambda: sb.dir_shadow_blend_plain(t, prev_sh))
+    calls[("dir_shadow", "general")] = (lambda: ds.dir_shadow(t),
+                                        lambda: ds.dir_shadow_plain(t))
+    calls[("temporal_blend", "general_weight")] = (
+        lambda: tmp.temporal_blend(*wa), lambda: tmp.temporal_blend_plain(*wa))
+    # the work of each, counted as main() counts the fixed forms' (the
+    # noise media's Perlin by their octaves, 320 operations each)
+    w, h, d = t.grid_whd
+    n_fro = w * h * d
+    wl, hl, dl = t.low_dims
+    n_low = wl * hl * dl
+    n_lights = t.lights.shape[0]
+    n_media = len(sc_c.media)
+    perlin = sum(8 * 40 * st[1] for st in t.media_static if st[0])
+    ops_ray = 14 * t.n_planes + 22 * t.n_spheres + 30 * t.n_boxes
+    warp = lambda channels: 24 + 12 * channels
+    ops_reproj = 45
+    ops_shadow = ops_reproj + warp(nd) + nd * (30 + ops_ray)
+    sun = 40 * nd + 40
+    ops_scatter = (3 + nn) * 20 + 60 * n_media + sun
+    material = 60 * n_media + perlin
+    pairs = {"rays": int(xt.count.sum()) * h * w,
+             "baked": int(vt.count.sum()) * h * w}
+    per_pair = {"rays": 60 + ops_ray, "baked": 60 + 20}
+    low_in = {"rays": 0, "baked": 4 * n_lights * n_low}
+    work = {
+        ("bake_radiance", "general"): (
+            4 * (3 + nn) * n_low,
+            n_low * (60 + perlin)
+            + int(t.active.sum()) * hl * wl * (60 + ops_ray)),
+        ("shadow_scatter", "general_radiance"): (
+            4 * (2 * nd * n_fro + (3 + nn) * n_low + 4 * n_fro),
+            n_fro * (ops_shadow + ops_scatter)),
+        ("shadow_blend", "general"): (4 * 2 * nd * n_fro,
+                                      n_fro * ops_shadow),
+        ("dir_shadow", "general"): (4 * nd * n_fro,
+                                    n_fro * nd * (30 + ops_ray)),
+        ("scatter", "general_radiance_fused"): (
+            4 * (nd * n_fro + (3 + nn) * n_low + 4 * n_fro),
+            n_fro * ops_scatter),
+        ("scatter", "general_radiance_planes"): (
+            4 * (nd * n_fro + 3 * n_low + 4 * n_fro + 3 * n_fro),
+            n_fro * (3 * 20 + sun)),
+        ("temporal_blend", "general_weight"): (
+            4 * 3 * nd * n_fro, n_fro * (ops_reproj + warp(nd) + 3 * nd)),
+    }
+    for m in ("rays", "baked"):
+        work[("shadow_scatter", f"general_{m}")] = (
+            4 * (2 * nd * n_fro + 4 * n_fro) + low_in[m],
+            n_fro * (ops_shadow + material + sun)
+            + pairs[m] * per_pair[m])
+        work[("scatter", f"general_{m}_fused")] = (
+            4 * (nd * n_fro + 4 * n_fro) + low_in[m],
+            n_fro * (material + sun) + pairs[m] * per_pair[m])
+        work[("scatter", f"general_{m}_planes")] = (
+            4 * (nd * n_fro + 4 * n_fro + 3 * n_fro) + low_in[m],
+            n_fro * sun + pairs[m] * per_pair[m])
+    rows = {}
+    for key in GENERAL_PATHS:
+        fn, plain = calls[key]
+        slow = "rays" in key[1]
+        ms = kernel_time_ms(fn, 5 if slow else 20)
+        plain_ms = cuda_time_ms(plain, 1)
+        b_ms, b_by = bound(*work[key])
+        rows[key] = {"max_abs_err": key_errs[key], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+        log(f"# {key[0]}, {key[1]} (9 suns, 9 fBm channels): {ms:.4f} "
+            f"ms/call, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by} ({work[key][0] / 1e6:.1f} MB, "
+            f"{work[key][1] / 1e9:.3f} GFLOP)")
+    return errs, rows
 
 
 def two_suns(t, atlas):
@@ -2113,9 +2453,11 @@ def main() -> int:
         f"{mesh.geometry.box_min.shape[0]} boxes of which "
         f"{mesh.geometry.n_proxy_boxes} shadow proxies, "
         f"{int((mesh.geometry.box_opacity < 1.0).sum())} fractional")
+    # benchmark_scene with 9 suns and 9 procedural noise media
+    many = many_suns_scene(scene, 9, 9)
     scenes = {"demo": demo, "fractional": frac, "tex": tex_scene,
               "sunless": sunless, "no_media": no_media,
-              "demo_noise": demo_noise, "mesh": mesh}
+              "demo_noise": demo_noise, "mesh": mesh, "many": many}
     scene_key = {name: v[0] for name, v in {**DEMO_PATHS,
                                              **SCENE_PATHS}.items()}
     scene_of = lambda name: scenes[scene_key[name]] \
@@ -2127,6 +2469,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"# gbuffer without the sun: "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    t0 = time.perf_counter()
+    many_gbuf = renderer.render_scene_inputs(many)
+    torch.cuda.synchronize()
+    log(f"# gbuffer with 9 suns: {1e3 * (time.perf_counter() - t0):.1f} ms")
     demo_gbuf = {}
     for size, name in ((1080, "demo_full"), (720, "demo_production")):
         t0 = time.perf_counter()
@@ -2146,6 +2492,8 @@ def main() -> int:
             return demo_gbuf[renderers[name].config.image_height]
         if name == "sunless":
             return sunless_gbuf
+        if scene_key.get(name) == "many":
+            return many_gbuf
         return scene_color, view_depth
 
     done("the G-buffers and the raster phase")
@@ -2174,8 +2522,11 @@ def main() -> int:
     try:
         for name in PATHS:
             current["path"] = name
+            before = {src: cuda.form_launches(src)
+                      for src in cuda.FORM_SOURCES}
             runs[name] = drive(name, renderers[name], scene_of(name),
                                *gbuf(name), cuda, bakes[name])
+            check_forms(name, before, runs[name][2], cuda)
     finally:
         pipeline.write_scatter_xla = real_xla
     if sorted(xla_args) != sorted(XLA_SCATTER_PATHS):
@@ -2493,6 +2844,34 @@ def main() -> int:
     if tuple(blk[:2]) != ds.K7_TILE:
         raise AssertionError(f"K7's block: {tuple(blk[:2])} in the kernel, "
                              f"{ds.K7_TILE} in ops/dir_shadow")
+    # the general forms' dynamic shared memory (the suns' inverse
+    # directions; K2's also where 4 suns take it for 5 fBm channels)
+    gen_buf = (cuda.ctypes.c_int * 1)()
+    gen_p = cuda.ctypes.cast(gen_buf, cuda.ctypes.c_void_p)
+    for kw in (0, cfg.reproj_window, 25):
+        for nd_, nn_ in ((4, 5), (5, 0), (9, 9), (1000, 0)):
+            cuda.lib("shadow_scatter").vr_shadow_scatter_general_shared(
+                kw, nd_, gen_p)
+            if gen_buf[0] != ff.k2_shared_bytes(kw, nd_, nn_):
+                raise AssertionError(
+                    f"K2's general shared bytes at k={kw}, {nd_} suns: "
+                    f"{gen_buf[0]} in the kernel, "
+                    f"{ff.k2_shared_bytes(kw, nd_, nn_)} in ops/frame_fused")
+            if nd_ <= sca.MAX_DIR:
+                continue
+            cuda.lib("shadow_blend").vr_shadow_blend_general_shared(
+                kw, nd_, gen_p)
+            if gen_buf[0] != sb.k5_shared_bytes(kw, nd_):
+                raise AssertionError(
+                    f"K5's general shared bytes at k={kw}, {nd_} suns: "
+                    f"{gen_buf[0]} in the kernel, "
+                    f"{sb.k5_shared_bytes(kw, nd_)} in ops/shadow_blend")
+            cuda.lib("dir_shadow").vr_dir_shadow_general_shared(nd_, gen_p)
+            if gen_buf[0] != ds.k7_shared_bytes(nd_):
+                raise AssertionError(
+                    f"K7's general shared bytes at {nd_} suns: "
+                    f"{gen_buf[0]} in the kernel, "
+                    f"{ds.k7_shared_bytes(nd_)} in ops/dir_shadow")
     k8_geo = (cuda.ctypes.c_int * 5)()
     cuda.lib("integrate").vr_integrate_geometry(
         cuda.ctypes.cast(k8_geo, cuda.ctypes.c_void_p))
@@ -2507,7 +2886,8 @@ def main() -> int:
     k1_shapes = ((tables.lights.shape[0], tables.n_noise, tables.low_dims),
                  (1, 0, (80, 44, 32)), (16, 1, (60, 10, 32)),
                  (3, 2, (13, 5, 3)), (0, 1, (13, 5, 3)),
-                 (40, 1, (60, 34, 32)))
+                 (40, 1, (60, 34, 32)), (16, 9, (60, 34, 32)),
+                 (0, 5, (13, 5, 3)), (40, 300, (60, 34, 32)))
     for n_l, n_n, (wl_, hl_, dl_) in k1_shapes:
         cuda.lib("bake_radiance").vr_bake_radiance_geometry(
             n_l, n_n, wl_, hl_, dl_, cuda.ctypes.cast(geo,
@@ -2751,6 +3131,17 @@ def main() -> int:
     if not same:
         raise AssertionError("K12's two-sun launch differs from its one-sun "
                              "launches")
+    # K12 on many_suns_map_dir's frame 2: its 9 suns in one launch
+    md_r = renderers["many_suns_map_dir"]
+    pcf9 = md_r.pcf_tables(runs["many_suns_map_dir"][1][1], many,
+                           bakes["many_suns_map_dir"][0])
+    atlas9 = bakes["many_suns_map_dir"][0].atlas
+    k12_nine = pcf.pcf_shadow(pcf9, atlas9)
+    if k12_nine.shape[0] != 9:
+        raise AssertionError(f"K12 on 9 suns: {tuple(k12_nine.shape)}")
+    errs["pcf_shadow"] = max(errs["pcf_shadow"], compare(
+        "pcf_shadow", k12_nine, pcf.pcf_shadow_plain(pcf9, atlas9),
+        label="nine suns"))
     lit = float((k12_low == 1.0).float().mean())
     log(f"# pcf_shadow low-rate volume: min {float(k12_low.min()):.4f}, "
         f"fully lit share {lit:.3f}")
@@ -3322,6 +3713,12 @@ def main() -> int:
                                  "image")
     del refs, s_st
 
+    # the general forms at 4, 5 and 9 suns and fBm channels on many_suns'
+    # frame 4, and their times at 9
+    many_errs, many_rows = many_suns_holds(renderers, runs, scene, cuda)
+    for k_, v_ in many_errs.items():
+        errs[k_] = max(errs.get(k_, 0.0), v_)
+
     done("the holds")
     # the raster phase's CPU side, joined before the timings
     check_cpu_gbuffer(*gbuf_proc, mesh_gbuf[720], mesh,
@@ -3393,7 +3790,10 @@ def main() -> int:
     # tex_staged (the texture at every froxel) and tex_lowres (at 1/4^3 of
     # them, tent-upsampled)
     for name, n_f in (("tex", 20), ("tex_staged", 10), ("tex_lowres", 10),
-                      ("demo_noise", 5), ("sunless", 10), ("no_media", 10)):
+                      ("demo_noise", 5), ("sunless", 10), ("no_media", 10),
+                      ("many_suns", 20), ("many_suns_staged", 10),
+                      ("many_suns_no_shadow_blend", 10),
+                      ("many_suns_map_dir", 10)):
         one, _ = frame_times(name, renderers[name], scene_of(name),
                              *gbuf(name), runs[name][1][-1], n_f,
                              bakes[name])
@@ -4060,12 +4460,6 @@ def main() -> int:
         f"sample, light) pairs in its visibility bake, {k2_pairs} on K2's "
         f"frames")
 
-    def bound(nbytes, nops):
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * nops / FP32_FLOPS
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-            else "operations"
-
     # the renderer's pass ranges with no profiler recording: host time of a
     # utils/profiling.scope (a no-op then) and of the record_function it
     # opens under a profiler
@@ -4292,6 +4686,18 @@ def main() -> int:
                 f"plain {rec_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by}, launches {entry['record']['launches']} "
                 "(train_ssr)")
+        # the general forms at 9 suns and 9 fBm channels (many_suns_holds)
+        for (k, m), row in many_rows.items():
+            if k != name:
+                continue
+            entry[m] = dict(row, launches=sum(
+                launches[name].get(p, 0) for p in GENERAL_PATHS[(k, m)]),
+                paths=list(GENERAL_PATHS[(k, m)]))
+            paths = ", ".join(GENERAL_PATHS[(k, m)]) or "held and timed only"
+            log(f"# {name}, {m}: {row['ms']:.4f} ms/call, plain "
+                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"by {row['bound_by']}, launches {entry[m]['launches']} "
+                f"({paths})")
         if name == "temporal_blend":
             b_ms, b_by = bound(*weight_work)
             entry["weight"] = {

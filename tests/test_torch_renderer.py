@@ -127,9 +127,10 @@ def test_renderer_packs_from_one_host_copy_of_the_scene():
 
 
 def _unported_scene(kind):
-    """benchmark_scene, or with one part the port does not render (five
-    suns, five fBm media baked at the low rate) or does not render in an
-    H-sharded slab (a texture-noise medium, no media, no sun)."""
+    """benchmark_scene, or with one part the port refused before it took
+    any number of suns and noise media (five suns, five fBm media baked at
+    the low rate) or in an H-sharded slab before the slab forms were ported
+    (a texture-noise medium, no media, no sun)."""
     scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
                                noise_mode="procedural", device="cpu")
     if kind == "no_sun":
@@ -169,22 +170,38 @@ def _unported_scene(kind):
                                 dict(scene="five_noise_media")])
 def test_unported_configs_raise(kw):
     """What the port still refuses, on FULL_CONFIG, on the whole grid and
-    in an H-sharded slab: more than four suns or four fBm media baked at
-    the low rate, a config value it does not know, and in a slab the gather
-    reprojection (the JAX package refuses it there too). Mesh scenes and
-    proxy boxes render since the mesh environment was ported
-    (test_mesh_configs_render); the shadow-map modes, the XLA scatter,
-    texture media and scenes without a sun or without media render in
-    slabs since the slab forms were ported (tests/test_torch_slab.py)."""
+    in an H-sharded slab: a config value it does not know, and in a slab
+    the gather reprojection (the JAX package refuses it there too). The
+    cases of five suns or five fBm media baked at the low rate, refused
+    until the kernels took any number of them, render now, on the whole
+    grid and in a slab of the whole grid (which is the whole grid's frame
+    bit for bit), with as many shadow channels (tests/test_torch_many_suns.py
+    holds such frames against JAX). Mesh scenes and proxy boxes render
+    since the mesh environment was ported (test_mesh_configs_render); the
+    shadow-map modes, the XLA scatter, texture media and scenes without a
+    sun or without media render in slabs since the slab forms were ported
+    (tests/test_torch_slab.py)."""
     kw = dict(kw)
-    scene = _unported_scene(kw.pop("scene", None))
+    kind = kw.pop("scene", None)
+    scene = _unported_scene(kind)
     slab = Slab(0.0, 0, (16, 15, 16), 120) if kw.pop("slab", False) \
         else None
     r = vt.VolumetricRenderer(
         dataclasses.replace(vt.FULL_CONFIG, **{**SMALL, **kw}),
         device="cpu")
-    with pytest.raises(NotImplementedError):
-        r.render_frame(r.init_state(1), scene, 0.0, slab=slab)
+    nd = scene.dir_lights.count
+    if kind not in ("five_suns", "five_noise_media"):
+        with pytest.raises(NotImplementedError):
+            r.render_frame(r.init_state(nd), scene, 0.0, slab=slab)
+        return
+    sc, vd = r.render_scene_inputs(scene)
+    img, aux, st = r.render_frame(r.init_state(nd), scene, 0.0, sc, vd,
+                                  slab=slab)
+    assert st.prev_shadow.shape == (nd, 16, 15, 16)
+    assert bool(torch.isfinite(img).all())
+    if slab is not None:
+        whole, _, _ = r.render_frame(r.init_state(nd), scene, 0.0, sc, vd)
+        assert torch.equal(img, whole)
 
 
 def _mesh_scene(kind):

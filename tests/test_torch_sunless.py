@@ -14,10 +14,11 @@ what the port still refuses, against the JAX package on the CPU:
     octave (tests/test_torch_xla_scatter.py's cut), at a 16x11x12 grid and
     128x90 pixels, on JAX's G-buffer and shadow maps, JAX run op by op
     (jax.disable_jit) as that file runs it, 2 frames;
-  * check_supported: 5 suns and 5 noise media baked at the low rate raise
-    NotImplementedError by name, on the whole grid and in an H-sharded
-    slab, as does the gather reprojection in a slab; texture media and
-    scenes without a sun or media render in a slab.
+  * what check_supported refused: 5 suns and 5 noise media baked at the
+    low rate render on the whole grid; five texture media, and five suns
+    without media, render in H-sharded slabs, their interior rows the
+    port's whole-grid frame; the gather reprojection in a slab still
+    raises NotImplementedError by name.
 
 Tolerance tests/torch_tolerance.assert_boundary_close, a mean absolute
 image error of at most 1e-5 of the image maximum, and for demo_scene's sun
@@ -46,6 +47,7 @@ import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.convert import (scene_from_numpy,
                                                   shadow_data_from_numpy)
 from volumetricrenderer_tpu_torch.ops.noise import perlin_texture_3d
+from volumetricrenderer_tpu_torch.parallel import shard_render as t_sr
 from volumetricrenderer_tpu_torch.parallel.shard_render import Slab
 from volumetricrenderer_tpu_torch.state import \
     packed_accumulation as t_packed
@@ -213,7 +215,7 @@ def test_demo_noise_frames_match_jax():
 
 
 # --------------------------------------------------------------------------
-# what the port still refuses
+# what the port still refuses, and the scenes it refused before
 # --------------------------------------------------------------------------
 
 def _bench(**kw):
@@ -228,25 +230,45 @@ def _five_suns(scene):
                for f in dataclasses.fields(dl)}))
 
 
-def _refused(name):
-    """(scene, config changes, the scene it is made from where a slab
-    renders that one): a slab case is a scene that renders in a slab since
-    the slab forms were ported, with one part that a slab still refuses."""
+# The slab cases' grid: 24 froxel rows (whole rows of the radiance bake's
+# low grid at ss = 4) at 4 image rows a froxel row, in 3 slabs of 8 rows
+# with a halo of 5 rows
+SLAB = dict(volume_width=16, volume_height=24, volume_depth=16,
+            image_width=128, image_height=96)
+SLAB_N, SLAB_HALO = 3, 5
+
+
+def _unported(name):
+    """(scene, config changes, where it renders): "slab" for a scene that
+    renders in slabs since the slab forms were ported, "grid" for one that
+    renders on the whole grid since any number of suns and noise media
+    does, None for what the port still refuses."""
     scene = _bench(noise_mode="procedural")
     if name == "texture_slab":
         tex = _bench(noise_tex=perlin_texture_3d(8))
-        return dataclasses.replace(tex, media=(tex.media[0],) * 5), {}, tex
+        return dataclasses.replace(tex, media=(tex.media[0],) * 5), {}, \
+            "slab"
     if name == "sunless_slab":
         sunless = dataclasses.replace(scene,
                                       dir_lights=cut(scene.dir_lights))
-        return sunless, dict(reproj_impl="gather"), sunless
+        return sunless, dict(reproj_impl="gather"), None
     if name == "no_media_slab":
         no_media = dataclasses.replace(scene, media=())
-        return _five_suns(no_media), {}, no_media
+        return _five_suns(no_media), {}, "slab"
     if name == "five_suns":
-        return _five_suns(scene), {}, None
+        return _five_suns(scene), {}, "grid"
     fog = scene.media[0]
-    return dataclasses.replace(scene, media=(fog,) * 5), {}, None
+    return dataclasses.replace(scene, media=(fog,) * 5), {}, "grid"
+
+
+def _interior_rows(cfg):
+    """The image rows whose composite reads froxel rows 3 .. H - 4 alone:
+    there a slab's frame is the whole grid's (at the grid's top and bottom
+    a slab's low-rate bake clamps against its own halo rows, the JAX
+    package's slab semantics)."""
+    h, ih = cfg.volume_height, cfg.image_height
+    return [r for r in range(ih)
+            if 3 <= (r + 0.5) * h / ih - 0.5 <= h - 4]
 
 
 @pytest.mark.parametrize("name, match", [
@@ -260,27 +282,64 @@ def _refused(name):
         "no_media_slab-without media or without a sun in a slab",
         "five_suns-5 directional lights", "five_noise_media-5 noise media"])
 def test_unported_scenes_raise(name, match):
-    """What the port still refuses: five suns, five noise media baked at
-    the low rate, and in a slab what the JAX package refuses there (the
-    gather reprojection). Texture media and scenes without a sun or media
-    render in slabs since the slab forms were ported (their ids name the
-    refusals they held before): each slab case's scene renders in a slab
-    once its refused part is taken away."""
-    scene, kw, renders = _refused(name)
-    r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG,
-                                                  **SMALL, **kw),
-                              device="cpu")
-    slab = Slab(0.0, 0, (16, 15, 16), 120) if renders is not None else None
-    with pytest.raises(NotImplementedError, match=match):
-        r.check_supported(scene, slab)
-    with pytest.raises(NotImplementedError, match=match):
-        r.render_frame(r.init_state(1), scene, 0.0, slab=slab)
+    """What the port refused, and what it still refuses: in a slab what the
+    JAX package refuses there (the gather reprojection) raises
+    NotImplementedError by name. The ids name the refusals each case held
+    before: five suns and five noise media baked at the low rate (the
+    fused frame's tables: five fBm channels) render on the whole grid since
+    the kernels take any number of suns and noise media, with as many
+    shadow channels and noise channels; five texture media, and five suns
+    without media, render in slabs (make_multislab_render, 3 slabs, 2
+    frames with a moving camera), their interior rows the port's
+    whole-grid frame at rtol 1e-4 / atol 1e-5 (tests/test_torch_slab.py's
+    class for slabs against the whole grid) and every row within 2e-2 of
+    the image maximum (the slab edge's class). `match` is the message of
+    the refusal each case held (the one that stays raises it)."""
+    scene, kw, renders = _unported(name)
     if renders is None:
+        r = vt.VolumetricRenderer(dataclasses.replace(
+            vt.FULL_CONFIG, **SMALL, **kw), device="cpu")
+        slab = Slab(0.0, 0, (16, 15, 16), 120)
+        with pytest.raises(NotImplementedError, match=match):
+            r.check_supported(scene, slab)
+        with pytest.raises(NotImplementedError, match=match):
+            r.render_frame(r.init_state(1), scene, 0.0, slab=slab)
         return
-    # the scene it is made from renders in a slab (of the whole grid)
-    r = vt.VolumetricRenderer(dataclasses.replace(vt.FULL_CONFIG, **SMALL),
-                              device="cpu")
-    sc, vd = r.render_scene_inputs(renders)
-    img, _, _ = r.render_frame(r.init_state(1), renders, 0.0, sc, vd,
-                               slab=slab)
-    assert bool(torch.isfinite(img).all())
+    nd = scene.dir_lights.count
+    cfg = dataclasses.replace(vt.FULL_CONFIG,
+                              **(SLAB if renders == "slab" else SMALL), **kw)
+    r = vt.VolumetricRenderer(cfg, device="cpu")
+    r.check_supported(scene)
+    scenes = [dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, position=scene.camera.position
+        + torch.tensor([0.1, 0.05, 0.3]) * i)) for i in range(2)]
+    st = r.init_state(nd)
+    if renders == "grid":
+        for i, s in enumerate(scenes):
+            img, aux, st = r.render_frame(st, s, 0.1 * i)
+        t, _, _ = r.frame_tables(st, scene, 0.0)
+        assert r.fuses_frame(scene) and t.local_source == "radiance"
+        assert (t.n_dir, t.n_noise) == ((5, 1) if name == "five_suns"
+                                        else (1, 5))
+        assert aux["shadow"].shape == st.prev_shadow.shape == (nd, 16, 15,
+                                                               16)
+        assert bool(torch.isfinite(img).all())
+        assert float(img[..., :3].std()) > 1e-3
+        return
+    r.check_supported(scene, Slab(0.0, 0, (16, 24, 16), 96))
+    fn = t_sr.make_multislab_render(r, SLAB_N, SLAB_HALO)
+    carry = fn.init_carry(nd)
+    rows = _interior_rows(cfg)
+    assert len(rows) > cfg.image_height // 2
+    for i, s in enumerate(scenes):
+        sc, vd = r.render_scene_inputs(s)
+        want, _, st = r.render_frame(st, s, 0.1 * i, sc, vd)
+        bands, carry = fn(carry, s, 0.1 * i, list(sc.chunk(SLAB_N)),
+                          list(vd.chunk(SLAB_N)))
+        got = torch.cat(bands)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got[rows], want[rows], rtol=1e-4,
+                                   atol=1e-5, msg=f"{name} frame {i}")
+        assert float((got - want).abs().max()) \
+            <= 2e-2 * float(want.abs().max())
+    assert float(want[..., :3].std()) > 1e-3

@@ -88,10 +88,10 @@ def record_paths(chip_smoke, ff, renderer_mod, pipeline, shr,
         return (f"{label['v']} y0 {int(float(t.spar[0, 23]))} phase "
                 f"{int(float(t.spar[0, 24]))}")
 
-    def rec_k1(t):
+    def rec_k1(t, noise=None):
         if "bake_radiance" in label["kernels"]:
             records[("bake_radiance", slab_label(t))] = (t, None)
-        return real_k1(t)
+        return real_k1(t, noise)
 
     def rec_k5(t, prev_shadow):
         if "shadow_blend" in label["kernels"]:

@@ -52,6 +52,13 @@
 // tests of the rays leave before a division or a root whose answer is known
 // (common.cuh any_hit's EARLY). All tables stay in device memory, read
 // through the read-only cache; lights are looped at run time.
+//
+// The block stages its fBm items in static shared arrays of VR_MAX_NOISE
+// channels. More channels take the GEN instantiation of the light-group
+// kernel (one light group never has more than one item): the same items in
+// dynamic shared memory after the octaves (k1_shared grows by
+// K1_OCT + 2 ints a channel), set above 48 KB by the launcher where the
+// channels need it. Every value is the fixed form's.
 #include "common.cuh"
 
 // A block's warps and their launch bounds (blocks an SM), the lights of a
@@ -80,15 +87,23 @@ __host__ __device__ __forceinline__ int k1_groups(int n_lights, int n_noise) {
   return g;
 }
 
+// Whether the launch takes the general form: more fBm channels than the
+// fixed form's static arrays hold.
+__host__ __device__ __forceinline__ bool k1_general(int n_noise) {
+  return n_noise > VR_MAX_NOISE;
+}
+
 // Dynamic shared memory, floats: the terms of each of the block's samples,
 // then the pairs of one pass (a light of the pass and a sample each), then
-// the octaves of each fBm channel; none with one light group, whose threads
-// keep their samples' terms and sums.
+// the octaves of each fBm channel; in the general form then the fBm items
+// (K1_OCT a channel), each channel's medium and its octaves, as ints; none
+// with one light group, whose threads keep their samples' terms and sums.
 __host__ __device__ __forceinline__ int k1_shared(int n_lights, int n_noise,
                                                   int groups, int samples) {
   if (groups == 1) return 0;
   return (K1_TERMS + (n_lights < K1_PASS ? n_lights : K1_PASS)
-          + n_noise * K1_OCT) * samples;
+          + n_noise * K1_OCT) * samples
+         + (k1_general(n_noise) ? n_noise * (K1_OCT + 2) : 0);
 }
 
 // The medium of fBm channel ni: the ni-th noise-bearing one.
@@ -162,8 +177,9 @@ __device__ __forceinline__ float k1_pair(const VrTables& T, const float* ql,
 }
 
 // SPREAD: light groups > 1; else the thread-per-sample loop, a kernel of
-// its own so that it keeps the registers it needs (the parent's 45 and 67)
-template <bool ARMS, bool SPREAD>
+// its own so that it keeps the registers it needs (the parent's 45 and 67).
+// GEN (SPREAD only): the fBm items in dynamic shared memory.
+template <bool ARMS, bool SPREAD, bool GEN = false>
 __global__ void __launch_bounds__(32 * K1_WARPS,
                                   !SPREAD ? 1
                                   : ARMS  ? K1_MIN_BLOCKS_ARMS
@@ -220,8 +236,19 @@ bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
   // channel of more than K1_OCT octaves, with each channel's medium and
   // octaves.
   __shared__ float colour_s[3][K1_PASS];
-  __shared__ int fbm_item[VR_MAX_NOISE * K1_OCT], fbm_mi[VR_MAX_NOISE];
-  __shared__ int fbm_oct[VR_MAX_NOISE], fbm_n;
+  __shared__ int fbm_item_s[GEN ? 1 : VR_MAX_NOISE * K1_OCT];
+  __shared__ int fbm_mi_s[GEN ? 1 : VR_MAX_NOISE];
+  __shared__ int fbm_oct_s[GEN ? 1 : VR_MAX_NOISE], fbm_n;
+  int* fbm_item = fbm_item_s;
+  int* fbm_mi = fbm_mi_s;
+  int* fbm_oct = fbm_oct_s;
+  if constexpr (GEN) {  // after the octaves (k1_shared)
+    fbm_item = reinterpret_cast<int*>(
+        pairs + ((T.n_lights < K1_PASS ? T.n_lights : K1_PASS)
+                 + T.n_noise * K1_OCT) * ns);
+    fbm_mi = fbm_item + T.n_noise * K1_OCT;
+    fbm_oct = fbm_mi + T.n_noise;
+  }
   const bool stager = warp == K1_WARPS - 1;
   if (stager && lane == 0) {
     int u = 0;
@@ -345,6 +372,24 @@ extern "C" int vr_bake_radiance_geometry(int n_lights, int n_noise, int wl,
   return 0;
 }
 
+// Launches of the fixed (0) and general (1) forms since the library was
+// loaded (vr_bake_radiance_forms).
+static long g_forms[2];
+
+template <bool ARMS>
+static int launch_general(const VrTables* T, const int* geo, int runs_x,
+                          int runs_y, float* out, cudaStream_t stream) {
+  if (geo[5] > 48 * 1024) {  // many fBm channels
+    const cudaError_t err = cudaFuncSetAttribute(
+        bake_radiance_kernel<ARMS, true, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, geo[5]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bake_radiance_kernel<ARMS, true, true><<<geo[0], geo[1], geo[5], stream>>>(
+      *T, out, geo[3], runs_x, runs_y);
+  return 0;
+}
+
 extern "C" int vr_bake_radiance(const VrTables* T, float* out,
                                 cudaStream_t stream) {
   int geo[8];
@@ -353,6 +398,15 @@ extern "C" int vr_bake_radiance(const VrTables* T, float* out,
   const int runs_x = (T->wl + geo[6] - 1) / geo[6];
   const int runs_y = (T->hl + geo[7] - 1) / geo[7];
   const bool arms = needs_arms(*T), spread = geo[3] > 1;
+  const bool gen = k1_general(T->n_noise);
+  ++g_forms[gen];
+  if (gen) {  // more than one item: spread
+    const int err = arms ? launch_general<true>(T, geo, runs_x, runs_y, out,
+                                                stream)
+                         : launch_general<false>(T, geo, runs_x, runs_y, out,
+                                                 stream);
+    return err ? err : (int)cudaGetLastError();
+  }
   if (arms && spread)
     bake_radiance_kernel<true, true><<<geo[0], geo[1], geo[5], stream>>>(
         *T, out, geo[3], runs_x, runs_y);
@@ -368,15 +422,23 @@ extern "C" int vr_bake_radiance(const VrTables* T, float* out,
   return (int)cudaGetLastError();
 }
 
-// cudaFuncGetAttributes of the four kernels, SPREAD (true, false) outer and
-// ARMS (false, true) inner: registers per thread, static shared bytes per
-// block, local bytes per thread and largest block into out[4 i .. 4 i + 3];
-// returns the error.
-template <bool ARMS, bool SPREAD>
+// The launches of the fixed and the general form so far into out[0..1].
+extern "C" int vr_bake_radiance_forms(int* out) {
+  out[0] = (int)g_forms[0];
+  out[1] = (int)g_forms[1];
+  return 0;
+}
+
+// cudaFuncGetAttributes of the six kernels, SPREAD (true, false) outer and
+// ARMS (false, true) inner, then the general (SPREAD) forms, ARMS false
+// then true: registers per thread, static shared bytes per block, local
+// bytes per thread and largest block into out[4 i .. 4 i + 3]; returns the
+// error.
+template <bool ARMS, bool SPREAD, bool GEN = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)bake_radiance_kernel<ARMS, SPREAD>);
+      &a, (const void*)bake_radiance_kernel<ARMS, SPREAD, GEN>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -385,9 +447,11 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_bake_radiance_attrs(int* out) {
-  const cudaError_t errs[4] = {
+  const cudaError_t errs[6] = {
       attrs_of<false, true>(out), attrs_of<true, true>(out + 4),
-      attrs_of<false, false>(out + 8), attrs_of<true, false>(out + 12)};
+      attrs_of<false, false>(out + 8), attrs_of<true, false>(out + 12),
+      attrs_of<false, true, true>(out + 16),
+      attrs_of<true, true, true>(out + 20)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -15,8 +15,12 @@
 #include <stdint.h>
 
 #define VR_PI 3.1415926535  // the reference's truncated constant
-#define VR_MAX_DIR 4        // directional lights per scene
-#define VR_MAX_NOISE 4      // noise-bearing media per scene
+// The fixed forms' counts: the slice tiles keep VR_MAX_DIR suns' values
+// and K1 and the scatter VR_MAX_NOISE fBm channels in arrays; a frame with
+// more takes the kernels' general (GEN) instantiations, which take any count
+// (needs_general)
+#define VR_MAX_DIR 4        // directional lights
+#define VR_MAX_NOISE 4      // noise-bearing media baked at the low rate
 
 // Packed tables and dims of one frame (the wrapper fills it from the
 // pack_* tables; mirrored by ops/cuda.py VrTables). All pointers are device
@@ -520,11 +524,12 @@ __device__ __forceinline__ float noise_factor(const VrTables& T, int mi,
                     st[1], st[2], st[3]);
 }
 
-// material.material_planes with the fBm factors given (noise[i] for the
-// i-th noise-bearing medium), or evaluated here when noise is null.
+// material.material_planes with the fBm factors given (baked: noise_at(i)
+// for the i-th noise-bearing medium), or evaluated here.
+template <class NoiseAt>
 __device__ void material(const VrTables& T, float wx, float wy, float wz,
-                         const float* noise, float& sr, float& sg, float& sb,
-                         float& sa, float& g) {
+                         bool baked, const NoiseAt& noise_at, float& sr,
+                         float& sg, float& sb, float& sa, float& g) {
   sr = sg = sb = sa = g = 0.0f;
   int ni = 0;
   for (int mi = 0; mi < T.n_media; ++mi) {
@@ -532,7 +537,8 @@ __device__ void material(const VrTables& T, float wx, float wy, float wz,
     const int* st = T.med_static + 6 * mi;
     float factor = 1.0f;
     if (st[0])
-      factor = factor * (noise ? noise[ni++] : noise_factor(T, mi, wx, wy, wz));
+      factor = factor * (baked ? noise_at(ni++)
+                               : noise_factor(T, mi, wx, wy, wz));
     factor = factor * expf(-fmaxf(q[11], 0.0f) * fmaxf(wy - q[12], 0.0f));
     float mask = st[4] ? box_mask<true>(q, wx, wy, wz) : 1.0f;
     float a_r = q[0] * factor, a_g = q[1] * factor, a_b = q[2] * factor;
@@ -756,7 +762,9 @@ __device__ __forceinline__ float low_at(const float* __restrict__ vol,
 // then tile_line): the view depth of the slice's jittered and unjittered
 // centres, froxel_vx of each column and froxel_vy of each row at both, the
 // upsample's slice terms and, with BLEND (the shadow blend's), its view
-// depth and log(fpz) and the inverse direction of each sun's shadow ray.
+// depth and log(fpz) and the inverse direction of each sun's shadow ray
+// (the fixed forms' VR_MAX_DIR suns; the general forms keep them in dynamic
+// shared memory, sun_inverses).
 template <int TX, int TY>
 struct TileTerms {
   static constexpr int LINES = 2 * TX + 2 * TY;  // tile_line's items
@@ -771,12 +779,13 @@ struct TileTerms {
 // scalars (their chains of log, exp and divisions run side by side).
 // SCATTER false (K5, the shadow half alone) leaves out the unjittered
 // centre's depth and the upsample's slice terms, which only the scatter
-// reads.
-template <bool BLEND, int NT, bool SCATTER = true, class Terms>
+// reads. GEN (the general forms) leaves out the suns' items: sun_inverses.
+template <bool BLEND, int NT, bool SCATTER = true, bool GEN = false,
+          class Terms>
 __device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
                                              int tid, Terms& S) {
   const float* p = T.spar;
-  const int items = BLEND ? 5 + T.n_dir : 3;
+  const int items = BLEND ? 5 + (GEN ? 0 : T.n_dir) : 3;
   for (int item = 0; item < items; ++item) {
     if (tid != (item * 32) % NT + (item * 32) / NT) continue;
     if (!SCATTER && (item == 1 || item == 2)) continue;
@@ -798,6 +807,33 @@ __device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
       inv[2] = inv_dir(-q[2]);
     }
   }
+}
+
+// The general forms' step 1 for the suns: the inverse direction of each
+// sun's shadow ray, as tile_scalars' items 5.. compute them, 3 floats a sun
+// at inv (dynamic shared memory: sun_inv_floats), the block's nt threads
+// taking the suns in turn.
+__host__ __device__ __forceinline__ int sun_inv_floats(int n_dir) {
+  return 3 * n_dir;
+}
+
+__device__ __forceinline__ void sun_inverses(const VrTables& T, int tid,
+                                             int nt, float* inv) {
+  for (int li = tid; li < T.n_dir; li += nt) {
+    const float* q = T.slights + 8 * li;
+    inv[3 * li] = inv_dir(-q[0]);
+    inv[3 * li + 1] = inv_dir(-q[1]);
+    inv[3 * li + 2] = inv_dir(-q[2]);
+  }
+}
+
+// Whether a frame's counts pass the fixed forms' arrays: its suns (the
+// shadow kernels K5 and K7) or also its fBm channels (K2 and K6, whose
+// scatter reads them). The launchers then take the GEN instantiation.
+inline bool general_suns(const VrTables& T) { return T.n_dir > VR_MAX_DIR; }
+
+inline bool needs_general(const VrTables& T) {
+  return general_suns(T) || T.n_noise > VR_MAX_NOISE;
 }
 
 // Step 2, after it: item j < LINES of the tile at (xt, yt); the unjittered
@@ -840,7 +876,8 @@ __host__ __device__ __forceinline__ int region_ny(int ty, int k) {
 
 // Its dynamic shared memory, floats: the region's ox, oy, oz and success
 // planes, then reproj_vx of its columns and reproj_vy of its rows
-// (mirrored by ops/shadow_blend.region_shared_bytes).
+// (mirrored by ops/temporal.region_shared_bytes); the general forms of K2
+// and K5 keep the suns' sun_inv_floats after it.
 __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
   const int nx = region_nx(tx, k), ny = region_ny(ty, k);
   return 4 * nx * ny + nx + ny;
@@ -851,7 +888,8 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 // by construction. The block owns the TX x TY tile (blockIdx.x, blockIdx.y)
 // of slice blockIdx.z, S its terms and dyn_s its region_floats. Steps 1 and
 // 2, tile_region, end with a barrier (SCATTER: also the terms of the
-// scatter half, tile_scalars):
+// scatter half, tile_scalars; GEN: the suns' inverse directions after the
+// region, sun_inverses):
 //   1. the slice's scalars, then each column's and row's view-space terms,
 //      and reproj_vx / reproj_vy of the region;
 //   2. the reprojection offsets of the shadow blend, each once, at every
@@ -866,7 +904,10 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 //      weight-mode blend cur + alpha * success * (warped - cur) (sbpar:
 //      jittered reprojection, the 1e-4 uvw nudge) and the store of the
 //      history out_sh; the jittered world position (wx, wy, wz) and each
-//      sun's blended shadow are left for the scatter half.
+//      sun's blended shadow (blended; GEN: in out_sh alone) are left for
+//      the scatter half. The fixed form casts every sun's ray before the
+//      warps; GEN takes the suns one at a time, each value computed alone,
+//      so the two are the same bit for bit.
 // Every value is the thread-per-froxel form's (sun_shadow, then warp8_by
 // over the reprojection offsets at each tap, as temporal_blend.cu's weight
 // mode blends), from the same operations in the same order. Indices are
@@ -875,7 +916,7 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 // blend table in a copy of this loop: a routine shared by the three
 // kernels made K5 2% slower at the same registers and spills, so
 // tile_region stays as K2 and K5 were measured. Change the two together.
-template <bool SCATTER, int TX, int TY>
+template <bool SCATTER, int TX, int TY, bool GEN = false>
 __device__ __forceinline__ void tile_region(const VrTables& T,
                                             TileTerms<TX, TY>& S,
                                             float* dyn_s) {
@@ -894,7 +935,9 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
   const float* sb = T.sbpar;
 
   // 1. the slice's scalars; then the columns' and rows' terms
-  tile_scalars<true, NT, SCATTER>(T, z, tid, S);
+  tile_scalars<true, NT, SCATTER, GEN>(T, z, tid, S);
+  if constexpr (GEN)
+    sun_inverses(T, tid, NT, dyn_s + region_floats(TX, TY, k));
   __syncthreads();
   constexpr int LINES = TileTerms<TX, TY>::LINES;
   for (int j = tid; j < LINES + nx + ny; j += NT) {
@@ -949,7 +992,7 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
   __syncthreads();
 }
 
-template <bool ARMS, int TX, int TY>
+template <bool ARMS, int TX, int TY, bool GEN = false>
 __device__ __forceinline__ void tile_blend(
     const VrTables& T, const float* __restrict__ prev_sh,
     float* __restrict__ out_sh, const TileTerms<TX, TY>& S,
@@ -967,23 +1010,41 @@ __device__ __forceinline__ void tile_blend(
   const float* sb = T.sbpar;
   // dir_shadow_slice: jittered world position, one ray per sun
   view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
-  float cur[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li)
-    cur[li] = sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
-  // the shadow blend (weight mode): the offsets at (y, cx) and (cy, cx)
-  // from the region, column cx at cx - (xt - k), row cy at cy - (yt - k)
-  const int row_y = (ty + k) * nx + k - xt;
-  const float swgt = sb[20] * ok_s[row_y + x];
-  const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
-  const auto oz_at = [&](int, int cy, int cx) {
-    return oz_s[(cy - yt + k) * nx + k - xt + cx];
-  };
-  for (int li = 0; li < T.n_dir; ++li) {
-    float warped;
-    warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
-                oy_at, oz_at, &warped);
-    blended[li] = cur[li] + swgt * (warped - cur[li]);
-    out_sh[li * n + i] = blended[li];
+  if constexpr (GEN) {  // each sun's ray, warp and blend in turn
+    const float* inv = dyn_s + region_floats(TX, TY, k);
+    const int row_y = (ty + k) * nx + k - xt;
+    const float swgt = sb[20] * ok_s[row_y + x];
+    const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
+    const auto oz_at = [&](int, int cy, int cx) {
+      return oz_s[(cy - yt + k) * nx + k - xt + cx];
+    };
+    for (int li = 0; li < T.n_dir; ++li) {
+      const float cur = sun_shadow<ARMS, true>(T, li, wx, wy, wz,
+                                               inv + 3 * li);
+      float warped;
+      warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
+                  oy_at, oz_at, &warped);
+      out_sh[li * n + i] = cur + swgt * (warped - cur);
+    }
+  } else {
+    float cur[VR_MAX_DIR];
+    for (int li = 0; li < T.n_dir; ++li)
+      cur[li] = sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
+    // the shadow blend (weight mode): the offsets at (y, cx) and (cy, cx)
+    // from the region, column cx at cx - (xt - k), row cy at cy - (yt - k)
+    const int row_y = (ty + k) * nx + k - xt;
+    const float swgt = sb[20] * ok_s[row_y + x];
+    const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
+    const auto oz_at = [&](int, int cy, int cx) {
+      return oz_s[(cy - yt + k) * nx + k - xt + cx];
+    };
+    for (int li = 0; li < T.n_dir; ++li) {
+      float warped;
+      warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox_s[row_y + x],
+                  oy_at, oz_at, &warped);
+      blended[li] = cur[li] + swgt * (warped - cur[li]);
+      out_sh[li * n + i] = blended[li];
+    }
   }
 }
 
@@ -1021,14 +1082,18 @@ inline bool past_int_index(const VrTables& T) {
 //       (z-lerp, x tent, y tent) at the light's channel.
 // The upsample's taps are computed once per froxel for all its channels. In
 // both loops the fBm is evaluated here. Then every sun adds colour x
-// blended[li] x HG x sigma_s at the unjittered centre (the jittered one with
-// jitter_dir). ARMS: the rays' any_hit instantiation.
-template <int LOCAL, bool MAT_PLANES, bool ARMS>
+// sun_at(li) (its blended shadow) x HG x sigma_s at the unjittered centre
+// (the jittered one with jitter_dir), in sun order. ARMS: the rays' any_hit
+// instantiation. GEN (any fBm channel count): each baked fBm factor is
+// upsampled where the material reads it, where the fixed form upsamples
+// its VR_MAX_NOISE channels into an array first: the same values.
+template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false,
+          class SunAt>
 __device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
                                const float* __restrict__ low, int z, int y,
                                int x, int i, int n, float wx, float wy,
                                float wz, float cwx, float cwy, float cwz,
-                               const float* blended, float* out,
+                               const SunAt& sun_at, float* out,
                                const float* __restrict__ mat_a = nullptr,
                                const float* __restrict__ mat_b = nullptr) {
   const float* p = T.spar;
@@ -1042,14 +1107,21 @@ __device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
     sbl = __ldg(mat_a + 2 * n + i);
     phg = __ldg(mat_b + i);
   } else {
-    float noise[VR_MAX_NOISE];
     const bool baked_noise = LOCAL == VR_LOCAL_RADIANCE && T.n_noise > 0;
-    if (baked_noise)
-      for (int c = 0; c < T.n_noise; ++c)
-        noise[c] = low_at(low + (3 + c) * lplane, up);
     float s_a;
-    material(T, wx, wy, wz, baked_noise ? noise : nullptr, sr, sg, sbl, s_a,
-             phg);
+    if constexpr (GEN) {
+      const auto noise_at = [&](int c) {
+        return low_at(low + (3 + c) * lplane, up);
+      };
+      material(T, wx, wy, wz, baked_noise, noise_at, sr, sg, sbl, s_a, phg);
+    } else {
+      float noise[VR_MAX_NOISE];
+      if (baked_noise)
+        for (int c = 0; c < T.n_noise; ++c)
+          noise[c] = low_at(low + (3 + c) * lplane, up);
+      const auto noise_at = [&](int c) { return noise[c]; };
+      material(T, wx, wy, wz, baked_noise, noise_at, sr, sg, sbl, s_a, phg);
+    }
     out[3] = (0.3f * sr + 0.59f * sg + 0.11f * sbl + s_a) * (float)T.n_dir;
   }
   const float g2 = phg * phg;
@@ -1106,7 +1178,7 @@ __device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
       const float b = 1.0f + g2 - 2.0f * phg * cos_t;
       const float rb = rsqrt_exact(b);
       const float hg = hg_num * rb * rb * rb;
-      const float base = blended[li] * hg;
+      const float base = sun_at(li) * hg;
       ar = ar + base * q[3] * sr;
       ag = ag + base * q[4] * sg;
       ab = ab + base * q[5] * sbl;

@@ -38,6 +38,12 @@
 // only the setup share of it. A block of several slices (each thread its
 // froxel in 2-8 of them) ran a solid scene 5% faster and the terrain
 // 6-60% slower, 8 blocks an SM and 32 x 8 tiles no faster (PERF.md §6).
+//
+// TileTerms holds at most VR_MAX_DIR suns' inverse directions. More suns
+// take the kernel's GEN instantiation (common.cuh general_suns): the
+// inverses in dynamic shared memory (sun_inv_floats), computed by the
+// block's threads in turn (sun_inverses), the rest as above. Every value
+// is the fixed form's; a frame with at most VR_MAX_DIR suns keeps that.
 #include "common.cuh"
 
 // The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
@@ -46,17 +52,25 @@ struct K7Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS>
+template <bool ARMS, bool GEN = false>
 __global__ void __launch_bounds__(K7Tile::X * K7Tile::Y, K7Tile::MIN_BLOCKS)
 dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
   constexpr int TX = K7Tile::X, TY = K7Tile::Y, NT = TX * TY;
   __shared__ TileTerms<TX, TY> S;
+  const float* sun_inv = nullptr;  // GEN: the suns' inverse directions
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY, z = blockIdx.z;
   // 1. the slice's jittered view depth (item 0) and the inverse direction
   // of each sun's shadow ray (items 1 .. n_dir), as tile_scalars computes
-  // them, on the first lanes of as many warps
-  for (int item = 0; item <= T.n_dir; ++item) {
+  // them, on the first lanes of as many warps (GEN: item 0, then
+  // sun_inverses)
+  if constexpr (GEN) {
+    extern __shared__ float sun_inv_s[];  // sun_inv_floats
+    if (tid == 0) S.vz_j = center_vz(T.spar, z, true, T.d);
+    sun_inverses(T, tid, NT, sun_inv_s);
+    sun_inv = sun_inv_s;
+  }
+  for (int item = 0; !GEN && item <= T.n_dir; ++item) {
     if (tid != (item * 32) % NT + (item * 32) / NT) continue;
     if (item == 0) {
       S.vz_j = center_vz(T.spar, z, true, T.d);
@@ -81,26 +95,65 @@ dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
   const int n = T.d * T.h * T.w;
   const int i = (z * T.h + y) * T.w + x;
   for (int li = 0; li < T.n_dir; ++li)
-    out_sh[li * n + i] =
-        sun_shadow<ARMS, true>(T, li, wx, wy, wz, S.sun_inv[li]);
+    out_sh[li * n + i] = sun_shadow<ARMS, true>(
+        T, li, wx, wy, wz, GEN ? sun_inv + 3 * li : S.sun_inv[li]);
+}
+
+// Launches of the fixed (0) and general (1) forms since the library was
+// loaded (vr_dir_shadow_forms).
+static long g_forms[2];
+
+// The dynamic shared bytes of a launch with n_dir suns: none in the fixed
+// form, the suns' inverse directions in the general one.
+static int k7_shared(bool gen, int n_dir) {
+  return gen ? sun_inv_floats(n_dir) * (int)sizeof(float) : 0;
+}
+
+template <bool ARMS, bool GEN>
+static int launch_tile(const VrTables* T, float* out_sh,
+                       cudaStream_t stream) {
+  constexpr int TX = K7Tile::X, TY = K7Tile::Y;
+  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  const int shared = k7_shared(GEN, T->n_dir);
+  if (shared > 48 * 1024) {  // many suns
+    const cudaError_t err = cudaFuncSetAttribute(
+        dir_shadow_kernel<ARMS, GEN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dir_shadow_kernel<ARMS, GEN><<<grid, dim3(TX, TY), shared, stream>>>(
+      *T, out_sh);
+  ++g_forms[GEN];
+  return 0;
 }
 
 template <bool ARMS>
-static void launch_tile(const VrTables* T, float* out_sh,
-                        cudaStream_t stream) {
-  constexpr int TX = K7Tile::X, TY = K7Tile::Y;
-  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
-  dir_shadow_kernel<ARMS><<<grid, dim3(TX, TY), 0, stream>>>(*T, out_sh);
+static int launch_form(const VrTables* T, float* out_sh,
+                       cudaStream_t stream) {
+  return general_suns(*T) ? launch_tile<ARMS, true>(T, out_sh, stream)
+                          : launch_tile<ARMS, false>(T, out_sh, stream);
 }
 
 extern "C" int vr_dir_shadow(const VrTables* T, float* out_sh,
                              cudaStream_t stream) {
   if (past_int_index(*T)) return (int)cudaErrorInvalidValue;
-  if (needs_arms(*T))
-    launch_tile<true>(T, out_sh, stream);
-  else
-    launch_tile<false>(T, out_sh, stream);
-  return (int)cudaGetLastError();
+  const int err = needs_arms(*T) ? launch_form<true>(T, out_sh, stream)
+                                 : launch_form<false>(T, out_sh, stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The launches of the fixed and the general form so far into out[0..1].
+extern "C" int vr_dir_shadow_forms(int* out) {
+  out[0] = (int)g_forms[0];
+  out[1] = (int)g_forms[1];
+  return 0;
+}
+
+// The dynamic shared bytes of a launch of the general form with n_dir suns
+// into out[0].
+extern "C" int vr_dir_shadow_general_shared(int n_dir, int* out) {
+  out[0] = k7_shared(true, n_dir);
+  return 0;
 }
 
 // The tile (columns, rows) into out[0..1].
@@ -110,14 +163,15 @@ extern "C" int vr_dir_shadow_geometry(int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the two kernels, ARMS false then true: registers
-// per thread, static shared bytes per block, local bytes per thread and
-// largest block into out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS>
+// cudaFuncGetAttributes of the four kernels, the fixed forms then the
+// general ones, ARMS false then true: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)dir_shadow_kernel<ARMS>);
+      cudaFuncGetAttributes(&a, (const void*)dir_shadow_kernel<ARMS, GEN>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -126,7 +180,9 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_dir_shadow_attrs(int* out) {
-  const cudaError_t errs[2] = {attrs_of<false>(out), attrs_of<true>(out + 4)};
+  const cudaError_t errs[4] = {attrs_of<false>(out), attrs_of<true>(out + 4),
+                               attrs_of<false, true>(out + 8),
+                               attrs_of<true, true>(out + 12)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -56,6 +56,15 @@
 // fp32 rate. The loops: per froxel and active light ~60 flops of
 // light_factor and a 7-primitive ray or 8 gathered taps, plus (fused) three
 // Perlin octaves per noise medium (~1000 flops): several GFLOP.
+//
+// Each kernel loads at most VR_MAX_DIR suns' blended shadows into registers
+// and upsamples at most VR_MAX_NOISE fBm channels into an array. A frame
+// with more suns or more fBm channels (common.cuh needs_general) takes the
+// GEN instantiation of the same kernel, which reads each sun's shadow from
+// memory where its term is added (in sun order, after the local lights)
+// and upsamples each fBm factor where the material reads it: the same
+// values, so the general forms are bit for bit the fixed ones; a frame
+// within the fixed counts keeps its fixed form.
 #include "common.cuh"
 
 // The block of each local source: a tile of X columns x Y rows, or (Y = 0)
@@ -76,7 +85,8 @@ struct K6Tile<VR_LOCAL_RAY> {
   static constexpr int X = 256, Y = 0;
 };
 
-template <int LOCAL, bool MAT_PLANES, bool ARMS, int TX, int TY>
+template <int LOCAL, bool MAT_PLANES, bool ARMS, int TX, int TY,
+          bool GEN = false>
 __global__ void __launch_bounds__(TY ? TX * TY : TX)
 scatter_kernel(VrTables T, const float* __restrict__ shadow,
                const float* __restrict__ low,
@@ -120,15 +130,41 @@ scatter_kernel(VrTables T, const float* __restrict__ shadow,
   }
   const int n = d * h * w;
   const int i = (z * h + y) * w + x;
-  float blended[VR_MAX_DIR];
-  for (int li = 0; li < T.n_dir; ++li)
-    blended[li] = __ldg(shadow + li * n + i);
   float sc[4];
-  scatter_froxel<LOCAL, MAT_PLANES, ARMS>(T, S.low, low, z, y, x, i, n, wx,
-                                          wy, wz, cwx, cwy, cwz, blended, sc,
-                                          mat_a, mat_b);
+  if constexpr (GEN) {
+    const auto sun_at = [&](int li) { return __ldg(shadow + li * n + i); };
+    scatter_froxel<LOCAL, MAT_PLANES, ARMS, true>(
+        T, S.low, low, z, y, x, i, n, wx, wy, wz, cwx, cwy, cwz, sun_at, sc,
+        mat_a, mat_b);
+  } else {
+    float blended[VR_MAX_DIR];
+    for (int li = 0; li < T.n_dir; ++li)
+      blended[li] = __ldg(shadow + li * n + i);
+    const auto sun_at = [&](int li) { return blended[li]; };
+    scatter_froxel<LOCAL, MAT_PLANES, ARMS>(T, S.low, low, z, y, x, i, n,
+                                            wx, wy, wz, cwx, cwy, cwz,
+                                            sun_at, sc, mat_a, mat_b);
+  }
 #pragma unroll
   for (int c = 0; c < (MAT_PLANES ? 3 : 4); ++c) out_sc[c * n + i] = sc[c];
+}
+
+// Launches of the fixed (0) and general (1) forms since the library was
+// loaded (vr_scatter_forms).
+static long g_forms[2];
+
+template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN>
+static void launch_form(const VrTables* T, const float* shadow,
+                        const float* low, const float* mat_a,
+                        const float* mat_b, float* out_sc,
+                        cudaStream_t stream) {
+  constexpr int TX = K6Tile<LOCAL>::X, TY = K6Tile<LOCAL>::Y;
+  const dim3 grid(TY ? (T->w + TX - 1) / TX : (T->w * T->h + TX - 1) / TX,
+                  TY ? (T->h + TY - 1) / TY : 1, T->d);
+  scatter_kernel<LOCAL, MAT_PLANES, ARMS, TX, TY, GEN>
+      <<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(*T, shadow, low, mat_a,
+                                                   mat_b, out_sc);
+  ++g_forms[GEN];
 }
 
 template <int LOCAL, bool MAT_PLANES, bool ARMS>
@@ -136,12 +172,12 @@ static void launch_tile(const VrTables* T, const float* shadow,
                         const float* low, const float* mat_a,
                         const float* mat_b, float* out_sc,
                         cudaStream_t stream) {
-  constexpr int TX = K6Tile<LOCAL>::X, TY = K6Tile<LOCAL>::Y;
-  const dim3 grid(TY ? (T->w + TX - 1) / TX : (T->w * T->h + TX - 1) / TX,
-                  TY ? (T->h + TY - 1) / TY : 1, T->d);
-  scatter_kernel<LOCAL, MAT_PLANES, ARMS, TX, TY>
-      <<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(*T, shadow, low, mat_a,
-                                                   mat_b, out_sc);
+  if (needs_general(*T))
+    launch_form<LOCAL, MAT_PLANES, ARMS, true>(T, shadow, low, mat_a, mat_b,
+                                               out_sc, stream);
+  else
+    launch_form<LOCAL, MAT_PLANES, ARMS, false>(T, shadow, low, mat_a,
+                                                mat_b, out_sc, stream);
 }
 
 template <int LOCAL, bool MAT_PLANES>
@@ -200,6 +236,13 @@ extern "C" int vr_scatter(const VrTables* T, const float* shadow,
   return (int)cudaGetLastError();
 }
 
+// The launches of the fixed and the general form so far into out[0..1].
+extern "C" int vr_scatter_forms(int* out) {
+  out[0] = (int)g_forms[0];
+  out[1] = (int)g_forms[1];
+  return 0;
+}
+
 // The tile (columns, rows) of local source `local` into out[0..1].
 extern "C" int vr_scatter_geometry(int local, int* out) {
   switch (local) {
@@ -221,17 +264,19 @@ extern "C" int vr_scatter_geometry(int local, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the eight kernels, in ops/cuda.py ATTR_KERNELS'
-// order: (LOCAL, MAT_PLANES) of radiance, ray, baked x fused, planes with
-// ARMS false, then the ray loop's two ARMS forms. Registers per thread,
+// cudaFuncGetAttributes of the sixteen kernels, in ops/cuda.py
+// ATTR_KERNELS' order: the fixed forms, (LOCAL, MAT_PLANES) of radiance,
+// ray, baked x fused, planes with ARMS false, then the ray loop's two ARMS
+// forms; then the general forms in the same order. Registers per thread,
 // static shared bytes per block, local bytes per thread and largest block
 // into out[4 i .. 4 i + 3]; returns the error.
-template <int LOCAL, bool MAT_PLANES, bool ARMS>
+template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
       &a, (const void*)scatter_kernel<LOCAL, MAT_PLANES, ARMS,
-                                      K6Tile<LOCAL>::X, K6Tile<LOCAL>::Y>);
+                                      K6Tile<LOCAL>::X, K6Tile<LOCAL>::Y,
+                                      GEN>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -239,16 +284,22 @@ static cudaError_t attrs_of(int* out) {
   return err;
 }
 
+template <bool GEN>
+static void attrs_of_forms(int* out, cudaError_t* errs) {
+  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, false, GEN>(out);
+  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, false, GEN>(out + 4);
+  errs[2] = attrs_of<VR_LOCAL_RAY, false, false, GEN>(out + 8);
+  errs[3] = attrs_of<VR_LOCAL_RAY, true, false, GEN>(out + 12);
+  errs[4] = attrs_of<VR_LOCAL_BAKED, false, false, GEN>(out + 16);
+  errs[5] = attrs_of<VR_LOCAL_BAKED, true, false, GEN>(out + 20);
+  errs[6] = attrs_of<VR_LOCAL_RAY, false, true, GEN>(out + 24);
+  errs[7] = attrs_of<VR_LOCAL_RAY, true, true, GEN>(out + 28);
+}
+
 extern "C" int vr_scatter_attrs(int* out) {
-  const cudaError_t errs[8] = {
-      attrs_of<VR_LOCAL_RADIANCE, false, false>(out),
-      attrs_of<VR_LOCAL_RADIANCE, true, false>(out + 4),
-      attrs_of<VR_LOCAL_RAY, false, false>(out + 8),
-      attrs_of<VR_LOCAL_RAY, true, false>(out + 12),
-      attrs_of<VR_LOCAL_BAKED, false, false>(out + 16),
-      attrs_of<VR_LOCAL_BAKED, true, false>(out + 20),
-      attrs_of<VR_LOCAL_RAY, false, true>(out + 24),
-      attrs_of<VR_LOCAL_RAY, true, true>(out + 28)};
+  cudaError_t errs[16];
+  attrs_of_forms<false>(out, errs);
+  attrs_of_forms<true>(out + 32, errs + 8);
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

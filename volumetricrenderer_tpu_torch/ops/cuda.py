@@ -126,9 +126,12 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     # source -> {entry point: argument types before the stream}
     sig = {
         "bake_radiance": {"vr_bake_radiance": [tp, vp],
-                          "vr_bake_radiance_geometry": [ci] * 5 + [vp]},
+                          "vr_bake_radiance_geometry": [ci] * 5 + [vp],
+                          "vr_bake_radiance_forms": [vp]},
         "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci],
-                           "vr_shadow_scatter_geometry": [ci, ci, vp]},
+                           "vr_shadow_scatter_geometry": [ci, ci, vp],
+                           "vr_shadow_scatter_general_shared": [ci, ci, vp],
+                           "vr_shadow_scatter_forms": [vp]},
         "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
         "composite": {
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
@@ -138,11 +141,16 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite_grad_geometry": [ci] * 2 + [vp],
             "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
-                         "vr_shadow_blend_geometry": [ci, vp]},
+                         "vr_shadow_blend_geometry": [ci, vp],
+                         "vr_shadow_blend_general_shared": [ci, ci, vp],
+                         "vr_shadow_blend_forms": [vp]},
         "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
-                    "vr_scatter_geometry": [ci, vp]},
+                    "vr_scatter_geometry": [ci, vp],
+                    "vr_scatter_forms": [vp]},
         "dir_shadow": {"vr_dir_shadow": [tp, vp],
-                       "vr_dir_shadow_geometry": [vp]},
+                       "vr_dir_shadow_geometry": [vp],
+                       "vr_dir_shadow_general_shared": [ci, vp],
+                       "vr_dir_shadow_forms": [vp]},
         "integrate": {"vr_integrate": [tp, vp, vp],
                       "vr_integrate_geometry": [vp]},
         "bake_visibility": {"vr_bake_visibility": [tp, vp],
@@ -169,7 +177,7 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         fn = getattr(cdll, entry)
         # every launching entry point takes the stream last
         fn.argtypes = argtypes + ([] if entry.endswith(
-            ("_geometry", "_occupancy")) else [vp])
+            ("_geometry", "_occupancy", "_shared", "_forms")) else [vp])
         fn.restype = ctypes.c_int
 
 
@@ -185,26 +193,49 @@ def launch(name: str, *args, entry: str = "") -> None:
     LAUNCHES[name] += 1
 
 
+# The sources whose launchers take a fixed or a general form by the frame's
+# counts of suns and fBm channels (csrc/common.cuh needs_general; the
+# general instantiations are the kernels named with GEN below): each
+# library counts its launches of either form (form_launches).
+FORM_SOURCES = ("bake_radiance", "shadow_scatter", "shadow_blend", "scatter",
+                "dir_shadow")
+
+
+def form_launches(name: str) -> tuple:
+    """(fixed, general): the launches of source `name`'s fixed and general
+    forms since its library was loaded (its `vr_<name>_forms`)."""
+    buf = (ctypes.c_int * 2)()
+    getattr(lib(name), f"vr_{name}_forms")(ctypes.cast(buf, ctypes.c_void_p))
+    return buf[0], buf[1]
+
+
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
+_K6_MODES = tuple(f"{local}, {planes}, false" for local in
+                  ("RADIANCE", "RAY", "BAKED") for planes in ("false", "true")
+                  ) + ("RAY, false, true", "RAY, true, true")
 ATTR_KERNELS = {"bake_radiance": tuple(
                     f"bake_radiance_kernel<{arms}, {spread}>"
                     for spread in ("true", "false")
-                    for arms in ("false", "true")),
+                    for arms in ("false", "true"))
+                + ("bake_radiance_kernel<false, true, GEN>",
+                   "bake_radiance_kernel<true, true, GEN>"),
                 "shadow_blend": ("shadow_blend_kernel<false>",
-                                 "shadow_blend_kernel<true>"),
+                                 "shadow_blend_kernel<true>",
+                                 "shadow_blend_kernel<false, GEN>",
+                                 "shadow_blend_kernel<true, GEN>"),
                 "shadow_scatter": tuple(
-                    f"shadow_scatter_kernel<{local}, {arms}>"
+                    f"shadow_scatter_kernel<{local}, {arms}{gen}>"
+                    for gen in ("", ", GEN")
                     for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),
-                "scatter": tuple(
-                    f"scatter_kernel<{local}, {planes}, false>"
-                    for local in ("RADIANCE", "RAY", "BAKED")
-                    for planes in ("false", "true"))
-                + ("scatter_kernel<RAY, false, true>",
-                   "scatter_kernel<RAY, true, true>"),
+                "scatter": tuple(f"scatter_kernel<{mode}{gen}>"
+                                 for gen in ("", ", GEN")
+                                 for mode in _K6_MODES),
                 "integrate_blend": ("integrate_blend_kernel",),
                 "dir_shadow": ("dir_shadow_kernel<false>",
-                               "dir_shadow_kernel<true>"),
+                               "dir_shadow_kernel<true>",
+                               "dir_shadow_kernel<false, GEN>",
+                               "dir_shadow_kernel<true, GEN>"),
                 "integrate": ("integrate_kernel",),
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
                                    "temporal_blend_kernel<4, false>"),

@@ -96,13 +96,25 @@ def dir_shadow_plain(t) -> torch.Tensor:
 K7_TILE = (16, 16)
 
 
+def k7_shared_bytes(n_dir: int) -> int:
+    """The dynamic shared bytes of a K7 launch with n_dir suns: none in the
+    fixed form, the suns' inverse ray directions in the general one (more
+    than scatter.MAX_DIR suns)."""
+    from volumetricrenderer_tpu_torch.ops.scatter import (needs_general,
+                                                          sun_inv_bytes)
+    return sun_inv_bytes(n_dir) if needs_general(n_dir) else 0
+
+
 def dir_shadow(t) -> torch.Tensor:
     """K7: the unblended raycast shadow volume [Nd, D, H, W]. Refuses, before
-    any launch, tables the kernel cannot index in 32 bits."""
+    any launch, tables the kernel cannot index in 32 bits and suns whose
+    inverse directions do not fit a block's shared memory."""
     if t.spar.device.type == "cpu":
         return dir_shadow_plain(t)
     from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
+    from volumetricrenderer_tpu_torch.ops.temporal import check_shared
     check_tile_indices(t)
+    check_shared(k7_shared_bytes(t.n_dir), "K7", f"{t.n_dir} suns")
     cuda.check_cuda(t.spar)
     w, h, d = t.grid_whd
     out = torch.empty((t.n_dir, d, h, w), dtype=torch.float32,

@@ -42,18 +42,21 @@ from volumetricrenderer_tpu_torch.ops.material import (heightfield_static,
                                                        phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import pack_boxes
 from volumetricrenderer_tpu_torch.ops.phase import PI
-from volumetricrenderer_tpu_torch.ops.scatter import (check_scatter_inputs,
+from volumetricrenderer_tpu_torch.ops.scatter import (MAX_NOISE,
+                                                      check_scatter_inputs,
                                                       check_tile_indices,
                                                       local_mode,
+                                                      needs_general,
                                                       pack_dir_lights,
                                                       pack_lights,
                                                       pack_params,
                                                       scatter_local_plain,
-                                                      slice_light_order)
+                                                      slice_light_order,
+                                                      sun_inv_bytes)
 from volumetricrenderer_tpu_torch.ops.shadow_blend import (
     dir_shadow_blend_plain)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    check_region, pack_blend_params, region_shared_bytes, reproj_offsets,
+    check_shared, pack_blend_params, region_shared_bytes, reproj_offsets,
     warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          bake_visibility,
@@ -64,9 +67,6 @@ from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          tent_taps,
                                                          tent_taps_y,
                                                          y_phase)
-
-MAX_DIR = 4     # csrc/common.cuh VR_MAX_DIR
-MAX_NOISE = 4   # csrc/common.cuh VR_MAX_NOISE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,9 +215,6 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
         raise ValueError("frame tables are packed on the host: pass the "
                          "scene description on the CPU")
     nd = dir_lights.count if dir_lights is not None else 0
-    if nd > MAX_DIR:
-        raise NotImplementedError(f"{nd} directional lights: the port takes "
-                                  f"at most {MAX_DIR}")
     jit = np.asarray(jitter, np.float32).reshape(3)
     if camera_pos is None:
         camera_pos = torch.zeros(3)
@@ -262,9 +259,6 @@ def frame_tables(params, view_to_world, prev_world_to_view, jitter, alpha,
     # scatter evaluates the Perlin per froxel
     n_noise = sum(1 for st in media_static if st[0]) \
         if bake_noise and vis_ss > 1 else 0
-    if n_noise > MAX_NOISE:
-        raise NotImplementedError(f"{n_noise} noise media: the port takes at "
-                                  f"most {MAX_NOISE}")
 
     lights = active = order = count = tent_x = tent_y = None
     if vis_ss > 1:
@@ -353,8 +347,9 @@ class K1Geometry:
     groups: int         # light groups: warps of a sample share its lights
     passes: int         # passes of K1_PASS lights, the sums carried over
     shared_bytes: int   # dynamic: per-sample terms, one pass's pairs and
-    #                     K1_OCT fBm octaves a channel (none with one group:
-    #                     a thread per sample)
+    #                     K1_OCT fBm octaves a channel, and past MAX_NOISE
+    #                     channels the fBm items (K1_OCT + 2 int32 a
+    #                     channel; none with one group: a thread per sample)
     columns: int        # a block's patch of its low slice
     rows: int
 
@@ -366,7 +361,9 @@ def k1_geometry(n_lights: int, n_noise: int,
     power of two that takes the first pass's items (its lights and the fBm
     channels), at most K1_WARPS; the warps of a group lie one below the
     other, so that a block owns a patch of its low slice, the ragged
-    patches at the slice's edges masked."""
+    patches at the slice's edges masked. Past MAX_NOISE channels the launch
+    takes K1's general form, whose fBm items sit in dynamic shared memory
+    after the octaves."""
     wl, hl, dl = low_dims
     items = min(n_lights, K1_PASS) + n_noise
     groups = 1
@@ -379,7 +376,8 @@ def k1_geometry(n_lights: int, n_noise: int,
         samples=32 * sw, groups=groups,
         passes=max(1, -(-n_lights // K1_PASS)),
         shared_bytes=0 if groups == 1 else 4 * 32 * sw * (
-            K1_TERMS + min(n_lights, K1_PASS) + n_noise * K1_OCT),
+            K1_TERMS + min(n_lights, K1_PASS) + n_noise * K1_OCT)
+        + (4 * n_noise * (K1_OCT + 2) if n_noise > MAX_NOISE else 0),
         columns=cols, rows=rows)
 
 
@@ -409,6 +407,10 @@ def bake_radiance(t: FrameTables,
     if t.spar.device.type == "cpu":
         out = bake_radiance_plain(k1)
         return out if noise is None else torch.cat([out, noise])
+    n_lights = 0 if k1.lights is None else k1.lights.shape[0]
+    check_shared(k1_geometry(n_lights, k1.n_noise, t.low_dims).shared_bytes,
+                 "K1", f"{k1.n_noise} fBm channels")
+    cuda.check_cuda(t.spar)
     out = torch.empty((3 + t.n_noise, dl, hl, wl), dtype=torch.float32,
                       device=t.spar.device)
     if noise is not None:
@@ -439,10 +441,13 @@ def shadow_scatter_plain(t: FrameTables, prev_shadow: torch.Tensor,
 K2_TILE = (16, 16)
 
 
-def k2_shared_bytes(k: int) -> int:
+def k2_shared_bytes(k: int, n_dir: int = 0, n_noise: int = 0) -> int:
     """The dynamic shared bytes of a K2 launch at reprojection window k:
-    its tile's reprojection region (temporal.region_shared_bytes)."""
-    return region_shared_bytes(K2_TILE, k)
+    its tile's reprojection region (temporal.region_shared_bytes) and, in
+    the general form (scatter.needs_general: more than MAX_DIR suns or
+    MAX_NOISE fBm channels), the suns' inverse ray directions."""
+    return region_shared_bytes(K2_TILE, k) + (
+        sun_inv_bytes(n_dir) if needs_general(n_dir, n_noise) else 0)
 
 
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
@@ -460,7 +465,8 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
     check_tile_indices(t)
-    check_region(t.k, k2_shared_bytes(t.k), "K2")
+    check_shared(k2_shared_bytes(t.k, t.n_dir, t.n_noise), "K2",
+                 f"reprojection window {t.k}, {t.n_dir} suns")
     low = bake if bake is not None else vis
     cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
     w, h, d = t.grid_whd

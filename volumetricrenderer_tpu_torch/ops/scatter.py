@@ -257,6 +257,26 @@ K6_TILES = {LOCAL_RADIANCE: (128, 0), LOCAL_RAY: (256, 0),
 INT32_MAX = 2 ** 31 - 1
 MAX_GRID_Z = 65535
 
+# The fixed forms' counts (csrc/common.cuh VR_MAX_DIR, VR_MAX_NOISE): K2, K5,
+# K6 and K7 keep at most MAX_DIR suns' values, K1, K2 and K6 at most
+# MAX_NOISE fBm channels, in arrays. A frame with more takes their general
+# instantiations, which take any count at the same values.
+MAX_DIR = 4
+MAX_NOISE = 4
+
+
+def needs_general(n_dir: int, n_noise: int = 0) -> bool:
+    """Mirror of csrc/common.cuh needs_general (and, with n_noise 0, of
+    general_suns): whether K2 and K6 (K5 and K7 on the suns alone) take
+    their general form."""
+    return n_dir > MAX_DIR or n_noise > MAX_NOISE
+
+
+def sun_inv_bytes(n_dir: int) -> int:
+    """Mirror of csrc/common.cuh sun_inv_floats: the general forms' dynamic
+    shared bytes of the suns' inverse ray directions, 3 float32 a sun."""
+    return 4 * 3 * n_dir
+
 
 def tile_grid(grid_whd: Tuple[int, int, int],
               tile: Tuple[int, int]) -> Tuple[int, int, int]:

@@ -15,9 +15,11 @@ import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow_plain
-from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
+from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
+                                                      needs_general,
+                                                      sun_inv_bytes)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    check_region, region_shared_bytes, reproj_offsets, warp)
+    check_shared, region_shared_bytes, reproj_offsets, warp)
 
 
 def _check_history(t, prev_shadow: torch.Tensor) -> None:
@@ -44,12 +46,14 @@ def dir_shadow_blend_plain(t, prev_shadow: torch.Tensor) -> torch.Tensor:
 # K5's block (csrc/shadow_blend.cu K5Tile): 16 columns x 16 rows of one
 # slice, the tile of K2 (ops/frame_fused.K2_TILE), whose shadow half K5 is
 # (csrc/common.cuh tile_region, tile_blend), with its reprojection region
-# (ops/temporal.region_shared_bytes).
+# (ops/temporal.region_shared_bytes) and, in the general form (more than
+# scatter.MAX_DIR suns), the suns' inverse ray directions after it.
 K5_TILE = (16, 16)
 
 
-def k5_shared_bytes(k: int) -> int:
-    return region_shared_bytes(K5_TILE, k)
+def k5_shared_bytes(k: int, n_dir: int = 0) -> int:
+    return region_shared_bytes(K5_TILE, k) + (
+        sun_inv_bytes(n_dir) if needs_general(n_dir) else 0)
 
 
 def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:
@@ -59,7 +63,8 @@ def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:
         return dir_shadow_blend_plain(t, prev_shadow)
     _check_history(t, prev_shadow)
     check_tile_indices(t)
-    check_region(t.k, k5_shared_bytes(t.k), "K5")
+    check_shared(k5_shared_bytes(t.k, t.n_dir), "K5",
+                 f"reprojection window {t.k}, {t.n_dir} suns")
     cuda.check_cuda(prev_shadow)
     out = torch.empty_like(prev_shadow)
     st = t.c_struct()

@@ -29,7 +29,10 @@ from volumetricrenderer_tpu_torch.ops.cuda import upload
 from volumetricrenderer_tpu_torch.ops.scatter import INT32_MAX, MAX_GRID_Z
 
 MODES = ("weight", "alpha")
-MAX_CHANNELS = 4    # csrc/temporal_blend.cu dispatches warp8_by<1..4>
+# csrc/temporal_blend.cu dispatches warp8_by<1..4>: the weight mode's
+# channels go in launches of up to MAX_CHANNELS; the alpha mode, whose
+# weight reads the last channel, takes 1 to MAX_CHANNELS
+MAX_CHANNELS = 4
 
 
 def pack_blend_params(params, view_to_world, prev_world_to_view, jitter,
@@ -156,6 +159,15 @@ def check_region(k: int, tile_shared: int, kernel: str) -> None:
                          f"not fit a block's shared memory")
 
 
+def check_shared(nbytes: int, kernel: str, what: str) -> None:
+    """Refuse a launch whose dynamic shared memory (nbytes, for `what`)
+    does not fit a block's beside the tile's static shared memory. Raises
+    ValueError."""
+    if nbytes + TILE_STATIC_SHARED > MAX_SHARED_BYTES:
+        raise ValueError(f"{what}: {kernel}'s {nbytes} bytes of dynamic "
+                         f"shared memory do not fit a block's shared memory")
+
+
 def check_volume_indices(shape: Tuple[int, ...], kernel: str) -> None:
     """Refuse a volume [C, D, H, W] that K10 or K11 cannot index in 32 bits
     (their launchers refuse it too): more than 2^31 - 1 floats, or more
@@ -181,6 +193,21 @@ K10_TILE = (16, 16)
 
 def k10_shared_bytes(k: int) -> int:
     return region_shared_bytes(K10_TILE, k)
+
+
+def channel_groups(n_ch: int, mode: str):
+    """K10's launches over n_ch channels: (first channel, channels) of each.
+    The weight mode blends each channel alone, so launches of up to
+    MAX_CHANNELS give one launch's values; the alpha mode's weight reads
+    the last channel, so it takes one launch of 1 to MAX_CHANNELS. Raises
+    ValueError for a count the mode does not take."""
+    if mode == "weight" and n_ch > 0:
+        return [(c0, min(MAX_CHANNELS, n_ch - c0))
+                for c0 in range(0, n_ch, MAX_CHANNELS)]
+    if not 0 < n_ch <= MAX_CHANNELS:
+        raise ValueError(f"{n_ch} channels in mode {mode!r}: the kernel "
+                         f"takes 1 to {MAX_CHANNELS}")
+    return [(0, n_ch)]
 
 
 def _check_blend(bpar, prev, cur, grid_whd, mode) -> None:
@@ -222,22 +249,24 @@ def temporal_blend(bpar, prev: torch.Tensor, cur: torch.Tensor,
     """K10: reproject, warp and blend in one pass, written to a new buffer.
     bpar: a pack_blend_params table on the volumes' device (the frame
     tables' sbpar for the shadow blend, abpar for the accumulation
-    blend)."""
+    blend). The weight mode takes any channel count, one launch per group
+    of up to MAX_CHANNELS (channel_groups)."""
     if prev.device.type == "cpu":
         return temporal_blend_plain(bpar, prev, cur, grid_whd, h_glob, k,
                                     mode)
     _check_blend(bpar, prev, cur, grid_whd, mode)
-    if not 0 < prev.shape[0] <= MAX_CHANNELS:
-        raise ValueError(f"{prev.shape[0]} channels: the kernel takes 1 to "
-                         f"{MAX_CHANNELS}")
-    check_volume_indices(prev.shape, "K10")
+    groups = channel_groups(prev.shape[0], mode)
+    # each launch indexes its own group's channels
+    check_volume_indices((groups[0][1], *prev.shape[1:]), "K10")
     check_region(k, k10_shared_bytes(k), "K10")
     cuda.check_cuda(bpar, prev, cur)
     w, h, d = grid_whd
     out = torch.empty_like(cur)
-    cuda.launch("temporal_blend", cuda.ptr(bpar), cuda.ptr(prev),
-                cuda.ptr(cur), cuda.ptr(out), prev.shape[0], w, h, d,
-                int(h_glob), int(k), MODES.index(mode))
+    for c0, nc in groups:
+        cuda.launch("temporal_blend", cuda.ptr(bpar),
+                    cuda.ptr(prev[c0:c0 + nc]), cuda.ptr(cur[c0:c0 + nc]),
+                    cuda.ptr(out[c0:c0 + nc]), nc, w, h, d, int(h_glob),
+                    int(k), MODES.index(mode))
     return out
 
 

@@ -102,12 +102,10 @@ from volumetricrenderer_tpu_torch.jitter import jitter_for_frame
 from volumetricrenderer_tpu_torch.models.scene import Scene, tensor_marks
 from volumetricrenderer_tpu_torch.ops import raster, raycast
 from volumetricrenderer_tpu_torch.ops.cuda import upload
-from volumetricrenderer_tpu_torch.ops.frame_fused import (MAX_DIR, MAX_NOISE,
-                                                          frame_tables,
+from volumetricrenderer_tpu_torch.ops.frame_fused import (frame_tables,
                                                           integrate_blend,
                                                           volume_phase)
-from volumetricrenderer_tpu_torch.ops.material import (media_foldable,
-                                                       noise_src)
+from volumetricrenderer_tpu_torch.ops.material import media_foldable
 from volumetricrenderer_tpu_torch.ops.shadow_blend import dir_shadow_blend
 from volumetricrenderer_tpu_torch.ops.visibility import bake_noise_channels
 from volumetricrenderer_tpu_torch.ops.zg_composite import composite_frame
@@ -195,7 +193,10 @@ class VolumetricRenderer:
 
     def check_supported(self, scene: Scene, slab=None) -> None:
         """Raise NotImplementedError for what the port does not cover (with
-        a slab, also what it does not cover in H-sharded slabs)."""
+        a slab, also what it does not cover in H-sharded slabs). Any number
+        of suns and noise media renders; what the card's indexing or shared
+        memory cannot take is refused by the kernels' wrappers, by name,
+        before any launch."""
         cfg = self.config
         if slab is not None and cfg.reproj_impl == "gather":
             raise NotImplementedError(
@@ -214,15 +215,6 @@ class VolumetricRenderer:
             if getattr(cfg, name) not in values:
                 raise NotImplementedError(
                     f"config {name}={getattr(cfg, name)!r}: one of {values}")
-        if scene.dir_lights.count > MAX_DIR:
-            raise NotImplementedError(
-                f"{scene.dir_lights.count} directional lights: the port "
-                f"takes at most {MAX_DIR}")
-        n_noise = sum(1 for m in scene.media if noise_src(m))
-        if n_noise > MAX_NOISE and self.bakes_noise(scene):
-            raise NotImplementedError(
-                f"{n_noise} noise media baked at the low rate: the port "
-                f"takes at most {MAX_NOISE}")
 
     def check_differentiable(self, scene: Scene, shadow_data,
                              slab=None) -> None:
