@@ -156,6 +156,15 @@ entry point a user calls, and the port's demo entry, and:
        post_rest         2 frames of what the showcase leaves off: FXAA,
                          grade_luts, single-scale AO, taa_step threading its
                          history: K1-K4
+       post_ssr_hq       render_frame_post with the showcase PostConfig at
+                         ssr_steps=64, ssr_dirs=16 (39 taps a bin, past the
+                         fixed instances' 32), 2 frames: K1-K4 and K13's
+                         GEN instance
+       post_ssr_wide     the same at ssr_steps=96, ssr_dirs=64 (54 taps a
+                         bin, 55,552 B of table: GEN with its table in
+                         device memory), 1 frame
+     (the post paths' K13 launches each in the form its table takes,
+     cuda.form_counts),
      and the slab paths through make_multislab_render (SLAB_PATHS: slab3,
      slab5 and slab3_staged; slab3_map_dir with K12 at the slab's y0,
      slab3_xla and slab3_tex), each shard's launches counted on their own,
@@ -185,7 +194,13 @@ entry point a user calls, and the port's demo entry, and:
      bit for bit, its hit record = the twin's) and K15, the march's
      backward, on that record and a seeded random cotangent (= its twin
      bit for bit, two launches bit for bit equal), and K15's tile and
-     shared memory; the plain XLA scatter of
+     shared memory; K13 and K15 in every form that can take each table
+     (ssr_form_holds: post_showcase's, post_ssr_hq's and post_ssr_wide's
+     last marches and a 128-bin, 96-step march of the 1080p G-buffer;
+     K13 with and without RECORD, K15 on each RECORD's hit record with
+     int16 and int32 codes and its offsets in static, opted-in or device
+     memory), each = its twin bit for bit and timed, K13's, K15's and
+     K14's forms as the wrappers mirror them; the plain XLA scatter of
      xla_scatter's, demo_xla's and demo_noise's last frames on the card
      against the same function on the CPU (tests/torch_tolerance.py's
      any-hit tolerance); on tex's frame 4 K1 (its radiance channels, the
@@ -260,7 +275,10 @@ entry point a user calls, and the port's demo entry, and:
                          instance, K15 and K14 once each and nothing else,
                          and no plain march; its first step's gradients
                          against the twins' step, forward, backward and
-                         Adam ms and peak memory printed; each path's gradients finite and one non-zero, its last loss
+                         Adam ms and peak memory printed;
+       train_ssr_hq      the same at ssr_steps=64, ssr_dirs=16, 2 steps:
+                         K13's RECORD GEN instance and K15 each step;
+     each path's gradients finite and one non-zero, its last loss
      below its first, its first step's gradients held against the same step
      with K4 and K14 swapped for their twins, its forward, backward and Adam
      ms (CUDA events), the forward without grad, a profiler window of 2
@@ -268,10 +286,13 @@ entry point a user calls, and the port's demo entry, and:
        k14               K14 against composite_grad_plain on seeded random
                          inputs: the per-pixel form at 1280x720 and the cells
                          form at 1280x704 on 160x88x64, and the cells form at
-                         1920x1080 on 240x135x128, bit for bit, two launches
-                         bit for bit equal, timed beside the twin, the bound
-                         and grid_sample's backward; K14's tile and shared
-                         memory
+                         1920x1080 on 240x135x128, and the per-pixel form at
+                         1280x720 on 160x88x1024 (2 chunks of 512 slices),
+                         bit for bit, two launches bit for bit equal, timed
+                         beside the twin, the bound and grid_sample's
+                         backward; 160x88x64 forced into 2 and 3 chunks =
+                         its one launch bit for bit; K14's tile, shared
+                         memory and chunk plan
        train_sharded     make_sharded_train_step on a one-rank NCCL group
                          over 2 views (K4 and K14 twice each) = one
                          process's step over their mean loss
@@ -456,11 +477,24 @@ SHOWCASE_POST = dict(exposure=1.1, bloom_strength=0.25, bloom_threshold=0.8,
                      ao_multiscale=True, ssr_intensity=0.5)
 REST_POST = dict(fxaa=True, ao_intensity=0.5, grade_luts=(
     (0.0, 0.25, 0.6, 1.0), (0.0, 0.5, 1.0), (0.05, 0.3, 0.7, 0.95)))
+# SSR tables past the fixed K13 instances (ssr_steps, ssr_dirs): 39 taps
+# a bin, 10,048 B (GEN, static shared memory); 54 taps, 55,552 B (GEN, the
+# table in device memory); and K15's 55,808 B at 128 bins of 54 taps (opted
+# in)
+SSR_HQ = dict(ssr_steps=64, ssr_dirs=16)
+SSR_WIDE = dict(ssr_steps=96, ssr_dirs=64)
+SSR_128 = dict(ssr_steps=96, ssr_dirs=128)
 POST_PATHS = {
     "post_bench": (BENCH_POST, 4, FUSED_KERNELS),
     "post_showcase": (SHOWCASE_POST, 4, FUSED_KERNELS + ("ssr_march",)),
     "post_rest": (REST_POST, 2, FUSED_KERNELS),
+    "post_ssr_hq": (dict(SHOWCASE_POST, **SSR_HQ), 2,
+                    FUSED_KERNELS + ("ssr_march",)),
+    "post_ssr_wide": (dict(SHOWCASE_POST, **SSR_WIDE), 1,
+                      FUSED_KERNELS + ("ssr_march",)),
 }
+# the post paths that render through render_frame_post
+FRAME_POST_PATHS = ("post_bench", "post_ssr_hq", "post_ssr_wide")
 
 # The reference demo scene (demo_scene: one sun, one red spot light,
 # constant fog, analytic primitives over the procedural terrain, which every
@@ -972,7 +1006,7 @@ def post_frame(name: str, renderer, post, cfg, state, scene, time_x,
     """One frame of post path `name`, as its user runs it. carry is what the
     path threads across frames (post_showcase: the adapted luma; post_rest:
     the TAA history). Returns (display rgb, new state, new carry)."""
-    if name == "post_bench":
+    if name in FRAME_POST_PATHS:
         rgb, _, new_state = renderer.render_frame_post(
             state, scene, cfg, time_x, scene_color, view_depth)
         return rgb, new_state, carry
@@ -1000,13 +1034,16 @@ def drive_post(name: str, renderer, post, scene, scene_color, view_depth,
     set to 0 just before and read just after; post_showcase orbits the
     camera and renders its G-buffer per frame, as demo.py does. Checks the
     launch counts and that every display image is finite, in [0, 1] and not
-    flat. Returns (last display image, the states, counts)."""
+    flat, and that each K13 launch took the form its table takes
+    (ops/ssr.k13_form). Returns (last display image, the states, counts)."""
+    from volumetricrenderer_tpu_torch.ops import ssr as ssr_ops
     kw, n_frames, expect = POST_PATHS[name]
     cfg = post.PostConfig(**kw)
     state = renderer.init_state(scene.dir_lights.count)
     carry = torch.ones((), device="cuda") if name == "post_showcase" \
         else None
     torch.cuda.synchronize()
+    forms_before = cuda.form_counts("ssr_march")
     cuda.reset_launches()
     states = [state]
     outs = []
@@ -1030,6 +1067,16 @@ def drive_post(name: str, renderer, post, scene, scene_color, view_depth,
             raise AssertionError(
                 f"path {name}: kernel {k} launched {launches[k]} times in "
                 f"{n_frames} frames (on the path: {k in expect})")
+    forms = {f: n - forms_before[f]
+             for f, n in cuda.form_counts("ssr_march").items()
+             if n != forms_before[f]}
+    offsets = post._ssr_offsets(cfg)
+    want = {ssr_ops.k13_form(len(offsets), max(len(b) for b in offsets)):
+            n_frames} if "ssr_march" in expect else {}
+    log(f"# {name}: K13's launches by form {json.dumps(forms)}")
+    if forms != want:
+        raise AssertionError(f"path {name}: K13 launched in the forms "
+                             f"{forms}, not {want}")
     for i, rgb in enumerate(outs):
         std = float(rgb.std())
         log(f"# {name} frame {i + 1}: display {tuple(rgb.shape)} checksum "
@@ -1045,6 +1092,172 @@ def drive_post(name: str, renderer, post, scene, scene_color, view_depth,
         if not std > 1e-3:
             raise AssertionError(f"path {name}: degenerate display image")
     return outs[-1], states, launches
+
+
+def march_work(args, hit_k, record=False):
+    """K13's bytes and operations on a march's inputs (dq, colours, invz0,
+    g, bins, valid, offsets, ...) and its hit record hit_k: 8 planes in and
+    5 out (and the int32 hit record with RECORD); per valid pixel the taps
+    of its own bin up to its first hit (hit_k + 1; every later tap adds
+    +-0), all of them where it finds none, ~28 operations each (two 1/z
+    lines and divides, the crossing and onscreen tests, the first-hit
+    weight and five accumulators)."""
+    hq, wq = args[0].shape
+    offsets = args[6]
+    counts = torch.tensor([len(b) for b in offsets], device=args[0].device)
+    walked = torch.where(hit_k >= 0, hit_k + 1,
+                         counts[args[4].long().clamp(0, len(offsets) - 1)])
+    taps = int((walked * args[5]).sum())
+    return 4 * (14 if record else 13) * hq * wq, 28 * taps
+
+
+def k15_work(hq, wq, hit_k):
+    """K15's: the three cotangents, the bins and the hit record in, three
+    gradients out; per pixel with a hit, its source's index and three adds
+    (the function's work: the kernel's tap tests find those pixels)."""
+    return 4 * 8 * hq * wq, 8 * int((hit_k >= 0).sum())
+
+
+def forms_that_fit(form_of, n_bins, max_taps, forms):
+    """The forms of `forms` that can take a table of n_bins x max_taps rows
+    (form_of: ops/ssr.k13_form or k15_form, which refuses the others)."""
+    out = []
+    for f in forms:
+        try:
+            out.append(form_of(n_bins, max_taps, f))
+        except ValueError:
+            pass
+    return out
+
+
+# The rows of K13's and K15's forms in the kernels line: (kernel, mode)
+# -> (the march it runs on, the form, the paths that launch it in that
+# form); the marches are the last frames' of post_ssr_hq and post_ssr_wide
+# and a 128-bin, 96-step one on the 1080p G-buffer (ssr_128)
+SSR_FORM_ROWS = {
+    ("ssr_march", "gen_39_taps"): ("post_ssr_hq", "gen", ("post_ssr_hq",)),
+    ("ssr_march", "gen_global_54_taps"): ("post_ssr_wide", "gen_global",
+                                          ("post_ssr_wide",)),
+    ("ssr_march", "gen_global_39_taps"): ("post_ssr_hq", "gen_global", ()),
+    ("ssr_march", "record_gen_39_taps"): ("post_ssr_hq", "record_gen",
+                                          ("train_ssr_hq",)),
+    ("ssr_march_grad", "fixed_39_taps"): ("post_ssr_hq", "fixed",
+                                          ("train_ssr_hq",)),
+    ("ssr_march_grad", "optin_128_bins"): ("ssr_128", "optin", ()),
+    ("ssr_march_grad", "global_wide_39_taps"): ("post_ssr_hq",
+                                                "global_wide", ()),
+    ("ssr_march_grad", "global_39_taps"): ("post_ssr_hq", "global", ()),
+}
+
+
+def ssr_form_holds(ssr_ops, post, march_by, scene_color, view_depth):
+    """K13 and K15 in every form that can take each table, on real marches:
+    post_showcase's (8 bins of <= 12 taps: the fixed instances), post_ssr_
+    hq's (16 of <= 39: GEN), post_ssr_wide's (64 of <= 54: GEN, the table
+    in device memory) and ssr_128 (the 1080p G-buffer marched with 128
+    bins of <= 54 taps, K15's table opted in). Each K13 form without and with RECORD, each K15
+    form on that RECORD's hit record and a seeded cotangent, is its twin
+    bit for bit (and so every other form there), and is timed beside its
+    twin and bound. Returns ({(kernel, mode): row} of SSR_FORM_ROWS,
+    less the launches; max abs errors {kernel: largest})."""
+    marches = {k: march_by[k] for k in ("post_showcase", "post_ssr_hq",
+                                        "post_ssr_wide")}
+    recorded, real = [], ssr_ops.ssr_march
+
+    def recording(*args, **kw):
+        recorded.append(args)
+        return real(*args, **kw)
+
+    ssr_ops.ssr_march = recording
+    try:
+        with torch.no_grad():
+            post._ssr_p([scene_color[..., c] for c in range(3)], view_depth,
+                        post.PostConfig(ssr_intensity=0.5, **SSR_128))
+    finally:
+        ssr_ops.ssr_march = real
+    marches["ssr_128"] = recorded[-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    timed, errs = {}, {"ssr_march": 0.0, "ssr_march_grad": 0.0}
+    # the twins are timed on the marches of a row only
+    rowed = {(k, label) for (k, _), (label, _, _) in SSR_FORM_ROWS.items()}
+    twin_ms = lambda k, label, fn: cuda_time_ms(fn, 1) \
+        if (k, label) in rowed else None
+    for label, args in marches.items():
+        offsets = args[6]
+        n_bins, max_taps = len(offsets), max(len(b) for b in offsets)
+        hq, wq = args[0].shape
+        twin = ssr_ops.ssr_march_reference(*args, record=True)
+        twin5 = torch.stack(twin[:5])
+        k13_forms = forms_that_fit(ssr_ops.k13_form, n_bins, max_taps,
+                                   ssr_ops.K13_FORMS)
+        hit_share = float(twin5[3].mean())
+        log(f"# ssr_form_holds, {label}: {hq}x{wq} planes, {n_bins} bins of "
+            f"<= {max_taps} taps ({ssr_ops.k13_shared_bytes(n_bins, max_taps)}"
+            f" B of K13 table, {ssr_ops.k15_shared_bytes(n_bins, max_taps)} "
+            f"B of K15's), hit share {hit_share:.4f}; K13 forms {k13_forms} "
+            f"(size rule {ssr_ops.k13_form(n_bins, max_taps)})")
+        if not 0.0 < hit_share < 1.0:
+            raise AssertionError(f"{label}: the SSR march finds no hits")
+        plain = twin_ms("ssr_march", label,
+                        lambda: ssr_ops.ssr_march_reference(*args))
+        plain_rec = twin_ms("ssr_march", label,
+                            lambda: ssr_ops.ssr_march_reference(
+                                *args, record=True))
+        for f in k13_forms:
+            for record in (False, True):
+                out = ssr_ops.ssr_march(*args, record=record, form=f)
+                err = compare("ssr_march", torch.stack(out[:5]), twin5,
+                              label=f"{label}, {'record_' * record}{f}")
+                same = torch.equal(torch.stack(out[:5]), twin5) and (
+                    not record or torch.equal(out[5], twin[5]))
+                if not same:
+                    raise AssertionError(f"K13 {f} (record {record}) on "
+                                         f"{label} differs from its twin")
+                errs["ssr_march"] = max(errs["ssr_march"], err)
+                ms = kernel_time_ms(lambda f=f, r=record: ssr_ops.ssr_march(
+                    *args, record=r, form=f), 20)
+                mode = f"record_{f}" if record else f
+                timed[("ssr_march", label, mode)] = dict(
+                    max_abs_err=err, ms=ms,
+                    plain_ms=plain_rec if record else plain,
+                    work=march_work(args, twin[5], record))
+                log(f"# ssr_march {mode} on {label}: {ms:.4f} ms/launch, "
+                    f"= its twin bit for bit (hit record too)")
+        hit_k = twin[5]
+        cots = [torch.randn((hq, wq), generator=gen, device="cuda")
+                for _ in range(3)]
+        g_args = (cots, args[4], hit_k, offsets, args[8])
+        g_twin = torch.stack(ssr_ops.ssr_march_grad_plain(*g_args[:4]))
+        g_plain = twin_ms("ssr_march_grad", label,
+                          lambda: ssr_ops.ssr_march_grad_plain(*g_args[:4]))
+        k15_forms = forms_that_fit(ssr_ops.k15_form, n_bins, max_taps,
+                                   ssr_ops.K15_FORMS)
+        log(f"# ssr_form_holds, {label}: K15 forms {k15_forms} (size rule "
+            f"{ssr_ops.k15_form(n_bins, max_taps)}), share of source pixels "
+            f"fed {float((g_twin != 0).float().mean()):.4f}")
+        for f in k15_forms:
+            got = torch.stack(ssr_ops.ssr_march_grad(*g_args, form=f))
+            err = compare("ssr_march_grad", got, g_twin, label=f"{label}, {f}")
+            if not torch.equal(got, g_twin):
+                raise AssertionError(f"K15 {f} on {label} differs from its "
+                                     "twin")
+            errs["ssr_march_grad"] = max(errs["ssr_march_grad"], err)
+            ms = kernel_time_ms(lambda f=f: ssr_ops.ssr_march_grad(
+                *g_args, form=f), 20)
+            timed[("ssr_march_grad", label, f)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=g_plain,
+                work=k15_work(hq, wq, hit_k))
+            log(f"# ssr_march_grad {f} on {label}: {ms:.4f} ms/launch, = "
+                "its twin bit for bit")
+    rows = {}
+    for (k, m), (label, f, _) in SSR_FORM_ROWS.items():
+        row = dict(timed[(k, label, f)])
+        b_ms, b_by = bound(*row.pop("work"))
+        rows[(k, m)] = dict(row, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None, march=label)
+    return rows, errs
+
 
 
 def frame_times(name: str, renderer, scene, scene_color, view_depth, state,
@@ -1434,7 +1647,13 @@ K14_FORMS = {
                    "train_lights, train_opacity, train_sharded"),
     "cells_1080p": ("cells", (1080, 1920), (240, 135, 128),
                     "checked and timed only"),
+    # past one launch's shared memory: 2 chunks of 512 slices
+    "pixels_720p_1024": ("pixels", (720, 1280), (160, 88, 1024),
+                         "checked and timed only"),
 }
+# K14's chunked form forced on a grid one launch takes: form of K14_FORMS
+# -> the chunk counts held against its one launch, the first of them timed
+K14_FORCED = {"pixels_720p": (2, 3)}
 
 
 def train_setup(kind, inverse, scene):
@@ -1499,8 +1718,8 @@ def train_path(name, renderer, scene, scene_color, view_depth, shadow_data,
     real = zg._k4, zg._k14
     zg._k4 = lambda form, *a: (zg.composite_plain if form == "cells"
                                else zg.composite_pixels_plain)(*a)
-    zg._k14 = lambda form, g, sc, vd, p, grid: zg.composite_grad_plain(
-        g, sc, vd, p, grid, form)
+    zg._k14 = lambda form, g, sc, vd, p, grid, chunks=None: \
+        zg.composite_grad_plain(g, sc, vd, p, grid, form)
     try:
         inverse.image_loss(renderer, apply_fn(twin_params, scene), state,
                            target, scene_color, view_depth,
@@ -1610,8 +1829,10 @@ TRAIN_SSR_KERNELS = ("composite", "composite_grad", "ssr_march",
 
 
 def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
-              inverse, cuda, zg, ssr_ops, post):
-    """The train_ssr phase: TRAIN_STEPS Adam steps (lr TRAIN_LR) of the fog
+              inverse, cuda, zg, ssr_ops, post, name="train_ssr",
+              post_kw=None, steps=TRAIN_STEPS):
+    """The train_ssr phase (`name`, its PostConfig post_kw, TRAIN_SSR_POST
+    by default): `steps` Adam steps (lr TRAIN_LR) of the fog
     toward absorption 0.6, the loss the mean squared error of
     render_frame_post's display image, from a fresh state with the launch
     counters set to 0 just before and read just after. Each step must
@@ -1622,9 +1843,14 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
     ulps and the plain passes' autograd; K14 and K15 are their twins bit
     for bit), checks that they are finite and one is non-zero, times
     forward, backward and Adam with CUDA events and reports the peak device
-    memory. Returns (launches, record)."""
+    memory. Each step's K13 and K15 launches must take the forms their
+    table takes (cuda.form_counts). Returns (launches, record)."""
     import copy
-    cfg = post.PostConfig(**TRAIN_SSR_POST)
+    cfg = post.PostConfig(**(post_kw or TRAIN_SSR_POST))
+    offsets = post._ssr_offsets(cfg)
+    table = (len(offsets), max(len(b) for b in offsets))
+    want_forms = {"ssr_march": {"record_" + ssr_ops.k13_form(*table): steps},
+                  "ssr_march_grad": {ssr_ops.k15_form(*table): steps}}
     params, apply_fn, target_scene = train_setup("fog", inverse, scene)
     state = renderer.init_state(scene.dir_lights.count)
 
@@ -1643,8 +1869,8 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
     real = (zg._k4, zg._k14, ssr_ops.ssr_march, ssr_ops.ssr_march_grad)
     zg._k4 = lambda form, *a: (zg.composite_plain if form == "cells"
                                else zg.composite_pixels_plain)(*a)
-    zg._k14 = lambda form, g, sc, vd, p, grid: zg.composite_grad_plain(
-        g, sc, vd, p, grid, form)
+    zg._k14 = lambda form, g, sc, vd, p, grid, chunks=None: \
+        zg.composite_grad_plain(g, sc, vd, p, grid, form)
     ssr_ops.ssr_march = lambda *a, record=False: \
         ssr_ops.ssr_march_reference(*a, record=record)
     ssr_ops.ssr_march_grad = lambda g, b, h, o, m: \
@@ -1683,54 +1909,62 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
+        forms_before = {k: cuda.form_counts(k) for k in want_forms}
         cuda.reset_launches()
         losses, first = [], None
         t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             before = dict(cuda.LAUNCHES)
             losses.append(float(step()))
             delta = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.SOURCES}
             want = {k: int(k in TRAIN_SSR_KERNELS) for k in cuda.SOURCES}
             if delta != want:
                 raise AssertionError(
-                    f"train_ssr: step {i} launched "
+                    f"{name}: step {i} launched "
                     f"{ {k: v for k, v in delta.items() if v} }, not "
                     f"{TRAIN_SSR_KERNELS} once each")
             if i == 0:
                 first = leaf_grads(params)
         torch.cuda.synchronize()
-        step_wall = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+        step_wall = 1e3 * (time.perf_counter() - t0) / steps
         launches = dict(cuda.LAUNCHES)
+        forms = {k: {f: n - forms_before[k][f]
+                     for f, n in cuda.form_counts(k).items()
+                     if n != forms_before[k][f]} for k in want_forms}
         peak = torch.cuda.max_memory_allocated() - held
     finally:
         ssr_ops.ssr_march_reference, ssr_ops.ssr_march_grad_plain = \
             real_plain
-    log(f"# train_ssr: launches in the {TRAIN_STEPS}-step run: "
-        f"{json.dumps({k: v for k, v in launches.items() if v})}; plain "
-        f"marches {json.dumps(plain)}; losses "
+    log(f"# {name}: launches in the {steps}-step run: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, by form "
+        f"{json.dumps(forms)} ({table[0]} bins of <= {table[1]} taps); "
+        f"plain marches {json.dumps(plain)}; losses "
         f"{[f'{v:.6e}' for v in losses]} (fell: {losses[-1] < losses[0]})")
+    if forms != want_forms:
+        raise AssertionError(f"{name}: K13 and K15 launched in the forms "
+                             f"{forms}, not {want_forms}")
     if any(plain.values()):
-        raise AssertionError("train_ssr: a plain SSR march ran")
+        raise AssertionError(f"{name}: a plain SSR march ran")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"train_ssr: non-finite loss {losses}")
+        raise AssertionError(f"{name}: non-finite loss {losses}")
     nonzero = False
     for n, g in first.items():
         w = twin[n]
         if not (bool(torch.isfinite(g).all())
                 and bool(torch.isfinite(w).all())):
-            raise AssertionError(f"train_ssr: non-finite gradient {n}")
+            raise AssertionError(f"{name}: non-finite gradient {n}")
         err = float((g - w).abs().max()) if g.numel() else 0.0
         scale = float(w.abs().max()) if w.numel() else 0.0
         nonzero = nonzero or float(g.abs().max() if g.numel() else 0) > 0
-        log(f"# train_ssr: gradient {n} {tuple(g.shape)} max |g| "
+        log(f"# {name}: gradient {n} {tuple(g.shape)} max |g| "
             f"{float(g.abs().max()) if g.numel() else 0.0:.4e}, max |g - "
             f"g_twin| {err:.3e} (allowed 1e-4 max|g_twin| + 1e-12 = "
             f"{1e-4 * scale + 1e-12:.3e})")
         if err > 1e-4 * scale + 1e-12:
-            raise AssertionError(f"train_ssr: gradient {n} disagrees with "
+            raise AssertionError(f"{name}: gradient {n} disagrees with "
                                  "the twins' step")
     if not nonzero:
-        raise AssertionError("train_ssr: every gradient is zero")
+        raise AssertionError(f"{name}: every gradient is zero")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     parts = {"forward": 0.0, "backward": 0.0, "adam": 0.0}
     n = 3
@@ -1751,7 +1985,7 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
     profile_frames(step, 2)
     record = dict(parts, step_wall_ms=step_wall, peak_bytes=peak,
                   losses=losses, forward_no_grad_ms=no_grad)
-    log(f"# train_ssr step: forward {parts['forward']:.3f} ms, backward "
+    log(f"# {name} step: forward {parts['forward']:.3f} ms, backward "
         f"{parts['backward']:.3f} ms, Adam {parts['adam']:.3f} ms (CUDA "
         f"events, mean of {n}); the forward without grad {no_grad:.3f} ms; "
         f"{step_wall:.3f} ms host wall a step over the counted run; peak "
@@ -1760,14 +1994,18 @@ def train_ssr(renderer, scene, scene_color, view_depth, shadow_data,
     return launches, record
 
 
-def k14_forms(zg, froxel, camera, sample_grid, bound):
+def k14_forms(zg, froxel, camera, sample_grid, bound, cuda):
     """K14 against composite_grad_plain in each of K14_FORMS on seeded random
     inputs (a torch.Generator): a gradient in [-1, 1], a scene in [0, 1],
     depths from the near plane to 140 (past the volume's far end); its
     time, the twin's, the bound and, as the library yardstick, the backward
     of grid_sample (3D, border) at the same sample points. K14 must equal
     its twin (CHECKS: 0) and a second launch on the same inputs bit for
-    bit. Returns form -> (max abs err, ms, plain ms, library ms, (bytes,
+    bit; where K14_FORCED names the form, its chunked form forced into
+    those chunk counts equals the one launch bit for bit (the first timed,
+    as form "<form>_<n>_chunks"). Each launch's form (one launch or
+    chunked) must be the one k14_chunks plans (cuda.form_counts). Returns
+    form -> (max abs err, ms, plain ms, library ms, (bytes,
     operations))."""
     dev = camera.position.device
     gen = torch.Generator(device=dev)
@@ -1782,7 +2020,17 @@ def k14_forms(zg, froxel, camera, sample_grid, bound):
         sc = rnd(ih, iw, 3).contiguous()
         vd = (float(camera.near) + rnd(ih, iw) * 140.0).contiguous()
         args = (g_img, sc, vd, p, grid, k4_form)
+        n_chunks = zg.k14_chunks(d, zg.grad_footprint(ih, iw, grid,
+                                                       k4_form)[1])[0]
+        before = cuda.form_counts("composite_grad")
         got = zg.composite_grad(*args)
+        form_of = {f: c - before[f] for f, c in
+                   cuda.form_counts("composite_grad").items()
+                   if c != before[f]}
+        want = {"chunked" if n_chunks > 1 else "one": 1}
+        if form_of != want:
+            raise AssertionError(f"K14 ({form}) launched {form_of}, not "
+                                 f"{want} ({n_chunks} chunks planned)")
         twin = zg.composite_grad_plain(*args)
         err = compare("composite_grad", got, twin, form)
         again = zg.composite_grad(*args)
@@ -1805,10 +2053,26 @@ def k14_forms(zg, froxel, camera, sample_grid, bound):
         work = (n_pix * (16 + 4 + 12) + 16 * n_fro, 70 * n_pix)
         b_ms, b_by = bound(*work)
         log(f"# composite_grad, {form} ({k4_form}, {iw}x{ih} on "
-            f"{w}x{h}x{d}): {ms:.4f} ms/launch, plain {plain:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({work[0] / 1e6:.1f} MB), grid_sample "
-            f"backward {lib:.4f} ms")
+            f"{w}x{h}x{d}, {n_chunks} chunk(s)): {ms:.4f} ms/launch, plain "
+            f"{plain:.3f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({work[0] / 1e6:.1f} MB), grid_sample backward {lib:.4f} ms")
         out[form] = (err, ms, plain, lib, work)
+        for i, n in enumerate(K14_FORCED.get(form, ())):
+            chunked = zg.composite_grad(*args, chunks=n)
+            same = torch.equal(chunked, got)
+            log(f"# composite_grad, {form} forced into {n} chunks: = its "
+                f"one launch bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"K14 ({form}) in {n} chunks differs "
+                                     "from its one launch")
+            if i == 0:
+                c_ms = kernel_time_ms(
+                    lambda n=n: zg.composite_grad(*args, chunks=n), 20)
+                log(f"# composite_grad, {form} in {n} chunks: {c_ms:.4f} "
+                    f"ms/launch (one launch {ms:.4f})")
+                out[f"{form}_{n}_chunks"] = (
+                    compare("composite_grad", chunked, twin,
+                            f"{form}_{n}_chunks"), c_ms, plain, lib, work)
     return out
 
 
@@ -1889,7 +2153,7 @@ def k14_entry(k14, train_launches, replaces, bound):
     def fields(form):
         err, ms, plain, lib, work = k14[form]
         b_ms, b_by = bound(*work)
-        paths = K14_FORMS[form][3]
+        paths = K14_FORMS.get(form, (0, 0, 0, "checked and timed only"))[3]
         return {"launches": sum(by_path.get(p.strip(), 0)
                                 for p in paths.split(",")),
                 "paths": paths, "max_abs_err": err, "ms": ms,
@@ -1905,7 +2169,7 @@ def k14_entry(k14, train_launches, replaces, bound):
     entry["launches_by_path"] = by_path
     entry["max_abs_err"] = max(v[0] for v in k14.values())
     entry["largest_hold"] = LARGEST.get("composite_grad", (None, None))[1]
-    for form in K14_FORMS:
+    for form in k14:
         if form != "pixels_720p":
             entry[form] = fields(form)
     return entry
@@ -2532,22 +2796,24 @@ def main() -> int:
     if sorted(xla_args) != sorted(XLA_SCATTER_PATHS):
         raise AssertionError(f"the XLA scatter ran on {sorted(xla_args)}, "
                              f"not on {sorted(XLA_SCATTER_PATHS)}")
-    # the post stack on the fused frame; the SSR march's inputs of the last
-    # post_showcase frame are kept for K13's check
-    march_args = []
+    # the post stack on the fused frame; the SSR march's inputs of each
+    # post path's last frame are kept for K13's checks
+    march_by, marching = {}, [None]
     real_march = ssr_ops.ssr_march
 
     def recording_march(*args):
-        march_args[:] = [args]
+        march_by[marching[0]] = args
         return real_march(*args)
 
     ssr_ops.ssr_march = recording_march
     try:
         for name in POST_PATHS:
+            marching[0] = name
             runs[name] = drive_post(name, renderers["fused"], post, scene,
                                     scene_color, view_depth, cuda)
     finally:
         ssr_ops.ssr_march = real_march
+    march_args = [march_by["post_showcase"]]
     # the slab paths through make_multislab_render, each shard's G-buffer
     # band bound as fixed_inputs (bench.py's run_slabn)
     slab_fns, slab_runs = {}, {}
@@ -2956,6 +3222,36 @@ def main() -> int:
                     f"K15's tile, shared bytes and code plane at {nb} bins "
                     f"of {nt} taps, {hq_}x{wq_} over a {sy}x{sx} span: "
                     f"{tuple(k15_geo)} in the kernel, {want} in ops/ssr")
+    # K13's and K15's forms by the size rule at (bins, taps a bin): the
+    # tables of ssr_steps / ssr_dirs 12 / 8, 24 / 16, 48 / 8, 64 / 16,
+    # 96 / 64 and 96 / 128, and the edges of each placement and code width
+    form_of = (cuda.ctypes.c_int * 1)()
+    for nb, nt in ((8, 12), (16, 24), (8, 33), (16, 39), (64, 54),
+                   (128, 54), (96, 32), (450, 32), (451, 32), (268, 54),
+                   (500, 65), (600, 56), (1, 1)):
+        for src, mirror, names in (
+                ("ssr_march", ssr_ops.k13_form, ssr_ops.K13_FORMS),
+                ("ssr_march_grad", ssr_ops.k15_form, ssr_ops.K15_FORMS)):
+            getattr(cuda.lib(src), f"vr_{src}_form_of")(
+                nb, nt, cuda.ctypes.cast(form_of, cuda.ctypes.c_void_p))
+            if names[form_of[0]] != mirror(nb, nt):
+                raise AssertionError(
+                    f"{src}'s form at {nb} bins of {nt} taps: "
+                    f"{names[form_of[0]]} in the kernel, {mirror(nb, nt)} "
+                    "in ops/ssr")
+    # K14's chunk plan (chunks, slices a chunk, shared bytes) at the
+    # training footprints, one launch up to 851 slices and chunks past
+    k14_plan = (cuda.ctypes.c_int * 3)()
+    for d_ in (64, 128, 830, 851, 852, 1024, 4096):
+        fw_ = zg.grad_footprint(720, 1280, (160, 88, d_), "pixels")[1]
+        cuda.lib("composite_grad").vr_composite_grad_plan(
+            d_, fw_, cuda.ctypes.cast(k14_plan, cuda.ctypes.c_void_p))
+        n_, zc_ = zg.k14_chunks(d_, fw_)
+        want = (n_, zc_, zg.k14_shared_bytes(zc_, fw_))
+        if tuple(k14_plan) != want:
+            raise AssertionError(f"K14's chunk plan at {d_} slices: "
+                                 f"{tuple(k14_plan)} in the kernel, {want} "
+                                 "in ops/zg_composite")
     # K14's tile, threads, rows a chunk and shared bytes at the training
     # grids' slices and their widest footprints (zg_composite.
     # grad_footprint)
@@ -3200,6 +3496,11 @@ def main() -> int:
             or not torch.equal(k15, k15_again):
         raise AssertionError("K15 differs from its twin or from its own "
                              "second launch, or feeds no pixel")
+    # K13 and K15 in every form that can take each table
+    ssr_rows, ssr_errs = ssr_form_holds(ssr_ops, post, march_by, scene_color,
+                                        view_depth)
+    for k, e in ssr_errs.items():
+        errs[k] = max(errs[k], e)
 
     # the plain XLA scatter on the card against the same function on the
     # CPU, on the arguments of xla_scatter's and demo_xla's last frames:
@@ -4191,20 +4492,10 @@ def main() -> int:
         return 4 * (nd * s2 * s2 + n_out), n_out * 45 + pairs * 50
 
     work["pcf_shadow"] = pcf_work(pcf_low)
-    # K13: 8 planes in and 5 out; per valid pixel its own bin's taps, ~28
-    # operations each (two 1/z lines and divides, the crossing and onscreen
-    # tests, the first-hit weight and five accumulators)
-    m_counts = torch.tensor([len(b) for b in m_args[6]], device="cuda")
-    m_taps = int((m_counts[m_args[4].long().clamp(0, len(m_args[6]) - 1)]
-                  * m_args[5]).sum())
-    work["ssr_march"] = (4 * 13 * hq * wq, 28 * m_taps)
-    # the record instance writes the int32 hit record besides
-    rec_work = (4 * 14 * hq * wq, 28 * m_taps)
-    # K15: the three cotangents, the bins and the hit record in, three
-    # gradients out; per pixel with a hit, its source's index and three
-    # adds (the function's work: the kernel's tap tests find those pixels)
-    k15_hits = int((k13_rec[5] >= 0).sum())
-    work["ssr_march_grad"] = (4 * 8 * hq * wq, 8 * k15_hits)
+    # K13 and its RECORD instance (march_work), K15 (k15_work)
+    work["ssr_march"] = march_work(m_args, k13_rec[5])
+    rec_work = march_work(m_args, k13_rec[5], record=True)
+    work["ssr_march_grad"] = k15_work(hq, wq, k13_rec[5])
     weight_work = (4 * 3 * nd * n_fro,
                    n_fro * (ops_reproj + warp(nd) + 3 * nd))
     # K6 per-light: the shadow in, the planes out; per froxel the material
@@ -4502,9 +4793,15 @@ def main() -> int:
     train_launches["train_ssr"], train_rec["train_ssr"] = train_ssr(
         renderers["demo_xla"], demo, *demo_gbuf[720], bakes["demo_xla"],
         inverse, cuda, zg, ssr_ops, post)
+    # train_ssr_hq: the same past 32 taps a bin (K13's RECORD GEN instance)
+    train_launches["train_ssr_hq"], train_rec["train_ssr_hq"] = train_ssr(
+        renderers["demo_xla"], demo, *demo_gbuf[720], bakes["demo_xla"],
+        inverse, cuda, zg, ssr_ops, post, name="train_ssr_hq",
+        post_kw=dict(TRAIN_SSR_POST, **SSR_HQ), steps=2)
     launches["ssr_march_grad"] = {
-        "train_ssr": train_launches["train_ssr"]["ssr_march_grad"]}
-    k14 = k14_forms(zg, froxel, demo.camera, sample_grid, bound)
+        p_: train_launches[p_]["ssr_march_grad"]
+        for p_ in ("train_ssr", "train_ssr_hq")}
+    k14 = k14_forms(zg, froxel, demo.camera, sample_grid, bound, cuda)
     errs["composite_grad"] = max(v[0] for v in k14.values())
     r_704 = VolumetricRenderer(dataclasses.replace(DEMO_CONFIG,
                                                    **RAYCAST_704))
@@ -4674,6 +4971,23 @@ def main() -> int:
             log(f"# pcf_shadow, full rate: {pcf_full_ms:.4f} ms/launch, "
                 f"plain {pcf_full_plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by}")
+        # K13's and K15's forms past 32 taps a bin and 48 KB of table
+        # (ssr_form_holds), each with the paths that launch it in its form
+        for (k, m), row in ssr_rows.items():
+            if k != name:
+                continue
+            paths = SSR_FORM_ROWS[(k, m)][2]
+            by = {**launches[name], **{p_: c[name] for p_, c in
+                                       train_launches.items() if c.get(name)}}
+            entry[m] = dict(row, launches=sum(by.get(p_, 0) for p_ in paths),
+                            paths=list(paths))
+            log(f"# {name}, {m} (on {row['march']}'s march): "
+                f"{row['ms']:.4f} ms/launch, plain "
+                + (f"{row['plain_ms']:.3f} ms" if row['plain_ms'] is not None
+                   else "not timed")
+                + f", bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"launches {entry[m]['launches']} "
+                f"({', '.join(paths) or 'held and timed only'})")
         if name == "ssr_march":
             # the RECORD instance: SsrMarchFn's forward, train_ssr's
             b_ms, b_by = bound(*rec_work)

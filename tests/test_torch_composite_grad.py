@@ -13,6 +13,14 @@ puts K4 forward and K14 backward, on the CPU:
     another order: where they cancel, the rounding is relative to the
     terms, not to their sum), rtol 1e-5 and atol 1e-7 for the scene
     colour (one product a pixel);
+  * at 1024 slices (the per-pixel form on 16x11x1024 at 128x88, which the
+    card takes in two chunks of 512 slices), the twin against the same
+    jax.vjp: there the froxel z of a pixel, ~1000, carries float32's
+    spacing of 6.1e-5, and the port's and JAX's z mappings (torch's and
+    XLA's log) differ by up to 2 of those spacings -- as JAX's own jit and
+    op-by-op mappings do. Each term moves by g Delta f: the bound adds,
+    per froxel, the largest z difference times the sum of its terms'
+    |g| w, to the tolerance above;
   * CompositeFn with the K4 launcher patched to its twins: the image and
     the scene colour's gradient equal autograd of the plain composite bit
     for bit, the accumulation's gradient equals K14's twin bit for bit
@@ -128,6 +136,53 @@ def test_twin_matches_jax_vjp(form):
     _, _, t_scene = autograd_of_plain(form, x)
     np.testing.assert_allclose(t_scene.numpy(), np.asarray(g_scene),
                                rtol=1e-5, atol=1e-7)
+
+
+def test_twin_matches_jax_vjp_at_1024_slices():
+    """composite_grad_plain against jax.vjp of JAX pipeline.composite
+    (rowmm: the per-pixel form) on a grid past one K14 launch's shared
+    memory, with the z mapping's rounding in the bound (the docstring)."""
+    (ih, iw), grid = (88, 128), (16, 11, 1024)
+    w, h, d = grid
+    fw = zg.grad_footprint(ih, iw, grid, "pixels")[1]
+    assert zg.k14_chunks(d, fw) == (2, 512)
+    cfg = JRenderConfig(volume_width=w, volume_height=h, volume_depth=d,
+                        image_width=iw, image_height=ih,
+                        composite_impl="rowmm")
+    rng = np.random.default_rng(5)
+    acc = rng.uniform(0, 1, (d, h, w, 4)).astype(np.float32)
+    scene = rng.uniform(0, 1, (ih, iw, 3)).astype(np.float32)
+    depth = rng.uniform(0.05, 140.0, (ih, iw)).astype(np.float32)
+    grad = rng.normal(size=(ih, iw, 4)).astype(np.float32)
+    jp = jfroxel.make_froxel_params(jnp.float32(FOV), jnp.float32(iw / ih),
+                                    jnp.float32(NEAR), 100.0, 0.5, grid)
+    tp = tfroxel.make_froxel_params(torch.tensor(FOV), torch.tensor(iw / ih),
+                                    torch.tensor(NEAR), 100.0, 0.5, grid)
+    _, vjp = jax.vjp(lambda a: jpipeline.composite(
+        cfg, jp, a, jnp.asarray(scene), jnp.asarray(depth)),
+        jnp.asarray(acc))
+    want = np.asarray(vjp(jnp.asarray(grad))[0])
+    t = torch.as_tensor
+    got = zg.composite_grad_plain(t(grad), t(scene), t(depth), tp, grid,
+                                  "pixels").permute(1, 2, 3, 0).numpy()
+    dz = float(np.abs(np.asarray(jfroxel.depth_to_froxel_z(
+        jp, jnp.asarray(depth))) - tfroxel.depth_to_froxel_z(
+        tp, t(depth)).numpy()).max())
+    assert dz <= 2 * np.spacing(np.float32(d - 1))
+    # per froxel, the sum of |g| w over its z0 and z1 terms
+    z0, z1, _ = zg._z_taps(tp, t(depth), d)
+    gv = zg._grad_of_v(t(np.abs(grad)), t(scene))[:, :, None, :, None]
+    yy, xx, wt = zg._grad_taps((ih, iw), grid, "pixels", "cpu")
+    terms = torch.zeros((4, d * h * w))
+    for z in (z0, z1):
+        at = (z[:, None, :, None] * h + yy) * w + xx
+        terms.index_add_(1, at.reshape(-1), (gv * wt).reshape(4, -1))
+    terms = terms.reshape(4, d, h, w).permute(1, 2, 3, 0).numpy()
+    bound = (1e-7 + 1e-6 * np.abs(want).max() + 1e-5 * np.abs(want)
+             + dz * terms)
+    assert float(np.abs(want).max()) > 1.0
+    assert (np.abs(got - want) <= bound).all(), float(
+        (np.abs(got - want) - bound).max())
 
 
 @pytest.mark.parametrize("form", list(CASES))

@@ -7,7 +7,9 @@ csrc/common.cuh) and K12's (csrc/pcf_shadow.cu), of K8's column tiles
 (csrc/ssr_march.cu): the launch grids and shared memory as the wrappers
 mirror them, the reach of the reprojection region and of K11's staged
 targets, K1's and K9's share of each sample's lights among their warps,
-K13's packed tap table and its first-hit march, and the wrappers' refusal
+K13's packed tap table, its first-hit march and its forms by the table's
+size (k13_form: the GEN instance past 32 taps a bin, the table opted in
+past 48 KB and in device memory past 227 KB), and the wrappers' refusal
 of tables and volumes the kernels cannot index in 32 bits or whose region
 or table passes shared memory. Plain Python and torch on the CPU (meta
 tensors for the large grids); no JAX."""
@@ -862,17 +864,57 @@ def test_k13_launch(hq, wq, n_bins, max_taps, grid, shared, unroll):
 
 
 def test_k13_refuses_a_table_past_its_unroll():
-    """33 taps a bin pass the largest instance, and a table past 48 KB of
-    shared memory is refused, both before the launch (meta planes)."""
+    """33 taps a bin pass the largest fixed instance and take the GEN
+    instance (k13_unroll 0); a table past 48 KB stays in device memory
+    (GEN's global form). Neither is refused any more: the wrapper reaches the device
+    check (meta planes). What K13 still refuses before a launch: a forced
+    form that cannot take the table, and an offset past its 12-bit
+    packing."""
     assert t_ssr.k13_unroll(32) == 32
-    with pytest.raises(NotImplementedError):
-        t_ssr.k13_unroll(33)
+    assert t_ssr.k13_unroll(33) == 0
     planes = [torch.empty((270, 480), device="meta") for _ in range(8)]
     tap = (1.0, 2.0, 0, 2)
-    for offsets in ((tuple([tap] * 33),) * 8, (tuple([tap] * 32),) * 96):
-        with pytest.raises(NotImplementedError):
+    for offsets, form in (((tuple([tap] * 33),) * 8, "gen"),
+                          ((tuple([tap] * 32),) * 96, "gen_global")):
+        assert t_ssr.k13_form(len(offsets), len(offsets[0])) == form
+        with pytest.raises(ValueError, match="CUDA"):
             t_ssr.ssr_march(planes[0], planes[1:4], *planes[4:], offsets,
                             0.6, 56.0)
+        with pytest.raises(ValueError, match="K13 form 'fixed'"):
+            t_ssr.ssr_march(planes[0], planes[1:4], *planes[4:], offsets,
+                            0.6, 56.0, form="fixed")
+    with pytest.raises(ValueError, match="2048"):
+        t_ssr.pack_taps(((tap, (1.0, 2.0, 0, -2048)),), 56.0)
+
+
+# (bins, taps a bin) -> K13's form by the size rule: the ssr_steps /
+# ssr_dirs tables of the default, 24 / 16, 48 / 8, 64 / 16, 96 / 64, 96 /
+# 128, and the edges of static shared memory (48 KB) for the fixed and the
+# GEN instance
+K13_FORM_CASES = [
+    (8, 12, "fixed"), (16, 24, "fixed"), (8, 33, "gen"), (16, 39, "gen"),
+    (64, 54, "gen_global"), (128, 54, "gen_global"), (95, 32, "fixed"),
+    (96, 32, "gen_global"), (189, 16, "fixed"), (56, 54, "gen"),
+    (57, 54, "gen_global")]
+
+
+@pytest.mark.parametrize("n_bins,max_taps,form", K13_FORM_CASES)
+def test_k13_form(n_bins, max_taps, form):
+    """The wrapper's mirror of K13's size rule, and the forms that can be
+    forced on the same table: a fixed form up to 32 taps a bin, a shared
+    form where its bytes fit, the global form always."""
+    assert t_ssr.k13_form(n_bins, max_taps) == form
+    smem = t_ssr.k13_shared_bytes(n_bins, max_taps)
+    unrolled = max_taps <= 32
+    fits = {"fixed": unrolled and smem <= 48 * 1024,
+            "gen": smem <= 48 * 1024, "gen_global": True}
+    assert tuple(fits) == t_ssr.K13_FORMS
+    for f, ok in fits.items():
+        if ok:
+            assert t_ssr.k13_form(n_bins, max_taps, f) == f
+        else:
+            with pytest.raises(ValueError, match="K13 form"):
+                t_ssr.k13_form(n_bins, max_taps, f)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(ssr_steps=24, ssr_dirs=16)])

@@ -24,10 +24,12 @@ checkout's in its place, in the order this, other, other, this (not with
 --rows-only). Prints the card's name and power limit first and a JSON line
 of the rows last. Exits non-zero on a disagreement or without a GPU.
 
-Another checkout's vr_ssr_march takes the same arguments; its tap table is
-the packed float4 rows of ops/ssr.pack_taps where its library has
-vr_ssr_march_geometry, else the first form's [n_bins, max_taps, 5] rows
-(t_prev, t, t / max_px, oy, ox).
+Another checkout's K13 is called through vr_ssr_march_form (no hit
+record, the size rule's form) where its library has that entry, else
+through its vr_ssr_march, which takes the same arguments less those two;
+its tap table is the packed float4 rows of ops/ssr.pack_taps where its
+library has vr_ssr_march_geometry, else the first form's [n_bins,
+max_taps, 5] rows (t_prev, t, t / max_px, oy, ox).
 """
 
 from __future__ import annotations
@@ -67,8 +69,12 @@ def build_other(other: Path, out: Path, cuda):
         raise RuntimeError(f"nvcc failed for {other}'s ssr_march")
     lib = ctypes.CDLL(str(out / "ssr_march.so"))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vr_ssr_march.argtypes = [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6
-    lib.vr_ssr_march.restype = ci
+    if hasattr(lib, "vr_ssr_march_form"):
+        cuda._declare(lib, "ssr_march")
+    else:
+        lib.vr_ssr_march.argtypes = ([vp] * 10 + [ci, ci, ci, ci, cf]
+                                     + [vp] * 6)
+        lib.vr_ssr_march.restype = ci
     return lib
 
 
@@ -87,6 +93,9 @@ def other_march(lib, cuda, ssr_ops):
     """Another tree's K13 in ops/ssr.ssr_march's place, with its own tap
     table (made once per table)."""
     packed = hasattr(lib, "vr_ssr_march_geometry")
+    # one entry point: no hit record, the size rule's form
+    launch = (lambda *a: lib.vr_ssr_march_form(*a[:-1], None, -1, a[-1])) \
+        if hasattr(lib, "vr_ssr_march_form") else lib.vr_ssr_march
     tables = {}
 
     def run(dq, colors, invz0, g, bin_idx, valid, offsets, thickness,
@@ -102,7 +111,7 @@ def other_march(lib, cuda, ssr_ops):
         if outs is None:
             outs = [torch.empty_like(dq) for _ in range(5)]
         planes = (dq, *colors, invz0, g, bin_idx, valid)
-        err = lib.vr_ssr_march(
+        err = launch(
             *(cuda.ptr(p) for p in planes), cuda.ptr(taps), cuda.ptr(counts),
             len(offsets), taps.shape[1], hq, wq,
             float(np.float32(thickness)), *(cuda.ptr(o) for o in outs),

@@ -10,7 +10,9 @@ flags. Then:
 
   K14, in each of chip_smoke.K14_FORMS (the per-pixel form at 1280x720
   and the cells form at 1280x704 on 160x88x64, the cells form at 1920x1080
-  on 240x135x128), on chip_smoke.k14_forms' seeded inputs: this tree's
+  on 240x135x128, the per-pixel form on 160x88x1024 in 2 chunks of slices,
+  held against another checkout's only where its K14 takes chunks), on
+  chip_smoke.k14_forms' seeded inputs: this tree's
   kernel against its twin (bit for bit), against itself over two launches
   (bit for bit), and against each other checkout's (within 1e-5 + 1e-5
   |value|: a kernel that adds with atomics sums in a run-dependent order);
@@ -40,7 +42,11 @@ ops/zg_composite.grad_footprint and the offset extent of
 ops/ssr.tap_extent) where its source has them, else the atomic K14's
 (`vr_composite_grad` on K4's cell table, `vr_composite_grad_pixels` on
 pixel_taps' tables, into a zeroed volume) and the first K15's (K13's table
-without an extent).
+without an extent). A gather tree from before K14 and K15 took one
+form-taking entry point each (`vr_composite_grad_chunks`,
+`vr_ssr_march_grad_form`) is called through its one-launch
+`vr_composite_grad` and its int16 `vr_ssr_march_grad` (one_entry_shim),
+for the size rule's one-launch plan and fixed form only.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import torch
@@ -66,6 +73,9 @@ K15_ROWS = {"post_showcase": {},
 # a kernel whose source holds this marker takes this tree's arguments
 GATHER_MARK = {"composite_grad": "vr_composite_grad_geometry",
                "ssr_march_grad": "oy_lo"}
+# this tree's one form-taking entry point of each
+ONE_ENTRY = {"composite_grad": "vr_composite_grad_chunks",
+             "ssr_march_grad": "vr_ssr_march_grad_form"}
 BACKWARD_N = 5
 
 
@@ -89,8 +99,10 @@ def build_other(other: Path, out: Path, cuda) -> dict:
             raise RuntimeError(f"nvcc failed for {other}'s {name}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         gather = GATHER_MARK[name] in src.read_text()
-        if gather:
+        if gather and hasattr(lib, ONE_ENTRY[name]):
             cuda._declare(lib, name)
+        elif gather:
+            lib = one_entry_shim(lib, name)
         elif name == "composite_grad":
             lib.vr_composite_grad.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp]
             lib.vr_composite_grad_pixels.argtypes = ([vp] * 8 + [ci] * 5
@@ -102,6 +114,30 @@ def build_other(other: Path, out: Path, cuda) -> dict:
             lib.vr_ssr_march_grad.restype = ci
         libs[name] = (lib, gather)
     return libs
+
+
+def one_entry_shim(lib, name: str):
+    """A gather tree's library from before the one form-taking entry point
+    (ONE_ENTRY), as an object with this tree's entry: it calls the tree's
+    vr_composite_grad (all d slices in one launch) for the size rule's
+    plan (zc 0) and its vr_ssr_march_grad (int16 codes, the offsets in
+    static shared memory) for the fixed form (0), and refuses any other
+    (cudaErrorInvalidValue)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "composite_grad":
+        old = lib.vr_composite_grad
+        old.argtypes = [vp] * 7 + [ci] * 7 + [vp, vp]
+
+        def entry(*a):      # a[14]: the slices a chunk
+            return old(*a[:14], *a[15:]) if a[14] <= 0 else 1
+    else:
+        old = lib.vr_ssr_march_grad
+        old.argtypes = [vp] * 7 + [ci] * 8 + [vp] * 4 + [vp]
+
+        def entry(*a):      # a[16]: the form
+            return old(*a[:16], *a[17:]) if a[16] == 0 else 1
+    old.restype = ci
+    return types.SimpleNamespace(**{ONE_ENTRY[name]: entry})
 
 
 @contextlib.contextmanager
@@ -216,7 +252,13 @@ def k14_rows(chip_smoke, cuda, zg, froxel, camera, others, bad):
             bad.append(f"composite_grad {form} against its twin or itself")
         out = {"row": f"composite_grad {form}", "twin_same": same_twin,
                "self_same": same_self}
+        chunked = zg.k14_chunks(d, fw)[0] > 1
         for o_name, libs in others.items():
+            if chunked and not hasattr(libs["composite_grad"][0],
+                                       "vr_composite_grad_plan"):
+                print(f"#   {o_name}: its K14 takes no chunks of slices",
+                      flush=True)
+                continue
             theirs = other_k14(cuda, zg, froxel, *libs["composite_grad"])
             run_other = lambda: theirs(k4_form, *args)
             ref = run_other()

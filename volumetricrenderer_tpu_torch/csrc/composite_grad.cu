@@ -57,6 +57,17 @@
 // sums (the output is torch.empty: every element, zeros included, is
 // written here).
 //
+// Any slice count (the chunked form, CHUNKED): where a block's d sums and
+// its footprint pass the 227 KB a block may take, the launcher splits the
+// slices into the fewest chunks that fit, ceil(d / chunks) slices each
+// (the last the rest), one chunk a grid z index (mirrored by
+// ops/zg_composite.k14_chunks). A chunk's block stages the same footprint
+// and walks the same terms in the same order, adding only those whose
+// slice lies in its chunk: a froxel lies in one chunk and sums its terms in
+// the key order above, so the chunked form is the twin bit for bit, and
+// the one-launch form bit for bit wherever both can run. Each launch is
+// counted under its form (vr_composite_grad_forms).
+//
 // Bound on the H100: bytes. The function reads the image gradient (16 B a
 // pixel), the depth (4 B) and the scene (12 B) and writes the gradient
 // volume once (16 B a froxel): at 1280x720 on 160x88x64 29.5 MB + 14.4 MB
@@ -106,24 +117,37 @@ __device__ __forceinline__ void pixel_grad(const float* __restrict__ grad,
 
 // Adds t0 to the sum of slice z0 and then t1 to that of z1 (my: the
 // thread's column of the [d][THREADS] sums); at the far clamp z0 = z1 and
-// the sum takes t0, then t1.
-__device__ __forceinline__ void add_terms(float* my, int z0, int z1,
+// the sum takes t0, then t1. CHUNKED: z0 and z1 relative to the chunk's
+// first slice, a term whose slice is not in [0, nz) left out (z0 >= -1 and
+// z1 <= nz: the caller skips a pixel with neither in the chunk).
+template <bool CHUNKED = false>
+__device__ __forceinline__ void add_terms(float* my, int z0, int z1, int nz,
                                           float t0, float t1) {
   constexpr int NT = K14Tile::THREADS;
   float* p0 = my + z0 * NT;
   float* p1 = my + z1 * NT;
-  const float a0 = *p0 + t0;
-  const float a1 = (z1 == z0 ? a0 : *p1) + t1;
-  *p0 = a0;
-  *p1 = a1;
+  if constexpr (CHUNKED) {
+    float a0 = 0.0f;
+    if (z0 >= 0) {
+      a0 = *p0 + t0;
+      *p0 = a0;
+    }
+    if (z1 < nz) *p1 = (z1 == z0 ? a0 : *p1) + t1;
+  } else {
+    const float a0 = *p0 + t0;
+    const float a1 = (z1 == z0 ? a0 : *p1) + t1;
+    *p0 = a0;
+    *p1 = a1;
+  }
 }
 
 // ranges: per froxel row y lo_0, hi_0, lo_1, hi_1 ([4][h]: the pixel rows
 // whose tap 0, tap 1 reaches y), then per froxel column the same ([4][w]).
 // CELLS: wa the cell table's four weights per in-cell position
 // ([ih/h * iw/w][4], vr_composite's), wb unused; else wa = yw [2, ih] and
-// wb = xw [2, iw] (vr_composite_pixels').
-template <bool CELLS>
+// wb = xw [2, iw] (vr_composite_pixels'). CHUNKED: the block's chunk of
+// slices starts at blockIdx.z * zc and takes at most zc of them.
+template <bool CELLS, bool CHUNKED = false>
 __global__ void __launch_bounds__(K14Tile::THREADS)
 composite_grad_kernel(const float* __restrict__ grad,
                       const float* __restrict__ scene,
@@ -132,12 +156,13 @@ composite_grad_kernel(const float* __restrict__ grad,
                       const float* __restrict__ wa,
                       const float* __restrict__ wb,
                       const float* __restrict__ fp, int w, int h, int d,
-                      int ih, int iw, int fw, float* __restrict__ gacc) {
+                      int ih, int iw, int fw, float* __restrict__ gacc,
+                      int zc) {
   constexpr int NT = K14Tile::THREADS, ROWS = K14Tile::ROWS;
   extern __shared__ float smem[];
   const int cap = ROWS * fw, gs = cap | 1;
-  float* s_acc = smem;                                        // [d][NT]
-  int* s_z = reinterpret_cast<int*>(smem + (long)d * NT);      // [cap]
+  float* s_acc = smem;                              // [d (CHUNKED: zc)][NT]
+  int* s_z = reinterpret_cast<int*>(smem + (long)(CHUNKED ? zc : d) * NT);
   float* s_f = reinterpret_cast<float*>(s_z + cap);            // [cap]
   float* s_g = s_f + cap;                                      // [4][gs]
   float* s_w0 = s_g + 4 * gs;                                  // [fw]
@@ -167,7 +192,9 @@ composite_grad_kernel(const float* __restrict__ grad,
     }
   }
   float* my = s_acc + tid;
-  for (int z = 0; z < d; ++z) my[z * NT] = 0.0f;
+  const int z_lo = CHUNKED ? (int)blockIdx.z * zc : 0;
+  const int nz = CHUNKED ? min(zc, d - z_lo) : d;
+  for (int z = 0; z < nz; ++z) my[z * NT] = 0.0f;
 
   const bool active = x < w && y < h;
   int i_lo[2] = {0, 0}, i_hi[2] = {0, 0}, j_lo[2] = {0, 0}, j_hi[2] = {0, 0};
@@ -212,13 +239,15 @@ composite_grad_kernel(const float* __restrict__ grad,
           const float f = s_f[rbase + jj], g = sg[rbase + jj];
           const float g0 = g * (1.0f - f), g1 = g * f;
           const int z1 = min(z0 + 1, d - 1);
+          if (CHUNKED && (z1 < z_lo || z0 >= z_lo + nz)) continue;
 #pragma unroll
           for (int b = 0; b < 2; ++b) {
             if (jj < j_lo[b] || jj >= j_hi[b]) continue;
             const float wt = CELLS ? __ldg(wrow + s_cs[jj] + b)
                                    : wy * (b ? s_w1[jj] : s_w0[jj]);
             if (wt == 0.0f) continue;  // K4 reads nothing there
-            add_terms(my, z0, z1, g0 * wt, g1 * wt);
+            add_terms<CHUNKED>(my, z0 - z_lo, z1 - z_lo, nz, g0 * wt,
+                               g1 * wt);
           }
         }
       }
@@ -226,8 +255,8 @@ composite_grad_kernel(const float* __restrict__ grad,
   }
   if (!active) return;
   const long n = (long)d * h * w, hw = (long)h * w;
-  float* out = gacc + c * n + (long)y * w + x;
-  for (int z = 0; z < d; ++z) out[z * hw] = my[z * NT];
+  float* out = gacc + c * n + (CHUNKED ? z_lo * hw : 0) + (long)y * w + x;
+  for (int z = 0; z < nz; ++z) out[z * hw] = my[z * NT];
 }
 
 using K14Kernel = decltype(&composite_grad_kernel<true>);
@@ -235,14 +264,18 @@ using K14Kernel = decltype(&composite_grad_kernel<true>);
 // The kernel of a form, opted in (once per device, form and size: the call
 // is not asynchronous) to `smem` bytes above 48 KB and to the largest
 // shared-memory carveout, so that as many blocks as fit run on an SM.
-static cudaError_t k14_kernel(int cells, long smem, K14Kernel* out) {
-  *out = cells ? composite_grad_kernel<true> : composite_grad_kernel<false>;
-  static long opted[16][2];
+static cudaError_t k14_kernel(int cells, bool chunked, long smem,
+                              K14Kernel* out) {
+  *out = cells ? (chunked ? composite_grad_kernel<true, true>
+                          : composite_grad_kernel<true>)
+               : (chunked ? composite_grad_kernel<false, true>
+                          : composite_grad_kernel<false>);
+  static long opted[16][4];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 16) return cudaErrorInvalidValue;
-  long& done = opted[dev][cells != 0];
+  long& done = opted[dev][2 * chunked + (cells != 0)];
   if (smem <= done) return cudaSuccess;
   err = cudaFuncSetAttribute(*out,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -254,27 +287,86 @@ static cudaError_t k14_kernel(int cells, long smem, K14Kernel* out) {
   return err;
 }
 
-// cells != 0: the cells form (wa the cell table, wb unused), else the
-// per-pixel form (wa = yw, wb = xw); fw: the widest tile footprint
-// (zg_composite.grad_footprint). Writes every element of gacc [4, d, h, w].
-extern "C" int vr_composite_grad(const float* grad, const float* scene,
-                                 const float* depth, const int* ranges,
-                                 const float* wa, const float* wb,
-                                 const float* fp, int w, int h, int d,
-                                 int ih, int iw, int fw, int cells,
-                                 float* gacc, cudaStream_t stream) {
-  const long smem = k14_shared_bytes(d, fw);
+// The chunk plan (mirrored by ops/zg_composite.k14_chunks): the slices a
+// chunk takes, zc, and the chunks, ceil(d / zc). zc <= 0: the size rule's,
+// all d slices in one launch where they fit, else the fewest chunks that
+// fit, their slices spread evenly; 0 chunks where not one slice fits.
+static void k14_plan(int d, int fw, int zc_in, int* n, int* zc) {
+  *n = 0;
+  *zc = zc_in;
+  if (zc_in <= 0) {
+    const long fit =
+        (K14_MAX_SHARED - k14_shared_bytes(0, fw)) / (4L * K14Tile::THREADS);
+    if (fit < 1) return;
+    const long chunks = (d + fit - 1) / fit;
+    *zc = (int)((d + chunks - 1) / chunks);
+  }
+  *n = (d + *zc - 1) / *zc;
+}
+
+// Launches of the one-launch (0) and the chunked (1) form since the
+// library was loaded (vr_composite_grad_forms).
+static long g_forms[2];
+
+static int k14_launch(const float* grad, const float* scene,
+                      const float* depth, const int* ranges, const float* wa,
+                      const float* wb, const float* fp, int w, int h, int d,
+                      int ih, int iw, int fw, int cells, int zc_in,
+                      float* gacc, cudaStream_t stream) {
+  if (w < 1 || h < 1 || d < 1 || fw < 0) return (int)cudaErrorInvalidValue;
+  int n, zc;
+  k14_plan(d, fw, zc_in, &n, &zc);
+  const bool chunked = n > 1;
+  const long smem = k14_shared_bytes(chunked ? zc : d, fw);
   const dim3 grid((w + K14Tile::X - 1) / K14Tile::X,
-                  (h + K14Tile::Y - 1) / K14Tile::Y);
-  if (w < 1 || h < 1 || d < 1 || fw < 0 || smem > K14_MAX_SHARED
-      || grid.y > 65535 || reinterpret_cast<size_t>(grad) % 16 != 0)
+                  (h + K14Tile::Y - 1) / K14Tile::Y, n);
+  if (n < 1 || n > 65535 || smem > K14_MAX_SHARED || grid.y > 65535
+      || reinterpret_cast<size_t>(grad) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   K14Kernel kernel;
-  const cudaError_t err = k14_kernel(cells, smem, &kernel);
+  cudaError_t err = k14_kernel(cells, chunked, smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, K14Tile::THREADS, smem, stream>>>(
-      grad, scene, depth, ranges, wa, wb, fp, w, h, d, ih, iw, fw, gacc);
-  return (int)cudaGetLastError();
+      grad, scene, depth, ranges, wa, wb, fp, w, h, d, ih, iw, fw, gacc, zc);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_forms[chunked];
+  return (int)err;
+}
+
+// K14's one entry point. cells != 0: the cells form (wa the cell table, wb
+// unused), else the per-pixel form (wa = yw, wb = xw); fw: the widest tile
+// footprint (zg_composite.grad_footprint); zc: the slices a chunk (zc >= d:
+// one launch), or <= 0 for the size rule's plan (k14_plan). Writes every
+// element of gacc [4, d, h, w]; refused where a chunk does not fit.
+extern "C" int vr_composite_grad_chunks(const float* grad, const float* scene,
+                                        const float* depth, const int* ranges,
+                                        const float* wa, const float* wb,
+                                        const float* fp, int w, int h, int d,
+                                        int ih, int iw, int fw, int cells,
+                                        int zc, float* gacc,
+                                        cudaStream_t stream) {
+  return k14_launch(grad, scene, depth, ranges, wa, wb, fp, w, h, d, ih, iw,
+                    fw, cells, zc, gacc, stream);
+}
+
+// The size rule's plan at d slices and footprints fw columns wide: the
+// chunks, the slices a chunk and a block's dynamic shared bytes, into
+// out[0..2].
+extern "C" int vr_composite_grad_plan(int d, int fw, int* out) {
+  int n, zc;
+  k14_plan(d, fw, 0, &n, &zc);
+  out[0] = n;
+  out[1] = zc;
+  out[2] = (int)k14_shared_bytes(n > 1 ? zc : d, fw);
+  return 0;
+}
+
+// The launches of the one-launch and the chunked form so far into
+// out[0..1].
+extern "C" int vr_composite_grad_forms(int* out) {
+  out[0] = (int)g_forms[0];
+  out[1] = (int)g_forms[1];
+  return 0;
 }
 
 // The blocks of a form that run at once on an SM at d slices and footprints
@@ -285,7 +377,7 @@ extern "C" int vr_composite_grad_occupancy(int cells, int d, int fw,
   const long smem = k14_shared_bytes(d, fw);
   if (smem > K14_MAX_SHARED) return (int)cudaErrorInvalidValue;
   K14Kernel kernel;
-  cudaError_t err = k14_kernel(cells, smem, &kernel);
+  cudaError_t err = k14_kernel(cells, false, smem, &kernel);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out, kernel, K14Tile::THREADS, (size_t)smem);
@@ -304,12 +396,14 @@ extern "C" int vr_composite_grad_geometry(int d, int fw, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the cells and the per-pixel kernel, as
-// vr_composite_attrs.
+// cudaFuncGetAttributes of the cells and the per-pixel kernel, then their
+// chunked forms, as vr_composite_attrs.
 extern "C" int vr_composite_grad_attrs(int* out) {
-  const void* fns[2] = {(const void*)composite_grad_kernel<true>,
-                        (const void*)composite_grad_kernel<false>};
-  for (int k = 0; k < 2; ++k) {
+  const void* fns[4] = {(const void*)composite_grad_kernel<true>,
+                        (const void*)composite_grad_kernel<false>,
+                        (const void*)composite_grad_kernel<true, true>,
+                        (const void*)composite_grad_kernel<false, true>};
+  for (int k = 0; k < 4; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
     if (err != cudaSuccess) return (int)err;

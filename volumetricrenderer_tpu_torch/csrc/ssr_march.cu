@@ -44,7 +44,20 @@
 // 2-D tiles of 32 x K13Tile::Y pixels keep neighbouring rows' taps in one
 // SM's L1.
 //
-// The RECORD instances (entry vr_ssr_march_record) also write the hit
+// Any tap count and table size (the forms, chosen by the launcher from the
+// table's size, mirrored by ops/ssr.k13_form): up to 32 taps a bin the
+// MAX_TAPS 16 and 32 instances unroll a bin's chunks; past that the GEN
+// instance (MAX_TAPS 0) walks them in a runtime loop, with the same depth
+// loads, division, first hit and reuse, so that every instance is the twin
+// bit for bit. The table lies in static shared memory up to 48 KB and past
+// that in device memory, its rows read through __ldg by the GEN instance's
+// GLOBAL form: on the H100 that form beat a copy in opted-in shared memory
+// at every table past 48 KB (PERF.md), since a block's copy of a large
+// table costs more than the few rows a pixel reads. Each launch is counted
+// under its form (vr_ssr_march_forms).
+//
+// The RECORD instances (a hit_k plane given to vr_ssr_march_form) also
+// write the hit
 // record that K15 (csrc/ssr_march_grad.cu), the march's backward, reads: an
 // int32 plane holding, per pixel, the index in its bin's tap list of the
 // first hit, or -1 where it finds none or its valid flag is 0. The march's
@@ -62,11 +75,15 @@ struct K13Tile {
 constexpr int K13_OFF = 2048;   // the offset bias of a packed row
 constexpr int K13_CHUNK = 4;    // taps whose depth loads issue together
 
+constexpr int K13_GEN = 0;     // MAX_TAPS of the runtime-loop instance
+
 __device__ __forceinline__ float k13_depth(float invz) {
   return invz > 1e-4f ? 1.0f / invz : 1e9f;
 }
 
-template <int MAX_TAPS, bool RECORD>
+// MAX_TAPS: the taps a bin unrolled (16, 32), or K13_GEN; GLOBAL: the table
+// read from device memory (GEN only), not copied into shared memory.
+template <int MAX_TAPS, bool RECORD, bool GLOBAL = false>
 __global__ void __launch_bounds__(K13Tile::X * K13Tile::Y)
 ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
                  const float* __restrict__ cg, const float* __restrict__ cb,
@@ -84,9 +101,12 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
   int* s_count = reinterpret_cast<int*>(s_rows + n_bins * max_taps);
   const int tid = threadIdx.y * K13Tile::X + threadIdx.x;
   constexpr int THREADS = K13Tile::X * K13Tile::Y;
-  for (int r = tid; r < n_bins * max_taps; r += THREADS) s_rows[r] = taps[r];
-  for (int b = tid; b < n_bins; b += THREADS) s_count[b] = n_taps[b];
-  __syncthreads();
+  if constexpr (!GLOBAL) {
+    for (int r = tid; r < n_bins * max_taps; r += THREADS)
+      s_rows[r] = taps[r];
+    for (int b = tid; b < n_bins; b += THREADS) s_count[b] = n_taps[b];
+    __syncthreads();
+  }
   const int x = blockIdx.x * K13Tile::X + threadIdx.x;
   const int y = blockIdx.y * K13Tile::Y + threadIdx.y;
   if (x >= wq || y >= hq) return;
@@ -99,19 +119,29 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
   if (bf >= 0.0f && b < n_bins && (float)b == bf) {
     const float z0 = __ldg(invz0 + i);
     const float gi = __ldg(g + i);
-    const float4* row = s_rows + b * max_taps;
-    const int nt = s_count[b];
+    const float4* row;
+    int nt;
+    if constexpr (GLOBAL) {
+      row = taps + b * max_taps;
+      nt = __ldg(n_taps + b);
+    } else {
+      row = s_rows + b * max_taps;
+      nt = s_count[b];
+    }
     float z_last = 0.0f;
     bool hit = false;
+    // unrolled in full by the fixed instances; GEN's trip count is nt's
 #pragma unroll
-    for (int k0 = 0; k0 < MAX_TAPS; k0 += K13_CHUNK) {
+    for (int k0 = 0; k0 < (MAX_TAPS > 0 ? MAX_TAPS : nt);
+         k0 += K13_CHUNK) {
       if (hit || k0 >= nt) break;
       // the chunk's depths, its loads in flight at once
       float zs[K13_CHUNK];
 #pragma unroll
       for (int c = 0; c < K13_CHUNK; ++c) {
         if (k0 + c < nt) {
-          const int p = __float_as_int(row[k0 + c].w);
+          const int p = __float_as_int(GLOBAL ? __ldg(&row[k0 + c].w)
+                                              : row[k0 + c].w);
           const int sy = y + (p & 0xfff) - K13_OFF;
           const int sx = x + ((p >> 12) & 0xfff) - K13_OFF;
           zs[c] = __ldg(dq + min(max(sy, 0), hq - 1) * wq
@@ -121,7 +151,7 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
 #pragma unroll
       for (int c = 0; c < K13_CHUNK; ++c) {
         if (k0 + c >= nt) break;
-        const float4 t = row[k0 + c];
+        const float4 t = GLOBAL ? __ldg(row + k0 + c) : row[k0 + c];
         const int p = __float_as_int(t.w);
         const int sy = y + (p & 0xfff) - K13_OFF;
         const int sx = x + ((p >> 12) & 0xfff) - K13_OFF;
@@ -157,7 +187,7 @@ ssr_march_kernel(const float* __restrict__ dq, const float* __restrict__ cr,
 }
 
 // The tap count a kernel instance unrolls for a table of max_taps rows a
-// bin; 0: none does (mirrored by ops/ssr.k13_unroll).
+// bin; 0: the GEN instance's runtime loop (mirrored by ops/ssr.k13_unroll).
 static int k13_unroll(int max_taps) {
   return max_taps <= 16 ? 16 : max_taps <= 32 ? 32 : 0;
 }
@@ -168,6 +198,47 @@ static long k13_shared_bytes(int n_bins, int max_taps) {
   return (long)n_bins * max_taps * sizeof(float4) + (long)n_bins * sizeof(int);
 }
 
+// The forms (mirrored by ops/ssr.K13_FORMS): the instance, fixed (16 or 32
+// taps unrolled) or GEN, and where its table lies.
+enum { K13_FIXED, K13_GEN_STATIC, K13_GEN_GLOBAL, K13_N_FORMS };
+constexpr long K13_MAX_STATIC = 48 * 1024;
+
+// Whether `form` can take a table of n_bins x max_taps rows: the fixed
+// instances up to 32 taps a bin; the table in static shared memory up to
+// 48 KB, in device memory at any size.
+static bool k13_form_fits(int form, int n_bins, int max_taps) {
+  const bool shared = k13_shared_bytes(n_bins, max_taps) <= K13_MAX_STATIC;
+  switch (form) {
+    case K13_FIXED: return k13_unroll(max_taps) != 0 && shared;
+    case K13_GEN_STATIC: return shared;
+    case K13_GEN_GLOBAL: return true;
+  }
+  return false;
+}
+
+// The size rule (mirrored by ops/ssr.k13_form): the first form that fits.
+static int k13_form(int n_bins, int max_taps) {
+  int form = 0;
+  while (!k13_form_fits(form, n_bins, max_taps)) ++form;
+  return form;
+}
+
+using K13Kernel = decltype(&ssr_march_kernel<16, false>);
+
+template <bool RECORD>
+static K13Kernel k13_kernel(int form, int max_taps) {
+  if (form == K13_GEN_GLOBAL) return ssr_march_kernel<K13_GEN, RECORD, true>;
+  if (form == K13_GEN_STATIC) return ssr_march_kernel<K13_GEN, RECORD>;
+  return k13_unroll(max_taps) == 16 ? ssr_march_kernel<16, RECORD>
+                                    : ssr_march_kernel<32, RECORD>;
+}
+
+// Launches of each form since the library was loaded, without and with
+// RECORD (vr_ssr_march_forms).
+static long g_forms[2][K13_N_FORMS];
+
+// form < 0: the size rule's (k13_form); else that form, refused where it
+// cannot take the table.
 template <bool RECORD>
 static int k13_launch(const float* dq, const float* cr, const float* cg,
                       const float* cb, const float* invz0, const float* g,
@@ -175,54 +246,50 @@ static int k13_launch(const float* dq, const float* cr, const float* cg,
                       const float* taps, const int* n_taps, int n_bins,
                       int max_taps, int hq, int wq, float thickness,
                       float* rr, float* rg, float* rb, float* hit_w,
-                      float* hit_t, int* hit_k, cudaStream_t stream) {
+                      float* hit_t, int* hit_k, int form,
+                      cudaStream_t stream) {
   if (hq < 1 || wq < 1 || n_bins < 1 || max_taps < 1
-      || (long)hq * wq > 2147483647L)
+      || (long)hq * wq > 2147483647L
+      || (long)n_bins * max_taps > 2147483647L / (long)sizeof(float4))
     return (int)cudaErrorInvalidValue;
-  const int unroll = k13_unroll(max_taps);
-  const long smem = k13_shared_bytes(n_bins, max_taps);
+  if (form < 0) form = k13_form(n_bins, max_taps);
   const dim3 grid((wq + K13Tile::X - 1) / K13Tile::X,
                   (hq + K13Tile::Y - 1) / K13Tile::Y);
-  if (unroll == 0 || smem > 48 * 1024 || grid.y > 65535
+  if (form >= K13_N_FORMS || !k13_form_fits(form, n_bins, max_taps)
+      || grid.y > 65535
       || reinterpret_cast<size_t>(taps) % sizeof(float4) != 0)
     return (int)cudaErrorInvalidValue;
+  const long smem =
+      form == K13_GEN_GLOBAL ? 0 : k13_shared_bytes(n_bins, max_taps);
+  const K13Kernel kernel = k13_kernel<RECORD>(form, max_taps);
   const dim3 block(K13Tile::X, K13Tile::Y);
-  const float4* rows = reinterpret_cast<const float4*>(taps);
-  if (unroll == 16)
-    ssr_march_kernel<16, RECORD><<<grid, block, smem, stream>>>(
-        dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
-        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t, hit_k);
-  else
-    ssr_march_kernel<32, RECORD><<<grid, block, smem, stream>>>(
-        dq, cr, cg, cb, invz0, g, bin_idx, valid, rows, n_taps, n_bins,
-        max_taps, hq, wq, thickness, rr, rg, rb, hit_w, hit_t, hit_k);
-  return (int)cudaGetLastError();
+  kernel<<<grid, block, smem, stream>>>(
+      dq, cr, cg, cb, invz0, g, bin_idx, valid,
+      reinterpret_cast<const float4*>(taps), n_taps, n_bins, max_taps, hq,
+      wq, thickness, rr, rg, rb, hit_w, hit_t, hit_k);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_forms[RECORD][form];
+  return (int)err;
 }
 
-// taps: [n_bins, max_taps] float4 rows (16-byte aligned), n_taps [n_bins].
-extern "C" int vr_ssr_march(const float* dq, const float* cr, const float* cg,
-                            const float* cb, const float* invz0,
-                            const float* g, const float* bin_idx,
-                            const float* valid, const float* taps,
-                            const int* n_taps, int n_bins, int max_taps,
-                            int hq, int wq, float thickness, float* rr,
-                            float* rg, float* rb, float* hit_w, float* hit_t,
-                            cudaStream_t stream) {
-  return k13_launch<false>(dq, cr, cg, cb, invz0, g, bin_idx, valid, taps,
-                           n_taps, n_bins, max_taps, hq, wq, thickness, rr,
-                           rg, rb, hit_w, hit_t, nullptr, stream);
-}
-
-// vr_ssr_march that also writes the hit record hit_k [hq, wq] (int32).
-extern "C" int vr_ssr_march_record(
+// K13's one entry point. taps: [n_bins, max_taps] float4 rows (16-byte
+// aligned), n_taps [n_bins]; the march's five outputs rr .. hit_t and, where
+// hit_k [hq, wq] (int32) is not null, the hit record (the RECORD instance);
+// form: one of the forms, or -1 for the size rule's (k13_form).
+extern "C" int vr_ssr_march_form(
     const float* dq, const float* cr, const float* cg, const float* cb,
     const float* invz0, const float* g, const float* bin_idx,
     const float* valid, const float* taps, const int* n_taps, int n_bins,
     int max_taps, int hq, int wq, float thickness, float* rr, float* rg,
-    float* rb, float* hit_w, float* hit_t, int* hit_k, cudaStream_t stream) {
+    float* rb, float* hit_w, float* hit_t, int* hit_k, int form,
+    cudaStream_t stream) {
+  if (hit_k == nullptr)
+    return k13_launch<false>(dq, cr, cg, cb, invz0, g, bin_idx, valid, taps,
+                             n_taps, n_bins, max_taps, hq, wq, thickness, rr,
+                             rg, rb, hit_w, hit_t, nullptr, form, stream);
   return k13_launch<true>(dq, cr, cg, cb, invz0, g, bin_idx, valid, taps,
                           n_taps, n_bins, max_taps, hq, wq, thickness, rr,
-                          rg, rb, hit_w, hit_t, hit_k, stream);
+                          rg, rb, hit_w, hit_t, hit_k, form, stream);
 }
 
 // The tile (columns, rows), the dynamic shared bytes and the unrolled tap
@@ -235,17 +302,38 @@ extern "C" int vr_ssr_march_geometry(int n_bins, int max_taps, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the four instances (16, then 32 taps; then the
-// same with RECORD): registers per thread, static shared bytes per block,
-// local bytes per thread and largest block, four ints each, into out;
-// returns the first error.
+// The size rule's form for a table of n_bins x max_taps rows into out[0].
+extern "C" int vr_ssr_march_form_of(int n_bins, int max_taps, int* out) {
+  out[0] = k13_form(n_bins, max_taps);
+  return 0;
+}
+
+// The launches of each form so far, K13_N_FORMS without RECORD, then as
+// many with it, into out.
+extern "C" int vr_ssr_march_forms(int* out) {
+  for (int r = 0; r < 2; ++r)
+    for (int f = 0; f < K13_N_FORMS; ++f)
+      out[r * K13_N_FORMS + f] = (int)g_forms[r][f];
+  return 0;
+}
+
+// cudaFuncGetAttributes of the eight instances (16, then 32 taps; then the
+// same with RECORD; then GEN, GEN with RECORD, and the same in the GLOBAL
+// form): registers per thread, static shared bytes per block, local bytes
+// per thread and largest block, four ints each, into out; returns the
+// first error.
 extern "C" int vr_ssr_march_attrs(int* out) {
-  const void* kernels[4] = {(const void*)ssr_march_kernel<16, false>,
-                            (const void*)ssr_march_kernel<32, false>,
-                            (const void*)ssr_march_kernel<16, true>,
-                            (const void*)ssr_march_kernel<32, true>};
+  const void* kernels[8] = {
+      (const void*)ssr_march_kernel<16, false>,
+      (const void*)ssr_march_kernel<32, false>,
+      (const void*)ssr_march_kernel<16, true>,
+      (const void*)ssr_march_kernel<32, true>,
+      (const void*)ssr_march_kernel<K13_GEN, false>,
+      (const void*)ssr_march_kernel<K13_GEN, true>,
+      (const void*)ssr_march_kernel<K13_GEN, false, true>,
+      (const void*)ssr_march_kernel<K13_GEN, true, true>};
   cudaError_t first = cudaSuccess;
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 8; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[k]);
     if (first == cudaSuccess) first = err;

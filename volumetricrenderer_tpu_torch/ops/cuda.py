@@ -137,8 +137,10 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
         "composite_grad": {
-            "vr_composite_grad": [vp] * 7 + [ci] * 7 + [vp],
+            "vr_composite_grad_chunks": [vp] * 7 + [ci] * 8 + [vp],
             "vr_composite_grad_geometry": [ci] * 2 + [vp],
+            "vr_composite_grad_plan": [ci] * 2 + [vp],
+            "vr_composite_grad_forms": [vp],
             "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
         "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
                          "vr_shadow_blend_geometry": [ci, vp],
@@ -164,20 +166,23 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "pcf_shadow": {"vr_pcf_shadow": [vp] * 6 + [ci] * 6 + [vp],
                        "vr_pcf_shadow_suns": [vp] * 6 + [ci] * 7 + [vp],
                        "vr_pcf_shadow_geometry": [ci, vp]},
-        "ssr_march": {"vr_ssr_march":
-                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 5,
-                      "vr_ssr_march_record":
-                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6,
-                      "vr_ssr_march_geometry": [ci, ci, vp]},
-        "ssr_march_grad": {"vr_ssr_march_grad": [vp] * 7 + [ci] * 8
-                           + [vp] * 4,
-                           "vr_ssr_march_grad_geometry": [ci] * 6 + [vp]},
+        "ssr_march": {"vr_ssr_march_form":
+                      [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6 + [ci],
+                      "vr_ssr_march_geometry": [ci, ci, vp],
+                      "vr_ssr_march_form_of": [ci, ci, vp],
+                      "vr_ssr_march_forms": [vp]},
+        "ssr_march_grad": {"vr_ssr_march_grad_form": [vp] * 7 + [ci] * 8
+                           + [vp, ci] + [vp] * 3,
+                           "vr_ssr_march_grad_geometry": [ci] * 6 + [vp],
+                           "vr_ssr_march_grad_form_of": [ci, ci, vp],
+                           "vr_ssr_march_grad_forms": [vp]},
     }[name]
     for entry, argtypes in sig.items():
         fn = getattr(cdll, entry)
         # every launching entry point takes the stream last
         fn.argtypes = argtypes + ([] if entry.endswith(
-            ("_geometry", "_occupancy", "_shared", "_forms")) else [vp])
+            ("_geometry", "_occupancy", "_shared", "_forms", "_form_of",
+             "_plan")) else [vp])
         fn.restype = ctypes.c_int
 
 
@@ -201,12 +206,32 @@ FORM_SOURCES = ("bake_radiance", "shadow_scatter", "shadow_blend", "scatter",
                 "dir_shadow")
 
 
+# The sources whose launchers pick a form by the size of their tables
+# (K13's instance and table placement, K15's placement and code width,
+# K14's slices in one launch or in chunks; ops/ssr.k13_form, k15_form,
+# ops/zg_composite.k14_chunks mirror the choice): the names of the forms
+# their libraries count, in their `vr_<name>_forms` order.
+_K13_FORMS = ("fixed", "gen", "gen_global")
+SIZE_FORMS = {
+    "ssr_march": _K13_FORMS + tuple(f"record_{f}" for f in _K13_FORMS),
+    "ssr_march_grad": ("fixed", "optin", "global", "global_wide"),
+    "composite_grad": ("one", "chunked"),
+}
+
+
 def form_launches(name: str) -> tuple:
-    """(fixed, general): the launches of source `name`'s fixed and general
-    forms since its library was loaded (its `vr_<name>_forms`)."""
-    buf = (ctypes.c_int * 2)()
+    """The launches of each of source `name`'s forms since its library was
+    loaded (its `vr_<name>_forms`): (fixed, general) for FORM_SOURCES, in
+    SIZE_FORMS' order for those."""
+    n = len(SIZE_FORMS.get(name, ("fixed", "general")))
+    buf = (ctypes.c_int * n)()
     getattr(lib(name), f"vr_{name}_forms")(ctypes.cast(buf, ctypes.c_void_p))
-    return buf[0], buf[1]
+    return tuple(buf)
+
+
+def form_counts(name: str) -> dict:
+    """form_launches of a SIZE_FORMS source by its forms' names."""
+    return dict(zip(SIZE_FORMS[name], form_launches(name)))
 
 
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
@@ -246,14 +271,23 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "ssr_march": ("ssr_march_kernel<16, false>",
                               "ssr_march_kernel<32, false>",
                               "ssr_march_kernel<16, true>",
-                              "ssr_march_kernel<32, true>"),
+                              "ssr_march_kernel<32, true>",
+                              "ssr_march_kernel<GEN, false>",
+                              "ssr_march_kernel<GEN, true>",
+                              "ssr_march_kernel<GEN, false, GLOBAL>",
+                              "ssr_march_kernel<GEN, true, GLOBAL>"),
                 "ssr_march_grad": ("ssr_march_grad_kernel",
-                                   "ssr_grad_codes_kernel"),
+                                   "ssr_grad_codes_kernel",
+                                   "ssr_march_grad_kernel<GLOBAL>",
+                                   "ssr_march_grad_kernel<GLOBAL, int32>",
+                                   "ssr_grad_codes_kernel<int32>"),
                 "composite": ("composite_kernel<8, 8>",
                               "composite_kernel<0, 0>",
                               "composite_pixels_kernel"),
                 "composite_grad": ("composite_grad_kernel<true>",
-                                   "composite_grad_kernel<false>")}
+                                   "composite_grad_kernel<false>",
+                                   "composite_grad_kernel<true, CHUNKED>",
+                                   "composite_grad_kernel<false, CHUNKED>")}
 
 
 def kernel_attrs(name: str) -> dict:

@@ -99,29 +99,52 @@ def ssr_march_reference(dq, colors: Sequence, invz0, g, bin_idx, valid,
 
 
 # K13's launch (csrc/ssr_march.cu): a block a tile of (columns, rows) of
-# quarter-res pixels, a thread a pixel; the tap counts a bin that its two
-# kernel instances unroll for
+# quarter-res pixels, a thread a pixel; the tap counts a bin that its fixed
+# instances unroll for (past them the GEN instance's runtime loop); the
+# table's bytes a block takes in static shared memory (past that the table
+# stays in device memory)
 K13_TILE = (32, 4)
 K13_UNROLL = (16, 32)
 K13_OFF = 2048          # the offset bias of a packed row
 K13_MAX_SHARED = 48 * 1024
+# the forms (cuda.SIZE_FORMS' order): the instance and the table's place
+K13_FORMS = cuda.SIZE_FORMS["ssr_march"][:3]
 
 
 def k13_unroll(max_taps: int) -> int:
-    """Mirror of csrc/ssr_march.cu k13_unroll: the kernel instance's tap
-    count for a table of max_taps rows a bin. Raises NotImplementedError
-    past the largest (ssr_steps above 32)."""
+    """Mirror of csrc/ssr_march.cu k13_unroll: the fixed instance's tap
+    count for a table of max_taps rows a bin, 0 past the largest (the GEN
+    instance's runtime loop: ssr_steps from about 48)."""
     for n in K13_UNROLL:
         if max_taps <= n:
             return n
-    raise NotImplementedError(f"{max_taps} SSR taps a bin: kernel K13 "
-                              f"unrolls at most {K13_UNROLL[-1]}")
+    return 0
 
 
 def k13_shared_bytes(n_bins: int, max_taps: int) -> int:
     """Mirror of k13_shared_bytes: a block's copy of the table, its float4
     rows and its int32 counts."""
     return 16 * n_bins * max_taps + 4 * n_bins
+
+
+def k13_form(n_bins: int, max_taps: int, form: str = None) -> str:
+    """Mirror of k13_form: the form of K13_FORMS that K13's launcher takes
+    for a table of n_bins x max_taps rows, the first in K13_FORMS' order
+    that can take it -- the fixed instances up to 32 taps a bin, GEN past
+    them; the table in static shared memory up to 48 KB, past that in
+    device memory (GEN). form: a form to force instead, which raises
+    ValueError where it cannot take the table."""
+    smem = k13_shared_bytes(n_bins, max_taps)
+    shared = smem <= K13_MAX_SHARED
+    fits = {"fixed": k13_unroll(max_taps) > 0 and shared, "gen": shared,
+            "gen_global": True}
+    if form is None:
+        return next(f for f in K13_FORMS if fits[f])
+    if not fits.get(form, False):
+        raise ValueError(f"K13 form {form!r} cannot take {n_bins} bins of "
+                         f"{max_taps} taps ({smem} B): one of {K13_FORMS} "
+                         "that fits")
+    return form
 
 
 def k13_grid(hq: int, wq: int) -> Tuple[int, int]:
@@ -153,6 +176,28 @@ def pack_taps(offsets: tuple, max_px: float):
     return rows, counts
 
 
+def _by_identity(fn):
+    """fn(offsets, *rest) cached first by the identity of `offsets`, a tap
+    table's tuple (post._ssr_offsets returns one per config), then by
+    fn's own cache by value: hashing a tuple of thousands of taps on every
+    call costs host time that grows with the table and, at 128 bins of 54
+    taps, passes the kernels' own. The cache holds the tuple, so its id is
+    not reused while it is cached."""
+    seen = {}
+
+    @functools.wraps(fn)
+    def run(offsets, *rest):
+        key = (id(offsets), *rest)
+        hit = seen.get(key)
+        if hit is None or hit[0] is not offsets:
+            if len(seen) >= 16:
+                seen.clear()
+            hit = seen[key] = (offsets, fn(offsets, *rest))
+        return hit[1]
+    return run
+
+
+@_by_identity
 @functools.lru_cache(maxsize=8)
 def tap_table(offsets: tuple, max_px: float, device: torch.device):
     """pack_taps' table and counts on `device`. Uploaded once per config:
@@ -165,11 +210,13 @@ def tap_table(offsets: tuple, max_px: float, device: torch.device):
 
 def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
               offsets: tuple, thickness: float, max_px: float,
-              record: bool = False) -> Tuple[torch.Tensor, ...]:
+              record: bool = False, form: str = None
+              ) -> Tuple[torch.Tensor, ...]:
     """K13: the SSR march of `ssr_march_pallas` (the JAX signature, less
     `interpret`). CPU tensors take the twin; CUDA tensors launch the kernel
-    once, or raise. record=True launches K13's RECORD instance (counted as
-    K13), which also returns the hit record (int32 [hq, wq]) last."""
+    once, in the form k13_form picks from the table's size (or `form`,
+    forced), or raise. record=True launches K13's RECORD instance (counted
+    as K13), which also returns the hit record (int32 [hq, wq]) last."""
     if dq.device.type == "cpu":
         return ssr_march_reference(dq, colors, invz0, g, bin_idx, valid,
                                    offsets, thickness, max_px, record)
@@ -181,11 +228,8 @@ def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
             raise ValueError(f"plane {tuple(p.shape)} != {(hq, wq)}")
     n_bins = len(offsets)
     max_taps = max(max((len(b) for b in offsets), default=0), 1)
-    k13_unroll(max_taps)
-    if k13_shared_bytes(n_bins, max_taps) > K13_MAX_SHARED:
-        raise NotImplementedError(f"{n_bins} SSR bins of {max_taps} taps: "
-                                  "K13's table passes 48 KB of shared "
-                                  "memory")
+    form = -1 if form is None else \
+        K13_FORMS.index(k13_form(n_bins, max_taps, form))
     cuda.check_cuda(*planes)
     taps, counts = tap_table(offsets, float(max_px), dq.device)
     outs = [torch.empty_like(planes[0]) for _ in range(5)]
@@ -195,7 +239,8 @@ def ssr_march(dq, colors: Sequence, invz0, g, bin_idx, valid,
     cuda.launch("ssr_march", *(cuda.ptr(p) for p in planes), cuda.ptr(taps),
                 cuda.ptr(counts), n_bins, max_taps, hq, wq,
                 float(np.float32(thickness)), *(cuda.ptr(o) for o in outs),
-                entry="vr_ssr_march_record" if record else "")
+                *(() if record else (None,)), form,
+                entry="vr_ssr_march_form")
     return tuple(outs)
 
 
@@ -234,11 +279,19 @@ def ssr_march_grad_plain(grads: Sequence, bin_idx, hit_k, offsets: tuple
 
 # K15's launch (csrc/ssr_march_grad.cu): a block a tile of (columns, rows)
 # of source pixels, a thread two rows of a column; its shared copy of the
-# table's per-tap offsets takes at most K15_MAX_SHARED bytes
+# table's per-tap offsets in static shared memory up to K15_MAX_SHARED
+# bytes, opted in up to K15_MAX_OPTIN, past that none (the offsets read
+# from the table in device memory); int16 codes up to K15_MAX_NARROW bins x
+# taps, int32 past them (only in device memory: such a table passes the
+# opt-in limit)
 K15_TILE = (32, 16)
 K15_MAX_SHARED = 48 * 1024
+K15_MAX_OPTIN = 232448
+K15_MAX_NARROW = 32767
+K15_FORMS = cuda.SIZE_FORMS["ssr_march_grad"]
 
 
+@_by_identity
 @functools.lru_cache(maxsize=8)
 def tap_extent(offsets: tuple) -> Tuple[int, int, int, int]:
     """(oy_lo, oy_hi, ox_lo, ox_hi): the least and largest offset of the
@@ -254,9 +307,31 @@ def k15_shared_bytes(n_bins: int, max_taps: int) -> int:
     return 8 * n_bins * max_taps + 4 * n_bins
 
 
+def k15_form(n_bins: int, max_taps: int, form: str = None) -> str:
+    """Mirror of k15_form: the form of K15_FORMS for a table of n_bins x
+    max_taps rows, the first in K15_FORMS' order that can take it -- the
+    offsets in static shared memory ("fixed") up to 48 KB, opted in
+    ("optin") up to K15_MAX_OPTIN, past that read from the table in device
+    memory ("global"); int16 codes up to K15_MAX_NARROW bins x taps, int32
+    ("global_wide") past them. form: a form to force instead, which
+    raises ValueError where it cannot take the table."""
+    smem = k15_shared_bytes(n_bins, max_taps)
+    narrow = n_bins * max_taps <= K15_MAX_NARROW
+    fits = dict(zip(K15_FORMS, (narrow and smem <= K15_MAX_SHARED,
+                                narrow and smem <= K15_MAX_OPTIN, narrow,
+                                True)))
+    if form is None:
+        return next(f for f in K15_FORMS if fits[f])
+    if not fits.get(form, False):
+        raise ValueError(f"K15 form {form!r} cannot take {n_bins} bins of "
+                         f"{max_taps} taps ({smem} B): one of {K15_FORMS} "
+                         "that fits")
+    return form
+
+
 def k15_code_shape(hq: int, wq: int, span_y: int,
                    span_x: int) -> Tuple[int, int]:
-    """Mirror of k15_code_shape: K15's int16 code plane, [hq, wq] rounded
+    """Mirror of k15_code_shape: K15's code plane, [hq, wq] rounded
     up to whole K15_TILE tiles and grown by the offsets' span on each
     axis."""
     tx, ty = K15_TILE
@@ -264,14 +339,16 @@ def k15_code_shape(hq: int, wq: int, span_y: int,
 
 
 def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
-                   max_px: float) -> Tuple[torch.Tensor, ...]:
+                   max_px: float, form: str = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """K15: the gradient of the march's colour outputs with respect
     to its colour planes, from their cotangents `grads`, the bin plane and
     the hit record. CPU tensors take the twin; CUDA tensors launch the
     kernel once (its code plane, then its gather, on a scratch plane of
-    k15_code_shape), or raise: NotImplementedError where the table's
-    offsets pass the shared memory K15 takes. max_px picks K13's cached
-    table (K15 reads its offsets only)."""
+    k15_code_shape) in the form k15_form picks from the table's size (or
+    `form`, forced), or raise: the launch names the form it mirrors, whose
+    code plane it allocates. max_px picks K13's cached table (K15 reads its
+    offsets only)."""
     if bin_idx.device.type == "cpu":
         return ssr_march_grad_plain(grads, bin_idx, hit_k, offsets)
     planes = [p.contiguous() for p in (*grads, bin_idx)]
@@ -283,23 +360,20 @@ def ssr_march_grad(grads: Sequence, bin_idx, hit_k, offsets: tuple,
     n_bins = len(offsets)
     max_taps = max(max((len(b) for b in offsets), default=0), 1)
     oy_lo, oy_hi, ox_lo, ox_hi = tap_extent(offsets)
-    if k15_shared_bytes(n_bins, max_taps) > K15_MAX_SHARED \
-            or n_bins * max_taps > 32767:
-        raise NotImplementedError(
-            f"{n_bins} SSR bins of {max_taps} taps: K15's table passes "
-            f"{K15_MAX_SHARED} B of shared memory, or its int16 codes "
-            "overflow")
+    form = k15_form(n_bins, max_taps, form)
     cuda.check_cuda(*planes)
     cuda.check_cuda(hit_k, dtype=torch.int32)
     taps, counts = tap_table(offsets, float(max_px), bin_idx.device)
     codes = torch.empty(k15_code_shape(hq, wq, oy_hi - oy_lo,
                                        ox_hi - ox_lo),
-                        dtype=torch.int16, device=bin_idx.device)
+                        dtype=torch.int32 if form == "global_wide"
+                        else torch.int16, device=bin_idx.device)
     outs = [torch.empty_like(planes[0]) for _ in range(3)]
     cuda.launch("ssr_march_grad", *(cuda.ptr(p) for p in planes[:4]),
                 cuda.ptr(hit_k), cuda.ptr(taps), cuda.ptr(counts), n_bins,
                 max_taps, hq, wq, oy_lo, oy_hi, ox_lo, ox_hi,
-                cuda.ptr(codes), *(cuda.ptr(o) for o in outs))
+                cuda.ptr(codes), K15_FORMS.index(form),
+                *(cuda.ptr(o) for o in outs), entry="vr_ssr_march_grad_form")
     return tuple(outs)
 
 

@@ -459,6 +459,24 @@ def k14_shared_bytes(d: int, fw: int) -> int:
     return 4 * d * K14_THREADS + 8 * cap + 16 * (cap | 1) + 8 * fw
 
 
+def k14_chunks(d: int, fw: int, chunks: Optional[int] = None
+               ) -> Tuple[int, int]:
+    """Mirror of k14_plan: (chunks, slices a chunk) of K14 at d slices and
+    footprints fw columns wide. By the size rule (chunks None) all d slices
+    in one launch where k14_shared_bytes(d, fw) fits K14_MAX_SHARED, else
+    the fewest chunks that fit, ceil(d / chunks) slices each (the last
+    the rest). chunks: a count to force, ceil(d / chunks) slices each;
+    raises ValueError where a chunk does not fit."""
+    if chunks is None:
+        fit = (K14_MAX_SHARED - k14_shared_bytes(0, fw)) // (4 * K14_THREADS)
+        chunks = -(-d // fit) if fit >= 1 else 0
+    zc = -(-d // chunks) if chunks >= 1 else 0
+    if zc < 1 or k14_shared_bytes(zc, fw) > K14_MAX_SHARED:
+        raise ValueError(f"K14 at {d} slices, footprints {fw} wide: no "
+                         f"chunk of {zc} slices fits {K14_MAX_SHARED} B")
+    return -(-d // zc), zc
+
+
 def _first_taps(ih: int, iw: int, grid_whd, form: str):
     """K4's first xy tap of each image row, ky [IH], and column, kx [IW]
     (int64, unclamped): pixel (i, j) reads rows clamp(ky[i] + a) and
@@ -650,21 +668,17 @@ def _k4(form, acc, scene_color, view_depth, params, grid_whd):
                           None)
 
 
-def _k14(form, grad_img, scene_color, view_depth, params, grid_whd):
+def _k14(form, grad_img, scene_color, view_depth, params, grid_whd,
+         chunks=None):
     """K14's launch in `form`: it writes every element of the gradient
-    volume. Raises NotImplementedError where a block's footprint and sums
-    would pass the shared memory a block may take."""
+    volume, its slices in one launch or in the chunks k14_chunks plans (or
+    `chunks` of them, forced; one a grid z index)."""
     grid = tuple(int(v) for v in grid_whd)
     w, h, d = grid
     ih, iw = view_depth.shape
     dev = grad_img.device
     fw = grad_footprint(ih, iw, grid, form)[1]
-    smem = k14_shared_bytes(d, fw)
-    if smem > K14_MAX_SHARED:
-        raise NotImplementedError(
-            f"K14 at {iw}x{ih} on {grid}: a block's footprints {fw} pixels "
-            f"wide and {d} slices take {smem} B of shared memory, past the "
-            f"{K14_MAX_SHARED} B a block may take")
+    zc = k14_chunks(d, fw, chunks)[1]  # refuses a chunk that cannot fit
     cuda.check_cuda(grad_img, scene_color, view_depth)
     if grad_img.data_ptr() % 16:        # K14 reads a pixel's 4 floats at once
         grad_img = grad_img.clone()
@@ -680,17 +694,21 @@ def _k14(form, grad_img, scene_color, view_depth, params, grid_whd):
     cuda.launch("composite_grad", cuda.ptr(grad_img), cuda.ptr(scene_color),
                 cuda.ptr(view_depth), cuda.ptr(ranges), cuda.ptr(wa),
                 cuda.ptr(wb), cuda.ptr(fp), w, h, d, ih, iw, fw,
-                int(form == "cells"), cuda.ptr(out))
+                int(form == "cells"), 0 if chunks is None else zc,
+                cuda.ptr(out), entry="vr_composite_grad_chunks")
     return out
 
 
 def composite_grad(grad_img: torch.Tensor, scene_color: torch.Tensor,
                    view_depth: torch.Tensor, params,
                    grid_whd: Tuple[int, int, int],
-                   form: str = "cells") -> torch.Tensor:
+                   form: str = "cells",
+                   chunks: Optional[int] = None) -> torch.Tensor:
     """K14 (csrc/composite_grad.cu): the accumulation's gradient
     [4, D, H, W] from the image's [IH, IW, 4] through K4's `form` on the
-    whole grid. Its twin composite_grad_plain for CPU tensors."""
+    whole grid. Its twin composite_grad_plain for CPU tensors. chunks: the
+    count of slice chunks to force on the card (k14_chunks; `form` names
+    K4's form here), None for the size rule's."""
     if form not in FORMS:
         raise ValueError(f"composite form {form!r}: one of {FORMS}")
     w, h, _ = grid_whd
@@ -706,7 +724,8 @@ def composite_grad(grad_img: torch.Tensor, scene_color: torch.Tensor,
     if grad_img.device.type == "cpu":
         return composite_grad_plain(grad_img, scene_color, view_depth,
                                     params, grid_whd, form)
-    return _k14(form, grad_img, scene_color, view_depth, params, grid_whd)
+    return _k14(form, grad_img, scene_color, view_depth, params, grid_whd,
+                chunks)
 
 
 class CompositeFn(torch.autograd.Function):

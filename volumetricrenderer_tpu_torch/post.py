@@ -21,6 +21,7 @@ matrix product of `camera_velocity` is written out for the same reason.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -399,10 +400,15 @@ def motion_blur(rgb: torch.Tensor, velocity: torch.Tensor, strength: float
 
 def _ssr_offsets(cfg: PostConfig) -> tuple:
     """Static per-bin (t_prev, t, oy, ox) march taps: log-spaced radii per
-    quantized direction, deduplicated per rounded pixel offset."""
-    nb = max(int(cfg.ssr_dirs), 1)
-    ks = max(int(cfg.ssr_steps), 1)
-    max_px = float(cfg.ssr_max_px)
+    quantized direction, deduplicated per rounded pixel offset. One tuple
+    per (ssr_dirs, ssr_steps, ssr_max_px), built once: the march's wrappers
+    key their device tables by it (ops/ssr.tap_table)."""
+    return _ssr_offsets_of(max(int(cfg.ssr_dirs), 1),
+                           max(int(cfg.ssr_steps), 1), float(cfg.ssr_max_px))
+
+
+@functools.lru_cache(maxsize=8)
+def _ssr_offsets_of(nb: int, ks: int, max_px: float) -> tuple:
     radii = [2.0 * (max_px / 2.0) ** (k / max(ks - 1, 1)) for k in range(ks)]
     bins = []
     for b in range(nb):
