@@ -173,6 +173,8 @@ entry point a user calls, and the port's demo entry, and:
      one process group (NCCL where it takes them, else gloo with the edge
      rows staged through host memory), every band and cropped state bit
      for bit slab3's, each rank's frame and exchange times logged;
+     every main path's K2, K3 and K9 launches in their narrow index forms
+     (cuda.index_form_launches);
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
      each float32 image checksum, checks that each image is finite and not
@@ -239,7 +241,11 @@ entry point a user calls, and the port's demo entry, and:
      (many_suns_holds: K1, K2 in its three local sources, each = K5 then
      K6 bit for bit, K5, K6 in its six modes, K7, K10's weight mode on the
      suns' channels), checking which form each launch took (the fixed
-     ones at 4 and 4), and times them at (9, 9); logs each hold's largest
+     ones at 4 and 4), and times them at (9, 9); repeats every hold of K2,
+     K3 and K9 above in the wide index form (WideHolds: = the narrow form
+     bit for bit, and against the same twin at the same tolerance) and
+     holds the wrappers' index-form mirrors against the launchers' rules
+     at their edges (index_form_mirrors); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
      the twin's terms at that froxel (ROADMAP C8);
   6. times warm frames of the fused, staged, exact, history, vis_bake,
@@ -311,7 +317,36 @@ entry point a user calls, and the port's demo entry, and:
      kernel); the host time of a pass range (utils/profiling.scope, and
      the record_function it opens under a profiler) with no profiler
      recording;
-  8. prints the `kernels` JSON line, then the result line.
+  8. the wide index forms of K2, K3 and K9 at their crossings (wide_paths),
+     each path from a fresh state with the launch counters set to 0 just
+     before and read just after, its index forms, peak memory and kernel
+     times printed, the rest of the fused frame through to K4:
+       deep_fused        FULL_CONFIG at 16x9x65664 froxels, 128x72, 2
+                         frames: K2 past 65,535 slices (two parts of its
+                         launch grid), K1, K3 (65,664 slices a block) and
+                         K4 narrow, each against its twin on the whole grid
+       many_suns_wide    FULL_CONFIG with 520 suns (104 copies of
+                         many_suns_scene's 5), 2 frames: K2's histories past
+                         2^31 floats; each copy's history = the narrow
+                         form's on the 5-sun scene bit for bit, the
+                         histories and planes on a band of rows against the
+                         twin on the band's tables
+       vis_wide          fused_vis with 32,912 local lights (2057 copies of
+                         the 16, faded: copy c's intensity halved for each
+                         copy after it), 2 frames: K9's and K2's visibility
+                         volume past 2^31 floats; K9's volume by copies
+                         against the narrow form on the 16, K2's history
+                         against the twin, its planes on a band of rows
+                         against the twin's per-light loop on the band (and
+                         beside the narrow form on the band's tables)
+       k3_wide           K3 alone on many_suns_wide's planes resampled:
+                         [4, 520, 1024, 1024] planes past 2^31 floats (on a
+                         band of rows) and 65,600 rows (two parts; the whole
+                         grid's twin), each = the narrow form on a band's
+                         tables bit for bit;
+     the wide forms' rows (also forced at 240x135x128 beside the narrow
+     forms, in turns) join the kernels line;
+  9. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
 Imports no JAX and nothing of the JAX package.
@@ -768,6 +803,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
         f"{frac_ok:g}: {why})")
     if frac > frac_ok:
         raise AssertionError(f"{name} disagrees with its plain version")
+    WIDE.check(name, got, want, mode, label)
     return max_err
 
 
@@ -2612,6 +2648,692 @@ def check_cpu_gbuffer(proc, out_file, gbuffer, mesh, config) -> None:
                              "the CPU's")
 
 
+# ---- the index forms: K2, K3 and K9 past 32-bit indices and 65535 slices --
+
+class WideHolds:
+    """Every hold (compare) of an output of K2, K3 or K9 whose call took
+    the narrow form, repeated with the wide form forced on the same inputs:
+    the wide outputs must equal the narrow ones bit for bit, and are held
+    against the same twin at the same tolerance (the hold's label and
+    ", wide form"). install() wraps the three wrappers in ops/frame_fused
+    and ops/visibility so that each CUDA output remembers its call (until
+    the output is freed); compare() calls check()."""
+
+    def __init__(self):
+        self.calls = {}      # id(output) -> (ref, kernel, fn, args, kw, i, n)
+        self.last = (0, ())  # (call number, wide outputs) of the last repeat
+        self.errs = {}       # (kernel, label) -> max abs err against the twin
+        self.real = {}
+        self.n = 0
+
+    def install(self, ff, vis) -> None:
+        for mod, name in ((ff, "shadow_scatter"), (ff, "integrate_blend"),
+                          (ff, "bake_visibility"), (vis, "bake_visibility")):
+            self.real[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, self._recorder(getattr(mod, name), name))
+
+    def uninstall(self) -> None:
+        for (mod, name), fn in self.real.items():
+            setattr(mod, name, fn)
+        self.real, self.last = {}, (0, ())
+        self.calls.clear()
+
+    def _recorder(self, fn, kernel):
+        import weakref
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            if kw.get("form") is None and outs[0].is_cuda:
+                self.n += 1
+                for i, o in enumerate(outs):
+                    key = id(o)
+                    ref = weakref.ref(o, lambda _, k=key: self.calls.pop(k,
+                                                                        None))
+                    self.calls[key] = (ref, kernel, fn, args, kw, i, self.n)
+            return out
+        return run
+
+    @staticmethod
+    def rule(kernel, fn, args, kw) -> str:
+        """The form the size rule gave the recorded call."""
+        import inspect
+        from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+        from volumetricrenderer_tpu_torch.ops import scatter as sca
+        from volumetricrenderer_tpu_torch.ops import visibility as vis
+        a = inspect.signature(fn).bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        if kernel == "shadow_scatter":
+            return ff.k2_form(a["t"], sca.local_mode(a["bake"], a["vis"]))
+        if kernel == "integrate_blend":
+            return ff.k3_form(a["t"])
+        return vis.k9_form(a["t"])
+
+    def check(self, name, got, want, mode, label) -> None:
+        entry = self.calls.get(id(got))
+        if entry is None or entry[0]() is not got:
+            return
+        _, kernel, fn, args, kw, i, n = entry
+        if self.rule(kernel, fn, args, kw) != "narrow":
+            return
+        if self.last[0] != n:
+            self.last = (0, ())  # the last repeat's outputs freed first
+            out = fn(*args, **dict(kw, form="wide"))
+            self.last = (n, out if isinstance(out, tuple) else (out,))
+        wide = self.last[1][i]
+        if not torch.equal(wide, got):
+            diff = (wide - got).abs()
+            raise AssertionError(
+                f"{kernel} ({label}): the wide form differs from the narrow "
+                f"form on {int((diff > 0).sum())} elements, max "
+                f"{float(diff.max()):.3e}")
+        self.errs[(kernel, label)] = compare(name, wide, want, mode,
+                                             f"{label}, wide form")
+
+
+WIDE = WideHolds()
+
+
+def index_deltas(cuda, before) -> dict:
+    """source -> (narrow, wide) launches of cuda.INDEX_SOURCES since
+    `before` (their counts then)."""
+    return {s: tuple(a - b for a, b in zip(cuda.index_form_launches(s),
+                                           before[s]))
+            for s in cuda.INDEX_SOURCES}
+
+
+def fused_work(t, kernel: str, local: str = "radiance"):
+    """(bytes, operations) of one launch of K1, K2 (local source `local`),
+    K3 or K9 on tables t, counted as main() counts the fixed forms' on the
+    full grid: each input read once, each output written once; the rays
+    and the reprojections by their operations, the per-light loops by the
+    (froxel, light) pairs each slice's schedule keeps, K1's and K9's rays
+    by the (low sample, light) pairs the cull keeps."""
+    w, h, d = t.grid_whd
+    n_fro = w * h * d
+    wl, hl, dl = t.low_dims
+    n_low = wl * hl * dl
+    nd = t.n_dir
+    n_lights = 0 if t.lights is None else t.lights.shape[0]
+    n_media = len(t.media_static)
+    noise_media = sum(1 for st in t.media_static if st[0])
+    ops_perlin = 3 * 8 * 40
+    ops_ray = 14 * t.n_planes + 22 * t.n_spheres + 30 * t.n_boxes
+    ops_shadow = 45 + (24 + 12 * nd) + nd * (30 + ops_ray)
+    sun = 40 * nd + 40
+    if kernel in ("bake_radiance", "bake_visibility"):
+        pairs = int(t.active.sum()) * hl * wl
+        if kernel == "bake_visibility":
+            return 4 * n_lights * n_low, pairs * (40 + ops_ray)
+        return (4 * (3 + t.n_noise) * n_low,
+                n_low * (60 + ops_perlin * t.n_noise) + pairs * (60 + ops_ray))
+    if kernel == "integrate_blend":
+        return 4 * 12 * n_fro, n_fro * ((4 * 20 + 30) + 45 + (24 + 48) + 12)
+    if local == "radiance":
+        return (4 * (2 * nd * n_fro + (3 + t.n_noise) * n_low + 4 * n_fro),
+                n_fro * (ops_shadow + (3 + t.n_noise) * 20 + 60 * n_media
+                         + sun))
+    pairs = int(t.count.sum()) * h * w
+    return (4 * (2 * nd * n_fro + 4 * n_fro
+                 + (n_lights * n_low if local == "baked" else 0)),
+            n_fro * (ops_shadow + 60 * n_media + ops_perlin * noise_media
+                     + sun) + pairs * (60 + (ops_ray if local == "rays"
+                                             else 20)))
+
+
+def wide_forced_rows(calls) -> dict:
+    """The wide forms forced at the main path's shapes: calls maps (kernel,
+    mode) -> (fn(form), plain_ms, work, the WIDE holds' labels, launches a
+    timing). Times the narrow and the wide form in turns (narrow, wide,
+    wide, narrow; CUDA events behind a spin) and returns the rows of the
+    kernels line: the wide form's ms, the narrow form's beside it, the
+    largest wide hold against the twin, the bound."""
+    rows = {}
+    for (k, m), (fn, plain_ms, work, labels, n) in calls.items():
+        nar = [kernel_time_ms(lambda: fn("narrow"), n)]
+        wid = [kernel_time_ms(lambda: fn("wide"), n)]
+        wid.append(kernel_time_ms(lambda: fn("wide"), n))
+        nar.append(kernel_time_ms(lambda: fn("narrow"), n))
+        b_ms, b_by = bound(*work)
+        rows[(k, m)] = {
+            "launches": 0, "paths": [],
+            "max_abs_err": max(WIDE.errs[(k, lab)] for lab in labels),
+            "ms": sum(wid) / 2, "narrow_ms": sum(nar) / 2,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        log(f"# {k}, {m}: wide {wid[0]:.4f} {wid[1]:.4f} ms, narrow "
+            f"{nar[0]:.4f} {nar[1]:.4f} ms (in turns: narrow, wide, wide, "
+            f"narrow; wide / narrow {sum(wid) / sum(nar):.3f}), bound "
+            f"{b_ms:.4f} ms by {b_by}; holds {labels}")
+    return rows
+
+
+def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
+    """The wrappers' form mirrors (ops/frame_fused.k2_form, k3_form,
+    ops/visibility.k9_form) against the launchers' own size rules
+    (`vr_*_form_of`) at the edges: 2^31 - 1 and 2^31 floats, 65535 and
+    65536 slices (K3: rows), on FULL_CONFIG's tables at other grids and
+    light counts (meta tables: the rules read the dimensions alone)."""
+    import ctypes
+
+    def of(name, *args):
+        buf = (ctypes.c_int * 2)()
+        getattr(cuda.lib(name), f"vr_{name}_form_of")(
+            *args, ctypes.cast(buf, ctypes.c_void_p))
+        return tuple(buf)
+
+    def mirror(fn, *args):
+        try:
+            return cuda.INDEX_FORMS.index(fn(*args))
+        except ValueError:
+            return -1
+
+    meta = lambda n: torch.empty((n, 16), device="meta")
+    rad, ray, baked = sca.LOCAL_RADIANCE, sca.LOCAL_RAY, sca.LOCAL_BAKED
+    k2 = [((2048, 2047, 128), 1, 16, rad), ((2048, 2048, 128), 1, 16, rad),
+          ((1024, 1024, 409), 5, 16, baked), ((1024, 1024, 410), 5, 16, ray),
+          ((8, 8, 65535), 1, 16, rad), ((8, 8, 65536), 1, 16, ray),
+          ((2048, 1024, 128), 1, 511, baked), ((2048, 1024, 128), 1, 512,
+                                                baked),
+          ((16, 15, 65535), 1, 32769, ray), ((16, 15, 65535), 1, 32769, rad),
+          ((16, 16 * 65535 + 1, 1), 1, 16, rad)]
+    k3 = [(1024, 1024, 511), (1024, 1024, 512), (8, 65535, 16),
+          (8, 65536, 16), (16, 9, 65664), (8, 200000, 16)]
+    k9 = [((240, 135, 128), 32896), ((240, 135, 128), 32897),
+          ((8, 8, 65536), 16), ((16, 15, 16), 2 ** 27)]
+    rows = []
+    for grid, nd, nl, local in k2:
+        t = dataclasses.replace(tables, grid_whd=grid, n_dir=nd,
+                                lights=meta(nl))
+        st = t.c_struct()
+        got = of("shadow_scatter", ctypes.byref(st), local)
+        want = mirror(ff.k2_form, t, local)
+        rows.append(("K2", grid, nd, nl, local, got, want))
+    for grid in k3:
+        t = dataclasses.replace(tables, grid_whd=grid)
+        st = t.c_struct()
+        rows.append(("K3", grid, 0, 0, None,
+                     of("integrate_blend", ctypes.byref(st)),
+                     mirror(ff.k3_form, t)))
+    for grid, nl in k9:
+        t = dataclasses.replace(tables, grid_whd=grid, lights=meta(nl))
+        st = t.c_struct()
+        rows.append(("K9", grid, 0, nl, None,
+                     of("bake_visibility", ctypes.byref(st)),
+                     mirror(vis.k9_form, t)))
+    bad = [r for r in rows if r[5][0] != r[6]]
+    for r in rows:
+        log(f"# index form of {r[0]} at {r[1]}, {r[2]} suns, {r[3]} "
+            f"lights, local {r[4]}: the launcher's rule {r[5][0]} (parts "
+            f"{r[5][1]}), the wrapper's mirror {r[6]}")
+    if bad:
+        raise AssertionError(f"the index form mirrors disagree: {bad}")
+
+
+def replicate(lights, copies: int, fade: bool = False):
+    """A light table (DirectionalLights, PointLights, SpotLights) with its
+    lights repeated `copies` times, copy c's light l at c * count + l.
+    fade: copy c's intensity times 2^-(copies - 1 - c) (0 below float32's
+    range), so that a sum over the copies is dominated by the last ones
+    and rounds like a sum over a few lights."""
+    out = dataclasses.replace(lights, **{
+        f.name: torch.cat([getattr(lights, f.name)] * copies)
+        for f in dataclasses.fields(lights)})
+    if fade:
+        scale = torch.tensor([2.0 ** -(copies - 1 - c) for c in range(copies)],
+                             dtype=torch.float64).to(torch.float32)
+        out = dataclasses.replace(out, intensity=out.intensity * scale.to(
+            out.intensity.device).repeat_interleave(lights.count))
+    return out
+
+
+def band_tables(cfg, state, scene, time_x: float, y0: int, rows: int):
+    """The frame tables of rows [y0, y0 + rows) of `cfg`'s grid, as the slab
+    path packs a slab's (parallel/shard_render.Slab: the global grid, the
+    band's first row)."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.parallel.shard_render import Slab
+    r = VolumetricRenderer(dataclasses.replace(
+        cfg, volume_height=rows, image_height=8 * rows))
+    slab = Slab(y0=float(y0), halo=0, grid_global=cfg.grid,
+                image_height_global=cfg.image_height)
+    return r.frame_tables(state, scene, time_x, slab)[0]
+
+
+# The band holds of the crossing paths: rows [WIDE_BAND[0], + WIDE_BAND[1])
+# of the grid, a multiple of ss = 4 from row 0 (the band's low rows are the
+# grid's), compared on its rows WIDE_BAND[2] or more from either edge (past
+# the reprojection's +-4 rows and its tent, and the low tent's clamp)
+WIDE_BAND = (64, 32, 10)
+# The crossing paths: the grid of deep_fused and its image; many_suns_wide's
+# 520 suns, 104 copies of many_suns_scene's 5; vis_wide's 32,912 local
+# lights, 2057 copies of benchmark_scene's 16; k3_wide's two K3 grids
+DEEP = dict(volume_width=16, volume_height=9, volume_depth=65664,
+            image_width=128, image_height=72)
+WIDE_SUN_COPIES = (5, 104)
+WIDE_LIGHT_COPIES = 2057
+K3_WIDE_GRIDS = {"planes": (1024, 1024, 520), "rows": (8, 65600, 16)}
+
+
+def drive_wide(name, renderer, scene, colour, depth, frames, expect,
+               forms, cuda, ff):
+    """Render crossing path `name` from a fresh state, its launch counters
+    set to 0 just before and read just after: exactly the kernels of
+    `expect` ({kernel: launches per frame}) each frame, and the index forms
+    `forms` ({source: (narrow, wide)} over the run). Records the last
+    frame's K1, K9, K2 and K3 calls. Returns (image, the state before the
+    last frame, {kernel: (args, output)}, seconds, peak GiB)."""
+    names = ("bake_radiance", "bake_visibility", "shadow_scatter",
+             "integrate_blend")
+    real = {n: getattr(ff, n) for n in names}
+    rec = {}
+
+    def recorder(n):
+        def run(*args, **kw):
+            out = real[n](*args, **kw)
+            rec[n] = (args, out)
+            return out
+        return run
+
+    state = renderer.init_state(scene.dir_lights.count)
+    prev = None
+    for n in names:
+        setattr(ff, n, recorder(n))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        before = {s: cuda.index_form_launches(s) for s in cuda.INDEX_SOURCES}
+        t0 = time.perf_counter()
+        for i in range(frames):
+            prev = None  # the state before the last frame only
+            img, _, new = renderer.render_frame(state, scene, 0.1 * i,
+                                                colour, depth)
+            prev, state = state, new
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(ff, n, real[n])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    got_forms = {s: f for s, f in index_deltas(cuda, before).items()
+                 if any(f)}
+    std = float(img[..., :3].std())
+    log(f"# {name}: {frames} frames in {secs:.1f} s (host wall, first "
+        f"frames: the kernels' first launches at these shapes), peak device "
+        f"memory {peak:.2f} GiB; launches {json.dumps(launches)}; index "
+        f"forms (narrow, wide) {json.dumps(got_forms)}; image "
+        f"{tuple(img.shape)} checksum {float(img.sum(dtype=torch.float32))!r}"
+        f" std {std:.4g}")
+    want = {k: frames * v for k, v in expect.items()}
+    if launches != want or got_forms != forms:
+        raise AssertionError(f"{name}: launches {launches} and index forms "
+                             f"{got_forms}, not {want} and {forms}")
+    if not bool(torch.isfinite(img).all()) or not std > 1e-4:
+        raise AssertionError(f"{name}: a non-finite or flat image")
+    return img, prev, rec, secs, peak
+
+
+def wide_row(kernel, mode, fn, n, work, err, plain_ms, launches, hold):
+    """A crossing path's row of the kernels line: fn timed (CUDA events
+    behind a spin, n launches after a warm one), the bound of `work`, the
+    largest difference of its holds, the plain time of what they held."""
+    ms = kernel_time_ms(fn, n)
+    b_ms, b_by = bound(*work)
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
+    log(f"# {kernel}, {mode}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms by "
+        f"{b_by} ({work[0] / 1e9:.2f} GB, {work[1] / 1e12:.3f} TFLOP), max "
+        f"abs err {err:.3e} ({hold}), plain {plain}, launches {launches}")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "plain_on": hold, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def band_hold(name, got, want, rows, label):
+    """Hold band rows of a kernel's output [C, D, H, W] against the twin
+    computed on the band alone [C, D, rows[1], W], on the band's rows
+    rows[2] or more from its edges; returns the max abs error."""
+    y0, hb, m = rows
+    return compare(name, got[:, :, y0 + m:y0 + hb - m].contiguous(),
+                   want[:, :, m:hb - m].contiguous(),
+                   label=f"{label}, band rows {y0 + m}-{y0 + hb - m - 1}")
+
+
+def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
+               cuda) -> dict:
+    """The crossing paths, each through the entry point past the narrow
+    forms' limits, with every other kernel of the fused frame through to
+    K4:
+      deep_fused      FULL_CONFIG at 16x9x65664 froxels (ss=4), 128x72: K2
+                      past 65535 slices (two parts of its launch grid), K1,
+                      K3's 65664-slice walk and K4 narrow; 2 frames, each
+                      kernel held against its twin on the whole grid;
+      many_suns_wide  FULL_CONFIG on benchmark_scene with 520 suns, 104
+                      copies of many_suns_scene's 5: K2's [520, 128, 135,
+                      240] histories past 2^31 floats (its general wide
+                      form); 2 frames; the history by replication (each
+                      copy = the narrow form's on the 5-sun scene, bit for
+                      bit), the scatter planes and the history on a band of
+                      rows against the twin on the band's tables;
+      vis_wide        fused_vis (K9 + K2's baked form) with 32,912 local
+                      lights, 2057 faded copies of the 16 (replicate): the
+                      [32912, 32, 34, 60] visibility volume past 2^31
+                      floats (K9 and K2 wide); 2 frames; K9's volume by
+                      replication, K2's scatter on a band of rows against
+                      the twin (its per-light loop over the band, each
+                      light's visibility upsampled in turn), its history
+                      against the twin;
+      k3_wide         K3 alone past both of its edges, on
+                      many_suns_wide's scatter planes and accumulation
+                      resampled to the grid: [4, 520, 1024, 1024] planes
+                      past 2^31 floats (the twin on a band of rows) and
+                      65600 froxel rows (two parts; the whole grid's twin);
+                      each beside the narrow form on a band's tables, bit
+                      for bit.
+    The 1080p paths composite over benchmark_scene's G-buffer
+    (scene_color, view_depth). Returns {(kernel, mode): row of the kernels
+    line}."""
+    from volumetricrenderer_tpu_torch import (VolumetricRenderer,
+                                              benchmark_scene, froxel)
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    from volumetricrenderer_tpu_torch.ops import zg_composite as zg
+    from volumetricrenderer_tpu_torch.state import FrameState
+    rows = {}
+    t_phase = time.perf_counter()
+
+    # deep_fused
+    d_cfg = dataclasses.replace(cfg, **DEEP)
+    d_r = VolumetricRenderer(d_cfg)
+    d_scene = benchmark_scene(aspect=DEEP["image_width"]
+                              / DEEP["image_height"], num_local_lights=16,
+                              noise_mode="procedural")
+    d_col, d_dep = d_r.render_scene_inputs(d_scene)
+    img, prev, rec, _, _ = drive_wide(
+        "deep_fused", d_r, d_scene, d_col, d_dep, 2,
+        {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
+         "composite": 1},
+        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda, ff)
+    (t, p_sh, bake, _), (sh, sc) = rec["shadow_scatter"]
+    parts = cuda.grid_parts(t.grid_whd[2])
+    log(f"# deep_fused: K2's launch grid in {len(parts)} parts {parts}")
+    t0 = time.perf_counter()
+    want = ff.shadow_scatter_plain(t, p_sh, bake)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(compare("shadow_scatter", g, w_, label=f"deep_fused, {part}")
+              for g, w_, part in zip((sh, sc), want, ("history", "planes")))
+    del want
+    compare("bake_radiance", rec["bake_radiance"][1],
+            ff.bake_radiance_plain(rec["bake_radiance"][0][0]),
+            label="deep_fused")
+    (t3, sc3, acc3), out3 = rec["integrate_blend"]
+    t0 = time.perf_counter()
+    want = ff.integrate_blend_plain(t3, sc3, acc3)
+    torch.cuda.synchronize()
+    plain3_ms = 1e3 * (time.perf_counter() - t0)
+    err3 = compare("integrate_blend", out3, want,
+                   label="deep_fused (narrow: 65664 slices a block)")
+    del want
+    rows[("shadow_scatter", "wide_deep_fused")] = wide_row(
+        "shadow_scatter", "wide_deep_fused",
+        lambda: ff.shadow_scatter(t, p_sh, bake), 5,
+        fused_work(t, "shadow_scatter"), err, plain_ms, 2,
+        "the whole grid's twin")
+    rows[("integrate_blend", "narrow_deep_fused")] = wide_row(
+        "integrate_blend", "narrow_deep_fused",
+        lambda: ff.integrate_blend(t3, sc3, acc3), 3,
+        fused_work(t3, "integrate_blend"), err3, plain3_ms, 2,
+        "the whole grid's twin")
+    del img, prev, rec, t, p_sh, bake, sh, sc, t3, sc3, acc3, out3, d_col
+    torch.cuda.empty_cache()
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: deep_fused")
+
+    # many_suns_wide
+    base, copies = WIDE_SUN_COPIES
+    scn5 = many_suns_scene(scene, base, 1)
+    scn = dataclasses.replace(scn5, dir_lights=replicate(scn5.dir_lights,
+                                                         copies))
+    img, prev, rec, _, _ = drive_wide(
+        "many_suns_wide", renderer, scn, scene_color, view_depth, 2,
+        {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
+         "composite": 1},
+        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda, ff)
+    (t, p_sh, bake, _), (sh, sc) = rec["shadow_scatter"]
+    nd = t.n_dir
+    log(f"# many_suns_wide: {nd} suns, [{nd}, 128, 135, 240] histories = "
+        f"{sh.numel()} floats (past 2^31 - 1: {sh.numel() > 2 ** 31 - 1})")
+    if sh.numel() <= 2 ** 31 - 1:
+        raise AssertionError("many_suns_wide does not pass 2^31 floats")
+    # replication: each copy's history = the narrow form's on the 5 suns
+    t5 = renderer.frame_tables(prev, scn5, 0.1)[0]
+    sh5, _ = ff.shadow_scatter(t5, p_sh[:base].contiguous(), bake,
+                               form="narrow")
+    same = all(torch.equal(sh[c * base:(c + 1) * base], sh5)
+               for c in range(copies))
+    log(f"# many_suns_wide, replication hold: each of the {copies} copies' "
+        f"{base} histories = the narrow form's on the {base}-sun scene bit "
+        f"for bit: {same}")
+    if not same:
+        raise AssertionError("many_suns_wide: a copy's history differs from "
+                             "the narrow form's")
+    del sh5
+    tb = band_tables(cfg, prev, scn, 0.1, *WIDE_BAND[:2])
+    y0, hb, _ = WIDE_BAND
+    t0 = time.perf_counter()
+    want = ff.shadow_scatter_plain(tb, p_sh[:, :, y0:y0 + hb].contiguous(),
+                                   ff.bake_radiance_plain(tb))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(band_hold("shadow_scatter", g, w_, WIDE_BAND,
+                        f"many_suns_wide {part}")
+              for g, w_, part in zip((sh, sc), want, ("history", "planes")))
+    del want
+    (t3, sc3, acc3), out3 = rec["integrate_blend"]
+    compare("integrate_blend", out3, ff.integrate_blend_plain(t3, sc3, acc3),
+            label="many_suns_wide (narrow)")
+    k3_src = (sc3, acc3)  # k3_wide's inputs, resampled
+    rows[("shadow_scatter", "wide_many_suns")] = wide_row(
+        "shadow_scatter", "wide_many_suns",
+        lambda: ff.shadow_scatter(t, p_sh, bake), 3,
+        fused_work(t, "shadow_scatter"), err, plain_ms, 2,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del img, prev, rec, t, p_sh, bake, sh, sc, t3, sc3, acc3, out3, tb
+    torch.cuda.empty_cache()
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: many_suns_wide")
+
+    # vis_wide: the copies faded (replicate), as an fp32 sum of 32,912
+    # equal terms drifts past the arm's tolerance between the kernel and its
+    # twin in any order; the last copies, whose visibility planes lie past
+    # 2^31 floats, dominate each froxel's sum
+    v_r = renderers["fused_vis"]
+    scn = dataclasses.replace(
+        scene, point_lights=replicate(scene.point_lights, WIDE_LIGHT_COPIES,
+                                      fade=True),
+        spot_lights=replicate(scene.spot_lights, WIDE_LIGHT_COPIES,
+                              fade=True))
+    img, prev, rec, _, _ = drive_wide(
+        "vis_wide", v_r, scn, scene_color, view_depth, 2,
+        {"bake_visibility": 1, "shadow_scatter": 1, "integrate_blend": 1,
+         "composite": 1},
+        {"bake_visibility": (0, 2), "shadow_scatter": (0, 2),
+         "integrate_blend": (2, 0)}, cuda, ff)
+    (t9,), v9 = rec["bake_visibility"]
+    (t, p_sh, _, vol), (sh, sc) = rec["shadow_scatter"]
+    n_l = t.lights.shape[0]
+    log(f"# vis_wide: {n_l} lights, the [{n_l}, DL, HL, WL] visibility "
+        f"volume {tuple(v9.shape)} = {v9.numel()} floats (past 2^31 - 1: "
+        f"{v9.numel() > 2 ** 31 - 1})")
+    if v9.numel() <= 2 ** 31 - 1 or vol is not v9:
+        raise AssertionError("vis_wide does not pass 2^31 floats, or K2 "
+                             "did not read K9's volume")
+    # replication: each copy's visibility = the narrow form's on the 16
+    t16 = v_r.frame_tables(prev, scene, 0.1)[0]
+    v16 = vis.bake_visibility(t16, form="narrow")
+    n_pt = scene.point_lights.count
+    parts_ = ((v9[:n_pt * WIDE_LIGHT_COPIES], v16[:n_pt]),
+              (v9[n_pt * WIDE_LIGHT_COPIES:], v16[n_pt:]))
+    same = all(torch.equal(a.view(WIDE_LIGHT_COPIES, *b.shape),
+                           b.expand(WIDE_LIGHT_COPIES, *b.shape))
+               for a, b in parts_)
+    log(f"# vis_wide, replication hold: each of the {WIDE_LIGHT_COPIES} "
+        f"copies' 16 visibility planes = the narrow form's on the 16-light "
+        f"scene bit for bit: {same}")
+    if not same:
+        raise AssertionError("vis_wide: a copy's visibility differs from the "
+                             "narrow form's")
+    # K2's history against the twin on the whole grid (one sun); its
+    # scatter planes on a band of rows: the twin's own per-light loop
+    # (scatter.scatter_slice, as scatter_local_plain runs it) over the
+    # band's tables, each light's visibility upsampled when the loop reads
+    # it (the twin upsamples all 32,912 at once: 97 GB at this band)
+    err_sh = compare("shadow_scatter", sh,
+                     sb.dir_shadow_blend_plain(t, p_sh),
+                     label="vis_wide, history")
+    tb = band_tables(v_r.config, prev, scn, 0.1, *WIDE_BAND[:2])
+    y0, hb, _ = WIDE_BAND
+    ly0, lhb = y0 // tb.ss, tb.low_dims[1]
+    v_band = v9[:, :, ly0:ly0 + lhb]
+    zs = torch.arange(tb.grid_whd[2], device="cuda")[:, None, None]
+
+    # the lights of colour 0 (faded past float32's range) add +0 to every
+    # sum: the loop leaves them out, and its result is the same
+    keep = (tb.lights[:, 3:6] != 0).any(dim=1).nonzero()[:, 0]
+
+    class Upsampled:
+        def __getitem__(self, li):
+            lj = int(keep[li])
+            return vis.upsample_low(v_band[lj:lj + 1].contiguous(), zs,
+                                    tb.ss, tb.tent_x, tb.tent_y)[0]
+
+    t0 = time.perf_counter()
+    blended = sb.dir_shadow_blend_plain(
+        tb, p_sh[:, :, y0:y0 + hb].contiguous())
+    active = sca.schedule_mask(tb.order, tb.count).T[:, :, None, None]
+    local = (tb.lights[keep], active[keep], tb.planes, tb.spheres, tb.boxes,
+             tb.occluders(local=True), Upsampled())
+    want = torch.stack(sca.scatter_slice(
+        tb.spar, tb.dirs, tb.med, tb.media_static, zs, list(blended), None,
+        None, grid_whd=tb.grid_whd, n_dir=tb.n_dir, h_glob=tb.h_glob,
+        jitter_dir=tb.jitter_dir, local=local))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(err_sh, band_hold("shadow_scatter", sc, want, WIDE_BAND,
+                                "vis_wide planes"))
+    del want, blended
+    # the narrow form on the band's tables (its [NL, DL, 8, WL] visibility
+    # under 2^31 floats) beside the wide form's rows
+    _, nb = ff.shadow_scatter(tb, p_sh[:, :, y0:y0 + hb].contiguous(),
+                              vis=v_band.contiguous(), form="narrow")
+    m = WIDE_BAND[2]
+    d_nb = (nb[:, :, m:hb - m] - sc[:, :, y0 + m:y0 + hb - m]).abs()
+    same = bool((d_nb == 0).all())
+    log(f"# vis_wide planes, band rows {y0 + m}-{y0 + hb - m - 1}: the "
+        f"narrow form on the band's tables = the wide form's rows bit for "
+        f"bit: {same} (max |diff| {float(d_nb.max()):.3e}); the twin's loop "
+        f"over the band's {len(keep)} lights of colour > 0 {plain_ms:.1f} ms")
+    if not same:
+        raise AssertionError("vis_wide: the wide form's rows differ from the "
+                             "narrow form's on the band")
+    del nb, d_nb
+    rows[("bake_visibility", "wide_vis")] = wide_row(
+        "bake_visibility", "wide_vis", lambda: vis.bake_visibility(t9), 3,
+        fused_work(t9, "bake_visibility"), 0.0, None, 2,
+        "replication: each copy = the narrow form's planes bit for bit; "
+        "the twin's per-light loop over 32,912 lights not run")
+    rows[("shadow_scatter", "wide_vis")] = wide_row(
+        "shadow_scatter", "wide_vis",
+        lambda: ff.shadow_scatter(t, p_sh, vis=vol), 1,
+        fused_work(t, "shadow_scatter", "baked"), err, plain_ms, 2,
+        f"the twin's loop on band rows {y0}-{y0 + hb - 1}")
+    del img, prev, rec, t9, v9, t, p_sh, vol, sh, sc, v16, parts_, v_band, tb
+    torch.cuda.empty_cache()
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: vis_wide")
+
+    # k3_wide: K3 alone past each of its edges, on many_suns_wide's last
+    # scatter planes and accumulation resampled (trilinear) to the grid: a
+    # real frame's smooth volumes, whose reprojection taps cross cell
+    # boundaries as a frame's do
+    moved = froxel.invert_rigid(orbit(scene, 1).camera.view_to_world().cpu())
+    for what, grid in K3_WIDE_GRIDS.items():
+        w, h, d = grid
+        k_cfg = dataclasses.replace(cfg, volume_width=w, volume_height=h,
+                                    volume_depth=d)
+        k_r = VolumetricRenderer(k_cfg)
+        st = FrameState(prev_shadow=torch.empty(0),
+                        prev_accumulation=torch.empty(0),
+                        prev_world_to_view=moved, frame_count=1)
+        t = k_r.frame_tables(st, scene, 0.1)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sc, acc = (torch.nn.functional.interpolate(
+            v[None], size=(d, h, w), mode="trilinear",
+            align_corners=True)[0].contiguous() for v in k3_src)
+        form = ff.k3_form(t)
+        cuda.reset_launches()
+        before = {s: cuda.index_form_launches(s) for s in cuda.INDEX_SOURCES}
+        out = ff.integrate_blend(t, sc, acc)
+        torch.cuda.synchronize()
+        forms = {s: f for s, f in index_deltas(cuda, before).items()
+                 if any(f)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"# k3_wide, {what}: K3 on [4, {d}, {h}, {w}] = {sc.numel()} "
+            f"floats a volume, {h} rows ({len(cuda.grid_parts(h))} parts of "
+            f"the launch grid's y axis in the wide form), form {form}, "
+            f"index forms (narrow, wide) {json.dumps(forms)}, peak device "
+            f"memory {peak:.2f} GiB")
+        if form != "wide" or forms != {"integrate_blend": (0, 1)}:
+            raise AssertionError(f"k3_wide {what}: K3 took {forms}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"k3_wide {what}: non-finite output")
+        # a band of rows (K3 reads rows +-1 and the warp's +-5): the narrow
+        # form on the band's tables = the wide form's rows bit for bit, and
+        # the twin, on the band ("planes") or on the whole grid ("rows")
+        band = (h // 8 * 4, 32, 6)
+        y0, hb, m = band
+        tb = band_tables(k_cfg, st, scene, 0.1, y0, hb)
+        b_in = [v[:, :, y0:y0 + hb].contiguous() for v in (sc, acc)]
+        nb = ff.integrate_blend(tb, *b_in, form="narrow")
+        same = torch.equal(nb[:, :, m:hb - m], out[:, :, y0 + m:y0 + hb - m])
+        log(f"# k3_wide, {what}, band rows {y0 + m}-{y0 + hb - m - 1}: the "
+            f"narrow form on the band's tables = the wide form's rows bit "
+            f"for bit: {same}")
+        if not same:
+            raise AssertionError(f"k3_wide {what}: the wide form's rows differ "
+                                 "from the narrow form's on the band")
+        del nb
+        t0 = time.perf_counter()
+        if what == "rows":
+            hold = "the whole grid's twin"
+            err = compare("integrate_blend", out,
+                          ff.integrate_blend_plain(t, sc, acc),
+                          label=f"k3_wide {what}")
+        else:
+            hold = f"the twin on band rows {y0}-{y0 + hb - 1}"
+            err = band_hold("integrate_blend", out,
+                            ff.integrate_blend_plain(tb, *b_in), band,
+                            f"k3_wide {what}")
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        del out, b_in
+        rows[("integrate_blend", f"wide_{what}")] = wide_row(
+            "integrate_blend", f"wide_{what}",
+            lambda: ff.integrate_blend(t, sc, acc), 3,
+            fused_work(t, "integrate_blend"), err, plain_ms, 1, hold)
+        del sc, acc, t
+        torch.cuda.empty_cache()
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: k3_wide")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2788,9 +3510,17 @@ def main() -> int:
             current["path"] = name
             before = {src: cuda.form_launches(src)
                       for src in cuda.FORM_SOURCES}
+            before_ix = {src: cuda.index_form_launches(src)
+                         for src in cuda.INDEX_SOURCES}
             runs[name] = drive(name, renderers[name], scene_of(name),
                                *gbuf(name), cuda, bakes[name])
             check_forms(name, before, runs[name][2], cuda)
+            # the narrow forms wherever they fit: every main path's
+            for src, (narrow, wide) in index_deltas(cuda, before_ix).items():
+                if (narrow, wide) != (runs[name][2][src], 0):
+                    raise AssertionError(
+                        f"path {name}: {src} launched (narrow, wide) forms "
+                        f"{narrow, wide}")
     finally:
         pipeline.write_scatter_xla = real_xla
     if sorted(xla_args) != sorted(XLA_SCATTER_PATHS):
@@ -2926,6 +3656,9 @@ def main() -> int:
     del d_img2
 
     done("the main paths")
+    # from here to the end of the holds every hold of K2, K3 and K9 is
+    # repeated in the wide form (WideHolds)
+    WIDE.install(ff, vis)
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
     prev = states[3]
@@ -2966,7 +3699,8 @@ def main() -> int:
         compare("shadow_scatter", ff.shadow_scatter(opt, prev_sh, bake_rgb)[1],
                 sc_opt_p, label="radiance, jittered sun, fBm per froxel"))
     errs["integrate_blend"] = compare(
-        "integrate_blend", acc, ff.integrate_blend_plain(tables, sc, prev_acc))
+        "integrate_blend", acc, ff.integrate_blend_plain(tables, sc, prev_acc),
+        label="fused frame 4")
     errs["composite"] = compare(
         "composite", out, zg.composite_plain(acc, scene_color, view_depth,
                                              params, cfg.grid))
@@ -3345,7 +4079,8 @@ def main() -> int:
                                         h_w2v)
     h_vis = vis.bake_visibility(h_tables)
     errs["bake_visibility"] = compare("bake_visibility", h_vis,
-                                      vis.bake_visibility_plain(h_tables))
+                                      vis.bake_visibility_plain(h_tables),
+                                      label="history frame")
     # K9 on 40 local lights (ten a light group) at vis_bake's configuration
     v40, _, _ = renderers["vis_bake"].frame_tables(
         renderers["vis_bake"].init_state(scene40.dir_lights.count), scene40,
@@ -4020,6 +4755,14 @@ def main() -> int:
     for k_, v_ in many_errs.items():
         errs[k_] = max(errs.get(k_, 0.0), v_)
 
+    n_wide = len(WIDE.errs)
+    WIDE.uninstall()
+    log(f"# the wide forms forced in every hold of K2, K3 and K9: {n_wide} "
+        f"holds, each = the narrow form bit for bit; the largest against the "
+        f"twins: " + json.dumps({k: max(e for (k_, _), e in WIDE.errs.items()
+                                        if k_ == k)
+                                 for k in sorted({k for k, _ in WIDE.errs})}))
+    index_form_mirrors(ff, vis, sca, cuda, tables)
     done("the holds")
     # the raster phase's CPU side, joined before the timings
     check_cpu_gbuffer(*gbuf_proc, mesh_gbuf[720], mesh,
@@ -4533,6 +5276,27 @@ def main() -> int:
         n_fro * (ops_shadow + 60 * n_media + ops_perlin * noise_media + sun)
         + k2_pairs[m] * (60 + (ops_ray if m == "rays" else 20)))
         for m in k2_in}
+    # the wide forms forced at the main path's shapes (240x135x128), timed
+    # in turns with the narrow ones on the inputs of the holds above
+    wide_forced = {
+        ("shadow_scatter", "wide_forced_radiance"): (
+            lambda f: ff.shadow_scatter(tables, prev_sh, bake, form=f),
+            plain_ms["shadow_scatter"], work["shadow_scatter"],
+            ("radiance, history", "radiance, planes"), 20),
+        ("integrate_blend", "wide_forced"): (
+            lambda f: ff.integrate_blend(tables, sc, prev_acc, form=f),
+            plain_ms["integrate_blend"], work["integrate_blend"],
+            ("fused frame 4",), 20),
+        ("bake_visibility", "wide_forced"): (
+            lambda f: vis.bake_visibility(h_tables, form=f),
+            plain_ms["bake_visibility"], work["bake_visibility"],
+            ("history frame",), 20)}
+    for m, a in k2_in.items():
+        wide_forced[("shadow_scatter", f"wide_forced_{m}")] = (
+            lambda f, a=a: ff.shadow_scatter(a[0], a[1], vis=a[2], form=f),
+            k2_plain_ms[m], k2_work[m], (f"{m}, history", f"{m}, planes"),
+            5 if m == "rays" else 20)
+    forced_rows = wide_forced_rows(wide_forced)
     # K4 at 4K: the accumulation, depth and scene in, the image out; the
     # co-sited planes at 1920x1080: no scene, four planes out
     n_4k = depth_4k.numel()
@@ -4851,6 +5615,10 @@ def main() -> int:
     done("the training phases")
     demo_entry(cuda)
     done("demo_entry")
+    wide_rows = {**forced_rows,
+                 **wide_paths(cfg, scene, renderer, renderers, scene_color,
+                              view_depth, cuda)}
+    done("the wide forms")
 
     kernels = []
     for name in cuda.SOURCES:
@@ -5012,6 +5780,11 @@ def main() -> int:
                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                 f"by {row['bound_by']}, launches {entry[m]['launches']} "
                 f"({paths})")
+        # the wide index forms: forced at 240x135x128 beside the narrow
+        # ones, and at their crossings (wide_paths)
+        for (k, m), row in wide_rows.items():
+            if k == name:
+                entry[m] = row
         if name == "temporal_blend":
             b_ms, b_by = bound(*weight_work)
             entry["weight"] = {

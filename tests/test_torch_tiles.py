@@ -147,13 +147,15 @@ def _at(t, grid, **kw):
 @pytest.mark.parametrize("grid", [(2048, 2048, 128), (4096, 4096, 64),
                                   (8, 8, 65536)])
 def test_wrappers_refuse_indices_past_32_bits(tables, grid):
-    """K2's and K6's wrappers raise ValueError, before any launch, for a
-    grid whose [4, D, H, W] planes pass 2^31 - 1 floats or whose launch grid
-    would hold more than 65535 slices."""
+    """K6's wrapper raises ValueError, before any launch, for a grid whose
+    [4, D, H, W] planes pass 2^31 - 1 floats or whose launch grid would
+    hold more than 65535 slices. K2's takes them in its wide form and goes
+    on to refuse only the meta tensors (not on CUDA)."""
     t, shadow, bake = _at(tables, grid)
     with pytest.raises(ValueError, match="2\\^31|65535"):
         t_sca.check_tile_indices(t)
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    assert t_ff.k2_form(t, RAD) == "wide"
+    with pytest.raises(ValueError, match="CUDA"):
         t_ff.shadow_scatter(t, shadow, bake)
     with pytest.raises(ValueError, match="2\\^31|65535"):
         t_sca.scatter_local(t, shadow, bake)
@@ -828,19 +830,22 @@ def test_k9_lights_each_once_in_light_order(n_lights):
 
 
 @pytest.mark.parametrize("grid,n_lights,refused", [
-    ((2048, 2048, 128), 4, True),     # [4, D, H, W] planes: 2^31 floats
-    ((8, 8, 65536), 4, True),         # past 65535 slices
-    ((2048, 2047, 128), 300, True),   # 300 lights' low volume past 2^31
-    ((2048, 2047, 128), 4, False)])
+    ((2048, 2048, 128), 4, False),    # [4, D, H, W] planes: not K9's
+    ((8, 8, 65536), 4, False),        # past 65535 slices: a 1-D grid
+    ((2048, 2047, 128), 300, False),  # 300 lights' volume: the wide form
+    ((2048, 2047, 128), 4, False),
+    ((16, 15, 16), 2 ** 27, True)])   # the lights table: 2^31 floats
 def test_k9_refuses_indices_past_32_bits(tables, grid, n_lights, refused):
-    """K9's wrapper raises ValueError, before the launch, where the slice
-    tiles' do (ops/scatter.check_tile_indices): planes or the [NL, DL, HL,
-    WL] volume past 2^31 - 1 floats, or more than 65535 slices; under them
-    it goes on to refuse only the meta tables (not on CUDA)."""
+    """K9's wrapper raises ValueError, naming K9, before the launch, only
+    for what its wide form cannot index (ops/visibility.k9_form): here a
+    lights table [NL, 16] of 2^31 floats. The planes it never indexes, a
+    slice count past 65535 (its blocks are a 1-D grid) and a [NL, DL, HL,
+    WL] volume past 2^31 - 1 floats (the wide form) go on to refuse only
+    the meta tables (not on CUDA)."""
     lights = torch.empty((n_lights, 16), device="meta")
     t = dataclasses.replace(tables, grid_whd=grid, lights=lights,
                             spar=tables.spar.to("meta"))
-    with pytest.raises(ValueError, match="2\\^31|65535" if refused
+    with pytest.raises(ValueError, match="K9.*2\\^31" if refused
                        else "CUDA"):
         t_vis.bake_visibility(t)
 

@@ -1,0 +1,306 @@
+"""The index forms of the fused frame's kernels K1, K2, K3 and K9
+(csrc/bake_radiance.cu, csrc/shadow_scatter.cu, csrc/integrate_blend.cu,
+csrc/bake_visibility.cu): each kernel refuses only what it indexes, K2, K3
+and K9 take a wide form (64-bit indices, the slices or rows launched in
+parts of at most 65535) past their narrow one, and K5, K6 and K7 keep
+refusing past 32 bits. The wrappers' form mirrors at their edges by
+arithmetic, the wrappers' arguments on meta tensors against the entry
+point each launches (the launch stubbed), and the parts of a launch-grid
+axis. Plain Python and torch on the CPU; no JAX."""
+
+import dataclasses
+
+import pytest
+import torch
+
+import volumetricrenderer_tpu_torch as vt
+from volumetricrenderer_tpu_torch.ops import cuda
+from volumetricrenderer_tpu_torch.ops import dir_shadow as t_ds
+from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
+from volumetricrenderer_tpu_torch.ops import scatter as t_sca
+from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
+from volumetricrenderer_tpu_torch.ops import visibility as t_vis
+
+RAD, RAY, BAKED = t_sca.LOCAL_RADIANCE, t_sca.LOCAL_RAY, t_sca.LOCAL_BAKED
+EDGE = 2 ** 31 - 1
+
+
+@pytest.fixture(scope="module")
+def tables():
+    """A fused frame's tables (the radiance bake at ss = 4, one sun, four
+    local lights, the light schedule packed too) at 16x15x16."""
+    cfg = dataclasses.replace(vt.FULL_CONFIG, volume_width=16,
+                              volume_height=15, volume_depth=16,
+                              image_width=128, image_height=120)
+    r = vt.VolumetricRenderer(cfg, device="cpu")
+    scene = vt.benchmark_scene(aspect=128 / 120, num_local_lights=4,
+                               noise_mode="procedural", device="cpu")
+    t = r.frame_tables(r.init_state(1), scene, 0.0)[0]
+    return dataclasses.replace(
+        t, order=torch.zeros((16, 4), dtype=torch.int32),
+        count=torch.zeros(16, dtype=torch.int32))
+
+
+def _with(t, grid=None, n_dir=None, n_lights=None, meta=False):
+    """t at another grid, sun count or light count (meta tables)."""
+    kw = {}
+    if grid is not None:
+        kw["grid_whd"] = grid
+    if n_dir is not None:
+        kw["n_dir"] = n_dir
+    if n_lights is not None:
+        kw["lights"] = torch.empty((n_lights, 16), device="meta")
+    if meta:
+        kw["spar"] = t.spar.to("meta")
+    return dataclasses.replace(t, **kw)
+
+
+def test_past_int32_at_its_edge():
+    """2^31 - 1 floats take a 32-bit index, 2^31 do not."""
+    assert cuda.past_int32("x", EDGE) is None
+    assert cuda.past_int32("x", 2, 2 ** 30 - 1) is None
+    assert "2^31" in cuda.past_int32("x", 2 ** 31)
+    assert "2^31" in cuda.past_int32("x", 2, 2 ** 30)
+
+
+# (grid, suns, local source, form): the [max(4, Nd), D, H, W] planes at the
+# largest size under 2^31 floats and at 2^31; the radiance's 3 + n_noise
+# channels and the baked visibility's NL channels of the low volume at the
+# same edge; the schedule [D, NL]; 65535 and 65536 slices
+K2_CASES = [
+    ((2048, 2047, 128), 1, RAD, "narrow"),     # 4 x 536,608,768 floats
+    ((2048, 2048, 128), 1, RAD, "wide"),       # 2^31
+    ((1024, 1024, 511), 4, RAY, "narrow"),
+    ((1024, 1024, 512), 4, RAY, "wide"),       # 4 suns: 2^31
+    ((1024, 1024, 409), 5, BAKED, "narrow"),   # 5 suns: 2,144,337,920
+    ((1024, 1024, 410), 5, BAKED, "wide"),
+    ((8, 8, 65535), 1, RAD, "narrow"),
+    ((8, 8, 65536), 1, RAD, "wide"),
+    ((8, 8, 65536), 1, RAY, "wide"),
+]
+
+
+@pytest.mark.parametrize("grid,n_dir,local,form", K2_CASES)
+def test_k2_form_at_its_edges(tables, grid, n_dir, local, form):
+    """K2's narrow form up to 2^31 - 1 floats of planes and 65535 slices,
+    the wide form past them, in every local source."""
+    assert t_ff.k2_form(_with(tables, grid, n_dir), local) == form
+
+
+@pytest.mark.parametrize("n_lights,local,form", [
+    # the low grid of 2048 x 2048 x 128 at ss = 4: 512 x 512 x 32 samples
+    (511, BAKED, "narrow"), (512, BAKED, "wide"),
+    (512, RAD, "narrow"), (512, RAY, "narrow")])
+def test_k2_form_reads_only_its_low_channels(tables, n_lights, local, form):
+    """Only the baked source reads NL low channels: 512 lights' visibility
+    volume of 2^31 floats takes the wide form there alone; the radiance
+    reads 3 + n_noise channels and the rays none."""
+    t = _with(tables, (2048, 1024, 128), n_lights=n_lights)
+    assert t.low_dims == (512, 256, 32)
+    assert t_ff.k2_form(t, local) == form
+
+
+@pytest.mark.parametrize("n_lights,local,form", [
+    (32768, RAY, "narrow"), (32769, RAY, "wide"), (32769, RAD, "narrow")])
+def test_k2_form_schedule(tables, n_lights, local, form):
+    """The per-light loops index the schedule [D, NL] in 32 bits: past
+    2^31 - 1 entries (65535 slices x 32769 lights) they take the wide form;
+    the radiance source never reads the schedule."""
+    t = _with(tables, (16, 15, 65535), n_lights=n_lights)
+    assert t_ff.k2_form(t, local) == form
+
+
+@pytest.mark.parametrize("grid,form", [
+    ((1024, 1024, 511), "narrow"), ((1024, 1024, 512), "wide"),   # 2^31
+    ((8, 65535, 16), "narrow"), ((8, 65536, 16), "wide"),         # rows
+    ((16, 9, 65664), "narrow")])    # slices: a loop of each block
+def test_k3_form_at_its_edges(tables, grid, form):
+    """K3's narrow form up to 2^31 - 1 floats of [4, D, H, W] planes and
+    65535 rows (a row a launch-grid y index), the wide form past them; the
+    slice count limits neither."""
+    assert t_ff.k3_form(_with(tables, grid)) == form
+
+
+@pytest.mark.parametrize("grid,n_lights,form", [
+    ((2048, 1024, 128), 511, "narrow"),   # [NL, 32, 256, 512] volume
+    ((2048, 1024, 128), 512, "wide"),     # 2^31 floats
+    ((240, 135, 128), 32896, "narrow"),   # FULL_CONFIG's low grid
+    ((240, 135, 128), 32897, "wide"),
+    ((8, 8, 65536), 4, "narrow")])        # a 1-D grid: any slice count
+def test_k9_form_at_its_edges(tables, grid, n_lights, form):
+    """K9's narrow form up to a visibility volume of 2^31 - 1 floats, the
+    wide form past it."""
+    assert t_vis.k9_form(_with(tables, grid, n_lights=n_lights)) == form
+
+
+def test_k1_bound_of_its_own(tables):
+    """K1 writes its low volume at 64-bit offsets on a 1-D grid: planes,
+    low volumes and slice counts that the other kernels' narrow forms
+    refuse pass its check; the cull table [NL, DL] of 2^31 entries does
+    not."""
+    for grid, n_lights in (((2048, 2048, 128), 4), ((8, 8, 65536), 4),
+                           ((240, 135, 128), 40000)):
+        t_ff.check_k1_indices(_with(tables, grid, n_lights=n_lights))
+    t = _with(tables, (16, 15, 2 ** 18), n_lights=2 ** 15)
+    assert t.low_dims[2] == 2 ** 16
+    with pytest.raises(ValueError, match="K1.*2\\^31"):
+        t_ff.check_k1_indices(t)
+
+
+@pytest.mark.parametrize("n", [1, 16, 65535, 65536, 65664, 131070, 131071,
+                               200001])
+def test_grid_parts_cover_each_index_once(n):
+    """The wide forms' parts cover [0, n) exactly once, in order, each at
+    most 65535."""
+    parts = cuda.grid_parts(n)
+    assert all(0 < c <= cuda.MAX_GRID_Z for _, c in parts)
+    assert [a for a, _ in parts] == list(range(0, n, cuda.MAX_GRID_Z))
+    assert sum(c for _, c in parts) == n
+    assert all(a + c == b for (a, c), (b, _) in zip(parts, parts[1:]))
+
+
+@pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
+def test_staged_kernels_still_refuse(tables, grid):
+    """K5, K6 and K7 keep their 32-bit predicate (check_tile_indices) and
+    refuse, naming the kernel, before any launch."""
+    w, h, d = grid
+    t = _with(tables, grid, meta=True)
+    shadow = torch.empty((1, d, h, w), device="meta")
+    bake = torch.empty((3 + t.n_noise,) + t.low_dims[::-1], device="meta")
+    for kernel, call in (("K5", lambda: t_sb.dir_shadow_blend(t, shadow)),
+                         ("K6", lambda: t_sca.scatter_local(t, shadow,
+                                                            bake)),
+                         ("K7", lambda: t_ds.dir_shadow(t))):
+        with pytest.raises(ValueError, match=f"{kernel}.*(2\\^31|65535)"):
+            call()
+
+
+class _Library:
+    """A stand-in for a kernel's loaded library: any entry point, which
+    keeps the argument types cuda._declare gives it."""
+
+    def __getattr__(self, name):
+        fn = type("Entry", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+def _stub_launch(monkeypatch):
+    calls = []
+    monkeypatch.setattr(cuda, "check_cuda", lambda *t, **kw: None)
+    monkeypatch.setattr(cuda, "ptr", lambda t: None)
+    monkeypatch.setattr(cuda, "launch", lambda name, *args, entry="":
+                        calls.append((name, entry, args)))
+    return calls
+
+
+def _declared(name, entry):
+    lib = _Library()
+    cuda._declare(lib, name)
+    return getattr(lib, entry).argtypes
+
+
+# (kernel, grid, lights, forced form, the form argument the launch gets)
+LAUNCH_CASES = [
+    ("K2 radiance", (8, 8, 65536), 4, None, 1),
+    ("K2 radiance", (16, 15, 16), 4, None, 0),
+    ("K2 radiance", (16, 15, 16), 4, "wide", 1),
+    ("K2 rays", (2048, 2048, 128), 4, None, 1),
+    ("K2 baked", (240, 135, 128), 32897, None, 1),
+    ("K3", (8, 65536, 16), 4, None, 1),
+    ("K3", (1024, 1024, 512), 4, None, 1),
+    ("K3", (16, 15, 16), 4, "wide", 1),
+    ("K3", (16, 15, 16), 4, "narrow", 0),
+    ("K9", (240, 135, 128), 32897, None, 1),
+    ("K9", (8, 8, 65536), 4, None, 0),
+    ("K9", (16, 15, 16), 4, "wide", 1),
+    ("K1", (8, 8, 65536), 4, None, None),
+    ("K1", (2048, 2048, 128), 300, None, None),
+]
+
+
+@pytest.mark.parametrize("kernel,grid,n_lights,forced,form_arg",
+                         LAUNCH_CASES)
+def test_wrappers_launch_past_32_bits(tables, kernel, grid, n_lights,
+                                      forced, form_arg, monkeypatch):
+    """The wrappers no longer refuse the tables past the narrow forms: each
+    launches its source's form-taking entry point (K1 its one entry) with
+    the declared argument count and the form argument last before the
+    stream, the size rule's or the forced one."""
+    calls = _stub_launch(monkeypatch)
+    w, h, d = grid
+    t = _with(tables, grid, n_lights=n_lights, meta=True)
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    name, entry = {"K1": ("bake_radiance", "vr_bake_radiance"),
+                   "K3": ("integrate_blend", "vr_integrate_blend_form"),
+                   "K9": ("bake_visibility", "vr_bake_visibility_form")}.get(
+        kernel, ("shadow_scatter", "vr_shadow_scatter_form"))
+    if kernel == "K1":
+        t_ff.bake_radiance(t)
+    elif kernel == "K3":
+        t_ff.integrate_blend(t, meta(4, d, h, w), meta(4, d, h, w),
+                             form=forced)
+    elif kernel == "K9":
+        t_vis.bake_visibility(t, form=forced)
+    else:
+        low = {"K2 radiance": meta(3 + t.n_noise, dl, hl, wl),
+               "K2 baked": meta(n_lights, dl, hl, wl)}.get(kernel)
+        is_baked = kernel == "K2 baked"
+        t_ff.shadow_scatter(t, meta(1, d, h, w),
+                            None if is_baked else low,
+                            low if is_baked else None, form=forced)
+    (got_name, got_entry, args), = calls
+    assert (got_name, got_entry or "vr_" + got_name) == (name, entry)
+    assert len(args) + 1 == len(_declared(name, entry))
+    if form_arg is not None:
+        assert args[-1] == form_arg
+
+
+@pytest.mark.parametrize("kernel,grid,n_lights", [
+    ("K2", (8, 8, 65536), 4), ("K3", (8, 65536, 16), 4),
+    ("K9", (240, 135, 128), 32897)])
+def test_forced_narrow_form_past_its_edge_is_refused(tables, kernel, grid,
+                                                     n_lights, monkeypatch):
+    """Forcing the narrow form on tables past it raises ValueError, naming
+    the kernel and its form, before any launch."""
+    calls = _stub_launch(monkeypatch)
+    w, h, d = grid
+    t = _with(tables, grid, n_lights=n_lights, meta=True)
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match=f"{kernel}'s narrow form"):
+        if kernel == "K2":
+            t_ff.shadow_scatter(t, meta(1, d, h, w),
+                                meta(3 + t.n_noise, dl, hl, wl),
+                                form="narrow")
+        elif kernel == "K3":
+            t_ff.integrate_blend(t, meta(4, d, h, w), meta(4, d, h, w),
+                                 form="narrow")
+        else:
+            t_vis.bake_visibility(t, form="narrow")
+    assert calls == []
+
+
+def test_past_the_wide_forms_is_refused_before_the_launch(tables,
+                                                          monkeypatch):
+    """What a wide form cannot index is refused by the kernel's name before
+    any launch: K3 past 2^31 - 1 column tiles (its bare launch error
+    before), K2 past 65535 tiles of 16 rows, K9's lights table of 2^31
+    floats."""
+    calls = _stub_launch(monkeypatch)
+    meta = lambda *s: torch.empty(s, device="meta")
+    t = _with(tables, (2 ** 35, 1, 1), meta=True)
+    with pytest.raises(ValueError, match="K3.*column tiles.*2\\^31"):
+        t_ff.integrate_blend(t, meta(4, 1, 1, 2 ** 35),
+                             meta(4, 1, 1, 2 ** 35))
+    t = _with(tables, (16, 16 * 65535 + 1, 1), meta=True)
+    wl, hl, dl = t.low_dims
+    with pytest.raises(ValueError, match="K2.*row tiles.*65535"):
+        t_ff.shadow_scatter(t, meta(1, 1, 16 * 65535 + 1, 16),
+                            meta(3 + t.n_noise, dl, hl, wl))
+    with pytest.raises(ValueError, match="K9.*lights table.*2\\^31"):
+        t_vis.bake_visibility(_with(tables, n_lights=2 ** 27, meta=True))
+    with pytest.raises(ValueError, match="K3: form 'huge'"):
+        t_ff.k3_form(tables, "huge")
+    assert calls == []

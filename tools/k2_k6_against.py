@@ -25,7 +25,8 @@ both kernels' times, CUDA-event means of 20 launches behind a device-side
 spin, in the order other, this, this, other. Prints the card's name and
 power limit first and a JSON line of the rows last. Exits non-zero on a
 disagreement or without a GPU. The other checkouts' kernels take the same
-VrTables and entry points (vr_shadow_scatter, vr_scatter).
+VrTables and entry points (vr_shadow_scatter, or vr_shadow_scatter_form in
+the size rule's form: k3_k4_against.rule_entry; vr_scatter).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from k3_k4_against import spin_time_ms  # noqa: E402
+from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
 
 SOURCES = ("shadow_scatter", "scatter")
 
@@ -69,8 +70,9 @@ def build_other(other: Path, out: Path, cuda) -> dict:
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     tp = ctypes.POINTER(cuda.VrTables)
-    libs["shadow_scatter"].vr_shadow_scatter.argtypes = \
-        [tp, vp, vp, vp, vp, ci, vp]
+    libs["shadow_scatter"].vr_shadow_scatter = rule_entry(
+        libs["shadow_scatter"], "shadow_scatter",
+        [tp, vp, vp, vp, vp, ci, vp])
     libs["scatter"].vr_scatter.argtypes = [tp, vp, vp, vp, vp, vp, ci, vp]
     return libs
 

@@ -49,6 +49,22 @@ def spin_time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def rule_entry(lib, name: str, argtypes: list):
+    """Kernel `name`'s launch in the size rule's form through another
+    tree's library `lib`, with the arguments of its `vr_<name>` entry
+    (argtypes, the stream last): a tree with one form-taking entry point
+    `vr_<name>_form` (K2, K3 and K9 since their wide forms) is called there
+    with the form -1 before the stream, an older tree at `vr_<name>`."""
+    form = getattr(lib, f"vr_{name}_form", None)
+    if form is None:
+        old = getattr(lib, f"vr_{name}")
+        old.argtypes, old.restype = argtypes, ctypes.c_int
+        return old
+    form.argtypes = argtypes[:-1] + [ctypes.c_int, argtypes[-1]]
+    form.restype = ctypes.c_int
+    return lambda *a: form(*a[:-1], -1, a[-1])
+
+
 def build_other(other: Path, out: Path, cuda) -> dict:
     """The other checkout's K3 and K4 libraries, built with this tree's
     flags into `out`, each library loaded with its entry point's argument
@@ -69,8 +85,9 @@ def build_other(other: Path, out: Path, cuda) -> dict:
             raise RuntimeError(f"nvcc failed for the other {name}")
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["integrate_blend"].vr_integrate_blend.argtypes = [
-        ctypes.POINTER(cuda.VrTables), vp, vp, vp, vp]
+    libs["integrate_blend"].vr_integrate_blend = rule_entry(
+        libs["integrate_blend"], "integrate_blend",
+        [ctypes.POINTER(cuda.VrTables), vp, vp, vp, vp])
     n_ptr = 6 if hasattr(libs["composite"], "vr_composite_attrs") else 5
     libs["composite"].vr_composite.argtypes = \
         [vp] * n_ptr + [ci] * 7 + [vp, vp]

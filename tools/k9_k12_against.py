@@ -47,7 +47,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from k10_k11_against import busy_ms  # noqa: E402
-from k3_k4_against import spin_time_ms  # noqa: E402
+from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
 
 SOURCES = ("bake_visibility", "pcf_shadow")
 # row -> (chip_smoke.py path whose configuration it runs, its scene, the
@@ -65,10 +65,17 @@ BUSY_PATHS = ("map_dir", "map", "vis_bake", "history")
 def declare(libs: dict) -> dict:
     """The launch entry points' argument types, as ops/cuda declares them."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["bake_visibility"].vr_bake_visibility.argtypes = [vp, vp, vp]
+    vis = libs["bake_visibility"]
+    vis.vr_bake_visibility = rule_entry(vis, "bake_visibility", [vp, vp, vp])
+    if getattr(vis, "vr_bake_visibility_form", None) is None:
+        # this tree's wrapper, with the library swapped in, launches the
+        # form-taking entry: a tree from before it has the narrow form alone
+        old = vis.vr_bake_visibility
+        vis.vr_bake_visibility_form = (
+            lambda t, out, form, stream: old(t, out, stream)
+            if form <= 0 else 1)
     libs["pcf_shadow"].vr_pcf_shadow.argtypes = [vp] * 6 + [ci] * 6 + [vp,
                                                                       vp]
-    libs["bake_visibility"].vr_bake_visibility.restype = ci
     libs["pcf_shadow"].vr_pcf_shadow.restype = ci
     return libs
 

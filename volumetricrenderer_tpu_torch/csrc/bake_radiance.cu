@@ -390,8 +390,23 @@ static int launch_general(const VrTables* T, const int* geo, int runs_x,
   return 0;
 }
 
+// Whether K1 takes the table (mirrored by ops/frame_fused.check_k1_indices).
+// It writes [3 + n_noise, DL, HL, WL] at 64-bit offsets (a sample's index
+// and the channel stride are longs) on a 1-D grid of blocks, so neither
+// that volume's size nor the slice count limits it; it indexes the cull
+// table [NL, DL] and the lights table [NL, 16] in 32 bits, and its grid
+// holds at most 2^31 - 1 blocks. No wider form is needed below those.
+static bool k1_fits(const VrTables& T) {
+  const long sw = K1_WARPS / k1_groups(T.n_lights, T.n_noise);
+  const long blocks = ((T.wl + K1_WX - 1) / K1_WX)
+                      * ((T.hl + sw * K1_WY - 1) / (sw * K1_WY));
+  return !past_int(T.n_lights, T.dl) && !past_int(T.n_lights, 16)
+         && !past_int(blocks, T.dl);
+}
+
 extern "C" int vr_bake_radiance(const VrTables* T, float* out,
                                 cudaStream_t stream) {
+  if (!k1_fits(*T)) return (int)cudaErrorInvalidValue;
   int geo[8];
   vr_bake_radiance_geometry(T->n_lights, T->n_noise, T->wl, T->hl, T->dl,
                             geo);

@@ -33,8 +33,16 @@
 //      exits (K1's: the same answers).
 // There is no cap on the light count. Every value is the thread-per-pair
 // form's, from the same expressions, so the volume is bit for bit the
-// same. Indices are 32-bit: the launcher refuses tables past common.cuh
-// past_int_index (the wrapper first, ops/scatter.check_tile_indices).
+// same.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/visibility.k9_form):
+// the blocks are a 1-D grid, so the slice count never limits a launch. The
+// narrow form indexes the [NL, DL, HL, WL] volume, the cull table [NL, DL]
+// and the lights table in 32 bits (k9_narrow_fits: each under 2^31
+// floats); past that the wide form, the same kernel with the volume's and
+// the cull table's indices in 64 bits (I = int64_t), gives the same values
+// bit for bit. Either refuses a launch of more than 2^31 - 1 blocks, a low
+// slice of 2^31 samples or more, and a lights table past 2^31 floats.
 //
 // Bound on the H100: operations. The output is 4 MB at 16 lights and
 // 60x34x32 low samples; each active (light, sample) pair costs a
@@ -56,7 +64,7 @@ __host__ __device__ __forceinline__ int k9_groups(int n_lights) {
   return g;
 }
 
-template <bool ARMS>
+template <bool ARMS, class I = int>
 __global__ void __launch_bounds__(32 * K9_WARPS,
                                   ARMS ? K9_MIN_BLOCKS_ARMS : K9_MIN_BLOCKS)
 bake_visibility_kernel(VrTables T, float* __restrict__ out, int groups,
@@ -85,13 +93,13 @@ bake_visibility_kernel(VrTables T, float* __restrict__ out, int groups,
   __syncthreads();
   if (at >= plane) return;
   const float wx = pos_s[0][s], wy = pos_s[1][s], wz = pos_s[2][s];
-  const int n_low = T.dl * plane;
-  const int i = m * plane + at;
+  const I n_low = (I)T.dl * plane;
+  const I i = (I)m * plane + at;
 
   // 2. light group g's lights: visibility.bake_light_plane
   for (int li = g; li < T.n_lights; li += groups) {
     float res = 1.0f;
-    if (T.active[li * T.dl + m]) {
+    if (T.active[(I)li * T.dl + m]) {
       const float* q = T.lights + 16 * li;
       const float tx = wx - q[0], ty = wy - q[1], tz = wz - q[2];
       const float d2 = tx * tx + ty * ty + tz * tz;
@@ -123,28 +131,85 @@ extern "C" int vr_bake_visibility_geometry(int n_lights, int wl, int hl,
   return 0;
 }
 
-extern "C" int vr_bake_visibility(const VrTables* T, float* out,
-                                  cudaStream_t stream) {
-  if (past_int_index(*T)) return (int)cudaErrorInvalidValue;
+// Launches of the narrow (0) and wide (1) forms since the library was
+// loaded (vr_bake_visibility_index_forms).
+static long g_index_forms[2];
+
+// Whether the wide form takes the table (mirrored by
+// ops/visibility.k9_form): at most 2^31 - 1 blocks, the runs of a low slice
+// under 2^31 samples (a sample's place in its slice is an int) and the
+// lights table under 2^31 floats.
+static bool k9_wide_fits(const VrTables& T) {
+  const long samples = 32 * (K9_WARPS / k9_groups(T.n_lights));
+  const long runs = ((long)T.wl * T.hl + samples - 1) / samples;
+  return !past_int(runs, T.dl) && !past_int(runs, samples)
+         && !past_int(T.n_lights, 16);
+}
+
+// Whether the narrow form takes it: also the [NL, DL, HL, WL] volume (and
+// with it the cull table [NL, DL]) under 2^31 floats.
+static bool k9_narrow_fits(const VrTables& T) {
+  return k9_wide_fits(T)
+         && !past_int(T.n_lights, (long)T.wl * T.hl * T.dl);
+}
+
+static int k9_form(const VrTables& T) {
+  if (k9_narrow_fits(T)) return VR_FORM_NARROW;
+  return k9_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <bool ARMS, class I>
+static void launch_form(const VrTables* T, float* out, const int* geo,
+                        cudaStream_t stream) {
+  bake_visibility_kernel<ARMS, I><<<geo[0], geo[1], 0, stream>>>(
+      *T, out, geo[3], geo[4]);
+}
+
+// form: VR_FORM_RULE (the size rule's, k9_form), or the narrow or the wide
+// form, refused where it does not take the table.
+extern "C" int vr_bake_visibility_form(const VrTables* T, float* out,
+                                       int form, cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k9_form(*T);
+  const bool fits = form == VR_FORM_NARROW ? k9_narrow_fits(*T)
+                    : form == VR_FORM_WIDE ? k9_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
   int geo[6];
   vr_bake_visibility_geometry(T->n_lights, T->wl, T->hl, T->dl, geo);
-  if (needs_arms(*T))
-    bake_visibility_kernel<true><<<geo[0], geo[1], 0, stream>>>(
-        *T, out, geo[3], geo[4]);
+  const bool arms = needs_arms(*T);
+  if (form == VR_FORM_WIDE)
+    arms ? launch_form<true, int64_t>(T, out, geo, stream)
+         : launch_form<false, int64_t>(T, out, geo, stream);
   else
-    bake_visibility_kernel<false><<<geo[0], geo[1], 0, stream>>>(
-        *T, out, geo[3], geo[4]);
+    arms ? launch_form<true, int>(T, out, geo, stream)
+         : launch_form<false, int>(T, out, geo, stream);
+  ++g_index_forms[form];
   return (int)cudaGetLastError();
 }
 
-// cudaFuncGetAttributes of the two kernels, ARMS false then true: registers
-// per thread, static shared bytes per block, local bytes per thread and
-// largest block into out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS>
+// The size rule's form for the table into out[0] (-1: past the wide form
+// too).
+extern "C" int vr_bake_visibility_form_of(const VrTables* T, int* out) {
+  out[0] = k9_form(*T);
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_bake_visibility_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
+}
+
+// cudaFuncGetAttributes of the four kernels, the narrow form's ARMS false
+// then true, then the wide form's: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)bake_visibility_kernel<ARMS>);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)bake_visibility_kernel<ARMS, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -153,7 +218,9 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_bake_visibility_attrs(int* out) {
-  const cudaError_t errs[2] = {attrs_of<false>(out), attrs_of<true>(out + 4)};
+  const cudaError_t errs[4] = {attrs_of<false>(out), attrs_of<true>(out + 4),
+                               attrs_of<false, int64_t>(out + 8),
+                               attrs_of<true, int64_t>(out + 12)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

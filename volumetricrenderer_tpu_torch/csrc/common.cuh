@@ -21,6 +21,8 @@
 // (needs_general)
 #define VR_MAX_DIR 4        // directional lights
 #define VR_MAX_NOISE 4      // noise-bearing media baked at the low rate
+// The most blocks a launch grid's y or z axis holds
+#define VR_MAX_GRID_Z 65535
 
 // Packed tables and dims of one frame (the wrapper fills it from the
 // pack_* tables; mirrored by ops/cuda.py VrTables). All pointers are device
@@ -691,34 +693,39 @@ __device__ __forceinline__ void warp8_by(const float* prev, I cstride,
 // The z-lerp + separable clamp-to-edge tent of a low channel [DL, HL, WL] at
 // full froxel (z, y, x), split so that a froxel computes its taps once for
 // every channel it reads: the slice terms (low_slice, constants of a slice
-// tile), then the column's and the row's tent taps (low_taps).
-struct LowSlice {
-  int sa, sb;  // offsets of the low slices ka, kb = min(ka + 1, DL - 1)
-  float vt;    // the z-lerp weight
+// tile), then the column's and the row's tent taps (low_taps). I: the
+// index type of the offsets (int64_t in K2's wide form, int elsewhere).
+template <class I = int>
+struct LowSliceT {
+  I sa, sb;  // offsets of the low slices ka, kb = min(ka + 1, DL - 1)
+  float vt;  // the z-lerp weight
 };
 
-__device__ __forceinline__ LowSlice low_slice(const VrTables& T, int z) {
+template <class I = int>
+__device__ __forceinline__ LowSliceT<I> low_slice(const VrTables& T, int z) {
   const float vu = ((float)z - (float)(T.ss - 1) * 0.5f) / (float)T.ss;
   const float vkf = clampf(floorf(vu), 0.0f, (float)T.dl - 1.0f);
   const int ka = (int)vkf;
   const int kb = min(ka + 1, T.dl - 1);
-  LowSlice s;
+  LowSliceT<I> s;
   s.vt = clampf(vu - vkf, 0.0f, 1.0f);
-  s.sa = ka * T.hl * T.wl;
-  s.sb = kb * T.hl * T.wl;
+  s.sa = (I)ka * T.hl * T.wl;
+  s.sb = (I)kb * T.hl * T.wl;
   return s;
 }
 
-struct LowTaps {
-  int a0, b0, a1, b1;  // slice ka or kb (a, b), tent row ky0 or ky1 (0, 1)
+template <class I = int>
+struct LowTapsT {
+  I a0, b0, a1, b1;  // slice ka or kb (a, b), tent row ky0 or ky1 (0, 1)
   int kx0, kx1;
   float vt, wx0, wx1, wy0, wy1;
 };
 
-__device__ __forceinline__ LowTaps low_taps(const VrTables& T,
-                                            const LowSlice& s, int y,
-                                            int x) {
-  LowTaps t;
+template <class I>
+__device__ __forceinline__ LowTapsT<I> low_taps(const VrTables& T,
+                                                const LowSliceT<I>& s, int y,
+                                                int x) {
+  LowTapsT<I> t;
   t.kx0 = T.tent_xk[x];
   t.kx1 = min(t.kx0 + 1, T.wl - 1);
   t.wx0 = T.tent_xw[x];
@@ -726,20 +733,21 @@ __device__ __forceinline__ LowTaps low_taps(const VrTables& T,
   const int ky0 = T.tent_yk[y], ky1 = min(ky0 + 1, T.hl - 1);
   t.wy0 = T.tent_yw[y];
   t.wy1 = T.tent_yw[T.h + y];
-  t.a0 = s.sa + ky0 * T.wl;
-  t.b0 = s.sb + ky0 * T.wl;
-  t.a1 = s.sa + ky1 * T.wl;
-  t.b1 = s.sb + ky1 * T.wl;
+  t.a0 = s.sa + (I)ky0 * T.wl;
+  t.b0 = s.sb + (I)ky0 * T.wl;
+  t.a1 = s.sa + (I)ky1 * T.wl;
+  t.b1 = s.sb + (I)ky1 * T.wl;
   t.vt = s.vt;
   return t;
 }
 
 // The upsampled value of low channel `vol` at the taps: each tent row's
 // z-lerps, the x tent, then the y tent.
+template <class I>
 __device__ __forceinline__ float low_at(const float* __restrict__ vol,
-                                        const LowTaps& t) {
+                                        const LowTapsT<I>& t) {
   float rows[2];
-  const int as[2] = {t.a0, t.a1}, bs[2] = {t.b0, t.b1};
+  const I as[2] = {t.a0, t.a1}, bs[2] = {t.b0, t.b1};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float va0 = __ldg(vol + as[r] + t.kx0);
@@ -764,13 +772,15 @@ __device__ __forceinline__ float low_at(const float* __restrict__ vol,
 // upsample's slice terms and, with BLEND (the shadow blend's), its view
 // depth and log(fpz) and the inverse direction of each sun's shadow ray
 // (the fixed forms' VR_MAX_DIR suns; the general forms keep them in dynamic
-// shared memory, sun_inverses).
-template <int TX, int TY>
+// shared memory, sun_inverses). I: the index type of the upsample's slice
+// offsets.
+template <int TX, int TY, class I = int>
 struct TileTerms {
+  using Index = I;
   static constexpr int LINES = 2 * TX + 2 * TY;  // tile_line's items
   float vxj[TX], vxc[TX], vyj[TY], vyc[TY];
   float vz_j, vz_c, vz_b, lfpz_b;
-  LowSlice low;
+  LowSliceT<I> low;
   float sun_inv[VR_MAX_DIR][3];
 };
 
@@ -794,7 +804,7 @@ __device__ __forceinline__ void tile_scalars(const VrTables& T, int z,
     } else if (item == 1) {
       S.vz_c = center_vz(p, z, false, T.d);
     } else if (item == 2) {
-      if (T.dl > 0) S.low = low_slice(T, z);
+      if (T.dl > 0) S.low = low_slice<typename Terms::Index>(T, z);
     } else if (item == 3) {
       S.vz_b = view_z(T.sbpar, (float)z + 0.5f, T.d);
     } else if (item == 4) {
@@ -843,9 +853,9 @@ __device__ __forceinline__ bool tile_line_unjittered(int j) {
   return (j >= TX && j < 2 * TX) || j >= 2 * TX + TY;
 }
 
-template <int TX, int TY>
+template <int TX, int TY, class I>
 __device__ __forceinline__ void tile_line(const VrTables& T, int xt, int yt,
-                                          int j, TileTerms<TX, TY>& S) {
+                                          int j, TileTerms<TX, TY, I>& S) {
   const float* p = T.spar;
   if (j < TX) {
     S.vxj[j] = froxel_vx(p, center_fx(p, xt + j, true), S.vz_j, T.w);
@@ -910,16 +920,18 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 //      so the two are the same bit for bit.
 // Every value is the thread-per-froxel form's (sun_shadow, then warp8_by
 // over the reprojection offsets at each tap, as temporal_blend.cu's weight
-// mode blends), from the same operations in the same order. Indices are
-// 32-bit (the launchers refuse tables past past_int_index).
+// mode blends), from the same operations in the same order. I: the index
+// type of the [Nd, D, H, W] planes (int, or int64_t in K2's wide form,
+// whose launcher also runs the slices in parts of at most VR_MAX_GRID_Z:
+// the block's slice is blockIdx.z + z0).
 // K10 (temporal_blend.cu region_offsets) runs steps 1b and 2 on its own
 // blend table in a copy of this loop: a routine shared by the three
 // kernels made K5 2% slower at the same registers and spills, so
 // tile_region stays as K2 and K5 were measured. Change the two together.
-template <bool SCATTER, int TX, int TY, bool GEN = false>
+template <bool SCATTER, int TX, int TY, bool GEN = false, class I = int>
 __device__ __forceinline__ void tile_region(const VrTables& T,
-                                            TileTerms<TX, TY>& S,
-                                            float* dyn_s) {
+                                            TileTerms<TX, TY, I>& S,
+                                            float* dyn_s, int z0 = 0) {
   constexpr int NT = TX * TY;
   const int w = T.w, h = T.h, d = T.d, k = T.k;
   const int nx = region_nx(TX, k), ny = region_ny(TY, k), nr = nx * ny;
@@ -931,7 +943,7 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
   float* rvy_s = rvx_s + nx;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z + z0;
   const float* sb = T.sbpar;
 
   // 1. the slice's scalars; then the columns' and rows' terms
@@ -992,12 +1004,12 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
   __syncthreads();
 }
 
-template <bool ARMS, int TX, int TY, bool GEN = false>
+template <bool ARMS, int TX, int TY, bool GEN = false, class I = int>
 __device__ __forceinline__ void tile_blend(
     const VrTables& T, const float* __restrict__ prev_sh,
-    float* __restrict__ out_sh, const TileTerms<TX, TY>& S,
-    const float* dyn_s, int x, int y, int n, int i, float& wx, float& wy,
-    float& wz, float* blended) {
+    float* __restrict__ out_sh, const TileTerms<TX, TY, I>& S,
+    const float* dyn_s, int x, int y, I n, I i, float& wx, float& wy,
+    float& wz, float* blended, int z0 = 0) {
   const int w = T.w, h = T.h, d = T.d, k = T.k;
   const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
   const float* ox_s = dyn_s;
@@ -1006,7 +1018,7 @@ __device__ __forceinline__ void tile_blend(
   const float* ok_s = dyn_s + 3 * nr;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z + z0;
   const float* sb = T.sbpar;
   // dir_shadow_slice: jittered world position, one ray per sun
   view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
@@ -1048,16 +1060,39 @@ __device__ __forceinline__ void tile_blend(
   }
 }
 
-// Whether an index of the kernels' arrays could pass 2^31 - 1: the
-// [max(4, Nd), D, H, W] planes and the low volume's channels. The slice
-// tiles index in 32 bits and their launchers refuse such tables (mirrored
-// by ops/frame_fused.check_tile_indices).
+// Whether an index of K5's, K6's or K7's arrays could pass 2^31 - 1: the
+// [max(4, Nd), D, H, W] planes and the low volume's channels, or the grid
+// pass VR_MAX_GRID_Z slices. These slice tiles index in 32 bits and their
+// launchers refuse such tables (mirrored by ops/scatter.check_tile_indices).
+// K1, K2, K3 and K9 have predicates of their own over the arrays each
+// indexes (their launchers), and K2, K3 and K9 a wide form past them.
 inline bool past_int_index(const VrTables& T) {
   const long n = (long)T.w * T.h * T.d;
   const long lplane = (long)T.wl * T.hl * T.dl;
   const long chans = 3 + T.n_noise > T.n_lights ? 3 + T.n_noise : T.n_lights;
   return (T.n_dir > 4 ? T.n_dir : 4) * n > 2147483647L
-         || chans * lplane > 2147483647L || T.d > 65535;
+         || chans * lplane > 2147483647L || T.d > VR_MAX_GRID_Z;
+}
+
+// The index forms of K2, K3 and K9 (mirrored by ops/cuda.INDEX_FORMS): the
+// narrow form indexes in 32 bits and puts its slices (K3: its rows) on one
+// launch-grid axis; the wide form is the same kernel on int64_t indices,
+// launched in parts of at most VR_MAX_GRID_Z slices (rows). A launcher
+// takes the narrow form wherever it fits, or the form it is given.
+#define VR_FORM_RULE -1
+#define VR_FORM_NARROW 0
+#define VR_FORM_WIDE 1
+
+// The parts of n slices (rows) of a launch-grid axis: the first index of
+// part p is p * VR_MAX_GRID_Z (mirrored by ops/cuda.grid_parts).
+inline int grid_part_count(int n) {
+  return (n + VR_MAX_GRID_Z - 1) / VR_MAX_GRID_Z;
+}
+
+// Whether a table of n rows of `width` floats each holds 2^31 floats or
+// more: past a 32-bit index.
+inline bool past_int(long n, long width) {
+  return n * width > 2147483647L;
 }
 
 // ---- scatter.py: the per-froxel in-scatter ---------------------------------
@@ -1086,19 +1121,21 @@ inline bool past_int_index(const VrTables& T) {
 // (the jittered one with jitter_dir), in sun order. ARMS: the rays' any_hit
 // instantiation. GEN (any fBm channel count): each baked fBm factor is
 // upsampled where the material reads it, where the fixed form upsamples
-// its VR_MAX_NOISE channels into an array first: the same values.
+// its VR_MAX_NOISE channels into an array first: the same values. I: the
+// index type of the planes, the low volume and the schedule (int64_t in
+// K2's wide form, int elsewhere), deduced from i and n.
 template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false,
-          class SunAt>
-__device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
+          class SunAt, class I>
+__device__ void scatter_froxel(const VrTables& T, const LowSliceT<I>& low_s,
                                const float* __restrict__ low, int z, int y,
-                               int x, int i, int n, float wx, float wy,
+                               int x, I i, I n, float wx, float wy,
                                float wz, float cwx, float cwy, float cwz,
                                const SunAt& sun_at, float* out,
                                const float* __restrict__ mat_a = nullptr,
                                const float* __restrict__ mat_b = nullptr) {
   const float* p = T.spar;
-  const int lplane = T.dl * T.hl * T.wl;
-  LowTaps up;
+  const I lplane = (I)T.dl * T.hl * T.wl;
+  LowTapsT<I> up;
   if constexpr (LOCAL != VR_LOCAL_RAY) up = low_taps(T, low_s, y, x);
   float sr, sg, sbl, phg;
   if constexpr (MAT_PLANES) {
@@ -1135,7 +1172,7 @@ __device__ void scatter_froxel(const VrTables& T, const LowSlice& low_s,
     vdy = vdy * invd;
     vdz = vdz * invd;
     ar = ag = ab = 0.0f;
-    const int* ord = T.order + z * T.n_lights;
+    const int* ord = T.order + (I)z * T.n_lights;
     const int n_act = T.count[z];
     for (int j = 0; j < n_act; ++j) {
       const int li = ord[j];

@@ -41,8 +41,17 @@
 //      the alpha blend, written to out_acc (a half warp writes a tile row).
 // Every per-froxel float operation is the one-thread-per-column form's,
 // in its order, so the result is bit for bit that form's and its twin's
-// (ops/frame_fused.integrate_blend_plain, within CHECKS); indices are
-// 32-bit (the launcher refuses planes past 2^31 floats).
+// (ops/frame_fused.integrate_blend_plain, within CHECKS).
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/frame_fused.k3_form):
+// the narrow form indexes the [4, D, H, W] planes in 32 bits and puts a
+// row on each launch-grid y index (k3_narrow_fits: the planes under 2^31
+// floats, at most VR_MAX_GRID_Z rows). Past that the wide form, the same
+// kernel on int64_t indices, launched in parts of at most VR_MAX_GRID_Z
+// rows (the block's row is blockIdx.y + y0). A column's outputs depend on
+// the scatter and the history, which K3 only reads, so the parts are
+// independent, and the wide form gives the narrow one's values bit for
+// bit. The slices are a loop of each block: their count limits neither.
 //
 // Bound on the H100: bytes. Read the scatter planes (66 MB) and the previous
 // accumulation (66 MB), write the new accumulation (66 MB) at FULL: ~200 MB,
@@ -54,8 +63,6 @@
 // at 64 registers a thread (4 blocks an SM): on the H100, with the warp,
 // the offsets and the xy blend cut out, the same phases still take ~1.7x
 // the bound (tools/k3_k4_against.py; PERF.md).
-#include <climits>
-
 #include "common.cuh"
 
 #define K3_TX 16                        // columns of a tile (one row)
@@ -78,10 +85,11 @@ __host__ __device__ __forceinline__ int k3_shared(int k) {
   return K3_ZC * (4 * k3_nx(k) + k3_ny(k));
 }
 
+template <class I = int>
 __global__ void __launch_bounds__(K3_THREADS, 4)
 integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
                        const float* __restrict__ prev_acc,
-                       float* __restrict__ out_acc) {
+                       float* __restrict__ out_acc, int y_part) {
   // xyb row k is slice z0 + k; row 0 is the previous chunk's row K3_ZC
   __shared__ float xyb[4][K3_ZC + 1][K3_TX];
   __shared__ float lrgb[3][K3_ZC][K3_TX];  // sampled r, g, b, then L
@@ -97,10 +105,13 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
   float* off_s = dyn_s;               // [4][K3_ZC][nx]: ox, oy, oz b=0, 1
   float* vy_s = dyn_s + 4 * plane;    // [K3_ZC][ny]
   const int lx = threadIdx.x % K3_TX, lz = threadIdx.x / K3_TX;
-  const int xt = blockIdx.x * K3_TX, y = blockIdx.y;
+  // the narrow form's row is blockIdx.y; the wide form's part starts at
+  // y_part
+  const int y0 = sizeof(I) > sizeof(int) ? y_part : 0;
+  const int xt = blockIdx.x * K3_TX, y = blockIdx.y + y0;
   const int x = xt + lx;
   const int xs = min(x, w - 1);  // past the row's end: a copy of its last
-  const int n = d * h * w;
+  const I n = (I)d * h * w;
   const float* ap = T.abpar;  // scalars are read where used: fewer live
   float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f, Tc = 1.0f;  // phase 2's carry
 
@@ -203,7 +214,7 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
       const float wgt = ap[20] * (warped[3] != 0.0f ? 1.0f : 0.0f);
       const float carry[4] = {lrgb[0][k][lx], lrgb[1][k][lx], lrgb[2][k][lx],
                               tcar[k][lx]};
-      const int o = (z * h + y) * w + x;
+      const I o = ((I)z * h + y) * w + x;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
@@ -212,33 +223,102 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
   }
 }
 
-extern "C" int vr_integrate_blend(const VrTables* T, const float* sc,
-                                  const float* prev_acc, float* out_acc,
-                                  cudaStream_t stream) {
-  if ((long)T->w * T->h * T->d * 4 > INT_MAX)  // past 32-bit indices
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((T->w + K3_TX - 1) / K3_TX, T->h);
-  const int shared = k3_shared(T->k) * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(  // any reprojection window
-      integrate_blend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      shared);
-  if (err != cudaSuccess) return (int)err;
-  integrate_blend_kernel<<<grid, K3_THREADS, shared, stream>>>(
-      *T, sc, prev_acc, out_acc);
-  return (int)cudaGetLastError();
+// Launches of the narrow (0) and wide (1) forms since the library was
+// loaded (vr_integrate_blend_index_forms).
+static long g_index_forms[2];
+
+// Whether the wide form takes the table (mirrored by
+// ops/frame_fused.k3_form): a launch grid of at most 2^31 - 1 column tiles.
+static bool k3_wide_fits(const VrTables& T) {
+  return (T.w + K3_TX - 1) / K3_TX <= 2147483647L;
 }
 
-// cudaFuncGetAttributes of the kernel: registers per thread, static shared
-// bytes per block, local bytes per thread and largest block into out[0..3];
-// returns the error.
-extern "C" int vr_integrate_blend_attrs(int* out) {
+// Whether the narrow form takes it: the [4, D, H, W] planes under 2^31
+// floats, on at most VR_MAX_GRID_Z rows.
+static bool k3_narrow_fits(const VrTables& T) {
+  return !past_int(4, (long)T.w * T.h * T.d) && T.h <= VR_MAX_GRID_Z;
+}
+
+static int k3_form(const VrTables& T) {
+  if (k3_narrow_fits(T)) return VR_FORM_NARROW;
+  return k3_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <class I>
+static int launch_form(const VrTables* T, const float* sc,
+                       const float* prev_acc, float* out_acc,
+                       cudaStream_t stream) {
+  const auto kernel = integrate_blend_kernel<I>;
+  const int shared = k3_shared(T->k) * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(  // any reprojection window
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T->w + K3_TX - 1) / K3_TX, T->h);
+  if (sizeof(I) == sizeof(int)) {
+    kernel<<<grid, K3_THREADS, shared, stream>>>(*T, sc, prev_acc, out_acc,
+                                                 0);
+  } else {  // the rows in parts of at most VR_MAX_GRID_Z
+    for (int y0 = 0; y0 < T->h; y0 += VR_MAX_GRID_Z) {
+      grid.y = min(VR_MAX_GRID_Z, T->h - y0);
+      kernel<<<grid, K3_THREADS, shared, stream>>>(*T, sc, prev_acc,
+                                                   out_acc, y0);
+    }
+  }
+  ++g_index_forms[sizeof(I) > sizeof(int)];
+  return 0;
+}
+
+// form: VR_FORM_RULE (the size rule's, k3_form), or the narrow or the wide
+// form, refused where it does not take the table.
+extern "C" int vr_integrate_blend_form(const VrTables* T, const float* sc,
+                                       const float* prev_acc, float* out_acc,
+                                       int form, cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k3_form(*T);
+  const bool fits = form == VR_FORM_NARROW ? k3_narrow_fits(*T)
+                    : form == VR_FORM_WIDE ? k3_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err =
+      form == VR_FORM_WIDE
+          ? launch_form<int64_t>(T, sc, prev_acc, out_acc, stream)
+          : launch_form<int>(T, sc, prev_acc, out_acc, stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for the table into out[0] (-1: past the wide form
+// too) and its launch's row parts into out[1].
+extern "C" int vr_integrate_blend_form_of(const VrTables* T, int* out) {
+  out[0] = k3_form(*T);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(T->h) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_integrate_blend_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
+}
+
+// cudaFuncGetAttributes of the narrow then the wide kernel: registers per
+// thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <class I>
+static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)integrate_blend_kernel);
-  if (err != cudaSuccess) return (int)err;
+      cudaFuncGetAttributes(&a, (const void*)integrate_blend_kernel<I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
   out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_integrate_blend_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<int>(out),
+                               attrs_of<int64_t>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
   return 0;
 }

@@ -66,10 +66,22 @@
 // mask's clamped divisions skipped).
 // Every float value is the first form's, from the same operations in the
 // same order, so the result is bit for bit that form's, and K5 then K6 give
-// it too; indices are 32-bit (the launcher refuses tables past 2^31 floats,
-// common.cuh past_int_index). The radiance form runs 5 blocks an SM (48
-// registers, a few spilled), the loops 4 (64): PERF.md §6 has the shapes,
-// block counts and cuts measured.
+// it too. The radiance form runs 5 blocks an SM (48 registers, a few
+// spilled), the loops 4 (64): PERF.md §6 has the shapes, block counts and
+// cuts measured.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/frame_fused.k2_form):
+// the narrow form indexes in 32 bits and puts a slice on each launch-grid
+// z index; it takes every table whose arrays K2 indexes (k2_narrow_fits:
+// the [max(4, Nd), D, H, W] planes, the low channels its local source
+// reads, the light schedule) hold under 2^31 floats, on at most
+// VR_MAX_GRID_Z slices. Past that the wide form (I = int64_t): every index
+// and every product of a plane or channel by its stride in 64 bits, the
+// slices launched in parts of at most VR_MAX_GRID_Z (the block's slice is
+// blockIdx.z + z0). A froxel's outputs depend on its own inputs and on
+// the history and the low volume, which K2 only reads, so the parts are
+// independent. The same code on wider indices: the wide form gives the
+// narrow one's values bit for bit.
 //
 // Those forms keep at most VR_MAX_DIR suns' shadows in registers and
 // VR_MAX_NOISE fBm channels in an array. A frame with more suns or more
@@ -97,25 +109,30 @@ struct K2Tile<VR_LOCAL_RADIANCE> {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 5;
 };
 
-template <int LOCAL, bool ARMS, int TX, int TY, bool GEN = false>
+template <int LOCAL, bool ARMS, int TX, int TY, bool GEN = false,
+          class I = int>
 __global__ void __launch_bounds__(TX * TY, K2Tile<LOCAL>::MIN_BLOCKS)
 shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
                       const float* __restrict__ low,
                       float* __restrict__ out_sh,
-                      float* __restrict__ out_sc) {
-  __shared__ TileTerms<TX, TY> S;
+                      float* __restrict__ out_sc, int z_part) {
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const int z0 = WIDE ? z_part : 0;
+  __shared__ TileTerms<TX, TY, I> S;
   extern __shared__ float dyn_s[];  // region_floats (GEN: + sun_inv_floats)
-  tile_region<true, TX, TY, GEN>(T, S, dyn_s);
+  tile_region<true, TX, TY, GEN>(T, S, dyn_s, z0);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x = blockIdx.x * TX + tx, y = blockIdx.y * TY + ty;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z + z0;
   if (x >= T.w || y >= T.h) return;
-  const int n = T.d * T.h * T.w;
-  const int i = (z * T.h + y) * T.w + x;
+  const I n = (I)T.d * T.h * T.w;
+  const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz, cwx, cwy, cwz, sc[4];
   if constexpr (GEN) {
     tile_blend<ARMS, TX, TY, true>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i,
-                                   wx, wy, wz, nullptr);
+                                   wx, wy, wz, nullptr, z0);
     // scatter_slice (material fused, dir lights folded), each sun's blended
     // shadow read back from this thread's own stores
     view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
@@ -126,7 +143,7 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   } else {
     float blended[VR_MAX_DIR];
     tile_blend<ARMS>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i, wx, wy, wz,
-                     blended);
+                     blended, z0);
     // scatter_slice (material fused, dir lights folded)
     view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
     const auto sun_at = [&](int li) { return blended[li]; };
@@ -137,9 +154,11 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }
 
-// Launches of the fixed (0) and general (1) forms since the library was
-// loaded (vr_shadow_scatter_forms).
+// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
+// and wide (1) index forms, since the library was loaded
+// (vr_shadow_scatter_forms, vr_shadow_scatter_index_forms).
 static long g_forms[2];
+static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
 // suns: the region, and in the general form the suns' inverse directions.
@@ -148,73 +167,151 @@ static int k2_shared(int tx, int ty, int k, bool gen, int n_dir) {
          * (int)sizeof(float);
 }
 
-template <int LOCAL, bool ARMS, bool GEN>
+// The low channels that local source `local` reads: the radiance (+ fBm),
+// the visibility of every light, or none (the rays).
+static long k2_low_channels(const VrTables& T, int local) {
+  if (local == VR_LOCAL_RADIANCE) return 3 + T.n_noise;
+  return local == VR_LOCAL_BAKED ? T.n_lights : 0;
+}
+
+// Whether the wide form takes the table (mirrored by
+// ops/frame_fused.k2_form): at most VR_MAX_GRID_Z row tiles on the launch
+// grid's y axis, and the suns' and lights' tables, which either form
+// indexes in 32 bits, under 2^31 floats. Every tile has K2Tile's 16 rows.
+static bool k2_wide_fits(const VrTables& T) {
+  return (T.h + 15) / 16 <= VR_MAX_GRID_Z && !past_int(T.n_dir, 8)
+         && !past_int(T.n_lights, 16);
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// [max(4, Nd), D, H, W] planes, the low channels its local source reads and
+// the light schedule [D, NL] (the per-light loops) under 2^31 floats, on at
+// most VR_MAX_GRID_Z slices.
+static bool k2_narrow_fits(const VrTables& T, int local) {
+  const long n = (long)T.w * T.h * T.d;
+  const long lplane = (long)T.wl * T.hl * T.dl;
+  return k2_wide_fits(T) && !past_int(T.n_dir > 4 ? T.n_dir : 4, n)
+         && !past_int(k2_low_channels(T, local), lplane)
+         && !(local != VR_LOCAL_RADIANCE && past_int(T.d, T.n_lights))
+         && T.d <= VR_MAX_GRID_Z;
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k2_form(const VrTables& T, int local) {
+  if (k2_narrow_fits(T, local)) return VR_FORM_NARROW;
+  return k2_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <int LOCAL, bool ARMS, bool GEN, class I>
 static int launch_tile(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
                        cudaStream_t stream) {
   constexpr int TX = K2Tile<LOCAL>::X, TY = K2Tile<LOCAL>::Y;
-  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN, I>;
   const int shared = k2_shared(TX, TY, T->k, GEN, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
-        shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN>
-      <<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low, out_sh,
-                                               out_sc);
+  dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low, out_sh,
+                                                   out_sc, 0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, T->d - z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low,
+                                                     out_sh, out_sc, z0);
+    }
+  }
   ++g_forms[GEN];
+  ++g_index_forms[WIDE];
   return 0;
 }
 
-template <int LOCAL, bool ARMS>
+template <int LOCAL, bool ARMS, class I>
 static int launch_form(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
                        cudaStream_t stream) {
   if (needs_general(*T))
-    return launch_tile<LOCAL, ARMS, true>(T, prev_sh, low, out_sh, out_sc,
-                                          stream);
-  return launch_tile<LOCAL, ARMS, false>(T, prev_sh, low, out_sh, out_sc,
-                                         stream);
+    return launch_tile<LOCAL, ARMS, true, I>(T, prev_sh, low, out_sh, out_sc,
+                                             stream);
+  return launch_tile<LOCAL, ARMS, false, I>(T, prev_sh, low, out_sh, out_sc,
+                                            stream);
 }
 
-template <int LOCAL>
+template <int LOCAL, class I>
 static int launch_shadow_scatter(const VrTables* T, const float* prev_sh,
                                  const float* low, float* out_sh,
                                  float* out_sc, cudaStream_t stream) {
   if (needs_arms(*T))
-    return launch_form<LOCAL, true>(T, prev_sh, low, out_sh, out_sc, stream);
-  return launch_form<LOCAL, false>(T, prev_sh, low, out_sh, out_sc, stream);
+    return launch_form<LOCAL, true, I>(T, prev_sh, low, out_sh, out_sc,
+                                       stream);
+  return launch_form<LOCAL, false, I>(T, prev_sh, low, out_sh, out_sc,
+                                      stream);
+}
+
+template <class I>
+static int launch_local(const VrTables* T, const float* prev_sh,
+                        const float* low, float* out_sh, float* out_sc,
+                        int local, cudaStream_t stream) {
+  switch (local) {
+    case VR_LOCAL_RADIANCE:
+      return launch_shadow_scatter<VR_LOCAL_RADIANCE, I>(T, prev_sh, low,
+                                                         out_sh, out_sc,
+                                                         stream);
+    case VR_LOCAL_RAY:
+      return launch_shadow_scatter<VR_LOCAL_RAY, I>(T, prev_sh, low, out_sh,
+                                                    out_sc, stream);
+    case VR_LOCAL_BAKED:
+      return launch_shadow_scatter<VR_LOCAL_BAKED, I>(T, prev_sh, low,
+                                                      out_sh, out_sc,
+                                                      stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // local: VR_LOCAL_*; low: the radiance (+ fBm) volume [3 + n_noise, DL,
 // HL, WL], the visibility volume [NL, DL, HL, WL], or null for
-// VR_LOCAL_RAY.
-extern "C" int vr_shadow_scatter(const VrTables* T, const float* prev_sh,
-                                 const float* low, float* out_sh,
-                                 float* out_sc, int local,
-                                 cudaStream_t stream) {
-  if ((local == VR_LOCAL_RAY) != (low == nullptr) || past_int_index(*T))
+// VR_LOCAL_RAY. form: VR_FORM_RULE (the size rule's, k2_form), or the
+// narrow or the wide form, refused where it does not take the table.
+extern "C" int vr_shadow_scatter_form(const VrTables* T, const float* prev_sh,
+                                      const float* low, float* out_sh,
+                                      float* out_sc, int local, int form,
+                                      cudaStream_t stream) {
+  if ((local == VR_LOCAL_RAY) != (low == nullptr) || local < 0 || local > 2)
     return (int)cudaErrorInvalidValue;
-  int err;
-  switch (local) {
-    case VR_LOCAL_RADIANCE:
-      err = launch_shadow_scatter<VR_LOCAL_RADIANCE>(T, prev_sh, low, out_sh,
-                                                     out_sc, stream);
-      break;
-    case VR_LOCAL_RAY:
-      err = launch_shadow_scatter<VR_LOCAL_RAY>(T, prev_sh, low, out_sh,
-                                                out_sc, stream);
-      break;
-    case VR_LOCAL_BAKED:
-      err = launch_shadow_scatter<VR_LOCAL_BAKED>(T, prev_sh, low, out_sh,
-                                                  out_sc, stream);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (form == VR_FORM_RULE) form = k2_form(*T, local);
+  const bool fits = form == VR_FORM_NARROW ? k2_narrow_fits(*T, local)
+                    : form == VR_FORM_WIDE ? k2_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err =
+      form == VR_FORM_WIDE
+          ? launch_local<int64_t>(T, prev_sh, low, out_sh, out_sc, local,
+                                  stream)
+          : launch_local<int>(T, prev_sh, low, out_sh, out_sc, local,
+                              stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for the table and local source into out[0] (-1:
+// past the wide form too) and its launch's slice parts into out[1].
+extern "C" int vr_shadow_scatter_form_of(const VrTables* T, int local,
+                                         int* out) {
+  out[0] = k2_form(*T, local);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(T->d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_shadow_scatter_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The launches of the fixed and the general form so far into out[0..1].
@@ -257,17 +354,17 @@ extern "C" int vr_shadow_scatter_geometry(int local, int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the twelve kernels, the fixed forms then the
-// general ones, each LOCAL (radiance, ray, baked) outer and ARMS (false,
-// true) inner: registers per thread, static shared bytes per block, local
-// bytes per thread and largest block into out[4 i .. 4 i + 3]; returns the
-// error.
-template <int LOCAL, bool ARMS, bool GEN = false>
+// cudaFuncGetAttributes of the twenty-four kernels: the fixed forms then
+// the general ones, each LOCAL (radiance, ray, baked) outer and ARMS
+// (false, true) inner, narrow; then the same twelve wide: registers per
+// thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <int LOCAL, bool ARMS, bool GEN = false, class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
       &a, (const void*)shadow_scatter_kernel<LOCAL, ARMS, K2Tile<LOCAL>::X,
-                                             K2Tile<LOCAL>::Y, GEN>);
+                                             K2Tile<LOCAL>::Y, GEN, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -275,20 +372,26 @@ static cudaError_t attrs_of(int* out) {
   return err;
 }
 
+template <class I>
+static void attrs_of_index_form(int* out, cudaError_t* errs) {
+  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, false, I>(out);
+  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, false, I>(out + 4);
+  errs[2] = attrs_of<VR_LOCAL_RAY, false, false, I>(out + 8);
+  errs[3] = attrs_of<VR_LOCAL_RAY, true, false, I>(out + 12);
+  errs[4] = attrs_of<VR_LOCAL_BAKED, false, false, I>(out + 16);
+  errs[5] = attrs_of<VR_LOCAL_BAKED, true, false, I>(out + 20);
+  errs[6] = attrs_of<VR_LOCAL_RADIANCE, false, true, I>(out + 24);
+  errs[7] = attrs_of<VR_LOCAL_RADIANCE, true, true, I>(out + 28);
+  errs[8] = attrs_of<VR_LOCAL_RAY, false, true, I>(out + 32);
+  errs[9] = attrs_of<VR_LOCAL_RAY, true, true, I>(out + 36);
+  errs[10] = attrs_of<VR_LOCAL_BAKED, false, true, I>(out + 40);
+  errs[11] = attrs_of<VR_LOCAL_BAKED, true, true, I>(out + 44);
+}
+
 extern "C" int vr_shadow_scatter_attrs(int* out) {
-  const cudaError_t errs[12] = {
-      attrs_of<VR_LOCAL_RADIANCE, false>(out),
-      attrs_of<VR_LOCAL_RADIANCE, true>(out + 4),
-      attrs_of<VR_LOCAL_RAY, false>(out + 8),
-      attrs_of<VR_LOCAL_RAY, true>(out + 12),
-      attrs_of<VR_LOCAL_BAKED, false>(out + 16),
-      attrs_of<VR_LOCAL_BAKED, true>(out + 20),
-      attrs_of<VR_LOCAL_RADIANCE, false, true>(out + 24),
-      attrs_of<VR_LOCAL_RADIANCE, true, true>(out + 28),
-      attrs_of<VR_LOCAL_RAY, false, true>(out + 32),
-      attrs_of<VR_LOCAL_RAY, true, true>(out + 36),
-      attrs_of<VR_LOCAL_BAKED, false, true>(out + 40),
-      attrs_of<VR_LOCAL_BAKED, true, true>(out + 44)};
+  cudaError_t errs[24];
+  attrs_of_index_form<int>(out, errs);
+  attrs_of_index_form<int64_t>(out + 48, errs + 12);
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

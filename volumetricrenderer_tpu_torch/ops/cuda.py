@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -128,11 +129,16 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
         "bake_radiance": {"vr_bake_radiance": [tp, vp],
                           "vr_bake_radiance_geometry": [ci] * 5 + [vp],
                           "vr_bake_radiance_forms": [vp]},
-        "shadow_scatter": {"vr_shadow_scatter": [tp, vp, vp, vp, vp, ci],
+        "shadow_scatter": {"vr_shadow_scatter_form":
+                           [tp, vp, vp, vp, vp, ci, ci],
+                           "vr_shadow_scatter_form_of": [tp, ci, vp],
+                           "vr_shadow_scatter_index_forms": [vp],
                            "vr_shadow_scatter_geometry": [ci, ci, vp],
                            "vr_shadow_scatter_general_shared": [ci, ci, vp],
                            "vr_shadow_scatter_forms": [vp]},
-        "integrate_blend": {"vr_integrate_blend": [tp, vp, vp, vp]},
+        "integrate_blend": {"vr_integrate_blend_form": [tp, vp, vp, vp, ci],
+                            "vr_integrate_blend_form_of": [tp, vp],
+                            "vr_integrate_blend_index_forms": [vp]},
         "composite": {
             "vr_composite": [vp] * 6 + [ci] * 7 + [vp],
             "vr_composite_pixels": [vp] * 8 + [ci] * 5 + [vp]},
@@ -155,7 +161,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                        "vr_dir_shadow_forms": [vp]},
         "integrate": {"vr_integrate": [tp, vp, vp],
                       "vr_integrate_geometry": [vp]},
-        "bake_visibility": {"vr_bake_visibility": [tp, vp],
+        "bake_visibility": {"vr_bake_visibility_form": [tp, vp, ci],
+                            "vr_bake_visibility_form_of": [tp, vp],
+                            "vr_bake_visibility_index_forms": [vp],
                             "vr_bake_visibility_geometry": [ci] * 4 + [vp]},
         "temporal_blend": {"vr_temporal_blend":
                            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci],
@@ -219,6 +227,55 @@ SIZE_FORMS = {
 }
 
 
+# The sources whose launchers take a narrow form (32-bit indices, a slice
+# or row on each launch-grid index) wherever it fits and a wide one past it
+# (64-bit indices, the slices or rows launched in parts of at most
+# MAX_GRID_Z; csrc/common.cuh VR_FORM_*): K2, K3 and K9. The wrappers mirror
+# the choice (ops/frame_fused.k2_form, k3_form, ops/visibility.k9_form) and
+# take `form=` to force one; each library counts its launches of either
+# (`vr_<name>_index_forms`).
+INDEX_FORMS = ("narrow", "wide")
+INDEX_SOURCES = ("bake_visibility", "shadow_scatter", "integrate_blend")
+MAX_GRID_Z = 65535
+
+
+def grid_parts(n: int) -> list:
+    """Mirror of the wide forms' launches: the (first, count) parts of n
+    slices (rows) on a launch-grid axis, in order, at most MAX_GRID_Z
+    each (csrc/common.cuh grid_part_count)."""
+    return [(a, min(MAX_GRID_Z, n - a)) for a in range(0, n, MAX_GRID_Z)]
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def index_form(kernel: str, narrow_why: Optional[str],
+               wide_why: Optional[str], form: Optional[str] = None) -> str:
+    """The form of INDEX_FORMS that `kernel`'s launcher takes: the narrow
+    one where it takes the table (narrow_why None; else what it cannot
+    index), else the wide one (wide_why None; else why not). form: a form to
+    force instead. Raises ValueError, naming the kernel, where the form
+    cannot take the table: before any launch."""
+    why = {"narrow": narrow_why, "wide": wide_why}
+    if form is None:
+        form = "narrow" if narrow_why is None else "wide"
+    if form not in why:
+        raise ValueError(f"{kernel}: form {form!r} is none of {INDEX_FORMS}")
+    if why[form] is not None:
+        raise ValueError(f"{kernel}'s {form} form cannot take the table: "
+                         f"{why[form]}")
+    return form
+
+
+def past_int32(what: str, *factors: int) -> Optional[str]:
+    """Why an array of the product of `factors` floats (or a launch grid of
+    that many blocks) passes a 32-bit index, or None where it does not."""
+    n = 1
+    for f in factors:
+        n *= f
+    return f"{what}: {n} past 2^31 - 1" if n > INT32_MAX else None
+
+
 def form_launches(name: str) -> tuple:
     """The launches of each of source `name`'s forms since its library was
     loaded (its `vr_<name>_forms`): (fixed, general) for FORM_SOURCES, in
@@ -229,9 +286,21 @@ def form_launches(name: str) -> tuple:
     return tuple(buf)
 
 
+def index_form_launches(name: str) -> tuple:
+    """The (narrow, wide) launches of an INDEX_SOURCES source since its
+    library was loaded (its `vr_<name>_index_forms`)."""
+    buf = (ctypes.c_int * len(INDEX_FORMS))()
+    getattr(lib(name), f"vr_{name}_index_forms")(
+        ctypes.cast(buf, ctypes.c_void_p))
+    return tuple(buf)
+
+
 def form_counts(name: str) -> dict:
-    """form_launches of a SIZE_FORMS source by its forms' names."""
-    return dict(zip(SIZE_FORMS[name], form_launches(name)))
+    """form_launches of a SIZE_FORMS source by its forms' names, or
+    index_form_launches of an INDEX_SOURCES source by INDEX_FORMS."""
+    if name in SIZE_FORMS:
+        return dict(zip(SIZE_FORMS[name], form_launches(name)))
+    return dict(zip(INDEX_FORMS, index_form_launches(name)))
 
 
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
@@ -249,14 +318,16 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                                  "shadow_blend_kernel<false, GEN>",
                                  "shadow_blend_kernel<true, GEN>"),
                 "shadow_scatter": tuple(
-                    f"shadow_scatter_kernel<{local}, {arms}{gen}>"
+                    f"shadow_scatter_kernel<{local}, {arms}{gen}{wide}>"
+                    for wide in ("", ", WIDE")
                     for gen in ("", ", GEN")
                     for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),
                 "scatter": tuple(f"scatter_kernel<{mode}{gen}>"
                                  for gen in ("", ", GEN")
                                  for mode in _K6_MODES),
-                "integrate_blend": ("integrate_blend_kernel",),
+                "integrate_blend": ("integrate_blend_kernel",
+                                    "integrate_blend_kernel<WIDE>"),
                 "dir_shadow": ("dir_shadow_kernel<false>",
                                "dir_shadow_kernel<true>",
                                "dir_shadow_kernel<false, GEN>",
@@ -266,7 +337,9 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                                    "temporal_blend_kernel<4, false>"),
                 "windowed_warp": ("windowed_warp_kernel<4>",),
                 "bake_visibility": ("bake_visibility_kernel<false>",
-                                    "bake_visibility_kernel<true>"),
+                                    "bake_visibility_kernel<true>",
+                                    "bake_visibility_kernel<false, WIDE>",
+                                    "bake_visibility_kernel<true, WIDE>"),
                 "pcf_shadow": ("pcf_shadow_kernel",),
                 "ssr_march": ("ssr_march_kernel<16, false>",
                               "ssr_march_kernel<32, false>",

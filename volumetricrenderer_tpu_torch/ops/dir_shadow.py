@@ -113,7 +113,7 @@ def dir_shadow(t) -> torch.Tensor:
         return dir_shadow_plain(t)
     from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
     from volumetricrenderer_tpu_torch.ops.temporal import check_shared
-    check_tile_indices(t)
+    check_tile_indices(t, "K7")
     check_shared(k7_shared_bytes(t.n_dir), "K7", f"{t.n_dir} suns")
     cuda.check_cuda(t.spar)
     w, h, d = t.grid_whd

@@ -20,7 +20,12 @@ is a chain of kernels, held as one unit against the JAX function:
 
 Each wrapper launches its CUDA kernel (csrc/) for CUDA tensors and runs its
 plain-torch twin (`*_plain`, same module) for CPU tensors; a CUDA tensor
-never falls back to the twin. Histories are written to new buffers.
+never falls back to the twin. Histories are written to new buffers. Each
+wrapper refuses, by the kernel's name and before any launch, a table whose
+arrays the kernel cannot index (check_k1_indices, k2_form, k3_form,
+ops/visibility.k9_form); K2, K3 and K9 take a wide form (64-bit indices,
+the slices or rows launched in parts) past their narrow one, and `form=`
+forces either.
 """
 
 from __future__ import annotations
@@ -42,9 +47,10 @@ from volumetricrenderer_tpu_torch.ops.material import (heightfield_static,
                                                        phase_g_plane)
 from volumetricrenderer_tpu_torch.ops.occlude import pack_boxes
 from volumetricrenderer_tpu_torch.ops.phase import PI
-from volumetricrenderer_tpu_torch.ops.scatter import (MAX_NOISE,
+from volumetricrenderer_tpu_torch.ops.scatter import (LOCAL_BAKED,
+                                                      LOCAL_RADIANCE,
+                                                      MAX_GRID_Z, MAX_NOISE,
                                                       check_scatter_inputs,
-                                                      check_tile_indices,
                                                       local_mode,
                                                       needs_general,
                                                       pack_dir_lights,
@@ -381,6 +387,23 @@ def k1_geometry(n_lights: int, n_noise: int,
         columns=cols, rows=rows)
 
 
+def check_k1_indices(t: FrameTables) -> None:
+    """Refuse, naming K1, the tables whose arrays K1 cannot index (mirror
+    of csrc/bake_radiance.cu k1_fits). K1 writes its [3 + n_noise, DL, HL,
+    WL] volume at 64-bit offsets on a 1-D grid of blocks, so neither that
+    volume's size nor the slice count limits it, and it has no wide form;
+    it indexes the cull table [NL, DL] and the lights table [NL, 16] in 32
+    bits, on at most 2^31 - 1 blocks. Raises ValueError."""
+    n_lights = 0 if t.lights is None else t.lights.shape[0]
+    dl = t.low_dims[2]
+    why = (cuda.past_int32("the cull table [NL, DL]", n_lights, dl)
+           or cuda.past_int32("the lights table [NL, 16]", n_lights, 16)
+           or cuda.past_int32("the launch grid's blocks", k1_geometry(
+               n_lights, t.n_noise, t.low_dims).blocks))
+    if why is not None:
+        raise ValueError(f"K1 cannot take the table: {why}")
+
+
 def k1_tables(t: FrameTables) -> FrameTables:
     """The tables K1 is launched on: `t`, or with a texture medium `t`
     without noise channels (n_noise 0), so that K1 writes the radiance
@@ -410,6 +433,7 @@ def bake_radiance(t: FrameTables,
     n_lights = 0 if k1.lights is None else k1.lights.shape[0]
     check_shared(k1_geometry(n_lights, k1.n_noise, t.low_dims).shared_bytes,
                  "K1", f"{k1.n_noise} fBm channels")
+    check_k1_indices(k1)
     cuda.check_cuda(t.spar)
     out = torch.empty((3 + t.n_noise, dl, hl, wl), dtype=torch.float32,
                       device=t.spar.device)
@@ -450,21 +474,55 @@ def k2_shared_bytes(k: int, n_dir: int = 0, n_noise: int = 0) -> int:
         sun_inv_bytes(n_dir) if needs_general(n_dir, n_noise) else 0)
 
 
+def k2_form(t: FrameTables, local: int, form: Optional[str] = None) -> str:
+    """Mirror of csrc/shadow_scatter.cu k2_form: the index form of
+    cuda.INDEX_FORMS that K2 takes for the tables and local source `local`
+    (scatter.LOCAL_*). The narrow form takes tables whose [max(4, Nd), D, H,
+    W] planes, the low channels the local source reads (the radiance: 3 +
+    n_noise; the visibility: NL; the rays: none) and the per-light loops'
+    schedule [D, NL] hold under 2^31 floats, on at most 65535 slices; the
+    wide form any slice count and size, on at most 65535 tiles of 16 rows,
+    with the suns' and lights' tables under 2^31 floats. form: a form to
+    force. Raises ValueError (cuda.index_form) where it cannot take them."""
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    n_lights = 0 if t.lights is None else t.lights.shape[0]
+    tiles = -(-h // K2_TILE[1])
+    wide = (f"{h} rows: {tiles} row tiles past the launch grid's "
+            f"{MAX_GRID_Z}" if tiles > MAX_GRID_Z else None) \
+        or cuda.past_int32("the suns' table [Nd, 8]", t.n_dir, 8) \
+        or cuda.past_int32("the lights table [NL, 16]", n_lights, 16)
+    channels = {LOCAL_RADIANCE: 3 + t.n_noise,
+                LOCAL_BAKED: n_lights}.get(local, 0)
+    narrow = wide \
+        or cuda.past_int32("the [max(4, Nd), D, H, W] planes",
+                           max(4, t.n_dir), w, h, d) \
+        or cuda.past_int32("the low channels it reads", channels, wl, hl, dl) \
+        or (cuda.past_int32("the light schedule [D, NL]", d, n_lights)
+            if local != LOCAL_RADIANCE else None) \
+        or (f"{d} slices past the launch grid's {MAX_GRID_Z}"
+            if d > MAX_GRID_Z else None)
+    return cuda.index_form("K2", narrow, wide, form)
+
+
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
                    bake: Optional[torch.Tensor] = None,
-                   vis: Optional[torch.Tensor] = None):
+                   vis: Optional[torch.Tensor] = None,
+                   form: Optional[str] = None):
     """K2: new shadow history and the scatter planes. Local lights: the
     low-rate radiance (+ fBm) volume `bake` of K1; or, with bake None, the
     tables' per-slice light schedule, each light shadowed by the low-rate
     visibility volume `vis` of K9 or, with vis None too, by one any-hit ray
-    per froxel."""
+    per froxel. CUDA tensors launch the index form k2_form picks (or
+    `form`, forced)."""
     if t.n_dir == 0:
         raise ValueError("K2 blends the suns' shadow: a scene without a sun "
                          "takes the staged route")
     check_scatter_inputs(t, prev_shadow, bake, vis, None)
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
-    check_tile_indices(t)
+    mode = local_mode(bake, vis)
+    form = k2_form(t, mode, form)
     check_shared(k2_shared_bytes(t.k, t.n_dir, t.n_noise), "K2",
                  f"reprojection window {t.k}, {t.n_dir} suns")
     low = bake if bake is not None else vis
@@ -477,7 +535,9 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     cuda.launch("shadow_scatter", cuda.ctypes.byref(st),
                 cuda.ptr(prev_shadow),
                 cuda.ptr(low) if low is not None else None,
-                cuda.ptr(out_sh), cuda.ptr(out_sc), local_mode(bake, vis))
+                cuda.ptr(out_sh), cuda.ptr(out_sc), mode,
+                cuda.INDEX_FORMS.index(form),
+                entry="vr_shadow_scatter_form")
     return out_sh, out_sc
 
 
@@ -499,20 +559,44 @@ def integrate_blend_plain(t: FrameTables, scatter: torch.Tensor,
     return vals + wgt * (warped - vals)
 
 
+# K3's tile (csrc/integrate_blend.cu K3_TX): 16 columns of one row, the
+# slices a loop of each block
+K3_TX = 16
+
+
+def k3_form(t: FrameTables, form: Optional[str] = None) -> str:
+    """Mirror of csrc/integrate_blend.cu k3_form: the index form of
+    cuda.INDEX_FORMS that K3 takes. The narrow form takes [4, D, H, W]
+    planes under 2^31 floats on at most 65535 rows (a row a launch-grid y
+    index); the wide form any size and row count, at most 2^31 - 1 tiles
+    of K3_TX columns. form: a form to force. Raises ValueError
+    (cuda.index_form), naming K3, before the launch."""
+    w, h, d = t.grid_whd
+    wide = cuda.past_int32("the column tiles", -(-w // K3_TX))
+    narrow = wide or cuda.past_int32("the [4, D, H, W] planes", 4, w, h, d) \
+        or (f"{h} rows past the launch grid's {MAX_GRID_Z}"
+            if h > MAX_GRID_Z else None)
+    return cuda.index_form("K3", narrow, wide, form)
+
+
 def integrate_blend(t: FrameTables, scatter: torch.Tensor,
-                    prev_acc: torch.Tensor) -> torch.Tensor:
-    """K3: integrate the scatter planes and blend with the history."""
+                    prev_acc: torch.Tensor,
+                    form: Optional[str] = None) -> torch.Tensor:
+    """K3: integrate the scatter planes and blend with the history. CUDA
+    tensors launch the index form k3_form picks (or `form`, forced)."""
     w, h, d = t.grid_whd
     for name, v in (("scatter", scatter), ("prev_acc", prev_acc)):
         if v.shape != (4, d, h, w):
             raise ValueError(f"{name} {tuple(v.shape)} != {(4, d, h, w)}")
     if scatter.device.type == "cpu":
         return integrate_blend_plain(t, scatter, prev_acc)
+    form = k3_form(t, form)
     cuda.check_cuda(scatter, prev_acc)
     out = torch.empty_like(prev_acc)
     st = t.c_struct()
     cuda.launch("integrate_blend", cuda.ctypes.byref(st), cuda.ptr(scatter),
-                cuda.ptr(prev_acc), cuda.ptr(out))
+                cuda.ptr(prev_acc), cuda.ptr(out),
+                cuda.INDEX_FORMS.index(form), entry="vr_integrate_blend_form")
     return out
 
 

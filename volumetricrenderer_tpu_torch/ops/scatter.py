@@ -250,12 +250,13 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
 
 # The blocks of K6 by local source (csrc/scatter.cu K6Tile): (columns, rows)
 # of a tile of one slice, or (froxels, 0) for a run of consecutive froxels
-# of one slice's rows. K2's are ops/frame_fused.K2_TILE. Both index in 32
-# bits and take a slice per launch-grid z.
+# of one slice's rows. K2's are ops/frame_fused.K2_TILE. Both take a slice
+# per launch-grid z; K6 indexes in 32 bits, K2 past that in its wide form
+# (ops/frame_fused.k2_form).
 K6_TILES = {LOCAL_RADIANCE: (128, 0), LOCAL_RAY: (256, 0),
             LOCAL_BAKED: (16, 8)}
-INT32_MAX = 2 ** 31 - 1
-MAX_GRID_Z = 65535
+INT32_MAX = cuda.INT32_MAX
+MAX_GRID_Z = cuda.MAX_GRID_Z
 
 # The fixed forms' counts (csrc/common.cuh VR_MAX_DIR, VR_MAX_NOISE): K2, K5,
 # K6 and K7 keep at most MAX_DIR suns' values, K1, K2 and K6 at most
@@ -290,22 +291,25 @@ def tile_grid(grid_whd: Tuple[int, int, int],
     return -(-w // tx), -(-h // ty), d
 
 
-def check_tile_indices(t) -> None:
-    """Refuse the frame tables `t` whose arrays K6 and K2 cannot index in
-    32 bits (csrc/common.cuh past_int_index): the [max(4, Nd), D, H, W]
+def check_tile_indices(t, kernel: str = "K5, K6 and K7") -> None:
+    """Refuse the frame tables `t` whose arrays K5, K6 and K7 cannot index
+    in 32 bits (csrc/common.cuh past_int_index): the [max(4, Nd), D, H, W]
     planes and the low volume's channels must hold at most 2^31 - 1 floats,
-    and the grid at most 65535 slices. Raises ValueError."""
+    and the grid at most 65535 slices. Raises ValueError naming `kernel`.
+    (K1, K2, K3 and K9
+    check the arrays each indexes: ops/frame_fused.check_k1_indices,
+    k2_form, k3_form, ops/visibility.k9_form.)"""
     w, h, d = t.grid_whd
     wl, hl, dl = t.low_dims
     n_lights = 0 if t.lights is None else t.lights.shape[0]
     planes = max(4, t.n_dir) * w * h * d
     low = max(3 + t.n_noise, n_lights) * wl * hl * dl
     if planes > INT32_MAX or low > INT32_MAX:
-        raise ValueError(f"the grid {t.grid_whd} needs indices past 2^31 - 1 "
-                         f"({planes} floats of planes, {low} of the low "
-                         f"volume): the kernels index in 32 bits")
+        raise ValueError(f"{kernel}: the grid {t.grid_whd} needs indices "
+                         f"past 2^31 - 1 ({planes} floats of planes, {low} "
+                         f"of the low volume): 32-bit indices")
     if d > MAX_GRID_Z:
-        raise ValueError(f"{d} slices: a launch grid holds at most "
+        raise ValueError(f"{kernel}: {d} slices: a launch grid holds at most "
                          f"{MAX_GRID_Z}")
 
 
@@ -395,7 +399,7 @@ def scatter_local(t, shadow: torch.Tensor,
     if shadow.device.type == "cpu":
         return scatter_local_plain(t, shadow, bake, vis, material)
     check_scatter_inputs(t, shadow, bake, vis, material)
-    check_tile_indices(t)
+    check_tile_indices(t, "K6")
     low = bake if bake is not None else vis
     cuda.check_cuda(shadow, *(() if low is None else (low,)),
                     *(material or ()))

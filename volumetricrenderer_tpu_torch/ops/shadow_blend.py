@@ -62,7 +62,7 @@ def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:
     if prev_shadow.device.type == "cpu":
         return dir_shadow_blend_plain(t, prev_shadow)
     _check_history(t, prev_shadow)
-    check_tile_indices(t)
+    check_tile_indices(t, "K5")
     check_shared(k5_shared_bytes(t.k, t.n_dir), "K5",
                  f"reprojection window {t.k}, {t.n_dir} suns")
     cuda.check_cuda(prev_shadow)

@@ -28,7 +28,7 @@ y_phase(y0, ss), on the global ss-grid whatever y0 is, and its y tent
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +43,7 @@ from volumetricrenderer_tpu_torch.ops.material import (noise_factor_planes,
 from volumetricrenderer_tpu_torch.ops.noise import sample_noise
 from volumetricrenderer_tpu_torch.ops.occlude import any_hit
 from volumetricrenderer_tpu_torch.ops.phase import PI
-from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
-                                                      light_factor,
+from volumetricrenderer_tpu_torch.ops.scatter import (light_factor,
                                                       pack_lights)
 
 
@@ -329,20 +328,41 @@ def k9_geometry(n_lights: int,
                       shared_bytes=4 * 3 * 32 * K9_WARPS)
 
 
-def bake_visibility(t) -> torch.Tensor:
-    """K9: the low-rate per-light visibility volume [NL, DL, HL, WL].
-    Refuses, before the launch, tables the kernel cannot index in 32 bits
-    (ops/scatter.check_tile_indices)."""
+def k9_form(t, form: Optional[str] = None) -> str:
+    """Mirror of csrc/bake_visibility.cu k9_form: the index form of
+    cuda.INDEX_FORMS that K9 takes. Its blocks are a 1-D grid, so no slice
+    count limits it. The narrow form takes a [NL, DL, HL, WL] volume (and
+    with it the cull table [NL, DL]) under 2^31 floats; the wide form any
+    size on at most 2^31 - 1 blocks, a low slice's runs under 2^31 samples
+    and the lights table [NL, 16] under 2^31 floats. form: a form to force.
+    Raises ValueError (cuda.index_form), naming K9, before the launch."""
+    n_lights = t.lights.shape[0]
+    wl, hl, dl = t.low_dims
+    geo = k9_geometry(n_lights, t.low_dims)
+    wide = cuda.past_int32("the launch grid's blocks", geo.runs, dl) \
+        or cuda.past_int32("a low slice's runs of samples", geo.runs,
+                           geo.samples) \
+        or cuda.past_int32("the lights table [NL, 16]", n_lights, 16)
+    narrow = wide or cuda.past_int32("the [NL, DL, HL, WL] volume",
+                                     n_lights, dl, hl, wl)
+    return cuda.index_form("K9", narrow, wide, form)
+
+
+def bake_visibility(t, form: Optional[str] = None) -> torch.Tensor:
+    """K9: the low-rate per-light visibility volume [NL, DL, HL, WL]. CUDA
+    tables launch the index form k9_form picks (or `form`, forced); a table
+    past both is refused before the launch."""
     if t.spar.device.type == "cpu":
         return bake_visibility_plain(t)
     _check_bake_tables(t)
-    check_tile_indices(t)
+    form = k9_form(t, form)
     cuda.check_cuda(t.spar)
     wl, hl, dl = t.low_dims
     out = torch.empty((t.lights.shape[0], dl, hl, wl), dtype=torch.float32,
                       device=t.spar.device)
     st = t.c_struct()
-    cuda.launch("bake_visibility", cuda.ctypes.byref(st), cuda.ptr(out))
+    cuda.launch("bake_visibility", cuda.ctypes.byref(st), cuda.ptr(out),
+                cuda.INDEX_FORMS.index(form), entry="vr_bake_visibility_form")
     return out
 
 
