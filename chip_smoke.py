@@ -173,8 +173,8 @@ entry point a user calls, and the port's demo entry, and:
      one process group (NCCL where it takes them, else gloo with the edge
      rows staged through host memory), every band and cropped state bit
      for bit slab3's, each rank's frame and exchange times logged;
-     every main path's K2, K3 and K9 launches in their narrow index forms
-     (cuda.index_form_launches);
+     every main path's K2, K3, K5, K6, K7, K8 and K9 launches in their
+     narrow index forms (cuda.index_form_launches);
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
      each float32 image checksum, checks that each image is finite and not
@@ -242,8 +242,9 @@ entry point a user calls, and the port's demo entry, and:
      K6 bit for bit, K5, K6 in its six modes, K7, K10's weight mode on the
      suns' channels), checking which form each launch took (the fixed
      ones at 4 and 4), and times them at (9, 9); repeats every hold of K2,
-     K3 and K9 above in the wide index form (WideHolds: = the narrow form
-     bit for bit, and against the same twin at the same tolerance) and
+     K3, K5, K6, K7, K8 and K9 above in the wide index form (WideHolds: =
+     the narrow form bit for bit, and against the same twin at the same
+     tolerance) and
      holds the wrappers' index-form mirrors against the launchers' rules
      at their edges (index_form_mirrors); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
@@ -317,10 +318,11 @@ entry point a user calls, and the port's demo entry, and:
      kernel); the host time of a pass range (utils/profiling.scope, and
      the record_function it opens under a profiler) with no profiler
      recording;
-  8. the wide index forms of K2, K3 and K9 at their crossings (wide_paths),
-     each path from a fresh state with the launch counters set to 0 just
-     before and read just after, its index forms, peak memory and kernel
-     times printed, the rest of the fused frame through to K4:
+  8. the wide index forms of K2, K3, K5, K6, K7, K8 and K9 at their
+     crossings (wide_paths), each path from a fresh state with the launch
+     counters set to 0 just before and read just after, its index forms,
+     peak memory and kernel times printed, the rest of its frame through to
+     K4:
        deep_fused        FULL_CONFIG at 16x9x65664 froxels, 128x72, 2
                          frames: K2 past 65,535 slices (two parts of its
                          launch grid), K1, K3 (65,664 slices a block) and
@@ -344,6 +346,27 @@ entry point a user calls, and the port's demo entry, and:
                          band of rows) and 65,600 rows (two parts; the whole
                          grid's twin), each = the narrow form on a band's
                          tables bit for bit;
+       k8_wide           K8 alone on the same [4, 520, 1024, 1024] planes:
+                         = the narrow form on a band's tables bit for bit,
+                         the twin on the band;
+       deep_staged       STAGED at deep_fused's grid, 2 frames: K5 and K6
+                         past 65,535 slices (two parts each), then one
+                         no_shadow_blend frame (K7 in two parts), each
+                         kernel against its twin on the whole grid
+       many_suns_staged_wide  STAGED with the 520 suns, 2 frames: K5's
+                         histories past 2^31 floats, K6's general wide form
+                         reading them; K5 by copies against the narrow form
+                         on the 5-sun scene, K5 and K6 on a band against the
+                         twin; K7 once on the same tables (by copies and on
+                         the band)
+       vis_bake_wide     VIS_BAKE with 32,912 local lights (2057 equal
+                         copies, unfaded), 2 frames: K9's and K6's baked
+                         wide forms; K9 by copies, K6 = the narrow form on a
+                         band's tables bit for bit, K2's wide form once on
+                         the same tables (= K5 then K6 bit for bit), and
+                         ROADMAP C12's hold (c12_hold): K6's and K2's
+                         planes and the fp32 twin against an fp64 reference
+                         within the gamma_(n-1) bound of the sum's n terms;
      the wide forms' rows (also forced at 240x135x128 beside the narrow
      forms, in turns) join the kernels line;
   9. prints the `kernels` JSON line, then the result line.
@@ -2648,16 +2671,17 @@ def check_cpu_gbuffer(proc, out_file, gbuffer, mesh, config) -> None:
                              "the CPU's")
 
 
-# ---- the index forms: K2, K3 and K9 past 32-bit indices and 65535 slices --
+# ---- the index forms: K2, K3, K5, K6, K7, K8 and K9 past 32-bit indices
+# and 65535 slices ---------------------------------------------------------
 
 class WideHolds:
-    """Every hold (compare) of an output of K2, K3 or K9 whose call took
-    the narrow form, repeated with the wide form forced on the same inputs:
-    the wide outputs must equal the narrow ones bit for bit, and are held
-    against the same twin at the same tolerance (the hold's label and
-    ", wide form"). install() wraps the three wrappers in ops/frame_fused
-    and ops/visibility so that each CUDA output remembers its call (until
-    the output is freed); compare() calls check()."""
+    """Every hold (compare) of an output of K2, K3, K5, K6, K7, K8 or K9
+    whose call took the narrow form, repeated with the wide form forced on
+    the same inputs: the wide outputs must equal the narrow ones bit for
+    bit, and are held against the same twin at the same tolerance (the
+    hold's label and ", wide form"). install() wraps the wrappers
+    (wide_wrappers) so that each CUDA output remembers its call (until the
+    output is freed); compare() calls check()."""
 
     def __init__(self):
         self.calls = {}      # id(output) -> (ref, kernel, fn, args, kw, i, n)
@@ -2666,11 +2690,11 @@ class WideHolds:
         self.real = {}
         self.n = 0
 
-    def install(self, ff, vis) -> None:
-        for mod, name in ((ff, "shadow_scatter"), (ff, "integrate_blend"),
-                          (ff, "bake_visibility"), (vis, "bake_visibility")):
+    def install(self, wrappers) -> None:
+        """wrappers: (module, attribute, kernel source) of each wrapper."""
+        for mod, name, kernel in wrappers:
             self.real[(mod, name)] = getattr(mod, name)
-            setattr(mod, name, self._recorder(getattr(mod, name), name))
+            setattr(mod, name, self._recorder(getattr(mod, name), kernel))
 
     def uninstall(self) -> None:
         for (mod, name), fn in self.real.items():
@@ -2698,17 +2722,23 @@ class WideHolds:
     def rule(kernel, fn, args, kw) -> str:
         """The form the size rule gave the recorded call."""
         import inspect
+        from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
         from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+        from volumetricrenderer_tpu_torch.ops import integrate as integ
         from volumetricrenderer_tpu_torch.ops import scatter as sca
+        from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
         from volumetricrenderer_tpu_torch.ops import visibility as vis
         a = inspect.signature(fn).bind(*args, **kw)
         a.apply_defaults()
         a = a.arguments
-        if kernel == "shadow_scatter":
-            return ff.k2_form(a["t"], sca.local_mode(a["bake"], a["vis"]))
-        if kernel == "integrate_blend":
-            return ff.k3_form(a["t"])
-        return vis.k9_form(a["t"])
+        local = lambda: sca.local_mode(a["bake"], a["vis"])
+        return {"shadow_scatter": lambda: ff.k2_form(a["t"], local()),
+                "integrate_blend": lambda: ff.k3_form(a["t"]),
+                "shadow_blend": lambda: sb.k5_form(a["t"]),
+                "scatter": lambda: sca.k6_form(a["t"], local()),
+                "dir_shadow": lambda: ds.k7_form(a["t"]),
+                "integrate": lambda: integ.k8_form(a["t"]),
+                "bake_visibility": lambda: vis.k9_form(a["t"])}[kernel]()
 
     def check(self, name, got, want, mode, label) -> None:
         entry = self.calls.get(id(got))
@@ -2735,6 +2765,19 @@ class WideHolds:
 WIDE = WideHolds()
 
 
+def wide_wrappers(ff, vis, sb, sca, ds, integ) -> tuple:
+    """(module, attribute, kernel source) of every wrapper of a kernel with
+    index forms, as the holds call them (K9's from ops/frame_fused too)."""
+    return ((ff, "shadow_scatter", "shadow_scatter"),
+            (ff, "integrate_blend", "integrate_blend"),
+            (ff, "bake_visibility", "bake_visibility"),
+            (vis, "bake_visibility", "bake_visibility"),
+            (sb, "dir_shadow_blend", "shadow_blend"),
+            (sca, "scatter_local", "scatter"),
+            (ds, "dir_shadow", "dir_shadow"),
+            (integ, "accumulate", "integrate"))
+
+
 def index_deltas(cuda, before) -> dict:
     """source -> (narrow, wide) launches of cuda.INDEX_SOURCES since
     `before` (their counts then)."""
@@ -2744,12 +2787,13 @@ def index_deltas(cuda, before) -> dict:
 
 
 def fused_work(t, kernel: str, local: str = "radiance"):
-    """(bytes, operations) of one launch of K1, K2 (local source `local`),
-    K3 or K9 on tables t, counted as main() counts the fixed forms' on the
-    full grid: each input read once, each output written once; the rays
-    and the reprojections by their operations, the per-light loops by the
-    (froxel, light) pairs each slice's schedule keeps, K1's and K9's rays
-    by the (low sample, light) pairs the cull keeps."""
+    """(bytes, operations) of one launch of K1, K2 or K6 (local source
+    `local`), K3, K5, K7, K8 or K9 on tables t, counted as main() counts
+    the fixed forms' on the full grid: each input read once, each output
+    written once; the rays and the reprojections by their operations, the
+    per-light loops by the (froxel, light) pairs each slice's schedule
+    keeps, K1's and K9's rays by the (low sample, light) pairs the cull
+    keeps."""
     w, h, d = t.grid_whd
     n_fro = w * h * d
     wl, hl, dl = t.low_dims
@@ -2770,6 +2814,21 @@ def fused_work(t, kernel: str, local: str = "radiance"):
                 n_low * (60 + ops_perlin * t.n_noise) + pairs * (60 + ops_ray))
     if kernel == "integrate_blend":
         return 4 * 12 * n_fro, n_fro * ((4 * 20 + 30) + 45 + (24 + 48) + 12)
+    if kernel == "integrate":
+        return 4 * 8 * n_fro, n_fro * (4 * 20 + 30)
+    if kernel == "shadow_blend":
+        return 4 * 2 * nd * n_fro, n_fro * ops_shadow
+    if kernel == "dir_shadow":
+        return 4 * nd * n_fro, n_fro * nd * (30 + ops_ray)
+    if kernel == "scatter":  # the shadow in, the planes out, no blend
+        if local == "radiance":
+            return (4 * (nd * n_fro + (3 + t.n_noise) * n_low + 4 * n_fro),
+                    n_fro * ((3 + t.n_noise) * 20 + 60 * n_media + sun))
+        pairs = int(t.count.sum()) * h * w
+        return (4 * (nd * n_fro + 4 * n_fro
+                     + (n_lights * n_low if local == "baked" else 0)),
+                n_fro * (60 * n_media + ops_perlin * noise_media + sun)
+                + pairs * (60 + (ops_ray if local == "rays" else 20)))
     if local == "radiance":
         return (4 * (2 * nd * n_fro + (3 + t.n_noise) * n_low + 4 * n_fro),
                 n_fro * (ops_shadow + (3 + t.n_noise) * 20 + 60 * n_media
@@ -2811,11 +2870,16 @@ def wide_forced_rows(calls) -> dict:
 
 def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
     """The wrappers' form mirrors (ops/frame_fused.k2_form, k3_form,
-    ops/visibility.k9_form) against the launchers' own size rules
-    (`vr_*_form_of`) at the edges: 2^31 - 1 and 2^31 floats, 65535 and
-    65536 slices (K3: rows), on FULL_CONFIG's tables at other grids and
-    light counts (meta tables: the rules read the dimensions alone)."""
+    ops/shadow_blend.k5_form, ops/scatter.k6_form, ops/dir_shadow.k7_form,
+    ops/integrate.k8_form, ops/visibility.k9_form) against the launchers'
+    own size rules (`vr_*_form_of`) at the edges: 2^31 - 1 and 2^31 floats,
+    65535 and 65536 slices (K3: rows), 65535 row tiles, on FULL_CONFIG's
+    tables at other grids and light counts (meta tables: the rules read the
+    dimensions alone)."""
     import ctypes
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import integrate as integ
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
 
     def of(name, *args):
         buf = (ctypes.c_int * 2)()
@@ -2842,6 +2906,25 @@ def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
           (8, 65536, 16), (16, 9, 65664), (8, 200000, 16)]
     k9 = [((240, 135, 128), 32896), ((240, 135, 128), 32897),
           ((8, 8, 65536), 16), ((16, 15, 16), 2 ** 27)]
+    # K5 and K7: the [max(4, Nd), D, H, W] planes, the slices, the row tiles
+    k5_k7 = [((2048, 2047, 128), 1), ((2048, 2048, 128), 1),
+             ((240, 135, 128), 517), ((240, 135, 128), 518),
+             ((8, 8, 65535), 1), ((8, 8, 65536), 1),
+             ((16, 16 * 65535, 1), 1), ((16, 16 * 65535 + 1, 1), 1)]
+    # K6: the planes and slices, each source's low channels, the schedule,
+    # the baked tiles' rows, the runs' froxels of a slice
+    k6 = [((2048, 2047, 128), 1, 16, rad), ((2048, 2048, 128), 1, 16, rad),
+          ((8, 8, 65535), 1, 16, baked), ((8, 8, 65536), 1, 16, ray),
+          ((240, 135, 128), 1, 32896, baked), ((240, 135, 128), 1, 32897,
+                                              baked),
+          ((240, 135, 128), 1, 32897, rad), ((16, 15, 65535), 1, 32769, ray),
+          ((16, 15, 65535), 1, 32769, rad), ((16, 8 * 65535 + 1, 1), 1, 16,
+                                             baked),
+          ((16, 8 * 65535 + 1, 1), 1, 16, ray),
+          ((2 ** 16, 2 ** 15 - 1, 1), 1, 16, rad),
+          ((2 ** 16, 2 ** 15, 1), 1, 16, rad)]
+    k8 = [(2048, 2047, 128), (2048, 2048, 128), (1024, 1024, 520),
+          (8, 8, 65536), (2 ** 30, 2 ** 8, 1)]
     rows = []
     for grid, nd, nl, local in k2:
         t = dataclasses.replace(tables, grid_whd=grid, n_dir=nd,
@@ -2862,6 +2945,28 @@ def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
         rows.append(("K9", grid, 0, nl, None,
                      of("bake_visibility", ctypes.byref(st)),
                      mirror(vis.k9_form, t)))
+    for grid, nd in k5_k7:
+        t = dataclasses.replace(tables, grid_whd=grid, n_dir=nd)
+        st = t.c_struct()
+        rows.append(("K5", grid, nd, 0, None,
+                     of("shadow_blend", ctypes.byref(st)),
+                     mirror(sb.k5_form, t)))
+        rows.append(("K7", grid, nd, 0, None,
+                     of("dir_shadow", ctypes.byref(st)),
+                     mirror(ds.k7_form, t)))
+    for grid, nd, nl, local in k6:
+        t = dataclasses.replace(tables, grid_whd=grid, n_dir=nd,
+                                lights=meta(nl))
+        st = t.c_struct()
+        rows.append(("K6", grid, nd, nl, local,
+                     of("scatter", ctypes.byref(st), local),
+                     mirror(sca.k6_form, t, local)))
+    for grid in k8:
+        t = dataclasses.replace(tables, grid_whd=grid)
+        st = t.c_struct()
+        rows.append(("K8", grid, 0, 0, None,
+                     of("integrate", ctypes.byref(st)),
+                     mirror(integ.k8_form, t)))
     bad = [r for r in rows if r[5][0] != r[6]]
     for r in rows:
         log(f"# index form of {r[0]} at {r[1]}, {r[2]} suns, {r[3]} "
@@ -2916,30 +3021,51 @@ WIDE_LIGHT_COPIES = 2057
 K3_WIDE_GRIDS = {"planes": (1024, 1024, 520), "rows": (8, 65600, 16)}
 
 
+def frame_hooks() -> tuple:
+    """(module, attribute, kernel source) of each place a frame calls a
+    kernel's wrapper: the fused frame's volume phase (ops/frame_fused) and
+    the staged frame's passes (renderer, pipeline, which import the
+    wrappers by name)."""
+    import importlib
+    from volumetricrenderer_tpu_torch import pipeline
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    rmod = importlib.import_module("volumetricrenderer_tpu_torch.renderer")
+    return ((ff, "bake_radiance", "bake_radiance"),
+            (ff, "bake_visibility", "bake_visibility"),
+            (ff, "shadow_scatter", "shadow_scatter"),
+            (ff, "integrate_blend", "integrate_blend"),
+            (rmod, "dir_shadow_blend", "shadow_blend"),
+            (rmod, "integrate_blend", "integrate_blend"),
+            (pipeline, "bake_radiance", "bake_radiance"),
+            (pipeline, "bake_visibility", "bake_visibility"),
+            (pipeline, "scatter_local", "scatter"),
+            (pipeline, "raycast_dir_shadow", "dir_shadow"),
+            (pipeline, "accumulate_kernel", "integrate"))
+
+
 def drive_wide(name, renderer, scene, colour, depth, frames, expect,
-               forms, cuda, ff):
+               forms, cuda):
     """Render crossing path `name` from a fresh state, its launch counters
     set to 0 just before and read just after: exactly the kernels of
     `expect` ({kernel: launches per frame}) each frame, and the index forms
     `forms` ({source: (narrow, wide)} over the run). Records the last
-    frame's K1, K9, K2 and K3 calls. Returns (image, the state before the
-    last frame, {kernel: (args, output)}, seconds, peak GiB)."""
-    names = ("bake_radiance", "bake_visibility", "shadow_scatter",
-             "integrate_blend")
-    real = {n: getattr(ff, n) for n in names}
+    frame's call of each kernel of frame_hooks. Returns (image, the state
+    before the last frame, {kernel: (args, output)}, seconds, peak GiB)."""
+    hooks = frame_hooks()
+    real = {(mod, attr): getattr(mod, attr) for mod, attr, _ in hooks}
     rec = {}
 
-    def recorder(n):
+    def recorder(fn, kernel):
         def run(*args, **kw):
-            out = real[n](*args, **kw)
-            rec[n] = (args, out)
+            out = fn(*args, **kw)
+            rec[kernel] = (args, out)
             return out
         return run
 
     state = renderer.init_state(scene.dir_lights.count)
     prev = None
-    for n in names:
-        setattr(ff, n, recorder(n))
+    for mod, attr, kernel in hooks:
+        setattr(mod, attr, recorder(real[(mod, attr)], kernel))
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2954,8 +3080,8 @@ def drive_wide(name, renderer, scene, colour, depth, frames, expect,
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
-        for n in names:
-            setattr(ff, n, real[n])
+        for (mod, attr), fn in real.items():
+            setattr(mod, attr, fn)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     got_forms = {s: f for s, f in index_deltas(cuda, before).items()
@@ -3038,10 +3164,10 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
     from volumetricrenderer_tpu_torch import (VolumetricRenderer,
                                               benchmark_scene, froxel)
     from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import integrate as integ
     from volumetricrenderer_tpu_torch.ops import scatter as sca
     from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
     from volumetricrenderer_tpu_torch.ops import visibility as vis
-    from volumetricrenderer_tpu_torch.ops import zg_composite as zg
     from volumetricrenderer_tpu_torch.state import FrameState
     rows = {}
     t_phase = time.perf_counter()
@@ -3057,7 +3183,7 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
         "deep_fused", d_r, d_scene, d_col, d_dep, 2,
         {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
          "composite": 1},
-        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda, ff)
+        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda)
     (t, p_sh, bake, _), (sh, sc) = rec["shadow_scatter"]
     parts = cuda.grid_parts(t.grid_whd[2])
     log(f"# deep_fused: K2's launch grid in {len(parts)} parts {parts}")
@@ -3103,7 +3229,7 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
         "many_suns_wide", renderer, scn, scene_color, view_depth, 2,
         {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
          "composite": 1},
-        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda, ff)
+        {"shadow_scatter": (0, 2), "integrate_blend": (2, 0)}, cuda)
     (t, p_sh, bake, _), (sh, sc) = rec["shadow_scatter"]
     nd = t.n_dir
     log(f"# many_suns_wide: {nd} suns, [{nd}, 128, 135, 240] histories = "
@@ -3163,7 +3289,7 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
         {"bake_visibility": 1, "shadow_scatter": 1, "integrate_blend": 1,
          "composite": 1},
         {"bake_visibility": (0, 2), "shadow_scatter": (0, 2),
-         "integrate_blend": (2, 0)}, cuda, ff)
+         "integrate_blend": (2, 0)}, cuda)
     (t9,), v9 = rec["bake_visibility"]
     (t, p_sh, _, vol), (sh, sc) = rec["shadow_scatter"]
     n_l = t.lights.shape[0]
@@ -3331,6 +3457,472 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
         torch.cuda.empty_cache()
     log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
         "s: k3_wide")
+
+    # k8_wide: K8 alone past 2^31 floats, on k3_wide's resampled planes
+    t_path = time.perf_counter()
+    w, h, d = K3_WIDE_GRIDS["planes"]
+    k_cfg = dataclasses.replace(cfg, volume_width=w, volume_height=h,
+                                volume_depth=d)
+    st = FrameState(prev_shadow=torch.empty(0),
+                    prev_accumulation=torch.empty(0),
+                    prev_world_to_view=moved, frame_count=1)
+    t = VolumetricRenderer(k_cfg).frame_tables(st, scene, 0.1)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc = torch.nn.functional.interpolate(
+        k3_src[0][None], size=(d, h, w), mode="trilinear",
+        align_corners=True)[0].contiguous()
+    form = integ.k8_form(t)
+    cuda.reset_launches()
+    before = {s_: cuda.index_form_launches(s_) for s_ in cuda.INDEX_SOURCES}
+    out = integ.accumulate(t, sc)
+    torch.cuda.synchronize()
+    forms = {s_: f for s_, f in index_deltas(cuda, before).items() if any(f)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"# k8_wide: K8 on [4, {d}, {h}, {w}] = {sc.numel()} floats a "
+        f"volume, form {form}, index forms (narrow, wide) "
+        f"{json.dumps(forms)}, peak device memory {peak:.2f} GiB")
+    if form != "wide" or forms != {"integrate": (0, 1)}:
+        raise AssertionError(f"k8_wide: K8 took {forms}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("k8_wide: non-finite output")
+    # a band of rows (K8 reads rows +-1): the narrow form on the band's
+    # tables = the wide form's rows bit for bit, and the twin on the band
+    band = (h // 8 * 4, 32, 6)
+    y0, hb, m = band
+    tb = band_tables(k_cfg, st, scene, 0.1, y0, hb)
+    b_in = sc[:, :, y0:y0 + hb].contiguous()
+    nb = integ.accumulate(tb, b_in, form="narrow")
+    same = torch.equal(nb[:, :, m:hb - m], out[:, :, y0 + m:y0 + hb - m])
+    log(f"# k8_wide, band rows {y0 + m}-{y0 + hb - m - 1}: the narrow form "
+        f"on the band's tables = the wide form's rows bit for bit: {same}")
+    if not same:
+        raise AssertionError("k8_wide: the wide form's rows differ from the "
+                             "narrow form's on the band")
+    t0 = time.perf_counter()
+    want = integ.accumulate_plain(tb, b_in)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = band_hold("integrate", out, want, band, "k8_wide")
+    del out, nb, want, b_in
+    rows[("integrate", "wide_planes")] = wide_row(
+        "integrate", "wide_planes", lambda: integ.accumulate(t, sc), 3,
+        fused_work(t, "integrate"), err, plain_ms, 1,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del sc, t, tb
+    torch.cuda.empty_cache()
+    log(f"# k8_wide: {time.perf_counter() - t_path:.1f} s")
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: k8_wide")
+    rows.update(staged_wide_paths(cfg, scene, renderers, scene_color,
+                                  view_depth, cuda, t_phase))
+    return rows
+
+
+# The C12 hold's term count: u = 2^-24, the unit roundoff of float32
+UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def gamma(k):
+    """gamma_k = k u / (1 - k u) (Higham): an fp32 sum of k + 1 terms
+    differs from the exact sum by at most gamma_k times the sum of the
+    terms' magnitudes, in any order."""
+    return k * UNIT_ROUNDOFF / (1.0 - k * UNIT_ROUNDOFF)
+
+
+def c12_hold(tb, sh_band, v_band, held, m, sca, vis) -> tuple:
+    """ROADMAP C12: the baked in-scatter over thousands of equal lights,
+    held without fading against an fp64 reference on a band's tables tb
+    (its blended shadow sh_band, its visibility v_band). The lights fall
+    into classes of equal table rows and schedule columns (the copies of
+    one light; a copy's packed colour may round differently by an ulp
+    where the host packs it), each class's visibility equal (checked). The
+    reference: the twin's own term t_k of each class's first light
+    (scatter.scatter_slice over that light alone, no sun: 0 + t_k = t_k)
+    and its sun terms s (no local light), summed in float64 as s + sum_k
+    count_k t_k. The fp32 twin: the same terms added in float32 in the
+    twin's order (ascending light index, then the sun), checked bit for bit
+    against the twin's own loop over the first 32 lights. On the band's
+    rows m or more from its edges, each of `held` ({label: planes [>= 3,
+    D, hb - 2 m, W]}) and the fp32 twin must lie within, per element,
+    gamma_(n-1) x (|s| + sum_k count_k |t_k|) + atol + rtol |s|: n the
+    terms its slice sums (its scheduled lights and the suns), atol and
+    rtol K6's CHECKS tolerance on the non-light (sun) terms. Returns
+    ({label: worst ratio of |err| to the bound}, {label: largest |err|},
+    seconds of the reference and the twin)."""
+    t0 = time.perf_counter()
+    w, hb, d = tb.grid_whd
+    dev = sh_band.device
+    zs = torch.arange(d, device=dev)[:, None, None]
+    nl = tb.lights.shape[0]
+    active = sca.schedule_mask(tb.order, tb.count).T           # [NL, D]
+    key = torch.cat([tb.lights, active.to(tb.lights.dtype)], dim=1)
+    _, cls = torch.unique(key, dim=0, return_inverse=True)
+    n_cls = int(cls.max()) + 1
+    first = torch.full((n_cls,), nl, dtype=torch.long, device=dev)
+    first = first.scatter_reduce(0, cls, torch.arange(nl, device=dev),
+                                 "amin")
+    count = torch.bincount(cls, minlength=n_cls)
+    for a in range(0, nl, 4096):  # each light sees its class's visibility
+        b = min(nl, a + 4096)
+        if not torch.equal(v_band[a:b], v_band[first[cls[a:b]]]):
+            raise AssertionError("C12: one class's visibility differs")
+    n_loop = min(32, nl)
+    rows = torch.unique(torch.cat([first, torch.arange(n_loop, device=dev)]))
+    at_row = {int(r): j for j, r in enumerate(rows.tolist())}
+    up = vis.upsample_low(v_band[rows].contiguous(), zs, tb.ss, tb.tent_x,
+                          tb.tent_y)
+    act = active[:, :, None, None]
+
+    def twin(lights, n_dir):
+        ix = torch.tensor(lights, dtype=torch.long, device=dev)
+        return torch.stack(sca.scatter_slice(
+            tb.spar, tb.dirs, tb.med, tb.media_static, zs, list(sh_band),
+            None, None, grid_whd=tb.grid_whd, n_dir=n_dir, h_glob=tb.h_glob,
+            jitter_dir=tb.jitter_dir,
+            local=(tb.lights[ix], act[ix], tb.planes, tb.spheres, tb.boxes,
+                   tb.occluders(local=True),
+                   up[[at_row[i] for i in lights]]))[:3])
+
+    terms = [twin([int(f)], 0) for f in first.tolist()]
+    sun = twin([], tb.n_dir)
+    inner = lambda v: v[:, :, m:hb - m]
+    tt = torch.stack(terms).double()
+    cnt = count.double()[:, None, None, None, None]
+    ref = inner(sun.double() + (cnt * tt).sum(0))
+    mag = inner(sun.double().abs() + (cnt * tt.abs()).sum(0))
+    del tt
+    n_terms = (active.sum(0) + tb.n_dir).double()
+    atol, rtol = CHECKS["scatter"][:2]
+    bound = gamma((n_terms - 1).clamp(min=0))[None, :, None, None] * mag \
+        + atol + rtol * inner(sun.double().abs())
+    # the twin's fp32 sum: its own loop over the first lights, then every
+    # light's class term in the table's order, the sun last
+    acc = torch.zeros_like(sun)
+    for i, c in enumerate(cls.tolist()):
+        if i == n_loop and not torch.equal(twin(list(range(n_loop)), 0),
+                                           acc):
+            raise AssertionError("C12: the twin's loop over the first "
+                                 "lights differs from their terms added "
+                                 "in turn")
+        acc = acc + terms[c]
+    twin32 = inner(acc + sun)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ratios, errs = {}, {}
+    for label, planes in {"the fp32 twin": twin32, **held}.items():
+        err = (planes[:3].double() - ref).abs()
+        ratio = err / bound
+        ratios[label] = float(ratio.max())
+        errs[label] = float(err.max())
+        at = tuple(int(v) for v in torch.unravel_index(ratio.argmax(),
+                                                       ratio.shape))
+        rel = float((err / ref.abs().clamp(min=1e-30)).max())
+        log(f"# C12, {label}: max |err| against the fp64 reference "
+            f"{errs[label]:.4e}, relative {rel:.4e}; worst |err| / bound "
+            f"{ratios[label]:.4e} at {at} (bound {float(bound[at]):.4e}, "
+            f"|reference| {float(ref[at].abs()):.4e}, "
+            f"{int(n_terms[at[1]])} terms)")
+    log(f"# C12: the bound gamma_(n-1) x sum |t_i| + {atol:g} + {rtol:g} "
+        f"|sun|, n from {int(n_terms.min())} to {int(n_terms.max())} terms "
+        f"a froxel (gamma_(n-1) up to "
+        f"{float(gamma(n_terms.max() - 1)):.4e}), median bound "
+        f"{float(bound.median()):.4e}; {nl} lights in {n_cls} classes of "
+        f"equal rows ({int(count.min())}-{int(count.max())} lights each), "
+        f"{n_cls + 1} twin runs and {nl} fp32 adds, {secs:.2f} s")
+    if max(ratios.values()) > 1.0:
+        raise AssertionError(f"C12: past the gamma bound: {ratios}")
+    return ratios, errs, secs
+
+
+def staged_wide_paths(cfg, scene, renderers, scene_color, view_depth, cuda,
+                      t_phase) -> dict:
+    """The staged frame's crossing paths, each through the entry point past
+    the narrow forms' limits, with every other kernel of its frame through
+    to K4:
+      deep_staged            STAGED at 16x9x65664 froxels (DEEP), 2
+                             frames: K5 and K6 past 65535 slices (two
+                             parts of their launch grids), K1, K3 and K4
+                             narrow; then one no_shadow_blend frame at the
+                             same grid, where K7 crosses; each kernel held
+                             against its twin on the whole grid;
+      many_suns_staged_wide  STAGED with 520 suns (104 copies of
+                             many_suns_scene's 5), 2 frames: K5's [520,
+                             128, 135, 240] histories past 2^31 floats, K6's
+                             general wide form reading them; each copy's
+                             history = the narrow form's on the 5-sun scene
+                             bit for bit, the histories and the planes on a
+                             band of rows against the twin on the band's
+                             tables; K7 once on the same tables (the same
+                             replication hold, the twin on the band);
+      vis_bake_wide          VIS_BAKE with 32,912 local lights, 2057 equal
+                             copies of the 16, unfaded, 2 frames: K9's and
+                             K6's baked wide forms; K9 by replication, K5
+                             against the twin; K6's planes = the narrow form
+                             on a band's tables bit for bit; K2's baked wide
+                             form once on the same tables (= K5 then K6 bit
+                             for bit); and C12's fp64 hold (c12_hold) of
+                             K6's and K2's planes and the fp32 twin.
+    Returns {(kernel, mode): row of the kernels line}."""
+    from volumetricrenderer_tpu_torch import (VolumetricRenderer,
+                                              benchmark_scene)
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    rows = {}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def forms_of(fn):
+        before = {s_: cuda.index_form_launches(s_)
+                  for s_ in cuda.INDEX_SOURCES}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {s_: f for s_, f in index_deltas(cuda, before).items()
+                     if any(f)}
+
+    def done(name, t_path):
+        log(f"# {name}: {time.perf_counter() - t_path:.1f} s")
+        log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f}"
+            f" s: {name}")
+
+    # deep_staged
+    t_path = time.perf_counter()
+    d_cfg = dataclasses.replace(cfg, **STAGED, **DEEP)
+    d_r = VolumetricRenderer(d_cfg)
+    d_scene = benchmark_scene(aspect=DEEP["image_width"]
+                              / DEEP["image_height"], num_local_lights=16,
+                              noise_mode="procedural")
+    d_col, d_dep = d_r.render_scene_inputs(d_scene)
+    _, _, rec, _, _ = drive_wide(
+        "deep_staged", d_r, d_scene, d_col, d_dep, 2,
+        {k: 1 for k in STAGED_KERNELS},
+        {"shadow_blend": (0, 2), "scatter": (0, 2),
+         "integrate_blend": (2, 0)}, cuda)
+    (t, p_sh), sh = rec["shadow_blend"]
+    (t6, sh6, bake, vol, mat), sc = rec["scatter"]
+    parts = cuda.grid_parts(t.grid_whd[2])
+    log(f"# deep_staged: K5's and K6's launch grids in {len(parts)} parts "
+        f"{parts}")
+    want, plain5 = timed(lambda: sb.dir_shadow_blend_plain(t, p_sh))
+    err5 = compare("shadow_blend", sh, want, label="deep_staged")
+    want, plain6 = timed(lambda: sca.scatter_local_plain(t6, sh6, bake, vol,
+                                                         mat))
+    err6 = compare("scatter", sc, want, label="deep_staged")
+    compare("bake_radiance", rec["bake_radiance"][1],
+            ff.bake_radiance_plain(rec["bake_radiance"][0][0]),
+            label="deep_staged")
+    (t3, sc3, acc3), out3 = rec["integrate_blend"]
+    compare("integrate_blend", out3, ff.integrate_blend_plain(t3, sc3, acc3),
+            label="deep_staged (narrow: 65664 slices a block)")
+    del want, out3, sc3, acc3
+    rows[("shadow_blend", "wide_deep_staged")] = wide_row(
+        "shadow_blend", "wide_deep_staged",
+        lambda: sb.dir_shadow_blend(t, p_sh), 5, fused_work(t, "shadow_blend"),
+        err5, plain5, 2, "the whole grid's twin")
+    rows[("scatter", "wide_deep_staged")] = wide_row(
+        "scatter", "wide_deep_staged",
+        lambda: sca.scatter_local(t6, sh6, bake, vol, mat), 5,
+        fused_work(t6, "scatter"), err6, plain6, 2, "the whole grid's twin")
+    del rec, t, p_sh, sh, t6, sh6, bake, vol, mat, sc
+    # one no_shadow_blend frame at the same grid: K7 in two parts
+    n_r = VolumetricRenderer(dataclasses.replace(
+        d_cfg, temporal_blend_shadow=False))
+    _, _, rec, _, _ = drive_wide(
+        "deep_staged, no_shadow_blend", n_r, d_scene, d_col, d_dep, 1,
+        {k: 1 for k in NO_SHADOW_BLEND_KERNELS},
+        {"dir_shadow": (0, 1), "scatter": (0, 1), "integrate_blend": (1, 0)},
+        cuda)
+    (t7,), un = rec["dir_shadow"]
+    want, plain7 = timed(lambda: ds.dir_shadow_plain(t7))
+    err7 = compare("dir_shadow", un, want, label="deep_staged")
+    rows[("dir_shadow", "wide_deep_staged")] = wide_row(
+        "dir_shadow", "wide_deep_staged", lambda: ds.dir_shadow(t7), 5,
+        fused_work(t7, "dir_shadow"), err7, plain7, 1,
+        "the whole grid's twin")
+    del rec, want, un, t7, d_col, d_dep
+    torch.cuda.empty_cache()
+    done("deep_staged", t_path)
+
+    # many_suns_staged_wide
+    t_path = time.perf_counter()
+    base, copies = WIDE_SUN_COPIES
+    scn5 = many_suns_scene(scene, base, 1)
+    scn = dataclasses.replace(scn5, dir_lights=replicate(scn5.dir_lights,
+                                                         copies))
+    s_r = renderers["staged"]
+    _, prev, rec, _, _ = drive_wide(
+        "many_suns_staged_wide", s_r, scn, scene_color, view_depth, 2,
+        {k: 1 for k in STAGED_KERNELS},
+        {"shadow_blend": (0, 2), "scatter": (0, 2),
+         "integrate_blend": (2, 0)}, cuda)
+    (t, p_sh), sh = rec["shadow_blend"]
+    (t6, sh6, bake, _, _), sc = rec["scatter"]
+    nd = t.n_dir
+    log(f"# many_suns_staged_wide: {nd} suns, [{nd}, 128, 135, 240] "
+        f"histories = {sh.numel()} floats (past 2^31 - 1: "
+        f"{sh.numel() > 2 ** 31 - 1}); K6 read K5's: {sh6 is sh}")
+    if sh.numel() <= 2 ** 31 - 1 or sh6 is not sh:
+        raise AssertionError("many_suns_staged_wide does not pass 2^31 "
+                             "floats, or K6 did not read K5's histories")
+    del rec
+    # replication: each copy's history = the narrow form's on the 5 suns
+    t5 = s_r.frame_tables(prev, scn5, 0.1)[0]
+    p_sh5 = p_sh[:base].contiguous()
+    sh5 = sb.dir_shadow_blend(t5, p_sh5, form="narrow")
+    same = all(torch.equal(sh[c * base:(c + 1) * base], sh5)
+               for c in range(copies))
+    log(f"# many_suns_staged_wide, replication hold: each of the {copies} "
+        f"copies' {base} histories = the narrow form's on the {base}-sun "
+        f"scene bit for bit: {same}")
+    if not same:
+        raise AssertionError("many_suns_staged_wide: a copy's history "
+                             "differs from the narrow form's")
+    del sh5
+    # the histories and the planes on a band of rows against the twin on
+    # the band's tables (K6's on K5's band rows)
+    y0, hb, _ = WIDE_BAND
+    tb = band_tables(s_r.config, prev, scn, 0.1, *WIDE_BAND[:2])
+    want, plain5 = timed(lambda: sb.dir_shadow_blend_plain(
+        tb, p_sh[:, :, y0:y0 + hb].contiguous()))
+    err5 = band_hold("shadow_blend", sh, want, WIDE_BAND,
+                     "many_suns_staged_wide history")
+    del want
+    sh_band = sh[:, :, y0:y0 + hb].contiguous()
+    want, plain6 = timed(lambda: sca.scatter_local_plain(
+        tb, sh_band, ff.bake_radiance_plain(tb)))
+    err6 = band_hold("scatter", sc, want, WIDE_BAND,
+                     "many_suns_staged_wide planes")
+    del want, sh_band
+    rows[("shadow_blend", "wide_many_suns_staged")] = wide_row(
+        "shadow_blend", "wide_many_suns_staged",
+        lambda: sb.dir_shadow_blend(t, p_sh), 3, fused_work(t, "shadow_blend"),
+        err5, plain5, 2, f"the twin on band rows {y0}-{y0 + hb - 1}")
+    rows[("scatter", "wide_many_suns_staged")] = wide_row(
+        "scatter", "wide_many_suns_staged",
+        lambda: sca.scatter_local(t6, sh, bake), 3, fused_work(t6, "scatter"),
+        err6, plain6, 2, f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del sc, bake, t6
+    # K7 once on the same tables: the wide form past 2^31 floats, each copy
+    # = the narrow form's on the 5 suns, the twin on the band
+    del sh
+    torch.cuda.empty_cache()
+    un, forms = forms_of(lambda: ds.dir_shadow(t))
+    un5 = ds.dir_shadow(t5, form="narrow")
+    same = all(torch.equal(un[c * base:(c + 1) * base], un5)
+               for c in range(copies))
+    log(f"# many_suns_staged_wide, K7: [{nd}, 128, 135, 240] = "
+        f"{un.numel()} floats, index forms (narrow, wide) "
+        f"{json.dumps(forms)}; each of the {copies} copies = the narrow "
+        f"form's on the {base}-sun scene bit for bit: {same}")
+    if forms != {"dir_shadow": (0, 1)} or not same:
+        raise AssertionError("many_suns_staged_wide: K7 took the narrow "
+                             "form, or a copy differs from the narrow form's")
+    del un5
+    want, plain7 = timed(lambda: ds.dir_shadow_plain(tb))
+    err7 = band_hold("dir_shadow", un, want, WIDE_BAND,
+                     "many_suns_staged_wide K7")
+    del want, un
+    rows[("dir_shadow", "wide_many_suns_staged")] = wide_row(
+        "dir_shadow", "wide_many_suns_staged", lambda: ds.dir_shadow(t), 3,
+        fused_work(t, "dir_shadow"), err7, plain7, 1,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del prev, t, p_sh, p_sh5, t5, tb
+    torch.cuda.empty_cache()
+    done("many_suns_staged_wide", t_path)
+
+    # vis_bake_wide: 2057 equal copies of the 16 lights, unfaded
+    t_path = time.perf_counter()
+    v_r = renderers["vis_bake"]
+    scn = dataclasses.replace(
+        scene, point_lights=replicate(scene.point_lights, WIDE_LIGHT_COPIES),
+        spot_lights=replicate(scene.spot_lights, WIDE_LIGHT_COPIES))
+    _, prev, rec, _, _ = drive_wide(
+        "vis_bake_wide", v_r, scn, scene_color, view_depth, 2,
+        {"shadow_blend": 1, "bake_visibility": 1, "scatter": 1,
+         "integrate_blend": 1, "composite": 1},
+        {"bake_visibility": (0, 2), "scatter": (0, 2), "shadow_blend": (2, 0),
+         "integrate_blend": (2, 0)}, cuda)
+    (t9,), v9 = rec["bake_visibility"]
+    (t, p_sh), sh = rec["shadow_blend"]
+    (t6, sh6, _, vol, _), sc = rec["scatter"]
+    n_l = t6.lights.shape[0]
+    log(f"# vis_bake_wide: {n_l} lights, the visibility volume "
+        f"{tuple(v9.shape)} = {v9.numel()} floats (past 2^31 - 1: "
+        f"{v9.numel() > 2 ** 31 - 1}); K6 read K9's and K5's: "
+        f"{vol is v9 and sh6 is sh}")
+    if v9.numel() <= 2 ** 31 - 1 or vol is not v9 or sh6 is not sh:
+        raise AssertionError("vis_bake_wide does not pass 2^31 floats, or "
+                             "K6 did not read K9's volume and K5's history")
+    del rec
+    # K9 by replication: each copy = the narrow form's on the 16 lights
+    n16 = scene.point_lights.count + scene.spot_lights.count
+    t16 = v_r.frame_tables(prev, scene, 0.1)[0]
+    v16 = vis.bake_visibility(t16, form="narrow")
+    n_pt = scene.point_lights.count
+    same = all(torch.equal(a.view(WIDE_LIGHT_COPIES, *b.shape),
+                           b.expand(WIDE_LIGHT_COPIES, *b.shape))
+               for a, b in ((v9[:n_pt * WIDE_LIGHT_COPIES], v16[:n_pt]),
+                            (v9[n_pt * WIDE_LIGHT_COPIES:], v16[n_pt:])))
+    log(f"# vis_bake_wide, replication hold: each of the "
+        f"{WIDE_LIGHT_COPIES} copies' {n16} visibility planes = the narrow "
+        f"form's on the {n16}-light scene bit for bit: {same}")
+    if not same:
+        raise AssertionError("vis_bake_wide: a copy's visibility differs "
+                             "from the narrow form's")
+    del v16, t16
+    compare("shadow_blend", sh, sb.dir_shadow_blend_plain(t, p_sh),
+            label="vis_bake_wide (narrow)")
+    # K2's baked wide form once on the same tables: = K5 then K6
+    (sh2, sc2), forms = forms_of(lambda: ff.shadow_scatter(t, p_sh, vis=vol))
+    same = torch.equal(sh2, sh) and torch.equal(sc2, sc)
+    log(f"# vis_bake_wide, K2 on the same tables: index forms (narrow, "
+        f"wide) {json.dumps(forms)}; = K5 then K6 bit for bit: {same}")
+    if forms != {"shadow_scatter": (0, 1)} or not same:
+        raise AssertionError("vis_bake_wide: K2 did not take its wide form, "
+                             "or differs from K5 then K6")
+    del sh2
+    # a band of rows: K6's narrow form on the band's tables = the wide
+    # form's rows bit for bit; C12's fp64 hold of K6's and K2's rows
+    y0, hb, m = WIDE_BAND
+    tb = band_tables(v_r.config, prev, scn, 0.1, *WIDE_BAND[:2])
+    ly0, lhb = y0 // tb.ss, tb.low_dims[1]
+    v_band = v9[:, :, ly0:ly0 + lhb].contiguous()
+    sh_band = sh[:, :, y0:y0 + hb].contiguous()
+    nb = sca.scatter_local(tb, sh_band, None, v_band, form="narrow")
+    d_nb = (nb[:, :, m:hb - m] - sc[:, :, y0 + m:y0 + hb - m]).abs()
+    same = bool((d_nb == 0).all())
+    log(f"# vis_bake_wide planes, band rows {y0 + m}-{y0 + hb - m - 1}: the "
+        f"narrow form on the band's tables = the wide form's rows bit for "
+        f"bit: {same} (max |diff| {float(d_nb.max()):.3e})")
+    if not same:
+        raise AssertionError("vis_bake_wide: the wide form's rows differ "
+                             "from the narrow form's on the band")
+    del nb, d_nb
+    band_rows = lambda v: v[:, :, y0 + m:y0 + hb - m]
+    held = {"K6's baked wide planes": band_rows(sc),
+            "K2's baked wide planes": band_rows(sc2)}
+    ratios, c12_errs, c12_s = c12_hold(tb, sh_band, v_band, held, m, sca,
+                                       vis)
+    del held, sc2, v_band, sh_band
+    rows[("scatter", "wide_vis_bake")] = wide_row(
+        "scatter", "wide_vis_bake",
+        lambda: sca.scatter_local(t6, sh, None, vol), 1,
+        fused_work(t6, "scatter", "baked"), c12_errs["K6's baked wide planes"],
+        1e3 * c12_s, 2,
+        f"C12: against the fp64 reference on band rows {y0 + m}-"
+        f"{y0 + hb - m - 1} (the plain time: the reference and the fp32 "
+        f"twin); |err| / its gamma bound at most {json.dumps(ratios)}")
+    rows[("scatter", "wide_vis_bake")]["c12_ratios"] = ratios
+    del prev, t, p_sh, sh, t6, sh6, vol, sc, v9, t9, tb
+    torch.cuda.empty_cache()
+    done("vis_bake_wide", t_path)
     return rows
 
 
@@ -3656,9 +4248,9 @@ def main() -> int:
     del d_img2
 
     done("the main paths")
-    # from here to the end of the holds every hold of K2, K3 and K9 is
-    # repeated in the wide form (WideHolds)
-    WIDE.install(ff, vis)
+    # from here to the end of the holds every hold of K2, K3, K5, K6, K7, K8
+    # and K9 is repeated in the wide form (WideHolds)
+    WIDE.install(wide_wrappers(ff, vis, sb, sca, ds, integ))
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
     prev = states[3]
@@ -4757,7 +5349,8 @@ def main() -> int:
 
     n_wide = len(WIDE.errs)
     WIDE.uninstall()
-    log(f"# the wide forms forced in every hold of K2, K3 and K9: {n_wide} "
+    log(f"# the wide forms forced in every hold of K2, K3, K5, K6, K7, K8 and "
+        f"K9: {n_wide} "
         f"holds, each = the narrow form bit for bit; the largest against the "
         f"twins: " + json.dumps({k: max(e for (k_, _), e in WIDE.errs.items()
                                         if k_ == k)
@@ -5296,6 +5889,28 @@ def main() -> int:
             lambda f, a=a: ff.shadow_scatter(a[0], a[1], vis=a[2], form=f),
             k2_plain_ms[m], k2_work[m], (f"{m}, history", f"{m}, planes"),
             5 if m == "rays" else 20)
+    # the staged frame's K5, K6 (each mode held above), K7 and K8
+    wide_forced.update({
+        ("shadow_blend", "wide_forced"): (
+            lambda f: sb.dir_shadow_blend(tables, prev_sh, form=f),
+            plain_ms["shadow_blend"], work["shadow_blend"],
+            ("fused frame 4",), 20),
+        ("scatter", "wide_forced_radiance"): (
+            lambda f: sca.scatter_local(tables, sh, bake, form=f),
+            plain_ms["scatter"], work["scatter"], ("radiance x fused",), 20),
+        ("scatter", "wide_forced_rays"): (
+            lambda f: sca.scatter_local(x_tables, x_sh, form=f),
+            per_light_plain_ms, per_light_work, ("rays x fused",), 5),
+        ("dir_shadow", "wide_forced"): (
+            lambda f: ds.dir_shadow(tables, form=f), plain_ms["dir_shadow"],
+            work["dir_shadow"], ("main",), 20),
+        ("integrate", "wide_forced"): (
+            lambda f: integ.accumulate(tables, sc, form=f),
+            plain_ms["integrate"], work["integrate"], ("main",), 20)})
+    for m, a in k6_modes.items():
+        wide_forced[("scatter", f"wide_forced_{m}")] = (
+            lambda f, a=a: sca.scatter_local(*a, form=f), mode_plain_ms[m],
+            mode_work[m], (m.replace("_", " x "),), 20)
     forced_rows = wide_forced_rows(wide_forced)
     # K4 at 4K: the accumulation, depth and scene in, the image out; the
     # co-sited planes at 1920x1080: no scene, four planes out

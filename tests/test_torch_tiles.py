@@ -147,18 +147,22 @@ def _at(t, grid, **kw):
 @pytest.mark.parametrize("grid", [(2048, 2048, 128), (4096, 4096, 64),
                                   (8, 8, 65536)])
 def test_wrappers_refuse_indices_past_32_bits(tables, grid):
-    """K6's wrapper raises ValueError, before any launch, for a grid whose
-    [4, D, H, W] planes pass 2^31 - 1 floats or whose launch grid would
-    hold more than 65535 slices. K2's takes them in its wide form and goes
-    on to refuse only the meta tensors (not on CUDA)."""
+    """The narrow forms of K5, K6 and K7 (ops/scatter.check_tile_indices)
+    refuse, by name, a grid whose [4, D, H, W] planes pass 2^31 - 1 floats
+    or whose launch grid would hold more than 65535 slices. K2 and K6 take
+    them in their wide forms and go on to refuse only the meta tensors (not
+    on CUDA); K6 forced narrow refuses before any launch."""
     t, shadow, bake = _at(tables, grid)
-    with pytest.raises(ValueError, match="2\\^31|65535"):
-        t_sca.check_tile_indices(t)
-    assert t_ff.k2_form(t, RAD) == "wide"
+    with pytest.raises(ValueError, match="narrow form.*(2\\^31|65535)"):
+        t_sca.check_tile_indices(t, form="narrow")
+    assert t_sca.check_tile_indices(t) == "wide"
+    assert t_ff.k2_form(t, RAD) == t_sca.k6_form(t, RAD) == "wide"
     with pytest.raises(ValueError, match="CUDA"):
         t_ff.shadow_scatter(t, shadow, bake)
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    with pytest.raises(ValueError, match="CUDA"):
         t_sca.scatter_local(t, shadow, bake)
+    with pytest.raises(ValueError, match="K6's narrow form.*(2\\^31|65535)"):
+        t_sca.scatter_local(t, shadow, bake, form="narrow")
 
 
 def test_largest_grid_under_32_bits_is_taken(tables):
@@ -219,10 +223,15 @@ def _history(t, grid, **kw):
 
 @pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
 def test_k5_refuses_indices_past_32_bits(tables, grid):
-    """K5's wrapper raises ValueError, before any launch, where K2's does:
-    [4, D, H, W] planes past 2^31 - 1 floats or more than 65535 slices."""
+    """K5's narrow form raises ValueError, before any launch, where K2's
+    does: [4, D, H, W] planes past 2^31 - 1 floats or more than 65535
+    slices; its wide form takes them and goes on to refuse only the meta
+    tensor (not on CUDA)."""
     t, prev = _history(tables, grid)
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    with pytest.raises(ValueError, match="K5's narrow form.*(2\\^31|65535)"):
+        t_sb.dir_shadow_blend(t, prev, form="narrow")
+    assert t_sb.k5_form(t) == "wide"
+    with pytest.raises(ValueError, match="CUDA"):
         t_sb.dir_shadow_blend(t, prev)
 
 
@@ -605,15 +614,20 @@ def test_k8_chunks_cover_each_slice_once(d):
 
 @pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
 def test_k7_refuses_indices_past_32_bits(tables, grid):
-    """K7's wrapper raises ValueError, before any launch, where K2's and
-    K5's do (ops/scatter.check_tile_indices): [4, D, H, W] planes past
-    2^31 - 1 floats or more than 65535 slices; the largest grid under 32
-    bits goes on to refuse only the meta tables (not on CUDA)."""
+    """K7's narrow form raises ValueError, before any launch, where K2's
+    and K5's do (ops/scatter.check_tile_indices): [4, D, H, W] planes past
+    2^31 - 1 floats or more than 65535 slices; its wide form takes them,
+    and it and the largest grid under 32 bits go on to refuse only the
+    meta tables (not on CUDA)."""
     t = dataclasses.replace(tables, grid_whd=grid,
                             spar=tables.spar.to("meta"))
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    with pytest.raises(ValueError, match="K7's narrow form.*(2\\^31|65535)"):
+        t_ds.dir_shadow(t, form="narrow")
+    assert t_ds.k7_form(t) == "wide"
+    with pytest.raises(ValueError, match="CUDA"):
         t_ds.dir_shadow(t)
     t = dataclasses.replace(t, grid_whd=(2048, 2047, 128))
+    assert t_ds.k7_form(t) == "narrow"
     with pytest.raises(ValueError, match="CUDA"):
         t_ds.dir_shadow(t)
 
@@ -623,14 +637,20 @@ def test_k7_refuses_indices_past_32_bits(tables, grid):
                                           ((2048, 2047, 128), False),
                                           ((8, 8, 65536), False)])
 def test_k8_refuses_indices_past_32_bits(tables, grid, refused):
-    """K8's wrapper raises ValueError, before any launch, for [4, D, H, W]
-    planes past 2^31 - 1 floats, as its launcher does; one row fewer, or
-    65536 slices (a loop of each block, not a launch-grid axis), goes on
-    to refuse only the meta tensor (not on CUDA)."""
+    """K8's narrow form raises ValueError, before any launch, for
+    [4, D, H, W] planes past 2^31 - 1 floats, as its launcher does; one row
+    fewer, or 65536 slices (a loop of each block, not a launch-grid axis),
+    goes on to refuse only the meta tensor (not on CUDA). Its wide form
+    takes every one of these grids (k8_form's rule picks it where the
+    narrow one refuses)."""
     w, h, d = grid
     t = dataclasses.replace(tables, grid_whd=grid)
     scatter = torch.empty((4, d, h, w), device="meta")
-    with pytest.raises(ValueError, match="2\\^31" if refused else "CUDA"):
+    with pytest.raises(ValueError, match="K8's narrow form.*2\\^31"
+                       if refused else "CUDA"):
+        t_int.accumulate(t, scatter, form="narrow")
+    assert t_int.k8_form(t) == ("wide" if refused else "narrow")
+    with pytest.raises(ValueError, match="CUDA"):
         t_int.accumulate(t, scatter)
 
 

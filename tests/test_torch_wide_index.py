@@ -1,12 +1,14 @@
 """The index forms of the fused frame's kernels K1, K2, K3 and K9
 (csrc/bake_radiance.cu, csrc/shadow_scatter.cu, csrc/integrate_blend.cu,
-csrc/bake_visibility.cu): each kernel refuses only what it indexes, K2, K3
-and K9 take a wide form (64-bit indices, the slices or rows launched in
-parts of at most 65535) past their narrow one, and K5, K6 and K7 keep
-refusing past 32 bits. The wrappers' form mirrors at their edges by
-arithmetic, the wrappers' arguments on meta tensors against the entry
-point each launches (the launch stubbed), and the parts of a launch-grid
-axis. Plain Python and torch on the CPU; no JAX."""
+csrc/bake_visibility.cu) and of the staged frame's K5, K6, K7 and K8
+(csrc/shadow_blend.cu, csrc/scatter.cu, csrc/dir_shadow.cu,
+csrc/integrate.cu): each kernel refuses only what it indexes, and K2, K3,
+K5, K6, K7, K8 and K9 take a wide form (64-bit indices, the slices or rows
+launched in parts of at most 65535) past their narrow one. The wrappers'
+form mirrors at their edges by arithmetic, the wrappers' arguments on meta
+tensors against the entry point each launches (the launch stubbed), and
+the parts of a launch-grid axis. Plain Python and torch on the CPU; no
+JAX."""
 
 import dataclasses
 
@@ -17,6 +19,7 @@ import volumetricrenderer_tpu_torch as vt
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops import dir_shadow as t_ds
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
+from volumetricrenderer_tpu_torch.ops import integrate as t_int
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
 from volumetricrenderer_tpu_torch.ops import visibility as t_vis
@@ -133,6 +136,97 @@ def test_k9_form_at_its_edges(tables, grid, n_lights, form):
     assert t_vis.k9_form(_with(tables, grid, n_lights=n_lights)) == form
 
 
+# (grid, suns, form): K5's and K7's histories / volumes [max(4, Nd), D, H,
+# W] at the largest size under 2^31 floats and at 2^31, 65535 and 65536
+# slices; the low volume is not theirs to index
+K5_K7_CASES = [
+    ((2048, 2047, 128), 1, "narrow"),   # 4 x 536,608,768 floats
+    ((2048, 2048, 128), 1, "wide"),     # 2^31
+    ((1024, 1024, 409), 5, "narrow"),   # 5 suns: 2,144,337,920
+    ((1024, 1024, 410), 5, "wide"),
+    ((240, 135, 128), 517, "narrow"),   # FULL_CONFIG: 517 suns' histories
+    ((240, 135, 128), 518, "wide"),     # 2,148,364,800 floats
+    ((8, 8, 65535), 1, "narrow"),
+    ((8, 8, 65536), 1, "wide"),
+]
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K7"])
+@pytest.mark.parametrize("grid,n_dir,form", K5_K7_CASES)
+def test_k5_k7_form_at_their_edges(tables, kernel, grid, n_dir, form):
+    """K5's and K7's narrow forms up to 2^31 - 1 floats of planes and 65535
+    slices, the wide forms past them; a low volume past 2^31 floats (512
+    lights' visibility at 2048 x 1024 x 128) does not move them."""
+    mirror = t_sb.k5_form if kernel == "K5" else t_ds.k7_form
+    assert mirror(_with(tables, grid, n_dir)) == form
+    big_low = _with(tables, (2048, 1024, 128), n_lights=512)
+    assert mirror(big_low) == "narrow"
+
+
+# (grid, suns, lights, local source, form): the planes and slices as K5's;
+# each local source's low channels (the radiance's 3 + n_noise, the baked
+# visibility's NL, the rays' none) and the per-light loops' schedule [D, NL]
+K6_CASES = [
+    ((2048, 2047, 128), 1, 4, RAD, "narrow"),
+    ((2048, 2048, 128), 1, 4, RAD, "wide"),
+    ((1024, 1024, 511), 4, 4, RAY, "narrow"),
+    ((1024, 1024, 512), 4, 4, RAY, "wide"),
+    ((1024, 1024, 409), 5, 4, BAKED, "narrow"),
+    ((1024, 1024, 410), 5, 4, BAKED, "wide"),
+    ((8, 8, 65535), 1, 4, BAKED, "narrow"),
+    ((8, 8, 65536), 1, 4, RAD, "wide"),
+    ((8, 8, 65536), 1, 4, RAY, "wide"),
+    ((8, 8, 65536), 1, 4, BAKED, "wide"),
+    ((2048, 1024, 128), 1, 511, BAKED, "narrow"),   # [511, 32, 256, 512]
+    ((2048, 1024, 128), 1, 512, BAKED, "wide"),     # 2^31 floats
+    ((2048, 1024, 128), 1, 512, RAD, "narrow"),
+    ((2048, 1024, 128), 1, 512, RAY, "narrow"),
+    ((240, 135, 128), 1, 32896, BAKED, "narrow"),   # FULL_CONFIG's low grid
+    ((240, 135, 128), 1, 32897, BAKED, "wide"),
+    ((16, 15, 65535), 1, 32768, RAY, "narrow"),     # the schedule [D, NL]
+    ((16, 15, 65535), 1, 32769, RAY, "wide"),
+    ((16, 15, 65535), 1, 32769, RAD, "narrow"),
+]
+
+
+@pytest.mark.parametrize("grid,n_dir,n_lights,local,form", K6_CASES)
+def test_k6_form_at_its_edges(tables, grid, n_dir, n_lights, local, form):
+    """K6's narrow form up to 2^31 - 1 floats of planes, of the low
+    channels its local source reads and of the per-light loops' schedule,
+    and 65535 slices; the wide form past them, in every local source."""
+    t = _with(tables, grid, n_dir, n_lights=n_lights)
+    assert t_sca.k6_form(t, local) == form
+    if local == RAD or n_lights <= 16:
+        assert t_sca.k6_form(t, local) == t_ff.k2_form(t, local)
+
+
+@pytest.mark.parametrize("grid,form", [
+    ((2048, 2047, 128), "narrow"), ((2048, 2048, 128), "wide"),   # 2^31
+    ((1024, 1024, 511), "narrow"), ((1024, 1024, 512), "wide"),
+    ((8, 8, 65536), "narrow"), ((16, 9, 65664), "narrow"),        # slices
+    ((1024, 1024, 520), "wide")])                                 # k8_wide
+def test_k8_form_at_its_edges(tables, grid, form):
+    """K8's narrow form up to 2^31 - 1 floats of [4, D, H, W] planes, the
+    wide form past them; its slices are a loop of each block and its tiles
+    a 1-D grid, so the slice count moves neither."""
+    assert t_int.k8_form(_with(tables, grid)) == form
+
+
+def test_check_tile_indices_is_the_slice_tiles_narrow_rule(tables):
+    """check_tile_indices, the rule K5 and K7 share, at K5's tile: the
+    narrow form where tile_planes_why finds nothing, the wide one past it,
+    nothing past 65535 row tiles."""
+    for grid, want in (((2048, 2047, 128), "narrow"),
+                       ((2048, 2048, 128), "wide"),
+                       ((8, 8, 65536), "wide")):
+        t = _with(tables, grid)
+        assert t_sca.check_tile_indices(t) == want
+        assert (t_sca.tile_planes_why(t) is None) == (want == "narrow")
+    t = _with(tables, (16, 16 * 65535 + 1, 1))
+    with pytest.raises(ValueError, match="K5's wide form.*row tiles"):
+        t_sca.check_tile_indices(t, "K5")
+
+
 def test_k1_bound_of_its_own(tables):
     """K1 writes its low volume at 64-bit offsets on a 1-D grid: planes,
     low volumes and slice counts that the other kernels' narrow forms
@@ -160,19 +254,26 @@ def test_grid_parts_cover_each_index_once(n):
 
 
 @pytest.mark.parametrize("grid", [(2048, 2048, 128), (8, 8, 65536)])
-def test_staged_kernels_still_refuse(tables, grid):
-    """K5, K6 and K7 keep their 32-bit predicate (check_tile_indices) and
-    refuse, naming the kernel, before any launch."""
+def test_staged_kernels_still_refuse(tables, grid, monkeypatch):
+    """K5, K6 and K7 forced into their narrow forms (32-bit indices: the
+    shared predicate check_tile_indices) still refuse these grids, naming
+    the kernel, before any launch; their size rules take the wide forms
+    there."""
+    calls = _stub_launch(monkeypatch)
     w, h, d = grid
     t = _with(tables, grid, meta=True)
     shadow = torch.empty((1, d, h, w), device="meta")
     bake = torch.empty((3 + t.n_noise,) + t.low_dims[::-1], device="meta")
-    for kernel, call in (("K5", lambda: t_sb.dir_shadow_blend(t, shadow)),
-                         ("K6", lambda: t_sca.scatter_local(t, shadow,
-                                                            bake)),
-                         ("K7", lambda: t_ds.dir_shadow(t))):
-        with pytest.raises(ValueError, match=f"{kernel}.*(2\\^31|65535)"):
-            call()
+    for kernel, call in (
+            ("K5", lambda f: t_sb.dir_shadow_blend(t, shadow, form=f)),
+            ("K6", lambda f: t_sca.scatter_local(t, shadow, bake, form=f)),
+            ("K7", lambda f: t_ds.dir_shadow(t, form=f))):
+        with pytest.raises(ValueError,
+                           match=f"{kernel}'s narrow form.*(2\\^31|65535)"):
+            call("narrow")
+    assert calls == []
+    assert t_sb.k5_form(t) == t_sca.k6_form(t, RAD) == t_ds.k7_form(t) \
+        == "wide"
 
 
 class _Library:
@@ -216,6 +317,23 @@ LAUNCH_CASES = [
     ("K9", (16, 15, 16), 4, "wide", 1),
     ("K1", (8, 8, 65536), 4, None, None),
     ("K1", (2048, 2048, 128), 300, None, None),
+    ("K5", (8, 8, 65536), 4, None, 1),
+    ("K5", (240, 135, 128), 4, None, 0),
+    ("K5", (16, 15, 16), 4, "wide", 1),
+    ("K6 radiance", (8, 8, 65536), 4, None, 1),
+    ("K6 radiance", (16, 15, 16), 4, None, 0),
+    ("K6 radiance", (16, 15, 16), 4, "wide", 1),
+    ("K6 rays", (2048, 2048, 128), 4, None, 1),
+    ("K6 baked", (240, 135, 128), 32897, None, 1),
+    ("K6 baked", (240, 135, 128), 16, None, 0),
+    ("K6 planes", (2048, 2048, 128), 4, None, 1),
+    ("K6 planes", (16, 15, 16), 4, "narrow", 0),
+    ("K7", (2048, 2048, 128), 4, None, 1),
+    ("K7", (16, 15, 16), 4, None, 0),
+    ("K7", (16, 15, 16), 4, "wide", 1),
+    ("K8", (1024, 1024, 520), 4, None, 1),
+    ("K8", (8, 8, 65536), 4, None, 0),
+    ("K8", (16, 15, 16), 4, "wide", 1),
 ]
 
 
@@ -234,8 +352,12 @@ def test_wrappers_launch_past_32_bits(tables, kernel, grid, n_lights,
     meta = lambda *s: torch.empty(s, device="meta")
     name, entry = {"K1": ("bake_radiance", "vr_bake_radiance"),
                    "K3": ("integrate_blend", "vr_integrate_blend_form"),
+                   "K5": ("shadow_blend", "vr_shadow_blend_form"),
+                   "K7": ("dir_shadow", "vr_dir_shadow_form"),
+                   "K8": ("integrate", "vr_integrate_form"),
                    "K9": ("bake_visibility", "vr_bake_visibility_form")}.get(
-        kernel, ("shadow_scatter", "vr_shadow_scatter_form"))
+        kernel, ("scatter", "vr_scatter_form") if kernel.startswith("K6")
+        else ("shadow_scatter", "vr_shadow_scatter_form"))
     if kernel == "K1":
         t_ff.bake_radiance(t)
     elif kernel == "K3":
@@ -243,13 +365,25 @@ def test_wrappers_launch_past_32_bits(tables, kernel, grid, n_lights,
                              form=forced)
     elif kernel == "K9":
         t_vis.bake_visibility(t, form=forced)
+    elif kernel == "K5":
+        t_sb.dir_shadow_blend(t, meta(1, d, h, w), form=forced)
+    elif kernel == "K7":
+        t_ds.dir_shadow(t, form=forced)
+    elif kernel == "K8":
+        t_int.accumulate(t, meta(4, d, h, w), form=forced)
+    elif kernel == "K6 planes":
+        t_sca.scatter_local(t, meta(1, d, h, w), meta(3, dl, hl, wl),
+                            material=(meta(4, d, h, w), meta(1, d, h, w)),
+                            form=forced)
     else:
-        low = {"K2 radiance": meta(3 + t.n_noise, dl, hl, wl),
-               "K2 baked": meta(n_lights, dl, hl, wl)}.get(kernel)
-        is_baked = kernel == "K2 baked"
-        t_ff.shadow_scatter(t, meta(1, d, h, w),
-                            None if is_baked else low,
-                            low if is_baked else None, form=forced)
+        source = kernel.split()[1]
+        low = {"radiance": meta(3 + t.n_noise, dl, hl, wl),
+               "baked": meta(n_lights, dl, hl, wl)}.get(source)
+        is_baked = source == "baked"
+        fn = t_sca.scatter_local if kernel.startswith("K6") \
+            else t_ff.shadow_scatter
+        fn(t, meta(1, d, h, w), None if is_baked else low,
+           low if is_baked else None, form=forced)
     (got_name, got_entry, args), = calls
     assert (got_name, got_entry or "vr_" + got_name) == (name, entry)
     assert len(args) + 1 == len(_declared(name, entry))
@@ -259,7 +393,9 @@ def test_wrappers_launch_past_32_bits(tables, kernel, grid, n_lights,
 
 @pytest.mark.parametrize("kernel,grid,n_lights", [
     ("K2", (8, 8, 65536), 4), ("K3", (8, 65536, 16), 4),
-    ("K9", (240, 135, 128), 32897)])
+    ("K9", (240, 135, 128), 32897), ("K5", (2048, 2048, 128), 4),
+    ("K6", (240, 135, 128), 32897), ("K6", (8, 8, 65536), 4),
+    ("K7", (8, 8, 65536), 4), ("K8", (2048, 2048, 128), 4)])
 def test_forced_narrow_form_past_its_edge_is_refused(tables, kernel, grid,
                                                      n_lights, monkeypatch):
     """Forcing the narrow form on tables past it raises ValueError, naming
@@ -277,6 +413,15 @@ def test_forced_narrow_form_past_its_edge_is_refused(tables, kernel, grid,
         elif kernel == "K3":
             t_ff.integrate_blend(t, meta(4, d, h, w), meta(4, d, h, w),
                                  form="narrow")
+        elif kernel == "K5":
+            t_sb.dir_shadow_blend(t, meta(1, d, h, w), form="narrow")
+        elif kernel == "K6":
+            t_sca.scatter_local(t, meta(1, d, h, w), None,
+                                meta(n_lights, dl, hl, wl), form="narrow")
+        elif kernel == "K7":
+            t_ds.dir_shadow(t, form="narrow")
+        elif kernel == "K8":
+            t_int.accumulate(t, meta(4, d, h, w), form="narrow")
         else:
             t_vis.bake_visibility(t, form="narrow")
     assert calls == []
@@ -303,4 +448,41 @@ def test_past_the_wide_forms_is_refused_before_the_launch(tables,
         t_vis.bake_visibility(_with(tables, n_lights=2 ** 27, meta=True))
     with pytest.raises(ValueError, match="K3: form 'huge'"):
         t_ff.k3_form(tables, "huge")
+    assert calls == []
+
+
+def test_staged_past_the_wide_forms_is_refused_before_the_launch(
+        tables, monkeypatch):
+    """What K5's, K6's, K7's or K8's wide form cannot index is refused by
+    the kernel's name before any launch: K5 and K7 past 65535 tiles of 16
+    rows, K6's baked tiles past 65535 tiles of 8 rows, its runs past a
+    slice of 2^31 froxels, its lights table of 2^31 floats, K8 past 2^31 -
+    1 tiles of its 1-D grid."""
+    calls = _stub_launch(monkeypatch)
+    meta = lambda *s: torch.empty(s, device="meta")
+    t = _with(tables, (16, 16 * 65535 + 1, 1), meta=True)
+    wl, hl, dl = t.low_dims
+    shadow = meta(1, 1, 16 * 65535 + 1, 16)
+    with pytest.raises(ValueError, match="K5's wide form.*row tiles.*65535"):
+        t_sb.dir_shadow_blend(t, shadow)
+    with pytest.raises(ValueError, match="K7's wide form.*row tiles.*65535"):
+        t_ds.dir_shadow(t)
+    assert t_sca.k6_form(t, RAD) == "narrow"    # runs: no row tiles
+    t = _with(tables, (16, 8 * 65535 + 1, 1), n_lights=4, meta=True)
+    wl, hl, dl = t.low_dims
+    with pytest.raises(ValueError, match="K6's wide form.*row tiles.*65535"):
+        t_sca.scatter_local(t, meta(1, 1, 8 * 65535 + 1, 16), None,
+                            meta(4, dl, hl, wl))
+    t = _with(tables, (2 ** 16, 2 ** 15, 1), meta=True)
+    wl, hl, dl = t.low_dims
+    with pytest.raises(ValueError, match="K6's wide form.*froxels.*2\\^31"):
+        t_sca.scatter_local(t, meta(1, 1, 2 ** 15, 2 ** 16),
+                            meta(3 + t.n_noise, dl, hl, wl))
+    with pytest.raises(ValueError, match="K6's wide form.*lights table"):
+        t_sca.k6_form(_with(tables, n_lights=2 ** 27), RAY)
+    t = _with(tables, (2 ** 30, 2 ** 8, 1), meta=True)    # 2^33 tiles
+    with pytest.raises(ValueError, match="K8's wide form.*tiles.*2\\^31"):
+        t_int.accumulate(t, meta(4, 1, 2 ** 8, 2 ** 30))
+    with pytest.raises(ValueError, match="K6: form 'huge'"):
+        t_sca.k6_form(tables, RAD, "huge")
     assert calls == []

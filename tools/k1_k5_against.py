@@ -23,7 +23,8 @@ both kernels' times, CUDA-event means of 20 launches behind a device-side
 spin, in the order other, this, this, other. Prints the card's name and
 power limit first and a JSON line of the rows last. Exits non-zero on a
 disagreement or without a GPU. The other checkouts' kernels take the same
-VrTables and entry points (vr_bake_radiance, vr_shadow_blend).
+VrTables and entry points (vr_bake_radiance; vr_shadow_blend, or
+vr_shadow_blend_form in the size rule's form: k3_k4_against.rule_entry).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from k3_k4_against import spin_time_ms  # noqa: E402
+from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
 
 SOURCES = ("bake_radiance", "shadow_blend")
 
@@ -68,7 +69,8 @@ def build_other(other: Path, out: Path, cuda) -> dict:
     vp = ctypes.c_void_p
     tp = ctypes.POINTER(cuda.VrTables)
     libs["bake_radiance"].vr_bake_radiance.argtypes = [tp, vp, vp]
-    libs["shadow_blend"].vr_shadow_blend.argtypes = [tp, vp, vp, vp]
+    libs["shadow_blend"].vr_shadow_blend = rule_entry(
+        libs["shadow_blend"], "shadow_blend", [tp, vp, vp, vp])
     return libs
 
 

@@ -25,8 +25,9 @@ both kernels' times, CUDA-event means of 20 launches behind a device-side
 spin, in the order other, this, this, other. Prints the card's name and
 power limit first and a JSON line of the rows last. Exits non-zero on a
 disagreement or without a GPU. The other checkouts' kernels take the same
-VrTables and entry points (vr_shadow_scatter, or vr_shadow_scatter_form in
-the size rule's form: k3_k4_against.rule_entry; vr_scatter).
+VrTables and entry points (vr_shadow_scatter and vr_scatter, or
+vr_shadow_scatter_form and vr_scatter_form in the size rule's form:
+k3_k4_against.rule_entry).
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def build_other(other: Path, out: Path, cuda) -> dict:
     libs["shadow_scatter"].vr_shadow_scatter = rule_entry(
         libs["shadow_scatter"], "shadow_scatter",
         [tp, vp, vp, vp, vp, ci, vp])
-    libs["scatter"].vr_scatter.argtypes = [tp, vp, vp, vp, vp, vp, ci, vp]
+    libs["scatter"].vr_scatter = rule_entry(
+        libs["scatter"], "scatter", [tp, vp, vp, vp, vp, vp, ci, vp])
     return libs
 
 

@@ -53,8 +53,9 @@ def rule_entry(lib, name: str, argtypes: list):
     """Kernel `name`'s launch in the size rule's form through another
     tree's library `lib`, with the arguments of its `vr_<name>` entry
     (argtypes, the stream last): a tree with one form-taking entry point
-    `vr_<name>_form` (K2, K3 and K9 since their wide forms) is called there
-    with the form -1 before the stream, an older tree at `vr_<name>`."""
+    `vr_<name>_form` (K2, K3 and K9 since their wide forms, K5, K6, K7 and
+    K8 since theirs) is called there with the form -1 before the stream, an
+    older tree at `vr_<name>`."""
     form = getattr(lib, f"vr_{name}_form", None)
     if form is None:
         old = getattr(lib, f"vr_{name}")

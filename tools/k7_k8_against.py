@@ -27,7 +27,10 @@ tree's K7 and K8 and with each other checkout's swapped in, in the order
 this, other, other, this. Prints the card's name and power limit first and
 a JSON line of the rows last. Exits non-zero on a disagreement or without a
 GPU. The other checkouts' kernels take the same arguments (vr_dir_shadow,
-vr_integrate).
+vr_integrate, or vr_dir_shadow_form and vr_integrate_form in the size
+rule's form: k3_k4_against.rule_entry; a tree from before those has its
+narrow form alone, which this tree's wrappers reach when its library is
+swapped in).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from k10_k11_against import busy_ms  # noqa: E402
-from k3_k4_against import spin_time_ms  # noqa: E402
+from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
 
 SOURCES = ("dir_shadow", "integrate")
 DEMO_GRID = dict(volume_width=160, volume_height=88, volume_depth=64)
@@ -63,11 +66,18 @@ ROWS = {"no_shadow_blend": ("no_shadow_blend", {}, "dir_shadow"),
 
 def declare(libs: dict) -> dict:
     """The launch entry points' argument types, as ops/cuda declares them."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["dir_shadow"].vr_dir_shadow.argtypes = [vp, vp, vp]
-    libs["integrate"].vr_integrate.argtypes = [vp, vp, vp, vp]
-    libs["dir_shadow"].vr_dir_shadow.restype = ci
-    libs["integrate"].vr_integrate.restype = ci
+    vp = ctypes.c_void_p
+    for name, argtypes in (("dir_shadow", [vp, vp, vp]),
+                           ("integrate", [vp, vp, vp, vp])):
+        lib = libs[name]
+        setattr(lib, f"vr_{name}", rule_entry(lib, name, argtypes))
+        if getattr(lib, f"vr_{name}_form", None) is None:
+            # this tree's wrappers, with the library swapped in, launch the
+            # form-taking entry: a tree from before it has the narrow form
+            old = getattr(lib, f"vr_{name}")
+            setattr(lib, f"vr_{name}_form",
+                    lambda *a, old=old: old(*a[:-2], a[-1])
+                    if a[-2] <= 0 else 1)
     return libs
 
 

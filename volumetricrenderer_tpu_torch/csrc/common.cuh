@@ -694,7 +694,8 @@ __device__ __forceinline__ void warp8_by(const float* prev, I cstride,
 // full froxel (z, y, x), split so that a froxel computes its taps once for
 // every channel it reads: the slice terms (low_slice, constants of a slice
 // tile), then the column's and the row's tent taps (low_taps). I: the
-// index type of the offsets (int64_t in K2's wide form, int elsewhere).
+// index type of the offsets (int64_t in K2's and K6's wide forms, int
+// elsewhere).
 template <class I = int>
 struct LowSliceT {
   I sa, sb;  // offsets of the low slices ka, kb = min(ka + 1, DL - 1)
@@ -921,9 +922,9 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 // Every value is the thread-per-froxel form's (sun_shadow, then warp8_by
 // over the reprojection offsets at each tap, as temporal_blend.cu's weight
 // mode blends), from the same operations in the same order. I: the index
-// type of the [Nd, D, H, W] planes (int, or int64_t in K2's wide form,
-// whose launcher also runs the slices in parts of at most VR_MAX_GRID_Z:
-// the block's slice is blockIdx.z + z0).
+// type of the [Nd, D, H, W] planes (int, or int64_t in K2's and K5's wide
+// forms, whose launchers also run the slices in parts of at most
+// VR_MAX_GRID_Z: the block's slice is blockIdx.z + z0).
 // K10 (temporal_blend.cu region_offsets) runs steps 1b and 2 on its own
 // blend table in a copy of this loop: a routine shared by the three
 // kernels made K5 2% slower at the same registers and spills, so
@@ -1060,25 +1061,13 @@ __device__ __forceinline__ void tile_blend(
   }
 }
 
-// Whether an index of K5's, K6's or K7's arrays could pass 2^31 - 1: the
-// [max(4, Nd), D, H, W] planes and the low volume's channels, or the grid
-// pass VR_MAX_GRID_Z slices. These slice tiles index in 32 bits and their
-// launchers refuse such tables (mirrored by ops/scatter.check_tile_indices).
-// K1, K2, K3 and K9 have predicates of their own over the arrays each
-// indexes (their launchers), and K2, K3 and K9 a wide form past them.
-inline bool past_int_index(const VrTables& T) {
-  const long n = (long)T.w * T.h * T.d;
-  const long lplane = (long)T.wl * T.hl * T.dl;
-  const long chans = 3 + T.n_noise > T.n_lights ? 3 + T.n_noise : T.n_lights;
-  return (T.n_dir > 4 ? T.n_dir : 4) * n > 2147483647L
-         || chans * lplane > 2147483647L || T.d > VR_MAX_GRID_Z;
-}
-
-// The index forms of K2, K3 and K9 (mirrored by ops/cuda.INDEX_FORMS): the
-// narrow form indexes in 32 bits and puts its slices (K3: its rows) on one
-// launch-grid axis; the wide form is the same kernel on int64_t indices,
-// launched in parts of at most VR_MAX_GRID_Z slices (rows). A launcher
-// takes the narrow form wherever it fits, or the form it is given.
+// The index forms of K2, K3, K5, K6, K7, K8 and K9 (mirrored by
+// ops/cuda.INDEX_FORMS): the narrow form indexes in 32 bits and puts its
+// slices (K3: its rows) on one launch-grid axis; the wide form is the same
+// kernel on int64_t indices, launched in parts of at most VR_MAX_GRID_Z
+// slices (rows). K8 and K9 run 1-D grids: their wide forms are one launch.
+// A launcher takes the narrow form wherever it fits, or the form it is
+// given. K1 has a bound of its own (bake_radiance.cu k1_fits).
 #define VR_FORM_RULE -1
 #define VR_FORM_NARROW 0
 #define VR_FORM_WIDE 1
@@ -1093,6 +1082,23 @@ inline int grid_part_count(int n) {
 // more: past a 32-bit index.
 inline bool past_int(long n, long width) {
   return n * width > 2147483647L;
+}
+
+// What the narrow forms of the slice tiles K5, K6 and K7 share (mirrored
+// by ops/scatter.tile_planes_why): the [max(4, Nd), D, H, W] planes
+// (the histories, the shadow volume, the scatter and material planes)
+// under 2^31 floats, on at most VR_MAX_GRID_Z slices (a slice a launch-grid
+// z index). K6 adds the low channels and the schedule it reads.
+inline bool tile_planes_fit(const VrTables& T) {
+  const long n = (long)T.w * T.h * T.d;
+  return !past_int(T.n_dir > 4 ? T.n_dir : 4, n) && T.d <= VR_MAX_GRID_Z;
+}
+
+// What every form of K5 and K7 (tiles of ty rows) needs (mirrored by
+// ops/scatter.check_tile_indices): at most VR_MAX_GRID_Z row tiles on the
+// launch grid's y axis, the suns' table [Nd, 8] under 2^31 floats.
+inline bool tile_rows_fit(const VrTables& T, int ty) {
+  return (T.h + ty - 1) / ty <= VR_MAX_GRID_Z && !past_int(T.n_dir, 8);
 }
 
 // ---- scatter.py: the per-froxel in-scatter ---------------------------------
@@ -1123,7 +1129,7 @@ inline bool past_int(long n, long width) {
 // upsampled where the material reads it, where the fixed form upsamples
 // its VR_MAX_NOISE channels into an array first: the same values. I: the
 // index type of the planes, the low volume and the schedule (int64_t in
-// K2's wide form, int elsewhere), deduced from i and n.
+// K2's and K6's wide forms, int elsewhere), deduced from i and n.
 template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false,
           class SunAt, class I>
 __device__ void scatter_froxel(const VrTables& T, const LowSliceT<I>& low_s,

@@ -23,9 +23,18 @@
 // the world position and three for each ray's inverse, with a 64-bit index
 // split by division. Every value is that form's, from the same expressions
 // in the same order, so the volume is bit for bit the same and K7 then
-// K10's weight mode still gives K5's volume. Indices are 32-bit: the
-// launcher refuses tables past common.cuh past_int_index (the wrapper
-// first, ops/scatter.check_tile_indices).
+// K10's weight mode still gives K5's volume.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/dir_shadow.k7_form):
+// the narrow form indexes in 32 bits and puts a slice on each launch-grid
+// z index; it takes every table whose [max(4, Nd), D, H, W] planes hold
+// under 2^31 floats, on at most VR_MAX_GRID_Z slices (common.cuh
+// tile_planes_fit). Past that the wide form (I = int64_t): the index and
+// every product of a plane by its stride in 64 bits, the slices launched in
+// parts of at most VR_MAX_GRID_Z (the block's slice is blockIdx.z + z0).
+// A froxel's output depends on its own position alone, so the parts are
+// independent, and the wide form gives the narrow one's values bit for
+// bit.
 //
 // Bound on the H100: operations. Bytes: one write of 16.6 MB at
 // 240x135x128 and one sun, ~5 us at 3.35 TB/s. Work: a 7-primitive ray a
@@ -52,14 +61,17 @@ struct K7Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS, bool GEN = false>
+template <bool ARMS, bool GEN = false, class I = int>
 __global__ void __launch_bounds__(K7Tile::X * K7Tile::Y, K7Tile::MIN_BLOCKS)
-dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
+dir_shadow_kernel(VrTables T, float* __restrict__ out_sh, int z_part) {
   constexpr int TX = K7Tile::X, TY = K7Tile::Y, NT = TX * TY;
   __shared__ TileTerms<TX, TY> S;
   const float* sun_inv = nullptr;  // GEN: the suns' inverse directions
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY, z = blockIdx.z;
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  const int z0 = sizeof(I) > sizeof(int) ? z_part : 0;
+  const int xt = blockIdx.x * TX, yt = blockIdx.y * TY, z = blockIdx.z + z0;
   // 1. the slice's jittered view depth (item 0) and the inverse direction
   // of each sun's shadow ray (items 1 .. n_dir), as tile_scalars computes
   // them, on the first lanes of as many warps (GEN: item 0, then
@@ -92,16 +104,18 @@ dir_shadow_kernel(VrTables T, float* __restrict__ out_sh) {
   // 3. dir_shadow_slice: the jittered world position, one ray per sun
   float wx, wy, wz;
   view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
-  const int n = T.d * T.h * T.w;
-  const int i = (z * T.h + y) * T.w + x;
+  const I n = (I)T.d * T.h * T.w;
+  const I i = ((I)z * T.h + y) * T.w + x;
   for (int li = 0; li < T.n_dir; ++li)
     out_sh[li * n + i] = sun_shadow<ARMS, true>(
         T, li, wx, wy, wz, GEN ? sun_inv + 3 * li : S.sun_inv[li]);
 }
 
-// Launches of the fixed (0) and general (1) forms since the library was
-// loaded (vr_dir_shadow_forms).
+// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
+// and wide (1) index forms, since the library was loaded
+// (vr_dir_shadow_forms, vr_dir_shadow_index_forms).
 static long g_forms[2];
+static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch with n_dir suns: none in the fixed
 // form, the suns' inverse directions in the general one.
@@ -109,37 +123,92 @@ static int k7_shared(bool gen, int n_dir) {
   return gen ? sun_inv_floats(n_dir) * (int)sizeof(float) : 0;
 }
 
-template <bool ARMS, bool GEN>
+// Whether the wide form takes the table (mirrored by
+// ops/dir_shadow.k7_form): common.cuh tile_rows_fit.
+static bool k7_wide_fits(const VrTables& T) {
+  return tile_rows_fit(T, K7Tile::Y);
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// planes and slices of common.cuh tile_planes_fit.
+static bool k7_narrow_fits(const VrTables& T) {
+  return k7_wide_fits(T) && tile_planes_fit(T);
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k7_form(const VrTables& T) {
+  if (k7_narrow_fits(T)) return VR_FORM_NARROW;
+  return k7_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <bool ARMS, bool GEN, class I>
 static int launch_tile(const VrTables* T, float* out_sh,
                        cudaStream_t stream) {
   constexpr int TX = K7Tile::X, TY = K7Tile::Y;
-  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = dir_shadow_kernel<ARMS, GEN, I>;
   const int shared = k7_shared(GEN, T->n_dir);
   if (shared > 48 * 1024) {  // many suns
     const cudaError_t err = cudaFuncSetAttribute(
-        dir_shadow_kernel<ARMS, GEN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  dir_shadow_kernel<ARMS, GEN><<<grid, dim3(TX, TY), shared, stream>>>(
-      *T, out_sh);
+  dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, 0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, T->d - z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, z0);
+    }
+  }
   ++g_forms[GEN];
+  ++g_index_forms[WIDE];
   return 0;
 }
 
-template <bool ARMS>
+template <bool ARMS, class I>
 static int launch_form(const VrTables* T, float* out_sh,
                        cudaStream_t stream) {
-  return general_suns(*T) ? launch_tile<ARMS, true>(T, out_sh, stream)
-                          : launch_tile<ARMS, false>(T, out_sh, stream);
+  return general_suns(*T) ? launch_tile<ARMS, true, I>(T, out_sh, stream)
+                          : launch_tile<ARMS, false, I>(T, out_sh, stream);
 }
 
-extern "C" int vr_dir_shadow(const VrTables* T, float* out_sh,
-                             cudaStream_t stream) {
-  if (past_int_index(*T)) return (int)cudaErrorInvalidValue;
-  const int err = needs_arms(*T) ? launch_form<true>(T, out_sh, stream)
-                                 : launch_form<false>(T, out_sh, stream);
+template <class I>
+static int launch_arms(const VrTables* T, float* out_sh,
+                       cudaStream_t stream) {
+  return needs_arms(*T) ? launch_form<true, I>(T, out_sh, stream)
+                        : launch_form<false, I>(T, out_sh, stream);
+}
+
+// form: VR_FORM_RULE (the size rule's, k7_form), or the narrow or the wide
+// form, refused where it does not take the table.
+extern "C" int vr_dir_shadow_form(const VrTables* T, float* out_sh, int form,
+                                  cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k7_form(*T);
+  const bool fits = form == VR_FORM_NARROW ? k7_narrow_fits(*T)
+                    : form == VR_FORM_WIDE ? k7_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err = form == VR_FORM_WIDE
+                      ? launch_arms<int64_t>(T, out_sh, stream)
+                      : launch_arms<int>(T, out_sh, stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for the table into out[0] (-1: past the wide form
+// too) and its launch's slice parts into out[1].
+extern "C" int vr_dir_shadow_form_of(const VrTables* T, int* out) {
+  out[0] = k7_form(*T);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(T->d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_dir_shadow_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The launches of the fixed and the general form so far into out[0..1].
@@ -163,15 +232,15 @@ extern "C" int vr_dir_shadow_geometry(int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the four kernels, the fixed forms then the
-// general ones, ARMS false then true: registers per thread, static shared
-// bytes per block, local bytes per thread and largest block into
-// out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS, bool GEN = false>
+// cudaFuncGetAttributes of the eight kernels: the fixed forms then the
+// general ones, ARMS false then true, narrow; then the same four wide:
+// registers per thread, static shared bytes per block, local bytes per
+// thread and largest block into out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false, class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)dir_shadow_kernel<ARMS, GEN>);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, (const void*)dir_shadow_kernel<ARMS, GEN, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -180,9 +249,13 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_dir_shadow_attrs(int* out) {
-  const cudaError_t errs[4] = {attrs_of<false>(out), attrs_of<true>(out + 4),
-                               attrs_of<false, true>(out + 8),
-                               attrs_of<true, true>(out + 12)};
+  const cudaError_t errs[8] = {
+      attrs_of<false>(out), attrs_of<true>(out + 4),
+      attrs_of<false, true>(out + 8), attrs_of<true, true>(out + 12),
+      attrs_of<false, false, int64_t>(out + 16),
+      attrs_of<true, false, int64_t>(out + 20),
+      attrs_of<false, true, int64_t>(out + 24),
+      attrs_of<true, true, int64_t>(out + 28)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -36,9 +36,16 @@
 // computed slice_dz's two exps and divisions for every column, and each
 // slice waited on its own 36 loads. Every per-froxel float operation is that
 // form's, in its order, so the result is bit for bit that form's and its
-// twin's (ops/integrate.accumulate_plain, within CHECKS). Indices are
-// 32-bit: the launcher refuses planes past 2^31 floats (the wrapper first,
-// ops/integrate.check_indices); the tiles run along a 1-D grid.
+// twin's (ops/integrate.accumulate_plain, within CHECKS).
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/integrate.k8_form):
+// the narrow form indexes the [4, D, H, W] planes in 32 bits and takes
+// every table whose planes hold under 2^31 floats (k8_narrow_fits). Past
+// that the wide form, the same kernel on int64_t indices (the plane
+// strides and every froxel offset of xy_blend4 and chunk_store). The tiles
+// run along a 1-D grid and the slices are a loop of each block, so neither
+// form has a slice limit and the wide form is one launch; it gives the
+// narrow one's values bit for bit.
 //
 // Bound on the H100: bytes. Read the scatter planes and write the
 // accumulation, 2 x 66 MB at 240x135x128, ~40 us at 3.35 TB/s; the work is
@@ -85,9 +92,9 @@ __device__ __forceinline__ void producers_barrier() {
 // blend of slices z0 .. z0 + nz (past the top: slice d - 1 itself) into
 // xyb, each slice's thickness into dz_s; bar(), the barrier of the NP
 // threads; then each slice's sample and its terms into tb.
-template <int NP, class Bar>
+template <int NP, class Bar, class I>
 __device__ __forceinline__ void chunk_terms(
-    const VrTables& T, const float* __restrict__ sc, int n, int y, int xs,
+    const VrTables& T, const float* __restrict__ sc, I n, int y, int xs,
     int p, int z0, int nz, float* xyb, float* dz_s, float* tb,
     const Bar& bar) {
   constexpr int C = K8Tile::C, ZC = K8Tile::ZC, PASS = NP / C;
@@ -120,9 +127,10 @@ __device__ __forceinline__ void chunk_terms(
 
 // Phase 3: the carries (L_r, L_g, L_b, T) of the chunk of nz slices from
 // z0 in tb, stored by NP threads from rank p, a row of X columns at a time,
-// of the tile at (xt, yt).
+// of the tile at (xt, yt); I the index type of the planes (n floats each).
+template <class I>
 __device__ __forceinline__ void chunk_store(const float* tb,
-                                            float* __restrict__ out, int n,
+                                            float* __restrict__ out, I n,
                                             int w, int h, int xt, int yt,
                                             int z0, int nz, int p, int np) {
   constexpr int X = K8Tile::X, C = K8Tile::C, ZC = K8Tile::ZC;
@@ -132,11 +140,13 @@ __device__ __forceinline__ void chunk_store(const float* tb,
     for (int r = p; r < nz * C; r += np) {
       const int k = r / C, lc = r - k * C;
       const int x = xt + lc % X, y = yt + lc / X;
-      if (x < w && y < h) out[c * n + ((z0 + k) * h + y) * w + x] = src[r];
+      if (x < w && y < h)
+        out[c * n + ((I)(z0 + k) * h + y) * w + x] = src[r];
     }
   }
 }
 
+template <class I = int>
 __global__ void __launch_bounds__(K8Tile::THREADS, K8Tile::MIN_BLOCKS)
 integrate_kernel(VrTables T, const float* __restrict__ sc,
                  float* __restrict__ out_acc) {
@@ -154,7 +164,7 @@ integrate_kernel(VrTables T, const float* __restrict__ sc,
   const int tid = threadIdx.x, lc = tid % C;
   // past the grid's edge: a copy of its last column or row
   const int xs = min(xt + lc % X, w - 1), y = min(yt + lc / X, h - 1);
-  const int n = d * h * w;
+  const I n = (I)d * h * w;
   const int chunks = (d + ZC - 1) / ZC;
 
   // chunk 0's terms, by every thread
@@ -203,22 +213,78 @@ integrate_kernel(VrTables T, const float* __restrict__ sc,
               z0, d - z0, tid, NT);
 }
 
-extern "C" int vr_integrate(const VrTables* T, const float* sc,
-                            float* out_acc, cudaStream_t stream) {
-  if ((long)T->w * T->h * T->d * 4 > INT_MAX)  // past 32-bit indices
-    return (int)cudaErrorInvalidValue;
-  const long blocks = (long)((T->w + K8Tile::X - 1) / K8Tile::X)
-                      * ((T->h + K8Tile::Y - 1) / K8Tile::Y);
+// Launches of the narrow (0) and wide (1) forms since the library was
+// loaded (vr_integrate_index_forms).
+static long g_index_forms[2];
+
+// The tiles of the 1-D launch grid.
+static long k8_blocks(const VrTables& T) {
+  return (long)((T.w + K8Tile::X - 1) / K8Tile::X)
+         * ((T.h + K8Tile::Y - 1) / K8Tile::Y);
+}
+
+// Whether the wide form takes the table (mirrored by
+// ops/integrate.k8_form): a launch grid of at most 2^31 - 1 tiles.
+static bool k8_wide_fits(const VrTables& T) {
+  return k8_blocks(T) <= INT_MAX;
+}
+
+// Whether the narrow form takes it: the [4, D, H, W] planes under 2^31
+// floats (and so the grid too).
+static bool k8_narrow_fits(const VrTables& T) {
+  return !past_int(4, (long)T.w * T.h * T.d) && k8_wide_fits(T);
+}
+
+static int k8_form(const VrTables& T) {
+  if (k8_narrow_fits(T)) return VR_FORM_NARROW;
+  return k8_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <class I>
+static int launch_form(const VrTables* T, const float* sc, float* out_acc,
+                       cudaStream_t stream) {
+  const auto kernel = integrate_kernel<I>;
   const int shared = k8_shared_floats() * (int)sizeof(float);
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  integrate_kernel<<<(unsigned)blocks, K8Tile::THREADS, shared, stream>>>(
+  kernel<<<(unsigned)k8_blocks(*T), K8Tile::THREADS, shared, stream>>>(
       *T, sc, out_acc);
-  return (int)cudaGetLastError();
+  ++g_index_forms[sizeof(I) > sizeof(int)];
+  return 0;
+}
+
+// form: VR_FORM_RULE (the size rule's, k8_form), or the narrow or the wide
+// form, refused where it does not take the table.
+extern "C" int vr_integrate_form(const VrTables* T, const float* sc,
+                                 float* out_acc, int form,
+                                 cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k8_form(*T);
+  const bool fits = form == VR_FORM_NARROW ? k8_narrow_fits(*T)
+                    : form == VR_FORM_WIDE ? k8_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err = form == VR_FORM_WIDE
+                      ? launch_form<int64_t>(T, sc, out_acc, stream)
+                      : launch_form<int>(T, sc, out_acc, stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for the table into out[0] (-1: past the wide form
+// too) and its launch's parts into out[1] (one: a 1-D grid).
+extern "C" int vr_integrate_form_of(const VrTables* T, int* out) {
+  out[0] = k8_form(*T);
+  out[1] = 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_integrate_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The tile's columns and rows, slices per chunk, threads and dynamic
@@ -232,17 +298,25 @@ extern "C" int vr_integrate_geometry(int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the kernel: registers per thread, static shared
-// bytes per block, local bytes per thread and largest block into out[0..3];
-// returns the error.
-extern "C" int vr_integrate_attrs(int* out) {
+// cudaFuncGetAttributes of the narrow then the wide kernel: registers per
+// thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <class I>
+static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)integrate_kernel);
-  if (err != cudaSuccess) return (int)err;
+      cudaFuncGetAttributes(&a, (const void*)integrate_kernel<I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
   out[3] = a.maxThreadsPerBlock;
+  return err;
+}
+
+extern "C" int vr_integrate_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<int>(out),
+                               attrs_of<int64_t>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
   return 0;
 }

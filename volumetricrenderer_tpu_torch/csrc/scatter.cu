@@ -65,6 +65,20 @@
 // and upsamples each fBm factor where the material reads it: the same
 // values, so the general forms are bit for bit the fixed ones; a frame
 // within the fixed counts keeps its fixed form.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/scatter.k6_form): the
+// narrow form indexes in 32 bits and puts a slice on each launch-grid z
+// index; it takes every table whose [max(4, Nd), D, H, W] planes (the
+// shadow volume, the scatter planes, the material volumes), the low
+// channels its local source reads and, in the per-light loops, the light
+// schedule [D, NL] hold under 2^31 floats, on at most VR_MAX_GRID_Z slices
+// (k6_narrow_fits). Past that the wide form (I = int64_t): every index and
+// every product of a plane or a low channel by its stride in 64 bits
+// (common.cuh scatter_froxel, low_slice, low_taps), the slices launched in
+// parts of at most VR_MAX_GRID_Z (the block's slice is blockIdx.z + z0). A
+// froxel's outputs depend on its own inputs alone, so the parts are
+// independent, and the wide form gives the narrow one's values bit for
+// bit. The GEN forms take both index forms: 32 kernels.
 #include "common.cuh"
 
 // The block of each local source: a tile of X columns x Y rows, or (Y = 0)
@@ -86,17 +100,20 @@ struct K6Tile<VR_LOCAL_RAY> {
 };
 
 template <int LOCAL, bool MAT_PLANES, bool ARMS, int TX, int TY,
-          bool GEN = false>
+          bool GEN = false, class I = int>
 __global__ void __launch_bounds__(TY ? TX * TY : TX)
 scatter_kernel(VrTables T, const float* __restrict__ shadow,
                const float* __restrict__ low,
                const float* __restrict__ mat_a,
-               const float* __restrict__ mat_b, float* __restrict__ out_sc) {
+               const float* __restrict__ mat_b, float* __restrict__ out_sc,
+               int z_part) {
   constexpr int NT = TY ? TX * TY : TX;
-  __shared__ TileTerms<TX, TY ? TY : 1> S;
+  __shared__ TileTerms<TX, TY ? TY : 1, I> S;
   const int w = T.w, h = T.h, d = T.d;
   const int tid = threadIdx.y * TX + threadIdx.x;
-  const int z = blockIdx.z;
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  const int z = blockIdx.z + (sizeof(I) > sizeof(int) ? z_part : 0);
   tile_scalars<false, NT>(T, z, tid, S);
   __syncthreads();
   int x, y;
@@ -128,8 +145,8 @@ scatter_kernel(VrTables T, const float* __restrict__ shadow,
                          T.h_glob),
                S.vz_c, cwx, cwy, cwz);
   }
-  const int n = d * h * w;
-  const int i = (z * h + y) * w + x;
+  const I n = (I)d * h * w;
+  const I i = ((I)z * h + y) * w + x;
   float sc[4];
   if constexpr (GEN) {
     const auto sun_at = [&](int li) { return __ldg(shadow + li * n + i); };
@@ -149,38 +166,95 @@ scatter_kernel(VrTables T, const float* __restrict__ shadow,
   for (int c = 0; c < (MAT_PLANES ? 3 : 4); ++c) out_sc[c * n + i] = sc[c];
 }
 
-// Launches of the fixed (0) and general (1) forms since the library was
-// loaded (vr_scatter_forms).
+// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
+// and wide (1) index forms, since the library was loaded (vr_scatter_forms,
+// vr_scatter_index_forms).
 static long g_forms[2];
+static long g_index_forms[2];
 
-template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN>
+// The launch grid's blocks of local source LOCAL: a tile's rows on its y
+// axis, or a run's froxels (an int index: y * w + x) on its x axis.
+template <int LOCAL>
+static bool k6_grid_fits(const VrTables& T) {
+  constexpr int TY = K6Tile<LOCAL>::Y;
+  return TY ? (T.h + TY - 1) / TY <= VR_MAX_GRID_Z : !past_int(T.w, T.h);
+}
+
+// Whether the wide form takes the table (mirrored by ops/scatter.k6_form):
+// the launch grid of the local source's block (k6_grid_fits), and the
+// suns' and lights' tables, which either form indexes in 32 bits, under
+// 2^31 floats.
+static bool k6_wide_fits(const VrTables& T, int local) {
+  const bool grid = local == VR_LOCAL_RADIANCE
+                        ? k6_grid_fits<VR_LOCAL_RADIANCE>(T)
+                    : local == VR_LOCAL_RAY ? k6_grid_fits<VR_LOCAL_RAY>(T)
+                                            : k6_grid_fits<VR_LOCAL_BAKED>(T);
+  return grid && !past_int(T.n_dir, 8) && !past_int(T.n_lights, 16);
+}
+
+// The low channels that local source `local` reads: the radiance (+ fBm),
+// the visibility of every light, or none (the rays).
+static long k6_low_channels(const VrTables& T, int local) {
+  if (local == VR_LOCAL_RADIANCE) return 3 + T.n_noise;
+  return local == VR_LOCAL_BAKED ? T.n_lights : 0;
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// planes and slices of common.cuh tile_planes_fit, the low channels its
+// local source reads and the light schedule [D, NL] (the per-light loops)
+// under 2^31 floats.
+static bool k6_narrow_fits(const VrTables& T, int local) {
+  const long lplane = (long)T.wl * T.hl * T.dl;
+  return k6_wide_fits(T, local) && tile_planes_fit(T)
+         && !past_int(k6_low_channels(T, local), lplane)
+         && !(local != VR_LOCAL_RADIANCE && past_int(T.d, T.n_lights));
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k6_form(const VrTables& T, int local) {
+  if (k6_narrow_fits(T, local)) return VR_FORM_NARROW;
+  return k6_wide_fits(T, local) ? VR_FORM_WIDE : -1;
+}
+
+template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN, class I>
 static void launch_form(const VrTables* T, const float* shadow,
                         const float* low, const float* mat_a,
                         const float* mat_b, float* out_sc,
                         cudaStream_t stream) {
   constexpr int TX = K6Tile<LOCAL>::X, TY = K6Tile<LOCAL>::Y;
-  const dim3 grid(TY ? (T->w + TX - 1) / TX : (T->w * T->h + TX - 1) / TX,
-                  TY ? (T->h + TY - 1) / TY : 1, T->d);
-  scatter_kernel<LOCAL, MAT_PLANES, ARMS, TX, TY, GEN>
-      <<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(*T, shadow, low, mat_a,
-                                                   mat_b, out_sc);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = scatter_kernel<LOCAL, MAT_PLANES, ARMS, TX, TY, GEN, I>;
+  dim3 grid(TY ? (T->w + TX - 1) / TX : (T->w * T->h + TX - 1) / TX,
+            TY ? (T->h + TY - 1) / TY : 1, T->d);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(*T, shadow, low,
+                                                       mat_a, mat_b, out_sc,
+                                                       0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, T->d - z0);
+      kernel<<<grid, dim3(TX, TY ? TY : 1), 0, stream>>>(
+          *T, shadow, low, mat_a, mat_b, out_sc, z0);
+    }
+  }
   ++g_forms[GEN];
+  ++g_index_forms[WIDE];
 }
 
-template <int LOCAL, bool MAT_PLANES, bool ARMS>
+template <int LOCAL, bool MAT_PLANES, bool ARMS, class I>
 static void launch_tile(const VrTables* T, const float* shadow,
                         const float* low, const float* mat_a,
                         const float* mat_b, float* out_sc,
                         cudaStream_t stream) {
   if (needs_general(*T))
-    launch_form<LOCAL, MAT_PLANES, ARMS, true>(T, shadow, low, mat_a, mat_b,
-                                               out_sc, stream);
+    launch_form<LOCAL, MAT_PLANES, ARMS, true, I>(T, shadow, low, mat_a,
+                                                  mat_b, out_sc, stream);
   else
-    launch_form<LOCAL, MAT_PLANES, ARMS, false>(T, shadow, low, mat_a,
-                                                mat_b, out_sc, stream);
+    launch_form<LOCAL, MAT_PLANES, ARMS, false, I>(T, shadow, low, mat_a,
+                                                   mat_b, out_sc, stream);
 }
 
-template <int LOCAL, bool MAT_PLANES>
+template <int LOCAL, bool MAT_PLANES, class I>
 static void launch_scatter_kernel(const VrTables* T, const float* shadow,
                            const float* low, const float* mat_a,
                            const float* mat_b, float* out_sc,
@@ -188,52 +262,83 @@ static void launch_scatter_kernel(const VrTables* T, const float* shadow,
   // only the ray loop casts rays: the arms matter to it alone
   constexpr bool RAYS = LOCAL == VR_LOCAL_RAY;
   if (RAYS && needs_arms(*T))
-    launch_tile<LOCAL, MAT_PLANES, RAYS>(T, shadow, low, mat_a, mat_b,
-                                         out_sc, stream);
+    launch_tile<LOCAL, MAT_PLANES, RAYS, I>(T, shadow, low, mat_a, mat_b,
+                                            out_sc, stream);
   else
-    launch_tile<LOCAL, MAT_PLANES, false>(T, shadow, low, mat_a, mat_b,
-                                          out_sc, stream);
+    launch_tile<LOCAL, MAT_PLANES, false, I>(T, shadow, low, mat_a, mat_b,
+                                             out_sc, stream);
 }
 
-template <int LOCAL>
+template <int LOCAL, class I>
 static void launch_scatter(const VrTables* T, const float* shadow,
                            const float* low, const float* mat_a,
                            const float* mat_b, float* out_sc,
                            cudaStream_t stream) {
   if (mat_a)
-    launch_scatter_kernel<LOCAL, true>(T, shadow, low, mat_a, mat_b, out_sc,
-                                       stream);
+    launch_scatter_kernel<LOCAL, true, I>(T, shadow, low, mat_a, mat_b,
+                                          out_sc, stream);
   else
-    launch_scatter_kernel<LOCAL, false>(T, shadow, low, mat_a, mat_b,
+    launch_scatter_kernel<LOCAL, false, I>(T, shadow, low, mat_a, mat_b,
+                                           out_sc, stream);
+}
+
+template <class I>
+static void launch_local(const VrTables* T, const float* shadow,
+                         const float* low, const float* mat_a,
+                         const float* mat_b, float* out_sc, int local,
+                         cudaStream_t stream) {
+  switch (local) {
+    case VR_LOCAL_RADIANCE:
+      launch_scatter<VR_LOCAL_RADIANCE, I>(T, shadow, low, mat_a, mat_b,
+                                           out_sc, stream);
+      break;
+    case VR_LOCAL_RAY:
+      launch_scatter<VR_LOCAL_RAY, I>(T, shadow, low, mat_a, mat_b, out_sc,
+                                      stream);
+      break;
+    default:
+      launch_scatter<VR_LOCAL_BAKED, I>(T, shadow, low, mat_a, mat_b,
                                         out_sc, stream);
+  }
 }
 
 // local: VR_LOCAL_*; low: the radiance or visibility volume (null for
-// VR_LOCAL_RAY); mat_a null selects the fused material.
-extern "C" int vr_scatter(const VrTables* T, const float* shadow,
-                          const float* low, const float* mat_a,
-                          const float* mat_b, float* out_sc, int local,
-                          cudaStream_t stream) {
+// VR_LOCAL_RAY); mat_a null selects the fused material. form: VR_FORM_RULE
+// (the size rule's, k6_form), or the narrow or the wide form, refused
+// where it does not take the table.
+extern "C" int vr_scatter_form(const VrTables* T, const float* shadow,
+                               const float* low, const float* mat_a,
+                               const float* mat_b, float* out_sc, int local,
+                               int form, cudaStream_t stream) {
   if ((local == VR_LOCAL_RAY) != (low == nullptr) || (!mat_a != !mat_b)
-      || past_int_index(*T))
+      || local < 0 || local > 2)
     return (int)cudaErrorInvalidValue;
-  switch (local) {
-    case VR_LOCAL_RADIANCE:
-      launch_scatter<VR_LOCAL_RADIANCE>(T, shadow, low, mat_a, mat_b, out_sc,
-                                        stream);
-      break;
-    case VR_LOCAL_RAY:
-      launch_scatter<VR_LOCAL_RAY>(T, shadow, low, mat_a, mat_b, out_sc,
-                                   stream);
-      break;
-    case VR_LOCAL_BAKED:
-      launch_scatter<VR_LOCAL_BAKED>(T, shadow, low, mat_a, mat_b, out_sc,
-                                     stream);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (form == VR_FORM_RULE) form = k6_form(*T, local);
+  const bool fits = form == VR_FORM_NARROW ? k6_narrow_fits(*T, local)
+                    : form == VR_FORM_WIDE ? k6_wide_fits(*T, local)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  if (form == VR_FORM_WIDE)
+    launch_local<int64_t>(T, shadow, low, mat_a, mat_b, out_sc, local,
+                          stream);
+  else
+    launch_local<int>(T, shadow, low, mat_a, mat_b, out_sc, local, stream);
   return (int)cudaGetLastError();
+}
+
+// The size rule's form for the table and local source into out[0] (-1:
+// past the wide form too) and its launch's slice parts into out[1].
+extern "C" int vr_scatter_form_of(const VrTables* T, int local, int* out) {
+  out[0] = local < 0 || local > 2 ? -1 : k6_form(*T, local);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(T->d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_scatter_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The launches of the fixed and the general form so far into out[0..1].
@@ -264,19 +369,21 @@ extern "C" int vr_scatter_geometry(int local, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the sixteen kernels, in ops/cuda.py
+// cudaFuncGetAttributes of the thirty-two kernels, in ops/cuda.py
 // ATTR_KERNELS' order: the fixed forms, (LOCAL, MAT_PLANES) of radiance,
 // ray, baked x fused, planes with ARMS false, then the ray loop's two ARMS
-// forms; then the general forms in the same order. Registers per thread,
-// static shared bytes per block, local bytes per thread and largest block
-// into out[4 i .. 4 i + 3]; returns the error.
-template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false>
+// forms; then the general forms in the same order; those sixteen narrow,
+// then the same sixteen wide. Registers per thread, static shared bytes
+// per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <int LOCAL, bool MAT_PLANES, bool ARMS, bool GEN = false,
+          class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
       &a, (const void*)scatter_kernel<LOCAL, MAT_PLANES, ARMS,
                                       K6Tile<LOCAL>::X, K6Tile<LOCAL>::Y,
-                                      GEN>);
+                                      GEN, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -284,22 +391,24 @@ static cudaError_t attrs_of(int* out) {
   return err;
 }
 
-template <bool GEN>
+template <bool GEN, class I>
 static void attrs_of_forms(int* out, cudaError_t* errs) {
-  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, false, GEN>(out);
-  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, false, GEN>(out + 4);
-  errs[2] = attrs_of<VR_LOCAL_RAY, false, false, GEN>(out + 8);
-  errs[3] = attrs_of<VR_LOCAL_RAY, true, false, GEN>(out + 12);
-  errs[4] = attrs_of<VR_LOCAL_BAKED, false, false, GEN>(out + 16);
-  errs[5] = attrs_of<VR_LOCAL_BAKED, true, false, GEN>(out + 20);
-  errs[6] = attrs_of<VR_LOCAL_RAY, false, true, GEN>(out + 24);
-  errs[7] = attrs_of<VR_LOCAL_RAY, true, true, GEN>(out + 28);
+  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, false, GEN, I>(out);
+  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, false, GEN, I>(out + 4);
+  errs[2] = attrs_of<VR_LOCAL_RAY, false, false, GEN, I>(out + 8);
+  errs[3] = attrs_of<VR_LOCAL_RAY, true, false, GEN, I>(out + 12);
+  errs[4] = attrs_of<VR_LOCAL_BAKED, false, false, GEN, I>(out + 16);
+  errs[5] = attrs_of<VR_LOCAL_BAKED, true, false, GEN, I>(out + 20);
+  errs[6] = attrs_of<VR_LOCAL_RAY, false, true, GEN, I>(out + 24);
+  errs[7] = attrs_of<VR_LOCAL_RAY, true, true, GEN, I>(out + 28);
 }
 
 extern "C" int vr_scatter_attrs(int* out) {
-  cudaError_t errs[16];
-  attrs_of_forms<false>(out, errs);
-  attrs_of_forms<true>(out + 32, errs + 8);
+  cudaError_t errs[32];
+  attrs_of_forms<false, int>(out, errs);
+  attrs_of_forms<true, int>(out + 32, errs + 8);
+  attrs_of_forms<false, int64_t>(out + 64, errs + 16);
+  attrs_of_forms<true, int64_t>(out + 96, errs + 24);
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

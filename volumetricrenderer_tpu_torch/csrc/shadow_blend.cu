@@ -23,10 +23,19 @@
 // warp's taps reach once, into shared memory (~2.4 reprojections a froxel
 // where a thread per froxel took 7, each a log and two divisions). K2 runs
 // the same routines before its scatter half, so K2 equals K5 then K6 bit
-// for bit by
-// construction; and every value is the thread-per-froxel form's, from the
-// same operations in the same order. Indices are 32-bit: the launcher
-// refuses tables past 2^31 floats (common.cuh past_int_index).
+// for bit by construction; and every value is the thread-per-froxel
+// form's, from the same operations in the same order.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/shadow_blend.k5_form):
+// the narrow form indexes in 32 bits and puts a slice on each launch-grid
+// z index; it takes every table whose [max(4, Nd), D, H, W] planes hold
+// under 2^31 floats, on at most VR_MAX_GRID_Z slices (common.cuh
+// tile_planes_fit). Past that the wide form (I = int64_t): every index and
+// every product of a plane by its stride in 64 bits, the slices launched in
+// parts of at most VR_MAX_GRID_Z (the block's slice is blockIdx.z + z0). A
+// froxel's output depends on its own inputs and on the history, which K5
+// only reads, so the parts are independent, and the wide form gives the
+// narrow one's values bit for bit.
 //
 // Bound on the H100: operations, barely. Bytes: read the history and write
 // the new one, 2 x 16.6 MB at 240x135x128 and one sun, ~10 us at 3.35 TB/s.
@@ -49,34 +58,39 @@ struct K5Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS, bool GEN = false>
+template <bool ARMS, bool GEN = false, class I = int>
 __global__ void __launch_bounds__(K5Tile::X * K5Tile::Y, K5Tile::MIN_BLOCKS)
 shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
-                    float* __restrict__ out_sh) {
+                    float* __restrict__ out_sh, int z_part) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
-  __shared__ TileTerms<TX, TY> S;
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  const int z0 = sizeof(I) > sizeof(int) ? z_part : 0;
+  __shared__ TileTerms<TX, TY, I> S;
   extern __shared__ float dyn_s[];  // region_floats (GEN: + sun_inv_floats)
-  tile_region<false, TX, TY, GEN>(T, S, dyn_s);
+  tile_region<false, TX, TY, GEN>(T, S, dyn_s, z0);
   const int x = blockIdx.x * TX + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z + z0;
   if (x >= T.w || y >= T.h) return;
-  const int n = T.d * T.h * T.w;
-  const int i = (z * T.h + y) * T.w + x;
+  const I n = (I)T.d * T.h * T.w;
+  const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz;
   if constexpr (GEN) {
     tile_blend<ARMS, TX, TY, true>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i,
-                                   wx, wy, wz, nullptr);
+                                   wx, wy, wz, nullptr, z0);
   } else {
     float blended[VR_MAX_DIR];
     tile_blend<ARMS>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i, wx, wy, wz,
-                     blended);
+                     blended, z0);
   }
 }
 
-// Launches of the fixed (0) and general (1) forms since the library was
-// loaded (vr_shadow_blend_forms).
+// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
+// and wide (1) index forms, since the library was loaded
+// (vr_shadow_blend_forms, vr_shadow_blend_index_forms).
 static long g_forms[2];
+static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
 // suns: the region, and in the general form the suns' inverse directions.
@@ -85,39 +99,96 @@ static int k5_shared(int k, bool gen, int n_dir) {
           + (gen ? sun_inv_floats(n_dir) : 0)) * (int)sizeof(float);
 }
 
-template <bool ARMS, bool GEN>
+// Whether the wide form takes the table (mirrored by
+// ops/shadow_blend.k5_form): common.cuh tile_rows_fit.
+static bool k5_wide_fits(const VrTables& T) {
+  return tile_rows_fit(T, K5Tile::Y);
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// planes and slices of common.cuh tile_planes_fit.
+static bool k5_narrow_fits(const VrTables& T) {
+  return k5_wide_fits(T) && tile_planes_fit(T);
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k5_form(const VrTables& T) {
+  if (k5_narrow_fits(T)) return VR_FORM_NARROW;
+  return k5_wide_fits(T) ? VR_FORM_WIDE : -1;
+}
+
+template <bool ARMS, bool GEN, class I>
 static int launch_tile(const VrTables* T, const float* prev_sh,
                        float* out_sh, cudaStream_t stream) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
-  const dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = shadow_blend_kernel<ARMS, GEN, I>;
   const int shared = k5_shared(T->k, GEN, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
-        shadow_blend_kernel<ARMS, GEN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  shadow_blend_kernel<ARMS, GEN><<<grid, dim3(TX, TY), shared, stream>>>(
-      *T, prev_sh, out_sh);
+  dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh, 0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, T->d - z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh,
+                                                     z0);
+    }
+  }
   ++g_forms[GEN];
+  ++g_index_forms[WIDE];
   return 0;
 }
 
-template <bool ARMS>
+template <bool ARMS, class I>
 static int launch_form(const VrTables* T, const float* prev_sh,
                        float* out_sh, cudaStream_t stream) {
   return general_suns(*T)
-             ? launch_tile<ARMS, true>(T, prev_sh, out_sh, stream)
-             : launch_tile<ARMS, false>(T, prev_sh, out_sh, stream);
+             ? launch_tile<ARMS, true, I>(T, prev_sh, out_sh, stream)
+             : launch_tile<ARMS, false, I>(T, prev_sh, out_sh, stream);
 }
 
-extern "C" int vr_shadow_blend(const VrTables* T, const float* prev_sh,
-                               float* out_sh, cudaStream_t stream) {
-  if (past_int_index(*T)) return (int)cudaErrorInvalidValue;
-  const int err = needs_arms(*T)
-                      ? launch_form<true>(T, prev_sh, out_sh, stream)
-                      : launch_form<false>(T, prev_sh, out_sh, stream);
+template <class I>
+static int launch_arms(const VrTables* T, const float* prev_sh,
+                       float* out_sh, cudaStream_t stream) {
+  return needs_arms(*T) ? launch_form<true, I>(T, prev_sh, out_sh, stream)
+                        : launch_form<false, I>(T, prev_sh, out_sh, stream);
+}
+
+// form: VR_FORM_RULE (the size rule's, k5_form), or the narrow or the wide
+// form, refused where it does not take the table.
+extern "C" int vr_shadow_blend_form(const VrTables* T, const float* prev_sh,
+                                    float* out_sh, int form,
+                                    cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k5_form(*T);
+  const bool fits = form == VR_FORM_NARROW ? k5_narrow_fits(*T)
+                    : form == VR_FORM_WIDE ? k5_wide_fits(*T)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err =
+      form == VR_FORM_WIDE
+          ? launch_arms<int64_t>(T, prev_sh, out_sh, stream)
+          : launch_arms<int>(T, prev_sh, out_sh, stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for the table into out[0] (-1: past the wide form
+// too) and its launch's slice parts into out[1].
+extern "C" int vr_shadow_blend_form_of(const VrTables* T, int* out) {
+  out[0] = k5_form(*T);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(T->d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_shadow_blend_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The launches of the fixed and the general form so far into out[0..1].
@@ -143,15 +214,15 @@ extern "C" int vr_shadow_blend_geometry(int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the four kernels, the fixed forms then the
-// general ones, ARMS false then true: registers per thread, static shared
-// bytes per block, local bytes per thread and largest block into
-// out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS, bool GEN = false>
+// cudaFuncGetAttributes of the eight kernels: the fixed forms then the
+// general ones, ARMS false then true, narrow; then the same four wide:
+// registers per thread, static shared bytes per block, local bytes per
+// thread and largest block into out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false, class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)shadow_blend_kernel<ARMS, GEN>);
+      &a, (const void*)shadow_blend_kernel<ARMS, GEN, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -160,9 +231,13 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_shadow_blend_attrs(int* out) {
-  const cudaError_t errs[4] = {attrs_of<false>(out), attrs_of<true>(out + 4),
-                               attrs_of<false, true>(out + 8),
-                               attrs_of<true, true>(out + 12)};
+  const cudaError_t errs[8] = {
+      attrs_of<false>(out), attrs_of<true>(out + 4),
+      attrs_of<false, true>(out + 8), attrs_of<true, true>(out + 12),
+      attrs_of<false, false, int64_t>(out + 16),
+      attrs_of<true, false, int64_t>(out + 20),
+      attrs_of<false, true, int64_t>(out + 24),
+      attrs_of<true, true, int64_t>(out + 28)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

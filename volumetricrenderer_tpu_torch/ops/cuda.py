@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -94,13 +95,21 @@ def build(verbose: bool = False) -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
+    def finish(item):
+        # each build's own time: its process waited for on a thread of its
+        # own, not in turn behind the slower ones
+        name, (proc, tmp, lib, t0) = item
         out, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        return name, proc.returncode, out, tmp, lib, time.perf_counter() - t0
+
+    failed = []
+    with ThreadPoolExecutor(max_workers=max(1, len(procs))) as pool:
+        done = list(pool.map(finish, procs.items()))
+    for name, rc, out, tmp, lib, secs in done:
+        times[name] = secs
         if verbose and out:
             print(f"# nvcc {name}:\n{out}", flush=True)
-        if proc.returncode != 0:
+        if rc != 0:
             failed.append(f"{name}:\n{out}")
             continue
         os.replace(tmp, lib)
@@ -148,18 +157,26 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite_grad_plan": [ci] * 2 + [vp],
             "vr_composite_grad_forms": [vp],
             "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
-        "shadow_blend": {"vr_shadow_blend": [tp, vp, vp],
+        "shadow_blend": {"vr_shadow_blend_form": [tp, vp, vp, ci],
+                         "vr_shadow_blend_form_of": [tp, vp],
+                         "vr_shadow_blend_index_forms": [vp],
                          "vr_shadow_blend_geometry": [ci, vp],
                          "vr_shadow_blend_general_shared": [ci, ci, vp],
                          "vr_shadow_blend_forms": [vp]},
-        "scatter": {"vr_scatter": [tp, vp, vp, vp, vp, vp, ci],
+        "scatter": {"vr_scatter_form": [tp, vp, vp, vp, vp, vp, ci, ci],
+                    "vr_scatter_form_of": [tp, ci, vp],
+                    "vr_scatter_index_forms": [vp],
                     "vr_scatter_geometry": [ci, vp],
                     "vr_scatter_forms": [vp]},
-        "dir_shadow": {"vr_dir_shadow": [tp, vp],
+        "dir_shadow": {"vr_dir_shadow_form": [tp, vp, ci],
+                       "vr_dir_shadow_form_of": [tp, vp],
+                       "vr_dir_shadow_index_forms": [vp],
                        "vr_dir_shadow_geometry": [vp],
                        "vr_dir_shadow_general_shared": [ci, vp],
                        "vr_dir_shadow_forms": [vp]},
-        "integrate": {"vr_integrate": [tp, vp, vp],
+        "integrate": {"vr_integrate_form": [tp, vp, vp, ci],
+                      "vr_integrate_form_of": [tp, vp],
+                      "vr_integrate_index_forms": [vp],
                       "vr_integrate_geometry": [vp]},
         "bake_visibility": {"vr_bake_visibility_form": [tp, vp, ci],
                             "vr_bake_visibility_form_of": [tp, vp],
@@ -230,12 +247,15 @@ SIZE_FORMS = {
 # The sources whose launchers take a narrow form (32-bit indices, a slice
 # or row on each launch-grid index) wherever it fits and a wide one past it
 # (64-bit indices, the slices or rows launched in parts of at most
-# MAX_GRID_Z; csrc/common.cuh VR_FORM_*): K2, K3 and K9. The wrappers mirror
-# the choice (ops/frame_fused.k2_form, k3_form, ops/visibility.k9_form) and
-# take `form=` to force one; each library counts its launches of either
+# MAX_GRID_Z; csrc/common.cuh VR_FORM_*): K2, K3, K5, K6, K7, K8 and K9.
+# The wrappers mirror the choice (ops/frame_fused.k2_form, k3_form,
+# ops/shadow_blend.k5_form, ops/scatter.k6_form, ops/dir_shadow.k7_form,
+# ops/integrate.k8_form, ops/visibility.k9_form) and take `form=` to force
+# one; each library counts its launches of either
 # (`vr_<name>_index_forms`).
 INDEX_FORMS = ("narrow", "wide")
-INDEX_SOURCES = ("bake_visibility", "shadow_scatter", "integrate_blend")
+INDEX_SOURCES = ("bake_visibility", "shadow_scatter", "integrate_blend",
+                 "shadow_blend", "scatter", "dir_shadow", "integrate")
 MAX_GRID_Z = 65535
 
 
@@ -313,26 +333,27 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                     for arms in ("false", "true"))
                 + ("bake_radiance_kernel<false, true, GEN>",
                    "bake_radiance_kernel<true, true, GEN>"),
-                "shadow_blend": ("shadow_blend_kernel<false>",
-                                 "shadow_blend_kernel<true>",
-                                 "shadow_blend_kernel<false, GEN>",
-                                 "shadow_blend_kernel<true, GEN>"),
+                "shadow_blend": tuple(
+                    f"shadow_blend_kernel<{arms}{gen}{wide}>"
+                    for wide in ("", ", WIDE") for gen in ("", ", GEN")
+                    for arms in ("false", "true")),
                 "shadow_scatter": tuple(
                     f"shadow_scatter_kernel<{local}, {arms}{gen}{wide}>"
                     for wide in ("", ", WIDE")
                     for gen in ("", ", GEN")
                     for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),
-                "scatter": tuple(f"scatter_kernel<{mode}{gen}>"
+                "scatter": tuple(f"scatter_kernel<{mode}{gen}{wide}>"
+                                 for wide in ("", ", WIDE")
                                  for gen in ("", ", GEN")
                                  for mode in _K6_MODES),
                 "integrate_blend": ("integrate_blend_kernel",
                                     "integrate_blend_kernel<WIDE>"),
-                "dir_shadow": ("dir_shadow_kernel<false>",
-                               "dir_shadow_kernel<true>",
-                               "dir_shadow_kernel<false, GEN>",
-                               "dir_shadow_kernel<true, GEN>"),
-                "integrate": ("integrate_kernel",),
+                "dir_shadow": tuple(
+                    f"dir_shadow_kernel<{arms}{gen}{wide}>"
+                    for wide in ("", ", WIDE") for gen in ("", ", GEN")
+                    for arms in ("false", "true")),
+                "integrate": ("integrate_kernel", "integrate_kernel<WIDE>"),
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
                                    "temporal_blend_kernel<4, false>"),
                 "windowed_warp": ("windowed_warp_kernel<4>",),

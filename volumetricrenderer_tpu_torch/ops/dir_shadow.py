@@ -10,7 +10,7 @@ one slice (`K7_TILE`), K5's tile without the reprojection region.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -105,20 +105,32 @@ def k7_shared_bytes(n_dir: int) -> int:
     return sun_inv_bytes(n_dir) if needs_general(n_dir) else 0
 
 
-def dir_shadow(t) -> torch.Tensor:
-    """K7: the unblended raycast shadow volume [Nd, D, H, W]. Refuses, before
-    any launch, tables the kernel cannot index in 32 bits and suns whose
-    inverse directions do not fit a block's shared memory."""
+def k7_form(t, form: Optional[str] = None) -> str:
+    """Mirror of csrc/dir_shadow.cu k7_form: the index form of
+    cuda.INDEX_FORMS that K7 takes for the tables t. The narrow form takes
+    a [max(4, Nd), D, H, W] volume under 2^31 floats on at most 65535
+    slices; the wide form any size and slice count, on at most 65535 tiles
+    of K7_TILE's rows (ops/scatter.check_tile_indices). form: a form to
+    force. Raises ValueError, naming K7, before any launch."""
+    from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
+    return check_tile_indices(t, "K7", form, K7_TILE[1])
+
+
+def dir_shadow(t, form: Optional[str] = None) -> torch.Tensor:
+    """K7: the unblended raycast shadow volume [Nd, D, H, W]. CUDA tables
+    launch the index form k7_form picks (or `form`, forced). Refuses, before
+    any launch, tables neither index form takes and suns whose inverse
+    directions do not fit a block's shared memory."""
     if t.spar.device.type == "cpu":
         return dir_shadow_plain(t)
-    from volumetricrenderer_tpu_torch.ops.scatter import check_tile_indices
     from volumetricrenderer_tpu_torch.ops.temporal import check_shared
-    check_tile_indices(t, "K7")
+    form = k7_form(t, form)
     check_shared(k7_shared_bytes(t.n_dir), "K7", f"{t.n_dir} suns")
     cuda.check_cuda(t.spar)
     w, h, d = t.grid_whd
     out = torch.empty((t.n_dir, d, h, w), dtype=torch.float32,
                       device=t.spar.device)
     st = t.c_struct()
-    cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out))
+    cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out),
+                cuda.INDEX_FORMS.index(form), entry="vr_dir_shadow_form")
     return out

@@ -15,12 +15,11 @@ whose slices go in chunks (`k8_geometry`), as K3 does.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
-from volumetricrenderer_tpu_torch.ops.scatter import INT32_MAX
 
 
 def make_xy_blend(ox: float, oy: float):
@@ -138,31 +137,34 @@ def k8_chunks(d: int) -> List[Tuple[int, int]]:
     return [(z0, min(zc, d - z0)) for z0 in range(0, d, zc)]
 
 
-def check_indices(grid_whd: Tuple[int, int, int]) -> None:
-    """Refuse a grid whose [4, D, H, W] planes K8 cannot index in 32 bits
-    (its launcher refuses them too): more than 2^31 - 1 floats. The slices
-    are a loop of each block and the tiles a 1-D grid, so neither has a
-    launch-grid limit of its own. Raises ValueError."""
-    w, h, d = grid_whd
-    if 4 * w * h * d > INT32_MAX:
-        raise ValueError(f"K8: the grid {grid_whd} needs indices past "
-                         f"2^31 - 1 ({4 * w * h * d} floats of planes): the "
-                         f"kernel indexes in 32 bits")
+def k8_form(t, form: Optional[str] = None) -> str:
+    """Mirror of csrc/integrate.cu k8_form: the index form of
+    cuda.INDEX_FORMS that K8 takes for the tables t. The narrow form takes
+    [4, D, H, W] planes under 2^31 floats; the wide form any size, on a
+    1-D launch grid of at most 2^31 - 1 tiles (k8_blocks). The slices are a
+    loop of each block: their count limits neither. form: a form to force.
+    Raises ValueError (cuda.index_form), naming K8, before any launch."""
+    w, h, d = t.grid_whd
+    wide = cuda.past_int32("the tiles of its 1-D launch grid",
+                           k8_blocks(t.grid_whd))
+    narrow = wide or cuda.past_int32("the [4, D, H, W] planes", 4, w, h, d)
+    return cuda.index_form("K8", narrow, wide, form)
 
 
-def accumulate(t, scatter: torch.Tensor) -> torch.Tensor:
+def accumulate(t, scatter: torch.Tensor,
+               form: Optional[str] = None) -> torch.Tensor:
     """K8: integrate the scatter planes front to back, no temporal blend.
-    Refuses, before any launch, planes the kernel cannot index in 32
-    bits."""
+    CUDA tensors launch the index form k8_form picks (or `form`, forced)."""
     if scatter.device.type == "cpu":
         return accumulate_plain(t, scatter)
     _check_scatter(t, scatter)
-    check_indices(t.grid_whd)
+    form = k8_form(t, form)
     cuda.check_cuda(scatter)
     out = torch.empty_like(scatter)
     st = t.c_struct()
     cuda.launch("integrate", cuda.ctypes.byref(st), cuda.ptr(scatter),
-                cuda.ptr(out))
+                cuda.ptr(out), cuda.INDEX_FORMS.index(form),
+                entry="vr_integrate_form")
     return out
 
 

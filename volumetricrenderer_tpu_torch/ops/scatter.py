@@ -251,8 +251,8 @@ def scatter_slice(par, dirs, med, media_static: tuple, zi,
 # The blocks of K6 by local source (csrc/scatter.cu K6Tile): (columns, rows)
 # of a tile of one slice, or (froxels, 0) for a run of consecutive froxels
 # of one slice's rows. K2's are ops/frame_fused.K2_TILE. Both take a slice
-# per launch-grid z; K6 indexes in 32 bits, K2 past that in its wide form
-# (ops/frame_fused.k2_form).
+# per launch-grid z in their narrow forms (32-bit indices) and the slices in
+# parts in their wide forms (k6_form, ops/frame_fused.k2_form).
 K6_TILES = {LOCAL_RADIANCE: (128, 0), LOCAL_RAY: (256, 0),
             LOCAL_BAKED: (16, 8)}
 INT32_MAX = cuda.INT32_MAX
@@ -291,26 +291,69 @@ def tile_grid(grid_whd: Tuple[int, int, int],
     return -(-w // tx), -(-h // ty), d
 
 
-def check_tile_indices(t, kernel: str = "K5, K6 and K7") -> None:
-    """Refuse the frame tables `t` whose arrays K5, K6 and K7 cannot index
-    in 32 bits (csrc/common.cuh past_int_index): the [max(4, Nd), D, H, W]
-    planes and the low volume's channels must hold at most 2^31 - 1 floats,
-    and the grid at most 65535 slices. Raises ValueError naming `kernel`.
-    (K1, K2, K3 and K9
-    check the arrays each indexes: ops/frame_fused.check_k1_indices,
-    k2_form, k3_form, ops/visibility.k9_form.)"""
+def tile_planes_why(t) -> Optional[str]:
+    """Mirror of csrc/common.cuh tile_planes_fit, what the narrow forms of
+    K5, K6 and K7 share: why their [max(4, Nd), D, H, W] planes or their
+    slices (one a launch-grid z index) pass a 32-bit index or the launch
+    grid, or None where they do not."""
+    w, h, d = t.grid_whd
+    return cuda.past_int32("the [max(4, Nd), D, H, W] planes",
+                           max(4, t.n_dir), w, h, d) \
+        or (f"{d} slices past the launch grid's {MAX_GRID_Z}"
+            if d > MAX_GRID_Z else None)
+
+
+def check_tile_indices(t, kernel: str = "K5 and K7",
+                       form: Optional[str] = None, rows: int = 16) -> str:
+    """The index form of cuda.INDEX_FORMS that the slice tile `kernel` (K5
+    or K7, tiles of `rows` rows: ops/shadow_blend.k5_form,
+    ops/dir_shadow.k7_form) takes for the frame tables `t`. The narrow form
+    (32-bit indices, a slice a launch-grid z index) takes tables whose
+    [max(4, Nd), D, H, W] planes hold under 2^31 floats on at most 65535
+    slices (tile_planes_why); past that the wide form (64-bit indices, the
+    slices in parts of at most 65535) takes any size and slice count, on at
+    most 65535 row tiles with the suns' table under 2^31 floats
+    (csrc/common.cuh tile_rows_fit). K6 adds its low channels and
+    schedule (k6_form). form: a form to force. Raises ValueError, naming
+    `kernel`, before any launch where the form cannot take the tables."""
+    h = t.grid_whd[1]
+    tiles = -(-h // rows)
+    wide = (f"{h} rows: {tiles} row tiles past the launch grid's "
+            f"{MAX_GRID_Z}" if tiles > MAX_GRID_Z else None) \
+        or cuda.past_int32("the suns' table [Nd, 8]", t.n_dir, 8)
+    return cuda.index_form(kernel, wide or tile_planes_why(t), wide, form)
+
+
+def k6_form(t, local: int, form: Optional[str] = None) -> str:
+    """Mirror of csrc/scatter.cu k6_form: the index form of
+    cuda.INDEX_FORMS that K6 takes for the tables and local source `local`
+    (LOCAL_*). The narrow form takes tables whose [max(4, Nd), D, H, W]
+    planes (tile_planes_why), the low channels the local source reads (the
+    radiance: 3 + n_noise; the visibility: NL; the rays: none) and, in the
+    per-light loops, the schedule [D, NL] hold under 2^31 floats, on at
+    most 65535 slices; the wide form any slice count and size, on a launch
+    grid its block takes (K6_TILES: at most 65535 row tiles, or a run's
+    froxel index y * W + x under 2^31) with the suns' and lights' tables
+    under 2^31 floats. form: a form to force. Raises ValueError
+    (cuda.index_form), naming K6, before any launch."""
     w, h, d = t.grid_whd
     wl, hl, dl = t.low_dims
     n_lights = 0 if t.lights is None else t.lights.shape[0]
-    planes = max(4, t.n_dir) * w * h * d
-    low = max(3 + t.n_noise, n_lights) * wl * hl * dl
-    if planes > INT32_MAX or low > INT32_MAX:
-        raise ValueError(f"{kernel}: the grid {t.grid_whd} needs indices "
-                         f"past 2^31 - 1 ({planes} floats of planes, {low} "
-                         f"of the low volume): 32-bit indices")
-    if d > MAX_GRID_Z:
-        raise ValueError(f"{kernel}: {d} slices: a launch grid holds at most "
-                         f"{MAX_GRID_Z}")
+    ty = K6_TILES[local][1]
+    tiles = -(-h // ty) if ty else 0
+    grid = (f"{h} rows: {tiles} row tiles past the launch grid's "
+            f"{MAX_GRID_Z}" if tiles > MAX_GRID_Z else None) if ty \
+        else cuda.past_int32("a slice's froxels [H, W] of a run's index",
+                             h, w)
+    wide = grid or cuda.past_int32("the suns' table [Nd, 8]", t.n_dir, 8) \
+        or cuda.past_int32("the lights table [NL, 16]", n_lights, 16)
+    channels = {LOCAL_RADIANCE: 3 + t.n_noise,
+                LOCAL_BAKED: n_lights}.get(local, 0)
+    narrow = wide or tile_planes_why(t) \
+        or cuda.past_int32("the low channels it reads", channels, wl, hl, dl) \
+        or (cuda.past_int32("the light schedule [D, NL]", d, n_lights)
+            if local != LOCAL_RADIANCE else None)
+    return cuda.index_form("K6", narrow, wide, form)
 
 
 def check_scatter_inputs(t, shadow: torch.Tensor, bake, vis,
@@ -393,13 +436,15 @@ def scatter_local_plain(t, shadow: torch.Tensor,
 def scatter_local(t, shadow: torch.Tensor,
                   bake: Optional[torch.Tensor] = None,
                   vis: Optional[torch.Tensor] = None,
-                  material=None) -> torch.Tensor:
+                  material=None, form: Optional[str] = None) -> torch.Tensor:
     """K6: the scatter planes, [4, D, H, W] or, with material volumes,
-    [3, D, H, W] (see scatter_local_plain)."""
+    [3, D, H, W] (see scatter_local_plain). CUDA tensors launch the index
+    form k6_form picks (or `form`, forced)."""
     if shadow.device.type == "cpu":
         return scatter_local_plain(t, shadow, bake, vis, material)
     check_scatter_inputs(t, shadow, bake, vis, material)
-    check_tile_indices(t, "K6")
+    mode = local_mode(bake, vis)
+    form = k6_form(t, mode, form)
     low = bake if bake is not None else vis
     cuda.check_cuda(shadow, *(() if low is None else (low,)),
                     *(material or ()))
@@ -409,13 +454,13 @@ def scatter_local(t, shadow: torch.Tensor,
     out = torch.empty((4 if material is None else 3, d, h, w),
                       dtype=torch.float32, device=shadow.device)
     st = t.c_struct()
-    mode = local_mode(bake, vis)
     mat_a, mat_b = material if material is not None else (None, None)
     cuda.launch("scatter", cuda.ctypes.byref(st), cuda.ptr(shadow),
                 cuda.ptr(low) if low is not None else None,
                 cuda.ptr(mat_a) if mat_a is not None else None,
                 cuda.ptr(mat_b) if mat_b is not None else None,
-                cuda.ptr(out), mode)
+                cuda.ptr(out), mode, cuda.INDEX_FORMS.index(form),
+                entry="vr_scatter_form")
     return out
 
 

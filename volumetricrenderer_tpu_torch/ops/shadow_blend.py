@@ -9,7 +9,7 @@ output is also the next frame's history.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,20 +56,33 @@ def k5_shared_bytes(k: int, n_dir: int = 0) -> int:
         sun_inv_bytes(n_dir) if needs_general(n_dir) else 0)
 
 
-def dir_shadow_blend(t, prev_shadow: torch.Tensor) -> torch.Tensor:
+def k5_form(t, form: Optional[str] = None) -> str:
+    """Mirror of csrc/shadow_blend.cu k5_form: the index form of
+    cuda.INDEX_FORMS that K5 takes for the tables t. The narrow form takes
+    [max(4, Nd), D, H, W] histories under 2^31 floats on at most 65535
+    slices; the wide form any size and slice count, on at most 65535 tiles
+    of K5_TILE's rows (ops/scatter.check_tile_indices). form: a form to
+    force. Raises ValueError, naming K5, before any launch."""
+    return check_tile_indices(t, "K5", form, K5_TILE[1])
+
+
+def dir_shadow_blend(t, prev_shadow: torch.Tensor,
+                     form: Optional[str] = None) -> torch.Tensor:
     """K5: raycast shadow + temporal blend, written to a new buffer (the
-    warp reads neighbours of the history)."""
+    warp reads neighbours of the history). CUDA tensors launch the index
+    form k5_form picks (or `form`, forced)."""
     if prev_shadow.device.type == "cpu":
         return dir_shadow_blend_plain(t, prev_shadow)
     _check_history(t, prev_shadow)
-    check_tile_indices(t, "K5")
+    form = k5_form(t, form)
     check_shared(k5_shared_bytes(t.k, t.n_dir), "K5",
                  f"reprojection window {t.k}, {t.n_dir} suns")
     cuda.check_cuda(prev_shadow)
     out = torch.empty_like(prev_shadow)
     st = t.c_struct()
     cuda.launch("shadow_blend", cuda.ctypes.byref(st), cuda.ptr(prev_shadow),
-                cuda.ptr(out))
+                cuda.ptr(out), cuda.INDEX_FORMS.index(form),
+                entry="vr_shadow_blend_form")
     return out
 
 
