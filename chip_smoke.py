@@ -173,7 +173,7 @@ entry point a user calls, and the port's demo entry, and:
      one process group (NCCL where it takes them, else gloo with the edge
      rows staged through host memory), every band and cropped state bit
      for bit slab3's, each rank's frame and exchange times logged;
-     every main path's K2, K3, K5, K6, K7, K8 and K9 launches in their
+     every main path's K2, K3 and K5-K12 launches in their
      narrow index forms (cuda.index_form_launches);
      The shadow maps of the map paths are baked once per path, before the
      counters are reset, and passed to every frame (timed apart). Prints
@@ -242,9 +242,9 @@ entry point a user calls, and the port's demo entry, and:
      K6 bit for bit, K5, K6 in its six modes, K7, K10's weight mode on the
      suns' channels), checking which form each launch took (the fixed
      ones at 4 and 4), and times them at (9, 9); repeats every hold of K2,
-     K3, K5, K6, K7, K8 and K9 above in the wide index form (WideHolds: =
-     the narrow form bit for bit, and against the same twin at the same
-     tolerance) and
+     K3 and K5-K12 above in the wide index form (WideHolds: = the narrow
+     form bit for bit, and against the same twin at the same tolerance)
+     and
      holds the wrappers' index-form mirrors against the launchers' rules
      at their edges (index_form_mirrors); logs each hold's largest
      difference and where it lies, each kernel's largest hold and, for K6,
@@ -318,8 +318,8 @@ entry point a user calls, and the port's demo entry, and:
      kernel); the host time of a pass range (utils/profiling.scope, and
      the record_function it opens under a profiler) with no profiler
      recording;
-  8. the wide index forms of K2, K3, K5, K6, K7, K8 and K9 at their
-     crossings (wide_paths), each path from a fresh state with the launch
+  8. the wide index forms of K2, K3 and K5-K12 at their crossings
+     (wide_paths), each path from a fresh state with the launch
      counters set to 0 just before and read just after, its index forms,
      peak memory and kernel times printed, the rest of its frame through to
      K4:
@@ -349,6 +349,10 @@ entry point a user calls, and the port's demo entry, and:
        k8_wide           K8 alone on the same [4, 520, 1024, 1024] planes:
                          = the narrow form on a band's tables bit for bit,
                          the twin on the band;
+       k10_k11_wide      K10's alpha mode and K11 alone on the same planes
+                         (K11 at smooth targets reaching past its window):
+                         each = the narrow form on a band's tables bit for
+                         bit, the twin on the band;
        deep_staged       STAGED at deep_fused's grid, 2 frames: K5 and K6
                          past 65,535 slices (two parts each), then one
                          no_shadow_blend frame (K7 in two parts), each
@@ -367,6 +371,23 @@ entry point a user calls, and the port's demo entry, and:
                          ROADMAP C12's hold (c12_hold): K6's and K2's
                          planes and the fp32 twin against an fp64 reference
                          within the gamma_(n-1) bound of the sum's n terms;
+       deep_history      HISTORY at deep_fused's grid, 2 frames: K11 (both
+                         blends) and K10 (alpha) past 65,535 slices (two
+                         parts each), K5 and K6 wide, K9 and K4 narrow,
+                         each kernel against its twin on the whole grid
+       deep_map_full_rate  MAP_DIR at full rate at the same grid, 2
+                         frames: K12 on one sun's 65,664 slices and K10's
+                         weight mode wide (two parts each), K6 wide, each
+                         against its twin on the whole grid
+       many_suns_map_wide  MAP_DIR at full rate with the 520 suns (the 5
+                         suns' maps baked once and repeated; = a bake of 2
+                         copies bit for bit), 2 frames: K12 on 66,560
+                         (sun, slice) pairs and [520, 128, 135, 240]
+                         volumes past 2^31 floats, K10's weight mode in 130
+                         narrow groups, K6's general wide form; K12 by
+                         copies against the narrow form on the 5 suns and
+                         on a band against the twin, K10's copies equal and
+                         its 5 suns against the twin, K6 on the band;
      the wide forms' rows (also forced at 240x135x128 beside the narrow
      forms, in turns) join the kernels line;
   9. prints the `kernels` JSON line, then the result line.
@@ -2675,8 +2696,9 @@ def check_cpu_gbuffer(proc, out_file, gbuffer, mesh, config) -> None:
 # and 65535 slices ---------------------------------------------------------
 
 class WideHolds:
-    """Every hold (compare) of an output of K2, K3, K5, K6, K7, K8 or K9
-    whose call took the narrow form, repeated with the wide form forced on
+    """Every hold (compare) of an output of K2, K3 or K5-K12 whose call
+    took the narrow form (K10 and K11: every channel group's), repeated
+    with the wide form forced on
     the same inputs: the wide outputs must equal the narrow ones bit for
     bit, and are held against the same twin at the same tolerance (the
     hold's label and ", wide form"). install() wraps the wrappers
@@ -2725,20 +2747,33 @@ class WideHolds:
         from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
         from volumetricrenderer_tpu_torch.ops import frame_fused as ff
         from volumetricrenderer_tpu_torch.ops import integrate as integ
+        from volumetricrenderer_tpu_torch.ops import pcf_shadow as pcf
         from volumetricrenderer_tpu_torch.ops import scatter as sca
         from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+        from volumetricrenderer_tpu_torch.ops import temporal as tmp
         from volumetricrenderer_tpu_torch.ops import visibility as vis
+        from volumetricrenderer_tpu_torch.ops import warp as wp
         a = inspect.signature(fn).bind(*args, **kw)
         a.apply_defaults()
         a = a.arguments
         local = lambda: sca.local_mode(a["bake"], a["vis"])
+        # K10 and K11: the largest channel group's form (narrow: every
+        # group's)
+        group = lambda v, n: (n, *v.shape[1:])
         return {"shadow_scatter": lambda: ff.k2_form(a["t"], local()),
                 "integrate_blend": lambda: ff.k3_form(a["t"]),
                 "shadow_blend": lambda: sb.k5_form(a["t"]),
                 "scatter": lambda: sca.k6_form(a["t"], local()),
                 "dir_shadow": lambda: ds.k7_form(a["t"]),
                 "integrate": lambda: integ.k8_form(a["t"]),
-                "bake_visibility": lambda: vis.k9_form(a["t"])}[kernel]()
+                "bake_visibility": lambda: vis.k9_form(a["t"]),
+                "temporal_blend": lambda: tmp.k10_form(group(
+                    a["prev"], tmp.channel_groups(a["prev"].shape[0],
+                                                  a["mode"])[0][1])),
+                "windowed_warp": lambda: wp.k11_form(group(
+                    a["vol"], wp.channel_groups(a["vol"].shape[0])[0][1])),
+                "pcf_shadow": lambda: pcf.k12_form(a["t"], a["atlas"])
+                }[kernel]()
 
     def check(self, name, got, want, mode, label) -> None:
         entry = self.calls.get(id(got))
@@ -2765,7 +2800,7 @@ class WideHolds:
 WIDE = WideHolds()
 
 
-def wide_wrappers(ff, vis, sb, sca, ds, integ) -> tuple:
+def wide_wrappers(ff, vis, sb, sca, ds, integ, tmp, wp, pcf) -> tuple:
     """(module, attribute, kernel source) of every wrapper of a kernel with
     index forms, as the holds call them (K9's from ops/frame_fused too)."""
     return ((ff, "shadow_scatter", "shadow_scatter"),
@@ -2775,7 +2810,10 @@ def wide_wrappers(ff, vis, sb, sca, ds, integ) -> tuple:
             (sb, "dir_shadow_blend", "shadow_blend"),
             (sca, "scatter_local", "scatter"),
             (ds, "dir_shadow", "dir_shadow"),
-            (integ, "accumulate", "integrate"))
+            (integ, "accumulate", "integrate"),
+            (tmp, "temporal_blend", "temporal_blend"),
+            (wp, "windowed_warp", "windowed_warp"),
+            (pcf, "pcf_shadow", "pcf_shadow"))
 
 
 def index_deltas(cuda, before) -> dict:
@@ -2841,6 +2879,34 @@ def fused_work(t, kernel: str, local: str = "radiance"):
                                              else 20)))
 
 
+def blend_work(shape, kernel: str):
+    """(bytes, operations) of one launch of K10 ("temporal_blend") or K11
+    ("windowed_warp") on a [C, D, H, W] volume, counted as main() counts
+    them on the full grid: K10 reads the history and the current volume and
+    writes the blend, a froxel one reprojection (45), the warp's tent
+    weights (24) and taps (12 C) and the blend (3 C); K11 reads the volume
+    and the three target volumes and writes the warp, a froxel its three
+    offsets (12) and the warp."""
+    c, d, h, w = shape
+    n = d * h * w
+    if kernel == "temporal_blend":
+        return 4 * 3 * c * n, n * (45 + 24 + 12 * c + 3 * c)
+    return 4 * (2 * c + 3) * n, n * (12 + 24 + 12 * c)
+
+
+def k12_work(t, atlas):
+    """(bytes, operations) of one K12 launch, counted as main() counts it:
+    each sun's atlas read once and its volume written once; a froxel its
+    world position (45), a (froxel, active cascade) pair the affine
+    coordinates, 4 compares, the bilinear weights and the sphere tests
+    (50)."""
+    w, h, d = t.grid_whd
+    nd, s2 = t.par.shape[0], atlas.shape[-1]
+    n_out = nd * w * h * d
+    pairs = int(t.count.sum()) * h * w
+    return 4 * (nd * s2 * s2 + n_out), n_out * 45 + pairs * 50
+
+
 def wide_forced_rows(calls) -> dict:
     """The wide forms forced at the main path's shapes: calls maps (kernel,
     mode) -> (fn(form), plain_ms, work, the WIDE holds' labels, launches a
@@ -2871,15 +2937,20 @@ def wide_forced_rows(calls) -> dict:
 def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
     """The wrappers' form mirrors (ops/frame_fused.k2_form, k3_form,
     ops/shadow_blend.k5_form, ops/scatter.k6_form, ops/dir_shadow.k7_form,
-    ops/integrate.k8_form, ops/visibility.k9_form) against the launchers'
-    own size rules (`vr_*_form_of`) at the edges: 2^31 - 1 and 2^31 floats,
-    65535 and 65536 slices (K3: rows), 65535 row tiles, on FULL_CONFIG's
-    tables at other grids and light counts (meta tables: the rules read the
-    dimensions alone)."""
+    ops/integrate.k8_form, ops/visibility.k9_form, ops/temporal.k10_form,
+    ops/warp.k11_form, ops/pcf_shadow.k12_form) against the launchers' own
+    size rules (`vr_*_form_of`) at the edges: 2^31 - 1 and 2^31 floats,
+    65535 and 65536 slices (K3: rows; K12: (sun, slice) pairs), 65535 row
+    tiles, on FULL_CONFIG's tables at other grids and light counts, K10's
+    and K11's launch volumes and K12's tables (meta tables: the rules read
+    the dimensions alone)."""
     import ctypes
     from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
     from volumetricrenderer_tpu_torch.ops import integrate as integ
+    from volumetricrenderer_tpu_torch.ops import pcf_shadow as pcf
     from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import warp as wp
 
     def of(name, *args):
         buf = (ctypes.c_int * 2)()
@@ -2967,6 +3038,37 @@ def index_form_mirrors(ff, vis, sca, cuda, tables) -> None:
         rows.append(("K8", grid, 0, 0, None,
                      of("integrate", ctypes.byref(st)),
                      mirror(integ.k8_form, t)))
+    # K10 and K11: one launch's [C, D, H, W] volume (2^31 - 1 is prime)
+    k10_k11 = [(1, 1, 1, 2 ** 31 - 1), (2, 1, 1, 2 ** 30),
+               (4, 128, 2048, 2047), (4, 128, 2048, 2048), (4, 65535, 8, 8),
+               (4, 65536, 8, 8), (4, 65664, 9, 16), (4, 520, 1024, 1024),
+               (1, 1, 16 * 65535, 16), (1, 1, 16 * 65535 + 1, 16)]
+    for shape in k10_k11:
+        c, d, h, w = shape
+        rows.append(("K10", shape, 0, 0, None,
+                     of("temporal_blend", c, w, h, d),
+                     mirror(tmp.k10_form, shape)))
+        rows.append(("K11", shape, 0, 0, None,
+                     of("windowed_warp", c, d, h, w),
+                     mirror(wp.k11_form, shape)))
+    # K12: the volumes, the atlases, the (sun, slice) pairs, the row tiles
+    # and a sun's cascade table [D, C, 8] (4 cascades)
+    k12 = [((2 ** 31 - 1, 1, 1), 1, 64), ((2 ** 30, 2, 1), 1, 64),
+           ((16, 15, 16), 1, 46340), ((16, 15, 16), 1, 46341),
+           ((8, 8, 65535), 1, 64), ((8, 8, 65536), 1, 64),
+           ((240, 135, 128), 511, 64), ((240, 135, 128), 512, 64),
+           ((16, 9, 65664), 1, 1024), ((16, 16 * 65535 + 1, 1), 1, 64),
+           ((1, 1, 2 ** 26 - 1), 1, 64), ((1, 1, 2 ** 26), 1, 64)]
+    nc = 4
+    for grid, nd, s2 in k12:
+        w, h, d = grid
+        m = lambda *shape: torch.empty(shape, device="meta")
+        t = pcf.PcfTables(par=m(nd, 24), coef=m(nd, d, nc, 8),
+                          order=m(nd, d, nc), count=m(nd, d),
+                          spheres=m(nd, nc, 4), grid_whd=grid, h_glob=h)
+        rows.append(("K12", f"{grid}, atlas {s2}", nd, 0, None,
+                     of("pcf_shadow", w, h, d, s2, nc, nd),
+                     mirror(pcf.k12_form, t, m(nd, s2, s2))))
     bad = [r for r in rows if r[5][0] != r[6]]
     for r in rows:
         log(f"# index form of {r[0]} at {r[1]}, {r[2]} suns, {r[3]} "
@@ -3024,8 +3126,8 @@ K3_WIDE_GRIDS = {"planes": (1024, 1024, 520), "rows": (8, 65600, 16)}
 def frame_hooks() -> tuple:
     """(module, attribute, kernel source) of each place a frame calls a
     kernel's wrapper: the fused frame's volume phase (ops/frame_fused) and
-    the staged frame's passes (renderer, pipeline, which import the
-    wrappers by name)."""
+    the staged, history and shadow-map frames' passes (renderer, pipeline,
+    which import the wrappers by name)."""
     import importlib
     from volumetricrenderer_tpu_torch import pipeline
     from volumetricrenderer_tpu_torch.ops import frame_fused as ff
@@ -3040,17 +3142,22 @@ def frame_hooks() -> tuple:
             (pipeline, "bake_visibility", "bake_visibility"),
             (pipeline, "scatter_local", "scatter"),
             (pipeline, "raycast_dir_shadow", "dir_shadow"),
-            (pipeline, "accumulate_kernel", "integrate"))
+            (pipeline, "accumulate_kernel", "integrate"),
+            (pipeline, "temporal_blend", "temporal_blend"),
+            (pipeline, "windowed_warp", "windowed_warp"),
+            (pipeline, "pcf_shadow", "pcf_shadow"))
 
 
 def drive_wide(name, renderer, scene, colour, depth, frames, expect,
-               forms, cuda):
+               forms, cuda, shadow_data=None):
     """Render crossing path `name` from a fresh state, its launch counters
     set to 0 just before and read just after: exactly the kernels of
     `expect` ({kernel: launches per frame}) each frame, and the index forms
     `forms` ({source: (narrow, wide)} over the run). Records the last
-    frame's call of each kernel of frame_hooks. Returns (image, the state
-    before the last frame, {kernel: (args, output)}, seconds, peak GiB)."""
+    frame's call of each kernel of frame_hooks, and under "calls" every
+    call of the last frame in order, (kernel, args, output). shadow_data:
+    the shadow maps, baked once. Returns (image, the state before the last
+    frame, {kernel: (args, output)}, seconds, peak GiB)."""
     hooks = frame_hooks()
     real = {(mod, attr): getattr(mod, attr) for mod, attr, _ in hooks}
     rec = {}
@@ -3059,6 +3166,7 @@ def drive_wide(name, renderer, scene, colour, depth, frames, expect,
         def run(*args, **kw):
             out = fn(*args, **kw)
             rec[kernel] = (args, out)
+            rec.setdefault("calls", []).append((kernel, args, out))
             return out
         return run
 
@@ -3074,8 +3182,9 @@ def drive_wide(name, renderer, scene, colour, depth, frames, expect,
         t0 = time.perf_counter()
         for i in range(frames):
             prev = None  # the state before the last frame only
+            rec.clear()  # the last frame's calls only
             img, _, new = renderer.render_frame(state, scene, 0.1 * i,
-                                                colour, depth)
+                                                colour, depth, shadow_data)
             prev, state = state, new
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -3115,6 +3224,25 @@ def wide_row(kernel, mode, fn, n, work, err, plain_ms, launches, hold):
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "plain_on": hold, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def timed_plain(fn):
+    """fn's result and its host time in ms, synchronised: a twin's time on
+    a crossing path."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def forms_of(cuda, fn):
+    """fn's result and the (narrow, wide) launches of each source of
+    cuda.INDEX_SOURCES that it made."""
+    before = {s: cuda.index_form_launches(s) for s in cuda.INDEX_SOURCES}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {s: f for s, f in index_deltas(cuda, before).items()
+                 if any(f)}
 
 
 def band_hold(name, got, want, rows, label):
@@ -3514,8 +3642,12 @@ def wide_paths(cfg, scene, renderer, renderers, scene_color, view_depth,
     log(f"# k8_wide: {time.perf_counter() - t_path:.1f} s")
     log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
         "s: k8_wide")
+    rows.update(k10_k11_wide(cfg, scene, k3_src, moved, cuda, t_phase))
+    del k3_src
     rows.update(staged_wide_paths(cfg, scene, renderers, scene_color,
                                   view_depth, cuda, t_phase))
+    rows.update(history_map_wide_paths(cfg, scene, scene_color, view_depth,
+                                       cuda, t_phase))
     return rows
 
 
@@ -3672,20 +3804,7 @@ def staged_wide_paths(cfg, scene, renderers, scene_color, view_depth, cuda,
     from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
     from volumetricrenderer_tpu_torch.ops import visibility as vis
     rows = {}
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
-
-    def forms_of(fn):
-        before = {s_: cuda.index_form_launches(s_)
-                  for s_ in cuda.INDEX_SOURCES}
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {s_: f for s_, f in index_deltas(cuda, before).items()
-                     if any(f)}
+    timed = timed_plain
 
     def done(name, t_path):
         log(f"# {name}: {time.perf_counter() - t_path:.1f} s")
@@ -3813,7 +3932,7 @@ def staged_wide_paths(cfg, scene, renderers, scene_color, view_depth, cuda,
     # = the narrow form's on the 5 suns, the twin on the band
     del sh
     torch.cuda.empty_cache()
-    un, forms = forms_of(lambda: ds.dir_shadow(t))
+    un, forms = forms_of(cuda, lambda: ds.dir_shadow(t))
     un5 = ds.dir_shadow(t5, form="narrow")
     same = all(torch.equal(un[c * base:(c + 1) * base], un5)
                for c in range(copies))
@@ -3880,7 +3999,8 @@ def staged_wide_paths(cfg, scene, renderers, scene_color, view_depth, cuda,
     compare("shadow_blend", sh, sb.dir_shadow_blend_plain(t, p_sh),
             label="vis_bake_wide (narrow)")
     # K2's baked wide form once on the same tables: = K5 then K6
-    (sh2, sc2), forms = forms_of(lambda: ff.shadow_scatter(t, p_sh, vis=vol))
+    (sh2, sc2), forms = forms_of(cuda,
+                                 lambda: ff.shadow_scatter(t, p_sh, vis=vol))
     same = torch.equal(sh2, sh) and torch.equal(sc2, sc)
     log(f"# vis_bake_wide, K2 on the same tables: index forms (narrow, "
         f"wide) {json.dumps(forms)}; = K5 then K6 bit for bit: {same}")
@@ -3923,6 +4043,375 @@ def staged_wide_paths(cfg, scene, renderers, scene_color, view_depth, cuda,
     del prev, t, p_sh, sh, t6, sh6, vol, sc, v9, t9, tb
     torch.cuda.empty_cache()
     done("vis_bake_wide", t_path)
+    return rows
+
+
+def k10_k11_wide(cfg, scene, k3_src, moved, cuda, t_phase) -> dict:
+    """K10's alpha mode and K11 alone past 2^31 floats, on k3_wide's
+    [4, 520, 1024, 1024] planes: many_suns_wide's scatter planes and
+    accumulation resampled to the grid (a real frame's smooth volumes). K10
+    blends the accumulation into the planes with the blend table of a camera
+    move (k3_wide's); K11 warps the accumulation at smooth targets whose
+    offsets reach 4.5 cells (past the +-4 window's clip in places), on a
+    1/256-cell lattice so that a band's targets less its first row are
+    exact. Each takes its wide form; each equals the narrow form on a band's
+    tables bit for bit (K10 given the band's y0, as a slab's table; K11 the
+    band's targets) on the band's rows past the taps' reach, and is held
+    against its twin there. Returns {(kernel, mode): row of the kernels
+    line}."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import warp as wp
+    from volumetricrenderer_tpu_torch.state import FrameState
+    rows = {}
+    t_path = time.perf_counter()
+    w, h, d = K3_WIDE_GRIDS["planes"]
+    k_cfg = dataclasses.replace(cfg, volume_width=w, volume_height=h,
+                                volume_depth=d)
+    st = FrameState(prev_shadow=torch.empty(0),
+                    prev_accumulation=torch.empty(0),
+                    prev_world_to_view=moved, frame_count=1)
+    t = VolumetricRenderer(k_cfg).frame_tables(st, scene, 0.1)[0]
+    kk = t.k
+    band = (h // 8 * 4, 32, 10)
+    y0, hb, m = band
+    tb = band_tables(k_cfg, st, scene, 0.1, y0, hb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cur, prev = (torch.nn.functional.interpolate(
+        v[None], size=(d, h, w), mode="trilinear",
+        align_corners=True)[0].contiguous() for v in k3_src)
+    shape = tuple(prev.shape)
+    in_band = lambda v: v[:, :, y0:y0 + hb].contiguous()
+    interior = lambda v: v[:, :, y0 + m:y0 + hb - m]
+
+    def crossing(kernel, run, narrow_band, twin_band, label):
+        """run() on the whole grid: its form counts, the narrow form on the
+        band's tables against its rows, the twin on the band."""
+        out, forms = forms_of(cuda, run)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"# k10_k11_wide, {label}: {kernel} on {shape} = "
+            f"{prev.numel()} floats a volume, index forms (narrow, wide) "
+            f"{json.dumps(forms)}, peak device memory {peak:.2f} GiB")
+        if forms != {kernel: (0, 1)} or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"k10_k11_wide {label}: {kernel} took "
+                                 f"{forms}, or a non-finite output")
+        nb = narrow_band()
+        same = torch.equal(nb[:, :, m:hb - m], interior(out))
+        log(f"# k10_k11_wide, {label}, band rows {y0 + m}-{y0 + hb - m - 1}:"
+            f" the narrow form on the band's tables = the wide form's rows "
+            f"bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"k10_k11_wide {label}: the wide form's "
+                                 "rows differ from the narrow form's")
+        del nb
+        want, plain_ms = timed_plain(twin_band)
+        err = band_hold(kernel, out, want, band, f"k10_k11_wide {label}")
+        return err, plain_ms
+
+    # K10: the accumulation blended into the planes (alpha mode)
+    b_prev, b_cur = in_band(prev), in_band(cur)
+    k10 = lambda: tmp.temporal_blend(t.abpar, prev, cur, t.grid_whd,
+                                     t.h_glob, kk, "alpha")
+    err, plain_ms = crossing(
+        "temporal_blend", k10,
+        lambda: tmp.temporal_blend(tb.abpar, b_prev, b_cur, tb.grid_whd,
+                                   tb.h_glob, kk, "alpha", form="narrow"),
+        lambda: tmp.temporal_blend_plain(tb.abpar, b_prev, b_cur,
+                                         tb.grid_whd, tb.h_glob, kk,
+                                         "alpha"), "alpha")
+    rows[("temporal_blend", "wide_k10_k11")] = wide_row(
+        "temporal_blend", "wide_k10_k11", k10, 3,
+        blend_work(shape, "temporal_blend"), err, plain_ms, 1,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del cur, b_cur
+    # K11: the accumulation at smooth targets x + ox(y, x), y + oy(z, y),
+    # z + oz(z, x)
+    ar = lambda n: torch.arange(n, dtype=torch.float32, device=prev.device)
+    lattice = lambda v: torch.round(v * 256.0) / 256.0
+    zs, ys, xs = ar(d), ar(h), ar(w)
+    ox = lattice(4.5 * torch.sin(0.031 * xs[None] + 0.017 * ys[:, None]))
+    oy = lattice(3.0 * torch.cos(0.023 * ys[None] + 0.05 * zs[:, None]))
+    oz = lattice(2.0 * torch.sin(0.041 * xs[None] - 0.07 * zs[:, None]))
+    tx = (xs + ox)[None].expand(d, h, w).contiguous()
+    ty = (ys[None] + oy)[:, :, None].expand(d, h, w).contiguous()
+    tz = (zs[:, None] + oz)[:, None, :].expand(d, h, w).contiguous()
+    del ox, oy, oz
+    b_t = [v[:, y0:y0 + hb].contiguous() for v in (tx, ty, tz)]
+    b_t[1] = b_t[1] - y0
+    k11 = lambda: wp.windowed_warp(prev, tx, ty, tz, kk)
+    err, plain_ms = crossing(
+        "windowed_warp", k11,
+        lambda: wp.windowed_warp(b_prev, *b_t, kk, form="narrow"),
+        lambda: wp.windowed_warp_plain(b_prev, *b_t, kk), "warp")
+    rows[("windowed_warp", "wide_k10_k11")] = wide_row(
+        "windowed_warp", "wide_k10_k11", k11, 3,
+        blend_work(shape, "windowed_warp"), err, plain_ms, 1,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    del prev, tx, ty, tz, b_t, b_prev, t, tb
+    torch.cuda.empty_cache()
+    log(f"# k10_k11_wide: {time.perf_counter() - t_path:.1f} s")
+    log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f} "
+        "s: k10_k11_wide")
+    return rows
+
+
+def band_pcf_tables(cfg, state, scene, dir_shadow, y0: int, rows: int):
+    """K12's tables of rows [y0, y0 + rows) of `cfg`'s grid, as the slab
+    path packs a slab's (band_tables)."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.parallel.shard_render import Slab
+    r = VolumetricRenderer(dataclasses.replace(
+        cfg, volume_height=rows, image_height=8 * rows))
+    slab = Slab(y0=float(y0), halo=0, grid_global=cfg.grid,
+                image_height_global=cfg.image_height)
+    return r.pcf_tables(state, scene, dir_shadow, slab)
+
+
+def history_map_wide_paths(cfg, scene, scene_color, view_depth, cuda,
+                           t_phase) -> dict:
+    """The history and shadow-map frames' crossing paths, each through the
+    entry point past the narrow forms' limits, with every other kernel of
+    its frame through to K4:
+      deep_history        HISTORY at 16x9x65664 froxels (DEEP), 2 frames:
+                          K11 (material and scatter blends) and K10 (the
+                          accumulation blend, alpha mode) past 65535 slices
+                          (two parts of their launch grids), K5 and K6 in
+                          their wide forms, K9 and K4 narrow, the plain
+                          blocked scan; each kernel held against its twin
+                          on the whole grid;
+      deep_map_full_rate  MAP_DIR with dir_shadow_subsample=1 at DEEP, 2
+                          frames: K12 on one sun's 65664 slices and K10's
+                          weight mode (the shadow blend) wide, K6 wide, K1,
+                          K3 and K4 narrow; each held against its twin on
+                          the whole grid;
+      many_suns_map_wide  MAP_DIR at full rate with 520 suns (104 copies of
+                          many_suns_scene's 5; the 5 suns' maps baked once
+                          and repeated), 2 frames: K12 on 520 x 128 =
+                          66,560 (sun, slice) pairs and [520, 128, 135, 240]
+                          volumes past 2^31 floats, K10's weight mode in
+                          130 narrow groups, K6's general wide form; K12 by
+                          copies (each = the narrow form's on the 5 suns
+                          bit for bit) and against the twin on a band of
+                          rows, K10's copies equal and its 5 suns against
+                          the twin, K6's planes against the twin on the
+                          band's tables.
+    Returns {(kernel, mode): row of the kernels line}."""
+    from volumetricrenderer_tpu_torch import (VolumetricRenderer,
+                                              benchmark_scene)
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import pcf_shadow as pcf
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    from volumetricrenderer_tpu_torch.ops import warp as wp
+    rows = {}
+
+    def done(name, t_path):
+        log(f"# {name}: {time.perf_counter() - t_path:.1f} s")
+        log(f"# elapsed in the wide phase {time.perf_counter() - t_phase:.1f}"
+            f" s: {name}")
+
+    def hold_twin(kernel, args, out, twin, label):
+        """A recorded call's output against its twin on the same inputs:
+        (max abs err, the twin's ms)."""
+        want, plain_ms = timed_plain(lambda: twin(*args))
+        return compare(kernel, out, want, label=label), plain_ms
+
+    # deep_history
+    t_path = time.perf_counter()
+    d_scene = benchmark_scene(aspect=DEEP["image_width"]
+                              / DEEP["image_height"], num_local_lights=16,
+                              noise_mode="procedural")
+    h_r = VolumetricRenderer(dataclasses.replace(cfg, **HISTORY, **DEEP))
+    d_col, d_dep = h_r.render_scene_inputs(d_scene)
+    _, _, rec, _, _ = drive_wide(
+        "deep_history", h_r, d_scene, d_col, d_dep, 2,
+        {"windowed_warp": 2, "shadow_blend": 1, "bake_visibility": 1,
+         "scatter": 1, "temporal_blend": 1, "composite": 1},
+        {"windowed_warp": (0, 4), "temporal_blend": (0, 2),
+         "shadow_blend": (0, 2), "scatter": (0, 2),
+         "bake_visibility": (2, 0)}, cuda)
+    warps = [(a, o) for k_, a, o in rec["calls"] if k_ == "windowed_warp"]
+    log(f"# deep_history: K10's and K11's launch grids in "
+        f"{len(cuda.grid_parts(DEEP['volume_depth']))} parts "
+        f"{cuda.grid_parts(DEEP['volume_depth'])}")
+    errs11 = [hold_twin("windowed_warp", a, o, wp.windowed_warp_plain,
+                        f"deep_history {blend} blend")[0]
+              for (a, o), blend in zip(warps, ("material", "scatter"))]
+    plain11 = timed_plain(lambda: wp.windowed_warp_plain(*warps[-1][0]))[1]
+    a10, o10 = rec["temporal_blend"]
+    err10, plain10 = hold_twin("temporal_blend", a10, o10,
+                               tmp.temporal_blend_plain,
+                               "deep_history, alpha mode")
+    hold_twin("shadow_blend", *rec["shadow_blend"],
+              sb.dir_shadow_blend_plain, "deep_history")
+    hold_twin("scatter", *rec["scatter"], sca.scatter_local_plain,
+              "deep_history (baked visibility, material planes)")
+    hold_twin("bake_visibility", *rec["bake_visibility"],
+              vis.bake_visibility_plain, "deep_history (narrow)")
+    rows[("temporal_blend", "wide_deep_history")] = wide_row(
+        "temporal_blend", "wide_deep_history",
+        lambda: tmp.temporal_blend(*a10), 5,
+        blend_work(tuple(a10[1].shape), "temporal_blend"), err10, plain10,
+        2, "the whole grid's twin (alpha mode)")
+    rows[("windowed_warp", "wide_deep_history")] = wide_row(
+        "windowed_warp", "wide_deep_history",
+        lambda: wp.windowed_warp(*warps[-1][0]), 5,
+        blend_work(tuple(warps[-1][0][0].shape), "windowed_warp"),
+        max(errs11), plain11, 4,
+        "the whole grid's twin (material and scatter blends)")
+    del rec, warps, a10, o10
+    torch.cuda.empty_cache()
+    done("deep_history", t_path)
+
+    # deep_map_full_rate: one sun's 65664 slices on K12, K10 weight
+    t_path = time.perf_counter()
+    m_r = VolumetricRenderer(dataclasses.replace(
+        cfg, **MAP_DIR, dir_shadow_subsample=1, **DEEP))
+    m_col, m_dep = m_r.render_scene_inputs(d_scene)
+    maps = m_r.bake_shadow_data(d_scene)
+    _, _, rec, _, _ = drive_wide(
+        "deep_map_full_rate", m_r, d_scene, m_col, m_dep, 2,
+        {k: 1 for k in MAP_DIR_KERNELS},
+        {"pcf_shadow": (0, 2), "temporal_blend": (0, 2), "scatter": (0, 2),
+         "integrate_blend": (2, 0)}, cuda, maps)
+    a12, o12 = rec["pcf_shadow"]
+    log(f"# deep_map_full_rate: K12 on {a12[0].par.shape[0]} sun x "
+        f"{a12[0].grid_whd[2]} slices, its launch grid in "
+        f"{len(cuda.grid_parts(a12[0].grid_whd[2]))} parts")
+    err12, plain12 = hold_twin("pcf_shadow", a12, o12, pcf.pcf_shadow_plain,
+                               "deep_map_full_rate")
+    a10, o10 = rec["temporal_blend"]
+    err10, plain10 = hold_twin("temporal_blend", a10, o10,
+                               tmp.temporal_blend_plain,
+                               "deep_map_full_rate, weight mode")
+    hold_twin("scatter", *rec["scatter"], sca.scatter_local_plain,
+              "deep_map_full_rate")
+    hold_twin("bake_radiance", *rec["bake_radiance"], ff.bake_radiance_plain,
+              "deep_map_full_rate")
+    hold_twin("integrate_blend", *rec["integrate_blend"],
+              ff.integrate_blend_plain,
+              "deep_map_full_rate (narrow: 65664 slices a block)")
+    rows[("pcf_shadow", "wide_deep_map_full_rate")] = wide_row(
+        "pcf_shadow", "wide_deep_map_full_rate", lambda: pcf.pcf_shadow(*a12),
+        5, k12_work(*a12), err12, plain12, 2, "the whole grid's twin")
+    rows[("temporal_blend", "wide_deep_map_full_rate")] = wide_row(
+        "temporal_blend", "wide_deep_map_full_rate",
+        lambda: tmp.temporal_blend(*a10), 5,
+        blend_work(tuple(a10[1].shape), "temporal_blend"), err10, plain10,
+        2, "the whole grid's twin (weight mode)")
+    del rec, a12, o12, a10, o10, maps
+    torch.cuda.empty_cache()
+    done("deep_map_full_rate", t_path)
+
+    # many_suns_map_wide: 520 suns at full rate, the 5 suns' maps repeated
+    t_path = time.perf_counter()
+    base, copies = WIDE_SUN_COPIES
+    scn5 = many_suns_scene(scene, base, 1)
+    scn = dataclasses.replace(scn5, dir_lights=replicate(scn5.dir_lights,
+                                                         copies))
+    w_r = VolumetricRenderer(dataclasses.replace(
+        cfg, **MAP_DIR, dir_shadow_subsample=1))
+    dir5 = w_r.bake_shadow_data(scn5)[0]
+    per_sun = ("atlas", "world_to_uv", "split_spheres", "split_sq_radii",
+               "strength_r", "bias")
+    repeat = lambda n: dataclasses.replace(dir5, **{
+        f: torch.cat([getattr(dir5, f)] * n) for f in per_sun})
+    dir10 = w_r.bake_shadow_data(dataclasses.replace(
+        scn5, dir_lights=replicate(scn5.dir_lights, 2)))[0]
+    same = all(torch.equal(getattr(dir10, f), getattr(repeat(2), f))
+               for f in per_sun)
+    log(f"# many_suns_map_wide: the {base} suns' maps repeated twice = the "
+        f"bake of 2 copies' {2 * base} suns bit for bit: {same}")
+    if not same:
+        raise AssertionError("many_suns_map_wide: repeated maps differ from "
+                             "a bake of the copied suns")
+    del dir10
+    dir520 = repeat(copies)
+    _, prev, rec, _, _ = drive_wide(
+        "many_suns_map_wide", w_r, scn, scene_color, view_depth, 2,
+        {"pcf_shadow": 1, "temporal_blend": copies * base // 4,
+         "bake_radiance": 1, "scatter": 1, "integrate_blend": 1,
+         "composite": 1},
+        {"pcf_shadow": (0, 2), "temporal_blend": (copies * base // 2, 0),
+         "scatter": (0, 2), "integrate_blend": (2, 0)}, cuda,
+        (dir520, None, None))
+    (t12, atlas), vol = rec["pcf_shadow"]
+    a10, bl = rec["temporal_blend"]
+    (t6, sh6, bake6, *_), sc = rec["scatter"]
+    nd, (w, h, d) = t12.par.shape[0], t12.grid_whd
+    log(f"# many_suns_map_wide: K12 on {nd} suns x {d} slices = {nd * d} "
+        f"(sun, slice) pairs ({len(cuda.grid_parts(nd * d))} parts), "
+        f"[{nd}, {d}, {h}, {w}] = {vol.numel()} floats (past 2^31 - 1: "
+        f"{vol.numel() > cuda.INT32_MAX}); K10 blended it in "
+        f"{len(tmp.channel_groups(nd, 'weight'))} groups; K6 read K10's: "
+        f"{sh6 is bl}")
+    if nd * d <= cuda.MAX_GRID_Z or vol.numel() <= cuda.INT32_MAX \
+            or sh6 is not bl:
+        raise AssertionError("many_suns_map_wide passes neither edge, or K6 "
+                             "did not read K10's blend")
+    del rec
+    # K12 by copies: each = the narrow form's on the 5 suns' tables
+    t5 = w_r.pcf_tables(prev, scn5, dir5)
+    v5 = pcf.pcf_shadow(t5, dir5.atlas, form="narrow")
+    same = all(torch.equal(vol[c * base:(c + 1) * base], v5)
+               for c in range(copies))
+    # K10: the copies' blends equal (their inputs are), the 5 suns against
+    # the twin on the whole grid
+    same10 = all(torch.equal(bl[c * base:(c + 1) * base], bl[:base])
+                 for c in range(1, copies))
+    log(f"# many_suns_map_wide, replication holds: each of the {copies} "
+        f"copies' K12 volumes = the narrow form's on the {base}-sun "
+        f"tables bit for bit: {same}; each copy's K10 blend = the first's: "
+        f"{same10}")
+    if not (same and same10):
+        raise AssertionError("many_suns_map_wide: a copy differs")
+    del v5, t5
+    bpar, p_sh, cur = a10[:3]
+    want, plain10 = timed_plain(lambda: tmp.temporal_blend_plain(
+        bpar, p_sh[:base].contiguous(), cur[:base].contiguous(), *a10[3:]))
+    err10 = compare("temporal_blend", bl[:base].contiguous(), want,
+                    label=f"many_suns_map_wide, the first {base} suns")
+    del want
+    rows[("temporal_blend", "narrow_many_suns_map")] = wide_row(
+        "temporal_blend", "narrow_many_suns_map",
+        lambda: tmp.temporal_blend(*a10), 3,
+        blend_work(tuple(p_sh.shape), "temporal_blend"), err10, plain10,
+        2 * len(tmp.channel_groups(nd, "weight")),
+        f"copies equal; the twin on the first {base} suns (its time)")
+    del a10, bpar, p_sh, cur
+    # K12 and K6 on a band of rows against the twin on the band's tables
+    y0, hb, _ = WIDE_BAND
+    tb12 = band_pcf_tables(w_r.config, prev, scn, dir520, y0, hb)
+    want, plain12 = timed_plain(lambda: pcf.pcf_shadow_plain(tb12, atlas))
+    err12 = band_hold("pcf_shadow", vol, want, WIDE_BAND,
+                      "many_suns_map_wide")
+    del want, tb12
+    rows[("pcf_shadow", "wide_many_suns_map")] = wide_row(
+        "pcf_shadow", "wide_many_suns_map", lambda: pcf.pcf_shadow(t12, atlas),
+        3, k12_work(t12, atlas), err12, plain12, 2,
+        f"the twin on band rows {y0}-{y0 + hb - 1}; each copy = the narrow "
+        f"form on the {base} suns")
+    del vol
+    tb = band_tables(w_r.config, prev, scn, 0.1, *WIDE_BAND[:2])
+    sh_band = bl[:, :, y0:y0 + hb].contiguous()
+    want, plain6 = timed_plain(lambda: sca.scatter_local_plain(
+        tb, sh_band, ff.bake_radiance_plain(tb)))
+    err6 = band_hold("scatter", sc, want, WIDE_BAND,
+                     "many_suns_map_wide planes")
+    del want, sh_band, tb
+    rows[("scatter", "wide_many_suns_map")] = wide_row(
+        "scatter", "wide_many_suns_map",
+        lambda: sca.scatter_local(t6, sh6, bake6), 3,
+        fused_work(t6, "scatter"), err6, plain6, 2,
+        f"the twin on band rows {y0}-{y0 + hb - 1}")
+    log(f"# many_suns_map_wide: K10's {base} distinct suns against the "
+        f"twin, max abs err {err10:.3e}")
+    del prev, t12, atlas, bl, t6, sh6, bake6, sc, dir520, dir5
+    torch.cuda.empty_cache()
+    done("many_suns_map_wide", t_path)
     return rows
 
 
@@ -4248,9 +4737,9 @@ def main() -> int:
     del d_img2
 
     done("the main paths")
-    # from here to the end of the holds every hold of K2, K3, K5, K6, K7, K8
-    # and K9 is repeated in the wide form (WideHolds)
-    WIDE.install(wide_wrappers(ff, vis, sb, sca, ds, integ))
+    # from here to the end of the holds every hold of K2, K3 and K5-K12 is
+    # repeated in the wide form (WideHolds)
+    WIDE.install(wide_wrappers(ff, vis, sb, sca, ds, integ, tmp, wp, pcf))
     # 5. each kernel against its twin on the inputs of frame 4 (index 3);
     # the fused and staged configs pack the same tables
     prev = states[3]
@@ -4649,10 +5138,12 @@ def main() -> int:
     blend_a = lambda: tmp.temporal_blend(tables.abpar, prev_acc, acc_un, whd,
                                          hg, kk, "alpha")
     weight_err = compare("temporal_blend", blend_w(), tmp.temporal_blend_plain(
-        tables.sbpar, prev_sh, unblended, whd, hg, kk, "weight"))
+        tables.sbpar, prev_sh, unblended, whd, hg, kk, "weight"),
+        label="weight mode")
     errs["temporal_blend"] = compare(
         "temporal_blend", blend_a(), tmp.temporal_blend_plain(
-            tables.abpar, prev_acc, acc_un, whd, hg, kk, "alpha"))
+            tables.abpar, prev_acc, acc_un, whd, hg, kk, "alpha"),
+        label="alpha mode")
     same_sb = torch.equal(blend_w(), sb.dir_shadow_blend(tables, prev_sh))
     same_ib = torch.equal(blend_a(), acc)
     log(f"# K7 then K10 (weight) = K5 bit for bit: {same_sb}; K8 then K10 "
@@ -4733,9 +5224,11 @@ def main() -> int:
         f"cascades per slice (low) {pcf_low.count[0].tolist()}")
     k12_low = pcf.pcf_shadow(pcf_low, m_dir.atlas)
     errs["pcf_shadow"] = compare("pcf_shadow", k12_low,
-                                 pcf.pcf_shadow_plain(pcf_low, m_dir.atlas))
+                                 pcf.pcf_shadow_plain(pcf_low, m_dir.atlas),
+                                 label="low rate")
     full_err = compare("pcf_shadow", pcf.pcf_shadow(pcf_full, f_dir.atlas),
-                       pcf.pcf_shadow_plain(pcf_full, f_dir.atlas))
+                       pcf.pcf_shadow_plain(pcf_full, f_dir.atlas),
+                       label="full rate")
     errs["pcf_shadow"] = max(errs["pcf_shadow"], full_err)
     # K12 on map_dir's tables with a second sun: one launch for both suns,
     # each sun's volume = its one-sun launch's bit for bit
@@ -5349,8 +5842,8 @@ def main() -> int:
 
     n_wide = len(WIDE.errs)
     WIDE.uninstall()
-    log(f"# the wide forms forced in every hold of K2, K3, K5, K6, K7, K8 and "
-        f"K9: {n_wide} "
+    log(f"# the wide forms forced in every hold of K2, K3 and K5-K12: "
+        f"{n_wide} "
         f"holds, each = the narrow form bit for bit; the largest against the "
         f"twins: " + json.dumps({k: max(e for (k_, _), e in WIDE.errs.items()
                                         if k_ == k)
@@ -5911,6 +6404,27 @@ def main() -> int:
         wide_forced[("scatter", f"wide_forced_{m}")] = (
             lambda f, a=a: sca.scatter_local(*a, form=f), mode_plain_ms[m],
             mode_work[m], (m.replace("_", " x "),), 20)
+    # the history and shadow-map frames' K10 (both modes), K11 and K12 (low
+    # and full rate)
+    wide_forced.update({
+        ("temporal_blend", "wide_forced_weight"): (
+            lambda f: tmp.temporal_blend(tables.sbpar, prev_sh, unblended,
+                                         whd, hg, kk, "weight", form=f),
+            weight_plain_ms, weight_work, ("weight mode",), 20),
+        ("temporal_blend", "wide_forced_alpha"): (
+            lambda f: tmp.temporal_blend(tables.abpar, prev_acc, acc_un, whd,
+                                         hg, kk, "alpha", form=f),
+            plain_ms["temporal_blend"], work["temporal_blend"],
+            ("alpha mode",), 20),
+        ("windowed_warp", "wide_forced"): (
+            lambda f: wp.windowed_warp(h_prev_sc, tx, ty, tz, kk, form=f),
+            plain_ms["windowed_warp"], work["windowed_warp"], ("main",), 20),
+        ("pcf_shadow", "wide_forced_low"): (
+            lambda f: pcf.pcf_shadow(pcf_low, m_dir.atlas, form=f),
+            plain_ms["pcf_shadow"], work["pcf_shadow"], ("low rate",), 20),
+        ("pcf_shadow", "wide_forced_full"): (
+            lambda f: pcf.pcf_shadow(pcf_full, f_dir.atlas, form=f),
+            pcf_full_plain_ms, pcf_work(pcf_full), ("full rate",), 20)})
     forced_rows = wide_forced_rows(wide_forced)
     # K4 at 4K: the accumulation, depth and scene in, the image out; the
     # co-sited planes at 1920x1080: no scene, four planes out

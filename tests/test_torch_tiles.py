@@ -9,9 +9,10 @@ mirror them, the reach of the reprojection region and of K11's staged
 targets, K1's and K9's share of each sample's lights among their warps,
 K13's packed tap table, its first-hit march and its forms by the table's
 size (k13_form: the GEN instance past 32 taps a bin, the table opted in
-past 48 KB and in device memory past 227 KB), and the wrappers' refusal
-of tables and volumes the kernels cannot index in 32 bits or whose region
-or table passes shared memory. Plain Python and torch on the CPU (meta
+past 48 KB and in device memory past 227 KB), the narrow index forms'
+refusal (forced) of tables and volumes past 32-bit indices, where the size
+rules take the wide forms, and the wrappers' refusal of a region or table
+past shared memory. Plain Python and torch on the CPU (meta
 tensors for the large grids); no JAX."""
 
 import dataclasses
@@ -358,26 +359,36 @@ def test_k11_staged_region_covers_every_target_tap(grid, k):
 @pytest.mark.parametrize("shape", [(4, 128, 2048, 2048), (1, 65536, 8, 8),
                                    (2, 256, 2048, 2048)])
 def test_k10_k11_refuse_indices_past_32_bits(shape):
-    """K10's and K11's wrappers raise ValueError, before any launch, for a
-    volume of more than 2^31 - 1 floats or more than 65535 slices; one
-    froxel row fewer passes the check and is refused only for not being on
-    CUDA."""
+    """K10's and K11's narrow forms, forced, raise ValueError, naming the
+    kernel, before any launch for a volume of more than 2^31 - 1 floats or
+    more than 65535 slices; their size rules take the wide forms there
+    (ops/temporal.k10_form, ops/warp.k11_form), and the wrappers go on to
+    refuse only the meta tensors (not on CUDA). One froxel row fewer takes
+    the narrow forms."""
     c, d, h, w = shape
     vol = torch.empty(shape, device="meta")
     tgt = torch.empty(shape[1:], device="meta")
     bpar = torch.empty((1, 24), device="meta")
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    with pytest.raises(ValueError, match="K11's narrow form.*(2\\^31|65535)"):
+        t_wp.windowed_warp(vol, tgt, tgt, tgt, 4, form="narrow")
+    with pytest.raises(ValueError, match="K10's narrow form.*(2\\^31|65535)"):
+        t_tmp.temporal_blend(bpar, vol, vol, (w, h, d), h, 4, "alpha",
+                             form="narrow")
+    assert t_wp.k11_form(shape) == t_tmp.k10_form(shape) == "wide"
+    with pytest.raises(ValueError, match="CUDA"):
         t_wp.windowed_warp(vol, tgt, tgt, tgt, 4)
-    with pytest.raises(ValueError, match="2\\^31|65535"):
+    with pytest.raises(ValueError, match="CUDA"):
         t_tmp.temporal_blend(bpar, vol, vol, (w, h, d), h, 4, "alpha")
     if d <= t_sca.MAX_GRID_Z:
-        vol = torch.empty((c, d, h - 1, w), device="meta")
+        fewer = (c, d, h - 1, w)
+        assert t_wp.k11_form(fewer) == t_tmp.k10_form(fewer) == "narrow"
+        vol = torch.empty(fewer, device="meta")
         tgt = torch.empty((d, h - 1, w), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
-            t_wp.windowed_warp(vol, tgt, tgt, tgt, 4)
+            t_wp.windowed_warp(vol, tgt, tgt, tgt, 4, form="narrow")
         with pytest.raises(ValueError, match="CUDA"):
             t_tmp.temporal_blend(bpar, vol, vol, (w, h - 1, d), h, 4,
-                                 "weight")
+                                 "weight", form="narrow")
 
 
 @pytest.mark.parametrize("kernel", ["K10", "K11"])
@@ -733,19 +744,20 @@ def _pcf_meta(grid, nd, s2, nc=4):
     ((8, 8, 32768), 2, 64, True),          # 65536 slices of both suns
     ((8, 8, 65535), 1, 64, False)])
 def test_k12_refuses_indices_past_32_bits(grid, nd, s2, refused):
-    """K12's wrapper raises ValueError, before the launch, for volumes or
-    atlases past 2^31 - 1 floats or a launch grid past 65535 slices of
-    all suns, as its launcher refuses them; just under each limit it goes
-    on to refuse only the meta tensors (not on CUDA)."""
+    """K12's narrow form, forced, raises ValueError, naming K12, before the
+    launch for volumes or atlases past 2^31 - 1 floats or a launch grid past
+    65535 (sun, slice) pairs, as its launcher refuses them; its size rule
+    (ops/pcf_shadow.k12_form) takes the wide form there. Just under each
+    limit the rule takes the narrow form. Either way the wrapper goes on to
+    refuse only the meta tensors (not on CUDA)."""
     t, atlas = _pcf_meta(grid, nd, s2)
-    with pytest.raises(ValueError, match="2\\^31|65535" if refused
-                       else "CUDA"):
-        t_pcf.pcf_shadow(t, atlas)
     if refused:
-        with pytest.raises(ValueError, match="2\\^31|65535"):
-            t_pcf.check_indices(t, atlas)
-    else:
-        t_pcf.check_indices(t, atlas)
+        with pytest.raises(ValueError,
+                           match="K12's narrow form.*(2\\^31|65535)"):
+            t_pcf.pcf_shadow(t, atlas, form="narrow")
+    assert t_pcf.k12_form(t, atlas) == ("wide" if refused else "narrow")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_pcf.pcf_shadow(t, atlas)
 
 
 @pytest.mark.parametrize("n_lights,low,want", [

@@ -1,10 +1,13 @@
 """The index forms of the fused frame's kernels K1, K2, K3 and K9
 (csrc/bake_radiance.cu, csrc/shadow_scatter.cu, csrc/integrate_blend.cu,
-csrc/bake_visibility.cu) and of the staged frame's K5, K6, K7 and K8
+csrc/bake_visibility.cu), of the staged frame's K5, K6, K7 and K8
 (csrc/shadow_blend.cu, csrc/scatter.cu, csrc/dir_shadow.cu,
-csrc/integrate.cu): each kernel refuses only what it indexes, and K2, K3,
-K5, K6, K7, K8 and K9 take a wide form (64-bit indices, the slices or rows
-launched in parts of at most 65535) past their narrow one. The wrappers'
+csrc/integrate.cu) and of the history and shadow-map frames' K10, K11 and
+K12 (csrc/temporal_blend.cu, csrc/windowed_warp.cu, csrc/pcf_shadow.cu):
+each kernel refuses only what it indexes, and K2, K3 and K5-K12 take a wide
+form (64-bit indices, the slices, rows or (sun, slice) pairs launched in
+parts of at most 65535) past their narrow one; K10 and K11 judge each
+launch of a channel group. The wrappers'
 form mirrors at their edges by arithmetic, the wrappers' arguments on meta
 tensors against the entry point each launches (the launch stubbed), and
 the parts of a launch-grid axis. Plain Python and torch on the CPU; no
@@ -20,9 +23,12 @@ from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops import dir_shadow as t_ds
 from volumetricrenderer_tpu_torch.ops import frame_fused as t_ff
 from volumetricrenderer_tpu_torch.ops import integrate as t_int
+from volumetricrenderer_tpu_torch.ops import pcf_shadow as t_pcf
 from volumetricrenderer_tpu_torch.ops import scatter as t_sca
 from volumetricrenderer_tpu_torch.ops import shadow_blend as t_sb
+from volumetricrenderer_tpu_torch.ops import temporal as t_tmp
 from volumetricrenderer_tpu_torch.ops import visibility as t_vis
+from volumetricrenderer_tpu_torch.ops import warp as t_wp
 
 RAD, RAY, BAKED = t_sca.LOCAL_RADIANCE, t_sca.LOCAL_RAY, t_sca.LOCAL_BAKED
 EDGE = 2 ** 31 - 1
@@ -486,3 +492,231 @@ def test_staged_past_the_wide_forms_is_refused_before_the_launch(
     with pytest.raises(ValueError, match="K6: form 'huge'"):
         t_sca.k6_form(tables, RAD, "huge")
     assert calls == []
+
+
+# ---- the history and shadow-map frames' K10, K11 and K12 ------------------
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _pcf(grid, nd, s2=64, nc=4):
+    """K12's tables for nd suns on `grid` and their atlases, as meta
+    tensors."""
+    w, h, d = grid
+    t = t_pcf.PcfTables(
+        par=_meta(nd, 24), coef=_meta(nd, d, nc, 8),
+        order=_meta(nd, d, nc, dtype=torch.int32),
+        count=_meta(nd, d, dtype=torch.int32), spheres=_meta(nd, nc, 4),
+        grid_whd=grid, h_glob=h)
+    return t, _meta(nd, s2, s2)
+
+
+# one launch's [C, D, H, W] volume (a channel group) and its form: 2^31 - 1
+# and 2^31 floats, 65535 and 65536 slices, FULL_CONFIG and DEEP
+K10_K11_CASES = [
+    ((1, 1, 1, EDGE), "narrow"),
+    ((2, 1, 1, 2 ** 30), "wide"),
+    ((1, 1, 2, 2 ** 30), "wide"),
+    ((4, 128, 2048, 2047), "narrow"),
+    ((4, 128, 2048, 2048), "wide"),
+    ((1, 65535, 8, 8), "narrow"),
+    ((1, 65536, 8, 8), "wide"),
+    ((4, 128, 135, 240), "narrow"),      # FULL_CONFIG's accumulation
+    ((4, 65664, 9, 16), "wide"),         # DEEP: deep_history's blends
+    ((4, 520, 1024, 1024), "wide"),      # k10_k11_wide: 2,181,038,080
+]
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K11"])
+@pytest.mark.parametrize("shape,form", K10_K11_CASES)
+def test_k10_k11_form_at_their_edges(kernel, shape, form):
+    """K10's and K11's narrow forms up to 2^31 - 1 floats of a launch's
+    volume and 65535 slices, the wide forms past them; forcing the narrow
+    form past its edge is refused by the kernel's name."""
+    mirror = t_tmp.k10_form if kernel == "K10" else t_wp.k11_form
+    assert mirror(shape) == form
+    assert mirror(shape, "wide") == "wide"
+    if form == "wide":
+        with pytest.raises(ValueError, match=f"{kernel}'s narrow form.*"
+                           "(2\\^31|65535)"):
+            mirror(shape, "narrow")
+
+
+def test_k11_judges_each_channel_group(monkeypatch):
+    """K11 launches 4 channels at a time, and each launch indexes its own
+    group: an [8, D, H, W] volume past 2^31 floats whose groups hold 2^30
+    each takes the narrow form in both launches (the whole volume was
+    refused before); a [5, D, H, W] volume whose first group passes 2^31
+    floats launches that group wide and its last channel narrow."""
+    calls = _stub_launch(monkeypatch)
+    d, h, w = 128, 1024, 2048
+    assert cuda.past_int32("the volume", 8, d, h, w) is not None
+    tgt = _meta(d, h, w)
+    t_wp.windowed_warp(_meta(8, d, h, w), tgt, tgt, tgt, 4)
+    assert [(a[5], a[-1]) for _, _, a in calls] == [(4, 0), (4, 0)]
+    calls.clear()
+    w = 4096
+    tgt = _meta(d, h, w)
+    t_wp.windowed_warp(_meta(5, d, h, w), tgt, tgt, tgt, 4)
+    assert [(a[5], a[-1]) for _, _, a in calls] == [(4, 1), (1, 0)]
+    assert t_wp.channel_groups(5) == [(0, 4), (4, 1)]
+
+
+def test_k10_weight_groups_each_narrow(monkeypatch):
+    """K10's weight mode over 520 suns' shadows [520, 128, 135, 240] (past
+    2^31 floats: many_suns_map_wide) launches 130 groups of 4 channels,
+    each under 2^31 floats and narrow; the alpha mode on DEEP's 65,664
+    slices launches wide."""
+    calls = _stub_launch(monkeypatch)
+    vol = _meta(520, 128, 135, 240)
+    assert vol.numel() > EDGE
+    t_tmp.temporal_blend(_meta(1, 24), vol, vol, (240, 135, 128), 135, 4,
+                         "weight")
+    assert len(calls) == 130
+    assert {(name, entry, a[4], a[-1]) for name, entry, a in calls} == {
+        ("temporal_blend", "vr_temporal_blend_form", 4, 0)}
+    calls.clear()
+    vol = _meta(4, 65664, 9, 16)
+    t_tmp.temporal_blend(_meta(1, 24), vol, vol, (16, 9, 65664), 9, 4,
+                         "alpha")
+    assert [(a[4], a[-1]) for _, _, a in calls] == [(4, 1)]
+
+
+# (grid, suns, atlas side, form): the volumes, the atlases and the
+# (sun, slice) pairs of the launch grid at their edges
+K12_CASES = [
+    ((EDGE, 1, 1), 1, 64, "narrow"),
+    ((2 ** 30, 2, 1), 1, 64, "wide"),
+    ((16, 15, 16), 1, 46340, "narrow"),     # 2,147,395,600 texels
+    ((16, 15, 16), 1, 46341, "wide"),
+    ((8, 8, 65535), 1, 64, "narrow"),
+    ((8, 8, 65536), 1, 64, "wide"),
+    ((240, 135, 128), 511, 64, "narrow"),   # 65,408 pairs
+    ((240, 135, 128), 512, 64, "wide"),     # 65,536
+    ((16, 9, 65664), 1, 1024, "wide"),      # deep_map_full_rate
+    ((240, 135, 128), 520, 1024, "wide"),   # many_suns_map_wide
+    ((120, 135, 64), 1, 1024, "narrow"),    # map_dir, low rate
+]
+
+
+@pytest.mark.parametrize("grid,nd,s2,form", K12_CASES)
+def test_k12_form_at_its_edges(grid, nd, s2, form):
+    """K12's narrow form up to 2^31 - 1 floats of volumes and atlases and
+    65535 (sun, slice) pairs (511 suns at 128 slices, 512 past), the wide
+    form past them; forcing the narrow form past its edge is refused by
+    name."""
+    t, atlas = _pcf(grid, nd, s2)
+    assert t_pcf.k12_form(t, atlas) == form
+    if form == "wide":
+        with pytest.raises(ValueError, match="K12's narrow form.*"
+                           "(2\\^31|65535)"):
+            t_pcf.k12_form(t, atlas, "narrow")
+
+
+# (kernel, the [C, D, H, W] volume or (grid, suns), forced form, the form
+# argument of each launch)
+HISTORY_MAP_LAUNCHES = [
+    ("K10 alpha", (4, 65664, 9, 16), None, [1]),
+    ("K10 alpha", (4, 128, 135, 240), None, [0]),
+    ("K10 alpha", (4, 128, 135, 240), "wide", [1]),
+    ("K10 weight", (6, 65664, 9, 16), None, [1, 1]),
+    ("K10 weight", (1, 128, 135, 240), "narrow", [0]),
+    ("K11", (4, 65664, 9, 16), None, [1]),
+    ("K11", (4, 128, 135, 240), None, [0]),
+    ("K11", (6, 128, 135, 240), "wide", [1, 1]),
+    ("K12", ((16, 9, 65664), 1), None, [1]),
+    ("K12", ((240, 135, 128), 520), None, [1]),
+    ("K12", ((120, 135, 64), 1), None, [0]),
+    ("K12", ((120, 135, 64), 2), "wide", [1]),
+]
+
+
+@pytest.mark.parametrize("kernel,shape,forced,form_args",
+                         HISTORY_MAP_LAUNCHES)
+def test_history_map_wrappers_launch_past_32_bits(kernel, shape, forced,
+                                                  form_args, monkeypatch):
+    """K10's, K11's and K12's wrappers launch their source's form-taking
+    entry point, with the declared argument count and the form argument
+    last before the stream: the size rule's for each launch, or the forced
+    one."""
+    calls = _stub_launch(monkeypatch)
+    if kernel == "K12":
+        t, atlas = _pcf(*shape)
+        t_pcf.pcf_shadow(t, atlas, form=forced)
+        name = "pcf_shadow"
+    elif kernel == "K11":
+        c, d, h, w = shape
+        tgt = _meta(d, h, w)
+        t_wp.windowed_warp(_meta(*shape), tgt, tgt, tgt, 4, form=forced)
+        name = "windowed_warp"
+    else:
+        c, d, h, w = shape
+        vol = _meta(*shape)
+        t_tmp.temporal_blend(_meta(1, 24), vol, vol, (w, h, d), h, 4,
+                             kernel.split()[1], form=forced)
+        name = "temporal_blend"
+    entry = f"vr_{name}_form"
+    assert [(n, e) for n, e, _ in calls] == [(name, entry)] * len(form_args)
+    assert all(len(a) + 1 == len(_declared(name, entry)) for _, _, a in calls)
+    assert [a[-1] for _, _, a in calls] == form_args
+
+
+def test_history_map_past_the_wide_forms_is_refused_before_the_launch(
+        monkeypatch):
+    """What K10's, K11's or K12's wide form cannot index is refused by the
+    kernel's name before any launch: more than 65535 tiles of 16 rows on
+    the launch grid's y axis, and K12's per-sun cascade table [D, C, 8] of
+    2^31 floats (its in-sun index stays 32-bit); an unknown form too."""
+    calls = _stub_launch(monkeypatch)
+    h = 16 * 65535 + 1
+    vol, tgt = _meta(1, 1, h, 16), _meta(1, h, 16)
+    with pytest.raises(ValueError, match="K10's wide form.*row tiles.*65535"):
+        t_tmp.temporal_blend(_meta(1, 24), vol, vol, (16, h, 1), h, 4,
+                             "weight")
+    with pytest.raises(ValueError, match="K11's wide form.*row tiles.*65535"):
+        t_wp.windowed_warp(vol, tgt, tgt, tgt, 4)
+    t, atlas = _pcf((16, h, 1), 1)
+    with pytest.raises(ValueError, match="K12's wide form.*row tiles.*65535"):
+        t_pcf.pcf_shadow(t, atlas)
+    assert t_pcf.k12_form(*_pcf((16, h - 1, 1), 1)) == "narrow"
+    t, atlas = _pcf((1, 1, 2 ** 26), 1)       # 2^26 x 4 x 8 = 2^31
+    with pytest.raises(ValueError, match="K12's wide form.*cascade table"):
+        t_pcf.pcf_shadow(t, atlas)
+    assert t_pcf.k12_form(*_pcf((1, 1, 2 ** 26 - 1), 1)) == "wide"
+    with pytest.raises(ValueError, match="K12: form 'huge'"):
+        t_pcf.k12_form(*_pcf((16, 15, 16), 1), "huge")
+    with pytest.raises(ValueError, match="K10: form 'huge'"):
+        t_tmp.k10_form((1, 16, 15, 16), "huge")
+    assert calls == []
+
+
+@pytest.mark.parametrize("grid,nd,part", [((37, 21, 2), 3, 4),
+                                          ((16, 15, 16), 5, 7),
+                                          ((16, 9, 5), 2, 3)])
+def test_k12_wide_parts_cover_each_froxel_once(grid, nd, part):
+    """K12's wide form launches its flat (sun, slice) axis of nd x D
+    blocks in parts (65535 on the card, `part` here); a block's flat index
+    is its part's first plus blockIdx.z, split into (sun, slice) after
+    that, its output at ((flat H) + y) W + x, as csrc/pcf_shadow.cu
+    reckons them: every froxel of every sun once, in the narrow form's
+    place."""
+    w, h, d = grid
+    gx, gy, _ = t_pcf.k12_grid(grid, nd)
+    rows = t_pcf.K12_ROWS_PER_THREAD
+    ty_n = t_pcf.K12_TILE[1] // rows
+    seen = torch.zeros(nd * d * h * w, dtype=torch.int64)
+    for b0 in range(0, nd * d, part):
+        bz = b0 + torch.arange(min(part, nd * d - b0))
+        sun, z = bz // d, bz - (bz // d) * d
+        assert bool(((sun * d + z) == bz).all())
+        by, bx, j, ty, tx = torch.meshgrid(
+            torch.arange(gy), torch.arange(gx), torch.arange(rows),
+            torch.arange(ty_n), torch.arange(t_pcf.K12_TILE[0]),
+            indexing="ij")
+        x = (bx * t_pcf.K12_TILE[0] + tx).reshape(-1)
+        y = (by * t_pcf.K12_TILE[1] + ty + ty_n * j).reshape(-1)
+        keep = (x < w) & (y < h)
+        flat = ((bz[:, None] * h + y[None]) * w + x[None])[:, keep]
+        seen += torch.bincount(flat.reshape(-1), minlength=seen.numel())
+    assert bool((seen == 1).all())

@@ -28,7 +28,9 @@ this tree's K10 and K11 and with each other checkout's swapped in, in the
 order this, other, other, this. Prints the card's name and power limit
 first and a JSON line of the rows last. Exits non-zero on a disagreement
 or without a GPU. The other checkouts' kernels take the same arguments
-(vr_temporal_blend, vr_windowed_warp).
+(vr_temporal_blend, vr_windowed_warp; a tree with index forms at its
+vr_temporal_blend_form and vr_windowed_warp_form, called there in the size
+rule's form).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from k3_k4_against import spin_time_ms  # noqa: E402
+from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
 
 SOURCES = ("temporal_blend", "windowed_warp")
 # (path, K10 modes recorded, K11 recorded)
@@ -59,16 +61,22 @@ BUSY_PATHS = ("history", "xla_shadow", "map_dir")
 
 
 def declare(libs: dict) -> dict:
-    """The launch entry points' argument types, as ops/cuda declares them."""
+    """Each other library's launch in the size rule's form at its
+    `vr_<name>` (rule_entry), with the argument types ops/cuda declares;
+    and, for a tree from before the index forms, a `vr_<name>_form` that
+    takes the narrow form alone, which this tree's wrappers launch when the
+    library is swapped in (frame_busy)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["temporal_blend"].vr_temporal_blend.argtypes = (
-        [vp] * 4 + [ci] * 7 + [vp])
-    libs["windowed_warp"].vr_windowed_warp.argtypes = (
-        [vp] * 5 + [ci] * 5 + [vp])
-    for lib in libs.values():
-        for name in ("vr_temporal_blend", "vr_windowed_warp"):
-            if hasattr(lib, name):
-                getattr(lib, name).restype = ci
+    for name, argtypes in (("temporal_blend", [vp] * 4 + [ci] * 7 + [vp]),
+                           ("windowed_warp", [vp] * 5 + [ci] * 5 + [vp])):
+        lib = libs[name]
+        had_form = getattr(lib, f"vr_{name}_form", None) is not None
+        rule = rule_entry(lib, name, argtypes)
+        setattr(lib, f"vr_{name}", rule)
+        if not had_form:
+            setattr(lib, f"vr_{name}_form",
+                    lambda *a, rule=rule: rule(*a[:-2], a[-1])
+                    if a[-2] <= 0 else 1)
     return libs
 
 

@@ -10,9 +10,11 @@ flags, then renders 2 frames of each path of chip_smoke.py below,
 recording the inputs of each kernel's last launch by row:
 
   K12  map_dir (the low-rate grid, 120x135x64), map_dir_full_rate
-       (240x135x128) and demo_map_dir; and map_dir's tables with a second
+       (240x135x128) and demo_map_dir; map_dir's tables with a second
        sun (chip_smoke.two_suns: one launch here, two for a tree that
-       launches a sun at a time);
+       launches a sun at a time); and map_dir's tables on a slab's rows
+       (chip_smoke.band_pcf_tables: the slab form, its first row in the
+       tables);
   K9   vis_bake, history, demo_vis_hf (one spot light whose rays march the
        terrain) and vis_bake's configuration on
        benchmark_scene(num_local_lights=40).
@@ -60,6 +62,9 @@ ROWS = {"map_dir": ("map_dir", "bench", "pcf_shadow"),
         "demo_vis_hf": ("demo_vis_hf", "demo", "bake_visibility"),
         "vis_bake, 40 lights": ("vis_bake", "bench40", "bake_visibility")}
 BUSY_PATHS = ("map_dir", "map", "vis_bake", "history")
+# K12's slab row: the first row and the rows of slab3's middle shard with
+# its halo (parallel/shard_render)
+SLAB_ROWS = (39, 57)
 
 
 def declare(libs: dict) -> dict:
@@ -190,6 +195,16 @@ def record_rows(chip_smoke, modules, scenes) -> dict:
     if missing:
         raise RuntimeError(f"no launch recorded for {missing}")
     records["map_dir, 2 suns"] = chip_smoke.two_suns(*records["map_dir"])
+    # K12's slab form: map_dir's tables on a band of rows, as a slab3
+    # shard's with its halo (its first row y0 in the tables)
+    r, scn, colour, depth, maps, st = renderer_and_inputs(
+        chip_smoke, "map_dir", "bench", scenes)
+    for i in range(2):
+        _, _, st = r.render_frame(st, scn, 0.1 * i, colour, depth, maps)
+    y0, rows = SLAB_ROWS
+    records[f"map_dir, slab rows {y0}-{y0 + rows - 1}"] = (
+        chip_smoke.band_pcf_tables(r.config, st, scn, maps[0], y0, rows),
+        maps[0].atlas)
     return records
 
 

@@ -1061,11 +1061,12 @@ __device__ __forceinline__ void tile_blend(
   }
 }
 
-// The index forms of K2, K3, K5, K6, K7, K8 and K9 (mirrored by
-// ops/cuda.INDEX_FORMS): the narrow form indexes in 32 bits and puts its
-// slices (K3: its rows) on one launch-grid axis; the wide form is the same
-// kernel on int64_t indices, launched in parts of at most VR_MAX_GRID_Z
-// slices (rows). K8 and K9 run 1-D grids: their wide forms are one launch.
+// The index forms of K2, K3, K5-K12 (mirrored by ops/cuda.INDEX_FORMS):
+// the narrow form indexes in 32 bits and puts its slices (K3: its rows;
+// K12: its (sun, slice) pairs) on one launch-grid axis; the wide form is
+// the same kernel on int64_t indices, launched in parts of at most
+// VR_MAX_GRID_Z slices (rows, pairs). K8 and K9 run 1-D grids: their wide
+// forms are one launch.
 // A launcher takes the narrow form wherever it fits, or the form it is
 // given. K1 has a bound of its own (bake_radiance.cu k1_fits).
 #define VR_FORM_RULE -1

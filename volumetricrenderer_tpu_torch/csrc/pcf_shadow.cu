@@ -42,13 +42,27 @@
 // clamps, with a 64-bit index split by division. Every value is that
 // form's, from the same expressions in the same order (a product computed
 // once is the float each froxel computed), so the volume is bit for bit
-// the same. Indices are 32-bit: the launcher refuses a volume, atlas or
-// launch grid past them (the wrapper first, ops/pcf_shadow.check_indices).
+// the same.
 // A thread a froxel in 16x16 threads ran 20-29% slower than 4 froxels a
 // thread, 16x8 threads with 2 froxels each 4-9% slower (PERF.md §6). The
 // atlas is read through L1 and L2, not staged: a tile's footprint holds
 // more texels than its 1024 taps at the low rate (~3 texels a column
 // step).
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/pcf_shadow.k12_form):
+// the narrow form indexes in 32 bits and puts a (sun, slice) on each
+// launch-grid z index; it takes every launch whose volumes [Nd, D, H, W],
+// atlases [Nd, S2, S2] and cascade tables [Nd, D, C, 8] hold under 2^31
+// floats, on at most VR_MAX_GRID_Z (sun, slice) pairs. Past that the wide
+// form (I = int64_t): the suns' tables, the atlas rows and the output in
+// 64 bits, the flat (sun, slice) index launched in parts of at most
+// VR_MAX_GRID_Z, each block's index the part's first plus blockIdx.z and
+// split into (sun, slice) after that. A sun's own tables (count, order,
+// coef by slice) stay indexed in 32 bits: the wide form takes a sun's
+// [D, C, 8] cascade table under 2^31 floats. An output reads only the
+// tables and the atlas, so the parts are independent and the wide form
+// gives the narrow one's values bit for bit. Either form takes at most
+// VR_MAX_GRID_Z row tiles on the launch grid's y axis.
 //
 // Bound on the H100: bytes. At 240x135x128 froxels, low rate (120x135x64)
 // with one sun: 4.1 MB of output and a 4.2 MB atlas read once, ~2.5 us at
@@ -86,19 +100,22 @@ __device__ __forceinline__ float inside_sphere(const float* sph, int ci,
   return dx * dx + dy * dy + dz * dz < sph[ci * 4 + 3] ? 1.0f : 0.0f;
 }
 
-// The tables of sun li lie at these strides from the first sun's.
+// The tables of sun li lie at these strides from the first sun's (I: the
+// index type of the strides).
 struct K12Sun {
   const float *par, *coef, *sph, *atlas;
   const int *order, *count;
 };
 
+template <class I>
 __device__ __forceinline__ K12Sun k12_sun(const float* par, const float* coef,
                                           const int* order, const int* count,
                                           const float* sph,
                                           const float* atlas, int li, int d,
                                           int nc, int s2) {
-  return {par + 24 * li, coef + li * d * nc * 8, sph + li * nc * 4,
-          atlas + li * s2 * s2, order + li * d * nc, count + li * d};
+  return {par + 24 * (I)li, coef + (I)li * d * nc * 8, sph + (I)li * nc * 4,
+          atlas + (I)li * s2 * s2, order + (I)li * d * nc,
+          count + (I)li * d};
 }
 
 // The jittered view depth of slice z (dir_shadow.froxel_world's mapping).
@@ -107,6 +124,7 @@ __device__ __forceinline__ float k12_vz(const float* par, int z, int d) {
   return (expf(logf(par[2]) * fz / (float)d) - 1.0f) * par[3] + par[4];
 }
 
+template <class I = int>
 __global__ void __launch_bounds__(K12Tile::X * K12Tile::Y,
                                   K12Tile::MIN_BLOCKS)
 pcf_shadow_kernel(const float* __restrict__ par_all,
@@ -115,7 +133,9 @@ pcf_shadow_kernel(const float* __restrict__ par_all,
                   const int* __restrict__ count_all,
                   const float* __restrict__ sph_all,
                   const float* __restrict__ atlas_all, int w, int h, int d,
-                  int h_glob, int s2, int nc, float* __restrict__ out) {
+                  int h_glob, int s2, int nc, float* __restrict__ out,
+                  I b_part) {
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
   constexpr int TX = K12Tile::X, TY = K12Tile::ROWS, R = K12Tile::R;
   constexpr int NT = TX * K12Tile::Y;
   extern __shared__ float k12_s[];  // k12_floats(nc)
@@ -130,9 +150,20 @@ pcf_shadow_kernel(const float* __restrict__ par_all,
 
   const int tx = threadIdx.x, tid = threadIdx.y * TX + tx;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
-  const int li = blockIdx.z / d, z = blockIdx.z - li * d;
-  const K12Sun S = k12_sun(par_all, coef_all, order_all, count_all, sph_all,
-                           atlas_all, li, d, nc, s2);
+  // the flat (sun, slice) index: blockIdx.z in the narrow form, the
+  // part's first index b_part + blockIdx.z in the wide one, split after the
+  // offset
+  const I bz = WIDE ? (I)blockIdx.z + b_part : (I)0;
+  int li, z;
+  if constexpr (WIDE) {
+    li = (int)(bz / d);
+    z = (int)(bz - (I)li * d);
+  } else {
+    li = blockIdx.z / d;
+    z = blockIdx.z - li * d;
+  }
+  const K12Sun S = k12_sun<I>(par_all, coef_all, order_all, count_all,
+                              sph_all, atlas_all, li, d, nc, s2);
   const float* par = S.par;
 
   // 1. the items, one a thread: columns (x, c) and rows (y, c), c = 0 the
@@ -237,8 +268,8 @@ pcf_shadow_kernel(const float* __restrict__ par_all,
       const float ref = ref_x + rc[TY + ty] + ref_c;
       const float v0 = floorf(v);
       const float fv = v - v0;
-      const int r0 = clampi((int)v0, 0, s2 - 1) * s2;
-      const int r1 = clampi((int)v0 + 1, 0, s2 - 1) * s2;
+      const I r0 = (I)clampi((int)v0, 0, s2 - 1) * s2;
+      const I r1 = (I)clampi((int)v0 + 1, 0, s2 - 1) * s2;
       const float le00 = ref <= __ldg(atlas + r0 + gu0) ? 1.0f : 0.0f;
       const float le01 = ref <= __ldg(atlas + r0 + gu1) ? 1.0f : 0.0f;
       const float le10 = ref <= __ldg(atlas + r1 + gu0) ? 1.0f : 0.0f;
@@ -261,44 +292,111 @@ pcf_shadow_kernel(const float* __restrict__ par_all,
     const float vis = sr + (1.0f - sr) * cmp;
     float res = 1.0f + gate * (vis * vis - 1.0f);
     if (poison > 0.0f) res = res + __int_as_float(0x7fc00000);  // NaN
-    out[((blockIdx.z * h) + y) * w + x] = res;
+    if constexpr (WIDE) {
+      out[(bz * h + y) * w + x] = res;
+    } else {
+      out[((blockIdx.z * h) + y) * w + x] = res;
+    }
   }
 }
 
-// Whether nd suns' volumes [nd, d, h, w], atlases [nd, s2, s2] or launch
-// grid (nd x d slices) pass the kernel's 32-bit indices or the grid's
-// 65535 (mirrored by ops/pcf_shadow.check_indices).
-static bool k12_past_int_index(int w, int h, int d, int s2, int nd) {
-  return (long)nd * d * h * w > 2147483647L
-         || (long)nd * s2 * s2 > 2147483647L || (long)nd * d > 65535;
+// Launches of the narrow (0) and wide (1) index forms since the library
+// was loaded (vr_pcf_shadow_index_forms).
+static long g_index_forms[2];
+
+// Whether the wide form takes nd suns' launch (mirrored by
+// ops/pcf_shadow.k12_form): at most VR_MAX_GRID_Z row tiles on the launch
+// grid's y axis, a sun's cascade table [d, nc, 8] under 2^31 floats.
+static bool k12_wide_fits(int h, int d, int nc) {
+  return (h + K12Tile::ROWS - 1) / K12Tile::ROWS <= VR_MAX_GRID_Z
+         && !past_int(d, 8L * nc);
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// volumes [nd, d, h, w], the atlases [nd, s2, s2] and the cascade tables
+// [nd, d, nc, 8] under 2^31 floats, on at most VR_MAX_GRID_Z (sun, slice)
+// pairs.
+static bool k12_narrow_fits(int w, int h, int d, int s2, int nc, int nd) {
+  return k12_wide_fits(h, d, nc) && !past_int(nd, (long)d * h * w)
+         && !past_int(nd, (long)s2 * s2) && !past_int(nd, 8L * d * nc)
+         && (long)nd * d <= VR_MAX_GRID_Z;
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k12_form(int w, int h, int d, int s2, int nc, int nd) {
+  if (k12_narrow_fits(w, h, d, s2, nc, nd)) return VR_FORM_NARROW;
+  return k12_wide_fits(h, d, nc) ? VR_FORM_WIDE : -1;
+}
+
+// The parts of the flat (sun, slice) launch-grid axis of nd x d blocks.
+static long k12_parts(int d, int nd) {
+  return ((long)nd * d + VR_MAX_GRID_Z - 1) / VR_MAX_GRID_Z;
 }
 
 // K12 for the nd suns whose tables lie one after the other (par [nd, 24],
 // coef [nd, d, nc, 8], order [nd, d, nc], count [nd, d], spheres [nd, nc,
-// 4], atlas [nd, s2, s2]) into out [nd, d, h, w], in one launch.
-extern "C" int vr_pcf_shadow_suns(const float* par, const float* coef,
+// 4], atlas [nd, s2, s2]) into out [nd, d, h, w]: the narrow form in one
+// launch, the wide form in k12_parts launches. form: VR_FORM_RULE (the size
+// rule's, k12_form), or the narrow or the wide form, refused where it does
+// not take the launch.
+extern "C" int vr_pcf_shadow_form(const float* par, const float* coef,
                                   const int* order, const int* count,
                                   const float* sph, const float* atlas, int w,
                                   int h, int d, int h_glob, int s2, int nc,
-                                  int nd, float* out, cudaStream_t stream) {
-  if (k12_past_int_index(w, h, d, s2, nd)) return (int)cudaErrorInvalidValue;
+                                  int nd, float* out, int form,
+                                  cudaStream_t stream) {
+  if (form == VR_FORM_RULE) form = k12_form(w, h, d, s2, nc, nd);
+  const bool fits = form == VR_FORM_NARROW
+                        ? k12_narrow_fits(w, h, d, s2, nc, nd)
+                    : form == VR_FORM_WIDE ? k12_wide_fits(h, d, nc)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
   constexpr int TX = K12Tile::X, TY = K12Tile::ROWS;
-  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, nd * d);
-  pcf_shadow_kernel<<<grid, dim3(TX, K12Tile::Y),
-                      k12_floats(nc) * sizeof(float),
-                      stream>>>(par, coef, order, count, sph, atlas, w, h, d,
-                                h_glob, s2, nc, out);
+  dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, 1);
+  const int shared = k12_floats(nc) * (int)sizeof(float);
+  const dim3 block(TX, K12Tile::Y);
+  if (form == VR_FORM_NARROW) {
+    grid.z = nd * d;
+    pcf_shadow_kernel<int><<<grid, block, shared, stream>>>(
+        par, coef, order, count, sph, atlas, w, h, d, h_glob, s2, nc, out,
+        0);
+  } else {  // the flat (sun, slice) index in parts of at most VR_MAX_GRID_Z
+    const long n = (long)nd * d;
+    for (long b0 = 0; b0 < n; b0 += VR_MAX_GRID_Z) {
+      grid.z = (unsigned)(n - b0 < VR_MAX_GRID_Z ? n - b0 : VR_MAX_GRID_Z);
+      pcf_shadow_kernel<int64_t><<<grid, block, shared, stream>>>(
+          par, coef, order, count, sph, atlas, w, h, d, h_glob, s2, nc, out,
+          (int64_t)b0);
+    }
+  }
+  ++g_index_forms[form];
   return (int)cudaGetLastError();
 }
 
-// One sun's K12.
+// One sun's K12 in the size rule's form.
 extern "C" int vr_pcf_shadow(const float* par, const float* coef,
                              const int* order, const int* count,
                              const float* sph, const float* atlas, int w,
                              int h, int d, int h_glob, int s2, int nc,
                              float* out, cudaStream_t stream) {
-  return vr_pcf_shadow_suns(par, coef, order, count, sph, atlas, w, h, d,
-                            h_glob, s2, nc, 1, out, stream);
+  return vr_pcf_shadow_form(par, coef, order, count, sph, atlas, w, h, d,
+                            h_glob, s2, nc, 1, out, VR_FORM_RULE, stream);
+}
+
+// The size rule's form for nd suns into out[0] (-1: past the wide form
+// too) and its launch's parts of the flat (sun, slice) axis into out[1].
+extern "C" int vr_pcf_shadow_form_of(int w, int h, int d, int s2, int nc,
+                                     int nd, int* out) {
+  out[0] = k12_form(w, h, d, s2, nc, nd);
+  out[1] = out[0] == VR_FORM_WIDE ? (int)k12_parts(d, nd) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_pcf_shadow_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The tile (columns, rows), the dynamic shared bytes at nc cascades and
@@ -311,16 +409,25 @@ extern "C" int vr_pcf_shadow_geometry(int nc, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the kernel: registers per thread, static shared
-// bytes per block, local bytes per thread and largest block into out[0..3];
-// returns the error.
-extern "C" int vr_pcf_shadow_attrs(int* out) {
+// cudaFuncGetAttributes of the kernel, narrow then wide: registers per
+// thread, static shared bytes per block, local bytes per thread and largest
+// block into out[4 i .. 4 i + 3]; returns the error.
+template <class I>
+static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)pcf_shadow_kernel);
+      cudaFuncGetAttributes(&a, (const void*)pcf_shadow_kernel<I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
   out[3] = a.maxThreadsPerBlock;
-  return (int)err;
+  return err;
+}
+
+extern "C" int vr_pcf_shadow_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<int>(out),
+                               attrs_of<int64_t>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

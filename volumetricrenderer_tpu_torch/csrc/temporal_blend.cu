@@ -29,8 +29,17 @@
 // integrate_blend.cu's warp reads the same reproj_view values, so K8
 // (integrate.cu) then the alpha mode gives K3's. Every value is the
 // thread-per-froxel form's, from the same operations in the same order.
-// Indices are 32-bit: the launcher refuses volumes past 2^31 floats or
-// 65535 slices.
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/temporal.k10_form):
+// the narrow form indexes in 32 bits and puts a slice on each launch-grid
+// z index; it takes every launch whose [NC, D, H, W] volumes hold under
+// 2^31 floats, on at most VR_MAX_GRID_Z slices. Past that the wide form
+// (I = int64_t): every froxel and channel index in 64 bits, the slices
+// launched in parts of at most VR_MAX_GRID_Z (the block's slice is
+// blockIdx.z + z0). A froxel's output depends on its own inputs and on the
+// history, which K10 only reads, so the parts are independent and the wide
+// form gives the narrow one's values bit for bit. Either form takes at
+// most VR_MAX_GRID_Z row tiles on the launch grid's y axis.
 //
 // Bound on the H100: bytes. Read prev and cur, write out: 3 NC planes of
 // 16.6 MB at 240x135x128 -- 0.015 ms for one shadow channel, 0.059 ms for
@@ -51,7 +60,7 @@ struct K10Tile {
 // table bp, a copy of that loop (see tile_region), with its slice scalars
 // vz_b = view_z(bp, z + 0.5, d) and lfpz_b = logf(bp[14]) in shared memory,
 // read there by every thread after a barrier. The block owns the TX x TY
-// tile (blockIdx.x, blockIdx.y) of slice blockIdx.z on a grid of w x h x d
+// tile (blockIdx.x, blockIdx.y) of slice z on a grid of w x h x d
 // (h_glob the global rows; a slab's y0 is bp[22], as reproj_vy reads it)
 // and dyn_s its region_floats:
 //   1b. reproj_vx of the region's columns and reproj_vy of its rows;
@@ -66,7 +75,7 @@ struct K10Tile {
 template <int TX, int TY>
 __device__ __forceinline__ void region_offsets(
     const float* bp, bool with_jitter, const float& vz_b,
-    const float& lfpz_b, int w, int h, int d, int h_glob, int k,
+    const float& lfpz_b, int w, int h, int d, int h_glob, int k, int z,
     float* dyn_s) {
   constexpr int NT = TX * TY;
   const int nx = region_nx(TX, k), ny = region_ny(TY, k), nr = nx * ny;
@@ -78,7 +87,6 @@ __device__ __forceinline__ void region_offsets(
   float* rvy_s = rvx_s + nx;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
-  const int z = blockIdx.z;
 
   // 1b. the region's column and row terms
   for (int j = tid; j < nx + ny; j += NT) {
@@ -128,30 +136,32 @@ __device__ __forceinline__ void region_offsets(
   __syncthreads();
 }
 
-template <int NC, bool WEIGHT>
+template <int NC, bool WEIGHT, class I = int>
 __global__ void __launch_bounds__(K10Tile::X * K10Tile::Y,
                                   K10Tile::MIN_BLOCKS)
 temporal_blend_kernel(const float* __restrict__ bpar,
                       const float* __restrict__ prev,
                       const float* __restrict__ cur, float* __restrict__ out,
-                      int w, int h, int d, int h_glob, int k) {
+                      int w, int h, int d, int h_glob, int k, int z_part) {
   constexpr int TX = K10Tile::X, TY = K10Tile::Y;
   __shared__ float vz_s, lfpz_s;    // the slice's scalars
   extern __shared__ float dyn_s[];  // region_floats
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int z = blockIdx.z;
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  const int z = blockIdx.z + (sizeof(I) > sizeof(int) ? z_part : 0);
   // 1a. the slice's scalars, on the first lanes of two warps
   if (ty == 0 && tx == 0) vz_s = view_z(bpar, (float)z + 0.5f, d);
   if (ty == 2 && tx == 0) lfpz_s = logf(bpar[14]);
   __syncthreads();
   // 1b, 2. the region's terms and offsets
-  region_offsets<TX, TY>(bpar, WEIGHT, vz_s, lfpz_s, w, h, d, h_glob, k,
+  region_offsets<TX, TY>(bpar, WEIGHT, vz_s, lfpz_s, w, h, d, h_glob, k, z,
                          dyn_s);
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
   const int x = xt + tx, y = yt + ty;
   if (x >= w || y >= h) return;
-  const int n = d * h * w;
-  const int i = (z * h + y) * w + x;
+  const I n = (I)d * h * w;
+  const I i = ((I)z * h + y) * w + x;
   // 3. the warp, the offsets at (y, cx) and (cy, cx) from the region,
   // column cx at cx - (xt - k), row cy at cy - (yt - k); then the blend
   const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
@@ -177,47 +187,118 @@ temporal_blend_kernel(const float* __restrict__ bpar,
   }
 }
 
-template <int NC, bool WEIGHT>
+// Launches of the narrow (0) and wide (1) index forms since the library
+// was loaded (vr_temporal_blend_index_forms).
+static long g_index_forms[2];
+
+// Whether the wide form takes a launch (mirrored by ops/temporal.k10_form):
+// at most VR_MAX_GRID_Z row tiles on the launch grid's y axis.
+static bool k10_wide_fits(int h) {
+  return (h + K10Tile::Y - 1) / K10Tile::Y <= VR_MAX_GRID_Z;
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// [n_ch, D, H, W] volumes under 2^31 floats on at most VR_MAX_GRID_Z slices.
+static bool k10_narrow_fits(int n_ch, int w, int h, int d) {
+  return k10_wide_fits(h) && !past_int(n_ch, (long)w * h * d)
+         && d <= VR_MAX_GRID_Z;
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k10_form(int n_ch, int w, int h, int d) {
+  if (k10_narrow_fits(n_ch, w, h, d)) return VR_FORM_NARROW;
+  return k10_wide_fits(h) ? VR_FORM_WIDE : -1;
+}
+
+template <int NC, bool WEIGHT, class I>
 static int launch_tile(const float* bpar, const float* prev,
                        const float* cur, float* out, int w, int h, int d,
                        int h_glob, int k, cudaStream_t stream) {
   constexpr int TX = K10Tile::X, TY = K10Tile::Y;
-  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = temporal_blend_kernel<NC, WEIGHT, I>;
+  dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
   const int shared = region_floats(TX, TY, k) * (int)sizeof(float);
   if (shared > 48 * 1024) {  // a wide reprojection window
     const cudaError_t err = cudaFuncSetAttribute(
-        temporal_blend_kernel<NC, WEIGHT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  temporal_blend_kernel<NC, WEIGHT><<<grid, dim3(TX, TY), shared, stream>>>(
-      bpar, prev, cur, out, w, h, d, h_glob, k);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(bpar, prev, cur, out, w,
+                                                   h, d, h_glob, k, 0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, d - z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(bpar, prev, cur, out,
+                                                     w, h, d, h_glob, k, z0);
+    }
+  }
+  ++g_index_forms[WIDE];
   return 0;
 }
 
-// mode 0 "weight", 1 "alpha"; n_ch 1 to 4.
-extern "C" int vr_temporal_blend(const float* bpar, const float* prev,
-                                 const float* cur, float* out, int n_ch,
-                                 int w, int h, int d, int h_glob, int k,
-                                 int mode, cudaStream_t stream) {
-  if ((long)n_ch * d * h * w > 2147483647L || d > 65535 || mode < 0
-      || mode > 1)
-    return (int)cudaErrorInvalidValue;
-  int err;
+// The blend of n_ch channels (1 to 4) in mode 0 "weight" or 1 "alpha".
+template <class I>
+static int launch_mode(const float* bpar, const float* prev,
+                       const float* cur, float* out, int n_ch, int w, int h,
+                       int d, int h_glob, int k, int mode,
+                       cudaStream_t stream) {
+  switch (2 * n_ch + mode) {
 #define VR_BLEND(NC)                                                        \
-  err = mode == 0 ? launch_tile<NC, true>(bpar, prev, cur, out, w, h, d,    \
-                                          h_glob, k, stream)                \
-                  : launch_tile<NC, false>(bpar, prev, cur, out, w, h, d,   \
-                                           h_glob, k, stream)
-  switch (n_ch) {
-    case 1: VR_BLEND(1); break;
-    case 2: VR_BLEND(2); break;
-    case 3: VR_BLEND(3); break;
-    case 4: VR_BLEND(4); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+    case 2 * NC:                                                            \
+      return launch_tile<NC, true, I>(bpar, prev, cur, out, w, h, d,        \
+                                      h_glob, k, stream);                   \
+    case 2 * NC + 1:                                                        \
+      return launch_tile<NC, false, I>(bpar, prev, cur, out, w, h, d,       \
+                                       h_glob, k, stream);
+    VR_BLEND(1)
+    VR_BLEND(2)
+    VR_BLEND(3)
+    VR_BLEND(4)
 #undef VR_BLEND
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// mode 0 "weight", 1 "alpha"; n_ch 1 to 4. form: VR_FORM_RULE (the size
+// rule's, k10_form), or the narrow or the wide form, refused where it does
+// not take the launch.
+extern "C" int vr_temporal_blend_form(const float* bpar, const float* prev,
+                                      const float* cur, float* out, int n_ch,
+                                      int w, int h, int d, int h_glob, int k,
+                                      int mode, int form,
+                                      cudaStream_t stream) {
+  if (n_ch < 1 || n_ch > 4 || mode < 0 || mode > 1)
+    return (int)cudaErrorInvalidValue;
+  if (form == VR_FORM_RULE) form = k10_form(n_ch, w, h, d);
+  const bool fits = form == VR_FORM_NARROW ? k10_narrow_fits(n_ch, w, h, d)
+                    : form == VR_FORM_WIDE ? k10_wide_fits(h)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err =
+      form == VR_FORM_WIDE
+          ? launch_mode<int64_t>(bpar, prev, cur, out, n_ch, w, h, d, h_glob,
+                                 k, mode, stream)
+          : launch_mode<int>(bpar, prev, cur, out, n_ch, w, h, d, h_glob, k,
+                             mode, stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for a launch of n_ch channels into out[0] (-1: past
+// the wide form too) and its launch's slice parts into out[1].
+extern "C" int vr_temporal_blend_form_of(int n_ch, int w, int h, int d,
+                                         int* out) {
+  out[0] = k10_form(n_ch, w, h, d);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_temporal_blend_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The tile (columns, rows) into out[0..1] and the dynamic shared bytes of a
@@ -230,14 +311,15 @@ extern "C" int vr_temporal_blend_geometry(int k, int* out) {
 }
 
 // cudaFuncGetAttributes of the weight mode at one channel and the alpha
-// mode at four (the shadow and the accumulation blends): registers per
-// thread, static shared bytes per block, local bytes per thread and largest
-// block into out[4 i .. 4 i + 3]; returns the error.
-template <int NC, bool WEIGHT>
+// mode at four (the shadow and the accumulation blends), narrow, then the
+// same two wide: registers per thread, static shared bytes per block, local
+// bytes per thread and largest block into out[4 i .. 4 i + 3]; returns the
+// error.
+template <int NC, bool WEIGHT, class I = int>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)temporal_blend_kernel<NC, WEIGHT>);
+      &a, (const void*)temporal_blend_kernel<NC, WEIGHT, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -246,8 +328,10 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_temporal_blend_attrs(int* out) {
-  const cudaError_t errs[2] = {attrs_of<1, true>(out),
-                               attrs_of<4, false>(out + 4)};
+  const cudaError_t errs[4] = {attrs_of<1, true>(out),
+                               attrs_of<4, false>(out + 4),
+                               attrs_of<1, true, int64_t>(out + 8),
+                               attrs_of<4, false, int64_t>(out + 12)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

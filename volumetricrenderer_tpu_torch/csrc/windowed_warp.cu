@@ -30,8 +30,18 @@
 // then ty at 2 columns, then tz at 4 (row, column) pairs) before its taps,
 // with every target value loaded and clipped by up to 8 threads. NC, the
 // channels, is a template parameter (1 to 4; the wrapper runs more in
-// chunks of 4). Indices are 32-bit: the launcher refuses volumes past 2^31
-// floats or 65535 slices.
+// chunks of 4).
+//
+// Index forms (common.cuh VR_FORM_*; mirrored by ops/warp.k11_form): the
+// narrow form indexes in 32 bits and puts a slice on each launch-grid z
+// index; it takes every launch whose [NC, D, H, W] volume holds under 2^31
+// floats, on at most VR_MAX_GRID_Z slices. Past that the wide form (I =
+// int64_t): every froxel, target and channel index in 64 bits, the slices
+// launched in parts of at most VR_MAX_GRID_Z (the block's slice is
+// blockIdx.z + z0). An output reads only the volume and the targets, which
+// K11 does not write, so the parts are independent and the wide form gives
+// the narrow one's values bit for bit. Either form takes at most
+// VR_MAX_GRID_Z row tiles on the launch grid's y axis.
 //
 // vol and out are [NC, D, H, W], the targets [D, H, W] texel coordinates;
 // targets are clipped to the volume, offsets to +-k, taps edge-clamped.
@@ -60,21 +70,22 @@ __host__ __device__ __forceinline__ int k11_floats(int k) {
 
 // The target t at index idx, clamped to the volume's n cells along its
 // axis, less the cell index `base`, clipped to +-kf.
+template <class I>
 __device__ __forceinline__ float target_offset(const float* __restrict__ t,
-                                               int idx, int n, int base,
+                                               I idx, int n, int base,
                                                float kf) {
   const float v = clampf(__ldg(t + idx), 0.0f, (float)n - 1.0f);
   return clampf(v - (float)base, -kf, kf);
 }
 
-template <int NC>
+template <int NC, class I = int>
 __global__ void __launch_bounds__(K11Tile::X * K11Tile::Y,
                                   K11Tile::MIN_BLOCKS)
 windowed_warp_kernel(const float* __restrict__ vol,
                      const float* __restrict__ tx_v,
                      const float* __restrict__ ty_v,
                      const float* __restrict__ tz_v, float* __restrict__ out,
-                     int d, int h, int w, int k) {
+                     int d, int h, int w, int k, int z_part) {
   constexpr int TX = K11Tile::X, TY = K11Tile::Y, NT = TX * TY;
   extern __shared__ float dyn_s[];  // k11_floats
   const int nx = region_nx(TX, k), ny = region_ny(TY, k);
@@ -82,8 +93,10 @@ windowed_warp_kernel(const float* __restrict__ vol,
   const float* oz_s = dyn_s + TY * nx;  // [ny][nx]
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int xt = blockIdx.x * TX, yt = blockIdx.y * TY;
-  const int z = blockIdx.z;
-  const int plane = z * h * w;
+  // the narrow form's slice is blockIdx.z; the wide form's part starts at
+  // z_part
+  const int z = blockIdx.z + (sizeof(I) > sizeof(int) ? z_part : 0);
+  const I plane = (I)z * h * w;
   const float kf = (float)k;
   // the region's row r at clamp(yt - k + r), column c at clamp(xt - k + c);
   // the y offsets at the tile's rows yt + r (the last one clamped where the
@@ -93,17 +106,17 @@ windowed_warp_kernel(const float* __restrict__ vol,
     const int col = clampi(xt - k + c, 0, w - 1);
     if (r < TY) {
       const int row = min(yt + r, h - 1);
-      dyn_s[j] = target_offset(ty_v, plane + row * w + col, h, row, kf);
+      dyn_s[j] = target_offset(ty_v, plane + (I)row * w + col, h, row, kf);
     } else {
       const int row = clampi(yt - k + r - TY, 0, h - 1);
-      dyn_s[j] = target_offset(tz_v, plane + row * w + col, d, z, kf);
+      dyn_s[j] = target_offset(tz_v, plane + (I)row * w + col, d, z, kf);
     }
   }
   __syncthreads();
   const int x = xt + tx, y = yt + ty;
   if (x >= w || y >= h) return;
-  const int n = d * h * w;
-  const int i = plane + y * w + x;
+  const I n = (I)d * h * w;
+  const I i = plane + (I)y * w + x;
   const int row_y = ty * nx + k - xt;
   const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };
   const auto oz_at = [&](int, int cy, int cx) {
@@ -116,44 +129,107 @@ windowed_warp_kernel(const float* __restrict__ vol,
   for (int c = 0; c < NC; ++c) out[c * n + i] = acc[c];
 }
 
-template <int NC>
+// Launches of the narrow (0) and wide (1) index forms since the library
+// was loaded (vr_windowed_warp_index_forms).
+static long g_index_forms[2];
+
+// Whether the wide form takes a launch (mirrored by ops/warp.k11_form): at
+// most VR_MAX_GRID_Z row tiles on the launch grid's y axis.
+static bool k11_wide_fits(int h) {
+  return (h + K11Tile::Y - 1) / K11Tile::Y <= VR_MAX_GRID_Z;
+}
+
+// Whether the narrow form takes it: what the wide form takes, with the
+// [nc, D, H, W] volume under 2^31 floats on at most VR_MAX_GRID_Z slices.
+static bool k11_narrow_fits(int nc, int d, int h, int w) {
+  return k11_wide_fits(h) && !past_int(nc, (long)d * h * w)
+         && d <= VR_MAX_GRID_Z;
+}
+
+// The size rule's form: narrow where it fits, else wide, else -1.
+static int k11_form(int nc, int d, int h, int w) {
+  if (k11_narrow_fits(nc, d, h, w)) return VR_FORM_NARROW;
+  return k11_wide_fits(h) ? VR_FORM_WIDE : -1;
+}
+
+template <int NC, class I>
 static int launch_tile(const float* vol, const float* tx, const float* ty,
                        const float* tz, float* out, int d, int h, int w,
                        int k, cudaStream_t stream) {
   constexpr int TX = K11Tile::X, TY = K11Tile::Y;
-  const dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
+  constexpr bool WIDE = sizeof(I) > sizeof(int);
+  const auto kernel = windowed_warp_kernel<NC, I>;
+  dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
   const int shared = k11_floats(k) * (int)sizeof(float);
   if (shared > 48 * 1024) {  // a wide reprojection window
     const cudaError_t err = cudaFuncSetAttribute(
-        windowed_warp_kernel<NC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
-  windowed_warp_kernel<NC><<<grid, dim3(TX, TY), shared, stream>>>(
-      vol, tx, ty, tz, out, d, h, w, k);
+  if (!WIDE) {
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(vol, tx, ty, tz, out, d,
+                                                   h, w, k, 0);
+  } else {  // the slices in parts of at most VR_MAX_GRID_Z
+    for (int z0 = 0; z0 < d; z0 += VR_MAX_GRID_Z) {
+      grid.z = min(VR_MAX_GRID_Z, d - z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(vol, tx, ty, tz, out,
+                                                     d, h, w, k, z0);
+    }
+  }
+  ++g_index_forms[WIDE];
   return 0;
 }
 
-// nc 1 to 4 channels.
-extern "C" int vr_windowed_warp(const float* vol, const float* tx,
-                                const float* ty, const float* tz, float* out,
-                                int nc, int d, int h, int w, int k,
-                                cudaStream_t stream) {
-  if ((long)nc * d * h * w > 2147483647L || d > 65535)
-    return (int)cudaErrorInvalidValue;
-  int err;
+// The warp of nc channels (1 to 4).
+template <class I>
+static int launch_channels(const float* vol, const float* tx,
+                           const float* ty, const float* tz, float* out,
+                           int nc, int d, int h, int w, int k,
+                           cudaStream_t stream) {
   switch (nc) {
-    case 1: err = launch_tile<1>(vol, tx, ty, tz, out, d, h, w, k, stream);
-            break;
-    case 2: err = launch_tile<2>(vol, tx, ty, tz, out, d, h, w, k, stream);
-            break;
-    case 3: err = launch_tile<3>(vol, tx, ty, tz, out, d, h, w, k, stream);
-            break;
-    case 4: err = launch_tile<4>(vol, tx, ty, tz, out, d, h, w, k, stream);
-            break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_tile<1, I>(vol, tx, ty, tz, out, d, h, w, k, stream);
+    case 2: return launch_tile<2, I>(vol, tx, ty, tz, out, d, h, w, k, stream);
+    case 3: return launch_tile<3, I>(vol, tx, ty, tz, out, d, h, w, k, stream);
+    case 4: return launch_tile<4, I>(vol, tx, ty, tz, out, d, h, w, k, stream);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// nc 1 to 4 channels. form: VR_FORM_RULE (the size rule's, k11_form), or
+// the narrow or the wide form, refused where it does not take the launch.
+extern "C" int vr_windowed_warp_form(const float* vol, const float* tx,
+                                     const float* ty, const float* tz,
+                                     float* out, int nc, int d, int h, int w,
+                                     int k, int form, cudaStream_t stream) {
+  if (nc < 1 || nc > 4) return (int)cudaErrorInvalidValue;
+  if (form == VR_FORM_RULE) form = k11_form(nc, d, h, w);
+  const bool fits = form == VR_FORM_NARROW ? k11_narrow_fits(nc, d, h, w)
+                    : form == VR_FORM_WIDE ? k11_wide_fits(h)
+                                           : false;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int err =
+      form == VR_FORM_WIDE
+          ? launch_channels<int64_t>(vol, tx, ty, tz, out, nc, d, h, w, k,
+                                     stream)
+          : launch_channels<int>(vol, tx, ty, tz, out, nc, d, h, w, k,
+                                 stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The size rule's form for a launch of nc channels into out[0] (-1: past
+// the wide form too) and its launch's slice parts into out[1].
+extern "C" int vr_windowed_warp_form_of(int nc, int d, int h, int w,
+                                        int* out) {
+  out[0] = k11_form(nc, d, h, w);
+  out[1] = out[0] == VR_FORM_WIDE ? grid_part_count(d) : 1;
+  return 0;
+}
+
+// The launches of the narrow and the wide form so far into out[0..1].
+extern "C" int vr_windowed_warp_index_forms(int* out) {
+  out[0] = (int)g_index_forms[0];
+  out[1] = (int)g_index_forms[1];
+  return 0;
 }
 
 // The tile (columns, rows) into out[0..1] and the dynamic shared bytes of a
@@ -166,16 +242,25 @@ extern "C" int vr_windowed_warp_geometry(int k, int* out) {
 }
 
 // cudaFuncGetAttributes of the kernel at four channels (the history's
-// material and scatter blends): registers per thread, static shared bytes
-// per block, local bytes per thread and largest block into out[0..3];
-// returns the error.
-extern "C" int vr_windowed_warp_attrs(int* out) {
+// material and scatter blends), narrow then wide: registers per thread,
+// static shared bytes per block, local bytes per thread and largest block
+// into out[4 i .. 4 i + 3]; returns the error.
+template <class I>
+static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)windowed_warp_kernel<4>);
+      &a, (const void*)windowed_warp_kernel<4, I>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
   out[3] = a.maxThreadsPerBlock;
-  return (int)err;
+  return err;
+}
+
+extern "C" int vr_windowed_warp_attrs(int* out) {
+  const cudaError_t errs[2] = {attrs_of<int>(out),
+                               attrs_of<int64_t>(out + 4)};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }

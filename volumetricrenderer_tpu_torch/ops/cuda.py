@@ -182,14 +182,19 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                             "vr_bake_visibility_form_of": [tp, vp],
                             "vr_bake_visibility_index_forms": [vp],
                             "vr_bake_visibility_geometry": [ci] * 4 + [vp]},
-        "temporal_blend": {"vr_temporal_blend":
-                           [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci],
+        "temporal_blend": {"vr_temporal_blend_form": [vp] * 4 + [ci] * 8,
+                           "vr_temporal_blend_form_of": [ci] * 4 + [vp],
+                           "vr_temporal_blend_index_forms": [vp],
                            "vr_temporal_blend_geometry": [ci, vp]},
-        "windowed_warp": {"vr_windowed_warp":
-                          [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci],
+        "windowed_warp": {"vr_windowed_warp_form": [vp] * 5 + [ci] * 6,
+                          "vr_windowed_warp_form_of": [ci] * 4 + [vp],
+                          "vr_windowed_warp_index_forms": [vp],
                           "vr_windowed_warp_geometry": [ci, vp]},
         "pcf_shadow": {"vr_pcf_shadow": [vp] * 6 + [ci] * 6 + [vp],
-                       "vr_pcf_shadow_suns": [vp] * 6 + [ci] * 7 + [vp],
+                       "vr_pcf_shadow_form":
+                       [vp] * 6 + [ci] * 7 + [vp, ci],
+                       "vr_pcf_shadow_form_of": [ci] * 6 + [vp],
+                       "vr_pcf_shadow_index_forms": [vp],
                        "vr_pcf_shadow_geometry": [ci, vp]},
         "ssr_march": {"vr_ssr_march_form":
                       [vp] * 10 + [ci, ci, ci, ci, cf] + [vp] * 6 + [ci],
@@ -244,18 +249,21 @@ SIZE_FORMS = {
 }
 
 
-# The sources whose launchers take a narrow form (32-bit indices, a slice
-# or row on each launch-grid index) wherever it fits and a wide one past it
-# (64-bit indices, the slices or rows launched in parts of at most
-# MAX_GRID_Z; csrc/common.cuh VR_FORM_*): K2, K3, K5, K6, K7, K8 and K9.
-# The wrappers mirror the choice (ops/frame_fused.k2_form, k3_form,
-# ops/shadow_blend.k5_form, ops/scatter.k6_form, ops/dir_shadow.k7_form,
-# ops/integrate.k8_form, ops/visibility.k9_form) and take `form=` to force
-# one; each library counts its launches of either
+# The sources whose launchers take a narrow form (32-bit indices, a slice,
+# row or (sun, slice) pair on each launch-grid index) wherever it fits and a
+# wide one past it (64-bit indices, the slices, rows or pairs launched in
+# parts of at most MAX_GRID_Z; csrc/common.cuh VR_FORM_*): K2, K3, K5, K6,
+# K7, K8, K9, K10, K11 and K12. The wrappers mirror the choice
+# (ops/frame_fused.k2_form, k3_form, ops/shadow_blend.k5_form,
+# ops/scatter.k6_form, ops/dir_shadow.k7_form, ops/integrate.k8_form,
+# ops/visibility.k9_form, ops/temporal.k10_form, ops/warp.k11_form,
+# ops/pcf_shadow.k12_form; K10 and K11 for each launch of a channel group)
+# and take `form=` to force one; each library counts its launches of either
 # (`vr_<name>_index_forms`).
 INDEX_FORMS = ("narrow", "wide")
 INDEX_SOURCES = ("bake_visibility", "shadow_scatter", "integrate_blend",
-                 "shadow_blend", "scatter", "dir_shadow", "integrate")
+                 "shadow_blend", "scatter", "dir_shadow", "integrate",
+                 "temporal_blend", "windowed_warp", "pcf_shadow")
 MAX_GRID_Z = 65535
 
 
@@ -355,13 +363,17 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                     for arms in ("false", "true")),
                 "integrate": ("integrate_kernel", "integrate_kernel<WIDE>"),
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
-                                   "temporal_blend_kernel<4, false>"),
-                "windowed_warp": ("windowed_warp_kernel<4>",),
+                                   "temporal_blend_kernel<4, false>",
+                                   "temporal_blend_kernel<1, true, WIDE>",
+                                   "temporal_blend_kernel<4, false, WIDE>"),
+                "windowed_warp": ("windowed_warp_kernel<4>",
+                                  "windowed_warp_kernel<4, WIDE>"),
                 "bake_visibility": ("bake_visibility_kernel<false>",
                                     "bake_visibility_kernel<true>",
                                     "bake_visibility_kernel<false, WIDE>",
                                     "bake_visibility_kernel<true, WIDE>"),
-                "pcf_shadow": ("pcf_shadow_kernel",),
+                "pcf_shadow": ("pcf_shadow_kernel",
+                               "pcf_shadow_kernel<WIDE>"),
                 "ssr_march": ("ssr_march_kernel<16, false>",
                               "ssr_march_kernel<32, false>",
                               "ssr_march_kernel<16, true>",

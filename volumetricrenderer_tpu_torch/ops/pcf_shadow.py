@@ -42,15 +42,14 @@ texel on the TPU and the neighbouring texel here, as the gather sampler
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch import froxel as froxel_lib
 from volumetricrenderer_tpu_torch.ops import cuda
-from volumetricrenderer_tpu_torch.ops.scatter import (INT32_MAX, MAX_GRID_Z,
-                                                      tile_grid)
+from volumetricrenderer_tpu_torch.ops.scatter import MAX_GRID_Z, tile_grid
 
 MAX_WIN = 512      # the TPU kernel's atlas window (rows and columns)
 
@@ -346,30 +345,41 @@ def k12_grid(grid_whd: Tuple[int, int, int], nd: int) -> Tuple[int, int, int]:
     return tile_grid((w, h, nd * d), K12_TILE)
 
 
-def check_indices(t: PcfTables, atlas: torch.Tensor) -> None:
-    """Refuse the tables and atlases K12 cannot index in 32 bits (its
-    launcher's k12_past_int_index): the [Nd, D, H, W] volume and the
-    [Nd, S2, S2] atlases must hold at most 2^31 - 1 floats, and the launch
-    grid at most 65535 slices of all suns. Raises ValueError."""
+def k12_form(t: PcfTables, atlas: torch.Tensor,
+             form: Optional[str] = None) -> str:
+    """Mirror of csrc/pcf_shadow.cu k12_form: the index form of
+    cuda.INDEX_FORMS that K12 takes for the tables t and the atlases
+    [Nd, S2, S2]. The narrow form (32-bit indices, a (sun, slice) pair a
+    launch-grid z index) takes [Nd, D, H, W] volumes, atlases and
+    [Nd, D, C, 8] cascade tables under 2^31 floats on at most 65535 pairs;
+    the wide form (64-bit indices, the pairs in parts of at most 65535) any
+    sun count, size and slice count, with a sun's [D, C, 8] table under
+    2^31 floats. Both take at most 65535 tiles of K12_TILE's rows. form: a
+    form to force. Raises ValueError, naming K12, before any launch."""
     w, h, d = t.grid_whd
-    nd, s2 = t.par.shape[0], atlas.shape[-1]
-    if nd * d * h * w > INT32_MAX or nd * s2 * s2 > INT32_MAX:
-        raise ValueError(f"{nd} suns' volumes {t.grid_whd} or atlases "
-                         f"{s2}x{s2} need indices past 2^31 - 1: K12 "
-                         f"indexes in 32 bits")
-    if nd * d > MAX_GRID_Z:
-        raise ValueError(f"{nd} suns x {d} slices: a launch grid holds at "
-                         f"most {MAX_GRID_Z}")
+    nd, s2, nc = t.par.shape[0], atlas.shape[-1], t.spheres.shape[1]
+    tiles = -(-h // K12_TILE[1])
+    wide = (f"{h} rows: {tiles} row tiles past the launch grid's "
+            f"{MAX_GRID_Z}" if tiles > MAX_GRID_Z else None) \
+        or cuda.past_int32("a sun's cascade table [D, C, 8]", d, nc, 8)
+    narrow = wide \
+        or cuda.past_int32("the volumes [Nd, D, H, W]", nd, d, h, w) \
+        or cuda.past_int32("the atlases [Nd, S2, S2]", nd, s2, s2) \
+        or cuda.past_int32("the cascade tables [Nd, D, C, 8]", nd, d, nc, 8) \
+        or (f"{nd} suns x {d} slices: {nd * d} (sun, slice) pairs past the "
+            f"launch grid's {MAX_GRID_Z}" if nd * d > MAX_GRID_Z else None)
+    return cuda.index_form("K12", narrow, wide, form)
 
 
-def pcf_shadow(t: PcfTables, atlas: torch.Tensor) -> torch.Tensor:
+def pcf_shadow(t: PcfTables, atlas: torch.Tensor,
+               form: Optional[str] = None) -> torch.Tensor:
     """K12: the sun shadow volume [Nd, D, H, W] on t's grid, every sun in
-    one launch. Refuses, before the launch, what the kernel cannot index in
-    32 bits."""
+    one launch of the index form k12_form picks (or `form`, forced), which
+    refuses, before the launch, what neither form can index."""
     _check(t, atlas)
     if atlas.device.type == "cpu":
         return pcf_shadow_plain(t, atlas)
-    check_indices(t, atlas)
+    form = k12_form(t, atlas, form)
     cuda.check_cuda(atlas, t.par, t.coef, t.spheres)
     cuda.check_cuda(t.order, t.count, dtype=torch.int32)
     w, h, d = t.grid_whd
@@ -380,7 +390,8 @@ def pcf_shadow(t: PcfTables, atlas: torch.Tensor) -> torch.Tensor:
     cuda.launch("pcf_shadow", cuda.ptr(t.par), cuda.ptr(t.coef),
                 cuda.ptr(t.order), cuda.ptr(t.count), cuda.ptr(t.spheres),
                 cuda.ptr(atlas), w, h, d, t.h_glob, s2, nc, nd,
-                cuda.ptr(out), entry="vr_pcf_shadow_suns")
+                cuda.ptr(out), cuda.INDEX_FORMS.index(form),
+                entry="vr_pcf_shadow_form")
     return out
 
 

@@ -19,14 +19,14 @@ with clamped neighbours cz, cy, cx. The CUDA counterparts (`reproj_view_l`,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.cuda import upload
-from volumetricrenderer_tpu_torch.ops.scatter import INT32_MAX, MAX_GRID_Z
+from volumetricrenderer_tpu_torch.ops.scatter import MAX_GRID_Z
 
 MODES = ("weight", "alpha")
 # csrc/temporal_blend.cu dispatches warp8_by<1..4>: the weight mode's
@@ -168,17 +168,25 @@ def check_shared(nbytes: int, kernel: str, what: str) -> None:
                          f"shared memory do not fit a block's shared memory")
 
 
-def check_volume_indices(shape: Tuple[int, ...], kernel: str) -> None:
-    """Refuse a volume [C, D, H, W] that K10 or K11 cannot index in 32 bits
-    (their launchers refuse it too): more than 2^31 - 1 floats, or more
-    slices than a launch grid holds. Raises ValueError."""
+def volume_form(kernel: str, shape: Tuple[int, ...], rows: int,
+                form: Optional[str] = None) -> str:
+    """The index form of cuda.INDEX_FORMS that one launch of K10 or K11
+    (tiles of `rows` rows) takes for its volume [C, D, H, W] (one channel
+    group), as their launchers' k10_form and k11_form: the narrow form
+    (32-bit indices, a slice a launch-grid z index) takes volumes under
+    2^31 floats on at most 65535 slices; the wide form (64-bit indices, the
+    slices in parts of at most 65535) any size and slice count. Both take at
+    most 65535 row tiles. form: a form to force. Raises ValueError, naming
+    `kernel`, before any launch where the form cannot take the volume."""
     c, d, h, w = shape
-    if c * d * h * w > INT32_MAX:
-        raise ValueError(f"{kernel}: the volume {tuple(shape)} needs indices "
-                         f"past 2^31 - 1: the kernel indexes in 32 bits")
-    if d > MAX_GRID_Z:
-        raise ValueError(f"{kernel}: {d} slices: a launch grid holds at most "
-                         f"{MAX_GRID_Z}")
+    tiles = -(-h // rows)
+    wide = (f"{h} rows: {tiles} row tiles past the launch grid's "
+            f"{MAX_GRID_Z}" if tiles > MAX_GRID_Z else None)
+    narrow = wide or cuda.past_int32(
+        f"the volume {tuple(shape)}", c, d, h, w) \
+        or (f"{d} slices past the launch grid's {MAX_GRID_Z}"
+            if d > MAX_GRID_Z else None)
+    return cuda.index_form(kernel, narrow, wide, form)
 
 
 # --------------------------------------------------------------------------
@@ -193,6 +201,13 @@ K10_TILE = (16, 16)
 
 def k10_shared_bytes(k: int) -> int:
     return region_shared_bytes(K10_TILE, k)
+
+
+def k10_form(shape: Tuple[int, ...], form: Optional[str] = None) -> str:
+    """Mirror of csrc/temporal_blend.cu k10_form: the index form of one K10
+    launch on a channel group's [C, D, H, W] volumes (volume_form). form: a
+    form to force. Raises ValueError, naming K10, before any launch."""
+    return volume_form("K10", shape, K10_TILE[1], form)
 
 
 def channel_groups(n_ch: int, mode: str):
@@ -245,28 +260,30 @@ def temporal_blend_plain(bpar, prev: torch.Tensor, cur: torch.Tensor,
 
 def temporal_blend(bpar, prev: torch.Tensor, cur: torch.Tensor,
                    grid_whd: Tuple[int, int, int], h_glob: int, k: int,
-                   mode: str) -> torch.Tensor:
+                   mode: str, form: Optional[str] = None) -> torch.Tensor:
     """K10: reproject, warp and blend in one pass, written to a new buffer.
     bpar: a pack_blend_params table on the volumes' device (the frame
     tables' sbpar for the shadow blend, abpar for the accumulation
     blend). The weight mode takes any channel count, one launch per group
-    of up to MAX_CHANNELS (channel_groups)."""
+    of up to MAX_CHANNELS (channel_groups). CUDA tensors launch each group
+    in the index form k10_form picks for it (or `form`, forced)."""
     if prev.device.type == "cpu":
         return temporal_blend_plain(bpar, prev, cur, grid_whd, h_glob, k,
                                     mode)
     _check_blend(bpar, prev, cur, grid_whd, mode)
     groups = channel_groups(prev.shape[0], mode)
     # each launch indexes its own group's channels
-    check_volume_indices((groups[0][1], *prev.shape[1:]), "K10")
+    forms = [k10_form((nc, *prev.shape[1:]), form) for _, nc in groups]
     check_region(k, k10_shared_bytes(k), "K10")
     cuda.check_cuda(bpar, prev, cur)
     w, h, d = grid_whd
     out = torch.empty_like(cur)
-    for c0, nc in groups:
+    for (c0, nc), f in zip(groups, forms):
         cuda.launch("temporal_blend", cuda.ptr(bpar),
                     cuda.ptr(prev[c0:c0 + nc]), cuda.ptr(cur[c0:c0 + nc]),
                     cuda.ptr(out[c0:c0 + nc]), nc, w, h, d, int(h_glob),
-                    int(k), MODES.index(mode))
+                    int(k), MODES.index(mode), cuda.INDEX_FORMS.index(f),
+                    entry="vr_temporal_blend_form")
     return out
 
 

@@ -22,12 +22,13 @@ sample of torch.nn.functional.grid_sample. Volumes are channel-first
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.temporal import (check_region,
-                                                       check_volume_indices,
-                                                       warp)
+                                                       volume_form, warp)
 
 # K11's block (csrc/windowed_warp.cu K11Tile): a 16 x 16 tile of one slice,
 # launched as ops/scatter.tile_grid reckons; the channels 4 at a time
@@ -44,6 +45,21 @@ def k11_shared_bytes(k: int) -> int:
     columns (the tile's and k before, k + 1 after), float32."""
     nx, ny = K11_TILE[0] + 2 * k + 1, K11_TILE[1] + 2 * k + 1
     return 4 * (K11_TILE[1] + ny) * nx
+
+
+def channel_groups(c: int):
+    """K11's launches over c channels: (first channel, channels) of each,
+    K11_CHANNELS at a time."""
+    return [(c0, min(K11_CHANNELS, c - c0))
+            for c0 in range(0, c, K11_CHANNELS)]
+
+
+def k11_form(shape: Tuple[int, ...], form: Optional[str] = None) -> str:
+    """Mirror of csrc/windowed_warp.cu k11_form: the index form of one K11
+    launch on a channel group's [C, D, H, W] volume (at most K11_CHANNELS
+    channels; ops/temporal.volume_form). form: a form to force. Raises
+    ValueError, naming K11, before any launch."""
+    return volume_form("K11", shape, K11_TILE[1], form)
 
 
 def _check(vol, target_x, target_y, target_z) -> None:
@@ -82,22 +98,25 @@ def windowed_warp_plain(vol: torch.Tensor, target_x: torch.Tensor,
 
 def windowed_warp(vol: torch.Tensor, target_x: torch.Tensor,
                   target_y: torch.Tensor, target_z: torch.Tensor,
-                  k: int = 4) -> torch.Tensor:
+                  k: int = 4, form: Optional[str] = None) -> torch.Tensor:
     """K11: `windowed_warp_pallas` of the JAX package on channel-first
     volumes, written to a new buffer; a volume of more than 4 channels in
-    launches of up to 4."""
+    launches of up to 4 (channel_groups), each in the index form k11_form
+    picks for its own group (or `form`, forced)."""
     if vol.device.type == "cpu":
         return windowed_warp_plain(vol, target_x, target_y, target_z, k)
     _check(vol, target_x, target_y, target_z)
-    check_volume_indices(vol.shape, "K11")
+    c, d, h, w = vol.shape
+    groups = channel_groups(c)
+    # each launch indexes its own group's channels
+    forms = [k11_form((nc, d, h, w), form) for _, nc in groups]
     check_region(k, k11_shared_bytes(k), "K11")
     cuda.check_cuda(vol, target_x, target_y, target_z)
-    c, d, h, w = vol.shape
     out = torch.empty_like(vol)
-    for c0 in range(0, c, K11_CHANNELS):  # one launch per 4 channels
-        nc = min(K11_CHANNELS, c - c0)
+    for (c0, nc), f in zip(groups, forms):
         cuda.launch("windowed_warp", cuda.ptr(vol[c0:c0 + nc]),
                     cuda.ptr(target_x), cuda.ptr(target_y),
                     cuda.ptr(target_z), cuda.ptr(out[c0:c0 + nc]), nc, d, h,
-                    w, int(k))
+                    w, int(k), cuda.INDEX_FORMS.index(f),
+                    entry="vr_windowed_warp_form")
     return out
