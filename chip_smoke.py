@@ -390,7 +390,35 @@ entry point a user calls, and the port's demo entry, and:
                          its 5 suns against the twin, K6 on the band;
      the wide forms' rows (also forced at 240x135x128 beside the narrow
      forms, in turns) join the kernels line;
-  9. prints the `kernels` JSON line, then the result line.
+  9. the forms past a block's shared memory (shared_edge_paths): the
+     mirrors ops/scatter.sun_form, ops/frame_fused.k1_plan and
+     check_k3_window against the launchers' own rules at their edges (K3
+     refused at k = 159, where its bytes pass the card's limit, and held
+     against its twin at 158 on many_suns' frame 4); K2 (radiance,
+     rays, baked), K5 and K7 forced into gen_global (the suns' inverse
+     directions in device memory) in both index forms and K1 forced into
+     its chunked form on many_suns' frame 4 at 240x135x128, each = the
+     general form bit for bit, timed in turns against it; then, each path
+     from a fresh state through to K4, its per-form launches counted:
+       many_suns_shared  FULL_CONFIG with 19,460 suns (3,892 copies of
+                         many_suns_scene's 5), 2 frames, at 80x45x32 (1080p:
+                         [19460, 32, 45, 80] histories past 2^31 floats, K2
+                         gen_global wide) and 40x24x16 (160x90: gen_global
+                         narrow); then STAGED (K5 gen_global) 2 frames and
+                         no_shadow_blend (K7 gen_global) 1 frame on each
+                         grid; each copy's history = the first copy's, the
+                         first copy = the general form's on the 5-sun scene
+                         bit for bit and the twin's on the whole grid, K2's
+                         planes = K5 then K6 bit for bit
+       many_noise_shared FULL_CONFIG with 16 lights and 432 procedural
+                         noise media, 2 frames: K1 chunked (425 channels
+                         staged, 7 whole), its channels = the general form
+                         on the 425-media prefix and on the base medium
+                         with the last 7 bit for bit, and the twin; K2's
+                         general form reads the 432 channels (= K5 then K6
+                         bit for bit);
+     their rows join the kernels line;
+  10. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
 Imports no JAX and nothing of the JAX package.
@@ -414,6 +442,9 @@ import torch
 # full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# a block's shared memory on the H100, the opt-in limit
+# (ops/temporal.MAX_SHARED_BYTES)
+MAX_SHARED_BYTES = 232448
 
 # kernel -> (allowed |kernel - twin| per element: atol + rtol*|twin|, the
 # largest fraction of elements allowed past it, why)
@@ -1417,8 +1448,9 @@ def many_suns_scene(scene, n_suns: int, n_noise: int):
 
 
 def form_deltas(cuda, before) -> dict:
-    """source -> (fixed, general) launches of cuda.FORM_SOURCES since
-    `before` (their counts then)."""
+    """source -> launches of each of cuda.FORM_SOURCES' forms (fixed,
+    general, then gen_global or chunked: cuda.FORM_NAMES) since `before`
+    (their counts then)."""
     return {src: tuple(a - b for a, b in zip(cuda.form_launches(src),
                                              before[src]))
             for src in cuda.FORM_SOURCES}
@@ -1432,7 +1464,8 @@ def check_forms(name: str, before, launches, cuda) -> None:
     deltas = form_deltas(cuda, before)
     for src, got in deltas.items():
         n = launches[src]
-        want = (0, n) if name in MANY_PATHS else (n, 0)
+        want = ((0, n) if name in MANY_PATHS else (n, 0)) \
+            + (0,) * (len(got) - 2)
         if got != want:
             raise AssertionError(f"path {name}: {src} launched (fixed, "
                                  f"general) forms {got}, not {want}")
@@ -1564,9 +1597,11 @@ def many_suns_holds(renderers, runs, scene, cuda):
         deltas = form_deltas(cuda, before)
         log(f"# general forms, {tag}: (fixed, general) launches "
             f"{json.dumps(deltas)}")
-        for src, (fixed, gen) in deltas.items():
+        for src, (fixed, gen, *past) in deltas.items():
             suns_only = src in ("shadow_blend", "dir_shadow")
-            if nd > 4:
+            if any(past):  # gen_global or chunked: not at these counts
+                ok = False
+            elif nd > 4:
                 ok = fixed == 0 and gen > 0
             elif nn > 4 and not suns_only:
                 # K1 has no per-light mode; K2's and K6's have no fBm
@@ -1575,8 +1610,8 @@ def many_suns_holds(renderers, runs, scene, cuda):
             else:
                 ok = gen == 0 and fixed > 0
             if not ok:
-                raise AssertionError(f"{tag}: {src} took (fixed, general) "
-                                     f"forms {(fixed, gen)}")
+                raise AssertionError(f"{tag}: {src} took (fixed, general, "
+                                     f"past) forms {(fixed, gen, *past)}")
     # an account of K6's largest difference: the twin's terms there and
     # the nearest flip of one light's shadow ray (ROADMAP C8's class)
     err, label, got, want, a = worst
@@ -4415,6 +4450,527 @@ def history_map_wide_paths(cfg, scene, scene_color, view_depth, cuda,
     return rows
 
 
+# The crossings past a block's shared memory (shared_edge_paths):
+# many_suns_shared's 19,460 suns, 3,892 copies of many_suns_scene's 5, on a
+# grid whose histories pass 2^31 floats (K2's and K5's wide index form) and
+# on the --small grid (narrow); many_noise_shared's 432 procedural noise
+# media at FULL_CONFIG, of which K1's chunked form stages 425 at 16 lights
+SHARED_SUN_COPIES = (5, 3892)
+SHARED_GRIDS = {
+    "wide": dict(volume_width=80, volume_height=45, volume_depth=32),
+    "narrow": dict(volume_width=40, volume_height=24, volume_depth=16,
+                   image_width=160, image_height=90)}
+SHARED_NOISE = 432
+# the general form's rows (many_suns_holds) whose work, twin error and
+# plain time a forced gen_global or chunked row shares (bit for bit)
+SHARED_GEN_ROWS = {"bake_radiance": "general", "shadow_blend": "general",
+                   "dir_shadow": "general"}
+
+
+def shared_form_mirrors(ff, sca, cuda, tables) -> None:
+    """The wrappers' mirrors of the forms past a block's shared memory
+    against the launchers' own rules: ops/scatter.sun_form against
+    vr_shadow_scatter_sun_form_of, vr_shadow_blend_sun_form_of and
+    vr_dir_shadow_sun_form_of at each edge (18,435 / 18,436 suns at k = 4,
+    19,285 / 19,286 for K7, other windows, K2's fBm channels);
+    ops/frame_fused.k1_plan and k1_geometry's bytes against
+    vr_bake_radiance_plan at 421-430 channels and 0-40 lights; K3's window
+    (check_k3_window): the refusal at k = 159, where K3's bytes with its
+    static ones (cudaFuncGetAttributes) pass the card's opt-in limit."""
+    import ctypes
+
+    def of(name, entry, *args, n=1):
+        buf = (ctypes.c_int * n)()
+        getattr(cuda.lib(name), entry)(*args, ctypes.cast(buf,
+                                                          ctypes.c_void_p))
+        return tuple(buf)
+
+    def mirror(kernel, nd, nn, k):
+        try:
+            return cuda.SUN_FORMS.index(sca.sun_form(kernel, nd, nn, k))
+        except ValueError:
+            return -1
+
+    bad, n_rows = [], 0
+    rule_of = {0: "shared", 1: "gen_global", -1: "refused"}
+    for k in (4, 0, 8, 25, 51, 52):
+        for nd, nn in ((18435, 1), (18436, 1), (19285, 0), (19286, 0),
+                       (4, 5), (9, 9), (1, 1)):
+            for kernel, got in (
+                    ("K2", of("shadow_scatter",
+                              "vr_shadow_scatter_sun_form_of", k, nd, nn)),
+                    ("K5", of("shadow_blend", "vr_shadow_blend_sun_form_of",
+                              k, nd)),
+                    ("K7", of("dir_shadow", "vr_dir_shadow_sun_form_of",
+                              nd))):
+                want = mirror(kernel, nd, nn, k)
+                # the launcher names shared (fixed or general) or global
+                same = got[0] == (-1 if want < 0 else int(want == 2))
+                n_rows += 1
+                if not same:
+                    bad.append((kernel, k, nd, nn, got[0], want))
+    for nl in (0, 1, 4, 16, 32, 40):
+        for nn in (0, 1, 4, 5, 9, 421, 422, 425, 426, 429, 430, 2000):
+            got = of("bake_radiance", "vr_bake_radiance_plan", nl, nn, n=3)
+            form, chunk = ff.k1_plan(nl, nn)
+            want = (cuda.FORM_NAMES["bake_radiance"].index(form), chunk,
+                    ff.k1_geometry(nl, nn, (60, 34, 32)).shared_bytes)
+            n_rows += 1
+            if got != want:
+                bad.append(("K1", nl, nn, got, want))
+    log(f"# the forms past a block's shared memory: {n_rows} cases of "
+        f"sun_form (K2, K5, K7) and k1_plan (K1) against the launchers' "
+        f"rules ({rule_of}), disagreeing: {bad}")
+    if bad:
+        raise AssertionError(f"the shared-memory form mirrors disagree: "
+                             f"{bad}")
+    # K3's window: at k = 159 its dynamic shared memory and its static
+    # arrays (cudaFuncGetAttributes) pass the card's opt-in limit, where its
+    # launcher's cudaFuncSetAttribute would fail (not provoked here: the
+    # library would keep that error as its last); forced_shared_holds
+    # launches k = 158
+    w, h, d = 40, 24, 16
+    t = dataclasses.replace(tables, grid_whd=(w, h, d), h_glob=h, k=159)
+    sc = torch.zeros((4, d, h, w), device="cuda")
+    acc = torch.zeros((4, d, h, w), device="cuda")
+    try:
+        ff.integrate_blend(t, sc, acc)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    static = {a["shared_bytes"] for a in
+              cuda.kernel_attrs("integrate_blend").values()}
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", None)
+    log(f"# K3's window: at k = 158 {ff.k3_shared_bytes(158)} dynamic + "
+        f"{ff.K3_STATIC_SHARED} static bytes; at k = 159 "
+        f"({ff.k3_shared_bytes(159)} dynamic) the wrapper refuses "
+        f"({refused!r}); the kernels' static bytes {sorted(static)}, the "
+        f"card's opt-in limit {optin}")
+    if not refused or static != {ff.K3_STATIC_SHARED} \
+            or optin not in (None, MAX_SHARED_BYTES):
+        raise AssertionError("K3's window mirror disagrees with the kernel "
+                             "or the card at k = 159")
+
+
+def in_turns(a, b, n: int) -> tuple:
+    """CUDA-event times (ms a call) of a and b in the order a, b, b, a."""
+    a1 = kernel_time_ms(a, n)
+    b1, b2 = kernel_time_ms(b, n), kernel_time_ms(b, n)
+    a2 = kernel_time_ms(a, n)
+    return [a1, a2], [b1, b2]
+
+
+def forced_shared_holds(renderers, runs, scene, many_rows, cuda) -> dict:
+    """K2 (radiance, rays, baked), K5 and K7 forced into gen_global in both
+    index forms, and K1 forced into its chunked form (4 and 0 of its 9
+    channels staged, and the most that fit), on the inputs of many_suns'
+    frame 4 at 9 suns and 9 fBm channels (240x135x128): each = the general
+    form bit for bit, its launch counted under its form, timed in turns
+    against the general form (general, forced, forced, general); and K3 at
+    k = 158, the widest window it takes, against its twin. Returns
+    {(kernel, mode): row}; each row shares the general form's work, twin
+    error and plain time (many_suns_holds), the two being equal."""
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    prev = runs["many_suns"][1][3]
+    sc_c = many_suns_scene(scene, 9, 9)
+    t = renderers["many_suns"].frame_tables(prev, sc_c, 0.3)[0]
+    xt = renderers["fused_exact"].frame_tables(prev, sc_c, 0.3)[0]
+    vt = renderers["fused_vis"].frame_tables(prev, sc_c, 0.3)[0]
+    prev_sh = prev.prev_shadow[:9].float().contiguous()
+    bake = ff.bake_radiance(t)
+    cases = {("shadow_scatter", "radiance"): lambda f: ff.shadow_scatter(
+                 t, prev_sh, bake, form=f),
+             ("shadow_scatter", "rays"): lambda f: ff.shadow_scatter(
+                 xt, prev_sh, form=f),
+             ("shadow_scatter", "baked"): lambda f, v=vis.bake_visibility(
+                 vt): ff.shadow_scatter(vt, prev_sh, None, v, form=f),
+             ("shadow_blend", ""): lambda f: sb.dir_shadow_blend(
+                 t, prev_sh, form=f),
+             ("dir_shadow", ""): lambda f: ds.dir_shadow(t, form=f)}
+    rows = {}
+
+    def row(kernel, mode, gen_key, ms, gen_ms, label):
+        g = many_rows[(kernel, gen_key)]
+        rows[(kernel, mode)] = {
+            "launches": 0, "paths": [], "max_abs_err": g["max_abs_err"],
+            "ms": sum(ms) / 2, "ms_turns": ms, "general_ms": sum(gen_ms) / 2,
+            "general_ms_turns": gen_ms, "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": None, "held": label}
+        log(f"# {kernel}, {mode} (forced, 9 suns, 9 fBm channels): "
+            f"{ms[0]:.4f} {ms[1]:.4f} ms/call, the general form "
+            f"{gen_ms[0]:.4f} {gen_ms[1]:.4f} ({sum(ms) / sum(gen_ms):.3f}x"
+            f"), bound {g['bound_ms']:.4f} ms; = the general form bit for "
+            f"bit")
+
+    for (kernel, mode), fn in cases.items():
+        for index in cuda.INDEX_FORMS:
+            torch.cuda.synchronize()
+            before = cuda.form_counts(kernel)
+            want = fn(index)
+            got = fn((index, "gen_global"))
+            torch.cuda.synchronize()
+            after = cuda.form_counts(kernel)
+            moved = {f: after[f] - before[f] for f in after
+                     if after[f] != before[f]}
+            same = all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,)))
+            label = f"{kernel} {mode} {index}".replace("  ", " ")
+            log(f"# {label}: gen_global forced = the general form bit for "
+                f"bit: {same}; launches by form {json.dumps(moved)}")
+            if not same or moved != {"general": 1, "gen_global": 1,
+                                     index: 2}:
+                raise AssertionError(f"{label}: gen_global differs from the "
+                                     f"general form, or the forms {moved}")
+            del got, want
+            slow = mode in ("rays", "baked")
+            gen_ms, glob_ms = in_turns(lambda: fn(index),
+                                       lambda: fn((index, "gen_global")),
+                                       3 if slow else 10)
+            row(kernel, "_".join(x for x in ("gen_global", mode, index) if x),
+                SHARED_GEN_ROWS.get(kernel, f"general_{mode}"), glob_ms,
+                gen_ms, "the general form, bit for bit")
+    # K3 at the widest window it takes (k = 158, check_k3_window), on the
+    # same frame's scatter planes and history
+    acc = prev.prev_accumulation.float().contiguous()
+    sc = ff.shadow_scatter(t, prev_sh, bake)[1]
+    t158 = dataclasses.replace(t, k=158)
+    compare("integrate_blend", ff.integrate_blend(t158, sc, acc),
+            ff.integrate_blend_plain(t158, sc, acc),
+            label="k = 158, the widest window K3 takes, many_suns' frame 4")
+    del sc, acc
+    # K1: its chunked form forced with 4, 0 and the most that fit staged
+    want = ff.bake_radiance(t)
+    for chunk in (4, 0, None):
+        before = cuda.form_counts("bake_radiance")
+        got = ff.bake_radiance(t, form="chunked", chunk=chunk)
+        torch.cuda.synchronize()
+        moved = {f: n - before[f] for f, n in
+                 cuda.form_counts("bake_radiance").items() if n != before[f]}
+        same = torch.equal(got, want)
+        log(f"# bake_radiance chunked, {chunk} of 9 channels staged: = the "
+            f"general form bit for bit: {same}; launches by form "
+            f"{json.dumps(moved)}")
+        if not same or moved != {"chunked": 1}:
+            raise AssertionError(f"K1's chunked form ({chunk} staged) "
+                                 "differs from the general form")
+        gen_ms, ch_ms = in_turns(
+            lambda: ff.bake_radiance(t),
+            lambda c=chunk: ff.bake_radiance(t, form="chunked", chunk=c), 20)
+        row("bake_radiance", f"chunked_{'most' if chunk is None else chunk}"
+            "_of_9", "general", ch_ms, gen_ms,
+            "the general form, bit for bit")
+    return rows
+
+
+
+def fbm_ulp_hold(name: str, t, bake, want) -> float:
+    """K1's bake `bake` against its twin's `want` where the fBm coordinates
+    are large (many_noise_shared: medium j scrolls by 2j, so its noise
+    coordinates reach ~90 at frame 2, and 64x that at its fifth octave,
+    where one float's step is 4.9e-4 of a lattice cell): the radiance
+    channels at CHECKS; each fBm channel against the twin's fBm at the
+    sample's noise coordinates and at the neighbouring float of each, below
+    and above (27 points), the kernel's value within CHECKS' tolerance of
+    the range they span on all but CHECKS' share of the samples -- the
+    twin's value at coordinates one rounding away, as a last-ulp difference
+    of a sample's position reaches them. Logs the plain hold's share past
+    the tolerance by groups of channels. Returns the largest |kernel -
+    twin|."""
+    from volumetricrenderer_tpu_torch.ops import material as mtl
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    atol, rtol, frac_ok, _ = CHECKS["bake_radiance"]
+    err = compare("bake_radiance", bake[:3].contiguous(),
+                  want[:3].contiguous(), label=f"{name}, radiance channels")
+    wl, hl, dl = t.low_dims
+    ms = torch.arange(dl, device=bake.device)[:, None, None]
+    wx, wy, wz = vis.bake_world_planes(t.spar, ms, t.grid_whd, t.ss,
+                                       t.h_glob)
+    inf = torch.full_like(wx, float("inf"))
+    plain, past, worst, big, c = [], 0, 0.0, 0.0, 0
+    for mi, (src, octaves, period, seed, *_) in enumerate(t.media_static):
+        if not src:
+            continue
+        coords = []
+        for axis, (w_, sc_, of_) in enumerate(((wx, 5, 8), (wy, 6, 9),
+                                               (wz, 7, 10))):
+            u = w_ * t.med[mi, sc_] + t.med[mi, of_]
+            big = max(big, float(u.abs().max()))
+            v = torch.stack([torch.nextafter(u, -inf), u,
+                             torch.nextafter(u, inf)])
+            coords.append(v.view(*(3 if a == axis else 1 for a in range(3)),
+                                 *u.shape))
+        n = mtl.perlin_planes(*coords, octaves, period, seed)
+        k, w_c = bake[3 + c], want[3 + c]
+        if not torch.equal(n[1, 1, 1], w_c):
+            raise AssertionError(f"{name}: the fBm at the noise coordinates "
+                                 f"is not the twin's (channel {c})")
+        tol = atol + rtol * w_c.abs()
+        lo, hi = n.amin(dim=(0, 1, 2)), n.amax(dim=(0, 1, 2))
+        past += int(((k < lo - tol) | (k > hi + tol)).sum())
+        d = (k - w_c).abs()
+        worst = max(worst, float(d.max()))
+        plain.append(float((d > tol).float().mean()))
+        c += 1
+    share = past / (c * wl * hl * dl)
+    groups = {f"{c0}-{min(c0 + 47, c - 1)}": sum(plain[c0:c0 + 48])
+              / len(plain[c0:c0 + 48]) for c0 in range(0, c, 48)}
+    log(f"# check bake_radiance ({name}, {c} fBm channels at their "
+        f"coordinates' neighbouring floats): largest |coordinate| {big:.2f}"
+        f", max_abs_err against the twin {worst:.3e}, share past atol "
+        f"{atol:g} + rtol {rtol:g} of the range at the 27 points {share:.2e} "
+        f"(allowed {frac_ok:g}); the plain hold's share past it by channels "
+        + json.dumps({k_: f"{v:.1e}" for k_, v in groups.items()}))
+    if share > frac_ok:
+        raise AssertionError(f"bake_radiance ({name}): the fBm channels "
+                             "disagree with the twin past a rounding of "
+                             "their coordinates")
+    return max(err, worst)
+
+def shared_edge_paths(cfg, scene, renderers, runs, scene_color, view_depth,
+                      many_rows, tables, cuda) -> dict:
+    """The forms past a block's shared memory: the mirrors
+    (shared_form_mirrors), the forced holds at 240x135x128
+    (forced_shared_holds), then the crossings many_suns_shared (fused,
+    staged and no_shadow_blend frames with 19,460 suns on SHARED_GRIDS'
+    two grids) and many_noise_shared (the fused frame with 432 fBm
+    channels), each from a fresh state through to K4 with its launches by
+    form counted. Returns {(kernel, mode): row of the kernels line}."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    t_phase = time.perf_counter()
+
+    def done(name):
+        log(f"# elapsed in the shared-memory phase "
+            f"{time.perf_counter() - t_phase:.1f} s: {name}")
+
+    shared_form_mirrors(ff, sca, cuda, tables)
+    rows = forced_shared_holds(renderers, runs, scene, many_rows, cuda)
+    done("mirrors and forced holds")
+
+    def by_form(name, run, want):
+        """run(), its launches by form (FORM_SOURCES) checked: `want`
+        {source: {form: launches}} for every source that launched."""
+        before = {s_: cuda.form_counts(s_) for s_ in cuda.FORM_SOURCES}
+        out = run()
+        got = {}
+        for s_ in cuda.FORM_SOURCES:
+            moved = {f: n - before[s_][f] for f, n in
+                     cuda.form_counts(s_).items()
+                     if f in cuda.FORM_NAMES[s_] and n != before[s_][f]}
+            if moved:
+                got[s_] = moved
+        log(f"# {name}: launches by form {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{name}: launches by form {got}, not "
+                                 f"{want}")
+        return out
+
+    # many_suns_shared
+    base, copies = SHARED_SUN_COPIES
+    scn5 = many_suns_scene(scene, base, 1)
+    scn = dataclasses.replace(scn5, dir_lights=replicate(scn5.dir_lights,
+                                                         copies))
+    nd = base * copies
+
+    def by_copies(name, vol, first):
+        v = vol.view(copies, base, -1)
+        same = bool((v == v[:1]).all()) and torch.equal(vol[:base], first)
+        log(f"# {name}: each of the {copies} copies' {base} channels = the "
+            f"first copy's, and the first = the general form's on the "
+            f"{base}-sun scene, bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{name}: a copy differs from the first, "
+                                 "or the first from the general form")
+
+    for grid, dims in SHARED_GRIDS.items():
+        g_cfg = dataclasses.replace(cfg, **dims)
+        wide = grid == "wide"
+        ix = (0, 2) if wide else (2, 0)
+        # the fused frame
+        r = VolumetricRenderer(g_cfg)
+        if g_cfg.image_width == cfg.image_width:
+            col, dep = scene_color, view_depth
+        else:
+            col, dep = r.render_scene_inputs(scn)
+        name = f"many_suns_shared_{grid}"
+        _, prev, rec, secs, _ = by_form(name, lambda: drive_wide(
+            name, r, scn, col, dep, 2,
+            {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
+             "composite": 1},
+            {"shadow_scatter": ix, "integrate_blend": (2, 0)}, cuda),
+            {"bake_radiance": {"fixed": 2},
+             "shadow_scatter": {"gen_global": 2}})
+        (t, p_sh, bake, _), (sh, sc) = rec["shadow_scatter"]
+        del rec
+        log(f"# {name}: {t.n_dir} suns, {tuple(sh.shape)} histories = "
+            f"{sh.numel()} floats (past 2^31 - 1: {sh.numel() > 2 ** 31 - 1})"
+            f", {sca.sun_inv_bytes(nd)} bytes of inverse directions past "
+            f"{ff.k2_shared_bytes(t.k)} of region")
+        if t.n_dir != nd or (sh.numel() > 2 ** 31 - 1) != wide:
+            raise AssertionError(f"{name}: {t.n_dir} suns, "
+                                 f"{sh.numel()} floats")
+        t5 = r.frame_tables(prev, scn5, 0.1)[0]
+        p5 = p_sh[:base].contiguous()
+        sh5, _ = ff.shadow_scatter(t5, p5, bake)
+        by_copies(name, sh, sh5)
+        want, plain_ms = timed_plain(lambda: ff.shadow_scatter_plain(
+            t5, p5, ff.bake_radiance_plain(t5)))
+        err = compare("shadow_scatter", sh[:base], want[0],
+                      label=f"{name}, the first copy's history")
+        del want, sh5
+        # the planes: K2 = K5 then K6 bit for bit (both gen_global's K5)
+        sh_b = sb.dir_shadow_blend(t, p_sh)
+        same = torch.equal(sh_b, sh) and torch.equal(
+            sca.scatter_local(t, sh_b, bake), sc)
+        log(f"# {name}: K2's history and planes = K5 (gen_global) then K6 "
+            f"bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{name}: K2 differs from K5 then K6")
+        del sh_b, sh, sc
+        torch.cuda.empty_cache()
+        rows[("shadow_scatter", f"gen_global_{name}")] = wide_row(
+            "shadow_scatter", f"gen_global_{name}",
+            lambda: ff.shadow_scatter(t, p_sh, bake), 3,
+            fused_work(t, "shadow_scatter"), err, plain_ms, 2,
+            "the twin on the first copy's 5 suns, whole grid")
+        del prev, t, p_sh, bake, t5, p5
+        torch.cuda.empty_cache()
+        done(name)
+        # the staged frame: K5 gen_global
+        s_r = VolumetricRenderer(dataclasses.replace(g_cfg, **STAGED))
+        name = f"many_suns_shared_staged_{grid}"
+        _, prev, rec, _, _ = by_form(name, lambda: drive_wide(
+            name, s_r, scn, col, dep, 2, {k: 1 for k in STAGED_KERNELS},
+            {"shadow_blend": ix, "scatter": ix,
+             "integrate_blend": (2, 0)}, cuda),
+            {"bake_radiance": {"fixed": 2}, "shadow_blend": {"gen_global": 2},
+             "scatter": {"general": 2}})
+        (t, p_sh), sh = rec["shadow_blend"]
+        del rec
+        t5 = s_r.frame_tables(prev, scn5, 0.1)[0]
+        p5 = p_sh[:base].contiguous()
+        by_copies(name, sh, sb.dir_shadow_blend(t5, p5))
+        want, plain_ms = timed_plain(lambda: sb.dir_shadow_blend_plain(t5,
+                                                                       p5))
+        err = compare("shadow_blend", sh[:base], want,
+                      label=f"{name}, the first copy's history")
+        del want, sh
+        torch.cuda.empty_cache()
+        rows[("shadow_blend", f"gen_global_{name}")] = wide_row(
+            "shadow_blend", f"gen_global_{name}",
+            lambda: sb.dir_shadow_blend(t, p_sh), 3,
+            fused_work(t, "shadow_blend"), err, plain_ms, 2,
+            "the twin on the first copy's 5 suns, whole grid")
+        del prev, t, p_sh, t5, p5
+        torch.cuda.empty_cache()
+        done(name)
+        # no_shadow_blend: K7 gen_global
+        n_r = VolumetricRenderer(dataclasses.replace(
+            g_cfg, **STAGED, temporal_blend_shadow=False))
+        name = f"many_suns_shared_no_shadow_blend_{grid}"
+        _, prev, rec, _, _ = by_form(name, lambda: drive_wide(
+            name, n_r, scn, col, dep, 1,
+            {k: 1 for k in NO_SHADOW_BLEND_KERNELS},
+            {"dir_shadow": (0, 1) if wide else (1, 0),
+             "scatter": (0, 1) if wide else (1, 0),
+             "integrate_blend": (1, 0)}, cuda),
+            {"bake_radiance": {"fixed": 1}, "dir_shadow": {"gen_global": 1},
+             "scatter": {"general": 1}})
+        (t,), un = rec["dir_shadow"]
+        del rec
+        t5 = n_r.frame_tables(prev, scn5, 0.0)[0]
+        by_copies(name, un, ds.dir_shadow(t5))
+        want, plain_ms = timed_plain(lambda: ds.dir_shadow_plain(t5))
+        err = compare("dir_shadow", un[:base], want,
+                      label=f"{name}, the first copy's volume")
+        del want, un
+        torch.cuda.empty_cache()
+        rows[("dir_shadow", f"gen_global_{name}")] = wide_row(
+            "dir_shadow", f"gen_global_{name}", lambda: ds.dir_shadow(t), 3,
+            fused_work(t, "dir_shadow"), err, plain_ms, 1,
+            "the twin on the first copy's 5 suns, whole grid")
+        del prev, t, t5, col, dep
+        torch.cuda.empty_cache()
+        done(name)
+
+    # many_noise_shared
+    name = "many_noise_shared"
+    scn = many_suns_scene(scene, 1, SHARED_NOISE)
+    r = renderers["fused"]
+    _, prev, rec, _, _ = by_form(name, lambda: drive_wide(
+        name, r, scn, scene_color, view_depth, 2,
+        {"bake_radiance": 1, "shadow_scatter": 1, "integrate_blend": 1,
+         "composite": 1},
+        {"shadow_scatter": (2, 0), "integrate_blend": (2, 0)}, cuda),
+        {"bake_radiance": {"chunked": 2}, "shadow_scatter": {"general": 2}})
+    (t, *_), bake = rec["bake_radiance"]
+    (t2, p_sh, bake2, _), (sh, sc) = rec["shadow_scatter"]
+    del rec
+    n_l = t.lights.shape[0]
+    form, staged = ff.k1_plan(n_l, t.n_noise)
+    log(f"# {name}: {t.n_noise} fBm channels at {n_l} lights, K1's {form} "
+        f"form: {ff.k1_chunks(n_l, t.n_noise)} (staged, whole), "
+        f"{ff.k1_geometry(n_l, t.n_noise, t.low_dims).shared_bytes} bytes "
+        f"of shared memory; the bake {tuple(bake.shape)}, K2 read it: "
+        f"{bake2 is bake}")
+    if form != "chunked" or bake2 is not bake:
+        raise AssertionError(f"{name}: K1 took its {form} form")
+    # the channels against the general form on scenes that fit: the
+    # prefix of `staged` channels, and the base scene's media (channel 0)
+    # with the noise media of the channels past them (the extra medium of
+    # channel c >= 1 is media[nb + c - 1])
+    nb = len(scene.media)
+    pre = dataclasses.replace(scn, media=scn.media[:nb + staged - 1])
+    t_pre = r.frame_tables(prev, pre, 0.1)[0]
+    b_pre = ff.bake_radiance(t_pre)
+    suf = dataclasses.replace(scn, media=scn.media[:nb]
+                              + scn.media[nb + staged - 1:])
+    t_suf = r.frame_tables(prev, suf, 0.1)[0]
+    b_suf = ff.bake_radiance(t_suf)
+    forms = (ff.k1_plan(n_l, t_pre.n_noise)[0],
+             ff.k1_plan(n_l, t_suf.n_noise)[0])
+    same = torch.equal(bake[:3 + staged], b_pre) \
+        and torch.equal(bake[3 + staged:], b_suf[4:]) \
+        and torch.equal(bake[:4], b_suf[:4])
+    log(f"# {name}: channels 0-{2 + staged} = the general form on the "
+        f"{staged}-media prefix, channels {3 + staged}-{2 + t.n_noise} = "
+        f"the general form on the base medium and the last "
+        f"{t.n_noise - staged} (forms {forms}), bit for bit: {same}")
+    if not same or forms != ("general", "general"):
+        raise AssertionError(f"{name}: K1's chunked form differs from the "
+                             "general form")
+    del b_pre, b_suf
+    want, plain_ms = timed_plain(lambda: ff.bake_radiance_plain(t))
+    err = fbm_ulp_hold(name, t, bake, want)
+    del want
+    sh_b = sb.dir_shadow_blend(t2, p_sh)
+    same = torch.equal(sh_b, sh) and torch.equal(
+        sca.scatter_local(t2, sh_b, bake), sc)
+    log(f"# {name}: K2 (general, {t2.n_noise} fBm channels) = K5 then K6 "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{name}: K2 differs from K5 then K6")
+    del sh_b, sh, sc
+    rows[("bake_radiance", f"chunked_{name}")] = wide_row(
+        "bake_radiance", f"chunked_{name}", lambda: ff.bake_radiance(t), 10,
+        fused_work(t, "bake_radiance"), err, plain_ms, 2,
+        "the twin on the whole low grid; fBm within a rounding of its "
+        "coordinates")
+    del prev, t, t2, p_sh, bake, bake2
+    torch.cuda.empty_cache()
+    done(name)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6748,6 +7304,10 @@ def main() -> int:
                  **wide_paths(cfg, scene, renderer, renderers, scene_color,
                               view_depth, cuda)}
     done("the wide forms")
+    wide_rows.update(shared_edge_paths(cfg, scene, renderers, runs,
+                                       scene_color, view_depth, many_rows,
+                                       tables, cuda))
+    done("the forms past a block's shared memory")
 
     kernels = []
     for name in cuda.SOURCES:

@@ -19,8 +19,9 @@ JAX package on the CPU:
     JAX's fused frame keeps them inside its megakernel) and K10's in weight
     mode on 6 channels;
   * in pure Python: K10's channel groups, the general forms' choice and
-    shared memory, and the refusals that stay (a block's shared memory),
-    raised by name before any launch.
+    shared memory, and the forms past a block's shared memory (K2's, K5's
+    and K7's gen_global at and past each edge, K1's chunked form and its
+    chunk plan), with the wrappers going on to refuse only meta tensors.
 
 Tolerance tests/torch_tolerance.assert_boundary_close; images also hold a
 mean absolute error of at most 1e-5 of the image maximum.
@@ -409,40 +410,154 @@ def tables(second):
 
 def test_k2_k5_k7_refuse_suns_past_shared_memory(tables):
     """Past ~18,400 suns their inverse directions no longer fit a block's
-    shared memory beside K2's and K5's region, past ~19,300 K7's: each
-    wrapper refuses the frame by name before any launch; one sun fewer goes
-    on to refuse only the meta tensors (not on CUDA)."""
+    shared memory beside K2's and K5's region, past ~19,300 K7's: there
+    the mirror (ops/scatter.sun_form) names the gen_global form, the
+    inverses in device memory, and no sun count is refused; at one sun
+    fewer the general form. Either way each wrapper goes on to refuse only
+    the meta tensors (not on CUDA)."""
     room = t_tmp.MAX_SHARED_BYTES - t_tmp.TILE_STATIC_SHARED
     big5 = (room - t_tmp.region_shared_bytes(t_sb.K5_TILE, K)) // 12 + 1
     big7 = room // 12 + 1
-    for n_dir, fn, in ((big5, lambda t, p: t_sb.dir_shadow_blend(t, p)),
-                       (big7, lambda t, p: t_ds.dir_shadow(t))):
-        t, prev = _meta_tables(tables, n_dir)
-        with pytest.raises(ValueError, match="suns.*shared memory"):
-            fn(t, prev)
-        t, prev = _meta_tables(tables, n_dir - 1)
+    assert (big5, big7) == (18436, 19286)
+    for kernel, n_dir, fn, in (
+            ("K5", big5, lambda t, p: t_sb.dir_shadow_blend(t, p)),
+            ("K7", big7, lambda t, p: t_ds.dir_shadow(t))):
+        for n, want in ((n_dir, "gen_global"), (n_dir - 1, "general")):
+            assert t_sca.sun_form(kernel, n, 0, K) == want
+            t, prev = _meta_tables(tables, n)
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(t, prev)
+    for n, want in ((big5, "gen_global"), (big5 - 1, "general")):
+        assert t_sca.sun_form("K2", n, 0, K) == want
+        t, prev = _meta_tables(tables, n)
+        bake = torch.empty((3 + t.n_noise, *t.low_dims[::-1]), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
-            fn(t, prev)
-    t, prev = _meta_tables(tables, big5)
-    bake = torch.empty((3 + t.n_noise, *t.low_dims[::-1]), device="meta")
-    with pytest.raises(ValueError, match="suns.*shared memory"):
-        t_ff.shadow_scatter(t, prev, bake)
-    t, prev = _meta_tables(tables, big5 - 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        t_ff.shadow_scatter(t, prev, bake)
+            t_ff.shadow_scatter(t, prev, bake)
 
 
 def test_k1_refuses_channels_past_shared_memory(tables):
     """K1's fBm octaves and items grow with the channels: past what a
-    block's shared memory holds the wrapper refuses the bake by name before
-    any launch."""
+    block's shared memory holds the mirror (ops/frame_fused.k1_plan) names
+    the chunked form, whose staged channels fit, and the wrapper goes on to
+    refuse only the meta tensors (not on CUDA), as one channel fewer does
+    in the general form."""
     n_l = tables.lights.shape[0]
-    fits = lambda n: t_ff.k1_geometry(n_l, n, tables.low_dims).shared_bytes \
+    fits = lambda n: 4 * 32 * (t_ff.K1_TERMS + min(n_l, t_ff.K1_PASS)
+                               + n * t_ff.K1_OCT) + 4 * n * (t_ff.K1_OCT + 2) \
         + t_tmp.TILE_STATIC_SHARED <= t_tmp.MAX_SHARED_BYTES
     big = next(n for n in range(5, 5000) if not fits(n))
     assert big > 100
-    for n, match in ((big, "fBm channels.*shared memory"), (big - 1, "CUDA")):
+    for n, form in ((big, "chunked"), (big - 1, "general")):
+        assert t_ff.k1_plan(n_l, n)[0] == form
+        geo = t_ff.k1_geometry(n_l, n, tables.low_dims)
+        assert geo.shared_bytes + t_tmp.TILE_STATIC_SHARED \
+            <= t_tmp.MAX_SHARED_BYTES
         t = dataclasses.replace(tables, n_noise=n,
                                 spar=torch.empty((1, 25), device="meta"))
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="CUDA"):
             t_ff.bake_radiance(t)
+
+
+def _sun_edge(kernel, k, n_noise=0):
+    """The least sun count whose inverse directions do not fit beside
+    `kernel`'s region at window k (K7: no region): by the formula of
+    csrc/common.cuh sun_form_of."""
+    room = t_tmp.MAX_SHARED_BYTES - t_tmp.TILE_STATIC_SHARED
+    region = 0 if kernel == "K7" else t_tmp.region_shared_bytes((16, 16), k)
+    return (room - region) // 12 + 1
+
+
+@pytest.mark.parametrize("kernel,k,edge", [
+    ("K2", 4, 18436), ("K5", 4, 18436), ("K7", 4, 19286), ("K2", 0, None),
+    ("K5", 8, None), ("K2", 25, None), ("K7", 51, 19286), ("K5", 51, None)])
+def test_sun_form_at_its_edges(kernel, k, edge):
+    """ops/scatter.sun_form names the general form up to the last sun count
+    whose inverses fit beside the region, gen_global from the next: 18,436
+    suns for K2 and K5 at k = 4, 19,286 for K7 at any k; the fixed form up
+    to 4 suns (K2: and 4 fBm channels)."""
+    first = _sun_edge(kernel, k)
+    if edge is not None:
+        assert first == edge
+    assert t_sca.sun_form(kernel, first - 1, 0, k) == "general"
+    assert t_sca.sun_form(kernel, first, 0, k) == "gen_global"
+    assert t_sca.sun_form(kernel, first + 1000, 0, k) == "gen_global"
+    assert t_sca.sun_form(kernel, 4, 0, k) == "fixed"
+    assert t_sca.sun_form(kernel, 5, 0, k) == "general"
+    # K2 takes its general form for the fBm channels alone; K5 and K7 not
+    assert t_sca.sun_form(kernel, 1, 5, k) == (
+        "general" if kernel == "K2" else "fixed")
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K5", "K7"])
+def test_sun_form_forced(kernel):
+    """gen_global can be forced at any count whose region fits; fixed and
+    general only where the counts take them, and an unknown name is
+    refused: each by name, before any launch. A region that does not fit
+    is refused in every form (check_region), but by K7, which has none."""
+    edge = _sun_edge(kernel, K)
+    assert t_sca.sun_form(kernel, 1, 0, K, "gen_global") == "gen_global"
+    assert t_sca.sun_form(kernel, 9, 9, K, "general") == "general"
+    with pytest.raises(ValueError, match=f"{kernel}'s fixed form"):
+        t_sca.sun_form(kernel, 9, 0, K, "fixed")
+    with pytest.raises(ValueError, match=f"{kernel}'s general form"):
+        t_sca.sun_form(kernel, 1, 0, K, "general")
+    with pytest.raises(ValueError, match="shared memory"):
+        t_sca.sun_form(kernel, edge, 0, K, "general")
+    with pytest.raises(ValueError, match="none of"):
+        t_sca.sun_form(kernel, 9, 0, K, "narrow")
+    if kernel == "K7":
+        assert t_sca.sun_form(kernel, 9, 0, 60) == "general"
+    else:
+        with pytest.raises(ValueError, match="region"):
+            t_sca.sun_form(kernel, 9, 0, 60, "gen_global")
+
+
+@pytest.mark.parametrize("n_lights,edge", [(16, 426), (32, 422), (40, 422),
+                                           (0, 430), (4, 429)])
+def test_k1_plan_at_its_edges(n_lights, edge):
+    """K1 takes its general form up to the last channel count whose
+    octaves and items fit a block's shared memory and its chunked form
+    from the next (426 at 16 lights, 422 at 32 or more), staging the most
+    channels that fit; the fixed form up to 4 channels."""
+    assert t_ff.k1_plan(n_lights, edge - 1) == ("general", edge - 1)
+    form, chunk = t_ff.k1_plan(n_lights, edge)
+    assert form == "chunked" and chunk == edge - 1
+    assert t_ff.k1_plan(n_lights, 4) == ("fixed", 4)
+    assert t_ff.k1_plan(n_lights, 5) == ("general", 5)
+    assert t_ff.k1_chunk_of(n_lights, 10 ** 6, 32) == edge - 1
+
+
+@pytest.mark.parametrize("n_lights", [0, 1, 16, 40])
+def test_k1_chunk_plan_covers_each_channel_once(n_lights):
+    """At 1-2,000 channels the chunk plan covers every channel once, in
+    order; the staged chunk's bytes fit a block's shared memory; a count
+    that fits is one chunk; and a forced chunk plan does the same."""
+    for n in range(1, 2001):
+        plan = t_ff.k1_chunks(n_lights, n)
+        assert [c for c0, nc in plan for c in range(c0, c0 + nc)] \
+            == list(range(n))
+        geo = t_ff.k1_geometry(n_lights, n, (60, 34, 32))
+        assert geo.shared_bytes + t_tmp.TILE_STATIC_SHARED \
+            <= t_tmp.MAX_SHARED_BYTES
+        if t_ff.k1_plan(n_lights, n)[0] != "chunked":
+            assert plan == ((0, n),)
+        else:
+            assert len(plan) == 2 and plan[0][1] >= 421
+    plan = t_ff.k1_chunks(n_lights, 9, 4) if t_ff.k1_groups(n_lights, 9) > 1 \
+        else None
+    assert plan == ((0, 4), (4, 5))
+
+
+def test_k1_forced_chunked_is_refused_where_it_cannot_run():
+    """The chunked form spreads its items over light groups: one light
+    group (no light and one fBm channel) cannot take it; nor a chunk past
+    the channels or past what fits. Refused by name before any launch."""
+    with pytest.raises(ValueError, match="K1's chunked form"):
+        t_ff.k1_plan(0, 1, 0)
+    with pytest.raises(ValueError, match="K1's chunked form"):
+        t_ff.k1_plan(16, 9, 10)
+    with pytest.raises(ValueError, match="K1's chunked form"):
+        t_ff.k1_plan(16, 1000, 426)
+    assert t_ff.k1_plan(16, 9, 0) == ("chunked", 0)
+    assert t_ff.k1_geometry(16, 9, (60, 34, 32), 0).shared_bytes \
+        == 4 * 32 * (t_ff.K1_TERMS + 16)

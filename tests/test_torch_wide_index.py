@@ -720,3 +720,142 @@ def test_k12_wide_parts_cover_each_froxel_once(grid, nd, part):
         flat = ((bz[:, None] * h + y[None]) * w + x[None])[:, keep]
         seen += torch.bincount(flat.reshape(-1), minlength=seen.numel())
     assert bool((seen == 1).all())
+
+
+# ---- the forms past a block's shared memory: K2, K5 and K7 keep the suns'
+# inverse directions in device memory (gen_global), K1 takes its fBm
+# channels in chunks
+
+def _stub_launch_keeping(monkeypatch):
+    """_stub_launch, keeping the tensors whose pointers were taken (the
+    tables', then the launch's) in order."""
+    calls, seen = _stub_launch(monkeypatch), []
+    monkeypatch.setattr(cuda, "ptr", lambda t: seen.append(t))
+    return calls, seen
+
+
+# (kernel, suns, fBm channels, lights, forced form, entry point, the index
+# form argument, what the last argument before it is)
+SHARED_EDGE_CASES = [
+    ("K2 radiance", 18436, 1, 4, None, "vr_shadow_scatter_global", 0,
+     "suns"),
+    ("K2 radiance", 18435, 1, 4, None, "vr_shadow_scatter_form", 0, None),
+    ("K2 radiance", 9, 9, 4, "gen_global", "vr_shadow_scatter_global", 0,
+     "suns"),
+    ("K2 radiance", 9, 9, 4, ("wide", "gen_global"),
+     "vr_shadow_scatter_global", 1, "suns"),
+    ("K2 rays", 9, 9, 4, "gen_global", "vr_shadow_scatter_global", 0,
+     "suns"),
+    ("K2 baked", 9, 9, 4, ("gen_global", "wide"),
+     "vr_shadow_scatter_global", 1, "suns"),
+    ("K2 baked", 18436, 0, 4, None, "vr_shadow_scatter_global", 0, "suns"),
+    ("K5", 18436, 0, 4, None, "vr_shadow_blend_global", 0, "suns"),
+    ("K5", 18435, 0, 4, None, "vr_shadow_blend_form", 0, None),
+    ("K5", 9, 0, 4, ("wide", "gen_global"), "vr_shadow_blend_global", 1,
+     "suns"),
+    ("K7", 19286, 0, 4, None, "vr_dir_shadow_global", 0, "suns"),
+    ("K7", 19285, 0, 4, None, "vr_dir_shadow_form", 0, None),
+    ("K7", 9, 0, 4, ("gen_global", "wide"), "vr_dir_shadow_global", 1,
+     "suns"),
+    ("K1", 1, 426, 16, None, "vr_bake_radiance", None, None),
+    ("K1", 1, 425, 16, None, "vr_bake_radiance", None, None),
+    ("K1", 1, 426, 16, "chunked", "vr_bake_radiance_chunked", 425, None),
+    ("K1", 1, 422, 32, "chunked", "vr_bake_radiance_chunked", 421, None),
+    ("K1", 1, 9, 16, "chunked", "vr_bake_radiance_chunked", 9, None),
+]
+
+
+@pytest.mark.parametrize("kernel,n_dir,n_noise,n_lights,forced,entry,"
+                         "form_arg,before", SHARED_EDGE_CASES)
+def test_wrappers_launch_past_shared_memory(tables, kernel, n_dir, n_noise,
+                                            n_lights, forced, entry,
+                                            form_arg, before, monkeypatch):
+    """No sun or fBm channel count is refused: past a block's shared
+    memory K2, K5 and K7 launch their gen_global entry point (the size
+    rule's, or forced with `form=`) with the declared argument count and a
+    [n_dir, 3] buffer for the suns' inverse directions before the index
+    form argument; K1's one entry takes its chunked form by its own rule,
+    and forced chunked launches its chunked entry, the staged channels
+    last."""
+    calls, seen = _stub_launch_keeping(monkeypatch)
+    t = _with(tables, n_dir=n_dir, n_lights=n_lights, meta=True)
+    t = dataclasses.replace(t, n_noise=n_noise)
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    prev = meta(n_dir, d, h, w)
+    if kernel == "K1":
+        name = "bake_radiance"
+        t_ff.bake_radiance(t, form=forced)
+    elif kernel == "K5":
+        name = "shadow_blend"
+        t_sb.dir_shadow_blend(t, prev, form=forced)
+    elif kernel == "K7":
+        name = "dir_shadow"
+        t_ds.dir_shadow(t, form=forced)
+    else:
+        name = "shadow_scatter"
+        source = kernel.split()[1]
+        low = {"radiance": meta(3 + n_noise, dl, hl, wl),
+               "baked": meta(n_lights, dl, hl, wl)}.get(source)
+        t_ff.shadow_scatter(t, prev, None if source == "baked" else low,
+                            low if source == "baked" else None, form=forced)
+    (got_name, got_entry, args), = calls
+    assert (got_name, got_entry or "vr_" + got_name) == (name, entry)
+    assert len(args) + 1 == len(_declared(name, entry))
+    if form_arg is not None:
+        assert args[-1] == form_arg
+    # the buffer of the suns' inverse directions: the launch's last pointer
+    assert (tuple(seen[-1].shape) == (n_dir, 3)) == (before == "suns")
+
+
+@pytest.mark.parametrize("kernel,forced,match", [
+    ("K2", "general", "K2's .* shared memory"),
+    ("K5", "general", "K5's .* shared memory"),
+    ("K7", ("narrow", "general"), "K7's .* shared memory"),
+    ("K2", ("narrow", "wide"), "K2: form"),
+    ("K5", "chunked", "K5: form"),
+    ("K1", "gen_global", "K1: form"),
+    ("K1", "general", "K1's general form")])
+def test_forced_form_past_shared_memory_is_refused(tables, kernel, forced,
+                                                   match, monkeypatch):
+    """Forcing the general form (the suns after the region) past a block's
+    shared memory, or a form the kernel does not have, raises ValueError
+    naming the kernel before any launch."""
+    calls, _ = _stub_launch_keeping(monkeypatch)
+    n_dir = 19286
+    t = _with(tables, n_dir=n_dir, n_lights=16, meta=True)
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match=match):
+        if kernel == "K1":
+            t_ff.bake_radiance(dataclasses.replace(t, n_noise=426),
+                               form=forced)
+        elif kernel == "K2":
+            t_ff.shadow_scatter(t, meta(n_dir, d, h, w),
+                                meta(3 + t.n_noise, dl, hl, wl),
+                                form=forced)
+        elif kernel == "K5":
+            t_sb.dir_shadow_blend(t, meta(n_dir, d, h, w), form=forced)
+        else:
+            t_ds.dir_shadow(t, form=forced)
+    assert calls == []
+
+
+@pytest.mark.parametrize("k,refused", [(158, False), (159, True), (4, False),
+                                       (200, True)])
+def test_k3_refuses_a_window_past_shared_memory(tables, k, refused):
+    """K3's offsets grow with the reprojection window: from k = 159 its
+    dynamic shared memory no longer fits beside its 20,992 static bytes,
+    and its launcher's cudaFuncSetAttribute would fail. The wrapper refuses
+    such a window by name before any launch; k = 158 goes on to refuse
+    only the meta tensors (not on CUDA)."""
+    assert t_ff.K3_STATIC_SHARED == 20992
+    assert t_ff.k3_shared_bytes(k) == 128 * (70 + 10 * k)
+    t = dataclasses.replace(_with(tables, meta=True), k=k)
+    w, h, d = t.grid_whd
+    planes = torch.empty((4, d, h, w), device="meta")
+    with pytest.raises(ValueError,
+                       match="K3's .* shared memory" if refused else "CUDA"):
+        t_ff.integrate_blend(t, planes, planes)

@@ -12,10 +12,14 @@ the last K1 or K5 launch of each:
 
   K1  full grid (fused), local terrain (demo_hf_local), demo grid
       (demo_production), fractional, 40 lights (the fused frame on
-      benchmark_scene with 40 local lights: two passes of lights), and each
-      shard of slab3 and slab5 (every y phase);
-  K5  full grid (staged), terrain (demo_exact_hf), and each shard of
-      slab3_staged.
+      benchmark_scene with 40 local lights: two passes of lights), each
+      shard of slab3 and slab5 (every y phase), and 9 fBm channels
+      (many_suns_scene: the general form, and beside it the chunked form
+      forced with 4 of the 9 staged, timed other, this, chunked, chunked,
+      this, other);
+  K5  full grid (staged), terrain (demo_exact_hf), each shard of
+      slab3_staged, and 9 suns (the general form, and its gen_global form
+      forced beside it, the suns' inverse directions in device memory).
 
 On each: this tree's kernel against its twin (max abs error), and against
 each other checkout's kernel, bit for bit (torch.equal of every output);
@@ -43,7 +47,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
+from k3_k4_against import (new_form_turns, rule_entry,  # noqa: E402
+                           spin_time_ms)
 
 SOURCES = ("bake_radiance", "shadow_blend")
 
@@ -109,7 +114,8 @@ def record_paths(chip_smoke, ff, renderer_mod, pipeline, shr,
               "fractional": chip_smoke.fractional_scene(demo, Geometry),
               "lights40": benchmark_scene(aspect=aspect,
                                           num_local_lights=40,
-                                          noise_mode="procedural")}
+                                          noise_mode="procedural"),
+              "many9": chip_smoke.many_suns_scene(scene, 9, 9)}
     # (row label, path, scene or None for the path's own, kernel recorded)
     k1, k5 = ("bake_radiance",), ("shadow_blend",)
     paths = (("full grid", "fused", None, k1),
@@ -117,8 +123,10 @@ def record_paths(chip_smoke, ff, renderer_mod, pipeline, shr,
              ("demo grid", "demo_production", None, k1),
              ("fractional", "fractional", None, k1),
              ("40 lights", "fused", "lights40", k1),
+             ("9 fBm channels", "fused", "many9", k1),
              ("full grid", "staged", None, k5),
-             ("terrain", "demo_exact_hf", None, k5))
+             ("terrain", "demo_exact_hf", None, k5),
+             ("9 suns", "staged", "many9", k5))
     ff.bake_radiance = pipeline.bake_radiance = rec_k1
     renderer_mod.dir_shadow_blend = rec_k5
     try:
@@ -216,8 +224,27 @@ def main() -> int:
             if run_other():
                 raise RuntimeError(f"{o_name}'s {kernel} failed to launch")
             same = torch.equal(got, ref)
-            o1, n1 = spin_time_ms(run_other), spin_time_ms(run_this)
-            n2, o2 = spin_time_ms(run_this), spin_time_ms(run_other)
+            # the general forms, and the new form forced beside them
+            run_new, new_name, new_ms = None, "", None
+            if kernel == "bake_radiance" and t.n_noise > 4:
+                new_name = "chunked, 4 staged"
+                run_new = lambda: ff.bake_radiance(t, form="chunked",
+                                                   chunk=4)
+            elif kernel == "shadow_blend" and t.n_dir > 4:
+                new_name = "gen_global"
+                run_new = lambda: sb.dir_shadow_blend(t, prev,
+                                                      form="gen_global")
+            if run_new is not None:
+                new_same = torch.equal(run_new(), ref)
+                (o1, o2), (n1, n2), new_ms = new_form_turns(
+                    run_other, run_this, run_new)
+                print(f"#   {new_name} {new_ms[0]:.4f} {new_ms[1]:.4f} ms "
+                      f"({sum(new_ms) / (n1 + n2):.3f}x this); = {o_name} "
+                      f"bit for bit: {new_same}", flush=True)
+                same = same and new_same
+            else:
+                o1, n1 = spin_time_ms(run_other), spin_time_ms(run_this)
+                n2, o2 = spin_time_ms(run_this), spin_time_ms(run_other)
             print(f"#   this {n1:.4f} {n2:.4f} ms, {o_name} {o1:.4f} "
                   f"{o2:.4f} ms ({(o1 + o2) / (n1 + n2):.2f}x); = {o_name} "
                   f"bit for bit: {same}", flush=True)
@@ -230,6 +257,8 @@ def main() -> int:
                       f" at {at}", flush=True)
             row[o_name] = {"this_ms": [n1, n2], "other_ms": [o1, o2],
                            "same": same}
+            if new_ms is not None:
+                row[o_name]["new_form_ms"] = new_ms
             bad += [] if same else [f"{kernel} {lab} against {o_name}"]
         rows.append(row)
     print(json.dumps({"device": smi, "rows": rows}), flush=True)

@@ -12,8 +12,11 @@ last K2 or K6 launch of each:
 
   K2  radiance (fused, and uhd: UHD_CONFIG), terrain (demo_full), demo
       grid (demo_production), fractional, rays (fused_exact), baked
-      (fused_vis), and each shard of slab3 and slab5 (the phased tent at
-      every y phase);
+      (fused_vis), each shard of slab3 and slab5 (the phased tent at
+      every y phase), and radiance, rays and baked with 9 suns and 9 fBm
+      channels (many_suns_scene: the general form, and beside it its
+      gen_global form forced, the suns' inverse directions in device
+      memory, timed other, this, gen_global, gen_global, this, other);
   K6  radiance x fused (staged), rays x fused (exact), rays over the terrain
       (demo_exact_hf), baked x planes (history), baked x fused (vis_bake),
       radiance x planes (history's inputs with K1's bake), and each shard
@@ -46,7 +49,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
+from k3_k4_against import (new_form_turns, rule_entry,  # noqa: E402
+                           spin_time_ms)
 
 SOURCES = ("shadow_scatter", "scatter")
 
@@ -108,20 +112,27 @@ def record_paths(chip_smoke, ff, pipeline, shr, records) -> None:
                             noise_mode="procedural")
     demo = demo_scene(aspect=aspect)
     scenes = {"demo": demo,
-              "fractional": chip_smoke.fractional_scene(demo, Geometry)}
+              "fractional": chip_smoke.fractional_scene(demo, Geometry),
+              "many9": chip_smoke.many_suns_scene(scene, 9, 9)}
+    # (row label, path[, scene]): the 9-sun rows take K2's general form,
+    # and its gen_global form forced beside it (main)
     paths = (("radiance", "fused"), ("uhd", "uhd"),
              ("terrain", "demo_full"), ("demo grid", "demo_production"),
              ("fractional", "fractional"),
              ("rays", "fused_exact"), ("baked", "fused_vis"),
              ("radiance x fused", "staged"), ("rays x fused", "exact"),
              ("rays over the terrain", "demo_exact_hf"),
-             ("baked x planes", "history"), ("baked x fused", "vis_bake"))
+             ("baked x planes", "history"), ("baked x fused", "vis_bake"),
+             ("9 suns radiance", "fused", "many9"),
+             ("9 suns rays", "fused_exact", "many9"),
+             ("9 suns baked", "fused_vis", "many9"))
     ff.shadow_scatter, pipeline.scatter_local = rec_k2, rec_k6
     try:
-        for lab, path in paths:
+        for lab, path, *scn_name in paths:
             r = VolumetricRenderer(dataclasses.replace(
                 cfg, **chip_smoke.PATHS[path][0]))
-            scn = scenes[chip_smoke.DEMO_PATHS[path][0]] \
+            scn = scenes[scn_name[0]] if scn_name \
+                else scenes[chip_smoke.DEMO_PATHS[path][0]] \
                 if path in chip_smoke.DEMO_PATHS else scene
             colour, depth = r.render_scene_inputs(scn)
             st = r.init_state(scn.dir_lights.count)
@@ -214,13 +225,30 @@ def main() -> int:
             if run_other():
                 raise RuntimeError(f"{o_name}'s {kernel} failed to launch")
             same = all(torch.equal(g, r_) for g, r_ in zip(got, ref))
-            o1, n1 = spin_time_ms(run_other, n), spin_time_ms(run_this, n)
-            n2, o2 = spin_time_ms(run_this, n), spin_time_ms(run_other, n)
+            if kernel == "shadow_scatter" and t.n_dir > 4:
+                # the general form, and gen_global forced (the suns'
+                # inverse directions in device memory), against the other
+                run_new = lambda: ff.shadow_scatter(t, shadow, bake, vis,
+                                                    form="gen_global")
+                new_same = all(torch.equal(g, r_)
+                               for g, r_ in zip(run_new(), ref))
+                (o1, o2), (n1, n2), new_ms = new_form_turns(
+                    run_other, run_this, run_new, n)
+                print(f"#   gen_global {new_ms[0]:.4f} {new_ms[1]:.4f} ms "
+                      f"({sum(new_ms) / (n1 + n2):.3f}x this); = {o_name} "
+                      f"bit for bit: {new_same}", flush=True)
+                same = same and new_same
+            else:
+                o1, n1 = spin_time_ms(run_other, n), spin_time_ms(run_this, n)
+                n2, o2 = spin_time_ms(run_this, n), spin_time_ms(run_other, n)
+                new_ms = None
             print(f"#   this {n1:.4f} {n2:.4f} ms, {o_name} {o1:.4f} "
                   f"{o2:.4f} ms ({(o1 + o2) / (n1 + n2):.2f}x); = {o_name} "
                   f"bit for bit: {same}", flush=True)
             row[o_name] = {"this_ms": [n1, n2], "other_ms": [o1, o2],
                            "same": same}
+            if new_ms is not None:
+                row[o_name]["gen_global_ms"] = new_ms
             bad += [] if same else [f"{kernel} {lab} against {o_name}"]
         rows.append(row)
     print(json.dumps({"device": smi, "rows": rows}), flush=True)

@@ -49,6 +49,16 @@ def spin_time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def new_form_turns(run_other, run_this, run_new, n: int = 20) -> tuple:
+    """Times of another tree's kernel, this tree's in its size rule's form
+    and this tree's in a forced new form, in the order other, this, new,
+    new, this, other: ([other], [this], [new]), two each."""
+    o1, n1 = spin_time_ms(run_other, n), spin_time_ms(run_this, n)
+    x1, x2 = spin_time_ms(run_new, n), spin_time_ms(run_new, n)
+    n2, o2 = spin_time_ms(run_this, n), spin_time_ms(run_other, n)
+    return [o1, o2], [n1, n2], [x1, x2]
+
+
 def rule_entry(lib, name: str, argtypes: list):
     """Kernel `name`'s launch in the size rule's form through another
     tree's library `lib`, with the arguments of its `vr_<name>` entry

@@ -10,9 +10,12 @@ then renders 2 frames of each path of chip_smoke.py that launches K7 or
 K8, recording the inputs of each kernel's last launch by row:
 
   K7  no_shadow_blend (benchmark_scene: solid primitives),
-      demo_no_shadow_blend (demo_scene: every sun ray marches the terrain)
-      and fractional_no_shadow_blend (the terrain, three boxes at opacity
-      0.5);
+      demo_no_shadow_blend (demo_scene: every sun ray marches the terrain),
+      fractional_no_shadow_blend (the terrain, three boxes at opacity
+      0.5), and no_shadow_blend with 9 suns (many_suns_scene: the general
+      form, and beside it its gen_global form forced, the suns' inverse
+      directions in device memory, timed other, this, gen_global,
+      gen_global, this, other);
   K8  no_acc_blend, and the same configuration at the demo grid
       (160x88x64 froxels: 14,080 columns, where a form that is parallel
       over columns fills the card least).
@@ -22,7 +25,7 @@ time, a CUDA-event mean of 3 calls), and against
 each other checkout's kernel, bit for bit (torch.equal); both kernels'
 times, CUDA-event means of 20 launches behind a device-side spin, in the
 order other, this, this, other. Then the device busy time of a frame of
-each of those five paths (torch.profiler over 5 warm frames) with this
+each of those rows (torch.profiler over 5 warm frames) with this
 tree's K7 and K8 and with each other checkout's swapped in, in the order
 this, other, other, this. Prints the card's name and power limit first and
 a JSON line of the rows last. Exits non-zero on a disagreement or without a
@@ -50,7 +53,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from k10_k11_against import busy_ms  # noqa: E402
-from k3_k4_against import rule_entry, spin_time_ms  # noqa: E402
+from k3_k4_against import (new_form_turns, rule_entry,  # noqa: E402
+                           spin_time_ms)
 
 SOURCES = ("dir_shadow", "integrate")
 DEMO_GRID = dict(volume_width=160, volume_height=88, volume_depth=64)
@@ -61,7 +65,10 @@ ROWS = {"no_shadow_blend": ("no_shadow_blend", {}, "dir_shadow"),
         "fractional_no_shadow_blend": ("fractional_no_shadow_blend", {},
                                        "dir_shadow"),
         "no_acc_blend": ("no_acc_blend", {}, "integrate"),
-        "no_acc_blend, demo grid": ("no_acc_blend", DEMO_GRID, "integrate")}
+        "no_acc_blend, demo grid": ("no_acc_blend", DEMO_GRID, "integrate"),
+        "no_shadow_blend, 9 suns": ("no_shadow_blend", {}, "dir_shadow")}
+# rows on a scene of their own (scenes' keys), the rest on their path's
+ROW_SCENES = {"no_shadow_blend, 9 suns": "many9"}
 
 
 def declare(libs: dict) -> dict:
@@ -108,7 +115,8 @@ def renderer_and_inputs(chip_smoke, row, scenes):
     path, grid, _ = ROWS[row]
     r = VolumetricRenderer(dataclasses.replace(
         FULL_CONFIG, **chip_smoke.PATHS[path][0], **grid))
-    scn = scenes[chip_smoke.DEMO_PATHS[path][0]] \
+    scn = scenes[ROW_SCENES[row]] if row in ROW_SCENES \
+        else scenes[chip_smoke.DEMO_PATHS[path][0]] \
         if path in chip_smoke.DEMO_PATHS else scenes["bench"]
     colour, depth = r.render_scene_inputs(scn)
     return r, scn, colour, depth, r.init_state(scn.dir_lights.count)
@@ -216,6 +224,7 @@ def main() -> int:
                                        noise_mode="procedural"),
               "demo": demo,
               "fractional": chip_smoke.fractional_scene(demo, Geometry)}
+    scenes["many9"] = chip_smoke.many_suns_scene(scenes["bench"], 9, 9)
     records = record_rows(chip_smoke, pipeline, scenes)
 
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -250,8 +259,20 @@ def main() -> int:
             if run_other():
                 raise RuntimeError(f"{o_name}'s {kernel} failed to launch")
             same = torch.equal(got, ref)
-            o1, n1 = spin_time_ms(run_other), spin_time_ms(run_this)
-            n2, o2 = spin_time_ms(run_this), spin_time_ms(run_other)
+            new_ms = None
+            if kernel == "dir_shadow" and tables.n_dir > 4:
+                # the general form, and gen_global forced beside it
+                run_new = lambda: ds.dir_shadow(tables, form="gen_global")
+                new_same = torch.equal(run_new(), ref)
+                (o1, o2), (n1, n2), new_ms = new_form_turns(
+                    run_other, run_this, run_new)
+                print(f"#   gen_global {new_ms[0]:.4f} {new_ms[1]:.4f} ms "
+                      f"({sum(new_ms) / (n1 + n2):.3f}x this); = {o_name} "
+                      f"bit for bit: {new_same}", flush=True)
+                same = same and new_same
+            else:
+                o1, n1 = spin_time_ms(run_other), spin_time_ms(run_this)
+                n2, o2 = spin_time_ms(run_this), spin_time_ms(run_other)
             print(f"#   this {n1:.4f} {n2:.4f} ms, {o_name} {o1:.4f} "
                   f"{o2:.4f} ms ({(o1 + o2) / (n1 + n2):.2f}x); = {o_name} "
                   f"bit for bit: {same}", flush=True)
@@ -264,6 +285,8 @@ def main() -> int:
                       f" at {at}", flush=True)
             out[o_name] = {"this_ms": [n1, n2], "other_ms": [o1, o2],
                            "same": same}
+            if new_ms is not None:
+                out[o_name]["gen_global_ms"] = new_ms
             bad += [] if same else [f"{kernel} {row} against {o_name}"]
         rows.append(out)
     del records

@@ -59,6 +59,16 @@
 // dynamic shared memory after the octaves (k1_shared grows by
 // K1_OCT + 2 ints a channel), set above 48 KB by the launcher where the
 // channels need it. Every value is the fixed form's.
+//
+// Past the channels whose octaves and items fit a block's shared memory
+// (426 and more at 16 lights, 422 at 32 or more) the launcher takes the
+// CHUNKED instantiation: the GEN kernel with its first `chunk` channels
+// staged as GEN stages them (chunk the most that fits beside the terms and
+// one pass's pairs, k1_chunk_of), and every channel past them a whole
+// channel an item -- noise_factor written straight out, as GEN's items of
+// more than K1_OCT octaves are -- light group g taking every groups-th, in
+// the first pass before its barrier. perlin_fbm sums its octaves as the
+// spread sum does, so every channel is GEN's bit for bit.
 #include "common.cuh"
 
 // A block's warps and their launch bounds (blocks an SM), the lights of a
@@ -104,6 +114,27 @@ __host__ __device__ __forceinline__ int k1_shared(int n_lights, int n_noise,
   return (K1_TERMS + (n_lights < K1_PASS ? n_lights : K1_PASS)
           + n_noise * K1_OCT) * samples
          + (k1_general(n_noise) ? n_noise * (K1_OCT + 2) : 0);
+}
+
+// The chunked form's dynamic shared memory, floats: GEN's with its first
+// `chunk` channels staged (their items always in dynamic shared memory).
+__host__ __device__ __forceinline__ long k1_chunked_shared(int n_lights,
+                                                           int chunk,
+                                                           int samples) {
+  return (long)(K1_TERMS + (n_lights < K1_PASS ? n_lights : K1_PASS)
+                + chunk * K1_OCT) * samples
+         + (long)chunk * (K1_OCT + 2);
+}
+
+// The channels the chunked form stages: the most whose octaves and items
+// fit a block's shared memory (common.cuh VR_MAX_SHARED, less
+// VR_TILE_STATIC) beside the terms and one pass's pairs, at most n_noise
+// (mirrored by ops/frame_fused.k1_geometry's chunk).
+inline int k1_chunk_of(int n_lights, int n_noise, int samples) {
+  const long room = (VR_MAX_SHARED - VR_TILE_STATIC) / (long)sizeof(float)
+                    - k1_chunked_shared(n_lights, 0, samples);
+  const long c = room / (K1_OCT * samples + K1_OCT + 2);
+  return c < n_noise ? (int)c : n_noise;
 }
 
 // The medium of fBm channel ni: the ni-th noise-bearing one.
@@ -178,14 +209,15 @@ __device__ __forceinline__ float k1_pair(const VrTables& T, const float* ql,
 
 // SPREAD: light groups > 1; else the thread-per-sample loop, a kernel of
 // its own so that it keeps the registers it needs (the parent's 45 and 67).
-// GEN (SPREAD only): the fBm items in dynamic shared memory.
-template <bool ARMS, bool SPREAD, bool GEN = false>
+// GEN (SPREAD only): the fBm items in dynamic shared memory. CHUNKED (GEN
+// only): the first `chunk` channels staged, the rest whole channels.
+template <bool ARMS, bool SPREAD, bool GEN = false, bool CHUNKED = false>
 __global__ void __launch_bounds__(32 * K1_WARPS,
                                   !SPREAD ? 1
                                   : ARMS  ? K1_MIN_BLOCKS_ARMS
                                           : K1_MIN_BLOCKS)
 bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
-                     int runs_x, int runs_y) {
+                     int runs_x, int runs_y, int chunk) {
   extern __shared__ float k1_s[];  // k1_shared
   const int sw = K1_WARPS / groups;  // warps of a light group
   const int ns = 32 * sw;            // samples of the block
@@ -245,14 +277,14 @@ bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
   if constexpr (GEN) {  // after the octaves (k1_shared)
     fbm_item = reinterpret_cast<int*>(
         pairs + ((T.n_lights < K1_PASS ? T.n_lights : K1_PASS)
-                 + T.n_noise * K1_OCT) * ns);
-    fbm_mi = fbm_item + T.n_noise * K1_OCT;
-    fbm_oct = fbm_mi + T.n_noise;
+                 + (CHUNKED ? chunk : T.n_noise) * K1_OCT) * ns);
+    fbm_mi = fbm_item + (CHUNKED ? chunk : T.n_noise) * K1_OCT;
+    fbm_oct = fbm_mi + (CHUNKED ? chunk : T.n_noise);
   }
   const bool stager = warp == K1_WARPS - 1;
   if (stager && lane == 0) {
     int u = 0;
-    for (int ni = 0; ni < T.n_noise; ++ni) {
+    for (int ni = 0; ni < (CHUNKED ? chunk : T.n_noise); ++ni) {
       const int mi = noise_medium(T, ni), oct = T.med_static[6 * mi + 1];
       fbm_mi[ni] = mi;
       fbm_oct[ni] = oct;
@@ -315,6 +347,18 @@ bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
       octs[(ni * K1_OCT + o) * ns + s] =
           perlin_single(ux * fper, uy * fper, uz * fper, per, st[3] + o);
     }
+    if constexpr (CHUNKED) {
+      // the channels past the chunk, a whole channel an item: light group g
+      // every groups-th, noise_factor straight out (as the items of more
+      // than K1_OCT octaves)
+      for (int mi = 0, ni = 0; pass == 0 && mi < T.n_media && ni < T.n_noise;
+           ++mi) {
+        if (!T.med_static[6 * mi]) continue;
+        const int q = ni++ - chunk;
+        if (q >= 0 && q % groups == g && valid)
+          out[(3 + chunk + q) * plane + i] = noise_factor(T, mi, wx, wy, wz);
+      }
+    }
     __syncthreads();
     // 3. the sums, in light order; the fBm of the octave items, in
     // perlin_fbm's order
@@ -327,7 +371,8 @@ bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
         acc_g = acc_g + base * colour_s[1][l];
         acc_b = acc_b + base * colour_s[2][l];
       }
-      for (int ni = 0; pass == 0 && ni < T.n_noise; ++ni) {
+      for (int ni = 0; pass == 0 && ni < (CHUNKED ? chunk : T.n_noise);
+           ++ni) {
         const int oct = fbm_oct[ni];
         if (oct > K1_OCT) continue;
         float total = 0.0f;
@@ -352,6 +397,15 @@ bake_radiance_kernel(VrTables T, float* __restrict__ out, int groups,
   }
 }
 
+// Whether the launch takes the chunked form: light groups to spread its
+// items over, and more fBm channels than fit a block's shared memory.
+static bool k1_chunked(int n_lights, int n_noise, int groups, int samples) {
+  return groups > 1 && k1_general(n_noise)
+         && (long)k1_shared(n_lights, n_noise, groups, samples)
+                    * (long)sizeof(float) + VR_TILE_STATIC
+                > VR_MAX_SHARED;
+}
+
 // The launch of the low grid (wl, hl, dl) with n_lights local lights and
 // n_noise fBm channels into out[0..7]: blocks, threads a block, samples a
 // block, light groups, passes of lights, dynamic shared bytes, and a
@@ -366,15 +420,20 @@ extern "C" int vr_bake_radiance_geometry(int n_lights, int n_noise, int wl,
   out[2] = 32 * sw;
   out[3] = groups;
   out[4] = n_lights > 0 ? (n_lights + K1_PASS - 1) / K1_PASS : 1;
-  out[5] = k1_shared(n_lights, n_noise, groups, out[2]) * (int)sizeof(float);
+  out[5] = k1_chunked(n_lights, n_noise, groups, out[2])
+               ? (int)k1_chunked_shared(
+                     n_lights, k1_chunk_of(n_lights, n_noise, out[2]),
+                     out[2]) * (int)sizeof(float)
+               : k1_shared(n_lights, n_noise, groups, out[2])
+                     * (int)sizeof(float);
   out[6] = cols;
   out[7] = rows;
   return 0;
 }
 
-// Launches of the fixed (0) and general (1) forms since the library was
-// loaded (vr_bake_radiance_forms).
-static long g_forms[2];
+// Launches of the fixed (0), general (1) and chunked (2) forms since the
+// library was loaded (vr_bake_radiance_forms).
+static long g_forms[3];
 
 template <bool ARMS>
 static int launch_general(const VrTables* T, const int* geo, int runs_x,
@@ -386,7 +445,25 @@ static int launch_general(const VrTables* T, const int* geo, int runs_x,
     if (err != cudaSuccess) return (int)err;
   }
   bake_radiance_kernel<ARMS, true, true><<<geo[0], geo[1], geo[5], stream>>>(
-      *T, out, geo[3], runs_x, runs_y);
+      *T, out, geo[3], runs_x, runs_y, 0);
+  return 0;
+}
+
+// The chunked form with `chunk` staged channels.
+template <bool ARMS>
+static int launch_chunked(const VrTables* T, const int* geo, int runs_x,
+                          int runs_y, int chunk, float* out,
+                          cudaStream_t stream) {
+  const auto kernel = bake_radiance_kernel<ARMS, true, true, true>;
+  const int shared =
+      (int)k1_chunked_shared(T->n_lights, chunk, geo[2]) * (int)sizeof(float);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<geo[0], geo[1], shared, stream>>>(*T, out, geo[3], runs_x, runs_y,
+                                             chunk);
   return 0;
 }
 
@@ -414,6 +491,15 @@ extern "C" int vr_bake_radiance(const VrTables* T, float* out,
   const int runs_y = (T->hl + geo[7] - 1) / geo[7];
   const bool arms = needs_arms(*T), spread = geo[3] > 1;
   const bool gen = k1_general(T->n_noise);
+  if (k1_chunked(T->n_lights, T->n_noise, geo[3], geo[2])) {
+    const int chunk = k1_chunk_of(T->n_lights, T->n_noise, geo[2]);
+    const int err = arms ? launch_chunked<true>(T, geo, runs_x, runs_y, chunk,
+                                                out, stream)
+                         : launch_chunked<false>(T, geo, runs_x, runs_y,
+                                                 chunk, out, stream);
+    ++g_forms[2];
+    return err ? err : (int)cudaGetLastError();
+  }
   ++g_forms[gen];
   if (gen) {  // more than one item: spread
     const int err = arms ? launch_general<true>(T, geo, runs_x, runs_y, out,
@@ -424,36 +510,74 @@ extern "C" int vr_bake_radiance(const VrTables* T, float* out,
   }
   if (arms && spread)
     bake_radiance_kernel<true, true><<<geo[0], geo[1], geo[5], stream>>>(
-        *T, out, geo[3], runs_x, runs_y);
+        *T, out, geo[3], runs_x, runs_y, 0);
   else if (spread)
     bake_radiance_kernel<false, true><<<geo[0], geo[1], geo[5], stream>>>(
-        *T, out, geo[3], runs_x, runs_y);
+        *T, out, geo[3], runs_x, runs_y, 0);
   else if (arms)
     bake_radiance_kernel<true, false><<<geo[0], geo[1], geo[5], stream>>>(
-        *T, out, geo[3], runs_x, runs_y);
+        *T, out, geo[3], runs_x, runs_y, 0);
   else
     bake_radiance_kernel<false, false><<<geo[0], geo[1], geo[5], stream>>>(
-        *T, out, geo[3], runs_x, runs_y);
+        *T, out, geo[3], runs_x, runs_y, 0);
   return (int)cudaGetLastError();
 }
 
-// The launches of the fixed and the general form so far into out[0..1].
-extern "C" int vr_bake_radiance_forms(int* out) {
-  out[0] = (int)g_forms[0];
-  out[1] = (int)g_forms[1];
+// The chunked form forced, with `chunk` staged channels (-1: the most that
+// fit, k1_chunk_of); refused with one light group (nothing to spread) and
+// where the chunk is past n_noise or does not fit.
+extern "C" int vr_bake_radiance_chunked(const VrTables* T, float* out,
+                                        int chunk, cudaStream_t stream) {
+  if (!k1_fits(*T)) return (int)cudaErrorInvalidValue;
+  int geo[8];
+  vr_bake_radiance_geometry(T->n_lights, T->n_noise, T->wl, T->hl, T->dl,
+                            geo);
+  if (chunk < 0) chunk = k1_chunk_of(T->n_lights, T->n_noise, geo[2]);
+  if (geo[3] < 2 || chunk > T->n_noise
+      || chunk > k1_chunk_of(T->n_lights, T->n_noise, geo[2]))
+    return (int)cudaErrorInvalidValue;
+  const int runs_x = (T->wl + geo[6] - 1) / geo[6];
+  const int runs_y = (T->hl + geo[7] - 1) / geo[7];
+  const int err = needs_arms(*T)
+                      ? launch_chunked<true>(T, geo, runs_x, runs_y, chunk,
+                                             out, stream)
+                      : launch_chunked<false>(T, geo, runs_x, runs_y, chunk,
+                                              out, stream);
+  ++g_forms[2];
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The form a launch with n_lights local lights and n_noise fBm channels
+// takes into out[0] (0 fixed, 1 general, 2 chunked), the channels it stages
+// into out[1] (n_noise but in the chunked form) and its dynamic shared
+// bytes into out[2].
+extern "C" int vr_bake_radiance_plan(int n_lights, int n_noise, int* out) {
+  int geo[8];
+  vr_bake_radiance_geometry(n_lights, n_noise, 1, 1, 1, geo);
+  const bool chunked = k1_chunked(n_lights, n_noise, geo[3], geo[2]);
+  out[0] = chunked ? 2 : k1_general(n_noise) ? 1 : 0;
+  out[1] = chunked ? k1_chunk_of(n_lights, n_noise, geo[2]) : n_noise;
+  out[2] = geo[5];
   return 0;
 }
 
-// cudaFuncGetAttributes of the six kernels, SPREAD (true, false) outer and
-// ARMS (false, true) inner, then the general (SPREAD) forms, ARMS false
-// then true: registers per thread, static shared bytes per block, local
-// bytes per thread and largest block into out[4 i .. 4 i + 3]; returns the
-// error.
-template <bool ARMS, bool SPREAD, bool GEN = false>
+// The launches of the fixed, the general and the chunked form so far into
+// out[0..2].
+extern "C" int vr_bake_radiance_forms(int* out) {
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_forms[f];
+  return 0;
+}
+
+// cudaFuncGetAttributes of the eight kernels, SPREAD (true, false) outer
+// and ARMS (false, true) inner, then the general (SPREAD) forms, then the
+// chunked ones, ARMS false then true: registers per thread, static shared
+// bytes per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool SPREAD, bool GEN = false, bool CHUNKED = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)bake_radiance_kernel<ARMS, SPREAD, GEN>);
+      &a, (const void*)bake_radiance_kernel<ARMS, SPREAD, GEN, CHUNKED>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -462,11 +586,13 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_bake_radiance_attrs(int* out) {
-  const cudaError_t errs[6] = {
+  const cudaError_t errs[8] = {
       attrs_of<false, true>(out), attrs_of<true, true>(out + 4),
       attrs_of<false, false>(out + 8), attrs_of<true, false>(out + 12),
       attrs_of<false, true, true>(out + 16),
-      attrs_of<true, true, true>(out + 20)};
+      attrs_of<true, true, true>(out + 20),
+      attrs_of<false, true, true, true>(out + 24),
+      attrs_of<true, true, true, true>(out + 28)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -838,6 +838,51 @@ __device__ __forceinline__ void sun_inverses(const VrTables& T, int tid,
   }
 }
 
+// The suns' inverse directions in device memory (the gen_global forms of K2,
+// K5 and K7): sun_inverses over the whole grid of a launch, one thread a
+// sun, into inv [n_dir, 3] -- the same device function as the blocks of the
+// shared forms run, so the same bits. A template, so that only the sources
+// that launch it compile it.
+template <int = 0>
+__global__ void sun_inverses_kernel(VrTables T, float* __restrict__ inv) {
+  sun_inverses(T, blockIdx.x * blockDim.x + threadIdx.x,
+               gridDim.x * blockDim.x, inv);
+}
+
+// Fill inv [n_dir, 3] on the stream, ahead of the kernel that reads it.
+template <int = 0>
+int fill_sun_inverses(const VrTables* T, float* inv,
+                             cudaStream_t stream) {
+  if (T->n_dir == 0) return 0;
+  if (inv == nullptr) return (int)cudaErrorInvalidValue;
+  const int threads = 256, blocks = (T->n_dir + threads - 1) / threads;
+  sun_inverses_kernel<> <<<blocks, threads, 0, stream>>>(*T, inv);
+  return (int)cudaGetLastError();
+}
+
+// A block's shared memory on the H100 (the opt-in limit) and what the
+// slice tiles keep in static shared memory beside their dynamic bytes (under
+// 1 KB: TileTerms; mirrored by ops/temporal.MAX_SHARED_BYTES and
+// TILE_STATIC_SHARED). The general forms of K2, K5 and K7 keep the suns'
+// inverse directions after their region where both fit, in device memory
+// past that (VR_SUNS_*; mirrored by ops/scatter.sun_form).
+#define VR_MAX_SHARED 232448
+#define VR_TILE_STATIC 1024
+#define VR_SUNS_SHARED 0  // the fixed form, or GEN with the suns in shared
+#define VR_SUNS_GLOBAL 1  // GEN with the suns in device memory (gen_global)
+
+// The sun form a launch of region_bytes (0: K7) and gen (the general
+// instantiation) takes for n_dir suns: shared where the bytes fit, global
+// past that, -1 where the region alone does not fit.
+inline int sun_form_of(int region_bytes, bool gen, int n_dir) {
+  if (region_bytes + VR_TILE_STATIC > VR_MAX_SHARED) return -1;
+  const long bytes = region_bytes
+                     + (gen ? (long)sun_inv_floats(n_dir) * sizeof(float)
+                            : 0L);
+  return bytes + VR_TILE_STATIC > VR_MAX_SHARED ? VR_SUNS_GLOBAL
+                                                : VR_SUNS_SHARED;
+}
+
 // Whether a frame's counts pass the fixed forms' arrays: its suns (the
 // shadow kernels K5 and K7) or also its fBm channels (K2 and K6, whose
 // scatter reads them). The launchers then take the GEN instantiation.
@@ -929,7 +974,10 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 // blend table in a copy of this loop: a routine shared by the three
 // kernels made K5 2% slower at the same registers and spills, so
 // tile_region stays as K2 and K5 were measured. Change the two together.
-template <bool SCATTER, int TX, int TY, bool GEN = false, class I = int>
+// SG (gen_global, GEN only): the suns' inverse directions are in device
+// memory (fill_sun_inverses), not computed here.
+template <bool SCATTER, int TX, int TY, bool GEN = false, bool SG = false,
+          class I = int>
 __device__ __forceinline__ void tile_region(const VrTables& T,
                                             TileTerms<TX, TY, I>& S,
                                             float* dyn_s, int z0 = 0) {
@@ -949,7 +997,7 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
 
   // 1. the slice's scalars; then the columns' and rows' terms
   tile_scalars<true, NT, SCATTER, GEN>(T, z, tid, S);
-  if constexpr (GEN)
+  if constexpr (GEN && !SG)
     sun_inverses(T, tid, NT, dyn_s + region_floats(TX, TY, k));
   __syncthreads();
   constexpr int LINES = TileTerms<TX, TY>::LINES;
@@ -1005,12 +1053,17 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
   __syncthreads();
 }
 
-template <bool ARMS, int TX, int TY, bool GEN = false, class I = int>
+// SG (gen_global, GEN only): the suns' inverse directions read from
+// sun_inv_g [n_dir, 3] in device memory, every thread of a warp at the same
+// address, where GEN reads them after the region.
+template <bool ARMS, int TX, int TY, bool GEN = false, bool SG = false,
+          class I = int>
 __device__ __forceinline__ void tile_blend(
     const VrTables& T, const float* __restrict__ prev_sh,
     float* __restrict__ out_sh, const TileTerms<TX, TY, I>& S,
     const float* dyn_s, int x, int y, I n, I i, float& wx, float& wy,
-    float& wz, float* blended, int z0 = 0) {
+    float& wz, float* blended, int z0 = 0,
+    const float* __restrict__ sun_inv_g = nullptr) {
   const int w = T.w, h = T.h, d = T.d, k = T.k;
   const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
   const float* ox_s = dyn_s;
@@ -1024,7 +1077,7 @@ __device__ __forceinline__ void tile_blend(
   // dir_shadow_slice: jittered world position, one ray per sun
   view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
   if constexpr (GEN) {  // each sun's ray, warp and blend in turn
-    const float* inv = dyn_s + region_floats(TX, TY, k);
+    const float* inv = SG ? sun_inv_g : dyn_s + region_floats(TX, TY, k);
     const int row_y = (ty + k) * nx + k - xt;
     const float swgt = sb[20] * ok_s[row_y + x];
     const auto oy_at = [&](int cx) { return oy_s[row_y + cx]; };

@@ -53,6 +53,12 @@
 // inverses in dynamic shared memory (sun_inv_floats), computed by the
 // block's threads in turn (sun_inverses), the rest as above. Every value
 // is the fixed form's; a frame with at most VR_MAX_DIR suns keeps that.
+// Past the suns whose inverses fit a block's shared memory (common.cuh
+// sun_form_of: 19,286 and more) the gen_global instantiation (SG) reads
+// them from a device buffer [n_dir, 3] that the launcher fills first with
+// the same device function (common.cuh fill_sun_inverses), every thread of
+// a warp at the same address, and has no dynamic shared memory; the GEN
+// code is otherwise the same, so the values are GEN's bit for bit.
 #include "common.cuh"
 
 // The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
@@ -61,9 +67,10 @@ struct K7Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS, bool GEN = false, class I = int>
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
 __global__ void __launch_bounds__(K7Tile::X * K7Tile::Y, K7Tile::MIN_BLOCKS)
-dir_shadow_kernel(VrTables T, float* __restrict__ out_sh, int z_part) {
+dir_shadow_kernel(VrTables T, float* __restrict__ out_sh, int z_part,
+                  const float* __restrict__ sun_inv_g) {
   constexpr int TX = K7Tile::X, TY = K7Tile::Y, NT = TX * TY;
   __shared__ TileTerms<TX, TY> S;
   const float* sun_inv = nullptr;  // GEN: the suns' inverse directions
@@ -76,7 +83,10 @@ dir_shadow_kernel(VrTables T, float* __restrict__ out_sh, int z_part) {
   // of each sun's shadow ray (items 1 .. n_dir), as tile_scalars computes
   // them, on the first lanes of as many warps (GEN: item 0, then
   // sun_inverses)
-  if constexpr (GEN) {
+  if constexpr (SG) {  // gen_global: the launcher's buffer
+    if (tid == 0) S.vz_j = center_vz(T.spar, z, true, T.d);
+    sun_inv = sun_inv_g;
+  } else if constexpr (GEN) {
     extern __shared__ float sun_inv_s[];  // sun_inv_floats
     if (tid == 0) S.vz_j = center_vz(T.spar, z, true, T.d);
     sun_inverses(T, tid, NT, sun_inv_s);
@@ -111,10 +121,10 @@ dir_shadow_kernel(VrTables T, float* __restrict__ out_sh, int z_part) {
         T, li, wx, wy, wz, GEN ? sun_inv + 3 * li : S.sun_inv[li]);
 }
 
-// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
-// and wide (1) index forms, since the library was loaded
+// Launches of the fixed (0), general (1) and gen_global (2) forms, and of
+// the narrow (0) and wide (1) index forms, since the library was loaded
 // (vr_dir_shadow_forms, vr_dir_shadow_index_forms).
-static long g_forms[2];
+static long g_forms[3];
 static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch with n_dir suns: none in the fixed
@@ -141,13 +151,20 @@ static int k7_form(const VrTables& T) {
   return k7_wide_fits(T) ? VR_FORM_WIDE : -1;
 }
 
-template <bool ARMS, bool GEN, class I>
+// The sun form the launch takes (common.cuh VR_SUNS_*; mirrored by
+// ops/scatter.sun_form): the suns' inverses in shared memory where they
+// fit, in device memory (gen_global) past that.
+static int k7_sun_form(int n_dir) {
+  return n_dir > VR_MAX_DIR ? sun_form_of(0, true, n_dir) : VR_SUNS_SHARED;
+}
+
+template <bool ARMS, bool GEN, class I, bool SG = false>
 static int launch_tile(const VrTables* T, float* out_sh,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const float* sun_inv = nullptr) {
   constexpr int TX = K7Tile::X, TY = K7Tile::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
-  const auto kernel = dir_shadow_kernel<ARMS, GEN, I>;
-  const int shared = k7_shared(GEN, T->n_dir);
+  const auto kernel = dir_shadow_kernel<ARMS, GEN, I, SG>;
+  const int shared = SG ? 0 : k7_shared(GEN, T->n_dir);
   if (shared > 48 * 1024) {  // many suns
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -155,14 +172,15 @@ static int launch_tile(const VrTables* T, float* out_sh,
   }
   dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
   if (!WIDE) {
-    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, 0);
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, 0, sun_inv);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, T->d - z0);
-      kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, z0);
+      kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, out_sh, z0,
+                                                     sun_inv);
     }
   }
-  ++g_forms[GEN];
+  ++g_forms[SG ? 2 : GEN];
   ++g_index_forms[WIDE];
   return 0;
 }
@@ -181,19 +199,56 @@ static int launch_arms(const VrTables* T, float* out_sh,
                         : launch_form<false, I>(T, out_sh, stream);
 }
 
+// The index form to launch: form, or the size rule's for VR_FORM_RULE;
+// -1 where it does not take the table.
+static int k7_index_form(const VrTables& T, int form) {
+  if (form == VR_FORM_RULE) form = k7_form(T);
+  const bool fits = form == VR_FORM_NARROW ? k7_narrow_fits(T)
+                    : form == VR_FORM_WIDE ? k7_wide_fits(T)
+                                           : false;
+  return fits ? form : -1;
+}
+
 // form: VR_FORM_RULE (the size rule's, k7_form), or the narrow or the wide
 // form, refused where it does not take the table.
 extern "C" int vr_dir_shadow_form(const VrTables* T, float* out_sh, int form,
                                   cudaStream_t stream) {
-  if (form == VR_FORM_RULE) form = k7_form(*T);
-  const bool fits = form == VR_FORM_NARROW ? k7_narrow_fits(*T)
-                    : form == VR_FORM_WIDE ? k7_wide_fits(*T)
-                                           : false;
-  if (!fits) return (int)cudaErrorInvalidValue;
+  form = k7_index_form(*T, form);
+  if (form < 0) return (int)cudaErrorInvalidValue;
   const int err = form == VR_FORM_WIDE
                       ? launch_arms<int64_t>(T, out_sh, stream)
                       : launch_arms<int>(T, out_sh, stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The gen_global form, in index form `form` (as vr_dir_shadow_form): the
+// suns' inverse directions into sun_inv [n_dir, 3] (device memory), then
+// the kernel reading them there. Any sun count.
+extern "C" int vr_dir_shadow_global(const VrTables* T, float* out_sh,
+                                    float* sun_inv, int form,
+                                    cudaStream_t stream) {
+  form = k7_index_form(*T, form);
+  if (form < 0) return (int)cudaErrorInvalidValue;
+  int err = fill_sun_inverses(T, sun_inv, stream);
+  if (err) return err;
+  const bool arms = needs_arms(*T);
+  if (form == VR_FORM_WIDE)
+    err = arms ? launch_tile<true, true, int64_t, true>(T, out_sh, stream,
+                                                        sun_inv)
+               : launch_tile<false, true, int64_t, true>(T, out_sh, stream,
+                                                         sun_inv);
+  else
+    err = arms ? launch_tile<true, true, int, true>(T, out_sh, stream,
+                                                    sun_inv)
+               : launch_tile<false, true, int, true>(T, out_sh, stream,
+                                                     sun_inv);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The sun form a launch with n_dir suns takes into out[0] (VR_SUNS_*).
+extern "C" int vr_dir_shadow_sun_form_of(int n_dir, int* out) {
+  out[0] = k7_sun_form(n_dir);
+  return 0;
 }
 
 // The size rule's form for the table into out[0] (-1: past the wide form
@@ -211,10 +266,10 @@ extern "C" int vr_dir_shadow_index_forms(int* out) {
   return 0;
 }
 
-// The launches of the fixed and the general form so far into out[0..1].
+// The launches of the fixed, the general and the gen_global form so far
+// into out[0..2].
 extern "C" int vr_dir_shadow_forms(int* out) {
-  out[0] = (int)g_forms[0];
-  out[1] = (int)g_forms[1];
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_forms[f];
   return 0;
 }
 
@@ -232,15 +287,16 @@ extern "C" int vr_dir_shadow_geometry(int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the eight kernels: the fixed forms then the
-// general ones, ARMS false then true, narrow; then the same four wide:
-// registers per thread, static shared bytes per block, local bytes per
-// thread and largest block into out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS, bool GEN = false, class I = int>
+// cudaFuncGetAttributes of the twelve kernels: the fixed forms then the
+// general ones, ARMS false then true, narrow; then the same four wide; then
+// the gen_global ones, ARMS false then true, narrow then wide: registers
+// per thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)dir_shadow_kernel<ARMS, GEN, I>);
+      &a, (const void*)dir_shadow_kernel<ARMS, GEN, I, SG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -249,13 +305,17 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_dir_shadow_attrs(int* out) {
-  const cudaError_t errs[8] = {
+  const cudaError_t errs[12] = {
       attrs_of<false>(out), attrs_of<true>(out + 4),
       attrs_of<false, true>(out + 8), attrs_of<true, true>(out + 12),
       attrs_of<false, false, int64_t>(out + 16),
       attrs_of<true, false, int64_t>(out + 20),
       attrs_of<false, true, int64_t>(out + 24),
-      attrs_of<true, true, int64_t>(out + 28)};
+      attrs_of<true, true, int64_t>(out + 28),
+      attrs_of<false, true, int, true>(out + 32),
+      attrs_of<true, true, int, true>(out + 36),
+      attrs_of<false, true, int64_t, true>(out + 40),
+      attrs_of<true, true, int64_t, true>(out + 44)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

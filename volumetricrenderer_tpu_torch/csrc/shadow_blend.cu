@@ -49,7 +49,12 @@
 // directions in dynamic shared memory after the region, then each sun's
 // ray, warp and blend in turn. Each sun's value is computed alone, so the
 // general form gives the fixed form's values bit for bit; a frame with at
-// most VR_MAX_DIR suns keeps the fixed form.
+// most VR_MAX_DIR suns keeps the fixed form. Past the suns whose inverses
+// fit beside the region (common.cuh sun_form_of: 18,436 and more at k = 4)
+// the gen_global instantiation (SG) reads them from a device buffer
+// [n_dir, 3] that the launcher fills first with the same device function
+// (common.cuh fill_sun_inverses); its dynamic shared memory is the region
+// alone, and every value is GEN's.
 #include "common.cuh"
 
 // The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
@@ -58,17 +63,19 @@ struct K5Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS, bool GEN = false, class I = int>
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
 __global__ void __launch_bounds__(K5Tile::X * K5Tile::Y, K5Tile::MIN_BLOCKS)
 shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
-                    float* __restrict__ out_sh, int z_part) {
+                    float* __restrict__ out_sh, int z_part,
+                    const float* __restrict__ sun_inv_g) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
   // the narrow form's slice is blockIdx.z; the wide form's part starts at
   // z_part
   const int z0 = sizeof(I) > sizeof(int) ? z_part : 0;
   __shared__ TileTerms<TX, TY, I> S;
-  extern __shared__ float dyn_s[];  // region_floats (GEN: + sun_inv_floats)
-  tile_region<false, TX, TY, GEN>(T, S, dyn_s, z0);
+  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g)
+  extern __shared__ float dyn_s[];
+  tile_region<false, TX, TY, GEN, SG>(T, S, dyn_s, z0);
   const int x = blockIdx.x * TX + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
   const int z = blockIdx.z + z0;
@@ -77,8 +84,9 @@ shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
   const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz;
   if constexpr (GEN) {
-    tile_blend<ARMS, TX, TY, true>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i,
-                                   wx, wy, wz, nullptr, z0);
+    tile_blend<ARMS, TX, TY, true, SG>(T, prev_sh, out_sh, S, dyn_s, x, y,
+                                       n, i, wx, wy, wz, nullptr, z0,
+                                       sun_inv_g);
   } else {
     float blended[VR_MAX_DIR];
     tile_blend<ARMS>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i, wx, wy, wz,
@@ -86,10 +94,10 @@ shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
   }
 }
 
-// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
-// and wide (1) index forms, since the library was loaded
+// Launches of the fixed (0), general (1) and gen_global (2) forms, and of
+// the narrow (0) and wide (1) index forms, since the library was loaded
 // (vr_shadow_blend_forms, vr_shadow_blend_index_forms).
-static long g_forms[2];
+static long g_forms[3];
 static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
@@ -117,13 +125,22 @@ static int k5_form(const VrTables& T) {
   return k5_wide_fits(T) ? VR_FORM_WIDE : -1;
 }
 
-template <bool ARMS, bool GEN, class I>
+// The sun form the launch takes (common.cuh VR_SUNS_*; mirrored by
+// ops/scatter.sun_form): the suns' inverses after the region where both
+// fit, in device memory (gen_global) past that; -1: the region alone does
+// not fit.
+static int k5_sun_form(int k, int n_dir) {
+  return sun_form_of(k5_shared(k, false, 0), n_dir > VR_MAX_DIR, n_dir);
+}
+
+template <bool ARMS, bool GEN, class I, bool SG = false>
 static int launch_tile(const VrTables* T, const float* prev_sh,
-                       float* out_sh, cudaStream_t stream) {
+                       float* out_sh, cudaStream_t stream,
+                       const float* sun_inv = nullptr) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
-  const auto kernel = shadow_blend_kernel<ARMS, GEN, I>;
-  const int shared = k5_shared(T->k, GEN, T->n_dir);
+  const auto kernel = shadow_blend_kernel<ARMS, GEN, I, SG>;
+  const int shared = k5_shared(T->k, GEN && !SG, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -131,15 +148,16 @@ static int launch_tile(const VrTables* T, const float* prev_sh,
   }
   dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
   if (!WIDE) {
-    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh, 0);
+    kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh, 0,
+                                                   sun_inv);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, T->d - z0);
       kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh,
-                                                     z0);
+                                                     z0, sun_inv);
     }
   }
-  ++g_forms[GEN];
+  ++g_forms[SG ? 2 : GEN];
   ++g_index_forms[WIDE];
   return 0;
 }
@@ -159,21 +177,61 @@ static int launch_arms(const VrTables* T, const float* prev_sh,
                         : launch_form<false, I>(T, prev_sh, out_sh, stream);
 }
 
+// The index form to launch: form, or the size rule's for VR_FORM_RULE;
+// -1 where it does not take the table.
+static int k5_index_form(const VrTables& T, int form) {
+  if (form == VR_FORM_RULE) form = k5_form(T);
+  const bool fits = form == VR_FORM_NARROW ? k5_narrow_fits(T)
+                    : form == VR_FORM_WIDE ? k5_wide_fits(T)
+                                           : false;
+  return fits ? form : -1;
+}
+
 // form: VR_FORM_RULE (the size rule's, k5_form), or the narrow or the wide
 // form, refused where it does not take the table.
 extern "C" int vr_shadow_blend_form(const VrTables* T, const float* prev_sh,
                                     float* out_sh, int form,
                                     cudaStream_t stream) {
-  if (form == VR_FORM_RULE) form = k5_form(*T);
-  const bool fits = form == VR_FORM_NARROW ? k5_narrow_fits(*T)
-                    : form == VR_FORM_WIDE ? k5_wide_fits(*T)
-                                           : false;
-  if (!fits) return (int)cudaErrorInvalidValue;
+  form = k5_index_form(*T, form);
+  if (form < 0) return (int)cudaErrorInvalidValue;
   const int err =
       form == VR_FORM_WIDE
           ? launch_arms<int64_t>(T, prev_sh, out_sh, stream)
           : launch_arms<int>(T, prev_sh, out_sh, stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The gen_global form, in index form `form` (as vr_shadow_blend_form): the
+// suns' inverse directions into sun_inv [n_dir, 3] (device memory), then
+// the kernel reading them there. Any sun count whose region fits.
+extern "C" int vr_shadow_blend_global(const VrTables* T,
+                                      const float* prev_sh, float* out_sh,
+                                      float* sun_inv, int form,
+                                      cudaStream_t stream) {
+  form = k5_index_form(*T, form);
+  if (form < 0 || k5_sun_form(T->k, 0) < 0)
+    return (int)cudaErrorInvalidValue;
+  int err = fill_sun_inverses(T, sun_inv, stream);
+  if (err) return err;
+  const bool arms = needs_arms(*T);
+  if (form == VR_FORM_WIDE)
+    err = arms ? launch_tile<true, true, int64_t, true>(T, prev_sh, out_sh,
+                                                        stream, sun_inv)
+               : launch_tile<false, true, int64_t, true>(T, prev_sh, out_sh,
+                                                         stream, sun_inv);
+  else
+    err = arms ? launch_tile<true, true, int, true>(T, prev_sh, out_sh,
+                                                    stream, sun_inv)
+               : launch_tile<false, true, int, true>(T, prev_sh, out_sh,
+                                                     stream, sun_inv);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The sun form a launch at reprojection window k with n_dir suns takes
+// into out[0] (VR_SUNS_*; -1: the region does not fit).
+extern "C" int vr_shadow_blend_sun_form_of(int k, int n_dir, int* out) {
+  out[0] = k5_sun_form(k, n_dir);
+  return 0;
 }
 
 // The size rule's form for the table into out[0] (-1: past the wide form
@@ -191,10 +249,10 @@ extern "C" int vr_shadow_blend_index_forms(int* out) {
   return 0;
 }
 
-// The launches of the fixed and the general form so far into out[0..1].
+// The launches of the fixed, the general and the gen_global form so far
+// into out[0..2].
 extern "C" int vr_shadow_blend_forms(int* out) {
-  out[0] = (int)g_forms[0];
-  out[1] = (int)g_forms[1];
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_forms[f];
   return 0;
 }
 
@@ -214,15 +272,16 @@ extern "C" int vr_shadow_blend_geometry(int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the eight kernels: the fixed forms then the
-// general ones, ARMS false then true, narrow; then the same four wide:
-// registers per thread, static shared bytes per block, local bytes per
-// thread and largest block into out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS, bool GEN = false, class I = int>
+// cudaFuncGetAttributes of the twelve kernels: the fixed forms then the
+// general ones, ARMS false then true, narrow; then the same four wide; then
+// the gen_global ones, ARMS false then true, narrow then wide: registers
+// per thread, static shared bytes per block, local bytes per thread and
+// largest block into out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)shadow_blend_kernel<ARMS, GEN, I>);
+      &a, (const void*)shadow_blend_kernel<ARMS, GEN, I, SG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -231,13 +290,17 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_shadow_blend_attrs(int* out) {
-  const cudaError_t errs[8] = {
+  const cudaError_t errs[12] = {
       attrs_of<false>(out), attrs_of<true>(out + 4),
       attrs_of<false, true>(out + 8), attrs_of<true, true>(out + 12),
       attrs_of<false, false, int64_t>(out + 16),
       attrs_of<true, false, int64_t>(out + 20),
       attrs_of<false, true, int64_t>(out + 24),
-      attrs_of<true, true, int64_t>(out + 28)};
+      attrs_of<true, true, int64_t>(out + 28),
+      attrs_of<false, true, int, true>(out + 32),
+      attrs_of<true, true, int, true>(out + 36),
+      attrs_of<false, true, int64_t, true>(out + 40),
+      attrs_of<true, true, int64_t, true>(out + 44)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

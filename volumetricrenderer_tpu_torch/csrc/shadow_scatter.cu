@@ -94,7 +94,12 @@
 // reads it. Every value is the fixed form's, so the general form equals
 // K5's then K6's general forms bit for bit as the fixed one equals theirs;
 // a frame with at most VR_MAX_DIR suns and VR_MAX_NOISE channels keeps the
-// fixed form, its registers and its time.
+// fixed form, its registers and its time. Past the suns whose inverses fit
+// beside the region (common.cuh sun_form_of: 18,436 and more at k = 4) the
+// gen_global instantiation (SG) reads them from a device buffer [n_dir, 3]
+// that the launcher fills first with the same device function (common.cuh
+// fill_sun_inverses); its dynamic shared memory is the region alone, and
+// every value is GEN's, in every local source and both index forms.
 #include "common.cuh"
 
 // The tile of each local source, columns x rows: a block of X * Y threads,
@@ -110,19 +115,21 @@ struct K2Tile<VR_LOCAL_RADIANCE> {
 };
 
 template <int LOCAL, bool ARMS, int TX, int TY, bool GEN = false,
-          class I = int>
+          class I = int, bool SG = false>
 __global__ void __launch_bounds__(TX * TY, K2Tile<LOCAL>::MIN_BLOCKS)
 shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
                       const float* __restrict__ low,
                       float* __restrict__ out_sh,
-                      float* __restrict__ out_sc, int z_part) {
+                      float* __restrict__ out_sc, int z_part,
+                      const float* __restrict__ sun_inv_g) {
   // the narrow form's slice is blockIdx.z; the wide form's part starts at
   // z_part
   constexpr bool WIDE = sizeof(I) > sizeof(int);
   const int z0 = WIDE ? z_part : 0;
   __shared__ TileTerms<TX, TY, I> S;
-  extern __shared__ float dyn_s[];  // region_floats (GEN: + sun_inv_floats)
-  tile_region<true, TX, TY, GEN>(T, S, dyn_s, z0);
+  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g)
+  extern __shared__ float dyn_s[];
+  tile_region<true, TX, TY, GEN, SG>(T, S, dyn_s, z0);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x = blockIdx.x * TX + tx, y = blockIdx.y * TY + ty;
   const int z = blockIdx.z + z0;
@@ -131,8 +138,9 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz, cwx, cwy, cwz, sc[4];
   if constexpr (GEN) {
-    tile_blend<ARMS, TX, TY, true>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i,
-                                   wx, wy, wz, nullptr, z0);
+    tile_blend<ARMS, TX, TY, true, SG>(T, prev_sh, out_sh, S, dyn_s, x, y,
+                                       n, i, wx, wy, wz, nullptr, z0,
+                                       sun_inv_g);
     // scatter_slice (material fused, dir lights folded), each sun's blended
     // shadow read back from this thread's own stores
     view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
@@ -154,10 +162,10 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }
 
-// Launches of the fixed (0) and general (1) forms, and of the narrow (0)
-// and wide (1) index forms, since the library was loaded
+// Launches of the fixed (0), general (1) and gen_global (2) forms, and of
+// the narrow (0) and wide (1) index forms, since the library was loaded
 // (vr_shadow_scatter_forms, vr_shadow_scatter_index_forms).
-static long g_forms[2];
+static long g_forms[3];
 static long g_index_forms[2];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
@@ -202,14 +210,27 @@ static int k2_form(const VrTables& T, int local) {
   return k2_wide_fits(T) ? VR_FORM_WIDE : -1;
 }
 
-template <int LOCAL, bool ARMS, bool GEN, class I>
+// The sun form a launch at reprojection window k with n_dir suns and
+// n_noise fBm channels takes (common.cuh VR_SUNS_*; mirrored by
+// ops/scatter.sun_form): the general form's suns after the region where
+// both fit, in device memory (gen_global) past that; -1: the region alone
+// does not fit. Every local source has one tile.
+static int k2_sun_form(int k, int n_dir, int n_noise) {
+  constexpr int TX = K2Tile<VR_LOCAL_RADIANCE>::X;
+  constexpr int TY = K2Tile<VR_LOCAL_RADIANCE>::Y;
+  return sun_form_of(k2_shared(TX, TY, k, false, 0),
+                     n_dir > VR_MAX_DIR || n_noise > VR_MAX_NOISE, n_dir);
+}
+
+template <int LOCAL, bool ARMS, bool GEN, class I, bool SG = false>
 static int launch_tile(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const float* sun_inv = nullptr) {
   constexpr int TX = K2Tile<LOCAL>::X, TY = K2Tile<LOCAL>::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
-  const auto kernel = shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN, I>;
-  const int shared = k2_shared(TX, TY, T->k, GEN, T->n_dir);
+  const auto kernel =
+      shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN, I, SG>;
+  const int shared = k2_shared(TX, TY, T->k, GEN && !SG, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -218,23 +239,28 @@ static int launch_tile(const VrTables* T, const float* prev_sh,
   dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
   if (!WIDE) {
     kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low, out_sh,
-                                                   out_sc, 0);
+                                                   out_sc, 0, sun_inv);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, T->d - z0);
       kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low,
-                                                     out_sh, out_sc, z0);
+                                                     out_sh, out_sc, z0,
+                                                     sun_inv);
     }
   }
-  ++g_forms[GEN];
+  ++g_forms[SG ? 2 : GEN];
   ++g_index_forms[WIDE];
   return 0;
 }
 
-template <int LOCAL, bool ARMS, class I>
+// SG: the gen_global form, its suns' inverse directions in sun_inv.
+template <int LOCAL, bool ARMS, class I, bool SG = false>
 static int launch_form(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const float* sun_inv) {
+  if constexpr (SG)
+    return launch_tile<LOCAL, ARMS, true, I, true>(T, prev_sh, low, out_sh,
+                                                   out_sc, stream, sun_inv);
   if (needs_general(*T))
     return launch_tile<LOCAL, ARMS, true, I>(T, prev_sh, low, out_sh, out_sc,
                                              stream);
@@ -242,36 +268,46 @@ static int launch_form(const VrTables* T, const float* prev_sh,
                                             stream);
 }
 
-template <int LOCAL, class I>
+template <int LOCAL, class I, bool SG>
 static int launch_shadow_scatter(const VrTables* T, const float* prev_sh,
                                  const float* low, float* out_sh,
-                                 float* out_sc, cudaStream_t stream) {
+                                 float* out_sc, cudaStream_t stream,
+                                 const float* sun_inv) {
   if (needs_arms(*T))
-    return launch_form<LOCAL, true, I>(T, prev_sh, low, out_sh, out_sc,
-                                       stream);
-  return launch_form<LOCAL, false, I>(T, prev_sh, low, out_sh, out_sc,
-                                      stream);
+    return launch_form<LOCAL, true, I, SG>(T, prev_sh, low, out_sh, out_sc,
+                                           stream, sun_inv);
+  return launch_form<LOCAL, false, I, SG>(T, prev_sh, low, out_sh, out_sc,
+                                          stream, sun_inv);
 }
 
-template <class I>
+template <class I, bool SG = false>
 static int launch_local(const VrTables* T, const float* prev_sh,
                         const float* low, float* out_sh, float* out_sc,
-                        int local, cudaStream_t stream) {
+                        int local, cudaStream_t stream,
+                        const float* sun_inv = nullptr) {
   switch (local) {
     case VR_LOCAL_RADIANCE:
-      return launch_shadow_scatter<VR_LOCAL_RADIANCE, I>(T, prev_sh, low,
-                                                         out_sh, out_sc,
-                                                         stream);
+      return launch_shadow_scatter<VR_LOCAL_RADIANCE, I, SG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
     case VR_LOCAL_RAY:
-      return launch_shadow_scatter<VR_LOCAL_RAY, I>(T, prev_sh, low, out_sh,
-                                                    out_sc, stream);
+      return launch_shadow_scatter<VR_LOCAL_RAY, I, SG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
     case VR_LOCAL_BAKED:
-      return launch_shadow_scatter<VR_LOCAL_BAKED, I>(T, prev_sh, low,
-                                                      out_sh, out_sc,
-                                                      stream);
+      return launch_shadow_scatter<VR_LOCAL_BAKED, I, SG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The index form to launch: form, or the size rule's for VR_FORM_RULE;
+// -1 where it does not take the table.
+static int k2_index_form(const VrTables& T, int local, int form) {
+  if (form == VR_FORM_RULE) form = k2_form(T, local);
+  const bool fits = form == VR_FORM_NARROW ? k2_narrow_fits(T, local)
+                    : form == VR_FORM_WIDE ? k2_wide_fits(T)
+                                           : false;
+  return fits ? form : -1;
 }
 
 // local: VR_LOCAL_*; low: the radiance (+ fBm) volume [3 + n_noise, DL,
@@ -284,11 +320,8 @@ extern "C" int vr_shadow_scatter_form(const VrTables* T, const float* prev_sh,
                                       cudaStream_t stream) {
   if ((local == VR_LOCAL_RAY) != (low == nullptr) || local < 0 || local > 2)
     return (int)cudaErrorInvalidValue;
-  if (form == VR_FORM_RULE) form = k2_form(*T, local);
-  const bool fits = form == VR_FORM_NARROW ? k2_narrow_fits(*T, local)
-                    : form == VR_FORM_WIDE ? k2_wide_fits(*T)
-                                           : false;
-  if (!fits) return (int)cudaErrorInvalidValue;
+  form = k2_index_form(*T, local, form);
+  if (form < 0) return (int)cudaErrorInvalidValue;
   const int err =
       form == VR_FORM_WIDE
           ? launch_local<int64_t>(T, prev_sh, low, out_sh, out_sc, local,
@@ -296,6 +329,39 @@ extern "C" int vr_shadow_scatter_form(const VrTables* T, const float* prev_sh,
           : launch_local<int>(T, prev_sh, low, out_sh, out_sc, local,
                               stream);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The gen_global form, in index form `form` (as vr_shadow_scatter_form):
+// the suns' inverse directions into sun_inv [n_dir, 3] (device memory),
+// then the kernel reading them there. Any sun count whose region fits.
+extern "C" int vr_shadow_scatter_global(const VrTables* T,
+                                        const float* prev_sh,
+                                        const float* low, float* out_sh,
+                                        float* out_sc, int local,
+                                        float* sun_inv, int form,
+                                        cudaStream_t stream) {
+  if ((local == VR_LOCAL_RAY) != (low == nullptr) || local < 0 || local > 2)
+    return (int)cudaErrorInvalidValue;
+  form = k2_index_form(*T, local, form);
+  if (form < 0 || k2_sun_form(T->k, 0, 0) < 0)
+    return (int)cudaErrorInvalidValue;
+  int err = fill_sun_inverses(T, sun_inv, stream);
+  if (err) return err;
+  err = form == VR_FORM_WIDE
+            ? launch_local<int64_t, true>(T, prev_sh, low, out_sh, out_sc,
+                                          local, stream, sun_inv)
+            : launch_local<int, true>(T, prev_sh, low, out_sh, out_sc, local,
+                                      stream, sun_inv);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The sun form a launch at reprojection window k with n_dir suns and
+// n_noise fBm channels takes into out[0] (VR_SUNS_*; -1: the region does
+// not fit).
+extern "C" int vr_shadow_scatter_sun_form_of(int k, int n_dir, int n_noise,
+                                             int* out) {
+  out[0] = k2_sun_form(k, n_dir, n_noise);
+  return 0;
 }
 
 // The size rule's form for the table and local source into out[0] (-1:
@@ -314,10 +380,10 @@ extern "C" int vr_shadow_scatter_index_forms(int* out) {
   return 0;
 }
 
-// The launches of the fixed and the general form so far into out[0..1].
+// The launches of the fixed, the general and the gen_global form so far
+// into out[0..2].
 extern "C" int vr_shadow_scatter_forms(int* out) {
-  out[0] = (int)g_forms[0];
-  out[1] = (int)g_forms[1];
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_forms[f];
   return 0;
 }
 
@@ -354,17 +420,19 @@ extern "C" int vr_shadow_scatter_geometry(int local, int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the twenty-four kernels: the fixed forms then
+// cudaFuncGetAttributes of the thirty-six kernels: the fixed forms then
 // the general ones, each LOCAL (radiance, ray, baked) outer and ARMS
-// (false, true) inner, narrow; then the same twelve wide: registers per
-// thread, static shared bytes per block, local bytes per thread and
+// (false, true) inner, narrow; then the same twelve wide; then the
+// gen_global ones, narrow (LOCAL outer, ARMS inner) then wide: registers
+// per thread, static shared bytes per block, local bytes per thread and
 // largest block into out[4 i .. 4 i + 3]; returns the error.
-template <int LOCAL, bool ARMS, bool GEN = false, class I = int>
+template <int LOCAL, bool ARMS, bool GEN = false, class I = int,
+          bool SG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
       &a, (const void*)shadow_scatter_kernel<LOCAL, ARMS, K2Tile<LOCAL>::X,
-                                             K2Tile<LOCAL>::Y, GEN, I>);
+                                             K2Tile<LOCAL>::Y, GEN, I, SG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -388,10 +456,22 @@ static void attrs_of_index_form(int* out, cudaError_t* errs) {
   errs[11] = attrs_of<VR_LOCAL_BAKED, true, true, I>(out + 44);
 }
 
+template <class I>
+static void attrs_of_global(int* out, cudaError_t* errs) {
+  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, true, I, true>(out);
+  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, true, I, true>(out + 4);
+  errs[2] = attrs_of<VR_LOCAL_RAY, false, true, I, true>(out + 8);
+  errs[3] = attrs_of<VR_LOCAL_RAY, true, true, I, true>(out + 12);
+  errs[4] = attrs_of<VR_LOCAL_BAKED, false, true, I, true>(out + 16);
+  errs[5] = attrs_of<VR_LOCAL_BAKED, true, true, I, true>(out + 20);
+}
+
 extern "C" int vr_shadow_scatter_attrs(int* out) {
-  cudaError_t errs[24];
+  cudaError_t errs[36];
   attrs_of_index_form<int>(out, errs);
   attrs_of_index_form<int64_t>(out + 48, errs + 12);
+  attrs_of_global<int>(out + 96, errs + 24);
+  attrs_of_global<int64_t>(out + 120, errs + 30);
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

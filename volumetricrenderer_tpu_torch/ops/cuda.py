@@ -136,10 +136,15 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
     # source -> {entry point: argument types before the stream}
     sig = {
         "bake_radiance": {"vr_bake_radiance": [tp, vp],
+                          "vr_bake_radiance_chunked": [tp, vp, ci],
                           "vr_bake_radiance_geometry": [ci] * 5 + [vp],
+                          "vr_bake_radiance_plan": [ci, ci, vp],
                           "vr_bake_radiance_forms": [vp]},
         "shadow_scatter": {"vr_shadow_scatter_form":
                            [tp, vp, vp, vp, vp, ci, ci],
+                           "vr_shadow_scatter_global":
+                           [tp, vp, vp, vp, vp, ci, vp, ci],
+                           "vr_shadow_scatter_sun_form_of": [ci] * 3 + [vp],
                            "vr_shadow_scatter_form_of": [tp, ci, vp],
                            "vr_shadow_scatter_index_forms": [vp],
                            "vr_shadow_scatter_geometry": [ci, ci, vp],
@@ -158,6 +163,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite_grad_forms": [vp],
             "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
         "shadow_blend": {"vr_shadow_blend_form": [tp, vp, vp, ci],
+                         "vr_shadow_blend_global": [tp, vp, vp, vp, ci],
+                         "vr_shadow_blend_sun_form_of": [ci, ci, vp],
                          "vr_shadow_blend_form_of": [tp, vp],
                          "vr_shadow_blend_index_forms": [vp],
                          "vr_shadow_blend_geometry": [ci, vp],
@@ -169,6 +176,8 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                     "vr_scatter_geometry": [ci, vp],
                     "vr_scatter_forms": [vp]},
         "dir_shadow": {"vr_dir_shadow_form": [tp, vp, ci],
+                       "vr_dir_shadow_global": [tp, vp, vp, ci],
+                       "vr_dir_shadow_sun_form_of": [ci, vp],
                        "vr_dir_shadow_form_of": [tp, vp],
                        "vr_dir_shadow_index_forms": [vp],
                        "vr_dir_shadow_geometry": [vp],
@@ -231,9 +240,16 @@ def launch(name: str, *args, entry: str = "") -> None:
 # The sources whose launchers take a fixed or a general form by the frame's
 # counts of suns and fBm channels (csrc/common.cuh needs_general; the
 # general instantiations are the kernels named with GEN below): each
-# library counts its launches of either form (form_launches).
+# library counts its launches of each form (form_launches), in FORM_NAMES'
+# order. Past a block's shared memory K2, K5 and K7 keep the suns' inverse
+# directions in device memory (gen_global: ops/scatter.sun_form) and K1
+# takes its fBm channels in chunks (chunked: ops/frame_fused.k1_geometry).
 FORM_SOURCES = ("bake_radiance", "shadow_scatter", "shadow_blend", "scatter",
                 "dir_shadow")
+SUN_FORMS = ("fixed", "general", "gen_global")
+FORM_NAMES = {"bake_radiance": ("fixed", "general", "chunked"),
+              "shadow_scatter": SUN_FORMS, "shadow_blend": SUN_FORMS,
+              "scatter": ("fixed", "general"), "dir_shadow": SUN_FORMS}
 
 
 # The sources whose launchers pick a form by the size of their tables
@@ -304,11 +320,27 @@ def past_int32(what: str, *factors: int) -> Optional[str]:
     return f"{what}: {n} past 2^31 - 1" if n > INT32_MAX else None
 
 
+def split_form(kernel: str, form, forms: tuple) -> tuple:
+    """`form` of a wrapper that takes an index form of INDEX_FORMS and a
+    form of `forms` (SUN_FORMS, or K1's "chunked"): None, one name, or a
+    pair of one of each. Returns (index form or None, other form or None);
+    raises ValueError, naming the kernel, for any other name."""
+    names = () if form is None else (form,) if isinstance(form, str) \
+        else tuple(form)
+    index = [f for f in names if f in INDEX_FORMS]
+    other = [f for f in names if f in forms]
+    if len(index) > 1 or len(other) > 1 or len(index) + len(other) \
+            != len(names):
+        raise ValueError(f"{kernel}: form {form!r} is not one of "
+                         f"{INDEX_FORMS} and one of {forms}")
+    return (index or [None])[0], (other or [None])[0]
+
+
 def form_launches(name: str) -> tuple:
     """The launches of each of source `name`'s forms since its library was
-    loaded (its `vr_<name>_forms`): (fixed, general) for FORM_SOURCES, in
-    SIZE_FORMS' order for those."""
-    n = len(SIZE_FORMS.get(name, ("fixed", "general")))
+    loaded (its `vr_<name>_forms`): in FORM_NAMES' order for FORM_SOURCES,
+    in SIZE_FORMS' order for those."""
+    n = len(SIZE_FORMS.get(name) or FORM_NAMES[name])
     buf = (ctypes.c_int * n)()
     getattr(lib(name), f"vr_{name}_forms")(ctypes.cast(buf, ctypes.c_void_p))
     return tuple(buf)
@@ -325,10 +357,15 @@ def index_form_launches(name: str) -> tuple:
 
 def form_counts(name: str) -> dict:
     """form_launches of a SIZE_FORMS source by its forms' names, or
-    index_form_launches of an INDEX_SOURCES source by INDEX_FORMS."""
+    index_form_launches of an INDEX_SOURCES source by INDEX_FORMS, and of a
+    FORM_SOURCES source by FORM_NAMES (both, for a source of both)."""
     if name in SIZE_FORMS:
         return dict(zip(SIZE_FORMS[name], form_launches(name)))
-    return dict(zip(INDEX_FORMS, index_form_launches(name)))
+    out = dict(zip(FORM_NAMES[name], form_launches(name))) \
+        if name in FORM_NAMES else {}
+    if name in INDEX_SOURCES:
+        out.update(zip(INDEX_FORMS, index_form_launches(name)))
+    return out
 
 
 # source -> the kernels its `vr_<source>_attrs` entry reports, in its order
@@ -340,15 +377,25 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                     for spread in ("true", "false")
                     for arms in ("false", "true"))
                 + ("bake_radiance_kernel<false, true, GEN>",
-                   "bake_radiance_kernel<true, true, GEN>"),
+                   "bake_radiance_kernel<true, true, GEN>",
+                   "bake_radiance_kernel<false, true, GEN, CHUNKED>",
+                   "bake_radiance_kernel<true, true, GEN, CHUNKED>"),
                 "shadow_blend": tuple(
                     f"shadow_blend_kernel<{arms}{gen}{wide}>"
                     for wide in ("", ", WIDE") for gen in ("", ", GEN")
+                    for arms in ("false", "true")) + tuple(
+                    f"shadow_blend_kernel<{arms}, GEN{wide}, GLOBAL>"
+                    for wide in ("", ", WIDE")
                     for arms in ("false", "true")),
                 "shadow_scatter": tuple(
                     f"shadow_scatter_kernel<{local}, {arms}{gen}{wide}>"
                     for wide in ("", ", WIDE")
                     for gen in ("", ", GEN")
+                    for local in ("RADIANCE", "RAY", "BAKED")
+                    for arms in ("false", "true")) + tuple(
+                    f"shadow_scatter_kernel<{local}, {arms}, GEN{wide}, "
+                    "GLOBAL>"
+                    for wide in ("", ", WIDE")
                     for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),
                 "scatter": tuple(f"scatter_kernel<{mode}{gen}{wide}>"
@@ -360,6 +407,9 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "dir_shadow": tuple(
                     f"dir_shadow_kernel<{arms}{gen}{wide}>"
                     for wide in ("", ", WIDE") for gen in ("", ", GEN")
+                    for arms in ("false", "true")) + tuple(
+                    f"dir_shadow_kernel<{arms}, GEN{wide}, GLOBAL>"
+                    for wide in ("", ", WIDE")
                     for arms in ("false", "true")),
                 "integrate": ("integrate_kernel", "integrate_kernel<WIDE>"),
                 "temporal_blend": ("temporal_blend_kernel<1, true>",

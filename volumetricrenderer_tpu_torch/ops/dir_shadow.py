@@ -116,21 +116,31 @@ def k7_form(t, form: Optional[str] = None) -> str:
     return check_tile_indices(t, "K7", form, K7_TILE[1])
 
 
-def dir_shadow(t, form: Optional[str] = None) -> torch.Tensor:
+def dir_shadow(t, form=None) -> torch.Tensor:
     """K7: the unblended raycast shadow volume [Nd, D, H, W]. CUDA tables
-    launch the index form k7_form picks (or `form`, forced). Refuses, before
-    any launch, tables neither index form takes and suns whose inverse
-    directions do not fit a block's shared memory."""
+    launch the index form k7_form picks and the sun form
+    ops/scatter.sun_form picks (the suns' inverse directions in device
+    memory past a block's shared memory: gen_global); `form`, one of
+    cuda.INDEX_FORMS or cuda.SUN_FORMS or a pair of one of each, forces
+    them. Refuses, before any launch, tables neither index form takes."""
     if t.spar.device.type == "cpu":
         return dir_shadow_plain(t)
-    from volumetricrenderer_tpu_torch.ops.temporal import check_shared
-    form = k7_form(t, form)
-    check_shared(k7_shared_bytes(t.n_dir), "K7", f"{t.n_dir} suns")
+    from volumetricrenderer_tpu_torch.ops.scatter import sun_form
+    index, suns = cuda.split_form("K7", form, cuda.SUN_FORMS)
+    index = k7_form(t, index)
+    suns = sun_form("K7", t.n_dir, 0, t.k, suns)
     cuda.check_cuda(t.spar)
     w, h, d = t.grid_whd
     out = torch.empty((t.n_dir, d, h, w), dtype=torch.float32,
                       device=t.spar.device)
     st = t.c_struct()
-    cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out),
-                cuda.INDEX_FORMS.index(form), entry="vr_dir_shadow_form")
+    if suns == "gen_global":
+        inv = torch.empty((t.n_dir, 3), dtype=torch.float32,
+                          device=t.spar.device)
+        cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out),
+                    cuda.ptr(inv), cuda.INDEX_FORMS.index(index),
+                    entry="vr_dir_shadow_global")
+    else:
+        cuda.launch("dir_shadow", cuda.ctypes.byref(st), cuda.ptr(out),
+                    cuda.INDEX_FORMS.index(index), entry="vr_dir_shadow_form")
     return out

@@ -58,12 +58,13 @@ from volumetricrenderer_tpu_torch.ops.scatter import (LOCAL_BAKED,
                                                       pack_params,
                                                       scatter_local_plain,
                                                       slice_light_order,
+                                                      sun_form,
                                                       sun_inv_bytes)
 from volumetricrenderer_tpu_torch.ops.shadow_blend import (
     dir_shadow_blend_plain)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    check_shared, pack_blend_params, region_shared_bytes, reproj_offsets,
-    warp)
+    MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_shared, pack_blend_params,
+    region_shared_bytes, reproj_offsets, warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          bake_visibility,
                                                          bake_world_planes,
@@ -360,31 +361,112 @@ class K1Geometry:
     rows: int
 
 
-def k1_geometry(n_lights: int, n_noise: int,
-                low_dims: Tuple[int, int, int]) -> K1Geometry:
-    """Mirror of csrc/bake_radiance.cu vr_bake_radiance_geometry: K1's
-    launch for the low grid (WL, HL, DL). Its light groups are the least
-    power of two that takes the first pass's items (its lights and the fBm
-    channels), at most K1_WARPS; the warps of a group lie one below the
-    other, so that a block owns a patch of its low slice, the ragged
-    patches at the slice's edges masked. Past MAX_NOISE channels the launch
-    takes K1's general form, whose fBm items sit in dynamic shared memory
-    after the octaves."""
-    wl, hl, dl = low_dims
+def k1_groups(n_lights: int, n_noise: int) -> int:
+    """Mirror of csrc/bake_radiance.cu k1_groups: the light groups of a K1
+    launch, the least power of two that takes the first pass's items (its
+    lights and the fBm channels), at most K1_WARPS."""
     items = min(n_lights, K1_PASS) + n_noise
     groups = 1
     while groups < items and groups < K1_WARPS:
         groups *= 2
+    return groups
+
+
+def k1_shared_bytes(n_lights: int, n_noise: int, groups: int) -> int:
+    """Mirror of csrc/bake_radiance.cu k1_shared: the fixed and general
+    forms' dynamic shared bytes, per sample of the block its terms, one
+    pass's pairs and K1_OCT fBm octaves a channel, and past MAX_NOISE
+    channels the fBm items (K1_OCT + 2 int32 a channel); none with one
+    light group (a thread per sample)."""
+    if groups == 1:
+        return 0
+    return 4 * 32 * (K1_WARPS // groups) * (
+        K1_TERMS + min(n_lights, K1_PASS) + n_noise * K1_OCT) \
+        + (4 * n_noise * (K1_OCT + 2) if n_noise > MAX_NOISE else 0)
+
+
+def k1_chunked_bytes(n_lights: int, chunk: int, samples: int) -> int:
+    """Mirror of csrc/bake_radiance.cu k1_chunked_shared: the chunked
+    form's dynamic shared bytes with `chunk` staged fBm channels (the
+    general form's, their items always in shared memory)."""
+    return 4 * ((K1_TERMS + min(n_lights, K1_PASS) + chunk * K1_OCT)
+                * samples + chunk * (K1_OCT + 2))
+
+
+def k1_chunk_of(n_lights: int, n_noise: int, samples: int) -> int:
+    """Mirror of csrc/bake_radiance.cu k1_chunk_of: the most fBm channels
+    whose octaves and items fit a block's shared memory beside the
+    per-sample terms and one pass's pairs, at most n_noise."""
+    room = (MAX_SHARED_BYTES - TILE_STATIC_SHARED) // 4 \
+        - k1_chunked_bytes(n_lights, 0, samples) // 4
+    return min(n_noise, room // (K1_OCT * samples + K1_OCT + 2))
+
+
+def k1_plan(n_lights: int, n_noise: int,
+            chunk: Optional[int] = None) -> Tuple[str, int]:
+    """Mirror of csrc/bake_radiance.cu vr_bake_radiance_plan: the form of
+    cuda.FORM_NAMES["bake_radiance"] that K1 takes for n_lights local
+    lights and n_noise fBm channels, and the channels it stages in shared
+    memory. "fixed" up to MAX_NOISE channels; past them "general", the fBm
+    items in dynamic shared memory after the octaves; past the channels
+    whose octaves and items fit a block's shared memory, "chunked": the
+    first k1_chunk_of channels staged as the general form stages them, each
+    channel past them a whole item (k1_chunks). chunk: the chunked form
+    forced with that many staged channels. Raises ValueError, naming K1,
+    for a forced chunk the launch cannot take (one light group has no
+    items to spread)."""
+    groups = k1_groups(n_lights, n_noise)
+    samples = 32 * (K1_WARPS // groups)
+    most = k1_chunk_of(n_lights, n_noise, samples)
+    if chunk is not None:
+        if groups == 1 or not 0 <= chunk <= most:
+            raise ValueError(
+                f"K1's chunked form cannot stage {chunk} of {n_noise} fBm "
+                f"channels at {n_lights} lights: it spreads its items over "
+                f"light groups ({groups}) and stages at most {most}")
+        return "chunked", chunk
+    if n_noise <= MAX_NOISE:
+        return "fixed", n_noise
+    if groups > 1 and k1_shared_bytes(n_lights, n_noise, groups) \
+            + TILE_STATIC_SHARED > MAX_SHARED_BYTES:
+        return "chunked", most
+    return "general", n_noise
+
+
+def k1_geometry(n_lights: int, n_noise: int,
+                low_dims: Tuple[int, int, int],
+                chunk: Optional[int] = None) -> K1Geometry:
+    """Mirror of csrc/bake_radiance.cu vr_bake_radiance_geometry: K1's
+    launch for the low grid (WL, HL, DL) in the form k1_plan picks (chunk:
+    the chunked form forced, as there). Its light groups are k1_groups';
+    the warps of a group lie one below the other, so that a block owns a
+    patch of its low slice, the ragged patches at the slice's edges masked.
+    Past MAX_NOISE channels the general form's fBm items sit in dynamic
+    shared memory after the octaves; the chunked form's shared memory holds
+    its staged channels' (k1_chunked_bytes)."""
+    wl, hl, dl = low_dims
+    groups = k1_groups(n_lights, n_noise)
     sw = K1_WARPS // groups
     cols, rows = K1_WX, sw * (32 // K1_WX)
+    form, staged = k1_plan(n_lights, n_noise, chunk)
     return K1Geometry(
         blocks=-(-wl // cols) * -(-hl // rows) * dl, threads=32 * K1_WARPS,
         samples=32 * sw, groups=groups,
         passes=max(1, -(-n_lights // K1_PASS)),
-        shared_bytes=0 if groups == 1 else 4 * 32 * sw * (
-            K1_TERMS + min(n_lights, K1_PASS) + n_noise * K1_OCT)
-        + (4 * n_noise * (K1_OCT + 2) if n_noise > MAX_NOISE else 0),
+        shared_bytes=k1_chunked_bytes(n_lights, staged, 32 * sw)
+        if form == "chunked" else k1_shared_bytes(n_lights, n_noise, groups),
         columns=cols, rows=rows)
+
+
+def k1_chunks(n_lights: int, n_noise: int,
+              chunk: Optional[int] = None) -> tuple:
+    """The chunk plan of a K1 launch (k1_plan) over n_noise fBm channels:
+    (first channel, count) of the channels staged in shared memory and, in
+    the chunked form, of the whole-channel items past them, in channel
+    order."""
+    staged = k1_plan(n_lights, n_noise, chunk)[1]
+    return ((0, staged),) if staged == n_noise \
+        else ((0, staged), (staged, n_noise - staged))
 
 
 def check_k1_indices(t: FrameTables) -> None:
@@ -414,11 +496,16 @@ def k1_tables(t: FrameTables) -> FrameTables:
 
 
 def bake_radiance(t: FrameTables,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None,
+                  form: Optional[str] = None,
+                  chunk: Optional[int] = None) -> torch.Tensor:
     """K1: the low-rate radiance (+ fBm) volume [3 + n_noise, DL, HL, WL].
     With a texture medium and noise channels (the fused frame), `noise`
     [n_noise, DL, HL, WL] (visibility.bake_noise_channels) fills channels
-    3.. and K1 bakes channels 0-2 (k1_tables); otherwise noise is None."""
+    3.. and K1 bakes channels 0-2 (k1_tables); otherwise noise is None.
+    CUDA tables launch the form k1_geometry picks; form="chunked" forces
+    the chunked form, with `chunk` staged channels (None: the most that
+    fit); "fixed" and "general" take only the counts that take them."""
     k1 = k1_tables(t)
     wl, hl, dl = t.low_dims
     want = None if k1.n_noise == t.n_noise else (t.n_noise, dl, hl, wl)
@@ -431,7 +518,21 @@ def bake_radiance(t: FrameTables,
         out = bake_radiance_plain(k1)
         return out if noise is None else torch.cat([out, noise])
     n_lights = 0 if k1.lights is None else k1.lights.shape[0]
-    check_shared(k1_geometry(n_lights, k1.n_noise, t.low_dims).shared_bytes,
+    names = cuda.FORM_NAMES["bake_radiance"]
+    if form is not None and form not in names:
+        raise ValueError(f"K1: form {form!r} is none of {names}")
+    rule, staged = k1_plan(n_lights, k1.n_noise)
+    if form == "chunked":  # chunk None: the most that fit
+        if chunk is None:
+            chunk = k1_chunk_of(n_lights, k1.n_noise, 32 * (
+                K1_WARPS // k1_groups(n_lights, k1.n_noise)))
+        rule, staged = k1_plan(n_lights, k1.n_noise, chunk)
+    elif form not in (None, rule):
+        raise ValueError(f"K1's {form} form cannot take {k1.n_noise} fBm "
+                         f"channels: the counts take its {rule} form")
+    check_shared(k1_geometry(n_lights, k1.n_noise, t.low_dims,
+                             staged if rule == "chunked" else None
+                             ).shared_bytes,
                  "K1", f"{k1.n_noise} fBm channels")
     check_k1_indices(k1)
     cuda.check_cuda(t.spar)
@@ -441,7 +542,11 @@ def bake_radiance(t: FrameTables,
         cuda.check_cuda(noise)
         out[3:].copy_(noise)
     st = k1.c_struct()
-    cuda.launch("bake_radiance", cuda.ctypes.byref(st), cuda.ptr(out))
+    if form == "chunked":
+        cuda.launch("bake_radiance", cuda.ctypes.byref(st), cuda.ptr(out),
+                    staged, entry="vr_bake_radiance_chunked")
+    else:
+        cuda.launch("bake_radiance", cuda.ctypes.byref(st), cuda.ptr(out))
     return out
 
 
@@ -508,13 +613,16 @@ def k2_form(t: FrameTables, local: int, form: Optional[str] = None) -> str:
 def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
                    bake: Optional[torch.Tensor] = None,
                    vis: Optional[torch.Tensor] = None,
-                   form: Optional[str] = None):
+                   form=None):
     """K2: new shadow history and the scatter planes. Local lights: the
     low-rate radiance (+ fBm) volume `bake` of K1; or, with bake None, the
     tables' per-slice light schedule, each light shadowed by the low-rate
     visibility volume `vis` of K9 or, with vis None too, by one any-hit ray
-    per froxel. CUDA tensors launch the index form k2_form picks (or
-    `form`, forced)."""
+    per froxel. CUDA tensors launch the index form k2_form picks and the
+    sun form scatter.sun_form picks (the suns' inverse directions in device
+    memory past a block's shared memory: gen_global); `form`, one of
+    cuda.INDEX_FORMS or cuda.SUN_FORMS or a pair of one of each, forces
+    them."""
     if t.n_dir == 0:
         raise ValueError("K2 blends the suns' shadow: a scene without a sun "
                          "takes the staged route")
@@ -522,9 +630,9 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
     mode = local_mode(bake, vis)
-    form = k2_form(t, mode, form)
-    check_shared(k2_shared_bytes(t.k, t.n_dir, t.n_noise), "K2",
-                 f"reprojection window {t.k}, {t.n_dir} suns")
+    index, suns = cuda.split_form("K2", form, cuda.SUN_FORMS)
+    index = k2_form(t, mode, index)
+    suns = sun_form("K2", t.n_dir, t.n_noise, t.k, suns)
     low = bake if bake is not None else vis
     cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
     w, h, d = t.grid_whd
@@ -532,12 +640,18 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     out_sc = torch.empty((4, d, h, w), dtype=torch.float32,
                          device=prev_shadow.device)
     st = t.c_struct()
-    cuda.launch("shadow_scatter", cuda.ctypes.byref(st),
-                cuda.ptr(prev_shadow),
-                cuda.ptr(low) if low is not None else None,
-                cuda.ptr(out_sh), cuda.ptr(out_sc), mode,
-                cuda.INDEX_FORMS.index(form),
-                entry="vr_shadow_scatter_form")
+    args = (cuda.ctypes.byref(st), cuda.ptr(prev_shadow),
+            cuda.ptr(low) if low is not None else None, cuda.ptr(out_sh),
+            cuda.ptr(out_sc), mode)
+    if suns == "gen_global":
+        inv = torch.empty((t.n_dir, 3), dtype=torch.float32,
+                          device=prev_shadow.device)
+        cuda.launch("shadow_scatter", *args, cuda.ptr(inv),
+                    cuda.INDEX_FORMS.index(index),
+                    entry="vr_shadow_scatter_global")
+    else:
+        cuda.launch("shadow_scatter", *args, cuda.INDEX_FORMS.index(index),
+                    entry="vr_shadow_scatter_form")
     return out_sh, out_sc
 
 
@@ -579,11 +693,40 @@ def k3_form(t: FrameTables, form: Optional[str] = None) -> str:
     return cuda.index_form("K3", narrow, wide, form)
 
 
+# K3's static shared memory (csrc/integrate_blend.cu integrate_blend_kernel:
+# xyb [4][K3_ZC + 1][K3_TX], lrgb [3][K3_ZC][K3_TX], fac, tr and tcar
+# [K3_ZC][K3_TX], vzc_s and dz_s [K3_ZC], float32) and its chunk of slices
+K3_ZC = 32
+K3_STATIC_SHARED = 4 * (4 * (K3_ZC + 1) * K3_TX + 3 * K3_ZC * K3_TX
+                        + 3 * K3_ZC * K3_TX + 2 * K3_ZC)
+
+
+def k3_shared_bytes(k: int) -> int:
+    """Mirror of csrc/integrate_blend.cu k3_shared: K3's dynamic shared
+    bytes at reprojection window k, per slice of a chunk the x, y and two
+    z offsets of the K3_TX + 2k + 1 columns its warp reads and the view
+    y of its 2k + 2 rows, float32."""
+    return 4 * K3_ZC * (4 * (K3_TX + 2 * k + 1) + 2 * k + 2)
+
+
+def check_k3_window(k: int) -> None:
+    """Refuse, naming K3, a reprojection window whose shared memory
+    (k3_shared_bytes beside K3_STATIC_SHARED) does not fit a block's: its
+    launcher's cudaFuncSetAttribute would fail. Raises ValueError."""
+    if k3_shared_bytes(k) + K3_STATIC_SHARED > MAX_SHARED_BYTES:
+        raise ValueError(f"reprojection window {k}: K3's {k3_shared_bytes(k)}"
+                         f" bytes of dynamic shared memory do not fit a "
+                         f"block's shared memory beside its "
+                         f"{K3_STATIC_SHARED} static bytes")
+
+
 def integrate_blend(t: FrameTables, scatter: torch.Tensor,
                     prev_acc: torch.Tensor,
                     form: Optional[str] = None) -> torch.Tensor:
     """K3: integrate the scatter planes and blend with the history. CUDA
-    tensors launch the index form k3_form picks (or `form`, forced)."""
+    tensors launch the index form k3_form picks (or `form`, forced).
+    Refuses, before any launch, a reprojection window whose shared memory
+    does not fit a block's (check_k3_window)."""
     w, h, d = t.grid_whd
     for name, v in (("scatter", scatter), ("prev_acc", prev_acc)):
         if v.shape != (4, d, h, w):
@@ -591,6 +734,7 @@ def integrate_blend(t: FrameTables, scatter: torch.Tensor,
     if scatter.device.type == "cpu":
         return integrate_blend_plain(t, scatter, prev_acc)
     form = k3_form(t, form)
+    check_k3_window(t.k)
     cuda.check_cuda(scatter, prev_acc)
     out = torch.empty_like(prev_acc)
     st = t.c_struct()

@@ -279,6 +279,51 @@ def sun_inv_bytes(n_dir: int) -> int:
     return 4 * 3 * n_dir
 
 
+# The slice tiles of K2 and K5 (ops/frame_fused.K2_TILE,
+# ops/shadow_blend.K5_TILE), whose reprojection region the suns' inverse
+# directions follow in shared memory
+SUN_TILE = (16, 16)
+
+
+def sun_form(kernel: str, n_dir: int, n_noise: int, k: int,
+             form: Optional[str] = None) -> str:
+    """Mirror of csrc/common.cuh sun_form_of as K2 ("K2"), K5 ("K5") and K7
+    ("K7") take it (their launchers' k2_sun_form, k5_sun_form,
+    k7_sun_form): the form of cuda.SUN_FORMS that the kernel takes for
+    n_dir suns and n_noise fBm channels (K5 and K7 look at the suns alone)
+    at reprojection window k (K7 has no region). "fixed" within the fixed
+    forms' counts (needs_general); past them "general", the suns' inverse
+    directions in shared memory after the region, where both fit a block's
+    shared memory beside the tile's static terms; past that "gen_global",
+    the inverses in a device buffer [n_dir, 3] that the launcher fills, the
+    region alone in shared memory. form: a form to force ("gen_global"
+    takes any count; "fixed" and "general" only the counts that take
+    them). Raises ValueError, naming the kernel, before any launch: for a
+    region that does not fit (ops/temporal.check_region) and a forced form
+    that cannot take the counts."""
+    from volumetricrenderer_tpu_torch.ops.temporal import (
+        MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_region, check_shared,
+        region_shared_bytes)
+    if form is not None and form not in cuda.SUN_FORMS:
+        raise ValueError(f"{kernel}: form {form!r} is none of "
+                         f"{cuda.SUN_FORMS}")
+    region = 0 if kernel == "K7" else region_shared_bytes(SUN_TILE, k)
+    check_region(k, region, kernel)
+    general = needs_general(n_dir, n_noise if kernel == "K2" else 0)
+    fits = lambda nbytes: nbytes + TILE_STATIC_SHARED <= MAX_SHARED_BYTES
+    rule = "gen_global" if general and not fits(
+        region + sun_inv_bytes(n_dir)) else \
+        "general" if general else "fixed"
+    if form is None or form == rule or form == "gen_global":
+        return rule if form is None else form
+    if form == "general" and general:
+        check_shared(region + sun_inv_bytes(n_dir), kernel,
+                     f"{n_dir} suns")
+    raise ValueError(f"{kernel}'s {form} form cannot take {n_dir} suns and "
+                     f"{n_noise} fBm channels: the counts take its {rule} "
+                     "form")
+
+
 def tile_grid(grid_whd: Tuple[int, int, int],
               tile: Tuple[int, int]) -> Tuple[int, int, int]:
     """The launch grid of K6 or K2 for the array grid (W, H, D) and a block

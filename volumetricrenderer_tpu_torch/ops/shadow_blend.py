@@ -17,9 +17,10 @@ from volumetricrenderer_tpu_torch.ops import cuda
 from volumetricrenderer_tpu_torch.ops.dir_shadow import dir_shadow_plain
 from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
                                                       needs_general,
+                                                      sun_form,
                                                       sun_inv_bytes)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    check_shared, region_shared_bytes, reproj_offsets, warp)
+    region_shared_bytes, reproj_offsets, warp)
 
 
 def _check_history(t, prev_shadow: torch.Tensor) -> None:
@@ -67,22 +68,34 @@ def k5_form(t, form: Optional[str] = None) -> str:
 
 
 def dir_shadow_blend(t, prev_shadow: torch.Tensor,
-                     form: Optional[str] = None) -> torch.Tensor:
+                     form=None) -> torch.Tensor:
     """K5: raycast shadow + temporal blend, written to a new buffer (the
     warp reads neighbours of the history). CUDA tensors launch the index
-    form k5_form picks (or `form`, forced)."""
+    form k5_form picks and the sun form ops/scatter.sun_form picks (the
+    suns' inverse directions in device memory past a block's shared
+    memory: gen_global); `form`, one of cuda.INDEX_FORMS or cuda.SUN_FORMS
+    or a pair of one of each, forces them."""
     if prev_shadow.device.type == "cpu":
         return dir_shadow_blend_plain(t, prev_shadow)
     _check_history(t, prev_shadow)
-    form = k5_form(t, form)
-    check_shared(k5_shared_bytes(t.k, t.n_dir), "K5",
-                 f"reprojection window {t.k}, {t.n_dir} suns")
+    index, suns = cuda.split_form("K5", form, cuda.SUN_FORMS)
+    index = k5_form(t, index)
+    suns = sun_form("K5", t.n_dir, 0, t.k, suns)
     cuda.check_cuda(prev_shadow)
     out = torch.empty_like(prev_shadow)
     st = t.c_struct()
-    cuda.launch("shadow_blend", cuda.ctypes.byref(st), cuda.ptr(prev_shadow),
-                cuda.ptr(out), cuda.INDEX_FORMS.index(form),
-                entry="vr_shadow_blend_form")
+    if suns == "gen_global":
+        inv = torch.empty((t.n_dir, 3), dtype=torch.float32,
+                          device=prev_shadow.device)
+        cuda.launch("shadow_blend", cuda.ctypes.byref(st),
+                    cuda.ptr(prev_shadow), cuda.ptr(out), cuda.ptr(inv),
+                    cuda.INDEX_FORMS.index(index),
+                    entry="vr_shadow_blend_global")
+    else:
+        cuda.launch("shadow_blend", cuda.ctypes.byref(st),
+                    cuda.ptr(prev_shadow), cuda.ptr(out),
+                    cuda.INDEX_FORMS.index(index),
+                    entry="vr_shadow_blend_form")
     return out
 
 
