@@ -418,7 +418,29 @@ entry point a user calls, and the port's demo entry, and:
                          general form reads the 432 channels (= K5 then K6
                          bit for bit);
      their rows join the kernels line;
-  10. prints the `kernels` JSON line, then the result line.
+  10. the region forms past a block's shared memory (region_edge_paths):
+     the mirrors ops/temporal.region_form (K2, K5, K10) and
+     ops/frame_fused.k3_window_form (K3) against the launchers' own rules
+     around their edges (k = 52 and 159), and K11 refusing k = 108 by name;
+     K2 (radiance, rays, baked), K5, K10 (weight, alpha) forced into their
+     region_global form (the reprojection offsets in device memory) at
+     k = 4 and 51, K3 at 4 and 158, on the fused path's frame 4 at
+     240x135x128, and K2 and K5 on demo_scene's (the terrain), each = the
+     region_shared form bit for bit, held against its twin and timed in
+     turns against the region_shared form; then,
+     each path from a fresh state through to K4, its launches counted by
+     region form:
+       fused_k52         FULL_CONFIG at reproj_window 52, 2 frames: K2
+                         region_global (= K5 then K6 bit for bit), K3
+                         region_shared, each against its twin
+       fused_k159        the same at 159: K2 and K3 region_global
+       staged_k52        STAGED at 52, 2 frames: K5 region_global
+       map_dir_k52       MAP_DIR at 52, 2 frames: K10's weight mode
+                         region_global
+       history_k107      HISTORY at 107, 2 frames: K5 and K10's alpha mode
+                         region_global, K11 at its widest window
+     their rows join the kernels line;
+  11. prints the `kernels` JSON line, then the result line.
 
 Every failure raises: the script exits 0 only if every phase passed.
 Imports no JAX and nothing of the JAX package.
@@ -4474,9 +4496,12 @@ def shared_form_mirrors(ff, sca, cuda, tables) -> None:
     vr_dir_shadow_sun_form_of at each edge (18,435 / 18,436 suns at k = 4,
     19,285 / 19,286 for K7, other windows, K2's fBm channels);
     ops/frame_fused.k1_plan and k1_geometry's bytes against
-    vr_bake_radiance_plan at 421-430 channels and 0-40 lights; K3's window
-    (check_k3_window): the refusal at k = 159, where K3's bytes with its
-    static ones (cudaFuncGetAttributes) pass the card's opt-in limit."""
+    vr_bake_radiance_plan at 421-430 channels and 0-40 lights (past K2's
+    and K5's region edge, k = 52, their region_global form reads the suns
+    from device memory: gen_global); K3's window (k3_window_form): its
+    region_shared form's bytes with its static ones (cudaFuncGetAttributes)
+    pass the card's opt-in limit at k = 159, where the mirror names the
+    region_global form and a forced region_shared is refused."""
     import ctypes
 
     def of(name, entry, *args, n=1):
@@ -4491,6 +4516,10 @@ def shared_form_mirrors(ff, sca, cuda, tables) -> None:
         except ValueError:
             return -1
 
+    def region_of(kernel, k):
+        name = {"K2": "shadow_scatter", "K5": "shadow_blend"}[kernel]
+        return of(name, f"vr_{name}_region_form_of", k)[0]
+
     bad, n_rows = [], 0
     rule_of = {0: "shared", 1: "gen_global", -1: "refused"}
     for k in (4, 0, 8, 25, 51, 52):
@@ -4504,7 +4533,11 @@ def shared_form_mirrors(ff, sca, cuda, tables) -> None:
                     ("K7", of("dir_shadow", "vr_dir_shadow_sun_form_of",
                               nd))):
                 want = mirror(kernel, nd, nn, k)
-                # the launcher names shared (fixed or general) or global
+                # the launcher names shared (fixed or general) or global;
+                # past K2's and K5's region edge their region_global form,
+                # whose suns are in device memory
+                if kernel != "K7" and region_of(kernel, k) == 1:
+                    got = (1,)
                 same = got[0] == (-1 if want < 0 else int(want == 2))
                 n_rows += 1
                 if not same:
@@ -4524,31 +4557,42 @@ def shared_form_mirrors(ff, sca, cuda, tables) -> None:
     if bad:
         raise AssertionError(f"the shared-memory form mirrors disagree: "
                              f"{bad}")
-    # K3's window: at k = 159 its dynamic shared memory and its static
-    # arrays (cudaFuncGetAttributes) pass the card's opt-in limit, where its
-    # launcher's cudaFuncSetAttribute would fail (not provoked here: the
-    # library would keep that error as its last); forced_shared_holds
-    # launches k = 158
+    # K3's window: at k = 159 its region_shared form's dynamic shared
+    # memory and its static arrays (cudaFuncGetAttributes) pass the card's
+    # opt-in limit, where its launcher's cudaFuncSetAttribute would fail
+    # (not provoked here: the library would keep that error as its last):
+    # the mirror names the region_global form there, as the launcher's
+    # rule does, and refuses a forced region_shared before any launch;
+    # forced_shared_holds launches k = 158
     w, h, d = 40, 24, 16
     t = dataclasses.replace(tables, grid_whd=(w, h, d), h_glob=h, k=159)
     sc = torch.zeros((4, d, h, w), device="cuda")
     acc = torch.zeros((4, d, h, w), device="cuda")
+    before = cuda.LAUNCHES["integrate_blend"]
     try:
-        ff.integrate_blend(t, sc, acc)
+        ff.integrate_blend(t, sc, acc, form="region_shared")
         refused = ""
     except ValueError as e:
         refused = str(e)
-    static = {a["shared_bytes"] for a in
-              cuda.kernel_attrs("integrate_blend").values()}
+    refused = refused if cuda.LAUNCHES["integrate_blend"] == before else ""
+    rules = {k: (ff.k3_window_form(k), of("integrate_blend",
+                                          "vr_integrate_blend_region_form_of",
+                                          k)[0]) for k in (158, 159)}
+    attrs = cuda.kernel_attrs("integrate_blend")
+    static = {attrs[n]["shared_bytes"] for n in
+              cuda.ATTR_KERNELS["integrate_blend"][:2]}
     optin = getattr(torch.cuda.get_device_properties(0),
                     "shared_memory_per_block_optin", None)
     log(f"# K3's window: at k = 158 {ff.k3_shared_bytes(158)} dynamic + "
         f"{ff.K3_STATIC_SHARED} static bytes; at k = 159 "
-        f"({ff.k3_shared_bytes(159)} dynamic) the wrapper refuses "
-        f"({refused!r}); the kernels' static bytes {sorted(static)}, the "
-        f"card's opt-in limit {optin}")
+        f"({ff.k3_shared_bytes(159)} dynamic) the wrapper refuses a forced "
+        f"region_shared ({refused!r}); the mirror's and the launcher's "
+        f"region forms {json.dumps(rules)}; the region_shared kernels' "
+        f"static bytes {sorted(static)}, the card's opt-in limit {optin}")
     if not refused or static != {ff.K3_STATIC_SHARED} \
-            or optin not in (None, MAX_SHARED_BYTES):
+            or optin not in (None, MAX_SHARED_BYTES) \
+            or rules != {158: ("region_shared", 0),
+                         159: ("region_global", 1)}:
         raise AssertionError("K3's window mirror disagrees with the kernel "
                              "or the card at k = 159")
 
@@ -4568,7 +4612,8 @@ def forced_shared_holds(renderers, runs, scene, many_rows, cuda) -> dict:
     frame 4 at 9 suns and 9 fBm channels (240x135x128): each = the general
     form bit for bit, its launch counted under its form, timed in turns
     against the general form (general, forced, forced, general); and K3 at
-    k = 158, the widest window it takes, against its twin. Returns
+    k = 158, the widest window of its region_shared form, against its
+    twin. Returns
     {(kernel, mode): row}; each row shares the general form's work, twin
     error and plain time (many_suns_holds), the two being equal."""
     from volumetricrenderer_tpu_torch.ops import dir_shadow as ds
@@ -4623,8 +4668,10 @@ def forced_shared_holds(renderers, runs, scene, many_rows, cuda) -> dict:
             label = f"{kernel} {mode} {index}".replace("  ", " ")
             log(f"# {label}: gen_global forced = the general form bit for "
                 f"bit: {same}; launches by form {json.dumps(moved)}")
-            if not same or moved != {"general": 1, "gen_global": 1,
-                                     index: 2}:
+            want_moved = {"general": 1, "gen_global": 1, index: 2}
+            if kernel in cuda.REGION_SOURCES:
+                want_moved["region_shared"] = 2
+            if not same or moved != want_moved:
                 raise AssertionError(f"{label}: gen_global differs from the "
                                      f"general form, or the forms {moved}")
             del got, want
@@ -4635,14 +4682,15 @@ def forced_shared_holds(renderers, runs, scene, many_rows, cuda) -> dict:
             row(kernel, "_".join(x for x in ("gen_global", mode, index) if x),
                 SHARED_GEN_ROWS.get(kernel, f"general_{mode}"), glob_ms,
                 gen_ms, "the general form, bit for bit")
-    # K3 at the widest window it takes (k = 158, check_k3_window), on the
-    # same frame's scatter planes and history
+    # K3 at the widest window its region_shared form takes (k = 158,
+    # k3_window_form), on the same frame's scatter planes and history
     acc = prev.prev_accumulation.float().contiguous()
     sc = ff.shadow_scatter(t, prev_sh, bake)[1]
     t158 = dataclasses.replace(t, k=158)
     compare("integrate_blend", ff.integrate_blend(t158, sc, acc),
             ff.integrate_blend_plain(t158, sc, acc),
-            label="k = 158, the widest window K3 takes, many_suns' frame 4")
+            label="k = 158, the widest window of K3's region_shared form, "
+                  "many_suns' frame 4")
     del sc, acc
     # K1: its chunked form forced with 4, 0 and the most that fit staged
     want = ff.bake_radiance(t)
@@ -4968,6 +5016,344 @@ def shared_edge_paths(cfg, scene, renderers, runs, scene_color, view_depth,
     del prev, t, t2, p_sh, bake, bake2
     torch.cuda.empty_cache()
     done(name)
+    return rows
+
+
+# The region forms past a block's shared memory (region_edge_paths): the
+# first window at which each source's launcher takes its region_global
+# form (the reprojection offsets in device memory); K11's, which refuses
+# it; and the crossing paths through VolumetricRenderer: (config changes
+# from FULL_CONFIG, reproj_window, frames, kernels of the path)
+REGION_EDGE = {"shadow_scatter": 52, "shadow_blend": 52, "temporal_blend": 52,
+               "integrate_blend": 159}
+K11_EDGE = 108
+REGION_PATHS = {
+    "fused_k52": ({}, 52, 2, FUSED_KERNELS),
+    "fused_k159": ({}, 159, 2, FUSED_KERNELS),
+    "staged_k52": (STAGED, 52, 2, STAGED_KERNELS),
+    "map_dir_k52": (MAP_DIR, 52, 2, MAP_DIR_KERNELS),
+    "history_k107": (HISTORY, K11_EDGE - 1, 2, PATHS["history"][2]),
+}
+
+
+def region_form_mirrors(ff, tmp, wp, cuda) -> None:
+    """The region-form mirrors against the launchers' own rules
+    (vr_<source>_region_form_of) at windows around each edge:
+    ops/temporal.region_form for K2, K5 and K10 (52), ops/frame_fused.
+    k3_window_form for K3 (159); and K11, which has no region_global form:
+    its region's bytes (vr_windowed_warp_geometry = ops/warp.
+    k11_shared_bytes) within a block's shared memory at k = 107 and past it
+    at 108, where the wrapper refuses by name before any launch."""
+    import ctypes
+
+    def of(name, entry, *args, n=1):
+        buf = (ctypes.c_int * n)()
+        getattr(cuda.lib(name), entry)(*args, ctypes.cast(buf,
+                                                          ctypes.c_void_p))
+        return tuple(buf)
+
+    mirror = {"shadow_scatter": lambda k: tmp.region_form("K2", k),
+              "shadow_blend": lambda k: tmp.region_form("K5", k),
+              "temporal_blend": lambda k: tmp.region_form("K10", k),
+              "integrate_blend": ff.k3_window_form}
+    bad, n_rows = [], 0
+    for src, fn in mirror.items():
+        for k in (0, 4, 25, 51, 52, 53, 107, 158, 159, 160, 400):
+            got = of(src, f"vr_{src}_region_form_of", k)[0]
+            want = cuda.REGION_FORMS.index(fn(k))
+            n_rows += 1
+            if got != want or (want == 1) != (k >= REGION_EDGE[src]):
+                bad.append((src, k, got, want))
+    log(f"# the region forms: {n_rows} cases of region_form (K2, K5, K10) "
+        f"and k3_window_form (K3) against the launchers' rules (0 "
+        f"region_shared, 1 region_global), disagreeing: {bad}")
+    if bad:
+        raise AssertionError(f"the region-form mirrors disagree: {bad}")
+    geo = {k: of("windowed_warp", "vr_windowed_warp_geometry", k, n=3)[2]
+           for k in (K11_EDGE - 1, K11_EDGE)}
+    vol = torch.zeros((4, 16, 15, 16), device="cuda")
+    tgt = torch.zeros((16, 15, 16), device="cuda")
+    before = cuda.LAUNCHES["windowed_warp"]
+    try:
+        wp.windowed_warp(vol, tgt, tgt, tgt, K11_EDGE)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    launched = cuda.LAUNCHES["windowed_warp"] - before
+    fits = {k: b + tmp.TILE_STATIC_SHARED <= MAX_SHARED_BYTES
+            for k, b in geo.items()}
+    log(f"# K11 at k = {K11_EDGE - 1} and {K11_EDGE}: {json.dumps(geo)} "
+        f"bytes of region (fits beside its static terms: "
+        f"{json.dumps(fits)}); at {K11_EDGE} the wrapper refuses "
+        f"({refused!r}), launches {launched}")
+    if "K11's region does not fit" not in refused or launched \
+            or fits != {K11_EDGE - 1: True, K11_EDGE: False} \
+            or any(b != wp.k11_shared_bytes(k) for k, b in geo.items()):
+        raise AssertionError("K11's window mirror disagrees with the "
+                             "launcher at k = 108")
+
+
+def forced_region_holds(renderers, runs, scene, demo, arm_work,
+                        cuda) -> dict:
+    """K2 (radiance, rays, baked), K5 and K10 (weight, alpha) forced into
+    their region_global form at k = 4 and 51, K3 at k = 4 and 158 (the
+    region_shared forms' widest windows), on the inputs of the fused
+    path's frame 4 at 240x135x128 (the rays and baked modes on
+    fused_exact's and fused_vis's tables of that frame; K10 blending the
+    shadow and accumulation histories into half of each), and K2
+    (radiance) on demo_full's frame 4 and K5 on demo_exact_hf's frame 2
+    (demo_scene: the terrain arm's instantiations; their bounds main()'s
+    terrain rows', arm_work): each = the region_shared form bit for bit, its
+    launches counted under its region form and the pre-pass, held against
+    its twin at that window and timed in turns against the region_shared
+    form (shared, global, global, shared). Returns {(kernel, mode): row of
+    the kernels line}."""
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import visibility as vis
+    prev = runs["fused"][1][3]
+    t4 = renderers["fused"].frame_tables(prev, scene, 0.3)[0]
+    xt4 = renderers["fused_exact"].frame_tables(prev, scene, 0.3)[0]
+    vt4 = renderers["fused_vis"].frame_tables(prev, scene, 0.3)[0]
+    p_sh = prev.prev_shadow.float().contiguous()
+    acc = prev.prev_accumulation.float().contiguous()
+    bake = ff.bake_radiance(t4)
+    vvol = vis.bake_visibility(vt4)
+    sc = ff.shadow_scatter(t4, p_sh, bake)[1]
+    cur_sh, cur_acc = 0.5 * p_sh, 0.5 * acc
+    d_prev = runs["demo_full"][1][3]
+    td = renderers["demo_full"].frame_tables(d_prev, demo, 0.3)[0]
+    d_sh = d_prev.prev_shadow.float().contiguous()
+    d_bake = ff.bake_radiance(td)
+    x_prev = runs["demo_exact_hf"][1][1]
+    tx = renderers["demo_exact_hf"].frame_tables(x_prev, demo, 0.1)[0]
+    x_sh = x_prev.prev_shadow.float().contiguous()
+    blend = lambda t, prv, cur, mode, f: tmp.temporal_blend(
+        t.sbpar if mode == "weight" else t.abpar, prv, cur, t.grid_whd,
+        t.h_glob, t.k, mode, form=f)
+    blend_plain = lambda t, prv, cur, mode: tmp.temporal_blend_plain(
+        t.sbpar if mode == "weight" else t.abpar, prv, cur, t.grid_whd,
+        t.h_glob, t.k, mode)
+    # (kernel, mode) -> (fn(tables, form), twin(tables), tables, work)
+    cases = {
+        ("shadow_scatter", "radiance"): (
+            lambda t, f: ff.shadow_scatter(t, p_sh, bake, form=f),
+            lambda t: ff.shadow_scatter_plain(t, p_sh, bake), t4,
+            fused_work(t4, "shadow_scatter")),
+        ("shadow_scatter", "rays"): (
+            lambda t, f: ff.shadow_scatter(t, p_sh, form=f),
+            lambda t: ff.shadow_scatter_plain(t, p_sh), xt4,
+            fused_work(xt4, "shadow_scatter", "rays")),
+        ("shadow_scatter", "baked"): (
+            lambda t, f: ff.shadow_scatter(t, p_sh, None, vvol, form=f),
+            lambda t: ff.shadow_scatter_plain(t, p_sh, None, vvol), vt4,
+            fused_work(vt4, "shadow_scatter", "baked")),
+        ("shadow_blend", ""): (
+            lambda t, f: sb.dir_shadow_blend(t, p_sh, form=f),
+            lambda t: sb.dir_shadow_blend_plain(t, p_sh), t4,
+            fused_work(t4, "shadow_blend")),
+        ("temporal_blend", "weight"): (
+            lambda t, f: blend(t, p_sh, cur_sh, "weight", f),
+            lambda t: blend_plain(t, p_sh, cur_sh, "weight"), t4,
+            blend_work(tuple(p_sh.shape), "temporal_blend")),
+        ("temporal_blend", "alpha"): (
+            lambda t, f: blend(t, acc, cur_acc, "alpha", f),
+            lambda t: blend_plain(t, acc, cur_acc, "alpha"), t4,
+            blend_work(tuple(acc.shape), "temporal_blend")),
+        ("integrate_blend", ""): (
+            lambda t, f: ff.integrate_blend(t, sc, acc, form=f),
+            lambda t: ff.integrate_blend_plain(t, sc, acc), t4,
+            fused_work(t4, "integrate_blend")),
+        ("shadow_scatter", "terrain"): (
+            lambda t, f: ff.shadow_scatter(t, d_sh, d_bake, form=f),
+            lambda t: ff.shadow_scatter_plain(t, d_sh, d_bake), td,
+            arm_work[("shadow_scatter", "terrain")]),
+        ("shadow_blend", "terrain"): (
+            lambda t, f: sb.dir_shadow_blend(t, x_sh, form=f),
+            lambda t: sb.dir_shadow_blend_plain(t, x_sh), tx,
+            arm_work[("shadow_blend", "terrain")]),
+    }
+    as_tuple = lambda v: v if isinstance(v, tuple) else (v,)
+    rows = {}
+    for (kernel, mode), (fn, twin, t0, work) in cases.items():
+        for k in (4, REGION_EDGE[kernel] - 1):
+            t = dataclasses.replace(t0, k=k)
+            label = f"{kernel} {mode} k = {k}".replace("  ", " ")
+            torch.cuda.synchronize()
+            before = cuda.region_launches(kernel)
+            want = as_tuple(fn(t, None))
+            got = as_tuple(fn(t, "region_global"))
+            torch.cuda.synchronize()
+            moved = tuple(a - b for a, b in
+                          zip(cuda.region_launches(kernel), before))
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            log(f"# {label}: region_global forced = the region_shared form "
+                f"bit for bit: {same}; launches (region_shared, "
+                f"region_global, pre-pass) {moved}")
+            if not same or moved != (1, 1, 1):
+                raise AssertionError(f"{label}: region_global differs from "
+                                     f"the region_shared form, or the forms "
+                                     f"{moved}")
+            del want
+            plain, plain_ms = timed_plain(lambda: as_tuple(twin(t)))
+            err = max(compare(kernel, g, p_,
+                              label=f"{label}, region_global forced")
+                      for g, p_ in zip(got, plain))
+            del got, plain
+            slow = mode in ("rays", "baked")
+            sh_ms, gl_ms = in_turns(lambda: fn(t, None),
+                                    lambda: fn(t, "region_global"),
+                                    3 if slow else 10)
+            b_ms, b_by = bound(*work)
+            m = "_".join(x for x in ("region_global", f"k{k}", mode) if x)
+            rows[(kernel, m)] = {
+                "launches": 0, "paths": [], "max_abs_err": err,
+                "ms": sum(gl_ms) / 2, "ms_turns": gl_ms,
+                "shared_ms": sum(sh_ms) / 2, "shared_ms_turns": sh_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+                "held": "the region_shared form, bit for bit; the twin"}
+            log(f"# {kernel}, {m}: {gl_ms[0]:.4f} {gl_ms[1]:.4f} ms/call, "
+                f"the region_shared form {sh_ms[0]:.4f} {sh_ms[1]:.4f} "
+                f"({sum(gl_ms) / sum(sh_ms):.3f}x), bound {b_ms:.4f} ms by "
+                f"{b_by}, twin {plain_ms:.1f} ms, max abs err {err:.3e}")
+    return rows
+
+
+def region_crossings(cfg, scene, scene_color, view_depth, bakes,
+                     cuda) -> dict:
+    """REGION_PATHS through VolumetricRenderer, each from a fresh state
+    through to K4 with its launches, index forms and region forms counted
+    (every source past its REGION_EDGE in its region_global form, wide,
+    with one pre-pass a launch; every other launch narrow), then the last
+    frame's region_global launches held against their twins on the whole
+    grid: K2 (fused_k52, fused_k159; = K5 then K6 bit for bit, both in
+    their region_global form), K3 (fused_k159; fused_k52's region_shared
+    launch too), K5 (staged_k52, history_k107), K10's weight mode
+    (map_dir_k52) and alpha mode (history_k107, where K11's two launches
+    take their region_shared form at its widest window, also held).
+    Returns {(kernel, mode): row of the kernels line}."""
+    from volumetricrenderer_tpu_torch import VolumetricRenderer
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import scatter as sca
+    from volumetricrenderer_tpu_torch.ops import shadow_blend as sb
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import warp as wp
+    rows = {}
+    for name, (kw, k, frames, kernels) in REGION_PATHS.items():
+        expect = dict(x if isinstance(x, tuple) else (x, 1) for x in kernels)
+        past = {s for s, edge in REGION_EDGE.items() if k >= edge}
+        forms = {s: (0, frames * e) if s in past else (frames * e, 0)
+                 for s, e in expect.items() if s in cuda.INDEX_SOURCES}
+        want_region = {
+            s: {"region_global": frames * e, "region_pass": frames * e}
+            if s in past else {"region_shared": frames * e}
+            for s, e in expect.items() if s in cuda.REGION_SOURCES}
+        r = VolumetricRenderer(dataclasses.replace(cfg, reproj_window=k,
+                                                   **kw))
+        before = {s: cuda.region_launches(s) for s in cuda.REGION_SOURCES}
+        _, _, rec, _, _ = drive_wide(
+            name, r, scene, scene_color, view_depth, frames, expect, forms,
+            cuda, shadow_data=bakes["map_dir"] if kw is MAP_DIR else None)
+        got_region = {}
+        for s in cuda.REGION_SOURCES:
+            moved = {f: a - b for f, a, b in zip(
+                cuda.REGION_COUNTS, cuda.region_launches(s), before[s])
+                if a != b}
+            if moved:
+                got_region[s] = moved
+        log(f"# {name}: k = {k}, launches by region form "
+            f"{json.dumps(got_region)}")
+        if got_region != want_region:
+            raise AssertionError(f"{name}: launches by region form "
+                                 f"{got_region}, not {want_region}")
+
+        def row(kernel, fn, work, err, plain_ms, n=10):
+            rows[(kernel, f"region_global_{name}")] = wide_row(
+                kernel, f"region_global_{name}", fn, n, work, err, plain_ms,
+                frames, "the twin, whole grid")
+
+        if "shadow_scatter" in rec:
+            (t, p_sh, bake, vis_), (sh, sc) = rec["shadow_scatter"]
+            want, plain_ms = timed_plain(lambda: ff.shadow_scatter_plain(
+                t, p_sh, bake, vis_))
+            err = max(compare("shadow_scatter", a, b, label=f"{name}, {lab}")
+                      for a, b, lab in zip((sh, sc), want,
+                                           ("history", "planes")))
+            del want
+            sh_b = sb.dir_shadow_blend(t, p_sh)
+            same = torch.equal(sh_b, sh) and torch.equal(
+                sca.scatter_local(t, sh_b, bake, vis_), sc)
+            log(f"# {name}: K2's history and planes = K5 then K6 bit for "
+                f"bit (K5 region_global): {same}")
+            if not same:
+                raise AssertionError(f"{name}: K2 differs from K5 then K6")
+            del sh_b, sh, sc
+            row("shadow_scatter", lambda: ff.shadow_scatter(t, p_sh, bake,
+                                                            vis_),
+                fused_work(t, "shadow_scatter"), err, plain_ms)
+        if "integrate_blend" in rec and name.startswith("fused"):
+            (t, sc, acc), out = rec["integrate_blend"]
+            want, plain_ms = timed_plain(
+                lambda: ff.integrate_blend_plain(t, sc, acc))
+            err = compare("integrate_blend", out, want,
+                          label=f"{name}, k = {k}")
+            del want, out
+            if "integrate_blend" in past:
+                row("integrate_blend",
+                    lambda: ff.integrate_blend(t, sc, acc),
+                    fused_work(t, "integrate_blend"), err, plain_ms)
+        if "shadow_blend" in rec:
+            (t, p_sh), sh = rec["shadow_blend"]
+            want, plain_ms = timed_plain(
+                lambda: sb.dir_shadow_blend_plain(t, p_sh))
+            err = compare("shadow_blend", sh, want, label=f"{name}, k = {k}")
+            del want, sh
+            row("shadow_blend", lambda: sb.dir_shadow_blend(t, p_sh),
+                fused_work(t, "shadow_blend"), err, plain_ms)
+        if "temporal_blend" in rec:
+            args, out = rec["temporal_blend"]
+            want, plain_ms = timed_plain(
+                lambda: tmp.temporal_blend_plain(*args))
+            err = compare("temporal_blend", out, want,
+                          label=f"{name}, {args[6]} mode, k = {k}")
+            del want, out
+            row("temporal_blend", lambda: tmp.temporal_blend(*args),
+                blend_work(tuple(args[1].shape), "temporal_blend"), err,
+                plain_ms)
+        if "windowed_warp" in rec:
+            args, out = rec["windowed_warp"]
+            compare("windowed_warp", out, wp.windowed_warp_plain(*args),
+                    label=f"{name}, k = {k}, K11's widest window")
+            del out
+        del rec
+        torch.cuda.empty_cache()
+    return rows
+
+
+def region_edge_paths(cfg, scene, demo, renderers, runs, scene_color,
+                      view_depth, bakes, arm_work, cuda) -> dict:
+    """The region forms past a block's shared memory: the mirrors
+    (region_form_mirrors), the forced holds at 240x135x128
+    (forced_region_holds), then the crossings (region_crossings). Returns
+    {(kernel, mode): row of the kernels line}."""
+    from volumetricrenderer_tpu_torch.ops import frame_fused as ff
+    from volumetricrenderer_tpu_torch.ops import temporal as tmp
+    from volumetricrenderer_tpu_torch.ops import warp as wp
+    t_phase = time.perf_counter()
+
+    def done(name):
+        log(f"# elapsed in the region phase "
+            f"{time.perf_counter() - t_phase:.1f} s: {name}")
+
+    region_form_mirrors(ff, tmp, wp, cuda)
+    rows = forced_region_holds(renderers, runs, scene, demo, arm_work,
+                               cuda)
+    done("mirrors and forced holds")
+    rows.update(region_crossings(cfg, scene, scene_color, view_depth, bakes,
+                                 cuda))
+    done("crossings")
     return rows
 
 
@@ -7308,6 +7694,10 @@ def main() -> int:
                                        scene_color, view_depth, many_rows,
                                        tables, cuda))
     done("the forms past a block's shared memory")
+    wide_rows.update(region_edge_paths(cfg, scene, demo, renderers, runs,
+                                       scene_color, view_depth, bakes,
+                                       arm_work, cuda))
+    done("the region forms past a block's shared memory")
 
     kernels = []
     for name in cuda.SOURCES:

@@ -205,11 +205,13 @@ def test_material_planes(setup):
             close(a, b, msg=f"material_planes out={k} noise={npl is None}")
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 4, 52, 159])
 @pytest.mark.parametrize("blend", ["shadow", "acc"])
 def test_reproj_offsets_and_warp(setup, k, blend):
     """_reproj_offsets per slice, and the port's separable warp of a random
-    history against the JAX windowed warp at the same targets."""
+    history against the JAX windowed warp at the same targets; k = 52 and
+    159 (the region_global forms' edges, past this grid's every axis) at
+    windows wider than the grid."""
     j, t, _, _, _, _ = setup
     jb, tb = (j["sbpar"], t["sbpar"]) if blend == "shadow" \
         else (j["abpar"], t["abpar"])

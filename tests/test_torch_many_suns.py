@@ -492,8 +492,12 @@ def test_sun_form_at_its_edges(kernel, k, edge):
 def test_sun_form_forced(kernel):
     """gen_global can be forced at any count whose region fits; fixed and
     general only where the counts take them, and an unknown name is
-    refused: each by name, before any launch. A region that does not fit
-    is refused in every form (check_region), but by K7, which has none."""
+    refused: each by name, before any launch. From the window whose region
+    does not fit (k = 52) K2's and K5's region_global form reads the suns'
+    inverse directions from device memory: gen_global at any count, fixed
+    and general refused by name; at k = 51 the counts' form, as with
+    region_global forced at k = 4 (gen_global) and region_shared forced
+    past the edge (refused). K7 has no region."""
     edge = _sun_edge(kernel, K)
     assert t_sca.sun_form(kernel, 1, 0, K, "gen_global") == "gen_global"
     assert t_sca.sun_form(kernel, 9, 9, K, "general") == "general"
@@ -508,8 +512,20 @@ def test_sun_form_forced(kernel):
     if kernel == "K7":
         assert t_sca.sun_form(kernel, 9, 0, 60) == "general"
     else:
-        with pytest.raises(ValueError, match="region"):
-            t_sca.sun_form(kernel, 9, 0, 60, "gen_global")
+        for k in (52, 60):
+            assert t_sca.sun_form(kernel, 9, 0, k) == "gen_global"
+            assert t_sca.sun_form(kernel, 1, 0, k, "gen_global") \
+                == "gen_global"
+            with pytest.raises(ValueError, match=f"{kernel}'s general form "
+                                                 "cannot take its "
+                                                 "region_global form"):
+                t_sca.sun_form(kernel, 9, 0, k, "general")
+        assert t_sca.sun_form(kernel, 9, 0, 51) == "general"
+        assert t_sca.sun_form(kernel, 1, 0, K, region="region_global") \
+            == "gen_global"
+        with pytest.raises(ValueError, match=f"{kernel}'s region does not "
+                                             "fit"):
+            t_sca.sun_form(kernel, 9, 0, 60, region="region_shared")
 
 
 @pytest.mark.parametrize("n_lights,edge", [(16, 426), (32, 422), (40, 422),

@@ -178,17 +178,29 @@ def test_largest_grid_under_32_bits_is_taken(tables):
 
 
 def test_k2_refuses_a_region_past_shared_memory(tables):
-    """A reprojection window whose region does not fit a block's 227 KB of
-    shared memory is refused by K2's wrapper; K6 has no region."""
+    """From the first reprojection window whose region does not fit a
+    block's 227 KB of shared memory (k = 52) the mirror names K2's
+    region_global form (the offsets in device memory) and one less the
+    region_shared form; either way the wrapper goes on to refuse only the
+    meta tensors (not on CUDA). Forcing region_shared past the edge, or the
+    narrow index form with region_global, is refused by name; K6 has no
+    region."""
     big = next(k for k in range(1, 100)
                if t_ff.k2_shared_bytes(k) + t_tmp.TILE_STATIC_SHARED
                > t_tmp.MAX_SHARED_BYTES)
-    t, shadow, bake = _at(tables, (16, 15, 16), k=big)
-    with pytest.raises(ValueError, match="shared memory"):
-        t_ff.shadow_scatter(t, shadow, bake)
-    t, shadow, bake = _at(tables, (16, 15, 16), k=big - 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        t_ff.shadow_scatter(t, shadow, bake)
+    assert big == 52
+    for k, want in ((big - 1, "region_shared"), (big, "region_global")):
+        assert t_tmp.region_form("K2", k) == want
+        t, shadow, bake = _at(tables, (16, 15, 16), k=k)
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ff.shadow_scatter(t, shadow, bake)
+    with pytest.raises(ValueError, match="K2's region does not fit a "
+                                         "block's shared memory"):
+        t_ff.shadow_scatter(t, shadow, bake, form="region_shared")
+    with pytest.raises(ValueError, match="K2's region_global form has no "
+                                         "narrow"):
+        t_ff.shadow_scatter(t, shadow, bake,
+                            form=("narrow", "region_global"))
 
 
 # ---- K5 shadow_blend: K2's tile without the scatter --------------------
@@ -237,19 +249,33 @@ def test_k5_refuses_indices_past_32_bits(tables, grid):
 
 
 def test_k5_refuses_a_region_past_shared_memory(tables):
-    """A reprojection window whose region does not fit a block's shared
-    memory is refused by K5's wrapper; one less goes on to refuse only the
-    meta tensor (not on CUDA), as does the largest grid under 32 bits."""
+    """From the first reprojection window whose region does not fit a
+    block's shared memory (k = 52, K2's) the mirror names K5's
+    region_global form and one less region_shared; the wrapper goes on to
+    refuse only the meta tensor (not on CUDA) at both, as at the largest
+    grid under 32 bits and at region_global forced at k = 4. Forcing
+    region_shared past the edge, or a sun form other than gen_global with
+    region_global, is refused by name."""
     big = next(k for k in range(1, 100)
                if t_sb.k5_shared_bytes(k) + t_tmp.TILE_STATIC_SHARED
                > t_tmp.MAX_SHARED_BYTES)
-    t, prev = _history(tables, (16, 15, 16), k=big)
-    with pytest.raises(ValueError, match="shared memory"):
-        t_sb.dir_shadow_blend(t, prev)
-    for grid, k in (((16, 15, 16), big - 1), ((2048, 2047, 128), 4)):
+    assert big == 52
+    for grid, k, form in (((16, 15, 16), big, None),
+                          ((16, 15, 16), big - 1, None),
+                          ((2048, 2047, 128), 4, None),
+                          ((16, 15, 16), 4, "region_global")):
         t, prev = _history(tables, grid, k=k)
+        assert t_tmp.region_form("K5", k, form) == (
+            "region_shared" if k < big and form is None
+            else "region_global")
         with pytest.raises(ValueError, match="CUDA"):
-            t_sb.dir_shadow_blend(t, prev)
+            t_sb.dir_shadow_blend(t, prev, form=form)
+    t, prev = _history(tables, (16, 15, 16), k=big)
+    with pytest.raises(ValueError, match="K5's region does not fit"):
+        t_sb.dir_shadow_blend(t, prev, form="region_shared")
+    with pytest.raises(ValueError, match="K5's fixed form cannot take its "
+                                         "region_global form"):
+        t_sb.dir_shadow_blend(t, prev, form="fixed")
 
 
 # ---- K10 temporal_blend and K11 windowed_warp: tiles of one slice --------
@@ -393,9 +419,13 @@ def test_k10_k11_refuse_indices_past_32_bits(shape):
 
 @pytest.mark.parametrize("kernel", ["K10", "K11"])
 def test_k10_k11_refuse_a_region_past_shared_memory(kernel):
-    """A reprojection window whose region does not fit a block's 227 KB of
-    shared memory is refused by the wrapper; one less goes on to refuse
-    only the meta tensors (not on CUDA)."""
+    """From the first reprojection window whose region does not fit a
+    block's 227 KB of shared memory K10's mirror names its region_global
+    form (k = 52; one less region_shared) and its wrapper goes on to refuse
+    only the meta tensors (not on CUDA) at both, as at region_global forced
+    at k = 4; forced region_shared past the edge is refused by name. K11,
+    which has no other form, refuses k = 108 by name, and one less goes on
+    to refuse only the meta tensors."""
     shared = t_tmp.k10_shared_bytes if kernel == "K10" \
         else t_wp.k11_shared_bytes
     big = next(k for k in range(1, 400)
@@ -405,12 +435,23 @@ def test_k10_k11_refuse_a_region_past_shared_memory(kernel):
     vol = torch.empty((4, 16, 15, 16), device="meta")
     tgt = torch.empty((16, 15, 16), device="meta")
     bpar = torch.empty((1, 24), device="meta")
-    run = (lambda k: t_tmp.temporal_blend(bpar, vol, vol, (16, 15, 16), 15,
-                                          k, "alpha")) \
+    run = (lambda k, form=None: t_tmp.temporal_blend(
+        bpar, vol, vol, (16, 15, 16), 15, k, "alpha", form=form)) \
         if kernel == "K10" else \
         (lambda k: t_wp.windowed_warp(vol, tgt, tgt, tgt, k))
-    with pytest.raises(ValueError, match="shared memory"):
-        run(big)
+    if kernel == "K10":
+        assert t_tmp.region_form("K10", big) == "region_global"
+        assert t_tmp.region_form("K10", big - 1) == "region_shared"
+        for k, form in ((big, None), (4, "region_global")):
+            with pytest.raises(ValueError, match="CUDA"):
+                run(k, form)
+        with pytest.raises(ValueError, match="K10's region does not fit a "
+                                             "block's shared memory"):
+            run(big, "region_shared")
+    else:
+        with pytest.raises(ValueError, match="K11's region does not fit a "
+                                             "block's shared memory"):
+            run(big)
     with pytest.raises(ValueError, match="CUDA"):
         run(big - 1)
 

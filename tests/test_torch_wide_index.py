@@ -847,15 +847,142 @@ def test_forced_form_past_shared_memory_is_refused(tables, kernel, forced,
                                        (200, True)])
 def test_k3_refuses_a_window_past_shared_memory(tables, k, refused):
     """K3's offsets grow with the reprojection window: from k = 159 its
-    dynamic shared memory no longer fits beside its 20,992 static bytes,
-    and its launcher's cudaFuncSetAttribute would fail. The wrapper refuses
-    such a window by name before any launch; k = 158 goes on to refuse
-    only the meta tensors (not on CUDA)."""
+    dynamic shared memory no longer fits beside its 20,992 static bytes
+    (`refused`: its launcher's cudaFuncSetAttribute would fail). There the
+    mirror (ops/frame_fused.k3_window_form) names the region_global form,
+    the offsets in device memory, and up to k = 158 region_shared; either
+    way the wrapper goes on to refuse only the meta tensors (not on CUDA),
+    as region_global forced at any k does. Forcing region_shared past the
+    edge is refused by name before any launch."""
     assert t_ff.K3_STATIC_SHARED == 20992
     assert t_ff.k3_shared_bytes(k) == 128 * (70 + 10 * k)
     t = dataclasses.replace(_with(tables, meta=True), k=k)
     w, h, d = t.grid_whd
     planes = torch.empty((4, d, h, w), device="meta")
+    assert t_ff.k3_window_form(k) == ("region_global" if refused
+                                      else "region_shared")
+    for form in (None, "region_global", ("wide", "region_global")):
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ff.integrate_blend(t, planes, planes, form=form)
     with pytest.raises(ValueError,
                        match="K3's .* shared memory" if refused else "CUDA"):
-        t_ff.integrate_blend(t, planes, planes)
+        t_ff.integrate_blend(t, planes, planes, form="region_shared")
+
+
+# ---- the region forms past a block's shared memory: K2, K5 and K10 read
+# their reprojection offsets from device memory from k = 52, K3 from
+# k = 159 (region_global), each in its wide index form
+
+# (kernel, reprojection window, forced form, entry point)
+REGION_CASES = [
+    ("K2 radiance", 52, None, "vr_shadow_scatter_region"),
+    ("K2 radiance", 51, None, "vr_shadow_scatter_form"),
+    ("K2 rays", 4, "region_global", "vr_shadow_scatter_region"),
+    ("K2 baked", 400, ("wide", "region_global", "gen_global"),
+     "vr_shadow_scatter_region"),
+    ("K5", 52, None, "vr_shadow_blend_region"),
+    ("K5", 51, None, "vr_shadow_blend_form"),
+    ("K5", 4, ("region_global", "gen_global"), "vr_shadow_blend_region"),
+    ("K10 weight", 52, None, "vr_temporal_blend_region"),
+    ("K10 alpha", 400, None, "vr_temporal_blend_region"),
+    ("K10 alpha", 51, None, "vr_temporal_blend_form"),
+    ("K10 weight", 4, ("region_global", "wide"), "vr_temporal_blend_region"),
+    ("K3", 159, None, "vr_integrate_blend_region"),
+    ("K3", 158, None, "vr_integrate_blend_form"),
+    ("K3", 4, "region_global", "vr_integrate_blend_region"),
+]
+
+
+@pytest.mark.parametrize("kernel,k,forced,entry", REGION_CASES)
+def test_wrappers_launch_region_global(tables, kernel, k, forced, entry,
+                                       monkeypatch):
+    """No reprojection window is refused by K2, K5, K10 or K3: past the
+    edge of their shared memory (or forced with `form=`) each launches its
+    region_global entry point with the declared argument count and a
+    [4, D, H, W] plane for the offsets as its last pointer (K2 and K5: the
+    [n_dir, 3] buffer of the suns' inverse directions before it); K10's
+    9 weight channels are three launches that share one plane, the first
+    filling it. One window less launches the shared form's entry."""
+    calls, seen = _stub_launch_keeping(monkeypatch)
+    t = dataclasses.replace(_with(tables, meta=True), k=k)
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    prev = meta(t.n_dir, d, h, w)
+    if kernel == "K5":
+        t_sb.dir_shadow_blend(t, prev, form=forced)
+    elif kernel == "K3":
+        planes = meta(4, d, h, w)
+        t_ff.integrate_blend(t, planes, planes, form=forced)
+    elif kernel.startswith("K10"):
+        mode = kernel.split()[1]
+        vol = meta(9 if mode == "weight" else 4, d, h, w)
+        t_tmp.temporal_blend(meta(1, 24), vol, vol, (w, h, d), h, k, mode,
+                             form=forced)
+    else:
+        source = kernel.split()[1]
+        low = {"radiance": meta(3 + t.n_noise, dl, hl, wl),
+               "baked": meta(4, dl, hl, wl)}.get(source)
+        t_ff.shadow_scatter(t, prev, None if source == "baked" else low,
+                            low if source == "baked" else None, form=forced)
+    name = {"K2": "shadow_scatter", "K5": "shadow_blend",
+            "K10": "temporal_blend", "K3": "integrate_blend"}[
+        kernel.split()[0]]
+    n_calls = 3 if kernel == "K10 weight" else 1
+    assert [(c[0], c[1]) for c in calls] == [(name, entry)] * n_calls
+    for _, _, args in calls:
+        assert len(args) + 1 == len(_declared(name, entry))
+    if not entry.endswith("_region"):
+        return
+    plane = [s_ for s_ in seen if tuple(s_.shape) == (4, d, h, w)
+             and s_.dtype == torch.float32 and s_ is not prev]
+    if kernel.startswith("K10"):
+        # bpar, prev, cur, out, plane per launch: fill on the first
+        assert [a[5] for _, _, a in calls] == [1] + [0] * (n_calls - 1)
+        assert all(seen[5 * i + 4] is seen[4] for i in range(n_calls))
+        assert tuple(seen[4].shape) == (4, d, h, w)
+    else:
+        assert seen[-1] is plane[-1]
+    if kernel.split()[0] in ("K2", "K5"):
+        assert tuple(seen[-2].shape) == (t.n_dir, 3)
+
+
+@pytest.mark.parametrize("kernel,forced,match", [
+    ("K2", ("narrow", "region_global"), "K2's region_global form has no "
+     "narrow"),
+    ("K2", ("general", "region_global"), "K2's general form cannot take"),
+    ("K5", ("fixed", "region_global"), "K5's fixed form cannot take"),
+    ("K5", "region_shared", "K5's region does not fit"),
+    ("K10", "region_shared", "K10's region does not fit"),
+    ("K10", ("narrow", "region_global"), "K10's region_global form has no "
+     "narrow"),
+    ("K3", "region_shared", "K3's .* shared memory"),
+    ("K3", ("region_global", "narrow"), "K3's region_global form has no "
+     "narrow"),
+    ("K3", ("region_global", "region_shared"), "K3: form")])
+def test_forced_region_form_is_refused(tables, kernel, forced, match,
+                                       monkeypatch):
+    """At k = 200, past every edge: forcing the region_shared form, the
+    narrow index form or a sun form other than gen_global with
+    region_global, or two region forms, raises ValueError naming the
+    kernel before any launch."""
+    calls, _ = _stub_launch_keeping(monkeypatch)
+    t = dataclasses.replace(_with(tables, meta=True), k=200)
+    w, h, d = t.grid_whd
+    wl, hl, dl = t.low_dims
+    meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match=match):
+        if kernel == "K2":
+            t_ff.shadow_scatter(t, meta(t.n_dir, d, h, w),
+                                meta(3 + t.n_noise, dl, hl, wl),
+                                form=forced)
+        elif kernel == "K5":
+            t_sb.dir_shadow_blend(t, meta(t.n_dir, d, h, w), form=forced)
+        elif kernel == "K10":
+            vol = meta(4, d, h, w)
+            t_tmp.temporal_blend(meta(1, 24), vol, vol, (w, h, d), h, 200,
+                                 "alpha", form=forced)
+        else:
+            planes = meta(4, d, h, w)
+            t_ff.integrate_blend(t, planes, planes, form=forced)
+    assert calls == []

@@ -975,12 +975,16 @@ __host__ __device__ __forceinline__ int region_floats(int tx, int ty, int k) {
 // kernels made K5 2% slower at the same registers and spills, so
 // tile_region stays as K2 and K5 were measured. Change the two together.
 // SG (gen_global, GEN only): the suns' inverse directions are in device
-// memory (fill_sun_inverses), not computed here.
+// memory (fill_sun_inverses), not computed here. RG (region_global, GEN and
+// SG only): the region's offsets are in device memory (fill_region_plane),
+// so step 1 stops after the tile's own lines and step 2 is not run.
 template <bool SCATTER, int TX, int TY, bool GEN = false, bool SG = false,
-          class I = int>
+          bool RG = false, class I = int>
 __device__ __forceinline__ void tile_region(const VrTables& T,
                                             TileTerms<TX, TY, I>& S,
                                             float* dyn_s, int z0 = 0) {
+  static_assert(!RG || (GEN && SG), "region_global reads its suns from "
+                "device memory too");
   constexpr int NT = TX * TY;
   const int w = T.w, h = T.h, d = T.d, k = T.k;
   const int nx = region_nx(TX, k), ny = region_ny(TY, k), nr = nx * ny;
@@ -1001,69 +1005,80 @@ __device__ __forceinline__ void tile_region(const VrTables& T,
     sun_inverses(T, tid, NT, dyn_s + region_floats(TX, TY, k));
   __syncthreads();
   constexpr int LINES = TileTerms<TX, TY>::LINES;
-  for (int j = tid; j < LINES + nx + ny; j += NT) {
-    if (j < LINES) {
+  if constexpr (RG) {
+    for (int j = tid; j < LINES; j += NT)
       if (SCATTER || !tile_line_unjittered<TX, TY>(j))
         tile_line(T, xt, yt, j, S);
-    } else if (j < LINES + nx) {
-      const int c = j - LINES;
-      rvx_s[c] = reproj_vx(sb, clampi(xt - k + c, 0, w - 1), S.vz_b, w);
-    } else {
-      const int r = j - LINES - nx;
-      rvy_s[r] = reproj_vy(sb, clampi(yt - k + r, 0, h - 1), S.vz_b,
-                           T.h_glob);
+    __syncthreads();
+  } else {
+    for (int j = tid; j < LINES + nx + ny; j += NT) {
+      if (j < LINES) {
+        if (SCATTER || !tile_line_unjittered<TX, TY>(j))
+          tile_line(T, xt, yt, j, S);
+      } else if (j < LINES + nx) {
+        const int c = j - LINES;
+        rvx_s[c] = reproj_vx(sb, clampi(xt - k + c, 0, w - 1), S.vz_b, w);
+      } else {
+        const int r = j - LINES - nx;
+        rvy_s[r] = reproj_vy(sb, clampi(yt - k + r, 0, h - 1), S.vz_b,
+                             T.h_glob);
+      }
     }
-  }
-  __syncthreads();
-  // 2. reproj_offsets(sbpar, ...) at every (row r, column c) of the region,
-  // at (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
-  // warp reads it
-  {
-    const int r = ty + k, c = tx + k, j = r * nx + c;
-    const Reproj o = reproj_view_l(sb, z, min(yt + ty, h - 1),
-                                   min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
-                                   S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k,
-                                   true);
-    ox_s[j] = o.ox;
-    oy_s[j] = o.oy;
-    oz_s[j] = o.oz;
-    ok_s[j] = o.success;
-  }
-  const int side = 2 * k + 1;       // the region's columns (rows) past the
-  const int n_side = TY * side;     // tile's, k before and k + 1 after it
-  for (int j = tid; j < n_side + side * nx; j += NT) {
-    if (j < n_side) {
-      const int r = j / side, e = j - r * side;
-      const int c = e < k ? e : TX + e;
-      const Reproj o = reproj_view_l(sb, z, min(yt + r, h - 1),
-                                     clampi(xt - k + c, 0, w - 1), rvx_s[c],
-                                     rvy_s[r + k], S.vz_b, S.lfpz_b, w, h, d,
-                                     T.h_glob, k, true);
-      oy_s[(r + k) * nx + c] = o.oy;
-      oz_s[(r + k) * nx + c] = o.oz;
-    } else {
-      const int q = j - n_side, e = q / nx, c = q - e * nx;
-      const int r = e < k ? e : TY + e;
-      oz_s[r * nx + c] =
-          reproj_view_l(sb, z, clampi(yt - k + r, 0, h - 1),
-                        clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
-                        S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k, true).oz;
+    __syncthreads();
+    // 2. reproj_offsets(sbpar, ...) at every (row r, column c) of the region,
+    // at (clamp(yt - k + r), clamp(xt - k + c)), each output only where the
+    // warp reads it
+    {
+      const int r = ty + k, c = tx + k, j = r * nx + c;
+      const Reproj o = reproj_view_l(sb, z, min(yt + ty, h - 1),
+                                     min(xt + tx, w - 1), rvx_s[c], rvy_s[r],
+                                     S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k,
+                                     true);
+      ox_s[j] = o.ox;
+      oy_s[j] = o.oy;
+      oz_s[j] = o.oz;
+      ok_s[j] = o.success;
     }
+    const int side = 2 * k + 1;       // the region's columns (rows) past the
+    const int n_side = TY * side;     // tile's, k before and k + 1 after it
+    for (int j = tid; j < n_side + side * nx; j += NT) {
+      if (j < n_side) {
+        const int r = j / side, e = j - r * side;
+        const int c = e < k ? e : TX + e;
+        const Reproj o = reproj_view_l(sb, z, min(yt + r, h - 1),
+                                       clampi(xt - k + c, 0, w - 1), rvx_s[c],
+                                       rvy_s[r + k], S.vz_b, S.lfpz_b, w, h, d,
+                                       T.h_glob, k, true);
+        oy_s[(r + k) * nx + c] = o.oy;
+        oz_s[(r + k) * nx + c] = o.oz;
+      } else {
+        const int q = j - n_side, e = q / nx, c = q - e * nx;
+        const int r = e < k ? e : TY + e;
+        oz_s[r * nx + c] =
+            reproj_view_l(sb, z, clampi(yt - k + r, 0, h - 1),
+                          clampi(xt - k + c, 0, w - 1), rvx_s[c], rvy_s[r],
+                          S.vz_b, S.lfpz_b, w, h, d, T.h_glob, k, true).oz;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // SG (gen_global, GEN only): the suns' inverse directions read from
 // sun_inv_g [n_dir, 3] in device memory, every thread of a warp at the same
-// address, where GEN reads them after the region.
+// address, where GEN reads them after the region. RG (region_global, GEN
+// and SG only): the warp's offsets read from region_g [4, D, H, W]
+// (fill_region_plane) at the froxel and at the taps' columns and rows,
+// where the shared forms read them from the region: the same values.
 template <bool ARMS, int TX, int TY, bool GEN = false, bool SG = false,
-          class I = int>
+          bool RG = false, class I = int>
 __device__ __forceinline__ void tile_blend(
     const VrTables& T, const float* __restrict__ prev_sh,
     float* __restrict__ out_sh, const TileTerms<TX, TY, I>& S,
     const float* dyn_s, int x, int y, I n, I i, float& wx, float& wy,
     float& wz, float* blended, int z0 = 0,
-    const float* __restrict__ sun_inv_g = nullptr) {
+    const float* __restrict__ sun_inv_g = nullptr,
+    const float* __restrict__ region_g = nullptr) {
   const int w = T.w, h = T.h, d = T.d, k = T.k;
   const int nx = region_nx(TX, k), nr = nx * region_ny(TY, k);
   const float* ox_s = dyn_s;
@@ -1076,7 +1091,25 @@ __device__ __forceinline__ void tile_blend(
   const float* sb = T.sbpar;
   // dir_shadow_slice: jittered world position, one ray per sun
   view_world(T.spar, S.vxj[tx], S.vyj[ty], S.vz_j, wx, wy, wz);
-  if constexpr (GEN) {  // each sun's ray, warp and blend in turn
+  if constexpr (RG) {  // GEN's loop, the offsets from region_g
+    const I row = ((I)z * h + y) * w;  // + cx: column cx of row y
+    const float swgt = sb[20] * __ldg(region_g + (3 * n + i));
+    const auto oy_at = [&](int cx) {
+      return __ldg(region_g + (n + row + cx));
+    };
+    const auto oz_at = [&](int, int cy, int cx) {
+      return __ldg(region_g + (2 * n + ((I)z * h + cy) * w + cx));
+    };
+    const float ox = __ldg(region_g + i);
+    for (int li = 0; li < T.n_dir; ++li) {
+      const float cur = sun_shadow<ARMS, true>(T, li, wx, wy, wz,
+                                               sun_inv_g + 3 * li);
+      float warped;
+      warp8_by<1>(prev_sh + li * n, n, z, y, x, w, h, d, ox, oy_at, oz_at,
+                  &warped);
+      out_sh[li * n + i] = cur + swgt * (warped - cur);
+    }
+  } else if constexpr (GEN) {  // each sun's ray, warp and blend in turn
     const float* inv = SG ? sun_inv_g : dyn_s + region_floats(TX, TY, k);
     const int row_y = (ty + k) * nx + k - xt;
     const float swgt = sb[20] * ok_s[row_y + x];
@@ -1112,6 +1145,75 @@ __device__ __forceinline__ void tile_blend(
       out_sh[li * n + i] = blended[li];
     }
   }
+}
+
+// The region forms of K2, K5, K10 and K3 (mirrored by
+// ops/temporal.region_form and ops/frame_fused.k3_window_form): the
+// region_shared form stages a tile's reprojection offsets in dynamic shared
+// memory (region_floats; K3: its chunk's, integrate_blend.cu k3_shared).
+// Past a block's shared memory (the 16 x 16 slice tiles from k = 52, K3
+// from k = 159) the launchers' region_global form reads them from device
+// memory instead: fill_region_plane writes them first. That form is the
+// wide index form's instantiation (64-bit indices, the slices or rows in
+// parts) and, in K2 and K5, gen_global's (the suns' inverse directions in
+// device memory too): the forms PRs 25-28 hold bit for bit the narrow,
+// fixed and general ones.
+#define VR_REGION_SHARED 0
+#define VR_REGION_GLOBAL 1
+
+// The region form of a launch whose region takes region_bytes of dynamic
+// shared memory beside static_bytes of static shared memory.
+inline int region_form_of(long region_bytes, long static_bytes) {
+  return region_bytes + static_bytes > VR_MAX_SHARED ? VR_REGION_GLOBAL
+                                                     : VR_REGION_SHARED;
+}
+
+// The region_global forms' pre-pass: reproj_view_l at every froxel
+// (z, y, x) of a w x h x d launch on blend table bp, its ox, oy, oz and
+// success into plane [4, d, h, w] (device memory, 64-bit indices). The
+// shared forms compute the value at the region cell of column x and row y
+// from the same device functions on the same arguments (the slice's view
+// depth view_z(bp, z + 0.5, d) and logf(bp[14]), reproj_vx of the column,
+// reproj_vy of the row), so each cell holds the same bits; every froxel
+// has all four outputs, where the shared forms keep only those their warp
+// reads. A block takes 128 columns of one row at a time, its rows
+// (z * h + y) strided over the launch grid's y axis. A template, so that
+// only the sources that launch it compile it. Bound: bytes, 16 a froxel
+// written (66 MB at 240x135x128, ~20 us at 3.35 TB/s), ~60 flops a froxel.
+template <int = 0>
+__global__ void __launch_bounds__(128)
+region_plane_kernel(const float* __restrict__ bp, bool with_jitter, int w,
+                    int h, int d, int h_glob, int k,
+                    float* __restrict__ plane) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= w) return;
+  const long rows = (long)d * h, n = rows * w;
+  for (long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const int z = (int)(r / h), y = (int)(r - (long)z * h);
+    const float vz = view_z(bp, (float)z + 0.5f, d);
+    const Reproj o = reproj_view_l(bp, z, y, x, reproj_vx(bp, x, vz, w),
+                                   reproj_vy(bp, y, vz, h_glob), vz,
+                                   logf(bp[14]), w, h, d, h_glob, k,
+                                   with_jitter);
+    const long i = r * w + x;
+    plane[i] = o.ox;
+    plane[n + i] = o.oy;
+    plane[2 * n + i] = o.oz;
+    plane[3 * n + i] = o.success;
+  }
+}
+
+// Fill plane [4, d, h, w] on the stream, ahead of the kernel that reads it.
+template <int = 0>
+int fill_region_plane(const float* bp, bool with_jitter, int w, int h,
+                      int d, int h_glob, int k, float* plane,
+                      cudaStream_t stream) {
+  if (plane == nullptr) return (int)cudaErrorInvalidValue;
+  const long rows = (long)d * h;
+  const dim3 grid((w + 127) / 128, (unsigned)(rows < 65535 ? rows : 65535));
+  region_plane_kernel<><<<grid, 128, 0, stream>>>(bp, with_jitter, w, h, d,
+                                                  h_glob, k, plane);
+  return (int)cudaGetLastError();
 }
 
 // The index forms of K2, K3, K5-K12 (mirrored by ops/cuda.INDEX_FORMS):

@@ -63,6 +63,19 @@
 // at 64 registers a thread (4 blocks an SM): on the H100, with the warp,
 // the offsets and the xy blend cut out, the same phases still take ~1.7x
 // the bound (tools/k3_k4_against.py; PERF.md).
+//
+// Region forms (common.cuh VR_REGION_*; mirrored by
+// ops/frame_fused.k3_window_form): a chunk's offsets (k3_shared) no longer
+// fit a block's shared memory beside the static arrays from a window of
+// k = 159. Past that the launcher takes the region_global instantiation
+// (OG, wide index form only): common.cuh fill_region_plane first writes
+// the offsets of every froxel into a [4, D, H, W] plane on the
+// accumulation's blend table (unjittered), and phase 3's warp reads them
+// there at its taps: the x and y offsets at (z, y, cx) and the z offset at
+// (z, cy, cx), where the shared form stages the same values per chunk
+// (phase 2's offsets are reproj_view at those cells, from the same device
+// functions). Phases 1-3, K3_ZC and the static arrays stay; phase 2's
+// warps 1-7 then have no offsets to compute.
 #include "common.cuh"
 
 #define K3_TX 16                        // columns of a tile (one row)
@@ -85,11 +98,19 @@ __host__ __device__ __forceinline__ int k3_shared(int k) {
   return K3_ZC * (4 * k3_nx(k) + k3_ny(k));
 }
 
-template <class I = int>
+// The kernel's static shared bytes: xyb, lrgb, fac, tr, tcar, vzc_s and
+// dz_s (mirrored by ops/frame_fused.K3_STATIC_SHARED).
+#define K3_STATIC_BYTES \
+  (4 * (4 * (K3_ZC + 1) * K3_TX + 6 * K3_ZC * K3_TX + 2 * K3_ZC))
+
+// OG: the region_global form, the offsets read from off_g [4, D, H, W]
+// (common.cuh fill_region_plane on abpar).
+template <class I = int, bool OG = false>
 __global__ void __launch_bounds__(K3_THREADS, 4)
 integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
                        const float* __restrict__ prev_acc,
-                       float* __restrict__ out_acc, int y_part) {
+                       float* __restrict__ out_acc, int y_part,
+                       const float* __restrict__ off_g) {
   // xyb row k is slice z0 + k; row 0 is the previous chunk's row K3_ZC
   __shared__ float xyb[4][K3_ZC + 1][K3_TX];
   __shared__ float lrgb[3][K3_ZC][K3_TX];  // sampled r, g, b, then L
@@ -145,10 +166,12 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
 #pragma unroll
       for (int c = 0; c < 3; ++c) lrgb[c][k][lx] = s[c];
     }
-    for (int i = threadIdx.x; i < nz * ny; i += K3_THREADS) {
-      const int k = i / ny, j = i - k * ny;
-      vy_s[i] = reproj_vy(ap, clampi(y - kw + j, 0, h - 1), vzc_s[k],
-                          T.h_glob);
+    if constexpr (!OG) {
+      for (int i = threadIdx.x; i < nz * ny; i += K3_THREADS) {
+        const int k = i / ny, j = i - k * ny;
+        vy_s[i] = reproj_vy(ap, clampi(y - kw + j, 0, h - 1), vzc_s[k],
+                            T.h_glob);
+      }
     }
     __syncthreads();
     // 2. the carry, L_c += (T * s_c) * factor, T *= t, one thread a column in
@@ -175,7 +198,7 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
 #pragma unroll
         for (int c = 0; c < 4; ++c) xyb[c][0][lx] = xyb[c][nz][lx];
       }
-    } else {
+    } else if constexpr (!OG) {
 #pragma unroll 2
       for (int i = threadIdx.x - 32; i < nz * nx; i += K3_THREADS - 32) {
         const int k = i / nx, j = i - k * nx;
@@ -199,33 +222,68 @@ integrate_blend_kernel(VrTables T, const float* __restrict__ sc,
     }
     __syncthreads();
     // 3. the accumulation blend (alpha mode: success = warped T != 0), the
-    // warp's offsets from phase 2
+    // warp's offsets from phase 2 (OG: from off_g)
+    if constexpr (OG) {
 #pragma unroll 2
-    for (int k = lz; k < nz && x < w; k += K3_ZP) {
-      const int z = z0 + k;
-      const int ib = k * nx - (xt - kw);  // + cx: column cx of slice k
-      const auto oy_at = [&](int cx) { return off_s[plane + ib + cx]; };
-      const auto oz_at = [&](int b, int, int cx) {
-        return off_s[(2 + b) * plane + ib + cx];
-      };
-      float warped[4];
-      warp8_by<4>(prev_acc, n, z, y, x, w, h, d, off_s[ib + x], oy_at, oz_at,
-                  warped);
-      const float wgt = ap[20] * (warped[3] != 0.0f ? 1.0f : 0.0f);
-      const float carry[4] = {lrgb[0][k][lx], lrgb[1][k][lx], lrgb[2][k][lx],
-                              tcar[k][lx]};
-      const I o = ((I)z * h + y) * w + x;
+      for (int k = lz; k < nz && x < w; k += K3_ZP) {
+        const int z = z0 + k;
+        const I row = ((I)z * h + y) * w;  // + cx: column cx of row y
+        const auto oy_at = [&](int cx) {
+          return __ldg(off_g + (n + row + cx));
+        };
+        const auto oz_at = [&](int, int cy, int cx) {
+          return __ldg(off_g + (2 * n + ((I)z * h + cy) * w + cx));
+        };
+        float warped[4];
+        warp8_by<4>(prev_acc, n, z, y, x, w, h, d, __ldg(off_g + (row + x)),
+                    oy_at, oz_at, warped);
+        const float wgt = ap[20] * (warped[3] != 0.0f ? 1.0f : 0.0f);
+        const float carry[4] = {lrgb[0][k][lx], lrgb[1][k][lx],
+                                lrgb[2][k][lx], tcar[k][lx]};
+        const I o = row + x;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
+        for (int c = 0; c < 4; ++c)
+          out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
+      }
+    } else {
+#pragma unroll 2
+      for (int k = lz; k < nz && x < w; k += K3_ZP) {
+        const int z = z0 + k;
+        const int ib = k * nx - (xt - kw);  // + cx: column cx of slice k
+        const auto oy_at = [&](int cx) { return off_s[plane + ib + cx]; };
+        const auto oz_at = [&](int b, int, int cx) {
+          return off_s[(2 + b) * plane + ib + cx];
+        };
+        float warped[4];
+        warp8_by<4>(prev_acc, n, z, y, x, w, h, d, off_s[ib + x], oy_at,
+                    oz_at, warped);
+        const float wgt = ap[20] * (warped[3] != 0.0f ? 1.0f : 0.0f);
+        const float carry[4] = {lrgb[0][k][lx], lrgb[1][k][lx],
+                                lrgb[2][k][lx], tcar[k][lx]};
+        const I o = ((I)z * h + y) * w + x;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          out_acc[c * n + o] = carry[c] + wgt * (warped[c] - carry[c]);
+      }
     }
     __syncthreads();
   }
 }
 
-// Launches of the narrow (0) and wide (1) forms since the library was
-// loaded (vr_integrate_blend_index_forms).
+// Launches of the narrow (0) and wide (1) forms, and of the region_shared
+// (0) and region_global (1) forms and the latter's pre-pass (2), since the
+// library was loaded (vr_integrate_blend_index_forms,
+// vr_integrate_blend_region_forms). A region_global launch is also a wide
+// one.
 static long g_index_forms[2];
+static long g_region_forms[3];
+
+// The region form a launch at reprojection window k takes (VR_REGION_*):
+// region_shared where a chunk's offsets fit beside the static arrays.
+static int k3_region_form(int k) {
+  return region_form_of(k3_shared(k) * (long)sizeof(float),
+                        K3_STATIC_BYTES);
+}
 
 // Whether the wide form takes the table (mirrored by
 // ops/frame_fused.k3_form): a launch grid of at most 2^31 - 1 column tiles.
@@ -244,27 +302,28 @@ static int k3_form(const VrTables& T) {
   return k3_wide_fits(T) ? VR_FORM_WIDE : -1;
 }
 
-template <class I>
+template <class I, bool OG = false>
 static int launch_form(const VrTables* T, const float* sc,
                        const float* prev_acc, float* out_acc,
-                       cudaStream_t stream) {
-  const auto kernel = integrate_blend_kernel<I>;
-  const int shared = k3_shared(T->k) * (int)sizeof(float);
+                       cudaStream_t stream, const float* off_g = nullptr) {
+  const auto kernel = integrate_blend_kernel<I, OG>;
+  const int shared = OG ? 0 : k3_shared(T->k) * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(  // any reprojection window
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T->w + K3_TX - 1) / K3_TX, T->h);
   if (sizeof(I) == sizeof(int)) {
     kernel<<<grid, K3_THREADS, shared, stream>>>(*T, sc, prev_acc, out_acc,
-                                                 0);
+                                                 0, off_g);
   } else {  // the rows in parts of at most VR_MAX_GRID_Z
     for (int y0 = 0; y0 < T->h; y0 += VR_MAX_GRID_Z) {
       grid.y = min(VR_MAX_GRID_Z, T->h - y0);
       kernel<<<grid, K3_THREADS, shared, stream>>>(*T, sc, prev_acc,
-                                                   out_acc, y0);
+                                                   out_acc, y0, off_g);
     }
   }
   ++g_index_forms[sizeof(I) > sizeof(int)];
+  ++g_region_forms[OG];
   return 0;
 }
 
@@ -285,6 +344,36 @@ extern "C" int vr_integrate_blend_form(const VrTables* T, const float* sc,
   return err ? err : (int)cudaGetLastError();
 }
 
+// The region_global form, any reprojection window, in the wide index
+// form: the offsets of every froxel into off_g [4, D, H, W] (device
+// memory), then the kernel reading them there.
+extern "C" int vr_integrate_blend_region(const VrTables* T, const float* sc,
+                                         const float* prev_acc,
+                                         float* out_acc, float* off_g,
+                                         cudaStream_t stream) {
+  if (!k3_wide_fits(*T)) return (int)cudaErrorInvalidValue;
+  int err = fill_region_plane(T->abpar, false, T->w, T->h, T->d, T->h_glob,
+                              T->k, off_g, stream);
+  if (err) return err;
+  ++g_region_forms[2];
+  err = launch_form<int64_t, true>(T, sc, prev_acc, out_acc, stream, off_g);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The region form a launch at reprojection window k takes into out[0]
+// (VR_REGION_*).
+extern "C" int vr_integrate_blend_region_form_of(int k, int* out) {
+  out[0] = k3_region_form(k);
+  return 0;
+}
+
+// The launches of the region_shared and the region_global form and of the
+// latter's pre-pass so far into out[0..2].
+extern "C" int vr_integrate_blend_region_forms(int* out) {
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_region_forms[f];
+  return 0;
+}
+
 // The size rule's form for the table into out[0] (-1: past the wide form
 // too) and its launch's row parts into out[1].
 extern "C" int vr_integrate_blend_form_of(const VrTables* T, int* out) {
@@ -300,14 +389,15 @@ extern "C" int vr_integrate_blend_index_forms(int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the narrow then the wide kernel: registers per
-// thread, static shared bytes per block, local bytes per thread and
-// largest block into out[4 i .. 4 i + 3]; returns the error.
-template <class I>
+// cudaFuncGetAttributes of the narrow, the wide and the region_global
+// kernel: registers per thread, static shared bytes per block, local bytes
+// per thread and largest block into out[4 i .. 4 i + 3]; returns the
+// error.
+template <class I, bool OG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, (const void*)integrate_blend_kernel<I>);
+      cudaFuncGetAttributes(&a, (const void*)integrate_blend_kernel<I, OG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -316,8 +406,9 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_integrate_blend_attrs(int* out) {
-  const cudaError_t errs[2] = {attrs_of<int>(out),
-                               attrs_of<int64_t>(out + 4)};
+  const cudaError_t errs[3] = {attrs_of<int>(out),
+                               attrs_of<int64_t>(out + 4),
+                               attrs_of<int64_t, true>(out + 8)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

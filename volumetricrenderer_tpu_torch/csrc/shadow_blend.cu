@@ -55,6 +55,15 @@
 // [n_dir, 3] that the launcher fills first with the same device function
 // (common.cuh fill_sun_inverses); its dynamic shared memory is the region
 // alone, and every value is GEN's.
+//
+// Region forms (common.cuh VR_REGION_*; mirrored by
+// ops/temporal.region_form): from a window of k = 52 the tile's region no
+// longer fits a block's shared memory, and the launcher takes the
+// region_global instantiation (RG), K2's shadow half in that form
+// (shadow_scatter.cu): the four offsets of every froxel in a [4, D, H, W]
+// plane that common.cuh fill_region_plane writes first, read there by the
+// warp; gen_global's wide form otherwise, and every value the shared
+// forms'.
 #include "common.cuh"
 
 // The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
@@ -63,19 +72,22 @@ struct K5Tile {
   static constexpr int X = 16, Y = 16, MIN_BLOCKS = 6;
 };
 
-template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false,
+          bool RG = false>
 __global__ void __launch_bounds__(K5Tile::X * K5Tile::Y, K5Tile::MIN_BLOCKS)
 shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
                     float* __restrict__ out_sh, int z_part,
-                    const float* __restrict__ sun_inv_g) {
+                    const float* __restrict__ sun_inv_g,
+                    const float* __restrict__ region_g) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
   // the narrow form's slice is blockIdx.z; the wide form's part starts at
   // z_part
   const int z0 = sizeof(I) > sizeof(int) ? z_part : 0;
   __shared__ TileTerms<TX, TY, I> S;
-  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g)
+  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g;
+  // region_global: none, the region in region_g)
   extern __shared__ float dyn_s[];
-  tile_region<false, TX, TY, GEN, SG>(T, S, dyn_s, z0);
+  tile_region<false, TX, TY, GEN, SG, RG>(T, S, dyn_s, z0);
   const int x = blockIdx.x * TX + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
   const int z = blockIdx.z + z0;
@@ -84,9 +96,9 @@ shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
   const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz;
   if constexpr (GEN) {
-    tile_blend<ARMS, TX, TY, true, SG>(T, prev_sh, out_sh, S, dyn_s, x, y,
-                                       n, i, wx, wy, wz, nullptr, z0,
-                                       sun_inv_g);
+    tile_blend<ARMS, TX, TY, true, SG, RG>(T, prev_sh, out_sh, S, dyn_s, x,
+                                           y, n, i, wx, wy, wz, nullptr, z0,
+                                           sun_inv_g, region_g);
   } else {
     float blended[VR_MAX_DIR];
     tile_blend<ARMS>(T, prev_sh, out_sh, S, dyn_s, x, y, n, i, wx, wy, wz,
@@ -94,11 +106,15 @@ shadow_blend_kernel(VrTables T, const float* __restrict__ prev_sh,
   }
 }
 
-// Launches of the fixed (0), general (1) and gen_global (2) forms, and of
-// the narrow (0) and wide (1) index forms, since the library was loaded
-// (vr_shadow_blend_forms, vr_shadow_blend_index_forms).
+// Launches of the fixed (0), general (1) and gen_global (2) forms, of the
+// narrow (0) and wide (1) index forms, and of the region_shared (0) and
+// region_global (1) forms and the latter's pre-pass (2), since the library
+// was loaded (vr_shadow_blend_forms, vr_shadow_blend_index_forms,
+// vr_shadow_blend_region_forms). A region_global launch is also a
+// gen_global and a wide one.
 static long g_forms[3];
 static long g_index_forms[2];
+static long g_region_forms[3];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
 // suns: the region, and in the general form the suns' inverse directions.
@@ -133,14 +149,23 @@ static int k5_sun_form(int k, int n_dir) {
   return sun_form_of(k5_shared(k, false, 0), n_dir > VR_MAX_DIR, n_dir);
 }
 
-template <bool ARMS, bool GEN, class I, bool SG = false>
+// The region form a launch at reprojection window k takes
+// (VR_REGION_*): region_shared where the fixed form's region fits.
+static int k5_region_form(int k) {
+  return region_form_of(k5_shared(k, false, 0), VR_TILE_STATIC);
+}
+
+// RG: the region_global form (GEN, SG and I = int64_t), its offsets in
+// region_g.
+template <bool ARMS, bool GEN, class I, bool SG = false, bool RG = false>
 static int launch_tile(const VrTables* T, const float* prev_sh,
                        float* out_sh, cudaStream_t stream,
-                       const float* sun_inv = nullptr) {
+                       const float* sun_inv = nullptr,
+                       const float* region_g = nullptr) {
   constexpr int TX = K5Tile::X, TY = K5Tile::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
-  const auto kernel = shadow_blend_kernel<ARMS, GEN, I, SG>;
-  const int shared = k5_shared(T->k, GEN && !SG, T->n_dir);
+  const auto kernel = shadow_blend_kernel<ARMS, GEN, I, SG, RG>;
+  const int shared = RG ? 0 : k5_shared(T->k, GEN && !SG, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -149,16 +174,17 @@ static int launch_tile(const VrTables* T, const float* prev_sh,
   dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
   if (!WIDE) {
     kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh, 0,
-                                                   sun_inv);
+                                                   sun_inv, region_g);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, T->d - z0);
       kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, out_sh,
-                                                     z0, sun_inv);
+                                                     z0, sun_inv, region_g);
     }
   }
   ++g_forms[SG ? 2 : GEN];
   ++g_index_forms[WIDE];
+  ++g_region_forms[RG];
   return 0;
 }
 
@@ -227,6 +253,44 @@ extern "C" int vr_shadow_blend_global(const VrTables* T,
   return err ? err : (int)cudaGetLastError();
 }
 
+// The region_global form, any reprojection window: the suns' inverse
+// directions into sun_inv [n_dir, 3] and the four offsets of every froxel
+// into region_g [4, D, H, W] (device memory), then the kernel reading
+// both there, in the wide index form.
+extern "C" int vr_shadow_blend_region(const VrTables* T,
+                                      const float* prev_sh, float* out_sh,
+                                      float* sun_inv, float* region_g,
+                                      cudaStream_t stream) {
+  if (k5_index_form(*T, VR_FORM_WIDE) < 0)
+    return (int)cudaErrorInvalidValue;
+  int err = fill_sun_inverses(T, sun_inv, stream);
+  if (err) return err;
+  err = fill_region_plane(T->sbpar, true, T->w, T->h, T->d, T->h_glob, T->k,
+                          region_g, stream);
+  if (err) return err;
+  ++g_region_forms[2];
+  err = needs_arms(*T)
+            ? launch_tile<true, true, int64_t, true, true>(
+                  T, prev_sh, out_sh, stream, sun_inv, region_g)
+            : launch_tile<false, true, int64_t, true, true>(
+                  T, prev_sh, out_sh, stream, sun_inv, region_g);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The region form a launch at reprojection window k takes into out[0]
+// (VR_REGION_*).
+extern "C" int vr_shadow_blend_region_form_of(int k, int* out) {
+  out[0] = k5_region_form(k);
+  return 0;
+}
+
+// The launches of the region_shared and the region_global form and of the
+// latter's pre-pass so far into out[0..2].
+extern "C" int vr_shadow_blend_region_forms(int* out) {
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_region_forms[f];
+  return 0;
+}
+
 // The sun form a launch at reprojection window k with n_dir suns takes
 // into out[0] (VR_SUNS_*; -1: the region does not fit).
 extern "C" int vr_shadow_blend_sun_form_of(int k, int n_dir, int* out) {
@@ -272,16 +336,18 @@ extern "C" int vr_shadow_blend_geometry(int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the twelve kernels: the fixed forms then the
+// cudaFuncGetAttributes of the fourteen kernels: the fixed forms then the
 // general ones, ARMS false then true, narrow; then the same four wide; then
-// the gen_global ones, ARMS false then true, narrow then wide: registers
-// per thread, static shared bytes per block, local bytes per thread and
-// largest block into out[4 i .. 4 i + 3]; returns the error.
-template <bool ARMS, bool GEN = false, class I = int, bool SG = false>
+// the gen_global ones, ARMS false then true, narrow then wide; then the
+// region_global ones, ARMS false then true: registers per thread, static
+// shared bytes per block, local bytes per thread and largest block into
+// out[4 i .. 4 i + 3]; returns the error.
+template <bool ARMS, bool GEN = false, class I = int, bool SG = false,
+          bool RG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)shadow_blend_kernel<ARMS, GEN, I, SG>);
+      &a, (const void*)shadow_blend_kernel<ARMS, GEN, I, SG, RG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -290,7 +356,7 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_shadow_blend_attrs(int* out) {
-  const cudaError_t errs[12] = {
+  const cudaError_t errs[14] = {
       attrs_of<false>(out), attrs_of<true>(out + 4),
       attrs_of<false, true>(out + 8), attrs_of<true, true>(out + 12),
       attrs_of<false, false, int64_t>(out + 16),
@@ -300,7 +366,9 @@ extern "C" int vr_shadow_blend_attrs(int* out) {
       attrs_of<false, true, int, true>(out + 32),
       attrs_of<true, true, int, true>(out + 36),
       attrs_of<false, true, int64_t, true>(out + 40),
-      attrs_of<true, true, int64_t, true>(out + 44)};
+      attrs_of<true, true, int64_t, true>(out + 44),
+      attrs_of<false, true, int64_t, true, true>(out + 48),
+      attrs_of<true, true, int64_t, true, true>(out + 52)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -100,6 +100,18 @@
 // that the launcher fills first with the same device function (common.cuh
 // fill_sun_inverses); its dynamic shared memory is the region alone, and
 // every value is GEN's, in every local source and both index forms.
+//
+// Region forms (common.cuh VR_REGION_*; mirrored by
+// ops/temporal.region_form): the region of a 16 x 16 tile, (16 + 2k + 1)^2
+// cells of four offsets, no longer fits a block's shared memory from a
+// window of k = 52. Past that the region_global instantiation (RG): the
+// launcher first writes the four offsets of every froxel into a [4, D, H,
+// W] plane in device memory (common.cuh fill_region_plane; the same device
+// functions as step 2, so the same bits), and step 3's warp reads them
+// there at its taps, through L1 and L2. It is gen_global's wide form with
+// that plane: no dynamic shared memory, so any window; every value is the
+// shared forms'. A window up to k = 51 keeps the region_shared forms, their
+// code and their time.
 #include "common.cuh"
 
 // The tile of each local source, columns x rows: a block of X * Y threads,
@@ -115,21 +127,23 @@ struct K2Tile<VR_LOCAL_RADIANCE> {
 };
 
 template <int LOCAL, bool ARMS, int TX, int TY, bool GEN = false,
-          class I = int, bool SG = false>
+          class I = int, bool SG = false, bool RG = false>
 __global__ void __launch_bounds__(TX * TY, K2Tile<LOCAL>::MIN_BLOCKS)
 shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
                       const float* __restrict__ low,
                       float* __restrict__ out_sh,
                       float* __restrict__ out_sc, int z_part,
-                      const float* __restrict__ sun_inv_g) {
+                      const float* __restrict__ sun_inv_g,
+                      const float* __restrict__ region_g) {
   // the narrow form's slice is blockIdx.z; the wide form's part starts at
   // z_part
   constexpr bool WIDE = sizeof(I) > sizeof(int);
   const int z0 = WIDE ? z_part : 0;
   __shared__ TileTerms<TX, TY, I> S;
-  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g)
+  // region_floats (GEN: + sun_inv_floats, gen_global: in sun_inv_g;
+  // region_global: none, the region in region_g)
   extern __shared__ float dyn_s[];
-  tile_region<true, TX, TY, GEN, SG>(T, S, dyn_s, z0);
+  tile_region<true, TX, TY, GEN, SG, RG>(T, S, dyn_s, z0);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x = blockIdx.x * TX + tx, y = blockIdx.y * TY + ty;
   const int z = blockIdx.z + z0;
@@ -138,9 +152,9 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   const I i = ((I)z * T.h + y) * T.w + x;
   float wx, wy, wz, cwx, cwy, cwz, sc[4];
   if constexpr (GEN) {
-    tile_blend<ARMS, TX, TY, true, SG>(T, prev_sh, out_sh, S, dyn_s, x, y,
-                                       n, i, wx, wy, wz, nullptr, z0,
-                                       sun_inv_g);
+    tile_blend<ARMS, TX, TY, true, SG, RG>(T, prev_sh, out_sh, S, dyn_s, x,
+                                           y, n, i, wx, wy, wz, nullptr, z0,
+                                           sun_inv_g, region_g);
     // scatter_slice (material fused, dir lights folded), each sun's blended
     // shadow read back from this thread's own stores
     view_world(T.spar, S.vxc[tx], S.vyc[ty], S.vz_c, cwx, cwy, cwz);
@@ -162,11 +176,15 @@ shadow_scatter_kernel(VrTables T, const float* __restrict__ prev_sh,
   for (int c = 0; c < 4; ++c) out_sc[c * n + i] = sc[c];
 }
 
-// Launches of the fixed (0), general (1) and gen_global (2) forms, and of
-// the narrow (0) and wide (1) index forms, since the library was loaded
-// (vr_shadow_scatter_forms, vr_shadow_scatter_index_forms).
+// Launches of the fixed (0), general (1) and gen_global (2) forms, of the
+// narrow (0) and wide (1) index forms, and of the region_shared (0) and
+// region_global (1) forms and the latter's pre-pass (2), since the library
+// was loaded (vr_shadow_scatter_forms, vr_shadow_scatter_index_forms,
+// vr_shadow_scatter_region_forms). A region_global launch is also a
+// gen_global and a wide one.
 static long g_forms[3];
 static long g_index_forms[2];
+static long g_region_forms[3];
 
 // The dynamic shared bytes of a launch at reprojection window k with n_dir
 // suns: the region, and in the general form the suns' inverse directions.
@@ -222,15 +240,28 @@ static int k2_sun_form(int k, int n_dir, int n_noise) {
                      n_dir > VR_MAX_DIR || n_noise > VR_MAX_NOISE, n_dir);
 }
 
-template <int LOCAL, bool ARMS, bool GEN, class I, bool SG = false>
+// The region form a launch at reprojection window k takes
+// (VR_REGION_*): region_shared where the fixed form's region fits.
+static int k2_region_form(int k) {
+  return region_form_of(k2_shared(K2Tile<VR_LOCAL_RADIANCE>::X,
+                                  K2Tile<VR_LOCAL_RADIANCE>::Y, k, false, 0),
+                        VR_TILE_STATIC);
+}
+
+// RG: the region_global form (GEN, SG and I = int64_t), its offsets in
+// region_g.
+template <int LOCAL, bool ARMS, bool GEN, class I, bool SG = false,
+          bool RG = false>
 static int launch_tile(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
-                       cudaStream_t stream, const float* sun_inv = nullptr) {
+                       cudaStream_t stream, const float* sun_inv = nullptr,
+                       const float* region_g = nullptr) {
   constexpr int TX = K2Tile<LOCAL>::X, TY = K2Tile<LOCAL>::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
   const auto kernel =
-      shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN, I, SG>;
-  const int shared = k2_shared(TX, TY, T->k, GEN && !SG, T->n_dir);
+      shadow_scatter_kernel<LOCAL, ARMS, TX, TY, GEN, I, SG, RG>;
+  const int shared =
+      RG ? 0 : k2_shared(TX, TY, T->k, GEN && !SG, T->n_dir);
   if (shared > 48 * 1024) {  // a wide reprojection window, or many suns
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -239,28 +270,32 @@ static int launch_tile(const VrTables* T, const float* prev_sh,
   dim3 grid((T->w + TX - 1) / TX, (T->h + TY - 1) / TY, T->d);
   if (!WIDE) {
     kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low, out_sh,
-                                                   out_sc, 0, sun_inv);
+                                                   out_sc, 0, sun_inv,
+                                                   region_g);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < T->d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, T->d - z0);
       kernel<<<grid, dim3(TX, TY), shared, stream>>>(*T, prev_sh, low,
                                                      out_sh, out_sc, z0,
-                                                     sun_inv);
+                                                     sun_inv, region_g);
     }
   }
   ++g_forms[SG ? 2 : GEN];
   ++g_index_forms[WIDE];
+  ++g_region_forms[RG];
   return 0;
 }
 
-// SG: the gen_global form, its suns' inverse directions in sun_inv.
-template <int LOCAL, bool ARMS, class I, bool SG = false>
+// SG: the gen_global form, its suns' inverse directions in sun_inv; RG:
+// the region_global form, its offsets in region_g.
+template <int LOCAL, bool ARMS, class I, bool SG = false, bool RG = false>
 static int launch_form(const VrTables* T, const float* prev_sh,
                        const float* low, float* out_sh, float* out_sc,
-                       cudaStream_t stream, const float* sun_inv) {
+                       cudaStream_t stream, const float* sun_inv,
+                       const float* region_g) {
   if constexpr (SG)
-    return launch_tile<LOCAL, ARMS, true, I, true>(T, prev_sh, low, out_sh,
-                                                   out_sc, stream, sun_inv);
+    return launch_tile<LOCAL, ARMS, true, I, true, RG>(
+        T, prev_sh, low, out_sh, out_sc, stream, sun_inv, region_g);
   if (needs_general(*T))
     return launch_tile<LOCAL, ARMS, true, I>(T, prev_sh, low, out_sh, out_sc,
                                              stream);
@@ -268,33 +303,37 @@ static int launch_form(const VrTables* T, const float* prev_sh,
                                             stream);
 }
 
-template <int LOCAL, class I, bool SG>
+template <int LOCAL, class I, bool SG, bool RG>
 static int launch_shadow_scatter(const VrTables* T, const float* prev_sh,
                                  const float* low, float* out_sh,
                                  float* out_sc, cudaStream_t stream,
-                                 const float* sun_inv) {
+                                 const float* sun_inv,
+                                 const float* region_g) {
   if (needs_arms(*T))
-    return launch_form<LOCAL, true, I, SG>(T, prev_sh, low, out_sh, out_sc,
-                                           stream, sun_inv);
-  return launch_form<LOCAL, false, I, SG>(T, prev_sh, low, out_sh, out_sc,
-                                          stream, sun_inv);
+    return launch_form<LOCAL, true, I, SG, RG>(T, prev_sh, low, out_sh,
+                                               out_sc, stream, sun_inv,
+                                               region_g);
+  return launch_form<LOCAL, false, I, SG, RG>(T, prev_sh, low, out_sh,
+                                              out_sc, stream, sun_inv,
+                                              region_g);
 }
 
-template <class I, bool SG = false>
+template <class I, bool SG = false, bool RG = false>
 static int launch_local(const VrTables* T, const float* prev_sh,
                         const float* low, float* out_sh, float* out_sc,
                         int local, cudaStream_t stream,
-                        const float* sun_inv = nullptr) {
+                        const float* sun_inv = nullptr,
+                        const float* region_g = nullptr) {
   switch (local) {
     case VR_LOCAL_RADIANCE:
-      return launch_shadow_scatter<VR_LOCAL_RADIANCE, I, SG>(
-          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
+      return launch_shadow_scatter<VR_LOCAL_RADIANCE, I, SG, RG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv, region_g);
     case VR_LOCAL_RAY:
-      return launch_shadow_scatter<VR_LOCAL_RAY, I, SG>(
-          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
+      return launch_shadow_scatter<VR_LOCAL_RAY, I, SG, RG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv, region_g);
     case VR_LOCAL_BAKED:
-      return launch_shadow_scatter<VR_LOCAL_BAKED, I, SG>(
-          T, prev_sh, low, out_sh, out_sc, stream, sun_inv);
+      return launch_shadow_scatter<VR_LOCAL_BAKED, I, SG, RG>(
+          T, prev_sh, low, out_sh, out_sc, stream, sun_inv, region_g);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -353,6 +392,45 @@ extern "C" int vr_shadow_scatter_global(const VrTables* T,
             : launch_local<int, true>(T, prev_sh, low, out_sh, out_sc, local,
                                       stream, sun_inv);
   return err ? err : (int)cudaGetLastError();
+}
+
+// The region_global form, any reprojection window: the suns' inverse
+// directions into sun_inv [n_dir, 3] and the four offsets of every froxel
+// into region_g [4, D, H, W] (device memory), then the kernel reading
+// both there, in the wide index form.
+extern "C" int vr_shadow_scatter_region(const VrTables* T,
+                                        const float* prev_sh,
+                                        const float* low, float* out_sh,
+                                        float* out_sc, int local,
+                                        float* sun_inv, float* region_g,
+                                        cudaStream_t stream) {
+  if ((local == VR_LOCAL_RAY) != (low == nullptr) || local < 0 || local > 2)
+    return (int)cudaErrorInvalidValue;
+  if (k2_index_form(*T, local, VR_FORM_WIDE) < 0)
+    return (int)cudaErrorInvalidValue;
+  int err = fill_sun_inverses(T, sun_inv, stream);
+  if (err) return err;
+  err = fill_region_plane(T->sbpar, true, T->w, T->h, T->d, T->h_glob, T->k,
+                          region_g, stream);
+  if (err) return err;
+  ++g_region_forms[2];
+  err = launch_local<int64_t, true, true>(T, prev_sh, low, out_sh, out_sc,
+                                          local, stream, sun_inv, region_g);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The region form a launch at reprojection window k takes into out[0]
+// (VR_REGION_*).
+extern "C" int vr_shadow_scatter_region_form_of(int k, int* out) {
+  out[0] = k2_region_form(k);
+  return 0;
+}
+
+// The launches of the region_shared and the region_global form and of the
+// latter's pre-pass so far into out[0..2].
+extern "C" int vr_shadow_scatter_region_forms(int* out) {
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_region_forms[f];
+  return 0;
 }
 
 // The sun form a launch at reprojection window k with n_dir suns and
@@ -420,19 +498,21 @@ extern "C" int vr_shadow_scatter_geometry(int local, int k, int* out) {
   return 0;
 }
 
-// cudaFuncGetAttributes of the thirty-six kernels: the fixed forms then
+// cudaFuncGetAttributes of the forty-two kernels: the fixed forms then
 // the general ones, each LOCAL (radiance, ray, baked) outer and ARMS
 // (false, true) inner, narrow; then the same twelve wide; then the
-// gen_global ones, narrow (LOCAL outer, ARMS inner) then wide: registers
-// per thread, static shared bytes per block, local bytes per thread and
-// largest block into out[4 i .. 4 i + 3]; returns the error.
+// gen_global ones, narrow (LOCAL outer, ARMS inner) then wide; then the
+// region_global ones (LOCAL outer, ARMS inner): registers per thread,
+// static shared bytes per block, local bytes per thread and largest block
+// into out[4 i .. 4 i + 3]; returns the error.
 template <int LOCAL, bool ARMS, bool GEN = false, class I = int,
-          bool SG = false>
+          bool SG = false, bool RG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
       &a, (const void*)shadow_scatter_kernel<LOCAL, ARMS, K2Tile<LOCAL>::X,
-                                             K2Tile<LOCAL>::Y, GEN, I, SG>);
+                                             K2Tile<LOCAL>::Y, GEN, I, SG,
+                                             RG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -456,22 +536,23 @@ static void attrs_of_index_form(int* out, cudaError_t* errs) {
   errs[11] = attrs_of<VR_LOCAL_BAKED, true, true, I>(out + 44);
 }
 
-template <class I>
+template <class I, bool RG = false>
 static void attrs_of_global(int* out, cudaError_t* errs) {
-  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, true, I, true>(out);
-  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, true, I, true>(out + 4);
-  errs[2] = attrs_of<VR_LOCAL_RAY, false, true, I, true>(out + 8);
-  errs[3] = attrs_of<VR_LOCAL_RAY, true, true, I, true>(out + 12);
-  errs[4] = attrs_of<VR_LOCAL_BAKED, false, true, I, true>(out + 16);
-  errs[5] = attrs_of<VR_LOCAL_BAKED, true, true, I, true>(out + 20);
+  errs[0] = attrs_of<VR_LOCAL_RADIANCE, false, true, I, true, RG>(out);
+  errs[1] = attrs_of<VR_LOCAL_RADIANCE, true, true, I, true, RG>(out + 4);
+  errs[2] = attrs_of<VR_LOCAL_RAY, false, true, I, true, RG>(out + 8);
+  errs[3] = attrs_of<VR_LOCAL_RAY, true, true, I, true, RG>(out + 12);
+  errs[4] = attrs_of<VR_LOCAL_BAKED, false, true, I, true, RG>(out + 16);
+  errs[5] = attrs_of<VR_LOCAL_BAKED, true, true, I, true, RG>(out + 20);
 }
 
 extern "C" int vr_shadow_scatter_attrs(int* out) {
-  cudaError_t errs[36];
+  cudaError_t errs[42];
   attrs_of_index_form<int>(out, errs);
   attrs_of_index_form<int64_t>(out + 48, errs + 12);
   attrs_of_global<int>(out + 96, errs + 24);
   attrs_of_global<int64_t>(out + 120, errs + 30);
+  attrs_of_global<int64_t, true>(out + 144, errs + 36);
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

@@ -48,6 +48,15 @@
 // ~130 flops a froxel at one channel, ~8 us at the fp32 rate. What holds
 // it is the instruction rate of the region's IEEE divisions and logs,
 // about 60% of its time (PERF.md §6).
+//
+// Region forms (common.cuh VR_REGION_*; mirrored by
+// ops/temporal.region_form): K5's region no longer fits a block's shared
+// memory from a window of k = 52. Past that the launcher takes the
+// region_global instantiation (RG, wide index form only): the four offsets
+// of every froxel in a [4, D, H, W] plane that common.cuh
+// fill_region_plane writes first (once for all of a call's channel
+// groups), read there by the warp at its taps; no shared memory, any
+// window, every value the shared form's.
 #include "common.cuh"
 
 // The tile, columns x rows: a block of X * Y threads, MIN_BLOCKS of them an
@@ -136,13 +145,16 @@ __device__ __forceinline__ void region_offsets(
   __syncthreads();
 }
 
-template <int NC, bool WEIGHT, class I = int>
+// RG: the region_global form, the offsets read from region_g [4, D, H, W]
+// (common.cuh fill_region_plane on the same table).
+template <int NC, bool WEIGHT, class I = int, bool RG = false>
 __global__ void __launch_bounds__(K10Tile::X * K10Tile::Y,
                                   K10Tile::MIN_BLOCKS)
 temporal_blend_kernel(const float* __restrict__ bpar,
                       const float* __restrict__ prev,
                       const float* __restrict__ cur, float* __restrict__ out,
-                      int w, int h, int d, int h_glob, int k, int z_part) {
+                      int w, int h, int d, int h_glob, int k, int z_part,
+                      const float* __restrict__ region_g) {
   constexpr int TX = K10Tile::X, TY = K10Tile::Y;
   __shared__ float vz_s, lfpz_s;    // the slice's scalars
   extern __shared__ float dyn_s[];  // region_floats
@@ -150,6 +162,31 @@ temporal_blend_kernel(const float* __restrict__ bpar,
   // the narrow form's slice is blockIdx.z; the wide form's part starts at
   // z_part
   const int z = blockIdx.z + (sizeof(I) > sizeof(int) ? z_part : 0);
+  if constexpr (RG) {  // step 3 alone, the offsets from region_g
+    const int x = blockIdx.x * TX + tx, y = blockIdx.y * TY + ty;
+    if (x >= w || y >= h) return;
+    const I n = (I)d * h * w;
+    const I i = ((I)z * h + y) * w + x;
+    const I row = i - x;  // + cx: column cx of row y
+    const auto oy_at = [&](int cx) {
+      return __ldg(region_g + (n + row + cx));
+    };
+    const auto oz_at = [&](int, int cy, int cx) {
+      return __ldg(region_g + (2 * n + ((I)z * h + cy) * w + cx));
+    };
+    float warped[NC];
+    warp8_by<NC>(prev, n, z, y, x, w, h, d, __ldg(region_g + i), oy_at,
+                 oz_at, warped);
+    const float wgt = WEIGHT
+        ? bpar[20] * __ldg(region_g + (3 * n + i))
+        : bpar[20] * (warped[NC - 1] != 0.0f ? 1.0f : 0.0f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float v = __ldg(cur + c * n + i);
+      out[c * n + i] = v + wgt * (warped[c] - v);
+    }
+    return;
+  }
   // 1a. the slice's scalars, on the first lanes of two warps
   if (ty == 0 && tx == 0) vz_s = view_z(bpar, (float)z + 0.5f, d);
   if (ty == 2 && tx == 0) lfpz_s = logf(bpar[14]);
@@ -187,9 +224,13 @@ temporal_blend_kernel(const float* __restrict__ bpar,
   }
 }
 
-// Launches of the narrow (0) and wide (1) index forms since the library
-// was loaded (vr_temporal_blend_index_forms).
+// Launches of the narrow (0) and wide (1) index forms, and of the
+// region_shared (0) and region_global (1) forms and the latter's pre-pass
+// (2), since the library was loaded (vr_temporal_blend_index_forms,
+// vr_temporal_blend_region_forms). A region_global launch is also a wide
+// one.
 static long g_index_forms[2];
+static long g_region_forms[3];
 
 // Whether the wide form takes a launch (mirrored by ops/temporal.k10_form):
 // at most VR_MAX_GRID_Z row tiles on the launch grid's y axis.
@@ -210,15 +251,26 @@ static int k10_form(int n_ch, int w, int h, int d) {
   return k10_wide_fits(h) ? VR_FORM_WIDE : -1;
 }
 
-template <int NC, bool WEIGHT, class I>
+// The region form a launch at reprojection window k takes
+// (VR_REGION_*): region_shared where its region fits beside the slice
+// scalars (under VR_TILE_STATIC).
+static int k10_region_form(int k) {
+  return region_form_of(
+      region_floats(K10Tile::X, K10Tile::Y, k) * (long)sizeof(float),
+      VR_TILE_STATIC);
+}
+
+template <int NC, bool WEIGHT, class I, bool RG = false>
 static int launch_tile(const float* bpar, const float* prev,
                        const float* cur, float* out, int w, int h, int d,
-                       int h_glob, int k, cudaStream_t stream) {
+                       int h_glob, int k, cudaStream_t stream,
+                       const float* region_g = nullptr) {
   constexpr int TX = K10Tile::X, TY = K10Tile::Y;
   constexpr bool WIDE = sizeof(I) > sizeof(int);
-  const auto kernel = temporal_blend_kernel<NC, WEIGHT, I>;
+  const auto kernel = temporal_blend_kernel<NC, WEIGHT, I, RG>;
   dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, d);
-  const int shared = region_floats(TX, TY, k) * (int)sizeof(float);
+  const int shared =
+      RG ? 0 : region_floats(TX, TY, k) * (int)sizeof(float);
   if (shared > 48 * 1024) {  // a wide reprojection window
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -226,32 +278,36 @@ static int launch_tile(const float* bpar, const float* prev,
   }
   if (!WIDE) {
     kernel<<<grid, dim3(TX, TY), shared, stream>>>(bpar, prev, cur, out, w,
-                                                   h, d, h_glob, k, 0);
+                                                   h, d, h_glob, k, 0,
+                                                   region_g);
   } else {  // the slices in parts of at most VR_MAX_GRID_Z
     for (int z0 = 0; z0 < d; z0 += VR_MAX_GRID_Z) {
       grid.z = min(VR_MAX_GRID_Z, d - z0);
       kernel<<<grid, dim3(TX, TY), shared, stream>>>(bpar, prev, cur, out,
-                                                     w, h, d, h_glob, k, z0);
+                                                     w, h, d, h_glob, k, z0,
+                                                     region_g);
     }
   }
   ++g_index_forms[WIDE];
+  ++g_region_forms[RG];
   return 0;
 }
 
-// The blend of n_ch channels (1 to 4) in mode 0 "weight" or 1 "alpha".
-template <class I>
+// The blend of n_ch channels (1 to 4) in mode 0 "weight" or 1 "alpha"; RG:
+// the region_global form, its offsets in region_g.
+template <class I, bool RG = false>
 static int launch_mode(const float* bpar, const float* prev,
                        const float* cur, float* out, int n_ch, int w, int h,
                        int d, int h_glob, int k, int mode,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const float* region_g = nullptr) {
   switch (2 * n_ch + mode) {
 #define VR_BLEND(NC)                                                        \
     case 2 * NC:                                                            \
-      return launch_tile<NC, true, I>(bpar, prev, cur, out, w, h, d,        \
-                                      h_glob, k, stream);                   \
+      return launch_tile<NC, true, I, RG>(bpar, prev, cur, out, w, h, d,    \
+                                          h_glob, k, stream, region_g);     \
     case 2 * NC + 1:                                                        \
-      return launch_tile<NC, false, I>(bpar, prev, cur, out, w, h, d,       \
-                                       h_glob, k, stream);
+      return launch_tile<NC, false, I, RG>(bpar, prev, cur, out, w, h, d,   \
+                                           h_glob, k, stream, region_g);
     VR_BLEND(1)
     VR_BLEND(2)
     VR_BLEND(3)
@@ -285,6 +341,46 @@ extern "C" int vr_temporal_blend_form(const float* bpar, const float* prev,
   return err ? err : (int)cudaGetLastError();
 }
 
+// The region_global form, any reprojection window, in the wide index
+// form: with fill, first the four offsets of every froxel into region_g
+// [4, D, H, W] (device memory; the weight mode's with the jitter), then
+// the blend of n_ch channels reading them there. A call's channel groups
+// share one plane: the first fills it.
+extern "C" int vr_temporal_blend_region(const float* bpar, const float* prev,
+                                        const float* cur, float* out,
+                                        float* region_g, int fill, int n_ch,
+                                        int w, int h, int d, int h_glob,
+                                        int k, int mode,
+                                        cudaStream_t stream) {
+  if (n_ch < 1 || n_ch > 4 || mode < 0 || mode > 1 || !k10_wide_fits(h)
+      || region_g == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (fill) {
+    const int err = fill_region_plane(bpar, mode == 0, w, h, d, h_glob, k,
+                                      region_g, stream);
+    if (err) return err;
+    ++g_region_forms[2];
+  }
+  const int err = launch_mode<int64_t, true>(bpar, prev, cur, out, n_ch, w,
+                                             h, d, h_glob, k, mode, stream,
+                                             region_g);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The region form a launch at reprojection window k takes into out[0]
+// (VR_REGION_*).
+extern "C" int vr_temporal_blend_region_form_of(int k, int* out) {
+  out[0] = k10_region_form(k);
+  return 0;
+}
+
+// The launches of the region_shared and the region_global form and of the
+// latter's pre-pass so far into out[0..2].
+extern "C" int vr_temporal_blend_region_forms(int* out) {
+  for (int f = 0; f < 3; ++f) out[f] = (int)g_region_forms[f];
+  return 0;
+}
+
 // The size rule's form for a launch of n_ch channels into out[0] (-1: past
 // the wide form too) and its launch's slice parts into out[1].
 extern "C" int vr_temporal_blend_form_of(int n_ch, int w, int h, int d,
@@ -312,14 +408,14 @@ extern "C" int vr_temporal_blend_geometry(int k, int* out) {
 
 // cudaFuncGetAttributes of the weight mode at one channel and the alpha
 // mode at four (the shadow and the accumulation blends), narrow, then the
-// same two wide: registers per thread, static shared bytes per block, local
-// bytes per thread and largest block into out[4 i .. 4 i + 3]; returns the
-// error.
-template <int NC, bool WEIGHT, class I = int>
+// same two wide, then the same two region_global: registers per thread,
+// static shared bytes per block, local bytes per thread and largest block
+// into out[4 i .. 4 i + 3]; returns the error.
+template <int NC, bool WEIGHT, class I = int, bool RG = false>
 static cudaError_t attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, (const void*)temporal_blend_kernel<NC, WEIGHT, I>);
+      &a, (const void*)temporal_blend_kernel<NC, WEIGHT, I, RG>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -328,10 +424,12 @@ static cudaError_t attrs_of(int* out) {
 }
 
 extern "C" int vr_temporal_blend_attrs(int* out) {
-  const cudaError_t errs[4] = {attrs_of<1, true>(out),
+  const cudaError_t errs[6] = {attrs_of<1, true>(out),
                                attrs_of<4, false>(out + 4),
                                attrs_of<1, true, int64_t>(out + 8),
-                               attrs_of<4, false, int64_t>(out + 12)};
+                               attrs_of<4, false, int64_t>(out + 12),
+                               attrs_of<1, true, int64_t, true>(out + 16),
+                               attrs_of<4, false, int64_t, true>(out + 20)};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
   return 0;

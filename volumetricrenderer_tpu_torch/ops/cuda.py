@@ -144,6 +144,10 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                            [tp, vp, vp, vp, vp, ci, ci],
                            "vr_shadow_scatter_global":
                            [tp, vp, vp, vp, vp, ci, vp, ci],
+                           "vr_shadow_scatter_region":
+                           [tp, vp, vp, vp, vp, ci, vp, vp],
+                           "vr_shadow_scatter_region_form_of": [ci, vp],
+                           "vr_shadow_scatter_region_forms": [vp],
                            "vr_shadow_scatter_sun_form_of": [ci] * 3 + [vp],
                            "vr_shadow_scatter_form_of": [tp, ci, vp],
                            "vr_shadow_scatter_index_forms": [vp],
@@ -151,6 +155,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                            "vr_shadow_scatter_general_shared": [ci, ci, vp],
                            "vr_shadow_scatter_forms": [vp]},
         "integrate_blend": {"vr_integrate_blend_form": [tp, vp, vp, vp, ci],
+                            "vr_integrate_blend_region": [tp] + [vp] * 4,
+                            "vr_integrate_blend_region_form_of": [ci, vp],
+                            "vr_integrate_blend_region_forms": [vp],
                             "vr_integrate_blend_form_of": [tp, vp],
                             "vr_integrate_blend_index_forms": [vp]},
         "composite": {
@@ -164,6 +171,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
             "vr_composite_grad_occupancy": [ci] * 3 + [vp]},
         "shadow_blend": {"vr_shadow_blend_form": [tp, vp, vp, ci],
                          "vr_shadow_blend_global": [tp, vp, vp, vp, ci],
+                         "vr_shadow_blend_region": [tp] + [vp] * 4,
+                         "vr_shadow_blend_region_form_of": [ci, vp],
+                         "vr_shadow_blend_region_forms": [vp],
                          "vr_shadow_blend_sun_form_of": [ci, ci, vp],
                          "vr_shadow_blend_form_of": [tp, vp],
                          "vr_shadow_blend_index_forms": [vp],
@@ -192,6 +202,9 @@ def _declare(cdll: ctypes.CDLL, name: str) -> None:
                             "vr_bake_visibility_index_forms": [vp],
                             "vr_bake_visibility_geometry": [ci] * 4 + [vp]},
         "temporal_blend": {"vr_temporal_blend_form": [vp] * 4 + [ci] * 8,
+                           "vr_temporal_blend_region": [vp] * 5 + [ci] * 8,
+                           "vr_temporal_blend_region_form_of": [ci, vp],
+                           "vr_temporal_blend_region_forms": [vp],
                            "vr_temporal_blend_form_of": [ci] * 4 + [vp],
                            "vr_temporal_blend_index_forms": [vp],
                            "vr_temporal_blend_geometry": [ci, vp]},
@@ -320,20 +333,21 @@ def past_int32(what: str, *factors: int) -> Optional[str]:
     return f"{what}: {n} past 2^31 - 1" if n > INT32_MAX else None
 
 
-def split_form(kernel: str, form, forms: tuple) -> tuple:
+def split_form(kernel: str, form, *groups: tuple) -> tuple:
     """`form` of a wrapper that takes an index form of INDEX_FORMS and a
-    form of `forms` (SUN_FORMS, or K1's "chunked"): None, one name, or a
-    pair of one of each. Returns (index form or None, other form or None);
-    raises ValueError, naming the kernel, for any other name."""
+    form of each of `groups` (SUN_FORMS, K1's "chunked", REGION_FORMS):
+    None, one name, or a tuple of at most one of each group. Returns (index
+    form or None, then each group's form or None); raises ValueError,
+    naming the kernel, for any other name."""
     names = () if form is None else (form,) if isinstance(form, str) \
         else tuple(form)
-    index = [f for f in names if f in INDEX_FORMS]
-    other = [f for f in names if f in forms]
-    if len(index) > 1 or len(other) > 1 or len(index) + len(other) \
-            != len(names):
+    picked = [[f for f in names if f in g] for g in (INDEX_FORMS, *groups)]
+    if any(len(p) > 1 for p in picked) \
+            or sum(len(p) for p in picked) != len(names):
         raise ValueError(f"{kernel}: form {form!r} is not one of "
-                         f"{INDEX_FORMS} and one of {forms}")
-    return (index or [None])[0], (other or [None])[0]
+                         + " and one of ".join(
+                             str(g) for g in (INDEX_FORMS, *groups)))
+    return tuple((p or [None])[0] for p in picked)
 
 
 def form_launches(name: str) -> tuple:
@@ -355,16 +369,41 @@ def index_form_launches(name: str) -> tuple:
     return tuple(buf)
 
 
+# The sources whose launchers keep their reprojection offsets in shared
+# memory up to a window and in device memory past it (K2, K5, K10 from
+# k = 52, K3 from k = 159; csrc/common.cuh VR_REGION_*): the wrappers
+# mirror the choice (ops/temporal.region_form, ops/frame_fused.
+# k3_window_form) and take a name of REGION_FORMS in `form=` to force one.
+# Each library counts its launches of either and of the region_global
+# form's pre-pass (`vr_<name>_region_forms`, REGION_COUNTS' order).
+REGION_FORMS = ("region_shared", "region_global")
+REGION_COUNTS = REGION_FORMS + ("region_pass",)
+REGION_SOURCES = ("shadow_scatter", "shadow_blend", "temporal_blend",
+                  "integrate_blend")
+
+
+def region_launches(name: str) -> tuple:
+    """The launches of a REGION_SOURCES source's region forms and of the
+    region_global form's pre-pass since its library was loaded."""
+    buf = (ctypes.c_int * len(REGION_COUNTS))()
+    getattr(lib(name), f"vr_{name}_region_forms")(
+        ctypes.cast(buf, ctypes.c_void_p))
+    return tuple(buf)
+
+
 def form_counts(name: str) -> dict:
     """form_launches of a SIZE_FORMS source by its forms' names, or
-    index_form_launches of an INDEX_SOURCES source by INDEX_FORMS, and of a
-    FORM_SOURCES source by FORM_NAMES (both, for a source of both)."""
+    index_form_launches of an INDEX_SOURCES source by INDEX_FORMS, of a
+    FORM_SOURCES source by FORM_NAMES and of a REGION_SOURCES source by
+    REGION_COUNTS (all that apply to the source)."""
     if name in SIZE_FORMS:
         return dict(zip(SIZE_FORMS[name], form_launches(name)))
     out = dict(zip(FORM_NAMES[name], form_launches(name))) \
         if name in FORM_NAMES else {}
     if name in INDEX_SOURCES:
         out.update(zip(INDEX_FORMS, index_form_launches(name)))
+    if name in REGION_SOURCES:
+        out.update(zip(REGION_COUNTS, region_launches(name)))
     return out
 
 
@@ -386,6 +425,8 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                     for arms in ("false", "true")) + tuple(
                     f"shadow_blend_kernel<{arms}, GEN{wide}, GLOBAL>"
                     for wide in ("", ", WIDE")
+                    for arms in ("false", "true")) + tuple(
+                    f"shadow_blend_kernel<{arms}, GEN, WIDE, GLOBAL, REGION>"
                     for arms in ("false", "true")),
                 "shadow_scatter": tuple(
                     f"shadow_scatter_kernel<{local}, {arms}{gen}{wide}>"
@@ -397,13 +438,18 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                     "GLOBAL>"
                     for wide in ("", ", WIDE")
                     for local in ("RADIANCE", "RAY", "BAKED")
+                    for arms in ("false", "true")) + tuple(
+                    f"shadow_scatter_kernel<{local}, {arms}, GEN, WIDE, "
+                    "GLOBAL, REGION>"
+                    for local in ("RADIANCE", "RAY", "BAKED")
                     for arms in ("false", "true")),
                 "scatter": tuple(f"scatter_kernel<{mode}{gen}{wide}>"
                                  for wide in ("", ", WIDE")
                                  for gen in ("", ", GEN")
                                  for mode in _K6_MODES),
                 "integrate_blend": ("integrate_blend_kernel",
-                                    "integrate_blend_kernel<WIDE>"),
+                                    "integrate_blend_kernel<WIDE>",
+                                    "integrate_blend_kernel<WIDE, REGION>"),
                 "dir_shadow": tuple(
                     f"dir_shadow_kernel<{arms}{gen}{wide}>"
                     for wide in ("", ", WIDE") for gen in ("", ", GEN")
@@ -415,7 +461,11 @@ ATTR_KERNELS = {"bake_radiance": tuple(
                 "temporal_blend": ("temporal_blend_kernel<1, true>",
                                    "temporal_blend_kernel<4, false>",
                                    "temporal_blend_kernel<1, true, WIDE>",
-                                   "temporal_blend_kernel<4, false, WIDE>"),
+                                   "temporal_blend_kernel<4, false, WIDE>",
+                                   "temporal_blend_kernel<1, true, WIDE, "
+                                   "REGION>",
+                                   "temporal_blend_kernel<4, false, WIDE, "
+                                   "REGION>"),
                 "windowed_warp": ("windowed_warp_kernel<4>",
                                   "windowed_warp_kernel<4, WIDE>"),
                 "bake_visibility": ("bake_visibility_kernel<false>",

@@ -25,7 +25,10 @@ wrapper refuses, by the kernel's name and before any launch, a table whose
 arrays the kernel cannot index (check_k1_indices, k2_form, k3_form,
 ops/visibility.k9_form); K2, K3 and K9 take a wide form (64-bit indices,
 the slices or rows launched in parts) past their narrow one, and `form=`
-forces either.
+forces either. Past a block's shared memory (K2 from a reprojection window
+of k = 52, K3 from k = 159) K2 and K3 read their reprojection offsets from
+device memory (the region_global form: ops/temporal.region_form,
+k3_window_form).
 """
 
 from __future__ import annotations
@@ -63,8 +66,8 @@ from volumetricrenderer_tpu_torch.ops.scatter import (LOCAL_BAKED,
 from volumetricrenderer_tpu_torch.ops.shadow_blend import (
     dir_shadow_blend_plain)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_shared, pack_blend_params,
-    region_shared_bytes, reproj_offsets, warp)
+    MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_shared, global_index,
+    pack_blend_params, region_form, region_shared_bytes, reproj_offsets, warp)
 from volumetricrenderer_tpu_torch.ops.visibility import (bake_radiance_plane,
                                                          bake_visibility,
                                                          bake_world_planes,
@@ -618,11 +621,13 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     low-rate radiance (+ fBm) volume `bake` of K1; or, with bake None, the
     tables' per-slice light schedule, each light shadowed by the low-rate
     visibility volume `vis` of K9 or, with vis None too, by one any-hit ray
-    per froxel. CUDA tensors launch the index form k2_form picks and the
-    sun form scatter.sun_form picks (the suns' inverse directions in device
-    memory past a block's shared memory: gen_global); `form`, one of
-    cuda.INDEX_FORMS or cuda.SUN_FORMS or a pair of one of each, forces
-    them."""
+    per froxel. CUDA tensors launch the index form k2_form picks, the
+    region form temporal.region_form picks (past k = 51 the reprojection
+    offsets in device memory, in the wide index form) and the sun form
+    scatter.sun_form picks (the suns' inverse directions in device memory
+    past a block's shared memory: gen_global); `form`, one of
+    cuda.INDEX_FORMS, cuda.SUN_FORMS or cuda.REGION_FORMS or a tuple of at
+    most one of each, forces them."""
     if t.n_dir == 0:
         raise ValueError("K2 blends the suns' shadow: a scene without a sun "
                          "takes the staged route")
@@ -630,9 +635,11 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     if prev_shadow.device.type == "cpu":
         return shadow_scatter_plain(t, prev_shadow, bake, vis)
     mode = local_mode(bake, vis)
-    index, suns = cuda.split_form("K2", form, cuda.SUN_FORMS)
-    index = k2_form(t, mode, index)
-    suns = sun_form("K2", t.n_dir, t.n_noise, t.k, suns)
+    index, suns, region = cuda.split_form("K2", form, cuda.SUN_FORMS,
+                                          cuda.REGION_FORMS)
+    region = region_form("K2", t.k, region)
+    index = k2_form(t, mode, global_index("K2", region, index))
+    suns = sun_form("K2", t.n_dir, t.n_noise, t.k, suns, region)
     low = bake if bake is not None else vis
     cuda.check_cuda(prev_shadow, *(() if low is None else (low,)))
     w, h, d = t.grid_whd
@@ -643,9 +650,15 @@ def shadow_scatter(t: FrameTables, prev_shadow: torch.Tensor,
     args = (cuda.ctypes.byref(st), cuda.ptr(prev_shadow),
             cuda.ptr(low) if low is not None else None, cuda.ptr(out_sh),
             cuda.ptr(out_sc), mode)
-    if suns == "gen_global":
+    if suns == "gen_global":  # region_global's too
         inv = torch.empty((t.n_dir, 3), dtype=torch.float32,
                           device=prev_shadow.device)
+    if region == "region_global":
+        plane = torch.empty((4, d, h, w), dtype=torch.float32,
+                            device=prev_shadow.device)
+        cuda.launch("shadow_scatter", *args, cuda.ptr(inv), cuda.ptr(plane),
+                    entry="vr_shadow_scatter_region")
+    elif suns == "gen_global":
         cuda.launch("shadow_scatter", *args, cuda.ptr(inv),
                     cuda.INDEX_FORMS.index(index),
                     entry="vr_shadow_scatter_global")
@@ -709,38 +722,57 @@ def k3_shared_bytes(k: int) -> int:
     return 4 * K3_ZC * (4 * (K3_TX + 2 * k + 1) + 2 * k + 2)
 
 
-def check_k3_window(k: int) -> None:
-    """Refuse, naming K3, a reprojection window whose shared memory
-    (k3_shared_bytes beside K3_STATIC_SHARED) does not fit a block's: its
-    launcher's cudaFuncSetAttribute would fail. Raises ValueError."""
-    if k3_shared_bytes(k) + K3_STATIC_SHARED > MAX_SHARED_BYTES:
+def k3_window_form(k: int, form: Optional[str] = None) -> str:
+    """Mirror of csrc/integrate_blend.cu k3_region_form: the form of
+    cuda.REGION_FORMS that K3 takes at reprojection window k.
+    "region_shared" where a chunk's offsets (k3_shared_bytes) fit a block's
+    shared memory beside K3_STATIC_SHARED, up to k = 158; "region_global"
+    from k = 159: a pre-pass writes the offsets of every froxel to a [4, D,
+    H, W] plane in device memory and phase 3's warp reads them there.
+    form: a form to force ("region_global" takes any window). Raises
+    ValueError, naming K3, before any launch: for a form of another name
+    and a forced region_shared whose offsets do not fit (its launcher's
+    cudaFuncSetAttribute would fail)."""
+    if form is not None and form not in cuda.REGION_FORMS:
+        raise ValueError(f"K3: form {form!r} is none of {cuda.REGION_FORMS}")
+    fits = k3_shared_bytes(k) + K3_STATIC_SHARED <= MAX_SHARED_BYTES
+    if form == "region_shared" and not fits:
         raise ValueError(f"reprojection window {k}: K3's {k3_shared_bytes(k)}"
                          f" bytes of dynamic shared memory do not fit a "
                          f"block's shared memory beside its "
                          f"{K3_STATIC_SHARED} static bytes")
+    return form or ("region_shared" if fits else "region_global")
 
 
 def integrate_blend(t: FrameTables, scatter: torch.Tensor,
-                    prev_acc: torch.Tensor,
-                    form: Optional[str] = None) -> torch.Tensor:
+                    prev_acc: torch.Tensor, form=None) -> torch.Tensor:
     """K3: integrate the scatter planes and blend with the history. CUDA
-    tensors launch the index form k3_form picks (or `form`, forced).
-    Refuses, before any launch, a reprojection window whose shared memory
-    does not fit a block's (check_k3_window)."""
+    tensors launch the index form k3_form picks and the region form
+    k3_window_form picks (past k = 158 the offsets in device memory, in the
+    wide index form); `form`, one of cuda.INDEX_FORMS or cuda.REGION_FORMS
+    or a pair of one of each, forces them."""
     w, h, d = t.grid_whd
     for name, v in (("scatter", scatter), ("prev_acc", prev_acc)):
         if v.shape != (4, d, h, w):
             raise ValueError(f"{name} {tuple(v.shape)} != {(4, d, h, w)}")
     if scatter.device.type == "cpu":
         return integrate_blend_plain(t, scatter, prev_acc)
-    form = k3_form(t, form)
-    check_k3_window(t.k)
+    index, window = cuda.split_form("K3", form, cuda.REGION_FORMS)
+    window = k3_window_form(t.k, window)
+    index = k3_form(t, global_index("K3", window, index))
     cuda.check_cuda(scatter, prev_acc)
     out = torch.empty_like(prev_acc)
     st = t.c_struct()
+    if window == "region_global":
+        plane = torch.empty((4, d, h, w), dtype=torch.float32,
+                            device=prev_acc.device)
+        cuda.launch("integrate_blend", cuda.ctypes.byref(st),
+                    cuda.ptr(scatter), cuda.ptr(prev_acc), cuda.ptr(out),
+                    cuda.ptr(plane), entry="vr_integrate_blend_region")
+        return out
     cuda.launch("integrate_blend", cuda.ctypes.byref(st), cuda.ptr(scatter),
                 cuda.ptr(prev_acc), cuda.ptr(out),
-                cuda.INDEX_FORMS.index(form), entry="vr_integrate_blend_form")
+                cuda.INDEX_FORMS.index(index), entry="vr_integrate_blend_form")
     return out
 
 

@@ -286,7 +286,8 @@ SUN_TILE = (16, 16)
 
 
 def sun_form(kernel: str, n_dir: int, n_noise: int, k: int,
-             form: Optional[str] = None) -> str:
+             form: Optional[str] = None,
+             region: Optional[str] = None) -> str:
     """Mirror of csrc/common.cuh sun_form_of as K2 ("K2"), K5 ("K5") and K7
     ("K7") take it (their launchers' k2_sun_form, k5_sun_form,
     k7_sun_form): the form of cuda.SUN_FORMS that the kernel takes for
@@ -296,28 +297,37 @@ def sun_form(kernel: str, n_dir: int, n_noise: int, k: int,
     directions in shared memory after the region, where both fit a block's
     shared memory beside the tile's static terms; past that "gen_global",
     the inverses in a device buffer [n_dir, 3] that the launcher fills, the
-    region alone in shared memory. form: a form to force ("gen_global"
-    takes any count; "fixed" and "general" only the counts that take
-    them). Raises ValueError, naming the kernel, before any launch: for a
-    region that does not fit (ops/temporal.check_region) and a forced form
-    that cannot take the counts."""
+    region alone in shared memory. In the region_global form
+    (ops/temporal.region_form; K2 and K5 past k = 51, or `region`, forced)
+    the region is in device memory and the kernel is gen_global's: any
+    count takes "gen_global". form: a form to force ("gen_global" takes any
+    count; "fixed" and "general" only the counts that take them, in the
+    region_shared form). Raises ValueError, naming the kernel, before any
+    launch: for a forced form that cannot take the counts or the region
+    form, and a forced region_shared form whose region does not fit."""
     from volumetricrenderer_tpu_torch.ops.temporal import (
-        MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_region, check_shared,
+        MAX_SHARED_BYTES, TILE_STATIC_SHARED, check_shared, region_form,
         region_shared_bytes)
     if form is not None and form not in cuda.SUN_FORMS:
         raise ValueError(f"{kernel}: form {form!r} is none of "
                          f"{cuda.SUN_FORMS}")
-    region = 0 if kernel == "K7" else region_shared_bytes(SUN_TILE, k)
-    check_region(k, region, kernel)
+    if kernel != "K7" and region_form(kernel, k, region) == "region_global":
+        if form not in (None, "gen_global"):
+            raise ValueError(f"{kernel}'s {form} form cannot take its "
+                             "region_global form: that form reads the suns' "
+                             "inverse directions from device memory "
+                             "(gen_global)")
+        return "gen_global"
+    region_bytes = 0 if kernel == "K7" else region_shared_bytes(SUN_TILE, k)
     general = needs_general(n_dir, n_noise if kernel == "K2" else 0)
     fits = lambda nbytes: nbytes + TILE_STATIC_SHARED <= MAX_SHARED_BYTES
     rule = "gen_global" if general and not fits(
-        region + sun_inv_bytes(n_dir)) else \
+        region_bytes + sun_inv_bytes(n_dir)) else \
         "general" if general else "fixed"
     if form is None or form == rule or form == "gen_global":
         return rule if form is None else form
     if form == "general" and general:
-        check_shared(region + sun_inv_bytes(n_dir), kernel,
+        check_shared(region_bytes + sun_inv_bytes(n_dir), kernel,
                      f"{n_dir} suns")
     raise ValueError(f"{kernel}'s {form} form cannot take {n_dir} suns and "
                      f"{n_noise} fBm channels: the counts take its {rule} "

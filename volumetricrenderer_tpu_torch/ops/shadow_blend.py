@@ -20,7 +20,7 @@ from volumetricrenderer_tpu_torch.ops.scatter import (check_tile_indices,
                                                       sun_form,
                                                       sun_inv_bytes)
 from volumetricrenderer_tpu_torch.ops.temporal import (
-    region_shared_bytes, reproj_offsets, warp)
+    global_index, region_form, region_shared_bytes, reproj_offsets, warp)
 
 
 def _check_history(t, prev_shadow: torch.Tensor) -> None:
@@ -71,22 +71,34 @@ def dir_shadow_blend(t, prev_shadow: torch.Tensor,
                      form=None) -> torch.Tensor:
     """K5: raycast shadow + temporal blend, written to a new buffer (the
     warp reads neighbours of the history). CUDA tensors launch the index
-    form k5_form picks and the sun form ops/scatter.sun_form picks (the
-    suns' inverse directions in device memory past a block's shared
-    memory: gen_global); `form`, one of cuda.INDEX_FORMS or cuda.SUN_FORMS
-    or a pair of one of each, forces them."""
+    form k5_form picks, the region form ops/temporal.region_form picks
+    (past k = 51 the reprojection offsets in device memory, in the wide
+    index form) and the sun form ops/scatter.sun_form picks (the suns'
+    inverse directions in device memory past a block's shared memory:
+    gen_global); `form`, one of cuda.INDEX_FORMS, cuda.SUN_FORMS or
+    cuda.REGION_FORMS or a tuple of at most one of each, forces them."""
     if prev_shadow.device.type == "cpu":
         return dir_shadow_blend_plain(t, prev_shadow)
     _check_history(t, prev_shadow)
-    index, suns = cuda.split_form("K5", form, cuda.SUN_FORMS)
-    index = k5_form(t, index)
-    suns = sun_form("K5", t.n_dir, 0, t.k, suns)
+    index, suns, region = cuda.split_form("K5", form, cuda.SUN_FORMS,
+                                          cuda.REGION_FORMS)
+    region = region_form("K5", t.k, region)
+    index = k5_form(t, global_index("K5", region, index))
+    suns = sun_form("K5", t.n_dir, 0, t.k, suns, region)
     cuda.check_cuda(prev_shadow)
     out = torch.empty_like(prev_shadow)
     st = t.c_struct()
-    if suns == "gen_global":
+    if suns == "gen_global":  # region_global's too
         inv = torch.empty((t.n_dir, 3), dtype=torch.float32,
                           device=prev_shadow.device)
+    if region == "region_global":
+        w, h, d = t.grid_whd
+        plane = torch.empty((4, d, h, w), dtype=torch.float32,
+                            device=prev_shadow.device)
+        cuda.launch("shadow_blend", cuda.ctypes.byref(st),
+                    cuda.ptr(prev_shadow), cuda.ptr(out), cuda.ptr(inv),
+                    cuda.ptr(plane), entry="vr_shadow_blend_region")
+    elif suns == "gen_global":
         cuda.launch("shadow_blend", cuda.ctypes.byref(st),
                     cuda.ptr(prev_shadow), cuda.ptr(out), cuda.ptr(inv),
                     cuda.INDEX_FORMS.index(index),

@@ -153,10 +153,54 @@ def region_shared_bytes(tile: Tuple[int, int], k: int) -> int:
 
 def check_region(k: int, tile_shared: int, kernel: str) -> None:
     """Refuse a reprojection window whose region (tile_shared bytes) does
-    not fit a block's shared memory. Raises ValueError."""
+    not fit a block's shared memory: K11's, which has no other form, and a
+    forced region_shared form (region_form). Raises ValueError."""
     if tile_shared + TILE_STATIC_SHARED > MAX_SHARED_BYTES:
         raise ValueError(f"reprojection window {k}: {kernel}'s region does "
                          f"not fit a block's shared memory")
+
+
+# The slice tile of K2, K5 and K10 (ops/frame_fused.K2_TILE,
+# ops/shadow_blend.K5_TILE, K10_TILE): 16 columns x 16 rows of one slice
+REGION_TILE = (16, 16)
+
+
+def region_form(kernel: str, k: int, form: Optional[str] = None) -> str:
+    """Mirror of csrc/common.cuh region_form_of as K2 ("K2"), K5 ("K5")
+    and K10 ("K10") take it (their launchers' k2_region_form,
+    k5_region_form, k10_region_form): the form of cuda.REGION_FORMS that
+    the kernel takes at reprojection window k. "region_shared" where the
+    region of their REGION_TILE (region_shared_bytes) fits a block's shared
+    memory beside the tile's static terms, up to k = 51; "region_global"
+    from k = 52: a pre-pass writes the reprojection offsets of every froxel
+    to a [4, D, H, W] plane in device memory and the kernel's warp reads
+    them there. form: a form to force ("region_global" takes any window).
+    Raises ValueError, naming the kernel, before any launch: for a form of
+    another name and a forced region_shared whose region does not fit."""
+    if form is not None and form not in cuda.REGION_FORMS:
+        raise ValueError(f"{kernel}: form {form!r} is none of "
+                         f"{cuda.REGION_FORMS}")
+    nbytes = region_shared_bytes(REGION_TILE, k)
+    if form == "region_shared":
+        check_region(k, nbytes, kernel)
+    if form is not None:
+        return form
+    return "region_shared" if nbytes + TILE_STATIC_SHARED \
+        <= MAX_SHARED_BYTES else "region_global"
+
+
+def global_index(kernel: str, region: str, index: Optional[str]):
+    """The index form to ask a launch in region form `region` for: the
+    region_global forms are instantiated in the wide index form alone
+    (64-bit indices, the slices or rows in parts), so they take "wide" and
+    refuse a forced "narrow" by name, before any launch (ValueError);
+    region_shared keeps `index`."""
+    if region != "region_global":
+        return index
+    if index == "narrow":
+        raise ValueError(f"{kernel}'s region_global form has no narrow "
+                         "index form: it indexes in 64 bits")
+    return "wide"
 
 
 def check_shared(nbytes: int, kernel: str, what: str) -> None:
@@ -260,24 +304,42 @@ def temporal_blend_plain(bpar, prev: torch.Tensor, cur: torch.Tensor,
 
 def temporal_blend(bpar, prev: torch.Tensor, cur: torch.Tensor,
                    grid_whd: Tuple[int, int, int], h_glob: int, k: int,
-                   mode: str, form: Optional[str] = None) -> torch.Tensor:
+                   mode: str, form=None) -> torch.Tensor:
     """K10: reproject, warp and blend in one pass, written to a new buffer.
     bpar: a pack_blend_params table on the volumes' device (the frame
     tables' sbpar for the shadow blend, abpar for the accumulation
     blend). The weight mode takes any channel count, one launch per group
     of up to MAX_CHANNELS (channel_groups). CUDA tensors launch each group
-    in the index form k10_form picks for it (or `form`, forced)."""
+    in the index form k10_form picks for it and the region form
+    region_form picks (past k = 51 the offsets in device memory, one plane
+    for all groups, in the wide index form); `form`, one of
+    cuda.INDEX_FORMS or cuda.REGION_FORMS or a pair of one of each, forces
+    them."""
     if prev.device.type == "cpu":
         return temporal_blend_plain(bpar, prev, cur, grid_whd, h_glob, k,
                                     mode)
     _check_blend(bpar, prev, cur, grid_whd, mode)
+    index, region = cuda.split_form("K10", form, cuda.REGION_FORMS)
+    region = region_form("K10", k, region)
+    index = global_index("K10", region, index)
     groups = channel_groups(prev.shape[0], mode)
-    # each launch indexes its own group's channels
-    forms = [k10_form((nc, *prev.shape[1:]), form) for _, nc in groups]
-    check_region(k, k10_shared_bytes(k), "K10")
+    # each launch indexes its own group's channels (region_global: each
+    # group's wide form, checked here)
+    forms = [k10_form((nc, *prev.shape[1:]), index) for _, nc in groups]
     cuda.check_cuda(bpar, prev, cur)
     w, h, d = grid_whd
     out = torch.empty_like(cur)
+    if region == "region_global":
+        plane = torch.empty((4, d, h, w), dtype=torch.float32,
+                            device=prev.device)
+        for g, (c0, nc) in enumerate(groups):
+            cuda.launch("temporal_blend", cuda.ptr(bpar),
+                        cuda.ptr(prev[c0:c0 + nc]),
+                        cuda.ptr(cur[c0:c0 + nc]), cuda.ptr(out[c0:c0 + nc]),
+                        cuda.ptr(plane), int(g == 0), nc, w, h, d,
+                        int(h_glob), int(k), MODES.index(mode),
+                        entry="vr_temporal_blend_region")
+        return out
     for (c0, nc), f in zip(groups, forms):
         cuda.launch("temporal_blend", cuda.ptr(bpar),
                     cuda.ptr(prev[c0:c0 + nc]), cuda.ptr(cur[c0:c0 + nc]),
